@@ -1,0 +1,249 @@
+// Paged attention for Hopper (sm_90a): ragged GQA decode attention read
+// straight from the block-paged KV pool through each row's block table.
+//
+// Replaces the TPU kernel src/repro/kernels/paged_attention.py
+// (paged_attention, pallas_call at :219, body _kernel at :76) in its
+// exact mode, with the sliding-window mask.
+//
+// Bound on the H100: memory.  A decode query reads every K and V row of
+// its history once and does 4*hd flops per row, far below the card's
+// ~295 flops per byte, so the least time is the row's K/V bytes over
+// the 3.35 TB/s of HBM.
+//
+// Design, right and simple first:
+//   * one thread block per (batch row b, kv head h): the g = Hq/Hkv query
+//     heads of the group and the row's T query tokens share each staged
+//     K/V tile -- GQA-native, no K/V repeat, each K/V byte leaves HBM once
+//     per row;
+//   * the block walks kv positions [lo, hi] of its row in stages of STAGE
+//     positions (hi = the row's largest query position, lo = the window's
+//     start), looking each position's pool block up in the table, and
+//     stages the (STAGE, hd) K and V tiles in shared memory with 16-byte
+//     loads.  Padded table columns sit past hi and are never read;
+//   * each warp owns one of the row's T*g query rows and carries the online
+//     softmax (m, l, acc) in f32 registers, hd/32 accumulators per lane;
+//     masked positions score -inf, a stage with nothing valid leaves the
+//     carry untouched, and a query with no valid key writes 0 (l is
+//     clamped at 1e-30 as the TPU kernel does).
+// What it leaves on the table: a (row, head) block is one CTA, so short
+// batches fill few SMs, and stages are not double-buffered.  Splitting
+// long rows across CTAs (flash-decoding) and cp.async/TMA pipelining are
+// the next steps.
+#include <climits>
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr unsigned kFull = 0xffffffffu;
+
+__device__ __forceinline__ float to_float(float x) { return x; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+__device__ __forceinline__ void store_from_float(float* p, float x) { *p = x; }
+__device__ __forceinline__ void store_from_float(__nv_bfloat16* p, float x) {
+  *p = __float2bfloat16(x);
+}
+
+template <typename T, int N>
+struct alignas(sizeof(T) * N > 16 ? 16 : sizeof(T) * N) Vec {
+  T v[N];
+};
+
+// N consecutive elements -> f32 registers, one vector load.
+template <typename T, int N>
+__device__ __forceinline__ void load_floats(const T* p, float (&out)[N]) {
+  const Vec<T, N> x = *reinterpret_cast<const Vec<T, N>*>(p);
+#pragma unroll
+  for (int i = 0; i < N; ++i) out[i] = to_float(x.v[i]);
+}
+
+__device__ __forceinline__ float warp_sum(float x) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(kFull, x, o);
+  return x;
+}
+
+__device__ __forceinline__ float warp_max(float x) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(kFull, x, o));
+  return x;
+}
+
+// q (B, T, Hq, HD); pools (num_blocks, bs, Hkv, HD); btab (B, nb) i32;
+// pos (B, T) i32; out (B, T, Hq, HD).  window <= 0 means no window.
+// Lane l of a warp holds head-dim elements [l * EPL, (l + 1) * EPL);
+// below HD = 32 only the first HD lanes hold any.
+template <typename T, int HD, int STAGE>
+__global__ void __launch_bounds__(1024) paged_attention_kernel(
+    const T* __restrict__ q, const T* __restrict__ kpool,
+    const T* __restrict__ vpool, const int* __restrict__ btab,
+    const int* __restrict__ pos, T* __restrict__ out, int tq, int hq,
+    int hkv, int bs, int nb, int window, float scale) {
+  constexpr int EPL = HD >= 32 ? HD / 32 : 1;
+  constexpr int LANES = HD / EPL;      // lanes that hold elements
+  constexpr int VEC = 16 / sizeof(T);  // elements per 16-byte load
+  constexpr int CPR = HD / VEC;        // 16-byte chunks per kv row
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* ks = reinterpret_cast<T*>(smem);  // (STAGE, HD)
+  T* vs = ks + STAGE * HD;             // (STAGE, HD)
+
+  const int b = blockIdx.x, h = blockIdx.y;
+  const int g = hq / hkv;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const bool active = warp < tq * g;
+  const bool lane_on = lane < LANES;
+  const int* prow = pos + (size_t)b * tq;
+  const int* trow = btab + (size_t)b * nb;
+
+  // The row's kv extent: the largest query position caps it (clipped to
+  // the table), the smallest one minus the window opens it.
+  int hi = -1, lo_q = INT_MAX;
+  for (int t = 0; t < tq; ++t) {
+    hi = max(hi, prow[t]);
+    lo_q = min(lo_q, prow[t]);
+  }
+  hi = min(hi, nb * bs - 1);
+  const int lo = window > 0 ? max(0, lo_q - window + 1) : 0;
+
+  int my_pos = -1, t = 0, qh = 0;
+  float qv[EPL], acc[EPL];
+  float m = -INFINITY, l = 0.f;
+#pragma unroll
+  for (int e = 0; e < EPL; ++e) acc[e] = qv[e] = 0.f;
+  if (active) {
+    t = warp / g;
+    qh = h * g + warp % g;
+    my_pos = prow[t];
+    if (lane_on)
+      load_floats<T, EPL>(
+          q + (((size_t)b * tq + t) * hq + qh) * HD + lane * EPL, qv);
+  }
+
+  for (int p0 = lo; p0 <= hi; p0 += STAGE) {
+    __syncthreads();  // every warp is done with the previous stage
+    for (int i = threadIdx.x; i < STAGE * CPR; i += blockDim.x) {
+      const int j = i / CPR, c = (i % CPR) * VEC;
+      const int p = p0 + j;
+      uint4 k4 = make_uint4(0, 0, 0, 0), v4 = k4;
+      if (p <= hi) {
+        const int blk = trow[p / bs];
+        const size_t off = (((size_t)blk * bs + p % bs) * hkv + h) * HD + c;
+        k4 = *reinterpret_cast<const uint4*>(kpool + off);
+        v4 = *reinterpret_cast<const uint4*>(vpool + off);
+      }
+      // rows past hi are zero: p * v must stay finite where p == 0
+      *reinterpret_cast<uint4*>(ks + j * HD + c) = k4;
+      *reinterpret_cast<uint4*>(vs + j * HD + c) = v4;
+    }
+    __syncthreads();
+    if (!active) continue;
+    for (int j0 = 0; j0 < STAGE; j0 += 32) {
+      // lane jj keeps the score of position p0 + j0 + jj
+      float s_mine = -INFINITY;
+#pragma unroll 4
+      for (int jj = 0; jj < 32; ++jj) {
+        float kr[EPL] = {};
+        if (lane_on) load_floats<T, EPL>(ks + (j0 + jj) * HD + lane * EPL, kr);
+        float part = 0.f;
+#pragma unroll
+        for (int e = 0; e < EPL; ++e) part = fmaf(qv[e], kr[e], part);
+        part = warp_sum(part);
+        const int p = p0 + j0 + jj;
+        const bool valid =
+            p <= my_pos && (window <= 0 || p > my_pos - window);
+        if (lane == jj && valid) s_mine = part * scale;
+      }
+      const float smax = warp_max(s_mine);
+      if (smax == -INFINITY) continue;  // warp-uniform: no valid key here
+      const float m_new = fmaxf(m, smax);
+      const float alpha = (m == -INFINITY) ? 0.f : expf(m - m_new);
+      const float p_mine = (s_mine == -INFINITY) ? 0.f : expf(s_mine - m_new);
+      l = l * alpha + warp_sum(p_mine);
+#pragma unroll
+      for (int e = 0; e < EPL; ++e) acc[e] *= alpha;
+#pragma unroll 4
+      for (int jj = 0; jj < 32; ++jj) {
+        const float pj = __shfl_sync(kFull, p_mine, jj);
+        float vr[EPL] = {};
+        if (lane_on) load_floats<T, EPL>(vs + (j0 + jj) * HD + lane * EPL, vr);
+#pragma unroll
+        for (int e = 0; e < EPL; ++e) acc[e] = fmaf(pj, vr[e], acc[e]);
+      }
+      m = m_new;
+    }
+  }
+
+  if (active && lane_on) {
+    const float inv = 1.f / fmaxf(l, 1e-30f);
+    T* op = out + (((size_t)b * tq + t) * hq + qh) * HD + lane * EPL;
+#pragma unroll
+    for (int e = 0; e < EPL; ++e) store_from_float(op + e, acc[e] * inv);
+  }
+}
+
+template <typename T, int HD>
+cudaError_t launch(const void* q, const void* kpool, const void* vpool,
+                   const void* btab, const void* pos, void* out, int B,
+                   int tq, int hq, int hkv, int bs, int nb, int window,
+                   float scale, cudaStream_t stream) {
+  // 64 staged positions when both tiles fit in 32 KB, else 32
+  constexpr int STAGE = (2 * 64 * HD * (int)sizeof(T) <= 32768) ? 64 : 32;
+  const size_t smem = 2 * (size_t)STAGE * HD * sizeof(T);
+  auto kernel = paged_attention_kernel<T, HD, STAGE>;
+  if (smem > 48 * 1024) {
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+  }
+  const int nq = tq * (hq / hkv);
+  const dim3 grid(B, hkv);
+  const dim3 block(32 * (nq < 4 ? 4 : nq));
+  kernel<<<grid, block, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(kpool),
+      static_cast<const T*>(vpool), static_cast<const int*>(btab),
+      static_cast<const int*>(pos), static_cast<T*>(out), tq, hq, hkv, bs,
+      nb, window, scale);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// dtype: 0 = float32, 1 = bfloat16.  hd in {16, 32, 64, 128, 256};
+// T * Hq / Hkv <= 32 (one warp per query row).  Returns a cudaError_t.
+extern "C" int repro_paged_attention(const void* q, const void* kpool,
+                                     const void* vpool, const void* btab,
+                                     const void* pos, void* out, int B,
+                                     int tq, int hq, int hkv, int hd, int bs,
+                                     int nb, int window, int dtype,
+                                     float scale, void* stream) {
+  if (B <= 0 || tq <= 0 || hkv <= 0 || hq % hkv != 0 ||
+      tq * (hq / hkv) > 32 || bs <= 0 || nb <= 0)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define REPRO_PA_CASE(TYPE, HD)                                               \
+  return (int)launch<TYPE, HD>(q, kpool, vpool, btab, pos, out, B, tq, hq,   \
+                                hkv, bs, nb, window, scale, s)
+  if (dtype == 1) {
+    switch (hd) {
+      case 16: REPRO_PA_CASE(__nv_bfloat16, 16);
+      case 32: REPRO_PA_CASE(__nv_bfloat16, 32);
+      case 64: REPRO_PA_CASE(__nv_bfloat16, 64);
+      case 128: REPRO_PA_CASE(__nv_bfloat16, 128);
+      case 256: REPRO_PA_CASE(__nv_bfloat16, 256);
+    }
+  } else if (dtype == 0) {
+    switch (hd) {
+      case 16: REPRO_PA_CASE(float, 16);
+      case 32: REPRO_PA_CASE(float, 32);
+      case 64: REPRO_PA_CASE(float, 64);
+      case 128: REPRO_PA_CASE(float, 128);
+      case 256: REPRO_PA_CASE(float, 256);
+    }
+  }
+#undef REPRO_PA_CASE
+  return (int)cudaErrorInvalidValue;
+}

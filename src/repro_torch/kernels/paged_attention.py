@@ -1,0 +1,99 @@
+"""Wrapper of the CUDA paged-attention kernel (``csrc/paged_attention.cu``).
+
+Replaces the TPU kernel ``repro.kernels.paged_attention.paged_attention``
+(Pallas, ``pallas_call`` at paged_attention.py:219) in its exact mode.
+
+Bound on the H100: memory -- one read of each row's K/V history, 4*hd
+flops per K/V row, far under the card's ~295 flops per byte.  The design
+(one thread block per (row, kv head), GQA-native shared-memory K/V tiles,
+one warp per query row carrying the f32 online softmax) reads each K/V
+byte once per row and never repeats K/V across the query group; the
+source's header says what it leaves for later.
+
+``paged_attention.launches`` counts the calls that launched the kernel.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import math
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels import _build
+
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_HEAD_DIMS = (16, 32, 64, 128, 256)
+
+
+@functools.lru_cache(maxsize=None)
+def _fn():
+    fn = _build.load("paged_attention").repro_paged_attention
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 9 + [
+        ctypes.c_float, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
+                    v_pool: torch.Tensor, block_tables: torch.Tensor,
+                    positions: torch.Tensor, *,
+                    window: Optional[int] = None) -> torch.Tensor:
+    """q (B, Hq, hd) or (B, T, Hq, hd); pools (num_blocks, bs, Hkv, hd);
+    block_tables (B, nb) int32; positions (B,) or (B, T) int32, all
+    contiguous CUDA tensors, q and pools of one dtype (bf16 or f32).
+    Returns q's shape and dtype.  Anything else raises."""
+    multi = q.dim() == 4
+    if q.dim() not in (3, 4):
+        raise ValueError(f"q must be (B, Hq, hd) or (B, T, Hq, hd); got "
+                         f"{tuple(q.shape)}")
+    b, hq, hd = q.shape[0], q.shape[-2], q.shape[-1]
+    t = q.shape[1] if multi else 1
+    tensors = {"q": q, "k_pool": k_pool, "v_pool": v_pool,
+               "block_tables": block_tables, "positions": positions}
+    for name, x in tensors.items():
+        if x.device.type != "cuda" or x.device != q.device:
+            raise ValueError(f"{name} must be a CUDA tensor on {q.device}; "
+                             f"got {x.device}")
+        if not x.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if q.dtype not in _DTYPES or k_pool.dtype != q.dtype \
+            or v_pool.dtype != q.dtype:
+        raise ValueError(f"q/k_pool/v_pool dtypes {q.dtype}/{k_pool.dtype}/"
+                         f"{v_pool.dtype}: need one of bf16, f32 for all")
+    if k_pool.dim() != 4 or k_pool.shape != v_pool.shape:
+        raise ValueError(f"pools must be equal (num_blocks, bs, Hkv, hd); "
+                         f"got {tuple(k_pool.shape)}, {tuple(v_pool.shape)}")
+    _, bs, hkv, hd_pool = k_pool.shape
+    if hd_pool != hd or hd not in _HEAD_DIMS:
+        raise ValueError(f"head dim {hd} (pool {hd_pool}): need one of "
+                         f"{_HEAD_DIMS}")
+    if hq % hkv or t * (hq // hkv) > 32:
+        raise ValueError(f"Hq={hq}, Hkv={hkv}, T={t}: need Hkv | Hq and "
+                         "T * Hq / Hkv <= 32 (one warp per query row)")
+    if block_tables.dtype != torch.int32 or block_tables.dim() != 2 \
+            or block_tables.shape[0] != b:
+        raise ValueError(f"block_tables must be ({b}, nb) int32; got "
+                         f"{tuple(block_tables.shape)} {block_tables.dtype}")
+    want = (b, t) if multi else (b,)
+    if positions.dtype != torch.int32 or tuple(positions.shape) != want:
+        raise ValueError(f"positions must be {want} int32; got "
+                         f"{tuple(positions.shape)} {positions.dtype}")
+    if window is not None and window < 1:
+        raise ValueError(f"window={window}: must be >= 1 or None")
+    out = torch.empty_like(q)
+    err = _fn()(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+                block_tables.data_ptr(), positions.data_ptr(),
+                out.data_ptr(), b, t, hq, hkv, hd, bs,
+                block_tables.shape[1], 0 if window is None else int(window),
+                _DTYPES[q.dtype], 1.0 / math.sqrt(hd),
+                torch.cuda.current_stream(q.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"paged_attention kernel launch failed: CUDA "
+                           f"error {err}")
+    paged_attention.launches += 1
+    return out
+
+
+paged_attention.launches = 0

@@ -1,0 +1,81 @@
+"""Plain PyTorch versions of the port's kernels.
+
+Each mirrors its counterpart in ``repro.kernels.ref`` operation for
+operation, including where it rounds: the CPU tests hold these against
+the JAX package, and ``chip_smoke.py`` holds each CUDA kernel against
+them on the card.  ``ops`` routes CPU tensors here.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+
+def fused_argmax_head_with_value(h: torch.Tensor, w: torch.Tensor):
+    """(argmax_v(h @ w) int32, max_v(h @ w) f32); h (B, D), w (D, V).
+
+    Products of the operands are exact in f32 and summed in f32 — what
+    ``jnp.dot(..., preferred_element_type=f32)`` does.  ``torch.argmax``
+    returns the first maximal index, so the lowest index wins ties."""
+    logits = torch.matmul(h.float(), w.float())
+    return (torch.argmax(logits, dim=-1).to(torch.int32),
+            torch.amax(logits, dim=-1))
+
+
+def fused_argmax_head(h: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    return fused_argmax_head_with_value(h, w)[0]
+
+
+def _positions(positions, b: int, t: int, device) -> torch.Tensor:
+    """(B,) / (B, T) / scalar positions -> (B, T) int64."""
+    pos = torch.as_tensor(positions, dtype=torch.int64, device=device)
+    pos = pos.reshape((-1, t) if pos.ndim == 2 else (-1, 1))
+    return pos.expand(b, t)
+
+
+def paged_attention(q, k_pool, v_pool, block_tables, positions, *,
+                    window: Optional[int] = None):
+    """Ragged decode attention read through a block table (exact mode).
+
+    q (B, Hq, hd) or (B, T, Hq, hd); pools (num_blocks, bs, Hkv, hd);
+    block_tables (B, nb); positions (B,) or (B, T) — query t of row b
+    attends over kv positions <= positions[b, t] (and > positions - window
+    with a window).  Returns q's shape and dtype.
+
+    Same precision points as ``repro.kernels.ref.paged_attention``: the
+    scores are formed in q's dtype and scaled there, then masked at -1e30
+    in f32; the probabilities are cast back to q's dtype before the PV
+    product."""
+    multi = q.ndim == 4
+    if not multi:
+        q = q[:, None]
+    b, t, hq, hd = q.shape
+    hkv = k_pool.shape[2]
+    dt = q.dtype
+    pos = _positions(positions, b, t, q.device)
+    bt = block_tables.long()
+    k = k_pool[bt].to(dt).reshape(b, -1, hkv, hd)        # (B, nb*bs, ...)
+    v = v_pool[bt].to(dt).reshape(b, -1, hkv, hd)
+    kv_pos = torch.arange(k.shape[1], device=q.device)
+    mask = kv_pos[None, None, :] <= pos[:, :, None]      # (B, T, S)
+    if window is not None:
+        mask &= kv_pos[None, None, :] > pos[:, :, None] - window
+    scale = hd ** 0.5
+    g = hq // hkv
+    if g > 1:
+        qg = q.reshape(b, t, hkv, g, hd)
+        scores = torch.einsum("btkgh,bskh->bkgts", qg, k) / scale
+        scores = scores.float()
+        scores = torch.where(mask[:, None, None], scores, -1e30)
+        probs = torch.softmax(scores, dim=-1).to(dt)
+        out = torch.einsum("bkgts,bskh->btkgh", probs, v).reshape(
+            b, t, hq, hd)
+        return out if multi else out[:, 0]
+    scores = torch.einsum("bthd,bshd->bhts", q, k) / scale
+    scores = scores.float()
+    scores = torch.where(mask[:, None], scores, -1e30)
+    probs = torch.softmax(scores, dim=-1).to(dt)
+    out = torch.einsum("bhts,bshd->bthd", probs, v)
+    return out if multi else out[:, 0]
+

@@ -1,0 +1,150 @@
+"""Layers of the dense decoder, as plain functions over the param tree.
+
+Counterpart of ``repro.models.layers``: the same math in the same order
+and at the same precision points -- norms and RoPE in f32 cast back to
+the compute dtype, attention scores in the compute dtype then f32,
+masked at -1e30 -- so the port's hidden states track the JAX package's.
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels import ops
+
+
+def rms_norm(x: torch.Tensor, scale: torch.Tensor,
+             eps: float = 1e-6) -> torch.Tensor:
+    xf = x.float()
+    y = xf * torch.rsqrt(torch.mean(xf * xf, dim=-1, keepdim=True) + eps)
+    return (y * (1.0 + scale.float())).to(x.dtype)
+
+
+def rope_freqs(head_dim: int, theta: float, device) -> torch.Tensor:
+    exps = torch.arange(0, head_dim, 2, dtype=torch.float32,
+                        device=device) / head_dim
+    return 1.0 / (theta ** exps)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float) -> torch.Tensor:
+    """x (B, T, H, hd); positions (B, T) or (T,).  Split-halves rotation
+    in f32."""
+    hd = x.shape[-1]
+    freqs = rope_freqs(hd, theta, x.device)                 # (hd/2,)
+    ang = positions[..., None].float() * freqs              # (..., T, hd/2)
+    if ang.dim() == 2:
+        ang = ang[None]
+    cos, sin = torch.cos(ang)[:, :, None, :], torch.sin(ang)[:, :, None, :]
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+def activate(h_gate: torch.Tensor, h_up: Optional[torch.Tensor],
+             kind: str) -> torch.Tensor:
+    if kind == "silu_glu":
+        return F.silu(h_gate) * h_up
+    if kind == "gelu_glu":
+        # jax.nn.gelu defaults to the tanh approximation
+        return F.gelu(h_gate, approximate="tanh") * h_up
+    raise NotImplementedError(f"activation {kind!r}: the port has the GLU "
+                              "forms only")
+
+
+def mlp(p: dict, x: torch.Tensor, kind: str) -> torch.Tensor:
+    h = activate(x @ p["w_gate"], x @ p["w_up"], kind)
+    return h @ p["w_out"]
+
+
+def _split_heads(x: torch.Tensor, n_heads: int, head_dim: int):
+    return x.reshape(*x.shape[:-1], n_heads, head_dim)
+
+
+def attention(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
+              positions: torch.Tensor, cache: Optional[dict] = None,
+              cache_pos: Optional[torch.Tensor] = None,
+              block_tables: Optional[torch.Tensor] = None):
+    """Returns ``(out, extra)``.
+
+    ``cache is None``: the plain causal branch (prefill) -- masked
+    attention over the T positions of ``x``; ``extra`` is the (k, v)
+    the prefill builds its cache from.
+
+    ``cache`` (the shared ``(num_blocks, bs, Hkv, hd)`` pools) with
+    ``cache_pos`` ((B,) or (B, T)) and ``block_tables`` (B, nb): the
+    paged branch -- each new K/V row is written into its pool block in
+    place, then attention reads the pool through the table
+    (``ops.paged_attention``); ``extra`` is the pools themselves.
+    """
+    B, T, _ = x.shape
+    hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    q = _split_heads(x @ p["wq"], hq, hd)
+    k = _split_heads(x @ p["wk"], hkv, hd)
+    v = _split_heads(x @ p["wv"], hkv, hd)
+    if "q_norm" in p:                        # qk-norm before RoPE
+        q = rms_norm(q, p["q_norm"], cfg.norm_eps)
+        k = rms_norm(k, p["k_norm"], cfg.norm_eps)
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+
+    if cache is None:
+        q_pos = positions if positions.dim() == 1 else positions[0]
+        out = _causal(q, k, v, q_pos)
+        return out.reshape(B, T, hq * hd) @ p["wo"], (k, v)
+
+    if cache_pos is None or block_tables is None:
+        raise NotImplementedError(
+            "the port's decode attention is the paged branch only: pass "
+            "cache_pos and block_tables")
+    bs = cache["k"].shape[1]
+    # (B, T) per-query positions; a (B,) base covers a consecutive window
+    cpm = cache_pos if cache_pos.dim() == 2 else cache_pos[:, None]
+    if cache_pos.dim() == 1 and T > 1:
+        cpm = cpm + torch.arange(T, device=cache_pos.device)
+    cpm = cpm.expand(B, T).long()
+    blk = torch.gather(block_tables.long(), 1, cpm // bs)   # (B, T)
+    off = cpm % bs
+    # The new K/V rows go into the shared pools IN PLACE.  The JAX package
+    # scatters into a donated copy (``.at[].set``); PyTorch mutates the
+    # pool tensor the store owns.  Rows that repeat another row's (token,
+    # position) -- the engine's pow2 row padding and repeat-last query
+    # padding -- write identical values to the identical cell, so the
+    # duplicate indices are harmless.
+    cache["k"].index_put_((blk, off), k.to(cache["k"].dtype))
+    cache["v"].index_put_((blk, off), v.to(cache["v"].dtype))
+    bt = block_tables.to(torch.int32)
+    if T == 1:
+        o = ops.paged_attention(q[:, 0], cache["k"], cache["v"], bt,
+                                cpm[:, 0].to(torch.int32),
+                                attn_approx=cfg.attn_approx,
+                                window=cfg.attn_window)
+    else:
+        o = ops.paged_attention(q, cache["k"], cache["v"], bt,
+                                cpm.to(torch.int32),
+                                attn_approx=cfg.attn_approx,
+                                window=cfg.attn_window)
+    out = o.reshape(B, T, hq * hd).to(x.dtype)
+    return out @ p["wo"], cache
+
+
+def _causal(q, k, v, q_pos):
+    """Plain masked attention (the prefill branch): GQA by repeating K/V
+    to Hq heads, scores in the compute dtype then f32, masked at -1e30.
+    Plain matmul and softmax, as the JAX package leaves it to XLA."""
+    dt = q.dtype
+    hq, hkv, hd = q.shape[2], k.shape[2], q.shape[3]
+    g = hq // hkv
+    if g > 1:
+        k = torch.repeat_interleave(k, g, dim=2)
+        v = torch.repeat_interleave(v, g, dim=2)
+    scores = torch.einsum("bthd,bshd->bhts", q, k) / math.sqrt(hd)
+    scores = scores.float()
+    mask = q_pos[None, :] <= q_pos[:, None]           # kv_pos <= q_pos
+    scores = torch.where(mask[None, None], scores, -1e30)
+    probs = torch.softmax(scores, dim=-1).to(dt)
+    return torch.einsum("bhts,bshd->bthd", probs, v)

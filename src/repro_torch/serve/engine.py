@@ -1,0 +1,475 @@
+"""Serving engine: continuous batching over a paged KV cache, with the
+reduced softmax unit as the decode head.
+
+Counterpart of ``repro.serve.engine`` on its default path:
+
+  - fixed ``n_slots`` decode slots over a SHARED, BLOCK-PAGED KV pool
+    (``serve/paged_kv.py``); slots free their blocks on eos / length /
+    stop and are refilled from the queue;
+  - admission is ONE-SHOT and paged: a queued request gets its prompt's
+    block cover, one prefill writes the prompt's K/V straight into those
+    blocks and its head emits the first token.  Admission defers at the
+    queue head while the pool cannot cover the prompt plus one decode
+    block; a dry pool mid-decode preempts the youngest slot back to the
+    queue (it re-prefills later with its tokens so far);
+  - decode is RAGGED and FUSED: each engine iteration runs ONE decode
+    step over all active slots, every row at its own position, then one
+    head per distinct ``sampler.device_form()`` over its rows -- so
+    ``stats['decode_steps'] == stats['iterations']`` whenever a slot is
+    active.  Batch and block-table widths are padded to powers of two
+    (padding rows repeat row 0: the same K/V lands on the same cell);
+  - ``Greedy`` is the reduced softmax unit (the fused argmax comparator),
+    ``SoftmaxBaseline`` the full unit for A/B runs.
+
+The JAX engine's other modes are refused, not ignored: ``chunk_size``,
+``token_budget``, ``host_stride``, ``tp``/``mesh``, ``scheduler='cohort'``,
+``kv_layout='dense'``, ``drafter``, ``prefix_cache``, ``attn_approx``
+other than 'exact', and per-request ``spec_k``/``top_k``/``n_candidates``
+raise ``NotImplementedError`` (or ``ValueError`` for values that are
+wrong in both packages).
+"""
+from __future__ import annotations
+
+import dataclasses
+import time
+import warnings
+from collections import deque
+from typing import Callable, Dict, List, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import api, lm
+from repro_torch.serve import sampler as sampler_mod
+from repro_torch.serve.outputs import TokenChunk
+from repro_torch.serve.paged_kv import PagedKVStore, pow2 as _pow2
+from repro_torch.serve.params import SamplingParams
+from repro_torch.serve.sampler import Sampler
+from repro_torch.weights import cast_params
+
+
+def _to_host(out: torch.Tensor) -> np.ndarray:
+    """One device->host copy per head group."""
+    return out.cpu().numpy()
+
+
+@dataclasses.dataclass
+class Request:
+    rid: int
+    prompt: np.ndarray                 # (S,) int32
+    max_new_tokens: int = 16
+    top_k: int = 1                     # 1 = greedy (the pure comparator)
+    temperature: float = 1.0
+    # the typed sampling surface; None -> synthesized at submit from the
+    # legacy kwargs above.  When given, params IS the source of truth.
+    params: Optional[SamplingParams] = None
+    generated: list = dataclasses.field(default_factory=list)
+    done: bool = False
+    # why generation stopped: 'eos' | 'length' | 'stop' | 'max_len' |
+    # 'cancelled'
+    finish_reason: Optional[str] = None
+    # per-request numpy RNG, seeded (params.seed, or (engine seed, rid))
+    # at submit -- the greedy heads never draw from it.
+    rng: Optional[np.random.Generator] = None
+    sampler: Optional[Sampler] = None
+    # the prompt as submitted (preemption folds generated tokens into
+    # ``prompt`` for the re-prefill; this keeps the user's original).
+    orig_prompt: Optional[np.ndarray] = None
+    # wall-clock stamps (time.perf_counter seconds): submit / first
+    # prefill start / first token / final token.
+    t_submit: Optional[float] = None
+    t_admit: Optional[float] = None
+    t_first: Optional[float] = None
+    t_done: Optional[float] = None
+
+
+class ServeEngine:
+    def __init__(self, params: dict, cfg: ModelConfig, *, n_slots: int = 4,
+                 max_len: int = 256, eos_id: int = 1,
+                 head_mode: str = "reduced", kv_layout: str = "paged",
+                 block_size: int = 16, num_blocks: Optional[int] = None,
+                 scheduler: str = "fused", mesh=None, seed: int = 0,
+                 drafter=None, chunk_size: Optional[int] = None,
+                 token_budget: Optional[int] = None,
+                 host_stride: Optional[int] = None,
+                 prefix_cache: Optional[bool] = None,
+                 attn_approx: Optional[str] = None,
+                 attn_window: Optional[int] = None,
+                 tp: Optional[int] = None):
+        if scheduler not in ("fused", "cohort"):
+            raise ValueError(f"scheduler={scheduler!r}: expected 'fused' "
+                             "(one step per iteration) or 'cohort'")
+        if kv_layout not in ("paged", "dense"):
+            raise ValueError(f"kv_layout={kv_layout!r}: expected 'paged' "
+                             "or 'dense'")
+        refused = {
+            "chunk_size": chunk_size, "token_budget": token_budget,
+            "host_stride": host_stride, "mesh": mesh, "drafter": drafter,
+            "prefix_cache": prefix_cache,
+            "tp": None if tp in (None, 1) else tp,
+            "scheduler": None if scheduler == "fused" else scheduler,
+            "kv_layout": None if kv_layout == "paged" else kv_layout,
+        }
+        for name, value in refused.items():
+            if value is not None:
+                raise NotImplementedError(
+                    f"{name}={value!r}: the port serves the default path "
+                    "only so far (one-shot paged prefill, the fused ragged "
+                    "decode step, greedy heads, one device)")
+        if attn_approx is not None or attn_window is not None:
+            mode = attn_approx if attn_approx is not None else cfg.attn_approx
+            win = attn_window if attn_window is not None else cfg.attn_window
+            if win is not None and win < 1:
+                raise ValueError(f"attn_window={win}: must be >= 1 or None")
+            cfg = dataclasses.replace(cfg, attn_approx=mode,
+                                      attn_window=win)
+        if cfg.attn_approx != "exact":
+            raise NotImplementedError(
+                f"attn_approx={cfg.attn_approx!r}: the port has the exact "
+                "score function only so far")
+        # f32 master weights -> the compute dtype, ONCE (the JAX package
+        # casts inside every jitted step)
+        self.params = cast_params(params, cfg)
+        self.device = self.params["embed"].device
+        self.cfg = cfg
+        self.n_slots = n_slots
+        self.max_len = max_len
+        self.eos_id = eos_id
+        self.head_mode = head_mode
+        self.scheduler = scheduler
+        self.seed = seed
+        sampler_mod.resolve(head_mode, cfg=cfg)      # refuse bad heads now
+        self.queue: deque = deque()
+        self.slots: List[Optional[Request]] = [None] * n_slots
+        self.slot_pos = np.zeros(n_slots, np.int32)   # next write position
+        self.admit_order: List[int] = []              # admission recency
+        self.store = PagedKVStore(cfg, n_slots=n_slots, max_len=max_len,
+                                  device=self.device, block_size=block_size,
+                                  num_blocks=num_blocks)
+        # decode_steps counts decode calls, iterations engine loop turns
+        # (decode_steps == iterations whenever a slot is active);
+        # fused_rows counts real (non-padding) rows over those calls;
+        # prefills counts one-shot prompt prefills; host_syncs every
+        # dispatch with a device->host read (prefills + decode steps);
+        # emitted_tokens every token through _emit_token.  prefill_ms and
+        # decode_ms sum the host wall clock of the prefill calls and the
+        # decode steps, each up to its head output on the host (which
+        # waits for the device).
+        self.stats = {"prefills": 0, "decode_steps": 0, "iterations": 0,
+                      "fused_rows": 0, "completed": 0, "deferred": 0,
+                      "preemptions": 0, "cancelled": 0, "host_syncs": 0,
+                      "emitted_tokens": 0, "prefill_tokens": 0,
+                      "prefill_ms": 0.0, "decode_ms": 0.0}
+        self._ttft_ms: List[float] = []
+        self._consumers: List[Callable[[TokenChunk], None]] = []
+
+    # -- event consumers -----------------------------------------------------
+    def add_consumer(self, fn: Callable[[TokenChunk], None]) -> None:
+        self._consumers.append(fn)
+
+    def remove_consumer(self, fn: Callable[[TokenChunk], None]) -> None:
+        self._consumers.remove(fn)
+
+    @property
+    def has_work(self) -> bool:
+        return bool(self.queue) or any(s is not None for s in self.slots)
+
+    def snapshot(self) -> dict:
+        """The counters plus derived scheduler state (JSON-ready): queue
+        depth, active slots, and TTFT percentiles over every first token
+        emitted so far."""
+        s = dict(self.stats)
+        s["queue_depth"] = len(self.queue)
+        s["active_slots"] = sum(sl is not None for sl in self.slots)
+        s["attn_approx"] = self.cfg.attn_approx
+        s["attn_window"] = self.cfg.attn_window
+        s["tokens_per_dispatch"] = (
+            s["emitted_tokens"] / max(s["host_syncs"], 1))
+        s["peak_in_use"] = self.store.allocator.peak_in_use
+        if self._ttft_ms:
+            t = np.asarray(self._ttft_ms)
+            s["ttft_ms_p50"] = float(np.percentile(t, 50))
+            s["ttft_ms_p99"] = float(np.percentile(t, 99))
+        else:
+            s["ttft_ms_p50"] = s["ttft_ms_p99"] = None
+        return s
+
+    # -- queue management ----------------------------------------------------
+    def submit(self, req: Request):
+        if req.params is None:
+            req.params = SamplingParams(max_new_tokens=req.max_new_tokens,
+                                        temperature=req.temperature,
+                                        top_k=req.top_k)
+        else:
+            req.max_new_tokens = req.params.max_new_tokens
+            req.top_k = req.params.top_k
+            req.temperature = req.params.temperature
+        if req.params.spec_k > 0:
+            raise NotImplementedError(
+                f"spec_k={req.params.spec_k}: speculative decoding is not "
+                "ported yet")
+        if req.sampler is None:
+            req.sampler = sampler_mod.resolve(
+                req.params, cfg=self.cfg, default_head_mode=self.head_mode)
+        else:
+            req.sampler.validate(self.cfg)
+        if req.params.attn_approx is not None \
+                and req.params.attn_approx != self.cfg.attn_approx:
+            raise ValueError(
+                f"params.attn_approx={req.params.attn_approx!r} but this "
+                f"engine runs attn_approx={self.cfg.attn_approx!r}; "
+                "attention mode is engine-wide")
+        if len(req.prompt) < 1:
+            raise ValueError("empty prompt")
+        if len(req.prompt) > self.max_len - 1:
+            raise ValueError(
+                f"prompt of {len(req.prompt)} tokens exceeds max_len-1="
+                f"{self.max_len - 1}")
+        if len(req.prompt) + req.max_new_tokens > self.max_len:
+            warnings.warn(
+                f"request rid={req.rid}: prompt ({len(req.prompt)} tokens) "
+                f"+ max_new_tokens ({req.max_new_tokens}) exceeds "
+                f"max_len={self.max_len}; generation will stop early "
+                "with finish_reason='max_len'", stacklevel=2)
+        if req.rng is None:
+            req.rng = np.random.default_rng(
+                req.params.seed if req.params.seed is not None
+                else [self.seed, req.rid])
+        if req.orig_prompt is None:
+            req.orig_prompt = np.asarray(req.prompt, np.int32).copy()
+        req.t_submit = time.perf_counter()
+        self.queue.append(req)
+
+    def cancel(self, req: Request) -> bool:
+        """Abort an unfinished request: free its slot's blocks (or drop it
+        from the queue) and finish it with ``finish_reason='cancelled'``."""
+        if req.done:
+            return False
+        for i, s in enumerate(self.slots):
+            if s is req:
+                self._release_slot(i)
+                break
+        else:
+            try:
+                self.queue.remove(req)
+            except ValueError:
+                return False              # unknown request
+        req.finish_reason = "cancelled"
+        req.t_done = time.perf_counter()
+        req.done = True
+        self.stats["cancelled"] += 1
+        return True
+
+    def _free_slots(self):
+        return [i for i, s in enumerate(self.slots) if s is None]
+
+    def _admit(self):
+        """One-shot paged prefill of queued requests into free slots.
+
+        Admission defers while the pool cannot cover the queue HEAD's
+        prompt plus one decode block -- later requests never jump a
+        deferred head, so FIFO admission is starvation-free."""
+        for i in self._free_slots():
+            if not self.queue:
+                break
+            req = self.queue[0]
+            S = len(req.prompt)
+            if not self.store.can_admit(S):
+                self.stats["deferred"] += 1
+                break
+            self.queue.popleft()
+            t0 = time.perf_counter()
+            if req.t_admit is None:       # re-prefill keeps the first stamp
+                req.t_admit = t0
+            blocks = self.store.alloc_blocks(i, S)
+            tokens = torch.as_tensor(np.asarray(req.prompt, np.int64),
+                                     device=self.device)[None]
+            out = api.serve_prefill_paged(
+                self.params, self.cfg, tokens, self.store.prefill_len(S),
+                req.sampler.device_form(), pools=self.store.pools,
+                blocks=torch.as_tensor(blocks, dtype=torch.int64,
+                                       device=self.device))
+            out = _to_host(out)
+            self.stats["prefill_ms"] += (time.perf_counter() - t0) * 1e3
+            self.stats["prefills"] += 1
+            self.stats["prefill_tokens"] += S
+            self.stats["host_syncs"] += 1
+            self.slots[i] = req
+            self.slot_pos[i] = S
+            self.admit_order.append(i)
+            self._emit(i, req, out, 0)
+
+    def _preempt_youngest(self, keep: int) -> bool:
+        """Pool exhausted mid-decode: push the most recently admitted slot
+        (except ``keep``) back to the queue, freeing its blocks.  The
+        request re-prefills later with its tokens so far as the prompt."""
+        for i in reversed(self.admit_order):
+            if i == keep or self.slots[i] is None:
+                continue
+            req = self.slots[i]
+            # fold from ORIG_PROMPT: after a second preemption req.prompt
+            # already holds the first fold's tokens
+            req.prompt = np.concatenate(
+                [np.asarray(req.orig_prompt, np.int32),
+                 np.asarray(req.generated, np.int32)])
+            self._release_slot(i)
+            self.queue.appendleft(req)
+            self.stats["preemptions"] += 1
+            return True
+        return False
+
+    # -- main loop ------------------------------------------------------------
+    def step(self):
+        """One engine iteration: admit, then ONE fused ragged decode step
+        over every active slot."""
+        self.stats["iterations"] += 1
+        self._admit()
+        active = [i for i, s in enumerate(self.slots) if s is not None]
+        if not active:
+            if self.queue and not self.store.can_admit(
+                    len(self.queue[0].prompt)):
+                # nothing is running, so every block is free -- if the head
+                # request still doesn't fit it never will: fail loudly.
+                req = self.queue[0]
+                raise MemoryError(
+                    f"request rid={req.rid} ({len(req.prompt)}-token "
+                    f"prompt) can never be admitted: pool of "
+                    f"{self.store.allocator.num_blocks} x "
+                    f"{self.store.block_size}-token blocks is too small")
+            return bool(self.queue)
+        # capacity pass at each slot's OWN position; a later slot's ensure
+        # may have PREEMPTED an earlier accepted one: re-validate after.
+        active = [i for i in active
+                  if self._ensure_blocks(i, int(self.slot_pos[i]))]
+        active = [i for i in active if self.slots[i] is not None]
+        if not active:
+            return True
+        self._decode_rows(active)
+        return True
+
+    def _decode_rows(self, rows: List[int]):
+        """One fused decode step over the given slot rows at T = 1 --
+        ragged positions, one head per sampler group.
+
+        Rows are padded to a power of two by repeating row 0 (identical
+        compute; the duplicate K/V write lands the same value on the same
+        cell) and block-table columns to a power of two with each row's
+        own first block (past its position, so the mask discards them).
+        Each group's row-index vector is padded the same way."""
+        t0 = time.perf_counter()
+        n_real = len(rows)
+        padded = rows + [rows[0]] * (_pow2(n_real) - n_real)
+        groups: Dict[Sampler, list] = {}
+        where = []                        # row r -> (its group, offset)
+        for r, i in enumerate(padded):
+            dev = self.slots[i].sampler.device_form()
+            lst = groups.setdefault(dev, [])
+            where.append((dev, len(lst)))
+            lst.append(r)
+        order = sampler_mod.canonical_order(groups)
+        toks = np.asarray([[self.slots[i].generated[-1]] for i in padded],
+                          np.int64)
+        pos = np.asarray([int(self.slot_pos[i]) for i in padded], np.int32)
+        btab = self.store.block_table(padded, pos)
+        dev_of = self.device
+        # the trunk runs ONCE over all rows; the pools are written in place
+        h, _ = lm.decode_step(self.params, self.cfg,
+                              torch.as_tensor(toks, device=dev_of),
+                              self.store.cache(),
+                              torch.as_tensor(pos, device=dev_of),
+                              block_tables=torch.as_tensor(btab,
+                                                           device=dev_of))
+        outs = []
+        for s in order:
+            r = groups[s] + [groups[s][0]] * (_pow2(len(groups[s]))
+                                              - len(groups[s]))
+            outs.append(s.head(self.params, self.cfg,
+                               h[torch.as_tensor(r, device=dev_of)]))
+        self.stats["decode_steps"] += 1
+        self.stats["host_syncs"] += 1
+        self.stats["fused_rows"] += n_real
+        # one device->host copy per head group, not per slot
+        host = {s: _to_host(o) for s, o in zip(order, outs)}
+        self.stats["decode_ms"] += (time.perf_counter() - t0) * 1e3
+        for r in range(n_real):
+            i = padded[r]
+            dev, off = where[r]
+            self.slot_pos[i] += 1
+            self._emit(i, self.slots[i], host[dev], off)
+
+    def _ensure_blocks(self, i: int, pos: int) -> bool:
+        """Grow slot i's block table to cover ``pos``; preempt the
+        youngest other slot if the pool is dry."""
+        if self.slots[i] is None:      # preempted earlier this iteration
+            return False
+        while not self.store.ensure_capacity(i, pos):
+            if not self._preempt_youngest(keep=i):
+                raise MemoryError(
+                    "paged KV pool too small for a single sequence: "
+                    f"pos={pos} block_size={self.store.block_size} "
+                    f"num_blocks={self.store.allocator.num_blocks}")
+        return self.slots[i] is not None
+
+    def _release_slot(self, i: int):
+        self.store.release(i)
+        self.slots[i] = None
+        self.admit_order.remove(i)
+
+    def _emit(self, i: int, req: Request, host_out, off: int):
+        """One token emission off a sampler head output: pick on the host,
+        then the shared emission path."""
+        self._emit_token(i, req, int(req.sampler.pick(host_out, off,
+                                                      req.rng)))
+
+    def _emit_token(self, i: int, req: Request, tok: int):
+        """The shared per-token emission path: stop-sequence match,
+        completion check, then a TokenChunk to every consumer (with
+        finish_reason set when this token finished the request)."""
+        req.generated.append(tok)
+        self.stats["emitted_tokens"] += 1
+        if req.t_first is None:
+            req.t_first = time.perf_counter()
+            self._ttft_ms.append((req.t_first - req.t_submit) * 1e3)
+        for s in req.params.stop:
+            if len(req.generated) >= len(s) \
+                    and tuple(req.generated[-len(s):]) == s:
+                req.finish_reason = "stop"
+                break
+        self._check_done(i)
+        if self._consumers:
+            chunk = TokenChunk(rid=req.rid, token=int(tok),
+                               index=len(req.generated) - 1,
+                               finish_reason=req.finish_reason)
+            for fn in list(self._consumers):
+                fn(chunk)
+
+    def _check_done(self, i: int):
+        req = self.slots[i]
+        if req is None:
+            return
+        if req.finish_reason == "stop":
+            pass                      # a params.stop sequence matched
+        elif req.generated and req.generated[-1] == self.eos_id:
+            req.finish_reason = "eos"
+        elif len(req.generated) >= req.max_new_tokens:
+            req.finish_reason = "length"
+        elif self.slot_pos[i] >= self.max_len - 1:
+            # cache ceiling: the request is TRUNCATED short of its
+            # max_new_tokens (submit warned about this combination)
+            req.finish_reason = "max_len"
+        else:
+            return
+        # stamp BEFORE done=True: unsynchronized readers poll req.done
+        req.t_done = time.perf_counter()
+        req.done = True
+        self.stats["completed"] += 1
+        self._release_slot(i)     # blocks back to the free list
+
+    def run(self, max_iters: int = 1000):
+        it = 0
+        while (self.queue or any(s is not None for s in self.slots)) \
+                and it < max_iters:
+            self.step()
+            it += 1
+        return self.stats
