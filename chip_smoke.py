@@ -12,16 +12,30 @@ Phases, each of which fails the run (non-zero exit, no result line):
      path's shapes, with the stated tolerance, and times the kernel, the
      plain version and one PyTorch library call computing the same
      function (a yardstick only), beside the bound computed from the
-     bytes and flops of these inputs;
+     bytes and flops of these inputs: paged attention (T = 1, 4 and 32,
+     the last 64 query rows per KV head), the argmax head, the top-k head
+     (planted ties across vocabulary splits) and the speculative verify
+     head (ragged -1 padded drafts);
   4. drives the main path -- ``LLM.from_arch("qwen3-0.6b", smoke=False)``
      then ``LLM.generate``, greedy, at the model's full width with random
      seeded weights -- and checks that every decode layer went through
      the paged-attention kernel and every head through the argmax
      kernel;
+  4b. a mixed sampled workload on the same engine (greedy, top-k at
+     temperature 0.8, ``n_candidates``, Gumbel-max temperature): every
+     top-k head call went through the top-k kernel, candidate ids are
+     well formed, and the greedy rows keep the greedy-only tokens;
+  4c. speculation on the same engine (repetitive prompts, ``spec_k=4``,
+     plus one request at ``spec_k=20``): the tokens of ``spec_k=0``, and
+     every step with a draft row went through the verify kernel;
   5. Theorem 1 on the card: the softmax-baseline head gives the same
      token streams;
   6. the small-input reference: the smoke config's tokens on the card
      equal those of the plain versions on the CPU, from the same weights.
+
+Token streams that should be equal may part only at a near-tie of the
+two best f32 logits (gap within 1e-3 of the max): the batch composition
+changes the order of the bf16 sums in the trunk's matrix products.
 
 It prints one JSON object with the kernels' numbers on the line before
 the last, and ``{"ok": true, "device": {...}}`` as the last line.
@@ -48,6 +62,28 @@ BF16_FLOPS_PER_S = 989e12
 
 PA_TOL = 2e-2          # paged attention, bf16: atol = rtol
 HEAD_RTOL = 1e-3       # head value rtol; idx must match past this gap
+
+
+def kernel_modules():
+    """The kernels' wrappers by kernel name (each has a ``launches``
+    count)."""
+    from repro_torch.kernels import fused_argmax_head as fah
+    from repro_torch.kernels import fused_topk_head as ftk
+    from repro_torch.kernels import paged_attention as pa
+
+    return {"paged_attention": pa.paged_attention,
+            "fused_argmax_head": fah.fused_argmax_head_with_value,
+            "fused_topk_head": ftk.fused_topk_head,
+            "fused_verify_head": fah.fused_verify_head}
+
+
+def reset_launches():
+    for fn in kernel_modules().values():
+        fn.launches = 0
+
+
+def read_launches() -> dict:
+    return {name: fn.launches for name, fn in kernel_modules().items()}
 
 
 class SmokeFailure(Exception):
@@ -156,7 +192,7 @@ def check_paged_attention(torch, timer, rng):
     from repro_torch.kernels import ref
 
     rows = {}
-    for t in (1, 4):
+    for t in (1, 4, 32):          # T = 32 at g = 2: 64 query rows per head
         q, kp, vp, bt, pos = paged_case(torch, rng, t)
         out = pa.paged_attention(q, kp, vp, bt, pos)
         torch.cuda.synchronize()
@@ -260,6 +296,128 @@ def check_argmax_head(torch, timer):
     return rows
 
 
+def check_topk_head(torch, timer):
+    """The top-k head at qwen3-0.6b's width, B in {1, 4, 8} (4 is the
+    main path's top-k group), k in {1, 8, 64}, bf16, with planted ties:
+    each row's plain winners copied half the vocabulary away, so equal
+    values sit in far vocabulary splits.  Values at rtol 1e-3; indices
+    equal to the plain version's where a value stands apart from both
+    neighbours by more than that; among the kernel's equal values the
+    lower index first."""
+    from repro_torch.kernels import fused_topk_head as ftk
+    from repro_torch.kernels import ref
+
+    v, d = 151936, 1024
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    emb = (torch.randn((v, d), generator=gen, device="cuda")
+           / math.sqrt(d)).to(torch.bfloat16)
+    rows = {}
+    for b in (1, 4, 8):
+        h = torch.randn((b, d), generator=gen, device="cuda").to(
+            torch.bfloat16)
+        _, win = ref.fused_topk_head(h, emb.t(), 4)
+        for a in win.flatten().tolist():
+            emb[(a + v // 2) % v] = emb[a]
+        w = emb.t()
+        for k in (1, 8, 64):
+            vals, idxs = ftk.fused_topk_head(h, w, k)
+            torch.cuda.synchronize()
+            rvals, ridxs = ref.fused_topk_head(h, w, k)
+            full, _ = ref.fused_topk_head(h, w, k + 1)
+            inf = torch.full_like(full[:, :1], float("inf"))
+            to_next = full - torch.cat([full[:, 1:], -inf], dim=1)
+            to_prev = torch.cat([inf, to_next[:, :-1]], dim=1)
+            decided = (torch.minimum(to_next, to_prev)
+                       > HEAD_RTOL * full.abs())[:, :k]
+            idx_ok = bool(((idxs == ridxs) | ~decided).all())
+            tied = vals[:, 1:] == vals[:, :-1]
+            ties_ok = bool((~tied | (idxs[:, 1:] > idxs[:, :-1])).all())
+            desc_ok = bool((vals[:, 1:] <= vals[:, :-1]).all())
+            val_ok = torch.allclose(vals, rvals, rtol=HEAD_RTOL, atol=0.0)
+            err = (vals - rvals).abs().max().item()
+            n_ties = int(tied.sum())
+            print(f"fused_topk_head B={b} k={k}: idx "
+                  f"{'ok' if idx_ok else 'FAIL'} (equal where the value "
+                  f"stands apart by > {HEAD_RTOL}*|val|), {n_ties} equal "
+                  f"neighbours {'ok' if ties_ok else 'FAIL'} (lower index "
+                  f"first), descending {'ok' if desc_ok else 'FAIL'}, val "
+                  f"max_abs_err {err:.6g} (rtol {HEAD_RTOL}): "
+                  f"{'ok' if val_ok else 'FAIL'}", flush=True)
+            check(idx_ok and ties_ok and desc_ok and val_ok,
+                  f"top-k head B={b} k={k} disagrees with its plain version")
+            if k > 1:
+                check(n_ties > 0, f"no planted tie reached the top {k}")
+
+            ms = timer(lambda: ftk.fused_topk_head(h, w, k))
+            plain_ms = timer(lambda: ref.fused_topk_head(h, w, k))
+            lib_ms = timer(lambda: torch.topk(h @ w, k, dim=-1))
+            nbytes = v * d * 2 + b * d * 2 + b * k * 8
+            bound_ms, bound_by = bound(nbytes, 2.0 * b * d * v,
+                                       BF16_FLOPS_PER_S)
+            print(f"fused_topk_head B={b} k={k}: kernel {ms:.4f} ms, plain "
+                  f"{plain_ms:.4f} ms, topk(h @ W) {lib_ms:.4f} ms, bound "
+                  f"{bound_ms:.4f} ms ({bound_by})", flush=True)
+            rows[(b, k)] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                                bound_ms=bound_ms, bound_by=bound_by,
+                                library_ms=lib_ms)
+    return rows
+
+
+def check_verify_head(torch, timer):
+    """The verify head at qwen3-0.6b's width, B = 8 rows of T in {2, 8}
+    positions, bf16.  Integer-valued operands make every sum exact in
+    any order, so ids and accept must equal the plain version's exactly.
+    Drafts: a prefix of each row's ids of ragged width (-1 padded), some
+    with a wrong token inside the run."""
+    from repro_torch.kernels import fused_argmax_head as fah
+    from repro_torch.kernels import ref
+
+    v, d, b = 151936, 1024, 8
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    emb = torch.randint(-2, 3, (v, d), generator=gen, device="cuda").to(
+        torch.bfloat16)
+    w = emb.t()
+    rng = np.random.default_rng(3)
+    rows = {}
+    for t in (2, 8):
+        h = torch.randint(-1, 2, (b, t, d), generator=gen,
+                          device="cuda").to(torch.bfloat16)
+        ids0, _ = ref.verify_draft(h, w, torch.full(
+            (b, t - 1), -1, dtype=torch.int32, device="cuda"))
+        cand = np.full((b, t - 1), -1, np.int32)
+        for r in range(b):
+            width = r % t                          # ragged: 0 .. T-1
+            cand[r, :width] = ids0[r, :width].cpu().numpy()
+            if width and r % 3 == 0:               # a wrong draft
+                j = int(rng.integers(0, width))
+                cand[r, j] = (cand[r, j] + 1) % v
+        cand_t = torch.from_numpy(cand).to("cuda")
+        ids, acc = fah.fused_verify_head(h, w, cand_t)
+        torch.cuda.synchronize()
+        rids, racc = ref.verify_draft(h, w, cand_t)
+        ok = torch.equal(ids, rids) and torch.equal(acc, racc)
+        print(f"fused_verify_head B={b} T={t}: ids and accept "
+              f"{'equal' if ok else 'DIFFER'} (exact; accept "
+              f"{acc.tolist()})", flush=True)
+        check(ok, f"verify head T={t} disagrees with its plain version")
+
+        h2 = h.view(b * t, d)
+        ms = timer(lambda: fah.fused_verify_head(h, w, cand_t))
+        plain_ms = timer(lambda: ref.verify_draft(h, w, cand_t))
+        argmax_ms = timer(lambda: torch.argmax(h2 @ w, dim=-1))
+        nbytes = v * d * 2 + b * t * d * 2 + cand.size * 4 + b * t * 4 + b * 4
+        bound_ms, bound_by = bound(nbytes, 2.0 * b * t * d * v,
+                                   BF16_FLOPS_PER_S)
+        print(f"fused_verify_head B={b} T={t}: kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}); "
+              f"no one PyTorch call verifies (argmax(h @ W) over the "
+              f"{b * t} rows alone: {argmax_ms:.4f} ms)", flush=True)
+        rows[t] = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
+                       bound_ms=bound_ms, bound_by=bound_by,
+                       library_ms=None)
+    return rows
+
+
 # ---------------------------------------------------------------------------
 # Phases 4-6: the main path
 # ---------------------------------------------------------------------------
@@ -280,9 +438,78 @@ def top2_gap_at(torch, llm, prompt, generated, step):
     return (top2[0] - top2[1]).item(), top2[0].item()
 
 
+def stats_now(llm) -> dict:
+    """A copy of the engine's counters (``head_calls`` copied too)."""
+    return {k: dict(v) if isinstance(v, dict) else v
+            for k, v in llm.engine.stats.items()}
+
+
+def stats_delta(before: dict, after: dict) -> dict:
+    """The counters' growth between two ``stats_now`` copies."""
+    out = {}
+    for k, v in after.items():
+        if isinstance(v, dict):
+            out[k] = {n: c - before[k].get(n, 0) for n, c in v.items()}
+        elif k != "acceptance_rate":
+            out[k] = v - before[k]
+    if out.get("drafted"):
+        out["acceptance_rate"] = out["accepted"] / out["drafted"]
+    return out
+
+
+def drive(torch, llm, prompts, plist):
+    """One ``LLM.generate`` over ``prompts``: the launch counts are set
+    to 0 just before it and read just after.  Returns (outputs, every
+    streamed chunk's candidate ids by prompt, launches, stats delta,
+    wall seconds)."""
+    cands = {}
+
+    def collect(chunk):
+        cands.setdefault(chunk.rid, []).append(chunk.candidate_ids)
+
+    llm.engine.add_consumer(collect)
+    before = stats_now(llm)
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    try:
+        outs = llm.generate(prompts, plist)
+        torch.cuda.synchronize()
+    finally:
+        llm.engine.remove_consumer(collect)
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    st = stats_delta(before, stats_now(llm))
+    return outs, [cands[o.rid] for o in outs], launches, st, wall
+
+
+def compare_streams(torch, llm, prompts, want, got, what) -> int:
+    """``got`` must equal ``want`` stream by stream, or part from it only
+    at a near-tie of the two best f32 logits (gap <= HEAD_RTOL * |max|),
+    where the order of the trunk's bf16 sums can decide.  Returns the
+    number of identical streams."""
+    same = 0
+    for p, o, s in zip(prompts, want, got):
+        if o.token_ids == s.token_ids:
+            same += 1
+            continue
+        k = next((i for i, (x, y) in enumerate(zip(o.token_ids,
+                                                   s.token_ids)) if x != y),
+                 min(len(o.token_ids), len(s.token_ids)))
+        check(k < min(len(o.token_ids), len(s.token_ids)),
+              f"{what}: rid {s.rid} stopped at {len(s.token_ids)} tokens "
+              f"where the reference has {len(o.token_ids)}")
+        gap, top = top2_gap_at(torch, llm, p, o.token_ids, k)
+        print(f"{what}: rid {s.rid} diverges at step {k}: top-2 f32 logit "
+              f"gap {gap:.6g} (max {top:.6g})", flush=True)
+        check(gap <= HEAD_RTOL * abs(top),
+              f"{what}: streams diverge at a decided step (gap {gap} > "
+              f"{HEAD_RTOL}*|{top}|)")
+    print(f"{what}: {same}/{len(want)} streams identical", flush=True)
+    return same
+
+
 def run_main_path(torch, prompts, max_new):
-    from repro_torch.kernels import fused_argmax_head as fah
-    from repro_torch.kernels import paged_attention as pa
     from repro_torch.serve.api import LLM
     from repro_torch.serve.params import SamplingParams
 
@@ -301,16 +528,7 @@ def run_main_path(torch, prompts, max_new):
     llm.generate([prompts[0][:16]], SamplingParams(max_new_tokens=2))
     torch.cuda.synchronize()                  # warm-up (cuBLAS, allocator)
 
-    before = dict(llm.engine.stats)
-    pa.paged_attention.launches = 0
-    fah.fused_argmax_head_with_value.launches = 0
-    t0 = time.perf_counter()
-    outs = llm.generate(prompts, params)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = {"paged_attention": pa.paged_attention.launches,
-                "fused_argmax_head": fah.fused_argmax_head_with_value.launches}
-    st = {k: llm.engine.stats[k] - before[k] for k in before}
+    outs, _, launches, st, wall = drive(torch, llm, prompts, params)
     n_tok = sum(len(o.token_ids) for o in outs)
     print(f"main path: {len(prompts)} prompts of {min(map(len, prompts))}-"
           f"{max(map(len, prompts))} tokens, {n_tok} tokens generated in "
@@ -329,6 +547,8 @@ def run_main_path(torch, prompts, max_new):
           "paged attention launches != layers x decode steps")
     check(launches["fused_argmax_head"] == want_head,
           "head launches != decode steps + prefills")
+    check(launches["fused_topk_head"] == launches["fused_verify_head"] == 0,
+          "a greedy run launched a top-k or verify kernel")
     check(st["decode_steps"] > 0 and st["prefills"] >= len(prompts),
           "the main path ran no decode step or missed a prefill")
     for o in outs:
@@ -341,6 +561,146 @@ def run_main_path(torch, prompts, max_new):
                    decode_steps=st["decode_steps"], prefills=st["prefills"],
                    decode_ms=st["decode_ms"] / st["decode_steps"])
     return llm, outs, launches, summary
+
+
+def run_sampled_path(torch, llm, prompts, greedy_outs, max_new):
+    """Phase 4b: the same 12 prompts as a mixed sampled workload -- 4
+    greedy, 4 top-k (k 8, temperature 0.8, seeded), 2 greedy with 4
+    candidate ids (the top-k bus at sample_k 1), 2 Gumbel-max
+    temperature -- through one engine, every kind sharing fused steps."""
+    from repro_torch.serve.params import SamplingParams
+
+    kinds = ["greedy", "topk", "greedy", "topk", "cands", "temp"] * 2
+    plist = [SamplingParams(max_new_tokens=max_new) if kind == "greedy" else
+             SamplingParams(max_new_tokens=max_new, top_k=8,
+                            temperature=0.8, seed=r) if kind == "topk" else
+             SamplingParams(max_new_tokens=max_new, n_candidates=4)
+             if kind == "cands" else
+             SamplingParams(max_new_tokens=max_new, head_mode="temperature",
+                            seed=r)
+             for r, kind in enumerate(kinds)]
+    outs, cands, launches, st, wall = drive(torch, llm, prompts, plist)
+    calls = st["head_calls"]
+    n_tok = sum(len(o.token_ids) for o in outs)
+    print(f"sampled path: {n_tok} tokens in {wall:.3f} s = "
+          f"{n_tok / wall:.2f} tok/s; {st['decode_steps']} decode steps, "
+          f"mean {st['decode_ms'] / st['decode_steps']:.3f} ms/step; head "
+          f"calls {calls}; launches {launches}", flush=True)
+    want_pa = llm.cfg.n_layers * st["decode_steps"]
+    check(launches["paged_attention"] == want_pa,
+          "sampled path: paged attention launches != layers x steps")
+    check(launches["fused_topk_head"] == calls.get("TopK", 0) > 0,
+          "sampled path: top-k launches != top-k head calls (decode steps "
+          "and prefills holding a top-k row)")
+    check(launches["fused_argmax_head"] == calls.get("Greedy", 0) > 0,
+          "sampled path: argmax launches != greedy head calls")
+    check(launches["fused_verify_head"] == 0,
+          "sampled path: a verify kernel ran without speculation")
+    for o, c, kind in zip(outs, cands, kinds):
+        check(1 <= len(o.token_ids) <= max_new
+              and all(0 <= x < llm.cfg.vocab_size for x in o.token_ids),
+              f"sampled path: bad output for rid {o.rid}: {o.token_ids}")
+        if kind == "cands":
+            check(all(x is not None and len(x) == 4 and x[0] == t
+                      and len(set(x)) == 4 for x, t in zip(c, o.token_ids)),
+                  f"sampled path: bad candidate ids for rid {o.rid}")
+        else:
+            check(all(x is None for x in c),
+                  f"sampled path: rid {o.rid} got candidate ids")
+    greedy = [r for r, kind in enumerate(kinds) if kind == "greedy"]
+    compare_streams(torch, llm, [prompts[r] for r in greedy],
+                    [greedy_outs[r] for r in greedy],
+                    [outs[r] for r in greedy],
+                    "sampled path, greedy rows vs the greedy-only run")
+    return launches, dict(tok_s=n_tok / wall, tokens=n_tok,
+                          decode_steps=st["decode_steps"],
+                          decode_ms=st["decode_ms"] / st["decode_steps"],
+                          head_calls=calls)
+
+
+class ReplayDrafter:
+    """Drafts the continuation of a known stream (prompt + its spec_k=0
+    tokens) wherever the history follows it, so every step drafts its
+    whole window; records the widest proposal."""
+
+    def __init__(self, stream):
+        self.stream, self.widest = list(stream), 0
+
+    def propose(self, history, k):
+        n = len(history)
+        out = (self.stream[n:n + k] if list(history) == self.stream[:n]
+               else [])
+        self.widest = max(self.widest, len(out))
+        return out
+
+
+def run_spec_path(torch, llm, lengths, max_new):
+    """Phase 4c: 12 repetitive prompts (a random 32-token phrase repeated
+    to each of the main path's lengths), greedy, at spec_k = 0 and then
+    spec_k = 4; then one request at spec_k = 20 whose drafter replays the
+    spec_k = 0 stream, so its 21-token windows make T = 32 and so 64
+    query rows per KV head in paged attention."""
+    from repro_torch.serve.params import SamplingParams
+
+    rng = np.random.default_rng(4)
+    prompts = [np.tile(rng.integers(0, llm.cfg.vocab_size, size=32),
+                       n // 32 + 1)[:n].astype(np.int32) for n in lengths]
+    base, _, _, bst, bwall = drive(
+        torch, llm, prompts, SamplingParams(max_new_tokens=max_new))
+    outs, _, launches, st, wall = drive(
+        torch, llm, prompts, SamplingParams(max_new_tokens=max_new,
+                                            spec_k=4))
+    calls = st["head_calls"]
+    n_base = sum(len(o.token_ids) for o in base)
+    n_tok = sum(len(o.token_ids) for o in outs)
+    print(f"spec path: spec_k=0 {n_base} tokens in {bwall:.3f} s = "
+          f"{n_base / bwall:.2f} tok/s, {bst['decode_steps']} decode steps "
+          f"at {bst['decode_ms'] / bst['decode_steps']:.3f} ms; spec_k=4 "
+          f"{n_tok} tokens in {wall:.3f} s = {n_tok / wall:.2f} tok/s, "
+          f"{st['decode_steps']} decode steps at "
+          f"{st['decode_ms'] / st['decode_steps']:.3f} ms, drafted "
+          f"{st['drafted']}, accepted {st['accepted']}, acceptance_rate "
+          f"{st.get('acceptance_rate', 0.0):.4f}; head calls {calls}; "
+          f"launches {launches}", flush=True)
+    check(st["drafted"] > 0, "spec path: nothing was drafted")
+    check(launches["fused_verify_head"] == calls.get("verify", 0) > 0,
+          "spec path: verify launches != decode steps with a draft row")
+    check(launches["fused_argmax_head"] == calls.get("Greedy", 0),
+          "spec path: argmax launches != greedy head calls")
+    check(launches["paged_attention"] == llm.cfg.n_layers
+          * st["decode_steps"], "spec path: paged attention launches != "
+          "layers x decode steps")
+    same = compare_streams(torch, llm, prompts, base, outs,
+                           "spec path, spec_k=4 vs spec_k=0")
+
+    drafter = llm.engine.drafter
+    llm.engine.drafter = ReplayDrafter(
+        [int(t) for t in prompts[0]] + list(base[0].token_ids))
+    try:
+        wide, _, wl, wst, _ = drive(
+            torch, llm, prompts[:1], SamplingParams(max_new_tokens=max_new,
+                                                    spec_k=20))
+        widest = llm.engine.drafter.widest
+    finally:
+        llm.engine.drafter = drafter
+    print(f"spec path: spec_k=20, widest draft {widest} (T = 32 from 16), "
+          f"drafted {wst['drafted']}, accepted {wst['accepted']}, verify "
+          f"launches {wl['fused_verify_head']}", flush=True)
+    check(widest >= 16, "spec path: the spec_k=20 request never drafted "
+          "16 tokens, so no step had T * g > 32")
+    check(wl["fused_verify_head"] == wst["head_calls"].get("verify", 0) > 0,
+          "spec path: spec_k=20 verify launches != its draft steps")
+    compare_streams(torch, llm, prompts[:1], base[:1], wide,
+                    "spec path, spec_k=20 vs spec_k=0")
+    return launches, dict(
+        tok_s=n_tok / wall, tok_s_spec0=n_base / bwall, tokens=n_tok,
+        decode_steps=st["decode_steps"],
+        decode_steps_spec0=bst["decode_steps"],
+        decode_ms=st["decode_ms"] / st["decode_steps"],
+        decode_ms_spec0=bst["decode_ms"] / bst["decode_steps"],
+        drafted=st["drafted"], accepted=st["accepted"],
+        acceptance_rate=st["accepted"] / st["drafted"],
+        identical_streams=same, widest_draft_spec20=widest)
 
 
 def profile_decode(torch, llm, prompts, steps=5):
@@ -406,22 +766,8 @@ def check_theorem1(torch, llm, prompts, outs, max_new):
           f"{n_tok / wall:.2f} tok/s; mean "
           f"{st['decode_ms'] / st['decode_steps']:.3f} ms/decode step "
           f"(first run of this engine, no warm-up)", flush=True)
-    same = 0
-    for p, o, s in zip(prompts, outs, souts):
-        if o.token_ids == s.token_ids:
-            same += 1
-            continue
-        k = next((i for i, (x, y) in enumerate(zip(o.token_ids,
-                                                   s.token_ids)) if x != y),
-                 min(len(o.token_ids), len(s.token_ids)))
-        gap, top = top2_gap_at(torch, llm, p, o.token_ids, k)
-        print(f"theorem 1: rid {o.rid} diverges at step {k}: top-2 f32 "
-              f"logit gap {gap:.6g} (max {top:.6g})", flush=True)
-        check(gap <= HEAD_RTOL * abs(top),
-              f"reduced and softmax streams diverge at a decided step "
-              f"(gap {gap} > {HEAD_RTOL}*|{top}|)")
-    print(f"theorem 1: {same}/{len(prompts)} streams identical between the "
-          f"reduced head and the softmax baseline", flush=True)
+    compare_streams(torch, llm, prompts, outs, souts,
+                    "theorem 1, the reduced head vs the softmax baseline")
     del base
 
 
@@ -516,6 +862,8 @@ def main() -> int:
         print(clocks_line(), flush=True)
         pa_rows = check_paged_attention(torch, timer, rng)
         head_rows = check_argmax_head(torch, timer)
+        topk_rows = check_topk_head(torch, timer)
+        verify_rows = check_verify_head(torch, timer)
         print(clocks_line(), flush=True)
         del timer
 
@@ -525,6 +873,10 @@ def main() -> int:
                    for n in prng.integers(64, 513, size=12)]
         llm, outs, launches, summary = run_main_path(torch, prompts,
                                                      max_new)
+        topk_launches, summary["sampled"] = run_sampled_path(
+            torch, llm, prompts, outs, max_new)
+        verify_launches, summary["spec"] = run_spec_path(
+            torch, llm, [len(p) for p in prompts], max_new)
         summary["profile"] = profile_decode(torch, llm, prompts)
         check_theorem1(torch, llm, prompts, outs, max_new)
         del llm
@@ -548,6 +900,20 @@ def main() -> int:
              max_abs_err=max(r["max_abs_err"] for r in head_rows.values()),
              **{k: head_rows[8][k] for k in ("ms", "plain_ms", "bound_ms",
                                              "bound_by", "library_ms")}),
+        dict(name="fused_topk_head", route="cuda",
+             source="src/repro_torch/kernels/csrc/fused_topk_head.cu",
+             replaces="src/repro/kernels/fused_topk_head.py:107",
+             launches=topk_launches["fused_topk_head"],
+             max_abs_err=max(r["max_abs_err"] for r in topk_rows.values()),
+             **{k: topk_rows[(4, 8)][k] for k in (
+                 "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}),
+        dict(name="fused_verify_head", route="cuda",
+             source="src/repro_torch/kernels/csrc/fused_argmax_head.cu",
+             replaces="src/repro/kernels/fused_topk_head.py:170",
+             launches=verify_launches["fused_verify_head"],
+             max_abs_err=max(r["max_abs_err"] for r in verify_rows.values()),
+             **{k: verify_rows[8][k] for k in (
+                 "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}),
     ]
     print("main path summary: " + json.dumps(summary), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

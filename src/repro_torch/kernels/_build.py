@@ -1,14 +1,15 @@
 """Build the port's CUDA kernels with ``nvcc`` and load them with ctypes.
 
-Each ``csrc/<name>.cu`` is a self-contained translation unit with a plain
-C interface (no PyTorch headers), compiled for Hopper into
+Each ``csrc/<name>.cu`` is a translation unit with a plain C interface (no
+PyTorch headers; it may include the ``csrc/*.cuh`` headers), compiled for
+Hopper into
 ``<checkout>/build/repro_torch/lib<name>-<hash>.so`` on first use:
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
          -Xcompiler -fPIC -o lib<name>-<hash>.so csrc/<name>.cu
 
-The hash is of the source and the flags, so an edited kernel rebuilds and
-an unchanged one loads the library already built.  ``build_all`` starts
+The hash is of the source, the headers and the flags, so an edited kernel
+rebuilds and an unchanged one loads the library already built.  ``build_all`` starts
 one ``nvcc`` per source at once and waits for all of them.
 """
 from __future__ import annotations
@@ -25,7 +26,7 @@ from typing import Dict, Sequence
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-KERNELS = ("paged_attention", "fused_argmax_head")
+KERNELS = ("paged_attention", "fused_argmax_head", "fused_topk_head")
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC")
 
@@ -43,7 +44,8 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
+    src = (CSRC / f"{name}.cu").read_bytes() + b"".join(
+        p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha256(src + " ".join(FLAGS).encode()).hexdigest()[:12]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 

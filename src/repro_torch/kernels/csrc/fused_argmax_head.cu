@@ -14,11 +14,9 @@
 //   * W is the tied (V, D) row-major embedding, read in place (the head
 //     never builds embed.T).  Pass 1 splits V into contiguous ranges, one
 //     per thread block, enough blocks to cover every SM several times;
-//   * a block stages up to BT rows of h in shared memory as f32, in a
-//     lane-minor layout so every shared read is bank-conflict free; each
-//     warp streams RV vocab rows at a time with 16-byte loads (RV loads in
-//     flight per lane), so each staged h value feeds RV multiply-adds,
-//     accumulating the BT x RV dots in f32 registers;
+//   * a block stages up to BT rows of h in shared memory and each warp
+//     streams RV vocab rows at a time against them (head_tile.cuh, shared
+//     with the top-k head), accumulating the BT x RV dots in f32;
 //   * each warp keeps a running (max, idx) per h row with a strict '>'
 //     over increasing vocab ids; warps merge with "larger value, else
 //     lower index", and each block writes one partial per h row;
@@ -27,41 +25,25 @@
 //     as jnp.argmax and torch.argmax do.
 // What it leaves on the table: h rows beyond BT = 8 re-read W per chunk
 // of 8, and W loads are plain vector loads (no TMA ring).
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+//
+// The speculative verify head (repro_fused_verify_head) is the same pass 1
+// over the flattened (B*T, D) position rows -- Theorem 1 applied at every
+// draft position -- and replaces src/repro/kernels/fused_topk_head.py
+// (fused_verify_head, :170).  Its pass 2 reduces the T rows of one batch
+// row per block and then computes the accepted draft length on the card:
+// one warp takes a ballot of ids[b, i] == cand[b, i] over each 32
+// positions and counts the leading run (a prefix AND).  The -1 padding of
+// a ragged draft never equals an id.  At B*T = 64 rows pass 1 reads W
+// eight times (the BT = 8 chunking above); the bound is still one read.
+#include "head_tile.cuh"
 
 namespace {
 
-constexpr unsigned kFull = 0xffffffffu;
-constexpr int kWarps = 8;          // warps per pass-1 block
-constexpr int kRV = 4;             // vocab rows per warp iteration
+using head::better;
+using head::kFull;
+using head::kRV;
+using head::kWarps;
 constexpr int kReduceThreads = 256;
-
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-template <typename T>
-struct alignas(16) Vec16 {
-  T v[16 / sizeof(T)];
-};
-
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(kFull, x, o);
-  return x;
-}
-
-// (v1, i1) beats (v2, i2): larger value, or equal value and lower index.
-// An index < 0 marks "no candidate".
-__device__ __forceinline__ bool better(float v1, int i1, float v2, int i2) {
-  if (i1 < 0) return false;
-  if (i2 < 0) return true;
-  return v1 > v2 || (v1 == v2 && i1 < i2);
-}
 
 // h (B, D); w (V, D); partials (B, nsplit).
 template <typename T, int BT>
@@ -69,21 +51,12 @@ __global__ void __launch_bounds__(kWarps * 32) argmax_partial_kernel(
     const T* __restrict__ h, const T* __restrict__ w,
     float* __restrict__ pval, int* __restrict__ pidx, int B, int D, int V,
     int rows_per_split, int nsplit) {
-  constexpr int VEC = 16 / sizeof(T);
-  extern __shared__ float hs[];  // (nit, VEC, BT, 32): lane-minor
+  extern __shared__ float hs[];  // staged h rows (head_tile.cuh)
   __shared__ float wbest[kWarps][BT];
   __shared__ int widx[kWarps][BT];
 
-  const int nit = (D + 32 * VEC - 1) / (32 * VEC);
   const int r0 = blockIdx.y * BT;
-  for (int i = threadIdx.x; i < nit * VEC * BT * 32; i += blockDim.x) {
-    const int l = i % 32, r = (i / 32) % BT, k = (i / (32 * BT)) % VEC;
-    const int it = i / (32 * BT * VEC);
-    const int c = (it * 32 + l) * VEC + k;
-    const int row = r0 + r;
-    hs[i] = (row < B && c < D) ? to_float(h[(size_t)row * D + c]) : 0.f;
-  }
-  __syncthreads();
+  head::stage_h<T, BT>(h, hs, B, D, r0);
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int v_begin = blockIdx.x * rows_per_split;
@@ -98,38 +71,13 @@ __global__ void __launch_bounds__(kWarps * 32) argmax_partial_kernel(
 
   for (int v0 = v_begin + warp * kRV; v0 < v_end; v0 += kWarps * kRV) {
     float acc[kRV][BT];
-#pragma unroll
-    for (int i = 0; i < kRV; ++i)
-#pragma unroll
-      for (int r = 0; r < BT; ++r) acc[i][r] = 0.f;
-    for (int it = 0; it < nit; ++it) {
-      const int c = (it * 32 + lane) * VEC;
-      Vec16<T> wv[kRV];
-#pragma unroll
-      for (int i = 0; i < kRV; ++i) {
-        if (v0 + i < v_end && c < D) {
-          wv[i] = *reinterpret_cast<const Vec16<T>*>(w + (size_t)(v0 + i) * D + c);
-        } else {
-          *reinterpret_cast<uint4*>(&wv[i]) = make_uint4(0, 0, 0, 0);
-        }
-      }
-#pragma unroll
-      for (int k = 0; k < VEC; ++k) {
-#pragma unroll
-        for (int r = 0; r < BT; ++r) {
-          const float hv = hs[((it * VEC + k) * BT + r) * 32 + lane];
-#pragma unroll
-          for (int i = 0; i < kRV; ++i)
-            acc[i][r] = fmaf(to_float(wv[i].v[k]), hv, acc[i][r]);
-        }
-      }
-    }
+    head::dot_tile<T, BT>(hs, w, D, v0, v_end, lane, acc);
 #pragma unroll
     for (int i = 0; i < kRV; ++i) {
       if (v0 + i >= v_end) break;  // warp-uniform
 #pragma unroll
       for (int r = 0; r < BT; ++r) {
-        const float s = warp_sum(acc[i][r]);
+        const float s = acc[i][r];
         if (s > best[r]) {  // strict: the earlier (lower) id keeps a tie
           best[r] = s;
           bidx[r] = v0 + i;
@@ -196,13 +144,55 @@ __global__ void __launch_bounds__(kReduceThreads) argmax_reduce_kernel(
   }
 }
 
+// One block per batch row b: warp t reduces the partials of h row
+// b * T + t, then warp 0 counts the leading run of ids == cand.
+__global__ void __launch_bounds__(kReduceThreads) verify_reduce_kernel(
+    const float* __restrict__ pval, const int* __restrict__ pidx, int nsplit,
+    int T, const int* __restrict__ cand, int* __restrict__ out_ids,
+    int* __restrict__ out_accept) {
+  extern __shared__ int ids_s[];  // (T)
+  const int b = blockIdx.x, warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  for (int t = warp; t < T; t += kReduceThreads / 32) {
+    const size_t row = (size_t)b * T + t;
+    float bv = -INFINITY;
+    int bi = -1, unused = 0;
+    for (int s = lane; s < nsplit; s += 32) {
+      const float v = pval[row * nsplit + s];
+      const int i = pidx[row * nsplit + s];
+      if (better(v, i, bv, bi)) {
+        bv = v;
+        bi = i;
+      }
+    }
+    head::warp_best(bv, bi, unused);
+    if (lane == 0) {
+      out_ids[row] = bi < 0 ? 0 : bi;
+      ids_s[t] = bi < 0 ? 0 : bi;
+    }
+  }
+  __syncthreads();
+  if (warp == 0) {
+    const int k = T - 1;  // draft positions
+    int run = 0;
+    for (int base = 0; base < k; base += 32) {  // warp-uniform trip count
+      const int i = base + lane;
+      const bool ok = i < k && ids_s[i] == cand[(size_t)b * k + i];
+      const unsigned hits = __ballot_sync(kFull, ok);
+      if (hits != kFull) {
+        run += __ffs(~hits) - 1;  // leading ones of the ballot
+        break;
+      }
+      run += 32;
+    }
+    if (lane == 0) out_accept[b] = run;
+  }
+}
+
 template <typename T, int BT>
-cudaError_t launch(const void* h, const void* w, void* pval, void* pidx,
-                   void* out_idx, void* out_val, int B, int D, int V,
-                   int nsplit, cudaStream_t stream) {
-  constexpr int VEC = 16 / sizeof(T);
-  const int nit = (D + 32 * VEC - 1) / (32 * VEC);
-  const size_t smem = (size_t)nit * VEC * BT * 32 * sizeof(float);
+cudaError_t launch_partial(const void* h, const void* w, void* pval,
+                           void* pidx, int B, int D, int V, int nsplit,
+                           cudaStream_t stream) {
+  const size_t smem = (size_t)head::staged_floats<T, BT>(D) * sizeof(float);
   auto kernel = argmax_partial_kernel<T, BT>;
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
@@ -215,22 +205,30 @@ cudaError_t launch(const void* h, const void* w, void* pval, void* pidx,
       static_cast<const T*>(h), static_cast<const T*>(w),
       static_cast<float*>(pval), static_cast<int*>(pidx), B, D, V,
       rows_per_split, nsplit);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  argmax_reduce_kernel<<<B, kReduceThreads, 0, stream>>>(
-      static_cast<const float*>(pval), static_cast<const int*>(pidx), nsplit,
-      static_cast<int*>(out_idx), static_cast<float*>(out_val));
   return cudaGetLastError();
 }
 
 template <typename T>
-cudaError_t dispatch(const void* h, const void* w, void* pval, void* pidx,
-                     void* out_idx, void* out_val, int B, int D, int V,
-                     int nsplit, cudaStream_t s) {
-  if (B >= 8) return launch<T, 8>(h, w, pval, pidx, out_idx, out_val, B, D, V, nsplit, s);
-  if (B >= 4) return launch<T, 4>(h, w, pval, pidx, out_idx, out_val, B, D, V, nsplit, s);
-  if (B >= 2) return launch<T, 2>(h, w, pval, pidx, out_idx, out_val, B, D, V, nsplit, s);
-  return launch<T, 1>(h, w, pval, pidx, out_idx, out_val, B, D, V, nsplit, s);
+cudaError_t partial(const void* h, const void* w, void* pval, void* pidx,
+                    int B, int D, int V, int nsplit, cudaStream_t s) {
+  if (B >= 8) return launch_partial<T, 8>(h, w, pval, pidx, B, D, V, nsplit, s);
+  if (B >= 4) return launch_partial<T, 4>(h, w, pval, pidx, B, D, V, nsplit, s);
+  if (B >= 2) return launch_partial<T, 2>(h, w, pval, pidx, B, D, V, nsplit, s);
+  return launch_partial<T, 1>(h, w, pval, pidx, B, D, V, nsplit, s);
+}
+
+// Pass 1 for dtype 0 (float32) or 1 (bfloat16); D a multiple of 16 bytes'
+// worth of elements.
+cudaError_t partial_any(const void* h, const void* w, void* pval, void* pidx,
+                        int B, int D, int V, int nsplit, int dtype,
+                        cudaStream_t s) {
+  if (B <= 0 || D <= 0 || V <= 0 || nsplit <= 0 || nsplit > V)
+    return cudaErrorInvalidValue;
+  if (dtype == 1 && D % 8 == 0)
+    return partial<__nv_bfloat16>(h, w, pval, pidx, B, D, V, nsplit, s);
+  if (dtype == 0 && D % 4 == 0)
+    return partial<float>(h, w, pval, pidx, B, D, V, nsplit, s);
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -243,18 +241,34 @@ extern "C" int repro_fused_argmax_head(const void* h, const void* w,
                                        void* pval, void* pidx, void* out_idx,
                                        void* out_val, int B, int D, int V,
                                        int nsplit, int dtype, void* stream) {
-  if (B <= 0 || D <= 0 || V <= 0 || nsplit <= 0 || nsplit > V)
-    return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 1) {
-    if (D % 8) return (int)cudaErrorInvalidValue;
-    return (int)dispatch<__nv_bfloat16>(h, w, pval, pidx, out_idx, out_val, B,
-                                        D, V, nsplit, s);
-  }
-  if (dtype == 0) {
-    if (D % 4) return (int)cudaErrorInvalidValue;
-    return (int)dispatch<float>(h, w, pval, pidx, out_idx, out_val, B, D, V,
-                                nsplit, s);
-  }
-  return (int)cudaErrorInvalidValue;
+  cudaError_t err = partial_any(h, w, pval, pidx, B, D, V, nsplit, dtype, s);
+  if (err != cudaSuccess) return (int)err;
+  argmax_reduce_kernel<<<B, kReduceThreads, 0, s>>>(
+      static_cast<const float*>(pval), static_cast<const int*>(pidx), nsplit,
+      static_cast<int*>(out_idx), static_cast<float*>(out_val));
+  return (int)cudaGetLastError();
+}
+
+// The speculative verify head.  h (B*T, D) -- the (B, T, D) position rows
+// flattened -- and w as above; cand (B, T-1) i32 draft ids, -1 past each
+// row's width.  pval/pidx: (B*T, nsplit) scratch.  out_ids (B, T) i32 =
+// argmax per position; out_accept (B,) i32 = leading run of
+// out_ids[:, :T-1] == cand.  Returns a cudaError_t.
+extern "C" int repro_fused_verify_head(const void* h, const void* w,
+                                       const void* cand, void* pval,
+                                       void* pidx, void* out_ids,
+                                       void* out_accept, int B, int T, int D,
+                                       int V, int nsplit, int dtype,
+                                       void* stream) {
+  if (B <= 0 || T <= 0 || T > 4096) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err =
+      partial_any(h, w, pval, pidx, B * T, D, V, nsplit, dtype, s);
+  if (err != cudaSuccess) return (int)err;
+  verify_reduce_kernel<<<B, kReduceThreads, (size_t)T * sizeof(int), s>>>(
+      static_cast<const float*>(pval), static_cast<const int*>(pidx), nsplit,
+      T, static_cast<const int*>(cand), static_cast<int*>(out_ids),
+      static_cast<int*>(out_accept));
+  return (int)cudaGetLastError();
 }

@@ -21,7 +21,12 @@
 //     stages the (STAGE, hd) K and V tiles in shared memory with 16-byte
 //     loads.  Padded table columns sit past hi and are never read;
 //   * each warp owns one of the row's T*g query rows and carries the online
-//     softmax (m, l, acc) in f32 registers, hd/32 accumulators per lane;
+//     softmax (m, l, acc) in f32 registers, hd/32 accumulators per lane.
+//     A block holds at most 32 warps, so T*g > 32 query rows (a wide
+//     speculative window, or g = 8 heads per group) split into groups of
+//     32 consecutive rows, one thread block each (grid.z): every group
+//     still shares each staged K/V tile among its rows, and walks only the
+//     kv extent of its own queries;
 //     masked positions score -inf, a stage with nothing valid leaves the
 //     carry untouched, and a query with no valid key writes 0 (l is
 //     clamped at 1e-30 as the TPU kernel does).
@@ -94,15 +99,18 @@ __global__ void __launch_bounds__(1024) paged_attention_kernel(
   const int b = blockIdx.x, h = blockIdx.y;
   const int g = hq / hkv;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const bool active = warp < tq * g;
+  const int row0 = blockIdx.z * 32;  // this group's first query row
+  const int qrow = row0 + warp;
+  const int row_end = min(tq * g, row0 + 32);
+  const bool active = qrow < row_end;
   const bool lane_on = lane < LANES;
   const int* prow = pos + (size_t)b * tq;
   const int* trow = btab + (size_t)b * nb;
 
-  // The row's kv extent: the largest query position caps it (clipped to
-  // the table), the smallest one minus the window opens it.
+  // The group's kv extent: its largest query position caps it (clipped
+  // to the table), its smallest one minus the window opens it.
   int hi = -1, lo_q = INT_MAX;
-  for (int t = 0; t < tq; ++t) {
+  for (int t = row0 / g; t <= (row_end - 1) / g; ++t) {
     hi = max(hi, prow[t]);
     lo_q = min(lo_q, prow[t]);
   }
@@ -115,8 +123,8 @@ __global__ void __launch_bounds__(1024) paged_attention_kernel(
 #pragma unroll
   for (int e = 0; e < EPL; ++e) acc[e] = qv[e] = 0.f;
   if (active) {
-    t = warp / g;
-    qh = h * g + warp % g;
+    t = qrow / g;
+    qh = h * g + qrow % g;
     my_pos = prow[t];
     if (lane_on)
       load_floats<T, EPL>(
@@ -200,8 +208,8 @@ cudaError_t launch(const void* q, const void* kpool, const void* vpool,
     if (err != cudaSuccess) return err;
   }
   const int nq = tq * (hq / hkv);
-  const dim3 grid(B, hkv);
-  const dim3 block(32 * (nq < 4 ? 4 : nq));
+  const dim3 grid(B, hkv, (nq + 31) / 32);
+  const dim3 block(32 * (nq < 4 ? 4 : (nq > 32 ? 32 : nq)));
   kernel<<<grid, block, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(kpool),
       static_cast<const T*>(vpool), static_cast<const int*>(btab),
@@ -212,16 +220,16 @@ cudaError_t launch(const void* q, const void* kpool, const void* vpool,
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  hd in {16, 32, 64, 128, 256};
-// T * Hq / Hkv <= 32 (one warp per query row).  Returns a cudaError_t.
+// dtype: 0 = float32, 1 = bfloat16.  hd in {16, 32, 64, 128, 256}; any
+// T * Hq / Hkv (groups of 32 query rows per block).  Returns a cudaError_t.
 extern "C" int repro_paged_attention(const void* q, const void* kpool,
                                      const void* vpool, const void* btab,
                                      const void* pos, void* out, int B,
                                      int tq, int hq, int hkv, int hd, int bs,
                                      int nb, int window, int dtype,
                                      float scale, void* stream) {
-  if (B <= 0 || tq <= 0 || hkv <= 0 || hq % hkv != 0 ||
-      tq * (hq / hkv) > 32 || bs <= 0 || nb <= 0)
+  if (B <= 0 || tq <= 0 || hkv <= 0 || hq % hkv != 0 || bs <= 0 ||
+      nb <= 0 || (tq * (hq / hkv) + 31) / 32 > 65535)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define REPRO_PA_CASE(TYPE, HD)                                               \

@@ -15,6 +15,7 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import fused_argmax_head as _fah
+from repro_torch.kernels import fused_topk_head as _ftk
 from repro_torch.kernels import paged_attention as _pa
 from repro_torch.kernels import ref
 
@@ -42,6 +43,27 @@ def fused_argmax_head_with_value(h: torch.Tensor, w: torch.Tensor):
 def fused_argmax_head(h: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """argmax_v(h @ w) -> (B,) int32.  The paper's reduced unit, fused."""
     return fused_argmax_head_with_value(h, w)[0]
+
+
+def fused_topk_head(h: torch.Tensor, w: torch.Tensor, k: int):
+    """Top-k (vals (B, k) f32, idxs (B, k) int32) of h @ w -- the reduced
+    unit's k-winner form; values descending, lower index first on ties."""
+    if _device_type(h, w) == "cpu":
+        return ref.fused_topk_head(h, w, k)
+    return _ftk.fused_topk_head(h, w, k)
+
+
+def verify_draft(h: torch.Tensor, w: torch.Tensor, cand: torch.Tensor):
+    """Speculative-decoding verification -- the comparator-only unit.
+
+    h (B, T, D) hidden states at T consecutive positions; w (D, V); cand
+    (B, T-1) int32 draft ids (-1 past a row's real width).  Returns (ids
+    (B, T) int32, accept (B,) int32): the per-position argmax and the
+    length of the accepted draft prefix -- greedy emits exactly
+    ``ids[b, :accept[b] + 1]`` this step."""
+    if _device_type(h, w, cand) == "cpu":
+        return ref.verify_draft(h, w, cand)
+    return _fah.fused_verify_head(h, w, cand)
 
 
 def paged_attention(q, k_pool, v_pool, block_tables, positions, *,

@@ -5,10 +5,11 @@ Replaces the TPU kernel ``repro.kernels.paged_attention.paged_attention``
 
 Bound on the H100: memory -- one read of each row's K/V history, 4*hd
 flops per K/V row, far under the card's ~295 flops per byte.  The design
-(one thread block per (row, kv head), GQA-native shared-memory K/V tiles,
-one warp per query row carrying the f32 online softmax) reads each K/V
-byte once per row and never repeats K/V across the query group; the
-source's header says what it leaves for later.
+(one thread block per (row, kv head) and group of up to 32 query rows,
+GQA-native shared-memory K/V tiles, one warp per query row carrying the
+f32 online softmax) reads each K/V byte once per row and query group and
+never repeats K/V across the heads of a group; the source's header says
+what it leaves for later.
 
 ``paged_attention.launches`` counts the calls that launched the kernel.
 """
@@ -69,9 +70,8 @@ def paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
     if hd_pool != hd or hd not in _HEAD_DIMS:
         raise ValueError(f"head dim {hd} (pool {hd_pool}): need one of "
                          f"{_HEAD_DIMS}")
-    if hq % hkv or t * (hq // hkv) > 32:
-        raise ValueError(f"Hq={hq}, Hkv={hkv}, T={t}: need Hkv | Hq and "
-                         "T * Hq / Hkv <= 32 (one warp per query row)")
+    if hq % hkv:
+        raise ValueError(f"Hq={hq}, Hkv={hkv}: need Hkv | Hq")
     if block_tables.dtype != torch.int32 or block_tables.dim() != 2 \
             or block_tables.shape[0] != b:
         raise ValueError(f"block_tables must be ({b}, nb) int32; got "

@@ -27,6 +27,38 @@ def fused_argmax_head(h: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return fused_argmax_head_with_value(h, w)[0]
 
 
+def topk_select(x: torch.Tensor, k: int):
+    """Top-k over the last axis: (vals (..., k) f32, idxs (..., k) int32),
+    values descending, the LOWEST index first among equal values -- the
+    order of ``repro.kernels.ref.topk_select``'s k stable selection
+    passes.  A stable descending sort keeps equal values in index order;
+    plain ``torch.topk`` does not promise that."""
+    vals, idxs = torch.sort(x.float(), dim=-1, descending=True, stable=True)
+    return vals[..., :k], idxs[..., :k].to(torch.int32)
+
+
+def fused_topk_head(h: torch.Tensor, w: torch.Tensor, k: int):
+    """Top-k of ``h @ w`` over the vocabulary: (vals (B, k) f32, idxs
+    (B, k) int32); h (B, D), w (D, V); f32 products summed in f32."""
+    return topk_select(torch.matmul(h.float(), w.float()), k)
+
+
+def verify_draft(h: torch.Tensor, w: torch.Tensor, cand: torch.Tensor):
+    """Comparator-only speculative verification.
+
+    h (B, T, D) hidden states at T consecutive positions (0 = the last
+    committed token, 1..T-1 the drafts); w (D, V); cand (B, T-1) int32
+    draft ids, -1 past each row's real width.  Returns (ids (B, T) int32
+    = argmax per position, accept (B,) int32 = length of the leading run
+    where ``ids[:, :T-1] == cand``).  The -1 padding never equals an id,
+    so a ragged row's run stops at its width."""
+    b, t, d = h.shape
+    ids = fused_argmax_head(h.reshape(b * t, d), w).reshape(b, t)
+    ok = (ids[:, :t - 1] == cand).to(torch.int32)
+    accept = torch.cumprod(ok, dim=-1).sum(dim=-1).to(torch.int32)
+    return ids, accept
+
+
 def _positions(positions, b: int, t: int, device) -> torch.Tensor:
     """(B,) / (B, T) / scalar positions -> (B, T) int64."""
     pos = torch.as_tensor(positions, dtype=torch.int64, device=device)

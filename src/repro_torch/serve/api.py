@@ -60,9 +60,13 @@ class LLM:
     """Facade over ``ServeEngine``: typed params in, typed outputs out.
 
     Constructor kwargs mirror the engine's (n_slots, max_len, eos_id,
-    head_mode, block_size, num_blocks, seed, ...); ``head_mode`` is the
-    default head — each request's ``SamplingParams.head_mode`` can
-    override it.  ``params`` may be float32 master weights; the engine
+    head_mode, block_size, num_blocks, seed, drafter, ...); ``head_mode``
+    is the default head — each request's ``SamplingParams.head_mode`` can
+    override it, and ``drafter`` proposes the drafts of speculative
+    requests (``SamplingParams(spec_k=K)``; prompt lookup by default).
+    Streamed chunks carry ``candidate_ids`` when a request sets
+    ``n_candidates``, and ``stats`` the speculation counters (drafted,
+    accepted, acceptance_rate).  ``params`` may be float32 master weights; the engine
     casts them to the config's dtype once, on the device they live on.
     """
 

@@ -18,15 +18,30 @@ Counterpart of ``repro.serve.engine`` on its default path:
     ``stats['decode_steps'] == stats['iterations']`` whenever a slot is
     active.  Batch and block-table widths are padded to powers of two
     (padding rows repeat row 0: the same K/V lands on the same cell);
-  - ``Greedy`` is the reduced softmax unit (the fused argmax comparator),
-    ``SoftmaxBaseline`` the full unit for A/B runs.
+  - sampling is a ``Sampler``: ``Greedy`` is the reduced softmax unit
+    (the fused argmax comparator), ``TopK`` the k-winner comparator bus
+    with an O(k) host softmax (and the ``n_candidates`` candidate ids),
+    ``Temperature`` Gumbel-max over the logit row, ``SoftmaxBaseline``
+    the full unit for A/B runs;
+  - decode is SPECULATIVE on request (``SamplingParams(spec_k=K)``): the
+    engine's Drafter (``serve/spec.py``; model-free prompt lookup by
+    default) proposes up to K draft tokens per slot, the step widens to
+    T = pow2(widest window) and runs the trunk over each row's (last
+    token + drafts) window at per-(row, query) positions, and the
+    COMPARATOR verifies every position at once (accept draft t_i iff
+    argmax(logits_i) == t_i -- Theorem 1, repeated;
+    ``kernels.ops.verify_draft``), emitting 1..K+1 tokens per iteration,
+    identical to non-speculative greedy.  Rejected drafts rewind in O(1):
+    the slot position does not advance over them (the kv_pos <= positions
+    masks hide the stale pool rows) and surplus whole blocks go back to
+    the free list (``store.rewind``).  Rows without drafts ride along,
+    their padding queries repeating their last (token, position).
 
 The JAX engine's other modes are refused, not ignored: ``chunk_size``,
 ``token_budget``, ``host_stride``, ``tp``/``mesh``, ``scheduler='cohort'``,
-``kv_layout='dense'``, ``drafter``, ``prefix_cache``, ``attn_approx``
-other than 'exact', and per-request ``spec_k``/``top_k``/``n_candidates``
-raise ``NotImplementedError`` (or ``ValueError`` for values that are
-wrong in both packages).
+``kv_layout='dense'``, ``prefix_cache`` and ``attn_approx`` other than
+'exact' raise ``NotImplementedError`` (or ``ValueError`` for values that
+are wrong in both packages).
 """
 from __future__ import annotations
 
@@ -40,17 +55,22 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels import ops
 from repro_torch.models import api, lm
 from repro_torch.serve import sampler as sampler_mod
 from repro_torch.serve.outputs import TokenChunk
 from repro_torch.serve.paged_kv import PagedKVStore, pow2 as _pow2
 from repro_torch.serve.params import SamplingParams
 from repro_torch.serve.sampler import Sampler
+from repro_torch.serve.spec import PromptLookupDrafter
 from repro_torch.weights import cast_params
 
 
-def _to_host(out: torch.Tensor) -> np.ndarray:
-    """One device->host copy per head group."""
+def _to_host(out):
+    """One device->host copy per head group; tuple outputs (the k-winner
+    bus, the verify group) leaf by leaf."""
+    if isinstance(out, tuple):
+        return tuple(o.cpu().numpy() for o in out)
     return out.cpu().numpy()
 
 
@@ -70,7 +90,8 @@ class Request:
     # 'cancelled'
     finish_reason: Optional[str] = None
     # per-request numpy RNG, seeded (params.seed, or (engine seed, rid))
-    # at submit -- the greedy heads never draw from it.
+    # at submit: the nth sampled token consumes the nth draw whatever the
+    # scheduling (deferral, preemption).  The greedy heads never draw.
     rng: Optional[np.random.Generator] = None
     sampler: Optional[Sampler] = None
     # the prompt as submitted (preemption folds generated tokens into
@@ -105,7 +126,7 @@ class ServeEngine:
                              "or 'dense'")
         refused = {
             "chunk_size": chunk_size, "token_budget": token_budget,
-            "host_stride": host_stride, "mesh": mesh, "drafter": drafter,
+            "host_stride": host_stride, "mesh": mesh,
             "prefix_cache": prefix_cache,
             "tp": None if tp in (None, 1) else tp,
             "scheduler": None if scheduler == "fused" else scheduler,
@@ -114,9 +135,9 @@ class ServeEngine:
         for name, value in refused.items():
             if value is not None:
                 raise NotImplementedError(
-                    f"{name}={value!r}: the port serves the default path "
-                    "only so far (one-shot paged prefill, the fused ragged "
-                    "decode step, greedy heads, one device)")
+                    f"{name}={value!r}: the port serves one-shot paged "
+                    "prefill and the fused ragged decode step on one device "
+                    "only so far")
         if attn_approx is not None or attn_window is not None:
             mode = attn_approx if attn_approx is not None else cfg.attn_approx
             win = attn_window if attn_window is not None else cfg.attn_window
@@ -140,6 +161,10 @@ class ServeEngine:
         self.scheduler = scheduler
         self.seed = seed
         sampler_mod.resolve(head_mode, cfg=cfg)      # refuse bad heads now
+        # the draft proposer for speculative requests (spec_k > 0);
+        # model-free prompt lookup by default -- any serve.spec.Drafter.
+        self.drafter = drafter if drafter is not None \
+            else PromptLookupDrafter()
         self.queue: deque = deque()
         self.slots: List[Optional[Request]] = [None] * n_slots
         self.slot_pos = np.zeros(n_slots, np.int32)   # next write position
@@ -155,12 +180,18 @@ class ServeEngine:
         # emitted_tokens every token through _emit_token.  prefill_ms and
         # decode_ms sum the host wall clock of the prefill calls and the
         # decode steps, each up to its head output on the host (which
-        # waits for the device).
+        # waits for the device).  drafted/accepted count speculative draft
+        # tokens proposed / accepted by the comparator, acceptance_rate
+        # their ratio.  head_calls counts head calls by sampler kind
+        # ('Greedy', 'TopK', ...; 'verify' for a step's speculative
+        # group): one head call is one kernel launch on the card.
         self.stats = {"prefills": 0, "decode_steps": 0, "iterations": 0,
                       "fused_rows": 0, "completed": 0, "deferred": 0,
                       "preemptions": 0, "cancelled": 0, "host_syncs": 0,
                       "emitted_tokens": 0, "prefill_tokens": 0,
-                      "prefill_ms": 0.0, "decode_ms": 0.0}
+                      "prefill_ms": 0.0, "decode_ms": 0.0,
+                      "drafted": 0, "accepted": 0, "acceptance_rate": 0.0,
+                      "head_calls": {}}
         self._ttft_ms: List[float] = []
         self._consumers: List[Callable[[TokenChunk], None]] = []
 
@@ -180,6 +211,7 @@ class ServeEngine:
         depth, active slots, and TTFT percentiles over every first token
         emitted so far."""
         s = dict(self.stats)
+        s["head_calls"] = dict(self.stats["head_calls"])
         s["queue_depth"] = len(self.queue)
         s["active_slots"] = sum(sl is not None for sl in self.slots)
         s["attn_approx"] = self.cfg.attn_approx
@@ -205,15 +237,18 @@ class ServeEngine:
             req.max_new_tokens = req.params.max_new_tokens
             req.top_k = req.params.top_k
             req.temperature = req.params.temperature
-        if req.params.spec_k > 0:
-            raise NotImplementedError(
-                f"spec_k={req.params.spec_k}: speculative decoding is not "
-                "ported yet")
         if req.sampler is None:
             req.sampler = sampler_mod.resolve(
                 req.params, cfg=self.cfg, default_head_mode=self.head_mode)
         else:
             req.sampler.validate(self.cfg)
+        if req.params.spec_k > 0 and not (
+                isinstance(req.sampler, sampler_mod.Greedy)
+                and req.sampler.head_mode in ("reduced", "fused")):
+            raise ValueError(
+                f"spec_k={req.params.spec_k} requires the reduced "
+                f"comparator head (engine head_mode={self.head_mode!r} "
+                f"resolved to {req.sampler})")
         if req.params.attn_approx is not None \
                 and req.params.attn_approx != self.cfg.attn_approx:
             raise ValueError(
@@ -291,6 +326,7 @@ class ServeEngine:
                 blocks=torch.as_tensor(blocks, dtype=torch.int64,
                                        device=self.device))
             out = _to_host(out)
+            self._count_head(type(req.sampler).__name__)
             self.stats["prefill_ms"] += (time.perf_counter() - t0) * 1e3
             self.stats["prefills"] += 1
             self.stats["prefill_tokens"] += S
@@ -348,55 +384,162 @@ class ServeEngine:
         self._decode_rows(active)
         return True
 
+    def _count_head(self, kind: str) -> None:
+        calls = self.stats["head_calls"]
+        calls[kind] = calls.get(kind, 0) + 1
+
+    def _propose(self, i: int) -> list:
+        """Draft tokens for slot ``i`` this step (possibly none): ask the
+        Drafter for up to the request's remaining speculation budget,
+        then shrink the window to what the cache ceiling and the free
+        block pool can hold -- speculation never preempts a neighbour,
+        it just drafts less."""
+        req = self.slots[i]
+        k = req.params.spec_k
+        if k <= 0:
+            return []
+        pos = int(self.slot_pos[i])
+        # a draft window writes K/V at pos..pos+k and can emit up to
+        # k+1 tokens: clamp to the remaining token budget and to the
+        # max_len-1 cache ceiling.
+        k = min(k, req.max_new_tokens - len(req.generated) - 1,
+                self.max_len - 1 - pos)
+        if k < 1:
+            return []
+        history = [int(t) for t in req.orig_prompt] \
+            + [int(t) for t in req.generated]
+        drafts = []
+        for t in self.drafter.propose(history, k)[:k]:
+            if not 0 <= int(t) < self.cfg.vocab_size:
+                break             # a bad drafter id can never be accepted
+            drafts.append(int(t))
+        while drafts and not self.store.can_grow(i, pos + len(drafts),
+                                                 write_start=pos):
+            drafts.pop()
+        if drafts and not self.store.ensure_capacity(i, pos + len(drafts),
+                                                     write_start=pos):
+            return []             # lost a race with another slot's growth
+        return drafts
+
     def _decode_rows(self, rows: List[int]):
-        """One fused decode step over the given slot rows at T = 1 --
-        ragged positions, one head per sampler group.
+        """One fused decode step over the given slot rows -- ragged
+        positions, mixed samplers, per-row draft widths.
 
         Rows are padded to a power of two by repeating row 0 (identical
         compute; the duplicate K/V write lands the same value on the same
         cell) and block-table columns to a power of two with each row's
         own first block (past its position, so the mask discards them).
-        Each group's row-index vector is padded the same way."""
+        Each head group's row-index vector is padded the same way.
+
+        Rows with draft tokens this step (``_propose``) widen the step to
+        T = pow2(widest window): a draft row carries its last token plus
+        its drafts at consecutive positions and joins the COMPARATOR-
+        VERIFY group (``ops.verify_draft`` over its (T, D) hidden
+        states); every other row rides along at width 1, its padding
+        queries repeating its last (token, position) -- a cache no-op --
+        and its head reads the last column, which is its real query.  The
+        verified rows then emit their accepted run plus the comparator's
+        correction token one at a time, so stop/eos/length/consumer
+        semantics are those of non-speculative decoding; the position
+        never advances over a rejected tail (``store.rewind`` returns
+        surplus blocks)."""
         t0 = time.perf_counter()
         n_real = len(rows)
+        drafts = {i: self._propose(i) for i in rows}
+        T = _pow2(max(1 + len(drafts[i]) for i in rows))
         padded = rows + [rows[0]] * (_pow2(n_real) - n_real)
         groups: Dict[Sampler, list] = {}
-        where = []                        # row r -> (its group, offset)
+        spec_group: list = []            # padded-row indices that verify
+        # row r -> (its head group, offset), or (None, offset in the
+        # verify group) for a draft row; a mid-prefill chunk row, when
+        # chunked prefill is ported, is (None, None): it joins no group.
+        where = []
         for r, i in enumerate(padded):
-            dev = self.slots[i].sampler.device_form()
-            lst = groups.setdefault(dev, [])
-            where.append((dev, len(lst)))
-            lst.append(r)
+            if drafts[i]:
+                where.append((None, len(spec_group)))
+                spec_group.append(r)
+            else:
+                dev = self.slots[i].sampler.device_form()
+                lst = groups.setdefault(dev, [])
+                where.append((dev, len(lst)))
+                lst.append(r)
         order = sampler_mod.canonical_order(groups)
-        toks = np.asarray([[self.slots[i].generated[-1]] for i in padded],
-                          np.int64)
-        pos = np.asarray([int(self.slot_pos[i]) for i in padded], np.int32)
-        btab = self.store.block_table(padded, pos)
+        toks = np.zeros((len(padded), T), np.int64)
+        posm = np.zeros((len(padded), T), np.int32)
+        for r, i in enumerate(padded):
+            win = [self.slots[i].generated[-1]] + drafts[i]
+            w = len(win)
+            base = int(self.slot_pos[i])
+            toks[r, :w] = win
+            toks[r, w:] = win[-1]        # repeat last (token, position):
+            posm[r, :w] = base + np.arange(w)
+            posm[r, w:] = base + w - 1   # identical value, identical cell
+        btab = self.store.block_table(padded, posm[:, -1])
         dev_of = self.device
         # the trunk runs ONCE over all rows; the pools are written in place
         h, _ = lm.decode_step(self.params, self.cfg,
                               torch.as_tensor(toks, device=dev_of),
                               self.store.cache(),
-                              torch.as_tensor(pos, device=dev_of),
+                              torch.as_tensor(posm if T > 1 else posm[:, 0],
+                                              device=dev_of),
                               block_tables=torch.as_tensor(btab,
                                                            device=dev_of))
+        hl = h[:, -1] if h.dim() == 3 else h   # each row's last real query
         outs = []
         for s in order:
             r = groups[s] + [groups[s][0]] * (_pow2(len(groups[s]))
                                               - len(groups[s]))
             outs.append(s.head(self.params, self.cfg,
-                               h[torch.as_tensor(r, device=dev_of)]))
+                               hl[torch.as_tensor(r, device=dev_of)]))
+            self._count_head(type(s).__name__)
+        spec_out = None
+        if spec_group:
+            sg = spec_group + [spec_group[0]] * (_pow2(len(spec_group))
+                                                 - len(spec_group))
+            cand = np.full((len(sg), T - 1), -1, np.int32)
+            for o, r in enumerate(sg):
+                d = drafts[padded[r]]
+                cand[o, :len(d)] = d
+            spec_out = ops.verify_draft(
+                h[torch.as_tensor(sg, device=dev_of)],
+                lm.lm_head_weight(self.params, self.cfg),
+                torch.as_tensor(cand, device=dev_of))
+            self._count_head("verify")
         self.stats["decode_steps"] += 1
         self.stats["host_syncs"] += 1
         self.stats["fused_rows"] += n_real
         # one device->host copy per head group, not per slot
         host = {s: _to_host(o) for s, o in zip(order, outs)}
+        spec_host = _to_host(spec_out) if spec_group else None
         self.stats["decode_ms"] += (time.perf_counter() - t0) * 1e3
         for r in range(n_real):
             i = padded[r]
             dev, off = where[r]
-            self.slot_pos[i] += 1
-            self._emit(i, self.slots[i], host[dev], off)
+            req = self.slots[i]
+            if dev is None:
+                # speculative row: emit the accepted run plus the
+                # correction token, one at a time (stop/eos/length fire
+                # exactly as they would have, mid-run included)
+                ids, acc = spec_host
+                w = len(drafts[i])
+                m = min(int(acc[off]), w)
+                self.stats["drafted"] += w
+                self.stats["accepted"] += m
+                for tok in ids[off, :m + 1]:
+                    self.slot_pos[i] += 1
+                    self._emit_token(i, req, int(tok))
+                    if req.done:
+                        break
+                if not req.done:
+                    # the rejected tail: the position never advanced over
+                    # it; surplus whole blocks go back to the free list
+                    self.store.rewind(i, int(self.slot_pos[i]))
+            else:
+                self.slot_pos[i] += 1
+                self._emit(i, req, host[dev], off)
+        if self.stats["drafted"]:
+            self.stats["acceptance_rate"] = (
+                self.stats["accepted"] / self.stats["drafted"])
 
     def _ensure_blocks(self, i: int, pos: int) -> bool:
         """Grow slot i's block table to cover ``pos``; preempt the
@@ -417,15 +560,22 @@ class ServeEngine:
         self.admit_order.remove(i)
 
     def _emit(self, i: int, req: Request, host_out, off: int):
-        """One token emission off a sampler head output: pick on the host,
-        then the shared emission path."""
-        self._emit_token(i, req, int(req.sampler.pick(host_out, off,
-                                                      req.rng)))
+        """One token emission off a sampler head output: pick on the host
+        (plus the candidate ids of the k-winner bus when the request asks
+        for them), then the shared emission path."""
+        tok = req.sampler.pick(host_out, off, req.rng)
+        cands = None
+        if self._consumers and req.params.n_candidates:
+            c = req.sampler.candidate_ids(host_out, off)
+            if c is not None:
+                cands = tuple(int(x) for x in c[:req.params.n_candidates])
+        self._emit_token(i, req, int(tok), cands)
 
-    def _emit_token(self, i: int, req: Request, tok: int):
-        """The shared per-token emission path: stop-sequence match,
-        completion check, then a TokenChunk to every consumer (with
-        finish_reason set when this token finished the request)."""
+    def _emit_token(self, i: int, req: Request, tok: int, cands=None):
+        """The shared per-token emission path (sampler picks and verified
+        speculative runs alike): stop-sequence match, completion check,
+        then a TokenChunk to every consumer (with finish_reason set when
+        this token finished the request)."""
         req.generated.append(tok)
         self.stats["emitted_tokens"] += 1
         if req.t_first is None:
@@ -440,7 +590,8 @@ class ServeEngine:
         if self._consumers:
             chunk = TokenChunk(rid=req.rid, token=int(tok),
                                index=len(req.generated) - 1,
-                               finish_reason=req.finish_reason)
+                               finish_reason=req.finish_reason,
+                               candidate_ids=cands)
             for fn in list(self._consumers):
                 fn(chunk)
 

@@ -172,10 +172,15 @@ class PagedKVStore:
             self.blocks_for(prompt_len))
         return self.slot_blocks[slot]
 
-    def ensure_capacity(self, slot: int, pos: int) -> bool:
+    def ensure_capacity(self, slot: int, pos: int,
+                        write_start: Optional[int] = None) -> bool:
         """Make sure ``slot`` owns the block covering write index
-        ``pos``.  Returns False when the pool can't supply the growth
-        (the caller defers or preempts); never raises mid-write."""
+        ``pos``; the caller is about to write positions [write_start,
+        pos] (default: just ``pos``).  Returns False when the pool can't
+        supply the growth (the caller defers or preempts); never raises
+        mid-write.  ``write_start`` is the JAX signature's: there it
+        names the blocks to copy on write, and the port shares no block
+        yet, so only ``pos`` matters here."""
         need = pos // self.block_size + 1
         have = len(self.slot_blocks[slot])
         if need <= have:
@@ -184,6 +189,30 @@ class PagedKVStore:
             return False
         self.slot_blocks[slot].extend(self.allocator.alloc(need - have))
         return True
+
+    def can_grow(self, slot: int, pos: int,
+                 write_start: Optional[int] = None) -> bool:
+        """Whether ``ensure_capacity(slot, pos, write_start)`` would
+        succeed right now, WITHOUT allocating -- the engine sizes a
+        speculative draft window to the free pool instead of preempting
+        a neighbour just to speculate."""
+        grow = max(0, pos // self.block_size + 1
+                   - len(self.slot_blocks[slot]))
+        return self.allocator.n_free >= grow
+
+    def rewind(self, slot: int, pos: int) -> None:
+        """Shrink ``slot``'s block table to the cover of write index
+        ``pos`` -- the speculative-decode rewind.  A draft window writes
+        K/V up to ``pos + K``; when only part of it is accepted the
+        engine just moves the slot's position back (the ``kv_pos <=
+        positions[b]`` masks already hide the stale rows, and the next
+        step overwrites them) and any block now wholly past the cover
+        goes back to the free list."""
+        keep = pos // self.block_size + 1
+        extra = self.slot_blocks[slot][keep:]
+        if extra:
+            del self.slot_blocks[slot][keep:]
+            self.allocator.free(extra)
 
     def release(self, slot: int) -> None:
         """Drop ``slot``'s block references (back to the free list)."""

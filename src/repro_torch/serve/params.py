@@ -1,10 +1,8 @@
 """SamplingParams: the typed per-request sampling surface.
 
 A copy of ``repro.serve.params``, so requests carry the same fields in
-both packages.  The port's engine serves the greedy heads so far:
-``top_k > 1``, ``n_candidates``, ``spec_k`` and the ``'temperature'``
-head raise ``NotImplementedError`` at submit (see
-``repro_torch.serve.engine``).
+both packages.  The port's engine serves every field but
+``head_mode='sharded'``, which waits for tensor parallelism.
 
 The engine used to take loose kwargs on ``Request`` (``top_k``,
 ``temperature``, ``max_new_tokens``) with the head choice fixed

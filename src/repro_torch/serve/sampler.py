@@ -3,7 +3,8 @@
 Counterpart of ``repro.serve.sampler``:
 
   head(params, cfg, h)   device-side: (B, D) final hidden -> the compact
-                         output the host needs (here: token ids).
+                         output the host needs (token ids, the k-winner
+                         bus, or a logit row).
   pick(out, row, rng)    host-side: row ``row`` of ``out`` -> a token id.
 
   Greedy            the reduced unit: argmax of ``h @ W`` through the
@@ -12,20 +13,31 @@ Counterpart of ``repro.serve.sampler``:
                     the CPU).  Zero exp, zero sum, zero divide
                     (Theorem 1).  'reduced' and 'fused' are the same head
                     here; 'sharded' waits for tensor parallelism.
+  TopK              the k-winner comparator bus (``ops.fused_topk_head``,
+                    through ``core.fused_reduced_topk``) + an O(k) softmax
+                    over the survivors on the host, drawn from the
+                    request's numpy RNG.
+  Temperature       full-vocab Gumbel-max: the head ships the f32 logit
+                    row (a plain ``torch.matmul``, as the JAX package
+                    leaves it to XLA), the host adds Gumbel noise and
+                    takes the argmax -- still a comparator decision.
   SoftmaxBaseline   the full softmax unit: f32 logits, softmax, THEN
                     argmax -- the A/B baseline the paper beats.
-  TopK, Temperature wait for the fused top-k head kernel and raise.
 
-Samplers are frozen dataclasses, so the engine groups rows by them.
+The keyed on-device forms (``sample_device``/``pick_keyed``) wait for
+``host_stride``.  Samplers are frozen dataclasses, so the engine groups
+rows by them.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Optional, Union
 
+import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core import reduced_softmax
 from repro_torch.kernels import ops
 from repro_torch.models import lm
 from repro_torch.serve.params import SamplingParams
@@ -52,6 +64,11 @@ class Sampler:
         """The sampler with host-only fields canonicalized: requests that
         differ only host-side share one head group."""
         return self
+
+    def candidate_ids(self, out, row: int):
+        """Ranked candidate token ids for ``row`` when the head ships
+        them (the k-winner bus), else None."""
+        return None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -95,28 +112,92 @@ class SoftmaxBaseline(Sampler):
 
 @dataclasses.dataclass(frozen=True)
 class TopK(Sampler):
-    """The k-winner comparator bus (``repro.serve.sampler.TopK``)."""
+    """k-winner comparator bus + O(k) host softmax over the survivors.
+
+    temperature <= 0 degenerates to the greedy comparator exactly
+    (survivor 0 is the argmax, lowest index among ties).
+
+    ``sample_k`` (host-only) draws from the first ``sample_k`` survivors
+    while the bus still ships all ``k`` -- how a request asks for top-k
+    candidate ids wider than its sampling pool
+    (``SamplingParams.n_candidates``); ``sample_k=1`` is exact greedy.
+    """
     k: int
     temperature: float = 1.0
     head_mode: str = "reduced"
     sample_k: Optional[int] = None
 
     def validate(self, cfg: ModelConfig) -> None:
-        raise NotImplementedError(
-            "top-k sampling waits for the fused top-k head kernel; the port "
-            "serves greedy heads only so far")
+        k_cap = min(MAX_TOP_K, cfg.vocab_size)
+        if not 1 <= self.k <= k_cap:
+            raise ValueError(
+                f"top_k={self.k} out of range [1, {k_cap}] "
+                f"(min(MAX_TOP_K={MAX_TOP_K}, vocab_size="
+                f"{cfg.vocab_size}))")
+        if self.sample_k is not None and not 1 <= self.sample_k <= self.k:
+            raise ValueError(f"sample_k={self.sample_k} out of range "
+                             f"[1, k={self.k}]")
+        if self.head_mode == "sharded":
+            raise NotImplementedError(
+                "head_mode='sharded' is the tensor-parallel head; the port "
+                "has no tensor parallelism yet")
+        if self.head_mode not in ("reduced", "fused"):
+            # the 'softmax' baseline has no top-k form -- reject rather
+            # than silently substituting the reduced path
+            raise ValueError(
+                f"top_k sampling is not implemented for head_mode="
+                f"{self.head_mode!r}; use 'reduced', 'fused' or "
+                "'sharded'")
+
+    def device_form(self) -> "Sampler":
+        # temperature and sample_k are host-only: requests that differ
+        # only there share one head group
+        return dataclasses.replace(self, temperature=1.0, sample_k=None)
+
+    def head(self, params: dict, cfg: ModelConfig, h: torch.Tensor):
+        return reduced_softmax.fused_reduced_topk(
+            h, lm.lm_head_weight(params, cfg), self.k)
+
+    def pick(self, out, row: int, rng=None) -> int:
+        vals, idxs = out
+        n = self.k if self.sample_k is None else self.sample_k
+        vals = np.asarray(vals[row], np.float32)[:n]
+        idxs = np.asarray(idxs[row])[:n]
+        if self.temperature <= 0.0 or n == 1:
+            return int(idxs[0])
+        z = vals / self.temperature
+        p = np.exp(z - z.max())
+        p /= p.sum()
+        return int(rng.choice(idxs, p=p))
+
+    def candidate_ids(self, out, row: int):
+        return np.asarray(out[1][row])
 
 
 @dataclasses.dataclass(frozen=True)
 class Temperature(Sampler):
-    """Full-vocab Gumbel-max sampling
-    (``repro.serve.sampler.Temperature``)."""
+    """Full-vocab sampling via the Gumbel-max trick -- still no softmax.
+
+    The head ships the f32 logit row; the host adds Gumbel noise scaled
+    by the temperature and takes the argmax.  argmax(logits/T + G)
+    samples exactly softmax(logits/T).  temperature <= 0 degenerates to
+    plain argmax (lowest index among ties).  Costs an O(V) device->host
+    row per step; prefer TopK when k survivors suffice."""
     temperature: float = 1.0
 
-    def validate(self, cfg: ModelConfig) -> None:
-        raise NotImplementedError(
-            "temperature sampling is not ported yet; the port serves greedy "
-            "heads only so far")
+    def device_form(self) -> "Sampler":
+        return dataclasses.replace(self, temperature=1.0)
+
+    def head(self, params: dict, cfg: ModelConfig, h: torch.Tensor):
+        return torch.matmul(h.float(),
+                            lm.lm_head_weight(params, cfg).float())
+
+    def pick(self, out, row: int, rng=None) -> int:
+        logits = np.asarray(out[row], np.float32)
+        if self.temperature <= 0.0:
+            return int(np.argmax(logits))
+        g = rng.gumbel(size=logits.shape)
+        return int(np.argmax(logits / self.temperature + g))
 
 
 def canonical_order(samplers) -> list:

@@ -79,6 +79,23 @@ def test_paged_attention_matches_pallas_and_ref(t, g, window):
     np.testing.assert_allclose(got, want_ref, atol=ATOL, rtol=RTOL)
 
 
+@pytest.mark.parametrize("t,g", [(32, 2), (16, 4)])
+def test_paged_attention_wide_windows_match_pallas_and_ref(t, g):
+    """T * g = 64 query rows per (row, KV head): a speculative window of
+    spec_k >= 16 at g = 2, or a narrower one at g = 4 -- more rows than
+    one 32-warp thread block of the CUDA kernel holds."""
+    q, kp, vp, bt, pos = _paged_case(t + g, t=t, g=g)
+    jargs = [jnp.asarray(a) for a in (q, kp, vp, bt, pos)]
+    want_pallas = np.asarray(jops.paged_attention(
+        *jargs, use_pallas=True, interpret=True))
+    want_ref = np.asarray(jref.paged_attention(*jargs))
+    got = tops.paged_attention(
+        *[torch.from_numpy(a) for a in (q, kp, vp, bt, pos)]).numpy()
+    assert got.shape == q.shape
+    np.testing.assert_allclose(got, want_pallas, atol=ATOL, rtol=RTOL)
+    np.testing.assert_allclose(got, want_ref, atol=ATOL, rtol=RTOL)
+
+
 def test_paged_attention_ignores_table_padding():
     """Padded table columns sit past each row's position: rewriting them
     to other (foreign) blocks changes nothing."""

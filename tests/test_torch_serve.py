@@ -4,7 +4,10 @@ of qwen3-0.6b (f32): the same token lists and finish reasons, plain,
 under forced preemption, and with stop sequences and eos.  Plus the
 port's own contracts: the softmax baseline equals the reduced head
 (Theorem 1), ``stream`` equals ``generate``, entry points refuse a
-missing card, CPU runs launch no kernel, and unported modes raise.
+missing card, CPU runs launch no kernel, unported engine modes raise and
+out-of-range token ids are refused.  Sampled and speculative serving
+are held against the JAX package in ``test_torch_sampling.py`` and
+``test_torch_spec.py``.
 """
 import numpy as np
 import pytest
@@ -187,13 +190,10 @@ def test_unported_engine_modes_raise(bridged, kw):
         TLLM(tparams, TCFG, **ENGINE, **kw)
 
 
-@pytest.mark.parametrize("sp", [dict(spec_k=2), dict(top_k=3),
-                                dict(n_candidates=2),
-                                dict(head_mode="temperature")])
-def test_unported_request_modes_raise(bridged, sp):
+def test_submit_rejects_out_of_range_token_ids(bridged):
     _, tparams = bridged
     llm = TLLM(tparams, TCFG, **ENGINE)
-    with pytest.raises(NotImplementedError):
-        llm.submit(_prompts(8, (5,))[0], TSP(**sp))
     with pytest.raises(ValueError, match="token ids"):
         llm.submit(np.asarray([0, TCFG.vocab_size], np.int32))
+    with pytest.raises(ValueError, match="token ids"):
+        llm.submit(np.asarray([-1, 3], np.int32))
