@@ -14,13 +14,16 @@ Phases, each of which fails the run (non-zero exit, no result line):
      function (a yardstick only), beside the bound computed from the
      bytes and flops of these inputs: paged attention (T = 1, 4 and 32,
      the last 64 query rows per KV head), the argmax head, the top-k head
-     (planted ties across vocabulary splits) and the speculative verify
-     head (ragged -1 padded drafts);
+     (planted ties across vocabulary splits), the speculative verify
+     head (ragged -1 padded drafts), flash attention (prompts of 71 and
+     512 tokens, g 2 and 8, causal and windowed) and the softmax unit's
+     stats, softmax and cross-entropy kernels ((12, 151936) f32 and
+     (512, 151936) bf16 rows);
   4. drives the main path -- ``LLM.from_arch("qwen3-0.6b", smoke=False)``
      then ``LLM.generate``, greedy, at the model's full width with random
-     seeded weights -- and checks that every decode layer went through
-     the paged-attention kernel and every head through the argmax
-     kernel;
+     seeded weights -- and checks that every prompt prefill layer went
+     through the flash-attention kernel, every decode layer through the
+     paged-attention kernel and every head through the argmax kernel;
   4b. a mixed sampled workload on the same engine (greedy, top-k at
      temperature 0.8, ``n_candidates``, Gumbel-max temperature): every
      top-k head call went through the top-k kernel, candidate ids are
@@ -28,6 +31,15 @@ Phases, each of which fails the run (non-zero exit, no result line):
   4c. speculation on the same engine (repetitive prompts, ``spec_k=4``,
      plus one request at ``spec_k=20``): the tokens of ``spec_k=0``, and
      every step with a draft row went through the verify kernel;
+     then a profile of pure decode steps, which launch no flash kernel;
+  4d. the unit path: the f32 logits of the 12 prompts' final hidden
+     states at V = 151936 through ``ops.softmax_stats``,
+     ``ops.online_softmax`` and ``ops.softmax_xent`` forward and backward
+     (labels: phase 4's first tokens), each against its plain version,
+     each kernel's launches equal to its calls (``online_softmax`` runs
+     its phase 1 through ``softmax_stats``; the backward calls
+     ``online_softmax``), and Theorem 1 through the full unit:
+     ``argmax(online_softmax)`` is phase 4's first token;
   5. Theorem 1 on the card: the softmax-baseline head gives the same
      token streams;
   6. the small-input reference: the smoke config's tokens on the card
@@ -59,22 +71,34 @@ SRC = os.path.join(ROOT, "src")
 # H100 SXM data sheet: HBM bandwidth and dense bf16 tensor-core peak
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS_PER_S = 989e12
+F32_FLOPS_PER_S = 67e12        # f32 outside the tensor cores
 
 PA_TOL = 2e-2          # paged attention, bf16: atol = rtol
+FA_TOL = 2e-2          # flash attention, bf16 output: atol = rtol
 HEAD_RTOL = 1e-3       # head value rtol; idx must match past this gap
+UNIT_RTOL = 2e-5       # softmax unit kernels vs plain: split sum order
+UNIT_ATOL = 1e-7       # stats, probabilities and gradient
+XENT_ATOL = 1e-6       # cross-entropy (m + log l - x: cancellation)
 
 
 def kernel_modules():
     """The kernels' wrappers by kernel name (each has a ``launches``
     count)."""
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import fused_argmax_head as fah
     from repro_torch.kernels import fused_topk_head as ftk
+    from repro_torch.kernels import fused_xent as fx
+    from repro_torch.kernels import online_softmax as osm
     from repro_torch.kernels import paged_attention as pa
 
     return {"paged_attention": pa.paged_attention,
             "fused_argmax_head": fah.fused_argmax_head_with_value,
             "fused_topk_head": ftk.fused_topk_head,
-            "fused_verify_head": fah.fused_verify_head}
+            "fused_verify_head": fah.fused_verify_head,
+            "flash_attention": fa.flash_attention,
+            "softmax_stats": osm.softmax_stats,
+            "online_softmax": osm.online_softmax,
+            "fused_xent": fx.fused_xent}
 
 
 def reset_launches():
@@ -418,6 +442,145 @@ def check_verify_head(torch, timer):
     return rows
 
 
+def check_flash_attention(torch, timer):
+    """Flash attention at the prefill's shapes: one prompt (B 1) of T = S
+    in {71, 512} tokens, qwen3-0.6b's 16 query / 8 KV heads of hd 128,
+    bf16, causal; then g 8 (64 / 8 heads, qwen3-32b's) and a causal
+    window of 128, both at 512.  Operands are the transposed (B, T, H,
+    hd) views the layer passes.  Yardstick: SDPA on the same views."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    rows = {}
+    for name, t, hq, hkv, window in (("T71", 71, 16, 8, None),
+                                     ("T512", 512, 16, 8, None),
+                                     ("T512_g8", 512, 64, 8, None),
+                                     ("T512_w128", 512, 16, 8, 128)):
+        hd = 128
+
+        def rand(heads):
+            return torch.randn((1, t, heads, hd), generator=gen,
+                               device="cuda").to(torch.bfloat16).transpose(
+                                   1, 2)
+
+        q, k, v = rand(hq), rand(hkv), rand(hkv)
+        out = fa.flash_attention(q, k, v, causal=True, window=window)
+        torch.cuda.synchronize()
+        want = ref.flash_attention(q, k, v, causal=True, window=window)
+        check(bool(torch.isfinite(out).all()), f"flash {name}: non-finite")
+        err = (out.float() - want.float()).abs().max().item()
+        ok = torch.allclose(out.float(), want.float(), atol=FA_TOL,
+                            rtol=FA_TOL)
+        print(f"flash_attention {name}: max_abs_err {err:.6g} vs plain "
+              f"(atol = rtol = {FA_TOL}): {'ok' if ok else 'FAIL'}",
+              flush=True)
+        check(ok, f"flash attention {name} disagrees with its plain version")
+
+        idx = torch.arange(t, device="cuda")
+        mask = idx[None, :] <= idx[:, None]
+        if window is not None:
+            mask &= idx[None, :] > idx[:, None] - window
+        sdpa = (dict(is_causal=True) if window is None
+                else dict(attn_mask=mask))
+        ms = timer(lambda: fa.flash_attention(q, k, v, causal=True,
+                                              window=window))
+        plain_ms = timer(lambda: ref.flash_attention(q, k, v, causal=True,
+                                                     window=window))
+        lib_ms = timer(lambda: F.scaled_dot_product_attention(
+            q, k, v, enable_gqa=True, **sdpa))
+        nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+        flops = 4 * hd * hq * int(mask.sum())
+        bound_ms, bound_by = bound(nbytes, flops, BF16_FLOPS_PER_S)
+        print(f"flash_attention {name}: kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound "
+              f"{bound_ms:.4f} ms ({bound_by}: {nbytes / 1e6:.3f} MB, "
+              f"{flops / 1e9:.3f} GFLOP)", flush=True)
+        rows[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                          bound_ms=bound_ms, bound_by=bound_by,
+                          library_ms=lib_ms)
+    return rows
+
+
+def unit_errors(torch, x, lab, m, l, p, loss):
+    """Max abs errors of the three unit kernels' outputs against their
+    plain versions on (x, lab), after checking each within its
+    tolerance."""
+    from repro_torch.kernels import ref
+
+    rm, rl = ref.softmax_stats(x)
+    rp = ref.online_softmax(x)
+    rloss = ref.fused_xent(x, lab)
+    checks = (("softmax_stats m", m, rm, UNIT_ATOL),
+              ("softmax_stats l", l, rl, UNIT_ATOL),
+              ("online_softmax", p, rp, UNIT_ATOL),
+              ("fused_xent", loss, rloss, XENT_ATOL))
+    errs = {}
+    for what, got, want, atol in checks:
+        ok = torch.allclose(got, want, rtol=UNIT_RTOL, atol=atol)
+        errs[what] = (got - want).abs().max().item()
+        print(f"  {what}: max_abs_err {errs[what]:.6g} (rtol {UNIT_RTOL}, "
+              f"atol {atol}): {'ok' if ok else 'FAIL'}", flush=True)
+        check(ok, f"{what} disagrees with its plain version")
+    sums = p.sum(-1)
+    check(bool(((sums - 1).abs() <= 1e-5).all()),
+          "online_softmax rows do not sum to 1 within 1e-5")
+    return {"softmax_stats": max(errs["softmax_stats m"],
+                                 errs["softmax_stats l"]),
+            "online_softmax": errs["online_softmax"],
+            "fused_xent": errs["fused_xent"]}
+
+
+def check_softmax_units(torch, timer):
+    """The softmax unit's three kernels on (B, V = 151936) rows: B 12 in
+    f32 (the unit path's logits) and B 512 in bf16.  Yardsticks
+    ``torch.logsumexp``, ``torch.softmax`` and ``F.cross_entropy``."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import fused_xent as fx
+    from repro_torch.kernels import online_softmax as osm
+    from repro_torch.kernels import ref
+
+    v = 151936
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    rows = {}
+    for b, dtype in ((12, torch.float32), (512, torch.bfloat16)):
+        x = (torch.randn((b, v), generator=gen, device="cuda") * 4).to(dtype)
+        lab = torch.randint(0, v, (b,), generator=gen, device="cuda")
+        m, l = osm.softmax_stats(x)
+        p = osm.online_softmax(x)
+        loss = fx.fused_xent(x, lab)
+        torch.cuda.synchronize()
+        tag = f"B={b} {str(dtype).replace('torch.', '')}"
+        print(f"softmax unit {tag}:", flush=True)
+        errs = unit_errors(torch, x, lab, m, l, p, loss)
+        el, n = x.element_size(), b * v
+        cases = (
+            ("softmax_stats", lambda: osm.softmax_stats(x),
+             lambda: ref.softmax_stats(x),
+             lambda: torch.logsumexp(x, dim=-1), n * el + 8 * b, 4 * n),
+            ("online_softmax", lambda: osm.online_softmax(x),
+             lambda: ref.online_softmax(x),
+             lambda: torch.softmax(x, dim=-1, dtype=torch.float32),
+             n * el + 4 * n + 8 * b, 6 * n),
+            ("fused_xent", lambda: fx.fused_xent(x, lab),
+             lambda: ref.fused_xent(x, lab),
+             lambda: F.cross_entropy(x, lab, reduction="none"),
+             n * el + 12 * b, 4 * n))
+        for name, kern, plain, lib, nbytes, flops in cases:
+            ms, plain_ms, lib_ms = timer(kern), timer(plain), timer(lib)
+            bound_ms, bound_by = bound(nbytes, flops, F32_FLOPS_PER_S)
+            print(f"{name} {tag}: kernel {ms:.4f} ms, plain {plain_ms:.4f} "
+                  f"ms, library {lib_ms:.4f} ms, bound {bound_ms:.4f} ms "
+                  f"({bound_by}: {nbytes / 1e6:.3f} MB)", flush=True)
+            rows[(name, b)] = dict(max_abs_err=errs[name], ms=ms,
+                                   plain_ms=plain_ms, bound_ms=bound_ms,
+                                   bound_by=bound_by, library_ms=lib_ms)
+    return rows
+
+
 # ---------------------------------------------------------------------------
 # Phases 4-6: the main path
 # ---------------------------------------------------------------------------
@@ -530,25 +693,35 @@ def run_main_path(torch, prompts, max_new):
 
     outs, _, launches, st, wall = drive(torch, llm, prompts, params)
     n_tok = sum(len(o.token_ids) for o in outs)
+    prefill_ms = st["prefill_ms"] / st["prefills"]
     print(f"main path: {len(prompts)} prompts of {min(map(len, prompts))}-"
           f"{max(map(len, prompts))} tokens, {n_tok} tokens generated in "
           f"{wall:.3f} s = {n_tok / wall:.2f} tok/s; {st['decode_steps']} "
           f"decode steps, mean {st['decode_ms'] / st['decode_steps']:.3f} "
-          f"ms/step; {st['prefills']} prefills, mean "
-          f"{st['prefill_ms'] / st['prefills']:.3f} ms", flush=True)
+          f"ms/step; {st['prefills']} prefills, mean {prefill_ms:.3f} ms "
+          f"(74.579 ms with the plain prefill attention before the flash "
+          f"kernel, for the record)", flush=True)
     want_pa = cfg.n_layers * st["decode_steps"]
+    want_fa = cfg.n_layers * st["prefills"]
     want_head = st["decode_steps"] + st["prefills"]
     print(f"main path launches: paged_attention {launches['paged_attention']}"
           f" (want {cfg.n_layers} x {st['decode_steps']} = {want_pa}), "
+          f"flash_attention {launches['flash_attention']} (want "
+          f"{cfg.n_layers} x {st['prefills']} = {want_fa}), "
           f"fused_argmax_head {launches['fused_argmax_head']} (want "
           f"{st['decode_steps']} + {st['prefills']} = {want_head})",
           flush=True)
     check(launches["paged_attention"] == want_pa,
           "paged attention launches != layers x decode steps")
+    check(launches["flash_attention"] == want_fa,
+          "flash attention launches != layers x prefills")
     check(launches["fused_argmax_head"] == want_head,
           "head launches != decode steps + prefills")
     check(launches["fused_topk_head"] == launches["fused_verify_head"] == 0,
           "a greedy run launched a top-k or verify kernel")
+    check(all(launches[n] == 0 for n in ("softmax_stats", "online_softmax",
+                                         "fused_xent")),
+          "a greedy run launched a softmax-unit kernel")
     check(st["decode_steps"] > 0 and st["prefills"] >= len(prompts),
           "the main path ran no decode step or missed a prefill")
     for o in outs:
@@ -559,7 +732,8 @@ def run_main_path(torch, prompts, max_new):
               f"{o.token_ids}")
     summary = dict(tok_s=n_tok / wall, tokens=n_tok,
                    decode_steps=st["decode_steps"], prefills=st["prefills"],
-                   decode_ms=st["decode_ms"] / st["decode_steps"])
+                   decode_ms=st["decode_ms"] / st["decode_steps"],
+                   prefill_ms=prefill_ms)
     return llm, outs, launches, summary
 
 
@@ -596,6 +770,8 @@ def run_sampled_path(torch, llm, prompts, greedy_outs, max_new):
           "sampled path: argmax launches != greedy head calls")
     check(launches["fused_verify_head"] == 0,
           "sampled path: a verify kernel ran without speculation")
+    check(launches["flash_attention"] == llm.cfg.n_layers * st["prefills"],
+          "sampled path: flash attention launches != layers x prefills")
     for o, c, kind in zip(outs, cands, kinds):
         check(1 <= len(o.token_ids) <= max_new
               and all(0 <= x < llm.cfg.vocab_size for x in o.token_ids),
@@ -670,6 +846,8 @@ def run_spec_path(torch, llm, lengths, max_new):
     check(launches["paged_attention"] == llm.cfg.n_layers
           * st["decode_steps"], "spec path: paged attention launches != "
           "layers x decode steps")
+    check(launches["flash_attention"] == llm.cfg.n_layers * st["prefills"],
+          "spec path: flash attention launches != layers x prefills")
     same = compare_streams(torch, llm, prompts, base, outs,
                            "spec path, spec_k=4 vs spec_k=0")
 
@@ -712,6 +890,7 @@ def profile_decode(torch, llm, prompts, steps=5):
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.serve.params import SamplingParams
 
     eng = llm.engine
@@ -719,6 +898,7 @@ def profile_decode(torch, llm, prompts, steps=5):
         llm.submit(p, SamplingParams(max_new_tokens=steps + 4))
     eng.step()                          # admit all 8, first decode step
     torch.cuda.synchronize()
+    n_flash = fa.flash_attention.launches
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -726,6 +906,8 @@ def profile_decode(torch, llm, prompts, steps=5):
             eng.step()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+    check(fa.flash_attention.launches == n_flash,
+          "a pure decode step launched the flash-attention kernel")
     while eng.has_work:
         eng.step()
     kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
@@ -745,6 +927,69 @@ def profile_decode(torch, llm, prompts, steps=5):
         print(f"  {us / 1e3 / steps:8.3f} ms/step  {name[:90]}", flush=True)
     return dict(wall_ms=wall_ms, busy_ms=busy_ms,
                 kernels_per_step=len(kernels) / steps)
+
+
+def run_unit_path(torch, llm, prompts, outs):
+    """Phase 4d: the full softmax unit on the main path's logits.  The
+    final hidden states of the 12 prompts (one-shot prefills, not
+    counted) times the head weight in f32 give (12, 151936) logits; then
+    ``ops.softmax_stats``, ``ops.online_softmax`` and ``ops.softmax_xent``
+    forward and backward run on them with the launch counts set to 0,
+    labels = phase 4's first tokens.  The backward's softmax is a second
+    ``online_softmax`` call, which runs phase 1 through
+    ``softmax_stats``."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models import lm
+
+    eng = llm.engine
+    h = torch.cat([lm.prefill(eng.params, eng.cfg, torch.as_tensor(
+        p, device=eng.device).long()[None], len(p))[0] for p in prompts])
+    logits = torch.matmul(h.float(), lm.lm_head_weight(
+        eng.params, eng.cfg).float())
+    labels = torch.tensor([o.token_ids[0] for o in outs], device=eng.device)
+    x = logits.clone().requires_grad_(True)
+    torch.cuda.synchronize()
+    reset_launches()
+    m, l = ops.softmax_stats(logits)
+    p = ops.online_softmax(logits)
+    loss = ops.softmax_xent(x, labels)
+    loss.mean().backward()
+    torch.cuda.synchronize()
+    launches = read_launches()
+    calls = {"softmax_stats": 1 + 2, "online_softmax": 1 + 1,
+             "fused_xent": 1}
+    print(f"unit path: logits {tuple(logits.shape)} f32; launches "
+          f"{launches}; want {calls} (online_softmax: 1 call + the "
+          f"backward's; softmax_stats: 1 call + each online_softmax's)",
+          flush=True)
+    check(all(launches[n] == c for n, c in calls.items()),
+          "unit path: a softmax-unit kernel's launches != its calls")
+    check(all(c == 0 for n, c in launches.items() if n not in calls),
+          "unit path: launched a kernel outside the softmax unit")
+    errs = unit_errors(torch, logits, labels, m, l, p, loss.detach())
+    xr = logits.clone().requires_grad_(True)
+    ref.fused_xent(xr, labels).mean().backward()
+    gerr = (x.grad - xr.grad).abs().max().item()
+    ok = torch.allclose(x.grad, xr.grad, rtol=UNIT_RTOL, atol=UNIT_ATOL)
+    print(f"  softmax_xent backward: max_abs_err {gerr:.6g} vs autograd "
+          f"through the plain version (rtol {UNIT_RTOL}, atol {UNIT_ATOL}):"
+          f" {'ok' if ok else 'FAIL'}", flush=True)
+    check(ok, "softmax_xent backward disagrees with the plain gradient")
+
+    # Theorem 1 through the full unit: argmax of the probabilities is
+    # the comparator head's token, except at a near-tie of the top 2
+    top2 = logits.topk(2, dim=-1).values
+    decided = (top2[:, 0] - top2[:, 1]) > HEAD_RTOL * top2[:, 0].abs()
+    same = torch.argmax(p, dim=-1) == labels
+    print(f"unit path: argmax(online_softmax) == phase 4's first token for "
+          f"{int(same.sum())}/{len(prompts)} prompts ({int(decided.sum())} "
+          f"decided by more than {HEAD_RTOL}*|max|)", flush=True)
+    check(bool((same | ~decided).all()),
+          "unit path: argmax(online_softmax) != the reduced head's token at "
+          "a decided row")
+    check(bool(torch.equal(m, top2[:, 0])),
+          "unit path: the stats' max is not the row max")
+    return launches, errs
 
 
 def check_theorem1(torch, llm, prompts, outs, max_new):
@@ -864,6 +1109,8 @@ def main() -> int:
         head_rows = check_argmax_head(torch, timer)
         topk_rows = check_topk_head(torch, timer)
         verify_rows = check_verify_head(torch, timer)
+        flash_rows = check_flash_attention(torch, timer)
+        unit_rows = check_softmax_units(torch, timer)
         print(clocks_line(), flush=True)
         del timer
 
@@ -878,6 +1125,7 @@ def main() -> int:
         verify_launches, summary["spec"] = run_spec_path(
             torch, llm, [len(p) for p in prompts], max_new)
         summary["profile"] = profile_decode(torch, llm, prompts)
+        unit_launches, unit_errs = run_unit_path(torch, llm, prompts, outs)
         check_theorem1(torch, llm, prompts, outs, max_new)
         del llm
         check_small_reference(torch)
@@ -914,7 +1162,26 @@ def main() -> int:
              max_abs_err=max(r["max_abs_err"] for r in verify_rows.values()),
              **{k: verify_rows[8][k] for k in (
                  "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}),
+        dict(name="flash_attention", route="cuda",
+             source="src/repro_torch/kernels/csrc/flash_attention.cu",
+             replaces="src/repro/kernels/flash_attention.py:76",
+             launches=launches["flash_attention"],
+             max_abs_err=max(r["max_abs_err"] for r in flash_rows.values()),
+             **{k: flash_rows["T512"][k] for k in (
+                 "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}),
     ]
+    for name, replaces in (
+            ("fused_xent", "src/repro/kernels/fused_xent.py:59"),
+            ("softmax_stats", "src/repro/kernels/online_softmax.py:69"),
+            ("online_softmax", "src/repro/kernels/online_softmax.py:106")):
+        kernels.append(dict(
+            name=name, route="cuda",
+            source="src/repro_torch/kernels/csrc/online_softmax.cu",
+            replaces=replaces, launches=unit_launches[name],
+            max_abs_err=max(unit_errs[name], unit_rows[(name, 12)][
+                "max_abs_err"], unit_rows[(name, 512)]["max_abs_err"]),
+            **{k: unit_rows[(name, 12)][k] for k in (
+                "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}))
     print("main path summary: " + json.dumps(summary), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

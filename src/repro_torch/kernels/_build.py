@@ -26,7 +26,8 @@ from typing import Dict, Sequence
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-KERNELS = ("paged_attention", "fused_argmax_head", "fused_topk_head")
+KERNELS = ("paged_attention", "fused_argmax_head", "fused_topk_head",
+           "flash_attention", "online_softmax")
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC")
 

@@ -29,67 +29,27 @@
 //     kv extent of its own queries;
 //     masked positions score -inf, a stage with nothing valid leaves the
 //     carry untouched, and a query with no valid key writes 0 (l is
-//     clamped at 1e-30 as the TPU kernel does).
+//     clamped at 1e-30 as the TPU kernel does).  That inner loop lives in
+//     csrc/attention_tile.cuh, shared with flash_attention.cu.
 // What it leaves on the table: a (row, head) block is one CTA, so short
 // batches fill few SMs, and stages are not double-buffered.  Splitting
 // long rows across CTAs (flash-decoding) and cp.async/TMA pipelining are
 // the next steps.
 #include <climits>
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+
+#include "attention_tile.cuh"
 
 namespace {
 
-constexpr unsigned kFull = 0xffffffffu;
-
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-__device__ __forceinline__ void store_from_float(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store_from_float(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16(x);
-}
-
-template <typename T, int N>
-struct alignas(sizeof(T) * N > 16 ? 16 : sizeof(T) * N) Vec {
-  T v[N];
-};
-
-// N consecutive elements -> f32 registers, one vector load.
-template <typename T, int N>
-__device__ __forceinline__ void load_floats(const T* p, float (&out)[N]) {
-  const Vec<T, N> x = *reinterpret_cast<const Vec<T, N>*>(p);
-#pragma unroll
-  for (int i = 0; i < N; ++i) out[i] = to_float(x.v[i]);
-}
-
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(kFull, x, o);
-  return x;
-}
-
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(kFull, x, o));
-  return x;
-}
-
 // q (B, T, Hq, HD); pools (num_blocks, bs, Hkv, HD); btab (B, nb) i32;
 // pos (B, T) i32; out (B, T, Hq, HD).  window <= 0 means no window.
-// Lane l of a warp holds head-dim elements [l * EPL, (l + 1) * EPL);
-// below HD = 32 only the first HD lanes hold any.
 template <typename T, int HD, int STAGE>
 __global__ void __launch_bounds__(1024) paged_attention_kernel(
     const T* __restrict__ q, const T* __restrict__ kpool,
     const T* __restrict__ vpool, const int* __restrict__ btab,
     const int* __restrict__ pos, T* __restrict__ out, int tq, int hq,
     int hkv, int bs, int nb, int window, float scale) {
-  constexpr int EPL = HD >= 32 ? HD / 32 : 1;
-  constexpr int LANES = HD / EPL;      // lanes that hold elements
+  constexpr int EPL = attn::kEpl<HD>;
   constexpr int VEC = 16 / sizeof(T);  // elements per 16-byte load
   constexpr int CPR = HD / VEC;        // 16-byte chunks per kv row
   extern __shared__ __align__(16) unsigned char smem[];
@@ -103,7 +63,6 @@ __global__ void __launch_bounds__(1024) paged_attention_kernel(
   const int qrow = row0 + warp;
   const int row_end = min(tq * g, row0 + 32);
   const bool active = qrow < row_end;
-  const bool lane_on = lane < LANES;
   const int* prow = pos + (size_t)b * tq;
   const int* trow = btab + (size_t)b * nb;
 
@@ -118,17 +77,14 @@ __global__ void __launch_bounds__(1024) paged_attention_kernel(
   const int lo = window > 0 ? max(0, lo_q - window + 1) : 0;
 
   int my_pos = -1, t = 0, qh = 0;
-  float qv[EPL], acc[EPL];
+  float qv[EPL] = {}, acc[EPL] = {};
   float m = -INFINITY, l = 0.f;
-#pragma unroll
-  for (int e = 0; e < EPL; ++e) acc[e] = qv[e] = 0.f;
   if (active) {
     t = qrow / g;
     qh = h * g + qrow % g;
     my_pos = prow[t];
-    if (lane_on)
-      load_floats<T, EPL>(
-          q + (((size_t)b * tq + t) * hq + qh) * HD + lane * EPL, qv);
+    attn::load_query<T, HD>(q + (((size_t)b * tq + t) * hq + qh) * HD, lane,
+                            qv);
   }
 
   for (int p0 = lo; p0 <= hi; p0 += STAGE) {
@@ -149,48 +105,15 @@ __global__ void __launch_bounds__(1024) paged_attention_kernel(
     }
     __syncthreads();
     if (!active) continue;
-    for (int j0 = 0; j0 < STAGE; j0 += 32) {
-      // lane jj keeps the score of position p0 + j0 + jj
-      float s_mine = -INFINITY;
-#pragma unroll 4
-      for (int jj = 0; jj < 32; ++jj) {
-        float kr[EPL] = {};
-        if (lane_on) load_floats<T, EPL>(ks + (j0 + jj) * HD + lane * EPL, kr);
-        float part = 0.f;
-#pragma unroll
-        for (int e = 0; e < EPL; ++e) part = fmaf(qv[e], kr[e], part);
-        part = warp_sum(part);
-        const int p = p0 + j0 + jj;
-        const bool valid =
-            p <= my_pos && (window <= 0 || p > my_pos - window);
-        if (lane == jj && valid) s_mine = part * scale;
-      }
-      const float smax = warp_max(s_mine);
-      if (smax == -INFINITY) continue;  // warp-uniform: no valid key here
-      const float m_new = fmaxf(m, smax);
-      const float alpha = (m == -INFINITY) ? 0.f : expf(m - m_new);
-      const float p_mine = (s_mine == -INFINITY) ? 0.f : expf(s_mine - m_new);
-      l = l * alpha + warp_sum(p_mine);
-#pragma unroll
-      for (int e = 0; e < EPL; ++e) acc[e] *= alpha;
-#pragma unroll 4
-      for (int jj = 0; jj < 32; ++jj) {
-        const float pj = __shfl_sync(kFull, p_mine, jj);
-        float vr[EPL] = {};
-        if (lane_on) load_floats<T, EPL>(vs + (j0 + jj) * HD + lane * EPL, vr);
-#pragma unroll
-        for (int e = 0; e < EPL; ++e) acc[e] = fmaf(pj, vr[e], acc[e]);
-      }
-      m = m_new;
-    }
+    attn::fold_stage<T, HD, STAGE>(
+        ks, vs, p0, lane, qv, acc, m, l, scale, [=](int p) {
+          return p <= my_pos && (window <= 0 || p > my_pos - window);
+        });
   }
 
-  if (active && lane_on) {
-    const float inv = 1.f / fmaxf(l, 1e-30f);
-    T* op = out + (((size_t)b * tq + t) * hq + qh) * HD + lane * EPL;
-#pragma unroll
-    for (int e = 0; e < EPL; ++e) store_from_float(op + e, acc[e] * inv);
-  }
+  if (active)
+    attn::store_row<T, HD>(out + (((size_t)b * tq + t) * hq + qh) * HD,
+                           lane, acc, l);
 }
 
 template <typename T, int HD>

@@ -14,8 +14,11 @@ from typing import Optional
 
 import torch
 
+from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import fused_argmax_head as _fah
 from repro_torch.kernels import fused_topk_head as _ftk
+from repro_torch.kernels import fused_xent as _fx
+from repro_torch.kernels import online_softmax as _os
 from repro_torch.kernels import paged_attention as _pa
 from repro_torch.kernels import ref
 
@@ -89,3 +92,66 @@ def paged_attention(q, k_pool, v_pool, block_tables, positions, *,
                                    positions, window=window)
     return _pa.paged_attention(q, k_pool, v_pool, block_tables, positions,
                                window=window)
+
+
+def flash_attention(q, k, v, *, causal: bool = True,
+                    window: Optional[int] = None):
+    """Attention of T queries over S keys with the scores never stored.
+
+    q (B, Hq, T, hd); k, v (B, Hkv, S, hd), GQA when Hkv < Hq (query head
+    h reads kv head h // (Hq / Hkv)).  Query and key indices both count
+    from 0: ``causal`` keeps keys <= the query's index, ``window`` keys >
+    index - window.  A query with no visible key gives 0.  Returns
+    (B, Hq, T, hd) in q's dtype."""
+    if window is not None and window < 1:
+        raise ValueError(f"window={window}: must be >= 1 or None")
+    if _device_type(q, k, v) == "cpu":
+        return ref.flash_attention(q, k, v, causal=causal, window=window)
+    return _fa.flash_attention(q, k, v, causal=causal, window=window)
+
+
+def softmax_stats(x: torch.Tensor):
+    """(max, sum exp(x - max)) per row of x (B, V), both (B,) f32 -- the
+    online-softmax carry, phase 1 of the full softmax unit."""
+    if _device_type(x) == "cpu":
+        return ref.softmax_stats(x)
+    return _os.softmax_stats(x)
+
+
+def online_softmax(x: torch.Tensor) -> torch.Tensor:
+    """The full softmax unit (the paper's baseline): stable softmax over
+    the last axis, (B, V) -> (B, V) f32."""
+    if _device_type(x) == "cpu":
+        return ref.online_softmax(x)
+    return _os.online_softmax(x)
+
+
+class _SoftmaxXent(torch.autograd.Function):
+    """Per-row softmax cross-entropy; the backward recomputes the softmax
+    from the saved logits (no probabilities kept from the forward), as
+    ``repro.kernels.ops._xent_bwd`` does."""
+
+    @staticmethod
+    def forward(ctx, logits, labels):
+        ctx.save_for_backward(logits, labels)
+        if _device_type(logits, labels) == "cpu":
+            return ref.fused_xent(logits, labels)
+        return _fx.fused_xent(logits, labels)
+
+    @staticmethod
+    def backward(ctx, g):
+        logits, labels = ctx.saved_tensors
+        p = online_softmax(logits)
+        onehot = torch.nn.functional.one_hot(labels.long(), logits.shape[-1])
+        dlogits = (p - onehot.to(p.dtype)) * g[:, None]
+        return dlogits.to(logits.dtype), None
+
+
+def softmax_xent(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Per-row softmax cross-entropy ``logsumexp(x) - x[label]``, (B, V),
+    (B,) int -> (B,) f32, the probabilities never stored in the forward.
+    Differentiable in ``logits`` (not in ``labels``): the gradient is
+    ``(softmax(logits) - onehot(labels)) * g`` in the logits' dtype, its
+    softmax through ``online_softmax`` -- the kernel on the card.
+    Labels must lie in [0, V)."""
+    return _SoftmaxXent.apply(logits, labels)

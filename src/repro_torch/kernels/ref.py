@@ -111,3 +111,60 @@ def paged_attention(q, k_pool, v_pool, block_tables, positions, *,
     out = torch.einsum("bhts,bshd->bthd", probs, v)
     return out if multi else out[:, 0]
 
+
+
+def flash_attention(q, k, v, *, causal: bool = True,
+                    window: Optional[int] = None) -> torch.Tensor:
+    """Plain masked softmax attention with GQA by repeat (what the
+    kernel avoids).  q (B, Hq, T, hd); k, v (B, Hkv, S, hd).  Query and
+    key indices both count from 0; ``causal`` keeps keys <= the query's
+    index, ``window`` keys > index - window.  Scores and probabilities
+    in f32, masked at -inf; a row with no visible key gives 0.  Returns
+    (B, Hq, T, hd) in q's dtype -- ``repro.kernels.ref.flash_attention``
+    step for step."""
+    hq, t, hd = q.shape[1], q.shape[2], q.shape[3]
+    hkv, s = k.shape[1], k.shape[2]
+    g = hq // hkv
+    if g > 1:
+        k = torch.repeat_interleave(k, g, dim=1)
+        v = torch.repeat_interleave(v, g, dim=1)
+    scores = torch.einsum("bhtd,bhsd->bhts", q.float(),
+                          k.float()) / (hd ** 0.5)
+    q_idx = torch.arange(t, device=q.device)[:, None]
+    k_idx = torch.arange(s, device=q.device)[None, :]
+    mask = torch.ones((t, s), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= k_idx <= q_idx
+    if window is not None:
+        mask &= k_idx > q_idx - window
+    scores = torch.where(mask, scores, float("-inf"))
+    probs = torch.softmax(scores, dim=-1)
+    probs = torch.where(torch.isnan(probs), 0.0, probs)   # fully masked
+    return torch.einsum("bhts,bhsd->bhtd", probs,
+                        v.float()).to(q.dtype)
+
+
+def online_softmax(x: torch.Tensor) -> torch.Tensor:
+    """Stable softmax over the last axis, (B, V) -> (B, V) f32: the full
+    softmax unit, the paper's baseline."""
+    x = x.float()
+    e = torch.exp(x - torch.amax(x, dim=-1, keepdim=True))
+    return e / torch.sum(e, dim=-1, keepdim=True)
+
+
+def softmax_stats(x: torch.Tensor):
+    """(max, sum exp(x - max)) per row, both (B,) f32 -- the online
+    softmax carry."""
+    x = x.float()
+    m = torch.amax(x, dim=-1)
+    return m, torch.sum(torch.exp(x - m[:, None]), dim=-1)
+
+
+def fused_xent(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Per-row softmax cross-entropy ``logsumexp(x) - x[label]``: (B, V),
+    (B,) int -> (B,) f32."""
+    x = logits.float()
+    m = torch.amax(x, dim=-1)
+    lse = m + torch.log(torch.sum(torch.exp(x - m[:, None]), dim=-1))
+    label_logit = torch.gather(x, 1, labels.long()[:, None])[:, 0]
+    return lse - label_logit

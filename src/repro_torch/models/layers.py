@@ -2,12 +2,12 @@
 
 Counterpart of ``repro.models.layers``: the same math in the same order
 and at the same precision points -- norms and RoPE in f32 cast back to
-the compute dtype, attention scores in the compute dtype then f32,
-masked at -1e30 -- so the port's hidden states track the JAX package's.
+the compute dtype; the prefill's attention is the JAX package's flash
+path (``use_pallas``: f32 scores, masked at -inf), the decode's the
+paged kernel's -- so the port's hidden states track the JAX package's.
 """
 from __future__ import annotations
 
-import math
 from typing import Optional
 
 import torch
@@ -66,14 +66,16 @@ def _split_heads(x: torch.Tensor, n_heads: int, head_dim: int):
 
 
 def attention(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
-              positions: torch.Tensor, cache: Optional[dict] = None,
+              positions: torch.Tensor, causal: bool = True,
+              window: Optional[int] = None, cache: Optional[dict] = None,
               cache_pos: Optional[torch.Tensor] = None,
               block_tables: Optional[torch.Tensor] = None):
     """Returns ``(out, extra)``.
 
-    ``cache is None``: the plain causal branch (prefill) -- masked
-    attention over the T positions of ``x``; ``extra`` is the (k, v)
-    the prefill builds its cache from.
+    ``cache is None``: the cache-less branch (prefill) -- attention over
+    the T positions of ``x`` through ``ops.flash_attention`` (``causal``,
+    ``window``: the plain version on the CPU, the kernel on the card);
+    ``extra`` is the (k, v) the prefill builds its cache from.
 
     ``cache`` (the shared ``(num_blocks, bs, Hkv, hd)`` pools) with
     ``cache_pos`` ((B,) or (B, T)) and ``block_tables`` (B, nb): the
@@ -93,9 +95,13 @@ def attention(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
     k = apply_rope(k, positions, cfg.rope_theta)
 
     if cache is None:
-        q_pos = positions if positions.dim() == 1 else positions[0]
-        out = _causal(q, k, v, q_pos)
-        return out.reshape(B, T, hq * hd) @ p["wo"], (k, v)
+        # (B, T, H, hd) -> (B, H, T, hd) views; the kernel takes strides,
+        # and its output keeps q's layout, so the reshape back is free
+        o = ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                                v.transpose(1, 2), causal=causal,
+                                window=window)
+        out = o.transpose(1, 2).reshape(B, T, hq * hd)
+        return out @ p["wo"], (k, v)
 
     if cache_pos is None or block_tables is None:
         raise NotImplementedError(
@@ -131,20 +137,3 @@ def attention(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
     out = o.reshape(B, T, hq * hd).to(x.dtype)
     return out @ p["wo"], cache
 
-
-def _causal(q, k, v, q_pos):
-    """Plain masked attention (the prefill branch): GQA by repeating K/V
-    to Hq heads, scores in the compute dtype then f32, masked at -1e30.
-    Plain matmul and softmax, as the JAX package leaves it to XLA."""
-    dt = q.dtype
-    hq, hkv, hd = q.shape[2], k.shape[2], q.shape[3]
-    g = hq // hkv
-    if g > 1:
-        k = torch.repeat_interleave(k, g, dim=2)
-        v = torch.repeat_interleave(v, g, dim=2)
-    scores = torch.einsum("bthd,bshd->bhts", q, k) / math.sqrt(hd)
-    scores = scores.float()
-    mask = q_pos[None, :] <= q_pos[:, None]           # kv_pos <= q_pos
-    scores = torch.where(mask[None, None], scores, -1e30)
-    probs = torch.softmax(scores, dim=-1).to(dt)
-    return torch.einsum("bhts,bshd->bthd", probs, v)

@@ -58,7 +58,8 @@ def _layer(sp: dict, l: int) -> dict:
 def _apply_layer(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
                  positions, cache=None, cache_pos=None, block_tables=None):
     a, extra = attention(p["attn"], rms_norm(x, p["ln1"], cfg.norm_eps),
-                         cfg, positions=positions, cache=cache,
+                         cfg, positions=positions, causal=True,
+                         window=cfg.attention_window, cache=cache,
                          cache_pos=cache_pos, block_tables=block_tables)
     x = x + a
     h = mlp(p["mlp"], rms_norm(x, p["ln2"], cfg.norm_eps), cfg.activation)

@@ -9,7 +9,11 @@ one.  Run them on a GPU machine with
 
 Tolerances: f32 kernels sum in another order than the plain versions
 (atol = rtol = 1e-4); bf16 paged attention keeps f32 probabilities where
-the plain version rounds scores and probabilities to bf16 (2e-2); head
+the plain version rounds scores and probabilities to bf16 (2e-2), and
+bf16 flash attention rounds the same f32 result to bf16 (2e-2, a step
+of bf16 at magnitude 2-4); the softmax unit's kernels sum in a split
+order (stats and probabilities rtol 2e-5, atol 1e-7; the cross-entropy
+rtol 2e-5, atol 1e-6; its gradient rtol 2e-5, atol 1e-7); head
 indices must be equal wherever the plain top-2 f32 logit gap exceeds
 1e-3 * |max|, and exactly equal on planted ties.  The top-k head's
 values agree at rtol 1e-5 (f32) / 1e-3 (bf16); its indices are exact
@@ -21,8 +25,12 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import fused_argmax_head as fah  # noqa: E402
 from repro_torch.kernels import fused_topk_head as ftk  # noqa: E402
+from repro_torch.kernels import fused_xent as fx  # noqa: E402
+from repro_torch.kernels import online_softmax as osm  # noqa: E402
+from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import paged_attention as pa  # noqa: E402
 from repro_torch.kernels import ref  # noqa: E402
 from repro_torch.serve.paged_kv import pow2  # noqa: E402
@@ -99,6 +107,171 @@ def test_paged_attention_kernel_rejects_bad_operands(dev):
                            vp[..., :48].contiguous(), bt, pos)
     with pytest.raises(ValueError, match=r"Hkv \| Hq"):
         pa.paged_attention(q[:, :3].contiguous(), kp, vp, bt, pos)
+
+
+def _flash_operands(dev, dtype, *, b, hq, hkv, t, s, hd, seed):
+    """q (B, Hq, T, hd), k, v (B, Hkv, S, hd) as the layer passes them:
+    transposed views of (B, L, H, hd) tensors."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def rand(length, heads):
+        return torch.randn((b, length, heads, hd), generator=gen,
+                           device=dev).to(dtype).transpose(1, 2)
+
+    return rand(t, hq), rand(s, hkv), rand(s, hkv)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd", [16, 32, 64, 128, 256])
+@pytest.mark.parametrize("b,hkv,g,t,s", [(2, 2, 1, 37, 37),
+                                         (1, 4, 2, 130, 130),
+                                         (1, 2, 8, 48, 160),
+                                         (1, 1, 2, 160, 48)])
+@pytest.mark.parametrize("causal,window", [(True, None), (False, None),
+                                           (True, 16), (False, 16)])
+def test_flash_attention_kernel_matches_plain(dev, dtype, hd, b, hkv, g, t,
+                                              s, causal, window):
+    """GQA at g 1, 2 and 8, ragged T, T != S both ways (indices from 0 on
+    both sides), causal, full and windowed masks; strided operands."""
+    q, k, v = _flash_operands(dev, dtype, b=b, hq=hkv * g, hkv=hkv, t=t,
+                              s=s, hd=hd, seed=hd + t + g)
+    before = fa.flash_attention.launches
+    out = fa.flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert fa.flash_attention.launches == before + 1
+    want = ref.flash_attention(q, k, v, causal=causal, window=window)
+    assert out.shape == q.shape and out.dtype == q.dtype
+    # the output keeps q's layout: the layer's reshape back is free
+    assert out.stride() == q.stride()
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(out.float(), want.float(), atol=tol, rtol=tol)
+
+
+def test_flash_attention_kernel_contiguous_and_empty_rows(dev):
+    """Contiguous operands give the strided result; queries that see no
+    key (a causal window with T > S + window) give 0."""
+    q, k, v = _flash_operands(dev, torch.float32, b=1, hq=4, hkv=2, t=40,
+                              s=8, hd=64, seed=0)
+    out = fa.flash_attention(q, k, v, window=4)
+    dense = fa.flash_attention(q.contiguous(), k.contiguous(),
+                               v.contiguous(), window=4)
+    torch.cuda.synchronize()
+    assert torch.equal(out, dense)
+    assert bool((out[:, :, 11:] == 0).all()) and bool(
+        (out[:, :, :11] != 0).any())
+    torch.testing.assert_close(out, ref.flash_attention(q, k, v, window=4),
+                               atol=1e-4, rtol=1e-4)
+
+
+def test_flash_attention_kernel_rejects_bad_operands(dev):
+    q, k, v = _flash_operands(dev, torch.bfloat16, b=1, hq=4, hkv=2, t=8,
+                              s=8, hd=64, seed=0)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        fa.flash_attention(q.cpu(), k, v)
+    with pytest.raises(ValueError, match="dtypes"):
+        fa.flash_attention(q.half(), k.half(), v.half())
+    with pytest.raises(ValueError, match="dtypes"):
+        fa.flash_attention(q, k.float(), v)
+    with pytest.raises(ValueError, match="head dim"):
+        fa.flash_attention(q[..., :48], k[..., :48], v[..., :48])
+    with pytest.raises(ValueError, match=r"Hkv \| Hq"):
+        fa.flash_attention(q[:, :3], k, v)
+    with pytest.raises(ValueError, match="contiguous"):
+        fa.flash_attention(q, k.transpose(2, 3).contiguous().transpose(2, 3),
+                           v)
+    with pytest.raises(ValueError, match="window"):
+        fa.flash_attention(q, k, v, window=0)
+
+
+def _rows(dev, dtype, b, v, seed, scale=8.0):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return (torch.randn((b, v), generator=gen, device=dev) * scale).to(dtype)
+
+
+UNIT_RTOL, UNIT_ATOL, XENT_ATOL = 2e-5, 1e-7, 1e-6
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b", [1, 12, 512])
+@pytest.mark.parametrize("v", [777, 4097, 151936])
+def test_softmax_unit_kernels_match_plain(dev, dtype, b, v):
+    """Phase 1 (stats), phase 2 (probabilities) and the cross-entropy
+    against their plain versions; one launch each."""
+    x = _rows(dev, dtype, b, v, seed=b * v)
+    lab = torch.randint(0, v, (b,), generator=torch.Generator(
+        device=dev).manual_seed(v), device=dev)
+    n0 = (osm.softmax_stats.launches, osm.online_softmax.launches,
+          fx.fused_xent.launches)
+    m, l = osm.softmax_stats(x)
+    p = osm.online_softmax(x)
+    loss = fx.fused_xent(x, lab)
+    torch.cuda.synchronize()
+    assert (osm.softmax_stats.launches - n0[0], osm.online_softmax.launches
+            - n0[1], fx.fused_xent.launches - n0[2]) == (2, 1, 1)
+    rm, rl = ref.softmax_stats(x)
+    torch.testing.assert_close(m, rm, rtol=UNIT_RTOL, atol=UNIT_ATOL)
+    torch.testing.assert_close(l, rl, rtol=UNIT_RTOL, atol=UNIT_ATOL)
+    assert p.dtype == torch.float32 and p.shape == (b, v)
+    torch.testing.assert_close(p, ref.online_softmax(x), rtol=UNIT_RTOL,
+                               atol=UNIT_ATOL)
+    torch.testing.assert_close(p.sum(-1), torch.ones(b, device=dev),
+                               rtol=1e-5, atol=0)
+    torch.testing.assert_close(loss, ref.fused_xent(x, lab), rtol=UNIT_RTOL,
+                               atol=XENT_ATOL)
+
+
+def test_softmax_unit_kernels_extreme_range_and_int32_labels(dev):
+    """-90 and +80 in one row (a carry that is not rescaled over- or
+    underflows), unaligned rows (V odd, scalar loads) and int32 labels."""
+    x = torch.cat([torch.full((3, 1001), -90.0, device=dev),
+                   torch.full((3, 1000), 80.0, device=dev)], dim=1)
+    m, l = osm.softmax_stats(x)
+    rm, rl = ref.softmax_stats(x)
+    torch.testing.assert_close(m, rm, rtol=UNIT_RTOL, atol=UNIT_ATOL)
+    torch.testing.assert_close(l, rl, rtol=UNIT_RTOL, atol=UNIT_ATOL)
+    lab = torch.tensor([0, 1000, 2000], device=dev, dtype=torch.int32)
+    torch.testing.assert_close(fx.fused_xent(x, lab), ref.fused_xent(x, lab),
+                               rtol=UNIT_RTOL, atol=XENT_ATOL)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_softmax_xent_backward_on_card(dev, dtype):
+    """``ops.softmax_xent`` forward and backward on the card (the xent
+    kernel, then the softmax kernel in the backward) against autograd
+    through the plain version; the gradient in the logits' dtype."""
+    x = _rows(dev, dtype, 12, 151936, seed=5, scale=4.0)
+    lab = torch.randint(0, 151936, (12,), device=dev)
+    xa = x.clone().requires_grad_(True)
+    xb = x.clone().requires_grad_(True)
+    n0 = (fx.fused_xent.launches, osm.online_softmax.launches)
+    ops.softmax_xent(xa, lab).mean().backward()
+    torch.cuda.synchronize()
+    assert (fx.fused_xent.launches - n0[0],
+            osm.online_softmax.launches - n0[1]) == (1, 1)
+    ref.fused_xent(xb, lab).mean().backward()
+    assert xa.grad.dtype == dtype
+    tol = (UNIT_RTOL, UNIT_ATOL) if dtype == torch.float32 else (1e-2, 1e-7)
+    torch.testing.assert_close(xa.grad.float(), xb.grad.float(), rtol=tol[0],
+                               atol=tol[1])
+
+
+def test_softmax_unit_kernels_reject_bad_operands(dev):
+    x = _rows(dev, torch.float32, 4, 300, seed=0)
+    lab = torch.zeros(4, dtype=torch.int64, device=dev)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        osm.softmax_stats(x.cpu())
+    with pytest.raises(ValueError, match="dtype"):
+        osm.online_softmax(x.double())
+    with pytest.raises(ValueError, match="contiguous"):
+        osm.softmax_stats(x.t().contiguous().t())
+    with pytest.raises(ValueError, match=r"\(B, V\)"):
+        osm.online_softmax(x[0])
+    with pytest.raises(ValueError, match="labels"):
+        fx.fused_xent(x, lab.float())
+    with pytest.raises(ValueError, match="labels"):
+        fx.fused_xent(x, lab[:3])
+    with pytest.raises(ValueError, match="labels"):
+        fx.fused_xent(x, lab.cpu())
 
 
 def _head_check(h, emb, pairs=()):
@@ -293,11 +466,13 @@ def test_engine_on_card_matches_cpu(dev, arch):
     want = LLM(cpu, cfg, **kw).generate(prompts, sp)
     pa.paged_attention.launches = 0
     fah.fused_argmax_head_with_value.launches = 0
+    fa.flash_attention.launches = 0
     llm = LLM(to(cpu, dev), cfg, **kw)
     got = llm.generate(prompts, sp)
     st = llm.stats
     assert [o.token_ids for o in got] == [o.token_ids for o in want]
     assert pa.paged_attention.launches == cfg.n_layers * st["decode_steps"]
+    assert fa.flash_attention.launches == cfg.n_layers * st["prefills"]
     assert fah.fused_argmax_head_with_value.launches == (
         st["decode_steps"] + st["prefills"])
 

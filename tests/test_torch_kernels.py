@@ -18,7 +18,10 @@ from repro.kernels import ref as jref  # noqa: E402
 from repro.kernels.fused_argmax_head import (  # noqa: E402
     fused_argmax_head_with_value as pallas_argmax,
 )
+from repro_torch.kernels import flash_attention as tfa  # noqa: E402
 from repro_torch.kernels import fused_argmax_head as tfah  # noqa: E402
+from repro_torch.kernels import fused_xent as tfx  # noqa: E402
+from repro_torch.kernels import online_softmax as tos  # noqa: E402
 from repro_torch.kernels import ops as tops  # noqa: E402
 from repro_torch.kernels import paged_attention as tpa  # noqa: E402
 from repro_torch.serve.paged_kv import pow2  # noqa: E402
@@ -152,19 +155,36 @@ def test_cpu_dispatch_never_launches_and_kernels_refuse_cpu():
     """CPU tensors take the plain versions: the launch counters stay 0.
     The CUDA wrappers themselves refuse CPU tensors -- no silent CPU
     run -- and non-exact attention modes raise."""
-    tpa.paged_attention.launches = 0
-    tfah.fused_argmax_head_with_value.launches = 0
+    counted = (tpa.paged_attention, tfah.fused_argmax_head_with_value,
+               tfa.flash_attention, tos.softmax_stats, tos.online_softmax,
+               tfx.fused_xent)
+    for fn in counted:
+        fn.launches = 0
     q, kp, vp, bt, pos = (torch.from_numpy(a)
                           for a in _paged_case(5, t=1, g=2))
     tops.paged_attention(q, kp, vp, bt, pos)
     h, w = (torch.from_numpy(a) for a in _head_case(0, 2, 16, 300))
     tops.fused_argmax_head_with_value(h, w)
-    assert tpa.paged_attention.launches == 0
-    assert tfah.fused_argmax_head_with_value.launches == 0
+    fq = torch.randn(1, 4, 6, 16)
+    fk = torch.randn(1, 2, 6, 16)
+    tops.flash_attention(fq, fk, fk)
+    x = (h @ w).requires_grad_(True)
+    lab = torch.tensor([3, 7])
+    tops.softmax_stats(x)
+    tops.online_softmax(x)
+    tops.softmax_xent(x, lab).sum().backward()
+    assert all(fn.launches == 0 for fn in counted)
     with pytest.raises(ValueError, match="CUDA tensor"):
         tpa.paged_attention(q, kp, vp, bt, pos)
     with pytest.raises(ValueError, match="CUDA tensor"):
         tfah.fused_argmax_head_with_value(h, w)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        tfa.flash_attention(fq, fk, fk)
+    for fn in (tos.softmax_stats, tos.online_softmax):
+        with pytest.raises(ValueError, match="CUDA tensor"):
+            fn(x.detach())
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        tfx.fused_xent(x.detach(), lab)
     with pytest.raises(NotImplementedError):
         tops.paged_attention(q, kp, vp, bt, pos, attn_approx="maxonly")
     with pytest.raises(ValueError):
