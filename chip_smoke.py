@@ -18,7 +18,12 @@ Phases, each of which fails the run (non-zero exit, no result line):
      head (ragged -1 padded drafts), flash attention (prompts of 71 and
      512 tokens, g 2 and 8, causal and windowed) and the softmax unit's
      stats, softmax and cross-entropy kernels ((12, 151936) f32 and
-     (512, 151936) bf16 rows);
+     (512, 151936) bf16 rows); then paged attention's four exp-free
+     score modes (base2, pseudo, pwl, maxonly) at the main path's shapes
+     (T = 1 and 4, window None and 128), each timed beside exact, and
+     base2, pseudo and pwl again at those shapes with each query's best
+     key in its first visible 32-key slice, in f32 at rounding level and
+     each mode's gap to exact as large as the plain version's;
   4. drives the main path -- ``LLM.from_arch("qwen3-0.6b", smoke=False)``
      then ``LLM.generate``, greedy, at the model's full width with random
      seeded weights -- and checks that every prompt prefill layer went
@@ -40,6 +45,11 @@ Phases, each of which fails the run (non-zero exit, no result line):
      its phase 1 through ``softmax_stats``; the backward calls
      ``online_softmax``), and Theorem 1 through the full unit:
      ``argmax(online_softmax)`` is phase 4's first token;
+  4e. the divergence probe (``repro_torch.probe.run_probe``) on the 12
+     prompts, 32 new tokens: all five score modes at window None, then
+     pseudo and maxonly at window 128, every decode layer of each arm
+     through the paged-attention kernel in that arm's mode, and per-layer
+     score errors from the tap;
   5. Theorem 1 on the card: the softmax-baseline head gives the same
      token streams;
   6. the small-input reference: the smoke config's tokens on the card
@@ -74,6 +84,10 @@ BF16_FLOPS_PER_S = 989e12
 F32_FLOPS_PER_S = 67e12        # f32 outside the tensor cores
 
 PA_TOL = 2e-2          # paged attention, bf16: atol = rtol
+MAXONLY_BAND = 1e-3    # maxonly: a key within this of the best f32 score
+PIN_TOL = 1e-5         # paged modes at a pinned max, f32: atol = rtol
+PIN_GAP = 0.1          # ... kernel's gap to exact vs the plain one's
+BF16_STEP = 2.0 ** -8  # one bf16 step, relative
 FA_TOL = 2e-2          # flash attention, bf16 output: atol = rtol
 HEAD_RTOL = 1e-3       # head value rtol; idx must match past this gap
 UNIT_RTOL = 2e-5       # softmax unit kernels vs plain: split sum order
@@ -104,6 +118,8 @@ def kernel_modules():
 def reset_launches():
     for fn in kernel_modules().values():
         fn.launches = 0
+        if hasattr(fn, "launches_by_mode"):
+            fn.launches_by_mode = dict.fromkeys(fn.launches_by_mode, 0)
 
 
 def read_launches() -> dict:
@@ -175,10 +191,11 @@ class Timer:
 # ---------------------------------------------------------------------------
 # Phase 3: kernels against their plain versions
 # ---------------------------------------------------------------------------
-def paged_case(torch, rng, t, *, b=8, hq=16, hkv=8, hd=128, bs=16):
+def paged_case(torch, rng, t, *, b=8, hq=16, hkv=8, hd=128, bs=16,
+               dtype=None):
     """The main path's decode shapes: ragged contexts of 1..1000 tokens,
     permuted pool blocks, tables padded to a power of two with each row's
-    own first block, bf16."""
+    own first block, bf16 (or ``dtype``)."""
     from repro_torch.serve.paged_kv import pow2
 
     ctx = rng.integers(1, 1001, size=b)
@@ -199,7 +216,7 @@ def paged_case(torch, rng, t, *, b=8, hq=16, hkv=8, hd=128, bs=16):
         pos = np.maximum(last[:, None] - np.arange(t - 1, -1, -1), 0
                          ).astype(np.int32)
     qshape = (b, hq, hd) if t == 1 else (b, t, hq, hd)
-    dev, bf = "cuda", torch.bfloat16
+    dev, bf = "cuda", (torch.bfloat16 if dtype is None else dtype)
     q = torch.from_numpy(rng.standard_normal(qshape, np.float32)).to(dev, bf)
     kp = torch.from_numpy(rng.standard_normal(
         (nblocks, bs, hkv, hd), np.float32)).to(dev, bf)
@@ -209,15 +226,52 @@ def paged_case(torch, rng, t, *, b=8, hq=16, hkv=8, hd=128, bs=16):
             torch.from_numpy(pos).to(dev))
 
 
-def check_paged_attention(torch, timer, rng):
+def paged_work(q, kp, bt, pos, window):
+    """(bytes, flops) a paged-attention call must move and do on these
+    inputs: q read and out written once, each row's K/V span read once
+    (from its first visible position to its last query's), the table and
+    positions; 4*hd flops per visible (query head, key) pair."""
+    b, hq, hd = q.shape[0], q.shape[-2], q.shape[-1]
+    hkv, tq = kp.shape[2], (q.shape[1] if q.dim() == 4 else 1)
+    pos2 = pos.reshape(b, tq).long()
+    hi = pos2.max(dim=1).values
+    lo = (pos2.min(dim=1).values - window + 1).clamp(min=0) \
+        if window is not None else hi * 0
+    el = q.element_size()
+    nbytes = (2 * q.numel() * el + 2 * (hi - lo + 1).sum().item() * hkv * hd
+              * el + bt.numel() * 4 + pos.numel() * 4)
+    seen = pos2 + 1 if window is None else (pos2 + 1).clamp(max=window)
+    return nbytes, 4 * hd * hq * seen.sum().item()
+
+
+def sdpa_on_gathered_view(torch, q, kp, vp, bt, pos, window, scale):
+    """The library yardstick of paged attention: SDPA at ``scale`` over the
+    gathered (dense) K/V view with the causal (and window) mask, as a
+    call to time."""
     import torch.nn.functional as F
 
+    b, hq, hd = q.shape[0], q.shape[-2], q.shape[-1]
+    hkv, tq = kp.shape[2], (q.shape[1] if q.dim() == 4 else 1)
+    kd = kp[bt.long()].reshape(b, -1, hkv, hd).transpose(1, 2)
+    vd = vp[bt.long()].reshape(b, -1, hkv, hd).transpose(1, 2)
+    qd = q.reshape(b, tq, hq, hd).transpose(1, 2)
+    pos2 = pos.reshape(b, tq).long()
+    kv = torch.arange(kd.shape[2], device=q.device)
+    mask = kv[None, None, :] <= pos2[:, :, None]
+    if window is not None:
+        mask &= kv[None, None, :] > pos2[:, :, None] - window
+    return lambda: F.scaled_dot_product_attention(
+        qd, kd, vd, attn_mask=mask[:, None], scale=scale, enable_gqa=True)
+
+
+def check_paged_attention(torch, timer, rng):
     from repro_torch.kernels import paged_attention as pa
     from repro_torch.kernels import ref
 
     rows = {}
     for t in (1, 4, 32):          # T = 32 at g = 2: 64 query rows per head
         q, kp, vp, bt, pos = paged_case(torch, rng, t)
+        hd = q.shape[-1]
         out = pa.paged_attention(q, kp, vp, bt, pos)
         torch.cuda.synchronize()
         want = ref.paged_attention(q, kp, vp, bt, pos)
@@ -230,26 +284,11 @@ def check_paged_attention(torch, timer, rng):
               flush=True)
         check(ok, f"paged attention T={t} disagrees with its plain version")
 
-        # library yardstick: SDPA on the gathered (dense) view
-        b, hq, hd = q.shape[0], q.shape[-2], q.shape[-1]
-        hkv, tq = kp.shape[2], (q.shape[1] if q.dim() == 4 else 1)
-        kd = kp[bt.long()].reshape(b, -1, hkv, hd).transpose(1, 2)
-        vd = vp[bt.long()].reshape(b, -1, hkv, hd).transpose(1, 2)
-        qd = q.reshape(b, tq, hq, hd).transpose(1, 2)
-        pos2 = pos.reshape(b, tq).long()
-        kv_pos = torch.arange(kd.shape[2], device="cuda")
-        mask = (kv_pos[None, None, :] <= pos2[:, :, None])[:, None]
-
         ms = timer(lambda: pa.paged_attention(q, kp, vp, bt, pos))
         plain_ms = timer(lambda: ref.paged_attention(q, kp, vp, bt, pos))
-        lib_ms = timer(lambda: F.scaled_dot_product_attention(
-            qd, kd, vd, attn_mask=mask, enable_gqa=True))
-
-        el = q.element_size()
-        span = (pos2.max(dim=1).values + 1).sum().item()    # kv rows read
-        nbytes = (2 * q.numel() * el + 2 * span * hkv * hd * el
-                  + bt.numel() * 4 + pos.numel() * 4)
-        flops = 4 * hd * hq * (pos2 + 1).sum().item()
+        lib_ms = timer(sdpa_on_gathered_view(torch, q, kp, vp, bt, pos,
+                                             None, 1 / math.sqrt(hd)))
+        nbytes, flops = paged_work(q, kp, bt, pos, None)
         bound_ms, bound_by = bound(nbytes, flops, BF16_FLOPS_PER_S)
         print(f"paged_attention T={t}: kernel {ms:.4f} ms, plain "
               f"{plain_ms:.4f} ms, sdpa(gathered view) {lib_ms:.4f} ms, "
@@ -258,6 +297,214 @@ def check_paged_attention(torch, timer, rng):
         rows[t] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                        bound_ms=bound_ms, bound_by=bound_by,
                        library_ms=lib_ms)
+    return rows
+
+
+def visible_scores(torch, q, kp, bt, pos, window):
+    """The f32 scores of every (row, query, head, key) of a paged-attention
+    call, (b, t, hq, s), -inf where the key is not visible."""
+    b, hq, hd = q.shape[0], q.shape[-2], q.shape[-1]
+    hkv, tq = kp.shape[2], (q.shape[1] if q.dim() == 4 else 1)
+    k = kp.float()[bt.long()].reshape(b, -1, hkv, hd).repeat_interleave(
+        hq // hkv, dim=2)
+    qq = q.float().reshape(b, tq, hq, hd)
+    scores = torch.einsum("bthd,bshd->bths", qq, k) / math.sqrt(hd)
+    pos2 = pos.reshape(b, tq).long()
+    kv = torch.arange(k.shape[1], device=q.device)
+    vis = kv[None, None, :] <= pos2[:, :, None]
+    if window is not None:
+        vis &= kv[None, None, :] > pos2[:, :, None] - window
+    return torch.where(vis[:, :, None, :], scores, -torch.inf)
+
+
+def maxonly_rows(torch, out, q, kp, vp, bt, pos, window):
+    """maxonly against its plain version on f32 copies of the inputs:
+    (max abs error against that plain output, rows equal to it, rows
+    that are instead the V row of another key scoring within
+    MAXONLY_BAND * |best| of the best f32 score, rows that are
+    neither)."""
+    from repro_torch.kernels import ref
+
+    qf, kf, vf = q.float(), kp.float(), vp.float()
+    want = ref.paged_attention(qf, kf, vf, bt, pos, attn_approx="maxonly",
+                               window=window)
+    b, hq, hd = q.shape[0], q.shape[-2], q.shape[-1]
+    hkv, tq = kp.shape[2], (q.shape[1] if q.dim() == 4 else 1)
+    v = vf[bt.long()].reshape(b, -1, hkv, hd).repeat_interleave(
+        hq // hkv, dim=2)
+    scores = visible_scores(torch, q, kp, bt, pos, window)
+    best = scores.amax(dim=-1, keepdim=True)
+    near = scores >= best - MAXONLY_BAND * best.abs()          # (b,t,h,s)
+    got = out.float().reshape(b, tq, hq, hd)
+    same = (got == want.float().reshape(b, tq, hq, hd)).all(-1)
+    # (b, t, h, s): the output row is key s's V row
+    is_row = (got[:, :, :, None] == v.permute(0, 2, 1, 3)[:, None]).all(-1)
+    banded = (is_row & near).any(-1) & ~same
+    err = (got - want.float().reshape(b, tq, hq, hd)).abs().max().item()
+    return (err, int(same.sum()), int(banded.sum()),
+            int((~same & ~banded).sum()))
+
+
+def check_paged_modes(torch, timer, rng):
+    """Paged attention's exp-free score modes at the main path's shapes
+    (``paged_case``: T = 1 and 4; window None and 128), each against its
+    plain version: base2, pseudo and pwl at PA_TOL, maxonly by
+    ``maxonly_rows``.  Each is timed beside exact on the same inputs, with
+    the same bound; the library yardstick of pseudo is SDPA at scale
+    ln 2 / sqrt(hd) on the gathered view (softmax(s ln 2) = 2^s / sum
+    2^s), and no one PyTorch call computes base2, pwl or maxonly."""
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels import ref
+
+    rows = {}
+    for t in (1, 4):
+        for window in (None, 128):
+            q, kp, vp, bt, pos = paged_case(torch, rng, t)
+            nbytes, flops = paged_work(q, kp, bt, pos, window)
+            bound_ms, bound_by = bound(nbytes, flops, BF16_FLOPS_PER_S)
+            tag = f"T={t} window={window}"
+            for mode in ("exact", "base2", "pseudo", "pwl", "maxonly"):
+                out = pa.paged_attention(q, kp, vp, bt, pos,
+                                         attn_approx=mode, window=window)
+                torch.cuda.synchronize()
+                check(bool(torch.isfinite(out).all()),
+                      f"paged {mode} {tag}: non-finite")
+                if mode == "maxonly":
+                    err, same, banded, bad = maxonly_rows(
+                        torch, out, q, kp, vp, bt, pos, window)
+                    ok = bad == 0
+                    verdict = (f"{same} rows equal to the plain version on "
+                               f"f32 copies, {banded} the V row of a key "
+                               f"within {MAXONLY_BAND}*|best| of the best "
+                               f"f32 score, {bad} neither")
+                else:
+                    want = ref.paged_attention(q, kp, vp, bt, pos,
+                                               attn_approx=mode,
+                                               window=window)
+                    err = (out.float() - want.float()).abs().max().item()
+                    ok = torch.allclose(out.float(), want.float(),
+                                        atol=PA_TOL, rtol=PA_TOL)
+                    verdict = f"atol = rtol = {PA_TOL}"
+                print(f"paged_attention {mode} {tag}: max_abs_err {err:.6g} "
+                      f"vs plain ({verdict}): {'ok' if ok else 'FAIL'}",
+                      flush=True)
+                check(ok, f"paged attention {mode} {tag} disagrees with its "
+                      "plain version")
+
+                ms = timer(lambda: pa.paged_attention(
+                    q, kp, vp, bt, pos, attn_approx=mode, window=window))
+                plain_ms = timer(lambda: ref.paged_attention(
+                    q, kp, vp, bt, pos, attn_approx=mode, window=window))
+                lib_ms = None
+                if mode in ("exact", "pseudo"):
+                    scale = (math.log(2) if mode == "pseudo" else 1.0) \
+                        / math.sqrt(q.shape[-1])
+                    lib_ms = timer(sdpa_on_gathered_view(
+                        torch, q, kp, vp, bt, pos, window, scale))
+                print(f"paged_attention {mode} {tag}: kernel {ms:.4f} ms, "
+                      f"plain {plain_ms:.4f} ms, library "
+                      f"{'none' if lib_ms is None else f'{lib_ms:.4f} ms'}, "
+                      f"bound {bound_ms:.4f} ms ({bound_by}: "
+                      f"{nbytes / 1e6:.3f} MB)", flush=True)
+                rows[(mode, t, window)] = dict(
+                    max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                    library_ms=lib_ms, bound_ms=bound_ms, bound_by=bound_by)
+    return rows
+
+
+def pinned_case(torch, rng, t, window):
+    """``paged_case`` in f32 with every value on a quarter step in [-4, 4],
+    so that each score's dot product is exact in any order and kernel and
+    plain version form the same f32 scores, and with each query's first
+    visible key made its strict best: q[..., 0] = 4 and that key's K row
+    20 * e_0 (19, 18, 17 for a later query's first key, which an earlier
+    query of the row also sees), a score of 7.07 against ~N(0, 1.06) for
+    the rest.  The kernel's running max then never moves after the first
+    slice with a visible key, so it evaluates the score function at the
+    max the plain version uses."""
+    q, kp, vp, bt, pos = paged_case(torch, rng, t, dtype=torch.float32)
+    for x in (q, kp, vp):
+        x.copy_(torch.clamp(torch.round(x * 4), -16, 16) / 4)
+    b, bs = q.shape[0], kp.shape[1]
+    q[..., 0] = 4.0
+    pos2, table = pos.reshape(b, -1).cpu().numpy(), bt.cpu().numpy()
+    for r in range(b):
+        first = pos2[r] * 0 if window is None else np.maximum(
+            pos2[r] - window + 1, 0)
+        for rank, p in enumerate(sorted(set(first.tolist()))):
+            blk, off = int(table[r, p // bs]), p % bs
+            kp[blk, off] = 0.0
+            kp[blk, off, :, 0] = 20.0 - rank
+    return q, kp, vp, bt, pos
+
+
+def first_key_margin(torch, q, kp, bt, pos, window) -> float:
+    """min over queries and heads of (the first visible key's f32 score -
+    the best other visible key's)."""
+    scores = visible_scores(torch, q, kp, bt, pos, window)
+    kv = torch.arange(scores.shape[-1], device=q.device)
+    first = (scores > -torch.inf).float().argmax(dim=-1, keepdim=True)
+    own = scores.gather(-1, first)
+    rest = torch.where(kv == first, -torch.inf, scores).amax(dim=-1,
+                                                             keepdim=True)
+    return (own - rest).min().item()
+
+
+def check_paged_modes_pinned(torch, rng):
+    """base2, pseudo and pwl (and exact) where kernel and plain version
+    evaluate the score function at the same max (``pinned_case``; T = 1
+    and 4, window None and 128).  In f32 the kernel agrees with its plain
+    version within PIN_TOL (summation order only), and its gap to its own
+    exact output is within PIN_GAP of the plain version's gap to exact --
+    a kernel that ignored the mode would miss by the whole gap; on bf16
+    copies of the same values it agrees with the plain version on the f32
+    inputs within one bf16 step of the output."""
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels import ref
+
+    modes = ("exact", "base2", "pseudo", "pwl")
+    rows = {}
+    for t in (1, 4):
+        for window in (None, 128):
+            tag = f"T={t} window={window}"
+            q, kp, vp, bt, pos = pinned_case(torch, rng, t, window)
+            margin = first_key_margin(torch, q, kp, bt, pos, window)
+            check(margin > 0.25, f"paged pinned {tag}: the first visible "
+                  f"key leads by {margin}, not > 0.25")
+            want = {m: ref.paged_attention(q, kp, vp, bt, pos, attn_approx=m,
+                                           window=window) for m in modes}
+            got = {m: pa.paged_attention(q, kp, vp, bt, pos, attn_approx=m,
+                                         window=window) for m in modes}
+            bf = [x.to(torch.bfloat16) for x in (q, kp, vp)]
+            got_bf = {m: pa.paged_attention(*bf, bt, pos, attn_approx=m,
+                                            window=window) for m in modes}
+            torch.cuda.synchronize()
+            for mode in modes:
+                err = (got[mode] - want[mode]).abs().max().item()
+                ok = torch.allclose(got[mode], want[mode], atol=PIN_TOL,
+                                    rtol=PIN_TOL)
+                err_bf = (got_bf[mode].float() - want[mode]).abs().max()
+                ok_bf = torch.allclose(got_bf[mode].float(), want[mode],
+                                       atol=PIN_TOL, rtol=BF16_STEP)
+                line = (f"paged_attention {mode} pinned {tag}: f32 "
+                        f"max_abs_err {err:.6g} (atol = rtol = {PIN_TOL}), "
+                        f"bf16 {err_bf.item():.6g} vs plain on f32 (atol "
+                        f"{PIN_TOL}, rtol {BF16_STEP})")
+                gap = miss = None
+                if mode != "exact":
+                    want_gap = want[mode] - want["exact"]
+                    gap = want_gap.abs().max().item()
+                    miss = ((got[mode] - got["exact"]) - want_gap
+                            ).abs().max().item()
+                    ok = ok and miss <= PIN_GAP * gap
+                    line += (f"; gap to exact {gap:.6g} plain, kernel's "
+                             f"off by {miss:.6g} (<= {PIN_GAP} x gap)")
+                print(f"{line}: {'ok' if ok and ok_bf else 'FAIL'}",
+                      flush=True)
+                check(ok and ok_bf, f"paged attention {mode} pinned {tag} "
+                      "disagrees with its plain version")
+                rows[(mode, t, window)] = dict(max_abs_err=err, gap=gap,
+                                               miss=miss)
     return rows
 
 
@@ -673,6 +920,7 @@ def compare_streams(torch, llm, prompts, want, got, what) -> int:
 
 
 def run_main_path(torch, prompts, max_new):
+    from repro_torch.kernels import paged_attention as pa
     from repro_torch.serve.api import LLM
     from repro_torch.serve.params import SamplingParams
 
@@ -713,6 +961,8 @@ def run_main_path(torch, prompts, max_new):
           flush=True)
     check(launches["paged_attention"] == want_pa,
           "paged attention launches != layers x decode steps")
+    check(pa.paged_attention.launches_by_mode["exact"] == want_pa,
+          "the greedy path launched paged attention in a non-exact mode")
     check(launches["flash_attention"] == want_fa,
           "flash attention launches != layers x prefills")
     check(launches["fused_argmax_head"] == want_head,
@@ -992,6 +1242,81 @@ def run_unit_path(torch, llm, prompts, outs):
     return launches, errs
 
 
+def run_probe_path(torch, llm, prompts, max_new):
+    """Phase 4e: ``repro_torch.probe.run_probe`` at full width over the
+    12 prompts, ``max_new`` tokens: all five score modes at window None,
+    then pseudo and maxonly at window 128, on the main path's weights and
+    engine settings.  The launch counts are set to 0 before each probe
+    and read after it; the report lists each engine run the probe made
+    (one per arm, the exact baseline and the score run both in exact),
+    so that every mode's paged-attention launches can be held to 28 x
+    the decode steps of its runs and the flash launches to 28 x their
+    prefills."""
+    from repro_torch import probe
+    from repro_torch.kernels import paged_attention as pa
+
+    n_layers, out = llm.cfg.n_layers, {}
+    for window, variants in ((None, ("base2", "pseudo", "pwl", "maxonly")),
+                             (128, ("pseudo", "maxonly"))):
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        rep = probe.run_probe(llm.engine.params, llm.cfg, prompts,
+                              variants=variants, window=window,
+                              max_new_tokens=max_new, n_slots=8,
+                              max_len=1024)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_launches()
+        by_mode = dict(pa.paged_attention.launches_by_mode)
+        runs = [(r["attn_approx"], r["decode_steps"], r["prefills"])
+                for r in rep["runs"]]
+        steps = {m: sum(s for mode, s, _ in runs if mode == m)
+                 for m in by_mode}
+        prefills = sum(p for _, _, p in runs)
+        print(f"probe window={window}: {len(runs)} engine runs in "
+              f"{wall:.3f} s (arms + the score run) {runs}; paged launches "
+              f"by mode {by_mode}, want {n_layers} x decode steps "
+              f"{steps}; flash {launches['flash_attention']}, want "
+              f"{n_layers} x {prefills} prefills", flush=True)
+        check(len(runs) == len(variants) + 2,
+              f"probe window={window}: {len(runs)} engine runs, want "
+              f"{len(variants) + 2}")
+        for mode in ("exact",) + variants:
+            check(steps[mode] > 0 and by_mode[mode] == n_layers * steps[mode],
+                  f"probe window={window}: {mode} paged launches "
+                  f"{by_mode[mode]} != {n_layers} x {steps[mode]} steps")
+        check(sum(by_mode.values()) == launches["paged_attention"],
+              "probe: launches by mode do not add up to the launches")
+        check(all(p >= len(prompts) for _, _, p in runs)
+              and launches["flash_attention"] == n_layers * prefills,
+              f"probe window={window}: flash launches != {n_layers} x "
+              "prefills, or an arm missed a prompt")
+        ex = rep["variants"]["exact"]
+        check(ex["divergence"] == 0.0 and ex["first_divergence"]
+              == [None] * len(prompts), "probe: the exact arm diverged")
+        for v in variants:
+            row = rep["variants"][v]
+            errs = list(row["score_error"].values())
+            check(len(errs) == n_layers
+                  and all(math.isfinite(e) and 0.0 <= e <= 1.0
+                          for e in errs),
+                  f"probe window={window}: {v} score errors not finite in "
+                  f"[0, 1]: {errs}")
+            worst = max(range(n_layers), key=lambda i: errs[i])
+            mfd = row["mean_first_divergence"]
+            print(f"probe window={window} {v}: divergence "
+                  f"{row['divergence']:.4f} ({row['diverged_requests']}/"
+                  f"{row['n_requests']}), mean first divergence "
+                  f"{'none' if mfd is None else f'{mfd:.3f}'}, "
+                  f"first divergence {row['first_divergence']}, worst "
+                  f"layer {worst} score error {errs[worst]:.6g}",
+                  flush=True)
+        out[window] = dict(report=rep, launches_by_mode=by_mode,
+                           decode_steps=steps, wall_s=wall)
+    return out
+
+
 def check_theorem1(torch, llm, prompts, outs, max_new):
     """The softmax baseline (f32 logits, softmax, argmax) over the same
     weights must give the same streams; a divergence is allowed only at
@@ -1106,6 +1431,8 @@ def main() -> int:
         rng = np.random.default_rng(0)
         print(clocks_line(), flush=True)
         pa_rows = check_paged_attention(torch, timer, rng)
+        mode_rows = check_paged_modes(torch, timer, rng)
+        pinned_rows = check_paged_modes_pinned(torch, rng)
         head_rows = check_argmax_head(torch, timer)
         topk_rows = check_topk_head(torch, timer)
         verify_rows = check_verify_head(torch, timer)
@@ -1126,6 +1453,7 @@ def main() -> int:
             torch, llm, [len(p) for p in prompts], max_new)
         summary["profile"] = profile_decode(torch, llm, prompts)
         unit_launches, unit_errs = run_unit_path(torch, llm, prompts, outs)
+        probe_runs = run_probe_path(torch, llm, prompts, max_new)
         check_theorem1(torch, llm, prompts, outs, max_new)
         del llm
         check_small_reference(torch)
@@ -1140,7 +1468,18 @@ def main() -> int:
              launches=launches["paged_attention"],
              max_abs_err=max(r["max_abs_err"] for r in pa_rows.values()),
              **{k: pa_rows[1][k] for k in ("ms", "plain_ms", "bound_ms",
-                                           "bound_by", "library_ms")}),
+                                           "bound_by", "library_ms")},
+             modes={mode: dict(
+                 launches=probe_runs[None]["launches_by_mode"][mode],
+                 max_abs_err=max(r["max_abs_err"] for (m, _, _), r
+                                 in mode_rows.items() if m == mode),
+                 pinned_max_abs_err=max(
+                     (r["max_abs_err"] for (m, _, _), r
+                      in pinned_rows.items() if m == mode), default=None),
+                 **{k: mode_rows[(mode, 1, None)][k] for k in (
+                     "ms", "plain_ms", "library_ms", "bound_ms")})
+                 for mode in ("exact", "base2", "pseudo", "pwl",
+                              "maxonly")}),
         dict(name="fused_argmax_head", route="cuda",
              source="src/repro_torch/kernels/csrc/fused_argmax_head.cu",
              replaces="src/repro/kernels/fused_argmax_head.py:75",
@@ -1182,6 +1521,13 @@ def main() -> int:
                 "max_abs_err"], unit_rows[(name, 512)]["max_abs_err"]),
             **{k: unit_rows[(name, 12)][k] for k in (
                 "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}))
+    summary["probe"] = {
+        str(w): {v: {k: row[k] for k in ("divergence",
+                                         "mean_first_divergence")}
+                 | {"worst_score_error": max(row["score_error"].values())}
+                 for v, row in r["report"]["variants"].items()
+                 if v != "exact"}
+        for w, r in probe_runs.items()}
     print("main path summary: " + json.dumps(summary), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -9,6 +9,22 @@
 // rejects scores -inf, and a slice with no visible key leaves the carry
 // alone (the test is warp-uniform).  A query with no visible key at all
 // writes 0: l is clamped at 1e-30, as the TPU kernels do.
+//
+// The score function is a compile-time mode (the attn_approx catalog of
+// core/attn_approx.py): the exact online softmax, or one of the four
+// exp-free datapaths of paged attention.  With d = s - m_new <= 0 and
+// m_new the running max after the slice, a visible key weighs
+//   kExact    expf(d)                              carry expf(m - m_new)
+//   kPseudo   exp2f(d)                             carry exp2f(m - m_new)
+//   kBase2    2^n * LUT[clamp(rint(v * 256))]      carry expf(m - m_new)
+//   kPwl      2^n * chord of ROM over 16 segments  carry expf(m - m_new)
+// (y = d * log2 e = n + v, n = floor(y)); masked keys weigh 0, never
+// f(-inf).  kMaxOnly is a comparator carry: a slice whose best visible
+// score beats the carry's strictly resets acc to the V row of its first
+// such key and l to 1, so ties keep the earlier, lower position.  The
+// LUT (256 entries) and the ROM (17) are f32 tables in shared memory,
+// built by the caller from core.softmax_variants.base2_frac_lut and
+// core.attn_approx.pwl_lut.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -19,6 +35,51 @@
 namespace attn {
 
 constexpr unsigned kFull = 0xffffffffu;
+
+// Score modes, as the C entry of paged_attention.cu numbers them.
+constexpr int kExact = 0, kBase2 = 1, kPseudo = 2, kPwl = 3, kMaxOnly = 4;
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr int kBase2Lut = 256;     // 2^8 entries: BASE2_PRECISION_BITS
+constexpr int kPwlSegments = 16;   // PWL_SEGMENTS; the ROM has 17 entries
+
+// f32 entries of the mode's table (0: none).
+template <int MODE>
+constexpr int kRomSize =
+    MODE == kBase2 ? kBase2Lut : (MODE == kPwl ? kPwlSegments + 1 : 0);
+
+// The mode's weight of d = s - m_new (finite, <= 0), rounding where the
+// plain version rounds: the products are explicit so that nvcc fuses
+// none of them into an FMA.
+template <int MODE>
+__device__ __forceinline__ float weight_exp(float d, const float* rom) {
+  if constexpr (MODE == kExact) {
+    return expf(d);
+  } else if constexpr (MODE == kPseudo) {
+    return exp2f(d);
+  } else {
+    const float y = __fmul_rn(d, kLog2e);
+    const float n = floorf(y);
+    const float v = y - n;  // in [0, 1)
+    if constexpr (MODE == kBase2) {
+      // round half to even, as jnp.round and torch.round do
+      const int i = min(max((int)rintf(v * kBase2Lut), 0), kBase2Lut - 1);
+      return __fmul_rn(exp2f(n), rom[i]);
+    } else {
+      const float pos = v * kPwlSegments;
+      const int i = min(max((int)floorf(pos), 0), kPwlSegments - 1);
+      const float t = pos - (float)i;
+      const float lo = rom[i], hi = rom[i + 1];
+      return __fmul_rn(exp2f(n), __fadd_rn(lo, __fmul_rn(hi - lo, t)));
+    }
+  }
+}
+
+// The carry's rescale for a running-max bump dm = m - m_new <= 0.
+template <int MODE>
+__device__ __forceinline__ float carry_scale(float dm) {
+  if constexpr (MODE == kPseudo) return exp2f(dm);
+  return expf(dm);
+}
 
 // Head-dim elements per lane.
 template <int HD>
@@ -69,15 +130,19 @@ __device__ __forceinline__ void load_query(const T* row, int lane,
 }
 
 // Fold keys p0 .. p0 + STAGE - 1, staged as the (STAGE, HD) tiles ks and
-// vs, into the carry (m, l, acc) of query qv; visible(p) says whether key
-// p counts.  Every lane of the warp calls it.
-template <typename T, int HD, int STAGE, typename Visible>
+// vs, into the carry (m, l, acc) of query qv under score mode MODE;
+// visible(p) says whether key p counts, rom is the mode's table in
+// shared memory (kRomSize<MODE> entries).  Every lane of the warp calls
+// it.
+template <typename T, int HD, int STAGE, int MODE = kExact,
+          typename Visible>
 __device__ __forceinline__ void fold_stage(const T* ks, const T* vs, int p0,
                                            int lane,
                                            const float (&qv)[kEpl<HD>],
                                            float (&acc)[kEpl<HD>], float& m,
                                            float& l, float scale,
-                                           Visible visible) {
+                                           Visible visible,
+                                           const float* rom = nullptr) {
   constexpr int EPL = kEpl<HD>;
   const bool lane_on = lane < HD / EPL;
   for (int j0 = 0; j0 < STAGE; j0 += 32) {
@@ -95,9 +160,23 @@ __device__ __forceinline__ void fold_stage(const T* ks, const T* vs, int p0,
     }
     const float smax = warp_max(s_mine);
     if (smax == -INFINITY) continue;  // warp-uniform: no visible key here
+    if constexpr (MODE == kMaxOnly) {
+      if (smax > m) {  // warp-uniform; a tie keeps the earlier winner
+        // the first visible key at smax (invisible lanes hold -inf)
+        const int jw = __ffs(__ballot_sync(kFull, s_mine == smax)) - 1;
+        float vr[EPL] = {};
+        if (lane_on) load_floats<T, EPL>(vs + (j0 + jw) * HD + lane * EPL, vr);
+#pragma unroll
+        for (int e = 0; e < EPL; ++e) acc[e] = vr[e];
+        l = 1.f;
+        m = smax;
+      }
+      continue;
+    }
     const float m_new = fmaxf(m, smax);
-    const float alpha = (m == -INFINITY) ? 0.f : expf(m - m_new);
-    const float p_mine = (s_mine == -INFINITY) ? 0.f : expf(s_mine - m_new);
+    const float alpha = (m == -INFINITY) ? 0.f : carry_scale<MODE>(m - m_new);
+    const float p_mine =
+        (s_mine == -INFINITY) ? 0.f : weight_exp<MODE>(s_mine - m_new, rom);
     l = l * alpha + warp_sum(p_mine);
 #pragma unroll
     for (int e = 0; e < EPL; ++e) acc[e] *= alpha;

@@ -2,8 +2,9 @@
 // straight from the block-paged KV pool through each row's block table.
 //
 // Replaces the TPU kernel src/repro/kernels/paged_attention.py
-// (paged_attention, pallas_call at :219, body _kernel at :76) in its
-// exact mode, with the sliding-window mask.
+// (paged_attention, pallas_call at :219, body _kernel at :76) in all five
+// score modes of its static attn_approx (exact, base2, pseudo, pwl,
+// maxonly; a template argument here too), with the sliding-window mask.
 //
 // Bound on the H100: memory.  A decode query reads every K and V row of
 // its history once and does 4*hd flops per row, far below the card's
@@ -30,7 +31,14 @@
 //     masked positions score -inf, a stage with nothing valid leaves the
 //     carry untouched, and a query with no valid key writes 0 (l is
 //     clamped at 1e-30 as the TPU kernel does).  That inner loop lives in
-//     csrc/attention_tile.cuh, shared with flash_attention.cu.
+//     csrc/attention_tile.cuh, shared with flash_attention.cu, and holds
+//     the five score modes;
+//   * the base2 LUT (256 f32) and the pwl ROM (17 f32) come from the
+//     caller and sit in shared memory, loaded once per block: lanes index
+//     different entries, which __constant__ memory would serialise.
+//     The TPU evaluates the base2/pwl weight at a 16-position pool
+//     block's running max, this kernel at a 32-key slice's, so those two
+//     modes agree with it to one LUT bin or chord, not to rounding.
 // What it leaves on the table: a (row, head) block is one CTA, so short
 // batches fill few SMs, and stages are not double-buffered.  Splitting
 // long rows across CTAs (flash-decoding) and cp.async/TMA pipelining are
@@ -42,19 +50,26 @@
 namespace {
 
 // q (B, T, Hq, HD); pools (num_blocks, bs, Hkv, HD); btab (B, nb) i32;
-// pos (B, T) i32; out (B, T, Hq, HD).  window <= 0 means no window.
-template <typename T, int HD, int STAGE>
+// pos (B, T) i32; out (B, T, Hq, HD); rom the mode's f32 table
+// (attn::kRomSize<MODE> entries; unused without one).  window <= 0 means
+// no window.
+template <typename T, int HD, int STAGE, int MODE>
 __global__ void __launch_bounds__(1024) paged_attention_kernel(
     const T* __restrict__ q, const T* __restrict__ kpool,
     const T* __restrict__ vpool, const int* __restrict__ btab,
-    const int* __restrict__ pos, T* __restrict__ out, int tq, int hq,
-    int hkv, int bs, int nb, int window, float scale) {
+    const int* __restrict__ pos, const float* __restrict__ rom,
+    T* __restrict__ out, int tq, int hq, int hkv, int bs, int nb,
+    int window, float scale) {
   constexpr int EPL = attn::kEpl<HD>;
   constexpr int VEC = 16 / sizeof(T);  // elements per 16-byte load
   constexpr int CPR = HD / VEC;        // 16-byte chunks per kv row
   extern __shared__ __align__(16) unsigned char smem[];
   T* ks = reinterpret_cast<T*>(smem);  // (STAGE, HD)
   T* vs = ks + STAGE * HD;             // (STAGE, HD)
+  float* rom_s = reinterpret_cast<float*>(vs + STAGE * HD);
+  // the first stage's __syncthreads() publishes the table
+  for (int i = threadIdx.x; i < attn::kRomSize<MODE>; i += blockDim.x)
+    rom_s[i] = rom[i];
 
   const int b = blockIdx.x, h = blockIdx.y;
   const int g = hq / hkv;
@@ -105,10 +120,12 @@ __global__ void __launch_bounds__(1024) paged_attention_kernel(
     }
     __syncthreads();
     if (!active) continue;
-    attn::fold_stage<T, HD, STAGE>(
-        ks, vs, p0, lane, qv, acc, m, l, scale, [=](int p) {
+    attn::fold_stage<T, HD, STAGE, MODE>(
+        ks, vs, p0, lane, qv, acc, m, l, scale,
+        [=](int p) {
           return p <= my_pos && (window <= 0 || p > my_pos - window);
-        });
+        },
+        rom_s);
   }
 
   if (active)
@@ -116,15 +133,16 @@ __global__ void __launch_bounds__(1024) paged_attention_kernel(
                            lane, acc, l);
 }
 
-template <typename T, int HD>
+template <typename T, int HD, int MODE>
 cudaError_t launch(const void* q, const void* kpool, const void* vpool,
-                   const void* btab, const void* pos, void* out, int B,
-                   int tq, int hq, int hkv, int bs, int nb, int window,
-                   float scale, cudaStream_t stream) {
+                   const void* btab, const void* pos, const void* rom,
+                   void* out, int B, int tq, int hq, int hkv, int bs, int nb,
+                   int window, float scale, cudaStream_t stream) {
   // 64 staged positions when both tiles fit in 32 KB, else 32
   constexpr int STAGE = (2 * 64 * HD * (int)sizeof(T) <= 32768) ? 64 : 32;
-  const size_t smem = 2 * (size_t)STAGE * HD * sizeof(T);
-  auto kernel = paged_attention_kernel<T, HD, STAGE>;
+  const size_t smem = 2 * (size_t)STAGE * HD * sizeof(T) +
+                      attn::kRomSize<MODE> * sizeof(float);
+  auto kernel = paged_attention_kernel<T, HD, STAGE, MODE>;
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -136,28 +154,20 @@ cudaError_t launch(const void* q, const void* kpool, const void* vpool,
   kernel<<<grid, block, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(kpool),
       static_cast<const T*>(vpool), static_cast<const int*>(btab),
-      static_cast<const int*>(pos), static_cast<T*>(out), tq, hq, hkv, bs,
-      nb, window, scale);
+      static_cast<const int*>(pos), static_cast<const float*>(rom),
+      static_cast<T*>(out), tq, hq, hkv, bs, nb, window, scale);
   return cudaGetLastError();
 }
 
-}  // namespace
-
-// dtype: 0 = float32, 1 = bfloat16.  hd in {16, 32, 64, 128, 256}; any
-// T * Hq / Hkv (groups of 32 query rows per block).  Returns a cudaError_t.
-extern "C" int repro_paged_attention(const void* q, const void* kpool,
-                                     const void* vpool, const void* btab,
-                                     const void* pos, void* out, int B,
-                                     int tq, int hq, int hkv, int hd, int bs,
-                                     int nb, int window, int dtype,
-                                     float scale, void* stream) {
-  if (B <= 0 || tq <= 0 || hkv <= 0 || hq % hkv != 0 || bs <= 0 ||
-      nb <= 0 || (tq * (hq / hkv) + 31) / 32 > 65535)
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define REPRO_PA_CASE(TYPE, HD)                                               \
-  return (int)launch<TYPE, HD>(q, kpool, vpool, btab, pos, out, B, tq, hq,   \
-                                hkv, bs, nb, window, scale, s)
+template <int MODE>
+cudaError_t dispatch(const void* q, const void* kpool, const void* vpool,
+                     const void* btab, const void* pos, const void* rom,
+                     void* out, int B, int tq, int hq, int hkv, int hd,
+                     int bs, int nb, int window, int dtype, float scale,
+                     cudaStream_t s) {
+#define REPRO_PA_CASE(TYPE, HD)                                              \
+  return launch<TYPE, HD, MODE>(q, kpool, vpool, btab, pos, rom, out, B, tq, \
+                                hq, hkv, bs, nb, window, scale, s)
   if (dtype == 1) {
     switch (hd) {
       case 16: REPRO_PA_CASE(__nv_bfloat16, 16);
@@ -176,5 +186,40 @@ extern "C" int repro_paged_attention(const void* q, const void* kpool,
     }
   }
 #undef REPRO_PA_CASE
+  return cudaErrorInvalidValue;
+}
+
+}  // namespace
+
+// dtype: 0 = float32, 1 = bfloat16.  hd in {16, 32, 64, 128, 256}; any
+// T * Hq / Hkv (groups of 32 query rows per block).  mode: 0 exact,
+// 1 base2, 2 pseudo, 3 pwl, 4 maxonly; rom: device f32 table of 256
+// (base2) or 17 (pwl) entries, ignored by the other modes.  Returns a
+// cudaError_t.
+extern "C" int repro_paged_attention(const void* q, const void* kpool,
+                                     const void* vpool, const void* btab,
+                                     const void* pos, void* out, int B,
+                                     int tq, int hq, int hkv, int hd, int bs,
+                                     int nb, int window, int dtype, int mode,
+                                     const void* rom, float scale,
+                                     void* stream) {
+  if (B <= 0 || tq <= 0 || hkv <= 0 || hq % hkv != 0 || bs <= 0 ||
+      nb <= 0 || (tq * (hq / hkv) + 31) / 32 > 65535)
+    return (int)cudaErrorInvalidValue;
+  if ((mode == attn::kBase2 || mode == attn::kPwl) && rom == nullptr)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define REPRO_PA_MODE(MODE)                                                 \
+  case MODE:                                                                \
+    return (int)dispatch<MODE>(q, kpool, vpool, btab, pos, rom, out, B, tq, \
+                               hq, hkv, hd, bs, nb, window, dtype, scale, s)
+  switch (mode) {
+    REPRO_PA_MODE(attn::kExact);
+    REPRO_PA_MODE(attn::kBase2);
+    REPRO_PA_MODE(attn::kPseudo);
+    REPRO_PA_MODE(attn::kPwl);
+    REPRO_PA_MODE(attn::kMaxOnly);
+  }
+#undef REPRO_PA_MODE
   return (int)cudaErrorInvalidValue;
 }

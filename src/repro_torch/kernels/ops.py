@@ -5,8 +5,7 @@
     there is no fallback from a kernel to its plain version.
 
 The JAX package's ``use_pallas``/``interpret`` flags have no counterpart
-here: the device of the operands is the only switch.  ``attn_approx``
-other than ``'exact'`` waits for a later slice and raises.
+here: the device of the operands is the only switch.
 """
 from __future__ import annotations
 
@@ -14,6 +13,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.core import attn_approx as approx
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import fused_argmax_head as _fah
 from repro_torch.kernels import fused_topk_head as _ftk
@@ -21,8 +21,6 @@ from repro_torch.kernels import fused_xent as _fx
 from repro_torch.kernels import online_softmax as _os
 from repro_torch.kernels import paged_attention as _pa
 from repro_torch.kernels import ref
-
-ATTN_APPROX = ("exact", "base2", "pseudo", "pwl", "maxonly")
 
 
 def _device_type(*tensors: torch.Tensor) -> str:
@@ -77,21 +75,15 @@ def paged_attention(q, k_pool, v_pool, block_tables, positions, *,
     q (B, Hq, hd) or (B, T, Hq, hd); pools (num_blocks, bs, Hkv, hd);
     block_tables (B, nb) int32; positions (B,) or (B, T) int32 -- each
     query attends over kv positions <= its own (and > position - window
-    with a window).  Returns q's shape and dtype."""
-    if attn_approx not in ATTN_APPROX:
-        raise ValueError(f"attn_approx={attn_approx!r}: unknown score "
-                         f"function (choose from {sorted(ATTN_APPROX)})")
-    if attn_approx != "exact":
-        raise NotImplementedError(
-            f"attn_approx={attn_approx!r}: the port has the exact score "
-            "function only so far")
-    if window is not None and window < 1:
-        raise ValueError(f"window={window}: must be >= 1 or None")
+    with a window).  ``attn_approx`` is the score function, one of
+    ``core.attn_approx.VARIANTS``.  Returns q's shape and dtype."""
+    attn_approx, window = approx.resolve(attn_approx, window)
     if _device_type(q, k_pool, v_pool, block_tables, positions) == "cpu":
         return ref.paged_attention(q, k_pool, v_pool, block_tables,
-                                   positions, window=window)
+                                   positions, attn_approx=attn_approx,
+                                   window=window)
     return _pa.paged_attention(q, k_pool, v_pool, block_tables, positions,
-                               window=window)
+                               attn_approx=attn_approx, window=window)
 
 
 def flash_attention(q, k, v, *, causal: bool = True,

@@ -1,7 +1,11 @@
 """Wrapper of the CUDA paged-attention kernel (``csrc/paged_attention.cu``).
 
 Replaces the TPU kernel ``repro.kernels.paged_attention.paged_attention``
-(Pallas, ``pallas_call`` at paged_attention.py:219) in its exact mode.
+(Pallas, ``pallas_call`` at paged_attention.py:219) in all five score
+modes of ``core.attn_approx`` -- a template argument of the kernel, as
+the mode is a static argument of the Pallas kernel.  The base2 LUT and
+the pwl ROM are built here, once per device, by the same functions the
+plain version reads (``base2_frac_lut``, ``pwl_lut``).
 
 Bound on the H100: memory -- one read of each row's K/V history, 4*hd
 flops per K/V row, far under the card's ~295 flops per byte.  The design
@@ -11,7 +15,8 @@ f32 online softmax) reads each K/V byte once per row and query group and
 never repeats K/V across the heads of a group; the source's header says
 what it leaves for later.
 
-``paged_attention.launches`` counts the calls that launched the kernel.
+``paged_attention.launches`` counts the calls that launched the kernel,
+``paged_attention.launches_by_mode`` the same calls by score mode.
 """
 from __future__ import annotations
 
@@ -22,29 +27,46 @@ from typing import Optional
 
 import torch
 
+from repro_torch.core import attn_approx as approx
+from repro_torch.core.softmax_variants import base2_frac_lut
 from repro_torch.kernels import _build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (16, 32, 64, 128, 256)
+# the C entry's mode numbers
+_MODES = {"exact": 0, "base2": 1, "pseudo": 2, "pwl": 3, "maxonly": 4}
 
 
 @functools.lru_cache(maxsize=None)
 def _fn():
     fn = _build.load("paged_attention").repro_paged_attention
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 9 + [
-        ctypes.c_float, ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 10 + [
+        ctypes.c_void_p, ctypes.c_float, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
+
+
+@functools.lru_cache(maxsize=None)
+def _rom(mode: str, device: torch.device) -> Optional[torch.Tensor]:
+    """The mode's f32 table on ``device`` (None for a mode without)."""
+    if mode == "base2":
+        return base2_frac_lut(approx.BASE2_PRECISION_BITS, device)
+    if mode == "pwl":
+        return approx.pwl_lut(approx.PWL_SEGMENTS, device)
+    return None
 
 
 def paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
                     v_pool: torch.Tensor, block_tables: torch.Tensor,
                     positions: torch.Tensor, *,
+                    attn_approx: str = "exact",
                     window: Optional[int] = None) -> torch.Tensor:
     """q (B, Hq, hd) or (B, T, Hq, hd); pools (num_blocks, bs, Hkv, hd);
     block_tables (B, nb) int32; positions (B,) or (B, T) int32, all
-    contiguous CUDA tensors, q and pools of one dtype (bf16 or f32).
-    Returns q's shape and dtype.  Anything else raises."""
+    contiguous CUDA tensors, q and pools of one dtype (bf16 or f32);
+    ``attn_approx`` one of ``core.attn_approx.VARIANTS``.  Returns q's
+    shape and dtype.  Anything else raises."""
+    attn_approx, window = approx.resolve(attn_approx, window)
     multi = q.dim() == 4
     if q.dim() not in (3, 4):
         raise ValueError(f"q must be (B, Hq, hd) or (B, T, Hq, hd); got "
@@ -80,20 +102,22 @@ def paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
     if positions.dtype != torch.int32 or tuple(positions.shape) != want:
         raise ValueError(f"positions must be {want} int32; got "
                          f"{tuple(positions.shape)} {positions.dtype}")
-    if window is not None and window < 1:
-        raise ValueError(f"window={window}: must be >= 1 or None")
+    rom = _rom(attn_approx, q.device)
     out = torch.empty_like(q)
     err = _fn()(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
                 block_tables.data_ptr(), positions.data_ptr(),
                 out.data_ptr(), b, t, hq, hkv, hd, bs,
-                block_tables.shape[1], 0 if window is None else int(window),
-                _DTYPES[q.dtype], 1.0 / math.sqrt(hd),
+                block_tables.shape[1], 0 if window is None else window,
+                _DTYPES[q.dtype], _MODES[attn_approx],
+                None if rom is None else rom.data_ptr(), 1.0 / math.sqrt(hd),
                 torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"paged_attention kernel launch failed: CUDA "
                            f"error {err}")
     paged_attention.launches += 1
+    paged_attention.launches_by_mode[attn_approx] += 1
     return out
 
 
 paged_attention.launches = 0
+paged_attention.launches_by_mode = dict.fromkeys(_MODES, 0)

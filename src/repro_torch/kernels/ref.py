@@ -11,6 +11,8 @@ from typing import Optional
 
 import torch
 
+from repro_torch.core import attn_approx as approx
+
 
 def fused_argmax_head_with_value(h: torch.Tensor, w: torch.Tensor):
     """(argmax_v(h @ w) int32, max_v(h @ w) f32); h (B, D), w (D, V).
@@ -67,8 +69,9 @@ def _positions(positions, b: int, t: int, device) -> torch.Tensor:
 
 
 def paged_attention(q, k_pool, v_pool, block_tables, positions, *,
+                    attn_approx: str = "exact",
                     window: Optional[int] = None):
-    """Ragged decode attention read through a block table (exact mode).
+    """Ragged decode attention read through a block table.
 
     q (B, Hq, hd) or (B, T, Hq, hd); pools (num_blocks, bs, Hkv, hd);
     block_tables (B, nb); positions (B,) or (B, T) — query t of row b
@@ -78,7 +81,9 @@ def paged_attention(q, k_pool, v_pool, block_tables, positions, *,
     Same precision points as ``repro.kernels.ref.paged_attention``: the
     scores are formed in q's dtype and scaled there, then masked at -1e30
     in f32; the probabilities are cast back to q's dtype before the PV
-    product."""
+    product.  The weights are ``core.attn_approx.attn_weights`` of the
+    mode: the softmax for 'exact', else the dense single-shot form of
+    the kernel's online carry."""
     multi = q.ndim == 4
     if not multi:
         q = q[:, None]
@@ -100,14 +105,14 @@ def paged_attention(q, k_pool, v_pool, block_tables, positions, *,
         scores = torch.einsum("btkgh,bskh->bkgts", qg, k) / scale
         scores = scores.float()
         scores = torch.where(mask[:, None, None], scores, -1e30)
-        probs = torch.softmax(scores, dim=-1).to(dt)
+        probs = approx.attn_weights(scores, attn_approx).to(dt)
         out = torch.einsum("bkgts,bskh->btkgh", probs, v).reshape(
             b, t, hq, hd)
         return out if multi else out[:, 0]
     scores = torch.einsum("bthd,bshd->bhts", q, k) / scale
     scores = scores.float()
     scores = torch.where(mask[:, None], scores, -1e30)
-    probs = torch.softmax(scores, dim=-1).to(dt)
+    probs = approx.attn_weights(scores, attn_approx).to(dt)
     out = torch.einsum("bhts,bshd->bthd", probs, v)
     return out if multi else out[:, 0]
 

@@ -65,6 +65,15 @@ def _split_heads(x: torch.Tensor, n_heads: int, head_dim: int):
     return x.reshape(*x.shape[:-1], n_heads, head_dim)
 
 
+# Probe hook (repro_torch.probe): when set, the paged branch calls
+# ``_ATTN_TAP.append((q, k_pool, v_pool, block_tables, cpm))`` once per
+# layer per call, after the new K/V rows are in the pools and before the
+# kernel.  The pools are written in place and their blocks reused once a
+# request is done, so a tap must use the operands before it returns.
+# Leave None in production paths.
+_ATTN_TAP = None
+
+
 def attention(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
               positions: torch.Tensor, causal: bool = True,
               window: Optional[int] = None, cache: Optional[dict] = None,
@@ -124,6 +133,8 @@ def attention(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
     cache["k"].index_put_((blk, off), k.to(cache["k"].dtype))
     cache["v"].index_put_((blk, off), v.to(cache["v"].dtype))
     bt = block_tables.to(torch.int32)
+    if _ATTN_TAP is not None:
+        _ATTN_TAP.append((q, cache["k"], cache["v"], bt, cpm))
     if T == 1:
         o = ops.paged_attention(q[:, 0], cache["k"], cache["v"], bt,
                                 cpm[:, 0].to(torch.int32),

@@ -37,11 +37,15 @@ Counterpart of ``repro.serve.engine`` on its default path:
     the free list (``store.rewind``).  Rows without drafts ride along,
     their padding queries repeating their last (token, position).
 
+  - attention's score function is engine-wide: ``attn_approx`` (the
+    ``core.attn_approx`` catalog) and ``attn_window`` replace the cfg's
+    and reach every decode layer's paged attention; the one-shot prefill
+    attends exactly over the whole prompt, as in the JAX package.
+
 The JAX engine's other modes are refused, not ignored: ``chunk_size``,
 ``token_budget``, ``host_stride``, ``tp``/``mesh``, ``scheduler='cohort'``,
-``kv_layout='dense'``, ``prefix_cache`` and ``attn_approx`` other than
-'exact' raise ``NotImplementedError`` (or ``ValueError`` for values that
-are wrong in both packages).
+``kv_layout='dense'`` and ``prefix_cache`` raise ``NotImplementedError``
+(or ``ValueError`` for values that are wrong in both packages).
 """
 from __future__ import annotations
 
@@ -55,6 +59,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core import attn_approx as approx
 from repro_torch.kernels import ops
 from repro_torch.models import api, lm
 from repro_torch.serve import sampler as sampler_mod
@@ -138,17 +143,14 @@ class ServeEngine:
                     f"{name}={value!r}: the port serves one-shot paged "
                     "prefill and the fused ragged decode step on one device "
                     "only so far")
+        # the kwargs override the cfg's modes (None keeps the cfg's);
+        # 'exact' + None replace to an equal cfg
         if attn_approx is not None or attn_window is not None:
-            mode = attn_approx if attn_approx is not None else cfg.attn_approx
-            win = attn_window if attn_window is not None else cfg.attn_window
-            if win is not None and win < 1:
-                raise ValueError(f"attn_window={win}: must be >= 1 or None")
+            mode, win = approx.resolve(
+                attn_approx if attn_approx is not None else cfg.attn_approx,
+                attn_window if attn_window is not None else cfg.attn_window)
             cfg = dataclasses.replace(cfg, attn_approx=mode,
                                       attn_window=win)
-        if cfg.attn_approx != "exact":
-            raise NotImplementedError(
-                f"attn_approx={cfg.attn_approx!r}: the port has the exact "
-                "score function only so far")
         # f32 master weights -> the compute dtype, ONCE (the JAX package
         # casts inside every jitted step)
         self.params = cast_params(params, cfg)
@@ -192,6 +194,9 @@ class ServeEngine:
                       "prefill_ms": 0.0, "decode_ms": 0.0,
                       "drafted": 0, "accepted": 0, "acceptance_rate": 0.0,
                       "head_calls": {}}
+        # repro_torch.probe.run_probe's report, when a caller parks one
+        # here; snapshot() surfaces it as 'attn_probe'
+        self.probe_report: Optional[dict] = None
         self._ttft_ms: List[float] = []
         self._consumers: List[Callable[[TokenChunk], None]] = []
 
@@ -216,6 +221,8 @@ class ServeEngine:
         s["active_slots"] = sum(sl is not None for sl in self.slots)
         s["attn_approx"] = self.cfg.attn_approx
         s["attn_window"] = self.cfg.attn_window
+        if self.probe_report is not None:
+            s["attn_probe"] = self.probe_report
         s["tokens_per_dispatch"] = (
             s["emitted_tokens"] / max(s["host_syncs"], 1))
         s["peak_in_use"] = self.store.allocator.peak_in_use

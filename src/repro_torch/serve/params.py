@@ -124,11 +124,11 @@ class SamplingParams:
     def __post_init__(self):
         object.__setattr__(self, "stop", _normalize_stop(self.stop))
         if self.attn_approx is not None:
-            from repro_torch.kernels.ops import ATTN_APPROX
-            if self.attn_approx not in ATTN_APPROX:
+            from repro_torch.core.attn_approx import CATALOG
+            if self.attn_approx not in CATALOG:
                 raise ValueError(
                     f"attn_approx={self.attn_approx!r}: unknown score "
-                    f"function (choose from {sorted(ATTN_APPROX)})")
+                    f"function (choose from {sorted(CATALOG)})")
         if self.max_new_tokens < 1:
             raise ValueError(
                 f"max_new_tokens={self.max_new_tokens}: must be >= 1")

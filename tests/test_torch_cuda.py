@@ -9,7 +9,10 @@ one.  Run them on a GPU machine with
 
 Tolerances: f32 kernels sum in another order than the plain versions
 (atol = rtol = 1e-4); bf16 paged attention keeps f32 probabilities where
-the plain version rounds scores and probabilities to bf16 (2e-2), and
+the plain version rounds scores and probabilities to bf16 (2e-2); the
+exp-free modes where kernel and plain version share the running max and
+the scores are exact agree to summation order (1e-5 in f32, one bf16
+step of the output in bf16 against the plain version on f32 inputs), and
 bf16 flash attention rounds the same f32 result to bf16 (2e-2, a step
 of bf16 at magnitude 2-4); the softmax unit's kernels sum in a split
 order (stats and probabilities rtol 2e-5, atol 1e-7; the cross-entropy
@@ -25,6 +28,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch.core.softmax_variants import base2_frac_lut  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import fused_argmax_head as fah  # noqa: E402
 from repro_torch.kernels import fused_topk_head as ftk  # noqa: E402
@@ -90,6 +94,226 @@ def test_paged_attention_kernel_matches_plain(dev, dtype, hd, t, hq, hkv,
     assert out.shape == q.shape and out.dtype == q.dtype
     tol = 1e-4 if dtype == torch.float32 else 2e-2
     torch.testing.assert_close(out.float(), want.float(), atol=tol, rtol=tol)
+
+
+def _scores(q, kp, bt, pos, window):
+    """f32 scores (b, t, hq, s) of a paged-attention call, -inf where the
+    key is not visible."""
+    b, hq, hd = q.shape[0], q.shape[-2], q.shape[-1]
+    hkv, t = kp.shape[2], (q.shape[1] if q.dim() == 4 else 1)
+    k = kp.float()[bt.long()].reshape(b, -1, hkv, hd).repeat_interleave(
+        hq // hkv, dim=2)
+    s = torch.einsum("bthd,bshd->bths", q.float().reshape(b, t, hq, hd),
+                     k) / hd ** 0.5
+    p = pos.reshape(b, t).long()
+    kv = torch.arange(k.shape[1], device=q.device)
+    vis = kv[None, None, :] <= p[:, :, None]
+    if window is not None:
+        vis &= kv[None, None, :] > p[:, :, None] - window
+    return torch.where(vis[:, :, None, :], s, -torch.inf)
+
+
+def _maxonly_ok(out, q, kp, vp, bt, pos, window, band=1e-3):
+    """Each output row is the V row of a visible key whose f32 score is
+    within ``band`` * |best| of the best (the plain version's pick, or a
+    near-tie the kernel's summation order decided otherwise)."""
+    b, hq, hd = q.shape[0], q.shape[-2], q.shape[-1]
+    hkv, t = kp.shape[2], (q.shape[1] if q.dim() == 4 else 1)
+    v = vp.float()[bt.long()].reshape(b, -1, hkv, hd).repeat_interleave(
+        hq // hkv, dim=2)
+    s = _scores(q, kp, bt, pos, window)
+    best = s.amax(-1, keepdim=True)
+    near = s >= best - band * best.abs()
+    got = out.float().reshape(b, t, hq, hd)
+    is_row = (got[:, :, :, None] == v.permute(0, 2, 1, 3)[:, None]).all(-1)
+    return bool((is_row & near).any(-1).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd", [16, 32, 64, 128, 256])
+@pytest.mark.parametrize("t,hq,hkv", [(1, 16, 8), (3, 8, 2), (9, 64, 8)])
+@pytest.mark.parametrize("window", [None, 7])
+@pytest.mark.parametrize("mode", ["base2", "pseudo", "pwl", "maxonly"])
+def test_paged_attention_kernel_modes_match_plain(dev, mode, dtype, hd, t,
+                                                  hq, hkv, window):
+    """The four exp-free score modes.  base2 and pwl fold their LUT at a
+    32-key slice's running max where the plain version uses the global
+    max: one LUT bin or chord apart (2e-3 in f32); pseudo is exact up to
+    rounding (1e-4 in f32); bf16 as for exact (2e-2).  maxonly returns a
+    V row, checked by ``_maxonly_ok``."""
+    bs = 8 if hd == 256 else 16
+    q, kp, vp, bt, pos = _paged(dev, dtype, b=5, t=t, hq=hq, hkv=hkv, hd=hd,
+                                bs=bs, seed=hd + t, last=[0, 5, 130, 299, 64])
+    before = pa.paged_attention.launches_by_mode[mode]
+    out = pa.paged_attention(q, kp, vp, bt, pos, attn_approx=mode,
+                             window=window)
+    torch.cuda.synchronize()
+    assert pa.paged_attention.launches_by_mode[mode] == before + 1
+    assert out.shape == q.shape and out.dtype == q.dtype
+    if mode == "maxonly":
+        assert _maxonly_ok(out, q, kp, vp, bt, pos, window)
+        return
+    want = ref.paged_attention(q, kp, vp, bt, pos, attn_approx=mode,
+                               window=window)
+    tol = 2e-2 if dtype == torch.bfloat16 else (
+        1e-4 if mode == "pseudo" else 2e-3)
+    torch.testing.assert_close(out.float(), want.float(), atol=tol, rtol=tol)
+
+
+def test_paged_attention_kernel_maxonly_ties_take_the_earliest_key(dev):
+    """Each (row, kv head) gets a key far above the rest (q itself, score
+    |q|^2 / sqrt(hd) ~ 8 against ~N(0, 1)), copied to earlier positions
+    -- within one 32-key slice, across slices and across 64-key stages --
+    so the copies score exactly alike; maxonly must return the V row of
+    the earliest copy (V rows differ by the position, so the pick
+    shows)."""
+    q, kp, vp, bt, pos = _paged(dev, torch.float32, b=2, t=1, hq=2, hkv=2,
+                                hd=64, bs=16, seed=3, last=[200, 90])
+    want = torch.empty_like(q)
+    for r, (src, dsts) in enumerate(((150, (100, 40, 20, 3)),
+                                     (80, (70, 11, 10)))):
+        for h in range(2):
+            for d in (src,) + dsts:
+                blk, off = int(bt[r, d // 16]), d % 16
+                kp[blk, off, h] = q[r, h]
+                vp[blk, off, h] = float(d)
+            want[r, h] = float(min(dsts))
+    out = pa.paged_attention(q, kp, vp, bt, pos, attn_approx="maxonly")
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, want, atol=0, rtol=0)
+
+
+PIN_TOL = 1e-5      # f32 paged modes where kernel and plain share the max
+
+
+def _pinned(dev, *, t, hq, hkv, hd, window, seed):
+    """``_paged`` in f32 on quarter steps in [-4, 4] (every dot product
+    exact in any order, so kernel and plain version form the same f32
+    scores) with each query's first visible key its strict best: q[..., 0]
+    = beta and that key's K row (20 - rank) * e_0, rank 0 for the row's
+    earliest such key, a score near 7 against ~N(0, 1.1) for the rest.
+    The kernel's running max then never moves after the first slice with
+    a visible key, so it evaluates the score function at the plain
+    version's max."""
+    bs = 8 if hd == 256 else 16
+    q, kp, vp, bt, pos = _paged(dev, torch.float32, b=5, t=t, hq=hq,
+                                hkv=hkv, hd=hd, bs=bs, seed=seed,
+                                last=[0, 5, 130, 299, 64])
+    for x in (q, kp, vp):
+        x.copy_(torch.clamp(torch.round(x * 4), -16, 16) / 4)
+    q[..., 0] = round(0.35 * hd ** 0.5 * 4) / 4
+    pos2, table = pos.reshape(5, -1).cpu().numpy(), bt.cpu().numpy()
+    for r in range(5):
+        first = pos2[r] * 0 if window is None else np.maximum(
+            pos2[r] - window + 1, 0)
+        for rank, p in enumerate(sorted(set(first.tolist()))):
+            blk, off = int(table[r, p // bs]), p % bs
+            kp[blk, off] = 0.0
+            kp[blk, off, :, 0] = 20.0 - rank
+    s = _scores(q, kp, bt, pos, window)
+    first = (s > -torch.inf).float().argmax(-1, keepdim=True)
+    rest = torch.where(torch.arange(s.shape[-1], device=dev) == first,
+                       -torch.inf, s).amax(-1, keepdim=True)
+    assert bool((s.gather(-1, first) > rest + 0.25).all())
+    return q, kp, vp, bt, pos
+
+
+@pytest.mark.parametrize("hd", [16, 64, 128, 256])
+@pytest.mark.parametrize("t,hq,hkv", [(1, 16, 8), (3, 8, 2)])
+@pytest.mark.parametrize("window", [None, 100])
+@pytest.mark.parametrize("mode", ["base2", "pseudo", "pwl"])
+def test_paged_attention_kernel_modes_at_a_pinned_max(dev, mode, hd, t, hq,
+                                                      hkv, window):
+    """Where kernel and plain version evaluate the score function at the
+    same max (``_pinned``), the weights are the same floats: f32 outputs
+    agree to summation order (PIN_TOL), the kernel's gap to its own exact
+    output is within a quarter of the plain version's gap to exact, which
+    is 3e-5 or more at these windows (a kernel that ignored the mode
+    would miss by the whole gap; summation order, by ~1e-6), and bf16
+    copies of the same values come out within one bf16 step of the plain
+    version on the f32 inputs."""
+    q, kp, vp, bt, pos = _pinned(dev, t=t, hq=hq, hkv=hkv, hd=hd,
+                                 window=window, seed=hd + t)
+
+    def both(m, *x):
+        return (pa.paged_attention(*x, bt, pos, attn_approx=m, window=window),
+                ref.paged_attention(q, kp, vp, bt, pos, attn_approx=m,
+                                    window=window))
+
+    out, want = both(mode, q, kp, vp)
+    out_ex, want_ex = both("exact", q, kp, vp)
+    torch.testing.assert_close(out, want, atol=PIN_TOL, rtol=PIN_TOL)
+    gap = (want - want_ex).abs().max().item()
+    miss = ((out - out_ex) - (want - want_ex)).abs().max().item()
+    assert miss <= 0.25 * gap, (miss, gap)
+    out_bf, _ = both(mode, *(x.bfloat16() for x in (q, kp, vp)))
+    torch.testing.assert_close(out_bf.float(), want, atol=PIN_TOL,
+                               rtol=2.0 ** -8)
+
+
+def _half_bin_keys(hd, count=8):
+    """(n, j, k0): f32 values k0 whose score s = k0 / sqrt(hd) (divided
+    or multiplied by the reciprocal, both in f32) gives y = s * log2 e
+    exactly n + (j + 0.5) / 256, midway between base2 LUT bins j (even)
+    and j + 1."""
+    def steps(x, n):
+        up = dn = np.float32(x)
+        out = [up]
+        for _ in range(n):
+            up = np.nextafter(up, np.float32(np.inf))
+            dn = np.nextafter(dn, np.float32(-np.inf))
+            out += [up, dn]
+        return out
+
+    c, r = np.float32(1 / np.sqrt(hd)), np.float32(np.sqrt(hd))
+    log2e = np.float32(1.4426950408889634)
+    out = []
+    for n in (-1, -2):
+        for j in range(0, 256, 14):
+            y = np.float32(n + (j + 0.5) / 256)
+            for s in steps(y / log2e, 16):
+                if np.float32(s * log2e) != y:
+                    continue
+                ks = [k for k in steps(s * r, 16)
+                      if np.float32(k * c) == s and np.float32(k / r) == s]
+                if ks:
+                    out.append((n, j, ks[0]))
+                    break
+            if len(out) == count:
+                return out
+    raise AssertionError(f"found {len(out)} half-bin keys at hd {hd}")
+
+
+@pytest.mark.parametrize("hd", [16, 128])
+def test_paged_attention_kernel_base2_rounds_half_to_even(dev, hd):
+    """Keys whose scores land exactly midway between two base2 LUT bins
+    (behind a best key at score 0, so d is the score itself): the kernel
+    reads the even bin, as the plain version's round half to even does;
+    rounding half away from zero would move each weight by 2^(1/256) and
+    the output by far more than PIN_TOL."""
+    keys = _half_bin_keys(hd)
+    n_keys = len(keys) + 1
+    kp = torch.zeros(1, 16, 1, hd, device=dev)
+    kp[0, 1:n_keys, 0, 0] = torch.tensor([k for _, _, k in keys])
+    vp = torch.from_numpy(np.random.default_rng(hd).standard_normal(
+        (1, 16, 1, hd), np.float32)).to(dev)
+    q = torch.zeros(1, 1, hd, device=dev)
+    q[0, 0, 0] = 1.0
+    bt = torch.zeros(1, 1, dtype=torch.int32, device=dev)
+    pos = torch.tensor([n_keys - 1], dtype=torch.int32, device=dev)
+    out = pa.paged_attention(q, kp, vp, bt, pos, attn_approx="base2")
+    want = ref.paged_attention(q, kp, vp, bt, pos, attn_approx="base2")
+    torch.testing.assert_close(out, want, atol=PIN_TOL, rtol=PIN_TOL)
+    lut = base2_frac_lut(8).numpy().astype(np.float64)
+    v = vp[0, :n_keys, 0].double().cpu().numpy()
+
+    def expect(shift):
+        w = np.array([1.0] + [2.0 ** n * lut[j + shift] for n, j, _ in keys])
+        return w @ v / w.sum()
+
+    np.testing.assert_allclose(want[0, 0].double().cpu().numpy(), expect(0),
+                               atol=PIN_TOL, rtol=PIN_TOL)
+    assert np.abs(expect(1) - expect(0)).max() > 20 * PIN_TOL
 
 
 def test_paged_attention_kernel_rejects_bad_operands(dev):

@@ -154,7 +154,7 @@ def test_argmax_head_matches_pallas_and_ref(b, d, v, ties):
 def test_cpu_dispatch_never_launches_and_kernels_refuse_cpu():
     """CPU tensors take the plain versions: the launch counters stay 0.
     The CUDA wrappers themselves refuse CPU tensors -- no silent CPU
-    run -- and non-exact attention modes raise."""
+    run -- and unknown attention modes raise."""
     counted = (tpa.paged_attention, tfah.fused_argmax_head_with_value,
                tfa.flash_attention, tos.softmax_stats, tos.online_softmax,
                tfx.fused_xent)
@@ -163,6 +163,7 @@ def test_cpu_dispatch_never_launches_and_kernels_refuse_cpu():
     q, kp, vp, bt, pos = (torch.from_numpy(a)
                           for a in _paged_case(5, t=1, g=2))
     tops.paged_attention(q, kp, vp, bt, pos)
+    tops.paged_attention(q, kp, vp, bt, pos, attn_approx="maxonly")
     h, w = (torch.from_numpy(a) for a in _head_case(0, 2, 16, 300))
     tops.fused_argmax_head_with_value(h, w)
     fq = torch.randn(1, 4, 6, 16)
@@ -185,7 +186,7 @@ def test_cpu_dispatch_never_launches_and_kernels_refuse_cpu():
             fn(x.detach())
     with pytest.raises(ValueError, match="CUDA tensor"):
         tfx.fused_xent(x.detach(), lab)
-    with pytest.raises(NotImplementedError):
-        tops.paged_attention(q, kp, vp, bt, pos, attn_approx="maxonly")
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        tpa.paged_attention(q, kp, vp, bt, pos, attn_approx="maxonly")
     with pytest.raises(ValueError):
         tops.paged_attention(q, kp, vp, bt, pos, attn_approx="nope")

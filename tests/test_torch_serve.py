@@ -179,7 +179,7 @@ def test_device_guards_and_cpu_runs_launch_no_kernel(bridged):
 @pytest.mark.parametrize("kw", [dict(chunk_size=16), dict(host_stride=4),
                                 dict(tp=2), dict(scheduler="cohort"),
                                 dict(kv_layout="dense"),
-                                dict(attn_approx="maxonly"),
+                                dict(kv_layout="dense", attn_approx="pseudo"),
                                 dict(head_mode="sharded"),
                                 dict(token_budget=8),
                                 dict(prefix_cache=True),
