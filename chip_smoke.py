@@ -12,8 +12,10 @@ Phases, each of which fails the run (non-zero exit, no result line):
      path's shapes, with the stated tolerance, and times the kernel, the
      plain version and one PyTorch library call computing the same
      function (a yardstick only), beside the bound computed from the
-     bytes and flops of these inputs: paged attention (T = 1, 4 and 32,
-     the last 64 query rows per KV head), the argmax head, the top-k head
+     bytes and flops of these inputs: paged attention (T = 1, 4 and 32
+     over 8 ragged rows, the last 64 query rows per KV head, and T = 1
+     over one 1000-token row; each call's split into chunks printed),
+     the argmax head, the top-k head
      (planted ties across vocabulary splits), the speculative verify
      head (ragged -1 padded drafts), flash attention (prompts of 71 and
      512 tokens, g 2 and 8, causal and windowed) and the softmax unit's
@@ -23,7 +25,10 @@ Phases, each of which fails the run (non-zero exit, no result line):
      (T = 1 and 4, window None and 128), each timed beside exact, and
      base2, pseudo and pwl again at those shapes with each query's best
      key in its first visible 32-key slice, in f32 at rounding level and
-     each mode's gap to exact as large as the plain version's;
+     each mode's gap to exact as large as the plain version's.  The
+     kernel flash attention ran per (dtype, head dim), by its name in a
+     profiler trace, is printed (bf16 on the tensor cores), and two calls of each redesigned kernel (paged and flash attention)
+     must give the same bits;
   4. drives the main path -- ``LLM.from_arch("qwen3-0.6b", smoke=False)``
      then ``LLM.generate``, greedy, at the model's full width with random
      seeded weights -- and checks that every prompt prefill layer went
@@ -165,27 +170,70 @@ def bound(nbytes: float, flops: float, peak: float):
 class Timer:
     """CUDA-event time of one call, averaged over ``iters`` runs, with
     the 50 MB L2 flushed before each run (the decode step finds each
-    layer's operands cold)."""
+    layer's operands cold).  ``timer(fn)`` is the call's time; a timed
+    kernel and its library call get three readings (``readings``):
+
+    - ``ms``, the call's time: the events also catch the host's Python
+      in front of the call's first launch where it outlasts the flush
+      (the one reading this script took before it took all three);
+    - ``device_ms``, the card's time: the card spins for HOLD_CYCLES
+      while the host records the start event and enqueues the call, so
+      the events bracket the card's work alone;
+    - ``host_ms``, the host's time to enqueue the call (wall clock, in
+      the held runs, where no launch waits for the card)."""
+
+    HOLD_CYCLES = 1_000_000          # ~0.5 ms at the H100's 1,980 MHz
 
     def __init__(self, torch):
         self.torch = torch
         self.flush = torch.empty(128 << 20, dtype=torch.uint8, device="cuda")
 
-    def __call__(self, fn, iters=20, warmup=3) -> float:
+    def _run(self, fn, hold, iters=20, warmup=3):
+        """(mean event ms, mean host ms) over ``iters`` calls."""
         torch = self.torch
         for _ in range(warmup):
             fn()
-        total = 0.0
+        total = host = 0.0
         for _ in range(iters):
             self.flush.zero_()
+            if hold:
+                torch.cuda._sleep(self.HOLD_CYCLES)
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
+            t0 = time.perf_counter()
             fn()
+            host += time.perf_counter() - t0
             end.record()
             end.synchronize()
             total += start.elapsed_time(end)
-        return total / iters
+        return total / iters, host * 1e3 / iters
+
+    def __call__(self, fn) -> float:
+        return self._run(fn, hold=False)[0]
+
+    def readings(self, fn, prefix="") -> dict:
+        """``fn``'s call, device and host ms under the keys ``prefix`` +
+        ``ms``, ``device_ms`` and ``host_ms``."""
+        device, host = self._run(fn, hold=True)
+        return {f"{prefix}ms": self(fn), f"{prefix}device_ms": device,
+                f"{prefix}host_ms": host}
+
+
+NO_LIBRARY = dict.fromkeys(("library_ms", "library_device_ms",
+                            "library_host_ms"))
+# the timing keys of a kernel's row and of its entry in the kernels line
+TIMES = ("ms", "device_ms", "host_ms", "plain_ms", "bound_ms", "bound_by",
+         *NO_LIBRARY)
+
+
+def shown(row, prefix="") -> str:
+    """A row's three readings as printed."""
+    if row[f"{prefix}ms"] is None:
+        return "none"
+    return (f"{row[f'{prefix}ms']:.4f} ms (device "
+            f"{row[f'{prefix}device_ms']:.4f}, host "
+            f"{row[f'{prefix}host_ms']:.4f})")
 
 
 # ---------------------------------------------------------------------------
@@ -195,11 +243,11 @@ def paged_case(torch, rng, t, *, b=8, hq=16, hkv=8, hd=128, bs=16,
                dtype=None):
     """The main path's decode shapes: ragged contexts of 1..1000 tokens,
     permuted pool blocks, tables padded to a power of two with each row's
-    own first block, bf16 (or ``dtype``)."""
+    own first block, bf16 (or ``dtype``).  One row (b = 1) holds 1000."""
     from repro_torch.serve.paged_kv import pow2
 
     ctx = rng.integers(1, 1001, size=b)
-    ctx[0], ctx[1] = 1, 1000                  # both ends of the range
+    ctx[:2] = (1, 1000) if b > 1 else 1000    # both ends of the range
     last = ctx - 1
     nbs = last // bs + 1
     nb = pow2(int(nbs.max()))
@@ -264,39 +312,64 @@ def sdpa_on_gathered_view(torch, q, kp, vp, bt, pos, window, scale):
         qd, kd, vd, attn_mask=mask[:, None], scale=scale, enable_gqa=True)
 
 
+def split_line(pa, q, kp, bt, mode="exact") -> str:
+    """The split the paged-attention wrapper takes for these operands."""
+    n, ck = pa.split_for(q, kp, bt, mode)
+    return (f"{n} chunks of {ck} keys, combine in chunk order" if n > 1
+            else f"1 chunk of {ck} keys, no combine")
+
+
+def check_repeatable(torch, fn, what):
+    """Two calls of a kernel on the same inputs give the same bits."""
+    a, b = fn(), fn()
+    torch.cuda.synchronize()
+    same = torch.equal(a, b)
+    print(f"{what}: two calls {'bitwise equal' if same else 'DIFFER'}",
+          flush=True)
+    check(same, f"{what}: two calls on the same inputs differ")
+
+
 def check_paged_attention(torch, timer, rng):
+    """Exact paged attention at T = 1, 4 and 32 over 8 ragged rows, and
+    at T = 1 over one 1000-token row (B 1, the single-row latency case
+    the split is for)."""
     from repro_torch.kernels import paged_attention as pa
     from repro_torch.kernels import ref
 
     rows = {}
-    for t in (1, 4, 32):          # T = 32 at g = 2: 64 query rows per head
-        q, kp, vp, bt, pos = paged_case(torch, rng, t)
+    # T = 32 at g = 2: 64 query rows per head
+    for key, t, b in ((1, 1, 8), (4, 4, 8), (32, 32, 8), ("B1", 1, 1)):
+        q, kp, vp, bt, pos = paged_case(torch, rng, t, b=b)
         hd = q.shape[-1]
+        tag = f"B={b} T={t}"
         out = pa.paged_attention(q, kp, vp, bt, pos)
         torch.cuda.synchronize()
         want = ref.paged_attention(q, kp, vp, bt, pos)
-        check(bool(torch.isfinite(out).all()), f"paged T={t}: non-finite")
+        check(bool(torch.isfinite(out).all()), f"paged {tag}: non-finite")
         err = (out.float() - want.float()).abs().max().item()
         ok = torch.allclose(out.float(), want.float(), atol=PA_TOL,
                             rtol=PA_TOL)
-        print(f"paged_attention T={t}: max_abs_err {err:.6g} vs plain "
-              f"(atol = rtol = {PA_TOL}): {'ok' if ok else 'FAIL'}",
-              flush=True)
-        check(ok, f"paged attention T={t} disagrees with its plain version")
+        print(f"paged_attention {tag}: {split_line(pa, q, kp, bt)}; "
+              f"max_abs_err {err:.6g} vs plain (atol = rtol = {PA_TOL}): "
+              f"{'ok' if ok else 'FAIL'}", flush=True)
+        check(ok, f"paged attention {tag} disagrees with its plain version")
+        check_repeatable(torch, lambda: pa.paged_attention(
+            q, kp, vp, bt, pos), f"paged_attention {tag}")
 
-        ms = timer(lambda: pa.paged_attention(q, kp, vp, bt, pos))
+        kern = timer.readings(lambda: pa.paged_attention(
+            q, kp, vp, bt, pos))
         plain_ms = timer(lambda: ref.paged_attention(q, kp, vp, bt, pos))
-        lib_ms = timer(sdpa_on_gathered_view(torch, q, kp, vp, bt, pos,
-                                             None, 1 / math.sqrt(hd)))
+        lib = timer.readings(sdpa_on_gathered_view(
+            torch, q, kp, vp, bt, pos, None, 1 / math.sqrt(hd)), "library_")
         nbytes, flops = paged_work(q, kp, bt, pos, None)
         bound_ms, bound_by = bound(nbytes, flops, BF16_FLOPS_PER_S)
-        print(f"paged_attention T={t}: kernel {ms:.4f} ms, plain "
-              f"{plain_ms:.4f} ms, sdpa(gathered view) {lib_ms:.4f} ms, "
-              f"bound {bound_ms:.4f} ms ({bound_by}: {nbytes / 1e6:.3f} MB)",
-              flush=True)
-        rows[t] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                       bound_ms=bound_ms, bound_by=bound_by,
-                       library_ms=lib_ms)
+        print(f"paged_attention {tag}: kernel {shown(kern)}, plain "
+              f"{plain_ms:.4f} ms, sdpa(gathered view) "
+              f"{shown(lib, 'library_')}, bound {bound_ms:.4f} ms "
+              f"({bound_by}: {nbytes / 1e6:.3f} MB)", flush=True)
+        rows[key] = dict(max_abs_err=err, **kern, plain_ms=plain_ms,
+                         bound_ms=bound_ms, bound_by=bound_by, **lib,
+                         chunks=pa.split_for(q, kp, bt)[0])
     return rows
 
 
@@ -385,30 +458,31 @@ def check_paged_modes(torch, timer, rng):
                     ok = torch.allclose(out.float(), want.float(),
                                         atol=PA_TOL, rtol=PA_TOL)
                     verdict = f"atol = rtol = {PA_TOL}"
-                print(f"paged_attention {mode} {tag}: max_abs_err {err:.6g} "
-                      f"vs plain ({verdict}): {'ok' if ok else 'FAIL'}",
-                      flush=True)
+                print(f"paged_attention {mode} {tag}: "
+                      f"{split_line(pa, q, kp, bt, mode)}; max_abs_err "
+                      f"{err:.6g} vs plain ({verdict}): "
+                      f"{'ok' if ok else 'FAIL'}", flush=True)
                 check(ok, f"paged attention {mode} {tag} disagrees with its "
                       "plain version")
 
-                ms = timer(lambda: pa.paged_attention(
+                kern = timer.readings(lambda: pa.paged_attention(
                     q, kp, vp, bt, pos, attn_approx=mode, window=window))
                 plain_ms = timer(lambda: ref.paged_attention(
                     q, kp, vp, bt, pos, attn_approx=mode, window=window))
-                lib_ms = None
+                lib = NO_LIBRARY
                 if mode in ("exact", "pseudo"):
                     scale = (math.log(2) if mode == "pseudo" else 1.0) \
                         / math.sqrt(q.shape[-1])
-                    lib_ms = timer(sdpa_on_gathered_view(
-                        torch, q, kp, vp, bt, pos, window, scale))
-                print(f"paged_attention {mode} {tag}: kernel {ms:.4f} ms, "
+                    lib = timer.readings(sdpa_on_gathered_view(
+                        torch, q, kp, vp, bt, pos, window, scale),
+                        "library_")
+                print(f"paged_attention {mode} {tag}: kernel {shown(kern)}, "
                       f"plain {plain_ms:.4f} ms, library "
-                      f"{'none' if lib_ms is None else f'{lib_ms:.4f} ms'}, "
-                      f"bound {bound_ms:.4f} ms ({bound_by}: "
-                      f"{nbytes / 1e6:.3f} MB)", flush=True)
+                      f"{shown(lib, 'library_')}, bound {bound_ms:.4f} ms "
+                      f"({bound_by}: {nbytes / 1e6:.3f} MB)", flush=True)
                 rows[(mode, t, window)] = dict(
-                    max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                    library_ms=lib_ms, bound_ms=bound_ms, bound_by=bound_by)
+                    max_abs_err=err, **kern, plain_ms=plain_ms, **lib,
+                    bound_ms=bound_ms, bound_by=bound_by)
     return rows
 
 
@@ -552,18 +626,18 @@ def check_argmax_head(torch, timer):
               f"fused argmax head B={b} disagrees with its plain version")
         check(len(live) > 0, "no planted tie reached the top")
 
-        ms = timer(lambda: fah.fused_argmax_head_with_value(h, w))
+        kern = timer.readings(lambda: fah.fused_argmax_head_with_value(
+            h, w))
         plain_ms = timer(lambda: ref.fused_argmax_head_with_value(h, w))
-        lib_ms = timer(lambda: torch.argmax(h @ w, dim=-1))
+        lib = timer.readings(lambda: torch.argmax(h @ w, dim=-1), "library_")
         nbytes = v * d * 2 + b * d * 2 + b * 8
         bound_ms, bound_by = bound(nbytes, 2.0 * b * d * v,
                                    BF16_FLOPS_PER_S)
-        print(f"fused_argmax_head B={b}: kernel {ms:.4f} ms, plain "
-              f"{plain_ms:.4f} ms, argmax(h @ W) {lib_ms:.4f} ms, bound "
-              f"{bound_ms:.4f} ms ({bound_by})", flush=True)
-        rows[b] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                       bound_ms=bound_ms, bound_by=bound_by,
-                       library_ms=lib_ms)
+        print(f"fused_argmax_head B={b}: kernel {shown(kern)}, plain "
+              f"{plain_ms:.4f} ms, argmax(h @ W) {shown(lib, 'library_')}, "
+              f"bound {bound_ms:.4f} ms ({bound_by})", flush=True)
+        rows[b] = dict(max_abs_err=err, **kern, plain_ms=plain_ms,
+                       bound_ms=bound_ms, bound_by=bound_by, **lib)
     return rows
 
 
@@ -619,18 +693,19 @@ def check_topk_head(torch, timer):
             if k > 1:
                 check(n_ties > 0, f"no planted tie reached the top {k}")
 
-            ms = timer(lambda: ftk.fused_topk_head(h, w, k))
+            kern = timer.readings(lambda: ftk.fused_topk_head(h, w, k))
             plain_ms = timer(lambda: ref.fused_topk_head(h, w, k))
-            lib_ms = timer(lambda: torch.topk(h @ w, k, dim=-1))
+            lib = timer.readings(lambda: torch.topk(h @ w, k, dim=-1),
+                                 "library_")
             nbytes = v * d * 2 + b * d * 2 + b * k * 8
             bound_ms, bound_by = bound(nbytes, 2.0 * b * d * v,
                                        BF16_FLOPS_PER_S)
-            print(f"fused_topk_head B={b} k={k}: kernel {ms:.4f} ms, plain "
-                  f"{plain_ms:.4f} ms, topk(h @ W) {lib_ms:.4f} ms, bound "
-                  f"{bound_ms:.4f} ms ({bound_by})", flush=True)
-            rows[(b, k)] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                                bound_ms=bound_ms, bound_by=bound_by,
-                                library_ms=lib_ms)
+            print(f"fused_topk_head B={b} k={k}: kernel {shown(kern)}, "
+                  f"plain {plain_ms:.4f} ms, topk(h @ W) "
+                  f"{shown(lib, 'library_')}, bound {bound_ms:.4f} ms "
+                  f"({bound_by})", flush=True)
+            rows[(b, k)] = dict(max_abs_err=err, **kern, plain_ms=plain_ms,
+                                bound_ms=bound_ms, bound_by=bound_by, **lib)
     return rows
 
 
@@ -673,20 +748,61 @@ def check_verify_head(torch, timer):
         check(ok, f"verify head T={t} disagrees with its plain version")
 
         h2 = h.view(b * t, d)
-        ms = timer(lambda: fah.fused_verify_head(h, w, cand_t))
+        kern = timer.readings(lambda: fah.fused_verify_head(h, w, cand_t))
         plain_ms = timer(lambda: ref.verify_draft(h, w, cand_t))
         argmax_ms = timer(lambda: torch.argmax(h2 @ w, dim=-1))
         nbytes = v * d * 2 + b * t * d * 2 + cand.size * 4 + b * t * 4 + b * 4
         bound_ms, bound_by = bound(nbytes, 2.0 * b * t * d * v,
                                    BF16_FLOPS_PER_S)
-        print(f"fused_verify_head B={b} T={t}: kernel {ms:.4f} ms, plain "
+        print(f"fused_verify_head B={b} T={t}: kernel {shown(kern)}, plain "
               f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}); "
               f"no one PyTorch call verifies (argmax(h @ W) over the "
               f"{b * t} rows alone: {argmax_ms:.4f} ms)", flush=True)
-        rows[t] = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
-                       bound_ms=bound_ms, bound_by=bound_by,
-                       library_ms=None)
+        rows[t] = dict(max_abs_err=0.0, **kern, plain_ms=plain_ms,
+                       bound_ms=bound_ms, bound_by=bound_by, **NO_LIBRARY)
     return rows
+
+
+def device_kernels(torch, fn) -> list:
+    """Names of the device kernels a profiler trace saw ``fn`` launch."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+
+
+def flash_routes(torch) -> dict:
+    """The kernel flash attention ran per (dtype, head dim), read from a
+    profiler trace of one call: bf16 must run the tensor-core kernel
+    (``flash_attention_mma_kernel``) at every head dim, f32 the CUDA-core
+    one (``flash_attention_kernel``)."""
+    from repro_torch.kernels import flash_attention as fa
+
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    routes = {}
+    for dt, want in ((torch.bfloat16, "mma.sync"),
+                     (torch.float32, "cuda-core")):
+        for hd in (16, 32, 64, 128, 256):
+            q, k, v = (torch.randn((1, h, 64, hd), generator=gen,
+                                   device="cuda").to(dt) for h in (2, 1, 1))
+            names = [n for n in device_kernels(
+                torch, lambda: fa.flash_attention(q, k, v))
+                if "flash_attention" in n]
+            mma = [n for n in names if "flash_attention_mma_kernel" in n]
+            core = [n for n in names if "flash_attention_kernel" in n]
+            tag = f"{str(dt).replace('torch.', '')} hd {hd}"
+            route = ("mma.sync" if mma and not core else
+                     "cuda-core" if core and not mma else f"? {names}")
+            routes[tag] = route
+            print(f"flash_attention route {tag}: {route} (ran "
+                  f"{', '.join(n[:60] for n in names)})", flush=True)
+            check(route == want, f"flash attention {tag} ran {names}, not "
+                  f"the {want} kernel")
+    return routes
 
 
 def check_flash_attention(torch, timer):
@@ -694,12 +810,14 @@ def check_flash_attention(torch, timer):
     in {71, 512} tokens, qwen3-0.6b's 16 query / 8 KV heads of hd 128,
     bf16, causal; then g 8 (64 / 8 heads, qwen3-32b's) and a causal
     window of 128, both at 512.  Operands are the transposed (B, T, H,
-    hd) views the layer passes.  Yardstick: SDPA on the same views."""
+    hd) views the layer passes.  Yardstick: SDPA on the same views.
+    Returns the rows and ``flash_routes``' kernels per (dtype, hd)."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ref
 
+    routes = flash_routes(torch)
     gen = torch.Generator(device="cuda").manual_seed(5)
     rows = {}
     for name, t, hq, hkv, window in (("T71", 71, 16, 8, None),
@@ -725,6 +843,8 @@ def check_flash_attention(torch, timer):
               f"(atol = rtol = {FA_TOL}): {'ok' if ok else 'FAIL'}",
               flush=True)
         check(ok, f"flash attention {name} disagrees with its plain version")
+        check_repeatable(torch, lambda: fa.flash_attention(
+            q, k, v, causal=True, window=window), f"flash_attention {name}")
 
         idx = torch.arange(t, device="cuda")
         mask = idx[None, :] <= idx[:, None]
@@ -732,23 +852,22 @@ def check_flash_attention(torch, timer):
             mask &= idx[None, :] > idx[:, None] - window
         sdpa = (dict(is_causal=True) if window is None
                 else dict(attn_mask=mask))
-        ms = timer(lambda: fa.flash_attention(q, k, v, causal=True,
-                                              window=window))
+        kern = timer.readings(lambda: fa.flash_attention(
+            q, k, v, causal=True, window=window))
         plain_ms = timer(lambda: ref.flash_attention(q, k, v, causal=True,
                                                      window=window))
-        lib_ms = timer(lambda: F.scaled_dot_product_attention(
-            q, k, v, enable_gqa=True, **sdpa))
+        lib = timer.readings(lambda: F.scaled_dot_product_attention(
+            q, k, v, enable_gqa=True, **sdpa), "library_")
         nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
         flops = 4 * hd * hq * int(mask.sum())
         bound_ms, bound_by = bound(nbytes, flops, BF16_FLOPS_PER_S)
-        print(f"flash_attention {name}: kernel {ms:.4f} ms, plain "
-              f"{plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound "
+        print(f"flash_attention {name}: kernel {shown(kern)}, plain "
+              f"{plain_ms:.4f} ms, sdpa {shown(lib, 'library_')}, bound "
               f"{bound_ms:.4f} ms ({bound_by}: {nbytes / 1e6:.3f} MB, "
               f"{flops / 1e9:.3f} GFLOP)", flush=True)
-        rows[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                          bound_ms=bound_ms, bound_by=bound_by,
-                          library_ms=lib_ms)
-    return rows
+        rows[name] = dict(max_abs_err=err, **kern, plain_ms=plain_ms,
+                          bound_ms=bound_ms, bound_by=bound_by, **lib)
+    return rows, routes
 
 
 def unit_errors(torch, x, lab, m, l, p, loss):
@@ -817,14 +936,16 @@ def check_softmax_units(torch, timer):
              lambda: F.cross_entropy(x, lab, reduction="none"),
              n * el + 12 * b, 4 * n))
         for name, kern, plain, lib, nbytes, flops in cases:
-            ms, plain_ms, lib_ms = timer(kern), timer(plain), timer(lib)
+            kern_t, plain_ms = timer.readings(kern), timer(plain)
+            lib_t = timer.readings(lib, "library_")
             bound_ms, bound_by = bound(nbytes, flops, F32_FLOPS_PER_S)
-            print(f"{name} {tag}: kernel {ms:.4f} ms, plain {plain_ms:.4f} "
-                  f"ms, library {lib_ms:.4f} ms, bound {bound_ms:.4f} ms "
-                  f"({bound_by}: {nbytes / 1e6:.3f} MB)", flush=True)
-            rows[(name, b)] = dict(max_abs_err=errs[name], ms=ms,
+            print(f"{name} {tag}: kernel {shown(kern_t)}, plain "
+                  f"{plain_ms:.4f} ms, library {shown(lib_t, 'library_')}, "
+                  f"bound {bound_ms:.4f} ms ({bound_by}: "
+                  f"{nbytes / 1e6:.3f} MB)", flush=True)
+            rows[(name, b)] = dict(max_abs_err=errs[name], **kern_t,
                                    plain_ms=plain_ms, bound_ms=bound_ms,
-                                   bound_by=bound_by, library_ms=lib_ms)
+                                   bound_by=bound_by, **lib_t)
     return rows
 
 
@@ -1175,8 +1296,14 @@ def profile_decode(torch, llm, prompts, steps=5):
           f"{len(kernels) / steps:.0f} kernels/step", flush=True)
     for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
         print(f"  {us / 1e3 / steps:8.3f} ms/step  {name[:90]}", flush=True)
+    # paged attention's kernel and its split's combine kernel
+    paged = [e for e in kernels if "paged_" in e.name]
+    paged_ms = sum(e.time_range.elapsed_us() for e in paged) / 1e3 / steps
+    print(f"  paged attention (kernel + combine): {paged_ms:.3f} ms/step in "
+          f"{len(paged) / steps:.0f} launches/step", flush=True)
     return dict(wall_ms=wall_ms, busy_ms=busy_ms,
-                kernels_per_step=len(kernels) / steps)
+                kernels_per_step=len(kernels) / steps, paged_ms=paged_ms,
+                paged_kernels_per_step=len(paged) / steps)
 
 
 def run_unit_path(torch, llm, prompts, outs):
@@ -1436,7 +1563,7 @@ def main() -> int:
         head_rows = check_argmax_head(torch, timer)
         topk_rows = check_topk_head(torch, timer)
         verify_rows = check_verify_head(torch, timer)
-        flash_rows = check_flash_attention(torch, timer)
+        flash_rows, fa_routes = check_flash_attention(torch, timer)
         unit_rows = check_softmax_units(torch, timer)
         print(clocks_line(), flush=True)
         del timer
@@ -1467,8 +1594,8 @@ def main() -> int:
              replaces="src/repro/kernels/paged_attention.py:172",
              launches=launches["paged_attention"],
              max_abs_err=max(r["max_abs_err"] for r in pa_rows.values()),
-             **{k: pa_rows[1][k] for k in ("ms", "plain_ms", "bound_ms",
-                                           "bound_by", "library_ms")},
+             **{k: pa_rows[1][k] for k in TIMES + ("chunks",)},
+             single_row={k: pa_rows["B1"][k] for k in TIMES + ("chunks",)},
              modes={mode: dict(
                  launches=probe_runs[None]["launches_by_mode"][mode],
                  max_abs_err=max(r["max_abs_err"] for (m, _, _), r
@@ -1476,8 +1603,7 @@ def main() -> int:
                  pinned_max_abs_err=max(
                      (r["max_abs_err"] for (m, _, _), r
                       in pinned_rows.items() if m == mode), default=None),
-                 **{k: mode_rows[(mode, 1, None)][k] for k in (
-                     "ms", "plain_ms", "library_ms", "bound_ms")})
+                 **{k: mode_rows[(mode, 1, None)][k] for k in TIMES})
                  for mode in ("exact", "base2", "pseudo", "pwl",
                               "maxonly")}),
         dict(name="fused_argmax_head", route="cuda",
@@ -1485,29 +1611,27 @@ def main() -> int:
              replaces="src/repro/kernels/fused_argmax_head.py:75",
              launches=launches["fused_argmax_head"],
              max_abs_err=max(r["max_abs_err"] for r in head_rows.values()),
-             **{k: head_rows[8][k] for k in ("ms", "plain_ms", "bound_ms",
-                                             "bound_by", "library_ms")}),
+             **{k: head_rows[8][k] for k in TIMES}),
         dict(name="fused_topk_head", route="cuda",
              source="src/repro_torch/kernels/csrc/fused_topk_head.cu",
              replaces="src/repro/kernels/fused_topk_head.py:107",
              launches=topk_launches["fused_topk_head"],
              max_abs_err=max(r["max_abs_err"] for r in topk_rows.values()),
-             **{k: topk_rows[(4, 8)][k] for k in (
-                 "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}),
+             **{k: topk_rows[(4, 8)][k] for k in TIMES}),
         dict(name="fused_verify_head", route="cuda",
              source="src/repro_torch/kernels/csrc/fused_argmax_head.cu",
              replaces="src/repro/kernels/fused_topk_head.py:170",
              launches=verify_launches["fused_verify_head"],
              max_abs_err=max(r["max_abs_err"] for r in verify_rows.values()),
-             **{k: verify_rows[8][k] for k in (
-                 "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}),
+             **{k: verify_rows[8][k] for k in TIMES}),
         dict(name="flash_attention", route="cuda",
              source="src/repro_torch/kernels/csrc/flash_attention.cu",
              replaces="src/repro/kernels/flash_attention.py:76",
              launches=launches["flash_attention"],
              max_abs_err=max(r["max_abs_err"] for r in flash_rows.values()),
-             **{k: flash_rows["T512"][k] for k in (
-                 "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}),
+             **{k: flash_rows["T512"][k] for k in TIMES},
+             g8={k: flash_rows["T512_g8"][k] for k in TIMES},
+             routes=fa_routes),
     ]
     for name, replaces in (
             ("fused_xent", "src/repro/kernels/fused_xent.py:59"),
@@ -1519,8 +1643,7 @@ def main() -> int:
             replaces=replaces, launches=unit_launches[name],
             max_abs_err=max(unit_errs[name], unit_rows[(name, 12)][
                 "max_abs_err"], unit_rows[(name, 512)]["max_abs_err"]),
-            **{k: unit_rows[(name, 12)][k] for k in (
-                "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}))
+            **{k: unit_rows[(name, 12)][k] for k in TIMES}))
     summary["probe"] = {
         str(w): {v: {k: row[k] for k in ("divergence",
                                          "mean_first_divergence")}

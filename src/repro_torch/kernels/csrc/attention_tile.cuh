@@ -1,14 +1,20 @@
 // Shared inner loop of the attention kernels (paged_attention.cu,
-// flash_attention.cu): one warp per query row carries the online softmax
-// (m, l, acc) in f32 registers over K/V tiles staged in shared memory.
+// flash_attention.cu's f32 route): one warp per query row carries the
+// online softmax (m, l, acc) in f32 registers over K/V tiles staged in
+// shared memory.
 //
-// Lane l of a warp holds head-dim elements [l * EPL, (l + 1) * EPL) of its
-// query and of acc; below HD = 32 only the first HD lanes hold any.  Over
-// each 32-key slice of a staged tile, a score is a warp-wide dot product
-// and lane jj keeps the score of key jj; a key the caller's `visible`
-// rejects scores -inf, and a slice with no visible key leaves the carry
-// alone (the test is warp-uniform).  A query with no visible key at all
-// writes 0: l is clamped at 1e-30, as the TPU kernels do.
+// The warp's query row sits in shared memory as f32 (stage_query).  Over
+// each 32-key slice of a staged tile, lane jj computes the whole score
+// of key jj: a dot product over the head dim in f32, the key's row read
+// 16 bytes at a time and the query broadcast.  Staged rows are padded by
+// 16 bytes (row stride LD = HD + 16 / sizeof(T) elements), so the 8
+// lanes of each quarter-warp read 8 different bank groups.  A key the
+// caller's `visible` rejects scores -inf, and a slice with no visible key
+// leaves the carry alone (the test is warp-uniform).  For P.V, lane l
+// holds head-dim elements [l * EPL, (l + 1) * EPL) of acc (below HD = 32
+// only the first HD lanes hold any) and takes each key's weight by a
+// shuffle.  A query with no visible key at all writes 0: l is clamped at
+// 1e-30, as the TPU kernels do.
 //
 // The score function is a compile-time mode (the attn_approx catalog of
 // core/attn_approx.py): the exact online softmax, or one of the four
@@ -25,6 +31,9 @@
 // LUT (256 entries) and the ROM (17) are f32 tables in shared memory,
 // built by the caller from core.softmax_variants.base2_frac_lut and
 // core.attn_approx.pwl_lut.
+//
+// The header also holds the 16-byte cp.async helpers with which both
+// kernels stage their K/V tiles, double-buffered.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -107,6 +116,26 @@ __device__ __forceinline__ void load_floats(const T* p, float (&out)[N]) {
   for (int i = 0; i < N; ++i) out[i] = to_float(x.v[i]);
 }
 
+// 16-byte asynchronous copy global -> shared (cp.async.cg, through L2
+// only); with pred false it reads nothing and zero-fills the 16 bytes.
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
+                                           bool pred) {
+  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(gmem), "r"(pred ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Wait until at most N of this thread's committed groups are in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
 __device__ __forceinline__ float warp_sum(float x) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(kFull, x, o);
@@ -119,45 +148,49 @@ __device__ __forceinline__ float warp_max(float x) {
   return x;
 }
 
-// The warp's query row (lane's slice), zero on lanes that hold none.
+// Elements of a staged K/V row, padded by 16 bytes (see the header).
 template <typename T, int HD>
-__device__ __forceinline__ void load_query(const T* row, int lane,
-                                           float (&qv)[kEpl<HD>]) {
-  constexpr int EPL = kEpl<HD>;
-#pragma unroll
-  for (int e = 0; e < EPL; ++e) qv[e] = 0.f;
-  if (lane < HD / EPL) load_floats<T, EPL>(row + lane * EPL, qv);
+constexpr int kLd = HD + 16 / (int)sizeof(T);
+
+// The warp's query row -> qs (HD f32 in shared memory, 16-byte aligned);
+// every lane of the warp calls it.
+template <typename T, int HD>
+__device__ __forceinline__ void stage_query(const T* row, int lane,
+                                            float* qs) {
+  for (int d = lane; d < HD; d += 32) qs[d] = to_float(row[d]);
+  __syncwarp();
 }
 
-// Fold keys p0 .. p0 + STAGE - 1, staged as the (STAGE, HD) tiles ks and
-// vs, into the carry (m, l, acc) of query qv under score mode MODE;
-// visible(p) says whether key p counts, rom is the mode's table in
-// shared memory (kRomSize<MODE> entries).  Every lane of the warp calls
-// it.
+// Fold keys p0 .. p0 + STAGE - 1, staged as the (STAGE, LD) tiles ks and
+// vs (LD = kLd<T, HD>), into the carry (m, l, acc) of the query row qs
+// (stage_query) under score mode MODE; visible(p) says whether key p
+// counts, rom is the mode's table in shared memory (kRomSize<MODE>
+// entries).  Every lane of the warp calls it.
 template <typename T, int HD, int STAGE, int MODE = kExact,
           typename Visible>
 __device__ __forceinline__ void fold_stage(const T* ks, const T* vs, int p0,
-                                           int lane,
-                                           const float (&qv)[kEpl<HD>],
+                                           int lane, const float* qs,
                                            float (&acc)[kEpl<HD>], float& m,
                                            float& l, float scale,
                                            Visible visible,
                                            const float* rom = nullptr) {
   constexpr int EPL = kEpl<HD>;
+  constexpr int LD = kLd<T, HD>;
+  constexpr int VEC = 16 / sizeof(T);  // elements per 16-byte read
   const bool lane_on = lane < HD / EPL;
   for (int j0 = 0; j0 < STAGE; j0 += 32) {
-    // lane jj keeps the score of key p0 + j0 + jj
-    float s_mine = -INFINITY;
-#pragma unroll 4
-    for (int jj = 0; jj < 32; ++jj) {
-      float kr[EPL] = {};
-      if (lane_on) load_floats<T, EPL>(ks + (j0 + jj) * HD + lane * EPL, kr);
-      float part = 0.f;
+    // lane jj scores key p0 + j0 + jj
+    const T* kr = ks + (j0 + lane) * LD;
+    float dot = 0.f;
 #pragma unroll
-      for (int e = 0; e < EPL; ++e) part = fmaf(qv[e], kr[e], part);
-      part = warp_sum(part);
-      if (lane == jj && visible(p0 + j0 + jj)) s_mine = part * scale;
+    for (int d = 0; d < HD; d += VEC) {
+      float kf[VEC], qf[VEC];
+      load_floats<T, VEC>(kr + d, kf);
+      load_floats<float, VEC>(qs + d, qf);
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) dot = fmaf(qf[e], kf[e], dot);
     }
+    const float s_mine = visible(p0 + j0 + lane) ? dot * scale : -INFINITY;
     const float smax = warp_max(s_mine);
     if (smax == -INFINITY) continue;  // warp-uniform: no visible key here
     if constexpr (MODE == kMaxOnly) {
@@ -165,7 +198,7 @@ __device__ __forceinline__ void fold_stage(const T* ks, const T* vs, int p0,
         // the first visible key at smax (invisible lanes hold -inf)
         const int jw = __ffs(__ballot_sync(kFull, s_mine == smax)) - 1;
         float vr[EPL] = {};
-        if (lane_on) load_floats<T, EPL>(vs + (j0 + jw) * HD + lane * EPL, vr);
+        if (lane_on) load_floats<T, EPL>(vs + (j0 + jw) * LD + lane * EPL, vr);
 #pragma unroll
         for (int e = 0; e < EPL; ++e) acc[e] = vr[e];
         l = 1.f;
@@ -184,7 +217,7 @@ __device__ __forceinline__ void fold_stage(const T* ks, const T* vs, int p0,
     for (int jj = 0; jj < 32; ++jj) {
       const float pj = __shfl_sync(kFull, p_mine, jj);
       float vr[EPL] = {};
-      if (lane_on) load_floats<T, EPL>(vs + (j0 + jj) * HD + lane * EPL, vr);
+      if (lane_on) load_floats<T, EPL>(vs + (j0 + jj) * LD + lane * EPL, vr);
 #pragma unroll
       for (int e = 0; e < EPL; ++e) acc[e] = fmaf(pj, vr[e], acc[e]);
     }

@@ -6,11 +6,13 @@ sliding-window attention with native GQA, the (B, Hq, T, S) scores never
 stored.  The one-shot prompt prefill runs it once per layer.
 
 Bound on the H100: memory at the served prompt lengths -- one read of q,
-k and v and one write of out.  The design (one thread block per (row, KV
-head, group of 32 query rows), the g query heads of a KV head in one
-block sharing every staged K/V tile, one warp per query row carrying the
-f32 online softmax) is the paged-attention kernel's; the source's header
-says what it leaves for later.
+k and v and one write of out.  The g query heads of a KV head sit in one
+block and share every staged K/V tile.  bf16 (the served dtype) runs on
+the tensor cores: 64 query rows per block of 4 warps, S = Q K^T and
+O += P V as ``mma.sync`` tiles from double-buffered ``cp.async`` K/V
+tiles, the online softmax in registers.  f32 keeps one warp per query
+row on the CUDA cores (TF32 would miss f32's tolerance); the source's
+header says the rest.
 
 The kernel takes each operand's strides, so the layer passes the
 ``(B, T, H, hd) -> (B, H, T, hd)`` transposed views without a copy, and

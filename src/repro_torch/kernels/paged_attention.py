@@ -9,11 +9,23 @@ plain version reads (``base2_frac_lut``, ``pwl_lut``).
 
 Bound on the H100: memory -- one read of each row's K/V history, 4*hd
 flops per K/V row, far under the card's ~295 flops per byte.  The design
-(one thread block per (row, kv head) and group of up to 32 query rows,
-GQA-native shared-memory K/V tiles, one warp per query row carrying the
-f32 online softmax) reads each K/V byte once per row and query group and
-never repeats K/V across the heads of a group; the source's header says
-what it leaves for later.
+(split-KV decode: one thread block per (row, kv head, group of up to 32
+query rows, chunk of the kv positions), GQA-native shared-memory K/V
+tiles staged by cp.async, one warp per query row carrying the f32 online
+softmax, then a combine kernel that merges the chunks' partials in chunk
+order) reads each K/V byte once per row and query group and never
+repeats K/V across the heads of a group; the source's header says what
+it leaves for later.
+
+``plan_split`` picks the chunks from the shapes alone -- never from
+``positions``, which would sync the host on every decode layer -- so
+that the grid covers the card's SMs; the partials go to f32 scratch
+allocated here.  The chunk count, and so the summation order, depends on
+the shapes only: two calls on the same inputs give the same bits.  It
+does depend on the batch -- on B and on the table width, which the
+longest row sets -- so a row's exact or pseudo output may differ in its
+last bits with its batch-mates (the Pallas kernel and the plain version
+fold every row from position 0 whatever the batch).
 
 ``paged_attention.launches`` counts the calls that launched the kernel,
 ``paged_attention.launches_by_mode`` the same calls by score mode.
@@ -35,13 +47,20 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (16, 32, 64, 128, 256)
 # the C entry's mode numbers
 _MODES = {"exact": 0, "base2": 1, "pseudo": 2, "pwl": 3, "maxonly": 4}
+# a chunk is a whole number of the kernel's stages (64 or 32 positions)
+CHUNK_QUANTUM = 64
+# thread blocks per SM the split aims for (a block holds 4-32 warps)
+BLOCKS_PER_SM = 4
+# modes whose weight cannot be rescaled across chunks: one chunk
+UNSPLIT_MODES = ("base2", "pwl")
 
 
 @functools.lru_cache(maxsize=None)
 def _fn():
     fn = _build.load("paged_attention").repro_paged_attention
     fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 10 + [
-        ctypes.c_void_p, ctypes.c_float, ctypes.c_void_p]
+        ctypes.c_void_p, ctypes.c_float, ctypes.c_int, ctypes.c_int,
+        ctypes.c_void_p, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -54,6 +73,45 @@ def _rom(mode: str, device: torch.device) -> Optional[torch.Tensor]:
     if mode == "pwl":
         return approx.pwl_lut(approx.PWL_SEGMENTS, device)
     return None
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def plan_split(b: int, hkv: int, groups: int, max_keys: int, mode: str,
+               n_sms: int):
+    """(n_chunks, chunk_keys) for a call of ``b`` rows, ``hkv`` KV heads
+    and ``groups`` query groups (of up to 32 query rows) per (row, KV
+    head) over a table of ``max_keys`` = nb * bs positions, on a card of
+    ``n_sms`` SMs.  Plain integers in, plain integers out: it reads no
+    tensor, so it never waits on the card.
+
+    One chunk for base2 and pwl, and when the unsplit grid already has a
+    block per SM; otherwise about ``BLOCKS_PER_SM`` blocks per SM, each
+    chunk a multiple of ``CHUNK_QUANTUM`` positions.  n_chunks *
+    chunk_keys covers max_keys, and no chunk lies wholly past it."""
+    per = -(-max_keys // CHUNK_QUANTUM) * CHUNK_QUANTUM
+    base = b * hkv * groups
+    if mode in UNSPLIT_MODES or base >= n_sms:
+        return 1, per
+    want = min(-(-BLOCKS_PER_SM * n_sms // base), per // CHUNK_QUANTUM)
+    keys = -(-per // (want * CHUNK_QUANTUM)) * CHUNK_QUANTUM
+    return -(-max_keys // keys), keys
+
+
+def split_for(q: torch.Tensor, k_pool: torch.Tensor,
+              block_tables: torch.Tensor, attn_approx: str = "exact"):
+    """The (n_chunks, chunk_keys) the wrapper takes for these operands:
+    their shapes and q's device's SM count only."""
+    hq = q.shape[-2]
+    t = q.shape[1] if q.dim() == 4 else 1
+    hkv = k_pool.shape[2]
+    groups = -(-t * (hq // hkv) // 32)
+    return plan_split(q.shape[0], hkv, groups,
+                      block_tables.shape[1] * k_pool.shape[1],
+                      approx.resolve(attn_approx)[0], _sm_count(q.device))
 
 
 def paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
@@ -104,12 +162,19 @@ def paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
                          f"{tuple(positions.shape)} {positions.dtype}")
     rom = _rom(attn_approx, q.device)
     out = torch.empty_like(q)
+    n_chunks, chunk_keys = split_for(q, k_pool, block_tables, attn_approx)
+    part = None
+    if n_chunks > 1:      # per chunk and query row: acc[hd], then m, l
+        part = torch.empty(b * t * hq * n_chunks * (hd + 2),
+                           dtype=torch.float32, device=q.device)
     err = _fn()(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
                 block_tables.data_ptr(), positions.data_ptr(),
                 out.data_ptr(), b, t, hq, hkv, hd, bs,
                 block_tables.shape[1], 0 if window is None else window,
                 _DTYPES[q.dtype], _MODES[attn_approx],
                 None if rom is None else rom.data_ptr(), 1.0 / math.sqrt(hd),
+                n_chunks, chunk_keys,
+                None if part is None else part.data_ptr(),
                 torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"paged_attention kernel launch failed: CUDA "

@@ -68,6 +68,24 @@ def _positions(positions, b: int, t: int, device) -> torch.Tensor:
     return pos.expand(b, t)
 
 
+def _gather(q, k_pool, v_pool, block_tables, positions, window, dt):
+    """q (B, T, Hq, hd)'s rows read through the block table: K and V
+    (B, nb*bs, Hkv, hd) in ``dt`` and the (B, T, S) mask of the keys each
+    query sees (<= its position, and > position - window with a
+    window)."""
+    b, t = q.shape[:2]
+    hkv, hd = k_pool.shape[2:]
+    pos = _positions(positions, b, t, q.device)
+    bt = block_tables.long()
+    k = k_pool[bt].to(dt).reshape(b, -1, hkv, hd)
+    v = v_pool[bt].to(dt).reshape(b, -1, hkv, hd)
+    kv_pos = torch.arange(k.shape[1], device=q.device)
+    mask = kv_pos[None, None, :] <= pos[:, :, None]
+    if window is not None:
+        mask &= kv_pos[None, None, :] > pos[:, :, None] - window
+    return k, v, mask
+
+
 def paged_attention(q, k_pool, v_pool, block_tables, positions, *,
                     attn_approx: str = "exact",
                     window: Optional[int] = None):
@@ -90,14 +108,8 @@ def paged_attention(q, k_pool, v_pool, block_tables, positions, *,
     b, t, hq, hd = q.shape
     hkv = k_pool.shape[2]
     dt = q.dtype
-    pos = _positions(positions, b, t, q.device)
-    bt = block_tables.long()
-    k = k_pool[bt].to(dt).reshape(b, -1, hkv, hd)        # (B, nb*bs, ...)
-    v = v_pool[bt].to(dt).reshape(b, -1, hkv, hd)
-    kv_pos = torch.arange(k.shape[1], device=q.device)
-    mask = kv_pos[None, None, :] <= pos[:, :, None]      # (B, T, S)
-    if window is not None:
-        mask &= kv_pos[None, None, :] > pos[:, :, None] - window
+    k, v, mask = _gather(q, k_pool, v_pool, block_tables, positions, window,
+                         dt)
     scale = hd ** 0.5
     g = hq // hkv
     if g > 1:
@@ -116,6 +128,74 @@ def paged_attention(q, k_pool, v_pool, block_tables, positions, *,
     out = torch.einsum("bhts,bshd->bthd", probs, v)
     return out if multi else out[:, 0]
 
+
+def paged_attention_split(q, k_pool, v_pool, block_tables, positions, *,
+                          chunk_keys: int, attn_approx: str = "exact",
+                          window: Optional[int] = None):
+    """A plain model of the CUDA kernel's split-KV decode, for the tests:
+    the kv positions split into chunks of ``chunk_keys``; each chunk's
+    partial (m, l, acc) per query row from the mode's plain weights at the
+    chunk's own max; then the merge in chunk order.  ``exact`` rescales a
+    chunk by exp(m_c - M) and ``pseudo`` by 2^(m_c - M) (M the largest
+    m_c); ``maxonly`` keeps the V row of the first chunk whose max is
+    strictly the highest, so a tie goes to the earlier position.  An empty
+    chunk (no visible key) weighs nothing.  Same operands and result as
+    ``paged_attention``, in f32 arithmetic; base2 and pwl are never split
+    (their weight does not rescale across a shift of the max) and raise.
+    The CPU path keeps the unsplit ``paged_attention``."""
+    if attn_approx not in ("exact", "pseudo", "maxonly"):
+        raise ValueError(f"attn_approx={attn_approx!r} is not split")
+    multi = q.ndim == 4
+    if not multi:
+        q = q[:, None]
+    b, t, hq, hd = q.shape
+    hkv = k_pool.shape[2]
+    g = hq // hkv
+    k, v, vis = _gather(q, k_pool, v_pool, block_tables, positions, window,
+                        torch.float32)
+    scores = torch.einsum("btkgh,bskh->btkgs",
+                          q.float().reshape(b, t, hkv, g, hd), k) / hd ** 0.5
+    vis = vis[:, :, None, None, :].expand(scores.shape)
+    f = torch.exp if attn_approx == "exact" else torch.exp2
+    bi = torch.arange(b, device=q.device)[:, None, None, None]
+    ki = torch.arange(hkv, device=q.device)[None, None, :, None]
+    parts = []
+    for c0 in range(0, k.shape[1], chunk_keys):
+        cv = vis[..., c0:c0 + chunk_keys]
+        s = torch.where(cv, scores[..., c0:c0 + chunk_keys], -torch.inf)
+        vc = v[:, c0:c0 + chunk_keys].permute(0, 2, 1, 3)  # (B, Hkv, c, hd)
+        m = torch.amax(s, dim=-1)                           # (B, T, Hkv, g)
+        if attn_approx == "maxonly":
+            iota = torch.arange(s.shape[-1], device=q.device)
+            first = torch.amin(torch.where(s == m[..., None], iota,
+                                           s.shape[-1]), dim=-1)
+            live = m > -torch.inf
+            acc = vc[bi, ki, first.clamp(max=s.shape[-1] - 1)]
+            acc = torch.where(live[..., None], acc, 0.0)
+            parts.append((m, live.float(), acc))
+            continue
+        base = torch.where(m > -torch.inf, m, 0.0)
+        w = torch.where(cv, f(s - base[..., None]), 0.0)
+        parts.append((m, w.sum(-1), torch.einsum("btkgs,bksh->btkgh", w,
+                                                 vc)))
+    if attn_approx == "maxonly":
+        best = torch.full_like(parts[0][0], -torch.inf)
+        l, acc = torch.zeros_like(parts[0][1]), torch.zeros_like(parts[0][2])
+        for m, lc, ac in parts:
+            take = m > best
+            best = torch.where(take, m, best)
+            l = torch.where(take, lc, l)
+            acc = torch.where(take[..., None], ac, acc)
+    else:
+        mx = torch.amax(torch.stack([m for m, _, _ in parts]), dim=0)
+        l, acc = 0.0, 0.0
+        for m, lc, ac in parts:
+            w = torch.where(m > -torch.inf, f(m - mx), 0.0)
+            l = l + lc * w
+            acc = acc + ac * w[..., None]
+    out = (acc / torch.clamp(l, min=1e-30)[..., None]).reshape(
+        b, t, hq, hd).to(q.dtype)
+    return out if multi else out[:, 0]
 
 
 def flash_attention(q, k, v, *, causal: bool = True,

@@ -316,6 +316,90 @@ def test_paged_attention_kernel_base2_rounds_half_to_even(dev, hd):
     assert np.abs(expect(1) - expect(0)).max() > 20 * PIN_TOL
 
 
+def _split_case(dev, dtype, *, t, seed, rows=8, hq=4, hkv=2, hd=64):
+    """8 rows over a 4,096-position table (bs 16), split into chunks of
+    ``ck`` keys: contexts at the chunk edges +-1 (ck - 1, ck, ck + 1, the
+    same at 3 ck) and at 4,095 and 4,096.  Returns the operands and
+    (n_chunks, ck)."""
+    groups = -(-t * (hq // hkv) // 32)
+    n, ck = pa.plan_split(rows, hkv, groups, 4096, "exact",
+                          pa._sm_count(dev))
+    last = [ck - 2, ck - 1, ck, 3 * ck - 2, 3 * ck - 1, 3 * ck, 4094, 4095]
+    return _paged(dev, dtype, b=rows, t=t, hq=hq, hkv=hkv, hd=hd, bs=16,
+                  seed=seed + t, last=last[:rows]), (n, ck)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("t", [1, 3])
+@pytest.mark.parametrize("window", [None, 7, 200])
+@pytest.mark.parametrize("mode", ["exact", "base2", "pseudo", "pwl",
+                                  "maxonly"])
+def test_paged_attention_split_at_chunk_edges(dev, mode, window, t, dtype):
+    """Split-KV decode over contexts at the chunk edges +-1, up to 4,096
+    keys; window 7 leaves all but one chunk of a row empty.  Every mode
+    against the plain version at the tolerances above (base2 and pwl
+    take one chunk); the split is the planner's, and one launch counts
+    once."""
+    (q, kp, vp, bt, pos), (n, ck) = _split_case(dev, dtype, t=t,
+                                                seed=window or 0)
+    assert n > 1 and ck % pa.CHUNK_QUANTUM == 0
+    want_split = (1, 4096) if mode in pa.UNSPLIT_MODES else (n, ck)
+    assert pa.split_for(q, kp, bt, mode) == want_split
+    before = pa.paged_attention.launches_by_mode[mode]
+    out = pa.paged_attention(q, kp, vp, bt, pos, attn_approx=mode,
+                             window=window)
+    torch.cuda.synchronize()
+    assert pa.paged_attention.launches_by_mode[mode] == before + 1
+    assert out.shape == q.shape and out.dtype == q.dtype
+    if mode == "maxonly":
+        assert _maxonly_ok(out, q, kp, vp, bt, pos, window)
+        return
+    want = ref.paged_attention(q, kp, vp, bt, pos, attn_approx=mode,
+                               window=window)
+    tol = 2e-2 if dtype == torch.bfloat16 else (
+        2e-3 if mode in ("base2", "pwl") else 1e-4)
+    torch.testing.assert_close(out.float(), want.float(), atol=tol, rtol=tol)
+
+
+def test_paged_attention_split_maxonly_tie_across_a_chunk_edge(dev):
+    """Copies of a far-best key (q itself) at both sides of chunk edges
+    and inside chunks: the combine keeps the earlier chunk on a tie, so
+    the V row of the earliest copy wins, as in the unsplit kernel."""
+    (q, kp, vp, bt, pos), (n, ck) = _split_case(dev, torch.float32, t=1,
+                                                seed=11)
+    assert n > 1
+    want = torch.empty_like(q)
+    hkv, g = kp.shape[2], q.shape[1] // kp.shape[2]
+    for r in (6, 7):                              # rows of 4,095+ keys
+        copies = (3 * ck, 3 * ck - 1, ck, ck - 1) if r == 6 else (
+            2 * ck + 5, 2 * ck, ck + 3)
+        for h in range(hkv):
+            q[r, h * g:(h + 1) * g] = q[r, h * g]
+            for d in copies:
+                blk, off = int(bt[r, d // 16]), d % 16
+                kp[blk, off, h] = q[r, h * g]
+                vp[blk, off, h] = float(d)
+            want[r, h * g:(h + 1) * g] = float(min(copies))
+    out = pa.paged_attention(q, kp, vp, bt, pos, attn_approx="maxonly")
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out[6:], want[6:], atol=0, rtol=0)
+
+
+@pytest.mark.parametrize("mode", ["exact", "pseudo", "maxonly", "base2"])
+@pytest.mark.parametrize("b", [1, 8])
+def test_paged_attention_split_is_bitwise_repeatable(dev, mode, b):
+    """Two calls on the same inputs give the same bits: the chunks come
+    from the shapes and the combine merges them in chunk order."""
+    q, kp, vp, bt, pos = _paged(dev, torch.bfloat16, b=b, t=1, hq=16,
+                                hkv=8, hd=128, bs=16, seed=b,
+                                last=[999, 5, 640, 63, 64, 300, 1, 511][:b])
+    a = pa.paged_attention(q, kp, vp, bt, pos, attn_approx=mode)
+    c = pa.paged_attention(q, kp, vp, bt, pos, attn_approx=mode)
+    torch.cuda.synchronize()
+    assert torch.equal(a, c)
+    assert (pa.split_for(q, kp, bt, mode)[0] > 1) == (mode != "base2")
+
+
 def test_paged_attention_kernel_rejects_bad_operands(dev):
     q, kp, vp, bt, pos = _paged(dev, torch.bfloat16, b=2, t=1, hq=4, hkv=2,
                                 hd=64, bs=16, seed=0)
@@ -369,6 +453,52 @@ def test_flash_attention_kernel_matches_plain(dev, dtype, hd, b, hkv, g, t,
     assert out.stride() == q.stride()
     tol = 1e-4 if dtype == torch.float32 else 2e-2
     torch.testing.assert_close(out.float(), want.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd", [16, 32, 64, 128, 256])
+@pytest.mark.parametrize("t", [1024, 1000])
+@pytest.mark.parametrize("g", [1, 2, 8])
+def test_flash_attention_kernel_long_prompts(dev, dtype, hd, t, g):
+    """T = S = 1,024 and T = 1,000 (not a multiple of the 64-row query
+    tile) at g 1, 2 and 8, causal; a second call gives the same bits."""
+    q, k, v = _flash_operands(dev, dtype, b=1, hq=g, hkv=1, t=t, s=t, hd=hd,
+                              seed=hd + t + g)
+    out = fa.flash_attention(q, k, v)
+    again = fa.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert torch.equal(out, again)
+    want = ref.flash_attention(q, k, v)
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(out.float(), want.float(), atol=tol, rtol=tol)
+
+
+def _kernel_names(fn):
+    """Names of the device kernels a profiler saw ``fn`` launch."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+
+
+@pytest.mark.parametrize("hd", [16, 32, 64, 128, 256])
+def test_flash_attention_route(dev, hd):
+    """bf16 runs the tensor-core kernel at every head dim and f32 the
+    CUDA-core one: what the card ran, by kernel name."""
+    for dtype, ran, not_ran in (
+            (torch.bfloat16, "flash_attention_mma_kernel",
+             "flash_attention_kernel"),
+            (torch.float32, "flash_attention_kernel",
+             "flash_attention_mma_kernel")):
+        q, k, v = _flash_operands(dev, dtype, b=1, hq=2, hkv=1, t=64, s=64,
+                                  hd=hd, seed=hd)
+        names = _kernel_names(lambda: fa.flash_attention(q, k, v))
+        assert any(ran in n for n in names), names
+        assert not any(not_ran in n for n in names), names
 
 
 def test_flash_attention_kernel_contiguous_and_empty_rows(dev):
