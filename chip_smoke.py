@@ -14,13 +14,21 @@ Phases, each of which fails the run (non-zero exit, no result line):
      function (a yardstick only), beside the bound computed from the
      bytes and flops of these inputs: paged attention (T = 1, 4 and 32
      over 8 ragged rows, the last 64 query rows per KV head, and T = 1
-     over one 1000-token row; each call's split into chunks printed),
-     the argmax head, the top-k head
-     (planted ties across vocabulary splits), the speculative verify
+     over one 1000-token row; each call's split into chunks printed; the
+     kernel each (dtype, mode) ran, by its name in a profiler trace: bf16
+     exact, pseudo and maxonly on the tensor cores; a row's output bitwise
+     equal alone and beside a 1000-token row, and at T = 1 and in every
+     column of T = 8 with its position repeated), head dim 192 (paged
+     attention at T = 1 and 32 in every mode, flash attention over 512
+     tokens), the argmax head, the top-k head
+     (planted ties across vocabulary splits; its two passes timed apart
+     from a profiler trace at k 8 and 64; k 64 bitwise equal to
+     ``ref.topk_select`` on exact integer logits), the speculative verify
      head (ragged -1 padded drafts), flash attention (prompts of 71 and
      512 tokens, g 2 and 8, causal and windowed) and the softmax unit's
      stats, softmax and cross-entropy kernels ((12, 151936) f32 and
-     (512, 151936) bf16 rows); then paged attention's four exp-free
+     (512, 151936) bf16 rows, and 70,000 rows of 1,000 -- more than
+     grid.y's 65,535); then paged attention's four exp-free
      score modes (base2, pseudo, pwl, maxonly) at the main path's shapes
      (T = 1 and 4, window None and 128), each timed beside exact, and
      base2, pseudo and pwl again at those shapes with each query's best
@@ -582,6 +590,170 @@ def check_paged_modes_pinned(torch, rng):
     return rows
 
 
+def paged_routes(torch, rng) -> dict:
+    """The kernel paged attention ran per (dtype, mode), read from a
+    profiler trace of one call (T = 1 over 2 ragged rows): bf16 exact,
+    pseudo and maxonly must run the tensor-core kernel
+    (``paged_attention_mma_kernel``), f32 and base2 / pwl the CUDA-core
+    one (``paged_attention_kernel``)."""
+    from repro_torch.kernels import paged_attention as pa
+
+    routes = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        q, kp, vp, bt, pos = paged_case(torch, rng, 1, b=2, dtype=dtype)
+        for mode in ("exact", "base2", "pseudo", "pwl", "maxonly"):
+            names = [n for n in device_kernels(
+                torch, lambda: pa.paged_attention(q, kp, vp, bt, pos,
+                                                  attn_approx=mode))
+                if "paged_" in n]
+            mma = [n for n in names if "paged_attention_mma_kernel" in n]
+            core = [n for n in names if "paged_attention_kernel" in n]
+            route = ("mma" if mma and not core else
+                     "cuda-core" if core and not mma else f"? {names}")
+            tag = f"{str(dtype).replace('torch.', '')} {mode}"
+            routes[tag] = route
+            want = ("mma" if dtype == torch.bfloat16
+                    and mode in ("exact", "pseudo", "maxonly")
+                    else "cuda-core")
+            print(f"paged_attention route {tag}: {route} (ran "
+                  f"{', '.join(n[:60] for n in names)})", flush=True)
+            check(route == want,
+                  f"paged attention {tag} ran {names}, not the {want} "
+                  "kernel")
+    return routes
+
+
+def check_paged_invariance(torch, rng):
+    """A row's attention bits depend on its own inputs, dtype, head dim
+    and mode only.  At the main path's shapes (bf16, 16/8 heads, hd 128),
+    exact, pseudo and maxonly: each of 8 ragged rows alone (B 1, a table
+    of its own width, so fewer chunks) equals, bit for bit, the same row
+    in the batch beside the 1,000-token row (B 8, a 1,024-position table,
+    16 chunks); and each row's T = 1 output equals every column of the
+    same row at T = 8 whose padding queries repeat its position."""
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.serve.paged_kv import pow2
+
+    q, kp, vp, bt, pos = paged_case(torch, rng, 1)
+    b, bs = q.shape[0], kp.shape[1]
+    q8 = q[:, None].expand(b, 8, *q.shape[1:]).contiguous()
+    pos8 = pos[:, None].expand(b, 8).contiguous()
+    out = {}
+    for mode in ("exact", "pseudo", "maxonly"):
+        batch = pa.paged_attention(q, kp, vp, bt, pos, attn_approx=mode)
+        alone = []
+        for r in range(b):
+            nb = pow2(int(pos[r]) // bs + 1)
+            alone.append(pa.paged_attention(
+                q[r:r + 1].contiguous(), kp, vp,
+                bt[r:r + 1, :nb].contiguous(), pos[r:r + 1],
+                attn_approx=mode))
+        wide = pa.paged_attention(q8, kp, vp, bt, pos8, attn_approx=mode)
+        torch.cuda.synchronize()
+        rows_ok = sum(bool(torch.equal(a[0], batch[r]))
+                      for r, a in enumerate(alone))
+        cols_ok = sum(bool(torch.equal(wide[:, t], batch))
+                      for t in range(8))
+        chunks = sorted({pa.split_for(q[:1], kp, bt[:1, :pow2(
+            int(pos[r]) // bs + 1)], mode)[0] for r in range(b)})
+        print(f"paged_attention {mode} invariance: {rows_ok}/{b} rows "
+              f"alone (chunks {chunks}) bitwise equal to the same row at "
+              f"B {b} ({pa.split_for(q, kp, bt, mode)[0]} chunks); "
+              f"{cols_ok}/8 columns of T 8 bitwise equal to T 1: "
+              f"{'ok' if rows_ok == b and cols_ok == 8 else 'FAIL'}",
+              flush=True)
+        check(rows_ok == b, f"paged {mode}: a row alone differs from the "
+              "same row beside a 1,000-token row")
+        check(cols_ok == 8, f"paged {mode}: T 8 with repeated positions "
+              "differs from T 1")
+        out[mode] = dict(rows_equal=rows_ok, columns_equal=cols_ok)
+    return out
+
+
+def check_head_dim_192(torch, timer, rng):
+    """nemotron-4-340b's head dim 192 (96 query / 8 KV heads, g 12) in
+    both attention kernels, bf16, against their plain versions at the
+    existing tolerances: paged attention at T = 1 and 32 over 8 ragged
+    rows in every score mode (maxonly by ``maxonly_rows``), and flash
+    attention over a 512-token prompt, causal, at g 2 and 12; flash at g
+    2 and paged exact at T 1 timed beside SDPA."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels import ref
+
+    rows = {}
+    for t in (1, 32):
+        q, kp, vp, bt, pos = paged_case(torch, rng, t, hq=96, hkv=8,
+                                        hd=192)
+        for mode in ("exact", "base2", "pseudo", "pwl", "maxonly"):
+            out = pa.paged_attention(q, kp, vp, bt, pos, attn_approx=mode)
+            torch.cuda.synchronize()
+            check(bool(torch.isfinite(out).all()),
+                  f"paged hd 192 {mode} T={t}: non-finite")
+            if mode == "maxonly":
+                err, _, _, bad = maxonly_rows(torch, out, q, kp, vp, bt, pos,
+                                              None)
+                ok = bad == 0
+            else:
+                want = ref.paged_attention(q, kp, vp, bt, pos,
+                                           attn_approx=mode)
+                err = (out.float() - want.float()).abs().max().item()
+                ok = torch.allclose(out.float(), want.float(), atol=PA_TOL,
+                                    rtol=PA_TOL)
+            print(f"paged_attention hd 192 {mode} T={t}: max_abs_err "
+                  f"{err:.6g} vs plain: {'ok' if ok else 'FAIL'}", flush=True)
+            check(ok, f"paged attention hd 192 {mode} T={t} disagrees with "
+                  "its plain version")
+            rows[f"paged_T{t}_{mode}"] = dict(max_abs_err=err)
+        if t == 1:
+            kern = timer.readings(lambda: pa.paged_attention(
+                q, kp, vp, bt, pos))
+            lib = timer.readings(sdpa_on_gathered_view(
+                torch, q, kp, vp, bt, pos, None, 1 / math.sqrt(192)),
+                "library_")
+            nbytes, flops = paged_work(q, kp, bt, pos, None)
+            bound_ms, bound_by = bound(nbytes, flops, BF16_FLOPS_PER_S)
+            print(f"paged_attention hd 192 T=1: kernel {shown(kern)}, "
+                  f"sdpa(gathered view) {shown(lib, 'library_')}, bound "
+                  f"{bound_ms:.4f} ms ({bound_by})", flush=True)
+            rows["paged_T1_exact"].update(kern, bound_ms=bound_ms,
+                                          bound_by=bound_by, **lib)
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    for hq, hkv in ((16, 8), (96, 8)):
+        q, k, v = (torch.randn((1, 512, h, 192), generator=gen,
+                               device="cuda").to(torch.bfloat16).transpose(
+                                   1, 2) for h in (hq, hkv, hkv))
+        out = fa.flash_attention(q, k, v)
+        torch.cuda.synchronize()
+        want = ref.flash_attention(q, k, v)
+        err = (out.float() - want.float()).abs().max().item()
+        ok = torch.allclose(out.float(), want.float(), atol=FA_TOL,
+                            rtol=FA_TOL)
+        g = hq // hkv
+        print(f"flash_attention hd 192 T512 g {g}: max_abs_err {err:.6g} "
+              f"vs plain (atol = rtol = {FA_TOL}): "
+              f"{'ok' if ok else 'FAIL'}", flush=True)
+        check(ok, f"flash attention hd 192 g {g} disagrees with its plain "
+              "version")
+        row = dict(max_abs_err=err)
+        if g == 2:
+            row.update(timer.readings(lambda: fa.flash_attention(q, k, v)))
+            row.update(timer.readings(lambda: F.scaled_dot_product_attention(
+                q, k, v, is_causal=True, enable_gqa=True), "library_"))
+            nbytes = (2 * q.numel() + k.numel() + v.numel()) * 2
+            flops = 4 * 192 * hq * 512 * 513 // 2
+            row["bound_ms"], row["bound_by"] = bound(nbytes, flops,
+                                                     BF16_FLOPS_PER_S)
+            print(f"flash_attention hd 192 T512 g 2: kernel {shown(row)}, "
+                  f"sdpa {shown(row, 'library_')}, bound "
+                  f"{row['bound_ms']:.4f} ms ({row['bound_by']})",
+                  flush=True)
+        rows[f"flash_T512_g{g}"] = row
+    return rows
+
+
 def check_argmax_head(torch, timer):
     from repro_torch.kernels import fused_argmax_head as fah
     from repro_torch.kernels import ref
@@ -709,6 +881,75 @@ def check_topk_head(torch, timer):
     return rows
 
 
+def kernel_device_ms(torch, fn, iters=20) -> dict:
+    """Mean device ms per call of each kernel ``fn`` launches, by name,
+    from a profiler trace over ``iters`` calls, the L2 flushed before
+    each (the flush's own kernel is listed too)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    flush = torch.empty(128 << 20, dtype=torch.uint8, device="cuda")
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            flush.zero_()
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            out[e.name] = out.get(e.name, 0.0) + \
+                e.time_range.elapsed_us() / 1e3 / iters
+    return out
+
+
+def check_topk_passes(torch):
+    """The top-k head's two kernels timed apart (profiler, device ms) at
+    the main path's B 4, k 8 and 64, qwen3-0.6b's width; then k 64 on
+    integer-valued operands, whose sums are exact in any order and whose
+    logits tie across every vocabulary split: values and indices equal to
+    ``ref.topk_select`` of the logits bit for bit."""
+    from repro_torch.kernels import fused_topk_head as ftk
+    from repro_torch.kernels import ref
+
+    v, d, b = 151936, 1024, 4
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    emb = (torch.randn((v, d), generator=gen, device="cuda")
+           / math.sqrt(d)).to(torch.bfloat16)
+    h = torch.randn((b, d), generator=gen, device="cuda").to(torch.bfloat16)
+    passes = {}
+    for k in (8, 64):
+        times = kernel_device_ms(torch, lambda: ftk.fused_topk_head(
+            h, emb.t(), k))
+        part = sum(t for n, t in times.items() if "topk_partial_kernel" in n)
+        merge = sum(t for n, t in times.items() if "topk_merge_kernel" in n)
+        check(part > 0 and merge > 0, f"top-k k={k}: the trace shows no "
+              f"pass 1 or pass 2 kernel: {sorted(times)}")
+        print(f"fused_topk_head B={b} k={k} passes (profiler, device): pass "
+              f"1 topk_partial_kernel {part:.4f} ms, pass 2 "
+              f"topk_merge_kernel {merge:.4f} ms", flush=True)
+        passes[k] = dict(partial_ms=part, merge_ms=merge)
+    emb = torch.randint(-2, 3, (v, d), generator=gen, device="cuda").to(
+        torch.bfloat16)
+    h = torch.randint(-1, 2, (b, d), generator=gen, device="cuda").to(
+        torch.bfloat16)
+    vals, idxs = ftk.fused_topk_head(h, emb.t(), 64)
+    torch.cuda.synchronize()
+    rvals, ridxs = ref.topk_select(torch.matmul(h.float(), emb.float().t()),
+                                   64)
+    same = torch.equal(vals, rvals) and torch.equal(idxs, ridxs)
+    ties = int((vals[:, 1:] == vals[:, :-1]).sum())
+    print(f"fused_topk_head B={b} k=64 on integer operands ({ties} equal "
+          f"neighbours): values and indices "
+          f"{'bitwise equal to' if same else 'DIFFER from'} "
+          f"ref.topk_select", flush=True)
+    check(same and ties > 0, "top-k k=64 differs from ref.topk_select on "
+          "exact integer logits")
+    return passes
+
+
 def check_verify_head(torch, timer):
     """The verify head at qwen3-0.6b's width, B = 8 rows of T in {2, 8}
     positions, bf16.  Integer-valued operands make every sum exact in
@@ -763,16 +1004,27 @@ def check_verify_head(torch, timer):
     return rows
 
 
-def device_kernels(torch, fn) -> list:
-    """Names of the device kernels a profiler trace saw ``fn`` launch."""
+def device_kernels(torch, fn, attempts=3) -> list:
+    """Names of the device kernels a profiler trace saw ``fn`` launch.
+    ``fn`` runs once first, so that its kernels' lazy loading happens
+    outside the trace (a first launch can go unrecorded); a trace with no
+    device event at all is the profiler's miss, not an answer: ``fn`` is
+    traced again, up to ``attempts`` times."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    return [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(attempts):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if e.device_type == DeviceType.CUDA]
+        if names:
+            break
+    return names
 
 
 def flash_routes(torch) -> dict:
@@ -786,7 +1038,7 @@ def flash_routes(torch) -> dict:
     routes = {}
     for dt, want in ((torch.bfloat16, "mma.sync"),
                      (torch.float32, "cuda-core")):
-        for hd in (16, 32, 64, 128, 256):
+        for hd in (16, 32, 64, 128, 192, 256):
             q, k, v = (torch.randn((1, h, 64, hd), generator=gen,
                                    device="cuda").to(dt) for h in (2, 1, 1))
             names = [n for n in device_kernels(
@@ -947,6 +1199,33 @@ def check_softmax_units(torch, timer):
                                    plain_ms=plain_ms, bound_ms=bound_ms,
                                    bound_by=bound_by, **lib_t)
     return rows
+
+
+def check_many_rows(torch):
+    """The softmax unit's three kernels at B 70,000 rows of V 1,000 (f32):
+    more rows than grid.y holds, one launch each, against their plain
+    versions at the unit tolerances.  Logits of scale 1: where the label
+    is the max, m + log l - x[label] cancels to about one f32 ulp of m,
+    under XENT_ATOL while |m| < 8."""
+    from repro_torch.kernels import fused_xent as fx
+    from repro_torch.kernels import online_softmax as osm
+
+    b, v = 70000, 1000
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    x = torch.randn((b, v), generator=gen, device="cuda")
+    lab = torch.randint(0, v, (b,), generator=gen, device="cuda")
+    n0 = read_launches()
+    m, l = osm.softmax_stats(x)
+    p = osm.online_softmax(x)
+    loss = fx.fused_xent(x, lab)
+    torch.cuda.synchronize()
+    n1 = read_launches()
+    print(f"softmax unit B={b} V={v} f32:", flush=True)
+    errs = unit_errors(torch, x, lab, m, l, p, loss)
+    check(all(n1[k] - n0[k] == want for k, want in (
+        ("softmax_stats", 2), ("online_softmax", 1), ("fused_xent", 1))),
+        "the 70,000-row unit calls did not launch once each")
+    return errs
 
 
 # ---------------------------------------------------------------------------
@@ -1560,11 +1839,16 @@ def main() -> int:
         pa_rows = check_paged_attention(torch, timer, rng)
         mode_rows = check_paged_modes(torch, timer, rng)
         pinned_rows = check_paged_modes_pinned(torch, rng)
+        pa_routes = paged_routes(torch, rng)
+        invariance = check_paged_invariance(torch, rng)
+        hd192_rows = check_head_dim_192(torch, timer, rng)
         head_rows = check_argmax_head(torch, timer)
         topk_rows = check_topk_head(torch, timer)
+        topk_passes = check_topk_passes(torch)
         verify_rows = check_verify_head(torch, timer)
         flash_rows, fa_routes = check_flash_attention(torch, timer)
         unit_rows = check_softmax_units(torch, timer)
+        many_errs = check_many_rows(torch)
         print(clocks_line(), flush=True)
         del timer
 
@@ -1596,6 +1880,11 @@ def main() -> int:
              max_abs_err=max(r["max_abs_err"] for r in pa_rows.values()),
              **{k: pa_rows[1][k] for k in TIMES + ("chunks",)},
              single_row={k: pa_rows["B1"][k] for k in TIMES + ("chunks",)},
+             t4={k: pa_rows[4][k] for k in TIMES + ("chunks",)},
+             t32={k: pa_rows[32][k] for k in TIMES + ("chunks",)},
+             routes=pa_routes, invariance=invariance,
+             hd192={k: v for k, v in hd192_rows.items()
+                    if k.startswith("paged")},
              modes={mode: dict(
                  launches=probe_runs[None]["launches_by_mode"][mode],
                  max_abs_err=max(r["max_abs_err"] for (m, _, _), r
@@ -1617,7 +1906,9 @@ def main() -> int:
              replaces="src/repro/kernels/fused_topk_head.py:107",
              launches=topk_launches["fused_topk_head"],
              max_abs_err=max(r["max_abs_err"] for r in topk_rows.values()),
-             **{k: topk_rows[(4, 8)][k] for k in TIMES}),
+             **{k: topk_rows[(4, 8)][k] for k in TIMES},
+             k64={k: topk_rows[(4, 64)][k] for k in TIMES},
+             passes=topk_passes),
         dict(name="fused_verify_head", route="cuda",
              source="src/repro_torch/kernels/csrc/fused_argmax_head.cu",
              replaces="src/repro/kernels/fused_topk_head.py:170",
@@ -1631,6 +1922,8 @@ def main() -> int:
              max_abs_err=max(r["max_abs_err"] for r in flash_rows.values()),
              **{k: flash_rows["T512"][k] for k in TIMES},
              g8={k: flash_rows["T512_g8"][k] for k in TIMES},
+             hd192={k: v for k, v in hd192_rows.items()
+                    if k.startswith("flash")},
              routes=fa_routes),
     ]
     for name, replaces in (
@@ -1642,7 +1935,8 @@ def main() -> int:
             source="src/repro_torch/kernels/csrc/online_softmax.cu",
             replaces=replaces, launches=unit_launches[name],
             max_abs_err=max(unit_errs[name], unit_rows[(name, 12)][
-                "max_abs_err"], unit_rows[(name, 512)]["max_abs_err"]),
+                "max_abs_err"], unit_rows[(name, 512)]["max_abs_err"],
+                many_errs[name]),
             **{k: unit_rows[(name, 12)][k] for k in TIMES}))
     summary["probe"] = {
         str(w): {v: {k: row[k] for k in ("divergence",

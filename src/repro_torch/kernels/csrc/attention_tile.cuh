@@ -1,5 +1,6 @@
-// Shared inner loop of the attention kernels (paged_attention.cu,
-// flash_attention.cu's f32 route): one warp per query row carries the
+// Shared inner loops of the attention kernels (paged_attention.cu,
+// flash_attention.cu).  The CUDA-core fold (f32, and paged attention's
+// base2 and pwl modes): one warp per query row carries the
 // online softmax (m, l, acc) in f32 registers over K/V tiles staged in
 // shared memory.
 //
@@ -32,8 +33,10 @@
 // built by the caller from core.softmax_variants.base2_frac_lut and
 // core.attn_approx.pwl_lut.
 //
-// The header also holds the 16-byte cp.async helpers with which both
-// kernels stage their K/V tiles, double-buffered.
+// The header also holds the 16-byte cp.async helpers with which the
+// kernels stage their K/V tiles, double-buffered, and the tensor-core
+// tile of the bf16 routes (mma_fold_tile, below): flash attention's and
+// paged attention's exact, pseudo and maxonly folds.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -103,8 +106,14 @@ __device__ __forceinline__ void store_from_float(__nv_bfloat16* p, float x) {
   *p = __float2bfloat16(x);
 }
 
+// The largest power of two that divides `bytes`, at most 16: N elements
+// at lane * N (N = 6 at head dim 192) stay aligned to it.
+constexpr int vec_align(int bytes) {
+  return (bytes & -bytes) > 16 ? 16 : (bytes & -bytes);
+}
+
 template <typename T, int N>
-struct alignas(sizeof(T) * N > 16 ? 16 : sizeof(T) * N) Vec {
+struct alignas(vec_align(sizeof(T) * N)) Vec {
   T v[N];
 };
 
@@ -236,6 +245,317 @@ __device__ __forceinline__ void store_row(T* out_row, int lane,
 #pragma unroll
   for (int e = 0; e < EPL; ++e)
     store_from_float(out_row + lane * EPL + e, acc[e] * inv);
+}
+
+// ---------------------------------------------------------------------------
+// The tensor-core tile (bf16 operands, f32 sums): a warp's 16 query rows
+// ---------------------------------------------------------------------------
+// Shared by flash_attention_mma_kernel and paged_attention_mma_kernel.  A
+// warp owns 16 query rows of the block's staged Q tile; S = Q K^T and O +=
+// P V run as mma.sync.m16n8k16 bf16 x bf16 -> f32 (bf16 products are exact
+// in f32), over K and V tiles of BN keys staged in shared memory with rows
+// padded to kMmaLd elements (16 bytes over HD, so the 8 row addresses of
+// an ldmatrix land in 8 different bank groups).  Thread lane holds rows
+// gid = lane / 4 and gid + 8, columns 2 * (lane % 4) + {0, 1} of every
+// 8-wide tile; a row's max and sum are reduced over its quad of threads.
+// P goes from the S accumulators to bf16 A fragments in registers, and
+// V's B fragments come from ldmatrix.trans.  Every sum a row's output
+// takes depends on that row's own scores and on the key tiles' positions
+// only, never on the other rows of the tile.
+using bf16 = __nv_bfloat16;
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// Four 8x8 b16 matrices; lanes 8i..8i+7 give the row addresses of
+// matrix i, and register i holds row lane/4, columns 2*(lane%4) + {0, 1}
+// of matrix i (of its transpose with .trans).
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
+                                                  const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+
+// d += a (16x16 row-major bf16) * b (16x8 col-major bf16), f32 sums.
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Two f32 -> one register of two bf16, lo in the low half.
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+template <int HD>
+constexpr int kMmaLd = HD + 8;  // padded shared row, elements
+// Q's A fragments stay in registers up to HD 128; above, they would take
+// HD / 4 registers beside O's HD / 2, so Q is re-read from shared memory
+// by ldmatrix per key tile.
+template <int HD>
+constexpr bool kQInRegs = HD <= 128;
+
+// A warp's 16 rows of Q: the A fragments (kQInRegs) or the ldmatrix row
+// address in the staged Q tile.
+template <int HD>
+struct MmaQuery {
+  uint32_t f[kQInRegs<HD> ? HD / 16 : 1][4];
+  const bf16* row;
+};
+
+// `qs` is the block's staged Q tile, warp `warp`'s rows at 16 * warp.
+template <int HD>
+__device__ __forceinline__ void mma_query_init(MmaQuery<HD>& q,
+                                               const bf16* qs, int warp,
+                                               int lane) {
+  q.row = qs + (warp * 16 + (lane & 15)) * kMmaLd<HD> + (lane >> 4) * 8;
+}
+
+// After the staged Q tile has landed: its fragments into registers.
+template <int HD>
+__device__ __forceinline__ void mma_query_load(MmaQuery<HD>& q) {
+  if constexpr (kQInRegs<HD>) {
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk) ldmatrix_x4(q.f[kk], q.row + kk * 16);
+  }
+}
+
+// The online-softmax carry of the thread's two rows (index 0: gid, 1:
+// gid + 8): o[d][2 * r + c] is row r's column d * 8 + 2 * (lane % 4) + c;
+// l is the thread's share of the row's sum until mma_finish.
+template <int HD>
+struct MmaCarry {
+  float o[HD / 8][4];
+  float m[2], l[2];
+};
+
+template <int HD>
+__device__ __forceinline__ void mma_carry_init(MmaCarry<HD>& c) {
+#pragma unroll
+  for (int d = 0; d < HD / 8; ++d)
+    c.o[d][0] = c.o[d][1] = c.o[d][2] = c.o[d][3] = 0.f;
+  c.m[0] = c.m[1] = -INFINITY;
+  c.l[0] = c.l[1] = 0.f;
+}
+
+// Fold keys p0 .. p0 + BN - 1, staged as the (BN, kMmaLd) tiles kt and vt,
+// into the carry under score mode MODE (kExact, kPseudo or kMaxOnly).
+// Scores are s = (q . k) * scale; key p counts for the thread's row r (0
+// or 1) when lo[r] < p <= hi[r], and `whole` says that every key of the
+// tile counts for every row of the block (the mask is skipped).  kExact and
+// kPseudo weigh a visible key by weight_exp<MODE>(s - m_new) and rescale
+// the carry by carry_scale<MODE> (flash attention passes scale * log2 e
+// with kPseudo: its softmax in the log2 domain); a masked key weighs 0.
+// kMaxOnly keeps the comparator carry: a tile whose best visible score
+// beats the row's max strictly resets o to that key's V row and l to 1,
+// the lowest position winning a tie inside the tile.  P enters the PV
+// product in bf16 (as SDPA does; flash attention), or with SPLIT_P as
+// bf16(P) plus the bf16 remainder, two products (paged attention, whose
+// bf16 checks hold the output to one bf16 step of an f32 P).  Every lane
+// of the warp calls it.
+template <int HD, int BN, int MODE, bool SPLIT_P>
+__device__ __forceinline__ void mma_fold_tile(MmaCarry<HD>& c,
+                                              const MmaQuery<HD>& q,
+                                              const bf16* kt, const bf16* vt,
+                                              int p0, int lane, float scale,
+                                              bool whole, const int (&lo)[2],
+                                              const int (&hi)[2]) {
+  constexpr int LD = kMmaLd<HD>;
+  constexpr int KS = HD / 16;  // k-steps of Q K^T
+  constexpr int NT = BN / 8;   // 8-key column tiles of S
+  constexpr int DT = HD / 8;   // 8-wide column tiles of O
+  const int tig = lane & 3;
+  // ldmatrix row addresses: K (16 keys x 16) and V^T (16 keys x 16)
+  const int krow = (lane & 7) + ((lane >> 4) << 3);
+  const int kcol = ((lane >> 3) & 1) * 8;
+  const int vrow = (lane & 7) + (((lane >> 3) & 1) << 3);
+  const int vcol = (lane >> 4) * 8;
+
+  // S = Q K^T, f32 (16 rows x BN keys)
+  float s[NT][4];
+#pragma unroll
+  for (int j = 0; j < NT; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk) {
+    uint32_t a[4];
+    if constexpr (kQInRegs<HD>) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) a[e] = q.f[kk][e];
+    } else {
+      ldmatrix_x4(a, q.row + kk * 16);
+    }
+#pragma unroll
+    for (int np = 0; np < NT / 2; ++np) {
+      uint32_t bk[4];
+      ldmatrix_x4(bk, kt + (np * 16 + krow) * LD + kk * 16 + kcol);
+      mma_bf16(s[2 * np], a, bk[0], bk[1]);
+      mma_bf16(s[2 * np + 1], a, bk[2], bk[3]);
+    }
+  }
+
+  // Scale; mask unless every key counts for every row.
+#pragma unroll
+  for (int j = 0; j < NT; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int p = p0 + j * 8 + tig * 2 + (e & 1);
+      const float x = s[j][e] * scale;
+      s[j][e] = whole || (p > lo[e >> 1] && p <= hi[e >> 1]) ? x : -INFINITY;
+    }
+  }
+
+  if constexpr (MODE == kMaxOnly) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      // the thread's best column in position order (a tie keeps the
+      // earlier), then the quad's by (value desc, position asc)
+      float bv = -INFINITY;
+      int bp = p0 + BN;
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          if (s[j][2 * r + e] > bv) {
+            bv = s[j][2 * r + e];
+            bp = p0 + j * 8 + tig * 2 + e;
+          }
+        }
+      }
+#pragma unroll
+      for (int off = 1; off <= 2; off <<= 1) {
+        const float ov = __shfl_xor_sync(kFull, bv, off);
+        const int op = __shfl_xor_sync(kFull, bp, off);
+        if (ov > bv || (ov == bv && op < bp)) {
+          bv = ov;
+          bp = op;
+        }
+      }
+      if (bv > c.m[r]) {  // quad-uniform; -inf never beats the carry
+        const bf16* vr = vt + (bp - p0) * LD + tig * 2;
+#pragma unroll
+        for (int d = 0; d < DT; ++d) {
+          c.o[d][2 * r] = __bfloat162float(vr[d * 8]);
+          c.o[d][2 * r + 1] = __bfloat162float(vr[d * 8 + 1]);
+        }
+        c.l[r] = 1.f;
+        c.m[r] = bv;
+      }
+    }
+    return;
+  } else {
+    // Online softmax: each row's new running max over the quad.
+    float x0 = c.m[0], x1 = c.m[1];
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      x0 = fmaxf(x0, fmaxf(s[j][0], s[j][1]));
+      x1 = fmaxf(x1, fmaxf(s[j][2], s[j][3]));
+    }
+#pragma unroll
+    for (int off = 1; off <= 2; off <<= 1) {
+      x0 = fmaxf(x0, __shfl_xor_sync(kFull, x0, off));
+      x1 = fmaxf(x1, __shfl_xor_sync(kFull, x1, off));
+    }
+    const float alpha0 =
+        c.m[0] == -INFINITY ? 0.f : carry_scale<MODE>(c.m[0] - x0);
+    const float alpha1 =
+        c.m[1] == -INFINITY ? 0.f : carry_scale<MODE>(c.m[1] - x1);
+    // a row with no visible key so far keeps -inf; its weights are all 0
+    const float base0 = x0 == -INFINITY ? 0.f : x0;
+    const float base1 = x1 == -INFINITY ? 0.f : x1;
+    c.m[0] = x0;
+    c.m[1] = x1;
+    c.l[0] *= alpha0;
+    c.l[1] *= alpha1;
+#pragma unroll
+    for (int d = 0; d < DT; ++d) {
+      c.o[d][0] *= alpha0;
+      c.o[d][1] *= alpha0;
+      c.o[d][2] *= alpha1;
+      c.o[d][3] *= alpha1;
+    }
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      s[j][0] = weight_exp<MODE>(s[j][0] - base0, nullptr);
+      s[j][1] = weight_exp<MODE>(s[j][1] - base0, nullptr);
+      s[j][2] = weight_exp<MODE>(s[j][2] - base1, nullptr);
+      s[j][3] = weight_exp<MODE>(s[j][3] - base1, nullptr);
+      c.l[0] += s[j][0] + s[j][1];  // this thread's columns
+      c.l[1] += s[j][2] + s[j][3];
+    }
+
+    // O += P V: P's accumulators are the A fragments of the next mma,
+    // in bf16; with SPLIT_P also the bf16 remainder P - bf16(P), a second
+    // product, so P carries ~16 bits and O matches an f32 P to ~2^-17.
+#pragma unroll
+    for (int kk = 0; kk < BN / 16; ++kk) {
+      const float w[8] = {s[2 * kk][0],     s[2 * kk][1],
+                          s[2 * kk][2],     s[2 * kk][3],
+                          s[2 * kk + 1][0], s[2 * kk + 1][1],
+                          s[2 * kk + 1][2], s[2 * kk + 1][3]};
+      uint32_t a[4], r[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        a[e] = pack_bf16(w[2 * e], w[2 * e + 1]);
+        if constexpr (SPLIT_P)
+          r[e] = pack_bf16(w[2 * e] - __uint_as_float(a[e] << 16),
+                           w[2 * e + 1] - __uint_as_float(a[e] & 0xffff0000u));
+      }
+#pragma unroll
+      for (int dp = 0; dp < HD / 16; ++dp) {
+        uint32_t bv[4];
+        ldmatrix_x4_trans(bv, vt + (kk * 16 + vrow) * LD + dp * 16 + vcol);
+        mma_bf16(c.o[2 * dp], a, bv[0], bv[1]);
+        mma_bf16(c.o[2 * dp + 1], a, bv[2], bv[3]);
+        if constexpr (SPLIT_P) {
+          mma_bf16(c.o[2 * dp], r, bv[0], bv[1]);
+          mma_bf16(c.o[2 * dp + 1], r, bv[2], bv[3]);
+        }
+      }
+    }
+  }
+}
+
+// After the last tile: each row's sum over its quad (kMaxOnly's l is
+// already the row's: 0 or 1 in every thread of the quad).
+template <int HD, int MODE>
+__device__ __forceinline__ void mma_finish(MmaCarry<HD>& c) {
+  if constexpr (MODE != kMaxOnly) {
+#pragma unroll
+    for (int off = 1; off <= 2; off <<= 1) {
+      c.l[0] += __shfl_xor_sync(kFull, c.l[0], off);
+      c.l[1] += __shfl_xor_sync(kFull, c.l[1], off);
+    }
+  }
+}
+
+// Row r's columns of the carry as o / l in bf16 into out_row (the row's
+// HD outputs), the same floats store_row writes.
+template <int HD>
+__device__ __forceinline__ void mma_store_row(bf16* out_row,
+                                              const MmaCarry<HD>& c, int r,
+                                              int lane) {
+  const float inv = 1.f / fmaxf(c.l[r], 1e-30f);
+  bf16* dst = out_row + (lane & 3) * 2;
+#pragma unroll
+  for (int d = 0; d < HD / 8; ++d)
+    *reinterpret_cast<uint32_t*>(dst + d * 8) =
+        pack_bf16(c.o[d][2 * r] * inv, c.o[d][2 * r + 1] * inv);
 }
 
 }  // namespace attn

@@ -32,23 +32,22 @@
 // Two routes, by dtype (the entry's dispatch below):
 //   * bf16, every HD (16..256): flash_attention_mma_kernel, on the
 //     tensor cores (a profiler trace names it).  A block of 4 warps
-//     owns 64 query rows, 16 per warp.  S = Q K^T and O += P V run as
-//     mma.sync.m16n8k16 bf16 x bf16 -> f32; bf16 products are exact in
-//     f32, so S matches the TPU kernel's f32 scores up to summation
-//     order.  The online softmax (m, l) of a thread's 2 rows lives in
-//     registers, the row max and sum reduced over the quad with 2
-//     shuffles; tiles wholly visible to every row of the block skip the
-//     mask.  P goes from the S accumulators to bf16 A fragments in
-//     registers (rounding a weight by at most 2^-9 relative, as SDPA
-//     does; the plain version keeps it in f32), and V's B fragments come
-//     from ldmatrix.trans.  64-key K and V tiles (32 at HD 256) are
-//     staged with 16-byte cp.async.cg, double-buffered: the next tile's
-//     copies fly while the current one is folded.  Shared rows are
-//     padded by 16 bytes, so the 8 row addresses of an ldmatrix land in
-//     8 different bank groups.  Q's A fragments are loaded once into
-//     registers by ldmatrix at HD <= 128; at HD 256 they would take 64
-//     more registers beside O's 128, so Q stays in shared memory and is
-//     re-read by ldmatrix per key tile.
+//     owns 64 query rows, 16 per warp, and folds each K/V tile with
+//     attn::mma_fold_tile (csrc/attention_tile.cuh, shared with paged
+//     attention): S = Q K^T and O += P V as mma.sync.m16n8k16 bf16 x
+//     bf16 -> f32 (bf16 products are exact in f32, so S matches the TPU
+//     kernel's f32 scores up to summation order), the online softmax in
+//     the log2 domain (scores scaled by log2 e / sqrt(HD), weights
+//     exp2f) in registers; tiles wholly visible to every row of the
+//     block skip the mask.  P is rounded to bf16 for the PV product (a
+//     weight moves by at most 2^-9 relative, as in SDPA; the plain
+//     version keeps it in f32).  64-key K and V tiles (32 above HD 128)
+//     are staged with 16-byte cp.async.cg, double-buffered: the next
+//     tile's copies fly while the current one is folded.  Q's A
+//     fragments are loaded once into registers up to HD 128; at HD 192
+//     and 256 they would take 48 or 64 more registers beside O's 96 or
+//     128, so Q stays in shared memory and is re-read by ldmatrix per
+//     key tile.
 //   * f32: flash_attention_kernel, on the CUDA cores.  One warp per
 //     query row carries the online softmax (m, l, acc) in f32 registers
 //     over K/V tiles in shared memory, one lane per key scoring -- paged
@@ -72,58 +71,16 @@ struct Strides {
 };
 
 // ---------------------------------------------------------------------------
-// bf16: tensor-core tiles
+// bf16: tensor-core tiles (attn::mma_fold_tile, csrc/attention_tile.cuh)
 // ---------------------------------------------------------------------------
-__device__ __forceinline__ unsigned smem_u32(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-// Four 8x8 b16 matrices; lanes 8i..8i+7 give the row addresses of
-// matrix i, and register i holds row lane/4, columns 2*(lane%4) + {0, 1}
-// of matrix i (of its transpose with .trans).
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p)));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
-                                                  const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p)));
-}
-
-// d += a (16x16 row-major bf16) * b (16x8 col-major bf16), f32 sums.
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Two f32 -> one register of two bf16, lo in the low half.
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
 constexpr int kRows = 64;      // query rows per block, 16 per warp
 constexpr int kThreads = 128;  // 4 warps
 
 template <int HD>
 constexpr int kKeys = HD > 128 ? 32 : 64;  // keys per staged tile
 template <int HD>
-constexpr bool kQInRegs = HD <= 128;
-template <int HD>
-constexpr int kMmaLd = HD + 8;  // padded shared row, elements
-template <int HD>
-constexpr size_t kMmaSmem = (size_t)(kRows + 4 * kKeys<HD>) * kMmaLd<HD> * 2;
+constexpr size_t kMmaSmem =
+    (size_t)(kRows + 4 * kKeys<HD>) * attn::kMmaLd<HD> * 2;
 
 template <int HD>
 __global__ void __launch_bounds__(kThreads) flash_attention_mma_kernel(
@@ -131,11 +88,8 @@ __global__ void __launch_bounds__(kThreads) flash_attention_mma_kernel(
     const bf16* __restrict__ v, bf16* __restrict__ out, Strides sq,
     Strides sk, Strides sv, Strides so, int tq, int s_len, int hq, int hkv,
     int causal, int window, float scale_log2) {
-  constexpr int BN = kKeys<HD>, LD = kMmaLd<HD>;
+  constexpr int BN = kKeys<HD>, LD = attn::kMmaLd<HD>;
   constexpr int CPR = HD / 8;  // 16-byte chunks per row
-  constexpr int KS = HD / 16;  // k-steps of Q K^T
-  constexpr int NT = BN / 8;   // 8-key column tiles of S
-  constexpr int DT = HD / 8;   // 8-wide column tiles of O
   extern __shared__ __align__(16) unsigned char smem[];
   bf16* qs = reinterpret_cast<bf16*>(smem);  // (kRows, LD)
   bf16* ks = qs + kRows * LD;                // (2, BN, LD)
@@ -146,7 +100,7 @@ __global__ void __launch_bounds__(kThreads) flash_attention_mma_kernel(
   const int row0 = (gridDim.z - 1 - blockIdx.z) * kRows;  // last tile first
   const int row_end = min(nrows, row0 + kRows);
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int gid = lane >> 2, tig = lane & 3;
+  const int gid = lane >> 2;
 
   // The tile's key extent from its first and last query position.
   const int t_first = row0 / g, t_last = (row_end - 1) / g;
@@ -180,18 +134,18 @@ __global__ void __launch_bounds__(kThreads) flash_attention_mma_kernel(
   };
   if (ntiles > 0) load_kv(0, lo);
 
-  // This thread's two query rows: gid and gid + 8 of the warp's 16.
+  // This thread's two query rows (gid and gid + 8 of the warp's 16) and
+  // the keys each sees: lo < p <= hi.
   const int ra = row0 + warp * 16 + gid, rb = ra + 8;
   const int ta = ra / g, tb = rb / g;
-  float o[DT][4];
-#pragma unroll
-  for (int d = 0; d < DT; ++d) o[d][0] = o[d][1] = o[d][2] = o[d][3] = 0.f;
-  float ma = -INFINITY, mb = -INFINITY, la = 0.f, lb = 0.f;
-  uint32_t qf[kQInRegs<HD> ? KS : 1][4];
-  // ldmatrix row addresses: A (16 rows x 16) and B (16 keys x 16)
-  const bf16* qrow = qs + (warp * 16 + (lane & 15)) * LD + (lane >> 4) * 8;
-  const int krow = (lane & 7) + ((lane >> 4) << 3), kcol = ((lane >> 3) & 1) * 8;
-  const int vrow = (lane & 7) + (((lane >> 3) & 1) << 3), vcol = (lane >> 4) * 8;
+  const int lo_r[2] = {window > 0 ? ta - window : -1,
+                       window > 0 ? tb - window : -1};
+  const int hi_r[2] = {causal ? min(ta, s_len - 1) : s_len - 1,
+                       causal ? min(tb, s_len - 1) : s_len - 1};
+  attn::MmaCarry<HD> c;
+  attn::mma_carry_init(c);
+  attn::MmaQuery<HD> qf;
+  attn::mma_query_init(qf, qs, warp, lane);
 
   for (int it = 0; it < ntiles; ++it) {
     const int p0 = lo + it * BN;
@@ -202,136 +156,25 @@ __global__ void __launch_bounds__(kThreads) flash_attention_mma_kernel(
       attn::cp_async_wait<0>();
     }
     __syncthreads();
-    if constexpr (kQInRegs<HD>) {
-      if (it == 0) {
-#pragma unroll
-        for (int kk = 0; kk < KS; ++kk) ldmatrix_x4(qf[kk], qrow + kk * 16);
-      }
-    }
-    const bf16* kt = ks + (it & 1) * BN * LD;
-    const bf16* vt = vs + (it & 1) * BN * LD;
-
-    // S = Q K^T, f32 (16 rows x BN keys per warp)
-    float s[NT][4];
-#pragma unroll
-    for (int j = 0; j < NT; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < KS; ++kk) {
-      uint32_t a[4];
-      if constexpr (kQInRegs<HD>) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) a[e] = qf[kk][e];
-      } else {
-        ldmatrix_x4(a, qrow + kk * 16);
-      }
-#pragma unroll
-      for (int np = 0; np < NT / 2; ++np) {
-        uint32_t bk[4];
-        ldmatrix_x4(bk, kt + (np * 16 + krow) * LD + kk * 16 + kcol);
-        mma_bf16(s[2 * np], a, bk[0], bk[1]);
-        mma_bf16(s[2 * np + 1], a, bk[2], bk[3]);
-      }
-    }
-
-    // Scale into the log2 domain; mask only a tile some row cannot see
-    // whole.
+    if (it == 0) attn::mma_query_load(qf);
+    // a tile every row of the block sees whole skips the mask
     const bool whole = p0 + BN - 1 <= s_len - 1 &&
                        (!causal || p0 + BN - 1 <= t_first) &&
                        (window <= 0 || p0 > t_last - window);
-#pragma unroll
-    for (int j = 0; j < NT; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        float x = s[j][e] * scale_log2;
-        if (!whole) {
-          const int p = p0 + j * 8 + tig * 2 + (e & 1);
-          const int t = e < 2 ? ta : tb;
-          const bool vis = p < s_len && (!causal || p <= t) &&
-                           (window <= 0 || p > t - window);
-          if (!vis) x = -INFINITY;
-        }
-        s[j][e] = x;
-      }
-    }
-
-    // Online softmax: the new running max of each row over the quad.
-    float xa = ma, xb = mb;
-#pragma unroll
-    for (int j = 0; j < NT; ++j) {
-      xa = fmaxf(xa, fmaxf(s[j][0], s[j][1]));
-      xb = fmaxf(xb, fmaxf(s[j][2], s[j][3]));
-    }
-#pragma unroll
-    for (int off = 1; off <= 2; off <<= 1) {
-      xa = fmaxf(xa, __shfl_xor_sync(attn::kFull, xa, off));
-      xb = fmaxf(xb, __shfl_xor_sync(attn::kFull, xb, off));
-    }
-    const float alpha_a = ma == -INFINITY ? 0.f : exp2f(ma - xa);
-    const float alpha_b = mb == -INFINITY ? 0.f : exp2f(mb - xb);
-    // a row with no visible key so far keeps -inf; its p are all 0
-    const float base_a = xa == -INFINITY ? 0.f : xa;
-    const float base_b = xb == -INFINITY ? 0.f : xb;
-    ma = xa;
-    mb = xb;
-    la *= alpha_a;
-    lb *= alpha_b;
-#pragma unroll
-    for (int d = 0; d < DT; ++d) {
-      o[d][0] *= alpha_a;
-      o[d][1] *= alpha_a;
-      o[d][2] *= alpha_b;
-      o[d][3] *= alpha_b;
-    }
-#pragma unroll
-    for (int j = 0; j < NT; ++j) {
-      s[j][0] = exp2f(s[j][0] - base_a);
-      s[j][1] = exp2f(s[j][1] - base_a);
-      s[j][2] = exp2f(s[j][2] - base_b);
-      s[j][3] = exp2f(s[j][3] - base_b);
-      la += s[j][0] + s[j][1];  // this thread's columns; quad-summed last
-      lb += s[j][2] + s[j][3];
-    }
-
-    // O += P V: P's accumulators are the A fragments of the next mma.
-#pragma unroll
-    for (int kk = 0; kk < BN / 16; ++kk) {
-      const uint32_t a[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
-                             pack_bf16(s[2 * kk][2], s[2 * kk][3]),
-                             pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-                             pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
-#pragma unroll
-      for (int dp = 0; dp < HD / 16; ++dp) {
-        uint32_t bv[4];
-        ldmatrix_x4_trans(bv, vt + (kk * 16 + vrow) * LD + dp * 16 + vcol);
-        mma_bf16(o[2 * dp], a, bv[0], bv[1]);
-        mma_bf16(o[2 * dp + 1], a, bv[2], bv[3]);
-      }
-    }
+    attn::mma_fold_tile<HD, BN, attn::kPseudo, false>(
+        c, qf, ks + (it & 1) * BN * LD, vs + (it & 1) * BN * LD, p0, lane,
+        scale_log2, whole, lo_r, hi_r);
     __syncthreads();  // every warp is done with this buffer
   }
   attn::cp_async_wait<0>();  // no copy outlives the block (ntiles == 0)
 
-#pragma unroll
-  for (int off = 1; off <= 2; off <<= 1) {
-    la += __shfl_xor_sync(attn::kFull, la, off);
-    lb += __shfl_xor_sync(attn::kFull, lb, off);
-  }
-  const float inv_a = 1.f / fmaxf(la, 1e-30f);
-  const float inv_b = 1.f / fmaxf(lb, 1e-30f);
-  if (ra < nrows) {
-    bf16* dst = out + b * so.b + (h * g + ra % g) * so.h + ta * so.t + tig * 2;
-#pragma unroll
-    for (int d = 0; d < DT; ++d)
-      *reinterpret_cast<uint32_t*>(dst + d * 8) =
-          pack_bf16(o[d][0] * inv_a, o[d][1] * inv_a);
-  }
-  if (rb < nrows) {
-    bf16* dst = out + b * so.b + (h * g + rb % g) * so.h + tb * so.t + tig * 2;
-#pragma unroll
-    for (int d = 0; d < DT; ++d)
-      *reinterpret_cast<uint32_t*>(dst + d * 8) =
-          pack_bf16(o[d][2] * inv_b, o[d][3] * inv_b);
-  }
+  attn::mma_finish<HD, attn::kPseudo>(c);
+  if (ra < nrows)
+    attn::mma_store_row<HD>(
+        out + b * so.b + (h * g + ra % g) * so.h + ta * so.t, c, 0, lane);
+  if (rb < nrows)
+    attn::mma_store_row<HD>(
+        out + b * so.b + (h * g + rb % g) * so.h + tb * so.t, c, 1, lane);
 }
 
 template <int HD>
@@ -457,7 +300,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  hd in {16, 32, 64, 128, 256}.
+// dtype: 0 = float32, 1 = bfloat16.  hd in {16, 32, 64, 128, 192, 256}.
 // strides: 12 element strides, (batch, head, position) of q, k, v and
 // out in that order; the head dim is contiguous and every row starts on
 // 16 bytes.  window <= 0 means no window.  Returns a cudaError_t.
@@ -487,6 +330,7 @@ extern "C" int repro_flash_attention(const void* q, const void* k,
       case 32: REPRO_FA_MMA(32);
       case 64: REPRO_FA_MMA(64);
       case 128: REPRO_FA_MMA(128);
+      case 192: REPRO_FA_MMA(192);
       case 256: REPRO_FA_MMA(256);
     }
   } else if (dtype == 0) {
@@ -495,6 +339,7 @@ extern "C" int repro_flash_attention(const void* q, const void* k,
       case 32: REPRO_FA_F32(32);
       case 64: REPRO_FA_F32(64);
       case 128: REPRO_FA_F32(128);
+      case 192: REPRO_FA_F32(192);
       case 256: REPRO_FA_F32(256);
     }
   }

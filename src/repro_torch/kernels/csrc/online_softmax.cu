@@ -28,7 +28,11 @@
 //     a merge that also reads the label logit once (exactly one column
 //     hits, so it equals the TPU kernel's masked sum) and writes
 //     m + log l - x[label];
-//   * phase 2 is one elementwise pass, exp(x - m) / l in f32.
+//   * phase 2 is one elementwise pass, exp(x - m) / l in f32;
+//   * rows sit on grid.y, at most 65,535 of them per launch; the phase-1
+//     and phase-2 blocks stride over the rows beyond (a training batch's
+//     B * T rows), so any row count takes one launch, as the TPU kernels'
+//     row tiling does.
 // What it leaves for later PRs: online_softmax reads x twice (phase 1,
 // then phase 2), as the TPU kernels do; a one-pass form would keep each
 // block's slice of x on chip between the phases.
@@ -42,6 +46,9 @@ namespace {
 
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kThreads = 256;
+constexpr int kMaxGridY = 65535;  // rows beyond it stride in the kernels
+
+int grid_rows(int B) { return B < kMaxGridY ? B : kMaxGridY; }
 
 __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) {
@@ -88,37 +95,41 @@ __device__ __forceinline__ void warp_merge(float& m, float& l) {
 template <typename T, int VEC>
 __global__ void __launch_bounds__(kThreads) stats_partial_kernel(
     const T* __restrict__ x, float* __restrict__ pm, float* __restrict__ pl,
-    int V, int per_split, int nsplit) {
+    int B, int V, int per_split, int nsplit) {
   __shared__ float wm[kThreads / 32], wl[kThreads / 32];
-  const int split = blockIdx.x, row = blockIdx.y;
+  const int split = blockIdx.x;
   const int begin = split * per_split;
   const int end = max(begin, min(V, begin + per_split));
-  const T* xr = x + (size_t)row * V;
-  float m = -INFINITY, l = 0.f;
   const int nvec = (end - begin) / VEC;
-  for (int i = threadIdx.x; i < nvec; i += kThreads) {
-    const Vec<T, VEC> c =
-        *reinterpret_cast<const Vec<T, VEC>*>(xr + begin + i * VEC);
-#pragma unroll
-    for (int e = 0; e < VEC; ++e) fold(to_float(c.v[e]), m, l);
-  }
-  for (int j = begin + nvec * VEC + threadIdx.x; j < end; j += kThreads)
-    fold(to_float(xr[j]), m, l);
-  warp_merge(m, l);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  if (lane == 0) {
-    wm[warp] = m;
-    wl[warp] = l;
-  }
-  __syncthreads();
-  if (warp == 0) {
-    m = lane < kThreads / 32 ? wm[lane] : -INFINITY;
-    l = lane < kThreads / 32 ? wl[lane] : 0.f;
+  // rows stride by gridDim.y (at most 65,535), so any B takes one launch
+  for (int row = blockIdx.y; row < B; row += gridDim.y) {
+    const T* xr = x + (size_t)row * V;
+    float m = -INFINITY, l = 0.f;
+    for (int i = threadIdx.x; i < nvec; i += kThreads) {
+      const Vec<T, VEC> c =
+          *reinterpret_cast<const Vec<T, VEC>*>(xr + begin + i * VEC);
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) fold(to_float(c.v[e]), m, l);
+    }
+    for (int j = begin + nvec * VEC + threadIdx.x; j < end; j += kThreads)
+      fold(to_float(xr[j]), m, l);
     warp_merge(m, l);
     if (lane == 0) {
-      pm[(size_t)row * nsplit + split] = m;
-      pl[(size_t)row * nsplit + split] = l;
+      wm[warp] = m;
+      wl[warp] = l;
     }
+    __syncthreads();
+    if (warp == 0) {
+      m = lane < kThreads / 32 ? wm[lane] : -INFINITY;
+      l = lane < kThreads / 32 ? wl[lane] : 0.f;
+      warp_merge(m, l);
+      if (lane == 0) {
+        pm[(size_t)row * nsplit + split] = m;
+        pl[(size_t)row * nsplit + split] = l;
+      }
+    }
+    __syncthreads();  // wm / wl are free for the next row
   }
 }
 
@@ -167,27 +178,29 @@ __global__ void __launch_bounds__(kThreads) xent_merge_kernel(
 template <typename T, int VEC>
 __global__ void __launch_bounds__(kThreads) normalize_kernel(
     const T* __restrict__ x, const float* __restrict__ m_in,
-    const float* __restrict__ l_in, float* __restrict__ out, int V) {
+    const float* __restrict__ l_in, float* __restrict__ out, int B, int V) {
   constexpr int SV = VEC < 4 ? VEC : 4;  // f32 elements per store
-  const int row = blockIdx.y;
-  const float m = m_in[row], l = l_in[row];
-  const T* xr = x + (size_t)row * V;
-  float* orow = out + (size_t)row * V;
   const int nvec = V / VEC;
-  for (int i = blockIdx.x * kThreads + threadIdx.x; i < nvec;
-       i += gridDim.x * kThreads) {
-    const Vec<T, VEC> c = *reinterpret_cast<const Vec<T, VEC>*>(xr + i * VEC);
-    Vec<float, VEC> o;
+  for (int row = blockIdx.y; row < B; row += gridDim.y) {
+    const float m = m_in[row], l = l_in[row];
+    const T* xr = x + (size_t)row * V;
+    float* orow = out + (size_t)row * V;
+    for (int i = blockIdx.x * kThreads + threadIdx.x; i < nvec;
+         i += gridDim.x * kThreads) {
+      const Vec<T, VEC> c =
+          *reinterpret_cast<const Vec<T, VEC>*>(xr + i * VEC);
+      Vec<float, VEC> o;
 #pragma unroll
-    for (int e = 0; e < VEC; ++e) o.v[e] = expf(to_float(c.v[e]) - m) / l;
+      for (int e = 0; e < VEC; ++e) o.v[e] = expf(to_float(c.v[e]) - m) / l;
 #pragma unroll
-    for (int e = 0; e < VEC; e += SV)  // 16-byte stores
-      *reinterpret_cast<Vec<float, SV>*>(orow + i * VEC + e) =
-          *reinterpret_cast<const Vec<float, SV>*>(o.v + e);
+      for (int e = 0; e < VEC; e += SV)  // 16-byte stores
+        *reinterpret_cast<Vec<float, SV>*>(orow + i * VEC + e) =
+            *reinterpret_cast<const Vec<float, SV>*>(o.v + e);
+    }
+    for (int j = nvec * VEC + blockIdx.x * kThreads + threadIdx.x; j < V;
+         j += gridDim.x * kThreads)
+      orow[j] = expf(to_float(xr[j]) - m) / l;
   }
-  for (int j = nvec * VEC + blockIdx.x * kThreads + threadIdx.x; j < V;
-       j += gridDim.x * kThreads)
-    orow[j] = expf(to_float(xr[j]) - m) / l;
 }
 
 // Vector width in elements: 16 bytes when every row start (and so every
@@ -205,13 +218,13 @@ cudaError_t stats_partial(const void* x, float* pm, float* pl, int B, int V,
   // split bounds on 16-byte multiples, so each split's vector loads align
   const int step = 16 / (int)sizeof(T);
   const int per_split = ((V + nsplit - 1) / nsplit + step - 1) / step * step;
-  const dim3 grid(nsplit, B);
+  const dim3 grid(nsplit, grid_rows(B));
   if (vec > 1)
     stats_partial_kernel<T, (int)(16 / sizeof(T))><<<grid, kThreads, 0, s>>>(
-        static_cast<const T*>(x), pm, pl, V, per_split, nsplit);
+        static_cast<const T*>(x), pm, pl, B, V, per_split, nsplit);
   else
     stats_partial_kernel<T, 1><<<grid, kThreads, 0, s>>>(
-        static_cast<const T*>(x), pm, pl, V, per_split, nsplit);
+        static_cast<const T*>(x), pm, pl, B, V, per_split, nsplit);
   return cudaGetLastError();
 }
 
@@ -220,18 +233,18 @@ cudaError_t normalize(const void* x, const float* m, const float* l,
                       float* out, int B, int V, cudaStream_t s) {
   const int vec = vec_of<T>(x, V);
   const int per_block = kThreads * vec * 4;  // four loads per thread
-  const dim3 grid((V + per_block - 1) / per_block, B);
+  const dim3 grid((V + per_block - 1) / per_block, grid_rows(B));
   if (vec > 1)
     normalize_kernel<T, (int)(16 / sizeof(T))><<<grid, kThreads, 0, s>>>(
-        static_cast<const T*>(x), m, l, out, V);
+        static_cast<const T*>(x), m, l, out, B, V);
   else
     normalize_kernel<T, 1><<<grid, kThreads, 0, s>>>(
-        static_cast<const T*>(x), m, l, out, V);
+        static_cast<const T*>(x), m, l, out, B, V);
   return cudaGetLastError();
 }
 
 bool bad_shape(int B, int V, int nsplit) {
-  return B <= 0 || V <= 0 || nsplit <= 0 || nsplit > V || B > 65535;
+  return B <= 0 || V <= 0 || nsplit <= 0 || nsplit > V;
 }
 
 }  // namespace

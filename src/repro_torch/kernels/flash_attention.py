@@ -32,7 +32,7 @@ import torch
 from repro_torch.kernels import _build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_HEAD_DIMS = (16, 32, 64, 128, 256)
+_HEAD_DIMS = (16, 32, 64, 128, 192, 256)
 
 
 @functools.lru_cache(maxsize=None)
@@ -50,7 +50,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     window: Optional[int] = None) -> torch.Tensor:
     """q (B, Hq, T, hd); k, v (B, Hkv, S, hd): CUDA tensors of one dtype
     (bf16 or f32) on one device, any strides with the head dim
-    contiguous and every row on 16 bytes; hd in {16, 32, 64, 128, 256};
+    contiguous and every row on 16 bytes; hd in {16, 32, 64, 128, 192,
+    256};
     Hkv | Hq.  Returns (B, Hq, T, hd) in q's dtype and memory layout.
     Anything else raises."""
     for name, x in (("q", q), ("k", k), ("v", v)):

@@ -29,7 +29,6 @@ from repro_torch.kernels import _build
 DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _SPLITS_PER_SM = 4
 _MIN_SPLIT = 1024           # elements a phase-1 block folds at least
-_MAX_ROWS = 65535           # grid.y
 
 
 @functools.lru_cache(maxsize=None)
@@ -54,11 +53,12 @@ def _sm_count(index: int) -> int:
 
 def check_rows(x: torch.Tensor) -> None:
     """x must be a contiguous (B, V) CUDA tensor of f32, bf16 or f16
-    with 1 <= B <= 65535 and V >= 1."""
+    with B >= 1 and V >= 1 (any row count: the kernels stride over rows
+    past grid.y's 65,535)."""
     if x.device.type != "cuda":
         raise ValueError(f"x must be a CUDA tensor; got {x.device}")
-    if x.dim() != 2 or not 1 <= x.shape[0] <= _MAX_ROWS or x.shape[1] < 1:
-        raise ValueError(f"x must be (B, V) with 1 <= B <= {_MAX_ROWS}; got "
+    if x.dim() != 2 or x.shape[0] < 1 or x.shape[1] < 1:
+        raise ValueError(f"x must be (B, V) with B, V >= 1; got "
                          f"{tuple(x.shape)}")
     if x.dtype not in DTYPES:
         raise ValueError(f"x dtype {x.dtype}: need one of f32, bf16, f16")

@@ -9,23 +9,27 @@ plain version reads (``base2_frac_lut``, ``pwl_lut``).
 
 Bound on the H100: memory -- one read of each row's K/V history, 4*hd
 flops per K/V row, far under the card's ~295 flops per byte.  The design
-(split-KV decode: one thread block per (row, kv head, group of up to 32
-query rows, chunk of the kv positions), GQA-native shared-memory K/V
-tiles staged by cp.async, one warp per query row carrying the f32 online
-softmax, then a combine kernel that merges the chunks' partials in chunk
-order) reads each K/V byte once per row and query group and never
-repeats K/V across the heads of a group; the source's header says what
-it leaves for later.
+(split-KV decode: one thread block per (query group, chunk of the kv
+positions, kv head, row), K/V tiles staged through the table by cp.async
+and shared by the GQA heads of a kv head, then a combine kernel that
+merges the chunks' partials in chunk order) reads each K/V byte once per
+row and query group.  Two routes, by dtype and mode only: bf16 exact,
+pseudo and maxonly fold on the tensor cores (flash attention's
+``mma.sync`` tile, the T*g query rows of a kv head packed into 16-row
+tiles); f32 and base2/pwl one warp per query row on the CUDA cores.  The
+source's header says the rest.
 
-``plan_split`` picks the chunks from the shapes alone -- never from
-``positions``, which would sync the host on every decode layer -- so
-that the grid covers the card's SMs; the partials go to f32 scratch
-allocated here.  The chunk count, and so the summation order, depends on
-the shapes only: two calls on the same inputs give the same bits.  It
-does depend on the batch -- on B and on the table width, which the
-longest row sets -- so a row's exact or pseudo output may differ in its
-last bits with its batch-mates (the Pallas kernel and the plain version
-fold every row from position 0 whatever the batch).
+The chunk width is a constant per (dtype, head dim), ``chunk_width``;
+the chunk count covers the table.  Chunk, stage and 32-key slice edges
+lie at fixed multiples of absolute position, an empty chunk weighs
+nothing in the combine, and one non-empty chunk passes through it bit for
+bit.  So a row's attention bits depend on its own inputs, the dtype, the
+head dim and the mode only: the same alone or beside any batch-mates, at
+T = 1 or inside a wider speculative window whose padding repeats its
+position -- as the Pallas kernel and the plain version, which fold every
+row from position 0 whatever the batch.  The plan reads shapes, never
+``positions`` (which would sync the host on every decode layer); the
+partials go to f32 scratch allocated here.
 
 ``paged_attention.launches`` counts the calls that launched the kernel,
 ``paged_attention.launches_by_mode`` the same calls by score mode.
@@ -44,13 +48,11 @@ from repro_torch.core.softmax_variants import base2_frac_lut
 from repro_torch.kernels import _build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_HEAD_DIMS = (16, 32, 64, 128, 256)
+_HEAD_DIMS = (16, 32, 64, 128, 192, 256)
 # the C entry's mode numbers
 _MODES = {"exact": 0, "base2": 1, "pseudo": 2, "pwl": 3, "maxonly": 4}
 # a chunk is a whole number of the kernel's stages (64 or 32 positions)
 CHUNK_QUANTUM = 64
-# thread blocks per SM the split aims for (a block holds 4-32 warps)
-BLOCKS_PER_SM = 4
 # modes whose weight cannot be rescaled across chunks: one chunk
 UNSPLIT_MODES = ("base2", "pwl")
 
@@ -75,43 +77,41 @@ def _rom(mode: str, device: torch.device) -> Optional[torch.Tensor]:
     return None
 
 
-@functools.lru_cache(maxsize=None)
-def _sm_count(device: torch.device) -> int:
-    return torch.cuda.get_device_properties(device).multi_processor_count
+def chunk_width(dtype: torch.dtype, hd: int) -> int:
+    """Positions per chunk for ``dtype`` at head dim ``hd``: 64 (one
+    64-position stage) from hd 128 up, and 8192 // hd below, so that a
+    chunk holds at least 8,192 K elements (16 KB of K and V in bf16) and
+    the partials (hd + 2 floats per query row and chunk) stay small
+    against the K/V they summarise.  At qwen3-0.6b's hd 128 a
+    1,000-token row takes 16 chunks, so B 1 still spreads over 16 x 8 kv
+    heads = 128 blocks on the H100's 132 SMs, and B 8 over 1,024.  Never
+    a function of B, T or the table width: chunk edges are fixed
+    multiples of it in absolute position."""
+    if dtype not in _DTYPES or hd not in _HEAD_DIMS:
+        raise ValueError(f"no chunk width for {dtype} at head dim {hd}")
+    return max(CHUNK_QUANTUM, 8192 // hd)
 
 
-def plan_split(b: int, hkv: int, groups: int, max_keys: int, mode: str,
-               n_sms: int):
-    """(n_chunks, chunk_keys) for a call of ``b`` rows, ``hkv`` KV heads
-    and ``groups`` query groups (of up to 32 query rows) per (row, KV
-    head) over a table of ``max_keys`` = nb * bs positions, on a card of
-    ``n_sms`` SMs.  Plain integers in, plain integers out: it reads no
-    tensor, so it never waits on the card.
+def plan_split(max_keys: int, mode: str, dtype: torch.dtype, hd: int):
+    """(n_chunks, chunk_keys) for a table of ``max_keys`` = nb * bs
+    positions.  Plain integers in, plain integers out: it reads no tensor,
+    so it never waits on the card.
 
-    One chunk for base2 and pwl, and when the unsplit grid already has a
-    block per SM; otherwise about ``BLOCKS_PER_SM`` blocks per SM, each
-    chunk a multiple of ``CHUNK_QUANTUM`` positions.  n_chunks *
-    chunk_keys covers max_keys, and no chunk lies wholly past it."""
-    per = -(-max_keys // CHUNK_QUANTUM) * CHUNK_QUANTUM
-    base = b * hkv * groups
-    if mode in UNSPLIT_MODES or base >= n_sms:
-        return 1, per
-    want = min(-(-BLOCKS_PER_SM * n_sms // base), per // CHUNK_QUANTUM)
-    keys = -(-per // (want * CHUNK_QUANTUM)) * CHUNK_QUANTUM
-    return -(-max_keys // keys), keys
+    ``chunk_width(dtype, hd)`` positions per chunk and as many chunks as
+    cover the table; base2 and pwl take one chunk of the table rounded up
+    to ``CHUNK_QUANTUM``."""
+    if mode in UNSPLIT_MODES:
+        return 1, -(-max_keys // CHUNK_QUANTUM) * CHUNK_QUANTUM
+    width = chunk_width(dtype, hd)
+    return -(-max_keys // width), width
 
 
 def split_for(q: torch.Tensor, k_pool: torch.Tensor,
               block_tables: torch.Tensor, attn_approx: str = "exact"):
     """The (n_chunks, chunk_keys) the wrapper takes for these operands:
-    their shapes and q's device's SM count only."""
-    hq = q.shape[-2]
-    t = q.shape[1] if q.dim() == 4 else 1
-    hkv = k_pool.shape[2]
-    groups = -(-t * (hq // hkv) // 32)
-    return plan_split(q.shape[0], hkv, groups,
-                      block_tables.shape[1] * k_pool.shape[1],
-                      approx.resolve(attn_approx)[0], _sm_count(q.device))
+    q's dtype and head dim and the table's width in positions."""
+    return plan_split(block_tables.shape[1] * k_pool.shape[1],
+                      approx.resolve(attn_approx)[0], q.dtype, q.shape[-1])
 
 
 def paged_attention(q: torch.Tensor, k_pool: torch.Tensor,

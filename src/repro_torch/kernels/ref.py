@@ -39,6 +39,72 @@ def topk_select(x: torch.Tensor, k: int):
     return vals[..., :k], idxs[..., :k].to(torch.int32)
 
 
+def _beats(v1, i1, v2, i2):
+    """(v1, i1) before (v2, i2) in the top-k order: a larger value, or an
+    equal one and a lower index; index -1 pads and comes after all."""
+    return (i1 >= 0) & ((i2 < 0) | (v1 > v2) | ((v1 == v2) & (i1 < i2)))
+
+
+def _merge_pairs(vals, idxs, k: int):
+    """One tree of pairwise merges over the lists of (B, n, k) sorted
+    (value, index) lists -> (B, k): entry j of a pair's left list goes to
+    rank j plus the count of right-list entries that beat it, entry j of
+    the right list to j plus the count of left-list entries it does not
+    beat (the left list wins the ties only padding can make), ranks past
+    k fall off, and an odd list out passes through."""
+    b = vals.shape[0]
+    while vals.shape[1] > 1:
+        even = vals.shape[1] - vals.shape[1] % 2
+        xv, xi = vals[:, 0:even:2], idxs[:, 0:even:2]
+        yv, yi = vals[:, 1::2], idxs[:, 1::2]
+        # y_beats[..., i, j]: right entry j beats left entry i
+        y_beats = _beats(yv[..., None, :], yi[..., None, :], xv[..., :, None],
+                         xi[..., :, None])
+        j = torch.arange(k)
+        rank = torch.cat([j + y_beats.sum(-1), j + (~y_beats).sum(-2)], -1)
+        mv = torch.empty((b, xv.shape[1], 2 * k))
+        mi = torch.empty((b, xv.shape[1], 2 * k), dtype=torch.int32)
+        mv.scatter_(2, rank, torch.cat([xv, yv], -1))
+        mi.scatter_(2, rank, torch.cat([xi, yi], -1))
+        vals = torch.cat([mv[..., :k], vals[:, even:]], 1)
+        idxs = torch.cat([mi[..., :k], idxs[:, even:]], 1)
+    return vals[:, 0], idxs[:, 0]
+
+
+TOPK_LISTS_PER_BLOCK = 32   # lists one merge block of the kernel takes
+
+
+def topk_merge_tree(x: torch.Tensor, k: int, n_lists: int):
+    """A plain model of the CUDA top-k head's two passes, for the tests.
+
+    Pass 1: the last axis of x (B, V) split into ``n_lists`` ranges of
+    ceil(V / n_lists) ids; each range's top k in ``topk_select``'s order,
+    padded with (-inf, -1) past a range shorter than k.  Pass 2: the
+    lists merged ``TOPK_LISTS_PER_BLOCK`` at a time by trees of pairwise
+    rank merges (``_merge_pairs``), stage after stage, as the kernel's
+    merge blocks do.  Returns (vals (B, k) f32, idxs (B, k) int32):
+    ``topk_select(x, k)`` bit for bit whenever k <= V."""
+    x = x.float()
+    b, v = x.shape
+    per = -(-v // n_lists)
+    vals = torch.full((b, n_lists, k), -torch.inf)
+    idxs = torch.full((b, n_lists, k), -1, dtype=torch.int32)
+    for s in range(n_lists):
+        seg = x[:, s * per:(s + 1) * per]
+        n = min(k, seg.shape[1])
+        if n:
+            sv, si = topk_select(seg, n)
+            vals[:, s, :n], idxs[:, s, :n] = sv, si + s * per
+    while True:
+        step = TOPK_LISTS_PER_BLOCK
+        merged = [_merge_pairs(vals[:, g:g + step], idxs[:, g:g + step], k)
+                  for g in range(0, vals.shape[1], step)]
+        vals = torch.stack([mv for mv, _ in merged], 1)
+        idxs = torch.stack([mi for _, mi in merged], 1)
+        if vals.shape[1] == 1:
+            return vals[:, 0], idxs[:, 0]
+
+
 def fused_topk_head(h: torch.Tensor, w: torch.Tensor, k: int):
     """Top-k of ``h @ w`` over the vocabulary: (vals (B, k) f32, idxs
     (B, k) int32); h (B, D), w (D, V); f32 products summed in f32."""

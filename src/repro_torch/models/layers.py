@@ -20,7 +20,14 @@ from repro_torch.kernels import ops
 def rms_norm(x: torch.Tensor, scale: torch.Tensor,
              eps: float = 1e-6) -> torch.Tensor:
     xf = x.float()
-    y = xf * torch.rsqrt(torch.mean(xf * xf, dim=-1, keepdim=True) + eps)
+    # The mean of the f32 squares accumulates in f64 and rounds once to
+    # f32.  On the card torch.mean's f32 summation order follows the
+    # number of rows, so an f32 mean would make a row's norm -- and its
+    # greedy token at a near-tie -- depend on its batch-mates and on the
+    # step's width; the f64 sum rounds to the same f32 in any order
+    # (short of a sum within 1e-16 of an f32 rounding boundary).
+    ms = torch.mean(xf * xf, dim=-1, keepdim=True, dtype=torch.float64)
+    y = xf * torch.rsqrt(ms.float() + eps)
     return (y * (1.0 + scale.float())).to(x.dtype)
 
 

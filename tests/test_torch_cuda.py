@@ -77,7 +77,7 @@ def _paged(dev, dtype, *, b, t, hq, hkv, hd, bs, seed, last=None):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("hd", [16, 32, 64, 128, 256])
+@pytest.mark.parametrize("hd", [16, 32, 64, 128, 192, 256])
 @pytest.mark.parametrize("t,hq,hkv", [(1, 16, 8), (3, 8, 2), (1, 4, 4),
                                       (8, 8, 2), (32, 16, 8), (9, 64, 8)])
 @pytest.mark.parametrize("window", [None, 7])
@@ -130,7 +130,7 @@ def _maxonly_ok(out, q, kp, vp, bt, pos, window, band=1e-3):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("hd", [16, 32, 64, 128, 256])
+@pytest.mark.parametrize("hd", [16, 32, 64, 128, 192, 256])
 @pytest.mark.parametrize("t,hq,hkv", [(1, 16, 8), (3, 8, 2), (9, 64, 8)])
 @pytest.mark.parametrize("window", [None, 7])
 @pytest.mark.parametrize("mode", ["base2", "pseudo", "pwl", "maxonly"])
@@ -218,7 +218,7 @@ def _pinned(dev, *, t, hq, hkv, hd, window, seed):
     return q, kp, vp, bt, pos
 
 
-@pytest.mark.parametrize("hd", [16, 64, 128, 256])
+@pytest.mark.parametrize("hd", [16, 64, 128, 192, 256])
 @pytest.mark.parametrize("t,hq,hkv", [(1, 16, 8), (3, 8, 2)])
 @pytest.mark.parametrize("window", [None, 100])
 @pytest.mark.parametrize("mode", ["base2", "pseudo", "pwl"])
@@ -318,12 +318,10 @@ def test_paged_attention_kernel_base2_rounds_half_to_even(dev, hd):
 
 def _split_case(dev, dtype, *, t, seed, rows=8, hq=4, hkv=2, hd=64):
     """8 rows over a 4,096-position table (bs 16), split into chunks of
-    ``ck`` keys: contexts at the chunk edges +-1 (ck - 1, ck, ck + 1, the
-    same at 3 ck) and at 4,095 and 4,096.  Returns the operands and
-    (n_chunks, ck)."""
-    groups = -(-t * (hq // hkv) // 32)
-    n, ck = pa.plan_split(rows, hkv, groups, 4096, "exact",
-                          pa._sm_count(dev))
+    ``ck`` keys (the wrapper's fixed width): contexts at the chunk edges
+    +-1 (ck - 1, ck, ck + 1, the same at 3 ck) and at 4,095 and 4,096.
+    Returns the operands and (n_chunks, ck)."""
+    n, ck = pa.plan_split(4096, "exact", dtype, hd)
     last = [ck - 2, ck - 1, ck, 3 * ck - 2, 3 * ck - 1, 3 * ck, 4094, 4095]
     return _paged(dev, dtype, b=rows, t=t, hq=hq, hkv=hkv, hd=hd, bs=16,
                   seed=seed + t, last=last[:rows]), (n, ck)
@@ -389,7 +387,8 @@ def test_paged_attention_split_maxonly_tie_across_a_chunk_edge(dev):
 @pytest.mark.parametrize("b", [1, 8])
 def test_paged_attention_split_is_bitwise_repeatable(dev, mode, b):
     """Two calls on the same inputs give the same bits: the chunks come
-    from the shapes and the combine merges them in chunk order."""
+    from the dtype and head dim, and the combine merges them in chunk
+    order."""
     q, kp, vp, bt, pos = _paged(dev, torch.bfloat16, b=b, t=1, hq=16,
                                 hkv=8, hd=128, bs=16, seed=b,
                                 last=[999, 5, 640, 63, 64, 300, 1, 511][:b])
@@ -417,6 +416,114 @@ def test_paged_attention_kernel_rejects_bad_operands(dev):
         pa.paged_attention(q[:, :3].contiguous(), kp, vp, bt, pos)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mode", ["exact", "pseudo", "maxonly", "base2"])
+@pytest.mark.parametrize("last", [0, 63, 64, 200, 640])
+def test_paged_attention_row_bits_alone_and_beside_a_long_row(dev, last,
+                                                             mode, dtype):
+    """A row's output is the same bits alone (B 1, a table of its own
+    width, one chunk or a few) and as row 0 of 8 rows beside a
+    1,000-token row (a 1,024-position table, 16 chunks): chunk edges are
+    fixed positions and empty chunks weigh nothing in the combine."""
+    q, kp, vp, bt, pos = _paged(dev, dtype, b=8, t=1, hq=16, hkv=8,
+                                hd=128, bs=16, seed=last,
+                                last=[last, 999, 5, 300, 64, 511, 1, 700])
+    nb_own = pow2(last // 16 + 1)
+    alone = pa.paged_attention(q[:1].contiguous(), kp, vp,
+                               bt[:1, :nb_own].contiguous(), pos[:1],
+                               attn_approx=mode)
+    beside = pa.paged_attention(q, kp, vp, bt, pos, attn_approx=mode)
+    torch.cuda.synchronize()
+    assert pa.split_for(q, kp, bt, mode)[0] >= pa.split_for(
+        q[:1], kp, bt[:1, :nb_own], mode)[0]
+    assert torch.equal(alone, beside[:1])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mode", ["exact", "pseudo", "maxonly"])
+@pytest.mark.parametrize("hq,hkv", [(16, 8), (40, 8), (96, 8)])
+def test_paged_attention_row_bits_at_t1_and_t8(dev, hq, hkv, mode, dtype):
+    """A row's T = 1 output equals, bit for bit, every column of the same
+    row at T = 8 whose padding queries repeat its position (a greedy row
+    inside a speculative step), at g 2, 5 and 12."""
+    q, kp, vp, bt, pos = _paged(dev, dtype, b=4, t=1, hq=hq, hkv=hkv,
+                                hd=128, bs=16, seed=hq,
+                                last=[999, 0, 130, 64])
+    one = pa.paged_attention(q, kp, vp, bt, pos, attn_approx=mode)
+    q8 = q[:, None].expand(4, 8, hq, 128).contiguous()
+    pos8 = pos[:, None].expand(4, 8).contiguous()
+    eight = pa.paged_attention(q8, kp, vp, bt, pos8, attn_approx=mode)
+    torch.cuda.synchronize()
+    for t in range(8):
+        assert torch.equal(eight[:, t], one), t
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mode", ["exact", "pseudo", "maxonly"])
+def test_paged_attention_spec_window_bits_equal_each_query_alone(dev, mode,
+                                                                 dtype):
+    """A speculative step's shape: 8 rows at T 8, each a consecutive
+    window of its own width whose padding repeats its last position.
+    Every (row, column) output equals, bit for bit, that query alone (B 1,
+    T 1, a table of its row's own width)."""
+    rng = np.random.default_rng(5)
+    last = [999, 0, 130, 64, 511, 700, 63, 300]
+    q, kp, vp, bt, _ = _paged(dev, dtype, b=8, t=8, hq=16, hkv=8, hd=128,
+                              bs=16, seed=5, last=last)
+    pos = np.empty((8, 8), np.int32)
+    for r, p in enumerate(last):
+        win = np.arange(max(0, p - int(rng.integers(0, 8))), p + 1)
+        pos[r, :len(win)], pos[r, len(win):] = win, win[-1]
+    pos_t = torch.from_numpy(pos).to(dev)
+    out = pa.paged_attention(q, kp, vp, bt, pos_t, attn_approx=mode)
+    for r in range(8):
+        nb = pow2(int(pos[r].max()) // 16 + 1)
+        for c in range(8):
+            one = pa.paged_attention(q[r:r + 1, c].contiguous(), kp, vp,
+                                     bt[r:r + 1, :nb].contiguous(),
+                                     pos_t[r:r + 1, c].contiguous(),
+                                     attn_approx=mode)
+            assert torch.equal(one[0], out[r, c]), (r, c)
+
+
+@pytest.mark.parametrize("hd", [64, 128, 192])
+@pytest.mark.parametrize("t", [1, 32])
+def test_paged_attention_route(dev, t, hd):
+    """bf16 exact, pseudo and maxonly run the tensor-core kernel; f32 and
+    base2 / pwl the CUDA-core one -- by kernel name, at T 1 and T 32."""
+    for dtype in (torch.bfloat16, torch.float32):
+        q, kp, vp, bt, pos = _paged(dev, dtype, b=2, t=t, hq=4, hkv=2, hd=hd,
+                                    bs=16, seed=t, last=[700, 40])
+        for mode in ("exact", "base2", "pseudo", "pwl", "maxonly"):
+            want_mma = dtype == torch.bfloat16 and mode in (
+                "exact", "pseudo", "maxonly")
+            names = _kernel_names(lambda: pa.paged_attention(
+                q, kp, vp, bt, pos, attn_approx=mode))
+            mma = any("paged_attention_mma_kernel" in n for n in names)
+            core = any("paged_attention_kernel" in n for n in names)
+            assert (mma, core) == (want_mma, not want_mma), names
+
+
+@pytest.mark.parametrize("t,hq,hkv", [(1, 16, 8), (32, 16, 8), (4, 96, 8)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_attention_head_dim_192(dev, dtype, t, hq, hkv):
+    """nemotron-4-340b's head dim in every mode, T 1 and 32 and its g
+    12, against the plain version at the tolerances above."""
+    q, kp, vp, bt, pos = _paged(dev, dtype, b=3, t=t, hq=hq, hkv=hkv,
+                                hd=192, bs=16, seed=t, last=[999, 0, 130])
+    for mode in ("exact", "base2", "pseudo", "pwl", "maxonly"):
+        out = pa.paged_attention(q, kp, vp, bt, pos, attn_approx=mode)
+        torch.cuda.synchronize()
+        if mode == "maxonly":
+            assert _maxonly_ok(out, q, kp, vp, bt, pos, None)
+            continue
+        want = ref.paged_attention(q, kp, vp, bt, pos, attn_approx=mode)
+        tol = 2e-2 if dtype == torch.bfloat16 else (
+            2e-3 if mode in ("base2", "pwl") else 1e-4)
+        torch.testing.assert_close(out.float(), want.float(), atol=tol,
+                                   rtol=tol)
+
+
 def _flash_operands(dev, dtype, *, b, hq, hkv, t, s, hd, seed):
     """q (B, Hq, T, hd), k, v (B, Hkv, S, hd) as the layer passes them:
     transposed views of (B, L, H, hd) tensors."""
@@ -430,7 +537,7 @@ def _flash_operands(dev, dtype, *, b, hq, hkv, t, s, hd, seed):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("hd", [16, 32, 64, 128, 256])
+@pytest.mark.parametrize("hd", [16, 32, 64, 128, 192, 256])
 @pytest.mark.parametrize("b,hkv,g,t,s", [(2, 2, 1, 37, 37),
                                          (1, 4, 2, 130, 130),
                                          (1, 2, 8, 48, 160),
@@ -456,7 +563,7 @@ def test_flash_attention_kernel_matches_plain(dev, dtype, hd, b, hkv, g, t,
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("hd", [16, 32, 64, 128, 256])
+@pytest.mark.parametrize("hd", [16, 32, 64, 128, 192, 256])
 @pytest.mark.parametrize("t", [1024, 1000])
 @pytest.mark.parametrize("g", [1, 2, 8])
 def test_flash_attention_kernel_long_prompts(dev, dtype, hd, t, g):
@@ -473,19 +580,31 @@ def test_flash_attention_kernel_long_prompts(dev, dtype, hd, t, g):
     torch.testing.assert_close(out.float(), want.float(), atol=tol, rtol=tol)
 
 
-def _kernel_names(fn):
-    """Names of the device kernels a profiler saw ``fn`` launch."""
+def _kernel_names(fn, attempts=3):
+    """Names of the device kernels a profiler saw ``fn`` launch.  ``fn``
+    runs once first, so that its kernels' lazy loading happens outside
+    the trace (a first launch can go unrecorded); a trace with no device
+    event at all is the profiler's miss (it happens after many profiler
+    sessions in one process), not an answer: ``fn`` is traced again, up
+    to ``attempts`` times."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    return [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(attempts):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if e.device_type == DeviceType.CUDA]
+        if names:
+            break
+    return names
 
 
-@pytest.mark.parametrize("hd", [16, 32, 64, 128, 256])
+@pytest.mark.parametrize("hd", [16, 32, 64, 128, 192, 256])
 def test_flash_attention_route(dev, hd):
     """bf16 runs the tensor-core kernel at every head dim and f32 the
     CUDA-core one: what the card ran, by kernel name."""
@@ -499,6 +618,19 @@ def test_flash_attention_route(dev, hd):
         names = _kernel_names(lambda: fa.flash_attention(q, k, v))
         assert any(ran in n for n in names), names
         assert not any(not_ran in n for n in names), names
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("g", [2, 12])
+def test_flash_attention_head_dim_192_prompt(dev, dtype, g):
+    """hd 192 at a 512-token prompt, causal, against the plain version."""
+    q, k, v = _flash_operands(dev, dtype, b=1, hq=g, hkv=1, t=512, s=512,
+                              hd=192, seed=g)
+    out = fa.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(out.float(), ref.flash_attention(
+        q, k, v).float(), atol=tol, rtol=tol)
 
 
 def test_flash_attention_kernel_contiguous_and_empty_rows(dev):
@@ -607,6 +739,29 @@ def test_softmax_xent_backward_on_card(dev, dtype):
     tol = (UNIT_RTOL, UNIT_ATOL) if dtype == torch.float32 else (1e-2, 1e-7)
     torch.testing.assert_close(xa.grad.float(), xb.grad.float(), rtol=tol[0],
                                atol=tol[1])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_softmax_unit_kernels_70000_rows(dev, dtype):
+    """More rows than grid.y holds (65,535): one launch each, against the
+    plain versions, the rows past 65,535 included."""
+    b, v = 70000, 1000
+    # logits of scale 1: the loss m + log l - x[label] cancels to about
+    # one f32 ulp of m where the label is the max, which stays under the
+    # cross-entropy's atol (1e-6) only while |m| < 8
+    x = _rows(dev, dtype, b, v, seed=7, scale=1.0)
+    lab = torch.randint(0, v, (b,), generator=torch.Generator(
+        device=dev).manual_seed(7), device=dev)
+    m, l = osm.softmax_stats(x)
+    p = osm.online_softmax(x)
+    loss = fx.fused_xent(x, lab)
+    torch.cuda.synchronize()
+    rm, rl = ref.softmax_stats(x)
+    for got, want in ((m, rm), (l, rl), (p, ref.online_softmax(x))):
+        torch.testing.assert_close(got, want, rtol=UNIT_RTOL, atol=UNIT_ATOL)
+    torch.testing.assert_close(loss, ref.fused_xent(x, lab), rtol=UNIT_RTOL,
+                               atol=XENT_ATOL)
+    assert bool((p[65535:].sum(-1) - 1).abs().max() <= 1e-5)
 
 
 def test_softmax_unit_kernels_reject_bad_operands(dev):
@@ -745,6 +900,27 @@ def test_topk_head_kernel_exact_on_integer_ties(dev, dtype, b, k):
     assert bool((vals[:, 1:] == vals[:, :-1]).any())
 
 
+@pytest.mark.parametrize("b,k", [(4, 64), (4, 8), (1, 64), (13, 64)])
+def test_topk_head_kernel_bitwise_at_qwen_width(dev, b, k):
+    """qwen3-0.6b's width (D 1,024, V 151,936), integer-valued bf16
+    operands (exact sums): the kernel's values and indices equal
+    ``ref.topk_select`` of the logits bit for bit, ties and all; two calls
+    give the same bits."""
+    v, d = 151936, 1024
+    gen = torch.Generator(device=dev).manual_seed(b * k)
+    emb = torch.randint(-2, 3, (v, d), generator=gen, device=dev).to(
+        torch.bfloat16)
+    h = torch.randint(-1, 2, (b, d), generator=gen, device=dev).to(
+        torch.bfloat16)
+    vals, idxs = ftk.fused_topk_head(h, emb.t(), k)
+    again = ftk.fused_topk_head(h, emb.t(), k)
+    torch.cuda.synchronize()
+    rvals, ridxs = ref.topk_select(torch.matmul(h.float(), emb.float().t()),
+                                   k)
+    assert torch.equal(vals, rvals) and torch.equal(idxs, ridxs)
+    assert torch.equal(vals, again[0]) and torch.equal(idxs, again[1])
+
+
 def test_topk_head_kernel_small_vocab_and_rejects(dev):
     """V = k (every id survives) and V below a split's width; bad k and
     operands raise."""
@@ -790,6 +966,24 @@ def test_verify_head_kernel_matches_plain(dev, dtype, b, t):
     rids, racc = ref.verify_draft(h, w, cand_t)
     assert torch.equal(ids, rids) and torch.equal(acc, racc)
     assert ids.dtype == acc.dtype == torch.int32
+
+
+@pytest.mark.parametrize("d", [128, 1024, 5120])
+def test_rms_norm_bits_do_not_depend_on_the_row_count(dev, d):
+    """The trunk's RMSNorm gives a row the same bits among 1 to 512 rows
+    (its mean accumulates in f64): torch.mean's f32 order on the card
+    follows the row count, which made a speculative step's rows differ
+    from the same rows in a greedy step."""
+    from repro_torch.models.layers import rms_norm
+
+    gen = torch.Generator(device=dev).manual_seed(d)
+    x = (torch.randn((512, d), generator=gen, device=dev) * 3).bfloat16()
+    w = torch.randn(d, generator=gen, device=dev).bfloat16()
+    full = rms_norm(x, w)
+    for n in (1, 2, 8, 16, 64, 100, 256):
+        assert torch.equal(rms_norm(x[:n].contiguous(), w), full[:n]), n
+    assert torch.equal(rms_norm(x.reshape(8, 64, d), w).reshape(512, d),
+                       full)
 
 
 @pytest.mark.parametrize("arch", ["qwen3-0.6b", "qwen3-32b"])

@@ -3,7 +3,8 @@ CPU: ``repro_torch.kernels.ref.paged_attention_split`` (per-chunk
 partials from the plain weights, merged in chunk order) against the JAX
 package's ``repro.kernels.ref.paged_attention`` and its Pallas kernel in
 interpret mode, on the same seeded numpy inputs; and the wrapper's chunk
-planner, ``paged_attention.plan_split`` / ``split_for``.
+planner, ``paged_attention.plan_split`` / ``split_for``, whose chunk
+width is fixed per (dtype, head dim).
 
 Operands sit on quarter steps in [-4, 4] and hd is 16 (scale 1/4, a
 power of two), so every score is exact in any summation order and both
@@ -150,58 +151,90 @@ def test_split_model_refuses_the_unsplit_modes():
 
 
 # ---------------------------------------------------------------------------
-# The wrapper's chunk planner
+# The wrapper's chunk planner: a fixed width per (dtype, head dim)
 # ---------------------------------------------------------------------------
-SHAPES = [(b, hkv, groups, keys)
-          for b in (1, 2, 8, 64, 256)
-          for hkv in (1, 8)
-          for groups in (1, 2)
-          for keys in (1, 16, 63, 64, 65, 1000, 1024, 4096, 32768)]
+KEYS = (1, 16, 63, 64, 65, 1000, 1024, 4096, 32768)
+DTYPES = (torch.float32, torch.bfloat16)
 
 
 @pytest.mark.parametrize("mode", ["exact", "base2", "pseudo", "pwl",
                                   "maxonly"])
-@pytest.mark.parametrize("n_sms", [1, 132])
-def test_plan_split_covers_the_table_in_whole_stages(mode, n_sms):
-    for b, hkv, groups, keys in SHAPES:
-        n, ck = tpa.plan_split(b, hkv, groups, keys, mode, n_sms)
-        assert type(n) is int and type(ck) is int
-        assert n >= 1, (b, hkv, groups, keys)
-        assert ck % tpa.CHUNK_QUANTUM == 0 and ck > 0
-        assert n * ck >= keys > (n - 1) * ck     # no chunk wholly past
-        if mode in ("base2", "pwl"):
-            assert n == 1
-        base = b * hkv * groups
-        if n > 1:        # split only a grid short of the SMs ...
-            assert base < n_sms
-            # ... into enough blocks to cover them, or chunks of one
-            # quantum each
-            assert base * n >= n_sms or ck == tpa.CHUNK_QUANTUM
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_plan_split_covers_the_table_in_whole_stages(mode, dtype):
+    """At every head dim and table width: whole stages per chunk, chunks
+    covering the table with none wholly past it, the width
+    ``chunk_width(dtype, hd)`` whatever the table (so chunk edges are
+    multiples of it in absolute position), and one chunk for base2 and
+    pwl."""
+    for hd in tpa._HEAD_DIMS:
+        width = tpa.chunk_width(dtype, hd)
+        assert width % tpa.CHUNK_QUANTUM == 0 and width >= 64
+        for keys in KEYS:
+            n, ck = tpa.plan_split(keys, mode, dtype, hd)
+            assert type(n) is int and type(ck) is int
+            assert n >= 1 and ck % tpa.CHUNK_QUANTUM == 0, (hd, keys)
+            assert n * ck >= keys > (n - 1) * ck     # no chunk wholly past
+            if mode in tpa.UNSPLIT_MODES:
+                assert n == 1
+            else:
+                assert ck == width, (hd, keys)
 
 
 def test_plan_split_at_the_served_shapes():
-    """qwen3-0.6b decode (8 KV heads, 16 query heads): 8 rows over a
-    1,024-position table take 8 chunks of 128, one row 16 chunks of 64,
-    a T 32 speculative window (2 query groups) 4 chunks of 256; 256 rows
-    need no split."""
-    assert tpa.plan_split(8, 8, 1, 1024, "exact", 132) == (8, 128)
-    assert tpa.plan_split(1, 8, 1, 1024, "exact", 132) == (16, 64)
-    assert tpa.plan_split(8, 8, 2, 1024, "maxonly", 132) == (4, 256)
-    assert tpa.plan_split(256, 8, 1, 1024, "pseudo", 132) == (1, 1024)
-    assert tpa.plan_split(1, 8, 1, 1024, "base2", 132) == (1, 1024)
+    """qwen3-0.6b decode (hd 128, bf16): 64-position chunks, so a
+    1,024-position table takes 16 and a 64-position one 1 -- the same
+    width whatever the batch; hd 192 (nemotron-4-340b) also 64; base2
+    and pwl one chunk over the table."""
+    bf = torch.bfloat16
+    assert tpa.plan_split(1024, "exact", bf, 128) == (16, 64)
+    assert tpa.plan_split(64, "exact", bf, 128) == (1, 64)
+    assert tpa.plan_split(1000, "maxonly", bf, 128) == (16, 64)
+    assert tpa.plan_split(1024, "pseudo", torch.float32, 192) == (16, 64)
+    assert tpa.plan_split(1024, "base2", bf, 128) == (1, 1024)
+    assert tpa.plan_split(100, "pwl", bf, 128) == (1, 128)
+    assert tpa.chunk_width(bf, 16) == 512 and tpa.chunk_width(bf, 64) == 128
 
 
-def test_split_for_reads_shapes_not_data(monkeypatch):
-    """``split_for`` on meta tensors (shapes, no storage) with the card's
-    132 SMs: it reads no tensor, so it never syncs the host with the
-    card."""
-    monkeypatch.setattr(tpa, "_sm_count", lambda device: 132)
-    q = torch.empty((8, 16, 128), device="meta", dtype=torch.bfloat16)
+def test_split_for_reads_shapes_not_data():
+    """``split_for`` on meta tensors (shapes, no storage): it reads no
+    tensor, so it never syncs the host with the card, and its chunk width
+    is the same for every B, T, query-group count and table width."""
     kp = torch.empty((100, 16, 8, 128), device="meta", dtype=torch.bfloat16)
+    for b in (1, 8, 256):
+        for t, hq in ((None, 16), (32, 16), (4, 64)):
+            shape = (b, hq, 128) if t is None else (b, t, hq, 128)
+            q = torch.empty(shape, device="meta", dtype=torch.bfloat16)
+            for nb in (1, 4, 64, 256):
+                bt = torch.empty((b, nb), device="meta", dtype=torch.int32)
+                assert tpa.split_for(q, kp, bt) == (-(-nb * 16 // 64), 64)
+                assert tpa.split_for(q, kp, bt, "pwl")[0] == 1
+    q = torch.empty((8, 16, 128), device="meta", dtype=torch.bfloat16)
     bt = torch.empty((8, 64), device="meta", dtype=torch.int32)
-    assert tpa.split_for(q, kp, bt) == (8, 128)
     assert tpa.split_for(q, kp, bt, "pwl") == (1, 1024)
-    q4 = torch.empty((8, 32, 16, 128), device="meta", dtype=torch.bfloat16)
-    assert tpa.split_for(q4, kp, bt, "maxonly") == (4, 256)
     with pytest.raises(ValueError, match="attn_approx"):
         tpa.split_for(q, kp, bt, "nope")
+
+
+@pytest.mark.parametrize("last", [0, 63, 64, 200, 500])
+@pytest.mark.parametrize("t", [1, 3])
+@pytest.mark.parametrize("mode", ["exact", "pseudo", "maxonly"])
+def test_split_model_row_alone_equals_row_beside_a_long_row(mode, t, last):
+    """At the wrapper's fixed chunk width a row's chunks are the same
+    positions whatever its batch-mates: the row alone (B 1, its own
+    table width) and the same row beside a 1,000-token row (B 2, a
+    1,024-position table and so more chunks, the rest of them empty for
+    it) agree within 1e-6 in f32, maxonly exactly."""
+    chunk = tpa.chunk_width(torch.float32, HD)
+    pair = np.array([last, 999])
+    q, kp, vp, bt, pos = _case(last + t, t, last=pair)
+    nb_own = pow2(last // BS + 1)
+    alone = (q[:1], kp, vp, np.ascontiguousarray(bt[:1, :nb_own]), pos[:1])
+    beside = (q, kp, vp, bt, pos)
+    assert bt.shape[1] * BS > nb_own * BS            # more chunks beside
+    got_alone = _split(alone, mode, None, chunk)
+    got_beside = _split(beside, mode, None, chunk)[:1]
+    if mode == "maxonly":
+        np.testing.assert_array_equal(got_alone, got_beside)
+    else:
+        np.testing.assert_allclose(got_alone, got_beside, atol=1e-6,
+                                   rtol=1e-6)
