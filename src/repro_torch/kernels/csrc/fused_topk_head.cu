@@ -16,10 +16,14 @@
 // least time is one read of W (V * D * 2 bytes in bf16) over 3.35 TB/s.
 //
 // Design, right and simple first:
-//   * pass 1 is the argmax kernel's vocab split: one thread block per
-//     contiguous vocab range, h rows (up to BT = 8) staged in shared
-//     memory, each warp streaming RV vocab rows against them with f32
-//     accumulation (head_tile.cuh, shared with the argmax head).  The
+//   * pass 1 splits the vocabulary into contiguous ranges, one thread
+//     block each, with BT rows of h staged as f32 in shared memory, each
+//     warp streaming RV vocab rows against them with f32 accumulation
+//     (head_tile.cuh, shared with the argmax head's f32 route).  The
+//     wrapper picks BT, the largest of {8, 4, 2, 1} up to B whose staging
+//     (4 * BT * D bytes) and logits fit the card's opt-in shared memory:
+//     8 at qwen3-0.6b's D 1024, 2 at nemotron-4-340b's D 18432, where B 8
+//     takes four row chunks and so reads W four times.  The
 //     block keeps its range's BT x rows logits in shared memory (never in
 //     HBM), then one warp per h row picks the range's top k by k
 //     selection passes.  The order (value descending, index ascending) is
@@ -41,8 +45,8 @@
 //     merge on B SMs) and a second merges their 17 lists.  No atomics:
 //     the result is deterministic and matches k stable selection passes
 //     exactly (ref.topk_merge_tree is its plain model).
-// What it leaves on the table: h rows beyond BT = 8 re-read W per chunk
-// of 8, W loads are plain vector loads (no TMA ring), and pass 1 picks a
+// What it leaves on the table: h rows beyond BT re-read W per chunk of
+// BT, W loads are plain vector loads (no TMA ring), and pass 1 picks a
 // range's top k by k serial passes per warp while the block's other warps
 // wait.
 #include "head_tile.cuh"
@@ -289,21 +293,19 @@ cudaError_t launch(const void* h, const void* w, void* pval, void* pidx,
                    void* mval, void* midx, void* out_val, void* out_idx,
                    int B, int D, int V, int K, int nsplit,
                    cudaStream_t stream) {
+  static head::OptIn opt;
   const int rows_per_split = (V + nsplit - 1) / nsplit;
   const size_t smem = ((size_t)head::staged_floats<T, BT>(D) +
                        (size_t)BT * rows_per_split) * sizeof(float);
   auto kernel = topk_partial_kernel<T, BT>;
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return err;
-  }
+  cudaError_t err = head::opt_in(kernel, smem, opt);
+  if (err != cudaSuccess) return err;
   const dim3 grid(nsplit, (B + BT - 1) / BT);
   kernel<<<grid, kWarps * 32, smem, stream>>>(
       static_cast<const T*>(h), static_cast<const T*>(w),
       static_cast<float*>(pval), static_cast<int*>(pidx), B, D, V, K,
       rows_per_split, nsplit);
-  cudaError_t err = cudaGetLastError();
+  err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   // pass 2: nsplit lists -> ceil(nsplit / 32) -> 1, a launch per stage
   const int g1 = (nsplit + kListsPerBlock - 1) / kListsPerBlock;
@@ -321,17 +323,22 @@ cudaError_t launch(const void* h, const void* w, void* pval, void* pidx,
   return cudaGetLastError();
 }
 
+// BT rows of h per block, as the wrapper picked it (1, 2, 4 or 8).
 template <typename T>
 cudaError_t dispatch(const void* h, const void* w, void* pval, void* pidx,
                      void* mval, void* midx, void* out_val, void* out_idx,
-                     int B, int D, int V, int K, int nsplit, cudaStream_t s) {
+                     int B, int D, int V, int K, int nsplit, int bt,
+                     cudaStream_t s) {
 #define REPRO_TOPK_BT(BT)                                                  \
   return launch<T, BT>(h, w, pval, pidx, mval, midx, out_val, out_idx, B, \
                        D, V, K, nsplit, s)
-  if (B >= 8) REPRO_TOPK_BT(8);
-  if (B >= 4) REPRO_TOPK_BT(4);
-  if (B >= 2) REPRO_TOPK_BT(2);
-  REPRO_TOPK_BT(1);
+  switch (bt) {
+    case 8: REPRO_TOPK_BT(8);
+    case 4: REPRO_TOPK_BT(4);
+    case 2: REPRO_TOPK_BT(2);
+    case 1: REPRO_TOPK_BT(1);
+    default: return cudaErrorInvalidValue;
+  }
 #undef REPRO_TOPK_BT
 }
 
@@ -340,13 +347,15 @@ cudaError_t dispatch(const void* h, const void* w, void* pval, void* pidx,
 // h (B, D) and w (V, D), both row-major of one dtype (0 = float32,
 // 1 = bfloat16), D a multiple of 16 bytes' worth of elements; 1 <= K <=
 // min(64, V); ceil(V / nsplit) <= 4096; nsplit <= 1024 (two merge
-// stages).  pval/pidx: (B, nsplit, K) f32/i32 scratch; mval/midx: (B,
-// ceil(nsplit / 32), K) f32/i32 scratch.  out_val (B, K) f32, out_idx
-// (B, K) i32.  Returns a cudaError_t.
+// stages); bt in {1, 2, 4, 8} rows of h per pass-1 block, whose staging
+// and logits fit the card's opt-in shared memory.  pval/pidx: (B, nsplit,
+// K) f32/i32 scratch; mval/midx: (B, ceil(nsplit / 32), K) f32/i32
+// scratch.  out_val (B, K) f32, out_idx (B, K) i32.  Returns a
+// cudaError_t.
 extern "C" int repro_fused_topk_head(const void* h, const void* w, void* pval,
                                      void* pidx, void* mval, void* midx,
                                      void* out_val, void* out_idx, int B,
-                                     int D, int V, int K, int nsplit,
+                                     int D, int V, int K, int nsplit, int bt,
                                      int dtype, void* stream) {
   if (B <= 0 || B > 65535 || D <= 0 || V <= 0 || K < 1 || K > kMaxK ||
       K > V || nsplit <= 0 || nsplit > V ||
@@ -358,12 +367,12 @@ extern "C" int repro_fused_topk_head(const void* h, const void* w, void* pval,
     if (D % 8) return (int)cudaErrorInvalidValue;
     return (int)dispatch<__nv_bfloat16>(h, w, pval, pidx, mval, midx,
                                         out_val, out_idx, B, D, V, K,
-                                        nsplit, s);
+                                        nsplit, bt, s);
   }
   if (dtype == 0) {
     if (D % 4) return (int)cudaErrorInvalidValue;
     return (int)dispatch<float>(h, w, pval, pidx, mval, midx, out_val,
-                                out_idx, B, D, V, K, nsplit, s);
+                                out_idx, B, D, V, K, nsplit, bt, s);
   }
   return (int)cudaErrorInvalidValue;
 }

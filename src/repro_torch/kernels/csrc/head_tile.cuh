@@ -1,6 +1,9 @@
-// Shared pass 1 of the vocabulary-split head kernels (fused_argmax_head.cu,
-// fused_topk_head.cu): h rows staged in shared memory, and one warp's tile
-// of dot products with kRV rows of the (V, D) row-major head weight.
+// The CUDA-core pass 1 of the vocabulary-split head kernels -- the top-k
+// head (fused_topk_head.cu) and the f32 route of the argmax and verify heads
+// (fused_argmax_head.cu; bf16 runs their tensor-core tile): h rows staged
+// in shared memory, and one warp's tile of dot products with kRV rows of
+// the (V, D) row-major head weight.  Also the comparator helpers (better,
+// warp_best) that every head kernel merges with.
 //
 // A block stages up to BT rows of h as f32 in a lane-minor layout, so
 // every shared read of a warp is bank-conflict free; each warp then
@@ -8,12 +11,21 @@
 // flight per lane), so each staged h value feeds kRV multiply-adds, and
 // accumulates the BT x kRV dots in f32 registers.  The order of every sum
 // depends on D only, so equal vocab rows give bit-equal logits.
+//
+// The staged rows take 4 * BT * D bytes of shared memory (rounded up), so
+// the wrappers pick BT per call: the largest of {8, 4, 2, 1}, at most the
+// row count, whose staging fits the card's opt-in limit (less 2 KB for a
+// kernel's static shared memory).  opt_in raises a kernel's dynamic shared
+// memory ceiling to that limit once per device, instead of an attribute
+// call before every launch.
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <atomic>
 
 namespace head {
 
@@ -60,6 +72,54 @@ __device__ __forceinline__ void warp_best(float& v, int& i, int& tag) {
       tag = ot;
     }
   }
+}
+
+constexpr int kMaxDevices = 64;
+
+// The device's opt-in shared memory per block, in bytes (0 on error), read
+// once per device.
+inline int smem_optin(int dev) {
+  static std::atomic<int> cache[kMaxDevices];
+  if (dev < 0 || dev >= kMaxDevices) return 0;
+  int v = cache[dev].load(std::memory_order_relaxed);
+  if (v > 0) return v;
+  if (cudaDeviceGetAttribute(&v, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                             dev) != cudaSuccess)
+    return 0;
+  cache[dev].store(v, std::memory_order_relaxed);
+  return v;
+}
+
+// The dynamic shared memory a kernel instance may ask for on each device
+// (0: not set yet); one static per instance.
+struct OptIn {
+  std::atomic<int> max_dynamic[kMaxDevices];
+};
+
+// Let `kernel` launch with the current device's opt-in shared memory less
+// its static shared memory: one attribute call per (kernel, device),
+// remembered in `state`.  Fails with cudaErrorInvalidValue when `smem`
+// bytes of dynamic shared memory exceed that.
+template <typename Kernel>
+cudaError_t opt_in(Kernel kernel, size_t smem, OptIn& state) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidValue;
+  int max_dynamic = state.max_dynamic[dev].load(std::memory_order_relaxed);
+  if (max_dynamic == 0) {
+    const int limit = smem_optin(dev);
+    cudaFuncAttributes attr;
+    err = cudaFuncGetAttributes(&attr, kernel);
+    if (err != cudaSuccess) return err;
+    if (limit <= (int)attr.sharedSizeBytes) return cudaErrorInvalidValue;
+    max_dynamic = limit - (int)attr.sharedSizeBytes;
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, max_dynamic);
+    if (err != cudaSuccess) return err;
+    state.max_dynamic[dev].store(max_dynamic, std::memory_order_relaxed);
+  }
+  return smem <= (size_t)max_dynamic ? cudaSuccess : cudaErrorInvalidValue;
 }
 
 // Floats of shared memory that stage_h fills: (nit, VEC, BT, 32).

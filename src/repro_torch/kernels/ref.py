@@ -29,6 +29,45 @@ def fused_argmax_head(h: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return fused_argmax_head_with_value(h, w)[0]
 
 
+def argmax_head_split(h: torch.Tensor, w: torch.Tensor, plan):
+    """A plain model of the CUDA argmax head's two passes, for the tests.
+
+    ``plan`` is a ``fused_argmax_head.HeadPlan``.  Pass 1: rows in groups
+    of ``plan.row_block``, each padded with zero rows; the vocabulary in
+    ``plan.nsplit`` ranges of ``plan.split_ids`` ids, the last padded with
+    zero columns (the zero-filled tail of W) that are masked to -inf; each
+    (group, range) keeps every row's first maximum, and a range with no id
+    gives (-inf, -1).  Pass 2: a row's partials merged in range order by
+    "larger value, else lower index".  Returns (idx (R,) int32, val (R,)
+    f32): ``fused_argmax_head_with_value`` of the same f32 logits."""
+    r, d = h.shape
+    v = w.shape[1]
+    ids = plan.nsplit * plan.split_ids
+    wp = torch.zeros((d, max(ids, v)), dtype=torch.float32)
+    wp[:, :v] = w.float()
+    pval = torch.full((r, plan.nsplit), -torch.inf)
+    pidx = torch.full((r, plan.nsplit), -1, dtype=torch.int32)
+    for g in range(0, r, plan.row_block):
+        hg = torch.zeros((plan.row_block, d), dtype=torch.float32)
+        hg[:min(plan.row_block, r - g)] = h[g:g + plan.row_block].float()
+        logits = torch.matmul(hg, wp)
+        logits[:, v:] = -torch.inf
+        n = min(plan.row_block, r - g)
+        for s in range(plan.nsplit):
+            lo = s * plan.split_ids
+            if lo >= v:
+                continue
+            seg = logits[:n, lo:lo + plan.split_ids]
+            pval[g:g + n, s] = seg.amax(dim=-1)
+            pidx[g:g + n, s] = torch.argmax(seg, dim=-1).to(torch.int32) + lo
+    best_v, best_i = pval[:, 0].clone(), pidx[:, 0].clone()
+    for s in range(1, plan.nsplit):
+        take = _beats(pval[:, s], pidx[:, s], best_v, best_i)
+        best_v = torch.where(take, pval[:, s], best_v)
+        best_i = torch.where(take, pidx[:, s], best_i)
+    return best_i.clamp(min=0), best_v
+
+
 def topk_select(x: torch.Tensor, k: int):
     """Top-k over the last axis: (vals (..., k) f32, idxs (..., k) int32),
     values descending, the LOWEST index first among equal values -- the

@@ -498,7 +498,7 @@ def test_paged_attention_route(dev, t, hd):
             want_mma = dtype == torch.bfloat16 and mode in (
                 "exact", "pseudo", "maxonly")
             names = _kernel_names(lambda: pa.paged_attention(
-                q, kp, vp, bt, pos, attn_approx=mode))
+                q, kp, vp, bt, pos, attn_approx=mode), "paged_attention")
             mma = any("paged_attention_mma_kernel" in n for n in names)
             core = any("paged_attention_kernel" in n for n in names)
             assert (mma, core) == (want_mma, not want_mma), names
@@ -580,26 +580,29 @@ def test_flash_attention_kernel_long_prompts(dev, dtype, hd, t, g):
     torch.testing.assert_close(out.float(), want.float(), atol=tol, rtol=tol)
 
 
-def _kernel_names(fn, attempts=3):
+def _kernel_names(fn, seen, attempts=3):
     """Names of the device kernels a profiler saw ``fn`` launch.  ``fn``
     runs once first, so that its kernels' lazy loading happens outside
-    the trace (a first launch can go unrecorded); a trace with no device
-    event at all is the profiler's miss (it happens after many profiler
-    sessions in one process), not an answer: ``fn`` is traced again, up
-    to ``attempts`` times."""
+    the trace (a first launch can go unrecorded).  A trace can also lose
+    its first kernel, so each trace launches a small add before ``fn``;
+    a trace with no device event whose name holds ``seen`` is the
+    profiler's miss, not an answer: ``fn`` is traced again, up to
+    ``attempts`` times."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
+    pad = torch.empty(1, device="cuda")
     for _ in range(attempts):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
+            pad.add_(1)
             fn()
             torch.cuda.synchronize()
         names = [e.name for e in prof.events()
                  if e.device_type == DeviceType.CUDA]
-        if names:
+        if any(seen in n for n in names):
             break
     return names
 
@@ -615,7 +618,8 @@ def test_flash_attention_route(dev, hd):
              "flash_attention_mma_kernel")):
         q, k, v = _flash_operands(dev, dtype, b=1, hq=2, hkv=1, t=64, s=64,
                                   hd=hd, seed=hd)
-        names = _kernel_names(lambda: fa.flash_attention(q, k, v))
+        names = _kernel_names(lambda: fa.flash_attention(q, k, v),
+                              "flash_attention")
         assert any(ran in n for n in names), names
         assert not any(not_ran in n for n in names), names
 
@@ -804,7 +808,7 @@ def _head_check(h, emb, pairs=()):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("b", [1, 2, 5, 8, 13])
+@pytest.mark.parametrize("b", [1, 2, 5, 8, 13, 64])
 @pytest.mark.parametrize("d,v", [(64, 1000), (1024, 50000), (96, 777)])
 def test_argmax_head_kernel_matches_plain(dev, dtype, b, d, v):
     gen = torch.Generator(device=dev).manual_seed(b * v + d)
@@ -831,6 +835,88 @@ def test_argmax_head_kernel_ties_go_to_lowest_index(dev):
         h = torch.ones((3, 64), device=dev, dtype=dtype)
         idx = _head_check(h, emb)
         assert idx.tolist() == [100, 100, 100]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b", [1, 8, 65])
+def test_argmax_head_kernel_masks_the_vocab_tail(dev, dtype, b):
+    """Every logit negative and V = 777, not a multiple of the 128-id
+    tile: ids past V must never win with the 0 of a zero-filled W row."""
+    gen = torch.Generator(device=dev).manual_seed(b)
+    emb = -(torch.rand((777, 40), generator=gen, device=dev) + 0.5).to(dtype)
+    h = (torch.rand((b, 40), generator=gen, device=dev) + 0.5).to(dtype)
+    idx = _head_check(h, emb)
+    assert bool((idx < 777).all())
+
+
+def test_head_plan_matches_the_kernel_geometry(dev):
+    """The wrapper's copy of the tensor-core tile equals the built
+    kernel's, and the card's limits are read from the device."""
+    assert fah.tile_geometry() == (fah.VOCAB_TILE, fah.K_SLAB,
+                                   fah.ROW_GROUP, fah.STAGES,
+                                   fah.TILE_SMEM_BYTES)
+    sms, smem = fah.device_limits(dev.index or 0)
+    props = torch.cuda.get_device_properties(dev)
+    assert sms == props.multi_processor_count
+    assert fah.TILE_SMEM_BYTES + fah.STATIC_SMEM <= smem
+
+
+def test_head_row_bits_alone_in_batch_and_in_verify(dev):
+    """qwen3-0.6b's width, bf16: each row's (val, idx) from the argmax
+    head is the same bits alone (B 1), as row r of B 8 and of B 64, and
+    its id the same as position t of the verify head at T 8 and T 32."""
+    v, d = 151936, 1024
+    gen = torch.Generator(device=dev).manual_seed(17)
+    emb = (torch.randn((v, d), generator=gen, device=dev)
+           / d ** 0.5).to(torch.bfloat16)
+    w = emb.t()
+    h = torch.randn((256, d), generator=gen, device=dev).to(torch.bfloat16)
+    alone = [fah.fused_argmax_head_with_value(h[r:r + 1].contiguous(), w)
+             for r in range(8)]
+    b8 = fah.fused_argmax_head_with_value(h[:8].contiguous(), w)
+    b64 = fah.fused_argmax_head_with_value(h[:64].contiguous(), w)
+    ids8, _ = fah.fused_verify_head(
+        h[:64].reshape(8, 8, d).contiguous(), w,
+        torch.full((8, 7), -1, dtype=torch.int32, device=dev))
+    ids32, _ = fah.fused_verify_head(
+        h.reshape(8, 32, d).contiguous(), w,
+        torch.full((8, 31), -1, dtype=torch.int32, device=dev))
+    torch.cuda.synchronize()
+    for r, (i1, v1) in enumerate(alone):
+        assert torch.equal(i1[0], b8[0][r]) and torch.equal(v1[0], b8[1][r])
+        assert torch.equal(i1[0], b64[0][r])
+        assert torch.equal(v1[0], b64[1][r])
+        assert int(ids8.view(-1)[r]) == int(i1[0])
+        assert int(ids32.view(-1)[r]) == int(i1[0])
+    # every row of the B 64 call as the verify head's positions
+    assert torch.equal(ids8.view(-1), b64[0])
+    assert torch.equal(ids32.view(-1)[:64], b64[0])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_heads_take_d_18432(dev, dtype):
+    """nemotron-4-340b's d_model at a small vocabulary: the argmax head at
+    B 1 and 8, the verify head at B 8, T 8 and the top-k head at B 8, k 8
+    against their plain versions (bf16 streams D in slabs; f32 and top-k
+    stage 2 rows per block)."""
+    v, d = 3000, 18432
+    gen = torch.Generator(device=dev).manual_seed(18)
+    emb = (torch.randn((v, d), generator=gen, device=dev)
+           / d ** 0.5).to(dtype)
+    for b in (1, 8):
+        h = torch.randn((b, d), generator=gen, device=dev).to(dtype)
+        _head_check(h, emb)
+    _topk_check(h, emb, 8)
+    hi = torch.randint(-1, 2, (8, 8, d), generator=gen, device=dev).to(dtype)
+    ei = torch.randint(-2, 3, (v, d), generator=gen, device=dev).to(dtype)
+    cand = torch.full((8, 7), -1, dtype=torch.int32, device=dev)
+    rids, _ = ref.verify_draft(hi, ei.t(), cand)
+    cand[:, :3] = rids[:, :3]
+    ids, acc = fah.fused_verify_head(hi, ei.t(), cand)
+    torch.cuda.synchronize()
+    rids, racc = ref.verify_draft(hi, ei.t(), cand)
+    assert torch.equal(ids, rids) and torch.equal(acc, racc)
+    assert bool((acc >= 3).all())
 
 
 def test_argmax_head_kernel_rejects_bad_operands(dev):
@@ -937,7 +1023,8 @@ def test_topk_head_kernel_small_vocab_and_rejects(dev):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("b,t", [(1, 2), (8, 2), (8, 8), (3, 40), (2, 1)])
+@pytest.mark.parametrize("b,t", [(1, 2), (8, 2), (8, 8), (3, 40), (2, 1),
+                                 (8, 32)])
 def test_verify_head_kernel_matches_plain(dev, dtype, b, t):
     """ids and accept exact against the plain version on integer-valued
     operands (exact sums), with drafts that match a random prefix of
