@@ -15,10 +15,11 @@ Phases, each of which fails the run (non-zero exit, no result line):
      bytes and flops of these inputs: paged attention (T = 1, 4 and 32
      over 8 ragged rows, the last 64 query rows per KV head, and T = 1
      over one 1000-token row; each call's split into chunks printed; the
-     kernel each (dtype, mode) ran, by its name in a profiler trace: bf16
-     exact, pseudo and maxonly on the tensor cores; a row's output bitwise
-     equal alone and beside a 1000-token row, and at T = 1 and in every
-     column of T = 8 with its position repeated), head dim 192 (paged
+     kernels each (dtype, mode) ran, by their names in a profiler trace:
+     bf16 on the tensor cores in every mode, base2 and pwl after a row-max
+     pre-pass; in every mode a row's output bitwise equal alone and beside
+     a 1000-token row, and at T = 1 and in every column of T = 8 with its
+     position repeated), head dim 192 (paged
      attention at T = 1 and 32 in every mode, flash attention over 512
      tokens), the argmax head (B 1, 8 and 64; the pass-1 kernel each
      dtype ran, by its name in a profiler trace: bf16 on the tensor-core
@@ -35,13 +36,17 @@ Phases, each of which fails the run (non-zero exit, no result line):
      (512, 151936) bf16 rows, and 70,000 rows of 1,000 -- more than
      grid.y's 65,535); then paged attention's four exp-free
      score modes (base2, pseudo, pwl, maxonly) at the main path's shapes
-     (T = 1 and 4, window None and 128), each timed beside exact, and
-     base2, pseudo and pwl again at those shapes with each query's best
-     key in its first visible 32-key slice, in f32 at rounding level and
-     each mode's gap to exact as large as the plain version's.  The
-     kernel flash attention ran per (dtype, head dim), by its name in a
-     profiler trace, is printed (bf16 on the tensor cores), and two calls of each redesigned kernel (paged and flash attention)
-     must give the same bits;
+     (T = 1 and 4, window None and 128), each timed beside exact (at T = 1
+     each launch apart, from a profiler trace), base2, pseudo and pwl
+     again at those shapes with each query's best key in its first
+     visible 32-key slice, in f32 at rounding level and each mode's gap to
+     exact as large as the plain version's, and base2 and pwl in f32 at
+     those shapes with nothing pinned, at rounding level (base2 plus the
+     effect of the LUT bins a score's rounding may flip).  The kernel
+     flash attention ran per (dtype, head dim), by its name in a
+     profiler trace, is printed (bf16 on the tensor cores), and two
+     calls of each redesigned kernel (paged and flash attention) must
+     give the same bits;
   4. drives the main path -- ``LLM.from_arch("qwen3-0.6b", smoke=False)``
      then ``LLM.generate``, greedy, at the model's full width with random
      seeded weights -- and checks that every prompt prefill layer went
@@ -326,9 +331,10 @@ def sdpa_on_gathered_view(torch, q, kp, vp, bt, pos, window, scale):
         qd, kd, vd, attn_mask=mask[:, None], scale=scale, enable_gqa=True)
 
 
-def split_line(pa, q, kp, bt, mode="exact") -> str:
-    """The split the paged-attention wrapper takes for these operands."""
-    n, ck = pa.split_for(q, kp, bt, mode)
+def split_line(pa, q, kp, bt) -> str:
+    """The split the paged-attention wrapper takes for these operands (the
+    same in every score mode)."""
+    n, ck = pa.split_for(q, kp, bt)
     return (f"{n} chunks of {ck} keys, combine in chunk order" if n > 1
             else f"1 chunk of {ck} keys, no combine")
 
@@ -432,14 +438,30 @@ def maxonly_rows(torch, out, q, kp, vp, bt, pos, window):
             int((~same & ~banded).sum()))
 
 
+def paged_passes(torch, fn) -> dict:
+    """Device ms per call of each launch of a paged-attention call, from a
+    profiler trace (``kernel_device_ms``): the row-max pre-pass (base2 and
+    pwl), the fold and the combine."""
+    times = kernel_device_ms(torch, fn)
+    got = {key: sum(t for n, t in times.items() if name in n)
+           for key, name in (("prepass_ms", "paged_rowmax"),
+                             ("fold_ms", "paged_attention"),
+                             ("combine_ms", "paged_combine"))}
+    check(got["fold_ms"] > 0, f"paged passes: the trace shows no fold "
+          f"kernel: {sorted(times)}")
+    return got
+
+
 def check_paged_modes(torch, timer, rng):
     """Paged attention's exp-free score modes at the main path's shapes
     (``paged_case``: T = 1 and 4; window None and 128), each against its
     plain version: base2, pseudo and pwl at PA_TOL, maxonly by
     ``maxonly_rows``.  Each is timed beside exact on the same inputs, with
-    the same bound; the library yardstick of pseudo is SDPA at scale
-    ln 2 / sqrt(hd) on the gathered view (softmax(s ln 2) = 2^s / sum
-    2^s), and no one PyTorch call computes base2, pwl or maxonly."""
+    the same bound, and at T = 1 without a window its launches apart
+    (``paged_passes``: base2 and pwl's row-max pre-pass, the fold, the
+    combine); the library yardstick of pseudo is SDPA at scale ln 2 /
+    sqrt(hd) on the gathered view (softmax(s ln 2) = 2^s / sum 2^s), and
+    no one PyTorch call computes base2, pwl or maxonly."""
     from repro_torch.kernels import paged_attention as pa
     from repro_torch.kernels import ref
 
@@ -473,7 +495,7 @@ def check_paged_modes(torch, timer, rng):
                                         atol=PA_TOL, rtol=PA_TOL)
                     verdict = f"atol = rtol = {PA_TOL}"
                 print(f"paged_attention {mode} {tag}: "
-                      f"{split_line(pa, q, kp, bt, mode)}; max_abs_err "
+                      f"{split_line(pa, q, kp, bt)}; max_abs_err "
                       f"{err:.6g} vs plain ({verdict}): "
                       f"{'ok' if ok else 'FAIL'}", flush=True)
                 check(ok, f"paged attention {mode} {tag} disagrees with its "
@@ -497,6 +519,14 @@ def check_paged_modes(torch, timer, rng):
                 rows[(mode, t, window)] = dict(
                     max_abs_err=err, **kern, plain_ms=plain_ms, **lib,
                     bound_ms=bound_ms, bound_by=bound_by)
+                if (t, window) == (1, None):
+                    passes = paged_passes(torch, lambda: pa.paged_attention(
+                        q, kp, vp, bt, pos, attn_approx=mode))
+                    print(f"paged_attention {mode} {tag} launches "
+                          "(profiler, device): " + ", ".join(
+                              f"{k} {v:.4f}" for k, v in passes.items()),
+                          flush=True)
+                    rows[(mode, t, window)]["passes"] = passes
     return rows
 
 
@@ -596,12 +626,113 @@ def check_paged_modes_pinned(torch, rng):
     return rows
 
 
+LUT_STEP = 2.0 ** (1 / 256) - 1   # base2: a weight's jump at a LUT bin edge
+FLIP_EPS = 2.0 ** -19             # base2: y's rounding, relative (below)
+
+
+def base2_flip_allowance(torch, q, kp, vp, bt, pos, window, out):
+    """How far each f32 base2 output element may move when a score's LUT
+    bin flips, and the number of keys that may flip.  Kernel and plain
+    version form each score in another order (an fmaf chain times 1 /
+    sqrt(hd), against a batched product divided by sqrt(hd)), so they
+    differ by an ulp or so; the plain version's y = (s - M) log2 e of a
+    key within FLIP_EPS * (1 + |s| + |M|) of an edge of the rounding
+    rint(frac(y) * 256) (a half step, or an integer y; the row's best key
+    at y = 0 only if another key scores that close to it) may land in the
+    neighbouring bin in the kernel, moving that key's weight by LUT_STEP
+    relative and the output by at most p_key * LUT_STEP * (|v_key| +
+    |out|).  pwl's chords meet at their ends, so its weight moves only by
+    the rounding itself."""
+    from repro_torch.core import attn_approx as approx
+    from repro_torch.core.softmax_variants import LOG2E
+
+    b, hq, hd = q.shape[0], q.shape[-2], q.shape[-1]
+    hkv, tq = kp.shape[2], (q.shape[1] if q.dim() == 4 else 1)
+    s = visible_scores(torch, q, kp, bt, pos, window)      # (b, t, hq, keys)
+    vis = s > -torch.inf
+    m = s.amax(dim=-1, keepdim=True)
+    y = ((s - m) * LOG2E).double()
+    frac = y - torch.floor(y)
+    bins = frac * 256
+    edge = torch.minimum((bins - torch.floor(bins) - 0.5).abs() / 256,
+                         torch.minimum(frac, 1 - frac))
+    top = s == m
+    second = torch.where(top, -torch.inf, s).amax(dim=-1, keepdim=True)
+    gap = torch.where(top.sum(-1, keepdim=True) > 1, 0.0,
+                      (m - second) * LOG2E).double()
+    edge = torch.where(top, gap, edge)
+    near = vis & (edge <= FLIP_EPS * (1 + s.abs() + m.abs()).double())
+    p = approx.attn_weights(torch.where(vis, s, -1e30), "base2")
+    pn = torch.where(near, p, 0.0)
+    v = vp.float()[bt.long()].reshape(b, -1, hkv, hd).repeat_interleave(
+        hq // hkv, dim=2)
+    o = out.float().reshape(b, tq, hq, hd)
+    move = LUT_STEP * (torch.einsum("bths,bshd->bthd", pn, v.abs())
+                       + o.abs() * pn.sum(-1, keepdim=True))
+    return move.reshape(out.shape), int(near.sum())
+
+
+def check_paged_modes_unpinned(torch, timer, rng):
+    """base2 and pwl (and exact beside them) in f32 at the main path's
+    shapes (``paged_case``, T = 1 and 4, window None and 128), on inputs
+    with nothing pinned: the kernel weighs every score at its row's max,
+    as the plain version does, so it agrees with the plain version within
+    PIN_TOL -- base2 where no score's LUT bin may flip between the two
+    roundings of the score, and within PIN_TOL plus the flips' own effect
+    where one may (``base2_flip_allowance``).  A kernel that weighed at a
+    chunk's or a slice's own max would miss by a LUT bin or a chord on
+    every key.  Timed at T = 1 without a window."""
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels import ref
+
+    rows = {}
+    for t in (1, 4):
+        for window in (None, 128):
+            tag = f"T={t} window={window}"
+            q, kp, vp, bt, pos = paged_case(torch, rng, t,
+                                            dtype=torch.float32)
+            for mode in ("exact", "base2", "pwl"):
+                got = pa.paged_attention(q, kp, vp, bt, pos,
+                                         attn_approx=mode, window=window)
+                want = ref.paged_attention(q, kp, vp, bt, pos,
+                                           attn_approx=mode, window=window)
+                torch.cuda.synchronize()
+                diff = (got - want).abs()
+                room = PIN_TOL + PIN_TOL * want.abs()
+                err, over = diff.max().item(), int((diff > room).sum())
+                line = (f"paged_attention {mode} f32 unpinned {tag}: "
+                        f"max_abs_err {err:.6g}, {over} of {diff.numel()} "
+                        f"elements over atol = rtol = {PIN_TOL}")
+                if mode == "base2":
+                    move, keys = base2_flip_allowance(
+                        torch, q, kp, vp, bt, pos, window, want)
+                    ok = bool((diff <= room + move).all())
+                    line += (f"; {keys} keys within {FLIP_EPS:.3g} "
+                             f"relative of a LUT bin edge, allowance up to "
+                             f"{move.max().item():.6g}, all within it")
+                else:
+                    ok = over == 0
+                print(f"{line}: {'ok' if ok else 'FAIL'}", flush=True)
+                check(ok, f"paged attention {mode} f32 unpinned {tag} "
+                      "disagrees with its plain version")
+                rows[(mode, t, window)] = dict(max_abs_err=err, over=over)
+                if (t, window) == (1, None):
+                    kern = timer.readings(lambda: pa.paged_attention(
+                        q, kp, vp, bt, pos, attn_approx=mode))
+                    print(f"paged_attention {mode} f32 {tag}: kernel "
+                          f"{shown(kern)}", flush=True)
+                    rows[(mode, t, window)].update(kern)
+    return rows
+
+
 def paged_routes(torch, rng) -> dict:
-    """The kernel paged attention ran per (dtype, mode), read from a
-    profiler trace of one call (T = 1 over 2 ragged rows): bf16 exact,
-    pseudo and maxonly must run the tensor-core kernel
-    (``paged_attention_mma_kernel``), f32 and base2 / pwl the CUDA-core
-    one (``paged_attention_kernel``)."""
+    """The kernels paged attention ran per (dtype, mode), read from a
+    profiler trace of one call (T = 1 over 2 ragged rows): bf16 must run
+    the tensor-core kernel (``paged_attention_mma_kernel``) in every mode,
+    f32 the CUDA-core one (``paged_attention_kernel``); base2 and pwl run
+    the row-max pre-pass of the same route first
+    (``paged_rowmax_mma_kernel`` / ``paged_rowmax_kernel``), the other
+    modes none."""
     from repro_torch.kernels import paged_attention as pa
 
     routes = {}
@@ -614,29 +745,34 @@ def paged_routes(torch, rng) -> dict:
                 "paged_attention") if "paged_" in n]
             mma = [n for n in names if "paged_attention_mma_kernel" in n]
             core = [n for n in names if "paged_attention_kernel" in n]
+            pre_mma = [n for n in names if "paged_rowmax_mma_kernel" in n]
+            pre_core = [n for n in names if "paged_rowmax_kernel" in n]
             route = ("mma" if mma and not core else
                      "cuda-core" if core and not mma else f"? {names}")
+            pre = ("mma" if pre_mma and not pre_core else
+                   "cuda-core" if pre_core and not pre_mma else
+                   None if not (pre_mma or pre_core) else f"? {names}")
             tag = f"{str(dtype).replace('torch.', '')} {mode}"
-            routes[tag] = route
-            want = ("mma" if dtype == torch.bfloat16
-                    and mode in ("exact", "pseudo", "maxonly")
-                    else "cuda-core")
-            print(f"paged_attention route {tag}: {route} (ran "
+            routes[tag] = route if pre is None else \
+                f"{route} after a row-max pre-pass ({pre})"
+            want = "mma" if dtype == torch.bfloat16 else "cuda-core"
+            want_pre = want if mode in pa.PREMAX_MODES else None
+            print(f"paged_attention route {tag}: {routes[tag]} (ran "
                   f"{', '.join(n[:60] for n in names)})", flush=True)
-            check(route == want,
+            check(route == want and pre == want_pre,
                   f"paged attention {tag} ran {names}, not the {want} "
-                  "kernel")
+                  f"kernel with {want_pre} pre-pass")
     return routes
 
 
 def check_paged_invariance(torch, rng):
     """A row's attention bits depend on its own inputs, dtype, head dim
     and mode only.  At the main path's shapes (bf16, 16/8 heads, hd 128),
-    exact, pseudo and maxonly: each of 8 ragged rows alone (B 1, a table
-    of its own width, so fewer chunks) equals, bit for bit, the same row
-    in the batch beside the 1,000-token row (B 8, a 1,024-position table,
-    16 chunks); and each row's T = 1 output equals every column of the
-    same row at T = 8 whose padding queries repeat its position."""
+    in every score mode: each of 8 ragged rows alone (B 1, a table of its
+    own width, so fewer chunks) equals, bit for bit, the same row in the
+    batch beside the 1,000-token row (B 8, a 1,024-position table, 16
+    chunks); and each row's T = 1 output equals every column of the same
+    row at T = 8 whose padding queries repeat its position."""
     from repro_torch.kernels import paged_attention as pa
     from repro_torch.serve.paged_kv import pow2
 
@@ -645,7 +781,7 @@ def check_paged_invariance(torch, rng):
     q8 = q[:, None].expand(b, 8, *q.shape[1:]).contiguous()
     pos8 = pos[:, None].expand(b, 8).contiguous()
     out = {}
-    for mode in ("exact", "pseudo", "maxonly"):
+    for mode in ("exact", "base2", "pseudo", "pwl", "maxonly"):
         batch = pa.paged_attention(q, kp, vp, bt, pos, attn_approx=mode)
         alone = []
         for r in range(b):
@@ -661,10 +797,10 @@ def check_paged_invariance(torch, rng):
         cols_ok = sum(bool(torch.equal(wide[:, t], batch))
                       for t in range(8))
         chunks = sorted({pa.split_for(q[:1], kp, bt[:1, :pow2(
-            int(pos[r]) // bs + 1)], mode)[0] for r in range(b)})
+            int(pos[r]) // bs + 1)])[0] for r in range(b)})
         print(f"paged_attention {mode} invariance: {rows_ok}/{b} rows "
               f"alone (chunks {chunks}) bitwise equal to the same row at "
-              f"B {b} ({pa.split_for(q, kp, bt, mode)[0]} chunks); "
+              f"B {b} ({pa.split_for(q, kp, bt)[0]} chunks); "
               f"{cols_ok}/8 columns of T 8 bitwise equal to T 1: "
               f"{'ok' if rows_ok == b and cols_ok == 8 else 'FAIL'}",
               flush=True)
@@ -713,6 +849,12 @@ def check_head_dim_192(torch, timer, rng):
             check(ok, f"paged attention hd 192 {mode} T={t} disagrees with "
                   "its plain version")
             rows[f"paged_T{t}_{mode}"] = dict(max_abs_err=err)
+            if mode in ("base2", "pwl") or (mode, t) == ("exact", 32):
+                kern = timer.readings(lambda: pa.paged_attention(
+                    q, kp, vp, bt, pos, attn_approx=mode))
+                print(f"paged_attention hd 192 {mode} T={t}: kernel "
+                      f"{shown(kern)}", flush=True)
+                rows[f"paged_T{t}_{mode}"].update(kern)
         if t == 1:
             kern = timer.readings(lambda: pa.paged_attention(
                 q, kp, vp, bt, pos))
@@ -2072,6 +2214,8 @@ def main() -> int:
         pa_rows = check_paged_attention(torch, timer, rng)
         mode_rows = check_paged_modes(torch, timer, rng)
         pinned_rows = check_paged_modes_pinned(torch, rng)
+        unpinned_rows = check_paged_modes_unpinned(
+            torch, timer, np.random.default_rng(1))
         pa_routes = paged_routes(torch, rng)
         invariance = check_paged_invariance(torch, rng)
         hd192_rows = check_head_dim_192(torch, timer, rng)
@@ -2128,7 +2272,16 @@ def main() -> int:
                  pinned_max_abs_err=max(
                      (r["max_abs_err"] for (m, _, _), r
                       in pinned_rows.items() if m == mode), default=None),
-                 **{k: mode_rows[(mode, 1, None)][k] for k in TIMES})
+                 **{k: mode_rows[(mode, 1, None)][k]
+                    for k in TIMES + ("passes",)},
+                 t4_window128={k: mode_rows[(mode, 4, 128)][k]
+                               for k in TIMES},
+                 **({} if mode not in ("exact", "base2", "pwl") else dict(
+                     unpinned_f32_max_abs_err=max(
+                         r["max_abs_err"] for (m, _, _), r
+                         in unpinned_rows.items() if m == mode),
+                     f32={k: unpinned_rows[(mode, 1, None)][k]
+                          for k in ("ms", "device_ms", "host_ms")})))
                  for mode in ("exact", "base2", "pseudo", "pwl",
                               "maxonly")}),
         dict(name="fused_argmax_head", route="cuda",

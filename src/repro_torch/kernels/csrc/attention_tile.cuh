@@ -1,17 +1,17 @@
 // Shared inner loops of the attention kernels (paged_attention.cu,
-// flash_attention.cu).  The CUDA-core fold (f32, and paged attention's
-// base2 and pwl modes): one warp per query row carries the
-// online softmax (m, l, acc) in f32 registers over K/V tiles staged in
-// shared memory.
+// flash_attention.cu).  The CUDA-core fold (f32): one warp per query row
+// carries the online softmax (m, l, acc) in f32 registers over K/V tiles
+// staged in shared memory.
 //
 // The warp's query row sits in shared memory as f32 (stage_query).  Over
 // each 32-key slice of a staged tile, lane jj computes the whole score
-// of key jj: a dot product over the head dim in f32, the key's row read
-// 16 bytes at a time and the query broadcast.  Staged rows are padded by
-// 16 bytes (row stride LD = HD + 16 / sizeof(T) elements), so the 8
-// lanes of each quarter-warp read 8 different bank groups.  A key the
-// caller's `visible` rejects scores -inf, and a slice with no visible key
-// leaves the carry alone (the test is warp-uniform).  For P.V, lane l
+// of key jj (key_score): a dot product over the head dim in f32, the
+// key's row read 16 bytes at a time and the query broadcast.  Staged
+// rows are padded by 16 bytes (row stride LD = HD + 16 / sizeof(T)
+// elements), so the 8 lanes of each quarter-warp read 8 different bank
+// groups.  A key the caller's `visible` rejects scores -inf, and a slice
+// with no visible key leaves the carry alone (the test is warp-uniform).
+// For P.V, lane l
 // holds head-dim elements [l * EPL, (l + 1) * EPL) of acc (below HD = 32
 // only the first HD lanes hold any) and takes each key's weight by a
 // shuffle.  A query with no visible key at all writes 0: l is clamped at
@@ -20,7 +20,9 @@
 // The score function is a compile-time mode (the attn_approx catalog of
 // core/attn_approx.py): the exact online softmax, or one of the four
 // exp-free datapaths of paged attention.  With d = s - m_new <= 0 and
-// m_new the running max after the slice, a visible key weighs
+// m_new the running max after the slice (for base2 and pwl, paged
+// attention seeds the carry with the row's max, so m_new is that max and
+// the carry is never rescaled), a visible key weighs
 //   kExact    expf(d)                              carry expf(m - m_new)
 //   kPseudo   exp2f(d)                             carry exp2f(m - m_new)
 //   kBase2    2^n * LUT[clamp(rint(v * 256))]      carry expf(m - m_new)
@@ -35,8 +37,11 @@
 //
 // The header also holds the 16-byte cp.async helpers with which the
 // kernels stage their K/V tiles, double-buffered, and the tensor-core
-// tile of the bf16 routes (mma_fold_tile, below): flash attention's and
-// paged attention's exact, pseudo and maxonly folds.
+// tile of the bf16 routes (mma_fold_tile, below): flash attention's fold
+// and paged attention's in all five modes.  Each fold's scores come from
+// one routine (key_score, mma_scores), which paged attention's row-max
+// pre-pass calls too, so the pre-pass sees the fold's scores bit for
+// bit.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -84,6 +89,15 @@ __device__ __forceinline__ float weight_exp(float d, const float* rom) {
       return __fmul_rn(exp2f(n), __fadd_rn(lo, __fmul_rn(hi - lo, t)));
     }
   }
+}
+
+// d = s - m, the argument of weight_exp.  The table modes round it on
+// its own (no FMA with the product that scaled s), so that a score equal
+// to m gives d = 0 exactly and d is the plain version's f32 difference.
+template <int MODE>
+__device__ __forceinline__ float score_gap(float s, float m) {
+  if constexpr (kRomSize<MODE> > 0) return __fsub_rn(s, m);
+  return s - m;
 }
 
 // The carry's rescale for a running-max bump dm = m - m_new <= 0.
@@ -170,6 +184,25 @@ __device__ __forceinline__ void stage_query(const T* row, int lane,
   __syncwarp();
 }
 
+// The score of key p, staged as row kr, for the query row qs
+// (stage_query): (q . k) * scale in f32, q . k an fmaf chain over the
+// head dim in order; -inf where the key is not visible.
+template <typename T, int HD>
+__device__ __forceinline__ float key_score(const T* kr, const float* qs,
+                                           float scale, bool visible) {
+  constexpr int VEC = 16 / sizeof(T);  // elements per 16-byte read
+  float dot = 0.f;
+#pragma unroll
+  for (int d = 0; d < HD; d += VEC) {
+    float kf[VEC], qf[VEC];
+    load_floats<T, VEC>(kr + d, kf);
+    load_floats<float, VEC>(qs + d, qf);
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) dot = fmaf(qf[e], kf[e], dot);
+  }
+  return visible ? dot * scale : -INFINITY;
+}
+
 // Fold keys p0 .. p0 + STAGE - 1, staged as the (STAGE, LD) tiles ks and
 // vs (LD = kLd<T, HD>), into the carry (m, l, acc) of the query row qs
 // (stage_query) under score mode MODE; visible(p) says whether key p
@@ -185,21 +218,11 @@ __device__ __forceinline__ void fold_stage(const T* ks, const T* vs, int p0,
                                            const float* rom = nullptr) {
   constexpr int EPL = kEpl<HD>;
   constexpr int LD = kLd<T, HD>;
-  constexpr int VEC = 16 / sizeof(T);  // elements per 16-byte read
   const bool lane_on = lane < HD / EPL;
   for (int j0 = 0; j0 < STAGE; j0 += 32) {
     // lane jj scores key p0 + j0 + jj
-    const T* kr = ks + (j0 + lane) * LD;
-    float dot = 0.f;
-#pragma unroll
-    for (int d = 0; d < HD; d += VEC) {
-      float kf[VEC], qf[VEC];
-      load_floats<T, VEC>(kr + d, kf);
-      load_floats<float, VEC>(qs + d, qf);
-#pragma unroll
-      for (int e = 0; e < VEC; ++e) dot = fmaf(qf[e], kf[e], dot);
-    }
-    const float s_mine = visible(p0 + j0 + lane) ? dot * scale : -INFINITY;
+    const float s_mine = key_score<T, HD>(ks + (j0 + lane) * LD, qs, scale,
+                                          visible(p0 + j0 + lane));
     const float smax = warp_max(s_mine);
     if (smax == -INFINITY) continue;  // warp-uniform: no visible key here
     if constexpr (MODE == kMaxOnly) {
@@ -218,7 +241,8 @@ __device__ __forceinline__ void fold_stage(const T* ks, const T* vs, int p0,
     const float m_new = fmaxf(m, smax);
     const float alpha = (m == -INFINITY) ? 0.f : carry_scale<MODE>(m - m_new);
     const float p_mine =
-        (s_mine == -INFINITY) ? 0.f : weight_exp<MODE>(s_mine - m_new, rom);
+        (s_mine == -INFINITY) ? 0.f : weight_exp<MODE>(score_gap<MODE>(
+                                          s_mine, m_new), rom);
     l = l * alpha + warp_sum(p_mine);
 #pragma unroll
     for (int e = 0; e < EPL; ++e) acc[e] *= alpha;
@@ -354,41 +378,27 @@ __device__ __forceinline__ void mma_carry_init(MmaCarry<HD>& c) {
   c.l[0] = c.l[1] = 0.f;
 }
 
-// Fold keys p0 .. p0 + BN - 1, staged as the (BN, kMmaLd) tiles kt and vt,
-// into the carry under score mode MODE (kExact, kPseudo or kMaxOnly).
-// Scores are s = (q . k) * scale; key p counts for the thread's row r (0
-// or 1) when lo[r] < p <= hi[r], and `whole` says that every key of the
-// tile counts for every row of the block (the mask is skipped).  kExact and
-// kPseudo weigh a visible key by weight_exp<MODE>(s - m_new) and rescale
-// the carry by carry_scale<MODE> (flash attention passes scale * log2 e
-// with kPseudo: its softmax in the log2 domain); a masked key weighs 0.
-// kMaxOnly keeps the comparator carry: a tile whose best visible score
-// beats the row's max strictly resets o to that key's V row and l to 1,
-// the lowest position winning a tie inside the tile.  P enters the PV
-// product in bf16 (as SDPA does; flash attention), or with SPLIT_P as
-// bf16(P) plus the bf16 remainder, two products (paged attention, whose
-// bf16 checks hold the output to one bf16 step of an f32 P).  Every lane
-// of the warp calls it.
-template <int HD, int BN, int MODE, bool SPLIT_P>
-__device__ __forceinline__ void mma_fold_tile(MmaCarry<HD>& c,
-                                              const MmaQuery<HD>& q,
-                                              const bf16* kt, const bf16* vt,
-                                              int p0, int lane, float scale,
-                                              bool whole, const int (&lo)[2],
-                                              const int (&hi)[2]) {
+// S = Q K^T of the warp's 16 rows over keys p0 .. p0 + BN - 1, staged as
+// the (BN, kMmaLd) tile kt: s[j][e] is row (e >> 1 ? gid + 8 : gid), key
+// p0 + 8 j + 2 (lane % 4) + (e & 1), scored (q . k) * scale in f32.  Key
+// p counts for the thread's row r (0 or 1) when lo[r] < p <= hi[r], else
+// it scores -inf; `whole` says that every key of the tile counts for
+// every row of the block (the mask is skipped).  Every lane of the warp
+// calls it.
+template <int HD, int BN>
+__device__ __forceinline__ void mma_scores(float (&s)[BN / 8][4],
+                                           const MmaQuery<HD>& q,
+                                           const bf16* kt, int p0, int lane,
+                                           float scale, bool whole,
+                                           const int (&lo)[2],
+                                           const int (&hi)[2]) {
   constexpr int LD = kMmaLd<HD>;
   constexpr int KS = HD / 16;  // k-steps of Q K^T
   constexpr int NT = BN / 8;   // 8-key column tiles of S
-  constexpr int DT = HD / 8;   // 8-wide column tiles of O
   const int tig = lane & 3;
-  // ldmatrix row addresses: K (16 keys x 16) and V^T (16 keys x 16)
+  // ldmatrix row addresses: K (16 keys x 16)
   const int krow = (lane & 7) + ((lane >> 4) << 3);
   const int kcol = ((lane >> 3) & 1) * 8;
-  const int vrow = (lane & 7) + (((lane >> 3) & 1) << 3);
-  const int vcol = (lane >> 4) * 8;
-
-  // S = Q K^T, f32 (16 rows x BN keys)
-  float s[NT][4];
 #pragma unroll
   for (int j = 0; j < NT; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
 #pragma unroll
@@ -419,6 +429,40 @@ __device__ __forceinline__ void mma_fold_tile(MmaCarry<HD>& c,
       s[j][e] = whole || (p > lo[e >> 1] && p <= hi[e >> 1]) ? x : -INFINITY;
     }
   }
+}
+
+// Fold keys p0 .. p0 + BN - 1, staged as the (BN, kMmaLd) tiles kt and vt,
+// into the carry under score mode MODE, the scores and mask of
+// mma_scores.  kExact, kPseudo, kBase2 and kPwl weigh a visible key by
+// weight_exp<MODE>(s - m_new) and rescale the carry by carry_scale<MODE>
+// (flash attention passes scale * log2 e with kPseudo: its softmax in the
+// log2 domain); a masked key weighs 0, never f(-inf) (the tables' weight
+// of -inf is NaN); rom is the mode's table in shared memory.  kMaxOnly
+// keeps the comparator carry: a tile whose best visible score beats the
+// row's max strictly resets o to that key's V row and l to 1, the lowest
+// position winning a tie inside the tile.  P enters the PV product in
+// bf16 (as SDPA does; flash attention), or with SPLIT_P as bf16(P) plus
+// the bf16 remainder, two products (paged attention, whose bf16 checks
+// hold the output to one bf16 step of an f32 P).  Every lane of the warp
+// calls it.
+template <int HD, int BN, int MODE, bool SPLIT_P>
+__device__ __forceinline__ void mma_fold_tile(MmaCarry<HD>& c,
+                                              const MmaQuery<HD>& q,
+                                              const bf16* kt, const bf16* vt,
+                                              int p0, int lane, float scale,
+                                              bool whole, const int (&lo)[2],
+                                              const int (&hi)[2],
+                                              const float* rom = nullptr) {
+  constexpr int LD = kMmaLd<HD>;
+  constexpr int NT = BN / 8;   // 8-key column tiles of S
+  constexpr int DT = HD / 8;   // 8-wide column tiles of O
+  const int tig = lane & 3;
+  // ldmatrix row addresses: V^T (16 keys x 16)
+  const int vrow = (lane & 7) + (((lane >> 3) & 1) << 3);
+  const int vcol = (lane >> 4) * 8;
+
+  float s[NT][4];
+  mma_scores<HD, BN>(s, q, kt, p0, lane, scale, whole, lo, hi);
 
   if constexpr (MODE == kMaxOnly) {
 #pragma unroll
@@ -491,10 +535,20 @@ __device__ __forceinline__ void mma_fold_tile(MmaCarry<HD>& c,
     }
 #pragma unroll
     for (int j = 0; j < NT; ++j) {
-      s[j][0] = weight_exp<MODE>(s[j][0] - base0, nullptr);
-      s[j][1] = weight_exp<MODE>(s[j][1] - base0, nullptr);
-      s[j][2] = weight_exp<MODE>(s[j][2] - base1, nullptr);
-      s[j][3] = weight_exp<MODE>(s[j][3] - base1, nullptr);
+      if constexpr (kRomSize<MODE> > 0) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          s[j][e] = s[j][e] == -INFINITY
+                        ? 0.f
+                        : weight_exp<MODE>(score_gap<MODE>(
+                                               s[j][e], e < 2 ? base0 : base1),
+                                           rom);
+      } else {
+        s[j][0] = weight_exp<MODE>(s[j][0] - base0, nullptr);
+        s[j][1] = weight_exp<MODE>(s[j][1] - base0, nullptr);
+        s[j][2] = weight_exp<MODE>(s[j][2] - base1, nullptr);
+        s[j][3] = weight_exp<MODE>(s[j][3] - base1, nullptr);
+      }
       c.l[0] += s[j][0] + s[j][1];  // this thread's columns
       c.l[1] += s[j][2] + s[j][3];
     }

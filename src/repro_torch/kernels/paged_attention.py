@@ -13,25 +13,34 @@ flops per K/V row, far under the card's ~295 flops per byte.  The design
 positions, kv head, row), K/V tiles staged through the table by cp.async
 and shared by the GQA heads of a kv head, then a combine kernel that
 merges the chunks' partials in chunk order) reads each K/V byte once per
-row and query group.  Two routes, by dtype and mode only: bf16 exact,
-pseudo and maxonly fold on the tensor cores (flash attention's
-``mma.sync`` tile, the T*g query rows of a kv head packed into 16-row
-tiles); f32 and base2/pwl one warp per query row on the CUDA cores.  The
-source's header says the rest.
+row and query group.  Two routes, by dtype only: bf16 folds on the
+tensor cores (flash attention's ``mma.sync`` tile, the T*g query rows of
+a kv head packed into 16-row tiles), f32 one warp per query row on the
+CUDA cores.  base2 and pwl weigh every score at its row's max, as the
+plain version does: a row-max pre-pass over K, with the fold's own
+scores, writes each row's max per chunk; the fold seeds its carry with
+the row's max, so no chunk is ever rescaled and the combine is a plain
+sum.  The source's header says the rest.
 
-The chunk width is a constant per (dtype, head dim), ``chunk_width``;
-the chunk count covers the table.  Chunk, stage and 32-key slice edges
-lie at fixed multiples of absolute position, an empty chunk weighs
-nothing in the combine, and one non-empty chunk passes through it bit for
-bit.  So a row's attention bits depend on its own inputs, the dtype, the
-head dim and the mode only: the same alone or beside any batch-mates, at
-T = 1 or inside a wider speculative window whose padding repeats its
-position -- as the Pallas kernel and the plain version, which fold every
-row from position 0 whatever the batch.  The plan reads shapes, never
-``positions`` (which would sync the host on every decode layer); the
-partials go to f32 scratch allocated here.
+What it leaves on the table: base2 and pwl read K twice and launch three
+kernels; the ``mma`` tile's rows past T*g idle (2 of 16 used at a
+qwen3-0.6b decode step).
 
-``paged_attention.launches`` counts the calls that launched the kernel,
+The chunk width is a constant per (dtype, head dim), ``chunk_width``,
+in every mode; the chunk count covers the table.  Chunk, stage and
+32-key slice edges lie at fixed multiples of absolute position, an empty
+chunk weighs nothing in the combine, and one non-empty chunk passes
+through it bit for bit.  So a row's attention bits depend on its own
+inputs, the dtype, the head dim and the mode only: the same alone or
+beside any batch-mates, at T = 1 or inside a wider speculative window
+whose padding repeats its position -- as the Pallas kernel and the plain
+version, which fold every row from position 0 whatever the batch.  The
+plan reads shapes, never ``positions`` (which would sync the host on
+every decode layer); the partials and the chunk maxima go to f32 scratch
+allocated here.
+
+``paged_attention.launches`` counts the calls that launched the kernel
+(a call is up to three launches: pre-pass, fold and combine),
 ``paged_attention.launches_by_mode`` the same calls by score mode.
 """
 from __future__ import annotations
@@ -53,16 +62,16 @@ _HEAD_DIMS = (16, 32, 64, 128, 192, 256)
 _MODES = {"exact": 0, "base2": 1, "pseudo": 2, "pwl": 3, "maxonly": 4}
 # a chunk is a whole number of the kernel's stages (64 or 32 positions)
 CHUNK_QUANTUM = 64
-# modes whose weight cannot be rescaled across chunks: one chunk
-UNSPLIT_MODES = ("base2", "pwl")
+# modes that weigh at the row's max, after the kernel's row-max pre-pass
+PREMAX_MODES = ("base2", "pwl")
 
 
 @functools.lru_cache(maxsize=None)
 def _fn():
     fn = _build.load("paged_attention").repro_paged_attention
     fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 10 + [
-        ctypes.c_void_p, ctypes.c_float, ctypes.c_int, ctypes.c_int,
-        ctypes.c_void_p, ctypes.c_void_p]
+        ctypes.c_void_p, ctypes.c_float, ctypes.c_int, ctypes.c_int] + [
+        ctypes.c_void_p] * 3
     fn.restype = ctypes.c_int
     return fn
 
@@ -92,26 +101,22 @@ def chunk_width(dtype: torch.dtype, hd: int) -> int:
     return max(CHUNK_QUANTUM, 8192 // hd)
 
 
-def plan_split(max_keys: int, mode: str, dtype: torch.dtype, hd: int):
+def plan_split(max_keys: int, dtype: torch.dtype, hd: int):
     """(n_chunks, chunk_keys) for a table of ``max_keys`` = nb * bs
-    positions.  Plain integers in, plain integers out: it reads no tensor,
-    so it never waits on the card.
-
-    ``chunk_width(dtype, hd)`` positions per chunk and as many chunks as
-    cover the table; base2 and pwl take one chunk of the table rounded up
-    to ``CHUNK_QUANTUM``."""
-    if mode in UNSPLIT_MODES:
-        return 1, -(-max_keys // CHUNK_QUANTUM) * CHUNK_QUANTUM
+    positions: ``chunk_width(dtype, hd)`` positions per chunk, in every
+    score mode, and as many chunks as cover the table.  Plain integers
+    in, plain integers out: it reads no tensor, so it never waits on the
+    card."""
     width = chunk_width(dtype, hd)
     return -(-max_keys // width), width
 
 
 def split_for(q: torch.Tensor, k_pool: torch.Tensor,
-              block_tables: torch.Tensor, attn_approx: str = "exact"):
+              block_tables: torch.Tensor):
     """The (n_chunks, chunk_keys) the wrapper takes for these operands:
     q's dtype and head dim and the table's width in positions."""
-    return plan_split(block_tables.shape[1] * k_pool.shape[1],
-                      approx.resolve(attn_approx)[0], q.dtype, q.shape[-1])
+    return plan_split(block_tables.shape[1] * k_pool.shape[1], q.dtype,
+                      q.shape[-1])
 
 
 def paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
@@ -162,11 +167,14 @@ def paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
                          f"{tuple(positions.shape)} {positions.dtype}")
     rom = _rom(attn_approx, q.device)
     out = torch.empty_like(q)
-    n_chunks, chunk_keys = split_for(q, k_pool, block_tables, attn_approx)
-    part = None
+    n_chunks, chunk_keys = split_for(q, k_pool, block_tables)
+    rows = b * t * hq * n_chunks      # (query row, chunk) pairs
+    part = cmax = None
     if n_chunks > 1:      # per chunk and query row: acc[hd], then m, l
-        part = torch.empty(b * t * hq * n_chunks * (hd + 2),
-                           dtype=torch.float32, device=q.device)
+        part = torch.empty(rows * (hd + 2), dtype=torch.float32,
+                           device=q.device)
+    if attn_approx in PREMAX_MODES:   # the pre-pass's chunk maxima
+        cmax = torch.empty(rows, dtype=torch.float32, device=q.device)
     err = _fn()(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
                 block_tables.data_ptr(), positions.data_ptr(),
                 out.data_ptr(), b, t, hq, hkv, hd, bs,
@@ -175,6 +183,7 @@ def paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
                 None if rom is None else rom.data_ptr(), 1.0 / math.sqrt(hd),
                 n_chunks, chunk_keys,
                 None if part is None else part.data_ptr(),
+                None if cmax is None else cmax.data_ptr(),
                 torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"paged_attention kernel launch failed: CUDA "

@@ -239,17 +239,18 @@ def paged_attention_split(q, k_pool, v_pool, block_tables, positions, *,
                           window: Optional[int] = None):
     """A plain model of the CUDA kernel's split-KV decode, for the tests:
     the kv positions split into chunks of ``chunk_keys``; each chunk's
-    partial (m, l, acc) per query row from the mode's plain weights at the
-    chunk's own max; then the merge in chunk order.  ``exact`` rescales a
-    chunk by exp(m_c - M) and ``pseudo`` by 2^(m_c - M) (M the largest
-    m_c); ``maxonly`` keeps the V row of the first chunk whose max is
-    strictly the highest, so a tie goes to the earlier position.  An empty
-    chunk (no visible key) weighs nothing.  Same operands and result as
-    ``paged_attention``, in f32 arithmetic; base2 and pwl are never split
-    (their weight does not rescale across a shift of the max) and raise.
-    The CPU path keeps the unsplit ``paged_attention``."""
-    if attn_approx not in ("exact", "pseudo", "maxonly"):
-        raise ValueError(f"attn_approx={attn_approx!r} is not split")
+    partial (m, l, acc) per query row from the mode's plain weights; then
+    the merge in chunk order.  ``exact`` and ``pseudo`` weigh a chunk at
+    its own max m_c and rescale it by exp(m_c - M), resp. 2^(m_c - M) (M
+    the largest m_c); ``base2`` and ``pwl`` take each row's max M first
+    (the kernel's pre-pass) and weigh every chunk at it, so every
+    non-empty chunk carries m_c = M and the merge is a sum; ``maxonly``
+    keeps the V row of the first chunk whose max is strictly the highest,
+    so a tie goes to the earlier position.  An empty chunk (no visible
+    key) weighs nothing.  Same operands and result as
+    ``paged_attention``, in f32 arithmetic.  The CPU path keeps the
+    unsplit ``paged_attention``."""
+    attn_approx = approx.resolve(attn_approx)[0]
     multi = q.ndim == 4
     if not multi:
         q = q[:, None]
@@ -261,7 +262,8 @@ def paged_attention_split(q, k_pool, v_pool, block_tables, positions, *,
     scores = torch.einsum("btkgh,bskh->btkgs",
                           q.float().reshape(b, t, hkv, g, hd), k) / hd ** 0.5
     vis = vis[:, :, None, None, :].expand(scores.shape)
-    f = torch.exp if attn_approx == "exact" else torch.exp2
+    premax = attn_approx in ("base2", "pwl")
+    row_max = torch.amax(torch.where(vis, scores, -torch.inf), dim=-1)
     bi = torch.arange(b, device=q.device)[:, None, None, None]
     ki = torch.arange(hkv, device=q.device)[None, None, :, None]
     parts = []
@@ -279,8 +281,11 @@ def paged_attention_split(q, k_pool, v_pool, block_tables, positions, *,
             acc = torch.where(live[..., None], acc, 0.0)
             parts.append((m, live.float(), acc))
             continue
+        if premax:    # a chunk with a visible key weighs at the row's max
+            m = torch.where(m > -torch.inf, row_max, m)
         base = torch.where(m > -torch.inf, m, 0.0)
-        w = torch.where(cv, f(s - base[..., None]), 0.0)
+        d = torch.where(cv, s - base[..., None], 0.0)
+        w = torch.where(cv, approx.weight_exp(d, attn_approx), 0.0)
         parts.append((m, w.sum(-1), torch.einsum("btkgs,bksh->btkgh", w,
                                                  vc)))
     if attn_approx == "maxonly":
@@ -295,7 +300,8 @@ def paged_attention_split(q, k_pool, v_pool, block_tables, positions, *,
         mx = torch.amax(torch.stack([m for m, _, _ in parts]), dim=0)
         l, acc = 0.0, 0.0
         for m, lc, ac in parts:
-            w = torch.where(m > -torch.inf, f(m - mx), 0.0)
+            w = torch.where(m > -torch.inf,
+                            approx.carry_scale(m - mx, attn_approx), 0.0)
             l = l + lc * w
             acc = acc + ac * w[..., None]
     out = (acc / torch.clamp(l, min=1e-30)[..., None]).reshape(

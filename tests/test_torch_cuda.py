@@ -8,11 +8,15 @@ one.  Run them on a GPU machine with
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
 Tolerances: f32 kernels sum in another order than the plain versions
-(atol = rtol = 1e-4); bf16 paged attention keeps f32 probabilities where
-the plain version rounds scores and probabilities to bf16 (2e-2); the
-exp-free modes where kernel and plain version share the running max and
-the scores are exact agree to summation order (1e-5 in f32, one bf16
-step of the output in bf16 against the plain version on f32 inputs), and
+(atol = rtol = 1e-4), paged attention's pwl too, since the kernel weighs
+it at the row's max as the plain version does; base2 likewise, but a
+score whose LUT bin edge lies within that rounding takes the
+neighbouring bin (2^(1/256) apart) in one of the two, so it keeps 2e-3
+in f32 (``_tol``); bf16
+paged attention keeps f32 probabilities where the plain version rounds
+scores and probabilities to bf16 (2e-2); the exp-free modes where the
+scores are exact agree to summation order (1e-5 in f32, one bf16 step
+of the output in bf16 against the plain version on f32 inputs), and
 bf16 flash attention rounds the same f32 result to bf16 (2e-2, a step
 of bf16 at magnitude 2-4); the softmax unit's kernels sum in a split
 order (stats and probabilities rtol 2e-5, atol 1e-7; the cross-entropy
@@ -129,6 +133,13 @@ def _maxonly_ok(out, q, kp, vp, bt, pos, window, band=1e-3):
     return bool((is_row & near).any(-1).all())
 
 
+def _tol(dtype, mode):
+    """Paged attention against its plain version (the module's header)."""
+    if dtype == torch.bfloat16:
+        return 2e-2
+    return 2e-3 if mode == "base2" else 1e-4
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("hd", [16, 32, 64, 128, 192, 256])
 @pytest.mark.parametrize("t,hq,hkv", [(1, 16, 8), (3, 8, 2), (9, 64, 8)])
@@ -136,11 +147,9 @@ def _maxonly_ok(out, q, kp, vp, bt, pos, window, band=1e-3):
 @pytest.mark.parametrize("mode", ["base2", "pseudo", "pwl", "maxonly"])
 def test_paged_attention_kernel_modes_match_plain(dev, mode, dtype, hd, t,
                                                   hq, hkv, window):
-    """The four exp-free score modes.  base2 and pwl fold their LUT at a
-    32-key slice's running max where the plain version uses the global
-    max: one LUT bin or chord apart (2e-3 in f32); pseudo is exact up to
-    rounding (1e-4 in f32); bf16 as for exact (2e-2).  maxonly returns a
-    V row, checked by ``_maxonly_ok``."""
+    """The four exp-free score modes.  base2, pseudo and pwl weigh at the
+    row's max, as the plain version does: ``_tol``.  maxonly returns a V
+    row, checked by ``_maxonly_ok``."""
     bs = 8 if hd == 256 else 16
     q, kp, vp, bt, pos = _paged(dev, dtype, b=5, t=t, hq=hq, hkv=hkv, hd=hd,
                                 bs=bs, seed=hd + t, last=[0, 5, 130, 299, 64])
@@ -155,8 +164,7 @@ def test_paged_attention_kernel_modes_match_plain(dev, mode, dtype, hd, t,
         return
     want = ref.paged_attention(q, kp, vp, bt, pos, attn_approx=mode,
                                window=window)
-    tol = 2e-2 if dtype == torch.bfloat16 else (
-        1e-4 if mode == "pseudo" else 2e-3)
+    tol = _tol(dtype, mode)
     torch.testing.assert_close(out.float(), want.float(), atol=tol, rtol=tol)
 
 
@@ -321,7 +329,7 @@ def _split_case(dev, dtype, *, t, seed, rows=8, hq=4, hkv=2, hd=64):
     ``ck`` keys (the wrapper's fixed width): contexts at the chunk edges
     +-1 (ck - 1, ck, ck + 1, the same at 3 ck) and at 4,095 and 4,096.
     Returns the operands and (n_chunks, ck)."""
-    n, ck = pa.plan_split(4096, "exact", dtype, hd)
+    n, ck = pa.plan_split(4096, dtype, hd)
     last = [ck - 2, ck - 1, ck, 3 * ck - 2, 3 * ck - 1, 3 * ck, 4094, 4095]
     return _paged(dev, dtype, b=rows, t=t, hq=hq, hkv=hkv, hd=hd, bs=16,
                   seed=seed + t, last=last[:rows]), (n, ck)
@@ -335,14 +343,12 @@ def _split_case(dev, dtype, *, t, seed, rows=8, hq=4, hkv=2, hd=64):
 def test_paged_attention_split_at_chunk_edges(dev, mode, window, t, dtype):
     """Split-KV decode over contexts at the chunk edges +-1, up to 4,096
     keys; window 7 leaves all but one chunk of a row empty.  Every mode
-    against the plain version at the tolerances above (base2 and pwl
-    take one chunk); the split is the planner's, and one launch counts
-    once."""
+    against the plain version at the tolerances above, in the planner's
+    chunks; one launch counts once."""
     (q, kp, vp, bt, pos), (n, ck) = _split_case(dev, dtype, t=t,
                                                 seed=window or 0)
     assert n > 1 and ck % pa.CHUNK_QUANTUM == 0
-    want_split = (1, 4096) if mode in pa.UNSPLIT_MODES else (n, ck)
-    assert pa.split_for(q, kp, bt, mode) == want_split
+    assert pa.split_for(q, kp, bt) == (n, ck)
     before = pa.paged_attention.launches_by_mode[mode]
     out = pa.paged_attention(q, kp, vp, bt, pos, attn_approx=mode,
                              window=window)
@@ -354,8 +360,7 @@ def test_paged_attention_split_at_chunk_edges(dev, mode, window, t, dtype):
         return
     want = ref.paged_attention(q, kp, vp, bt, pos, attn_approx=mode,
                                window=window)
-    tol = 2e-2 if dtype == torch.bfloat16 else (
-        2e-3 if mode in ("base2", "pwl") else 1e-4)
+    tol = _tol(dtype, mode)
     torch.testing.assert_close(out.float(), want.float(), atol=tol, rtol=tol)
 
 
@@ -383,7 +388,8 @@ def test_paged_attention_split_maxonly_tie_across_a_chunk_edge(dev):
     torch.testing.assert_close(out[6:], want[6:], atol=0, rtol=0)
 
 
-@pytest.mark.parametrize("mode", ["exact", "pseudo", "maxonly", "base2"])
+@pytest.mark.parametrize("mode", ["exact", "base2", "pseudo", "pwl",
+                                  "maxonly"])
 @pytest.mark.parametrize("b", [1, 8])
 def test_paged_attention_split_is_bitwise_repeatable(dev, mode, b):
     """Two calls on the same inputs give the same bits: the chunks come
@@ -396,7 +402,7 @@ def test_paged_attention_split_is_bitwise_repeatable(dev, mode, b):
     c = pa.paged_attention(q, kp, vp, bt, pos, attn_approx=mode)
     torch.cuda.synchronize()
     assert torch.equal(a, c)
-    assert (pa.split_for(q, kp, bt, mode)[0] > 1) == (mode != "base2")
+    assert pa.split_for(q, kp, bt)[0] > 1
 
 
 def test_paged_attention_kernel_rejects_bad_operands(dev):
@@ -417,7 +423,8 @@ def test_paged_attention_kernel_rejects_bad_operands(dev):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("mode", ["exact", "pseudo", "maxonly", "base2"])
+@pytest.mark.parametrize("mode", ["exact", "base2", "pseudo", "pwl",
+                                  "maxonly"])
 @pytest.mark.parametrize("last", [0, 63, 64, 200, 640])
 def test_paged_attention_row_bits_alone_and_beside_a_long_row(dev, last,
                                                              mode, dtype):
@@ -434,13 +441,14 @@ def test_paged_attention_row_bits_alone_and_beside_a_long_row(dev, last,
                                attn_approx=mode)
     beside = pa.paged_attention(q, kp, vp, bt, pos, attn_approx=mode)
     torch.cuda.synchronize()
-    assert pa.split_for(q, kp, bt, mode)[0] >= pa.split_for(
-        q[:1], kp, bt[:1, :nb_own], mode)[0]
+    assert pa.split_for(q, kp, bt)[0] >= pa.split_for(
+        q[:1], kp, bt[:1, :nb_own])[0]
     assert torch.equal(alone, beside[:1])
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("mode", ["exact", "pseudo", "maxonly"])
+@pytest.mark.parametrize("mode", ["exact", "base2", "pseudo", "pwl",
+                                  "maxonly"])
 @pytest.mark.parametrize("hq,hkv", [(16, 8), (40, 8), (96, 8)])
 def test_paged_attention_row_bits_at_t1_and_t8(dev, hq, hkv, mode, dtype):
     """A row's T = 1 output equals, bit for bit, every column of the same
@@ -459,7 +467,8 @@ def test_paged_attention_row_bits_at_t1_and_t8(dev, hq, hkv, mode, dtype):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("mode", ["exact", "pseudo", "maxonly"])
+@pytest.mark.parametrize("mode", ["exact", "base2", "pseudo", "pwl",
+                                  "maxonly"])
 def test_paged_attention_spec_window_bits_equal_each_query_alone(dev, mode,
                                                                  dtype):
     """A speculative step's shape: 8 rows at T 8, each a consecutive
@@ -489,19 +498,24 @@ def test_paged_attention_spec_window_bits_equal_each_query_alone(dev, mode,
 @pytest.mark.parametrize("hd", [64, 128, 192])
 @pytest.mark.parametrize("t", [1, 32])
 def test_paged_attention_route(dev, t, hd):
-    """bf16 exact, pseudo and maxonly run the tensor-core kernel; f32 and
-    base2 / pwl the CUDA-core one -- by kernel name, at T 1 and T 32."""
+    """bf16 runs the tensor-core kernel in every mode, f32 the CUDA-core
+    one; base2 and pwl run the row-max pre-pass of the same route first,
+    the other modes none -- by kernel name, at T 1 and T 32."""
     for dtype in (torch.bfloat16, torch.float32):
         q, kp, vp, bt, pos = _paged(dev, dtype, b=2, t=t, hq=4, hkv=2, hd=hd,
                                     bs=16, seed=t, last=[700, 40])
+        want_mma = dtype == torch.bfloat16
         for mode in ("exact", "base2", "pseudo", "pwl", "maxonly"):
-            want_mma = dtype == torch.bfloat16 and mode in (
-                "exact", "pseudo", "maxonly")
+            want_pre = mode in pa.PREMAX_MODES
             names = _kernel_names(lambda: pa.paged_attention(
                 q, kp, vp, bt, pos, attn_approx=mode), "paged_attention")
             mma = any("paged_attention_mma_kernel" in n for n in names)
             core = any("paged_attention_kernel" in n for n in names)
+            pre_mma = any("paged_rowmax_mma_kernel" in n for n in names)
+            pre_core = any("paged_rowmax_kernel" in n for n in names)
             assert (mma, core) == (want_mma, not want_mma), names
+            assert (pre_mma, pre_core) == (want_pre and want_mma,
+                                           want_pre and not want_mma), names
 
 
 @pytest.mark.parametrize("t,hq,hkv", [(1, 16, 8), (32, 16, 8), (4, 96, 8)])
@@ -518,8 +532,7 @@ def test_paged_attention_head_dim_192(dev, dtype, t, hq, hkv):
             assert _maxonly_ok(out, q, kp, vp, bt, pos, None)
             continue
         want = ref.paged_attention(q, kp, vp, bt, pos, attn_approx=mode)
-        tol = 2e-2 if dtype == torch.bfloat16 else (
-            2e-3 if mode in ("base2", "pwl") else 1e-4)
+        tol = _tol(dtype, mode)
         torch.testing.assert_close(out.float(), want.float(), atol=tol,
                                    rtol=tol)
 
