@@ -34,7 +34,10 @@ Phases, each of which fails the run (non-zero exit, no result line):
      512 tokens, g 2 and 8, causal and windowed) and the softmax unit's
      stats, softmax and cross-entropy kernels ((12, 151936) f32 and
      (512, 151936) bf16 rows, and 70,000 rows of 1,000 -- more than
-     grid.y's 65,535); then paged attention's four exp-free
+     grid.y's 65,535; each call's plan and route and the device kernels
+     it ran, from a profiler trace; an empty launch timed on the same
+     ruler; a row's stats and probabilities bitwise equal alone, in B 12
+     and in B 64, across both routes); then paged attention's four exp-free
      score modes (base2, pseudo, pwl, maxonly) at the main path's shapes
      (T = 1 and 4, window None and 128), each timed beside exact (at T = 1
      each launch apart, from a profiler trace), base2, pseudo and pwl
@@ -65,9 +68,10 @@ Phases, each of which fails the run (non-zero exit, no result line):
      states at V = 151936 through ``ops.softmax_stats``,
      ``ops.online_softmax`` and ``ops.softmax_xent`` forward and backward
      (labels: phase 4's first tokens), each against its plain version,
-     each kernel's launches equal to its calls (``online_softmax`` runs
-     its phase 1 through ``softmax_stats``; the backward calls
-     ``online_softmax``), and Theorem 1 through the full unit:
+     each kernel's launches equal to its calls (every ``online_softmax``
+     call also runs ``softmax_stats``' fold and merge, and counts in
+     both; the backward calls ``online_softmax``), and Theorem 1 through
+     the full unit:
      ``argmax(online_softmax)`` is phase 4's first token;
   4e. the divergence probe (``repro_torch.probe.run_probe``) on the 12
      prompts, 32 new tokens: all five score modes at window None, then
@@ -144,6 +148,8 @@ def reset_launches():
         fn.launches = 0
         if hasattr(fn, "launches_by_mode"):
             fn.launches_by_mode = dict.fromkeys(fn.launches_by_mode, 0)
+        if hasattr(fn, "launches_by_route"):
+            fn.launches_by_route = dict.fromkeys(fn.launches_by_route, 0)
 
 
 def read_launches() -> dict:
@@ -1517,10 +1523,52 @@ def unit_errors(torch, x, lab, m, l, p, loss):
             "fused_xent": errs["fused_xent"]}
 
 
+UNIT_KERNELS = ("unit_stats_kernel", "unit_one_pass_kernel",
+                "normalize_kernel")
+
+
+def unit_kernels(torch, fn) -> list:
+    """The softmax unit's device kernels one call of ``fn`` launched,
+    from a profiler trace."""
+    return [k for n in device_kernels(torch, fn, "unit_")
+            for k in UNIT_KERNELS if k in n]
+
+
+def unit_route(torch, x) -> dict:
+    """The plan of rows x, and the device kernels one call of each
+    wrapper ran: softmax_stats one at any B, online_softmax one on the
+    one-pass route and two on the other."""
+    from repro_torch.kernels import online_softmax as osm
+
+    plan = osm.plan_of(x)
+    kernels = {name: unit_kernels(torch, fn) for name, fn in (
+        ("softmax_stats", lambda: osm.softmax_stats(x)),
+        ("online_softmax", lambda: osm.online_softmax(x)))}
+    tag = (f"B={x.shape[0]} V={x.shape[1]} "
+           f"{str(x.dtype).replace('torch.', '')}")
+    print(f"softmax unit {tag}: plan chunk {plan.chunk}, nsplit "
+          f"{plan.nsplit}, vec {plan.vec}; online_softmax route "
+          f"{plan.route}; device kernels per call: softmax_stats "
+          f"{len(kernels['softmax_stats'])}, online_softmax "
+          f"{len(kernels['online_softmax'])} "
+          f"({', '.join(kernels['online_softmax'])})", flush=True)
+    want = {"softmax_stats": 1,
+            "online_softmax": 1 if plan.route == osm.ONE_PASS else 2}
+    check(all(len(kernels[n]) == k for n, k in want.items()),
+          f"softmax unit {tag}: device kernels {kernels}, want {want}")
+    return dict(route=plan.route, chunk=plan.chunk, nsplit=plan.nsplit,
+                vec=plan.vec, device_kernels_per_call={
+                    n: len(k) for n, k in kernels.items()})
+
+
 def check_softmax_units(torch, timer):
     """The softmax unit's three kernels on (B, V = 151936) rows: B 12 in
-    f32 (the unit path's logits) and B 512 in bf16.  Yardsticks
-    ``torch.logsumexp``, ``torch.softmax`` and ``F.cross_entropy``."""
+    f32 (the unit path's logits) and B 512 in bf16, each call's plan,
+    route and device kernels, the stats against ``softmax_stats_split``
+    too, and two calls bitwise equal.  Yardsticks ``torch.logsumexp``,
+    ``torch.softmax`` and ``F.cross_entropy``; an empty launch
+    (``torch.cuda._sleep(1)``) on the same ruler is the floor of one
+    launch."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import fused_xent as fx
@@ -1529,7 +1577,12 @@ def check_softmax_units(torch, timer):
 
     v = 151936
     gen = torch.Generator(device="cuda").manual_seed(6)
-    rows = {}
+    floor = timer.readings(lambda: torch.cuda._sleep(1))
+    print(f"empty launch (torch.cuda._sleep(1)): {shown(floor)}; the card "
+          f"holds {osm.device_resident_blocks(0, torch.float32)} one-pass "
+          f"blocks (f32), {osm.device_resident_blocks(0, torch.bfloat16)} "
+          f"(bf16) at once", flush=True)
+    rows = {"floor": floor}
     for b, dtype in ((12, torch.float32), (512, torch.bfloat16)):
         x = (torch.randn((b, v), generator=gen, device="cuda") * 4).to(dtype)
         lab = torch.randint(0, v, (b,), generator=gen, device="cuda")
@@ -1540,6 +1593,19 @@ def check_softmax_units(torch, timer):
         tag = f"B={b} {str(dtype).replace('torch.', '')}"
         print(f"softmax unit {tag}:", flush=True)
         errs = unit_errors(torch, x, lab, m, l, p, loss)
+        sm, sl = ref.softmax_stats_split(x, osm.plan_of(x))
+        ok = all(torch.allclose(g, w, rtol=UNIT_RTOL, atol=UNIT_ATOL)
+                 for g, w in ((m, sm), (l, sl)))
+        split_err = max((m - sm).abs().max().item(),
+                        (l - sl).abs().max().item())
+        print(f"  softmax_stats vs softmax_stats_split: max_abs_err "
+              f"{split_err:.6g}: {'ok' if ok else 'FAIL'}", flush=True)
+        check(ok, f"softmax_stats {tag} disagrees with its split model")
+        plan = unit_route(torch, x)
+        check_repeatable(torch, lambda: torch.stack(osm.softmax_stats(x)),
+                         f"softmax_stats {tag}")
+        check_repeatable(torch, lambda: osm.online_softmax(x),
+                         f"online_softmax {tag} ({plan['route']})")
         el, n = x.element_size(), b * v
         cases = (
             ("softmax_stats", lambda: osm.softmax_stats(x),
@@ -1564,15 +1630,53 @@ def check_softmax_units(torch, timer):
             rows[(name, b)] = dict(max_abs_err=errs[name], **kern_t,
                                    plain_ms=plain_ms, bound_ms=bound_ms,
                                    bound_by=bound_by, **lib_t)
+            if name != "fused_xent":
+                rows[(name, b)]["plan"] = plan
     return rows
+
+
+def check_unit_invariance(torch) -> dict:
+    """A row's stats and probabilities are the same bits alone (B 1,
+    one-pass), in B 12 (one-pass) and in B 64 (two-launch), f32 at V
+    151936: the split follows V alone and both routes fold and merge
+    alike."""
+    from repro_torch.kernels import online_softmax as osm
+
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    x = torch.randn((64, 151936), generator=gen, device="cuda") * 4
+    runs, routes = {}, {}
+    for b in (12, 64):
+        routes[b] = osm.plan_of(x[:b]).route
+        runs[b] = (*osm.softmax_stats(x[:b]), osm.online_softmax(x[:b]))
+    routes[1] = osm.plan_of(x[:1]).route
+    same = {12: 0, 64: 0}
+    for r in range(12):
+        alone = (*osm.softmax_stats(x[r:r + 1]),
+                 osm.online_softmax(x[r:r + 1]))
+        for b in same:
+            same[b] += all(torch.equal(a, got[r:r + 1])
+                           for a, got in zip(alone, runs[b]))
+    print(f"softmax unit rows (f32, V 151936): m, l and probabilities "
+          f"of B 1 ({routes[1]}) bitwise equal in B 12 ({routes[12]}) for "
+          f"{same[12]}/12 rows and in B 64 ({routes[64]}) for "
+          f"{same[64]}/12", flush=True)
+    check(routes == {1: osm.ONE_PASS, 12: osm.ONE_PASS,
+                     64: osm.TWO_LAUNCH},
+          f"softmax unit routes {routes}: want one-pass at B 1 and 12, "
+          "two-launch at B 64")
+    check(same == {12: 12, 64: 12},
+          "softmax unit: a row's bits depend on its batch or route")
+    return {"routes": {str(b): r for b, r in routes.items()},
+            "rows_equal_b12": same[12], "rows_equal_b64": same[64]}
 
 
 def check_many_rows(torch):
     """The softmax unit's three kernels at B 70,000 rows of V 1,000 (f32):
-    more rows than grid.y holds, one launch each, against their plain
-    versions at the unit tolerances.  Logits of scale 1: where the label
-    is the max, m + log l - x[label] cancels to about one f32 ulp of m,
-    under XENT_ATOL while |m| < 8."""
+    more rows than grid.y holds, one wrapper call each (online_softmax
+    on its two-launch route), against their plain versions at the unit
+    tolerances.  Logits of scale 1: where the label is the max, m + log
+    l - x[label] cancels to about one f32 ulp of m, under XENT_ATOL
+    while |m| < 8."""
     from repro_torch.kernels import fused_xent as fx
     from repro_torch.kernels import online_softmax as osm
 
@@ -1591,6 +1695,9 @@ def check_many_rows(torch):
     check(all(n1[k] - n0[k] == want for k, want in (
         ("softmax_stats", 2), ("online_softmax", 1), ("fused_xent", 1))),
         "the 70,000-row unit calls did not launch once each")
+    unit_route(torch, x)
+    check(osm.plan_of(x).route == osm.TWO_LAUNCH,
+          "70,000 rows must take the two-launch route")
     return errs
 
 
@@ -1967,8 +2074,9 @@ def run_unit_path(torch, llm, prompts, outs):
     ``ops.softmax_stats``, ``ops.online_softmax`` and ``ops.softmax_xent``
     forward and backward run on them with the launch counts set to 0,
     labels = phase 4's first tokens.  The backward's softmax is a second
-    ``online_softmax`` call, which runs phase 1 through
-    ``softmax_stats``."""
+    ``online_softmax`` call; each one that takes the two-launch route
+    runs ``softmax_stats``' kernel as its first launch."""
+    from repro_torch.kernels import online_softmax as osm
     from repro_torch.kernels import ops, ref
     from repro_torch.models import lm
 
@@ -1987,12 +2095,17 @@ def run_unit_path(torch, llm, prompts, outs):
     loss.mean().backward()
     torch.cuda.synchronize()
     launches = read_launches()
-    calls = {"softmax_stats": 1 + 2, "online_softmax": 1 + 1,
-             "fused_xent": 1}
+    routes = dict(osm.online_softmax.launches_by_route)
+    route = osm.plan_of(logits).route
+    calls = {"softmax_stats": 1 + routes[osm.TWO_LAUNCH],
+             "online_softmax": 1 + 1, "fused_xent": 1}
     print(f"unit path: logits {tuple(logits.shape)} f32; launches "
-          f"{launches}; want {calls} (online_softmax: 1 call + the "
-          f"backward's; softmax_stats: 1 call + each online_softmax's)",
+          f"{launches}; online_softmax by route {routes}; want {calls} "
+          f"(online_softmax: 1 call + the backward's, both {route}; "
+          f"softmax_stats: 1 call + each two-launch online_softmax's)",
           flush=True)
+    check(routes[route] == sum(routes.values()) == 2,
+          f"unit path: online_softmax's routes {routes}, want 2 x {route}")
     check(all(launches[n] == c for n, c in calls.items()),
           "unit path: a softmax-unit kernel's launches != its calls")
     check(all(c == 0 for n, c in launches.items() if n not in calls),
@@ -2228,6 +2341,7 @@ def main() -> int:
         wide_rows = check_wide_heads(torch, timer)
         flash_rows, fa_routes = check_flash_attention(torch, timer)
         unit_rows = check_softmax_units(torch, timer)
+        unit_invariance = check_unit_invariance(torch)
         many_errs = check_many_rows(torch)
         print(clocks_line(), flush=True)
         del timer
@@ -2342,7 +2456,13 @@ def main() -> int:
             max_abs_err=max(unit_errs[name], unit_rows[(name, 12)][
                 "max_abs_err"], unit_rows[(name, 512)]["max_abs_err"],
                 many_errs[name]),
-            **{k: unit_rows[(name, 12)][k] for k in TIMES}))
+            **{k: unit_rows[(name, 12)][k] for k in TIMES},
+            b512_bf16={k: unit_rows[(name, 512)][k] for k in TIMES},
+            **({} if name == "fused_xent" else dict(
+                plan=unit_rows[(name, 12)]["plan"],
+                b512_bf16_plan=unit_rows[(name, 512)]["plan"],
+                launch_floor=unit_rows["floor"],
+                invariance=unit_invariance))))
     summary["probe"] = {
         str(w): {v: {k: row[k] for k in ("divergence",
                                          "mean_first_divergence")}

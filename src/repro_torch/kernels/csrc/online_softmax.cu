@@ -11,42 +11,70 @@
 //   src/repro/kernels/fused_xent.py      fused_xent (:59, pallas_call
 //     :75, body _xent_kernel :24) -- m + log l - x[label] per row.
 //
-// Bound on the H100: memory.  Each phase reads x once (and phase 2
-// writes the (B, V) f32 probabilities once) for a handful of flops and
-// one exp per element, far below the card's flops per byte.
+// Bound on the H100: memory.  softmax_stats reads x once; online_softmax
+// reads x and writes the (B, V) f32 probabilities once; both do a few
+// flops and one exp per element, far below the card's flops per byte.
+// At the decode batch sizes the unit meets (B 12, V 151936: 7 MB of f32)
+// the bound is a few microseconds, so launches and the gaps between them
+// are what cost, and the design spends as few as it can:
 //
-// Design, right and simple first:
-//   * phase 1 splits each row's V over `nsplit` thread blocks, enough to
-//     cover the SMs several times at decode batch sizes (one block per
-//     row would leave most of the 132 SMs idle at B = 12, V = 151936);
-//     each thread carries an online (m, l) over its elements, loaded 16
-//     bytes at a time where the row allows, and the block merges its
-//     threads' pairs in a fixed tree;
-//   * a second small kernel merges a row's nsplit partials in split
-//     order, l = sum_i l_i * exp(m_i - m): no atomics, so the result is
-//     deterministic.  The cross-entropy entry runs the same phase 1 and
-//     a merge that also reads the label logit once (exactly one column
-//     hits, so it equals the TPU kernel's masked sum) and writes
-//     m + log l - x[label];
-//   * phase 2 is one elementwise pass, exp(x - m) / l in f32;
-//   * rows sit on grid.y, at most 65,535 of them per launch; the phase-1
-//     and phase-2 blocks stride over the rows beyond (a training batch's
-//     B * T rows), so any row count takes one launch, as the TPU kernels'
-//     row tiling does.
-// What it leaves for later PRs: online_softmax reads x twice (phase 1,
-// then phase 2), as the TPU kernels do; a one-pass form would keep each
-// block's slice of x on chip between the phases.
+//   * A row splits into chunks of kChunk = 4,096 elements at absolute
+//     multiples of the chunk (16-byte boundaries), one block per (chunk,
+//     row): the split follows V alone, never B, so a row's bits do not
+//     depend on its batch-mates.  Each thread loads its 16 elements with
+//     all its 16-byte loads issued together (four in f32, two in bf16 /
+//     f16; scalar loads of the same elements where a row start is not
+//     16-byte aligned), then folds the chunk in two steps on those
+//     registers: the max, then sum exp(x - max) -- one expf per element,
+//     no per-element branch or rescale -- in one fixed order
+//     (`fold_chunk`).  A row's chunk partials merge in one fixed order
+//     with one routine (`merge_partials`): their max, then sum l_i
+//     exp(m_i - max), one expf per partial (a chain of pairwise merges,
+//     two expf each, cost ~1 us more; scripts/unit_stream_probe.cu).
+//   * softmax_stats is one launch at any B (`unit_stats_kernel`): each
+//     block writes its partial, then takes a per-row arrival ticket (one
+//     atom.add.acq_rel.gpu: it releases the partial and acquires the
+//     others'); the block that arrives last merges
+//     the row's partials, writes m and l and puts the ticket back to 0,
+//     so the ticket buffer is all zeros between launches and needs no
+//     clearing launch.  The launches of one stream run in order; the
+//     wrappers keep one ticket buffer per (device, stream), so launches
+//     on two streams never share a ticket.
+//   * online_softmax, where B * nsplit blocks fit on the card at once, is
+//     one cooperative launch that reads x once (`unit_one_pass_kernel`):
+//     each block folds its chunk as above, writes its partial, waits at a
+//     grid-wide barrier, merges its row's partials and writes exp(x - m)
+//     / l from the registers it already holds.  Elsewhere (many rows) it
+//     runs softmax_stats' launch, then `normalize_kernel`, which reads x
+//     a second time.  Both routes give the same bits: the same fold, the
+//     same merge, the same expression for the probabilities.
+//   * The cross-entropy entry keeps its own split (a few blocks per SM
+//     over the B rows, `stats_partial_kernel` with an online carry per
+//     thread) and a merge kernel that also reads the label logit once
+//     (exactly one column hits, so it equals the TPU kernel's masked sum)
+//     and writes m + log l - x[label].
+//   * Rows sit on grid.y, at most 65,535 of them per launch; the blocks
+//     of softmax_stats, the cross-entropy and phase 2 stride over the
+//     rows beyond (a training batch's B * T rows), so any row count takes
+//     one launch, as the TPU kernels' row tiling does.
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+namespace cg = cooperative_groups;
+
 namespace {
 
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kThreads = 256;
-constexpr int kMaxGridY = 65535;  // rows beyond it stride in the kernels
+constexpr int kWarps = kThreads / 32;
+constexpr int kPerThread = 16;                 // elements a thread folds
+constexpr int kChunk = kThreads * kPerThread;  // elements a block folds
+constexpr int kMinBlocksPerSM = 4;  // the chunk kernels' stated occupancy
+constexpr int kMaxGridY = 65535;    // rows beyond it stride in the kernels
 
 int grid_rows(int B) { return B < kMaxGridY ? B : kMaxGridY; }
 
@@ -80,6 +108,8 @@ __device__ __forceinline__ void merge(float& m, float& l, float m2, float l2) {
   m = mn;
 }
 
+// An xor tree: merge (like every IEEE sum) is commutative, so every lane
+// ends with the same pair.
 __device__ __forceinline__ void warp_merge(float& m, float& l) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) {
@@ -89,14 +119,231 @@ __device__ __forceinline__ void warp_merge(float& m, float& l) {
   }
 }
 
-// Phase 1: block (split, row) folds x[row, begin:end) into one (m, l)
-// partial.  VEC elements per load; row starts and split bounds are
-// multiples of VEC.
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(kFull, v, o));
+  return v;
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(kFull, v, o);
+  return v;
+}
+
+// One warp merges a row's nsplit partials (pm, pl): m = their max, then
+// l = sum l_i exp(m_i - m) (from 0 where m is -inf), lane j summing
+// partials j, j + 32, ... in that order, the lanes meeting in the xor
+// tree; every lane returns the same pair.  A lane holds its first kHeld
+// partials in registers, so up to 64 (V up to 262,144) take one trip to
+// L2.  The partials may come from other blocks of the same launch, so
+// they are read from L2 (__ldcg), past this SM's L1.  The products are
+// rounded before the sum (__fmul_rn: no FMA), as the plain model does.
+__device__ __forceinline__ void merge_partials(const float* pm,
+                                               const float* pl, int nsplit,
+                                               int lane, float& m, float& l) {
+  constexpr int kHeld = 2;
+  float hm[kHeld], hl[kHeld];
+  m = -INFINITY;
+#pragma unroll
+  for (int i = 0; i < kHeld; ++i) {
+    const int s = lane + 32 * i;
+    hm[i] = s < nsplit ? __ldcg(pm + s) : -INFINITY;
+    hl[i] = s < nsplit ? __ldcg(pl + s) : 0.f;
+    m = fmaxf(m, hm[i]);
+  }
+  for (int s = lane + 32 * kHeld; s < nsplit; s += 32)
+    m = fmaxf(m, __ldcg(pm + s));
+  m = warp_max(m);
+  const float base = m == -INFINITY ? 0.f : m;
+  l = 0.f;  // an empty partial is (-inf, 0): it adds 0 * 0
+#pragma unroll
+  for (int i = 0; i < kHeld; ++i) l += __fmul_rn(hl[i], expf(hm[i] - base));
+  for (int s = lane + 32 * kHeld; s < nsplit; s += 32)
+    l += __fmul_rn(__ldcg(pl + s), expf(__ldcg(pm + s) - base));
+  l = warp_sum(l);
+}
+
+// A per-row arrival ticket: one atomic add that releases this thread's
+// earlier writes and acquires those of the threads that added before.
+__device__ __forceinline__ unsigned take_ticket(unsigned* t) {
+  unsigned old;
+  asm volatile("atom.add.acq_rel.gpu.u32 %0, [%1], %2;"
+               : "=r"(old)
+               : "l"(t), "r"(1u)
+               : "memory");
+  return old;
+}
+
+// Thread t of a block holds elements (j * kThreads + t) * VEC + e of its
+// chunk, j < kPerThread / VEC, e < VEC, VEC = 16 / sizeof(T), as v[j *
+// VEC + e]; elements at or past `end` are -inf.  ALIGNED (every row
+// start on 16 bytes): one 16-byte load per j, all issued before any is
+// used; else scalar loads of the same elements, so the fold's order
+// depends on the dtype alone.
+template <typename T, bool ALIGNED>
+__device__ __forceinline__ void load_chunk(const T* __restrict__ xr,
+                                           int begin, int end,
+                                           float (&v)[kPerThread]) {
+  constexpr int VEC = 16 / (int)sizeof(T), NV = kPerThread / VEC;
+  if constexpr (ALIGNED) {
+    Vec<T, VEC> c[NV];
+#pragma unroll
+    for (int j = 0; j < NV; ++j) {
+      const int at = begin + (j * kThreads + threadIdx.x) * VEC;
+      if (at < end) c[j] = *reinterpret_cast<const Vec<T, VEC>*>(xr + at);
+    }
+#pragma unroll
+    for (int j = 0; j < NV; ++j) {
+      const bool in = begin + (j * kThreads + threadIdx.x) * VEC < end;
+#pragma unroll
+      for (int e = 0; e < VEC; ++e)
+        v[j * VEC + e] = in ? to_float(c[j].v[e]) : -INFINITY;
+    }
+  } else {
+#pragma unroll
+    for (int k = 0; k < kPerThread; ++k) {
+      const int at =
+          begin + ((k / VEC) * kThreads + threadIdx.x) * VEC + k % VEC;
+      v[k] = at < end ? to_float(xr[at]) : -INFINITY;
+    }
+  }
+}
+
+// The chunk's partial (m, l): its max, then sum exp(x - m) (from 0 where
+// the chunk is all -inf, which gives (-inf, 0)).  Each thread runs over
+// its v[0..15] in order, the lanes of a warp meet in the xor tree, and
+// the 8 warps' values are taken in warp order.  Every thread returns the
+// same pair.  sh: 2 * kWarps floats of shared memory; the caller syncs
+// before it writes sh again.
+__device__ __forceinline__ void fold_chunk(const float (&v)[kPerThread],
+                                           float* sh, float& m, float& l) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  float t = v[0];
+#pragma unroll
+  for (int k = 1; k < kPerThread; ++k) t = fmaxf(t, v[k]);
+  t = warp_max(t);
+  if (lane == 0) sh[warp] = t;
+  __syncthreads();
+  m = sh[0];
+#pragma unroll
+  for (int w = 1; w < kWarps; ++w) m = fmaxf(m, sh[w]);
+  const float base = m == -INFINITY ? 0.f : m;
+  float s = 0.f;
+#pragma unroll
+  for (int k = 0; k < kPerThread; ++k) s += expf(v[k] - base);
+  s = warp_sum(s);
+  if (lane == 0) sh[kWarps + warp] = s;
+  __syncthreads();
+  l = sh[kWarps];
+#pragma unroll
+  for (int w = 1; w < kWarps; ++w) l += sh[kWarps + w];
+}
+
+// softmax_stats, one launch: block (split, row) folds its chunk, writes
+// its partial and takes the row's ticket; the last of the row's nsplit
+// blocks merges the partials, writes m[row], l[row] and resets the
+// ticket to 0.
+template <typename T, bool ALIGNED>
+__global__ void __launch_bounds__(kThreads, kMinBlocksPerSM)
+    unit_stats_kernel(const T* __restrict__ x, float* __restrict__ pm,
+                      float* __restrict__ pl, unsigned* __restrict__ tickets,
+                      float* __restrict__ m_out, float* __restrict__ l_out,
+                      int B, int V, int nsplit) {
+  __shared__ float sh[2 * kWarps];
+  __shared__ bool last;
+  const int split = blockIdx.x;
+  const int begin = split * kChunk, end = min(V, begin + kChunk);
+  // rows stride by gridDim.y (at most 65,535), so any B takes one launch
+  for (int row = blockIdx.y; row < B; row += gridDim.y) {
+    float v[kPerThread];
+    load_chunk<T, ALIGNED>(x + (size_t)row * V, begin, end, v);
+    float m, l;
+    fold_chunk(v, sh, m, l);
+    const size_t p = (size_t)row * nsplit;
+    if (threadIdx.x == 0) {
+      pm[p + split] = m;
+      pl[p + split] = l;
+      last = take_ticket(tickets + row) == (unsigned)(nsplit - 1);
+    }
+    __syncthreads();  // thread 0's acquire covers its block's reads below
+    if (last && threadIdx.x < 32) {
+      merge_partials(pm + p, pl + p, nsplit, threadIdx.x, m, l);
+      if (threadIdx.x == 0) {
+        m_out[row] = m;
+        l_out[row] = l;
+        tickets[row] = 0;  // every block of the row has taken its ticket
+      }
+    }
+    __syncthreads();  // sh and `last` are free for the next row
+  }
+}
+
+// online_softmax in one cooperative launch, grid (nsplit, B), every
+// block resident: fold the chunk, write the partial, grid barrier, merge
+// the row's partials, write exp(x - m) / l from the registers.
+template <typename T, bool ALIGNED>
+__global__ void __launch_bounds__(kThreads, kMinBlocksPerSM)
+    unit_one_pass_kernel(const T* __restrict__ x, float* __restrict__ pm,
+                         float* __restrict__ pl, float* __restrict__ out,
+                         int B, int V, int nsplit) {
+  constexpr int VEC = 16 / (int)sizeof(T), NV = kPerThread / VEC;
+  __shared__ float sh[2 * kWarps];
+  __shared__ float row_ml[2];
+  const int split = blockIdx.x, row = blockIdx.y;
+  const int begin = split * kChunk, end = min(V, begin + kChunk);
+  float v[kPerThread];
+  load_chunk<T, ALIGNED>(x + (size_t)row * V, begin, end, v);
+  float m, l;
+  fold_chunk(v, sh, m, l);
+  const size_t p = (size_t)row * nsplit;
+  if (threadIdx.x == 0) {
+    pm[p + split] = m;
+    pl[p + split] = l;
+  }
+  cg::this_grid().sync();  // a fence and a barrier: every partial is out
+  if (threadIdx.x < 32) {
+    merge_partials(pm + p, pl + p, nsplit, threadIdx.x, m, l);
+    if (threadIdx.x == 0) {
+      row_ml[0] = m;
+      row_ml[1] = l;
+    }
+  }
+  __syncthreads();
+  m = row_ml[0];
+  l = row_ml[1];
+  float* orow = out + (size_t)row * V;
+  if constexpr (ALIGNED) {
+#pragma unroll
+    for (int j = 0; j < NV; ++j) {
+      const int at = begin + (j * kThreads + threadIdx.x) * VEC;
+      if (at >= end) continue;
+#pragma unroll
+      for (int e = 0; e < VEC; e += 4) {  // 16-byte stores
+        Vec<float, 4> q;
+#pragma unroll
+        for (int i = 0; i < 4; ++i) q.v[i] = expf(v[j * VEC + e + i] - m) / l;
+        *reinterpret_cast<Vec<float, 4>*>(orow + at + e) = q;
+      }
+    }
+  } else {
+#pragma unroll
+    for (int k = 0; k < kPerThread; ++k) {
+      const int at =
+          begin + ((k / VEC) * kThreads + threadIdx.x) * VEC + k % VEC;
+      if (at < end) orow[at] = expf(v[k] - m) / l;
+    }
+  }
+}
+
+// The cross-entropy's phase 1: block (split, row) folds x[row,
+// begin:end) into one (m, l) partial, an online carry per thread.  VEC
+// elements per load; row starts and split bounds are multiples of VEC.
 template <typename T, int VEC>
 __global__ void __launch_bounds__(kThreads) stats_partial_kernel(
     const T* __restrict__ x, float* __restrict__ pm, float* __restrict__ pl,
     int B, int V, int per_split, int nsplit) {
-  __shared__ float wm[kThreads / 32], wl[kThreads / 32];
+  __shared__ float wm[kWarps], wl[kWarps];
   const int split = blockIdx.x;
   const int begin = split * per_split;
   const int end = max(begin, min(V, begin + per_split));
@@ -121,8 +368,8 @@ __global__ void __launch_bounds__(kThreads) stats_partial_kernel(
     }
     __syncthreads();
     if (warp == 0) {
-      m = lane < kThreads / 32 ? wm[lane] : -INFINITY;
-      l = lane < kThreads / 32 ? wl[lane] : 0.f;
+      m = lane < kWarps ? wm[lane] : -INFINITY;
+      l = lane < kWarps ? wl[lane] : 0.f;
       warp_merge(m, l);
       if (lane == 0) {
         pm[(size_t)row * nsplit + split] = m;
@@ -133,48 +380,24 @@ __global__ void __launch_bounds__(kThreads) stats_partial_kernel(
   }
 }
 
-// One warp per row: merge the row's nsplit partials, lane by lane in
-// split order, then across lanes in a fixed tree.
-__device__ __forceinline__ void merge_row(const float* __restrict__ pm,
-                                         const float* __restrict__ pl,
-                                         int nsplit, int row, int lane,
-                                         float& m, float& l) {
-  m = -INFINITY;
-  l = 0.f;
-  for (int s = lane; s < nsplit; s += 32)
-    merge(m, l, pm[(size_t)row * nsplit + s], pl[(size_t)row * nsplit + s]);
-  warp_merge(m, l);
-}
-
-__global__ void __launch_bounds__(kThreads) stats_merge_kernel(
-    const float* __restrict__ pm, const float* __restrict__ pl, int nsplit,
-    int B, float* __restrict__ m_out, float* __restrict__ l_out) {
-  const int row = blockIdx.x * (kThreads / 32) + (threadIdx.x >> 5);
-  const int lane = threadIdx.x & 31;
-  if (row >= B) return;  // warp-uniform
-  float m, l;
-  merge_row(pm, pl, nsplit, row, lane, m, l);
-  if (lane == 0) {
-    m_out[row] = m;
-    l_out[row] = l;
-  }
-}
-
+// One warp per row: the row's partials merged, then the loss.
 template <typename T>
 __global__ void __launch_bounds__(kThreads) xent_merge_kernel(
     const float* __restrict__ pm, const float* __restrict__ pl, int nsplit,
     int B, const T* __restrict__ x, int V, const long long* __restrict__ lab,
     float* __restrict__ loss) {
-  const int row = blockIdx.x * (kThreads / 32) + (threadIdx.x >> 5);
+  const int row = blockIdx.x * kWarps + (threadIdx.x >> 5);
   const int lane = threadIdx.x & 31;
   if (row >= B) return;  // warp-uniform
   float m, l;
-  merge_row(pm, pl, nsplit, row, lane, m, l);
+  const size_t p = (size_t)row * nsplit;
+  merge_partials(pm + p, pl + p, nsplit, lane, m, l);
   if (lane == 0)
     loss[row] = m + logf(l) - to_float(x[(size_t)row * V + lab[row]]);
 }
 
-// Phase 2: out[row, j] = exp(x[row, j] - m[row]) / l[row], f32.
+// Phase 2: out[row, j] = exp(x[row, j] - m[row]) / l[row], f32 -- the
+// one-pass kernel's expression, so both routes give the same bits.
 template <typename T, int VEC>
 __global__ void __launch_bounds__(kThreads) normalize_kernel(
     const T* __restrict__ x, const float* __restrict__ m_in,
@@ -203,12 +426,62 @@ __global__ void __launch_bounds__(kThreads) normalize_kernel(
   }
 }
 
-// Vector width in elements: 16 bytes when every row start (and so every
-// split bound, a multiple of 16 bytes' worth) is aligned, else 1.
+// True when every row start of x (B, V) lies on 16 bytes.
+template <typename T>
+bool aligned(const void* x, int V) {
+  return V % (16 / (int)sizeof(T)) == 0 &&
+         reinterpret_cast<uintptr_t>(x) % 16 == 0;
+}
+
+// Vector width in elements of the cross-entropy's and phase 2's loads:
+// 16 bytes where every row start (and so every split bound, a multiple of
+// 16 bytes' worth) is aligned, else 1.
 template <typename T>
 int vec_of(const void* x, int V) {
-  const int vec = 16 / (int)sizeof(T);
-  return (V % vec == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0) ? vec : 1;
+  return aligned<T>(x, V) ? 16 / (int)sizeof(T) : 1;
+}
+
+// The scratch of softmax_stats and online_softmax, one f32 buffer:
+// m (B) | l (B) | pm (B, nsplit) | pl (B, nsplit).
+struct Scratch {
+  float *m, *l, *pm, *pl;
+  Scratch(void* buf, int B, int nsplit) {
+    m = static_cast<float*>(buf);
+    l = m + B;
+    pm = l + B;
+    pl = pm + (size_t)B * nsplit;
+  }
+};
+
+template <typename T>
+cudaError_t stats(const void* x, const Scratch& s, unsigned* tickets, int B,
+                  int V, int nsplit, cudaStream_t st) {
+  const dim3 grid(nsplit, grid_rows(B));
+  const T* xp = static_cast<const T*>(x);
+  if (aligned<T>(x, V))
+    unit_stats_kernel<T, true><<<grid, kThreads, 0, st>>>(
+        xp, s.pm, s.pl, tickets, s.m, s.l, B, V, nsplit);
+  else
+    unit_stats_kernel<T, false><<<grid, kThreads, 0, st>>>(
+        xp, s.pm, s.pl, tickets, s.m, s.l, B, V, nsplit);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t one_pass(const void* x, const Scratch& s, float* out, int B,
+                     int V, int nsplit, cudaStream_t st) {
+  const T* xp = static_cast<const T*>(x);
+  float *pm = s.pm, *pl = s.pl;
+  void* args[] = {&xp, &pm, &pl, &out, &B, &V, &nsplit};
+  const void* kern =
+      aligned<T>(x, V) ? reinterpret_cast<const void*>(
+                             &unit_one_pass_kernel<T, true>)
+                       : reinterpret_cast<const void*>(
+                             &unit_one_pass_kernel<T, false>);
+  const cudaError_t err = cudaLaunchCooperativeKernel(
+      kern, dim3(nsplit, B), dim3(kThreads), args, 0, st);
+  if (err != cudaSuccess) cudaGetLastError();  // leave no error behind
+  return err;
 }
 
 template <typename T>
@@ -243,31 +516,84 @@ cudaError_t normalize(const void* x, const float* m, const float* l,
   return cudaGetLastError();
 }
 
+template <typename T>
+int blocks_per_sm() {
+  int a = 0, b = 0;
+  cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &a, unit_one_pass_kernel<T, true>, kThreads, 0);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &b, unit_one_pass_kernel<T, false>, kThreads, 0);
+  return err != cudaSuccess ? -(int)err : (a < b ? a : b);
+}
+
 bool bad_shape(int B, int V, int nsplit) {
   return B <= 0 || V <= 0 || nsplit <= 0 || nsplit > V;
 }
 
+// The chunk split of the unit's own kernels: nsplit must be ceil(V /
+// kChunk), the plan's.
+bool bad_split(int B, int V, int nsplit) {
+  return B <= 0 || V <= 0 || nsplit != (V + kChunk - 1) / kChunk;
+}
+
 }  // namespace
 
-// x (B, V) row-major of dtype 0 = float32, 1 = bfloat16, 2 = float16.
-// pm/pl: (B, nsplit) f32 scratch; m_out/l_out (B,) f32.  Returns a
+// (threads per block, elements per thread, chunk, stated blocks per SM)
+// as built; the wrappers' plan must agree.
+extern "C" void repro_unit_geometry(int* out) {
+  out[0] = kThreads;
+  out[1] = kPerThread;
+  out[2] = kChunk;
+  out[3] = kMinBlocksPerSM;
+}
+
+// Blocks of the one-pass kernel one SM of the current device holds at
+// once, the least over its aligned and scalar forms, for dtype 0 =
+// float32, 1 = bfloat16, 2 = float16; a negative cudaError_t on failure.
+extern "C" int repro_unit_blocks_per_sm(int dtype) {
+  return dtype == 0   ? blocks_per_sm<float>()
+         : dtype == 1 ? blocks_per_sm<__nv_bfloat16>()
+         : dtype == 2 ? blocks_per_sm<__half>()
+                      : -(int)cudaErrorInvalidValue;
+}
+
+// x (B, V) row-major of dtype 0 = float32, 1 = bfloat16, 2 = float16;
+// buf: the f32 scratch m (B) | l (B) | pm (B, nsplit) | pl (B, nsplit),
+// with m and l the result; tickets: B zeros (uint32), zeros again when
+// the launch ends; nsplit = ceil(V / 4096).  One launch.  Returns a
 // cudaError_t.
-extern "C" int repro_softmax_stats(const void* x, void* pm, void* pl,
-                                   void* m_out, void* l_out, int B, int V,
-                                   int nsplit, int dtype, void* stream) {
-  if (bad_shape(B, V, nsplit)) return (int)cudaErrorInvalidValue;
+extern "C" int repro_softmax_stats(const void* x, void* buf, void* tickets,
+                                   int B, int V, int nsplit, int dtype,
+                                   void* stream) {
+  if (bad_split(B, V, nsplit)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  float *fm = static_cast<float*>(pm), *fl = static_cast<float*>(pl);
-  cudaError_t err = dtype == 0 ? stats_partial<float>(x, fm, fl, B, V, nsplit, s)
-                    : dtype == 1
-                        ? stats_partial<__nv_bfloat16>(x, fm, fl, B, V, nsplit, s)
-                    : dtype == 2 ? stats_partial<__half>(x, fm, fl, B, V, nsplit, s)
+  const Scratch sc(buf, B, nsplit);
+  unsigned* t = static_cast<unsigned*>(tickets);
+  cudaError_t err = dtype == 0   ? stats<float>(x, sc, t, B, V, nsplit, s)
+                    : dtype == 1 ? stats<__nv_bfloat16>(x, sc, t, B, V, nsplit, s)
+                    : dtype == 2 ? stats<__half>(x, sc, t, B, V, nsplit, s)
                                  : cudaErrorInvalidValue;
-  if (err != cudaSuccess) return (int)err;
-  stats_merge_kernel<<<(B + kThreads / 32 - 1) / (kThreads / 32), kThreads, 0,
-                       s>>>(fm, fl, nsplit, B, static_cast<float*>(m_out),
-                            static_cast<float*>(l_out));
-  return (int)cudaGetLastError();
+  return (int)err;
+}
+
+// Softmax of x (B, V) as above into out (B, V) f32 by one cooperative
+// launch; buf as for repro_softmax_stats (its pm and pl used).  The
+// B * nsplit blocks must fit on the card at once, or the launch fails
+// (cudaErrorCooperativeLaunchTooLarge).  Returns a cudaError_t.
+extern "C" int repro_softmax_one_pass(const void* x, void* buf, void* out,
+                                      int B, int V, int nsplit, int dtype,
+                                      void* stream) {
+  if (bad_split(B, V, nsplit) || B > kMaxGridY)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const Scratch sc(buf, B, nsplit);
+  float* o = static_cast<float*>(out);
+  cudaError_t err = dtype == 0   ? one_pass<float>(x, sc, o, B, V, nsplit, s)
+                    : dtype == 1 ? one_pass<__nv_bfloat16>(x, sc, o, B, V, nsplit, s)
+                    : dtype == 2 ? one_pass<__half>(x, sc, o, B, V, nsplit, s)
+                                 : cudaErrorInvalidValue;
+  return (int)err;
 }
 
 // Phase 2 over x (B, V) as above with its row stats m, l (B,) f32;
@@ -288,15 +614,16 @@ extern "C" int repro_softmax_normalize(const void* x, const void* m,
 }
 
 // Cross-entropy per row: loss (B,) f32 = m + log l - x[row, lab[row]],
-// lab (B,) int64 in [0, V) (not checked here).  x, pm, pl as for
-// repro_softmax_stats.  Returns a cudaError_t.
+// lab (B,) int64 in [0, V) (not checked here).  x as for
+// repro_softmax_stats; pm/pl (B, nsplit) f32 scratch for any nsplit in
+// [1, V].  Returns a cudaError_t.
 extern "C" int repro_fused_xent(const void* x, const void* lab, void* pm,
                                 void* pl, void* loss, int B, int V,
                                 int nsplit, int dtype, void* stream) {
   if (bad_shape(B, V, nsplit)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float *fm = static_cast<float*>(pm), *fl = static_cast<float*>(pl);
-  const dim3 grid((B + kThreads / 32 - 1) / (kThreads / 32));
+  const dim3 grid((B + kWarps - 1) / kWarps);
   const long long* lb = static_cast<const long long*>(lab);
   float* out = static_cast<float*>(loss);
   cudaError_t err;

@@ -33,17 +33,19 @@ def fused_xent(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
                          f"{logits.device}; got {tuple(labels.shape)} "
                          f"{labels.dtype} on {labels.device}")
     lab = labels.to(torch.int64).contiguous()
-    nsplit = _os.n_splits(logits.device, b, v)
-    part = torch.empty((2, b, nsplit), dtype=torch.float32,
-                       device=logits.device)
-    loss = torch.empty((b,), dtype=torch.float32, device=logits.device)
+    index = logits.get_device()
+    nsplit = _os.n_splits(index, b, v)
+    # one scratch allocation: loss (B) | pm (B, nsplit) | pl (B, nsplit)
+    buf = torch.empty((b * (2 * nsplit + 1),), dtype=torch.float32,
+                      device=logits.device)
+    base = buf.data_ptr()
     _os.raise_on(_os.lib().repro_fused_xent(
-        logits.data_ptr(), lab.data_ptr(), part[0].data_ptr(),
-        part[1].data_ptr(), loss.data_ptr(), b, v, nsplit,
+        logits.data_ptr(), lab.data_ptr(), base + 4 * b,
+        base + 4 * b * (nsplit + 1), base, b, v, nsplit,
         _os.DTYPES[logits.dtype],
-        torch.cuda.current_stream(logits.device).cuda_stream), "fused_xent")
+        torch._C._cuda_getCurrentRawStream(index)), "fused_xent")
     fused_xent.launches += 1
-    return loss
+    return buf[:b]
 
 
 fused_xent.launches = 0

@@ -356,6 +356,74 @@ def softmax_stats(x: torch.Tensor):
     return m, torch.sum(torch.exp(x - m[:, None]), dim=-1)
 
 
+UNIT_THREADS = 256          # threads of a softmax-unit chunk block
+
+
+def _xor_tree(x, op):
+    """The lanes of a warp (the last axis, 32) meeting by xor shuffles:
+    lane i takes ``op(x[i], x[i ^ o])`` for o = 16, 8, 4, 2, 1; every
+    lane ends with lane 0's value (``op`` is commutative)."""
+    lanes = torch.arange(32, device=x.device)
+    for o in (16, 8, 4, 2, 1):
+        x = op(x, x[..., lanes ^ o])
+    return x[..., 0]
+
+
+def softmax_stats_split(x: torch.Tensor, plan):
+    """A plain model of the CUDA softmax-unit kernels' chunked fold, for
+    the tests: ``softmax_stats`` of the same rows, in the kernels' order.
+
+    ``plan`` is an ``online_softmax.UnitPlan``.  Each row splits into
+    ``plan.nsplit`` chunks of ``plan.chunk`` elements (the last padded
+    with -inf); thread t of a chunk's 256 holds elements (j * 256 + t) *
+    vec + e, takes their max, then sums exp(x - max) over them in that
+    order (from 0 where the chunk is all -inf); a warp's 32 lanes meet in
+    an xor tree and the 8 warps in order.  The partials (m_i, l_i) then
+    merge as one warp does: m = max m_i, and lane j sums l_i exp(m_i - m)
+    (each product rounded) over partials j, j + 32, ... in order, the
+    lanes meeting in an xor tree.  Returns (m (B,), l (B,)) f32.  Every
+    step is elementwise across rows, so a row's bits do not depend on its
+    batch-mates."""
+    x = x.float()
+    b, v = x.shape
+    dev = x.device
+    per = plan.chunk // UNIT_THREADS
+    warps = UNIT_THREADS // 32
+    xp = torch.full((b, plan.nsplit * plan.chunk), -torch.inf, device=dev)
+    xp[:, :v] = x
+    # (B, nsplit, j, t, e) -> each thread's elements in its order:
+    # (B, nsplit, warp, lane, k) with k = j * vec + e
+    xt = xp.reshape(b, plan.nsplit, per // plan.vec, UNIT_THREADS,
+                    plan.vec).permute(0, 1, 3, 2, 4).reshape(
+                        b, plan.nsplit, warps, 32, per)
+    wmax = _xor_tree(torch.amax(xt, dim=-1), torch.maximum)  # max is exact
+    m = wmax[..., 0]
+    for w in range(1, warps):
+        m = torch.maximum(m, wmax[..., w])
+    base = torch.where(m == -torch.inf, 0.0, m)
+    e = torch.exp(xt - base[..., None, None, None])
+    s = torch.zeros(e.shape[:-1], device=dev)
+    for k in range(per):
+        s = s + e[..., k]
+    wsum = _xor_tree(s, torch.add)
+    l = wsum[..., 0]
+    for w in range(1, warps):
+        l = l + wsum[..., w]
+    # the merge: lane j takes partials j, j + 32, ...; -inf pads
+    lanes = -(-plan.nsplit // 32) * 32
+    pm = torch.full((b, lanes), -torch.inf, device=dev)
+    pl = torch.zeros((b, lanes), device=dev)
+    pm[:, :plan.nsplit], pl[:, :plan.nsplit] = m, l
+    pm, pl = pm.reshape(b, -1, 32), pl.reshape(b, -1, 32)
+    rm = torch.amax(pm, dim=(1, 2))
+    rbase = torch.where(rm == -torch.inf, 0.0, rm)
+    terms = pl * torch.exp(pm - rbase[:, None, None])
+    acc = torch.zeros((b, 32), device=dev)
+    for i in range(terms.shape[1]):
+        acc = acc + terms[:, i]
+    return rm, _xor_tree(acc, torch.add)
+
+
 def fused_xent(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     """Per-row softmax cross-entropy ``logsumexp(x) - x[label]``: (B, V),
     (B,) int -> (B,) f32."""

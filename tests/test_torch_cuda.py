@@ -699,18 +699,23 @@ UNIT_RTOL, UNIT_ATOL, XENT_ATOL = 2e-5, 1e-7, 1e-6
 @pytest.mark.parametrize("v", [777, 4097, 151936])
 def test_softmax_unit_kernels_match_plain(dev, dtype, b, v):
     """Phase 1 (stats), phase 2 (probabilities) and the cross-entropy
-    against their plain versions; one launch each."""
+    against their plain versions; one call each, and the stats kernel
+    once more where online_softmax takes the two-launch route."""
     x = _rows(dev, dtype, b, v, seed=b * v)
     lab = torch.randint(0, v, (b,), generator=torch.Generator(
         device=dev).manual_seed(v), device=dev)
+    route = osm.plan_of(x).route
     n0 = (osm.softmax_stats.launches, osm.online_softmax.launches,
-          fx.fused_xent.launches)
+          fx.fused_xent.launches,
+          osm.online_softmax.launches_by_route[route])
     m, l = osm.softmax_stats(x)
     p = osm.online_softmax(x)
     loss = fx.fused_xent(x, lab)
     torch.cuda.synchronize()
     assert (osm.softmax_stats.launches - n0[0], osm.online_softmax.launches
-            - n0[1], fx.fused_xent.launches - n0[2]) == (2, 1, 1)
+            - n0[1], fx.fused_xent.launches - n0[2],
+            osm.online_softmax.launches_by_route[route] - n0[3]) == (
+                1 + (route == osm.TWO_LAUNCH), 1, 1, 1)
     rm, rl = ref.softmax_stats(x)
     torch.testing.assert_close(m, rm, rtol=UNIT_RTOL, atol=UNIT_ATOL)
     torch.testing.assert_close(l, rl, rtol=UNIT_RTOL, atol=UNIT_ATOL)
@@ -798,6 +803,139 @@ def test_softmax_unit_kernels_reject_bad_operands(dev):
         fx.fused_xent(x, lab[:3])
     with pytest.raises(ValueError, match="labels"):
         fx.fused_xent(x, lab.cpu())
+
+
+UNIT_KERNELS = ("unit_stats_kernel", "unit_one_pass_kernel",
+                "normalize_kernel")
+
+
+def _unit_kernels(fn):
+    """The softmax unit's device kernels one call of ``fn`` launched."""
+    return [n for n in _kernel_names(fn, "unit_")
+            if any(k in n for k in UNIT_KERNELS)]
+
+
+def _edge_rows(dev, dtype, v):
+    """The most rows of width v that take the one-pass route here."""
+    return osm.device_resident_blocks(dev.index or 0, dtype) // -(
+        -v // osm.CHUNK)
+
+
+def _unit_check(x):
+    """Both wrappers on x against the plain versions and the split
+    model; returns (m, l, p)."""
+    m, l = osm.softmax_stats(x)
+    p = osm.online_softmax(x)
+    torch.cuda.synchronize()
+    rm, rl = ref.softmax_stats(x)
+    sm, sl = ref.softmax_stats_split(x, osm.plan_of(x))
+    for got, want in ((m, rm), (l, rl), (m, sm), (l, sl)):
+        torch.testing.assert_close(got, want, rtol=UNIT_RTOL, atol=UNIT_ATOL)
+    assert p.dtype == torch.float32 and p.shape == x.shape
+    torch.testing.assert_close(p, ref.online_softmax(x), rtol=UNIT_RTOL,
+                               atol=UNIT_ATOL)
+    torch.testing.assert_close(p.sum(-1), torch.ones(x.shape[0],
+                                                     device=x.device),
+                               rtol=1e-5, atol=0)
+    return m, l, p
+
+
+def test_unit_geometry_and_occupancy(dev):
+    """The built kernels' geometry is the plan's, and the card holds at
+    least the stated blocks per SM of the one-pass kernel."""
+    assert osm.geometry() == (osm.THREADS, osm.PER_THREAD, osm.CHUNK,
+                              osm.MIN_BLOCKS_PER_SM)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for dtype in osm.DTYPES:
+        assert osm.device_resident_blocks(dev.index or 0, dtype) >= \
+            sms * osm.MIN_BLOCKS_PER_SM
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("v", [4097, 151936])
+@pytest.mark.parametrize("past", [0, 1])
+def test_unit_routes_at_the_boundary_match_plain(dev, dtype, v, past):
+    """B at the route boundary (one-pass) and one past it (two-launch):
+    both wrappers against the plain versions and ``softmax_stats_split``."""
+    b = _edge_rows(dev, dtype, v) + past
+    x = _rows(dev, dtype, b, v, seed=b + v)
+    assert osm.plan_of(x).route == (osm.TWO_LAUNCH if past else osm.ONE_PASS)
+    _unit_check(x)
+
+
+@pytest.mark.parametrize("dtype,v", [(torch.float16, 151936),
+                                     (torch.float16, 777),
+                                     (torch.float32, 1001),
+                                     (torch.bfloat16, 4095),
+                                     (torch.float32, 3),
+                                     (torch.bfloat16, 1)])
+@pytest.mark.parametrize("b", [1, 12])
+def test_unit_f16_odd_and_short_rows(dev, dtype, v, b):
+    """f16 rows, odd V (scalar loads) and V below one chunk."""
+    _unit_check(_rows(dev, dtype, b, v, seed=v))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_unit_row_bits_alone_in_b12_and_b64(dev, dtype):
+    """A row's m, l and probabilities are the same bits alone (B 1,
+    one-pass), in B 12 (one-pass) and in B 64 (two-launch)."""
+    v = 151936
+    x = _rows(dev, dtype, 64, v, seed=3)
+    runs = {}
+    for b, route in ((12, osm.ONE_PASS), (64, osm.TWO_LAUNCH)):
+        assert osm.plan_of(x[:b]).route == route
+        runs[b] = (*osm.softmax_stats(x[:b]), osm.online_softmax(x[:b]))
+    for r in range(12):
+        assert osm.plan_of(x[r:r + 1]).route == osm.ONE_PASS
+        alone = (*osm.softmax_stats(x[r:r + 1]),
+                 osm.online_softmax(x[r:r + 1]))
+        for b in (12, 64):
+            for a, got in zip(alone, runs[b]):
+                assert torch.equal(a, got[r:r + 1]), (r, b)
+
+
+@pytest.mark.parametrize("dtype,b,v,kernels", [
+    (torch.float32, 12, 151936, 1), (torch.bfloat16, 512, 151936, 2),
+    (torch.float32, 70000, 1000, 2), (torch.float16, 1, 777, 1)])
+def test_unit_device_kernels_per_call(dev, dtype, b, v, kernels):
+    """softmax_stats is one device kernel at any B; online_softmax one on
+    the one-pass route and two on the other."""
+    x = _rows(dev, dtype, b, v, seed=1, scale=1.0)
+    assert osm.plan_of(x).route == (osm.ONE_PASS if kernels == 1
+                                    else osm.TWO_LAUNCH)
+    assert len(_unit_kernels(lambda: osm.softmax_stats(x))) == 1
+    assert len(_unit_kernels(lambda: osm.online_softmax(x))) == kernels
+
+
+def test_unit_tickets_reset_and_streams_keep_their_own(dev):
+    """Calls after calls give the same bits (the last block of a row puts
+    its ticket back to 0), on the default stream and on a second one,
+    which gets a ticket buffer of its own."""
+    x = _rows(dev, torch.float32, 40, 151936, seed=9)
+    want = osm.softmax_stats(x)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        got = [osm.softmax_stats(x) for _ in range(3)]
+    torch.cuda.current_stream().wait_stream(side)
+    got.append(osm.softmax_stats(x))
+    torch.cuda.synchronize()
+    for m, l in got:
+        assert torch.equal(m, want[0]) and torch.equal(l, want[1])
+    assert len({key for key in osm._TICKETS if key[0] == (dev.index or 0)}
+               ) >= 2
+
+
+def test_unit_stats_refuses_graph_capture(dev):
+    """A captured softmax_stats would share its stream's row tickets with
+    the calls beside its replays, so the wrapper refuses the capture."""
+    x = _rows(dev, torch.float32, 4, 9001, seed=2)
+    osm.softmax_stats(x)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with pytest.raises(RuntimeError, match="CUDA graph"):
+        with torch.cuda.graph(graph):
+            osm.softmax_stats(x)
 
 
 def _head_check(h, emb, pairs=()):
