@@ -32,12 +32,17 @@ Phases, each of which fails the run (non-zero exit, no result line):
      verify head at T 8 and 32, the three heads at nemotron-4-340b's
      width (D 18432, V 256000), flash attention (prompts of 71 and
      512 tokens, g 2 and 8, causal and windowed) and the softmax unit's
-     stats, softmax and cross-entropy kernels ((12, 151936) f32 and
-     (512, 151936) bf16 rows, and 70,000 rows of 1,000 -- more than
-     grid.y's 65,535; each call's plan and route and the device kernels
-     it ran, from a profiler trace; an empty launch timed on the same
-     ruler; a row's stats and probabilities bitwise equal alone, in B 12
-     and in B 64, across both routes); then paged attention's four exp-free
+     stats, softmax and cross-entropy kernels ((12, 151936) f32,
+     (512, 151936) bf16 and, stats and cross-entropy, (4096, 151936)
+     bf16 rows -- one 4k-token training sequence -- and 70,000 rows of
+     1,000 -- more than grid.y's 65,535; each call's plan and route and
+     the device kernels it ran, from a profiler trace: one for
+     softmax_stats and fused_xent at every B; stats and loss against
+     their split models; an empty launch timed on the same ruler; a
+     row's stats and probabilities bitwise equal alone, in B 12 and in B
+     64, across both routes, and its loss alone and in B 12, 64 and
+     4,096; the cross-entropy's backward at 4,096 bf16 rows within 4.0
+     GB beyond its inputs); then paged attention's four exp-free
      score modes (base2, pseudo, pwl, maxonly) at the main path's shapes
      (T = 1 and 4, window None and 128), each timed beside exact (at T = 1
      each launch apart, from a profiler trace), base2, pseudo and pwl
@@ -1495,18 +1500,18 @@ def check_flash_attention(torch, timer):
 
 
 def unit_errors(torch, x, lab, m, l, p, loss):
-    """Max abs errors of the three unit kernels' outputs against their
-    plain versions on (x, lab), after checking each within its
-    tolerance."""
+    """Max abs errors of the unit kernels' outputs against their plain
+    versions on (x, lab), after checking each within its tolerance
+    (``p`` None: online_softmax not run)."""
     from repro_torch.kernels import ref
 
     rm, rl = ref.softmax_stats(x)
-    rp = ref.online_softmax(x)
-    rloss = ref.fused_xent(x, lab)
-    checks = (("softmax_stats m", m, rm, UNIT_ATOL),
+    checks = [("softmax_stats m", m, rm, UNIT_ATOL),
               ("softmax_stats l", l, rl, UNIT_ATOL),
-              ("online_softmax", p, rp, UNIT_ATOL),
-              ("fused_xent", loss, rloss, XENT_ATOL))
+              ("fused_xent", loss, ref.fused_xent(x, lab), XENT_ATOL)]
+    if p is not None:
+        checks.append(("online_softmax", p, ref.online_softmax(x),
+                       UNIT_ATOL))
     errs = {}
     for what, got, want, atol in checks:
         ok = torch.allclose(got, want, rtol=UNIT_RTOL, atol=atol)
@@ -1514,17 +1519,45 @@ def unit_errors(torch, x, lab, m, l, p, loss):
         print(f"  {what}: max_abs_err {errs[what]:.6g} (rtol {UNIT_RTOL}, "
               f"atol {atol}): {'ok' if ok else 'FAIL'}", flush=True)
         check(ok, f"{what} disagrees with its plain version")
-    sums = p.sum(-1)
-    check(bool(((sums - 1).abs() <= 1e-5).all()),
-          "online_softmax rows do not sum to 1 within 1e-5")
-    return {"softmax_stats": max(errs["softmax_stats m"],
-                                 errs["softmax_stats l"]),
-            "online_softmax": errs["online_softmax"],
-            "fused_xent": errs["fused_xent"]}
+    out = {"softmax_stats": max(errs["softmax_stats m"],
+                                errs["softmax_stats l"]),
+           "fused_xent": errs["fused_xent"]}
+    if p is not None:
+        sums = p.sum(-1)
+        check(bool(((sums - 1).abs() <= 1e-5).all()),
+              "online_softmax rows do not sum to 1 within 1e-5")
+        out["online_softmax"] = errs["online_softmax"]
+    return out
 
 
-UNIT_KERNELS = ("unit_stats_kernel", "unit_one_pass_kernel",
-                "normalize_kernel")
+def split_errors(torch, x, lab, m, l, loss, rows) -> float:
+    """The stats and the cross-entropy of the first ``rows`` rows against
+    their split models (``softmax_stats_split``, ``fused_xent_split``:
+    the kernels' own fold and merge order) at the unit tolerances; the
+    max abs error."""
+    from repro_torch.kernels import online_softmax as osm
+    from repro_torch.kernels import ref
+
+    xs, ls = x[:rows], lab[:rows]
+    plan = osm.plan_of(x)
+    sm, sl = ref.softmax_stats_split(xs, plan)
+    sx = ref.fused_xent_split(xs, ls, plan)
+    errs = {}
+    for what, got, want, atol in (("m", m[:rows], sm, UNIT_ATOL),
+                                  ("l", l[:rows], sl, UNIT_ATOL),
+                                  ("loss", loss[:rows], sx, XENT_ATOL)):
+        errs[what] = (got - want).abs().max().item()
+        check(torch.allclose(got, want, rtol=UNIT_RTOL, atol=atol),
+              f"{what} of rows :{rows} disagrees with its split model")
+    print(f"  softmax_stats / fused_xent vs softmax_stats_split / "
+          f"fused_xent_split (rows :{rows}): max_abs_err m "
+          f"{errs['m']:.6g}, l {errs['l']:.6g}, loss {errs['loss']:.6g}: ok",
+          flush=True)
+    return max(errs.values())
+
+
+UNIT_KERNELS = ("unit_stats_kernel", "unit_xent_kernel",
+                "unit_one_pass_kernel", "normalize_kernel")
 
 
 def unit_kernels(torch, fn) -> list:
@@ -1534,27 +1567,35 @@ def unit_kernels(torch, fn) -> list:
             for k in UNIT_KERNELS if k in n]
 
 
-def unit_route(torch, x) -> dict:
+def unit_route(torch, x, lab, softmax=True) -> dict:
     """The plan of rows x, and the device kernels one call of each
-    wrapper ran: softmax_stats one at any B, online_softmax one on the
-    one-pass route and two on the other."""
+    wrapper ran: softmax_stats and fused_xent (labels ``lab``) one at any
+    B, online_softmax (unless ``softmax`` is False) one on the one-pass
+    route and two on the other."""
+    from repro_torch.kernels import fused_xent as fx
     from repro_torch.kernels import online_softmax as osm
 
     plan = osm.plan_of(x)
-    kernels = {name: unit_kernels(torch, fn) for name, fn in (
-        ("softmax_stats", lambda: osm.softmax_stats(x)),
-        ("online_softmax", lambda: osm.online_softmax(x)))}
+    calls = [("softmax_stats", lambda: osm.softmax_stats(x)),
+             ("fused_xent", lambda: fx.fused_xent(x, lab))]
+    if softmax:
+        calls.append(("online_softmax", lambda: osm.online_softmax(x)))
+    kernels = {name: unit_kernels(torch, fn) for name, fn in calls}
     tag = (f"B={x.shape[0]} V={x.shape[1]} "
            f"{str(x.dtype).replace('torch.', '')}")
     print(f"softmax unit {tag}: plan chunk {plan.chunk}, nsplit "
           f"{plan.nsplit}, vec {plan.vec}; online_softmax route "
-          f"{plan.route}; device kernels per call: softmax_stats "
-          f"{len(kernels['softmax_stats'])}, online_softmax "
-          f"{len(kernels['online_softmax'])} "
-          f"({', '.join(kernels['online_softmax'])})", flush=True)
-    want = {"softmax_stats": 1,
-            "online_softmax": 1 if plan.route == osm.ONE_PASS else 2}
-    check(all(len(kernels[n]) == k for n, k in want.items()),
+          f"{plan.route}; device kernels per call: " + "; ".join(
+              f"{n} {len(k)} ({', '.join(k)})" for n, k in kernels.items()),
+          flush=True)
+    want = {"softmax_stats": ["unit_stats_kernel"],
+            "fused_xent": ["unit_xent_kernel"]}
+    if softmax:
+        want["online_softmax"] = (
+            ["unit_one_pass_kernel"] if plan.route == osm.ONE_PASS
+            else ["unit_stats_kernel", "normalize_kernel"])
+    check({n: sorted(k) for n, k in kernels.items()}
+          == {n: sorted(k) for n, k in want.items()},
           f"softmax unit {tag}: device kernels {kernels}, want {want}")
     return dict(route=plan.route, chunk=plan.chunk, nsplit=plan.nsplit,
                 vec=plan.vec, device_kernels_per_call={
@@ -1562,13 +1603,15 @@ def unit_route(torch, x) -> dict:
 
 
 def check_softmax_units(torch, timer):
-    """The softmax unit's three kernels on (B, V = 151936) rows: B 12 in
-    f32 (the unit path's logits) and B 512 in bf16, each call's plan,
-    route and device kernels, the stats against ``softmax_stats_split``
-    too, and two calls bitwise equal.  Yardsticks ``torch.logsumexp``,
-    ``torch.softmax`` and ``F.cross_entropy``; an empty launch
-    (``torch.cuda._sleep(1)``) on the same ruler is the floor of one
-    launch."""
+    """The softmax unit's kernels on (B, V = 151936) rows: B 12 in f32
+    (the unit path's logits), B 512 in bf16 and B 4,096 in bf16 (one
+    4k-token training sequence; softmax_stats and fused_xent only), each
+    call's plan, route and device kernels, the stats and the
+    cross-entropy against their split models too (all rows; the first 64
+    at B 4,096), and two calls bitwise equal.  Yardsticks
+    ``torch.logsumexp``, ``torch.softmax`` and ``F.cross_entropy``; an
+    empty launch (``torch.cuda._sleep(1)``) on the same ruler is the floor
+    of one launch."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import fused_xent as fx
@@ -1583,42 +1626,44 @@ def check_softmax_units(torch, timer):
           f"blocks (f32), {osm.device_resident_blocks(0, torch.bfloat16)} "
           f"(bf16) at once", flush=True)
     rows = {"floor": floor}
-    for b, dtype in ((12, torch.float32), (512, torch.bfloat16)):
+    for b, dtype in ((12, torch.float32), (512, torch.bfloat16),
+                     (4096, torch.bfloat16)):
+        softmax = b < 4096
         x = (torch.randn((b, v), generator=gen, device="cuda") * 4).to(dtype)
         lab = torch.randint(0, v, (b,), generator=gen, device="cuda")
         m, l = osm.softmax_stats(x)
-        p = osm.online_softmax(x)
+        p = osm.online_softmax(x) if softmax else None
         loss = fx.fused_xent(x, lab)
         torch.cuda.synchronize()
         tag = f"B={b} {str(dtype).replace('torch.', '')}"
         print(f"softmax unit {tag}:", flush=True)
         errs = unit_errors(torch, x, lab, m, l, p, loss)
-        sm, sl = ref.softmax_stats_split(x, osm.plan_of(x))
-        ok = all(torch.allclose(g, w, rtol=UNIT_RTOL, atol=UNIT_ATOL)
-                 for g, w in ((m, sm), (l, sl)))
-        split_err = max((m - sm).abs().max().item(),
-                        (l - sl).abs().max().item())
-        print(f"  softmax_stats vs softmax_stats_split: max_abs_err "
-              f"{split_err:.6g}: {'ok' if ok else 'FAIL'}", flush=True)
-        check(ok, f"softmax_stats {tag} disagrees with its split model")
-        plan = unit_route(torch, x)
+        split_err = split_errors(torch, x, lab, m, l, loss,
+                                 b if softmax else 64)
+        plan = unit_route(torch, x, lab, softmax)
         check_repeatable(torch, lambda: torch.stack(osm.softmax_stats(x)),
                          f"softmax_stats {tag}")
-        check_repeatable(torch, lambda: osm.online_softmax(x),
-                         f"online_softmax {tag} ({plan['route']})")
+        check_repeatable(torch, lambda: fx.fused_xent(x, lab),
+                         f"fused_xent {tag}")
+        if softmax:
+            check_repeatable(torch, lambda: osm.online_softmax(x),
+                             f"online_softmax {tag} ({plan['route']})")
+        del p
         el, n = x.element_size(), b * v
-        cases = (
+        cases = [
             ("softmax_stats", lambda: osm.softmax_stats(x),
              lambda: ref.softmax_stats(x),
              lambda: torch.logsumexp(x, dim=-1), n * el + 8 * b, 4 * n),
-            ("online_softmax", lambda: osm.online_softmax(x),
-             lambda: ref.online_softmax(x),
-             lambda: torch.softmax(x, dim=-1, dtype=torch.float32),
-             n * el + 4 * n + 8 * b, 6 * n),
             ("fused_xent", lambda: fx.fused_xent(x, lab),
              lambda: ref.fused_xent(x, lab),
              lambda: F.cross_entropy(x, lab, reduction="none"),
-             n * el + 12 * b, 4 * n))
+             n * el + 12 * b, 4 * n)]
+        if softmax:
+            cases.append((
+                "online_softmax", lambda: osm.online_softmax(x),
+                lambda: ref.online_softmax(x),
+                lambda: torch.softmax(x, dim=-1, dtype=torch.float32),
+                n * el + 4 * n + 8 * b, 6 * n))
         for name, kern, plain, lib, nbytes, flops in cases:
             kern_t, plain_ms = timer.readings(kern), timer(plain)
             lib_t = timer.readings(lib, "library_")
@@ -1629,52 +1674,107 @@ def check_softmax_units(torch, timer):
                   f"{nbytes / 1e6:.3f} MB)", flush=True)
             rows[(name, b)] = dict(max_abs_err=errs[name], **kern_t,
                                    plain_ms=plain_ms, bound_ms=bound_ms,
-                                   bound_by=bound_by, **lib_t)
-            if name != "fused_xent":
-                rows[(name, b)]["plan"] = plan
+                                   bound_by=bound_by, **lib_t, plan=plan)
+            if name != "online_softmax":
+                rows[(name, b)]["split_max_abs_err"] = split_err
+        del x, lab, m, l, loss
+        torch.cuda.empty_cache()
     return rows
+
+
+def check_xent_backward_memory(torch) -> dict:
+    """``ops.softmax_xent``'s backward at 4,096 rows of 151,936 bf16: the
+    bytes it allocates beyond what is live before it (at most the f32
+    probabilities and the bf16 gradient, 3.73 GB; the 4.0 GB limit leaves
+    room for the label indices), and its gradient against autograd
+    through the plain version (bf16: a step of bf16, 1e-2, as the card
+    tests take it)."""
+    from repro_torch.kernels import ops, ref
+
+    b, v = 4096, 151936
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    x = (torch.randn((b, v), generator=gen, device="cuda") * 4).to(
+        torch.bfloat16)
+    lab = torch.randint(0, v, (b,), generator=gen, device="cuda")
+    xg = x.clone().requires_grad_(True)
+    loss = ops.softmax_xent(xg, lab).mean()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    loss.backward()
+    torch.cuda.synchronize()
+    extra = torch.cuda.max_memory_allocated() - before
+    xr = x.clone().requires_grad_(True)
+    ref.fused_xent(xr, lab).mean().backward()
+    err = (xg.grad.float() - xr.grad.float()).abs().max().item()
+    ok = torch.allclose(xg.grad.float(), xr.grad.float(), rtol=1e-2,
+                        atol=UNIT_ATOL)
+    print(f"softmax_xent backward B={b} bf16: {extra / 1e9:.4f} GB "
+          f"allocated beyond its inputs (limit 4.0; the f32 probabilities "
+          f"{4 * b * v / 1e9:.4f} + the bf16 gradient {2 * b * v / 1e9:.4f});"
+          f" gradient max_abs_err {err:.6g} vs the plain one (rtol 1e-2, "
+          f"atol {UNIT_ATOL}): {'ok' if ok else 'FAIL'}", flush=True)
+    check(extra <= 4.0e9, f"softmax_xent backward allocated {extra} bytes")
+    check(ok, "softmax_xent backward disagrees with the plain gradient")
+    del x, xg, xr, loss
+    torch.cuda.empty_cache()
+    return {"extra_bytes": extra, "grad_max_abs_err": err}
 
 
 def check_unit_invariance(torch) -> dict:
     """A row's stats and probabilities are the same bits alone (B 1,
-    one-pass), in B 12 (one-pass) and in B 64 (two-launch), f32 at V
-    151936: the split follows V alone and both routes fold and merge
-    alike."""
+    one-pass), in B 12 (one-pass) and in B 64 (two-launch), and its
+    cross-entropy loss alone and in B 12, 64 and 4,096, f32 at V 151936:
+    the split follows V alone and every route folds and merges alike."""
+    from repro_torch.kernels import fused_xent as fx
     from repro_torch.kernels import online_softmax as osm
 
     gen = torch.Generator(device="cuda").manual_seed(11)
-    x = torch.randn((64, 151936), generator=gen, device="cuda") * 4
+    x = torch.randn((4096, 151936), generator=gen, device="cuda") * 4
+    lab = torch.randint(0, 151936, (4096,), generator=gen, device="cuda")
     runs, routes = {}, {}
     for b in (12, 64):
         routes[b] = osm.plan_of(x[:b]).route
         runs[b] = (*osm.softmax_stats(x[:b]), osm.online_softmax(x[:b]))
+    losses = {b: fx.fused_xent(x[:b], lab[:b]) for b in (12, 64, 4096)}
     routes[1] = osm.plan_of(x[:1]).route
     same = {12: 0, 64: 0}
+    same_loss = dict.fromkeys(losses, 0)
     for r in range(12):
         alone = (*osm.softmax_stats(x[r:r + 1]),
                  osm.online_softmax(x[r:r + 1]))
         for b in same:
             same[b] += all(torch.equal(a, got[r:r + 1])
                            for a, got in zip(alone, runs[b]))
+        loss = fx.fused_xent(x[r:r + 1], lab[r:r + 1])
+        for b in same_loss:
+            same_loss[b] += torch.equal(loss, losses[b][r:r + 1])
     print(f"softmax unit rows (f32, V 151936): m, l and probabilities "
           f"of B 1 ({routes[1]}) bitwise equal in B 12 ({routes[12]}) for "
           f"{same[12]}/12 rows and in B 64 ({routes[64]}) for "
-          f"{same[64]}/12", flush=True)
+          f"{same[64]}/12; fused_xent's loss of B 1 bitwise equal in "
+          + ", ".join(f"B {b} for {k}/12" for b, k in same_loss.items()),
+          flush=True)
     check(routes == {1: osm.ONE_PASS, 12: osm.ONE_PASS,
                      64: osm.TWO_LAUNCH},
           f"softmax unit routes {routes}: want one-pass at B 1 and 12, "
           "two-launch at B 64")
     check(same == {12: 12, 64: 12},
           "softmax unit: a row's bits depend on its batch or route")
+    check(all(k == 12 for k in same_loss.values()),
+          "fused_xent: a row's loss depends on its batch")
+    del x, lab, runs, losses
+    torch.cuda.empty_cache()
     return {"routes": {str(b): r for b, r in routes.items()},
-            "rows_equal_b12": same[12], "rows_equal_b64": same[64]}
+            "rows_equal_b12": same[12], "rows_equal_b64": same[64],
+            "xent_rows_equal": {str(b): k for b, k in same_loss.items()}}
 
 
 def check_many_rows(torch):
-    """The softmax unit's three kernels at B 70,000 rows of V 1,000 (f32):
-    more rows than grid.y holds, one wrapper call each (online_softmax
-    on its two-launch route), against their plain versions at the unit
-    tolerances.  Logits of scale 1: where the label is the max, m + log
+    """The softmax unit's three wrappers at B 70,000 rows of V 1,000
+    (f32): more rows than grid.y holds, one wrapper call each and one
+    device kernel each (online_softmax two, on its two-launch route),
+    against their plain versions at the unit tolerances.  Logits of scale 1: where the label is the max, m + log
     l - x[label] cancels to about one f32 ulp of m, under XENT_ATOL
     while |m| < 8."""
     from repro_torch.kernels import fused_xent as fx
@@ -1695,10 +1795,10 @@ def check_many_rows(torch):
     check(all(n1[k] - n0[k] == want for k, want in (
         ("softmax_stats", 2), ("online_softmax", 1), ("fused_xent", 1))),
         "the 70,000-row unit calls did not launch once each")
-    unit_route(torch, x)
+    route = unit_route(torch, x, lab)
     check(osm.plan_of(x).route == osm.TWO_LAUNCH,
           "70,000 rows must take the two-launch route")
-    return errs
+    return errs, route
 
 
 # ---------------------------------------------------------------------------
@@ -2342,7 +2442,8 @@ def main() -> int:
         flash_rows, fa_routes = check_flash_attention(torch, timer)
         unit_rows = check_softmax_units(torch, timer)
         unit_invariance = check_unit_invariance(torch)
-        many_errs = check_many_rows(torch)
+        many_errs, many_route = check_many_rows(torch)
+        xent_backward = check_xent_backward_memory(torch)
         print(clocks_line(), flush=True)
         del timer
 
@@ -2449,20 +2550,28 @@ def main() -> int:
             ("fused_xent", "src/repro/kernels/fused_xent.py:59"),
             ("softmax_stats", "src/repro/kernels/online_softmax.py:69"),
             ("online_softmax", "src/repro/kernels/online_softmax.py:106")):
-        kernels.append(dict(
+        sizes = (12, 512) if name == "online_softmax" else (12, 512, 4096)
+        plans = {b: unit_rows[(name, b)]["plan"] for b in sizes}
+        entry = dict(
             name=name, route="cuda",
             source="src/repro_torch/kernels/csrc/online_softmax.cu",
             replaces=replaces, launches=unit_launches[name],
-            max_abs_err=max(unit_errs[name], unit_rows[(name, 12)][
-                "max_abs_err"], unit_rows[(name, 512)]["max_abs_err"],
-                many_errs[name]),
+            max_abs_err=max(unit_errs[name], many_errs[name], *(
+                unit_rows[(name, b)]["max_abs_err"] for b in sizes)),
             **{k: unit_rows[(name, 12)][k] for k in TIMES},
             b512_bf16={k: unit_rows[(name, 512)][k] for k in TIMES},
-            **({} if name == "fused_xent" else dict(
-                plan=unit_rows[(name, 12)]["plan"],
-                b512_bf16_plan=unit_rows[(name, 512)]["plan"],
-                launch_floor=unit_rows["floor"],
-                invariance=unit_invariance))))
+            plan=plans[12], b512_bf16_plan=plans[512],
+            launch_floor=unit_rows["floor"], invariance=unit_invariance)
+        if name != "online_softmax":
+            entry["b4096_bf16"] = {k: unit_rows[(name, 4096)][k]
+                                   for k in TIMES + ("split_max_abs_err",)}
+            entry["device_kernels_per_call"] = {
+                **{f"B{b}": plans[b]["device_kernels_per_call"][name]
+                   for b in sizes},
+                "B70000": many_route["device_kernels_per_call"][name]}
+        if name == "fused_xent":
+            entry["backward_b4096_bf16"] = xent_backward
+        kernels.append(entry)
     summary["probe"] = {
         str(w): {v: {k: row[k] for k in ("divergence",
                                          "mean_first_divergence")}

@@ -1,6 +1,6 @@
 // The full softmax unit for Hopper (sm_90a): the paper's baseline, in
 // the two phases of the TPU kernels, plus the cross-entropy head that
-// shares phase 1.
+// shares phase 1's kernel template.
 //
 // Replaces the TPU kernels
 //   src/repro/kernels/online_softmax.py  softmax_stats (:69, pallas_call
@@ -48,15 +48,22 @@
 //     runs softmax_stats' launch, then `normalize_kernel`, which reads x
 //     a second time.  Both routes give the same bits: the same fold, the
 //     same merge, the same expression for the probabilities.
-//   * The cross-entropy entry keeps its own split (a few blocks per SM
-//     over the B rows, `stats_partial_kernel` with an online carry per
-//     thread) and a merge kernel that also reads the label logit once
-//     (exactly one column hits, so it equals the TPU kernel's masked sum)
-//     and writes m + log l - x[label].
-//   * Rows sit on grid.y, at most 65,535 of them per launch; the blocks
-//     of softmax_stats, the cross-entropy and phase 2 stride over the
-//     rows beyond (a training batch's B * T rows), so any row count takes
-//     one launch, as the TPU kernels' row tiling does.
+//   * The cross-entropy is softmax_stats' launch with another head
+//     (`stats_block`, the same fold, split and merge; `unit_xent_kernel`):
+//     every block reads its row's label once, the thread that folded
+//     x[label] writes it from its register (no dependent load in the
+//     tail) and the block's ticket publishes it with the partial, and
+//     the row's last block writes (m + log l) - x[label].  So a row's
+//     loss, like its stats, is the same bits alone or in any batch.  At a
+//     training
+//     batch's rows (4,096 x 151,936 bf16) this per-chunk grid streams
+//     faster than a persistent walk over the chunks with the next chunk's
+//     loads in registers or in a cp.async.bulk ring
+//     (scripts/unit_stream_probe.cu): the blocks of the stats kernels
+//     sit on grid.y and grid.z, one chunk each, with no row loop.
+//   * Rows past grid.y's 65,535 go to grid.z in the stats kernels and
+//     stride over grid.y in phase 2, so any row count takes one launch,
+//     as the TPU kernels' row tiling does.
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -73,10 +80,21 @@ constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kPerThread = 16;                 // elements a thread folds
 constexpr int kChunk = kThreads * kPerThread;  // elements a block folds
-constexpr int kMinBlocksPerSM = 4;  // the chunk kernels' stated occupancy
-constexpr int kMaxGridY = 65535;    // rows beyond it stride in the kernels
+constexpr int kMinBlocksPerSM = 4;  // the one-pass kernel's stated occupancy
+// The stats kernels' occupancy: 8 blocks of 256 threads fill an SM, in 32
+// registers a thread.  At 4,096 x 151,936 bf16 the stats launch streams
+// x in 0.51 ms this way, 0.59 at the 5 blocks its 47 registers gave
+// (scripts/unit_stream_probe.cu, "(a) at8" / "at4").
+constexpr int kStatsBlocksPerSM = 8;
+constexpr int kMaxGridY = 65535;    // grid.y's limit (and grid.z's)
 
 int grid_rows(int B) { return B < kMaxGridY ? B : kMaxGridY; }
+
+// The stats kernels' grid: (nsplit, B) with rows past grid.y's limit on
+// grid.z, row = z * gridDim.y + y.
+dim3 chunk_grid(int nsplit, int B) {
+  return dim3(nsplit, grid_rows(B), (B + kMaxGridY - 1) / kMaxGridY);
+}
 
 __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) {
@@ -88,36 +106,6 @@ template <typename T, int N>
 struct alignas(sizeof(T) * N) Vec {
   T v[N];
 };
-
-// Fold one element into an online (m, l) pair.
-__device__ __forceinline__ void fold(float x, float& m, float& l) {
-  if (x > m) {
-    l = (m == -INFINITY ? 0.f : l * expf(m - x)) + 1.f;
-    m = x;
-  } else if (x != -INFINITY) {
-    l += expf(x - m);
-  }
-}
-
-// Merge pair (m2, l2) into (m, l); an empty pair is (-inf, 0).
-__device__ __forceinline__ void merge(float& m, float& l, float m2, float l2) {
-  const float mn = fmaxf(m, m2);
-  if (mn == -INFINITY) return;
-  l = (m == -INFINITY ? 0.f : l * expf(m - mn)) +
-      (m2 == -INFINITY ? 0.f : l2 * expf(m2 - mn));
-  m = mn;
-}
-
-// An xor tree: merge (like every IEEE sum) is commutative, so every lane
-// ends with the same pair.
-__device__ __forceinline__ void warp_merge(float& m, float& l) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) {
-    const float m2 = __shfl_xor_sync(kFull, m, o);
-    const float l2 = __shfl_xor_sync(kFull, l, o);
-    merge(m, l, m2, l2);
-  }
-}
 
 __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
@@ -240,43 +228,120 @@ __device__ __forceinline__ void fold_chunk(const float (&v)[kPerThread],
   for (int w = 1; w < kWarps; ++w) l += sh[kWarps + w];
 }
 
-// softmax_stats, one launch: block (split, row) folds its chunk, writes
-// its partial and takes the row's ticket; the last of the row's nsplit
-// blocks merges the partials, writes m[row], l[row] and resets the
-// ticket to 0.
-template <typename T, bool ALIGNED>
-__global__ void __launch_bounds__(kThreads, kMinBlocksPerSM)
-    unit_stats_kernel(const T* __restrict__ x, float* __restrict__ pm,
-                      float* __restrict__ pl, unsigned* __restrict__ tickets,
-                      float* __restrict__ m_out, float* __restrict__ l_out,
-                      int B, int V, int nsplit) {
+// What the last block of a row writes: softmax_stats' (m, l), or the
+// cross-entropy's (m + log l) - x[label].
+enum class Head { kStats, kXent };
+
+// A stats launch's rows and scratch: x (B, V) in nsplit chunks, the
+// partials pm, pl (B, nsplit), the row tickets and softmax_stats' m, l
+// (B,).  The kernels take it as one struct: passed as separate
+// parameters, ptxas spilled 20 bytes of the cross-entropy kernel's
+// aligned forms at 32 registers.
+struct Rows {
+  float *pm, *pl, *m, *l;
+  unsigned* tickets;
+  int B, V, nsplit;
+};
+
+// The cross-entropy's operands: labels (B,) and two (B,) f32 outputs --
+// the label logits (scratch: the thread that holds a row's label logit
+// writes it before its block's ticket, the row's last block reads it)
+// and the loss.
+struct XentOut {
+  const long long* labels;
+  float* xl;
+  float* loss;
+};
+
+// The element of a chunk at offset p (0 <= p < kChunk) is held by thread
+// (p / VEC) % kThreads in its slot (p / (kThreads * VEC)) * VEC + p %
+// VEC (load_chunk's mapping); the slot is picked by compares, so v stays
+// in registers.
+template <typename T>
+__device__ __forceinline__ bool holds(int p, float (&v)[kPerThread],
+                                      float& got) {
+  constexpr int VEC = 16 / (int)sizeof(T);
+  if ((p / VEC) % kThreads != (int)threadIdx.x) return false;
+  const int slot = (p / (kThreads * VEC)) * VEC + p % VEC;
+#pragma unroll
+  for (int k = 0; k < kPerThread; ++k)
+    if (k == slot) got = v[k];
+  return true;
+}
+
+// One block's work in softmax_stats and the cross-entropy: block (split,
+// row) folds its chunk, writes its partial and takes the row's ticket;
+// the last of the row's nsplit blocks merges the partials, writes the
+// row's result and resets the ticket to 0.  Rows sit on grid.y and
+// grid.z (row = z * gridDim.y + y), so any B takes one launch with no
+// row loop.  For the cross-entropy, every block reads its row's label
+// once; in the block whose chunk holds it, the thread that folded
+// x[row, label] takes it from its register and writes it to xo.xl[row]
+// before the ticket, whose release publishes it with the partial.
+template <Head HEAD, typename T, bool ALIGNED>
+__device__ __forceinline__ void stats_block(const T* __restrict__ x,
+                                            const Rows& r, XentOut xo) {
   __shared__ float sh[2 * kWarps];
   __shared__ bool last;
-  const int split = blockIdx.x;
-  const int begin = split * kChunk, end = min(V, begin + kChunk);
-  // rows stride by gridDim.y (at most 65,535), so any B takes one launch
-  for (int row = blockIdx.y; row < B; row += gridDim.y) {
-    float v[kPerThread];
-    load_chunk<T, ALIGNED>(x + (size_t)row * V, begin, end, v);
-    float m, l;
-    fold_chunk(v, sh, m, l);
-    const size_t p = (size_t)row * nsplit;
-    if (threadIdx.x == 0) {
-      pm[p + split] = m;
-      pl[p + split] = l;
-      last = take_ticket(tickets + row) == (unsigned)(nsplit - 1);
+  const int split = blockIdx.x, row = blockIdx.z * gridDim.y + blockIdx.y;
+  if (row >= r.B) return;
+  const int begin = split * kChunk, end = min(r.V, begin + kChunk);
+  float v[kPerThread];
+  load_chunk<T, ALIGNED>(x + (size_t)row * r.V, begin, end, v);
+  // The thread that holds x[row, label] writes it to the row's slot
+  // itself: fold_chunk's barriers order that write before thread 0's
+  // ticket, whose release covers it with the partial.  A label outside
+  // [0, V) gets NaN there from the row's first block.  So nothing of the
+  // label outlives the load, and at the stats kernels' 32 registers only
+  // the f32 aligned form spills (20 bytes).  Handing the logit to thread 0
+  // through shared memory was slower at 4,096 bf16 rows
+  // (scripts/unit_stream_probe.cu "xent-sm 8" against "xent at8").
+  if constexpr (HEAD == Head::kXent) {
+    const long long label = xo.labels[row];
+    float got;
+    if (label < 0 || label >= r.V) {
+      if (split == 0) xo.xl[row] = NAN;
+    } else if (label / kChunk == split &&
+               holds<T>((int)(label % kChunk), v, got)) {
+      xo.xl[row] = got;
     }
-    __syncthreads();  // thread 0's acquire covers its block's reads below
-    if (last && threadIdx.x < 32) {
-      merge_partials(pm + p, pl + p, nsplit, threadIdx.x, m, l);
-      if (threadIdx.x == 0) {
-        m_out[row] = m;
-        l_out[row] = l;
-        tickets[row] = 0;  // every block of the row has taken its ticket
-      }
-    }
-    __syncthreads();  // sh and `last` are free for the next row
   }
+  float m, l;
+  fold_chunk(v, sh, m, l);
+  const size_t p = (size_t)row * r.nsplit;
+  if (threadIdx.x == 0) {
+    r.pm[p + split] = m;
+    r.pl[p + split] = l;
+    last = take_ticket(r.tickets + row) == (unsigned)(r.nsplit - 1);
+  }
+  __syncthreads();  // thread 0's acquire covers its block's reads below
+  if (last && threadIdx.x < 32) {
+    merge_partials(r.pm + p, r.pl + p, r.nsplit, threadIdx.x, m, l);
+    if (threadIdx.x == 0) {
+      if constexpr (HEAD == Head::kXent) {
+        xo.loss[row] = m + logf(l) - __ldcg(xo.xl + row);
+      } else {
+        r.m[row] = m;
+        r.l[row] = l;
+      }
+      r.tickets[row] = 0;  // every block of the row has taken its ticket
+    }
+  }
+}
+
+// softmax_stats, one launch: (m, l) per row.
+template <typename T, bool ALIGNED>
+__global__ void __launch_bounds__(kThreads, kStatsBlocksPerSM)
+    unit_stats_kernel(const T* __restrict__ x, Rows r) {
+  stats_block<Head::kStats, T, ALIGNED>(x, r, XentOut{});
+}
+
+// The cross-entropy, one launch: (m + log l) - x[row, labels[row]] per
+// row, NaN where the label lies outside [0, V).
+template <typename T, bool ALIGNED>
+__global__ void __launch_bounds__(kThreads, kStatsBlocksPerSM)
+    unit_xent_kernel(const T* __restrict__ x, Rows r, XentOut xo) {
+  stats_block<Head::kXent, T, ALIGNED>(x, r, xo);
 }
 
 // online_softmax in one cooperative launch, grid (nsplit, B), every
@@ -336,66 +401,6 @@ __global__ void __launch_bounds__(kThreads, kMinBlocksPerSM)
   }
 }
 
-// The cross-entropy's phase 1: block (split, row) folds x[row,
-// begin:end) into one (m, l) partial, an online carry per thread.  VEC
-// elements per load; row starts and split bounds are multiples of VEC.
-template <typename T, int VEC>
-__global__ void __launch_bounds__(kThreads) stats_partial_kernel(
-    const T* __restrict__ x, float* __restrict__ pm, float* __restrict__ pl,
-    int B, int V, int per_split, int nsplit) {
-  __shared__ float wm[kWarps], wl[kWarps];
-  const int split = blockIdx.x;
-  const int begin = split * per_split;
-  const int end = max(begin, min(V, begin + per_split));
-  const int nvec = (end - begin) / VEC;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  // rows stride by gridDim.y (at most 65,535), so any B takes one launch
-  for (int row = blockIdx.y; row < B; row += gridDim.y) {
-    const T* xr = x + (size_t)row * V;
-    float m = -INFINITY, l = 0.f;
-    for (int i = threadIdx.x; i < nvec; i += kThreads) {
-      const Vec<T, VEC> c =
-          *reinterpret_cast<const Vec<T, VEC>*>(xr + begin + i * VEC);
-#pragma unroll
-      for (int e = 0; e < VEC; ++e) fold(to_float(c.v[e]), m, l);
-    }
-    for (int j = begin + nvec * VEC + threadIdx.x; j < end; j += kThreads)
-      fold(to_float(xr[j]), m, l);
-    warp_merge(m, l);
-    if (lane == 0) {
-      wm[warp] = m;
-      wl[warp] = l;
-    }
-    __syncthreads();
-    if (warp == 0) {
-      m = lane < kWarps ? wm[lane] : -INFINITY;
-      l = lane < kWarps ? wl[lane] : 0.f;
-      warp_merge(m, l);
-      if (lane == 0) {
-        pm[(size_t)row * nsplit + split] = m;
-        pl[(size_t)row * nsplit + split] = l;
-      }
-    }
-    __syncthreads();  // wm / wl are free for the next row
-  }
-}
-
-// One warp per row: the row's partials merged, then the loss.
-template <typename T>
-__global__ void __launch_bounds__(kThreads) xent_merge_kernel(
-    const float* __restrict__ pm, const float* __restrict__ pl, int nsplit,
-    int B, const T* __restrict__ x, int V, const long long* __restrict__ lab,
-    float* __restrict__ loss) {
-  const int row = blockIdx.x * kWarps + (threadIdx.x >> 5);
-  const int lane = threadIdx.x & 31;
-  if (row >= B) return;  // warp-uniform
-  float m, l;
-  const size_t p = (size_t)row * nsplit;
-  merge_partials(pm + p, pl + p, nsplit, lane, m, l);
-  if (lane == 0)
-    loss[row] = m + logf(l) - to_float(x[(size_t)row * V + lab[row]]);
-}
-
 // Phase 2: out[row, j] = exp(x[row, j] - m[row]) / l[row], f32 -- the
 // one-pass kernel's expression, so both routes give the same bits.
 template <typename T, int VEC>
@@ -433,9 +438,8 @@ bool aligned(const void* x, int V) {
          reinterpret_cast<uintptr_t>(x) % 16 == 0;
 }
 
-// Vector width in elements of the cross-entropy's and phase 2's loads:
-// 16 bytes where every row start (and so every split bound, a multiple of
-// 16 bytes' worth) is aligned, else 1.
+// Vector width in elements of phase 2's loads: 16 bytes where every row
+// start is aligned, else 1.
 template <typename T>
 int vec_of(const void* x, int V) {
   return aligned<T>(x, V) ? 16 / (int)sizeof(T) : 1;
@@ -456,14 +460,33 @@ struct Scratch {
 template <typename T>
 cudaError_t stats(const void* x, const Scratch& s, unsigned* tickets, int B,
                   int V, int nsplit, cudaStream_t st) {
-  const dim3 grid(nsplit, grid_rows(B));
+  const dim3 grid = chunk_grid(nsplit, B);
+  const T* xp = static_cast<const T*>(x);
+  const Rows r{s.pm, s.pl, s.m, s.l, tickets, B, V, nsplit};
+  if (aligned<T>(x, V))
+    unit_stats_kernel<T, true><<<grid, kThreads, 0, st>>>(xp, r);
+  else
+    unit_stats_kernel<T, false><<<grid, kThreads, 0, st>>>(xp, r);
+  return cudaGetLastError();
+}
+
+// The cross-entropy's scratch, one f32 buffer: loss (B) | pm (B, nsplit)
+// | pl (B, nsplit) | the label logits (B).
+template <typename T>
+cudaError_t xent(const void* x, const long long* labels, void* buf,
+                 unsigned* tickets, int B, int V, int nsplit,
+                 cudaStream_t st) {
+  float* loss = static_cast<float*>(buf);
+  float* pm = loss + B;
+  float* pl = pm + (size_t)B * nsplit;
+  const Rows r{pm, pl, nullptr, nullptr, tickets, B, V, nsplit};
+  const XentOut xo{labels, pl + (size_t)B * nsplit, loss};
+  const dim3 grid = chunk_grid(nsplit, B);
   const T* xp = static_cast<const T*>(x);
   if (aligned<T>(x, V))
-    unit_stats_kernel<T, true><<<grid, kThreads, 0, st>>>(
-        xp, s.pm, s.pl, tickets, s.m, s.l, B, V, nsplit);
+    unit_xent_kernel<T, true><<<grid, kThreads, 0, st>>>(xp, r, xo);
   else
-    unit_stats_kernel<T, false><<<grid, kThreads, 0, st>>>(
-        xp, s.pm, s.pl, tickets, s.m, s.l, B, V, nsplit);
+    unit_xent_kernel<T, false><<<grid, kThreads, 0, st>>>(xp, r, xo);
   return cudaGetLastError();
 }
 
@@ -482,23 +505,6 @@ cudaError_t one_pass(const void* x, const Scratch& s, float* out, int B,
       kern, dim3(nsplit, B), dim3(kThreads), args, 0, st);
   if (err != cudaSuccess) cudaGetLastError();  // leave no error behind
   return err;
-}
-
-template <typename T>
-cudaError_t stats_partial(const void* x, float* pm, float* pl, int B, int V,
-                          int nsplit, cudaStream_t s) {
-  const int vec = vec_of<T>(x, V);
-  // split bounds on 16-byte multiples, so each split's vector loads align
-  const int step = 16 / (int)sizeof(T);
-  const int per_split = ((V + nsplit - 1) / nsplit + step - 1) / step * step;
-  const dim3 grid(nsplit, grid_rows(B));
-  if (vec > 1)
-    stats_partial_kernel<T, (int)(16 / sizeof(T))><<<grid, kThreads, 0, s>>>(
-        static_cast<const T*>(x), pm, pl, B, V, per_split, nsplit);
-  else
-    stats_partial_kernel<T, 1><<<grid, kThreads, 0, s>>>(
-        static_cast<const T*>(x), pm, pl, B, V, per_split, nsplit);
-  return cudaGetLastError();
 }
 
 template <typename T>
@@ -527,9 +533,7 @@ int blocks_per_sm() {
   return err != cudaSuccess ? -(int)err : (a < b ? a : b);
 }
 
-bool bad_shape(int B, int V, int nsplit) {
-  return B <= 0 || V <= 0 || nsplit <= 0 || nsplit > V;
-}
+bool bad_rows(int B, int V) { return B <= 0 || V <= 0; }
 
 // The chunk split of the unit's own kernels: nsplit must be ceil(V /
 // kChunk), the plan's.
@@ -601,7 +605,7 @@ extern "C" int repro_softmax_one_pass(const void* x, void* buf, void* out,
 extern "C" int repro_softmax_normalize(const void* x, const void* m,
                                        const void* l, void* out, int B, int V,
                                        int dtype, void* stream) {
-  if (bad_shape(B, V, 1)) return (int)cudaErrorInvalidValue;
+  if (bad_rows(B, V)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float *fm = static_cast<const float*>(m),
               *fl = static_cast<const float*>(l);
@@ -613,37 +617,22 @@ extern "C" int repro_softmax_normalize(const void* x, const void* m,
   return (int)err;
 }
 
-// Cross-entropy per row: loss (B,) f32 = m + log l - x[row, lab[row]],
-// lab (B,) int64 in [0, V) (not checked here).  x as for
-// repro_softmax_stats; pm/pl (B, nsplit) f32 scratch for any nsplit in
-// [1, V].  Returns a cudaError_t.
-extern "C" int repro_fused_xent(const void* x, const void* lab, void* pm,
-                                void* pl, void* loss, int B, int V,
-                                int nsplit, int dtype, void* stream) {
-  if (bad_shape(B, V, nsplit)) return (int)cudaErrorInvalidValue;
+// Cross-entropy per row: loss (B,) f32 = (m + log l) - x[row, lab[row]],
+// NaN where lab[row] lies outside [0, V); lab (B,) int64.  x, tickets and
+// nsplit as for repro_softmax_stats; buf: the f32 scratch loss (B) | pm
+// (B, nsplit) | pl (B, nsplit) | label logits (B), with loss the result.
+// One launch.  Returns a cudaError_t.
+extern "C" int repro_fused_xent(const void* x, const void* lab, void* buf,
+                                void* tickets, int B, int V, int nsplit,
+                                int dtype, void* stream) {
+  if (bad_split(B, V, nsplit)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  float *fm = static_cast<float*>(pm), *fl = static_cast<float*>(pl);
-  const dim3 grid((B + kWarps - 1) / kWarps);
   const long long* lb = static_cast<const long long*>(lab);
-  float* out = static_cast<float*>(loss);
-  cudaError_t err;
-  if (dtype == 0) {
-    err = stats_partial<float>(x, fm, fl, B, V, nsplit, s);
-    if (err != cudaSuccess) return (int)err;
-    xent_merge_kernel<float><<<grid, kThreads, 0, s>>>(
-        fm, fl, nsplit, B, static_cast<const float*>(x), V, lb, out);
-  } else if (dtype == 1) {
-    err = stats_partial<__nv_bfloat16>(x, fm, fl, B, V, nsplit, s);
-    if (err != cudaSuccess) return (int)err;
-    xent_merge_kernel<__nv_bfloat16><<<grid, kThreads, 0, s>>>(
-        fm, fl, nsplit, B, static_cast<const __nv_bfloat16*>(x), V, lb, out);
-  } else if (dtype == 2) {
-    err = stats_partial<__half>(x, fm, fl, B, V, nsplit, s);
-    if (err != cudaSuccess) return (int)err;
-    xent_merge_kernel<__half><<<grid, kThreads, 0, s>>>(
-        fm, fl, nsplit, B, static_cast<const __half*>(x), V, lb, out);
-  } else {
-    return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
+  unsigned* t = static_cast<unsigned*>(tickets);
+  cudaError_t err =
+      dtype == 0   ? xent<float>(x, lb, buf, t, B, V, nsplit, s)
+      : dtype == 1 ? xent<__nv_bfloat16>(x, lb, buf, t, B, V, nsplit, s)
+      : dtype == 2 ? xent<__half>(x, lb, buf, t, B, V, nsplit, s)
+                   : cudaErrorInvalidValue;
+  return (int)err;
 }

@@ -4,18 +4,19 @@ Replace the TPU kernels of ``repro.kernels.online_softmax`` (Pallas):
 ``softmax_stats`` (``pallas_call`` at online_softmax.py:82), the per-row
 ``(max, sum exp(x - max))`` by one online pass, and ``online_softmax``
 (``pallas_call`` at :121), which normalises ``exp(x - m) / l`` with those
-stats -- the paper's baseline unit.
+stats -- the paper's baseline unit.  The cross-entropy head
+(``fused_xent``) runs on the same plan and kernel template.
 
 Bound on the H100: memory -- softmax_stats reads x once; online_softmax
 reads x and writes the f32 probabilities once.  ``unit_plan`` splits each
 row into chunks of ``CHUNK`` elements (the split follows V alone, never
 B), one block per (chunk, row), and picks the route from shapes only:
 
-- ``softmax_stats``: one launch at any B; the last block of a row to
-  arrive merges the row's partials in one fixed order (a per-row ticket,
-  from a zeroed buffer kept per (device, stream); refused inside a CUDA
-  graph capture, whose replays would share the capturing stream's
-  tickets with whatever runs on the stream then).
+- ``softmax_stats`` (and ``fused_xent``): one launch at any B; the last
+  block of a row to arrive merges the row's partials in one fixed order
+  (a per-row ticket, from a zeroed buffer kept per (device, stream);
+  refused inside a CUDA graph capture, whose replays would share the
+  capturing stream's tickets with whatever runs on the stream then).
 - ``online_softmax``: ``"one-pass"`` where the B * nsplit blocks fit on
   the card at once -- one cooperative launch that reads x once and merges
   each row's partials behind a grid barrier; else ``"two-launch"`` --
@@ -48,9 +49,6 @@ PER_THREAD = 16
 CHUNK = THREADS * PER_THREAD
 MIN_BLOCKS_PER_SM = 4      # their launch bounds' promise
 ONE_PASS, TWO_LAUNCH = "one-pass", "two-launch"
-# The cross-entropy's split: a few blocks per SM over the B rows
-_SPLITS_PER_SM = 4
-_MIN_SPLIT = 1024           # elements a phase-1 block folds at least
 
 
 @dataclasses.dataclass(frozen=True)
@@ -92,7 +90,7 @@ def lib():
         ctypes.c_int] * 4 + [ctypes.c_void_p]
     so.repro_softmax_normalize.argtypes = [ctypes.c_void_p] * 4 + [
         ctypes.c_int] * 3 + [ctypes.c_void_p]
-    so.repro_fused_xent.argtypes = [ctypes.c_void_p] * 5 + [
+    so.repro_fused_xent.argtypes = [ctypes.c_void_p] * 4 + [
         ctypes.c_int] * 4 + [ctypes.c_void_p]
     so.repro_unit_blocks_per_sm.argtypes = [ctypes.c_int]
     so.repro_unit_geometry.argtypes = [ctypes.c_void_p]
@@ -152,10 +150,14 @@ _MAX_TICKETS = 64
 _TICKETS: collections.OrderedDict = collections.OrderedDict()
 
 
-def _tickets(index: int, stream: int, b: int) -> int:
+def tickets(index: int, stream: int, b: int) -> int:
+    """The address of at least ``b`` zeroed row tickets for launches on
+    ``stream`` of CUDA device ``index``; raises inside a CUDA graph
+    capture."""
     if torch.cuda.is_current_stream_capturing():
-        raise RuntimeError("softmax_stats cannot be captured in a CUDA "
-                           "graph: its row tickets belong to a stream")
+        raise RuntimeError("softmax_stats and fused_xent cannot be captured "
+                           "in a CUDA graph: their row tickets belong to a "
+                           "stream")
     key = (index, stream)
     t = _TICKETS.get(key)
     if t is None or t.numel() < b:          # grows only when B grows
@@ -182,15 +184,6 @@ def check_rows(x: torch.Tensor) -> None:
         raise ValueError("x must be contiguous")
 
 
-@functools.lru_cache(maxsize=4096)
-def n_splits(index: int, b: int, v: int) -> int:
-    """The cross-entropy's phase-1 blocks per row on CUDA device
-    ``index``: a few per SM over the B rows together, at least
-    ``_MIN_SPLIT`` elements each."""
-    want = -(-_SPLITS_PER_SM * _sm_count(index) // b)
-    return max(1, min(want, v // _MIN_SPLIT))
-
-
 def raise_on(err: int, name: str) -> None:
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
@@ -202,7 +195,7 @@ def _stats(x, index, plan, stream):
     buf = torch.empty((2 * b * (plan.nsplit + 1),), dtype=torch.float32,
                       device=x.device)
     raise_on(lib().repro_softmax_stats(
-        x.data_ptr(), buf.data_ptr(), _tickets(index, stream, b), b, v,
+        x.data_ptr(), buf.data_ptr(), tickets(index, stream, b), b, v,
         plan.nsplit, DTYPES[x.dtype], stream), "softmax_stats")
     softmax_stats.launches += 1
     return buf[:b], buf[b:2 * b]
@@ -211,7 +204,7 @@ def _stats(x, index, plan, stream):
 def softmax_stats(x: torch.Tensor):
     """(m (B,) f32, l (B,) f32): the row max and ``sum exp(x - m)``, one
     launch.  x as ``check_rows`` takes it; anything else raises, and so
-    does a call inside a CUDA graph capture (see ``_tickets``)."""
+    does a call inside a CUDA graph capture (see ``tickets``)."""
     check_rows(x)
     index = x.get_device()
     return _stats(x, index, _plan(index, x.dtype, *x.shape),

@@ -132,11 +132,16 @@ class _SoftmaxXent(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
+        """``(softmax(logits) - onehot(labels)) * g`` in the logits' dtype,
+        computed in place on the fresh f32 probabilities: subtracting 1 at
+        each row's label column and scaling rounds exactly as the
+        reference's one-hot product does, with no (B, V) one-hot or
+        second f32 (B, V) tensor made."""
         logits, labels = ctx.saved_tensors
         p = online_softmax(logits)
-        onehot = torch.nn.functional.one_hot(labels.long(), logits.shape[-1])
-        dlogits = (p - onehot.to(p.dtype)) * g[:, None]
-        return dlogits.to(logits.dtype), None
+        p[torch.arange(p.shape[0], device=p.device), labels.long()] -= 1
+        p.mul_(g[:, None])
+        return p.to(logits.dtype), None
 
 
 def softmax_xent(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:

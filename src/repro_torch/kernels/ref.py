@@ -424,6 +424,17 @@ def softmax_stats_split(x: torch.Tensor, plan):
     return rm, _xor_tree(acc, torch.add)
 
 
+def fused_xent_split(logits: torch.Tensor, labels: torch.Tensor, plan):
+    """A plain model of the CUDA cross-entropy kernel, for the tests:
+    ``softmax_stats_split``'s (m, l) of the rows under ``plan`` (an
+    ``online_softmax.UnitPlan``), then ``(m + log l) - x[label]`` in f32,
+    the label logit widened exactly from the logits' dtype.  (B, V), (B,)
+    int -> (B,) f32; a row's bits do not depend on its batch-mates."""
+    m, l = softmax_stats_split(logits, plan)
+    label_logit = torch.gather(logits.float(), 1, labels.long()[:, None])
+    return (m + torch.log(l)) - label_logit[:, 0]
+
+
 def fused_xent(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     """Per-row softmax cross-entropy ``logsumexp(x) - x[label]``: (B, V),
     (B,) int -> (B,) f32."""

@@ -726,6 +726,8 @@ def test_softmax_unit_kernels_match_plain(dev, dtype, b, v):
                                rtol=1e-5, atol=0)
     torch.testing.assert_close(loss, ref.fused_xent(x, lab), rtol=UNIT_RTOL,
                                atol=XENT_ATOL)
+    torch.testing.assert_close(loss, ref.fused_xent_split(
+        x, lab, osm.plan_of(x)), rtol=UNIT_RTOL, atol=XENT_ATOL)
 
 
 def test_softmax_unit_kernels_extreme_range_and_int32_labels(dev):
@@ -805,14 +807,15 @@ def test_softmax_unit_kernels_reject_bad_operands(dev):
         fx.fused_xent(x, lab.cpu())
 
 
-UNIT_KERNELS = ("unit_stats_kernel", "unit_one_pass_kernel",
-                "normalize_kernel")
+UNIT_KERNELS = ("unit_stats_kernel", "unit_xent_kernel",
+                "unit_one_pass_kernel", "normalize_kernel")
 
 
 def _unit_kernels(fn):
-    """The softmax unit's device kernels one call of ``fn`` launched."""
-    return [n for n in _kernel_names(fn, "unit_")
-            if any(k in n for k in UNIT_KERNELS)]
+    """The softmax unit's device kernels one call of ``fn`` launched, by
+    their names in ``UNIT_KERNELS``."""
+    return [k for n in _kernel_names(fn, "unit_") for k in UNIT_KERNELS
+            if k in n]
 
 
 def _edge_rows(dev, dtype, v):
@@ -898,13 +901,17 @@ def test_unit_row_bits_alone_in_b12_and_b64(dev, dtype):
     (torch.float32, 12, 151936, 1), (torch.bfloat16, 512, 151936, 2),
     (torch.float32, 70000, 1000, 2), (torch.float16, 1, 777, 1)])
 def test_unit_device_kernels_per_call(dev, dtype, b, v, kernels):
-    """softmax_stats is one device kernel at any B; online_softmax one on
-    the one-pass route and two on the other."""
+    """softmax_stats and fused_xent are one device kernel at any B;
+    online_softmax one on the one-pass route and two on the other."""
     x = _rows(dev, dtype, b, v, seed=1, scale=1.0)
+    lab = torch.randint(0, v, (b,), device=dev)
     assert osm.plan_of(x).route == (osm.ONE_PASS if kernels == 1
                                     else osm.TWO_LAUNCH)
-    assert len(_unit_kernels(lambda: osm.softmax_stats(x))) == 1
+    assert _unit_kernels(lambda: osm.softmax_stats(x)) == [
+        "unit_stats_kernel"]
     assert len(_unit_kernels(lambda: osm.online_softmax(x))) == kernels
+    assert _unit_kernels(lambda: fx.fused_xent(x, lab)) == [
+        "unit_xent_kernel"]
 
 
 def test_unit_tickets_reset_and_streams_keep_their_own(dev):
@@ -936,6 +943,64 @@ def test_unit_stats_refuses_graph_capture(dev):
     with pytest.raises(RuntimeError, match="CUDA graph"):
         with torch.cuda.graph(graph):
             osm.softmax_stats(x)
+
+
+def test_fused_xent_refuses_graph_capture(dev):
+    """fused_xent takes the same row tickets as softmax_stats, so it
+    refuses a capture too: it raises, and launches nothing."""
+    x = _rows(dev, torch.float32, 4, 9001, seed=2)
+    lab = torch.tensor([0, 4095, 4096, 9000], device=dev)
+    fx.fused_xent(x, lab)
+    torch.cuda.synchronize()
+    n0 = fx.fused_xent.launches
+    graph = torch.cuda.CUDAGraph()
+    with pytest.raises(RuntimeError, match="CUDA graph"):
+        with torch.cuda.graph(graph):
+            fx.fused_xent(x, lab)
+    assert fx.fused_xent.launches == n0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("v", [4097, 9001, 151936])
+def test_fused_xent_labels_on_chunk_edges(dev, dtype, v):
+    """Labels at 0, 4095 (the first chunk's last element), 4096 (the
+    second's first), V - 1 and at the row's max: the kernel takes each
+    from the register its thread folded."""
+    x = _rows(dev, dtype, 5, v, seed=v)
+    lab = torch.tensor([0, 4095, 4096, v - 1, 0], device=dev)
+    lab[4] = torch.argmax(x[4].float())
+    loss = fx.fused_xent(x, lab)
+    torch.cuda.synchronize()
+    for want in (ref.fused_xent(x, lab),
+                 ref.fused_xent_split(x, lab, osm.plan_of(x))):
+        torch.testing.assert_close(loss, want, rtol=UNIT_RTOL,
+                                   atol=XENT_ATOL)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_xent_row_bits_alone_in_b12_b64_and_b4096(dev, dtype):
+    """A row's loss is the same bits alone and in B 12, 64 and 4,096."""
+    v = 151936
+    x = _rows(dev, dtype, 4096, v, seed=4, scale=4.0)
+    lab = torch.randint(0, v, (4096,), generator=torch.Generator(
+        device=dev).manual_seed(4), device=dev)
+    runs = {b: fx.fused_xent(x[:b], lab[:b]) for b in (12, 64, 4096)}
+    for r in range(12):
+        alone = fx.fused_xent(x[r:r + 1], lab[r:r + 1])
+        for b, got in runs.items():
+            assert torch.equal(alone, got[r:r + 1]), (r, b)
+
+
+def test_fused_xent_label_outside_the_row_gives_nan(dev):
+    """A label outside [0, V) is not read: its row's loss is NaN, and the
+    other rows keep theirs."""
+    x = _rows(dev, torch.float32, 3, 9001, seed=6)
+    lab = torch.tensor([5, 9001, -1], device=dev)
+    loss = fx.fused_xent(x, lab)
+    torch.cuda.synchronize()
+    assert torch.isnan(loss[1:]).all()
+    torch.testing.assert_close(loss[:1], ref.fused_xent(x[:1], lab[:1]),
+                               rtol=UNIT_RTOL, atol=XENT_ATOL)
 
 
 def _head_check(h, emb, pairs=()):
