@@ -57,18 +57,39 @@ Phases, each of which fails the run (non-zero exit, no result line):
      give the same bits;
   4. drives the main path -- ``LLM.from_arch("qwen3-0.6b", smoke=False)``
      then ``LLM.generate``, greedy, at the model's full width with random
-     seeded weights -- and checks that every prompt prefill layer went
+     seeded weights -- once inside ``step_graph.eager_steps()`` and then
+     graphed three times (the decode step as one CUDA graph per shape
+     bucket: a bucket's first step runs eagerly, its second captures;
+     the third run replays every bucket), the four runs' tokens equal,
+     and checks in each run that every prompt prefill layer went
      through the flash-attention kernel, every decode layer through the
-     paged-attention kernel and every head through the argmax kernel;
+     paged-attention kernel and every head through the argmax kernel
+     (a replay adds its capture's launches to the counters); it prints
+     the graph cache's captures, replays, capture ms and pool MB;
   4b. a mixed sampled workload on the same engine (greedy, top-k at
-     temperature 0.8, ``n_candidates``, Gumbel-max temperature): every
-     top-k head call went through the top-k kernel, candidate ids are
-     well formed, and the greedy rows keep the greedy-only tokens;
+     temperature 0.8, ``n_candidates``, Gumbel-max temperature), eager
+     and graphed with equal tokens: every top-k head call went through
+     the top-k kernel, candidate ids are well formed, and the greedy
+     rows keep the greedy-only tokens;
   4c. speculation on the same engine (repetitive prompts, ``spec_k=4``,
      plus one request at ``spec_k=20``): the tokens of ``spec_k=0``, and
-     every step with a draft row went through the verify kernel;
-     then a profile of pure decode steps, which launch no flash kernel
-     (paged attention's and the argmax head's device ms per step);
+     every step with a draft row went through the verify kernel, each
+     run eager and graphed with equal tokens; spec_k=4 graphed three
+     times, the third replaying every bucket, whose step must be faster
+     than the eager one; then a profile of pure decode steps, eager and
+     graphed (wall and device-busy ms per step, the busy share, kernels
+     per step; paged attention's, the argmax head's and the f64 norm
+     mean's device ms per step), which launch no flash kernel -- the
+     graphed step must be the faster, and in both the traced
+     paged-attention and argmax-head kernels must be twice the launches
+     the counters add up (2 x 28 and 2 a step);
+  4f. the step as one program: in three buckets (greedy B 8 T 1; Greedy
+     + TopK + Temperature groups; the verify group at T 8) a replay of
+     the bucket's graph gives the eager step's hidden states and head
+     outputs bit for bit on the same operands; the greedy bucket's
+     replay timed beside its eager body and the step's bound; the
+     Temperature head's memory beyond its inputs (<= 64 MB) and device
+     ms beside the f32 copy of W it replaced;
   4d. the unit path: the f32 logits of the 12 prompts' final hidden
      states at V = 151936 through ``ops.softmax_stats``,
      ``ops.online_softmax`` and ``ops.softmax_xent`` forward and backward
@@ -78,15 +99,17 @@ Phases, each of which fails the run (non-zero exit, no result line):
      both; the backward calls ``online_softmax``), and Theorem 1 through
      the full unit:
      ``argmax(online_softmax)`` is phase 4's first token;
-  4e. the divergence probe (``repro_torch.probe.run_probe``) on the 12
-     prompts, 32 new tokens: all five score modes at window None, then
+  4e. the divergence probe (``repro_torch.probe.run_probe``, eager) on
+     the 12 prompts, 32 new tokens: all five score modes at window None,
+     then
      pseudo and maxonly at window 128, every decode layer of each arm
      through the paged-attention kernel in that arm's mode, and per-layer
      score errors from the tap;
-  5. Theorem 1 on the card: the softmax-baseline head gives the same
-     token streams;
-  6. the small-input reference: the smoke config's tokens on the card
-     equal those of the plain versions on the CPU, from the same weights.
+  5. Theorem 1 on the card, graphed: the softmax-baseline head gives the
+     same token streams;
+  6. the small-input reference, graphed: the smoke config's tokens on
+     the card equal those of the plain versions on the CPU, from the
+     same weights.
 
 Token streams that should be equal may part only at a near-tie of the
 two best f32 logits (gap within 1e-3 of the max): the batch composition
@@ -130,22 +153,10 @@ XENT_ATOL = 1e-6       # cross-entropy (m + log l - x: cancellation)
 
 def kernel_modules():
     """The kernels' wrappers by kernel name (each has a ``launches``
-    count)."""
-    from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels import fused_argmax_head as fah
-    from repro_torch.kernels import fused_topk_head as ftk
-    from repro_torch.kernels import fused_xent as fx
-    from repro_torch.kernels import online_softmax as osm
-    from repro_torch.kernels import paged_attention as pa
+    count), as the port's step graphs count them."""
+    from repro_torch.serve import step_graph
 
-    return {"paged_attention": pa.paged_attention,
-            "fused_argmax_head": fah.fused_argmax_head_with_value,
-            "fused_topk_head": ftk.fused_topk_head,
-            "fused_verify_head": fah.fused_verify_head,
-            "flash_attention": fa.flash_attention,
-            "softmax_stats": osm.softmax_stats,
-            "online_softmax": osm.online_softmax,
-            "fused_xent": fx.fused_xent}
+    return step_graph.kernel_wrappers()
 
 
 def reset_launches():
@@ -1377,7 +1388,7 @@ def check_wide_heads(torch, timer):
     return rows
 
 
-def device_kernels(torch, fn, seen, attempts=3) -> list:
+def device_kernels(torch, fn, seen, attempts=8) -> list:
     """Names of the device kernels a profiler trace saw ``fn`` launch.
     ``fn`` runs once first, so that its kernels' lazy loading happens
     outside the trace (a first launch can go unrecorded).  A trace can
@@ -1391,7 +1402,7 @@ def device_kernels(torch, fn, seen, attempts=3) -> list:
     fn()
     torch.cuda.synchronize()
     pad = torch.empty(1, device="cuda")
-    for _ in range(attempts):
+    for attempt in range(attempts):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             pad.add_(1)
@@ -1401,6 +1412,9 @@ def device_kernels(torch, fn, seen, attempts=3) -> list:
                  if e.device_type == DeviceType.CUDA]
         if any(seen in n for n in names):
             break
+    if attempt:
+        print(f"  (the profiler missed {seen!r} in {attempt} of "
+              f"{attempt + 1} traces)", flush=True)
     return names
 
 
@@ -1892,8 +1906,131 @@ def compare_streams(torch, llm, prompts, want, got, what) -> int:
     return same
 
 
-def run_main_path(torch, prompts, max_new):
+def graph_line(llm) -> str:
+    """The engine's graph cache: buckets seen and captured, replays,
+    capture ms and the pool's reserved MB."""
+    g = llm.engine.graphs
+    return (f"{len(g.seen)} buckets seen, {g.captures} captures "
+            f"({len(g)} buckets), {g.replays} replays, capture "
+            f"{g.capture_ms:.1f} ms, pool {g.pool_bytes() / 2 ** 20:.1f} MB")
+
+
+def drive_graphed(torch, llm, prompts, plist, what):
+    """``drive``, graphed: returns its run plus (captures, replays, first
+    steps) -- a bucket's first step runs eagerly, its second captures
+    and replays -- which must add up to the run's steps."""
+    g = llm.engine.graphs
+    n0 = (g.captures, g.replays, len(g.seen))
+    run = drive(torch, llm, prompts, plist)
+    caps, reps, firsts = (b - a for a, b in zip(
+        n0, (g.captures, g.replays, len(g.seen))))
+    check(firsts + reps == run[3]["decode_steps"],
+          f"{what}: the graphed run's steps are not its first steps + "
+          "replays")
+    return run + (caps, reps, firsts)
+
+
+def run_counts(run) -> str:
+    """A graphed run's first steps, captures and replays, as words."""
+    caps, reps, firsts = run[5:8]
+    return (f"ran {firsts} first steps eagerly, captured {caps} and "
+            f"replayed {reps} steps of {run[3]['decode_steps']}")
+
+
+def drive_both(torch, llm, prompts, plist, what, replays=True):
+    """``drive`` once inside ``eager_steps()`` and once graphed, on the
+    same prompts: the token streams must be EQUAL (the graph replays the
+    eager step's bits).  Returns (eager run, graphed run), each as
+    ``drive`` returns it, the graphed run with ``drive_graphed``'s
+    counts (which must include a replay when ``replays``)."""
+    from repro_torch.serve import step_graph
+
+    with step_graph.eager_steps():
+        eager = drive(torch, llm, prompts, plist)
+    graphed = drive_graphed(torch, llm, prompts, plist, what)
+    same = sum(a.token_ids == b.token_ids
+               for a, b in zip(eager[0], graphed[0]))
+    print(f"{what}: graphed vs eager, {same}/{len(prompts)} streams equal; "
+          f"the graphed run {run_counts(graphed)}", flush=True)
+    check(same == len(prompts),
+          f"{what}: the graphed run's tokens differ from the eager run's")
+    check(graphed[6] > 0 or not replays,
+          f"{what}: the graphed run replayed no step")
+    return eager, graphed
+
+
+def drive_replays(torch, llm, prompts, plist, what, first):
+    """Two more graphed runs after ``first`` (``drive_both``'s graphed
+    run) on the same prompts: the second captures the buckets that the
+    first ran once, the third runs no first step and captures nothing,
+    so it is every bucket's replay.  Both runs' tokens must equal
+    ``first``'s.  Returns (second run, third run), as ``drive_graphed``
+    returns them."""
+    runs = []
+    for n in (2, 3):
+        run = drive_graphed(torch, llm, prompts, plist, what)
+        print(f"{what}: graphed run {n} {run_counts(run)}", flush=True)
+        check([o.token_ids for o in run[0]]
+              == [o.token_ids for o in first[0]],
+              f"{what}: graphed run {n}'s tokens differ from the first's")
+        runs.append(run)
+    check(runs[1][5] == runs[1][7] == 0, f"{what}: graphed run 3 captured "
+          f"{runs[1][5]} buckets and ran {runs[1][7]} first steps")
+    return tuple(runs)
+
+
+def check_main_launches(launches, st, cfg, n_prompts, run):
+    """Phase 4's launch checks on one run's counts."""
     from repro_torch.kernels import paged_attention as pa
+
+    want_pa = cfg.n_layers * st["decode_steps"]
+    want_fa = cfg.n_layers * st["prefills"]
+    want_head = st["decode_steps"] + st["prefills"]
+    print(f"main path launches ({run}): paged_attention "
+          f"{launches['paged_attention']} (want {cfg.n_layers} x "
+          f"{st['decode_steps']} = {want_pa}), flash_attention "
+          f"{launches['flash_attention']} (want {cfg.n_layers} x "
+          f"{st['prefills']} = {want_fa}), fused_argmax_head "
+          f"{launches['fused_argmax_head']} (want {st['decode_steps']} + "
+          f"{st['prefills']} = {want_head})", flush=True)
+    check(launches["paged_attention"] == want_pa,
+          f"{run}: paged attention launches != layers x decode steps")
+    check(pa.paged_attention.launches_by_mode["exact"] == want_pa,
+          f"{run}: the greedy path launched paged attention in a non-exact "
+          "mode")
+    check(launches["flash_attention"] == want_fa,
+          f"{run}: flash attention launches != layers x prefills")
+    check(launches["fused_argmax_head"] == want_head,
+          f"{run}: head launches != decode steps + prefills")
+    check(launches["fused_topk_head"] == launches["fused_verify_head"] == 0,
+          f"{run}: a greedy run launched a top-k or verify kernel")
+    check(all(launches[n] == 0 for n in ("softmax_stats", "online_softmax",
+                                         "fused_xent")),
+          f"{run}: a greedy run launched a softmax-unit kernel")
+    check(st["decode_steps"] > 0 and st["prefills"] >= n_prompts,
+          f"{run}: the main path ran no decode step or missed a prefill")
+
+
+def main_line(what, outs, st, wall) -> dict:
+    """Print and return one greedy run's end-to-end numbers."""
+    n_tok = sum(len(o.token_ids) for o in outs)
+    prefill_ms = st["prefill_ms"] / st["prefills"]
+    print(f"{what}: {n_tok} tokens generated in {wall:.3f} s = "
+          f"{n_tok / wall:.2f} tok/s; {st['decode_steps']} decode steps, "
+          f"mean {st['decode_ms'] / st['decode_steps']:.3f} ms/step; "
+          f"{st['prefills']} prefills, mean {prefill_ms:.3f} ms, "
+          f"{st['prefill_ms']:.1f} ms in all", flush=True)
+    return dict(tok_s=n_tok / wall, tokens=n_tok,
+                decode_steps=st["decode_steps"], prefills=st["prefills"],
+                decode_ms=st["decode_ms"] / st["decode_steps"],
+                prefill_ms=prefill_ms, wall_s=wall)
+
+
+def run_main_path(torch, prompts, max_new):
+    """Phase 4: greedy, once inside ``eager_steps()``, then graphed twice
+    on the same prompts (the first run captures its buckets, the second
+    replays them all); the three runs' streams must be equal and each
+    run's launches hold at layers x steps and steps + prefills."""
     from repro_torch.serve.api import LLM
     from repro_torch.serve.params import SamplingParams
 
@@ -1907,56 +2044,46 @@ def run_main_path(torch, prompts, max_new):
           f"V={cfg.vocab_size}, {cfg.dtype}; weights "
           f"{sum(t.numel() * t.element_size() for t in _leaves(llm.engine.params)) / 1e9:.3f} GB, "
           f"KV pool {sum(p.numel() * p.element_size() for p in llm.engine.store.pools.values()) / 1e9:.3f} GB; "
-          f"built in {time.perf_counter() - t0:.1f} s", flush=True)
+          f"built in {time.perf_counter() - t0:.1f} s; {len(prompts)} "
+          f"prompts of {min(map(len, prompts))}-{max(map(len, prompts))} "
+          f"tokens", flush=True)
     params = SamplingParams(max_new_tokens=max_new)
     llm.generate([prompts[0][:16]], SamplingParams(max_new_tokens=2))
     torch.cuda.synchronize()                  # warm-up (cuBLAS, allocator)
 
-    outs, _, launches, st, wall = drive(torch, llm, prompts, params)
-    n_tok = sum(len(o.token_ids) for o in outs)
-    prefill_ms = st["prefill_ms"] / st["prefills"]
-    print(f"main path: {len(prompts)} prompts of {min(map(len, prompts))}-"
-          f"{max(map(len, prompts))} tokens, {n_tok} tokens generated in "
-          f"{wall:.3f} s = {n_tok / wall:.2f} tok/s; {st['decode_steps']} "
-          f"decode steps, mean {st['decode_ms'] / st['decode_steps']:.3f} "
-          f"ms/step; {st['prefills']} prefills, mean {prefill_ms:.3f} ms "
-          f"(74.579 ms with the plain prefill attention before the flash "
-          f"kernel, for the record)", flush=True)
-    want_pa = cfg.n_layers * st["decode_steps"]
-    want_fa = cfg.n_layers * st["prefills"]
-    want_head = st["decode_steps"] + st["prefills"]
-    print(f"main path launches: paged_attention {launches['paged_attention']}"
-          f" (want {cfg.n_layers} x {st['decode_steps']} = {want_pa}), "
-          f"flash_attention {launches['flash_attention']} (want "
-          f"{cfg.n_layers} x {st['prefills']} = {want_fa}), "
-          f"fused_argmax_head {launches['fused_argmax_head']} (want "
-          f"{st['decode_steps']} + {st['prefills']} = {want_head})",
+    eager, graphed = drive_both(torch, llm, prompts, params, "main path")
+    outs, _, launches, st, wall, caps, reps, firsts = graphed
+    summary = {"eager": main_line("main path, eager", *(
+        eager[i] for i in (0, 3, 4)))}
+    check_main_launches(eager[2], eager[3], cfg, len(prompts), "eager")
+    summary["graph_first_run"] = main_line("main path, graphed run 1",
+                                           outs, st, wall)
+    check_main_launches(launches, st, cfg, len(prompts), "graphed")
+    print(f"main path graphs after graphed run 1: {graph_line(llm)}",
           flush=True)
-    check(launches["paged_attention"] == want_pa,
-          "paged attention launches != layers x decode steps")
-    check(pa.paged_attention.launches_by_mode["exact"] == want_pa,
-          "the greedy path launched paged attention in a non-exact mode")
-    check(launches["flash_attention"] == want_fa,
-          "flash attention launches != layers x prefills")
-    check(launches["fused_argmax_head"] == want_head,
-          "head launches != decode steps + prefills")
-    check(launches["fused_topk_head"] == launches["fused_verify_head"] == 0,
-          "a greedy run launched a top-k or verify kernel")
-    check(all(launches[n] == 0 for n in ("softmax_stats", "online_softmax",
-                                         "fused_xent")),
-          "a greedy run launched a softmax-unit kernel")
-    check(st["decode_steps"] > 0 and st["prefills"] >= len(prompts),
-          "the main path ran no decode step or missed a prefill")
+    second, again = drive_replays(torch, llm, prompts, params, "main path",
+                                  graphed)
+    summary["graph_second_run"] = main_line(
+        "main path, graphed run 2", second[0], second[3], second[4])
+    check_main_launches(second[2], second[3], cfg, len(prompts),
+                        "graphed run 2")
+    summary["graph"] = main_line("main path, graphed run 3 (replays only)",
+                                 again[0], again[3], again[4])
+    check_main_launches(again[2], again[3], cfg, len(prompts),
+                        "graphed run 3")
+    print(f"main path graphs after graphed run 3: {graph_line(llm)}",
+          flush=True)
+    summary["graph_first_run"].update(captures=caps, replays=reps,
+                                      first_steps=firsts)
+    summary["graph_second_run"].update(captures=second[5],
+                                       replays=second[6])
+    summary["graph"].update(captures=again[5], replays=again[6])
     for o in outs:
         check(1 <= len(o.token_ids) <= max_new
               and o.finish_reason in ("length", "eos")
               and all(0 <= x < cfg.vocab_size for x in o.token_ids),
               f"bad output for rid {o.rid}: {o.finish_reason} "
               f"{o.token_ids}")
-    summary = dict(tok_s=n_tok / wall, tokens=n_tok,
-                   decode_steps=st["decode_steps"], prefills=st["prefills"],
-                   decode_ms=st["decode_ms"] / st["decode_steps"],
-                   prefill_ms=prefill_ms)
     return llm, outs, launches, summary
 
 
@@ -1976,44 +2103,59 @@ def run_sampled_path(torch, llm, prompts, greedy_outs, max_new):
              SamplingParams(max_new_tokens=max_new, head_mode="temperature",
                             seed=r)
              for r, kind in enumerate(kinds)]
-    outs, cands, launches, st, wall = drive(torch, llm, prompts, plist)
-    calls = st["head_calls"]
-    n_tok = sum(len(o.token_ids) for o in outs)
-    print(f"sampled path: {n_tok} tokens in {wall:.3f} s = "
-          f"{n_tok / wall:.2f} tok/s; {st['decode_steps']} decode steps, "
-          f"mean {st['decode_ms'] / st['decode_steps']:.3f} ms/step; head "
-          f"calls {calls}; launches {launches}", flush=True)
-    want_pa = llm.cfg.n_layers * st["decode_steps"]
-    check(launches["paged_attention"] == want_pa,
-          "sampled path: paged attention launches != layers x steps")
-    check(launches["fused_topk_head"] == calls.get("TopK", 0) > 0,
-          "sampled path: top-k launches != top-k head calls (decode steps "
-          "and prefills holding a top-k row)")
-    check(launches["fused_argmax_head"] == calls.get("Greedy", 0) > 0,
-          "sampled path: argmax launches != greedy head calls")
-    check(launches["fused_verify_head"] == 0,
-          "sampled path: a verify kernel ran without speculation")
-    check(launches["flash_attention"] == llm.cfg.n_layers * st["prefills"],
-          "sampled path: flash attention launches != layers x prefills")
-    for o, c, kind in zip(outs, cands, kinds):
-        check(1 <= len(o.token_ids) <= max_new
-              and all(0 <= x < llm.cfg.vocab_size for x in o.token_ids),
-              f"sampled path: bad output for rid {o.rid}: {o.token_ids}")
-        if kind == "cands":
-            check(all(x is not None and len(x) == 4 and x[0] == t
-                      and len(set(x)) == 4 for x, t in zip(c, o.token_ids)),
-                  f"sampled path: bad candidate ids for rid {o.rid}")
-        else:
-            check(all(x is None for x in c),
-                  f"sampled path: rid {o.rid} got candidate ids")
+    eager, graphed = drive_both(torch, llm, prompts, plist, "sampled path")
+    for run, (outs, cands, launches, st, wall, *_) in (("eager", eager),
+                                                       ("graphed", graphed)):
+        calls = st["head_calls"]
+        n_tok = sum(len(o.token_ids) for o in outs)
+        print(f"sampled path ({run}): {n_tok} tokens in {wall:.3f} s = "
+              f"{n_tok / wall:.2f} tok/s; {st['decode_steps']} decode "
+              f"steps, mean {st['decode_ms'] / st['decode_steps']:.3f} "
+              f"ms/step; head calls {calls}; launches {launches}",
+              flush=True)
+        want_pa = llm.cfg.n_layers * st["decode_steps"]
+        check(launches["paged_attention"] == want_pa,
+              f"sampled path ({run}): paged attention launches != layers x "
+              "steps")
+        check(launches["fused_topk_head"] == calls.get("TopK", 0) > 0,
+              f"sampled path ({run}): top-k launches != top-k head calls "
+              "(decode steps and prefills holding a top-k row)")
+        check(launches["fused_argmax_head"] == calls.get("Greedy", 0) > 0,
+              f"sampled path ({run}): argmax launches != greedy head calls")
+        check(launches["fused_verify_head"] == 0,
+              f"sampled path ({run}): a verify kernel ran without "
+              "speculation")
+        check(launches["flash_attention"]
+              == llm.cfg.n_layers * st["prefills"],
+              f"sampled path ({run}): flash attention launches != layers x "
+              "prefills")
+        for o, c, kind in zip(outs, cands, kinds):
+            check(1 <= len(o.token_ids) <= max_new
+                  and all(0 <= x < llm.cfg.vocab_size for x in o.token_ids),
+                  f"sampled path: bad output for rid {o.rid}: "
+                  f"{o.token_ids}")
+            if kind == "cands":
+                check(all(x is not None and len(x) == 4 and x[0] == t
+                          and len(set(x)) == 4
+                          for x, t in zip(c, o.token_ids)),
+                      f"sampled path: bad candidate ids for rid {o.rid}")
+            else:
+                check(all(x is None for x in c),
+                      f"sampled path: rid {o.rid} got candidate ids")
     greedy = [r for r, kind in enumerate(kinds) if kind == "greedy"]
     compare_streams(torch, llm, [prompts[r] for r in greedy],
                     [greedy_outs[r] for r in greedy],
                     [outs[r] for r in greedy],
                     "sampled path, greedy rows vs the greedy-only run")
+    eager_st = eager[3]
     return launches, dict(tok_s=n_tok / wall, tokens=n_tok,
                           decode_steps=st["decode_steps"],
                           decode_ms=st["decode_ms"] / st["decode_steps"],
+                          eager_decode_ms=eager_st["decode_ms"]
+                          / eager_st["decode_steps"],
+                          eager_tok_s=sum(len(o.token_ids) for o in eager[0])
+                          / eager[4], captures=graphed[5],
+                          first_steps=graphed[7],
                           head_calls=calls)
 
 
@@ -2044,33 +2186,54 @@ def run_spec_path(torch, llm, lengths, max_new):
     rng = np.random.default_rng(4)
     prompts = [np.tile(rng.integers(0, llm.cfg.vocab_size, size=32),
                        n // 32 + 1)[:n].astype(np.int32) for n in lengths]
-    base, _, _, bst, bwall = drive(
-        torch, llm, prompts, SamplingParams(max_new_tokens=max_new))
-    outs, _, launches, st, wall = drive(
-        torch, llm, prompts, SamplingParams(max_new_tokens=max_new,
-                                            spec_k=4))
-    calls = st["head_calls"]
+    beager, based = drive_both(torch, llm, prompts,
+                               SamplingParams(max_new_tokens=max_new),
+                               "spec path, spec_k=0")
+    base = based[0]
+    sp4 = SamplingParams(max_new_tokens=max_new, spec_k=4)
+    seager, sgraph = drive_both(torch, llm, prompts, sp4,
+                                "spec path, spec_k=4")
+    _, sagain = drive_replays(torch, llm, prompts, sp4,
+                              "spec path, spec_k=4", sgraph)
     n_base = sum(len(o.token_ids) for o in base)
-    n_tok = sum(len(o.token_ids) for o in outs)
-    print(f"spec path: spec_k=0 {n_base} tokens in {bwall:.3f} s = "
-          f"{n_base / bwall:.2f} tok/s, {bst['decode_steps']} decode steps "
-          f"at {bst['decode_ms'] / bst['decode_steps']:.3f} ms; spec_k=4 "
-          f"{n_tok} tokens in {wall:.3f} s = {n_tok / wall:.2f} tok/s, "
-          f"{st['decode_steps']} decode steps at "
-          f"{st['decode_ms'] / st['decode_steps']:.3f} ms, drafted "
-          f"{st['drafted']}, accepted {st['accepted']}, acceptance_rate "
-          f"{st.get('acceptance_rate', 0.0):.4f}; head calls {calls}; "
-          f"launches {launches}", flush=True)
-    check(st["drafted"] > 0, "spec path: nothing was drafted")
-    check(launches["fused_verify_head"] == calls.get("verify", 0) > 0,
-          "spec path: verify launches != decode steps with a draft row")
-    check(launches["fused_argmax_head"] == calls.get("Greedy", 0),
-          "spec path: argmax launches != greedy head calls")
-    check(launches["paged_attention"] == llm.cfg.n_layers
-          * st["decode_steps"], "spec path: paged attention launches != "
-          "layers x decode steps")
-    check(launches["flash_attention"] == llm.cfg.n_layers * st["prefills"],
-          "spec path: flash attention launches != layers x prefills")
+    for run, spec0, spec4 in (("eager", beager, seager),
+                              ("graphed run 1", based, sgraph),
+                              ("graphed run 3, replays only", based,
+                               sagain)):
+        outs, _, launches, st, wall = spec4[:5]
+        bst, bwall = spec0[3], spec0[4]
+        calls = st["head_calls"]
+        n_tok = sum(len(o.token_ids) for o in outs)
+        print(f"spec path ({run}): spec_k=0 {n_base} tokens in {bwall:.3f} "
+              f"s = {n_base / bwall:.2f} tok/s, {bst['decode_steps']} decode "
+              f"steps at {bst['decode_ms'] / bst['decode_steps']:.3f} ms; "
+              f"spec_k=4 {n_tok} tokens in {wall:.3f} s = "
+              f"{n_tok / wall:.2f} tok/s, {st['decode_steps']} decode steps "
+              f"at {st['decode_ms'] / st['decode_steps']:.3f} ms, drafted "
+              f"{st['drafted']}, accepted {st['accepted']}, acceptance_rate "
+              f"{st.get('acceptance_rate', 0.0):.4f}; head calls {calls}; "
+              f"launches {launches}", flush=True)
+        check(st["drafted"] > 0, f"spec path ({run}): nothing was drafted")
+        check(launches["fused_verify_head"] == calls.get("verify", 0) > 0,
+              f"spec path ({run}): verify launches != decode steps with a "
+              "draft row")
+        check(launches["fused_argmax_head"] == calls.get("Greedy", 0),
+              f"spec path ({run}): argmax launches != greedy head calls")
+        check(launches["paged_attention"] == llm.cfg.n_layers
+              * st["decode_steps"], f"spec path ({run}): paged attention "
+              "launches != layers x decode steps")
+        check(launches["flash_attention"]
+              == llm.cfg.n_layers * st["prefills"],
+              f"spec path ({run}): flash attention launches != layers x "
+              "prefills")
+    ms = {run: r[3]["decode_ms"] / r[3]["decode_steps"]
+          for run, r in (("eager", seager), ("first", sgraph),
+                         ("replays", sagain))}
+    print(f"spec path, spec_k=4 ms/step: graphed replays only "
+          f"{ms['replays']:.3f}, graphed run 1 {ms['first']:.3f}, eager "
+          f"{ms['eager']:.3f}", flush=True)
+    check(ms["replays"] < ms["eager"], "spec path: the graphed spec_k=4 "
+          "step (replays only) is not faster than the eager one")
     same = compare_streams(torch, llm, prompts, base, outs,
                            "spec path, spec_k=4 vs spec_k=0")
 
@@ -2078,9 +2241,11 @@ def run_spec_path(torch, llm, lengths, max_new):
     llm.engine.drafter = ReplayDrafter(
         [int(t) for t in prompts[0]] + list(base[0].token_ids))
     try:
-        wide, _, wl, wst, _ = drive(
+        _, wide_run = drive_both(
             torch, llm, prompts[:1], SamplingParams(max_new_tokens=max_new,
-                                                    spec_k=20))
+                                                    spec_k=20),
+            "spec path, spec_k=20", replays=False)
+        wide, _, wl, wst = wide_run[:4]
         widest = llm.engine.drafter.widest
     finally:
         llm.engine.drafter = drafter
@@ -2093,61 +2258,89 @@ def run_spec_path(torch, llm, lengths, max_new):
           "spec path: spec_k=20 verify launches != its draft steps")
     compare_streams(torch, llm, prompts[:1], base[:1], wide,
                     "spec path, spec_k=20 vs spec_k=0")
+    outs, _, launches, st, wall = sgraph[:5]
+    bst, bwall = based[3], based[4]
+    n_tok = sum(len(o.token_ids) for o in outs)
     return launches, dict(
         tok_s=n_tok / wall, tok_s_spec0=n_base / bwall, tokens=n_tok,
         decode_steps=st["decode_steps"],
         decode_steps_spec0=bst["decode_steps"],
-        decode_ms=st["decode_ms"] / st["decode_steps"],
-        decode_ms_spec0=bst["decode_ms"] / bst["decode_steps"],
-        drafted=st["drafted"], accepted=st["accepted"],
+        decode_ms=ms["first"], decode_ms_spec0=bst["decode_ms"]
+        / bst["decode_steps"], decode_ms_replays=ms["replays"],
+        tok_s_replays=n_tok / sagain[4], captures=sgraph[5],
+        first_steps=sgraph[7], drafted=st["drafted"],
+        accepted=st["accepted"],
         acceptance_rate=st["accepted"] / st["drafted"],
-        identical_streams=same, widest_draft_spec20=widest)
+        eager_decode_ms=ms["eager"], identical_streams=same,
+        widest_draft_spec20=widest)
 
 
-def profile_decode(torch, llm, prompts, steps=5):
+def profile_decode(torch, llm, prompts, graphed, steps=5):
     """Where a decode step's time goes: ``torch.profiler`` over ``steps``
     engine iterations of 8 rows in pure decode (every request admitted
-    beforehand).  Prints the host wall clock per step (profiler on), the
-    device time its kernels took, their count, and the kernels that took
-    the most."""
+    beforehand, and one more step run first, so a graphed window only
+    replays), eager (inside ``eager_steps()``) or graphed.  Prints the
+    host wall clock per step (profiler on), the device time its kernels
+    took, their count, and the kernels that took the most."""
+    import contextlib
+
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import fused_argmax_head as fah
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.serve import step_graph
     from repro_torch.serve.params import SamplingParams
 
+    run = "graphed" if graphed else "eager"
     eng = llm.engine
-    for p in prompts[:8]:
-        llm.submit(p, SamplingParams(max_new_tokens=steps + 4))
-    eng.step()                          # admit all 8, first decode step
-    torch.cuda.synchronize()
-    n_flash = fa.flash_attention.launches
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(steps):
-            eng.step()
+    mode = contextlib.nullcontext() if graphed else step_graph.eager_steps()
+    with mode:
+        for p in prompts[:8]:
+            llm.submit(p, SamplingParams(max_new_tokens=steps + 6))
+        eng.step()                      # admit all 8, first decode step
+        eng.step()                      # a graphed bucket's capture
         torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3 / steps
-    check(fa.flash_attention.launches == n_flash,
-          "a pure decode step launched the flash-attention kernel")
-    while eng.has_work:
-        eng.step()
+        n_flash = fa.flash_attention.launches
+        n_graph = (eng.graphs.captures, eng.graphs.replays)
+        counted = (pa.paged_attention.launches,
+                   fah.fused_argmax_head_with_value.launches)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(steps):
+                eng.step()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+        check(fa.flash_attention.launches == n_flash,
+              "a pure decode step launched the flash-attention kernel")
+        counted = (pa.paged_attention.launches - counted[0],
+                   fah.fused_argmax_head_with_value.launches - counted[1])
+        replays = eng.graphs.replays - n_graph[1]
+        check(eng.graphs.captures == n_graph[0]
+              and replays == (steps if graphed else 0),
+              f"decode profile ({run}): {replays} replays in {steps} steps")
+        while eng.has_work:
+            eng.step()
     kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    by_name = {}
+    by_name, count = {}, {}
     for e in kernels:
         by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+        count[e.name] = count.get(e.name, 0) + 1
     busy_ms = sum(by_name.values()) / 1e3 / steps
     if not kernels:
-        print("decode profile: the profiler recorded no device time (not "
-              "measured)", flush=True)
-        return None
-    print(f"decode profile (8 rows, {steps} steps, profiler on): wall "
+        print(f"decode profile ({run}, 8 rows, {steps} steps, profiler on): "
+              f"wall {wall_ms:.3f} ms/step; the profiler recorded no device "
+              "time (device busy not measured)", flush=True)
+        return dict(wall_ms=wall_ms, busy_ms=None, kernels_per_step=None)
+    print(f"decode profile ({run}, 8 rows, {steps} steps, profiler on): wall "
           f"{wall_ms:.3f} ms/step, device busy {busy_ms:.3f} ms/step "
           f"({100 * busy_ms / wall_ms:.1f}%), "
           f"{len(kernels) / steps:.0f} kernels/step", flush=True)
     for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
-        print(f"  {us / 1e3 / steps:8.3f} ms/step  {name[:90]}", flush=True)
+        print(f"  {us / 1e3 / steps:8.3f} ms/step  "
+              f"{count[name] / steps:5.0f}/step  {name[:80]}", flush=True)
     # paged attention's kernel and its split's combine kernel
     paged = [e for e in kernels if "paged_" in e.name]
     paged_ms = sum(e.time_range.elapsed_us() for e in paged) / 1e3 / steps
@@ -2160,11 +2353,177 @@ def profile_decode(torch, llm, prompts, steps=5):
     head_ms = sum(e.time_range.elapsed_us() for e in head) / 1e3 / steps
     print(f"  argmax head (pass 1 + pass 2): {head_ms:.3f} ms/step in "
           f"{len(head) / steps:.0f} launches/step", flush=True)
+    # the trace backs the counters (a replay's are its capture's delta):
+    # an exact-mode paged call is a fold and a combine, a head call two
+    # passes
+    print(f"  counted launches in the window: paged_attention "
+          f"{counted[0]}, fused_argmax_head {counted[1]}; traced kernels "
+          f"{len(paged)} and {len(head)}", flush=True)
+    check(len(paged) == 2 * counted[0] == 2 * llm.cfg.n_layers * steps,
+          f"decode profile ({run}): {len(paged)} traced paged-attention "
+          f"kernels for {counted[0]} counted launches in {steps} steps")
+    check(len(head) == 2 * counted[1] == 2 * steps,
+          f"decode profile ({run}): {len(head)} traced argmax-head kernels "
+          f"for {counted[1]} counted launches in {steps} steps")
+    # the RMSNorm's f64 mean (its reduction kernel reads double)
+    norm = [e for e in kernels if "reduce_kernel" in e.name
+            and "double" in e.name]
+    norm_ms = sum(e.time_range.elapsed_us() for e in norm) / 1e3 / steps
+    print(f"  f64 reductions (the RMSNorm mean): {norm_ms:.3f} ms/step in "
+          f"{len(norm) / steps:.0f} launches/step", flush=True)
     return dict(wall_ms=wall_ms, busy_ms=busy_ms,
+                busy_share=busy_ms / wall_ms,
                 kernels_per_step=len(kernels) / steps, paged_ms=paged_ms,
                 paged_kernels_per_step=len(paged) / steps,
                 argmax_head_ms=head_ms,
-                argmax_head_kernels_per_step=len(head) / steps)
+                argmax_head_kernels_per_step=len(head) / steps,
+                f64_reduce_ms=norm_ms,
+                f64_reduce_kernels_per_step=len(norm) / steps)
+
+
+class FixedDrafter:
+    """Proposes ``k`` copies of one token, so every step of a spec_k
+    request drafts its whole window."""
+
+    def propose(self, history, k):
+        return [7] * k
+
+
+def step_leaves(out) -> list:
+    """A step body's (h, outputs) as a flat list of host copies."""
+    h, outs = out
+    flat = [h]
+    for o in outs:
+        flat += list(o) if isinstance(o, tuple) else [o]
+    return [x.cpu().clone() for x in flat]
+
+
+def step_bound(torch, eng, plan):
+    """The least time one fused step could take on the card: every
+    weight read once, each row's K/V history read once (its positions up
+    to the step's last query, every layer), at 2 flops per weight and
+    row plus 4 * hd per (query, key, head) -- bound(), bf16 peak."""
+    cfg = eng.cfg
+    b, t = plan.arrays[0].shape
+    pos = plan.arrays[1].reshape(b, -1)[:, -1].astype(np.int64) + 1
+    w_bytes = sum(x.numel() * x.element_size() for x in _leaves(eng.params))
+    n_w = sum(x.numel() for x in _leaves(eng.params))
+    kv = cfg.n_layers * 2 * cfg.n_kv_heads * cfg.head_dim * 2 * int(pos.sum())
+    flops = 2 * n_w * b * t + 4 * cfg.head_dim * cfg.n_heads \
+        * cfg.n_layers * t * int(pos.sum())
+    return bound(w_bytes + kv, flops, BF16_FLOPS_PER_S)
+
+
+def check_step_graph(torch, llm, prompts) -> dict:
+    """Phase 4f: the step as one program.  In three buckets at full width
+    -- greedy B 8 T 1; Greedy + TopK + Temperature groups at B 8; every
+    row in the verify group at T 8 -- 8 requests are admitted (with one
+    eager step), the engine's next step is planned, and its body runs
+    eagerly and as a replay of its bucket's graph on the same operands:
+    the hidden states and every head output must be equal bit for bit.
+    The greedy bucket's replay and its eager body are timed on the same
+    operands (call, device and host ms), beside the step's bound; the
+    Temperature head's memory and device ms beside the f32 copy of W it
+    replaced (the parent's head, ``h.float() @ W.float()``)."""
+    import functools
+
+    from repro_torch.models import lm
+    from repro_torch.serve import step_graph
+    from repro_torch.serve.params import SamplingParams as SP
+    from repro_torch.serve.sampler import Temperature
+
+    eng = llm.engine
+    mixed = [SP(max_new_tokens=4),
+             SP(max_new_tokens=4, top_k=8, temperature=0.8, seed=1),
+             SP(max_new_tokens=4, head_mode="temperature", seed=2)]
+    cases = {"greedy B8 T1": [SP(max_new_tokens=4)] * 8,
+             "mixed B8 T1": (mixed * 3)[:8],
+             "verify B8 T8": [SP(max_new_tokens=16, spec_k=7)] * 8}
+    timer = Timer(torch)
+    out, drafter = {"cases": {}}, eng.drafter
+    try:
+        for name, plist in cases.items():
+            eng.drafter = FixedDrafter() if "verify" in name else drafter
+            reqs = [llm.submit(p[:256], sp) for p, sp in zip(prompts, plist)]
+            with step_graph.eager_steps():
+                eng.step()            # admit all 8, one eager step
+            active = [i for i, sl in enumerate(eng.slots) if sl is not None]
+            check(len(active) == 8, f"step graph {name}: {len(active)} "
+                  "active rows after admission, want 8")
+            plan = eng._plan_step(active)
+            body = functools.partial(eng._step_body, tuple(plan.order))
+            operands = step_graph.to_device(plan.arrays, eng.device)
+            want = step_leaves(body(*operands))
+            if plan.key not in eng.graphs.graphs:
+                eng.graphs.capture(plan.key, body, plan.arrays, eng.device)
+            got = step_leaves(eng.graphs.replay(plan.key, plan.arrays))
+            err = max((g.double() - w.double()).abs().max().item()
+                      for g, w in zip(got, want))
+            equal = len(got) == len(want) and all(
+                g.dtype == w.dtype and torch.equal(g, w)
+                for g, w in zip(got, want))
+            print(f"step graph {name}: bucket {plan.key[:3]} samplers "
+                  f"{[type(x).__name__ for x in plan.key[3]]} groups "
+                  f"{plan.key[4]} verify {plan.key[5]}: hidden states and "
+                  f"{len(got) - 1} head outputs replayed vs eager: "
+                  f"{'bitwise equal' if equal else 'DIFFER'} (max abs "
+                  f"{err:.3g})", flush=True)
+            check(equal, f"step graph {name}: the replay's bits differ from "
+                  "the eager step's")
+            row = dict(bucket=list(plan.key[:3]), groups=list(plan.key[4]),
+                       verify=plan.key[5], bitwise_equal=equal,
+                       max_abs_err=err)
+            if name == "greedy B8 T1":
+                row.update(timer.readings(
+                    lambda: eng.graphs.replay(plan.key, plan.arrays)))
+                plain = timer.readings(lambda: body(*operands), "plain_")
+                row.update(plain)
+                row["bound_ms"], row["bound_by"] = step_bound(torch, eng,
+                                                              plan)
+                print(f"step graph {name}: replay {shown(row)}; eager body "
+                      f"{shown(row, 'plain_')}; bound {row['bound_ms']:.4f} "
+                      f"ms ({row['bound_by']})", flush=True)
+            out["cases"][name] = row
+            for r in reqs:
+                eng.cancel(r)
+    finally:
+        eng.drafter = drafter
+
+    gen = torch.Generator(device=eng.device).manual_seed(21)
+    h = torch.randn(8, eng.cfg.d_model, generator=gen,
+                    device=eng.device).to(torch.bfloat16)
+    w = lm.lm_head_weight(eng.params, eng.cfg)
+    heads = {"Temperature head": lambda: Temperature().head(eng.params,
+                                                            eng.cfg, h),
+             "f32 copy of W (the parent's head)":
+                 lambda: torch.matmul(h.float(), w.float())}
+    mem = {}
+    for what, fn in heads.items():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        logits = fn()
+        torch.cuda.synchronize()
+        mem[what] = dict(mb=(torch.cuda.max_memory_allocated() - base)
+                         / 2 ** 20, **timer.readings(fn), logits=logits)
+    new, old = mem.values()
+    err = (new["logits"] - old["logits"]).abs().max().item()
+    print(f"temperature head at B 8, D {eng.cfg.d_model}, V "
+          f"{eng.cfg.vocab_size}: {new['mb']:.2f} MB allocated beyond its "
+          f"inputs (limit 64), {shown(new)}; the f32 copy of W: "
+          f"{old['mb']:.2f} MB, {shown(old)}; max abs difference "
+          f"{err:.3g} (max |logit| {old['logits'].abs().max().item():.4g})",
+          flush=True)
+    check(new["mb"] <= 64, f"the Temperature head allocated {new['mb']:.1f} "
+          "MB: more than 64")
+    out["temperature_head"] = {k: {n: v for n, v in m.items()
+                                   if n != "logits"}
+                               for k, m in (("change", new),
+                                            ("f32_copy", old))}
+    out["temperature_head"]["max_abs_err"] = err
+    print(f"step graph: {graph_line(llm)}", flush=True)
+    del timer
+    return out
 
 
 def run_unit_path(torch, llm, prompts, outs):
@@ -2329,7 +2688,10 @@ def check_theorem1(torch, llm, prompts, outs, max_new):
     print(f"softmax baseline head: {n_tok} tokens in {wall:.3f} s = "
           f"{n_tok / wall:.2f} tok/s; mean "
           f"{st['decode_ms'] / st['decode_steps']:.3f} ms/decode step "
-          f"(first run of this engine, no warm-up)", flush=True)
+          f"(first run of this engine, no warm-up); graphs: "
+          f"{graph_line(base)}", flush=True)
+    check(base.engine.graphs.replays > 0,
+          "theorem 1: the softmax-baseline engine replayed no graph")
     compare_streams(torch, llm, prompts, outs, souts,
                     "theorem 1, the reduced head vs the softmax baseline")
     del base
@@ -2354,8 +2716,11 @@ def check_small_reference(torch):
     sp = SamplingParams(max_new_tokens=12)
     n0 = pa.paged_attention.launches
     a = LLM(cpu, cfg, n_slots=2, max_len=96).generate(prompts, sp)
-    b = LLM(gpu, cfg, n_slots=2, max_len=96).generate(prompts, sp)
+    card = LLM(gpu, cfg, n_slots=2, max_len=96)
+    b = card.generate(prompts, sp)
     check(pa.paged_attention.launches > n0, "smoke run launched no kernel")
+    check(card.engine.graphs.replays > 0,
+          "small reference: the card's engine replayed no graph")
     for x, y in zip(a, b):
         if x.token_ids == y.token_ids:
             continue
@@ -2369,8 +2734,8 @@ def check_small_reference(torch):
         check(gap <= HEAD_RTOL * abs(top), "card and CPU tokens diverge at "
               "a decided step on the smoke config")
     print(f"small reference: smoke config (f32, hd={cfg.head_dim}) tokens on "
-          f"the card match the plain versions on the CPU for "
-          f"{len(prompts)} prompts", flush=True)
+          f"the card (graphed: {graph_line(card)}) match the plain versions "
+          f"on the CPU for {len(prompts)} prompts", flush=True)
 
 
 def _leaves(tree):
@@ -2408,6 +2773,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, SRC)
     from repro_torch.kernels import _build
+    from repro_torch.serve import step_graph
 
     torch.backends.cuda.matmul.allow_tf32 = False   # f32 matmuls in f32
     torch.backends.cudnn.allow_tf32 = False
@@ -2457,9 +2823,27 @@ def main() -> int:
             torch, llm, prompts, outs, max_new)
         verify_launches, summary["spec"] = run_spec_path(
             torch, llm, [len(p) for p in prompts], max_new)
-        summary["profile"] = profile_decode(torch, llm, prompts)
+        summary["profile_eager"] = profile_decode(torch, llm, prompts,
+                                                  graphed=False)
+        summary["profile"] = profile_decode(torch, llm, prompts,
+                                            graphed=True)
+        eager_ms = summary["profile_eager"]["wall_ms"]
+        graph_ms = summary["profile"]["wall_ms"]
+        print(f"decode step (8 rows, profiler on): graphed {graph_ms:.3f} "
+              f"ms against eager {eager_ms:.3f} ms ({eager_ms / graph_ms:.2f}"
+              f"x); main path decode_ms/step graphed "
+              f"{summary['graph']['decode_ms']:.3f} against eager "
+              f"{summary['eager']['decode_ms']:.3f}", flush=True)
+        check(graph_ms < eager_ms, "the graphed decode step is not faster "
+              "than the eager one")
+        for k in ("paged_kernels_per_step", "argmax_head_kernels_per_step"):
+            check(summary["profile"].get(k)
+                  == summary["profile_eager"].get(k),
+                  f"decode profile: {k} graphed != eager")
+        step = check_step_graph(torch, llm, prompts)
         unit_launches, unit_errs = run_unit_path(torch, llm, prompts, outs)
-        probe_runs = run_probe_path(torch, llm, prompts, max_new)
+        with step_graph.eager_steps():            # the probe stays eager
+            probe_runs = run_probe_path(torch, llm, prompts, max_new)
         check_theorem1(torch, llm, prompts, outs, max_new)
         del llm
         check_small_reference(torch)
@@ -2545,6 +2929,19 @@ def main() -> int:
              hd192={k: v for k, v in hd192_rows.items()
                     if k.startswith("flash")},
              routes=fa_routes),
+        dict(name="step_graph", route="cuda",
+             source="src/repro_torch/serve/step_graph.py",
+             replaces="src/repro/serve/engine.py:164",
+             launches=summary["graph_first_run"]["replays"],
+             max_abs_err=max(c["max_abs_err"]
+                             for c in step["cases"].values()),
+             **{k: step["cases"]["greedy B8 T1"][k] for k in (
+                 "ms", "device_ms", "host_ms", "plain_ms",
+                 "plain_device_ms", "plain_host_ms", "bound_ms",
+                 "bound_by")},
+             **NO_LIBRARY, cases=step["cases"],
+             captures_first_run=summary["graph_first_run"]["captures"],
+             temperature_head=step["temperature_head"]),
     ]
     for name, replaces in (
             ("fused_xent", "src/repro/kernels/fused_xent.py:59"),

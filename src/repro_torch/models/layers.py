@@ -8,6 +8,7 @@ paged kernel's -- so the port's hidden states track the JAX package's.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional
 
 import torch
@@ -37,19 +38,76 @@ def rope_freqs(head_dim: int, theta: float, device) -> torch.Tensor:
     return 1.0 / (theta ** exps)
 
 
+def rope_table(positions: torch.Tensor, head_dim: int, theta: float):
+    """(cos, sin) of the rotation angles at ``positions`` ((B, T) or
+    (T,)), each (B or 1, T, 1, hd/2) f32: what ``rotate`` needs, the same
+    for q and k and for every layer of a step."""
+    freqs = rope_freqs(head_dim, theta, positions.device)   # (hd/2,)
+    ang = positions[..., None].float() * freqs              # (..., T, hd/2)
+    if ang.dim() == 2:
+        ang = ang[None]
+    return torch.cos(ang)[:, :, None, :], torch.sin(ang)[:, :, None, :]
+
+
+def rotate(x: torch.Tensor, cos: torch.Tensor,
+           sin: torch.Tensor) -> torch.Tensor:
+    """Split-halves rotation of x (B, T, H, hd) in f32 by a
+    ``rope_table``."""
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
 def apply_rope(x: torch.Tensor, positions: torch.Tensor,
                theta: float) -> torch.Tensor:
     """x (B, T, H, hd); positions (B, T) or (T,).  Split-halves rotation
     in f32."""
-    hd = x.shape[-1]
-    freqs = rope_freqs(hd, theta, x.device)                 # (hd/2,)
-    ang = positions[..., None].float() * freqs              # (..., T, hd/2)
-    if ang.dim() == 2:
-        ang = ang[None]
-    cos, sin = torch.cos(ang)[:, :, None, :], torch.sin(ang)[:, :, None, :]
-    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
-    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
-    return out.to(x.dtype)
+    return rotate(x, *rope_table(positions, x.shape[-1], theta))
+
+
+@dataclasses.dataclass(frozen=True)
+class StepConstants:
+    """What every layer of one forward pass shares, computed once by
+    ``step_constants``: the RoPE table and, for a paged decode step, where
+    each query's new K/V row goes and what the paged kernel reads.
+
+    cos, sin    (B or 1, T, 1, hd/2) f32, ``rope_table`` of the positions
+    blk, off    (B, T) int64: pool block and offset of each query's row
+    tables      (B, nb) int32 block tables
+    positions   (B,) int32 at T = 1, else (B, T): each query's position
+    cpm         (B, T) int64 positions (the probe tap's operand)
+    """
+
+    cos: torch.Tensor
+    sin: torch.Tensor
+    blk: Optional[torch.Tensor] = None
+    off: Optional[torch.Tensor] = None
+    tables: Optional[torch.Tensor] = None
+    positions: Optional[torch.Tensor] = None
+    cpm: Optional[torch.Tensor] = None
+
+
+def step_constants(cfg: ModelConfig, positions: torch.Tensor, *,
+                   cache_pos: Optional[torch.Tensor] = None,
+                   block_tables: Optional[torch.Tensor] = None,
+                   block_size: Optional[int] = None) -> StepConstants:
+    """The step's constants for ``positions`` ((B, T) or (T,)); with
+    ``cache_pos`` ((B,) or (B, T)), ``block_tables`` (B, nb) and the
+    pools' ``block_size``, the paged branch's too.  A (B,) ``cache_pos``
+    covers a consecutive window of T queries."""
+    cos, sin = rope_table(positions, cfg.head_dim, cfg.rope_theta)
+    if cache_pos is None:
+        return StepConstants(cos, sin)
+    B, T = block_tables.shape[0], cos.shape[1]
+    cpm = cache_pos if cache_pos.dim() == 2 else cache_pos[:, None]
+    if cache_pos.dim() == 1 and T > 1:
+        cpm = cpm + torch.arange(T, device=cache_pos.device)
+    cpm = cpm.expand(B, T).long()
+    blk = torch.gather(block_tables.long(), 1, cpm // block_size)
+    return StepConstants(cos, sin, blk=blk, off=cpm % block_size,
+                         tables=block_tables.to(torch.int32),
+                         positions=(cpm[:, 0] if T == 1 else cpm).to(
+                             torch.int32), cpm=cpm)
 
 
 def activate(h_gate: torch.Tensor, h_up: Optional[torch.Tensor],
@@ -82,22 +140,21 @@ _ATTN_TAP = None
 
 
 def attention(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
-              positions: torch.Tensor, causal: bool = True,
-              window: Optional[int] = None, cache: Optional[dict] = None,
-              cache_pos: Optional[torch.Tensor] = None,
-              block_tables: Optional[torch.Tensor] = None):
-    """Returns ``(out, extra)``.
+              consts: StepConstants, causal: bool = True,
+              window: Optional[int] = None, cache: Optional[dict] = None):
+    """Returns ``(out, extra)``; ``consts`` is the pass's
+    ``step_constants``.
 
     ``cache is None``: the cache-less branch (prefill) -- attention over
     the T positions of ``x`` through ``ops.flash_attention`` (``causal``,
     ``window``: the plain version on the CPU, the kernel on the card);
     ``extra`` is the (k, v) the prefill builds its cache from.
 
-    ``cache`` (the shared ``(num_blocks, bs, Hkv, hd)`` pools) with
-    ``cache_pos`` ((B,) or (B, T)) and ``block_tables`` (B, nb): the
-    paged branch -- each new K/V row is written into its pool block in
-    place, then attention reads the pool through the table
-    (``ops.paged_attention``); ``extra`` is the pools themselves.
+    ``cache`` (the shared ``(num_blocks, bs, Hkv, hd)`` pools) with the
+    paged fields of ``consts``: the paged branch -- each new K/V row is
+    written into its pool block in place, then attention reads the pool
+    through the table (``ops.paged_attention``); ``extra`` is the pools
+    themselves.
     """
     B, T, _ = x.shape
     hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
@@ -107,8 +164,8 @@ def attention(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
     if "q_norm" in p:                        # qk-norm before RoPE
         q = rms_norm(q, p["q_norm"], cfg.norm_eps)
         k = rms_norm(k, p["k_norm"], cfg.norm_eps)
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
+    q = rotate(q, consts.cos, consts.sin)
+    k = rotate(k, consts.cos, consts.sin)
 
     if cache is None:
         # (B, T, H, hd) -> (B, H, T, hd) views; the kernel takes strides,
@@ -119,39 +176,24 @@ def attention(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
         out = o.transpose(1, 2).reshape(B, T, hq * hd)
         return out @ p["wo"], (k, v)
 
-    if cache_pos is None or block_tables is None:
+    if consts.tables is None:
         raise NotImplementedError(
-            "the port's decode attention is the paged branch only: pass "
-            "cache_pos and block_tables")
-    bs = cache["k"].shape[1]
-    # (B, T) per-query positions; a (B,) base covers a consecutive window
-    cpm = cache_pos if cache_pos.dim() == 2 else cache_pos[:, None]
-    if cache_pos.dim() == 1 and T > 1:
-        cpm = cpm + torch.arange(T, device=cache_pos.device)
-    cpm = cpm.expand(B, T).long()
-    blk = torch.gather(block_tables.long(), 1, cpm // bs)   # (B, T)
-    off = cpm % bs
+            "the port's decode attention is the paged branch only: build "
+            "the step constants with cache_pos and block_tables")
     # The new K/V rows go into the shared pools IN PLACE.  The JAX package
     # scatters into a donated copy (``.at[].set``); PyTorch mutates the
     # pool tensor the store owns.  Rows that repeat another row's (token,
     # position) -- the engine's pow2 row padding and repeat-last query
     # padding -- write identical values to the identical cell, so the
     # duplicate indices are harmless.
-    cache["k"].index_put_((blk, off), k.to(cache["k"].dtype))
-    cache["v"].index_put_((blk, off), v.to(cache["v"].dtype))
-    bt = block_tables.to(torch.int32)
+    cache["k"].index_put_((consts.blk, consts.off), k.to(cache["k"].dtype))
+    cache["v"].index_put_((consts.blk, consts.off), v.to(cache["v"].dtype))
     if _ATTN_TAP is not None:
-        _ATTN_TAP.append((q, cache["k"], cache["v"], bt, cpm))
-    if T == 1:
-        o = ops.paged_attention(q[:, 0], cache["k"], cache["v"], bt,
-                                cpm[:, 0].to(torch.int32),
-                                attn_approx=cfg.attn_approx,
-                                window=cfg.attn_window)
-    else:
-        o = ops.paged_attention(q, cache["k"], cache["v"], bt,
-                                cpm.to(torch.int32),
-                                attn_approx=cfg.attn_approx,
-                                window=cfg.attn_window)
+        _ATTN_TAP.append((q, cache["k"], cache["v"], consts.tables,
+                          consts.cpm))
+    o = ops.paged_attention(q[:, 0] if T == 1 else q, cache["k"],
+                            cache["v"], consts.tables, consts.positions,
+                            attn_approx=cfg.attn_approx,
+                            window=cfg.attn_window)
     out = o.reshape(B, T, hq * hd).to(x.dtype)
     return out @ p["wo"], cache
-

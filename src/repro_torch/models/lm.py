@@ -17,7 +17,8 @@ from typing import Optional
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.layers import attention, mlp, rms_norm
+from repro_torch.models.layers import (attention, mlp, rms_norm,
+                                      step_constants)
 from repro_torch.weights import dtype_of
 
 
@@ -55,12 +56,20 @@ def _layer(sp: dict, l: int) -> dict:
             for k, v in sp.items()}
 
 
-def _apply_layer(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
-                 positions, cache=None, cache_pos=None, block_tables=None):
+def layer_params(params: dict, cfg: ModelConfig) -> list:
+    """Every layer's param views, ``[segment][layer][slot]``: built once
+    by a caller that runs many passes over one param tree (the serving
+    engine), so a pass indexes no stacked leaf."""
+    return [[[_layer(seg[f"slot{j}"], l) for j in range(len(unit))]
+             for l in range(count)]
+            for seg, (unit, count) in zip(params["decoder"], segments(cfg))]
+
+
+def _apply_layer(p: dict, x: torch.Tensor, cfg: ModelConfig, *, consts,
+                 cache=None):
     a, extra = attention(p["attn"], rms_norm(x, p["ln1"], cfg.norm_eps),
-                         cfg, positions=positions, causal=True,
-                         window=cfg.attention_window, cache=cache,
-                         cache_pos=cache_pos, block_tables=block_tables)
+                         cfg, consts=consts, causal=True,
+                         window=cfg.attention_window, cache=cache)
     x = x + a
     h = mlp(p["mlp"], rms_norm(x, p["ln2"], cfg.norm_eps), cfg.activation)
     return x + h, extra
@@ -87,14 +96,12 @@ def prefill(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
     the cache's K/V zero-padded to ``max_len`` positions."""
     B, S = tokens.shape
     x = embed_tokens(params, cfg, tokens)
-    positions = torch.arange(S, device=tokens.device)
+    consts = step_constants(cfg, torch.arange(S, device=tokens.device))
     caches = init_cache(cfg, B, max_len, tokens.device)
-    for seg_params, seg_cache, (unit, count) in zip(params["decoder"], caches,
-                                                    segments(cfg)):
-        for l in range(count):
-            for j, _ in enumerate(unit):
-                x, (k, v) = _apply_layer(_layer(seg_params[f"slot{j}"], l),
-                                         x, cfg, positions=positions)
+    for seg_layers, seg_cache in zip(layer_params(params, cfg), caches):
+        for l, slots in enumerate(seg_layers):
+            for j, p in enumerate(slots):
+                x, (k, v) = _apply_layer(p, x, cfg, consts=consts)
                 leaf = seg_cache[f"slot{j}"]["attn"]
                 leaf["k"][l, :, :S] = k
                 leaf["v"][l, :, :S] = v
@@ -104,13 +111,17 @@ def prefill(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
 
 def decode_step(params: dict, cfg: ModelConfig, token: torch.Tensor,
                 caches: list, pos: torch.Tensor, *,
-                block_tables: Optional[torch.Tensor] = None):
+                block_tables: Optional[torch.Tensor] = None,
+                layers: Optional[list] = None):
     """One decode step over the paged pools.
 
     token (B, T) int; pos (B,) -- each row at its own position, RAGGED
     decode -- or (B, T) per-(row, query) positions; ``caches`` holds the
-    store's pools, written in place.  Returns (h, caches): h is (B, D)
-    for T == 1 and (B, T, D) otherwise."""
+    store's pools, written in place; ``layers`` is ``layer_params(params,
+    cfg)`` where the caller keeps it.  The RoPE table and the paged
+    branch's indices are computed once for all layers
+    (``layers.step_constants``).  Returns (h, caches): h is (B, D) for
+    T == 1 and (B, T, D) otherwise."""
     if block_tables is None:
         raise NotImplementedError(
             "decode_step runs the paged layout only: pass block_tables")
@@ -119,21 +130,20 @@ def decode_step(params: dict, cfg: ModelConfig, token: torch.Tensor,
         positions = pos                                   # (B, T)
     elif pos.dim() == 1:
         positions = pos[:, None] + torch.arange(T, device=pos.device)
-        if T > 1:
-            pos = positions                               # per-query writes
     else:
         raise ValueError(f"pos must be (B,) or (B, T); got {tuple(pos.shape)}")
+    if layers is None:
+        layers = layer_params(params, cfg)
+    consts = step_constants(
+        cfg, positions, cache_pos=pos, block_tables=block_tables,
+        block_size=caches[0]["slot0"]["attn"]["k"].shape[2])
     x = embed_tokens(params, cfg, token)
-    for seg_params, seg_cache, (unit, count) in zip(params["decoder"], caches,
-                                                    segments(cfg)):
-        for l in range(count):
-            for j, _ in enumerate(unit):
+    for seg_layers, seg_cache in zip(layers, caches):
+        for l, slots in enumerate(seg_layers):
+            for j, p in enumerate(slots):
                 pools = seg_cache[f"slot{j}"]["attn"]
-                x, _ = _apply_layer(
-                    _layer(seg_params[f"slot{j}"], l), x, cfg,
-                    positions=positions,
-                    cache={"k": pools["k"][l], "v": pools["v"][l]},
-                    cache_pos=pos, block_tables=block_tables)
+                x, _ = _apply_layer(p, x, cfg, consts=consts, cache={
+                    "k": pools["k"][l], "v": pools["v"][l]})
     if T == 1:
         return final_hidden(params, cfg, x[:, 0, :]), caches
     return final_hidden(params, cfg, x), caches

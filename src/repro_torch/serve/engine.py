@@ -17,7 +17,11 @@ Counterpart of ``repro.serve.engine`` on its default path:
     head per distinct ``sampler.device_form()`` over its rows -- so
     ``stats['decode_steps'] == stats['iterations']`` whenever a slot is
     active.  Batch and block-table widths are padded to powers of two
-    (padding rows repeat row 0: the same K/V lands on the same cell);
+    (padding rows repeat row 0: the same K/V lands on the same cell).
+    On the card the step's device half is one CUDA graph per shape
+    bucket (``serve/step_graph.py``, the counterpart of the reference's
+    ``_jitted_step``); it runs eagerly on the CPU, inside
+    ``step_graph.eager_steps()`` and while the probe's tap is set;
   - sampling is a ``Sampler``: ``Greedy`` is the reduced softmax unit
     (the fused argmax comparator), ``TopK`` the k-winner comparator bus
     with an O(k) host softmax (and the ``n_candidates`` candidate ids),
@@ -50,6 +54,7 @@ The JAX engine's other modes are refused, not ignored: ``chunk_size``,
 from __future__ import annotations
 
 import dataclasses
+import functools
 import time
 import warnings
 from collections import deque
@@ -63,6 +68,7 @@ from repro_torch.core import attn_approx as approx
 from repro_torch.kernels import ops
 from repro_torch.models import api, lm
 from repro_torch.serve import sampler as sampler_mod
+from repro_torch.serve import step_graph
 from repro_torch.serve.outputs import TokenChunk
 from repro_torch.serve.paged_kv import PagedKVStore, pow2 as _pow2
 from repro_torch.serve.params import SamplingParams
@@ -108,6 +114,29 @@ class Request:
     t_admit: Optional[float] = None
     t_first: Optional[float] = None
     t_done: Optional[float] = None
+
+
+@dataclasses.dataclass
+class StepPlan:
+    """The host half of one fused decode step (``ServeEngine._plan_step``).
+
+    ``padded`` the slot of each padded row (the first ``n_real`` real);
+    ``drafts`` each slot's draft tokens; ``where`` each padded row's
+    (head group, offset) or (None, offset in the verify group);
+    ``order`` the head groups in ``canonical_order``; ``arrays`` the
+    device body's operands on the host -- tokens (B, T) int64, positions
+    (B,) or (B, T) int32, block tables (B, nb) int32, one (B,) int64 row
+    vector per group, then the verify group's (B,) rows and (B, T-1)
+    int32 draft ids when ``spec`` (B, its padded row count) is not 0;
+    ``key`` the ``step_graph.bucket_key``."""
+    n_real: int
+    padded: list
+    drafts: dict
+    where: list
+    order: list
+    arrays: tuple
+    spec: int
+    key: tuple
 
 
 class ServeEngine:
@@ -174,6 +203,10 @@ class ServeEngine:
         self.store = PagedKVStore(cfg, n_slots=n_slots, max_len=max_len,
                                   device=self.device, block_size=block_size,
                                   num_blocks=num_blocks)
+        # every layer's param views, built once (lm.layer_params); the
+        # decode step's CUDA graphs, one per shape bucket (step_graph)
+        self._layers = lm.layer_params(self.params, cfg)
+        self.graphs = step_graph.StepGraphs()
         # decode_steps counts decode calls, iterations engine loop turns
         # (decode_steps == iterations whenever a slot is active);
         # fused_rows counts real (non-padding) rows over those calls;
@@ -430,27 +463,80 @@ class ServeEngine:
 
     def _decode_rows(self, rows: List[int]):
         """One fused decode step over the given slot rows -- ragged
-        positions, mixed samplers, per-row draft widths.
+        positions, mixed samplers, per-row draft widths: the host plan
+        (``_plan_step``), the device body (``_step_body``, a CUDA graph
+        replay on the card, ``step_graph``), then emission on the host.
 
-        Rows are padded to a power of two by repeating row 0 (identical
-        compute; the duplicate K/V write lands the same value on the same
-        cell) and block-table columns to a power of two with each row's
-        own first block (past its position, so the mask discards them).
-        Each head group's row-index vector is padded the same way.
-
-        Rows with draft tokens this step (``_propose``) widen the step to
-        T = pow2(widest window): a draft row carries its last token plus
-        its drafts at consecutive positions and joins the COMPARATOR-
-        VERIFY group (``ops.verify_draft`` over its (T, D) hidden
-        states); every other row rides along at width 1, its padding
-        queries repeating its last (token, position) -- a cache no-op --
-        and its head reads the last column, which is its real query.  The
+        Rows with draft tokens this step (``_propose``) join the
+        COMPARATOR-VERIFY group (``ops.verify_draft`` over their (T, D)
+        hidden states); every other row rides along at width 1 and its
+        head reads the last column, which is its real query.  The
         verified rows then emit their accepted run plus the comparator's
         correction token one at a time, so stop/eos/length/consumer
         semantics are those of non-speculative decoding; the position
         never advances over a rejected tail (``store.rewind`` returns
         surplus blocks)."""
         t0 = time.perf_counter()
+        plan = self._plan_step(rows)
+        _, outs = self._run_step(plan)
+        for s in plan.order:
+            self._count_head(type(s).__name__)
+        if plan.spec:
+            self._count_head("verify")
+        self.stats["decode_steps"] += 1
+        self.stats["host_syncs"] += 1
+        self.stats["fused_rows"] += plan.n_real
+        # one device->host copy per head group, not per slot
+        host = {s: _to_host(o) for s, o in zip(plan.order, outs)}
+        spec_host = _to_host(outs[-1]) if plan.spec else None
+        self.stats["decode_ms"] += (time.perf_counter() - t0) * 1e3
+        for r in range(plan.n_real):
+            i = plan.padded[r]
+            dev, off = plan.where[r]
+            req = self.slots[i]
+            if dev is None:
+                # speculative row: emit the accepted run plus the
+                # correction token, one at a time (stop/eos/length fire
+                # exactly as they would have, mid-run included)
+                ids, acc = spec_host
+                w = len(plan.drafts[i])
+                m = min(int(acc[off]), w)
+                self.stats["drafted"] += w
+                self.stats["accepted"] += m
+                for tok in ids[off, :m + 1]:
+                    self.slot_pos[i] += 1
+                    self._emit_token(i, req, int(tok))
+                    if req.done:
+                        break
+                if not req.done:
+                    # the rejected tail: the position never advanced over
+                    # it; surplus whole blocks go back to the free list
+                    self.store.rewind(i, int(self.slot_pos[i]))
+            else:
+                self.slot_pos[i] += 1
+                self._emit(i, req, host[dev], off)
+        if self.stats["drafted"]:
+            self.stats["acceptance_rate"] = (
+                self.stats["accepted"] / self.stats["drafted"])
+
+    def _plan_step(self, rows: List[int]) -> StepPlan:
+        """The host half of one fused step: drafts, padded rows, tokens,
+        positions, block tables, the head groups' row vectors and the
+        verify group's rows and draft ids, as numpy operands.
+
+        Rows are padded to a power of two by repeating row 0 (identical
+        compute; the duplicate K/V write lands the same value on the same
+        cell) and block-table columns to a power of two with each row's
+        own first block (past its position, so the mask discards them).
+        Each head group's row-index vector, and the verify group's, is
+        padded to B rows the same way: a bucket's key then follows B, not
+        how its rows split between groups, so a speculative run's steps
+        share few graphs (the argmax and verify heads stream W once per
+        64 rows, so their padding rows cost next to nothing).  A
+        draft row widens the step to T = pow2(widest window): it carries
+        its last token plus its drafts at consecutive positions; the
+        other rows' padding queries repeat their last (token, position)
+        -- a cache no-op."""
         n_real = len(rows)
         drafts = {i: self._propose(i) for i in rows}
         T = _pow2(max(1 + len(drafts[i]) for i in rows))
@@ -482,71 +568,53 @@ class ServeEngine:
             posm[r, :w] = base + np.arange(w)
             posm[r, w:] = base + w - 1   # identical value, identical cell
         btab = self.store.block_table(padded, posm[:, -1])
-        dev_of = self.device
-        # the trunk runs ONCE over all rows; the pools are written in place
-        h, _ = lm.decode_step(self.params, self.cfg,
-                              torch.as_tensor(toks, device=dev_of),
-                              self.store.cache(),
-                              torch.as_tensor(posm if T > 1 else posm[:, 0],
-                                              device=dev_of),
-                              block_tables=torch.as_tensor(btab,
-                                                           device=dev_of))
-        hl = h[:, -1] if h.dim() == 3 else h   # each row's last real query
-        outs = []
-        for s in order:
-            r = groups[s] + [groups[s][0]] * (_pow2(len(groups[s]))
-                                              - len(groups[s]))
-            outs.append(s.head(self.params, self.cfg,
-                               hl[torch.as_tensor(r, device=dev_of)]))
-            self._count_head(type(s).__name__)
-        spec_out = None
+        b = len(padded)
+        group_rows = [np.asarray(g + [g[0]] * (b - len(g)), np.int64)
+                      for g in (groups[s] for s in order)]
+        arrays = [toks, posm if T > 1 else np.ascontiguousarray(posm[:, 0]),
+                  btab, *group_rows]
+        spec = 0
         if spec_group:
-            sg = spec_group + [spec_group[0]] * (_pow2(len(spec_group))
-                                                 - len(spec_group))
+            sg = spec_group + [spec_group[0]] * (b - len(spec_group))
             cand = np.full((len(sg), T - 1), -1, np.int32)
             for o, r in enumerate(sg):
                 d = drafts[padded[r]]
                 cand[o, :len(d)] = d
-            spec_out = ops.verify_draft(
-                h[torch.as_tensor(sg, device=dev_of)],
-                lm.lm_head_weight(self.params, self.cfg),
-                torch.as_tensor(cand, device=dev_of))
-            self._count_head("verify")
-        self.stats["decode_steps"] += 1
-        self.stats["host_syncs"] += 1
-        self.stats["fused_rows"] += n_real
-        # one device->host copy per head group, not per slot
-        host = {s: _to_host(o) for s, o in zip(order, outs)}
-        spec_host = _to_host(spec_out) if spec_group else None
-        self.stats["decode_ms"] += (time.perf_counter() - t0) * 1e3
-        for r in range(n_real):
-            i = padded[r]
-            dev, off = where[r]
-            req = self.slots[i]
-            if dev is None:
-                # speculative row: emit the accepted run plus the
-                # correction token, one at a time (stop/eos/length fire
-                # exactly as they would have, mid-run included)
-                ids, acc = spec_host
-                w = len(drafts[i])
-                m = min(int(acc[off]), w)
-                self.stats["drafted"] += w
-                self.stats["accepted"] += m
-                for tok in ids[off, :m + 1]:
-                    self.slot_pos[i] += 1
-                    self._emit_token(i, req, int(tok))
-                    if req.done:
-                        break
-                if not req.done:
-                    # the rejected tail: the position never advanced over
-                    # it; surplus whole blocks go back to the free list
-                    self.store.rewind(i, int(self.slot_pos[i]))
-            else:
-                self.slot_pos[i] += 1
-                self._emit(i, req, host[dev], off)
-        if self.stats["drafted"]:
-            self.stats["acceptance_rate"] = (
-                self.stats["accepted"] / self.stats["drafted"])
+            arrays += [np.asarray(sg, np.int64), cand]
+            spec = len(sg)
+        key = step_graph.bucket_key(order, toks.shape, btab.shape,
+                                    [len(g) for g in group_rows], spec)
+        return StepPlan(n_real, padded, drafts, where, order, tuple(arrays),
+                        spec, key)
+
+    def _run_step(self, plan: StepPlan):
+        """The device half of ``plan``: (h, head outputs) -- a graph
+        replay of its bucket on the card (``step_graph.graphed``), else
+        ``_step_body`` eagerly."""
+        body = functools.partial(self._step_body, tuple(plan.order))
+        if step_graph.graphed(self.device):
+            return self.graphs.run(plan.key, body, plan.arrays, self.device)
+        return body(*step_graph.to_device(plan.arrays, self.device))
+
+    def _step_body(self, order: tuple, toks, pos, btab, *rest):
+        """The fused step on the card: the trunk ONCE over all rows (the
+        pools written in place), then one head per group in ``order``
+        over its rows (``rest``'s first vectors), then, when ``rest``
+        also holds the verify group's rows and draft ids, the comparator
+        verify over their (T, D) hidden states.  It reads its inputs only
+        from the tensors it is handed, so a captured body replays over
+        new ones.  Returns (h, outputs), the verify group's last."""
+        h, _ = lm.decode_step(self.params, self.cfg, toks,
+                              self.store.cache(), pos, block_tables=btab,
+                              layers=self._layers)
+        hl = h[:, -1] if h.dim() == 3 else h   # each row's last real query
+        outs = [s.head(self.params, self.cfg, hl[r])
+                for s, r in zip(order, rest)]
+        if len(rest) > len(order):
+            srows, cand = rest[len(order):]
+            outs.append(ops.verify_draft(
+                h[srows], lm.lm_head_weight(self.params, self.cfg), cand))
+        return h, tuple(outs)
 
     def _ensure_blocks(self, i: int, pos: int) -> bool:
         """Grow slot i's block table to cover ``pos``; preempt the

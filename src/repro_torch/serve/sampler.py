@@ -18,7 +18,7 @@ Counterpart of ``repro.serve.sampler``:
                     over the survivors on the host, drawn from the
                     request's numpy RNG.
   Temperature       full-vocab Gumbel-max: the head ships the f32 logit
-                    row (a plain ``torch.matmul``, as the JAX package
+                    row (``f32_logits``: one GEMM, as the JAX package
                     leaves it to XLA), the host adds Gumbel noise and
                     takes the argmax -- still a comparator decision.
   SoftmaxBaseline   the full softmax unit: f32 logits, softmax, THEN
@@ -44,6 +44,19 @@ from repro_torch.serve.params import SamplingParams
 
 # The k-winner comparator's bound (``repro.serve.sampler.MAX_TOP_K``).
 MAX_TOP_K = 64
+
+
+def f32_logits(params: dict, cfg: ModelConfig,
+               h: torch.Tensor) -> torch.Tensor:
+    """(B, V) f32 logits ``h @ W``, as the JAX package's ``jnp.dot(h, W,
+    preferred_element_type=jnp.float32)``.  On the card one GEMM reads
+    the bf16 W in place and writes f32 (``aten::mm.dtype``), with no f32
+    copy of W (622 MB at qwen3-0.6b's width); on the CPU, where that
+    overload has no kernel, ``h.float() @ W.float()``."""
+    w = lm.lm_head_weight(params, cfg)
+    if h.device.type == "cpu":
+        return torch.matmul(h.float(), w.float())
+    return torch.mm(h, w, out_dtype=torch.float32)
 
 
 class Sampler:
@@ -98,11 +111,10 @@ class Greedy(Sampler):
 class SoftmaxBaseline(Sampler):
     """The full softmax unit: exp + normalize + divide, THEN compare.
     A plain PyTorch baseline, not a kernel: f32 logits from
-    ``torch.matmul``, then softmax, then argmax."""
+    ``f32_logits``, then softmax, then argmax."""
 
     def head(self, params: dict, cfg: ModelConfig, h: torch.Tensor):
-        logits = torch.matmul(h.float(),
-                              lm.lm_head_weight(params, cfg).float())
+        logits = f32_logits(params, cfg, h)
         probs = torch.softmax(logits, dim=-1)
         return torch.argmax(probs, dim=-1).to(torch.int32)
 
@@ -189,8 +201,7 @@ class Temperature(Sampler):
         return dataclasses.replace(self, temperature=1.0)
 
     def head(self, params: dict, cfg: ModelConfig, h: torch.Tensor):
-        return torch.matmul(h.float(),
-                            lm.lm_head_weight(params, cfg).float())
+        return f32_logits(params, cfg, h)
 
     def pick(self, out, row: int, rng=None) -> int:
         logits = np.asarray(out[row], np.float32)

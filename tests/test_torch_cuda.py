@@ -1348,3 +1348,209 @@ def test_engine_on_card_matches_cpu(dev, arch):
     assert [o.token_ids for o in got] == [o.token_ids for o in want]
     assert ftk.fused_topk_head.launches == calls["TopK"] > 0
     assert fah.fused_verify_head.launches == calls["verify"] > 0
+
+
+# -- the decode step as one CUDA graph (serve/step_graph.py) ----------------
+
+
+def _graph_engine(dev, dtype):
+    """A smoke-size qwen3-0.6b engine on the card in ``dtype`` (16 slots
+    of 4 blocks of 16), its pools filled with random K/V."""
+    import dataclasses
+
+    from repro_torch.configs import get_config, smoke_config
+    from repro_torch.serve.engine import ServeEngine
+    from repro_torch.weights import init_params
+
+    cfg = dataclasses.replace(smoke_config(get_config("qwen3-0.6b")),
+                              dtype="bfloat16" if dtype == torch.bfloat16
+                              else "float32")
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(5), dev)
+    eng = ServeEngine(params, cfg, n_slots=16, max_len=64)
+    gen = torch.Generator(device=dev).manual_seed(6)
+    for p in eng.store.pools.values():
+        p.copy_(torch.randn(p.shape, generator=gen, device=dev))
+    return eng
+
+
+def _step_operands(eng, b, t, seed, half=0):
+    """One step's host operands for ``eng``: b rows at t queries, each row
+    on 4 blocks of its own from half ``half`` of the pool (no two rows
+    write one cell, and operands of the two halves read none of each
+    other's); at t = 1 three head groups (Greedy, Temperature, TopK 4),
+    at t > 1 a Greedy group and every row in the verify group with
+    ragged -1 padded drafts.  Returns (order, arrays)."""
+    from repro_torch.serve.paged_kv import pow2
+    from repro_torch.serve.sampler import (Greedy, Temperature, TopK,
+                                           canonical_order)
+
+    rng = np.random.default_rng(seed)
+    nb, bs, v = 4, eng.store.block_size, eng.cfg.vocab_size
+    n = eng.store.allocator.num_blocks // 2
+    perm = rng.permutation(n) + half * n
+    btab = perm[:b * nb].reshape(b, nb).astype(np.int32)
+    last = rng.integers(t, nb * bs, size=b)
+    posm = (last[:, None] - np.arange(t - 1, -1, -1)).astype(np.int32)
+    toks = rng.integers(0, v, size=(b, t)).astype(np.int64)
+    order = tuple(canonical_order(
+        [Greedy(), Temperature(), TopK(4)] if t == 1 else [Greedy()]))
+    rows = [rng.choice(b, size=pow2(max(1, b // (g + 1)))).astype(np.int64)
+            for g in range(len(order))]
+    arrays = [toks, posm[:, 0].copy() if t == 1 else posm, btab, *rows]
+    if t > 1:
+        cand = rng.integers(0, v, size=(b, t - 1)).astype(np.int32)
+        for r, w in enumerate(rng.integers(0, t, size=b)):
+            cand[r, w:] = -1
+        arrays += [np.arange(b, dtype=np.int64), cand]
+    return order, tuple(arrays)
+
+
+def _leaves_on_host(out):
+    """(h, outputs) of a step body as a flat list of CPU copies."""
+    h, outs = out
+    flat = [h]
+    for o in outs:
+        flat += list(o) if isinstance(o, tuple) else [o]
+    return [x.cpu().clone() for x in flat]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b", [1, 8])
+@pytest.mark.parametrize("t", [1, 8])
+def test_captured_step_bitwise_equals_eager(dev, dtype, b, t):
+    """A captured step's hidden states and every head group's output
+    (Greedy, Temperature, TopK at T 1; Greedy and the verify group at T
+    8) are the eager step's bits on the same operands."""
+    import functools
+
+    from repro_torch.serve import step_graph
+
+    eng = _graph_engine(dev, dtype)
+    order, arrays = _step_operands(eng, b, t, seed=b * 10 + t)
+    body = functools.partial(eng._step_body, order)
+    want = _leaves_on_host(body(*step_graph.to_device(arrays, dev)))
+    eng.graphs.capture("case", body, arrays, dev)
+    got = _leaves_on_host(eng.graphs.replay("case", arrays))
+    assert len(got) == len(want) == 1 + len(order) + (t > 1) + 1
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+    assert eng.graphs.captures == eng.graphs.replays == 1
+
+
+def test_one_bucket_replays_over_two_batches(dev):
+    """One capture serves every batch of its bucket: replayed over batch
+    B (other tokens, positions, block ids and head rows), then batch A
+    again, it gives each batch's eager bits."""
+    import functools
+
+    from repro_torch.serve import step_graph
+
+    eng = _graph_engine(dev, torch.bfloat16)
+    order, a = _step_operands(eng, 8, 1, seed=1)
+    order_b, b = _step_operands(eng, 8, 1, seed=2, half=1)
+    assert order == order_b and [x.shape for x in a] == [x.shape for x in b]
+    body = functools.partial(eng._step_body, order)
+    want_a = _leaves_on_host(body(*step_graph.to_device(a, dev)))
+    want_b = _leaves_on_host(body(*step_graph.to_device(b, dev)))
+    assert not torch.equal(want_a[0], want_b[0])
+    eng.graphs.capture("bucket", body, a, dev)
+    for arrays, want in ((b, want_b), (a, want_a), (b, want_b)):
+        got = _leaves_on_host(eng.graphs.replay("bucket", arrays))
+        assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+def test_launch_counters_after_replays(dev):
+    """A capture counts no launch; N replays count N times the eager
+    step's launches, kernel by kernel and paged attention by mode."""
+    import functools
+
+    from repro_torch.serve import step_graph
+
+    eng = _graph_engine(dev, torch.bfloat16)
+    order, arrays = _step_operands(eng, 8, 8, seed=3)
+    body = functools.partial(eng._step_body, order)
+    wr = step_graph.kernel_wrappers()
+    before = step_graph.read_counts(wr)
+    body(*step_graph.to_device(arrays, dev))
+    after_eager = step_graph.read_counts(wr)
+    eager = step_graph.count_delta(before, after_eager)
+    assert eager[("paged_attention", "launches", None)] == eng.cfg.n_layers
+    assert eager[("fused_verify_head", "launches", None)] == 1
+    eng.graphs.capture("counted", body, arrays, dev)
+    assert step_graph.read_counts(wr) == after_eager
+    for _ in range(5):
+        eng.graphs.replay("counted", arrays)
+    torch.cuda.synchronize()
+    assert step_graph.count_delta(after_eager, step_graph.read_counts(wr)) \
+        == {k: 5 * n for k, n in eager.items()}
+
+
+def test_graphed_generate_equals_eager(dev):
+    """``LLM.generate`` on the card replays captured steps and gives the
+    tokens of the same requests served under ``eager_steps()``."""
+    from repro_torch.configs import get_config, smoke_config
+    from repro_torch.serve import step_graph
+    from repro_torch.serve.api import LLM
+    from repro_torch.serve.params import SamplingParams
+    from repro_torch.weights import init_params
+
+    cfg = smoke_config(get_config("qwen3-0.6b"))
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(8), dev)
+    rng = np.random.default_rng(8)
+    rep = np.tile(rng.integers(0, cfg.vocab_size, size=5), 6)
+    prompts = [rng.integers(0, cfg.vocab_size, size=n) for n in (3, 19, 33)]
+    prompts += [rep, rep[:17]]
+    sp = [SamplingParams(max_new_tokens=12),
+          SamplingParams(max_new_tokens=12, top_k=4, seed=1),
+          SamplingParams(max_new_tokens=12, head_mode="temperature", seed=2),
+          SamplingParams(max_new_tokens=12, spec_k=4),
+          SamplingParams(max_new_tokens=12, n_candidates=3)]
+    kw = dict(n_slots=4, max_len=96)
+    with step_graph.eager_steps():
+        eager = LLM(params, cfg, **kw)
+        want = eager.generate(prompts, sp)
+    assert len(eager.engine.graphs) == 0
+    llm = LLM(params, cfg, **kw)
+    got = llm.generate(prompts, sp)
+    assert [o.token_ids for o in got] == [o.token_ids for o in want]
+    g = llm.engine.graphs
+    assert g.captures == len(g) > 0 and g.replays > 0
+    # each bucket's first step runs eagerly, its second captures and
+    # replays, the rest replay
+    assert set(g.graphs) <= g.seen
+    assert len(g.seen) + g.replays == llm.stats["decode_steps"]
+    assert g.pool_bytes() > 0
+
+
+@pytest.mark.parametrize("head", ["Temperature", "SoftmaxBaseline"])
+def test_logit_heads_copy_no_f32_weight(dev, head):
+    """At qwen3-0.6b's width and B 8 the Temperature and softmax-baseline
+    heads read the bf16 head weight in place: under 64 MB allocated
+    beyond their inputs (a (D, V) f32 copy of W is 622 MB), with logits
+    within rtol 1e-5 (plus 1e-5 of the largest |logit|) of the f32
+    product."""
+    from repro_torch.configs import get_config
+    from repro_torch.serve import sampler
+
+    cfg = get_config("qwen3-0.6b")
+    gen = torch.Generator(device=dev).manual_seed(9)
+    params = {"embed": torch.randn(cfg.vocab_size, cfg.d_model,
+                                   generator=gen, device=dev).to(
+        torch.bfloat16)}
+    h = torch.randn(8, cfg.d_model, generator=gen, device=dev).to(
+        torch.bfloat16)
+    s = getattr(sampler, head)()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    out = s.head(params, cfg, h)
+    torch.cuda.synchronize()
+    assert torch.cuda.max_memory_allocated() - base < 64 << 20
+    want = torch.matmul(h.float(), params["embed"].t().float())
+    if head == "Temperature":
+        torch.testing.assert_close(out, want, rtol=1e-5,
+                                   atol=1e-5 * want.abs().max().item())
+    else:
+        top2 = want.topk(2, dim=-1).values
+        decided = (top2[:, 0] - top2[:, 1]) > 1e-3 * top2[:, 0].abs()
+        assert bool(((out == want.argmax(-1)) | ~decided).all())
