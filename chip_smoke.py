@@ -13,13 +13,16 @@ Phases, each of which fails the run (non-zero exit, no result line):
      plain version and one PyTorch library call computing the same
      function (a yardstick only), beside the bound computed from the
      bytes and flops of these inputs: paged attention (T = 1, 4 and 32
-     over 8 ragged rows, the last 64 query rows per KV head, and T = 1
-     over one 1000-token row; each call's split into chunks printed; the
+     over 8 ragged rows, the last 64 query rows per KV head, T = 64 --
+     a step of chunked prefill at width 64, its split scratch printed --
+     and T = 1 over one 1000-token row; each call's split into chunks
+     printed; the
      kernels each (dtype, mode) ran, by their names in a profiler trace:
      bf16 on the tensor cores in every mode, base2 and pwl after a row-max
      pre-pass; in every mode a row's output bitwise equal alone and beside
-     a 1000-token row, and at T = 1 and in every column of T = 8 with its
-     position repeated), head dim 192 (paged
+     a 1000-token row, at T = 1 and in every column of T = 8 with its
+     position repeated, and every column of a T = 64 chunk window equal
+     to its query at T = 1), head dim 192 (paged
      attention at T = 1 and 32 in every mode, flash attention over 512
      tokens), the argmax head (B 1, 8 and 64; the pass-1 kernel each
      dtype ran, by its name in a profiler trace: bf16 on the tensor-core
@@ -83,11 +86,37 @@ Phases, each of which fails the run (non-zero exit, no result line):
      graphed step must be the faster, and in both the traced
      paged-attention and argmax-head kernels must be twice the launches
      the counters add up (2 x 28 and 2 a step);
-  4f. the step as one program: in three buckets (greedy B 8 T 1; Greedy
-     + TopK + Temperature groups; the verify group at T 8) a replay of
-     the bucket's graph gives the eager step's hidden states and head
-     outputs bit for bit on the same operands; the greedy bucket's
-     replay timed beside its eager body and the step's bound; the
+  4g. chunked prefill (``chunk_size=64`` on engines sharing the main
+     path's weights, prefix sharing off): phase 4's prompts once eager
+     and three times graphed (the third all replays; tokens equal), then
+     at ``chunk_size=16`` and at 64 with ``token_budget=128``, then phase
+     4b's mixed samplers and phase 4c's prompts at ``spec_k=4``; every
+     run's chunk rows at their count, flash launches 0, paged launches
+     28 x steps, each head kernel's launches its ``head_calls``, one step
+     an iteration; its streams against the one-shot ones measured in
+     bf16 and held in f32 (see below); tok/s, ms a step, TTFT and ITL
+     (from emit stamps) and the graph cache's work printed beside phase
+     4's one-shot numbers;
+  4g'. the reference's heavy-tailed trace (``bench_serve.chunked_sweep``:
+     32 prompts, Zipf 1.5 lengths 16-1024, 4 slots, 8 new tokens),
+     one-shot against chunk 16 and 64, each twice graphed: short-class
+     TTFT and ITL p99; gated on tokens (each engine's two runs equal,
+     the three paths in f32);
+  4h. prefix sharing on the reference's ``prefix_sweep`` trace (64
+     requests opening with one 512-token system prompt, 16 cold; chunk
+     32, block 16, 4 slots): off against on, each engine warmed on the
+     same trace with another system prompt (prefill tokens >= 2x fewer,
+     hits; tokens in f32), then ``spec_k=4`` and a 9-block pool (a
+     sharer preempted, trie runs evicted) on a small shared trace, in
+     f32; every copy-on-write (one forced on the trie's blocks) bitwise
+     in every layer, K and V, its source untouched;
+  4f. the step as one program: in four buckets (greedy B 8 T 1; Greedy
+     + TopK + Temperature groups; the verify group at T 8; six decode
+     rows, a mid-prefill chunk row and a final chunk row at T 64 on the
+     chunk-64 engine) a replay of the bucket's graph gives the eager
+     step's hidden states and head outputs bit for bit on the same
+     operands; the greedy and the chunk bucket's replays timed beside
+     their eager bodies and the step's bound; the
      Temperature head's memory beyond its inputs (<= 64 MB) and device
      ms beside the f32 copy of W it replaced;
   4d. the unit path: the f32 logits of the 12 prompts' final hidden
@@ -114,6 +143,11 @@ Phases, each of which fails the run (non-zero exit, no result line):
 Token streams that should be equal may part only at a near-tie of the
 two best f32 logits (gap within 1e-3 of the max): the batch composition
 changes the order of the bf16 sums in the trunk's matrix products.
+Paths that compute a prompt's K/V with other arithmetic -- one-shot and
+chunked prefill, prefix sharing off and on -- differ in bf16 by far more
+(their logits ~0.08 apart, as far as each from the f32 trunk's), so
+their streams are held to that rule in f32 at full width
+(``cross_path_f32``) and only measured in bf16.
 
 It prints one JSON object with the kernels' numbers on the line before
 the last, and ``{"ok": true, "device": {...}}`` as the last line.
@@ -372,16 +406,22 @@ def check_repeatable(torch, fn, what):
 
 
 def check_paged_attention(torch, timer, rng):
-    """Exact paged attention at T = 1, 4 and 32 over 8 ragged rows, and
-    at T = 1 over one 1000-token row (B 1, the single-row latency case
-    the split is for)."""
+    """Exact paged attention at T = 1, 4 and 32 over 8 ragged rows, at T
+    = 64 (a step of chunked prefill at ``chunk_size=64``: each row a
+    window of 64 consecutive positions), and at T = 1 over one
+    1000-token row (B 1, the single-row latency case the split is for).
+    Each call's split scratch (f32 partials, written by the fold and
+    read by the combine) is printed."""
     from repro_torch.kernels import paged_attention as pa
     from repro_torch.kernels import ref
 
     rows = {}
     # T = 32 at g = 2: 64 query rows per head
-    for key, t, b in ((1, 1, 8), (4, 4, 8), (32, 32, 8), ("B1", 1, 1)):
-        q, kp, vp, bt, pos = paged_case(torch, rng, t, b=b)
+    for key, t, b in ((1, 1, 8), (4, 4, 8), (32, 32, 8), ("B1", 1, 1),
+                      (64, 64, 8)):
+        # T 64 on its own generator: the later phases keep their inputs
+        q, kp, vp, bt, pos = paged_case(
+            torch, rng if t != 64 else np.random.default_rng(64), t, b=b)
         hd = q.shape[-1]
         tag = f"B={b} T={t}"
         out = pa.paged_attention(q, kp, vp, bt, pos)
@@ -405,13 +445,17 @@ def check_paged_attention(torch, timer, rng):
             torch, q, kp, vp, bt, pos, None, 1 / math.sqrt(hd)), "library_")
         nbytes, flops = paged_work(q, kp, bt, pos, None)
         bound_ms, bound_by = bound(nbytes, flops, BF16_FLOPS_PER_S)
+        n_chunks = pa.split_for(q, kp, bt)[0]
+        scratch = (q.numel() // hd * n_chunks * (hd + 2) * 4
+                   if n_chunks > 1 else 0)
         print(f"paged_attention {tag}: kernel {shown(kern)}, plain "
               f"{plain_ms:.4f} ms, sdpa(gathered view) "
               f"{shown(lib, 'library_')}, bound {bound_ms:.4f} ms "
-              f"({bound_by}: {nbytes / 1e6:.3f} MB)", flush=True)
+              f"({bound_by}: {nbytes / 1e6:.3f} MB); split scratch "
+              f"{scratch / 1e6:.3f} MB a call", flush=True)
         rows[key] = dict(max_abs_err=err, **kern, plain_ms=plain_ms,
                          bound_ms=bound_ms, bound_by=bound_by, **lib,
-                         chunks=pa.split_for(q, kp, bt)[0])
+                         chunks=n_chunks, scratch_mb=scratch / 1e6)
     return rows
 
 
@@ -793,12 +837,17 @@ def check_paged_invariance(torch, rng):
     in every score mode: each of 8 ragged rows alone (B 1, a table of its
     own width, so fewer chunks) equals, bit for bit, the same row in the
     batch beside the 1,000-token row (B 8, a 1,024-position table, 16
-    chunks); and each row's T = 1 output equals every column of the same
-    row at T = 8 whose padding queries repeat its position."""
+    chunks); each row's T = 1 output equals every column of the same
+    row at T = 8 whose padding queries repeat its position; and every
+    column of a T = 64 chunk window (each row 64 consecutive positions)
+    equals the same queries at T = 1."""
     from repro_torch.kernels import paged_attention as pa
     from repro_torch.serve.paged_kv import pow2
 
     q, kp, vp, bt, pos = paged_case(torch, rng, 1)
+    # its own generator: the later phases keep the inputs they had
+    q64, kp64, vp64, bt64, pos64 = paged_case(
+        torch, np.random.default_rng(64), 64)
     b, bs = q.shape[0], kp.shape[1]
     q8 = q[:, None].expand(b, 8, *q.shape[1:]).contiguous()
     pos8 = pos[:, None].expand(b, 8).contiguous()
@@ -813,24 +862,35 @@ def check_paged_invariance(torch, rng):
                 bt[r:r + 1, :nb].contiguous(), pos[r:r + 1],
                 attn_approx=mode))
         wide = pa.paged_attention(q8, kp, vp, bt, pos8, attn_approx=mode)
+        chunk = pa.paged_attention(q64, kp64, vp64, bt64, pos64,
+                                   attn_approx=mode)
+        ones = [pa.paged_attention(q64[:, c].contiguous(), kp64, vp64, bt64,
+                                   pos64[:, c].contiguous(),
+                                   attn_approx=mode) for c in range(64)]
         torch.cuda.synchronize()
         rows_ok = sum(bool(torch.equal(a[0], batch[r]))
                       for r, a in enumerate(alone))
         cols_ok = sum(bool(torch.equal(wide[:, t], batch))
                       for t in range(8))
+        chunk_ok = sum(bool(torch.equal(chunk[:, c], one))
+                       for c, one in enumerate(ones))
         chunks = sorted({pa.split_for(q[:1], kp, bt[:1, :pow2(
             int(pos[r]) // bs + 1)])[0] for r in range(b)})
         print(f"paged_attention {mode} invariance: {rows_ok}/{b} rows "
               f"alone (chunks {chunks}) bitwise equal to the same row at "
               f"B {b} ({pa.split_for(q, kp, bt)[0]} chunks); "
-              f"{cols_ok}/8 columns of T 8 bitwise equal to T 1: "
-              f"{'ok' if rows_ok == b and cols_ok == 8 else 'FAIL'}",
+              f"{cols_ok}/8 columns of T 8 bitwise equal to T 1; "
+              f"{chunk_ok}/64 columns of a T 64 chunk window bitwise equal "
+              f"to T 1: {'ok' if rows_ok == b and cols_ok == 8 and chunk_ok == 64 else 'FAIL'}",
               flush=True)
         check(rows_ok == b, f"paged {mode}: a row alone differs from the "
               "same row beside a 1,000-token row")
         check(cols_ok == 8, f"paged {mode}: T 8 with repeated positions "
               "differs from T 1")
-        out[mode] = dict(rows_equal=rows_ok, columns_equal=cols_ok)
+        check(chunk_ok == 64, f"paged {mode}: a column of a T 64 chunk "
+              "window differs from its query at T 1")
+        out[mode] = dict(rows_equal=rows_ok, columns_equal=cols_ok,
+                         chunk_columns_equal=chunk_ok)
     return out
 
 
@@ -1854,14 +1914,29 @@ def stats_delta(before: dict, after: dict) -> dict:
     return out
 
 
+def latency_ms(t0, stamps) -> dict:
+    """TTFT p50 / p99 (first emission after ``t0``, the start of a
+    ``generate`` that submits every request at once) and ITL p50 / p99
+    (gaps between a request's consecutive emissions) in ms, from each
+    request's emit stamps (a consumer's ``time.perf_counter()``)."""
+    ttft = [(ts[0] - t0) * 1e3 for ts in stamps]
+    itl = [(b - a) * 1e3 for ts in stamps for a, b in zip(ts, ts[1:])]
+    return {"ttft_ms_p50": float(np.percentile(ttft, 50)),
+            "ttft_ms_p99": float(np.percentile(ttft, 99)),
+            "itl_ms_p50": float(np.percentile(itl, 50)) if itl else None,
+            "itl_ms_p99": float(np.percentile(itl, 99)) if itl else None}
+
+
 def drive(torch, llm, prompts, plist):
     """One ``LLM.generate`` over ``prompts``: the launch counts are set
     to 0 just before it and read just after.  Returns (outputs, every
     streamed chunk's candidate ids by prompt, launches, stats delta,
-    wall seconds)."""
-    cands = {}
+    wall seconds); the stats delta also holds ``latency_ms`` of the
+    emit stamps a consumer took."""
+    cands, stamps = {}, {}
 
     def collect(chunk):
+        stamps.setdefault(chunk.rid, []).append(time.perf_counter())
         cands.setdefault(chunk.rid, []).append(chunk.candidate_ids)
 
     llm.engine.add_consumer(collect)
@@ -1877,14 +1952,19 @@ def drive(torch, llm, prompts, plist):
     wall = time.perf_counter() - t0
     launches = read_launches()
     st = stats_delta(before, stats_now(llm))
+    st.update(latency_ms(t0, [stamps[o.rid] for o in outs]))
     return outs, [cands[o.rid] for o in outs], launches, st, wall
 
 
-def compare_streams(torch, llm, prompts, want, got, what) -> int:
+def compare_streams(torch, llm, prompts, want, got, what,
+                    gate=True) -> int:
     """``got`` must equal ``want`` stream by stream, or part from it only
     at a near-tie of the two best f32 logits (gap <= HEAD_RTOL * |max|),
     where the order of the trunk's bf16 sums can decide.  Returns the
-    number of identical streams."""
+    number of identical streams.  With ``gate=False`` it only measures
+    and prints (each parting's step and gap): for two bf16 paths that
+    compute a prompt's K/V with different arithmetic, whose tokens are
+    held to each other in f32 instead (``cross_path_f32``)."""
     same = 0
     for p, o, s in zip(prompts, want, got):
         if o.token_ids == s.token_ids:
@@ -1893,16 +1973,21 @@ def compare_streams(torch, llm, prompts, want, got, what) -> int:
         k = next((i for i, (x, y) in enumerate(zip(o.token_ids,
                                                    s.token_ids)) if x != y),
                  min(len(o.token_ids), len(s.token_ids)))
-        check(k < min(len(o.token_ids), len(s.token_ids)),
-              f"{what}: rid {s.rid} stopped at {len(s.token_ids)} tokens "
-              f"where the reference has {len(o.token_ids)}")
+        if k == min(len(o.token_ids), len(s.token_ids)):
+            print(f"{what}: rid {s.rid} stopped at {len(s.token_ids)} "
+                  f"tokens where the reference has {len(o.token_ids)}",
+                  flush=True)
+            check(not gate, f"{what}: rid {s.rid} stopped early or late")
+            continue
         gap, top = top2_gap_at(torch, llm, p, o.token_ids, k)
         print(f"{what}: rid {s.rid} diverges at step {k}: top-2 f32 logit "
-              f"gap {gap:.6g} (max {top:.6g})", flush=True)
-        check(gap <= HEAD_RTOL * abs(top),
+              f"gap {gap:.6g} (max {top:.6g}, {gap / abs(top):.3g} of it)",
+              flush=True)
+        check(not gate or gap <= HEAD_RTOL * abs(top),
               f"{what}: streams diverge at a decided step (gap {gap} > "
               f"{HEAD_RTOL}*|{top}|)")
-    print(f"{what}: {same}/{len(want)} streams identical", flush=True)
+    print(f"{what}: {same}/{len(want)} streams identical"
+          + ("" if gate else " (measured, not a gate)"), flush=True)
     return same
 
 
@@ -2019,11 +2104,15 @@ def main_line(what, outs, st, wall) -> dict:
           f"{n_tok / wall:.2f} tok/s; {st['decode_steps']} decode steps, "
           f"mean {st['decode_ms'] / st['decode_steps']:.3f} ms/step; "
           f"{st['prefills']} prefills, mean {prefill_ms:.3f} ms, "
-          f"{st['prefill_ms']:.1f} ms in all", flush=True)
+          f"{st['prefill_ms']:.1f} ms in all; TTFT p50 "
+          f"{st['ttft_ms_p50']:.2f} p99 {st['ttft_ms_p99']:.2f} ms, ITL "
+          f"p99 {st['itl_ms_p99']:.2f} ms", flush=True)
     return dict(tok_s=n_tok / wall, tokens=n_tok,
                 decode_steps=st["decode_steps"], prefills=st["prefills"],
                 decode_ms=st["decode_ms"] / st["decode_steps"],
-                prefill_ms=prefill_ms, wall_s=wall)
+                prefill_ms=prefill_ms, wall_s=wall,
+                **{k: st[k] for k in ("ttft_ms_p50", "ttft_ms_p99",
+                                      "itl_ms_p99")})
 
 
 def run_main_path(torch, prompts, max_new):
@@ -2087,11 +2176,8 @@ def run_main_path(torch, prompts, max_new):
     return llm, outs, launches, summary
 
 
-def run_sampled_path(torch, llm, prompts, greedy_outs, max_new):
-    """Phase 4b: the same 12 prompts as a mixed sampled workload -- 4
-    greedy, 4 top-k (k 8, temperature 0.8, seeded), 2 greedy with 4
-    candidate ids (the top-k bus at sample_k 1), 2 Gumbel-max
-    temperature -- through one engine, every kind sharing fused steps."""
+def sampled_params(max_new):
+    """Phase 4b's request kinds and their params, one per prompt."""
     from repro_torch.serve.params import SamplingParams
 
     kinds = ["greedy", "topk", "greedy", "topk", "cands", "temp"] * 2
@@ -2103,6 +2189,15 @@ def run_sampled_path(torch, llm, prompts, greedy_outs, max_new):
              SamplingParams(max_new_tokens=max_new, head_mode="temperature",
                             seed=r)
              for r, kind in enumerate(kinds)]
+    return kinds, plist
+
+
+def run_sampled_path(torch, llm, prompts, greedy_outs, max_new):
+    """Phase 4b: the same 12 prompts as a mixed sampled workload -- 4
+    greedy, 4 top-k (k 8, temperature 0.8, seeded), 2 greedy with 4
+    candidate ids (the top-k bus at sample_k 1), 2 Gumbel-max
+    temperature -- through one engine, every kind sharing fused steps."""
+    kinds, plist = sampled_params(max_new)
     eager, graphed = drive_both(torch, llm, prompts, plist, "sampled path")
     for run, (outs, cands, launches, st, wall, *_) in (("eager", eager),
                                                        ("graphed", graphed)):
@@ -2180,7 +2275,8 @@ def run_spec_path(torch, llm, lengths, max_new):
     to each of the main path's lengths), greedy, at spec_k = 0 and then
     spec_k = 4; then one request at spec_k = 20 whose drafter replays the
     spec_k = 0 stream, so its 21-token windows make T = 32 and so 64
-    query rows per KV head in paged attention."""
+    query rows per KV head in paged attention.  Returns the kernel
+    launches, the summary and (the prompts, the spec_k = 0 outputs)."""
     from repro_torch.serve.params import SamplingParams
 
     rng = np.random.default_rng(4)
@@ -2272,7 +2368,7 @@ def run_spec_path(torch, llm, lengths, max_new):
         accepted=st["accepted"],
         acceptance_rate=st["accepted"] / st["drafted"],
         eager_decode_ms=ms["eager"], identical_streams=same,
-        widest_draft_spec20=widest)
+        widest_draft_spec20=widest), (prompts, base)
 
 
 def profile_decode(torch, llm, prompts, graphed, steps=5):
@@ -2526,6 +2622,515 @@ def check_step_graph(torch, llm, prompts) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phases 4g-4h: chunked prefill and prefix sharing
+# ---------------------------------------------------------------------------
+def f32_twin(torch, llm):
+    """The main path's weights and config in f32 (``cross_path_f32``)."""
+    import dataclasses
+
+    return (_tree_to(llm.engine.params, dtype=torch.float32),
+            dataclasses.replace(llm.cfg, dtype="float32"))
+
+
+def cross_path_f32(torch, twin, prompts, variants, what) -> dict:
+    """Tokens of serving paths that compute a prompt's K/V with different
+    arithmetic -- one-shot against chunked, at other chunk widths, prefix
+    sharing off against on -- held to each other in f32 at full width
+    (``twin``): each variant ``(name, engine kwargs, params)`` is served
+    on a fresh graphed engine, the first the reference, and every other
+    variant's streams must equal its streams or part only at a near-tie
+    (``compare_streams``, the gap then the f32 trunk's).  In bf16 such
+    paths part far above the near-tie rule (their logits ~0.08 apart,
+    each as far from the f32 trunk's: PERF.md), so there the streams are
+    only measured.  Returns each variant's identical streams and
+    stats."""
+    from repro_torch.serve.api import LLM
+
+    params, cfg = twin
+    out, ref = {}, None
+    for name, kw, plist in variants:
+        e = LLM(params, cfg, seed=0, **kw)
+        outs = e.generate(prompts, plist)
+        torch.cuda.synchronize()
+        st = e.engine.snapshot()
+        if ref is None:
+            ref, same = (name, e, outs), len(outs)
+        else:
+            same = compare_streams(torch, ref[1], prompts, ref[2], outs,
+                                   f"{what}, f32: {name} vs {ref[0]}")
+            del e
+        out[name] = dict(identical_streams=same, **{k: st[k] for k in (
+            "prefill_chunks", "prefill_tokens", "prefix_hits",
+            "preemptions", "decode_steps")})
+    return out
+
+
+def check_chunk_launches(launches, st, cfg, what):
+    """A chunked run's launch checks: no flash kernel (a chunked engine
+    runs no one-shot prefill), paged attention once a layer a step, each
+    head kernel once a head call of its kind (``head_calls``; a
+    mid-prefill chunk row joins no head group), no softmax-unit kernel,
+    and one step an iteration."""
+    calls = st["head_calls"]
+    want = {"paged_attention": cfg.n_layers * st["decode_steps"],
+            "flash_attention": 0,
+            "fused_argmax_head": calls.get("Greedy", 0),
+            "fused_topk_head": calls.get("TopK", 0),
+            "fused_verify_head": calls.get("verify", 0),
+            "softmax_stats": 0, "online_softmax": 0, "fused_xent": 0}
+    got = {k: launches[k] for k in want}
+    print(f"{what}: launches {got}; want {want}; decode_steps "
+          f"{st['decode_steps']}, iterations {st['iterations']}", flush=True)
+    check(got == want, f"{what}: launches {got} != {want}")
+    check(st["decode_steps"] == st["iterations"] > 0,
+          f"{what}: decode_steps {st['decode_steps']} != iterations "
+          f"{st['iterations']}")
+
+
+def chunk_line(what, run, llm) -> dict:
+    """Print and return one chunked run's end-to-end numbers: tok/s, ms a
+    step, TTFT and ITL from the emit stamps, chunk rows, and the graph
+    cache's work in the run (``drive_graphed``'s counts)."""
+    outs, _, _, st, wall = run[:5]
+    n_tok = sum(len(o.token_ids) for o in outs)
+    row = dict(tok_s=n_tok / wall, tokens=n_tok, wall_s=wall,
+               decode_steps=st["decode_steps"],
+               decode_ms=st["decode_ms"] / st["decode_steps"],
+               prefill_chunks=st["prefill_chunks"],
+               prefill_tokens=st["prefill_tokens"],
+               **{k: st[k] for k in ("ttft_ms_p50", "ttft_ms_p99",
+                                     "itl_ms_p99")})
+    graph = ""
+    if len(run) > 5:
+        row.update(captures=run[5], replays=run[6], first_steps=run[7],
+                   pool_mb=llm.engine.graphs.pool_bytes() / 2 ** 20)
+        graph = (f"; {run_counts(run)}, graph pool "
+                 f"{row['pool_mb']:.1f} MB")
+    print(f"{what}: {n_tok} tokens in {wall:.3f} s = {n_tok / wall:.2f} "
+          f"tok/s; {st['decode_steps']} steps, mean {row['decode_ms']:.3f} "
+          f"ms/step; {st['prefill_chunks']} chunk rows, "
+          f"{st['prefill_tokens']} prompt tokens; TTFT p50 "
+          f"{row['ttft_ms_p50']:.2f} p99 {row['ttft_ms_p99']:.2f} ms, ITL "
+          f"p99 {row['itl_ms_p99']:.2f} ms{graph}", flush=True)
+    return row
+
+
+def run_chunked_path(torch, llm, twin, prompts, oneshot, spec_base,
+                     max_new):
+    """Phase 4g: chunked prefill at full width, on engines that share the
+    main path's weights (8 slots, max_len 1024, prefix sharing off so
+    that every run computes every chunk).  Phase 4's 12 prompts at
+    ``chunk_size=64``: once inside ``eager_steps()``, then graphed three
+    times (the third replays every bucket); then at ``chunk_size=16``,
+    and at 64 with ``token_budget=128``; then phase 4b's mixed samplers
+    and phase 4c's prompts at ``spec_k=4`` on the chunk-64 engine.  The
+    graphed runs' tokens equal the eager run's; chunk rows and launches
+    at their numbers.  Each run's streams against the one-shot ones
+    (phase 4, 4b's greedy rows, 4c's spec_k 0) are measured in bf16 and
+    held in f32 (``cross_path_f32``: one-shot, chunk 64, 16, 64 with the
+    budget, and spec_k 4 chunked against spec_k 0 one-shot).  Returns
+    (the chunk-64 facade, the summary, its graphed run 1's
+    launches)."""
+    from repro_torch.serve.api import LLM
+    from repro_torch.serve.params import SamplingParams
+
+    cfg = llm.cfg
+    sp = SamplingParams(max_new_tokens=max_new)
+
+    def engine(**kw):
+        return LLM(llm.engine.params, cfg, n_slots=8, max_len=1024, seed=0,
+                   prefix_cache=False, **kw)
+
+    def chunk_rows(c):
+        return sum(-(-len(p) // c) for p in prompts)
+
+    def checked(run, what, rows=None):
+        outs, _, launches, st = run[:4]
+        check_chunk_launches(launches, st, cfg, what)
+        check(st["prefills"] == len(outs), f"{what}: {st['prefills']} "
+              f"prefills for {len(outs)} prompts")
+        check(rows is None or st["prefill_chunks"] == rows,
+              f"{what}: {st['prefill_chunks']} chunk rows, want {rows}")
+
+    out = {}
+    cllm = engine(chunk_size=64)
+    eager, first = drive_both(torch, cllm, prompts, sp, "chunked c64")
+    second, third = drive_replays(torch, cllm, prompts, sp, "chunked c64",
+                                  first)
+    for name, run in (("eager", eager), ("graphed run 1", first),
+                      ("graphed run 2", second),
+                      ("graphed run 3, replays only", third)):
+        checked(run, f"chunked c64 ({name})", chunk_rows(64))
+        out[f"c64 {name}"] = chunk_line(f"chunked c64, {name}", run, cllm)
+    out["c64 identical to one-shot"] = compare_streams(
+        torch, llm, prompts, oneshot, third[0],
+        "chunked c64 vs one-shot (phase 4), bf16", gate=False)
+    for name, kw, rows in (
+            ("c16", dict(chunk_size=16), chunk_rows(16)),
+            ("c64 budget 128", dict(chunk_size=64, token_budget=128),
+             None)):
+        e = engine(**kw)
+        run = drive_graphed(torch, e, prompts, sp, f"chunked {name}")
+        checked(run, f"chunked {name}", rows)
+        check(run[3]["prefill_chunks"] >= chunk_rows(64),
+              f"chunked {name}: fewer chunk rows than at width 64")
+        out[name] = chunk_line(f"chunked {name}, graphed run 1", run, e)
+        out[name]["identical_to_one_shot"] = compare_streams(
+            torch, llm, prompts, oneshot, run[0],
+            f"chunked {name} vs one-shot (phase 4), bf16", gate=False)
+        del e
+
+    kinds, plist = sampled_params(max_new)
+    run = drive_graphed(torch, cllm, prompts, plist, "chunked c64 mixed")
+    checked(run, "chunked c64 mixed samplers", chunk_rows(64))
+    check(run[2]["fused_topk_head"] > 0,
+          "chunked c64 mixed samplers: no top-k launch")
+    out["c64 mixed"] = chunk_line("chunked c64, mixed samplers", run, cllm)
+    greedy = [r for r, kind in enumerate(kinds) if kind == "greedy"]
+    compare_streams(torch, llm, [prompts[r] for r in greedy],
+                    [oneshot[r] for r in greedy], [run[0][r] for r in greedy],
+                    "chunked c64 mixed samplers, greedy rows vs one-shot, "
+                    "bf16", gate=False)
+
+    sprompts, sbase = spec_base
+    run = drive_graphed(torch, cllm, sprompts,
+                        SamplingParams(max_new_tokens=max_new, spec_k=4),
+                        "chunked c64 spec_k=4")
+    checked(run, "chunked c64 spec_k=4",
+            sum(-(-len(p) // 64) for p in sprompts))
+    check(run[2]["fused_verify_head"] > 0 and run[3]["drafted"] > 0,
+          "chunked c64 spec_k=4: nothing was drafted or verified")
+    out["c64 spec_k=4"] = chunk_line("chunked c64, spec_k=4", run, cllm)
+    out["c64 spec_k=4"].update(drafted=run[3]["drafted"],
+                               accepted=run[3]["accepted"])
+    compare_streams(torch, llm, sprompts, sbase, run[0],
+                    "chunked c64 spec_k=4 vs one-shot spec_k=0 (phase 4c), "
+                    "bf16", gate=False)
+
+    kw = dict(n_slots=8, max_len=1024, prefix_cache=False)
+    out["f32"] = cross_path_f32(torch, twin, prompts, [
+        ("one-shot", kw, sp), ("c64", dict(chunk_size=64, **kw), sp),
+        ("c16", dict(chunk_size=16, **kw), sp),
+        ("c64 budget 128", dict(chunk_size=64, token_budget=128, **kw), sp)],
+        "chunked prefill")
+    out["f32 spec"] = cross_path_f32(torch, twin, sprompts, [
+        ("one-shot spec_k=0", kw, sp),
+        ("c64 spec_k=4", dict(chunk_size=64, **kw),
+         SamplingParams(max_new_tokens=max_new, spec_k=4))],
+        "chunked prefill, speculative")
+    return cllm, out, first[2]
+
+
+def check_chunk_bucket(torch, cllm, prompts) -> dict:
+    """Phase 4f's fourth bucket, on the chunk-64 engine: six decode rows
+    (prompts of 17-64 tokens, each one final chunk, admitted with one
+    eager step), a mid-prefill chunk row (the first 64 of a longer
+    prompt) and a final chunk row (40 tokens) in one step at B 8, T 64.
+    Its body eagerly and as a replay of its bucket's graph on the same
+    operands must give the same bits; the replay is timed beside the
+    eager body and the step's bound."""
+    import functools
+
+    from repro_torch.serve import step_graph
+    from repro_torch.serve.params import SamplingParams as SP
+
+    eng = cllm.engine
+    sp = SP(max_new_tokens=4)
+    longest = max(prompts, key=len)
+    check(len(longest) > 64, "4f chunk bucket: no prompt over 64 tokens")
+    reqs = [cllm.submit(p[:n], sp) for p, n in zip(
+        prompts, (17, 29, 40, 51, 64, 23))]
+    with step_graph.eager_steps():
+        eng.step()                   # six final chunks: first tokens
+    reqs += [cllm.submit(longest, sp), cllm.submit(prompts[6][:40], sp)]
+    eng._admit()                     # both in the 64-wide bucket
+    active = [i for i, sl in enumerate(eng.slots) if sl is not None]
+    for i in active:
+        check(eng._ensure_blocks(i, int(eng.slot_pos[i])),
+              "4f chunk bucket: a row lost its slot")
+    plan = eng._plan_step(active)
+    kinds = [("mid-prefill chunk" if w == (None, None) else
+              "final chunk" if i in plan.chunks else "decode")
+             for i, w in zip(plan.padded, plan.where)]
+    check(plan.key[:1] + plan.key[2:3] == (8, 64)
+          and kinds.count("mid-prefill chunk") == 1
+          and kinds.count("final chunk") == 1 and kinds.count("decode") == 6,
+          f"4f chunk bucket: rows {kinds}, key {plan.key[:3]}")
+    body = functools.partial(eng._step_body, tuple(plan.order))
+    operands = step_graph.to_device(plan.arrays, eng.device)
+    want = step_leaves(body(*operands))
+    if plan.key not in eng.graphs.graphs:
+        eng.graphs.capture(plan.key, body, plan.arrays, eng.device)
+    got = step_leaves(eng.graphs.replay(plan.key, plan.arrays))
+    err = max((g.double() - w.double()).abs().max().item()
+              for g, w in zip(got, want))
+    equal = len(got) == len(want) and all(
+        g.dtype == w.dtype and torch.equal(g, w) for g, w in zip(got, want))
+    timer = Timer(torch)
+    row = dict(bucket=list(plan.key[:3]), groups=list(plan.key[4]),
+               verify=plan.key[5], rows=kinds, bitwise_equal=equal,
+               max_abs_err=err,
+               **timer.readings(lambda: eng.graphs.replay(plan.key,
+                                                           plan.arrays)),
+               **timer.readings(lambda: body(*operands), "plain_"))
+    row["bound_ms"], row["bound_by"] = step_bound(torch, eng, plan)
+    del timer
+    print(f"step graph chunk B8 T64: bucket {plan.key[:3]} rows {kinds}: "
+          f"hidden states and {len(got) - 1} head outputs replayed vs "
+          f"eager: {'bitwise equal' if equal else 'DIFFER'} (max abs "
+          f"{err:.3g}); replay {shown(row)}; eager body "
+          f"{shown(row, 'plain_')}; bound {row['bound_ms']:.4f} ms "
+          f"({row['bound_by']})", flush=True)
+    check(equal, "step graph chunk B8 T64: the replay's bits differ from "
+          "the eager step's")
+    for r in reqs:
+        cllm.engine.cancel(r)
+    return row
+
+
+def run_heavy_tail(torch, llm, twin, max_new=8):
+    """Phase 4g': the reference's ``chunked_sweep`` trace at full width:
+    32 prompts, Zipf(1.5) lengths 16-1024 (numpy seed 13), 4 slots, 8 new
+    tokens, one-shot against ``chunk_size`` 16 and 64 (fresh engines,
+    prefix sharing off), each served twice graphed (the first run
+    captures its buckets, the second mostly replays).  The interactive
+    class is the prompts of at most 128 tokens.  Gates on tokens only:
+    the two runs of an engine equal, and the three paths' streams held to
+    each other in f32 (``cross_path_f32``); in bf16 measured."""
+    from repro_torch.serve.api import LLM
+    from repro_torch.serve.params import SamplingParams
+
+    cfg = llm.cfg
+    rng = np.random.default_rng(13)
+    lens = np.minimum(16 * rng.zipf(1.5, 32), 1024).astype(int)
+    prompts = [rng.integers(0, cfg.vocab_size, int(n)).astype(np.int32)
+               for n in lens]
+    short = lens <= 8 * 16
+    sp = SamplingParams(max_new_tokens=max_new)
+    print(f"heavy tail: 32 prompts, lengths {sorted(lens.tolist())} "
+          f"({int(short.sum())} of <= 128 tokens)", flush=True)
+    out, base = {}, None
+    for name, kw in (("one-shot", {}), ("c16", dict(chunk_size=16)),
+                     ("c64", dict(chunk_size=64))):
+        e = LLM(llm.engine.params, cfg, n_slots=4, max_len=1024 + max_new
+                + 1, seed=0, prefix_cache=False, **kw)
+        runs = [drive_graphed(torch, e, prompts, sp, f"heavy tail {name}")
+                for _ in range(2)]
+        check([o.token_ids for o in runs[0][0]]
+              == [o.token_ids for o in runs[1][0]],
+              f"heavy tail {name}: the two runs' tokens differ")
+        out[name] = []
+        for n, run in enumerate(runs, 1):
+            outs, _, launches, st = run[:4]
+            if kw:
+                check_chunk_launches(launches, st, cfg,
+                                     f"heavy tail {name} run {n}")
+            else:
+                check_main_launches(launches, st, cfg, len(prompts),
+                                    f"heavy tail {name} run {n}")
+            ttft = np.asarray([o.timing.ttft_ms for o in outs])
+            row = chunk_line(f"heavy tail {name}, run {n}", run, e)
+            row.update(ttft_short_ms_p50=float(np.percentile(ttft[short], 50)),
+                       ttft_short_ms_p99=float(np.percentile(ttft[short], 99)))
+            print(f"heavy tail {name}, run {n}: short-class TTFT p50 "
+                  f"{row['ttft_short_ms_p50']:.2f} p99 "
+                  f"{row['ttft_short_ms_p99']:.2f} ms, ITL p99 "
+                  f"{row['itl_ms_p99']:.2f} ms", flush=True)
+            out[name].append(row)
+        if base is None:
+            base = runs[1][0]
+        else:
+            compare_streams(torch, llm, prompts, base, runs[1][0],
+                            f"heavy tail {name} vs one-shot, bf16",
+                            gate=False)
+        del e, runs
+    kw = dict(n_slots=4, max_len=1024 + max_new + 1, prefix_cache=False)
+    out["f32"] = cross_path_f32(torch, twin, prompts, [
+        ("one-shot", kw, sp), ("c16", dict(chunk_size=16, **kw), sp),
+        ("c64", dict(chunk_size=64, **kw), sp)], "heavy tail")
+    return out
+
+
+def prefix_trace(v, seed=21):
+    """The reference's ``prefix_sweep`` trace (numpy seed 21): 64 prompts
+    that open with one 512-token system prompt plus a suffix of 4-15
+    tokens, shuffled among 16 cold prompts of 32-95 tokens.  Returns
+    (prompts, shared mask)."""
+    rng = np.random.default_rng(seed)
+    system = rng.integers(0, v, 512).astype(np.int32)
+    kinds = ["shared"] * 64 + ["cold"] * 16
+    rng.shuffle(kinds)
+    prompts = [np.concatenate([system, rng.integers(
+        0, v, int(rng.integers(4, 16))).astype(np.int32)])
+        if kind == "shared" else
+        rng.integers(0, v, int(rng.integers(32, 96))).astype(np.int32)
+        for kind in kinds]
+    return prompts, np.asarray([kind == "shared" for kind in kinds])
+
+
+def watch_cows(torch, store, verdicts):
+    """Check every copy-on-write of ``store`` as it happens: after the
+    copy, the new block holds the source's K and V bits in every layer
+    and the source (the sibling's, or the trie's) is untouched; one
+    verdict per copy."""
+    inner = store._cow
+
+    def cow(slot, k):
+        old = store.slot_blocks[slot][k]
+        if store.allocator.refcount(old) <= 1:
+            return inner(slot, k)
+        src = {n: p[:, old].clone() for n, p in store.pools.items()}
+        inner(slot, k)
+        new = store.slot_blocks[slot][k]
+        verdicts.append(new != old and all(
+            torch.equal(p[:, new], src[n]) and torch.equal(p[:, old], src[n])
+            for n, p in store.pools.items()))
+
+    store._cow = cow
+
+
+def run_prefix_path(torch, llm, twin, max_new=8):
+    """Phase 4h: prefix sharing at full width on the reference's
+    ``prefix_sweep`` trace -- 64 requests opening with one 512-token
+    system prompt plus 4-15 suffix tokens, mixed with 16 cold prompts of
+    32-95 tokens (numpy seed 21) -- at ``chunk_size=32``, block 16, 4
+    slots, 8 new tokens, ``prefix_cache`` off against on: in bf16 for the
+    numbers (fresh graphed engines, each first serving the same trace
+    drawn from numpy seed 23 -- another system prompt -- so that the
+    timed run finds its buckets captured and none of its prefixes
+    cached), and in f32 for the tokens (``cross_path_f32``).  Then the
+    reference's composition points on its small shared trace (numpy seed
+    22, a 64-token system prompt, every fifth request cold, max_len 96),
+    off against on, in f32: ``spec_k=4``, and a pool of 9 blocks that
+    forces preemption of a sharer and trie eviction.  Gates: prefill
+    tokens computed falling >= 2x, ``prefix_hits > 0``, tokens equal off
+    and on (f32) or parting at a near-tie, the pressure point's
+    preemptions and evictions, and every copy-on-write bitwise
+    (``watch_cows``), including one forced on the trie's blocks after the
+    main trace."""
+    from repro_torch.serve.api import LLM
+    from repro_torch.serve.params import SamplingParams
+
+    cfg = llm.cfg
+    verdicts = []
+
+    def serve(params, cfg, trace, mask, prefix, ml, what, warm=None,
+              spec_k=0, **kw):
+        e = LLM(params, cfg, n_slots=4, max_len=ml, seed=0, chunk_size=32,
+                block_size=16, prefix_cache=prefix, **kw)
+        store = e.engine.store
+        watch_cows(torch, store, verdicts)
+        if warm is not None:
+            e.generate(warm, SamplingParams(max_new_tokens=max_new))
+        shared_hi = [0]
+
+        def watch(_):
+            shared_hi[0] = max(shared_hi[0], store.allocator.n_shared)
+
+        e.engine.add_consumer(watch)
+        run = drive_graphed(torch, e, trace, SamplingParams(
+            max_new_tokens=max_new, spec_k=spec_k), what)
+        e.engine.remove_consumer(watch)
+        outs, _, launches, st = run[:4]
+        check_chunk_launches(launches, st, cfg, what)
+        snap = e.engine.snapshot()
+        ttft = np.asarray([o.timing.ttft_ms for o in outs])
+        row = chunk_line(what, run, e)
+        row.update(ttft_shared_ms_p50=float(np.percentile(ttft[mask], 50)),
+                   ttft_shared_ms_p99=float(np.percentile(ttft[mask], 99)),
+                   prefix_hits=st["prefix_hits"],
+                   prefix_hit_tokens=st["prefix_hit_tokens"],
+                   cow_copies=snap["cow_copies"],
+                   shared_blocks_max=shared_hi[0],
+                   peak_in_use=snap["peak_in_use"],
+                   preemptions=st["preemptions"],
+                   prefix_evictions=store.prefix_evictions)
+        return row, outs, e
+
+    prompts, mask = prefix_trace(cfg.vocab_size)
+    warm = prefix_trace(cfg.vocab_size, seed=23)[0]
+    ml = 512 + 16 + max_new + 8
+    params = llm.engine.params
+    off, off_outs, e = serve(params, cfg, prompts, mask, False, ml,
+                             "prefix off", warm)
+    del e
+    on, on_outs, e = serve(params, cfg, prompts, mask, True, ml,
+                           "prefix on", warm)
+    # one forced copy-on-write on the card's pools: a slot adopts the
+    # cached system prompt and rewinds into its last shared block
+    store = e.engine.store
+    n0 = len(verdicts)
+    hit = store.adopt_prefix(0, prompts[int(np.argmax(mask))])
+    check(hit >= 512 - 16, f"4h: the trie held {hit} tokens of the system "
+          "prompt after the trace")
+    store.rewind(0, hit - 3)
+    store.release(0)
+    check(len(verdicts) == n0 + 1, "4h: the forced rewind made no copy")
+    del e
+    same = compare_streams(torch, llm, prompts, off_outs, on_outs,
+                           "prefix on vs off, bf16", gate=False)
+    savings = off["prefill_tokens"] / max(on["prefill_tokens"], 1)
+    print(f"prefix trace: 64 x 512-token system prompt + 16 cold "
+          f"(chunk 32, block 16, 4 slots): prefill tokens "
+          f"{off['prefill_tokens']} off, {on['prefill_tokens']} on "
+          f"({savings:.2f}x); shared-class TTFT p50 "
+          f"{off['ttft_shared_ms_p50']:.2f} off, "
+          f"{on['ttft_shared_ms_p50']:.2f} on ms; hits {on['prefix_hits']} "
+          f"({on['prefix_hit_tokens']} tokens); cow_copies "
+          f"{on['cow_copies']}; shared blocks at most "
+          f"{on['shared_blocks_max']}; peak in use {off['peak_in_use']} "
+          f"off, {on['peak_in_use']} on", flush=True)
+    check(savings >= 2.0, f"prefix sharing saved only {savings:.2f}x "
+          "prefill tokens (< 2x)")
+    check(on["prefix_hits"] > 0, "prefix sharing: no hit")
+    out = dict(off=off, on=on, savings=savings,
+               identical_streams_bf16=same)
+    kw = dict(n_slots=4, max_len=ml, chunk_size=32, block_size=16)
+    sp = SamplingParams(max_new_tokens=max_new)
+    out["f32"] = cross_path_f32(torch, twin, prompts, [
+        ("off", dict(prefix_cache=False, **kw), sp),
+        ("on", dict(prefix_cache=True, **kw), sp)], "prefix sharing")
+    check(out["f32"]["on"]["prefix_hits"] > 0, "prefix sharing, f32: no hit")
+
+    # the reference's small composition trace: every fifth request cold
+    rng = np.random.default_rng(22)
+    system = rng.integers(0, cfg.vocab_size, 64).astype(np.int32)
+    small = [rng.integers(0, cfg.vocab_size, 24).astype(np.int32)
+             if i % 5 == 4 else np.concatenate([system, rng.integers(
+                 0, cfg.vocab_size, int(rng.integers(4, 12))).astype(
+                     np.int32)]) for i in range(10)]
+    small_mask = np.asarray([i % 5 != 4 for i in range(10)])
+    params32, cfg32 = twin
+    for name, kw in (("spec_k4", dict(spec_k=4)),
+                     ("pressure", dict(num_blocks=9))):
+        o, o_outs, e = serve(params32, cfg32, small, small_mask, False, 96,
+                             f"prefix {name} off, f32", **kw)
+        n, n_outs, e2 = serve(params32, cfg32, small, small_mask, True, 96,
+                              f"prefix {name} on, f32", **kw)
+        del e2
+        compare_streams(torch, e, small, o_outs, n_outs,
+                        f"prefix {name}, f32: on vs off")
+        del e
+        print(f"prefix {name}, f32: hits {n['prefix_hits']}, prefill "
+              f"tokens {o['prefill_tokens']} off, {n['prefill_tokens']} on; "
+              f"preemptions {n['preemptions']}, trie evictions "
+              f"{n['prefix_evictions']}, cow_copies {n['cow_copies']}",
+              flush=True)
+        check(n["prefix_hits"] > 0, f"prefix {name}: no hit")
+        if name == "pressure":
+            check(n["preemptions"] >= 1 and n["prefix_evictions"] >= 1,
+                  "prefix pressure point: no preemption or no eviction")
+        out[name] = dict(off=o, on=n)
+    print(f"prefix path: {len(verdicts)} copies-on-write, "
+          f"{sum(verdicts)} bitwise (copy == source, source untouched, "
+          f"every layer, K and V)", flush=True)
+    check(all(verdicts) and len(verdicts) >= 1,
+          "prefix path: a copy-on-write was not bitwise")
+    out["cow_checked"] = len(verdicts)
+    return out
+
+
 def run_unit_path(torch, llm, prompts, outs):
     """Phase 4d: the full softmax unit on the main path's logits.  The
     final hidden states of the 12 prompts (one-shot prefills, not
@@ -2749,12 +3354,12 @@ def _leaves(tree):
         yield tree
 
 
-def _tree_to(tree, device):
+def _tree_to(tree, device=None, dtype=None):
     if isinstance(tree, dict):
-        return {k: _tree_to(v, device) for k, v in tree.items()}
+        return {k: _tree_to(v, device, dtype) for k, v in tree.items()}
     if isinstance(tree, list):
-        return [_tree_to(v, device) for v in tree]
-    return tree.to(device)
+        return [_tree_to(v, device, dtype) for v in tree]
+    return tree.to(device=device, dtype=dtype)
 
 
 def main() -> int:
@@ -2821,8 +3426,21 @@ def main() -> int:
                                                      max_new)
         topk_launches, summary["sampled"] = run_sampled_path(
             torch, llm, prompts, outs, max_new)
-        verify_launches, summary["spec"] = run_spec_path(
+        verify_launches, summary["spec"], spec_base = run_spec_path(
             torch, llm, [len(p) for p in prompts], max_new)
+        twin = f32_twin(torch, llm)
+        cllm, summary["chunked"], chunk_launches = run_chunked_path(
+            torch, llm, twin, prompts, outs, spec_base, max_new)
+        one, ch = summary["graph"], summary["chunked"][
+            "c64 graphed run 3, replays only"]
+        print("prefill, one-shot (phase 4) against chunked c64 (phase 4g), "
+              "each its graphed run 3 (replays only): " + "; ".join(
+                  f"{k} {one[k]:.3f} / {ch[k]:.3f}" for k in (
+                      "tok_s", "decode_ms", "ttft_ms_p50", "ttft_ms_p99",
+                      "itl_ms_p99", "wall_s")), flush=True)
+        summary["heavy_tail"] = run_heavy_tail(torch, llm, twin)
+        summary["prefix"] = run_prefix_path(torch, llm, twin)
+        del twin
         summary["profile_eager"] = profile_decode(torch, llm, prompts,
                                                   graphed=False)
         summary["profile"] = profile_decode(torch, llm, prompts,
@@ -2841,6 +3459,9 @@ def main() -> int:
                   == summary["profile_eager"].get(k),
                   f"decode profile: {k} graphed != eager")
         step = check_step_graph(torch, llm, prompts)
+        step["cases"]["chunk B8 T64"] = check_chunk_bucket(torch, cllm,
+                                                           prompts)
+        del cllm
         unit_launches, unit_errs = run_unit_path(torch, llm, prompts, outs)
         with step_graph.eager_steps():            # the probe stays eager
             probe_runs = run_probe_path(torch, llm, prompts, max_new)
@@ -2859,6 +3480,7 @@ def main() -> int:
              max_abs_err=max(r["max_abs_err"] for r in pa_rows.values()),
              **{k: pa_rows[1][k] for k in TIMES + ("chunks",)},
              single_row={k: pa_rows["B1"][k] for k in TIMES + ("chunks",)},
+             t64={k: pa_rows[64][k] for k in TIMES + ("chunks",)},
              t4={k: pa_rows[4][k] for k in TIMES + ("chunks",)},
              t32={k: pa_rows[32][k] for k in TIMES + ("chunks",)},
              routes=pa_routes, invariance=invariance,
@@ -2883,6 +3505,13 @@ def main() -> int:
                           for k in ("ms", "device_ms", "host_ms")})))
                  for mode in ("exact", "base2", "pseudo", "pwl",
                               "maxonly")}),
+        dict(name="paged_attention.chunk_t64", route="cuda",
+             source="src/repro_torch/kernels/csrc/paged_attention.cu",
+             replaces="src/repro/kernels/paged_attention.py:172",
+             launches=chunk_launches["paged_attention"],
+             max_abs_err=pa_rows[64]["max_abs_err"],
+             **{k: pa_rows[64][k] for k in TIMES + ("chunks",
+                                                    "scratch_mb")}),
         dict(name="fused_argmax_head", route="cuda",
              source="src/repro_torch/kernels/csrc/fused_argmax_head.cu",
              replaces="src/repro/kernels/fused_argmax_head.py:75",

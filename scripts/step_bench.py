@@ -12,6 +12,10 @@ weights on 8 slots:
 - ``greedy``: phase 4's 12 prompts of 64-512 tokens, 32 new tokens each;
 - ``spec_k=4``: phase 4c's 12 repetitive prompts, greedy with
   ``spec_k=4``;
+- ``chunked``: phase 4's prompts on an engine with ``chunk_size=64``
+  (prefix sharing off), run only where the checkout's engine accepts
+  ``chunk_size``: the prompts enter as chunk rows of the step, so
+  prefill ms is 0 and TTFT carries the prefill;
 - ``profile``: 8 rows in pure decode, 5 steps under ``torch.profiler``
   (wall ms a step with the profiler on, device-busy ms, kernels a step).
 
@@ -20,8 +24,8 @@ runs each workload twice.  One with it runs each inside
 ``step_graph.eager_steps()`` once, then graphed three times (a bucket's
 first step runs eagerly, its second captures; the third run replays
 every bucket).  Each run prints decode ms a step (``decode_ms /
-decode_steps``), tok/s, prefill ms and a SHA-256 of its token streams,
-so two versions' tokens can be compared.  Writes every row to
+decode_steps``), tok/s, prefill ms, TTFT p50 / p99 and a SHA-256 of its
+token streams, so two versions' tokens can be compared.  Writes every row to
 ``build/step_bench_<label>.json`` (gitignored).  Exits non-zero without
 CUDA.
 """
@@ -58,12 +62,15 @@ def run_row(torch, llm, prompts, params, case, mode) -> dict:
         "decode_steps", "decode_ms", "prefills", "prefill_ms")}
     toks = [list(map(int, o.token_ids)) for o in outs]
     n_tok = sum(map(len, toks))
+    ttft = [o.timing.ttft_ms for o in outs]
     row = {"case": case, "mode": mode, "tokens": n_tok,
            "wall_s": wall, "tok_s": n_tok / wall,
            "decode_steps": st["decode_steps"],
            "decode_ms_per_step": st["decode_ms"] / st["decode_steps"],
            "prefills": st["prefills"],
            "prefill_ms_each": st["prefill_ms"] / st["prefills"],
+           "ttft_ms_p50": float(np.percentile(ttft, 50)),
+           "ttft_ms_p99": float(np.percentile(ttft, 99)),
            "tokens_sha256": hashlib.sha256(
                json.dumps(toks).encode()).hexdigest()}
     if g is not None:
@@ -145,14 +152,24 @@ def main() -> int:
     else:
         modes = [("eager", step_graph.eager_steps)] + [
             (f"graphed run {n}", contextlib.nullcontext) for n in (1, 2, 3)]
+    try:
+        chunked = LLM(llm.engine.params, llm.cfg, n_slots=8, max_len=1024,
+                      chunk_size=64, prefix_cache=False)
+    except (NotImplementedError, TypeError):
+        chunked = None                # an engine without chunked prefill
+        print(f"{args.label}: no chunked prefill in this checkout",
+              flush=True)
     out = []
-    for case, ps, params in (
-            ("greedy", prompts, SP(max_new_tokens=MAX_NEW)),
-            ("spec_k=4", spec_prompts,
-             SP(max_new_tokens=MAX_NEW, spec_k=4))):
+    for case, engine, ps, params in (
+            ("greedy", llm, prompts, SP(max_new_tokens=MAX_NEW)),
+            ("spec_k=4", llm, spec_prompts,
+             SP(max_new_tokens=MAX_NEW, spec_k=4)),
+            ("chunked", chunked, prompts, SP(max_new_tokens=MAX_NEW))):
+        if engine is None:
+            continue
         for mode, ctx in modes:
             with ctx():
-                out.append(run_row(torch, llm, ps, params, case, mode))
+                out.append(run_row(torch, engine, ps, params, case, mode))
             print(json.dumps(out[-1]), flush=True)
     for mode, ctx in modes[:1] + [("graphed", contextlib.nullcontext)] * (
             step_graph is not None):

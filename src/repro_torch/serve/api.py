@@ -60,7 +60,8 @@ class LLM:
     """Facade over ``ServeEngine``: typed params in, typed outputs out.
 
     Constructor kwargs mirror the engine's (n_slots, max_len, eos_id,
-    head_mode, block_size, num_blocks, seed, drafter, ...); ``head_mode``
+    head_mode, block_size, num_blocks, prefill_per_step, chunk_size,
+    token_budget, prefix_cache, seed, drafter, ...); ``head_mode``
     is the default head — each request's ``SamplingParams.head_mode`` can
     override it, and ``drafter`` proposes the drafts of speculative
     requests (``SamplingParams(spec_k=K)``; prompt lookup by default).
@@ -168,12 +169,18 @@ class LLM:
             # a prompt the pool could never cover would reach the queue
             # head and MemoryError the engine (killing a background
             # pump); a long-lived frontend rejects it at submit instead.
-            if not self.engine.store.can_ever_admit(len(prompt)):
+            # The bound is chunk-aware: chunked admission allocates as it
+            # goes, so only the final residency must fit.
+            if not self.engine.store.can_ever_admit(
+                    len(prompt), self.engine.chunk_size):
                 store = self.engine.store
                 raise ValueError(
                     f"prompt of {len(prompt)} tokens can never be "
                     f"admitted: KV pool is {store.allocator.num_blocks} "
-                    f"x {store.block_size}-token blocks")
+                    f"x {store.block_size}-token blocks"
+                    + ("" if self.engine.chunk_size is not None else
+                       " (one-shot admission; a chunk_size= engine "
+                       "admits up to one block more)"))
             req = Request(next(self._rids), prompt, params=params)
             self.engine.submit(req)
             return req

@@ -6,12 +6,31 @@ Counterpart of ``repro.serve.engine`` on its default path:
   - fixed ``n_slots`` decode slots over a SHARED, BLOCK-PAGED KV pool
     (``serve/paged_kv.py``); slots free their blocks on eos / length /
     stop and are refilled from the queue;
-  - admission is ONE-SHOT and paged: a queued request gets its prompt's
-    block cover, one prefill writes the prompt's K/V straight into those
-    blocks and its head emits the first token.  Admission defers at the
-    queue head while the pool cannot cover the prompt plus one decode
-    block; a dry pool mid-decode preempts the youngest slot back to the
-    queue (it re-prefills later with its tokens so far);
+  - admission is ONE-SHOT and paged by default: a queued request gets
+    its prompt's block cover, one prefill writes the prompt's K/V
+    straight into those blocks and its head emits the first token.
+    Admission defers at the queue head while the pool cannot cover the
+    prompt plus one decode block; a dry pool mid-decode preempts the
+    youngest slot back to the queue (it re-prefills later with its
+    tokens so far).  At most ``prefill_per_step`` admissions an
+    iteration;
+  - prefill is CHUNKED on request (``chunk_size=C``): admission only
+    assigns the slot and reserves its first chunk's blocks, and the
+    prompt enters ``C`` tokens at a time as PREFILL-CHUNK ROWS of the
+    same fused step that serves the decode rows (on the card, inside its
+    graph).  A mid-prefill chunk row only writes K/V and joins no head
+    group; a FINAL chunk's last position feeds the row's sampler head
+    and emits the first token.  ``token_budget`` caps the real tokens a
+    step carries (chunks narrow, every prefilling slot keeps >= 1
+    token); admissions after the queue head are packed by LENGTH BUCKET
+    (pow-2 first-chunk width, ``pack_lookahead`` past the head).  Chunk
+    rows attend with the engine's ``attn_approx`` and ``attn_window``;
+  - PREFIX SHARING rides chunked admission (``prefix_cache``, on by
+    default, inert without ``chunk_size``): a released request
+    publishes its full-block token runs into the store's trie, a new
+    request adopts the longest cached run and prefills only its suffix,
+    and every write to a shared block copies it first on the card
+    (``serve/paged_kv.py``);
   - decode is RAGGED and FUSED: each engine iteration runs ONE decode
     step over all active slots, every row at its own position, then one
     head per distinct ``sampler.device_form()`` over its rows -- so
@@ -43,13 +62,13 @@ Counterpart of ``repro.serve.engine`` on its default path:
 
   - attention's score function is engine-wide: ``attn_approx`` (the
     ``core.attn_approx`` catalog) and ``attn_window`` replace the cfg's
-    and reach every decode layer's paged attention; the one-shot prefill
-    attends exactly over the whole prompt, as in the JAX package.
+    and reach every decode and chunk row's paged attention; the one-shot
+    prefill attends exactly over the whole prompt, as in the JAX package.
 
-The JAX engine's other modes are refused, not ignored: ``chunk_size``,
-``token_budget``, ``host_stride``, ``tp``/``mesh``, ``scheduler='cohort'``,
-``kv_layout='dense'`` and ``prefix_cache`` raise ``NotImplementedError``
-(or ``ValueError`` for values that are wrong in both packages).
+The JAX engine's other modes are refused, not ignored: ``host_stride``,
+``tp``/``mesh``, ``scheduler='cohort'`` and ``kv_layout='dense'`` raise
+``NotImplementedError`` (or ``ValueError`` for values that are wrong in
+both packages).
 """
 from __future__ import annotations
 
@@ -121,8 +140,10 @@ class StepPlan:
     """The host half of one fused decode step (``ServeEngine._plan_step``).
 
     ``padded`` the slot of each padded row (the first ``n_real`` real);
-    ``drafts`` each slot's draft tokens; ``where`` each padded row's
-    (head group, offset) or (None, offset in the verify group);
+    ``drafts`` each slot's draft tokens; ``chunks`` each prefilling
+    slot's chunk window (start, width); ``where`` each padded row's
+    (head group, offset), (None, offset in the verify group) for a draft
+    row, or (None, None) for a mid-prefill chunk row;
     ``order`` the head groups in ``canonical_order``; ``arrays`` the
     device body's operands on the host -- tokens (B, T) int64, positions
     (B,) or (B, T) int32, block tables (B, nb) int32, one (B,) int64 row
@@ -132,6 +153,7 @@ class StepPlan:
     n_real: int
     padded: list
     drafts: dict
+    chunks: dict
     where: list
     order: list
     arrays: tuple
@@ -144,11 +166,12 @@ class ServeEngine:
                  max_len: int = 256, eos_id: int = 1,
                  head_mode: str = "reduced", kv_layout: str = "paged",
                  block_size: int = 16, num_blocks: Optional[int] = None,
+                 prefill_per_step: Optional[int] = None,
                  scheduler: str = "fused", mesh=None, seed: int = 0,
                  drafter=None, chunk_size: Optional[int] = None,
                  token_budget: Optional[int] = None,
                  host_stride: Optional[int] = None,
-                 prefix_cache: Optional[bool] = None,
+                 prefix_cache: bool = True,
                  attn_approx: Optional[str] = None,
                  attn_window: Optional[int] = None,
                  tp: Optional[int] = None):
@@ -159,9 +182,7 @@ class ServeEngine:
             raise ValueError(f"kv_layout={kv_layout!r}: expected 'paged' "
                              "or 'dense'")
         refused = {
-            "chunk_size": chunk_size, "token_budget": token_budget,
             "host_stride": host_stride, "mesh": mesh,
-            "prefix_cache": prefix_cache,
             "tp": None if tp in (None, 1) else tp,
             "scheduler": None if scheduler == "fused" else scheduler,
             "kv_layout": None if kv_layout == "paged" else kv_layout,
@@ -169,9 +190,19 @@ class ServeEngine:
         for name, value in refused.items():
             if value is not None:
                 raise NotImplementedError(
-                    f"{name}={value!r}: the port serves one-shot paged "
-                    "prefill and the fused ragged decode step on one device "
-                    "only so far")
+                    f"{name}={value!r}: the port serves paged prefill (one "
+                    "shot or chunked) and the fused ragged step on one "
+                    "device only so far")
+        if prefill_per_step is not None and prefill_per_step < 1:
+            raise ValueError(
+                f"prefill_per_step={prefill_per_step}: must be >= 1 "
+                "(or None for unlimited); 0 would serve nothing forever")
+        if chunk_size is not None and chunk_size < 1:
+            raise ValueError(f"chunk_size={chunk_size}: must be >= 1 "
+                             "(or None for one-shot prefill)")
+        if token_budget is not None and token_budget < 1:
+            raise ValueError(f"token_budget={token_budget}: must be >= 1 "
+                             "(or None for unlimited)")
         # the kwargs override the cfg's modes (None keeps the cfg's);
         # 'exact' + None replace to an equal cfg
         if attn_approx is not None or attn_window is not None:
@@ -191,6 +222,16 @@ class ServeEngine:
         self.head_mode = head_mode
         self.scheduler = scheduler
         self.seed = seed
+        self.prefill_per_step = prefill_per_step
+        self.chunk_size = chunk_size
+        self.token_budget = token_budget
+        # prefix sharing needs chunked admission: a trie hit starts the
+        # prefill at the suffix boundary mid-prompt, which only chunk
+        # rows can do (a one-shot prefill writes from position 0)
+        self.prefix_cache = bool(prefix_cache) and chunk_size is not None
+        # bounded lookahead past the queue head for length-bucketed
+        # chunked admission (1 = strict FIFO)
+        self.pack_lookahead = 8
         sampler_mod.resolve(head_mode, cfg=cfg)      # refuse bad heads now
         # the draft proposer for speculative requests (spec_k > 0);
         # model-free prompt lookup by default -- any serve.spec.Drafter.
@@ -210,7 +251,11 @@ class ServeEngine:
         # decode_steps counts decode calls, iterations engine loop turns
         # (decode_steps == iterations whenever a slot is active);
         # fused_rows counts real (non-padding) rows over those calls;
-        # prefills counts one-shot prompt prefills; host_syncs every
+        # prefills counts completed prompt prefills (one-shot calls or
+        # final chunks), prefill_chunks the chunk rows served,
+        # prefill_tokens the prompt tokens actually prefilled, and
+        # prefix_hits / prefix_hit_tokens the admissions that adopted a
+        # cached run and the tokens they skipped; host_syncs every
         # dispatch with a device->host read (prefills + decode steps);
         # emitted_tokens every token through _emit_token.  prefill_ms and
         # decode_ms sum the host wall clock of the prefill calls and the
@@ -220,10 +265,12 @@ class ServeEngine:
         # their ratio.  head_calls counts head calls by sampler kind
         # ('Greedy', 'TopK', ...; 'verify' for a step's speculative
         # group): one head call is one kernel launch on the card.
-        self.stats = {"prefills": 0, "decode_steps": 0, "iterations": 0,
-                      "fused_rows": 0, "completed": 0, "deferred": 0,
-                      "preemptions": 0, "cancelled": 0, "host_syncs": 0,
-                      "emitted_tokens": 0, "prefill_tokens": 0,
+        self.stats = {"prefills": 0, "prefill_chunks": 0, "decode_steps": 0,
+                      "iterations": 0, "fused_rows": 0, "completed": 0,
+                      "deferred": 0, "preemptions": 0, "cancelled": 0,
+                      "host_syncs": 0, "emitted_tokens": 0,
+                      "prefix_hits": 0, "prefix_hit_tokens": 0,
+                      "prefill_tokens": 0,
                       "prefill_ms": 0.0, "decode_ms": 0.0,
                       "drafted": 0, "accepted": 0, "acceptance_rate": 0.0,
                       "head_calls": {}}
@@ -258,6 +305,8 @@ class ServeEngine:
             s["attn_probe"] = self.probe_report
         s["tokens_per_dispatch"] = (
             s["emitted_tokens"] / max(s["host_syncs"], 1))
+        s["cow_copies"] = self.store.cow_copies
+        s["shared_blocks"] = self.store.allocator.n_shared
         s["peak_in_use"] = self.store.allocator.peak_in_use
         if self._ttft_ms:
             t = np.asarray(self._ttft_ms)
@@ -339,14 +388,29 @@ class ServeEngine:
     def _free_slots(self):
         return [i for i, s in enumerate(self.slots) if s is None]
 
+    def _prefilling(self, i: int) -> bool:
+        """Whether slot ``i`` is mid-chunked-prefill: its write cursor
+        (``slot_pos``) has not yet covered its prompt.  Only ever True
+        under ``chunk_size``: one-shot admission writes the whole prompt
+        before the slot is visible."""
+        req = self.slots[i]
+        return req is not None and int(self.slot_pos[i]) < len(req.prompt)
+
     def _admit(self):
-        """One-shot paged prefill of queued requests into free slots.
+        """Prefill queued requests into free slots, at most
+        ``prefill_per_step`` an iteration.
 
         Admission defers while the pool cannot cover the queue HEAD's
         prompt plus one decode block -- later requests never jump a
-        deferred head, so FIFO admission is starvation-free."""
+        deferred head, so FIFO admission is starvation-free.  Under
+        ``chunk_size`` admission only assigns the slot
+        (``_admit_chunked``); the step writes the prompt chunk by
+        chunk."""
+        if self.chunk_size is not None:
+            return self._admit_chunked()
+        budget = self.prefill_per_step
         for i in self._free_slots():
-            if not self.queue:
+            if not self.queue or budget == 0:
                 break
             req = self.queue[0]
             S = len(req.prompt)
@@ -358,6 +422,11 @@ class ServeEngine:
             if req.t_admit is None:       # re-prefill keeps the first stamp
                 req.t_admit = t0
             blocks = self.store.alloc_blocks(i, S)
+            # the prefill writes [0, S) in place, so a shared cover would
+            # have to be copied here; one-shot slots only hold the fresh
+            # blocks just allocated (adoption is chunked-only), so this
+            # is the enforced no-op form of the copy-on-write rule
+            self.store.cow_for_write(i, 0, S - 1)
             tokens = torch.as_tensor(np.asarray(req.prompt, np.int64),
                                      device=self.device)[None]
             out = api.serve_prefill_paged(
@@ -375,6 +444,63 @@ class ServeEngine:
             self.slot_pos[i] = S
             self.admit_order.append(i)
             self._emit(i, req, out, 0)
+            if budget is not None:
+                budget -= 1
+
+    def _admit_chunked(self):
+        """Chunked admission: assign free slots and reserve each
+        request's FIRST chunk cover; the fused step writes the chunks.
+
+        The queue HEAD is always offered first and deferral stops there,
+        as in one-shot admission.  Admissions after the head within one
+        iteration are packed by LENGTH BUCKET: within ``pack_lookahead``
+        of the head, the first admissible request whose pow-2
+        first-chunk width matches the bucket this iteration already pays
+        for, so one short prompt beside a long one does not widen T for
+        every row.  A skipped request keeps (or reaches) the head."""
+        budget = self.prefill_per_step
+        bucket = None
+        for i in self._free_slots():
+            if not self.queue or budget == 0:
+                break
+            if not self.store.can_admit(len(self.queue[0].prompt),
+                                        self.chunk_size):
+                self.stats["deferred"] += 1
+                break
+            pick = 0
+            if bucket is not None:
+                for j in range(min(self.pack_lookahead, len(self.queue))):
+                    cand = self.queue[j]
+                    if (_pow2(min(self.chunk_size, len(cand.prompt)))
+                            == bucket
+                            and self.store.can_admit(len(cand.prompt),
+                                                     self.chunk_size)):
+                        pick = j
+                        break
+            req = self.queue[pick]
+            del self.queue[pick]
+            if req.t_admit is None:       # re-prefill keeps the first stamp
+                req.t_admit = time.perf_counter()
+            hit = 0
+            if self.prefix_cache and req.params.prefix_cache:
+                # map the longest cached whole-block run into the slot's
+                # table; the prefill starts at the suffix boundary.
+                # Adoption precedes the reserve so that eviction under
+                # pressure cannot reclaim the run first.
+                hit = self.store.adopt_prefix(i, req.prompt)
+                if hit:
+                    self.stats["prefix_hits"] += 1
+                    self.stats["prefix_hit_tokens"] += hit
+            width = min(self.chunk_size, len(req.prompt) - hit)
+            bucket = _pow2(width)
+            # reserve the first chunk's cover now, so this iteration's
+            # later can_admit checks see the honest free count
+            self.store.ensure_capacity(i, hit + width - 1, write_start=hit)
+            self.slots[i] = req
+            self.slot_pos[i] = hit        # write cursor: suffix starts here
+            self.admit_order.append(i)
+            if budget is not None:
+                budget -= 1
 
     def _preempt_youngest(self, keep: int) -> bool:
         """Pool exhausted mid-decode: push the most recently admitted slot
@@ -397,14 +523,15 @@ class ServeEngine:
 
     # -- main loop ------------------------------------------------------------
     def step(self):
-        """One engine iteration: admit, then ONE fused ragged decode step
-        over every active slot."""
+        """One engine iteration: admit, then ONE fused ragged step over
+        every active slot -- decode rows, draft windows and prefill-chunk
+        rows alike."""
         self.stats["iterations"] += 1
         self._admit()
         active = [i for i, s in enumerate(self.slots) if s is not None]
         if not active:
             if self.queue and not self.store.can_admit(
-                    len(self.queue[0].prompt)):
+                    len(self.queue[0].prompt), self.chunk_size):
                 # nothing is running, so every block is free -- if the head
                 # request still doesn't fit it never will: fail loudly.
                 req = self.queue[0]
@@ -436,7 +563,7 @@ class ServeEngine:
         it just drafts less."""
         req = self.slots[i]
         k = req.params.spec_k
-        if k <= 0:
+        if k <= 0 or self._prefilling(i):
             return []
         pos = int(self.slot_pos[i])
         # a draft window writes K/V at pos..pos+k and can emit up to
@@ -461,6 +588,40 @@ class ServeEngine:
             return []             # lost a race with another slot's growth
         return drafts
 
+    def _plan_chunks(self, rows: List[int], n_decode_tokens: int) -> dict:
+        """This iteration's prefill-chunk windows: ``{slot: (start,
+        width)}`` for every mid-prefill slot in ``rows``.
+
+        Width = min(chunk_size, remaining prompt), narrowed to the
+        ``token_budget`` left after the decode and draft tokens (which
+        are always served) and to the free pool (``can_grow``: a chunk
+        narrows rather than preempt a neighbour, as a draft window does).
+        Oldest-admitted slots plan first and every prefilling slot keeps
+        >= 1 token, so prefill progress is monotone whatever the
+        budget."""
+        chunks: dict = {}
+        pre = [i for i in rows if self._prefilling(i)]
+        if not pre:
+            return chunks
+        recency = {slot: n for n, slot in enumerate(self.admit_order)}
+        pre.sort(key=lambda j: recency.get(j, 0))
+        avail = None
+        if self.token_budget is not None:
+            avail = max(self.token_budget - n_decode_tokens, len(pre))
+        for n, i in enumerate(pre):
+            start = int(self.slot_pos[i])
+            w = min(self.chunk_size, len(self.slots[i].prompt) - start)
+            if avail is not None:
+                later = len(pre) - n - 1       # reserve 1 token each
+                w = max(1, min(w, avail - later))
+                avail -= w
+            while w > 1 and not self.store.can_grow(i, start + w - 1,
+                                                    write_start=start):
+                w -= 1
+            self.store.ensure_capacity(i, start + w - 1, write_start=start)
+            chunks[i] = (start, w)
+        return chunks
+
     def _decode_rows(self, rows: List[int]):
         """One fused decode step over the given slot rows -- ragged
         positions, mixed samplers, per-row draft widths: the host plan
@@ -478,6 +639,7 @@ class ServeEngine:
         surplus blocks)."""
         t0 = time.perf_counter()
         plan = self._plan_step(rows)
+        chunks = plan.chunks
         _, outs = self._run_step(plan)
         for s in plan.order:
             self._count_head(type(s).__name__)
@@ -494,6 +656,17 @@ class ServeEngine:
             i = plan.padded[r]
             dev, off = plan.where[r]
             req = self.slots[i]
+            if i in chunks:
+                # a prefill chunk served: advance the write cursor over
+                # it; a FINAL chunk's head output emits the first token
+                start, w = chunks[i]
+                self.slot_pos[i] = start + w
+                self.stats["prefill_chunks"] += 1
+                self.stats["prefill_tokens"] += w
+                if start + w == len(req.prompt):
+                    self.stats["prefills"] += 1
+                    self._emit(i, req, host[dev], off)
+                continue
             if dev is None:
                 # speculative row: emit the accepted run plus the
                 # correction token, one at a time (stop/eos/length fire
@@ -520,9 +693,10 @@ class ServeEngine:
                 self.stats["accepted"] / self.stats["drafted"])
 
     def _plan_step(self, rows: List[int]) -> StepPlan:
-        """The host half of one fused step: drafts, padded rows, tokens,
-        positions, block tables, the head groups' row vectors and the
-        verify group's rows and draft ids, as numpy operands.
+        """The host half of one fused step: drafts, chunk windows
+        (``_plan_chunks``), padded rows, tokens, positions, block tables,
+        the head groups' row vectors and the verify group's rows and
+        draft ids, as numpy operands.
 
         Rows are padded to a power of two by repeating row 0 (identical
         compute; the duplicate K/V write lands the same value on the same
@@ -532,23 +706,34 @@ class ServeEngine:
         padded to B rows the same way: a bucket's key then follows B, not
         how its rows split between groups, so a speculative run's steps
         share few graphs (the argmax and verify heads stream W once per
-        64 rows, so their padding rows cost next to nothing).  A
-        draft row widens the step to T = pow2(widest window): it carries
-        its last token plus its drafts at consecutive positions; the
-        other rows' padding queries repeat their last (token, position)
-        -- a cache no-op."""
+        64 rows, so their padding rows cost next to nothing).  A draft
+        or chunk row widens the step to T = pow2(widest window): a draft
+        row carries its last token plus its drafts at consecutive
+        positions, a chunk row its next prompt tokens at their absolute
+        positions (its earlier chunks are read through the block table);
+        the other rows' padding queries repeat their last (token,
+        position) -- a cache no-op.  A mid-prefill chunk row joins no
+        head group; a final chunk joins its sampler's group, whose head
+        reads its last column, the prompt's last position."""
         n_real = len(rows)
         drafts = {i: self._propose(i) for i in rows}
-        T = _pow2(max(1 + len(drafts[i]) for i in rows))
+        n_decode_tokens = sum(1 + len(drafts[i]) for i in rows
+                              if not self._prefilling(i))
+        chunks = self._plan_chunks(rows, n_decode_tokens)
+        T = _pow2(max([1 + len(drafts[i]) for i in rows]
+                      + [w for _, w in chunks.values()]))
         padded = rows + [rows[0]] * (_pow2(n_real) - n_real)
         groups: Dict[Sampler, list] = {}
         spec_group: list = []            # padded-row indices that verify
-        # row r -> (its head group, offset), or (None, offset in the
-        # verify group) for a draft row; a mid-prefill chunk row, when
-        # chunked prefill is ported, is (None, None): it joins no group.
+        # row r -> (its head group, offset), (None, offset in the verify
+        # group) for a draft row, or (None, None) for a mid-prefill
+        # chunk row, whose logits nothing reads
         where = []
         for r, i in enumerate(padded):
-            if drafts[i]:
+            ch = chunks.get(i)
+            if ch is not None and ch[0] + ch[1] < len(self.slots[i].prompt):
+                where.append((None, None))
+            elif drafts[i]:
                 where.append((None, len(spec_group)))
                 spec_group.append(r)
             else:
@@ -560,9 +745,13 @@ class ServeEngine:
         toks = np.zeros((len(padded), T), np.int64)
         posm = np.zeros((len(padded), T), np.int32)
         for r, i in enumerate(padded):
-            win = [self.slots[i].generated[-1]] + drafts[i]
-            w = len(win)
-            base = int(self.slot_pos[i])
+            if i in chunks:
+                base, w = chunks[i]
+                win = [int(t) for t in self.slots[i].prompt[base:base + w]]
+            else:
+                win = [self.slots[i].generated[-1]] + drafts[i]
+                w = len(win)
+                base = int(self.slot_pos[i])
             toks[r, :w] = win
             toks[r, w:] = win[-1]        # repeat last (token, position):
             posm[r, :w] = base + np.arange(w)
@@ -584,8 +773,8 @@ class ServeEngine:
             spec = len(sg)
         key = step_graph.bucket_key(order, toks.shape, btab.shape,
                                     [len(g) for g in group_rows], spec)
-        return StepPlan(n_real, padded, drafts, where, order, tuple(arrays),
-                        spec, key)
+        return StepPlan(n_real, padded, drafts, chunks, where, order,
+                        tuple(arrays), spec, key)
 
     def _run_step(self, plan: StepPlan):
         """The device half of ``plan``: (h, head outputs) -- a graph
@@ -630,7 +819,19 @@ class ServeEngine:
         return self.slots[i] is not None
 
     def _release_slot(self, i: int):
-        self.store.release(i)
+        req = self.slots[i]
+        publish = None
+        if self.prefix_cache and req is not None and req.params.prefix_cache:
+            # the slot's K/V rows [0, slot_pos) hold exactly this token
+            # history (original prompt ++ emissions; re-prefills and spec
+            # rewinds keep it so), whatever ends the slot: completion,
+            # cancel or preemption.  A preempted request then re-adopts
+            # its own run and re-prefills only the tail.
+            publish = np.concatenate(
+                [np.asarray(req.orig_prompt, np.int32),
+                 np.asarray(req.generated, np.int32)]
+            )[:int(self.slot_pos[i])]
+        self.store.release(i, publish_tokens=publish)
         self.slots[i] = None
         self.admit_order.remove(i)
 

@@ -48,6 +48,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
 import time
 from typing import Dict, Sequence
 
@@ -203,6 +204,11 @@ class StepGraphs:
         graph = torch.cuda.CUDAGraph()
         before = read_counts(self.wrappers)
         t0 = time.perf_counter()
+        # no garbage collection inside the capture: a dead engine's
+        # graphs, freed by the collector, would be destroyed mid-capture,
+        # which invalidates it (torch's capture collects nothing first)
+        collecting = gc.isenabled()
+        gc.disable()
         try:
             # "thread_local": the engine may be stepped from LLM's pump
             # thread while other threads keep using the card (a caller's
@@ -213,6 +219,8 @@ class StepGraphs:
                                   capture_error_mode="thread_local"):
                 out = body(*static)
         finally:
+            if collecting:
+                gc.enable()
             delta = count_delta(before, read_counts(self.wrappers))
             add_counts(self.wrappers, delta, -1)   # nothing ran
         self.capture_ms += (time.perf_counter() - t0) * 1e3

@@ -495,6 +495,35 @@ def test_paged_attention_spec_window_bits_equal_each_query_alone(dev, mode,
             assert torch.equal(one[0], out[r, c]), (r, c)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mode", ["exact", "base2", "pseudo", "pwl",
+                                  "maxonly"])
+def test_paged_attention_chunk_window_bits_equal_t1(dev, mode, dtype):
+    """A chunked-prefill step's shape: 8 rows at T 64 -- chunk rows of 64
+    and of 23 consecutive prompt positions (padding repeats the last),
+    decode rows at one position.  Every (row, column) output equals, bit
+    for bit, that query alone at T 1 with a table of its row's width."""
+    last = [999, 63, 700, 64, 511, 130, 0, 300]
+    widths = [64, 64, 23, 1, 64, 1, 1, 40]
+    q, kp, vp, bt, _ = _paged(dev, dtype, b=8, t=64, hq=16, hkv=8, hd=128,
+                              bs=16, seed=64, last=last)
+    pos = np.empty((8, 64), np.int32)
+    for r, (p, w) in enumerate(zip(last, widths)):
+        win = np.arange(max(0, p - w + 1), p + 1)
+        pos[r, :len(win)], pos[r, len(win):] = win, win[-1]
+    pos_t = torch.from_numpy(pos).to(dev)
+    out = pa.paged_attention(q, kp, vp, bt, pos_t, attn_approx=mode)
+    for r in range(8):
+        nb = pow2(int(pos[r].max()) // 16 + 1)
+        cols = range(64) if r < 2 else (0, 21, 22, 63)
+        for c in cols:
+            one = pa.paged_attention(q[r:r + 1, c].contiguous(), kp, vp,
+                                     bt[r:r + 1, :nb].contiguous(),
+                                     pos_t[r:r + 1, c].contiguous(),
+                                     attn_approx=mode)
+            assert torch.equal(one[0], out[r, c]), (r, c)
+
+
 @pytest.mark.parametrize("hd", [64, 128, 192])
 @pytest.mark.parametrize("t", [1, 32])
 def test_paged_attention_route(dev, t, hd):
@@ -1353,9 +1382,10 @@ def test_engine_on_card_matches_cpu(dev, arch):
 # -- the decode step as one CUDA graph (serve/step_graph.py) ----------------
 
 
-def _graph_engine(dev, dtype):
+def _graph_engine(dev, dtype, **kw):
     """A smoke-size qwen3-0.6b engine on the card in ``dtype`` (16 slots
-    of 4 blocks of 16), its pools filled with random K/V."""
+    of 4 blocks of 16 unless ``kw`` says otherwise), its pools filled
+    with random K/V."""
     import dataclasses
 
     from repro_torch.configs import get_config, smoke_config
@@ -1366,7 +1396,7 @@ def _graph_engine(dev, dtype):
                               dtype="bfloat16" if dtype == torch.bfloat16
                               else "float32")
     params = init_params(cfg, torch.Generator(device=dev).manual_seed(5), dev)
-    eng = ServeEngine(params, cfg, n_slots=16, max_len=64)
+    eng = ServeEngine(params, cfg, **{"n_slots": 16, "max_len": 64, **kw})
     gen = torch.Generator(device=dev).manual_seed(6)
     for p in eng.store.pools.values():
         p.copy_(torch.randn(p.shape, generator=gen, device=dev))
@@ -1457,6 +1487,38 @@ def test_one_bucket_replays_over_two_batches(dev):
     for arrays, want in ((b, want_b), (a, want_a), (b, want_b)):
         got = _leaves_on_host(eng.graphs.replay("bucket", arrays))
         assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+def test_capture_beside_a_dead_engine(dev):
+    """A captured engine dropped in a reference cycle is freed only by
+    the garbage collector; with the collector made to run at every
+    allocation, another engine's capture still succeeds (no collection
+    inside a capture) and replays the eager bits."""
+    import functools
+    import gc
+
+    from repro_torch.serve import step_graph
+
+    dead = _graph_engine(dev, torch.bfloat16)
+    order, arrays = _step_operands(dead, 8, 1, seed=4)
+    body = functools.partial(dead._step_body, order)
+    body(*step_graph.to_device(arrays, dev))
+    dead.graphs.capture("dead", body, arrays, dev)
+    dead.cycle = dead
+    del dead, body
+    eng = _graph_engine(dev, torch.bfloat16)
+    order, arrays = _step_operands(eng, 8, 1, seed=5)
+    body = functools.partial(eng._step_body, order)
+    want = _leaves_on_host(body(*step_graph.to_device(arrays, dev)))
+    threshold = gc.get_threshold()
+    gc.set_threshold(1, 1, 1)
+    try:
+        eng.graphs.capture("live", body, arrays, dev)
+    finally:
+        gc.set_threshold(*threshold)
+    gc.collect()
+    got = _leaves_on_host(eng.graphs.replay("live", arrays))
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
 
 
 def test_launch_counters_after_replays(dev):
@@ -1554,3 +1616,112 @@ def test_logit_heads_copy_no_f32_weight(dev, head):
         top2 = want.topk(2, dim=-1).values
         decided = (top2[:, 0] - top2[:, 1]) > 1e-3 * top2[:, 0].abs()
         assert bool(((out == want.argmax(-1)) | ~decided).all())
+
+
+# -- chunked prefill and prefix sharing on the card -------------------------
+
+
+def test_chunked_generate_graphed_equals_eager(dev):
+    """A chunked engine (chunk 8, token budget 20, prefix sharing on)
+    serving greedy, top-k, speculative and shared-prefix requests gives
+    the same tokens graphed and under ``eager_steps()``, replays chunk
+    steps, and launches paged attention once a layer a step and no flash
+    kernel."""
+    from repro_torch.configs import get_config, smoke_config
+    from repro_torch.serve import step_graph
+    from repro_torch.serve.api import LLM
+    from repro_torch.serve.params import SamplingParams
+    from repro_torch.weights import init_params
+
+    cfg = smoke_config(get_config("qwen3-0.6b"))
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(10),
+                         dev)
+    rng = np.random.default_rng(10)
+    shared = rng.integers(0, cfg.vocab_size, size=24)
+    prompts = [np.concatenate([shared, rng.integers(0, cfg.vocab_size, 5)])
+               for _ in range(3)]
+    prompts += [rng.integers(0, cfg.vocab_size, size=n) for n in (3, 41)]
+    prompts.append(np.tile(rng.integers(0, cfg.vocab_size, size=5), 6))
+    sp = [SamplingParams(max_new_tokens=10)] * 4 + [
+        SamplingParams(max_new_tokens=10, top_k=4, seed=3),
+        SamplingParams(max_new_tokens=10, spec_k=4)]
+    kw = dict(n_slots=2, max_len=96, block_size=4, chunk_size=8,
+              token_budget=20)
+    with step_graph.eager_steps():
+        eager = LLM(params, cfg, **kw)
+        want = eager.generate(prompts, sp)
+    assert len(eager.engine.graphs) == 0
+    llm = LLM(params, cfg, **kw)
+    n_pa, n_fa = pa.paged_attention.launches, fa.flash_attention.launches
+    got = llm.generate(prompts, sp)
+    assert [o.token_ids for o in got] == [o.token_ids for o in want]
+    st, g = llm.stats, llm.engine.graphs
+    assert st["prefill_chunks"] > len(prompts) and st["prefix_hits"] > 0
+    assert g.replays > 0 and len(g.seen) + g.replays == st["decode_steps"]
+    assert pa.paged_attention.launches - n_pa \
+        == cfg.n_layers * st["decode_steps"]
+    assert fa.flash_attention.launches == n_fa
+
+
+def test_chunk_bucket_replay_bitwise_equals_eager(dev):
+    """A step of two decode rows, a mid-prefill chunk row and a final
+    chunk row at T 64 (bf16): the replay of its bucket's graph gives the
+    eager body's hidden states and head outputs bit for bit."""
+    import functools
+
+    from repro_torch.serve import step_graph
+    from repro_torch.serve.engine import Request
+    from repro_torch.serve.params import SamplingParams
+
+    eng = _graph_engine(dev, torch.bfloat16, n_slots=4, max_len=256,
+                        chunk_size=64)
+    rng = np.random.default_rng(11)
+    v = eng.cfg.vocab_size
+    for rid, n in enumerate((5, 7)):
+        eng.submit(Request(rid, rng.integers(0, v, n).astype(np.int32),
+                           params=SamplingParams(max_new_tokens=8)))
+    with step_graph.eager_steps():
+        eng.step()                       # both prompts in one final chunk
+    for rid, n in ((2, 150), (3, 40)):
+        eng.submit(Request(rid, rng.integers(0, v, n).astype(np.int32),
+                           params=SamplingParams(max_new_tokens=8)))
+    eng._admit()                         # both packed in the 64 bucket
+    active = [i for i, sl in enumerate(eng.slots) if sl is not None]
+    plan = eng._plan_step(active)
+    assert plan.key[2] == 64 and plan.chunks == {2: (0, 64), 3: (0, 40)}
+    assert [w[1] is None for w in plan.where] == [False, False, True, False]
+    body = functools.partial(eng._step_body, tuple(plan.order))
+    want = _leaves_on_host(body(*step_graph.to_device(plan.arrays, dev)))
+    eng.graphs.capture(plan.key, body, plan.arrays, dev)
+    got = _leaves_on_host(eng.graphs.replay(plan.key, plan.arrays))
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+
+
+def test_cow_copy_bitwise_on_card_pools(dev):
+    """Copy-on-write on the card: a rewind into a block the trie shares
+    copies it first; the copy is the source's K and V bits in every
+    layer, the source keeps its own, and no other block moves."""
+    from repro_torch.configs import get_config, smoke_config
+    from repro_torch.serve.paged_kv import PagedKVStore
+
+    st = PagedKVStore(smoke_config(get_config("qwen3-0.6b")), n_slots=4,
+                      max_len=32, device=dev, block_size=4)
+    gen = torch.Generator(device=dev).manual_seed(12)
+    for p in st.pools.values():
+        p.copy_(torch.randn(p.shape, generator=gen, device=dev))
+    before = {k: p.clone() for k, p in st.pools.items()}
+    st.slot_blocks[0] = st.allocator.alloc(2)
+    pub = list(st.slot_blocks[0])
+    toks = np.arange(8, dtype=np.int32)
+    st.release(0, publish_tokens=toks)
+    assert st.adopt_prefix(1, np.concatenate([toks, [5, 6, 7]])) == 8
+    st.rewind(1, 6)
+    torch.cuda.synchronize()
+    new = st.slot_blocks[1][1]
+    assert new != pub[1] and st.cow_copies == 1
+    for k, pool in st.pools.items():
+        assert torch.equal(pool[:, new], before[k][:, pub[1]]), k
+        rest = [b for b in range(pool.shape[1]) if b != new]
+        assert torch.equal(pool[:, rest], before[k][:, rest]), k

@@ -7,7 +7,8 @@ port's own contracts: the softmax baseline equals the reduced head
 missing card, CPU runs launch no kernel, unported engine modes raise and
 out-of-range token ids are refused.  Sampled and speculative serving
 are held against the JAX package in ``test_torch_sampling.py`` and
-``test_torch_spec.py``.
+``test_torch_spec.py``, chunked prefill and prefix sharing in
+``test_torch_chunked.py`` and ``test_torch_prefix_cache.py``.
 """
 import numpy as np
 import pytest
@@ -176,14 +177,11 @@ def test_device_guards_and_cpu_runs_launch_no_kernel(bridged):
     assert llm.health()["ok"]
 
 
-@pytest.mark.parametrize("kw", [dict(chunk_size=16), dict(host_stride=4),
+@pytest.mark.parametrize("kw", [dict(host_stride=4),
                                 dict(tp=2), dict(scheduler="cohort"),
                                 dict(kv_layout="dense"),
                                 dict(kv_layout="dense", attn_approx="pseudo"),
-                                dict(head_mode="sharded"),
-                                dict(token_budget=8),
-                                dict(prefix_cache=True),
-                                dict(prefix_cache=False)])
+                                dict(head_mode="sharded")])
 def test_unported_engine_modes_raise(bridged, kw):
     _, tparams = bridged
     with pytest.raises(NotImplementedError):

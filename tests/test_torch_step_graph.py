@@ -14,8 +14,8 @@ package:
     second step;
   - the launch-counter arithmetic of a capture and its replays, on a
     fake counter set;
-  - a CPU engine captures nothing, and ``eager_steps()`` nests and
-    restores;
+  - a CPU engine captures nothing, ``eager_steps()`` nests and
+    restores, and a capture runs with the garbage collector off;
   - the Temperature and softmax-baseline heads on the CPU keep the bits
     of ``h.float() @ W.float()``, within the port's Temperature
     tolerance (rtol 1e-5, plus 1e-5 of the row's largest |logit| for
@@ -323,6 +323,42 @@ def test_a_bucket_captures_on_its_second_step(monkeypatch):
     assert g.seen == {"a", "b"} and set(g.graphs) == {"a", "b"}
     assert g.run("c", body, (np.array([5]),), "cpu") == "eager"
     assert "c" not in g.graphs
+
+
+def test_a_capture_runs_with_the_collector_off(monkeypatch):
+    """No garbage collection inside a capture: a dead engine's graphs,
+    freed there, would invalidate it.  The collector is off in the body
+    and back on after, also when the body raises (CUDA stubbed out)."""
+    import contextlib
+    import gc
+
+    @contextlib.contextmanager
+    def fake_capture(graph, pool=None, capture_error_mode=None):
+        yield
+
+    monkeypatch.setattr(torch.cuda, "CUDAGraph", object)
+    monkeypatch.setattr(torch.cuda, "graph", fake_capture)
+    monkeypatch.setattr(torch.cuda, "graph_pool_handle", lambda: (0, 1))
+    monkeypatch.setattr(torch.cuda, "Event", lambda: None)
+    monkeypatch.setattr(torch.Tensor, "pin_memory", lambda self: self)
+    g, seen = step_graph.StepGraphs(), []
+    assert gc.isenabled()
+    g.capture("k", lambda x: seen.append(gc.isenabled()),
+              (np.zeros(2),), "cpu")
+    assert seen == [False] and gc.isenabled() and g.captures == 1
+
+    def boom(x):
+        raise RuntimeError("inside")
+
+    with pytest.raises(RuntimeError, match="inside"):
+        g.capture("j", boom, (np.zeros(2),), "cpu")
+    assert gc.isenabled()
+    gc.disable()
+    try:
+        g.capture("i", lambda x: None, (np.zeros(2),), "cpu")
+        assert not gc.isenabled()      # left as the caller had it
+    finally:
+        gc.enable()
 
 
 def test_the_counted_wrappers_are_the_kernels():
