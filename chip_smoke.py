@@ -134,6 +134,21 @@ Phases, each of which fails the run (non-zero exit, no result line):
      pseudo and maxonly at window 128, every decode layer of each arm
      through the paged-attention kernel in that arm's mode, and per-layer
      score errors from the tap;
+  4i. the device-resident loop (``host_stride``) on engines sharing the
+     main path's weights (no eos): phase 4's prompts greedy at
+     ``host_stride`` None, 1, 4 and 8, mixed seeded samplers (greedy,
+     top-k 4 at 0.8, Gumbel-max at 0.7) at 1, 4 and 8, and those samplers
+     with chunk 64 (prompts of 129-192 tokens) at 1 and 8, each engine
+     graphed three times (the third all replays): tokens EQUAL across
+     runs and strides, paged attention 28 launches a decode iteration (a
+     replay is one), each head kernel once an iteration per group; tok/s,
+     ms a token, host syncs, tokens a dispatch, captures and replays for
+     each stride; a stop pair and an eos inside a stride-8 block (the
+     rest trimmed, every block back in the pool); the keyed draw at (8,
+     151936) against ``prng`` on the CPU (keys, bits, uniforms bitwise;
+     the Gumbel gap in ulps printed) and timed; a graphed dispatch
+     bitwise against the eager loop on the same operands, both timed
+     beside the bound; a profile of one dispatch beside phase 4's step;
   5. Theorem 1 on the card, graphed: the softmax-baseline head gives the
      same token streams;
   6. the small-input reference, graphed: the smoke config's tokens on
@@ -3131,6 +3146,470 @@ def run_prefix_path(torch, llm, twin, max_new=8):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 4i: the device-resident loop (host_stride) and keyed sampling
+# ---------------------------------------------------------------------------
+STRIDES = (None, 1, 4, 8)
+
+
+def stride_params(max_new):
+    """Phase 4i's mixed samplers, one per prompt, each request seeded:
+    greedy, top-k 4 at temperature 0.8, Gumbel-max at temperature 0.7."""
+    from repro_torch.serve.params import SamplingParams
+
+    kinds = ({}, dict(top_k=4, temperature=0.8),
+             dict(head_mode="temperature", temperature=0.7))
+    return [SamplingParams(max_new_tokens=max_new, seed=r, **kinds[r % 3])
+            for r in range(12)]
+
+
+def stride_engine(llm, stride, **kw):
+    """A facade on the main path's weights at ``host_stride=stride``
+    (None: the per-token step), 8 slots, max_len 1024 and no eos: every
+    request runs its 32 tokens, so every stride serves the same
+    batches."""
+    from repro_torch.serve.api import LLM
+
+    return LLM(llm.engine.params, llm.cfg, n_slots=8, max_len=1024, seed=0,
+               **{"eos_id": -1, **kw, "host_stride": stride})
+
+
+def check_loop_launches(launches, st, cfg, what, flash=True):
+    """Phase 4i's launch checks: paged attention 28 per decode iteration
+    (a replay is one), each head kernel once per iteration per group of
+    its kind (``head_calls``; prefills included), flash attention 28 per
+    one-shot prefill (none when ``flash`` is False: chunked prefill)."""
+    calls = st["head_calls"]
+    want_pa = cfg.n_layers * st["decode_iterations"]
+    want_fa = cfg.n_layers * st["prefills"] if flash else 0
+    check(launches["paged_attention"] == want_pa,
+          f"{what}: paged attention launches {launches['paged_attention']}"
+          f" != {cfg.n_layers} x {st['decode_iterations']} decode "
+          "iterations")
+    check(launches["fused_argmax_head"] == calls.get("Greedy", 0),
+          f"{what}: argmax launches != greedy head calls {calls}")
+    check(launches["fused_topk_head"] == calls.get("TopK", 0),
+          f"{what}: top-k launches != top-k head calls {calls}")
+    check(launches["flash_attention"] == want_fa,
+          f"{what}: flash attention launches {launches['flash_attention']}"
+          f" != {want_fa}")
+    check(all(launches[n] == 0 for n in ("fused_verify_head",
+                                         "softmax_stats", "online_softmax",
+                                         "fused_xent")),
+          f"{what}: a verify or softmax-unit kernel ran")
+
+
+def drive_strided(torch, llm, prompts, plist):
+    """``drive`` on a graphed engine, with the graph cache's growth:
+    (``drive``'s run..., captures, replays)."""
+    g = llm.engine.graphs
+    n0 = (g.captures, g.replays)
+    run = drive(torch, llm, prompts, plist)
+    return run + (g.captures - n0[0], g.replays - n0[1])
+
+
+def stride_line(what, run) -> dict:
+    """Print and return one run's numbers: tok/s, ms per generated
+    token, host syncs, tokens a dispatch, dispatches, iterations,
+    captures and replays."""
+    outs, _, _, st, wall, caps, reps = run
+    n_tok = sum(len(o.token_ids) for o in outs)
+    row = dict(tokens=n_tok, wall_s=wall, tok_s=n_tok / wall,
+               ms_per_token=wall * 1e3 / n_tok,
+               host_syncs=st["host_syncs"],
+               tokens_per_dispatch=st["emitted_tokens"] / st["host_syncs"],
+               dispatches=st["decode_steps"],
+               iterations=st["decode_iterations"],
+               decode_ms_per_dispatch=st["decode_ms"] / st["decode_steps"],
+               prefills=st["prefills"], captures=caps, replays=reps)
+    print(f"{what}: {n_tok} tokens in {wall:.3f} s = {row['tok_s']:.2f} "
+          f"tok/s, {row['ms_per_token']:.3f} ms a token; host_syncs "
+          f"{row['host_syncs']}, tokens_per_dispatch "
+          f"{row['tokens_per_dispatch']:.3f}; {row['dispatches']} decode "
+          f"dispatches of {row['iterations']} iterations, "
+          f"{row['decode_ms_per_dispatch']:.3f} ms a dispatch; "
+          f"{caps} captures, {reps} replays", flush=True)
+    return row
+
+
+def run_strides(torch, llm, prompts, plist, strides, what, **kw):
+    """Each stride's engine, graphed three times on the same prompts (the
+    first run's buckets run eagerly at their first dispatch and capture
+    at their second; the third run replays every dispatch): tokens equal
+    across the three runs and across the strides, launches at their
+    numbers.  Returns ({stride: {run 1, run 3}}, the strides' tokens,
+    {stride: (engine, run 1)})."""
+    cfg = llm.cfg
+    out, tokens, kept = {}, {}, {}
+    for stride in strides:
+        e = stride_engine(llm, stride, **kw)
+        name = f"{what}, host_stride={stride}"
+        runs = [drive_strided(torch, e, prompts, plist) for _ in range(3)]
+        for n, run in enumerate(runs, 1):
+            check_loop_launches(run[2], run[3], cfg, f"{name} run {n}",
+                                flash="chunk_size" not in kw)
+            check([o.token_ids for o in run[0]]
+                  == [o.token_ids for o in runs[0][0]],
+                  f"{name}: run {n}'s tokens differ from run 1's")
+            check(all(len(o.token_ids) == o.params.max_new_tokens
+                      for o in run[0]),
+                  f"{name} run {n}: a request stopped short")
+            st = run[3]
+            check(st["host_syncs"] == st["prefills"] + st["decode_steps"]
+                  or "chunk_size" in kw,
+                  f"{name} run {n}: host_syncs != prefills + dispatches")
+        third = runs[2]
+        check(third[5] == 0 and third[6] == third[3]["decode_iterations"],
+              f"{name}: run 3 captured {third[5]} buckets or ran an "
+              f"iteration eagerly ({third[6]} replays of "
+              f"{third[3]['decode_iterations']} iterations)")
+        out[str(stride)] = {"run1": stride_line(f"{name}, graphed run 1",
+                                                runs[0]),
+                            "run3": stride_line(
+                                f"{name}, graphed run 3 (replays only)",
+                                third)}
+        tokens[stride] = [o.token_ids for o in runs[0][0]]
+        kept[stride] = (e, runs[0])
+    ref = tokens[strides[0]]
+    for stride in strides[1:]:
+        same = sum(a == b for a, b in zip(ref, tokens[stride]))
+        print(f"{what}: host_stride={stride} vs {strides[0]}: "
+              f"{same}/{len(ref)} streams equal", flush=True)
+        check(same == len(ref), f"{what}: host_stride={stride}'s tokens "
+              f"differ from host_stride={strides[0]}'s")
+    return out, ref, kept
+
+
+def expected_cut(stream, stop, eos):
+    """A stream as the engine's per-token emission ends it: at the first
+    match of the ``stop`` pair ('stop'), else at ``eos`` ('eos'), else
+    whole ('length')."""
+    for j, t in enumerate(stream):
+        if stop and tuple(stream[max(0, j - 1):j + 1]) == stop:
+            return list(stream[:j + 1]), "stop"
+        if t == eos:
+            return list(stream[:j + 1]), "eos"
+    return list(stream), "length"
+
+
+def alternate_rounds(torch, kept, prompts, plist, what, rounds=4) -> dict:
+    """Replay-only runs of each stride's engine in turns (the strides in
+    order, then reversed, ``rounds`` times) on the same prompts, in one
+    call on one card: the first run's tokens every time, no capture;
+    each stride's median tok/s, ms a token and host ms a decode iteration
+    (``decode_ms`` over ``decode_iterations``), with the tok/s range."""
+    strides = list(kept)
+    runs = {s: [] for s in strides}
+    for r in range(rounds):
+        for stride in (strides if r % 2 == 0 else strides[::-1]):
+            e, first = kept[stride]
+            run = drive_strided(torch, e, prompts, plist)
+            check(run[5] == 0, f"{what}, host_stride={stride}: a timed "
+                  "round captured a bucket")
+            check([o.token_ids for o in run[0]]
+                  == [o.token_ids for o in first[0]],
+                  f"{what}, host_stride={stride}: a timed round's tokens "
+                  "differ from run 1's")
+            st = run[3]
+            runs[stride].append((run[4], st["decode_ms"]
+                                 / st["decode_iterations"]))
+    n_tok = sum(len(o.token_ids) for o in kept[strides[0]][1][0])
+    out = {}
+    for stride in strides:
+        walls = sorted(w for w, _ in runs[stride])
+        wall = float(np.median(walls))
+        it_ms = float(np.median([m for _, m in runs[stride]]))
+        out[str(stride)] = dict(
+            runs=len(walls), tok_s_median=n_tok / wall,
+            tok_s_min=n_tok / walls[-1], tok_s_max=n_tok / walls[0],
+            ms_per_token_median=wall * 1e3 / n_tok,
+            host_ms_per_iteration_median=it_ms)
+    print(f"{what}, {rounds} replay-only runs each in turns, medians: "
+          + "; ".join(f"host_stride={s}: {r['tok_s_median']:.2f} tok/s "
+                      f"({r['tok_s_min']:.2f}-{r['tok_s_max']:.2f}), "
+                      f"{r['ms_per_token_median']:.3f} ms a token, "
+                      f"{r['host_ms_per_iteration_median']:.3f} ms a "
+                      "decode iteration" for s, r in out.items()),
+          flush=True)
+    return out
+
+
+def check_stop_and_eos(torch, llm, prompts, greedy, max_new) -> dict:
+    """A stop sequence and an eos inside a stride-8 block: the first 8
+    prompts greedy (no admission mid-run), request 0 with the stop pair
+    at its tokens 10-11 and, as the engine's eos, the token request 1
+    first emits inside a block (not as a block's last token) that the
+    fewest other requests emit.  Each row must end where per-token emission
+    would (``expected_cut``: the greedy stream of the stride runs, cut at
+    the pair or the eos), the rest of its block trimmed, and every block
+    must be back in the pool."""
+    from repro_torch.serve.params import SamplingParams
+
+    g = [list(t) for t in greedy[:8]]
+    # the eos fires at a token's first emission: one first emitted by a
+    # dispatch, not as a block's last token
+    cands = [k for k in range(1, max_new)
+             if k % 8 and g[1][k] not in g[1][:k]]
+    check(bool(cands), "stride path: request 1 emits no token for the "
+          "first time inside a block, so no eos can stop it there")
+    k_eos = min(cands, key=lambda k: sum(g[1][k] in g[r]
+                                         for r in range(8) if r != 1))
+    eos, stop = g[1][k_eos], tuple(g[0][10:12])
+    e = stride_engine(llm, 8, eos_id=eos)
+    plist = [SamplingParams(max_new_tokens=max_new,
+                            stop=[stop] if r == 0 else ())
+             for r in range(8)]
+    outs = e.generate(prompts[:8], plist)
+    want = [expected_cut(t, stop if r == 0 else (), eos)
+            for r, t in enumerate(g)]
+    got = [(list(o.token_ids), o.finish_reason) for o in outs]
+    kv = e.kv_usage()
+    cut = sum(reason != "length" for _, reason in want)
+    print(f"stride path, stop and eos at host_stride=8: request 0 ended "
+          f"after {len(got[0][0])} of {max_new} tokens ({got[0][1]}, stop "
+          f"pair {stop}), request 1 after {len(got[1][0])} ({got[1][1]}, "
+          f"eos {eos} at its token {k_eos}); {cut} of 8 requests cut; "
+          f"blocks free {kv['blocks_free']} of {kv['num_blocks']}",
+          flush=True)
+    check(got == want, "stride path: the stop / eos run's tokens or finish "
+          "reasons are not the cut greedy streams")
+    check(got[0][1] == "stop" and got[1][1] == "eos",
+          f"stride path: finish reasons {[r for _, r in got]}")
+    check(kv["blocks_free"] == kv["num_blocks"],
+          "stride path: blocks left in use after the stop / eos run")
+    return dict(stop_after=len(got[0][0]), eos_after=len(got[1][0]),
+                rows_cut=cut, blocks_free=kv["blocks_free"],
+                num_blocks=kv["num_blocks"])
+
+
+def check_keyed_draw(torch, timer) -> dict:
+    """The keyed draw on the card against ``prng``'s run on the CPU, at
+    a Temperature row's size (8 keys x 151,936): keys, bits and uniforms
+    bit for bit; the largest Gumbel gap in ulps at its scale (spacing of
+    max(|g|, 1)) printed; the categorical indices compared; the draw's
+    time (``Temperature._draw`` over (8, 151936) f32 logits)."""
+    from repro_torch import prng
+    from repro_torch.serve.sampler import Temperature
+
+    v = 151936
+    keys = prng.split(prng.key(7), 8)
+    dev = keys.cuda()
+    split = prng.split(dev).cpu()
+    bits = prng.random_bits(dev, (v,)).cpu()
+    uni = prng.uniform(dev, (v,)).cpu()
+    check(torch.equal(split, prng.split(keys)),
+          "keyed draw: split keys on the card != the CPU's")
+    check(torch.equal(bits, prng.random_bits(keys, (v,))),
+          "keyed draw: random bits on the card != the CPU's")
+    check(torch.equal(uni, prng.uniform(keys, (v,))),
+          "keyed draw: uniforms on the card != the CPU's")
+    g, gc = prng.gumbel(dev, (v,)).cpu().double(), prng.gumbel(keys, (v,))
+    scale = torch.clamp_min(gc.abs(), 1.0)
+    ulp = (torch.nextafter(scale, torch.full_like(scale, math.inf))
+           - scale).double()
+    ulps = ((g - gc.double()).abs() / ulp).max().item()
+    gen = torch.Generator().manual_seed(3)
+    logits = 4 * torch.randn(8, v, generator=gen)
+    same = (prng.categorical(dev, logits.cuda()).cpu()
+            == prng.categorical(keys, logits)).sum().item()
+    draw = Temperature(0.7)
+    lg = logits.cuda()
+    row = timer.readings(lambda: draw._draw(lg, dev))
+    print(f"keyed draw on the card vs the CPU at (8, {v}): keys, bits and "
+          f"uniforms bitwise equal; Gumbel noise within {ulps:.3g} ulp at "
+          f"its scale; categorical {same}/8 indices equal; the Temperature "
+          f"draw {shown(row)}", flush=True)
+    return dict(gumbel_max_ulps=ulps, categorical_equal=same,
+                draw=row)
+
+
+def loop_bound(torch, eng, plan):
+    """The least time one dispatch's ``plan.steps`` iterations could take
+    on the card: every weight read once an iteration, each row's K/V
+    history once an iteration (its positions up to that iteration's
+    query, every layer), 2 flops per weight and row plus 4 * hd per
+    (query, key, head) -- ``step_bound`` summed over the iterations."""
+    cfg = eng.cfg
+    b, n = plan.arrays[0].shape[0], plan.steps
+    pos = plan.arrays[1].astype(np.int64) + 1
+    keys = n * int(pos.sum()) + b * n * (n - 1) // 2
+    w_bytes = sum(x.numel() * x.element_size() for x in _leaves(eng.params))
+    n_w = sum(x.numel() for x in _leaves(eng.params))
+    kv = cfg.n_layers * 2 * cfg.n_kv_heads * cfg.head_dim * 2 * keys
+    flops = n * 2 * n_w * b + 4 * cfg.head_dim * cfg.n_heads \
+        * cfg.n_layers * keys
+    return bound(n * w_bytes + kv, flops, BF16_FLOPS_PER_S)
+
+
+def check_loop_dispatch(torch, llm, prompts, timer) -> dict:
+    """A graphed dispatch against the eager loop on the same operands, at
+    stride 8: 8 mixed requests (phase 4i's samplers) admitted with one
+    eager dispatch, the engine's next dispatch planned
+    (``_plan_multi``), then ``api.serve_decode_multi`` eagerly and the
+    bucket's graph replayed ``plan.steps`` times from the same carry:
+    out, emitted and keys bitwise equal.  Both timed (call, device and
+    host ms) beside the dispatch's bound."""
+    import functools
+
+    from repro_torch.models import api
+    from repro_torch.serve import step_graph
+
+    eng = llm.engine
+    reqs = [llm.submit(p, sp) for p, sp in zip(prompts[:8],
+                                                stride_params(32))]
+    with step_graph.eager_steps():
+        eng.step()                      # admit all 8, one eager dispatch
+    active = [i for i, sl in enumerate(eng.slots) if sl is not None]
+    check(len(active) == 8, f"loop dispatch: {len(active)} active rows")
+    plan = eng._plan_multi(active)
+
+    def eager():
+        tok, pos, keys, _, _, _, _, caps, btab, *rows = \
+            step_graph.to_device(plan.arrays, eng.device)
+        return api.serve_decode_multi(
+            eng.params, eng.cfg, tok, eng.store.cache(), pos, keys, caps,
+            rows, steps=eng.host_stride, eos_id=eng._eos(),
+            samplers=plan.order, block_tables=btab, layers=eng._layers)
+
+    def replay():
+        eng.graphs.replay(plan.key, plan.arrays, plan.steps)
+        return eng.graphs.graphs[plan.key].static
+
+    want = [x.cpu().clone() for x in eager()[:3]]
+    if plan.key not in eng.graphs.graphs:
+        eng.graphs.capture(plan.key, functools.partial(
+            eng._loop_body, tuple(plan.order)), plan.arrays, eng.device)
+    ops = replay()
+    got = [ops[i].cpu().clone() for i in (5, 3, 2)]
+    equal = all(torch.equal(a, b) for a, b in zip(got, want))
+    err = max((a.double() - b.double()).abs().max().item()
+              for a, b in zip(got, want))
+    print(f"loop dispatch: bucket {plan.key[1:4]} samplers "
+          f"{[type(s).__name__ for s in plan.order]}, {plan.steps} "
+          f"iterations: the replayed graph's out, emitted and keys vs the "
+          f"eager loop's: {'bitwise equal' if equal else 'DIFFER'} (max "
+          f"abs {err:.3g})", flush=True)
+    check(equal, "loop dispatch: the graphed dispatch differs from the "
+          "eager loop")
+    row = dict(bitwise_equal=equal, max_abs_err=err, steps=plan.steps,
+               **timer.readings(replay), **timer.readings(eager, "plain_"))
+    row["bound_ms"], row["bound_by"] = loop_bound(torch, eng, plan)
+    print(f"loop dispatch ({plan.steps} iterations): replayed {shown(row)}; "
+          f"eager loop {shown(row, 'plain_')}; bound "
+          f"{row['bound_ms']:.4f} ms ({row['bound_by']})", flush=True)
+    for r in reqs:
+        eng.cancel(r)
+    return row
+
+
+def profile_dispatch(torch, llm, prompts, steps=8) -> dict:
+    """Where a stride-8 dispatch's time goes: ``torch.profiler`` over one
+    dispatch of 8 rows in pure decode, every bucket already captured by
+    the stride runs (the same prompts and positions), so it is 8 replays
+    back to back: kernels an iteration, the device-busy share, the traced
+    paged-attention kernels (2 x 28 an iteration)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.serve.params import SamplingParams
+
+    eng = llm.engine
+    for p in prompts[:8]:
+        llm.submit(p, SamplingParams(max_new_tokens=32))
+    eng.step()                          # admit all 8, first dispatch
+    eng.step()
+    torch.cuda.synchronize()
+    n0 = (eng.graphs.captures, eng.graphs.replays)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        eng.step()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    replays = eng.graphs.replays - n0[1]
+    check(eng.graphs.captures == n0[0] and replays == steps,
+          f"dispatch profile: {replays} replays and "
+          f"{eng.graphs.captures - n0[0]} captures in one dispatch")
+    while eng.has_work:
+        eng.step()
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not kernels:
+        print(f"dispatch profile (8 rows, {steps} iterations, profiler on): "
+              f"wall {wall_ms:.3f} ms; the profiler recorded no device "
+              "time (busy share not measured)", flush=True)
+        return dict(wall_ms=wall_ms, busy_ms=None, kernels_per_iteration=None)
+    busy_ms = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
+    paged = [e for e in kernels if "paged_" in e.name]
+    check(len(paged) == 2 * llm.cfg.n_layers * steps,
+          f"dispatch profile: {len(paged)} traced paged-attention kernels "
+          f"in {steps} iterations")
+    row = dict(wall_ms=wall_ms, busy_ms=busy_ms, busy_share=busy_ms / wall_ms,
+               kernels_per_iteration=len(kernels) / steps,
+               wall_ms_per_iteration=wall_ms / steps)
+    print(f"dispatch profile (8 rows, {steps} iterations, profiler on): wall "
+          f"{wall_ms:.3f} ms ({wall_ms / steps:.3f} an iteration), device "
+          f"busy {busy_ms:.3f} ms ({100 * row['busy_share']:.1f}%), "
+          f"{row['kernels_per_iteration']:.0f} kernels an iteration",
+          flush=True)
+    return row
+
+
+def run_stride_path(torch, llm, prompts, max_new, step_profile):
+    """Phase 4i: the device-resident loop at full width, on engines that
+    share the main path's weights (8 slots, max_len 1024, no eos).
+    Phase 4's 12 prompts greedy at ``host_stride`` None, 1, 4 and 8, then
+    greedy / top-k 4 at 0.8 / Gumbel-max at 0.7, seeded, at 1, 4 and 8,
+    then the mixed samplers with chunk 64 (the prompts cut or repeated to
+    129-192 tokens, three chunks each, so every row prefills and ends
+    with its batch) at 1 and 8: each engine graphed three times, tokens
+    equal across runs and strides, launches at their numbers, then four
+    replay-only runs a stride in turns (``alternate_rounds``); then a
+    stop and an eos inside a block, the keyed draw against the CPU, a
+    graphed dispatch against the eager loop, and a profile of one
+    dispatch beside phase 4's graphed step.  Returns (summary, the
+    loop's row for the kernels line, the stride-8 greedy run 1's
+    launches)."""
+    from repro_torch.serve.params import SamplingParams
+
+    out = {}
+    timer = Timer(torch)
+    mixed = stride_params(max_new)
+    greedy_sp = SamplingParams(max_new_tokens=max_new)
+    out["greedy"], greedy, kept = run_strides(
+        torch, llm, prompts, greedy_sp, STRIDES, "stride path greedy")
+    out["greedy_rounds"] = alternate_rounds(torch, kept, prompts, greedy_sp,
+                                            "stride path greedy")
+    e8, run8 = kept[8]
+    del kept
+    out["mixed"], _, kept = run_strides(
+        torch, llm, prompts, mixed, (1, 4, 8), "stride path mixed")
+    out["mixed_rounds"] = alternate_rounds(torch, kept, prompts, mixed,
+                                           "stride path mixed")
+    short = [np.resize(p, 129 + len(p) % 64) for p in prompts]
+    out["chunk64"], _, kept = run_strides(
+        torch, llm, short, mixed, (1, 8), "stride path chunk 64",
+        chunk_size=64, prefix_cache=False)
+    out["chunk64_rounds"] = alternate_rounds(torch, kept, short, mixed,
+                                             "stride path chunk 64")
+    del kept
+    out["stop_eos"] = check_stop_and_eos(torch, llm, prompts, greedy,
+                                         max_new)
+    out["keyed_draw"] = check_keyed_draw(torch, timer)
+    out["dispatch"] = check_loop_dispatch(torch, e8, prompts, timer)
+    out["profile"] = profile_dispatch(torch, e8, prompts)
+    p4 = step_profile
+    if out["profile"]["busy_ms"] is not None and p4.get("busy_ms"):
+        print(f"stride 8 dispatch against phase 4's graphed step (profiler "
+              f"on): {out['profile']['kernels_per_iteration']:.0f} against "
+              f"{p4['kernels_per_step']:.0f} kernels an iteration, busy "
+              f"{100 * out['profile']['busy_share']:.1f}% against "
+              f"{100 * p4['busy_share']:.1f}%, wall "
+              f"{out['profile']['wall_ms_per_iteration']:.3f} against "
+              f"{p4['wall_ms']:.3f} ms an iteration", flush=True)
+    del timer, e8
+    return out, dict(launches=run8[6], **out["dispatch"]), run8[2]
+
+
 def run_unit_path(torch, llm, prompts, outs):
     """Phase 4d: the full softmax unit on the main path's logits.  The
     final hidden states of the 12 prompts (one-shot prefills, not
@@ -3376,6 +3855,7 @@ def main() -> int:
         print(f"chip_smoke: {SRC}/repro_torch not found; run from a "
               "checkout of the repository", file=sys.stderr)
         return 2
+    t_start = time.perf_counter()
     sys.path.insert(0, SRC)
     from repro_torch.kernels import _build
     from repro_torch.serve import step_graph
@@ -3458,6 +3938,8 @@ def main() -> int:
             check(summary["profile"].get(k)
                   == summary["profile_eager"].get(k),
                   f"decode profile: {k} graphed != eager")
+        summary["stride"], loop, stride_launches = run_stride_path(
+            torch, llm, prompts, max_new, summary["profile"])
         step = check_step_graph(torch, llm, prompts)
         step["cases"]["chunk B8 T64"] = check_chunk_bucket(torch, cllm,
                                                            prompts)
@@ -3477,6 +3959,7 @@ def main() -> int:
              source="src/repro_torch/kernels/csrc/paged_attention.cu",
              replaces="src/repro/kernels/paged_attention.py:172",
              launches=launches["paged_attention"],
+             host_stride8_launches=stride_launches["paged_attention"],
              max_abs_err=max(r["max_abs_err"] for r in pa_rows.values()),
              **{k: pa_rows[1][k] for k in TIMES + ("chunks",)},
              single_row={k: pa_rows["B1"][k] for k in TIMES + ("chunks",)},
@@ -3516,6 +3999,7 @@ def main() -> int:
              source="src/repro_torch/kernels/csrc/fused_argmax_head.cu",
              replaces="src/repro/kernels/fused_argmax_head.py:75",
              launches=launches["fused_argmax_head"],
+             host_stride8_launches=stride_launches["fused_argmax_head"],
              max_abs_err=max(r["max_abs_err"] for r in [
                  *head_rows.values(), wide_rows["argmax_B1"],
                  wide_rows["argmax_B8"]]),
@@ -3571,6 +4055,16 @@ def main() -> int:
              **NO_LIBRARY, cases=step["cases"],
              captures_first_run=summary["graph_first_run"]["captures"],
              temperature_head=step["temperature_head"]),
+        dict(name="decode_loop", route="cuda",
+             source="src/repro_torch/serve/step_graph.py",
+             replaces="src/repro/serve/engine.py:238",
+             launches=loop["launches"], max_abs_err=loop["max_abs_err"],
+             **{k: loop[k] for k in (
+                 "ms", "device_ms", "host_ms", "plain_ms",
+                 "plain_device_ms", "plain_host_ms", "bound_ms",
+                 "bound_by", "steps")},
+             **NO_LIBRARY,
+             keyed_draw=summary["stride"]["keyed_draw"]),
     ]
     for name, replaces in (
             ("fused_xent", "src/repro/kernels/fused_xent.py:59"),
@@ -3606,6 +4100,8 @@ def main() -> int:
                  if v != "exact"}
         for w, r in probe_runs.items()}
     print("main path summary: " + json.dumps(summary), flush=True)
+    print(f"chip_smoke wall: {time.perf_counter() - t_start:.1f} s (build "
+          "included)", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

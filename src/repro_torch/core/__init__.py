@@ -7,6 +7,7 @@ from repro_torch.core.reduced_softmax import (
     fused_reduced_topk,
     reduced_softmax_predict,
     reduced_topk,
+    topk_sample,
     unit_op_counts,
 )
 from repro_torch.core.softmax_variants import (

@@ -13,15 +13,17 @@ classification is identical.
   3. ``reduced_topk`` /           the k-winner comparator, plain and fused
      ``fused_reduced_topk``       with the head matmul.
 
-Ties everywhere: the lowest index wins (as ``torch.argmax``).  The
-sampling draw over the survivors (``topk_sample`` in the JAX package)
-waits for the keyed-sampling slice; the serving engine samples on the
-host (``serve.sampler.TopK.pick``).
+  4. ``topk_sample``              the keyed draw over the k survivors
+                                  (``prng.categorical``: a softmax over k
+                                  values, not the vocabulary).
+
+Ties everywhere: the lowest index wins (as ``torch.argmax``).
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch import prng
 from repro_torch.kernels import ops, ref
 
 
@@ -42,6 +44,19 @@ def reduced_topk(x: torch.Tensor, k: int):
     Still zero exp / sum / divide; for k = 1 it is
     ``reduced_softmax_predict`` plus the max value."""
     return ref.topk_select(x, k)
+
+
+def topk_sample(vals: torch.Tensor, idxs: torch.Tensor, key: torch.Tensor,
+                temperature: float = 1.0) -> torch.Tensor:
+    """Sample a vocabulary id from the k comparator survivors: vals /
+    idxs (B, k) from ``reduced_topk`` or the fused head, ONE key (2,)
+    over the (B, k) logits, as ``repro.core.reduced_softmax.topk_sample``
+    draws.  The softmax this stands for runs over k values, not V;
+    temperature <= 0 is greedy (survivor 0).  Returns (B,) int32."""
+    if temperature <= 0.0:
+        return idxs[:, 0].to(torch.int32)
+    choice = prng.categorical(key, vals.float() / temperature)      # (B,)
+    return torch.gather(idxs, 1, choice[:, None])[:, 0].to(torch.int32)
 
 
 def fused_reduced_topk(h: torch.Tensor, w: torch.Tensor, k: int):

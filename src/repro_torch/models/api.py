@@ -1,16 +1,20 @@
-"""Serving steps over the model: one-shot paged prefill and the decode
-step, each ending in a sampler head.
+"""Serving steps over the model: one-shot paged prefill, the decode
+step and the device-resident multi-step decode, each ending in a sampler
+head.
 
 Counterpart of the serving half of ``repro.models.api``.  ``sampler`` is
 a ``repro_torch.serve.sampler.Sampler`` (its ``head`` turns the final
-hidden state into what the host needs).
+hidden state into what the host needs, its ``sample_device`` into the
+next token).
 """
 from __future__ import annotations
 
-from typing import Optional
+import dataclasses
+from typing import Optional, Sequence
 
 import torch
 
+from repro_torch import prng
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import lm
 
@@ -53,3 +57,115 @@ def serve_prefill_paged(params: dict, cfg: ModelConfig,
         pool[:, blocks] = view.reshape(view.shape[0], nb, bs,
                                        *view.shape[2:]).to(pool.dtype)
     return sampler.head(params, cfg, h)
+
+
+@dataclasses.dataclass
+class MultiCarry:
+    """The carry of the multi-step decode, all on one device and updated
+    in place by ``decode_multi_step``:
+
+    tok, pos   (B,) int64 / int32: each row's trunk input this step
+    keys       (B, 2) int64: each row's PRNG key (``repro_torch.prng``)
+    emitted    (B,) int32: tokens each row has emitted in this dispatch
+    halted     (B,) bool: rows that emitted ``eos_id``
+    out        (B, steps) int64: the emitted tokens, -1 where a row
+               emitted nothing
+    step       (1,) int64: the next column of ``out``
+    caps       (B,) int32: each row's emit cap (0 for a padding row)
+    """
+    tok: torch.Tensor
+    pos: torch.Tensor
+    keys: torch.Tensor
+    emitted: torch.Tensor
+    halted: torch.Tensor
+    out: torch.Tensor
+    step: torch.Tensor
+    caps: torch.Tensor
+
+    @classmethod
+    def start(cls, token, pos, keys, emit_caps, steps: int) -> "MultiCarry":
+        """A dispatch's first carry: the rows' (last token, next write
+        position), keys and caps, nothing emitted."""
+        b, dev = token.shape[0], token.device
+        return cls(token.long().clone(), pos.to(torch.int32).clone(),
+                   keys.long().clone(),
+                   torch.zeros(b, dtype=torch.int32, device=dev),
+                   torch.zeros(b, dtype=torch.bool, device=dev),
+                   torch.full((b, steps), -1, dtype=torch.int64, device=dev),
+                   torch.zeros(1, dtype=torch.int64, device=dev),
+                   emit_caps.to(torch.int32))
+
+    def active(self) -> torch.Tensor:
+        return ~self.halted & (self.emitted < self.caps)
+
+
+def decode_multi_step(params: dict, cfg: ModelConfig, c: MultiCarry,
+                      cache: list, row_sets: Sequence[torch.Tensor], *,
+                      eos_id: int, samplers: Sequence,
+                      block_tables: torch.Tensor,
+                      layers: Optional[list] = None) -> None:
+    """One iteration of the multi-step decode, in place on ``c`` and the
+    pools: the trunk at T 1 over every row, one ``sample_device`` per
+    sampler group (``row_sets[g]`` its rows), then the carry.
+
+    A row is ACTIVE while it has not halted and has emitted fewer than
+    its cap.  An active row emits its sampled token into column ``step``
+    of ``out`` and, when a group's sampler draws (``Sampler.draws``),
+    consumes one split of its key (row 1 draws, row 0 is its next key;
+    a sampler that never draws never reads its key, so a dispatch of
+    such groups splits none); one that samples ``eos_id`` halts after
+    emitting it.  A row that is active next step feeds its token back at
+    the next position; any other row repeats its last (token, position),
+    so it rewrites the K/V cell it wrote last with the same values -- a
+    no-op that never writes past the block table's cover, which reaches
+    each row's last emitting write only.  It reads nothing on the host,
+    so a CUDA graph can capture it (``serve.step_graph``)."""
+    active = c.active()
+    h, _ = lm.decode_step(params, cfg, c.tok[:, None], cache, c.pos,
+                          block_tables=block_tables, layers=layers)
+    draws = any(s.draws for s in samplers)
+    split = prng.split(c.keys) if draws else None    # (B, 2, 2)
+    sampled = c.tok.clone()
+    for s, rows in zip(samplers, row_sets):
+        sampled[rows] = s.sample_device(
+            params, cfg, h[rows], split[rows, 1] if draws else None)
+    c.out.index_copy_(1, c.step,
+                      torch.where(active, sampled, -1)[:, None])
+    c.halted |= active & (sampled == eos_id)
+    c.emitted += active.to(torch.int32)
+    if draws:
+        c.keys.copy_(torch.where(active[:, None], split[:, 0], c.keys))
+    nxt = c.active()
+    c.tok.copy_(torch.where(nxt, sampled, c.tok))
+    c.pos.copy_(torch.where(nxt, c.pos + 1, c.pos))
+    c.step += 1
+
+
+def serve_decode_multi(params: dict, cfg: ModelConfig, token: torch.Tensor,
+                       cache: list, pos: torch.Tensor, keys: torch.Tensor,
+                       emit_caps: torch.Tensor,
+                       row_sets: Sequence[torch.Tensor], *, steps: int,
+                       eos_id: int, samplers: Sequence,
+                       block_tables: torch.Tensor,
+                       layers: Optional[list] = None):
+    """Device-resident multi-step decode, eagerly: up to ``steps``
+    iterations of ``decode_multi_step`` -- trunk, K/V writes, keyed
+    sampling and the feedback of the sampled token -- leaving early once
+    no row is active, as the JAX package's ``lax.while_loop`` does.  The
+    ``host_stride`` engine's dispatch on the CPU and inside
+    ``step_graph.eager_steps()``; on the card the engine replays one
+    captured iteration instead (``serve.step_graph``).
+
+    token (B,) each row's last token, pos (B,) its next write position,
+    keys (B, 2), emit_caps (B,) each row's cap (the engine folds
+    ``max_new_tokens``, ``max_len`` and the block cover into it; 0 for a
+    padding row), ``samplers`` the full samplers of the groups and
+    ``row_sets`` their rows.  Returns ``(out (B, steps) int64 with -1
+    padding, emitted (B,) int32, new keys (B, 2), the iterations run)``;
+    the pools in ``cache`` are written in place."""
+    c = MultiCarry.start(token, pos, keys, emit_caps, steps)
+    while int(c.step) < steps and bool(c.active().any()):
+        decode_multi_step(params, cfg, c, cache, row_sets, eos_id=eos_id,
+                          samplers=samplers, block_tables=block_tables,
+                          layers=layers)
+    return c.out, c.emitted, c.keys, int(c.step)

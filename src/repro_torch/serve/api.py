@@ -61,7 +61,8 @@ class LLM:
 
     Constructor kwargs mirror the engine's (n_slots, max_len, eos_id,
     head_mode, block_size, num_blocks, prefill_per_step, chunk_size,
-    token_budget, prefix_cache, seed, drafter, ...); ``head_mode``
+    token_budget, host_stride, prefix_cache, seed, drafter, ...);
+    ``head_mode``
     is the default head — each request's ``SamplingParams.head_mode`` can
     override it, and ``drafter`` proposes the drafts of speculative
     requests (``SamplingParams(spec_k=K)``; prompt lookup by default).
@@ -308,3 +309,16 @@ class LLM:
             return {"ok": False, "error": f"engine pump died: {err}"}
         return {"ok": True, "pumping": self._pumping,
                 "has_work": self.engine.has_work}
+
+    def stats_payload(self) -> dict:
+        """The GET /v1/stats shape: the engine's snapshot and the pool's
+        usage, plus a per-replica breakdown.  A single LLM is a
+        one-replica fleet, so the aggregate equals its one replica's
+        stats (the JAX package's ``serve.router`` aggregates several)."""
+        with self._lock:
+            snap = self.engine.snapshot()
+            usage = self.engine.store.usage()
+        return {"engine": snap, "kv": usage,
+                "replicas": [{"replica": 0, "engine": snap, "kv": usage,
+                              "healthy": self._pump_error is None,
+                              "draining": False}]}

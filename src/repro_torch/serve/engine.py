@@ -60,13 +60,27 @@ Counterpart of ``repro.serve.engine`` on its default path:
     the free list (``store.rewind``).  Rows without drafts ride along,
     their padding queries repeating their last (token, position).
 
+  - decode is DEVICE-RESIDENT on request (``host_stride=K``): one
+    dispatch runs up to K fused T-1 iterations on the device, each
+    sampling with per-request keys (``Sampler.sample_device``,
+    ``repro_torch.prng``) and feeding the sampled token to the next
+    (``models.api.serve_decode_multi``); the host drains the (B, K)
+    token block through the per-token emission path, trimming at a stop
+    sequence or a cancel and rewinding the surplus blocks.  On the card
+    the iteration is one CUDA graph replayed K times with no host sync
+    between replays (``step_graph.StepGraphs.run_loop``).  Iterations
+    that carry a mid-prefill chunk row run the single fused step, keyed.
+    Every keyed draw of such an engine (the loop's, a prefill's first
+    token, a chunk iteration's) runs on the engine's device, so the
+    tokens do not depend on the stride;
+
   - attention's score function is engine-wide: ``attn_approx`` (the
     ``core.attn_approx`` catalog) and ``attn_window`` replace the cfg's
     and reach every decode and chunk row's paged attention; the one-shot
     prefill attends exactly over the whole prompt, as in the JAX package.
 
-The JAX engine's other modes are refused, not ignored: ``host_stride``,
-``tp``/``mesh``, ``scheduler='cohort'`` and ``kv_layout='dense'`` raise
+The JAX engine's other modes are refused, not ignored: ``tp``/``mesh``,
+``scheduler='cohort'`` and ``kv_layout='dense'`` raise
 ``NotImplementedError`` (or ``ValueError`` for values that are wrong in
 both packages).
 """
@@ -82,6 +96,7 @@ from typing import Callable, Dict, List, Optional
 import numpy as np
 import torch
 
+from repro_torch import prng
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import attn_approx as approx
 from repro_torch.kernels import ops
@@ -123,6 +138,10 @@ class Request:
     # at submit: the nth sampled token consumes the nth draw whatever the
     # scheduling (deferral, preemption).  The greedy heads never draw.
     rng: Optional[np.random.Generator] = None
+    # the keyed counterpart on a host_stride engine: a (2,) int64 key
+    # (``repro_torch.prng``), key(params.seed) or fold_in(key(engine
+    # seed), rid), split once per token its sampler draws
+    prng_key: Optional[torch.Tensor] = None
     sampler: Optional[Sampler] = None
     # the prompt as submitted (preemption folds generated tokens into
     # ``prompt`` for the re-prefill; this keeps the user's original).
@@ -161,6 +180,26 @@ class StepPlan:
     key: tuple
 
 
+@dataclasses.dataclass
+class LoopPlan:
+    """The host half of one device-resident dispatch
+    (``ServeEngine._plan_multi``): ``padded`` the slot of each padded row
+    (the first ``n_real`` real), ``order`` the full samplers of the
+    groups, ``arrays`` the loop's operands on the host -- the carry
+    (``api.MultiCarry``'s fields in order: last tokens (B,) int64, next
+    write positions (B,) int32, keys (B, 2) int64, emitted, halted, the
+    (B, K) out block, the step index, the emit caps), the block tables
+    (B, nb) int32 and each group's (B,) int64 rows; ``steps`` the
+    iterations a graph replays (the largest cap); ``key`` the
+    ``step_graph.loop_key``."""
+    n_real: int
+    padded: list
+    order: list
+    arrays: tuple
+    steps: int
+    key: tuple
+
+
 class ServeEngine:
     def __init__(self, params: dict, cfg: ModelConfig, *, n_slots: int = 4,
                  max_len: int = 256, eos_id: int = 1,
@@ -182,7 +221,7 @@ class ServeEngine:
             raise ValueError(f"kv_layout={kv_layout!r}: expected 'paged' "
                              "or 'dense'")
         refused = {
-            "host_stride": host_stride, "mesh": mesh,
+            "mesh": mesh,
             "tp": None if tp in (None, 1) else tp,
             "scheduler": None if scheduler == "fused" else scheduler,
             "kv_layout": None if kv_layout == "paged" else kv_layout,
@@ -203,6 +242,9 @@ class ServeEngine:
         if token_budget is not None and token_budget < 1:
             raise ValueError(f"token_budget={token_budget}: must be >= 1 "
                              "(or None for unlimited)")
+        if host_stride is not None and host_stride < 1:
+            raise ValueError(f"host_stride={host_stride}: must be >= 1 "
+                             "(or None for per-token host dispatch)")
         # the kwargs override the cfg's modes (None keeps the cfg's);
         # 'exact' + None replace to an equal cfg
         if attn_approx is not None or attn_window is not None:
@@ -225,6 +267,7 @@ class ServeEngine:
         self.prefill_per_step = prefill_per_step
         self.chunk_size = chunk_size
         self.token_budget = token_budget
+        self.host_stride = host_stride
         # prefix sharing needs chunked admission: a trie hit starts the
         # prefill at the suffix boundary mid-prompt, which only chunk
         # rows can do (a one-shot prefill writes from position 0)
@@ -249,16 +292,20 @@ class ServeEngine:
         self._layers = lm.layer_params(self.params, cfg)
         self.graphs = step_graph.StepGraphs()
         # decode_steps counts decode calls, iterations engine loop turns
-        # (decode_steps == iterations whenever a slot is active);
+        # (decode_steps == iterations whenever a slot is active),
+        # decode_iterations the trunk passes the decode calls ran (one a
+        # step, up to host_stride a device-resident dispatch);
         # fused_rows counts real (non-padding) rows over those calls;
         # prefills counts completed prompt prefills (one-shot calls or
         # final chunks), prefill_chunks the chunk rows served,
         # prefill_tokens the prompt tokens actually prefilled, and
         # prefix_hits / prefix_hit_tokens the admissions that adopted a
         # cached run and the tokens they skipped; host_syncs every
-        # dispatch with a device->host read (prefills + decode steps);
-        # emitted_tokens every token through _emit_token.  prefill_ms and
-        # decode_ms sum the host wall clock of the prefill calls and the
+        # dispatch with a device->host read (prefills + decode steps, a
+        # host_stride loop of K iterations counting one of each);
+        # emitted_tokens every token through _emit_token, so
+        # tokens_per_dispatch (snapshot) is what a stride amortised.
+        # prefill_ms and decode_ms sum the host wall clock of the prefill calls and the
         # decode steps, each up to its head output on the host (which
         # waits for the device).  drafted/accepted count speculative draft
         # tokens proposed / accepted by the comparator, acceptance_rate
@@ -266,7 +313,8 @@ class ServeEngine:
         # ('Greedy', 'TopK', ...; 'verify' for a step's speculative
         # group): one head call is one kernel launch on the card.
         self.stats = {"prefills": 0, "prefill_chunks": 0, "decode_steps": 0,
-                      "iterations": 0, "fused_rows": 0, "completed": 0,
+                      "decode_iterations": 0, "iterations": 0,
+                      "fused_rows": 0, "completed": 0,
                       "deferred": 0, "preemptions": 0, "cancelled": 0,
                       "host_syncs": 0, "emitted_tokens": 0,
                       "prefix_hits": 0, "prefix_hit_tokens": 0,
@@ -331,6 +379,14 @@ class ServeEngine:
                 req.params, cfg=self.cfg, default_head_mode=self.head_mode)
         else:
             req.sampler.validate(self.cfg)
+        if req.params.attn_approx is not None \
+                and req.params.attn_approx != self.cfg.attn_approx:
+            raise ValueError(
+                f"params.attn_approx={req.params.attn_approx!r} but this "
+                f"engine runs attn_approx={self.cfg.attn_approx!r}; "
+                "attention mode is engine-wide")
+        if self.host_stride is not None:
+            self._gate_keyed(req)
         if req.params.spec_k > 0 and not (
                 isinstance(req.sampler, sampler_mod.Greedy)
                 and req.sampler.head_mode in ("reduced", "fused")):
@@ -338,12 +394,6 @@ class ServeEngine:
                 f"spec_k={req.params.spec_k} requires the reduced "
                 f"comparator head (engine head_mode={self.head_mode!r} "
                 f"resolved to {req.sampler})")
-        if req.params.attn_approx is not None \
-                and req.params.attn_approx != self.cfg.attn_approx:
-            raise ValueError(
-                f"params.attn_approx={req.params.attn_approx!r} but this "
-                f"engine runs attn_approx={self.cfg.attn_approx!r}; "
-                "attention mode is engine-wide")
         if len(req.prompt) < 1:
             raise ValueError("empty prompt")
         if len(req.prompt) > self.max_len - 1:
@@ -364,6 +414,33 @@ class ServeEngine:
             req.orig_prompt = np.asarray(req.prompt, np.int32).copy()
         req.t_submit = time.perf_counter()
         self.queue.append(req)
+
+    def _gate_keyed(self, req: Request) -> None:
+        """A host_stride engine's submit gates, then the request's key:
+        what the device loop cannot run is refused (draft windows, the
+        candidate bus, samplers with no device form)."""
+        if req.params.spec_k > 0:
+            raise ValueError(
+                f"spec_k={req.params.spec_k} and host_stride="
+                f"{self.host_stride} are mutually exclusive: both amortize "
+                "the per-token host round-trip and the device loop has no "
+                "draft-verify group")
+        if req.params.n_candidates > 0:
+            raise ValueError(
+                f"n_candidates={req.params.n_candidates} is not available "
+                "on a host_stride engine: the device loop consumes the "
+                "k-winner bus on the device and ships only token ids")
+        if type(req.sampler).sample_device is Sampler.sample_device:
+            raise ValueError(
+                f"{req.sampler} has no device sampling form "
+                "(Sampler.sample_device) and cannot ride a host_stride "
+                "engine")
+        if req.prng_key is None:
+            # the keyed analogue of req.rng: params.seed pins the stream,
+            # (engine seed, rid) keeps requests distinct
+            req.prng_key = (prng.key(req.params.seed)
+                            if req.params.seed is not None
+                            else prng.fold_in(prng.key(self.seed), req.rid))
 
     def cancel(self, req: Request) -> bool:
         """Abort an unfinished request: free its slot's blocks (or drop it
@@ -429,12 +506,12 @@ class ServeEngine:
             self.store.cow_for_write(i, 0, S - 1)
             tokens = torch.as_tensor(np.asarray(req.prompt, np.int64),
                                      device=self.device)[None]
-            out = api.serve_prefill_paged(
+            dev_out = api.serve_prefill_paged(
                 self.params, self.cfg, tokens, self.store.prefill_len(S),
                 req.sampler.device_form(), pools=self.store.pools,
                 blocks=torch.as_tensor(blocks, dtype=torch.int64,
                                        device=self.device))
-            out = _to_host(out)
+            out = _to_host(dev_out)
             self._count_head(type(req.sampler).__name__)
             self.stats["prefill_ms"] += (time.perf_counter() - t0) * 1e3
             self.stats["prefills"] += 1
@@ -443,7 +520,7 @@ class ServeEngine:
             self.slots[i] = req
             self.slot_pos[i] = S
             self.admit_order.append(i)
-            self._emit(i, req, out, 0)
+            self._emit(i, req, out, 0, dev_out)
             if budget is not None:
                 budget -= 1
 
@@ -548,12 +625,20 @@ class ServeEngine:
         active = [i for i in active if self.slots[i] is not None]
         if not active:
             return True
-        self._decode_rows(active)
+        if (self.host_stride is not None
+                and not any(self._prefilling(i) for i in active)):
+            # the device-resident loop: one host sync for up to
+            # host_stride tokens a row.  An iteration with a mid-prefill
+            # slot runs the single step instead (the loop has no chunk
+            # rows), still keyed, so generations stay stride-invariant.
+            self._decode_multi(active)
+        else:
+            self._decode_rows(active)
         return True
 
-    def _count_head(self, kind: str) -> None:
+    def _count_head(self, kind: str, times: int = 1) -> None:
         calls = self.stats["head_calls"]
-        calls[kind] = calls.get(kind, 0) + 1
+        calls[kind] = calls.get(kind, 0) + times
 
     def _propose(self, i: int) -> list:
         """Draft tokens for slot ``i`` this step (possibly none): ask the
@@ -646,10 +731,13 @@ class ServeEngine:
         if plan.spec:
             self._count_head("verify")
         self.stats["decode_steps"] += 1
+        self.stats["decode_iterations"] += 1
         self.stats["host_syncs"] += 1
         self.stats["fused_rows"] += plan.n_real
-        # one device->host copy per head group, not per slot
-        host = {s: _to_host(o) for s, o in zip(plan.order, outs)}
+        # one device->host copy per head group, not per slot; a keyed draw
+        # reads the device copy (``_emit``)
+        dev_outs = dict(zip(plan.order, outs))
+        host = {s: _to_host(o) for s, o in dev_outs.items()}
         spec_host = _to_host(outs[-1]) if plan.spec else None
         self.stats["decode_ms"] += (time.perf_counter() - t0) * 1e3
         for r in range(plan.n_real):
@@ -665,7 +753,7 @@ class ServeEngine:
                 self.stats["prefill_tokens"] += w
                 if start + w == len(req.prompt):
                     self.stats["prefills"] += 1
-                    self._emit(i, req, host[dev], off)
+                    self._emit(i, req, host[dev], off, dev_outs[dev])
                 continue
             if dev is None:
                 # speculative row: emit the accepted run plus the
@@ -687,7 +775,7 @@ class ServeEngine:
                     self.store.rewind(i, int(self.slot_pos[i]))
             else:
                 self.slot_pos[i] += 1
-                self._emit(i, req, host[dev], off)
+                self._emit(i, req, host[dev], off, dev_outs[dev])
         if self.stats["drafted"]:
             self.stats["acceptance_rate"] = (
                 self.stats["accepted"] / self.stats["drafted"])
@@ -805,6 +893,137 @@ class ServeEngine:
                 h[srows], lm.lm_head_weight(self.params, self.cfg), cand))
         return h, tuple(outs)
 
+    def _decode_multi(self, rows: List[int]):
+        """One device-resident dispatch over the given slot rows: up to
+        ``host_stride`` fused T-1 iterations with keyed sampling on the
+        device (a graph replayed back to back on the card, the eager loop
+        ``api.serve_decode_multi`` elsewhere), then a host drain of the
+        (B, K) token block through the per-token emission path.
+
+        Every stop the device can evaluate is folded into a per-row EMIT
+        CAP before the dispatch: the remaining ``max_new_tokens``, the
+        ``max_len - 1`` cache ceiling and the block cover, grown here up
+        to the cap's last write (the cap shrinks rather than preempt a
+        neighbour, as a draft or chunk window does).  ``eos_id`` halts a
+        row inside the loop, after emitting it.  Stop SEQUENCES are
+        matched on the host during the drain: a match (or a consumer's
+        cancel) finishes the request mid-block and the rest of its block
+        is trimmed -- never emitted, its K/V behind the position masks,
+        its surplus blocks rewound.  Groups key on the FULL sampler (the
+        temperature acts on the device); the keys ride the loop's carry
+        and the advanced keys are adopted, so draw n stays a function of
+        (request key, n) whatever the stride."""
+        t0 = time.perf_counter()
+        plan = self._plan_multi(rows)
+        out, emitted, keys, ran = self._run_multi(plan)
+        for s in plan.order:
+            self._count_head(type(s).__name__, ran)
+        self.stats["decode_steps"] += 1
+        self.stats["decode_iterations"] += ran
+        self.stats["host_syncs"] += 1
+        self.stats["fused_rows"] += plan.n_real
+        # one device->host copy of the block, the counts and the keys
+        out_h, emitted_h, keys_h = (x.cpu().numpy()
+                                    for x in (out, emitted, keys))
+        self.stats["decode_ms"] += (time.perf_counter() - t0) * 1e3
+        for r in range(plan.n_real):
+            i = plan.padded[r]
+            req = self.slots[i]
+            if req is None:
+                # a consumer cancelled this slot while an earlier row
+                # drained: its tokens are dropped, its blocks already free
+                continue
+            req.prng_key = torch.from_numpy(keys_h[r].copy())
+            for tok in out_h[r, :int(emitted_h[r])]:
+                self.slot_pos[i] += 1
+                self._emit_token(i, req, int(tok))
+                if req.done:
+                    # stop / eos / length / cancel mid-block: the rest of
+                    # the block is trimmed
+                    break
+            if not req.done:
+                # the cover past the cursor goes back to the free list: a
+                # live slot covers exactly its next write
+                self.store.rewind(i, int(self.slot_pos[i]))
+
+    def _plan_multi(self, rows: List[int]) -> LoopPlan:
+        """The host half of one device-resident dispatch: each row's emit
+        cap (its block cover grown to the cap's last write), the padded
+        rows, the groups of full samplers and the loop's operands."""
+        K = self.host_stride
+        caps: Dict[int, int] = {}
+        for i in rows:
+            req = self.slots[i]
+            pos = int(self.slot_pos[i])
+            cap = max(1, min(K, req.max_new_tokens - len(req.generated),
+                             self.max_len - 1 - pos))
+            while cap > 1 and not self.store.can_grow(i, pos + cap - 1,
+                                                      write_start=pos):
+                cap -= 1
+            if cap > 1 and not self.store.ensure_capacity(
+                    i, pos + cap - 1, write_start=pos):
+                cap = 1           # lost a race; ``pos`` itself is covered
+            caps[i] = cap
+        n_real = len(rows)
+        padded = rows + [rows[0]] * (_pow2(n_real) - n_real)
+        b = len(padded)
+        groups: Dict[Sampler, list] = {}
+        for r, i in enumerate(padded):
+            groups.setdefault(self.slots[i].sampler, []).append(r)
+        order = sampler_mod.canonical_order(groups)
+        group_rows = [np.asarray(g + [g[0]] * (b - len(g)), np.int64)
+                      for g in (groups[s] for s in order)]
+        pos = np.asarray([int(self.slot_pos[i]) for i in padded], np.int32)
+        # a padding row never emits (cap 0) and rewrites row 0's first
+        # cell; each row's table covers its last emitting write
+        emit_caps = np.zeros(b, np.int32)
+        emit_caps[:n_real] = [caps[i] for i in rows]
+        btab = self.store.block_table(
+            padded, pos + np.asarray([caps[i] for i in padded]) - 1)
+        arrays = (np.asarray([self.slots[i].generated[-1] for i in padded],
+                             np.int64), pos,
+                  np.stack([self.slots[i].prng_key.numpy() for i in padded]),
+                  np.zeros(b, np.int32), np.zeros(b, bool),
+                  np.full((b, K), -1, np.int64), np.zeros(1, np.int64),
+                  emit_caps, btab, *group_rows)
+        key = step_graph.loop_key(order, b, btab.shape[1], K,
+                                  [len(g) for g in group_rows])
+        return LoopPlan(n_real, padded, order, arrays, int(emit_caps.max()),
+                        key)
+
+    def _run_multi(self, plan: LoopPlan):
+        """The device half of ``plan``: (out, emitted, keys, iterations
+        run) on the device -- a graph of one iteration replayed
+        ``plan.steps`` times on the card (``step_graph.StepGraphs.
+        run_loop``), else the eager loop ``api.serve_decode_multi``,
+        which leaves once no row is active."""
+        if step_graph.graphed(self.device):
+            body = functools.partial(self._loop_body, tuple(plan.order))
+            ops = self.graphs.run_loop(plan.key, body, plan.arrays,
+                                       plan.steps, self.device)
+            return ops[5], ops[3], ops[2], plan.steps
+        tok, pos, keys, _, _, _, _, caps, btab, *rows = step_graph.to_device(
+            plan.arrays, self.device)
+        return api.serve_decode_multi(
+            self.params, self.cfg, tok, self.store.cache(), pos, keys, caps,
+            rows, steps=self.host_stride, eos_id=self._eos(),
+            samplers=plan.order, block_tables=btab, layers=self._layers)
+
+    def _loop_body(self, order: tuple, *operands):
+        """One loop iteration over a ``LoopPlan``'s operands on the device
+        (the carry's fields, the block tables, each group's rows), in
+        place -- the body a graph captures."""
+        carry = api.MultiCarry(*operands[:8])
+        btab, rows = operands[8], operands[9:]
+        api.decode_multi_step(self.params, self.cfg, carry,
+                              self.store.cache(), rows, eos_id=self._eos(),
+                              samplers=order, block_tables=btab,
+                              layers=self._layers)
+
+    def _eos(self) -> int:
+        """The eos id the loop halts on (-1: none)."""
+        return -1 if self.eos_id is None else int(self.eos_id)
+
     def _ensure_blocks(self, i: int, pos: int) -> bool:
         """Grow slot i's block table to cover ``pos``; preempt the
         youngest other slot if the pool is dry."""
@@ -835,11 +1054,21 @@ class ServeEngine:
         self.slots[i] = None
         self.admit_order.remove(i)
 
-    def _emit(self, i: int, req: Request, host_out, off: int):
+    def _emit(self, i: int, req: Request, host_out, off: int, dev_out):
         """One token emission off a sampler head output: pick on the host
         (plus the candidate ids of the k-winner bus when the request asks
-        for them), then the shared emission path."""
-        tok = req.sampler.pick(host_out, off, req.rng)
+        for them), then the shared emission path.  On a host_stride
+        engine a sampler that draws picks KEYED -- one split of the
+        request's key, drawn by ``pick_keyed`` over ``dev_out``, the
+        output on the engine's device, with the ops the device loop runs
+        -- so a token emitted here (a prefill's, a chunk iteration's) is
+        the one the loop would have drawn."""
+        if self.host_stride is not None and req.sampler.draws:
+            nxt, use = prng.split(req.prng_key)
+            tok = req.sampler.pick_keyed(dev_out, off, use)
+            req.prng_key = nxt
+        else:
+            tok = req.sampler.pick(host_out, off, req.rng)
         cands = None
         if self._consumers and req.params.n_candidates:
             c = req.sampler.candidate_ids(host_out, off)

@@ -24,9 +24,29 @@ Counterpart of ``repro.serve.sampler``:
   SoftmaxBaseline   the full softmax unit: f32 logits, softmax, THEN
                     argmax -- the A/B baseline the paper beats.
 
-The keyed on-device forms (``sample_device``/``pick_keyed``) wait for
-``host_stride``.  Samplers are frozen dataclasses, so the engine groups
-rows by them.
+A ``host_stride`` engine samples with keys instead of numpy streams, as
+the JAX package's does:
+
+  sample_device(params, cfg, h, keys)
+                         device-side: (R, D) hidden rows + (R, 2) keys
+                         (``repro_torch.prng``) -> (R,) int64 token ids,
+                         on the card.  This is what the device-resident
+                         loop runs every step (``models.api``
+                         ``serve_decode_multi``): the sampled id feeds the
+                         next trunk step with no host round-trip.
+  pick_keyed(out, row, key)
+                         the same draw over one row of a head output
+                         already computed (the first token after a
+                         prefill, the iterations that carry chunk rows),
+                         run on the device ``out`` lives on -- the
+                         engine hands it the card's copy, so a draw never
+                         depends on where it ran.
+
+Keyed draws are a pure function of (request key, emitted-token index):
+the engine splits the key of a request whose sampler draws (``draws``)
+once per emitted token (row 0 the next key, row 1 this draw's), so
+generations do not depend on the stride, the batch or the scheduling.
+Samplers are frozen dataclasses, so the engine groups rows by them.
 """
 from __future__ import annotations
 
@@ -36,6 +56,7 @@ from typing import Optional, Union
 import numpy as np
 import torch
 
+from repro_torch import prng
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import reduced_softmax
 from repro_torch.kernels import ops
@@ -69,6 +90,27 @@ class Sampler:
     def pick(self, out, row: int, rng=None) -> int:
         """Host-side: head output row -> token id."""
         raise NotImplementedError
+
+    # whether the keyed forms consume the key (a random draw); a sampler
+    # that never draws ignores its keys, so none need splitting for it
+    draws = False
+
+    def sample_device(self, params: dict, cfg: ModelConfig,
+                      h: torch.Tensor, keys: torch.Tensor) -> torch.Tensor:
+        """Device-side: (R, D) hidden rows + (R, 2) keys -> (R,) int64
+        token ids.  Samplers that do not draw ignore ``keys`` (None).  A
+        sampler without this form cannot ride a ``host_stride`` engine
+        (refused at submit)."""
+        raise NotImplementedError(
+            f"{type(self).__name__} has no device sampling form; "
+            "it cannot be used with host_stride")
+
+    def pick_keyed(self, out, row: int, key: torch.Tensor) -> int:
+        """Row ``row`` of head output ``out`` -> a token id, drawn with
+        ``key`` (2,) by ``sample_device``'s ops, on ``out``'s device."""
+        raise NotImplementedError(
+            f"{type(self).__name__} has no keyed sampling form; "
+            "it cannot be used with host_stride")
 
     def validate(self, cfg: ModelConfig) -> None:
         """Raise for configurations this sampler cannot serve."""
@@ -106,6 +148,13 @@ class Greedy(Sampler):
     def pick(self, out, row: int, rng=None) -> int:
         return int(out[row])
 
+    def sample_device(self, params, cfg, h, keys):
+        # deterministic: the comparator output IS the sample
+        return self.head(params, cfg, h).long()
+
+    def pick_keyed(self, out, row: int, key) -> int:
+        return int(out[row])
+
 
 @dataclasses.dataclass(frozen=True)
 class SoftmaxBaseline(Sampler):
@@ -119,6 +168,12 @@ class SoftmaxBaseline(Sampler):
         return torch.argmax(probs, dim=-1).to(torch.int32)
 
     def pick(self, out, row: int, rng=None) -> int:
+        return int(out[row])
+
+    def sample_device(self, params, cfg, h, keys):
+        return self.head(params, cfg, h).long()
+
+    def pick_keyed(self, out, row: int, key) -> int:
         return int(out[row])
 
 
@@ -166,6 +221,11 @@ class TopK(Sampler):
         # only there share one head group
         return dataclasses.replace(self, temperature=1.0, sample_k=None)
 
+    @property
+    def draws(self) -> bool:
+        n = self.k if self.sample_k is None else self.sample_k
+        return self.temperature > 0.0 and n > 1
+
     def head(self, params: dict, cfg: ModelConfig, h: torch.Tensor):
         return reduced_softmax.fused_reduced_topk(
             h, lm.lm_head_weight(params, cfg), self.k)
@@ -181,6 +241,24 @@ class TopK(Sampler):
         p = np.exp(z - z.max())
         p /= p.sum()
         return int(rng.choice(idxs, p=p))
+
+    def _draw(self, vals: torch.Tensor, idxs: torch.Tensor,
+              keys: torch.Tensor) -> torch.Tensor:
+        """The keyed draw over the bus: categorical over the first n
+        survivors at the temperature, one key per row."""
+        if not self.draws:
+            return idxs[:, 0].long()
+        n = self.k if self.sample_k is None else self.sample_k
+        z = (vals[:, :n] / self.temperature).float()
+        choice = prng.categorical(keys, z)
+        return torch.gather(idxs.long(), 1, choice[:, None])[:, 0]
+
+    def sample_device(self, params, cfg, h, keys):
+        return self._draw(*self.head(params, cfg, h), keys)
+
+    def pick_keyed(self, out, row: int, key) -> int:
+        vals, idxs = (_row(x, row) for x in out)
+        return int(self._draw(vals, idxs, _key_on(key, vals))[0])
 
     def candidate_ids(self, out, row: int):
         return np.asarray(out[1][row])
@@ -200,6 +278,10 @@ class Temperature(Sampler):
     def device_form(self) -> "Sampler":
         return dataclasses.replace(self, temperature=1.0)
 
+    @property
+    def draws(self) -> bool:
+        return self.temperature > 0.0
+
     def head(self, params: dict, cfg: ModelConfig, h: torch.Tensor):
         return f32_logits(params, cfg, h)
 
@@ -209,6 +291,32 @@ class Temperature(Sampler):
             return int(np.argmax(logits))
         g = rng.gumbel(size=logits.shape)
         return int(np.argmax(logits / self.temperature + g))
+
+    def _draw(self, logits: torch.Tensor,
+              keys: torch.Tensor) -> torch.Tensor:
+        if not self.draws:
+            return torch.argmax(logits, dim=-1)
+        # jax.random.categorical IS the Gumbel-max trick: a comparator
+        # decision over perturbed logits, no softmax in the sample
+        return prng.categorical(keys, logits / self.temperature)
+
+    def sample_device(self, params, cfg, h, keys):
+        return self._draw(self.head(params, cfg, h), keys)
+
+    def pick_keyed(self, out, row: int, key) -> int:
+        logits = _row(out, row).float()
+        return int(self._draw(logits, _key_on(key, logits))[0])
+
+
+def _row(x, row: int) -> torch.Tensor:
+    """Row ``row`` of a head output leaf (a tensor on any device, or a
+    host array) as a one-row tensor where it lives."""
+    return torch.as_tensor(x[row:row + 1])
+
+
+def _key_on(key, like: torch.Tensor) -> torch.Tensor:
+    """A (2,) key as a (1, 2) int64 batch on ``like``'s device."""
+    return torch.as_tensor(key, dtype=torch.int64).to(like.device)[None]
 
 
 def canonical_order(samplers) -> list:

@@ -39,6 +39,16 @@ launches that did not run.  So a capture takes its delta back out, and
 every replay adds it again (``read_counts``, ``count_delta``,
 ``add_counts``): a counter reads what ran on the card.
 
+The device-resident loop of a ``host_stride`` engine (the counterpart
+of ``repro.serve.engine._jitted_multistep``) is one captured ITERATION
+per bucket (``loop_key``: B, nb, the stride, the full samplers and the
+group sizes), replayed back to back with no host sync between replays:
+the iteration reads and updates the loop's carry (tokens, positions,
+keys, emitted, halted, step index, the (B, K) out block) in its static
+buffers on the card, so the next replay starts where the last ended
+(``run_loop``).  The policy is ``run``'s: a bucket's first dispatch runs
+its iterations eagerly, its second captures one and replays it.
+
 A step stays eager on the CPU, while the probe's tap
 (``models.layers._ATTN_TAP``) is set -- it must see every call -- and
 inside ``eager_steps()``, the port's ``jax.disable_jit``.  There is no
@@ -100,6 +110,16 @@ def bucket_key(order: Sequence, toks_shape, table_shape,
     the shapes and static arguments of the reference's compiled step."""
     (b, t), nb = toks_shape, table_shape[1]
     return (b, nb, t, tuple(order), tuple(group_sizes), spec_size)
+
+
+def loop_key(order: Sequence, batch: int, table_width: int, steps: int,
+             group_sizes: Sequence[int]) -> tuple:
+    """The graph cache's key for one iteration of the multi-step loop:
+    ("loop", B, nb, the stride, the full samplers, group sizes) -- the
+    static arguments and shapes of the reference's ``_jitted_multistep``
+    (its row sets padded to B here, as ``bucket_key``'s)."""
+    return ("loop", batch, table_width, steps, tuple(order),
+            tuple(group_sizes))
 
 
 def kernel_wrappers() -> dict:
@@ -228,19 +248,43 @@ class StepGraphs:
                                      torch.cuda.Event(), out, delta)
         self.captures += 1
 
-    def replay(self, key: tuple, arrays: Sequence[np.ndarray]):
+    def replay(self, key: tuple, arrays: Sequence[np.ndarray],
+               times: int = 1):
         """Copy ``arrays`` into bucket ``key``'s static buffers and replay
-        its graph on the current stream; returns its outputs."""
+        its graph ``times`` times back to back on the current stream;
+        returns its outputs."""
         g = self.graphs[key]
         g.copied.synchronize()           # staging free to write again
         for host, stage, dev in zip(arrays, g.staging, g.static):
             stage.numpy()[...] = host
             dev.copy_(stage, non_blocking=True)
         g.copied.record()
-        g.graph.replay()
-        add_counts(self.wrappers, g.counts)
-        self.replays += 1
+        for _ in range(times):
+            g.graph.replay()
+        add_counts(self.wrappers, g.counts, times)
+        self.replays += times
         return g.out
+
+    def run_loop(self, key: tuple, body, arrays: Sequence[np.ndarray],
+                 times: int, device) -> tuple:
+        """``times`` iterations of loop bucket ``key`` (``loop_key``):
+        ``body(*operands)`` updates its operands -- the loop's carry --
+        in place, so iteration n + 1 reads what iteration n left.  The
+        host ``arrays`` are copied to the card once; nothing is read
+        back between iterations.  A bucket's first dispatch runs the body
+        eagerly, its second captures one iteration and replays it
+        ``times`` times.  Returns the operands on the card after the last
+        iteration, valid until the next dispatch of any bucket."""
+        if key not in self.seen:
+            self.seen.add(key)
+            ops = to_device(arrays, device)
+            for _ in range(times):
+                body(*ops)
+            return ops
+        if key not in self.graphs:
+            self.capture(key, body, arrays, device)
+        self.replay(key, arrays, times)
+        return self.graphs[key].static
 
     def pool_bytes(self) -> int:
         """Bytes the caching allocator has reserved for the graph pool."""

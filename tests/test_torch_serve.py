@@ -177,14 +177,17 @@ def test_device_guards_and_cpu_runs_launch_no_kernel(bridged):
     assert llm.health()["ok"]
 
 
-@pytest.mark.parametrize("kw", [dict(host_stride=4),
+# host_stride is served since the device-resident loop; a stride below 1
+# is wrong in both packages (ValueError)
+@pytest.mark.parametrize("kw", [dict(host_stride=0),
                                 dict(tp=2), dict(scheduler="cohort"),
                                 dict(kv_layout="dense"),
                                 dict(kv_layout="dense", attn_approx="pseudo"),
                                 dict(head_mode="sharded")])
 def test_unported_engine_modes_raise(bridged, kw):
     _, tparams = bridged
-    with pytest.raises(NotImplementedError):
+    exc = ValueError if "host_stride" in kw else NotImplementedError
+    with pytest.raises(exc):
         TLLM(tparams, TCFG, **ENGINE, **kw)
 
 
