@@ -154,6 +154,25 @@ Phases, each of which fails the run (non-zero exit, no result line):
   6. the small-input reference, graphed: the smoke config's tokens on
      the card equal those of the plain versions on the CPU, from the
      same weights.
+  4j. (last, once every earlier engine is dropped) the rest of the dense
+     family: kernels 1-5 at starcoder2-7b's shapes against their plain
+     versions, each timed beside its bound and library call (paged
+     attention at B 8, T 1 and 64, 36 query heads over 4 KV heads; flash
+     attention over 512 tokens at g 9; the argmax head at B 8, the top-k
+     head at B 4, k 8 and the verify head at B 8, T 8 on the untied (V,
+     D) = (49,152, 4,608) head); then ``LLM.from_arch("starcoder2-7b",
+     smoke=False)`` in bf16, nothing cut (32 layers, d 4,608, gelu MLP,
+     8 slots of 1,024): phase 4's prompts greedy eager and graphed three
+     times (tokens equal; 32 paged launches a decode step, 32 flash a
+     one-shot prefill, an argmax head a step and a prefill), the
+     replayed step's ms beside the bound of reading its weights once,
+     Theorem 1 against the softmax baseline, phase 4b's mixed samplers,
+     ``spec_k=4`` and ``host_stride=8`` (tokens equal to None's), and the
+     phase's peak memory; then qwen3-0.6b at full width with the dense
+     layout and the cohort scheduler (paged / dense x fused / cohort),
+     each graphed twice: no paged launch on the dense layout, more steps
+     than iterations under cohort, streams held to paged fused's under
+     the near-tie rule in f32 and measured in bf16.
 
 Token streams that should be equal may part only at a near-tie of the
 two best f32 logits (gap within 1e-3 of the max): the batch composition
@@ -171,6 +190,7 @@ is not beside it.  It imports torch, numpy and ``repro_torch`` only.
 """
 from __future__ import annotations
 
+import gc
 import json
 import math
 import os
@@ -2207,56 +2227,57 @@ def sampled_params(max_new):
     return kinds, plist
 
 
-def run_sampled_path(torch, llm, prompts, greedy_outs, max_new):
+def run_sampled_path(torch, llm, prompts, greedy_outs, max_new,
+                     what="sampled path"):
     """Phase 4b: the same 12 prompts as a mixed sampled workload -- 4
     greedy, 4 top-k (k 8, temperature 0.8, seeded), 2 greedy with 4
     candidate ids (the top-k bus at sample_k 1), 2 Gumbel-max
     temperature -- through one engine, every kind sharing fused steps."""
     kinds, plist = sampled_params(max_new)
-    eager, graphed = drive_both(torch, llm, prompts, plist, "sampled path")
+    eager, graphed = drive_both(torch, llm, prompts, plist, what)
     for run, (outs, cands, launches, st, wall, *_) in (("eager", eager),
                                                        ("graphed", graphed)):
         calls = st["head_calls"]
         n_tok = sum(len(o.token_ids) for o in outs)
-        print(f"sampled path ({run}): {n_tok} tokens in {wall:.3f} s = "
+        print(f"{what} ({run}): {n_tok} tokens in {wall:.3f} s = "
               f"{n_tok / wall:.2f} tok/s; {st['decode_steps']} decode "
               f"steps, mean {st['decode_ms'] / st['decode_steps']:.3f} "
               f"ms/step; head calls {calls}; launches {launches}",
               flush=True)
         want_pa = llm.cfg.n_layers * st["decode_steps"]
         check(launches["paged_attention"] == want_pa,
-              f"sampled path ({run}): paged attention launches != layers x "
+              f"{what} ({run}): paged attention launches != layers x "
               "steps")
         check(launches["fused_topk_head"] == calls.get("TopK", 0) > 0,
-              f"sampled path ({run}): top-k launches != top-k head calls "
+              f"{what} ({run}): top-k launches != top-k head calls "
               "(decode steps and prefills holding a top-k row)")
         check(launches["fused_argmax_head"] == calls.get("Greedy", 0) > 0,
-              f"sampled path ({run}): argmax launches != greedy head calls")
+              f"{what} ({run}): argmax launches != greedy head calls")
         check(launches["fused_verify_head"] == 0,
-              f"sampled path ({run}): a verify kernel ran without "
+              f"{what} ({run}): a verify kernel ran without "
               "speculation")
         check(launches["flash_attention"]
               == llm.cfg.n_layers * st["prefills"],
-              f"sampled path ({run}): flash attention launches != layers x "
+              f"{what} ({run}): flash attention launches != layers x "
               "prefills")
         for o, c, kind in zip(outs, cands, kinds):
             check(1 <= len(o.token_ids) <= max_new
                   and all(0 <= x < llm.cfg.vocab_size for x in o.token_ids),
-                  f"sampled path: bad output for rid {o.rid}: "
+                  f"{what}: bad output for rid {o.rid}: "
                   f"{o.token_ids}")
             if kind == "cands":
                 check(all(x is not None and len(x) == 4 and x[0] == t
                           and len(set(x)) == 4
                           for x, t in zip(c, o.token_ids)),
-                      f"sampled path: bad candidate ids for rid {o.rid}")
+                      f"{what}: bad candidate ids for rid {o.rid}")
             else:
                 check(all(x is None for x in c),
-                      f"sampled path: rid {o.rid} got candidate ids")
+                      f"{what}: rid {o.rid} got candidate ids")
     greedy = [r for r, kind in enumerate(kinds) if kind == "greedy"]
     compare_streams(torch, llm, [prompts[r] for r in greedy],
                     [greedy_outs[r] for r in greedy],
                     [outs[r] for r in greedy],
-                    "sampled path, greedy rows vs the greedy-only run")
+                    f"{what}, greedy rows vs the greedy-only run")
     eager_st = eager[3]
     return launches, dict(tok_s=n_tok / wall, tokens=n_tok,
                           decode_steps=st["decode_steps"],
@@ -3754,7 +3775,7 @@ def run_probe_path(torch, llm, prompts, max_new):
     return out
 
 
-def check_theorem1(torch, llm, prompts, outs, max_new):
+def check_theorem1(torch, llm, prompts, outs, max_new, what="theorem 1"):
     """The softmax baseline (f32 logits, softmax, argmax) over the same
     weights must give the same streams; a divergence is allowed only at
     a near-tie of the top-2 f32 logits."""
@@ -3769,16 +3790,425 @@ def check_theorem1(torch, llm, prompts, outs, max_new):
     wall = time.perf_counter() - t0
     st = base.engine.stats
     n_tok = sum(len(o.token_ids) for o in souts)
-    print(f"softmax baseline head: {n_tok} tokens in {wall:.3f} s = "
+    print(f"{what}, softmax baseline head: {n_tok} tokens in {wall:.3f} s = "
           f"{n_tok / wall:.2f} tok/s; mean "
           f"{st['decode_ms'] / st['decode_steps']:.3f} ms/decode step "
           f"(first run of this engine, no warm-up); graphs: "
           f"{graph_line(base)}", flush=True)
     check(base.engine.graphs.replays > 0,
-          "theorem 1: the softmax-baseline engine replayed no graph")
+          f"{what}: the softmax-baseline engine replayed no graph")
     compare_streams(torch, llm, prompts, outs, souts,
-                    "theorem 1, the reduced head vs the softmax baseline")
+                    f"{what}, the reduced head vs the softmax baseline")
     del base
+
+
+# ---------------------------------------------------------------------------
+# Phase 4j: starcoder2-7b at full width; the dense layout and the cohort
+# scheduler
+# ---------------------------------------------------------------------------
+def kernel_row(timer, fn, plain, library, nbytes, flops, err) -> dict:
+    """A kernel's readings, its plain version's call ms and its library
+    call's readings on one set of inputs, beside the bound of ``nbytes``
+    and bf16 ``flops``."""
+    bound_ms, bound_by = bound(nbytes, flops, BF16_FLOPS_PER_S)
+    return dict(max_abs_err=err, **timer.readings(fn), plain_ms=timer(plain),
+                bound_ms=bound_ms, bound_by=bound_by,
+                **timer.readings(library, "library_"))
+
+
+def sc2_line(name, row, library):
+    print(f"starcoder2-7b shapes, {name}: kernel {shown(row)}, plain "
+          f"{row['plain_ms']:.4f} ms, {library} {shown(row, 'library_')}, "
+          f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}); "
+          f"max_abs_err {row['max_abs_err']:.6g}", flush=True)
+
+
+def check_starcoder2_kernels(torch, timer) -> dict:
+    """Kernels 1-5 at starcoder2-7b's shapes (bf16: 36 query heads over 4
+    KV heads, g 9, hd 128; d 4,608; an untied (V, D) = (49,152, 4,608)
+    head stored as the ``.T`` view of a row-major (V, D) tensor, as
+    ``weights.cast_params`` stores it), each against its plain version
+    with the tolerances of phase 3 and timed beside its bound and its
+    library call: paged attention at B 8, T 1 and T 64 (ragged rows of
+    1-1,000 positions), flash attention over a 512-token prompt, the
+    argmax head at B 8, the top-k head at B 4, k 8, the verify head at B
+    8, T 8 (integer-valued operands: exact)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import fused_argmax_head as fah
+    from repro_torch.kernels import fused_topk_head as ftk
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels import ref
+
+    hq, hkv, hd, d, v = 36, 4, 128, 4608, 49152
+    rng = np.random.default_rng(72)
+    rows = {}
+    for t in (1, 64):
+        q, kp, vp, bt, pos = paged_case(torch, rng, t, b=8, hq=hq, hkv=hkv,
+                                        hd=hd)
+        out = pa.paged_attention(q, kp, vp, bt, pos)
+        torch.cuda.synchronize()
+        want = ref.paged_attention(q, kp, vp, bt, pos)
+        err = (out.float() - want.float()).abs().max().item()
+        check(torch.allclose(out.float(), want.float(), atol=PA_TOL,
+                             rtol=PA_TOL),
+              f"paged attention at starcoder2's shapes, T={t}, disagrees "
+              f"with its plain version ({err})")
+        nbytes, flops = paged_work(q, kp, bt, pos, None)
+        row = kernel_row(
+            timer, lambda: pa.paged_attention(q, kp, vp, bt, pos),
+            lambda: ref.paged_attention(q, kp, vp, bt, pos),
+            sdpa_on_gathered_view(torch, q, kp, vp, bt, pos, None,
+                                  1 / math.sqrt(hd)), nbytes, flops, err)
+        row["chunks"] = pa.split_for(q, kp, bt)[0]
+        sc2_line(f"paged_attention B=8 T={t} g=9 ({split_line(pa, q, kp, bt)})",
+                 row, "sdpa(gathered view)")
+        rows[f"paged_t{t}"] = row
+
+    gen = torch.Generator(device="cuda").manual_seed(72)
+
+    def rand(heads):
+        return torch.randn((1, 512, heads, hd), generator=gen,
+                           device="cuda").to(torch.bfloat16).transpose(1, 2)
+
+    q, k, vv = rand(hq), rand(hkv), rand(hkv)
+    out = fa.flash_attention(q, k, vv, causal=True)
+    torch.cuda.synchronize()
+    want = ref.flash_attention(q, k, vv, causal=True)
+    err = (out.float() - want.float()).abs().max().item()
+    check(torch.allclose(out.float(), want.float(), atol=FA_TOL, rtol=FA_TOL),
+          f"flash attention at g 9 disagrees with its plain version ({err})")
+    rows["flash_t512_g9"] = kernel_row(
+        timer, lambda: fa.flash_attention(q, k, vv, causal=True),
+        lambda: ref.flash_attention(q, k, vv, causal=True),
+        lambda: F.scaled_dot_product_attention(q, k, vv, enable_gqa=True,
+                                               is_causal=True),
+        (2 * q.numel() + k.numel() + vv.numel()) * 2,
+        4 * hd * hq * (512 * 513 // 2), err)
+    sc2_line("flash_attention T=512 g=9", rows["flash_t512_g9"], "sdpa")
+
+    emb = (torch.randn((v, d), generator=gen, device="cuda")
+           / math.sqrt(d)).to(torch.bfloat16)
+    w = emb.t()                               # the untied head's layout
+    h = torch.randn((8, d), generator=gen, device="cuda").to(torch.bfloat16)
+    idx, val = fah.fused_argmax_head_with_value(h, w)
+    torch.cuda.synchronize()
+    idx_ok, val_ok, err, _ = argmax_verdict(torch, h, w, idx, val)
+    check(idx_ok and val_ok, "the argmax head on starcoder2's untied head "
+          "disagrees with its plain version")
+    rows["argmax_b8"] = kernel_row(
+        timer, lambda: fah.fused_argmax_head_with_value(h, w),
+        lambda: ref.fused_argmax_head_with_value(h, w),
+        lambda: torch.argmax(h @ w, dim=-1), v * d * 2 + 8 * d * 2 + 8 * 8,
+        2.0 * 8 * d * v, err)
+    sc2_line("fused_argmax_head B=8 (V, D) = (49152, 4608)",
+             rows["argmax_b8"], "argmax(h @ W)")
+
+    h4 = h[:4].contiguous()
+    vals, idxs = ftk.fused_topk_head(h4, w, 8)
+    torch.cuda.synchronize()
+    tv = topk_verdict(torch, h4, w, 8, vals, idxs)
+    print(f"starcoder2-7b shapes, fused_topk_head B=4 k=8: {topk_line(tv)}",
+          flush=True)
+    check(tv["idx_ok"] and tv["ties_ok"] and tv["desc_ok"] and tv["val_ok"],
+          "the top-k head on starcoder2's untied head disagrees with its "
+          "plain version")
+    rows["topk_b4_k8"] = kernel_row(
+        timer, lambda: ftk.fused_topk_head(h4, w, 8),
+        lambda: ref.fused_topk_head(h4, w, 8),
+        lambda: torch.topk(h4 @ w, 8, dim=-1), v * d * 2 + 4 * d * 2 + 4 * 8 * 8,
+        2.0 * 4 * d * v, tv["err"])
+    sc2_line("fused_topk_head B=4 k=8", rows["topk_b4_k8"], "topk(h @ W)")
+
+    del emb, w
+    wi = torch.randint(-2, 3, (v, d), generator=gen, device="cuda").to(
+        torch.bfloat16).t()
+    hi = torch.randint(-1, 2, (8, 8, d), generator=gen, device="cuda").to(
+        torch.bfloat16)
+    ids0, _ = ref.verify_draft(hi, wi, torch.full((8, 7), -1,
+                                                  dtype=torch.int32,
+                                                  device="cuda"))
+    cand = torch.full((8, 7), -1, dtype=torch.int32, device="cuda")
+    for r in range(8):                        # ragged widths 0..7
+        cand[r, :r] = ids0[r, :r]
+    cand[3, 1] = (cand[3, 1] + 1) % v         # a wrong draft mid-run
+    ids, acc = fah.fused_verify_head(hi, wi, cand)
+    torch.cuda.synchronize()
+    rids, racc = ref.verify_draft(hi, wi, cand)
+    check(torch.equal(ids, rids) and torch.equal(acc, racc),
+          "the verify head at starcoder2's shapes disagrees with its plain "
+          "version")
+    h2 = hi.view(64, d)
+    rows["verify_b8_t8"] = kernel_row(
+        timer, lambda: fah.fused_verify_head(hi, wi, cand),
+        lambda: ref.verify_draft(hi, wi, cand),
+        lambda: torch.argmax(h2 @ wi, dim=-1),
+        v * d * 2 + 64 * d * 2 + cand.numel() * 4 + 64 * 4 + 8 * 4,
+        2.0 * 64 * d * v, 0.0)
+    sc2_line(f"fused_verify_head B=8 T=8 (accept {acc.tolist()}, exact)",
+             rows["verify_b8_t8"], "argmax(h @ W) over the 64 rows")
+    return rows
+
+
+def step_weight_bytes(eng) -> int:
+    """Bytes of the weights one decode step must read: every leaf but the
+    embedding table, of which it reads B rows (left out)."""
+    return sum(t.numel() * t.element_size() for t in _leaves(
+        {k: v for k, v in eng.params.items() if k != "embed"}))
+
+
+def run_starcoder2_spec(torch, llm, lengths, max_new) -> dict:
+    """``spec_k=4`` once on starcoder2-7b, graphed, on phase 4c's kind of
+    prompts (a random 32-token phrase repeated to each length), beside
+    the same prompts at spec_k=0: every step with a draft row through the
+    verify kernel.  A draft window's K/V comes from the trunk's GEMMs at
+    B x T rows where a plain step's comes from B rows, and at this width
+    their bf16 sums part the streams above the near-tie rule
+    (``scripts/batch_bits_probe.py``), as one-shot and chunked prefill do
+    at qwen3's: so the bf16
+    streams are measured, and the two held to each other in f32 on an
+    f32 twin of the weights (``cross_path_f32``)."""
+    from repro_torch.serve.params import SamplingParams
+
+    rng = np.random.default_rng(4)
+    prompts = [np.tile(rng.integers(0, llm.cfg.vocab_size, size=32),
+                       n // 32 + 1)[:n].astype(np.int32) for n in lengths]
+    sp0 = SamplingParams(max_new_tokens=max_new)
+    sp4 = SamplingParams(max_new_tokens=max_new, spec_k=4)
+    base = drive_graphed(torch, llm, prompts, sp0, "starcoder2-7b spec_k=0")
+    spec = drive_graphed(torch, llm, prompts, sp4, "starcoder2-7b spec_k=4")
+    outs, _, launches, st, wall = spec[:5]
+    calls, cfg = st["head_calls"], llm.cfg
+    n_tok = sum(len(o.token_ids) for o in outs)
+    print(f"starcoder2-7b spec_k=4 (graphed run 1): {n_tok} tokens in "
+          f"{wall:.3f} s = {n_tok / wall:.2f} tok/s; {st['decode_steps']} "
+          f"decode steps (spec_k=0: {base[3]['decode_steps']}), drafted "
+          f"{st['drafted']}, accepted {st['accepted']}; head calls {calls}; "
+          f"launches {launches}", flush=True)
+    check(st["drafted"] > 0, "starcoder2-7b spec_k=4: nothing was drafted")
+    check(launches["fused_verify_head"] == calls.get("verify", 0) > 0,
+          "starcoder2-7b spec_k=4: verify launches != steps with a draft row")
+    check(launches["fused_argmax_head"] == calls.get("Greedy", 0),
+          "starcoder2-7b spec_k=4: argmax launches != greedy head calls")
+    check(launches["paged_attention"] == cfg.n_layers * st["decode_steps"],
+          "starcoder2-7b spec_k=4: paged launches != layers x decode steps")
+    check(launches["flash_attention"] == cfg.n_layers * st["prefills"],
+          "starcoder2-7b spec_k=4: flash launches != layers x prefills")
+    same = compare_streams(torch, llm, prompts, base[0], outs,
+                           "starcoder2-7b spec_k=4 vs spec_k=0, bf16",
+                           gate=False)
+    twin = f32_twin(torch, llm)
+    engine = dict(n_slots=8, max_len=1024)
+    f32 = cross_path_f32(torch, twin, prompts,
+                         (("spec_k=0", engine, sp0),
+                          ("spec_k=4", engine, sp4)), "starcoder2-7b")
+    del twin
+    return dict(tok_s=n_tok / wall, tokens=n_tok,
+                decode_steps=st["decode_steps"],
+                decode_steps_spec0=base[3]["decode_steps"],
+                drafted=st["drafted"], accepted=st["accepted"],
+                verify_launches=launches["fused_verify_head"],
+                identical_streams_bf16=same,
+                identical_streams_f32=f32["spec_k=4"]["identical_streams"])
+
+
+def run_starcoder2_stride(torch, llm, prompts, max_new) -> dict:
+    """``host_stride=8`` greedy once on starcoder2-7b against the per-token
+    step (``host_stride=None``), each on a fresh engine sharing the
+    weights (no eos), graphed: tokens EQUAL, paged attention 32 launches
+    a decode iteration."""
+    from repro_torch.serve.params import SamplingParams
+
+    plist = SamplingParams(max_new_tokens=max_new)
+    rows, tokens = {}, {}
+    for stride in (None, 8):
+        e = stride_engine(llm, stride)
+        run = drive_strided(torch, e, prompts, plist)
+        name = f"starcoder2-7b host_stride={stride}"
+        check_loop_launches(run[2], run[3], llm.cfg, name)
+        rows[str(stride)] = stride_line(f"{name}, graphed run 1", run)
+        tokens[stride] = [o.token_ids for o in run[0]]
+        del e, run
+    same = sum(a == b for a, b in zip(tokens[None], tokens[8]))
+    print(f"starcoder2-7b host_stride=8 vs None: {same}/{len(prompts)} "
+          "streams equal", flush=True)
+    check(same == len(prompts),
+          "starcoder2-7b: host_stride=8's tokens differ from None's")
+    return rows
+
+
+def run_starcoder2_path(torch, max_new) -> tuple:
+    """Phase 4j, part 1: starcoder2-7b at full width in bf16 (32 layers, d
+    4,608, 36 / 4 heads of 128, d_ff 18,432, gelu MLP, V 49,152 untied;
+    nothing cut; random seeded weights), 8 slots of max_len 1,024 in
+    blocks of 16: phase 4's 12 prompts (ids below 49,152) greedy, eager
+    then graphed three times (tokens equal; launches 32 paged a decode
+    step, 32 flash a one-shot prefill, one argmax head a step and a
+    prefill), against the softmax-baseline head (Theorem 1, near-tie
+    rule), phase 4b's mixed samplers, ``spec_k=4`` and ``host_stride=8``.
+    Prints the replayed step's ms beside the bound of reading the
+    weights once, tok/s and the phase's peak memory.  Returns (summary,
+    the graphed run 1's launches)."""
+    from repro_torch.serve.api import LLM
+    from repro_torch.serve.params import SamplingParams
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    llm = LLM.from_arch("starcoder2-7b", smoke=False, seed=0, n_slots=8,
+                        max_len=1024, block_size=16)
+    torch.cuda.synchronize()
+    cfg, eng = llm.cfg, llm.engine
+    built_peak = torch.cuda.max_memory_allocated()
+    check((cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+           cfg.head_dim, cfg.d_ff, cfg.vocab_size, cfg.activation,
+           cfg.tie_embeddings, cfg.dtype)
+          == (32, 4608, 36, 4, 128, 18432, 49152, "gelu", False, "bfloat16"),
+          f"starcoder2-7b is not served at its full width: {cfg}")
+    wbytes = sum(t.numel() * t.element_size() for t in _leaves(eng.params))
+    print(f"starcoder2-7b: {cfg.n_layers} layers, d={cfg.d_model}, "
+          f"{cfg.n_heads}/{cfg.n_kv_heads} heads, hd={cfg.head_dim}, "
+          f"d_ff={cfg.d_ff} ({cfg.activation}), V={cfg.vocab_size} untied, "
+          f"{cfg.dtype}; weights {wbytes / 1e9:.3f} GB, KV pool "
+          f"{sum(p.numel() * p.element_size() for p in eng.store.pools.values()) / 1e9:.3f}"
+          f" GB; built in {time.perf_counter() - t0:.1f} s, peak "
+          f"{built_peak / 1e9:.3f} GB while the f32 masters were cast",
+          flush=True)
+    prng = np.random.default_rng(0)
+    prompts = [prng.integers(0, cfg.vocab_size, size=int(n)).astype(np.int32)
+               for n in prng.integers(64, 513, size=12)]
+    params = SamplingParams(max_new_tokens=max_new)
+    llm.generate([prompts[0][:16]], SamplingParams(max_new_tokens=2))
+    torch.cuda.synchronize()                  # warm-up (cuBLAS, allocator)
+
+    eager, graphed = drive_both(torch, llm, prompts, params, "starcoder2-7b")
+    check_main_launches(eager[2], eager[3], cfg, len(prompts),
+                        "starcoder2-7b eager")
+    check_main_launches(graphed[2], graphed[3], cfg, len(prompts),
+                        "starcoder2-7b graphed")
+    _, again = drive_replays(torch, llm, prompts, params, "starcoder2-7b",
+                             graphed)
+    check_main_launches(again[2], again[3], cfg, len(prompts),
+                        "starcoder2-7b graphed run 3")
+    outs = graphed[0]
+    for o in outs:
+        check(1 <= len(o.token_ids) <= max_new
+              and o.finish_reason in ("length", "eos")
+              and all(0 <= x < cfg.vocab_size for x in o.token_ids),
+              f"starcoder2-7b: bad output for rid {o.rid}: "
+              f"{o.finish_reason} {o.token_ids}")
+    summary = {
+        "eager": main_line("starcoder2-7b, eager", eager[0], eager[3],
+                           eager[4]),
+        "graph_first_run": main_line("starcoder2-7b, graphed run 1", outs,
+                                     graphed[3], graphed[4]),
+        "graph": main_line("starcoder2-7b, graphed run 3 (replays only)",
+                           again[0], again[3], again[4])}
+    step_bytes = step_weight_bytes(eng)
+    bound_ms = step_bytes / HBM_BYTES_PER_S * 1e3
+    step_ms = summary["graph"]["decode_ms"]
+    print(f"starcoder2-7b replayed decode step: {step_ms:.3f} ms (host wall, "
+          f"graphed run 3) against a bound of {bound_ms:.3f} ms (the "
+          f"{step_bytes / 1e9:.3f} GB of weights a step reads, once, at "
+          f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s): {step_ms / bound_ms:.2f}x",
+          flush=True)
+    summary.update(step_bound_ms=bound_ms, step_weight_gb=step_bytes / 1e9,
+                   weights_gb=wbytes / 1e9, built_peak_gb=built_peak / 1e9,
+                   graphs=graph_line(llm))
+    check_theorem1(torch, llm, prompts, outs, max_new,
+                   what="starcoder2-7b theorem 1")
+    _, summary["sampled"] = run_sampled_path(
+        torch, llm, prompts, outs, max_new, what="starcoder2-7b sampled")
+    summary["spec"] = run_starcoder2_spec(torch, llm,
+                                          [len(p) for p in prompts], max_new)
+    summary["stride"] = run_starcoder2_stride(torch, llm, prompts, max_new)
+    summary["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    print(f"starcoder2-7b phase peak memory: {summary['peak_memory_gb']:.3f}"
+          f" GB allocated (torch.cuda.max_memory_allocated)", flush=True)
+    return summary, graphed[2]
+
+
+def dense_cohort_check(launches, st, cfg, name):
+    """A dense or cohort run's launch and step checks: the dense layout
+    launches no paged attention; the heads launch once a step and a
+    prefill; flash once a layer a one-shot prefill; a cohort run has
+    more steps than iterations, a fused run as many."""
+    dense, cohort = "dense" in name, "cohort" in name
+    want = {"paged_attention": 0 if dense else cfg.n_layers
+            * st["decode_steps"],
+            "flash_attention": cfg.n_layers * st["prefills"],
+            "fused_argmax_head": st["decode_steps"] + st["prefills"]}
+    got = {k: launches[k] for k in want}
+    check(got == want, f"{name}: launches {got} != {want}")
+    check(st["decode_steps"] > st["iterations"] if cohort
+          else st["decode_steps"] == st["iterations"],
+          f"{name}: decode_steps {st['decode_steps']} against iterations "
+          f"{st['iterations']}")
+
+
+def run_dense_cohort(torch, max_new) -> dict:
+    """Phase 4j, part 2: the dense layout and the cohort scheduler on
+    qwen3-0.6b at full width (seeded weights, 8 slots, max_len 1,024,
+    phase 4's 12 prompts, greedy): paged fused, dense fused, paged cohort
+    and dense cohort, each on a fresh engine, graphed twice (tokens
+    equal; the second run's numbers kept).  In f32 every variant's
+    streams equal paged fused's or part at a near-tie (the dense einsum
+    is not the paged kernel, a cohort runs its GEMMs at another M); in
+    bf16 they are only measured."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.serve.api import LLM
+    from repro_torch.serve.params import SamplingParams
+    from repro_torch.weights import init_params
+
+    base = get_config("qwen3-0.6b")
+    master = init_params(base, torch.Generator(device="cuda").manual_seed(0),
+                         "cuda")
+    prng = np.random.default_rng(0)
+    prompts = [prng.integers(0, base.vocab_size, size=int(n)).astype(
+        np.int32) for n in prng.integers(64, 513, size=12)]
+    plist = SamplingParams(max_new_tokens=max_new)
+    variants = (("paged fused", {}), ("dense fused", dict(kv_layout="dense")),
+                ("paged cohort", dict(scheduler="cohort")),
+                ("dense cohort", dict(kv_layout="dense", scheduler="cohort")))
+    out = {}
+    for dtype in ("float32", "bfloat16"):
+        cfg = dataclasses.replace(base, dtype=dtype)
+        ref = None
+        for name, kw in variants:
+            what = f"qwen3-0.6b {name}, {dtype}"
+            e = LLM(master, cfg, seed=0, n_slots=8, max_len=1024, **kw)
+            runs = [drive_graphed(torch, e, prompts, plist, what)
+                    for _ in range(2)]
+            for n, run in enumerate(runs, 1):
+                dense_cohort_check(run[2], run[3], cfg, f"{what} run {n}")
+            check([o.token_ids for o in runs[1][0]]
+                  == [o.token_ids for o in runs[0][0]],
+                  f"{what}: run 2's tokens differ from run 1's")
+            outs, _, _, st, wall = runs[1][:5]
+            n_tok = sum(len(o.token_ids) for o in outs)
+            row = dict(tok_s=n_tok / wall, tokens=n_tok,
+                       decode_steps=st["decode_steps"],
+                       iterations=st["iterations"],
+                       decode_ms=st["decode_ms"] / st["decode_steps"],
+                       layout=e.kv_usage()["layout"])
+            print(f"{what} (graphed run 2): {n_tok} tokens in {wall:.3f} s "
+                  f"= {row['tok_s']:.2f} tok/s; decode_steps "
+                  f"{st['decode_steps']} / iterations {st['iterations']}, "
+                  f"{row['decode_ms']:.3f} ms a step; {run_counts(runs[1])}",
+                  flush=True)
+            if ref is None:
+                ref = (e, outs)
+                row["identical_streams"] = len(outs)
+            else:
+                row["identical_streams"] = compare_streams(
+                    torch, ref[0], prompts, ref[1], outs,
+                    f"{what} vs paged fused", gate=dtype == "float32")
+                del e
+            out[f"{name}, {dtype}"] = row
+        del ref
+    return out
 
 
 def check_small_reference(torch):
@@ -3950,6 +4380,18 @@ def main() -> int:
         check_theorem1(torch, llm, prompts, outs, max_new)
         del llm
         check_small_reference(torch)
+        # phase 4j: every earlier engine is dropped first, so starcoder2's
+        # f32 masters and their bf16 cast (~44 GB) find the card free
+        gc.collect()
+        torch.cuda.empty_cache()
+        timer = Timer(torch)
+        sc2_rows = check_starcoder2_kernels(torch, timer)
+        del timer
+        summary["starcoder2_7b"], sc2_launches = run_starcoder2_path(
+            torch, max_new)
+        gc.collect()
+        torch.cuda.empty_cache()
+        summary["dense_cohort"] = run_dense_cohort(torch, max_new)
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1
@@ -3960,13 +4402,20 @@ def main() -> int:
              replaces="src/repro/kernels/paged_attention.py:172",
              launches=launches["paged_attention"],
              host_stride8_launches=stride_launches["paged_attention"],
-             max_abs_err=max(r["max_abs_err"] for r in pa_rows.values()),
+             max_abs_err=max(r["max_abs_err"] for r in [
+                 *pa_rows.values(), sc2_rows["paged_t1"],
+                 sc2_rows["paged_t64"]]),
              **{k: pa_rows[1][k] for k in TIMES + ("chunks",)},
              single_row={k: pa_rows["B1"][k] for k in TIMES + ("chunks",)},
              t64={k: pa_rows[64][k] for k in TIMES + ("chunks",)},
              t4={k: pa_rows[4][k] for k in TIMES + ("chunks",)},
              t32={k: pa_rows[32][k] for k in TIMES + ("chunks",)},
              routes=pa_routes, invariance=invariance,
+             starcoder2_launches=sc2_launches["paged_attention"],
+             starcoder2_t1={k: sc2_rows["paged_t1"][k]
+                            for k in TIMES + ("chunks", "max_abs_err")},
+             starcoder2_t64={k: sc2_rows["paged_t64"][k]
+                             for k in TIMES + ("chunks", "max_abs_err")},
              hd192={k: v for k, v in hd192_rows.items()
                     if k.startswith("paged")},
              modes={mode: dict(
@@ -4002,7 +4451,7 @@ def main() -> int:
              host_stride8_launches=stride_launches["fused_argmax_head"],
              max_abs_err=max(r["max_abs_err"] for r in [
                  *head_rows.values(), wide_rows["argmax_B1"],
-                 wide_rows["argmax_B8"]]),
+                 wide_rows["argmax_B8"], sc2_rows["argmax_b8"]]),
              **{k: head_rows[8][k] for k in TIMES},
              b1={k: head_rows[1][k] for k in TIMES},
              b64={k: head_rows[64][k] for k in TIMES},
@@ -4010,16 +4459,22 @@ def main() -> int:
                      if k.startswith("argmax")},
              invariance=head_invariance,
              d18432={k: v for k, v in wide_rows.items()
-                     if k.startswith("argmax")}),
+                     if k.startswith("argmax")},
+             starcoder2_launches=sc2_launches["fused_argmax_head"],
+             starcoder2_untied_b8={k: sc2_rows["argmax_b8"][k]
+                                   for k in TIMES + ("max_abs_err",)}),
         dict(name="fused_topk_head", route="cuda",
              source="src/repro_torch/kernels/csrc/fused_topk_head.cu",
              replaces="src/repro/kernels/fused_topk_head.py:107",
              launches=topk_launches["fused_topk_head"],
              max_abs_err=max(r["max_abs_err"] for r in [
-                 *topk_rows.values(), wide_rows["topk_B8_k8"]]),
+                 *topk_rows.values(), wide_rows["topk_B8_k8"],
+                 sc2_rows["topk_b4_k8"]]),
              **{k: topk_rows[(4, 8)][k] for k in TIMES},
              k64={k: topk_rows[(4, 64)][k] for k in TIMES},
-             passes=topk_passes, d18432=wide_rows["topk_B8_k8"]),
+             passes=topk_passes, d18432=wide_rows["topk_B8_k8"],
+             starcoder2_untied_b4_k8={k: sc2_rows["topk_b4_k8"][k]
+                                      for k in TIMES + ("max_abs_err",)}),
         dict(name="fused_verify_head", route="cuda",
              source="src/repro_torch/kernels/csrc/fused_argmax_head.cu",
              replaces="src/repro/kernels/fused_topk_head.py:170",
@@ -4031,17 +4486,23 @@ def main() -> int:
              t32={k: verify_rows[(8, 32)][k] for k in TIMES},
              routes={k: v for k, v in routes.items()
                      if k.startswith("verify")},
-             d18432=wide_rows["verify_B8_T8"]),
+             d18432=wide_rows["verify_B8_T8"],
+             starcoder2_untied_b8_t8={k: sc2_rows["verify_b8_t8"][k]
+                                      for k in TIMES}),
         dict(name="flash_attention", route="cuda",
              source="src/repro_torch/kernels/csrc/flash_attention.cu",
              replaces="src/repro/kernels/flash_attention.py:76",
              launches=launches["flash_attention"],
-             max_abs_err=max(r["max_abs_err"] for r in flash_rows.values()),
+             max_abs_err=max(r["max_abs_err"] for r in [
+                 *flash_rows.values(), sc2_rows["flash_t512_g9"]]),
              **{k: flash_rows["T512"][k] for k in TIMES},
              g8={k: flash_rows["T512_g8"][k] for k in TIMES},
              hd192={k: v for k, v in hd192_rows.items()
                     if k.startswith("flash")},
-             routes=fa_routes),
+             routes=fa_routes,
+             starcoder2_launches=sc2_launches["flash_attention"],
+             starcoder2_t512_g9={k: sc2_rows["flash_t512_g9"][k]
+                                 for k in TIMES + ("max_abs_err",)}),
         dict(name="step_graph", route="cuda",
              source="src/repro_torch/serve/step_graph.py",
              replaces="src/repro/serve/engine.py:164",

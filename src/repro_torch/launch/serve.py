@@ -3,6 +3,7 @@
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-0.6b \
       --smoke --requests 8 --slots 4 [--device cpu] \
       [--head-mode reduced|softmax|fused|temperature] \
+      [--kv-layout paged|dense] [--scheduler fused|cohort] \
       [--top-k 4 --temperature 0.8] [--spec-k 4] \
       [--chunk-size 16 [--token-budget 64]] [--host-stride 8] \
       [--attn-approx pseudo [--attn-window 128]] [--serve-http 8000]
@@ -17,10 +18,15 @@ are random, from a ``torch.Generator`` seeded with ``--seed``.
 /v1/stats`` HTTP server over the ``LLM`` facade, the engine pumped from
 a background thread; per-request SamplingParams arrive in the body.
 
-Modes the port does not serve yet are refused, never replaced:
-``--head-mode sharded``, ``--kv-layout dense``, ``--scheduler cohort``
-and ``--tp`` raise the engine's ``NotImplementedError``, ``--replicas``
-above 1 raises here (the port has no multi-replica router).
+``--kv-layout dense`` serves the reference's per-slot dense cache (the
+paged path's oracle) and ``--scheduler cohort`` its one-step-per-
+(position, sampler) baseline; as in the reference, a dense engine
+refuses ``--attn-approx`` / ``--attn-window`` (``ValueError``) and
+either mode warns and drops ``--chunk-size``, the cohort scheduler
+``--host-stride`` too.  Modes the port does not serve yet are refused,
+never replaced: ``--head-mode sharded`` and ``--tp`` raise the engine's
+``NotImplementedError``, ``--replicas`` above 1 raises here (the port
+has no multi-replica router).
 """
 from __future__ import annotations
 

@@ -1,6 +1,6 @@
-"""Serving steps over the model: one-shot paged prefill, the decode
-step and the device-resident multi-step decode, each ending in a sampler
-head.
+"""Serving steps over the model: one-shot prefill (dense or paged), the
+decode step and the device-resident multi-step decode, each ending in a
+sampler head.
 
 Counterpart of the serving half of ``repro.models.api``.  ``sampler`` is
 a ``repro_torch.serve.sampler.Sampler`` (its ``head`` turns the final
@@ -19,13 +19,23 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import lm
 
 
+def serve_prefill(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
+                  max_len: int, sampler):
+    """Prompt pass for the dense layout: returns (head output, cache),
+    the cache's ``(L, B, max_len, Hkv, hd)`` leaves zero-padded past the
+    prompt (``lm.prefill``); the engine copies a B = 1 cache into its
+    slot's row (``PagedKVStore.admit``)."""
+    h, cache = lm.prefill(params, cfg, tokens, max_len)
+    return sampler.head(params, cfg, h), cache
+
+
 def serve_decode(params: dict, cfg: ModelConfig, token: torch.Tensor,
                  cache: list, pos: torch.Tensor, sampler, *,
                  block_tables: Optional[torch.Tensor] = None):
-    """One token step: returns (head output, cache).  ``pos`` is (B,) --
-    every row at its own position -- or (B, T) for a (B, T) window, whose
-    head then reads position 0.  The pools in ``cache`` are written in
-    place.
+    """One token step: returns (head output, cache).  ``pos`` is a scalar,
+    (B,) -- every row at its own position -- or (B, T) for a (B, T)
+    window, whose head then reads position 0.  The cache (paged pools
+    with ``block_tables``, dense leaves without) is written in place.
 
     The step with one head, as ``repro.models.api.serve_decode`` has it,
     for callers outside the engine; ``ServeEngine._decode_rows`` runs
@@ -102,7 +112,8 @@ class MultiCarry:
 def decode_multi_step(params: dict, cfg: ModelConfig, c: MultiCarry,
                       cache: list, row_sets: Sequence[torch.Tensor], *,
                       eos_id: int, samplers: Sequence,
-                      block_tables: torch.Tensor,
+                      block_tables: Optional[torch.Tensor] = None,
+                      cache_rows: Optional[torch.Tensor] = None,
                       layers: Optional[list] = None) -> None:
     """One iteration of the multi-step decode, in place on ``c`` and the
     pools: the trunk at T 1 over every row, one ``sample_device`` per
@@ -118,11 +129,14 @@ def decode_multi_step(params: dict, cfg: ModelConfig, c: MultiCarry,
     the next position; any other row repeats its last (token, position),
     so it rewrites the K/V cell it wrote last with the same values -- a
     no-op that never writes past the block table's cover, which reaches
-    each row's last emitting write only.  It reads nothing on the host,
-    so a CUDA graph can capture it (``serve.step_graph``)."""
+    each row's last emitting write only.  ``cache`` holds paged pools
+    with ``block_tables``, else dense leaves with ``cache_rows``
+    (``lm.decode_step``).  It reads nothing on the host, so a CUDA graph
+    can capture it (``serve.step_graph``)."""
     active = c.active()
     h, _ = lm.decode_step(params, cfg, c.tok[:, None], cache, c.pos,
-                          block_tables=block_tables, layers=layers)
+                          block_tables=block_tables, cache_rows=cache_rows,
+                          layers=layers)
     draws = any(s.draws for s in samplers)
     split = prng.split(c.keys) if draws else None    # (B, 2, 2)
     sampled = c.tok.clone()
@@ -146,7 +160,8 @@ def serve_decode_multi(params: dict, cfg: ModelConfig, token: torch.Tensor,
                        emit_caps: torch.Tensor,
                        row_sets: Sequence[torch.Tensor], *, steps: int,
                        eos_id: int, samplers: Sequence,
-                       block_tables: torch.Tensor,
+                       block_tables: Optional[torch.Tensor] = None,
+                       cache_rows: Optional[torch.Tensor] = None,
                        layers: Optional[list] = None):
     """Device-resident multi-step decode, eagerly: up to ``steps``
     iterations of ``decode_multi_step`` -- trunk, K/V writes, keyed
@@ -160,12 +175,13 @@ def serve_decode_multi(params: dict, cfg: ModelConfig, token: torch.Tensor,
     keys (B, 2), emit_caps (B,) each row's cap (the engine folds
     ``max_new_tokens``, ``max_len`` and the block cover into it; 0 for a
     padding row), ``samplers`` the full samplers of the groups and
-    ``row_sets`` their rows.  Returns ``(out (B, steps) int64 with -1
-    padding, emitted (B,) int32, new keys (B, 2), the iterations run)``;
-    the pools in ``cache`` are written in place."""
+    ``row_sets`` their rows; ``block_tables`` or ``cache_rows`` as
+    ``decode_multi_step`` takes them.  Returns ``(out (B, steps) int64
+    with -1 padding, emitted (B,) int32, new keys (B, 2), the iterations
+    run)``; the cache is written in place."""
     c = MultiCarry.start(token, pos, keys, emit_caps, steps)
     while int(c.step) < steps and bool(c.active().any()):
         decode_multi_step(params, cfg, c, cache, row_sets, eos_id=eos_id,
                           samplers=samplers, block_tables=block_tables,
-                          layers=layers)
+                          cache_rows=cache_rows, layers=layers)
     return c.out, c.emitted, c.keys, int(c.step)

@@ -3,12 +3,14 @@
 Counterpart of ``repro.models.layers``: the same math in the same order
 and at the same precision points -- norms and RoPE in f32 cast back to
 the compute dtype; the prefill's attention is the JAX package's flash
-path (``use_pallas``: f32 scores, masked at -inf), the decode's the
-paged kernel's -- so the port's hidden states track the JAX package's.
+path (``use_pallas``: f32 scores, masked at -inf), the paged decode's
+the paged kernel's, the dense decode's the reference's einsum -- so the
+port's hidden states track the JAX package's.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Optional
 
 import torch
@@ -68,61 +70,98 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
 @dataclasses.dataclass(frozen=True)
 class StepConstants:
     """What every layer of one forward pass shares, computed once by
-    ``step_constants``: the RoPE table and, for a paged decode step, where
-    each query's new K/V row goes and what the paged kernel reads.
+    ``step_constants``: the RoPE table and, for a decode step, where each
+    query's new K/V row goes and what the attention reads.
 
     cos, sin    (B or 1, T, 1, hd/2) f32, ``rope_table`` of the positions
+    cpm         (B or 1, T) int64: each query's cache position
+    paged cache (``block_tables``):
     blk, off    (B, T) int64: pool block and offset of each query's row
     tables      (B, nb) int32 block tables
     positions   (B,) int32 at T = 1, else (B, T): each query's position
-    cpm         (B, T) int64 positions (the probe tap's operand)
+    dense cache (``cache_len``):
+    mask        (B or 1, 1, 1, T, S) bool: the keys each query sees
+    rows        (B,) int64: the cache row of each batch row, or None when
+                batch row b is cache row b
     """
 
     cos: torch.Tensor
     sin: torch.Tensor
+    cpm: Optional[torch.Tensor] = None
     blk: Optional[torch.Tensor] = None
     off: Optional[torch.Tensor] = None
     tables: Optional[torch.Tensor] = None
     positions: Optional[torch.Tensor] = None
-    cpm: Optional[torch.Tensor] = None
+    mask: Optional[torch.Tensor] = None
+    rows: Optional[torch.Tensor] = None
 
 
 def step_constants(cfg: ModelConfig, positions: torch.Tensor, *,
                    cache_pos: Optional[torch.Tensor] = None,
                    block_tables: Optional[torch.Tensor] = None,
-                   block_size: Optional[int] = None) -> StepConstants:
-    """The step's constants for ``positions`` ((B, T) or (T,)); with
-    ``cache_pos`` ((B,) or (B, T)), ``block_tables`` (B, nb) and the
-    pools' ``block_size``, the paged branch's too.  A (B,) ``cache_pos``
-    covers a consecutive window of T queries."""
+                   block_size: Optional[int] = None,
+                   cache_len: Optional[int] = None,
+                   rows: Optional[torch.Tensor] = None,
+                   window: Optional[int] = None) -> StepConstants:
+    """The step's constants for ``positions`` ((B, T) or (T,)).  With
+    ``cache_pos`` -- a scalar (every row at one position), (B,) (a
+    consecutive window of T queries from each row's own position) or
+    (B, T) -- either the paged branch's (``block_tables`` (B, nb) and the
+    pools' ``block_size``) or the dense branch's (the cache's
+    ``cache_len`` S, the optional cache ``rows`` and the architecture
+    ``window`` of the mask)."""
     cos, sin = rope_table(positions, cfg.head_dim, cfg.rope_theta)
     if cache_pos is None:
         return StepConstants(cos, sin)
-    B, T = block_tables.shape[0], cos.shape[1]
-    cpm = cache_pos if cache_pos.dim() == 2 else cache_pos[:, None]
-    if cache_pos.dim() == 1 and T > 1:
-        cpm = cpm + torch.arange(T, device=cache_pos.device)
-    cpm = cpm.expand(B, T).long()
+    T = cos.shape[1]
+    cpm = cache_pos.long()
+    if cpm.dim() == 0:
+        cpm = (cpm + torch.arange(T, device=cpm.device))[None]
+    elif cpm.dim() == 1:
+        cpm = cpm[:, None] + torch.arange(T, device=cpm.device)
+    if block_tables is None:
+        kv = torch.arange(cache_len, device=cpm.device)
+        m = kv <= cpm[:, :, None]
+        if window is not None:
+            m &= kv > cpm[:, :, None] - window
+        return StepConstants(cos, sin, cpm=cpm, mask=m[:, None, None],
+                             rows=rows)
+    B = block_tables.shape[0]
+    cpm = cpm.expand(B, T)
     blk = torch.gather(block_tables.long(), 1, cpm // block_size)
-    return StepConstants(cos, sin, blk=blk, off=cpm % block_size,
+    return StepConstants(cos, sin, cpm=cpm, blk=blk, off=cpm % block_size,
                          tables=block_tables.to(torch.int32),
                          positions=(cpm[:, 0] if T == 1 else cpm).to(
-                             torch.int32), cpm=cpm)
+                             torch.int32))
 
 
 def activate(h_gate: torch.Tensor, h_up: Optional[torch.Tensor],
              kind: str) -> torch.Tensor:
+    """The MLP's nonlinearity: a GLU form (``*_glu``: the gate times
+    ``h_up``) or a plain one over ``h_gate`` alone.  ``jax.nn.gelu``
+    defaults to the tanh approximation, so both gelu forms take it."""
     if kind == "silu_glu":
         return F.silu(h_gate) * h_up
     if kind == "gelu_glu":
-        # jax.nn.gelu defaults to the tanh approximation
         return F.gelu(h_gate, approximate="tanh") * h_up
-    raise NotImplementedError(f"activation {kind!r}: the port has the GLU "
-                              "forms only")
+    if kind == "gelu":
+        return F.gelu(h_gate, approximate="tanh")
+    if kind == "relu":
+        return F.relu(h_gate)
+    if kind in ("squared_relu", "relu_sq"):
+        r = F.relu(h_gate)
+        return r * r
+    raise ValueError(f"activation {kind!r}: expected silu_glu, gelu_glu, "
+                     "gelu, relu, squared_relu or relu_sq")
 
 
 def mlp(p: dict, x: torch.Tensor, kind: str) -> torch.Tensor:
-    h = activate(x @ p["w_gate"], x @ p["w_up"], kind)
+    """``activate(x @ w_gate, x @ w_up) @ w_out`` for a GLU kind,
+    ``activate(x @ w_in) @ w_out`` otherwise."""
+    if kind.endswith("_glu"):
+        h = activate(x @ p["w_gate"], x @ p["w_up"], kind)
+    else:
+        h = activate(x @ p["w_in"], None, kind)
     return h @ p["w_out"]
 
 
@@ -145,16 +184,24 @@ def attention(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
     """Returns ``(out, extra)``; ``consts`` is the pass's
     ``step_constants``.
 
-    ``cache is None``: the cache-less branch (prefill) -- attention over
-    the T positions of ``x`` through ``ops.flash_attention`` (``causal``,
-    ``window``: the plain version on the CPU, the kernel on the card);
-    ``extra`` is the (k, v) the prefill builds its cache from.
+    ``cache is None``: the cache-less branch (prefill, ``lm.forward``) --
+    attention over the T positions of ``x`` through
+    ``ops.flash_attention`` (``causal``, ``window``: the plain version on
+    the CPU, the kernel on the card); ``extra`` is the (k, v) the prefill
+    builds its cache from.
 
-    ``cache`` (the shared ``(num_blocks, bs, Hkv, hd)`` pools) with the
-    paged fields of ``consts``: the paged branch -- each new K/V row is
-    written into its pool block in place, then attention reads the pool
-    through the table (``ops.paged_attention``); ``extra`` is the pools
-    themselves.
+    ``cache`` with the paged fields of ``consts``: the shared ``(num_blocks,
+    bs, Hkv, hd)`` pools -- each new K/V row is written into its pool
+    block in place, then attention reads the pool through the table
+    (``ops.paged_attention``); ``extra`` is the pools themselves.
+
+    ``cache`` with the dense fields: the linear dense cache ``(N, S, Hkv,
+    hd)`` -- each new K/V row is written at its position of its cache row
+    in place, then every query attends over its row's S positions under
+    ``consts.mask`` in plain torch, as the reference's XLA einsum does:
+    scores in the compute dtype then f32, masked at -1e30, softmax, cast
+    back.  A windowed layer whose cache is exactly ``window`` long is the
+    reference's ring buffer, which the port does not have.
     """
     B, T, _ = x.shape
     hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
@@ -177,9 +224,7 @@ def attention(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
         return out @ p["wo"], (k, v)
 
     if consts.tables is None:
-        raise NotImplementedError(
-            "the port's decode attention is the paged branch only: build "
-            "the step constants with cache_pos and block_tables")
+        return _dense_attention(p, q, k, v, cfg, consts, window, cache)
     # The new K/V rows go into the shared pools IN PLACE.  The JAX package
     # scatters into a donated copy (``.at[].set``); PyTorch mutates the
     # pool tensor the store owns.  Rows that repeat another row's (token,
@@ -197,3 +242,33 @@ def attention(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
                             window=cfg.attn_window)
     out = o.reshape(B, T, hq * hd).to(x.dtype)
     return out @ p["wo"], cache
+
+
+def _dense_attention(p, q, k, v, cfg: ModelConfig, consts: StepConstants,
+                     window: Optional[int], cache: dict):
+    """The linear dense-cache branch of ``attention`` (reference
+    ``layers.py:300-360`` and the grouped decode einsum after it): write
+    each query's K/V row at (its cache row, its position), in place --
+    rows repeating another's (token, position) write identical values --
+    then grouped-query attention over the cache rows."""
+    B, T, hq, hd = q.shape
+    hkv, dt = cfg.n_kv_heads, q.dtype
+    S = cache["k"].shape[1]
+    if window is not None and S == window:
+        raise NotImplementedError(
+            "a windowed layer's ring-buffer cache: the port has the linear "
+            "dense cache only")
+    cpm = consts.cpm.expand(B, T)
+    rows = consts.rows if consts.rows is not None else torch.arange(
+        B, device=q.device)
+    cache["k"].index_put_((rows[:, None], cpm), k.to(cache["k"].dtype))
+    cache["v"].index_put_((rows[:, None], cpm), v.to(cache["v"].dtype))
+    ck, cv = cache["k"], cache["v"]
+    if consts.rows is not None:
+        ck, cv = ck[rows], cv[rows]
+    qg = q.reshape(B, T, hkv, hq // hkv, hd)
+    scores = torch.einsum("btkgh,bskh->bkgts", qg, ck.to(dt)) / math.sqrt(hd)
+    scores = scores.float().masked_fill(~consts.mask, -1e30)
+    probs = torch.softmax(scores, dim=-1).to(dt)
+    out = torch.einsum("bkgts,bskh->btkgh", probs, cv.to(dt))
+    return out.reshape(B, T, hq * hd) @ p["wo"], cache

@@ -7,8 +7,9 @@ segment slot), already cast to the compute dtype; the JAX package's
 
 Caches keep the JAX tree structure, ``[{"slot0": {"attn": {"k", "v"}}}]``
 per segment: a prefill returns the dense ``(L, B, max_len, Hkv, hd)``
-leaves, a decode step takes the paged store's ``(L, num_blocks, bs,
-Hkv, hd)`` pools and writes them in place.
+leaves; a decode step takes either the paged store's ``(L, num_blocks,
+bs, Hkv, hd)`` pools (with block tables) or dense ``(L, N, S, Hkv, hd)``
+leaves, and writes them in place.
 """
 from __future__ import annotations
 
@@ -48,6 +49,23 @@ def lm_head_weight(params: dict, cfg: ModelConfig) -> torch.Tensor:
 def final_hidden(params: dict, cfg: ModelConfig,
                  x: torch.Tensor) -> torch.Tensor:
     return rms_norm(x, params["final_norm"], cfg.norm_eps)
+
+
+def logits_fn(params: dict, cfg: ModelConfig,
+              x: torch.Tensor) -> torch.Tensor:
+    """(..., D) -> (..., V) f32 logits ``x @ W``, as the JAX package's
+    ``jnp.dot(x, W, preferred_element_type=jnp.float32)``.  On the card
+    one GEMM reads the bf16 W in place and writes f32
+    (``aten::mm.dtype``), with no f32 copy of W (622 MB at qwen3-0.6b's
+    width); on the CPU, where that overload has no kernel, ``x.float() @
+    W.float()``."""
+    w = lm_head_weight(params, cfg)
+    h = x.reshape(-1, x.shape[-1])
+    if h.device.type == "cpu":
+        out = torch.matmul(h.float(), w.float())
+    else:
+        out = torch.mm(h, w, out_dtype=torch.float32)
+    return out.reshape(*x.shape[:-1], out.shape[-1])
 
 
 def _layer(sp: dict, l: int) -> dict:
@@ -90,6 +108,22 @@ def init_cache(cfg: ModelConfig, batch_size: int, max_len: int,
     return caches
 
 
+def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor):
+    """The eval forward over ``tokens`` (B, S): returns (f32 logits (B,
+    S, V), aux loss 0.0; the dense family has no router loss).  The
+    reference's train-mode attention is masked softmax over all S
+    positions; this is the same function through the cache-less branch
+    (``ops.flash_attention``, causal, the architecture window)."""
+    S = tokens.shape[1]
+    x = embed_tokens(params, cfg, tokens)
+    consts = step_constants(cfg, torch.arange(S, device=tokens.device))
+    for seg_layers in layer_params(params, cfg):
+        for slots in seg_layers:
+            for p in slots:
+                x, _ = _apply_layer(p, x, cfg, consts=consts)
+    return logits_fn(params, cfg, final_hidden(params, cfg, x)), 0.0
+
+
 def prefill(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
             max_len: int):
     """Process the prompt (B, S): returns (last hidden (B, D), cache) with
@@ -112,38 +146,48 @@ def prefill(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
 def decode_step(params: dict, cfg: ModelConfig, token: torch.Tensor,
                 caches: list, pos: torch.Tensor, *,
                 block_tables: Optional[torch.Tensor] = None,
+                cache_rows: Optional[torch.Tensor] = None,
                 layers: Optional[list] = None):
-    """One decode step over the paged pools.
+    """One decode step, the caches written in place.
 
-    token (B, T) int; pos (B,) -- each row at its own position, RAGGED
-    decode -- or (B, T) per-(row, query) positions; ``caches`` holds the
-    store's pools, written in place; ``layers`` is ``layer_params(params,
-    cfg)`` where the caller keeps it.  The RoPE table and the paged
-    branch's indices are computed once for all layers
+    token (B, T) int; pos a scalar (every row at one position), (B,) --
+    each row at its own position, RAGGED decode, a window of T
+    consecutive queries from it -- or (B, T) per-(row, query) positions.
+    With ``block_tables`` (B, nb) the caches hold the paged store's
+    pools; without, dense ``(L, N, S, Hkv, hd)`` leaves, batch row b in
+    cache row ``cache_rows[b]`` (default b).  ``layers`` is
+    ``layer_params(params, cfg)`` where the caller keeps it.  The RoPE
+    table and the cache indices are computed once for all layers
     (``layers.step_constants``).  Returns (h, caches): h is (B, D) for
     T == 1 and (B, T, D) otherwise."""
-    if block_tables is None:
-        raise NotImplementedError(
-            "decode_step runs the paged layout only: pass block_tables")
     T = token.shape[1]
     if pos.dim() == 2:
         positions = pos                                   # (B, T)
     elif pos.dim() == 1:
         positions = pos[:, None] + torch.arange(T, device=pos.device)
+    elif pos.dim() == 0:
+        positions = pos + torch.arange(T, device=pos.device)   # (T,)
     else:
-        raise ValueError(f"pos must be (B,) or (B, T); got {tuple(pos.shape)}")
+        raise ValueError(f"pos must be a scalar, (B,) or (B, T); got "
+                         f"{tuple(pos.shape)}")
     if layers is None:
         layers = layer_params(params, cfg)
-    consts = step_constants(
-        cfg, positions, cache_pos=pos, block_tables=block_tables,
-        block_size=caches[0]["slot0"]["attn"]["k"].shape[2])
+    leaf = caches[0]["slot0"]["attn"]["k"]
+    if block_tables is not None:
+        consts = step_constants(cfg, positions, cache_pos=pos,
+                                block_tables=block_tables,
+                                block_size=leaf.shape[2])
+    else:
+        consts = step_constants(cfg, positions, cache_pos=pos,
+                                cache_len=leaf.shape[2], rows=cache_rows,
+                                window=cfg.attention_window)
     x = embed_tokens(params, cfg, token)
     for seg_layers, seg_cache in zip(layers, caches):
         for l, slots in enumerate(seg_layers):
             for j, p in enumerate(slots):
-                pools = seg_cache[f"slot{j}"]["attn"]
+                kv = seg_cache[f"slot{j}"]["attn"]
                 x, _ = _apply_layer(p, x, cfg, consts=consts, cache={
-                    "k": pools["k"][l], "v": pools["v"][l]})
+                    "k": kv["k"][l], "v": kv["v"][l]})
     if T == 1:
         return final_hidden(params, cfg, x[:, 0, :]), caches
     return final_hidden(params, cfg, x), caches

@@ -182,9 +182,12 @@ def run_probe(params, cfg, prompts, *,
               **engine_kwargs) -> dict:
     """Serve ``prompts`` once per variant and report greedy divergence
     against the exact baseline (plus per-layer score error when
-    ``score_probe``).  ``engine_kwargs`` pass through to ``ServeEngine``;
-    ``window`` applies to every arm, the baseline included, so the
-    report isolates the score function's effect at that window."""
+    ``score_probe``).  ``engine_kwargs`` pass through to ``ServeEngine``
+    (``kv_layout='dense'`` has no paged path, so its first approximate
+    arm, or any ``window``, raises ``ValueError``, as the reference's
+    engine does); ``window`` applies to every arm, the baseline
+    included, so the report isolates the score function's effect at that
+    window."""
     variants = list(variants)
     if "exact" not in variants:
         variants = ["exact"] + variants

@@ -60,8 +60,9 @@ class LLM:
     """Facade over ``ServeEngine``: typed params in, typed outputs out.
 
     Constructor kwargs mirror the engine's (n_slots, max_len, eos_id,
-    head_mode, block_size, num_blocks, prefill_per_step, chunk_size,
-    token_budget, host_stride, prefix_cache, seed, drafter, ...);
+    head_mode, kv_layout, block_size, num_blocks, prefill_per_step,
+    scheduler, chunk_size, token_budget, host_stride, prefix_cache, seed,
+    drafter, ...);
     ``head_mode``
     is the default head — each request's ``SamplingParams.head_mode`` can
     override it, and ``drafter`` proposes the drafts of speculative

@@ -79,10 +79,21 @@ Counterpart of ``repro.serve.engine`` on its default path:
     and reach every decode and chunk row's paged attention; the one-shot
     prefill attends exactly over the whole prompt, as in the JAX package.
 
-The JAX engine's other modes are refused, not ignored: ``tp``/``mesh``,
-``scheduler='cohort'`` and ``kv_layout='dense'`` raise
-``NotImplementedError`` (or ``ValueError`` for values that are wrong in
-both packages).
+``kv_layout='dense'`` keeps the reference's per-slot ``max_len`` cache,
+the byte-identity oracle of the paged path: admission is a dense
+prefill copied into the slot's row (``api.serve_prefill``,
+``PagedKVStore.admit``), and the step's trunk writes the rows in place
+and attends over them in plain torch (``layers._dense_attention``); the
+approximate score modes, chunking and prefix sharing need the paged
+layout.  ``scheduler='cohort'`` is the reference's baseline scheduler:
+one step per (position, device-form sampler) group of the active slots,
+so ``decode_steps`` exceeds ``iterations``; it has no multi-token step
+(no chunking, no speculation) and no device loop.  Both run on the card
+as the fused paged step does, graphed per bucket.
+
+The JAX engine's other modes are refused, not ignored: ``tp``/``mesh``
+raise ``NotImplementedError`` (or ``ValueError`` for values that are
+wrong in both packages).
 """
 from __future__ import annotations
 
@@ -165,7 +176,9 @@ class StepPlan:
     row, or (None, None) for a mid-prefill chunk row;
     ``order`` the head groups in ``canonical_order``; ``arrays`` the
     device body's operands on the host -- tokens (B, T) int64, positions
-    (B,) or (B, T) int32, block tables (B, nb) int32, one (B,) int64 row
+    (B,) or (B, T) int32, the cache index (``ServeEngine._kv_index``:
+    block tables (B, nb) int32, or each row's slot (B,) int64 on the
+    dense layout), one (B,) int64 row
     vector per group, then the verify group's (B,) rows and (B, T-1)
     int32 draft ids when ``spec`` (B, its padded row count) is not 0;
     ``key`` the ``step_graph.bucket_key``."""
@@ -188,8 +201,8 @@ class LoopPlan:
     groups, ``arrays`` the loop's operands on the host -- the carry
     (``api.MultiCarry``'s fields in order: last tokens (B,) int64, next
     write positions (B,) int32, keys (B, 2) int64, emitted, halted, the
-    (B, K) out block, the step index, the emit caps), the block tables
-    (B, nb) int32 and each group's (B,) int64 rows; ``steps`` the
+    (B, K) out block, the step index, the emit caps), the cache index
+    (as ``StepPlan``'s) and each group's (B,) int64 rows; ``steps`` the
     iterations a graph replays (the largest cap); ``key`` the
     ``step_graph.loop_key``."""
     n_real: int
@@ -220,18 +233,12 @@ class ServeEngine:
         if kv_layout not in ("paged", "dense"):
             raise ValueError(f"kv_layout={kv_layout!r}: expected 'paged' "
                              "or 'dense'")
-        refused = {
-            "mesh": mesh,
-            "tp": None if tp in (None, 1) else tp,
-            "scheduler": None if scheduler == "fused" else scheduler,
-            "kv_layout": None if kv_layout == "paged" else kv_layout,
-        }
+        refused = {"mesh": mesh, "tp": None if tp in (None, 1) else tp}
         for name, value in refused.items():
             if value is not None:
                 raise NotImplementedError(
-                    f"{name}={value!r}: the port serves paged prefill (one "
-                    "shot or chunked) and the fused ragged step on one "
-                    "device only so far")
+                    f"{name}={value!r}: the port serves one device only so "
+                    "far")
         if prefill_per_step is not None and prefill_per_step < 1:
             raise ValueError(
                 f"prefill_per_step={prefill_per_step}: must be >= 1 "
@@ -253,6 +260,31 @@ class ServeEngine:
                 attn_window if attn_window is not None else cfg.attn_window)
             cfg = dataclasses.replace(cfg, attn_approx=mode,
                                       attn_window=win)
+        # the approximate score functions and the mask window live in the
+        # paged decode path only: on the dense layout they would never run
+        if (cfg.attn_approx != "exact" or cfg.attn_window is not None) \
+                and kv_layout == "dense":
+            raise ValueError(
+                f"attn_approx={cfg.attn_approx!r} / attn_window="
+                f"{cfg.attn_window!r} need the paged decode path; "
+                "kv_layout='dense' has no paged layers, so the mode would "
+                "never run")
+        # chunked prefill rides the paged multi-token step, which the
+        # cohort scheduler does not have; the device loop is the fused
+        # scheduler's.  Either falls back, loudly, as in the reference.
+        if chunk_size is not None and (kv_layout != "paged"
+                                       or scheduler != "fused"):
+            warnings.warn(
+                f"chunk_size={chunk_size} ignored: chunked prefill needs a "
+                "paged KV layout and scheduler='fused'; falling back to "
+                "one-shot admission", stacklevel=2)
+            chunk_size = None
+        if host_stride is not None and scheduler != "fused":
+            warnings.warn(
+                f"host_stride={host_stride} ignored: the device-resident "
+                "decode loop needs scheduler='fused'; falling back to "
+                "per-token dispatch", stacklevel=2)
+            host_stride = None
         # f32 master weights -> the compute dtype, ONCE (the JAX package
         # casts inside every jitted step)
         self.params = cast_params(params, cfg)
@@ -286,7 +318,7 @@ class ServeEngine:
         self.admit_order: List[int] = []              # admission recency
         self.store = PagedKVStore(cfg, n_slots=n_slots, max_len=max_len,
                                   device=self.device, block_size=block_size,
-                                  num_blocks=num_blocks)
+                                  num_blocks=num_blocks, layout=kv_layout)
         # every layer's param views, built once (lm.layer_params); the
         # decode step's CUDA graphs, one per shape bucket (step_graph)
         self._layers = lm.layer_params(self.params, cfg)
@@ -394,6 +426,10 @@ class ServeEngine:
                 f"spec_k={req.params.spec_k} requires the reduced "
                 f"comparator head (engine head_mode={self.head_mode!r} "
                 f"resolved to {req.sampler})")
+        if req.params.spec_k > 0 and self.scheduler != "fused":
+            raise ValueError(
+                f"spec_k={req.params.spec_k} requires scheduler='fused' "
+                "(the cohort baseline has no multi-token step)")
         if len(req.prompt) < 1:
             raise ValueError("empty prompt")
         if len(req.prompt) > self.max_len - 1:
@@ -498,19 +534,27 @@ class ServeEngine:
             t0 = time.perf_counter()
             if req.t_admit is None:       # re-prefill keeps the first stamp
                 req.t_admit = t0
-            blocks = self.store.alloc_blocks(i, S)
-            # the prefill writes [0, S) in place, so a shared cover would
-            # have to be copied here; one-shot slots only hold the fresh
-            # blocks just allocated (adoption is chunked-only), so this
-            # is the enforced no-op form of the copy-on-write rule
-            self.store.cow_for_write(i, 0, S - 1)
             tokens = torch.as_tensor(np.asarray(req.prompt, np.int64),
                                      device=self.device)[None]
-            dev_out = api.serve_prefill_paged(
-                self.params, self.cfg, tokens, self.store.prefill_len(S),
-                req.sampler.device_form(), pools=self.store.pools,
-                blocks=torch.as_tensor(blocks, dtype=torch.int64,
-                                       device=self.device))
+            plen = self.store.prefill_len(S)
+            if self.store.any_paged:
+                blocks = self.store.alloc_blocks(i, S)
+                # the prefill writes [0, S) in place, so a shared cover
+                # would have to be copied here; one-shot slots only hold
+                # the fresh blocks just allocated (adoption is
+                # chunked-only), so this is the enforced no-op form of the
+                # copy-on-write rule
+                self.store.cow_for_write(i, 0, S - 1)
+                dev_out = api.serve_prefill_paged(
+                    self.params, self.cfg, tokens, plen,
+                    req.sampler.device_form(), pools=self.store.pools,
+                    blocks=torch.as_tensor(blocks, dtype=torch.int64,
+                                           device=self.device))
+            else:
+                dev_out, cache1 = api.serve_prefill(
+                    self.params, self.cfg, tokens, plen,
+                    req.sampler.device_form())
+                self.store.admit(i, cache1)
             out = _to_host(dev_out)
             self._count_head(type(req.sampler).__name__)
             self.stats["prefill_ms"] += (time.perf_counter() - t0) * 1e3
@@ -625,7 +669,17 @@ class ServeEngine:
         active = [i for i in active if self.slots[i] is not None]
         if not active:
             return True
-        if (self.host_stride is not None
+        if self.scheduler == "cohort":
+            # the reference's baseline: one step per (position, device
+            # form) group, in sorted order
+            parts: Dict[tuple, list] = {}
+            for i in active:
+                dev = self.slots[i].sampler.device_form()
+                parts.setdefault((int(self.slot_pos[i]), repr(dev)),
+                                 []).append(i)
+            for key in sorted(parts):
+                self._decode_rows(parts[key])
+        elif (self.host_stride is not None
                 and not any(self._prefilling(i) for i in active)):
             # the device-resident loop: one host sync for up to
             # host_stride tokens a row.  An iteration with a mid-prefill
@@ -844,12 +898,12 @@ class ServeEngine:
             toks[r, w:] = win[-1]        # repeat last (token, position):
             posm[r, :w] = base + np.arange(w)
             posm[r, w:] = base + w - 1   # identical value, identical cell
-        btab = self.store.block_table(padded, posm[:, -1])
+        kv = self._kv_index(padded, posm[:, -1])
         b = len(padded)
         group_rows = [np.asarray(g + [g[0]] * (b - len(g)), np.int64)
                       for g in (groups[s] for s in order)]
         arrays = [toks, posm if T > 1 else np.ascontiguousarray(posm[:, 0]),
-                  btab, *group_rows]
+                  kv, *group_rows]
         spec = 0
         if spec_group:
             sg = spec_group + [spec_group[0]] * (b - len(spec_group))
@@ -859,7 +913,7 @@ class ServeEngine:
                 cand[o, :len(d)] = d
             arrays += [np.asarray(sg, np.int64), cand]
             spec = len(sg)
-        key = step_graph.bucket_key(order, toks.shape, btab.shape,
+        key = step_graph.bucket_key(order, toks.shape, self._table_shape(kv),
                                     [len(g) for g in group_rows], spec)
         return StepPlan(n_real, padded, drafts, chunks, where, order,
                         tuple(arrays), spec, key)
@@ -873,17 +927,35 @@ class ServeEngine:
             return self.graphs.run(plan.key, body, plan.arrays, self.device)
         return body(*step_graph.to_device(plan.arrays, self.device))
 
-    def _step_body(self, order: tuple, toks, pos, btab, *rest):
+    def _kv_index(self, padded: list, last_pos) -> np.ndarray:
+        """A step's cache index for the padded rows: the (B, nb) block
+        tables covering each row up to ``last_pos`` (paged), or each
+        row's slot as (B,) int64 (dense)."""
+        if self.store.any_paged:
+            return self.store.block_table(padded, last_pos)
+        return np.asarray(padded, np.int64)
+
+    def _table_shape(self, kv: np.ndarray):
+        """The block tables' shape for a graph key; None (dense)."""
+        return kv.shape if self.store.any_paged else None
+
+    def _kv_kwargs(self, kv) -> dict:
+        """``lm.decode_step``'s keyword for a ``_kv_index``."""
+        if self.store.any_paged:
+            return {"block_tables": kv}
+        return {"cache_rows": kv}
+
+    def _step_body(self, order: tuple, toks, pos, kv, *rest):
         """The fused step on the card: the trunk ONCE over all rows (the
-        pools written in place), then one head per group in ``order``
+        cache written in place), then one head per group in ``order``
         over its rows (``rest``'s first vectors), then, when ``rest``
         also holds the verify group's rows and draft ids, the comparator
         verify over their (T, D) hidden states.  It reads its inputs only
         from the tensors it is handed, so a captured body replays over
         new ones.  Returns (h, outputs), the verify group's last."""
         h, _ = lm.decode_step(self.params, self.cfg, toks,
-                              self.store.cache(), pos, block_tables=btab,
-                              layers=self._layers)
+                              self.store.cache(), pos, layers=self._layers,
+                              **self._kv_kwargs(kv))
         hl = h[:, -1] if h.dim() == 3 else h   # each row's last real query
         outs = [s.head(self.params, self.cfg, hl[r])
                 for s, r in zip(order, rest)]
@@ -978,15 +1050,17 @@ class ServeEngine:
         # cell; each row's table covers its last emitting write
         emit_caps = np.zeros(b, np.int32)
         emit_caps[:n_real] = [caps[i] for i in rows]
-        btab = self.store.block_table(
+        kv = self._kv_index(
             padded, pos + np.asarray([caps[i] for i in padded]) - 1)
         arrays = (np.asarray([self.slots[i].generated[-1] for i in padded],
                              np.int64), pos,
                   np.stack([self.slots[i].prng_key.numpy() for i in padded]),
                   np.zeros(b, np.int32), np.zeros(b, bool),
                   np.full((b, K), -1, np.int64), np.zeros(1, np.int64),
-                  emit_caps, btab, *group_rows)
-        key = step_graph.loop_key(order, b, btab.shape[1], K,
+                  emit_caps, kv, *group_rows)
+        table = self._table_shape(kv)
+        key = step_graph.loop_key(order, b, None if table is None
+                                  else table[1], K,
                                   [len(g) for g in group_rows])
         return LoopPlan(n_real, padded, order, arrays, int(emit_caps.max()),
                         key)
@@ -1002,23 +1076,24 @@ class ServeEngine:
             ops = self.graphs.run_loop(plan.key, body, plan.arrays,
                                        plan.steps, self.device)
             return ops[5], ops[3], ops[2], plan.steps
-        tok, pos, keys, _, _, _, _, caps, btab, *rows = step_graph.to_device(
+        tok, pos, keys, _, _, _, _, caps, kv, *rows = step_graph.to_device(
             plan.arrays, self.device)
         return api.serve_decode_multi(
             self.params, self.cfg, tok, self.store.cache(), pos, keys, caps,
             rows, steps=self.host_stride, eos_id=self._eos(),
-            samplers=plan.order, block_tables=btab, layers=self._layers)
+            samplers=plan.order, layers=self._layers,
+            **self._kv_kwargs(kv))
 
     def _loop_body(self, order: tuple, *operands):
         """One loop iteration over a ``LoopPlan``'s operands on the device
-        (the carry's fields, the block tables, each group's rows), in
+        (the carry's fields, the cache index, each group's rows), in
         place -- the body a graph captures."""
         carry = api.MultiCarry(*operands[:8])
-        btab, rows = operands[8], operands[9:]
+        kv, rows = operands[8], operands[9:]
         api.decode_multi_step(self.params, self.cfg, carry,
                               self.store.cache(), rows, eos_id=self._eos(),
-                              samplers=order, block_tables=btab,
-                              layers=self._layers)
+                              samplers=order, layers=self._layers,
+                              **self._kv_kwargs(kv))
 
     def _eos(self) -> int:
         """The eos id the loop halts on (-1: none)."""

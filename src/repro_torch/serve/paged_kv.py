@@ -1,6 +1,6 @@
-"""Paged (block) KV cache for the serving engine.
+"""Paged (block) KV cache for the serving engine, and the dense layout.
 
-Counterpart of ``repro.serve.paged_kv`` for the paged layout: the linear
+Counterpart of ``repro.serve.paged_kv``.  The paged layout: the linear
 K/V of every layer lives in two shared pools ``(L, num_blocks, bs, Hkv,
 hd)`` in the compute dtype, and each slot owns a block table mapping its
 view positions ``[j * bs, (j + 1) * bs)`` to pool blocks.  Blocks are
@@ -24,6 +24,13 @@ written in place, so ``_cow`` copies a shared block on the card (every
 layer, K and V) on the current stream, before the step that writes it
 is enqueued.  Trie runs no slot maps are LRU-evicted under pressure and
 count as free in every admission check.
+
+``layout='dense'`` is the reference's byte-identity oracle: no leaf is
+paged, each slot owns a ``max_len`` row of the dense leaves ``(L,
+n_slots, max_len, Hkv, hd)``, a one-shot prefill's cache is copied into
+it (``admit``) and the decode step writes it in place.  As in the
+reference, the block accounting is then empty: nothing is allocated,
+every admission and growth check passes, and there is no trie.
 """
 from __future__ import annotations
 
@@ -224,12 +231,16 @@ class PrefixTrie:
 
 
 class PagedKVStore:
-    """Owns the K/V pools of the engine cache, the per-slot block tables
-    and the prefix trie (paged layout only)."""
+    """Owns the K/V pools (paged layout) or the per-slot dense leaves
+    (``layout='dense'``) of the engine cache, the per-slot block tables
+    and the prefix trie."""
 
     def __init__(self, cfg: ModelConfig, *, n_slots: int, max_len: int,
                  device, block_size: int = 16,
-                 num_blocks: Optional[int] = None):
+                 num_blocks: Optional[int] = None, layout: str = "paged"):
+        if layout not in ("paged", "dense"):
+            raise ValueError(f"layout={layout!r}: expected 'paged' or "
+                             "'dense'")
         if cfg.attention_window is not None:
             raise NotImplementedError(
                 "sliding-window configs keep ring-buffer caches, which the "
@@ -243,32 +254,43 @@ class PagedKVStore:
             # default: the dense layout's worst-case residency; pass fewer
             # to overcommit (the scheduler defers/preempts on empty).
             num_blocks = n_slots * self.max_blocks_per_slot
-        shape = (cfg.n_layers, num_blocks, block_size, cfg.n_kv_heads,
-                 cfg.head_dim)
-        self.pools = {
-            "k": torch.zeros(shape, dtype=dtype_of(cfg), device=device),
-            "v": torch.zeros(shape, dtype=dtype_of(cfg), device=device)}
+        if layout == "paged":
+            shape = (cfg.n_layers, num_blocks, block_size, cfg.n_kv_heads,
+                     cfg.head_dim)
+        else:
+            shape = (cfg.n_layers, n_slots, max_len, cfg.n_kv_heads,
+                     cfg.head_dim)
+        leaves = {"k": torch.zeros(shape, dtype=dtype_of(cfg), device=device),
+                  "v": torch.zeros(shape, dtype=dtype_of(cfg), device=device)}
+        self.pools = leaves if layout == "paged" else None
+        self.denses = None if layout == "paged" else leaves
         self.allocator = BlockAllocator(num_blocks)
         self.slot_blocks: List[List[int]] = [[] for _ in range(n_slots)]
         self.prefix_trie = PrefixTrie(block_size)
         self.cow_copies = 0
         self.prefix_evictions = 0
 
+    @property
+    def any_paged(self) -> bool:
+        return self.pools is not None
+
     def cache(self) -> list:
-        """The pools as the model's cache tree (one dense segment)."""
-        return [{"slot0": {"attn": self.pools}}]
+        """The pools or the dense leaves as the model's cache tree (one
+        dense-family segment)."""
+        return [{"slot0": {"attn": self.pools if self.any_paged
+                           else self.denses}}]
 
     def usage(self) -> dict:
         """Pool occupancy snapshot (JSON-ready)."""
         a = self.allocator
         return {
-            "layout": "paged",
+            "layout": "paged" if self.any_paged else "dense",
             "block_size": self.block_size,
             "num_blocks": a.num_blocks,
             "blocks_free": a.n_free,
             "blocks_in_use": a.num_blocks - a.n_free,
-            "paged_leaves": len(self.pools),
-            "dense_leaves": 0,
+            "paged_leaves": 2 if self.any_paged else 0,
+            "dense_leaves": 0 if self.any_paged else 2,
             "peak_in_use": a.peak_in_use,
             "shared_blocks": a.n_shared,
             "prefix_blocks": self.prefix_trie.nodes,
@@ -279,7 +301,8 @@ class PagedKVStore:
 
     # -- block accounting ----------------------------------------------------
     def blocks_for(self, n_tokens: int) -> int:
-        return -(-n_tokens // self.block_size)
+        """Blocks covering ``n_tokens`` positions (0 with nothing paged)."""
+        return -(-n_tokens // self.block_size) if self.any_paged else 0
 
     @property
     def reclaimable_blocks(self) -> int:
@@ -319,6 +342,8 @@ class PagedKVStore:
                   chunk_size: Optional[int] = None) -> bool:
         """Enough free (or reclaimable) blocks to start serving the
         prompt now."""
+        if not self.any_paged:
+            return True
         return self._effective_free() >= self._blocks_needed(prompt_len,
                                                              chunk_size)
 
@@ -330,14 +355,19 @@ class PagedKVStore:
         admission allocates as it goes, so its bound is the final
         residency, the cover of the prompt plus its first decode write
         (``blocks_for(prompt_len + 1)``)."""
+        if not self.any_paged:
+            return True
         if chunk_size is not None:
             return self.allocator.num_blocks >= min(
                 self.blocks_for(prompt_len + 1), self.max_blocks_per_slot)
         return self.allocator.num_blocks >= self._blocks_needed(prompt_len)
 
     def prefill_len(self, prompt_len: int) -> int:
-        """The block-aligned prompt cover a prefill builds, so its K/V
-        reshapes straight into pool blocks."""
+        """The cache length a prefill builds: paged, the block-aligned
+        prompt cover, so its K/V reshapes straight into pool blocks;
+        dense, the whole ``max_len`` row."""
+        if not self.any_paged:
+            return self.max_len
         return self.blocks_for(prompt_len) * self.block_size
 
     # -- slot lifecycle ------------------------------------------------------
@@ -350,6 +380,18 @@ class PagedKVStore:
                              f"{self.slot_blocks[slot]}")
         self.slot_blocks[slot] = self._alloc(self.blocks_for(prompt_len))
         return self.slot_blocks[slot]
+
+    def admit(self, slot: int, cache: list) -> None:
+        """The dense layout's admission: copy a B = 1 prefill cache
+        (``api.serve_prefill`` at ``prefill_len``) into ``slot``'s row of
+        the dense leaves, on the leaves' device."""
+        if self.any_paged:
+            raise ValueError("admit copies into dense leaves; a paged store "
+                             "admits through alloc_blocks and "
+                             "api.serve_prefill_paged")
+        leaf = cache[0]["slot0"]["attn"]
+        for name, dense in self.denses.items():
+            dense[:, slot].copy_(leaf[name][:, 0])
 
     # -- copy-on-write -------------------------------------------------------
     def _cow(self, slot: int, k: int) -> None:
@@ -371,7 +413,7 @@ class PagedKVStore:
     def _cow_range(self, slot: int, start: int, end: int):
         """Table indices of ``slot``'s EXISTING blocks covering write
         positions [start, end] (inclusive)."""
-        if end < start or not self.slot_blocks[slot]:
+        if not self.any_paged or end < start or not self.slot_blocks[slot]:
             return range(0)
         bs = self.block_size
         return range(max(start // bs, 0),
@@ -391,6 +433,8 @@ class PagedKVStore:
         is shared: shared ones are copied here.  Returns False when the
         pool can't supply the growth plus the copies (the caller defers
         or preempts); never raises mid-write."""
+        if not self.any_paged:
+            return True
         need = pos // self.block_size + 1
         have = len(self.slot_blocks[slot])
         start = pos if write_start is None else write_start
@@ -410,6 +454,8 @@ class PagedKVStore:
         succeed right now, WITHOUT allocating -- the engine sizes a draft
         or chunk window to the free pool instead of preempting a
         neighbour."""
+        if not self.any_paged:
+            return True
         need = pos // self.block_size + 1
         start = pos if write_start is None else write_start
         n_cow = sum(1 for k in self._cow_range(slot, start, pos)
@@ -425,6 +471,8 @@ class PagedKVStore:
         block now wholly past the cover goes back to the free list.  The
         next write lands at ``pos``, so a covering block a sibling
         adopted meanwhile is copied here first."""
+        if not self.any_paged:
+            return
         keep = pos // self.block_size + 1
         extra = self.slot_blocks[slot][keep:]
         if extra:
@@ -435,7 +483,10 @@ class PagedKVStore:
 
     # -- prefix cache --------------------------------------------------------
     def match_prefix(self, tokens) -> tuple:
-        """Longest cached whole-block run for ``tokens``."""
+        """Longest cached whole-block run for ``tokens`` (``([], 0)`` with
+        nothing paged)."""
+        if not self.any_paged:
+            return [], 0
         return self.prefix_trie.match_prefix(tokens)
 
     def adopt_prefix(self, slot: int, tokens) -> int:
@@ -459,7 +510,7 @@ class PagedKVStore:
         to it, and duplicates of runs already cached are dropped."""
         blocks = self.slot_blocks[slot]
         self.slot_blocks[slot] = []
-        if publish_tokens is not None and blocks:
+        if publish_tokens is not None and self.any_paged and blocks:
             nb = min(len(publish_tokens) // self.block_size, len(blocks))
             if nb:
                 _, dupes = self.prefix_trie.publish(
@@ -471,16 +522,19 @@ class PagedKVStore:
 
     # -- ragged batch views --------------------------------------------------
     def block_table(self, idxs, positions, *,
-                    pad_pow2: bool = True) -> np.ndarray:
+                    pad_pow2: bool = True) -> Optional[np.ndarray]:
         """(B, nb_max) int32 table where row r covers positions
         [0, positions[r]] for slot ``idxs[r]`` -- rows may sit at
-        DIFFERENT positions (ragged fused decode).
+        DIFFERENT positions (ragged fused decode); None with nothing
+        paged.
 
         Rows shorter than the widest are padded with their own first
         block, and ``pad_pow2`` pads the column count to the next power
         of two the same way; every padded column sits past its row's
         ``positions[r]``, so the per-row kv_pos <= pos mask discards it.
         """
+        if not self.any_paged:
+            return None
         positions = np.broadcast_to(
             np.asarray(positions, np.int64).reshape(-1), (len(idxs),))
         nbs = positions // self.block_size + 1

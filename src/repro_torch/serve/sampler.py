@@ -67,17 +67,8 @@ from repro_torch.serve.params import SamplingParams
 MAX_TOP_K = 64
 
 
-def f32_logits(params: dict, cfg: ModelConfig,
-               h: torch.Tensor) -> torch.Tensor:
-    """(B, V) f32 logits ``h @ W``, as the JAX package's ``jnp.dot(h, W,
-    preferred_element_type=jnp.float32)``.  On the card one GEMM reads
-    the bf16 W in place and writes f32 (``aten::mm.dtype``), with no f32
-    copy of W (622 MB at qwen3-0.6b's width); on the CPU, where that
-    overload has no kernel, ``h.float() @ W.float()``."""
-    w = lm.lm_head_weight(params, cfg)
-    if h.device.type == "cpu":
-        return torch.matmul(h.float(), w.float())
-    return torch.mm(h, w, out_dtype=torch.float32)
+# (B, V) f32 logits of the Temperature and softmax-baseline heads
+f32_logits = lm.logits_fn
 
 
 class Sampler:

@@ -6,16 +6,20 @@ compiles the trunk, every head group and the speculative verify into one
 XLA program, cached per (cfg, sampler tuple, ...) and per operand shape,
 with the row-index vectors as traced operands.  Here the engine's device
 body (``ServeEngine._step_body``) is captured once per bucket --
-``bucket_key``: (B, nb, T, the canonical tuple of device-form samplers,
-each group's padded row count, the spec group's or 0; the engine pads
-every group to B, so a key does not follow how rows split) --
+``bucket_key``: (B, nb -- or "dense" on the dense layout --, T, the
+canonical tuple of device-form samplers, each group's padded row count,
+the spec group's or 0; the engine pads every group to B, so a key does
+not follow how rows split) --
 and replayed for every later step of the bucket, its inputs copied into
 the graph's static buffers.  The engine already pads every shape to a
 power of two, and each kernel's launch plan reads shapes only
 (``paged_attention.plan_split``, ``fused_argmax_head.head_plan``,
 ``fused_topk_head.topk_plan``), so one capture serves every batch of its
 bucket: which rows belong to which head, their positions and block ids
-are operands.
+are operands.  On the dense layout the cache index is each row's slot,
+an operand too, and the dense leaves, like the pools, are allocated once
+outside the graph pool.  Under ``scheduler='cohort'`` each (position,
+sampler) group is a step of its own and keys its own bucket.
 
 The first step of a bucket runs eagerly.  It is a real step (its tokens
 are emitted) and warms what a capture must not do for the first time:
@@ -60,7 +64,7 @@ import contextlib
 import dataclasses
 import gc
 import time
-from typing import Dict, Sequence
+from typing import Dict, Optional, Sequence
 
 import numpy as np
 import torch
@@ -107,19 +111,23 @@ def bucket_key(order: Sequence, toks_shape, table_shape,
     sizes, spec size) from the (B, T) tokens' and (B, nb) block tables'
     shapes, the canonical tuple of device-form samplers ``order``, each
     group's padded row count and the verify group's (0 without one) --
-    the shapes and static arguments of the reference's compiled step."""
-    (b, t), nb = toks_shape, table_shape[1]
+    the shapes and static arguments of the reference's compiled step.
+    The layout rides in the nb place: ``table_shape`` None (the dense
+    layout, no table) keys "dense"."""
+    (b, t) = toks_shape
+    nb = "dense" if table_shape is None else table_shape[1]
     return (b, nb, t, tuple(order), tuple(group_sizes), spec_size)
 
 
-def loop_key(order: Sequence, batch: int, table_width: int, steps: int,
-             group_sizes: Sequence[int]) -> tuple:
+def loop_key(order: Sequence, batch: int, table_width: Optional[int],
+             steps: int, group_sizes: Sequence[int]) -> tuple:
     """The graph cache's key for one iteration of the multi-step loop:
     ("loop", B, nb, the stride, the full samplers, group sizes) -- the
     static arguments and shapes of the reference's ``_jitted_multistep``
-    (its row sets padded to B here, as ``bucket_key``'s)."""
-    return ("loop", batch, table_width, steps, tuple(order),
-            tuple(group_sizes))
+    (its row sets padded to B here, as ``bucket_key``'s); nb is "dense"
+    where ``table_width`` is None (the dense layout)."""
+    return ("loop", batch, "dense" if table_width is None else table_width,
+            steps, tuple(order), tuple(group_sizes))
 
 
 def kernel_wrappers() -> dict:

@@ -11,6 +11,8 @@ The tree keeps the JAX package's stacked layout (``repro.models.lm``):
                                     "w_out": (L, F, D)}}}],
      "lm_head": (D, V)}                       # only when not tied
 
+with ``"mlp": {"w_in": (L, D, F), "w_out": (L, F, D)}`` for an
+activation that is not a GLU (gelu, relu, squared_relu),
 so the bridge from JAX is a pure copy and the layer loop indexes ``[l]``.
 Weights are drawn from an explicit ``torch.Generator``: normal times
 1/sqrt(fan-in), zeros for the norm scales (which the layers apply as
@@ -41,21 +43,18 @@ def param_shapes(cfg: ModelConfig) -> dict:
             f"family {cfg.family!r}: the port serves the dense family only")
     d, v, L = cfg.d_model, cfg.vocab_size, cfg.n_layers
     qw, kw, f = cfg.q_width, cfg.kv_width, cfg.d_ff
-    if not cfg.activation.endswith("_glu"):
-        raise NotImplementedError(
-            f"activation {cfg.activation!r}: the port has the GLU MLP only")
     attn = {"wq": ((L, d, qw), d), "wk": ((L, d, kw), d),
             "wv": ((L, d, kw), d), "wo": ((L, qw, d), qw)}
     if cfg.qk_norm:
         attn["q_norm"] = ((L, cfg.head_dim), None)
         attn["k_norm"] = ((L, cfg.head_dim), None)
-    layer = {
-        "ln1": ((L, d), None),
-        "attn": attn,
-        "ln2": ((L, d), None),
-        "mlp": {"w_gate": ((L, d, f), d), "w_up": ((L, d, f), d),
-                "w_out": ((L, f, d), f)},
-    }
+    if cfg.activation.endswith("_glu"):
+        mlp = {"w_gate": ((L, d, f), d), "w_up": ((L, d, f), d)}
+    else:
+        mlp = {"w_in": ((L, d, f), d)}
+    mlp["w_out"] = ((L, f, d), f)
+    layer = {"ln1": ((L, d), None), "attn": attn, "ln2": ((L, d), None),
+             "mlp": mlp}
     tree = {"embed": ((v, d), d), "final_norm": ((d,), None),
             "decoder": [{"slot0": layer}]}
     if not cfg.tie_embeddings:

@@ -1725,3 +1725,132 @@ def test_cow_copy_bitwise_on_card_pools(dev):
         assert torch.equal(pool[:, new], before[k][:, pub[1]]), k
         rest = [b for b in range(pool.shape[1]) if b != new]
         assert torch.equal(pool[:, rest], before[k][:, rest]), k
+
+
+# ---------------------------------------------------------------------------
+# starcoder2-7b's shapes: 36 query heads over 4 KV heads (g 9), head dim
+# 128, d 4,608 and an untied (V, D) = (49,152, 4,608) head
+# ---------------------------------------------------------------------------
+SC2_HQ, SC2_HKV, SC2_D, SC2_V = 36, 4, 4608, 49152
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("t", [1, 64])
+def test_paged_attention_starcoder2_shapes(dev, dtype, t):
+    """B 8 rows of 1 to 1,024 positions at T 1 (a decode step) and T 64
+    (a chunk step), g 9."""
+    q, kp, vp, bt, pos = _paged(dev, dtype, b=8, t=t, hq=SC2_HQ, hkv=SC2_HKV,
+                                hd=128, bs=16, seed=9 + t,
+                                last=[0, 63, 64, 200, 511, 700, 1000, 1023])
+    before = pa.paged_attention.launches
+    out = pa.paged_attention(q, kp, vp, bt, pos)
+    torch.cuda.synchronize()
+    assert pa.paged_attention.launches == before + 1
+    want = ref.paged_attention(q, kp, vp, bt, pos)
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(out.float(), want.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_starcoder2_prompt(dev, dtype):
+    """A 512-token prompt at g 9, causal."""
+    q, k, v = _flash_operands(dev, dtype, b=1, hq=SC2_HQ, hkv=SC2_HKV, t=512,
+                              s=512, hd=128, seed=95)
+    out = fa.flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    want = ref.flash_attention(q, k, v, causal=True)
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(out.float(), want.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_heads_on_the_untied_starcoder2_layout(dev, dtype):
+    """The argmax head at B 8 and the top-k head at B 4, k 8 on an untied
+    head stored as ``weights.cast_params`` stores it (the ``.T`` view of
+    a row-major (V, D) tensor), against their plain versions; the verify
+    head at B 8, T 8 exact on integer-valued operands."""
+    gen = torch.Generator(device=dev).manual_seed(7)
+    emb = (torch.randn((SC2_V, SC2_D), generator=gen, device=dev)
+           / SC2_D ** 0.5).to(dtype)
+    h = torch.randn((8, SC2_D), generator=gen, device=dev).to(dtype)
+    _head_check(h, emb)
+    _topk_check(h[:4].contiguous(), emb, 8)
+    ei = torch.randint(-2, 3, (SC2_V, SC2_D), generator=gen,
+                       device=dev).to(dtype)
+    hi = torch.randint(-1, 2, (8, 8, SC2_D), generator=gen,
+                       device=dev).to(dtype)
+    cand = torch.full((8, 7), -1, dtype=torch.int32, device=dev)
+    rids, _ = ref.verify_draft(hi, ei.t(), cand)
+    cand[:, :4] = rids[:, :4]
+    ids, acc = fah.fused_verify_head(hi, ei.t(), cand)
+    torch.cuda.synchronize()
+    rids, racc = ref.verify_draft(hi, ei.t(), cand)
+    assert torch.equal(ids, rids) and torch.equal(acc, racc)
+    assert bool((acc >= 4).all())
+
+
+@pytest.mark.parametrize("kw", [dict(kv_layout="dense"),
+                                dict(scheduler="cohort"),
+                                dict(kv_layout="dense", host_stride=4)])
+def test_dense_and_cohort_graphed_equal_eager(dev, kw):
+    """The dense layout and the cohort scheduler on the card: graphed
+    (each bucket captured and replayed) the tokens of the same engine
+    under ``eager_steps()``, and the dense layout launches no paged
+    attention kernel while its heads still launch."""
+    from repro_torch.configs import get_config, smoke_config
+    from repro_torch.serve import step_graph
+    from repro_torch.serve.api import LLM
+    from repro_torch.serve.params import SamplingParams
+    from repro_torch.weights import init_params
+
+    cfg = smoke_config(get_config("qwen3-0.6b"))
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(8), dev)
+    rng = np.random.default_rng(8)
+    prompts = [rng.integers(0, cfg.vocab_size, size=n) for n in (3, 19, 33, 8)]
+    sp = [SamplingParams(max_new_tokens=12),
+          SamplingParams(max_new_tokens=12, top_k=4, seed=1),
+          SamplingParams(max_new_tokens=12, head_mode="temperature", seed=2),
+          SamplingParams(max_new_tokens=12)]
+    engine = dict(n_slots=4, max_len=96, **kw)
+    with step_graph.eager_steps():
+        want = LLM(params, cfg, **engine).generate(prompts, sp)
+    paged0 = pa.paged_attention.launches
+    heads0 = fah.fused_argmax_head_with_value.launches
+    llm = LLM(params, cfg, **engine)
+    got = llm.generate(prompts, sp)
+    assert [o.token_ids for o in got] == [o.token_ids for o in want]
+    assert llm.engine.graphs.replays > 0
+    assert fah.fused_argmax_head_with_value.launches > heads0
+    if kw.get("kv_layout") == "dense":
+        assert pa.paged_attention.launches == paged0
+    else:
+        assert llm.stats["decode_steps"] > llm.stats["iterations"]
+
+
+def test_lm_forward_on_card_matches_cpu(dev):
+    """``lm.forward`` (the eval forward, flash attention over every
+    position) on the card against the plain versions on the CPU, f32, on
+    starcoder2-7b's smoke config (gelu MLP, untied head)."""
+    from repro_torch.configs import get_config, smoke_config
+    from repro_torch.models import lm
+    from repro_torch.weights import init_params
+
+    cfg = smoke_config(get_config("starcoder2-7b"))
+    cpu = init_params(cfg, torch.Generator().manual_seed(4), "cpu")
+    gpu = _to_device(cpu, dev)
+    toks = torch.from_numpy(np.random.default_rng(4).integers(
+        0, cfg.vocab_size, size=(2, 37)))
+    before = fa.flash_attention.launches
+    got, _ = lm.forward(gpu, cfg, toks.to(dev))
+    torch.cuda.synchronize()
+    assert fa.flash_attention.launches == before + cfg.n_layers
+    want, _ = lm.forward(cpu, cfg, toks)
+    torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=1e-4)
+
+
+def _to_device(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _to_device(v, dev) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to_device(v, dev) for v in tree]
+    return tree.to(dev)

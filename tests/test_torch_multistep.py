@@ -17,8 +17,8 @@ counterpart of ``tests/test_serve_multistep.py``, case for case:
   - a tight pool (preemption) serves the ample pool's tokens;
   - chunked prefill composes (chunk iterations run the single step,
     keyed);
-  - the submit and constructor gates; the reference's "incapable config
-    warns" case is the port's refusal of ``scheduler='cohort'``;
+  - the submit and constructor gates; an incapable config (the cohort
+    scheduler) warns and serves one token at a time;
   - ``host_syncs``, ``emitted_tokens`` and ``tokens_per_dispatch`` equal
     the JAX engine's;
 
@@ -339,12 +339,25 @@ def test_submit_derives_keys_as_jax(bridged):
 
 
 def test_incapable_config_is_refused(bridged):
-    """The reference warns and serves per-token where the loop cannot
-    run (``scheduler='cohort'``); the port does not serve the cohort
-    scheduler at all and refuses it."""
-    with pytest.raises(NotImplementedError, match="scheduler"):
-        TEngine(bridged[1], TCFG, n_slots=2, max_len=64, eos_id=-1,
-                host_stride=4, scheduler="cohort")
+    """``host_stride`` where the loop cannot run (the cohort scheduler has
+    no grouped multi-sampler step body) warns and serves one token at a
+    time, as the reference's ``test_incapable_config_warns_and_falls_back``
+    does: the JAX engine's tokens."""
+    p = np.random.default_rng(3).integers(
+        0, TCFG.vocab_size, 9).astype(np.int32)
+    gens = []
+    for make, req, sp in ((TEngine, TRequest, TSP), (JEngine, JRequest, JSP)):
+        params = bridged[1] if make is TEngine else bridged[0]
+        cfg = TCFG if make is TEngine else JCFG
+        with pytest.warns(UserWarning, match="host_stride=4 ignored"):
+            eng = make(params, cfg, n_slots=2, max_len=64, eos_id=-1,
+                       host_stride=4, scheduler="cohort")
+        assert eng.host_stride is None
+        r = req(0, p.copy(), params=sp(max_new_tokens=4))
+        eng.submit(r)
+        eng.run()
+        gens.append(list(r.generated))
+    assert len(gens[0]) == 4 and gens[0] == gens[1]
 
 
 # ---------------------------------------------------------------------------

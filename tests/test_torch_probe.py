@@ -168,8 +168,8 @@ def test_engine_mode_validation(bridged):
         ServeEngine(tparams, TCFG, attn_approx="nope")
     with pytest.raises(ValueError):
         ServeEngine(tparams, TCFG, attn_window=0)
-    # the port serves the paged layout only: dense is refused outright
-    with pytest.raises(NotImplementedError):
+    # approximate modes need the paged path: the dense layout refuses
+    with pytest.raises(ValueError, match="paged decode path"):
         ServeEngine(tparams, TCFG, kv_layout="dense", attn_approx="pseudo")
     with pytest.raises(ValueError):
         TSP(attn_approx="nope")

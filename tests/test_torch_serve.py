@@ -4,8 +4,9 @@ of qwen3-0.6b (f32): the same token lists and finish reasons, plain,
 under forced preemption, and with stop sequences and eos.  Plus the
 port's own contracts: the softmax baseline equals the reduced head
 (Theorem 1), ``stream`` equals ``generate``, entry points refuse a
-missing card, CPU runs launch no kernel, unported engine modes raise and
-out-of-range token ids are refused.  Sampled and speculative serving
+missing card, CPU runs launch no kernel, the cohort scheduler and the
+dense layout serve the JAX engine's tokens, unported engine modes raise
+and out-of-range token ids are refused.  Sampled and speculative serving
 are held against the JAX package in ``test_torch_sampling.py`` and
 ``test_torch_spec.py``, chunked prefill and prefix sharing in
 ``test_torch_chunked.py`` and ``test_torch_prefix_cache.py``.
@@ -178,17 +179,33 @@ def test_device_guards_and_cpu_runs_launch_no_kernel(bridged):
 
 
 # host_stride is served since the device-resident loop; a stride below 1
-# is wrong in both packages (ValueError)
+# is wrong in both packages (ValueError), and so is an approximate score
+# mode on the dense layout, which has no paged decode path
 @pytest.mark.parametrize("kw", [dict(host_stride=0),
-                                dict(tp=2), dict(scheduler="cohort"),
-                                dict(kv_layout="dense"),
+                                dict(tp=2),
                                 dict(kv_layout="dense", attn_approx="pseudo"),
                                 dict(head_mode="sharded")])
 def test_unported_engine_modes_raise(bridged, kw):
     _, tparams = bridged
-    exc = ValueError if "host_stride" in kw else NotImplementedError
+    exc = ValueError if "host_stride" in kw or "attn_approx" in kw \
+        else NotImplementedError
     with pytest.raises(exc):
         TLLM(tparams, TCFG, **ENGINE, **kw)
+
+
+@pytest.mark.parametrize("kw", [dict(scheduler="cohort"),
+                                dict(kv_layout="dense")])
+def test_served_engine_modes_match_jax(bridged, kw):
+    """The reference's cohort scheduler and dense layout: the JAX engine's
+    tokens, finish reasons and step counts in the same mode, greedy and
+    sampled side by side."""
+    prompts = _prompts(8, (5, 17, 9, 12))
+    sp = [dict(max_new_tokens=8), dict(max_new_tokens=8, top_k=4, seed=1),
+          dict(max_new_tokens=8), dict(max_new_tokens=8, temperature=0.7,
+                                       seed=2)]
+    _, _, js, ts = _both(bridged, prompts, sp, **ENGINE, **kw)
+    for k in ("prefills", "decode_steps", "iterations", "fused_rows"):
+        assert ts[k] == js[k], k
 
 
 def test_submit_rejects_out_of_range_token_ids(bridged):

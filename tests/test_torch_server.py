@@ -194,6 +194,8 @@ def test_cli_main_host_stride_on_cpu():
     ("--top-k", "4", "--temperature", "0.8", "--chunk-size", "8"),
     ("--head-mode", "softmax", "--attn-approx", "pseudo"),
     ("--spec-k", "3"),
+    ("--kv-layout", "dense", "--top-k", "4"),
+    ("--scheduler", "cohort", "--kv-layout", "dense"),
 ])
 def test_cli_serves_its_modes_on_cpu(flags):
     snap = _cli("--device", "cpu", "--requests", "4", "--slots", "2",
@@ -202,8 +204,7 @@ def test_cli_serves_its_modes_on_cpu(flags):
 
 
 @pytest.mark.parametrize("flags", [
-    ("--head-mode", "sharded"), ("--kv-layout", "dense"),
-    ("--scheduler", "cohort"), ("--tp", "2"), ("--replicas", "2")])
+    ("--head-mode", "sharded"), ("--tp", "2"), ("--replicas", "2")])
 def test_cli_refuses_unported_modes(flags):
     with pytest.raises(NotImplementedError):
         _cli("--device", "cpu", *flags)
