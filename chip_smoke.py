@@ -173,6 +173,24 @@ Phases, each of which fails the run (non-zero exit, no result line):
      each graphed twice: no paged launch on the dense layout, more steps
      than iterations under cohort, streams held to paged fused's under
      the near-tie rule in f32 and measured in bf16.
+  4k. (after 4j) tensor parallelism: first, in this process, qwen3's
+     (151,936, 1,024) bf16 head split 2, 4 and 8 ways into contiguous
+     slices (75,968, 37,984 and 18,992 ids), each slice's argmax (B 8),
+     top-k (B 4, k 8) and verify (B 8, T 8) kernel against its plain
+     version, the slices' (val, idx) tables merged with no collective
+     bitwise equal to the unsharded kernels', slice 0's kernels timed
+     beside the slice's bound; paged attention at a rank's heads (B 8,
+     T 1: 8 / 4 and 4 / 2); then qwen3-0.6b at full width at tp 2 (12
+     prompts) and tp 4 (the first 8), 2 and 4 processes of this script
+     (``--tp-rank R --tp-world W --tp-dir D``) sharing the card over
+     gloo, each waited on with a timeout: f32 greedy, mixed samplers,
+     spec_k 4 (drafts accepted), host_stride 8 and chunk 64 with prefix
+     sharing held to the unsharded engine's streams (near-tie rule),
+     bf16 greedy measured against it and timed beside tp 1 (no claim:
+     host-staged gloo on one card), every rank's tokens equal, each
+     rank's launches at its steps, no graph captured, the collective
+     bytes of an 8-row decode step and of each head at B 8 (the
+     comparator's under a quarter of one f32 logit sweep).
 
 Token streams that should be equal may part only at a near-tie of the
 two best f32 logits (gap within 1e-3 of the max): the batch composition
@@ -4252,6 +4270,528 @@ def check_small_reference(torch):
           f"on the CPU for {len(prompts)} prompts", flush=True)
 
 
+# ---------------------------------------------------------------------------
+# Phase 4k: tensor parallelism (ranks that share the one card over gloo)
+# ---------------------------------------------------------------------------
+TP_SEED = 0                 # the host weights every rank draws
+TP_WORLDS = (2, 4)
+# each rank process, waited on by the parent (every collective of a
+# rank's group times out sooner, at comm.DEFAULT_TIMEOUT_S)
+TP_RANK_TIMEOUT_S = 420
+TP_VOCAB_SPLITS = (2, 4, 8)
+# prompts a world serves: tp 4's four processes time-slice the card and
+# step at ~0.4 s on an H100 80GB HBM3, so it serves one batch of 8
+# (each run against the unsharded engine on the same 8) to keep the
+# script within half its time limit
+TP_PROMPTS = {2: 12, 4: 8}
+
+
+def check_tp_head_shards(torch, timer, v=151936, d=1024,
+                         device="cuda") -> dict:
+    """Phase 4k, the sharded heads alone, in this process: qwen3's (V, D)
+    = (151,936, 1,024) bf16 head split 2, 4 and 8 ways into contiguous
+    copies (slices of 75,968, 37,984 and 18,992 ids; the last two not
+    multiples of the 64-id tile).  Each slice's argmax (B 8), top-k (B 4,
+    k 8) and verify (B 8, T 8) kernel is held against its plain version;
+    the slices' (val, idx) tables, merged by ``core.reduced_softmax``'s
+    merges with no collective, must equal the unsharded kernels' ids and
+    values bitwise.  Slice 0's kernels are timed beside their bound (the
+    slice's bytes over HBM) and the library call."""
+    from repro_torch.core import reduced_softmax as rs
+    from repro_torch.kernels import fused_argmax_head as fah
+    from repro_torch.kernels import fused_topk_head as ftk
+    from repro_torch.kernels import ref
+
+    gen = torch.Generator(device=device).manual_seed(15)
+    emb = (torch.randn((v, d), generator=gen, device=device)
+           / math.sqrt(d)).to(torch.bfloat16)
+    w = emb.t()
+    h8 = torch.randn((8, d), generator=gen, device=device).to(torch.bfloat16)
+    h4 = h8[:4].contiguous()
+    ht = torch.randn((8, 8, d), generator=gen, device=device).to(
+        torch.bfloat16)
+    idx, val = fah.fused_argmax_head_with_value(h8, w)
+    tvals, tids = ftk.fused_topk_head(h4, w, 8)
+    ids0, _ = fah.fused_verify_head(ht, w, torch.full(
+        (8, 7), -1, dtype=torch.int32, device=device))
+    cand = torch.full((8, 7), -1, dtype=torch.int32, device=device)
+    for r in range(8):                        # ragged widths 0..7
+        cand[r, :r] = ids0[r, :r]
+    cand[3, 1] = (cand[3, 1] + 1) % v         # a wrong draft mid-run
+    vids, vacc = fah.fused_verify_head(ht, w, cand)
+    rows = {}
+    for n in TP_VOCAB_SPLITS:
+        per = v // n
+        slices = [emb[r * per:(r + 1) * per].contiguous().t()
+                  for r in range(n)]
+        a_tab, k_tab, v_tab = [], [], []
+        for r, ws in enumerate(slices):
+            lo = r * per
+            a_tab.append(rs.shard_argmax_table(h8, ws, lo))
+            k_tab.append(rs.shard_topk_table(h4, ws, 8, v_lo=lo, rank=r,
+                                             ranks=n, vocab_size=v))
+            v_tab.append(rs.shard_verify_table(ht, ws, cand, lo))
+            torch.cuda.synchronize()
+            ok = argmax_verdict(torch, h8, ws, a_tab[-1][1] - lo,
+                                a_tab[-1][0])
+            check(ok[0] and ok[1], f"the argmax head on V/{n} slice {r} "
+                  "disagrees with its plain version")
+            tv = topk_verdict(torch, h4, ws, 8, k_tab[-1][0],
+                              k_tab[-1][1] - lo)
+            check(tv["idx_ok"] and tv["ties_ok"] and tv["desc_ok"]
+                  and tv["val_ok"], f"the top-k head on V/{n} slice {r} "
+                  "disagrees with its plain version")
+            _, pv = ref.fused_argmax_head_with_value(
+                ht.reshape(64, d), ws)
+            check(torch.allclose(v_tab[-1][0].reshape(64), pv,
+                                 rtol=HEAD_RTOL, atol=0.0),
+                  f"the verify head's values on V/{n} slice {r} disagree "
+                  "with the plain version")
+        m_idx, m_val = rs.merge_argmax(torch.stack([t[0] for t in a_tab]),
+                                       torch.stack([t[1] for t in a_tab]))
+        m_vals, m_ids = rs.merge_topk(torch.stack([t[0] for t in k_tab]),
+                                      torch.stack([t[1] for t in k_tab]), 8)
+        m_vid, _ = rs.merge_argmax(torch.stack([t[0] for t in v_tab]),
+                                   torch.stack([t[1] for t in v_tab]))
+        m_acc = rs.accepted_run(m_vid, cand)
+        check(torch.equal(m_idx, idx) and torch.equal(m_val, val),
+              f"the argmax head merged over {n} slices != unsharded")
+        check(torch.equal(m_ids, tids) and torch.equal(m_vals, tvals),
+              f"the top-k head merged over {n} slices != unsharded")
+        check(torch.equal(m_vid, vids) and torch.equal(m_acc, vacc),
+              f"the verify head merged over {n} slices != unsharded")
+        ws = slices[0]
+        h2 = ht.reshape(64, d)
+        sb = per * d * 2
+        row = {
+            "argmax_b8": kernel_row(
+                timer, lambda: fah.fused_argmax_head_with_value(h8, ws),
+                lambda: ref.fused_argmax_head_with_value(h8, ws),
+                lambda: torch.argmax(h8 @ ws, dim=-1),
+                sb + 8 * d * 2 + 8 * 8, 2.0 * 8 * d * per,
+                float((m_val - val).abs().max())),
+            "topk_b4_k8": kernel_row(
+                timer, lambda: ftk.fused_topk_head(h4, ws, 8),
+                lambda: ref.fused_topk_head(h4, ws, 8),
+                lambda: torch.topk(h4 @ ws, 8, dim=-1),
+                sb + 4 * d * 2 + 4 * 8 * 8, 2.0 * 4 * d * per,
+                float((m_vals - tvals).abs().max())),
+            "verify_b8_t8": kernel_row(
+                timer, lambda: fah.fused_verify_head(ht, ws, cand,
+                                                     with_value=True),
+                lambda: ref.verify_draft_with_value(ht, ws, cand),
+                lambda: torch.argmax(h2 @ ws, dim=-1),
+                sb + 64 * d * 2 + cand.numel() * 4 + 64 * 8 + 8 * 4,
+                2.0 * 64 * d * per, 0.0)}
+        for name, r in row.items():
+            print(f"phase 4k head shard V/{n} = {per} ids, {name}: kernel "
+                  f"{shown(r)}, plain {r['plain_ms']:.4f} ms, library "
+                  f"{shown(r, 'library_')}, bound {r['bound_ms']:.4f} ms "
+                  f"({r['bound_by']}); merged over {n} slices bitwise equal "
+                  "to the unsharded kernel", flush=True)
+        rows[per] = row
+    return rows
+
+
+def check_tp_paged_heads(torch, timer) -> dict:
+    """Phase 4k, paged attention at a rank's heads (B 8, T 1, ragged rows
+    of 1-1,000 positions): tp 2 8 q / 4 kv heads, tp 4 4 / 2 (g 2 kept),
+    against the plain version, timed beside bound and library call."""
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels import ref
+
+    rng = np.random.default_rng(16)
+    rows = {}
+    for tp in TP_WORLDS:
+        hq, hkv = 16 // tp, 8 // tp
+        q, kp, vp, bt, pos = paged_case(torch, rng, 1, b=8, hq=hq, hkv=hkv)
+        out = pa.paged_attention(q, kp, vp, bt, pos)
+        torch.cuda.synchronize()
+        want = ref.paged_attention(q, kp, vp, bt, pos)
+        err = (out.float() - want.float()).abs().max().item()
+        check(torch.allclose(out.float(), want.float(), atol=PA_TOL,
+                             rtol=PA_TOL),
+              f"paged attention at tp {tp}'s heads disagrees with its plain "
+              f"version ({err})")
+        nbytes, flops = paged_work(q, kp, bt, pos, None)
+        row = kernel_row(
+            timer, lambda: pa.paged_attention(q, kp, vp, bt, pos),
+            lambda: ref.paged_attention(q, kp, vp, bt, pos),
+            sdpa_on_gathered_view(torch, q, kp, vp, bt, pos, None,
+                                  1 / math.sqrt(128)), nbytes, flops, err)
+        row["chunks"] = pa.split_for(q, kp, bt)[0]
+        print(f"phase 4k paged_attention B=8 T=1 at tp {tp}'s heads "
+              f"({hq} q / {hkv} kv): kernel {shown(row)}, plain "
+              f"{row['plain_ms']:.4f} ms, sdpa(gathered view) "
+              f"{shown(row, 'library_')}, bound {row['bound_ms']:.4f} ms "
+              f"({row['bound_by']}); max_abs_err {err:.6g}", flush=True)
+        rows[tp] = row
+    return rows
+
+
+def tp_runs(max_new):
+    """Phase 4k's engine runs: (name, dtype, engine kwargs, params kind,
+    prompts kind).  f32 runs are held to the unsharded engine's tokens;
+    the bf16 greedy run is measured (and timed)."""
+    return (("greedy_f32", "float32", {}, "greedy", "main"),
+            ("mixed_f32", "float32", {}, "mixed", "main"),
+            ("spec4_f32", "float32", {}, "spec4", "spec"),
+            ("stride8_f32", "float32", {"host_stride": 8}, "mixed", "main"),
+            ("chunk64_f32", "float32", {"chunk_size": 64}, "greedy",
+             "main"),
+            ("greedy_bf16", "bfloat16", {}, "greedy", "main"))
+
+
+def tp_inputs(vocab, max_new, n=12):
+    """The first ``n`` prompts (of phase 4's 12 of 64-512 tokens; phase
+    4c's repetitive ones for spec_k) and each params kind, the same in
+    every process."""
+    from repro_torch.serve.params import SamplingParams
+
+    prng = np.random.default_rng(0)
+    main = [prng.integers(0, vocab, size=int(n)).astype(np.int32)
+            for n in prng.integers(64, 513, size=12)]
+    rng = np.random.default_rng(4)
+    spec = [np.tile(rng.integers(0, vocab, size=32), len(p) // 32 + 1)
+            [:len(p)].astype(np.int32) for p in main]
+    params = {"greedy": SamplingParams(max_new_tokens=max_new),
+              "mixed": stride_params(max_new)[:n],
+              "spec4": SamplingParams(max_new_tokens=max_new, spec_k=4)}
+    return {"main": main[:n], "spec": spec[:n]}, params
+
+
+def tp_engine_kwargs(**kw) -> dict:
+    """Every phase-4k engine: 8 slots of 1,024 positions, seed 0, no eos
+    (every request runs its tokens, so every split serves the same
+    batches)."""
+    return dict(n_slots=8, max_len=1024, seed=0, eos_id=-1, **kw)
+
+
+def check_tp_launches(launches, st, cfg, what, flash):
+    """A run's kernel launches against its steps: paged attention 28 a
+    decode iteration, flash attention 28 a one-shot prefill (0 when the
+    prompts enter as chunks), each head kernel once a head call of its
+    kind (the verify kernel once a step with drafts); no softmax unit."""
+    calls = st["head_calls"]
+    want = {"paged_attention": cfg.n_layers * st["decode_iterations"],
+            "flash_attention": cfg.n_layers * st["prefills"] if flash
+            else 0,
+            "fused_argmax_head": calls.get("Greedy", 0),
+            "fused_topk_head": calls.get("TopK", 0),
+            "fused_verify_head": calls.get("verify", 0),
+            "softmax_stats": 0, "online_softmax": 0, "fused_xent": 0}
+    for name, n in want.items():
+        check(launches[name] == n, f"{what}: {name} launched "
+              f"{launches[name]} times, want {n} ({st['decode_iterations']}"
+              f" decode iterations, {st['prefills']} prefills, head calls "
+              f"{calls})")
+
+
+def tp_rank_main(rank: int, world: int, d: str) -> int:
+    """One rank of phase 4k (``chip_smoke.py --tp-rank R --tp-world W
+    --tp-dir D``, torchrun's variables in its environment): the bf16
+    engine through ``LLM.from_arch(tp=W)``, whose group (over gloo on the
+    shared card, from that environment) the other runs share, the host
+    weights from TP_SEED, each of ``tp_runs`` through
+    ``LLM.generate`` at ``tp=world`` (the launch counts set to 0 just
+    before and read just after, and checked against the run's steps),
+    the per-step collective bytes and the heads' bytes at B 8; the
+    results go to ``<d>/out<W>_<R>.json``."""
+    import dataclasses
+
+    import torch
+
+    sys.path.insert(0, SRC)
+    from repro_torch.configs import get_config
+    from repro_torch.serve import sampler as smp
+    from repro_torch.serve.api import LLM
+    from repro_torch.weights import init_params
+
+    torch.set_num_threads(2)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = {"rank": rank, "world": world}
+    try:
+        # the entry point a user calls under torchrun; from_arch draws
+        # the same host tree from TP_SEED as ``host`` below
+        first = LLM.from_arch("qwen3-0.6b", smoke=False, tp=world,
+                              **dict(tp_engine_kwargs(), seed=TP_SEED))
+        g = first.engine.group
+        out.update(device=str(g.device), backend=g.backend,
+                   card=torch.cuda.get_device_name(g.device))
+        cfg = get_config("qwen3-0.6b")
+        host = init_params(cfg, torch.Generator().manual_seed(TP_SEED),
+                           "cpu")
+        max_new = 32
+        prompts, params = tp_inputs(cfg.vocab_size, max_new,
+                                    TP_PROMPTS[world])
+        for name, dtype, kw, pk, prk in tp_runs(max_new):
+            if name == "greedy_bf16":
+                llm = first
+            else:
+                llm = LLM(host, dataclasses.replace(cfg, dtype=dtype),
+                          tp=world, group=g, **tp_engine_kwargs(**kw))
+            eng = llm.engine
+            steps = []
+            if name == "greedy_bf16":
+                # the collective bytes of each decode step
+                inner = eng._decode_rows
+
+                def rows_with_bytes(rows, inner=inner):
+                    b0 = dict(g.bytes)
+                    inner(rows)
+                    steps.append((len(rows), {
+                        k: n - b0.get(k, 0) for k, n in g.bytes.items()
+                        if n - b0.get(k, 0)}))
+                eng._decode_rows = rows_with_bytes
+                llm.generate([prompts[prk][0][:16]],
+                             type(params[pk])(max_new_tokens=2))
+                steps.clear()
+            torch.cuda.synchronize()
+            reset_launches()
+            st0 = stats_now(llm)
+            t0 = time.perf_counter()
+            outs = llm.generate(prompts[prk], params[pk])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = read_launches()
+            st = stats_delta(st0, stats_now(llm))
+            check_tp_launches(launches, st, eng.cfg, f"tp {world} rank "
+                              f"{rank} {name}", flash="chunk_size" not in kw)
+            check(eng.graphs.captures == 0, f"{name}: a sharded engine "
+                  "captured a graph")
+            n_tok = sum(len(o.token_ids) for o in outs)
+            out[name] = dict(
+                tokens=[list(o.token_ids) for o in outs],
+                rids=[o.rid for o in outs], launches=launches,
+                decode_steps=st["decode_steps"],
+                decode_iterations=st["decode_iterations"],
+                prefills=st["prefills"], head_calls=st["head_calls"],
+                accepted=st["accepted"], drafted=st["drafted"],
+                prefix_hits=st["prefix_hits"],
+                prefill_chunks=st["prefill_chunks"], wall_s=wall,
+                tok_s=n_tok / wall,
+                decode_ms=st["decode_ms"] / max(st["decode_steps"], 1),
+                prefill_ms=st["prefill_ms"] / max(st["prefills"], 1),
+                head_mode=eng.head_mode, local_heads=[
+                    eng.cfg.n_heads, eng.cfg.n_kv_heads, eng.cfg.d_ff])
+            if name == "greedy_bf16":
+                full = [b for n, b in steps if n == 8]
+                out[name]["step_bytes_b8"] = full[-1] if full else None
+                # the heads' own traffic at B 8, one call each
+                h = torch.randn((8, cfg.d_model), device=g.device,
+                                dtype=torch.bfloat16)
+                heads = {}
+                for label, s in (("argmax", smp.Greedy("sharded")),
+                                 ("topk_k8", smp.TopK(8, 1.0, "sharded")),
+                                 ("temperature", smp.Temperature(0.7))):
+                    g.bytes.clear()
+                    s.head(eng.params, eng.cfg, h)
+                    heads[label] = dict(g.bytes)
+                out[name]["head_bytes_b8"] = heads
+                out["weights_bytes"] = sum(
+                    t.numel() * t.element_size()
+                    for t in _leaves(eng.params))
+            del llm, eng
+            gc.collect()
+            torch.cuda.empty_cache()
+        out["ok"] = True
+        g.close()
+    except Exception as e:                    # reported by the parent
+        import traceback
+
+        out["ok"] = False
+        out["error"] = f"{type(e).__name__}: {e}"
+        out["trace"] = traceback.format_exc()[-4000:]
+    with open(os.path.join(d, f"out{world}_{rank}.json"), "w") as f:
+        json.dump(out, f)
+    return 0 if out["ok"] else 1
+
+
+def spawn_tp(world: int, d: str) -> list:
+    """Start and wait on phase 4k's ``world`` rank processes, each with a
+    timeout of its own (the lot killed on one miss); returns each rank's
+    results."""
+    import socket
+
+    with socket.socket() as s:             # a free port for the store
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    procs = []
+    for r in range(world):
+        log = open(os.path.join(d, f"log{world}_{r}.txt"), "w")
+        procs.append((subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--tp-rank", str(r),
+             "--tp-world", str(world), "--tp-dir", d],
+            stdout=log, stderr=subprocess.STDOUT,
+            env=dict(os.environ, OMP_NUM_THREADS="2", RANK=str(r),
+                     WORLD_SIZE=str(world), LOCAL_RANK=str(r),
+                     LOCAL_WORLD_SIZE=str(world), MASTER_ADDR="127.0.0.1",
+                     MASTER_PORT=str(port))), log))
+    try:
+        for r, (p, _) in enumerate(procs):
+            try:
+                p.wait(timeout=TP_RANK_TIMEOUT_S)
+            except subprocess.TimeoutExpired:
+                check(False, f"tp {world} rank {r} ran past "
+                      f"{TP_RANK_TIMEOUT_S} s")
+    finally:
+        for p, log in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+            log.close()
+    res = []
+    for r in range(world):
+        path = os.path.join(d, f"out{world}_{r}.json")
+        if not os.path.exists(path):
+            with open(os.path.join(d, f"log{world}_{r}.txt")) as f:
+                tail = f.read()[-3000:]
+            check(False, f"tp {world} rank {r} wrote no result "
+                  f"(exit {procs[r][0].returncode}):\n{tail}")
+        with open(path) as f:
+            res.append(json.load(f))
+        check(res[-1]["ok"], f"tp {world} rank {r} failed: "
+              f"{res[-1].get('error')}\n{res[-1].get('trace', '')}")
+    return res
+
+
+def run_tp_path(torch, max_new=32) -> dict:
+    """Phase 4k: qwen3-0.6b at full width served by tp 2 and tp 4 ranks
+    (``spawn_tp``) that share the one card over gloo.  The unsharded
+    engine runs here on the same host weights: every f32 run's streams
+    (greedy, mixed samplers, spec_k 4 with drafts accepted, host_stride
+    8, chunk 64 with prefix sharing on) must be its own, parting only at
+    a near-tie of the two best f32 logits; the bf16 greedy streams are
+    measured against the unsharded bf16 engine's; every rank's tokens
+    equal rank 0's.  Prints tok/s and ms a decode step at tp 1, 2 and 4
+    (gloo through the host on one card: no claim rides on them) and the
+    collective bytes of a decode step."""
+    import dataclasses
+    import shutil
+    import types
+
+    from repro_torch.configs import get_config
+    from repro_torch.serve import step_graph
+    from repro_torch.serve.api import LLM
+    from repro_torch.weights import init_params
+
+    t0 = time.perf_counter()
+    cfg = get_config("qwen3-0.6b")
+    host = init_params(cfg, torch.Generator().manual_seed(TP_SEED), "cpu")
+    inputs = {n: tp_inputs(cfg.vocab_size, max_new, n)
+              for n in set(TP_PROMPTS.values())}
+    prompts, params = inputs[12]
+    f32 = dataclasses.replace(cfg, dtype="float32")
+    dev32 = _tree_to(host, "cuda")
+    ref32 = {}                    # (prompt count, run) -> outputs
+    for n, (ps, pp) in inputs.items():
+        for name, dtype, kw, pk, prk in tp_runs(max_new):
+            if dtype == "float32":
+                llm = LLM(dev32, f32, **tp_engine_kwargs(**kw))
+                ref32[n, name] = llm.generate(ps[prk], pp[pk])
+                del llm
+    gap_llm = LLM(dev32, f32, **tp_engine_kwargs())   # the near-tie ruler
+    bf = LLM(dev32, cfg, **tp_engine_kwargs())
+    bf.generate([prompts["main"][0][:16]], params["greedy"])
+    timing = {}
+    for label, ctx in (("tp1_graphed", None), ("tp1_eager", True)):
+        st0 = stats_now(bf)
+        t1 = time.perf_counter()
+        if ctx:
+            with step_graph.eager_steps():
+                outs = bf.generate(prompts["main"], params["greedy"])
+        else:
+            outs = bf.generate(prompts["main"], params["greedy"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t1
+        st = stats_delta(st0, stats_now(bf))
+        timing[label] = dict(tok_s=sum(len(o.token_ids) for o in outs)
+                             / wall, decode_ms=st["decode_ms"]
+                             / st["decode_steps"], wall_s=wall)
+        if label == "tp1_graphed":
+            ref_bf16 = outs
+    del bf
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"phase 4k: unsharded references (f32: "
+          f"{', '.join(sorted({k for _, k in ref32}))} at "
+          f"{sorted(inputs)} prompts; bf16 greedy) in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+    d = os.path.join(ROOT, "build", "chip_smoke_tp")
+    shutil.rmtree(d, ignore_errors=True)
+    os.makedirs(d)
+    summary = {"timing": timing}
+    for world in TP_WORLDS:
+        t1 = time.perf_counter()
+        res = spawn_tp(world, d)
+        r0 = res[0]
+        print(f"phase 4k tp {world}: {world} ranks on {r0['device']} "
+              f"({r0['card']}) over {r0['backend']}, weights "
+              f"{r0['weights_bytes'] / 1e9:.3f} GB a rank (bf16), local "
+              f"heads/kv/d_ff {r0['greedy_bf16']['local_heads']}; "
+              f"{time.perf_counter() - t1:.1f} s", flush=True)
+        check(r0["backend"] == "gloo", f"tp {world} on one card ran over "
+              f"{r0['backend']}, not gloo")
+        for r in res[1:]:
+            for name, *_ in tp_runs(max_new):
+                check(r[name]["tokens"] == r0[name]["tokens"],
+                      f"tp {world} {name}: rank {r['rank']}'s tokens differ "
+                      "from rank 0's")
+        n = TP_PROMPTS[world]
+        for name, dtype, kw, pk, prk in tp_runs(max_new):
+            got = [types.SimpleNamespace(token_ids=tuple(t), rid=i)
+                   for i, t in
+                   zip(r0[name]["rids"], r0[name]["tokens"])]
+            what = f"phase 4k tp {world} {name} ({n} prompts)"
+            if dtype == "float32":
+                compare_streams(torch, gap_llm, inputs[n][0][prk],
+                                ref32[n, name], got, what)
+            else:
+                r0[name]["same_as_tp1_bf16"] = compare_streams(
+                    torch, gap_llm, prompts[prk], ref_bf16[:n], got,
+                    what + " vs unsharded bf16", gate=False)
+            check(r0[name]["head_mode"] == "sharded", f"{what}: head mode "
+                  f"{r0[name]['head_mode']}")
+        check(r0["spec4_f32"]["accepted"] > 0,
+              f"tp {world} spec_k 4: no draft accepted")
+        check(r0["spec4_f32"]["launches"]["fused_verify_head"] > 0
+              and r0["mixed_f32"]["launches"]["fused_topk_head"] > 0,
+              f"tp {world}: the verify or top-k kernel did not run")
+        gb = r0["greedy_bf16"]
+        heads, step = gb["head_bytes_b8"], gb["step_bytes_b8"]
+        sweep = 8 * cfg.vocab_size * 4
+        check(step is not None, f"tp {world}: no 8-row decode step")
+        check(heads["topk_k8"]["head"] < sweep / 4
+              and heads["argmax"]["head"] < sweep / 4,
+              f"tp {world}: the comparator head moved "
+              f"{heads} bytes, not under a quarter of {sweep}")
+        print(f"phase 4k tp {world} collective bytes: a decode step of 8 "
+              f"rows {step}; at B 8 the argmax head {heads['argmax']}, the "
+              f"top-k head (k 8) {heads['topk_k8']}, the Temperature head "
+              f"{heads['temperature']} against one f32 logit sweep B*V*4 = "
+              f"{sweep} (comparator factor "
+              f"{sweep / heads['argmax']['head']:.0f}x / "
+              f"{sweep / heads['topk_k8']['head']:.0f}x under it)",
+              flush=True)
+        timing[f"tp{world}_eager_gloo_{n}_prompts"] = dict(
+            tok_s=gb["tok_s"], decode_ms=gb["decode_ms"], wall_s=gb["wall_s"])
+        summary[f"tp{world}"] = dict(
+            launches={n: r0[n]["launches"] for n, *_ in tp_runs(max_new)},
+            steps={n: r0[n]["decode_steps"] for n, *_ in tp_runs(max_new)},
+            accepted=r0["spec4_f32"]["accepted"],
+            bf16_same=gb["same_as_tp1_bf16"], step_bytes_b8=step,
+            head_bytes_b8=heads, weights_bytes=r0["weights_bytes"])
+    print("phase 4k timing (tok/s, ms a decode step; tp 2 and 4 eager over "
+          "gloo through the host on one card, no claim rides on them): "
+          + "; ".join(f"{k} {v['tok_s']:.2f} tok/s, {v['decode_ms']:.3f} ms"
+                      for k, v in timing.items()), flush=True)
+    del gap_llm, dev32
+    gc.collect()
+    torch.cuda.empty_cache()
+    return summary
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -4392,6 +4932,14 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
         summary["dense_cohort"] = run_dense_cohort(torch, max_new)
+        # phase 4k: tensor parallelism, its ranks in processes of their own
+        gc.collect()
+        torch.cuda.empty_cache()
+        timer = Timer(torch)
+        tp_heads = check_tp_head_shards(torch, timer)
+        tp_paged = check_tp_paged_heads(torch, timer)
+        del timer
+        summary["tp"] = run_tp_path(torch, max_new)
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1
@@ -4418,6 +4966,10 @@ def main() -> int:
                              for k in TIMES + ("chunks", "max_abs_err")},
              hd192={k: v for k, v in hd192_rows.items()
                     if k.startswith("paged")},
+             tp_rank_heads_t1={str(tp): {k: row[k] for k in TIMES + (
+                 "chunks", "max_abs_err")} for tp, row in tp_paged.items()},
+             tp_launches={str(w): summary["tp"][f"tp{w}"]["launches"][
+                 "greedy_bf16"]["paged_attention"] for w in TP_WORLDS},
              modes={mode: dict(
                  launches=probe_runs[None]["launches_by_mode"][mode],
                  max_abs_err=max(r["max_abs_err"] for (m, _, _), r
@@ -4461,6 +5013,11 @@ def main() -> int:
              d18432={k: v for k, v in wide_rows.items()
                      if k.startswith("argmax")},
              starcoder2_launches=sc2_launches["fused_argmax_head"],
+             tp_shards_b8={str(v): {k: r["argmax_b8"][k]
+                                    for k in TIMES + ("max_abs_err",)}
+                           for v, r in tp_heads.items()},
+             tp_launches={str(w): summary["tp"][f"tp{w}"]["launches"][
+                 "greedy_bf16"]["fused_argmax_head"] for w in TP_WORLDS},
              starcoder2_untied_b8={k: sc2_rows["argmax_b8"][k]
                                    for k in TIMES + ("max_abs_err",)}),
         dict(name="fused_topk_head", route="cuda",
@@ -4473,6 +5030,11 @@ def main() -> int:
              **{k: topk_rows[(4, 8)][k] for k in TIMES},
              k64={k: topk_rows[(4, 64)][k] for k in TIMES},
              passes=topk_passes, d18432=wide_rows["topk_B8_k8"],
+             tp_shards_b4_k8={str(v): {k: r["topk_b4_k8"][k]
+                                       for k in TIMES + ("max_abs_err",)}
+                              for v, r in tp_heads.items()},
+             tp_launches={str(w): summary["tp"][f"tp{w}"]["launches"][
+                 "mixed_f32"]["fused_topk_head"] for w in TP_WORLDS},
              starcoder2_untied_b4_k8={k: sc2_rows["topk_b4_k8"][k]
                                       for k in TIMES + ("max_abs_err",)}),
         dict(name="fused_verify_head", route="cuda",
@@ -4487,6 +5049,11 @@ def main() -> int:
              routes={k: v for k, v in routes.items()
                      if k.startswith("verify")},
              d18432=wide_rows["verify_B8_T8"],
+             tp_shards_b8_t8={str(v): {k: r["verify_b8_t8"][k]
+                                       for k in TIMES}
+                              for v, r in tp_heads.items()},
+             tp_launches={str(w): summary["tp"][f"tp{w}"]["launches"][
+                 "spec4_f32"]["fused_verify_head"] for w in TP_WORLDS},
              starcoder2_untied_b8_t8={k: sc2_rows["verify_b8_t8"][k]
                                       for k in TIMES}),
         dict(name="flash_attention", route="cuda",
@@ -4500,6 +5067,8 @@ def main() -> int:
              hd192={k: v for k, v in hd192_rows.items()
                     if k.startswith("flash")},
              routes=fa_routes,
+             tp_launches={str(w): summary["tp"][f"tp{w}"]["launches"][
+                 "greedy_bf16"]["flash_attention"] for w in TP_WORLDS},
              starcoder2_launches=sc2_launches["flash_attention"],
              starcoder2_t512_g9={k: sc2_rows["flash_t512_g9"][k]
                                  for k in TIMES + ("max_abs_err",)}),
@@ -4571,4 +5140,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if "--tp-rank" in sys.argv:
+        args = dict(zip(sys.argv[1::2], sys.argv[2::2]))
+        sys.exit(tp_rank_main(int(args["--tp-rank"]),
+                              int(args["--tp-world"]), args["--tp-dir"]))
     sys.exit(main())

@@ -8,7 +8,7 @@ from __future__ import annotations
 import dataclasses
 import math
 from dataclasses import dataclass
-from typing import Optional, Tuple
+from typing import Any, Optional, Tuple
 
 
 @dataclass(frozen=True)
@@ -78,6 +78,12 @@ class ModelConfig:
     # the full history, so speculation/rewind/prefix sharing compose.
     attn_approx: str = "exact"
     attn_window: Optional[int] = None
+    # Tensor parallelism: on a rank's view of the config
+    # (``parallel.sharding.local_config``) the rank's ``sharding.Split``
+    # with its process group; None unsharded.  Left out of equality,
+    # hashing and repr: it is where the weights live, not what the model is.
+    shard: Optional[Any] = dataclasses.field(default=None, compare=False,
+                                             repr=False)
     # Whether the arch is sub-quadratic in sequence length (long_500k gate).
     @property
     def subquadratic(self) -> bool:

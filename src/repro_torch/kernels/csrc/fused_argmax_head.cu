@@ -399,11 +399,12 @@ __global__ void __launch_bounds__(kReduceThreads) argmax_reduce_kernel(
 }
 
 // One block per batch row b: warp t reduces the partials of h row
-// b * T + t, then warp 0 counts the leading run of ids == cand.
+// b * T + t (and writes its max value where out_vals is not null), then
+// warp 0 counts the leading run of ids == cand.
 __global__ void __launch_bounds__(kReduceThreads) verify_reduce_kernel(
     const float* __restrict__ pval, const int* __restrict__ pidx, int nsplit,
     int T, const int* __restrict__ cand, int* __restrict__ out_ids,
-    int* __restrict__ out_accept) {
+    int* __restrict__ out_accept, float* __restrict__ out_vals) {
   extern __shared__ int ids_s[];  // (T)
   const int b = blockIdx.x, warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   for (int t = warp; t < T; t += kReduceThreads / 32) {
@@ -422,6 +423,7 @@ __global__ void __launch_bounds__(kReduceThreads) verify_reduce_kernel(
     if (lane == 0) {
       out_ids[row] = bi < 0 ? 0 : bi;
       ids_s[t] = bi < 0 ? 0 : bi;
+      if (out_vals != nullptr) out_vals[row] = bv;
     }
   }
   __syncthreads();
@@ -541,12 +543,15 @@ extern "C" int repro_fused_argmax_head(const void* h, const void* w,
 // flattened -- and w and the plan as above; cand (B, T-1) i32 draft ids,
 // -1 past each row's width.  pval/pidx: (B*T, nsplit) scratch.  out_ids
 // (B, T) i32 = argmax per position; out_accept (B,) i32 = leading run of
-// out_ids[:, :T-1] == cand.  Returns a cudaError_t.
+// out_ids[:, :T-1] == cand; out_vals (B, T) f32 = each position's max
+// logit, or null (a vocabulary shard's verify merges on it across ranks).
+// Returns a cudaError_t.
 extern "C" int repro_fused_verify_head(const void* h, const void* w,
                                        const void* cand, void* pval,
                                        void* pidx, void* out_ids,
-                                       void* out_accept, int B, int T, int D,
-                                       int V, int nsplit, int split_ids,
+                                       void* out_accept, void* out_vals,
+                                       int B, int T, int D, int V,
+                                       int nsplit, int split_ids,
                                        int row_block, int dtype,
                                        void* stream) {
   if (B <= 0 || T <= 0 || T > 4096) return (int)cudaErrorInvalidValue;
@@ -557,6 +562,6 @@ extern "C" int repro_fused_verify_head(const void* h, const void* w,
   verify_reduce_kernel<<<B, kReduceThreads, (size_t)T * sizeof(int), s>>>(
       static_cast<const float*>(pval), static_cast<const int*>(pidx), nsplit,
       T, static_cast<const int*>(cand), static_cast<int*>(out_ids),
-      static_cast<int*>(out_accept));
+      static_cast<int*>(out_accept), static_cast<float*>(out_vals));
   return (int)cudaGetLastError();
 }

@@ -150,7 +150,7 @@ def _lib():
     lib = _build.load("fused_argmax_head")
     lib.repro_fused_argmax_head.argtypes = [ctypes.c_void_p] * 6 + [
         ctypes.c_int] * 7 + [ctypes.c_void_p]
-    lib.repro_fused_verify_head.argtypes = [ctypes.c_void_p] * 7 + [
+    lib.repro_fused_verify_head.argtypes = [ctypes.c_void_p] * 8 + [
         ctypes.c_int] * 8 + [ctypes.c_void_p]
     for fn in (lib.repro_fused_argmax_head, lib.repro_fused_verify_head,
                lib.repro_head_smem_optin):
@@ -247,8 +247,11 @@ def fused_argmax_head_with_value(h: torch.Tensor, w: torch.Tensor):
 fused_argmax_head_with_value.launches = 0
 
 
-def fused_verify_head(h: torch.Tensor, w: torch.Tensor, cand: torch.Tensor):
-    """Speculative verify: (ids (B, T) int32, accept (B,) int32).
+def fused_verify_head(h: torch.Tensor, w: torch.Tensor, cand: torch.Tensor,
+                      *, with_value: bool = False):
+    """Speculative verify: (ids (B, T) int32, accept (B,) int32), plus
+    each position's max logit (B, T) f32 with ``with_value`` (what a
+    vocabulary shard's verify merges on across ranks).
 
     h (B, T, D) contiguous; w (D, V) as for the argmax head; cand (B,
     T-1) int32 contiguous draft ids, -1 past each row's width.  ids[b, t]
@@ -273,13 +276,16 @@ def fused_verify_head(h: torch.Tensor, w: torch.Tensor, cand: torch.Tensor):
                        device=h.device)
     ids = torch.empty((b, t), dtype=torch.int32, device=h.device)
     accept = torch.empty((b,), dtype=torch.int32, device=h.device)
+    vals = torch.empty((b, t), dtype=torch.float32, device=h.device) \
+        if with_value else None
     _raise_on(_lib().repro_fused_verify_head(
         h.data_ptr(), wt.data_ptr(), cand.data_ptr(), pval.data_ptr(),
-        pidx.data_ptr(), ids.data_ptr(), accept.data_ptr(), b, t, d, v,
+        pidx.data_ptr(), ids.data_ptr(), accept.data_ptr(),
+        None if vals is None else vals.data_ptr(), b, t, d, v,
         plan.nsplit, plan.split_ids, plan.row_block, DTYPES[h.dtype],
         torch.cuda.current_stream(h.device).cuda_stream), "fused_verify_head")
     fused_verify_head.launches += 1
-    return ids, accept
+    return (ids, accept, vals) if with_value else (ids, accept)
 
 
 fused_verify_head.launches = 0

@@ -67,6 +67,16 @@ def verify_draft(h: torch.Tensor, w: torch.Tensor, cand: torch.Tensor):
     return _fah.fused_verify_head(h, w, cand)
 
 
+def verify_draft_with_value(h: torch.Tensor, w: torch.Tensor,
+                            cand: torch.Tensor):
+    """``verify_draft`` plus each position's max logit: (ids (B, T)
+    int32, accept (B,) int32, vals (B, T) f32) -- the verify head on a
+    vocabulary shard, whose (val, idx) pairs merge across ranks."""
+    if _device_type(h, w, cand) == "cpu":
+        return ref.verify_draft_with_value(h, w, cand)
+    return _fah.fused_verify_head(h, w, cand, with_value=True)
+
+
 def paged_attention(q, k_pool, v_pool, block_tables, positions, *,
                     attn_approx: str = "exact",
                     window: Optional[int] = None):

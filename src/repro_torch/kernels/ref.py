@@ -159,11 +159,20 @@ def verify_draft(h: torch.Tensor, w: torch.Tensor, cand: torch.Tensor):
     = argmax per position, accept (B,) int32 = length of the leading run
     where ``ids[:, :T-1] == cand``).  The -1 padding never equals an id,
     so a ragged row's run stops at its width."""
+    ids, accept, _ = verify_draft_with_value(h, w, cand)
+    return ids, accept
+
+
+def verify_draft_with_value(h: torch.Tensor, w: torch.Tensor,
+                            cand: torch.Tensor):
+    """``verify_draft`` plus each position's max logit: (ids (B, T) int32,
+    accept (B,) int32, vals (B, T) f32)."""
     b, t, d = h.shape
-    ids = fused_argmax_head(h.reshape(b * t, d), w).reshape(b, t)
+    ids, vals = fused_argmax_head_with_value(h.reshape(b * t, d), w)
+    ids, vals = ids.reshape(b, t), vals.reshape(b, t)
     ok = (ids[:, :t - 1] == cand).to(torch.int32)
     accept = torch.cumprod(ok, dim=-1).sum(dim=-1).to(torch.int32)
-    return ids, accept
+    return ids, accept, vals
 
 
 def _positions(positions, b: int, t: int, device) -> torch.Tensor:

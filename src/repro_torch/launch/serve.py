@@ -6,7 +6,12 @@
       [--kv-layout paged|dense] [--scheduler fused|cohort] \
       [--top-k 4 --temperature 0.8] [--spec-k 4] \
       [--chunk-size 16 [--token-budget 64]] [--host-stride 8] \
-      [--attn-approx pseudo [--attn-window 128]] [--serve-http 8000]
+      [--attn-approx pseudo [--attn-window 128]] [--serve-http 8000] \
+      [--replicas 2]
+
+  # tensor parallelism: one process per rank, rank 0 prints
+  python -m torch.distributed.run --nproc-per-node 2 \
+      -m repro_torch.launch.serve --arch qwen3-0.6b --tp 2 [--smoke]
 
 Counterpart of ``repro.launch.serve`` with the same flags, plus
 ``--device`` (default ``cuda``: the entry point runs on the card and
@@ -23,10 +28,17 @@ paged path's oracle) and ``--scheduler cohort`` its one-step-per-
 (position, sampler) baseline; as in the reference, a dense engine
 refuses ``--attn-approx`` / ``--attn-window`` (``ValueError``) and
 either mode warns and drops ``--chunk-size``, the cohort scheduler
-``--host-stride`` too.  Modes the port does not serve yet are refused,
-never replaced: ``--head-mode sharded`` and ``--tp`` raise the engine's
-``NotImplementedError``, ``--replicas`` above 1 raises here (the port
-has no multi-replica router).
+``--host-stride`` too.
+
+``--tp N`` serves one rank a process under torchrun (the group comes
+from its environment; ``parallel.comm.Group.from_env``): every rank
+draws the weights on the host from ``--seed``, keeps its slice and runs
+the same batch, rank 0 prints.  ``--head-mode sharded`` without ``--tp``
+keeps the trunk whole and splits the head over the group (a group of one
+rank outside torchrun).  ``--replicas N`` serves the batch, or the HTTP
+frontend, through the multi-replica ``serve.router.Router``.  HTTP under
+``--tp`` > 1 is refused (``NotImplementedError``): its submissions would
+have to flow through the ranks' control plane.
 """
 from __future__ import annotations
 
@@ -38,6 +50,7 @@ import torch
 
 from repro_torch.configs import get_config, smoke_config
 from repro_torch.core.attn_approx import VARIANTS
+from repro_torch.parallel import comm
 from repro_torch.serve import sampler as sampler_mod
 from repro_torch.serve.engine import Request, ServeEngine
 from repro_torch.serve.params import SamplingParams
@@ -105,8 +118,9 @@ def parser() -> argparse.ArgumentParser:
     return ap
 
 
-def build(args):
-    """(params, cfg) on ``args.device`` from the arch and the seed."""
+def build(args, host: bool = False):
+    """(params, cfg) from the arch and the seed: on ``args.device``, or on
+    the host for a rank that keeps only its slice (``host``)."""
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
@@ -115,6 +129,8 @@ def build(args):
     cfg = get_config(args.arch)
     if args.smoke:
         cfg = smoke_config(cfg)
+    if host:
+        device = torch.device("cpu")
     gen = torch.Generator(device=device).manual_seed(args.seed)
     return init_params(cfg, gen, device), cfg
 
@@ -137,25 +153,62 @@ def main(argv=None) -> dict:
     args = parser().parse_args(argv)
     if args.replicas < 1:
         raise SystemExit(f"--replicas {args.replicas}: must be >= 1")
-    if args.replicas > 1:
+    tp = args.tp or 1
+    if args.serve_http is not None and tp > 1:
         raise NotImplementedError(
-            f"--replicas {args.replicas}: the port has no multi-replica "
-            "router yet")
-    params, cfg = build(args)
+            f"--serve-http with --tp {tp}: HTTP submissions would have to "
+            "flow through the ranks' control plane, which only the batch "
+            "run and generate/stream on every rank drive so far")
+    group = None
+    if tp > 1 or args.head_mode == "sharded":
+        group = comm.Group.from_env(device=args.device)
+    try:
+        return _serve(args, group)
+    finally:
+        if group is not None:
+            group.close()
+
+
+def _serve(args, group):
+    """The batch run (or the HTTP frontend) of ``main``."""
+    params, cfg = build(args, host=group is not None)
+    kw = dict(engine_kwargs(args), group=group)
     sampler = sampler_mod.resolve(args.head_mode, args.top_k,
                                   args.temperature, cfg=cfg)
-    if args.serve_http is not None:
+    if args.replicas > 1:
+        from repro_torch.serve.router import Router
+
+        kw.pop("group")
+        front = Router(params, cfg, replicas=args.replicas, **kw)
+    elif args.serve_http is not None:
         from repro_torch.serve.api import LLM
+
+        front = LLM(params, cfg, **kw)
+    if args.serve_http is not None:
         from repro_torch.serve.server import serve_forever
 
-        serve_forever(LLM(params, cfg, **engine_kwargs(args)),
-                      host=args.http_host, port=args.serve_http)
+        serve_forever(front, host=args.http_host, port=args.serve_http)
         return None
-    eng = ServeEngine(params, cfg, **engine_kwargs(args))
     rng = np.random.default_rng(args.seed)
-    for rid in range(args.requests):
+    prompts = []
+    for _ in range(args.requests):
         plen = int(rng.integers(4, 24))
-        prompt = rng.integers(0, cfg.vocab_size, plen).astype(np.int32)
+        prompts.append(rng.integers(0, cfg.vocab_size, plen).astype(np.int32))
+    if args.replicas > 1:
+        t0 = time.perf_counter()
+        front.generate(prompts, SamplingParams(
+            max_new_tokens=args.max_new, spec_k=args.spec_k,
+            top_k=args.top_k, temperature=args.temperature,
+            head_mode=args.head_mode))
+        snap = front.stats
+        print(f"sampler={sampler} device={args.device} replicas="
+              f"{args.replicas} routed={[r.served for r in front.replicas]} "
+              f"served={snap['completed']} decode_steps="
+              f"{snap['decode_steps']} wall={time.perf_counter() - t0:.2f}s",
+              flush=True)
+        return snap
+    eng = ServeEngine(params, cfg, **kw)
+    for rid, prompt in enumerate(prompts):
         if args.spec_k:
             # every sampling knob through the params, so an invalid
             # combination fails loudly at submit
@@ -170,6 +223,8 @@ def main(argv=None) -> dict:
     stats = eng.run()
     dt = time.perf_counter() - t0
     snap = eng.snapshot()
+    if group is not None and group.rank != 0:
+        return snap
     spec = (f"drafted={stats['drafted']} accepted={stats['accepted']} "
             f"acceptance={stats['acceptance_rate']:.2f} "
             if args.spec_k else "")
@@ -182,8 +237,11 @@ def main(argv=None) -> dict:
               f"prefix_hit_tokens={stats['prefix_hit_tokens']} "
               f"cow_copies={snap['cow_copies']} "
               if eng.prefix_cache else "")
+    tpinfo = (f"tp={eng.tp} world={group.world} backend={group.backend} "
+               f"collective_bytes={group.bytes} " if group is not None
+               else "")
     print(f"sampler={sampler} device={args.device} kv={args.kv_layout} "
-          f"sched={args.scheduler} {chunk}{stride}{prefix}"
+          f"sched={args.scheduler} {tpinfo}{chunk}{stride}{prefix}"
           f"served={stats['completed']} "
           f"decode_steps={stats['decode_steps']} "
           f"iterations={stats['iterations']} "

@@ -10,6 +10,16 @@ per segment: a prefill returns the dense ``(L, B, max_len, Hkv, hd)``
 leaves; a decode step takes either the paged store's ``(L, num_blocks,
 bs, Hkv, hd)`` pools (with block tables) or dense ``(L, N, S, Hkv, hd)``
 leaves, and writes them in place.
+
+Under tensor parallelism the tree is one rank's slice
+(``weights.shard_params``) and ``cfg`` the rank's view
+(``sharding.local_config``: its heads and MLP width, and ``cfg.shard``
+the rank's ``parallel.sharding.Split`` with its group): the embedding
+lookup is vocabulary-sharded (each rank gathers the ids in its range,
+zeros elsewhere, then an all-reduce -- exact, one rank alone is non-zero
+per token), an all-reduce follows each layer's ``wo`` and ``w_out``,
+``lm_head_weight`` is the rank's (D, V / ranks) slice and ``logits_fn``
+all-gathers the slices' f32 logits.
 """
 from __future__ import annotations
 
@@ -31,19 +41,42 @@ def segments(cfg: ModelConfig):
     return [(("attn",), cfg.n_layers)]
 
 
+def _trunk_group(cfg: ModelConfig):
+    """The group a split trunk all-reduces over, or None."""
+    sh = cfg.shard
+    return sh.group if sh is not None and sh.trunk else None
+
+
 def embed_tokens(params: dict, cfg: ModelConfig,
                  tokens: torch.Tensor) -> torch.Tensor:
-    return params["embed"][tokens]
+    group = _trunk_group(cfg)
+    if group is None:
+        return params["embed"][tokens]
+    # vocabulary-sharded lookup: this rank's rows for the ids in its
+    # range, exact zeros elsewhere; the sum over ranks adds zeros only
+    lo, hi = cfg.shard.vocab
+    local = tokens - lo
+    mine = (local >= 0) & (local < hi - lo)
+    x = params["embed"][local.clamp(0, hi - lo - 1)]
+    x = torch.where(mine[..., None], x, torch.zeros((), dtype=x.dtype,
+                                                    device=x.device))
+    return group.all_reduce_sum(x, "embed")
 
 
 def lm_head_weight(params: dict, cfg: ModelConfig) -> torch.Tensor:
     """(D, V) head weight.  Tied: the ``.T`` VIEW of the (V, D)
     embedding -- nothing is copied (a materialised transpose would be a
     311 MB copy per step at qwen3-0.6b's width).  Untied: ``lm_head``,
-    which ``weights.cast_params`` stores as the same kind of view."""
-    if cfg.tie_embeddings:
-        return params["embed"].t()
-    return params["lm_head"]
+    which ``weights.cast_params`` stores as the same kind of view.  On a
+    rank of a sharded head, the rank's (D, V / ranks) slice: the
+    embedding's rows when the trunk is split, else a view of the whole
+    embedding's rows [lo, hi) -- contiguous rows, so still the ``.T``
+    view of a contiguous (V / ranks, D) tensor the head kernels read."""
+    w = params["embed"].t() if cfg.tie_embeddings else params["lm_head"]
+    sh = cfg.shard
+    if sh is not None and not sh.trunk:
+        w = w.t()[sh.vocab[0]:sh.vocab[1]].t()
+    return w
 
 
 def final_hidden(params: dict, cfg: ModelConfig,
@@ -65,6 +98,12 @@ def logits_fn(params: dict, cfg: ModelConfig,
         out = torch.matmul(h.float(), w.float())
     else:
         out = torch.mm(h, w, out_dtype=torch.float32)
+    sh = cfg.shard
+    if sh is not None:
+        # every rank's (rows, V / ranks) slice, in rank order: the O(rows
+        # * V) traffic the comparator heads never pay
+        g = sh.group.all_gather(out, "logits")
+        out = g.permute(1, 0, 2).reshape(out.shape[0], -1)
     return out.reshape(*x.shape[:-1], out.shape[-1])
 
 
@@ -84,12 +123,18 @@ def layer_params(params: dict, cfg: ModelConfig) -> list:
 
 
 def _apply_layer(p: dict, x: torch.Tensor, cfg: ModelConfig, *, consts,
-                 cache=None):
+                 cache=None, group=None):
+    """One decoder layer; with ``group`` (a split trunk) the row-parallel
+    outputs of ``wo`` and ``w_out`` are summed over the ranks."""
     a, extra = attention(p["attn"], rms_norm(x, p["ln1"], cfg.norm_eps),
                          cfg, consts=consts, causal=True,
                          window=cfg.attention_window, cache=cache)
+    if group is not None:
+        a = group.all_reduce_sum(a, "trunk")
     x = x + a
     h = mlp(p["mlp"], rms_norm(x, p["ln2"], cfg.norm_eps), cfg.activation)
+    if group is not None:
+        h = group.all_reduce_sum(h, "trunk")
     return x + h, extra
 
 
@@ -117,10 +162,11 @@ def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor):
     S = tokens.shape[1]
     x = embed_tokens(params, cfg, tokens)
     consts = step_constants(cfg, torch.arange(S, device=tokens.device))
+    group = _trunk_group(cfg)
     for seg_layers in layer_params(params, cfg):
         for slots in seg_layers:
             for p in slots:
-                x, _ = _apply_layer(p, x, cfg, consts=consts)
+                x, _ = _apply_layer(p, x, cfg, consts=consts, group=group)
     return logits_fn(params, cfg, final_hidden(params, cfg, x)), 0.0
 
 
@@ -132,10 +178,12 @@ def prefill(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
     x = embed_tokens(params, cfg, tokens)
     consts = step_constants(cfg, torch.arange(S, device=tokens.device))
     caches = init_cache(cfg, B, max_len, tokens.device)
+    group = _trunk_group(cfg)
     for seg_layers, seg_cache in zip(layer_params(params, cfg), caches):
         for l, slots in enumerate(seg_layers):
             for j, p in enumerate(slots):
-                x, (k, v) = _apply_layer(p, x, cfg, consts=consts)
+                x, (k, v) = _apply_layer(p, x, cfg, consts=consts,
+                                         group=group)
                 leaf = seg_cache[f"slot{j}"]["attn"]
                 leaf["k"][l, :, :S] = k
                 leaf["v"][l, :, :S] = v
@@ -182,12 +230,13 @@ def decode_step(params: dict, cfg: ModelConfig, token: torch.Tensor,
                                 cache_len=leaf.shape[2], rows=cache_rows,
                                 window=cfg.attention_window)
     x = embed_tokens(params, cfg, token)
+    group = _trunk_group(cfg)
     for seg_layers, seg_cache in zip(layers, caches):
         for l, slots in enumerate(seg_layers):
             for j, p in enumerate(slots):
                 kv = seg_cache[f"slot{j}"]["attn"]
                 x, _ = _apply_layer(p, x, cfg, consts=consts, cache={
-                    "k": kv["k"][l], "v": kv["v"][l]})
+                    "k": kv["k"][l], "v": kv["v"][l]}, group=group)
     if T == 1:
         return final_hidden(params, cfg, x[:, 0, :]), caches
     return final_hidden(params, cfg, x), caches

@@ -1,0 +1,174 @@
+"""Process groups for tensor-parallel serving: one process per shard.
+
+Counterpart of ``repro.parallel.env`` and ``repro.launch.mesh``.  The JAX
+package drives a device mesh from one process; the port runs one process
+per rank (SPMD) with the collectives outside the kernels, over
+``torch.distributed``.  A ``Group`` is one rank's handle:
+
+  rank, world    this process's place in the group
+  device         ``cuda:(LOCAL_RANK % device_count)`` on the card, or the
+                 CPU (``device="cpu"``, as the tests run)
+  backend        the data collectives' backend: ``nccl`` where every rank
+                 on the host has a card of its own, else ``gloo`` (which
+                 takes CUDA tensors and stages them through the host: on
+                 one card, several ranks share it over gloo)
+
+Collectives: ``all_gather`` (stacked along a new leading rank axis),
+``all_reduce_sum`` (in place) and ``broadcast_object`` (a pickled object
+from rank 0 over a separate CPU gloo group, the control plane, so host
+messages never queue behind device traffic).  ``agree`` all-gathers one
+int64 per rank over that control group and raises when they differ.
+
+``bytes`` counts the bytes every collective left on this rank, by the
+kind its caller names (``"trunk"``, ``"embed"``, ``"head"``,
+``"logits"``, ``"control"``, ``"digest"``): an all-gather counts its
+whole result, an all-reduce its tensor.  It takes the place of the
+reference's ``repro.launch.hlo_stats.collective_bytes`` over compiled
+HLO, and is what shows the comparator head's traffic to be O(rows *
+ranks * k), never O(rows * V).
+"""
+from __future__ import annotations
+
+import datetime
+import os
+import pickle
+from typing import Any, Dict, Optional
+
+import torch
+import torch.distributed as dist
+
+# the group's timeout when the caller names none: a rank that dies or
+# diverges fails the others within it instead of hanging them
+DEFAULT_TIMEOUT_S = 300.0
+
+
+def rank_device(device, local_rank: int) -> torch.device:
+    """The device rank ``local_rank`` of a host takes: ``cuda:(local_rank
+    % device_count)`` for ``device="cuda"`` (raises without a card), the
+    CPU for ``"cpu"``."""
+    device = torch.device(device)
+    if device.type == "cpu":
+        return device
+    if device.type != "cuda":
+        raise ValueError(f"device {device}: expected 'cuda' or 'cpu'")
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "CUDA is not available: the port's entry points run on the card "
+            "(pass device='cpu' to run the plain kernel versions)")
+    if device.index is not None:
+        return device
+    return torch.device("cuda", local_rank % torch.cuda.device_count())
+
+
+def pick_backend(device: torch.device, local_world: int) -> str:
+    """``nccl`` where each of the host's ranks has a card of its own (NCCL
+    refuses two ranks of one communicator on one device), else ``gloo``."""
+    if device.type == "cuda" and dist.is_nccl_available() \
+            and torch.cuda.device_count() >= local_world:
+        return "nccl"
+    return "gloo"
+
+
+class Group:
+    """One rank's handle on a group of ranks; see the module docstring.
+    Build it with ``Group.init`` (an explicit rendezvous) or
+    ``Group.from_env`` (torchrun's environment)."""
+
+    def __init__(self, rank: int, world: int, device: torch.device,
+                 backend: str, control):
+        self.rank = rank
+        self.world = world
+        self.device = device
+        self.backend = backend
+        self._control = control
+        self.bytes: Dict[str, int] = {}
+
+    @classmethod
+    def init(cls, rank: int, world: int, *, init_method: Optional[str] = None,
+             store=None, device="cuda", local_rank: Optional[int] = None,
+             local_world: Optional[int] = None,
+             timeout_s: float = DEFAULT_TIMEOUT_S) -> "Group":
+        """Join a group of ``world`` ranks as ``rank``: the default process
+        group (``init_method``, e.g. ``file://<dir>/rdv`` or
+        ``tcp://localhost:<port>``, or a ``store``) for the data
+        collectives, plus a gloo group for the control plane."""
+        local_rank = rank if local_rank is None else local_rank
+        local_world = world if local_world is None else local_world
+        dev = rank_device(device, local_rank)
+        backend = pick_backend(dev, local_world)
+        if dev.type == "cuda":
+            torch.cuda.set_device(dev)
+        kw = dict(backend=backend, rank=rank, world_size=world,
+                  timeout=datetime.timedelta(seconds=timeout_s))
+        if store is not None:
+            kw["store"] = store
+        else:
+            kw["init_method"] = init_method
+        dist.init_process_group(**kw)
+        control = dist.new_group(backend="gloo")
+        return cls(rank, world, dev, backend, control)
+
+    @classmethod
+    def from_env(cls, device="cuda", **kw) -> "Group":
+        """The group torchrun describes (RANK, WORLD_SIZE, LOCAL_RANK,
+        LOCAL_WORLD_SIZE, MASTER_ADDR/PORT); without WORLD_SIZE, a group
+        of one rank on an in-process store."""
+        if "WORLD_SIZE" not in os.environ:
+            return cls.init(0, 1, store=dist.HashStore(), device=device, **kw)
+        world = int(os.environ["WORLD_SIZE"])
+        return cls.init(int(os.environ["RANK"]), world, init_method="env://",
+                        device=device,
+                        local_rank=int(os.environ.get("LOCAL_RANK", 0)),
+                        local_world=int(os.environ.get("LOCAL_WORLD_SIZE",
+                                                       world)), **kw)
+
+    def close(self) -> None:
+        """Leave the group (the default process group included)."""
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+    def _count(self, kind: str, n: int) -> None:
+        self.bytes[kind] = self.bytes.get(kind, 0) + int(n)
+
+    def all_gather(self, x: torch.Tensor, kind: str) -> torch.Tensor:
+        """Every rank's ``x`` stacked in rank order: (world, *x.shape)."""
+        x = x.contiguous()
+        parts = [torch.empty_like(x) for _ in range(self.world)]
+        dist.all_gather(parts, x)
+        out = torch.stack(parts)
+        self._count(kind, out.numel() * out.element_size())
+        return out
+
+    def all_reduce_sum(self, x: torch.Tensor, kind: str) -> torch.Tensor:
+        """Sum ``x`` over the ranks, in place; returns ``x``.  Every rank
+        gets the same bits."""
+        dist.all_reduce(x, op=dist.ReduceOp.SUM)
+        self._count(kind, x.numel() * x.element_size())
+        return x
+
+    def broadcast_object(self, obj: Any, src: int = 0) -> Any:
+        """Rank ``src``'s ``obj`` on every rank (pickled, over the control
+        group)."""
+        box = [obj if self.rank == src else None]
+        dist.broadcast_object_list(box, src=src, group=self._control)
+        self._count("control", len(pickle.dumps(box[0])))
+        return box[0]
+
+    def agree(self, value: int, what: str) -> None:
+        """All-gather one int64 per rank over the control group; raise
+        ``RuntimeError`` on every rank when they are not all equal, so a
+        divergence fails the group at once instead of deadlocking a later
+        collective or corrupting the KV cache without a word."""
+        mine = torch.tensor([value], dtype=torch.int64)
+        parts = [torch.empty_like(mine) for _ in range(self.world)]
+        dist.all_gather(parts, mine, group=self._control)
+        self._count("digest", 8 * self.world)
+        got = [int(p) for p in parts]
+        if len(set(got)) > 1:
+            raise RuntimeError(
+                f"ranks diverged at {what}: rank digests {got} (rank "
+                f"{self.rank} of {self.world})")
+
+    def __repr__(self) -> str:
+        return (f"Group(rank={self.rank}, world={self.world}, "
+                f"device={self.device}, backend={self.backend!r})")

@@ -62,7 +62,9 @@ class LLM:
     Constructor kwargs mirror the engine's (n_slots, max_len, eos_id,
     head_mode, kv_layout, block_size, num_blocks, prefill_per_step,
     scheduler, chunk_size, token_budget, host_stride, prefix_cache, seed,
-    drafter, ...);
+    drafter, tp, group, ...); under ``tp`` every rank builds this facade
+    and makes the same calls (SPMD, ``ServeEngine``'s docstring): rank 0's
+    requests are served and every rank returns the same outputs;
     ``head_mode``
     is the default head — each request's ``SamplingParams.head_mode`` can
     override it, and ``drafter`` proposes the drafts of speculative
@@ -88,12 +90,21 @@ class LLM:
 
     @classmethod
     def from_arch(cls, arch: str, *, smoke: bool = True, seed: int = 0,
-                  device="cuda", **engine_kwargs) -> "LLM":
+                  device="cuda", tp: Optional[int] = None,
+                  **engine_kwargs) -> "LLM":
         """Build params + config for a zoo arch and wrap them.  Weights
         come from a ``torch.Generator`` seeded with ``seed`` on
         ``device``; ``smoke=True`` is the tiny config of the same
-        family."""
+        family.
+
+        With ``tp`` > 1 (one process per rank, the group torchrun
+        describes, ``comm.Group.from_env``) every rank draws the whole f32
+        tree on the HOST from the same seed and the engine keeps its
+        slice, so no rank holds the whole tree on the card (the host
+        generator's numbers differ from the card's, so these weights are
+        not ``from_arch(tp=None)``'s on the card)."""
         from repro_torch.configs import get_config, smoke_config
+        from repro_torch.parallel import comm
         from repro_torch.weights import init_params
 
         device = torch.device(device)
@@ -104,9 +115,13 @@ class LLM:
         cfg = get_config(arch)
         if smoke:
             cfg = smoke_config(cfg)
-        gen = torch.Generator(device=device).manual_seed(seed)
-        return cls(init_params(cfg, gen, device), cfg, seed=seed,
-                   **engine_kwargs)
+        group = None
+        if tp is not None and tp > 1:
+            group = comm.Group.from_env(device=device)
+        host = device if group is None else torch.device("cpu")
+        gen = torch.Generator(device=host).manual_seed(seed)
+        return cls(init_params(cfg, gen, host), cfg, seed=seed, tp=tp,
+                   group=group, **engine_kwargs)
 
     # -- engine event plumbing ----------------------------------------------
     def _on_chunk(self, chunk: TokenChunk) -> None:
@@ -125,6 +140,11 @@ class LLM:
         threads submit and read queues; nobody steps inline."""
         if self._pumping:
             return
+        if self.engine._spmd:
+            raise NotImplementedError(
+                "a background pump on a rank of several: every rank must step "
+                "in lockstep, and submissions would have to flow through "
+                "the control plane; drive generate/stream on every rank")
         self._pump_stop.clear()
         self._pump_error = None        # a fresh pump starts healthy
 

@@ -91,14 +91,52 @@ so ``decode_steps`` exceeds ``iterations``; it has no multi-token step
 (no chunking, no speculation) and no device loop.  Both run on the card
 as the fused paged step does, graphed per bucket.
 
-The JAX engine's other modes are refused, not ignored: ``tp``/``mesh``
-raise ``NotImplementedError`` (or ``ValueError`` for values that are
-wrong in both packages).
+TENSOR PARALLELISM (``tp=N`` with ``group=``, a ``parallel.comm.Group``
+of world N; the counterpart of the reference's ``tp=``/``mesh=``).  The
+process model, decided once:
+
+  - SPMD, not a single controller: one process per rank, each building
+    this same engine over its Megatron slice of the weights
+    (``weights.shard_params``: heads whole, column-parallel QKV and
+    up/gate, row-parallel ``wo``/``w_out`` each followed by an
+    all-reduce, the vocabulary split along V) and its kv-head slice of
+    the paged pools (``sharding.local_config``; ``self.cfg`` is the
+    rank's view, the vocabulary whole).  Every rank runs the same host
+    scheduler and steps together.  The comparator heads run on the
+    rank's vocabulary slice and one all-gather of (val, idx) tables picks
+    the winner (``core.reduced_softmax``), so ``reduced``/``fused`` are
+    upgraded to ``sharded`` as in the reference; speculative verify goes
+    through ``sharded_verify_draft``.  ``head_mode='sharded'`` on a group
+    with ``tp`` None keeps the trunk whole and shards only the head.
+  - Every rank makes the same plan.  Rank 0 owns the front: ``submit``
+    and ``cancel`` there queue for the next iteration, whose first act is
+    one pickled broadcast of the new requests and cancels over the
+    group's CPU control group (``_sync``); the other ranks' ``submit``
+    only names the ``Request`` object rank 0's copy will fill, matched by
+    rid.  So every rank's queue, allocator, prefix trie and numpy
+    sampling streams see the same inputs in the same order.  Then each
+    plan -- the admitted requests, every one-shot prefill, every step's
+    rows, positions, block tables and head groups -- is hashed to one
+    int64 and all-gathered (``comm.Group.agree``): ranks that differ
+    raise ``RuntimeError`` together instead of deadlocking a later
+    collective or corrupting the cache without a word.
+  - A dead rank fails the others within the group's timeout (every
+    collective has one).
+  - Devices: rank r takes ``cuda:(LOCAL_RANK % device_count)``; several
+    ranks share one card over gloo, which stages through the host.
+  - Graphs: a step whose collectives go through gloo cannot be captured,
+    so a sharded engine runs the eager step body (and an eager
+    ``host_stride`` loop, the same tokens); ``engine.graphs`` counts no
+    capture.  Capturing the step over NCCL is left for several cards.
+
+``mesh=`` is refused (``NotImplementedError``: the port's counterpart is
+``group=``), and values wrong in both packages raise ``ValueError``.
 """
 from __future__ import annotations
 
 import dataclasses
 import functools
+import hashlib
 import time
 import warnings
 from collections import deque
@@ -110,8 +148,10 @@ import torch
 from repro_torch import prng
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import attn_approx as approx
+from repro_torch.core import reduced_softmax
 from repro_torch.kernels import ops
 from repro_torch.models import api, lm
+from repro_torch.parallel import sharding
 from repro_torch.serve import sampler as sampler_mod
 from repro_torch.serve import step_graph
 from repro_torch.serve.outputs import TokenChunk
@@ -119,7 +159,16 @@ from repro_torch.serve.paged_kv import PagedKVStore, pow2 as _pow2
 from repro_torch.serve.params import SamplingParams
 from repro_torch.serve.sampler import Sampler
 from repro_torch.serve.spec import PromptLookupDrafter
-from repro_torch.weights import cast_params
+from repro_torch.weights import cast_params, shard_params
+
+
+def _to_device(tree, device):
+    """A param tree's leaves (tensors or numpy arrays) on ``device``."""
+    if isinstance(tree, dict):
+        return {k: _to_device(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_to_device(v, device) for v in tree]
+    return torch.as_tensor(tree).to(device)
 
 
 def _to_host(out):
@@ -226,19 +275,29 @@ class ServeEngine:
                  prefix_cache: bool = True,
                  attn_approx: Optional[str] = None,
                  attn_window: Optional[int] = None,
-                 tp: Optional[int] = None):
+                 tp: Optional[int] = None, group=None):
         if scheduler not in ("fused", "cohort"):
             raise ValueError(f"scheduler={scheduler!r}: expected 'fused' "
                              "(one step per iteration) or 'cohort'")
         if kv_layout not in ("paged", "dense"):
             raise ValueError(f"kv_layout={kv_layout!r}: expected 'paged' "
                              "or 'dense'")
-        refused = {"mesh": mesh, "tp": None if tp in (None, 1) else tp}
-        for name, value in refused.items():
-            if value is not None:
-                raise NotImplementedError(
-                    f"{name}={value!r}: the port serves one device only so "
-                    "far")
+        if mesh is not None:
+            raise NotImplementedError(
+                "mesh=: the port runs one process per rank; pass group= (a "
+                "repro_torch.parallel.comm.Group) and tp=")
+        if tp is not None and tp < 1:
+            raise ValueError(f"tp={tp}: must be >= 1 (or None)")
+        tp = 1 if tp is None else int(tp)
+        if tp > 1 and (group is None or group.world != tp):
+            raise ValueError(
+                f"tp={tp} needs a process group of world {tp} (group=); got "
+                f"{group!r}")
+        if head_mode == "sharded" and group is None:
+            raise ValueError("head_mode='sharded' requires group= (the "
+                             "ranks the vocabulary is split over)")
+        if tp > 1 and head_mode in ("reduced", "fused"):
+            head_mode = "sharded"
         if prefill_per_step is not None and prefill_per_step < 1:
             raise ValueError(
                 f"prefill_per_step={prefill_per_step}: must be >= 1 "
@@ -285,10 +344,29 @@ class ServeEngine:
                 "decode loop needs scheduler='fused'; falling back to "
                 "per-token dispatch", stacklevel=2)
             host_stride = None
+        if group is not None:
+            dev = group.device
+            if tp > 1 or head_mode == "sharded":
+                # the rank's slice, cut on the host before it goes to the
+                # card; cfg becomes the rank's view (cfg.shard the split)
+                split = sharding.plan(
+                    cfg, group.rank, group.world, trunk=tp > 1, group=group,
+                    max_bytes_per_rank=(torch.cuda.get_device_properties(
+                        dev).total_memory if dev.type == "cuda" else None))
+                params = shard_params(params, cfg, split)
+                cfg = sharding.local_config(cfg, split)
+            params = _to_device(params, dev)
         # f32 master weights -> the compute dtype, ONCE (the JAX package
         # casts inside every jitted step)
         self.params = cast_params(params, cfg)
         self.device = self.params["embed"].device
+        self.tp = tp
+        self.group = group
+        # several ranks: the control plane and the plan digests run
+        self._spmd = group is not None and group.world > 1
+        self._outbox: List["Request"] = []    # rank 0: not yet broadcast
+        self._cancels: List[int] = []         # rank 0: rids to cancel
+        self._expect: Dict[int, "Request"] = {}  # other ranks: by rid
         self.cfg = cfg
         self.n_slots = n_slots
         self.max_len = max_len
@@ -369,7 +447,8 @@ class ServeEngine:
 
     @property
     def has_work(self) -> bool:
-        return bool(self.queue) or any(s is not None for s in self.slots)
+        return (bool(self.queue) or any(s is not None for s in self.slots)
+                or bool(self._outbox) or bool(self._expect))
 
     def snapshot(self) -> dict:
         """The counters plus derived scheduler state (JSON-ready): queue
@@ -385,6 +464,12 @@ class ServeEngine:
             s["attn_probe"] = self.probe_report
         s["tokens_per_dispatch"] = (
             s["emitted_tokens"] / max(s["host_syncs"], 1))
+        # tensor parallelism: the split, the data backend, and the bytes
+        # each kind of collective left on this rank (comm.Group.bytes)
+        s["tp"] = self.tp
+        s["backend"] = None if self.group is None else self.group.backend
+        s["collective_bytes"] = ({} if self.group is None
+                                 else dict(self.group.bytes))
         s["cow_copies"] = self.store.cow_copies
         s["shared_blocks"] = self.store.allocator.n_shared
         s["peak_in_use"] = self.store.allocator.peak_in_use
@@ -398,6 +483,19 @@ class ServeEngine:
 
     # -- queue management ----------------------------------------------------
     def submit(self, req: Request):
+        """Validate ``req`` and queue it.  On a rank of several, rank 0's
+        request joins the queue at the next iteration's broadcast and
+        another rank's names the object rank 0's copy fills (by rid)."""
+        self._prepare(req)
+        if not self._spmd:
+            self._enqueue(req)
+        elif self.group.rank == 0:
+            self._outbox.append(req)
+        else:
+            self._expect[req.rid] = req
+
+    def _prepare(self, req: Request) -> None:
+        """The submit gates: params, sampler, modes, lengths."""
         if req.params is None:
             req.params = SamplingParams(max_new_tokens=req.max_new_tokens,
                                         temperature=req.temperature,
@@ -421,7 +519,8 @@ class ServeEngine:
             self._gate_keyed(req)
         if req.params.spec_k > 0 and not (
                 isinstance(req.sampler, sampler_mod.Greedy)
-                and req.sampler.head_mode in ("reduced", "fused")):
+                and req.sampler.head_mode in ("reduced", "fused",
+                                              "sharded")):
             raise ValueError(
                 f"spec_k={req.params.spec_k} requires the reduced "
                 f"comparator head (engine head_mode={self.head_mode!r} "
@@ -442,6 +541,9 @@ class ServeEngine:
                 f"+ max_new_tokens ({req.max_new_tokens}) exceeds "
                 f"max_len={self.max_len}; generation will stop early "
                 "with finish_reason='max_len'", stacklevel=2)
+
+    def _enqueue(self, req: Request) -> None:
+        """Seed the request's stream and join the queue."""
         if req.rng is None:
             req.rng = np.random.default_rng(
                 req.params.seed if req.params.seed is not None
@@ -480,7 +582,18 @@ class ServeEngine:
 
     def cancel(self, req: Request) -> bool:
         """Abort an unfinished request: free its slot's blocks (or drop it
-        from the queue) and finish it with ``finish_reason='cancelled'``."""
+        from the queue) and finish it with ``finish_reason='cancelled'``.
+        On a rank of several this takes effect at the next iteration's
+        broadcast, and only rank 0's call counts."""
+        if self._spmd:
+            if req.done:
+                return False
+            if self.group.rank == 0:
+                self._cancels.append(req.rid)
+            return True
+        return self._cancel_now(req)
+
+    def _cancel_now(self, req: Request) -> bool:
         if req.done:
             return False
         for i, s in enumerate(self.slots):
@@ -534,11 +647,13 @@ class ServeEngine:
             t0 = time.perf_counter()
             if req.t_admit is None:       # re-prefill keeps the first stamp
                 req.t_admit = t0
-            tokens = torch.as_tensor(np.asarray(req.prompt, np.int64),
-                                     device=self.device)[None]
+            prompt = np.asarray(req.prompt, np.int64)
+            tokens = torch.as_tensor(prompt, device=self.device)[None]
             plen = self.store.prefill_len(S)
             if self.store.any_paged:
                 blocks = self.store.alloc_blocks(i, S)
+                self._agree("a one-shot prefill", i, req.rid, prompt,
+                            np.asarray(blocks, np.int64))
                 # the prefill writes [0, S) in place, so a shared cover
                 # would have to be copied here; one-shot slots only hold
                 # the fresh blocks just allocated (adoption is
@@ -551,6 +666,7 @@ class ServeEngine:
                     blocks=torch.as_tensor(blocks, dtype=torch.int64,
                                            device=self.device))
             else:
+                self._agree("a one-shot prefill", i, req.rid, prompt)
                 dev_out, cache1 = api.serve_prefill(
                     self.params, self.cfg, tokens, plen,
                     req.sampler.device_form())
@@ -642,11 +758,66 @@ class ServeEngine:
             return True
         return False
 
+    # -- the control plane (several ranks) -----------------------------------
+    def _sync(self) -> None:
+        """Rank 0's new requests and cancels, broadcast and applied in the
+        same order on every rank; the admitted requests' content is then
+        agreed (a rank handed a different request fails the group)."""
+        rank0 = self.group.rank == 0
+        msg = None
+        if rank0:
+            msg = ([(r.rid, np.asarray(r.prompt), r.params, r.sampler)
+                    for r in self._outbox], list(self._cancels))
+        new, cancels = self.group.broadcast_object(msg)
+        seen = []
+        for n, (rid, prompt, params, smp) in enumerate(new):
+            if rank0:
+                req = self._outbox[n]
+            else:
+                req = self._expect.pop(rid, None)
+                if req is None:          # a rank with no caller of its own
+                    req = Request(rid, np.asarray(prompt, np.int32).copy(),
+                                  params=params, sampler=smp)
+                    self._prepare(req)
+            seen.append((rid, np.asarray(req.prompt, np.int32).tobytes(),
+                         req.params, req.sampler))
+            self._enqueue(req)
+        self._outbox.clear()
+        self._cancels.clear()
+        if seen:
+            self._agree("the requests admitted", seen)
+        for rid in cancels:
+            live = [r for r in self.slots if r is not None and r.rid == rid]
+            live += [r for r in self.queue if r.rid == rid]
+            if live:
+                self._cancel_now(live[0])
+
+    def _agree(self, what: str, *parts) -> None:
+        """Several ranks: hash ``parts`` (numpy arrays by their bytes,
+        anything else by its repr) to one int64 and all-gather it; ranks
+        that differ raise ``RuntimeError`` together."""
+        if not self._spmd:
+            return
+        h = hashlib.blake2b(digest_size=8)
+        for p in parts:
+            h.update(np.ascontiguousarray(p).tobytes()
+                     if isinstance(p, np.ndarray) else repr(p).encode())
+        self.group.agree(int.from_bytes(h.digest(), "little", signed=True),
+                         what)
+
+    def _graphed(self) -> bool:
+        """Whether the device half runs as a CUDA graph: on the card, and
+        only when no collective runs inside the step (gloo syncs with the
+        host; a sharded head gathers)."""
+        return step_graph.graphed(self.device) and self.cfg.shard is None
+
     # -- main loop ------------------------------------------------------------
     def step(self):
         """One engine iteration: admit, then ONE fused ragged step over
         every active slot -- decode rows, draft windows and prefill-chunk
         rows alike."""
+        if self._spmd:
+            self._sync()
         self.stats["iterations"] += 1
         self._admit()
         active = [i for i, s in enumerate(self.slots) if s is not None]
@@ -922,8 +1093,9 @@ class ServeEngine:
         """The device half of ``plan``: (h, head outputs) -- a graph
         replay of its bucket on the card (``step_graph.graphed``), else
         ``_step_body`` eagerly."""
+        self._agree("a step's plan", plan.key, plan.chunks, *plan.arrays)
         body = functools.partial(self._step_body, tuple(plan.order))
-        if step_graph.graphed(self.device):
+        if self._graphed():
             return self.graphs.run(plan.key, body, plan.arrays, self.device)
         return body(*step_graph.to_device(plan.arrays, self.device))
 
@@ -961,9 +1133,19 @@ class ServeEngine:
                 for s, r in zip(order, rest)]
         if len(rest) > len(order):
             srows, cand = rest[len(order):]
-            outs.append(ops.verify_draft(
-                h[srows], lm.lm_head_weight(self.params, self.cfg), cand))
+            outs.append(self._verify(h[srows], cand))
         return h, tuple(outs)
+
+    def _verify(self, h: torch.Tensor, cand: torch.Tensor):
+        """The comparator verify of a step's draft rows: the verify head,
+        or on a sharded head ``sharded_verify_draft`` (one (val, idx) pair
+        per position per rank crosses the group)."""
+        w = lm.lm_head_weight(self.params, self.cfg)
+        sh = self.cfg.shard
+        if sh is not None:
+            return reduced_softmax.sharded_verify_draft(
+                h, w, cand, sh.group, v_lo=sh.vocab[0])
+        return ops.verify_draft(h, w, cand)
 
     def _decode_multi(self, rows: List[int]):
         """One device-resident dispatch over the given slot rows: up to
@@ -1071,7 +1253,8 @@ class ServeEngine:
         ``plan.steps`` times on the card (``step_graph.StepGraphs.
         run_loop``), else the eager loop ``api.serve_decode_multi``,
         which leaves once no row is active."""
-        if step_graph.graphed(self.device):
+        self._agree("a dispatch's plan", plan.key, *plan.arrays)
+        if self._graphed():
             body = functools.partial(self._loop_body, tuple(plan.order))
             ops = self.graphs.run_loop(plan.key, body, plan.arrays,
                                        plan.steps, self.device)
@@ -1199,8 +1382,7 @@ class ServeEngine:
 
     def run(self, max_iters: int = 1000):
         it = 0
-        while (self.queue or any(s is not None for s in self.slots)) \
-                and it < max_iters:
+        while self.has_work and it < max_iters:
             self.step()
             it += 1
         return self.stats

@@ -1,8 +1,9 @@
 """SamplingParams: the typed per-request sampling surface.
 
 A copy of ``repro.serve.params``, so requests carry the same fields in
-both packages.  The port's engine serves every field but
-``head_mode='sharded'``, which waits for tensor parallelism.
+both packages.  The port's engine serves every field;
+``head_mode='sharded'`` needs an engine over a process group (the
+vocabulary-sharded comparator, ``ServeEngine(group=...)``).
 
 The engine used to take loose kwargs on ``Request`` (``top_k``,
 ``temperature``, ``max_new_tokens``) with the head choice fixed

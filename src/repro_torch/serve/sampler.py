@@ -12,17 +12,26 @@ Counterpart of ``repro.serve.sampler``:
                     -- the CUDA kernel on the card, its plain version on
                     the CPU).  Zero exp, zero sum, zero divide
                     (Theorem 1).  'reduced' and 'fused' are the same head
-                    here; 'sharded' waits for tensor parallelism.
+                    here.  On a vocabulary-sharded head (a tensor-parallel
+                    rank's weights, ``cfg.shard``) every mode is
+                    the distributed unit, 'sharded' by name:
+                    ``core.sharded_reduced_head``, the kernel on the
+                    rank's slice and one (val, idx) all-gather.
   TopK              the k-winner comparator bus (``ops.fused_topk_head``,
                     through ``core.fused_reduced_topk``) + an O(k) softmax
                     over the survivors on the host, drawn from the
-                    request's numpy RNG.
+                    request's numpy RNG; on a sharded head
+                    ``core.sharded_reduced_topk`` (k pairs a row a rank).
   Temperature       full-vocab Gumbel-max: the head ships the f32 logit
                     row (``f32_logits``: one GEMM, as the JAX package
                     leaves it to XLA), the host adds Gumbel noise and
                     takes the argmax -- still a comparator decision.
   SoftmaxBaseline   the full softmax unit: f32 logits, softmax, THEN
                     argmax -- the A/B baseline the paper beats.
+
+Under tensor parallelism the Temperature and softmax heads need every
+logit: ``f32_logits`` all-gathers the ranks' (B, V / ranks) slices, the
+O(B * V) traffic the comparator heads replace by O(B * ranks * k).
 
 A ``host_stride`` engine samples with keys instead of numpy streams, as
 the JAX package's does:
@@ -123,17 +132,17 @@ class Greedy(Sampler):
     head_mode: str = "reduced"
 
     def validate(self, cfg: ModelConfig) -> None:
-        if self.head_mode == "sharded":
-            raise NotImplementedError(
-                "head_mode='sharded' is the tensor-parallel head; the port "
-                "has no tensor parallelism yet")
-        if self.head_mode not in ("reduced", "fused"):
+        if self.head_mode not in ("reduced", "fused", "sharded"):
             raise ValueError(f"Greedy head_mode={self.head_mode!r}: "
                              "expected 'reduced', 'fused' or 'sharded'")
 
     def head(self, params: dict, cfg: ModelConfig, h: torch.Tensor):
-        idx, _ = ops.fused_argmax_head_with_value(
-            h, lm.lm_head_weight(params, cfg))
+        w = lm.lm_head_weight(params, cfg)
+        sh = _shard(cfg, self.head_mode)
+        if sh is not None:
+            return reduced_softmax.sharded_reduced_head(
+                h, w, sh.group, v_lo=sh.vocab[0])
+        idx, _ = ops.fused_argmax_head_with_value(h, w)
         return idx
 
     def pick(self, out, row: int, rng=None) -> int:
@@ -195,11 +204,7 @@ class TopK(Sampler):
         if self.sample_k is not None and not 1 <= self.sample_k <= self.k:
             raise ValueError(f"sample_k={self.sample_k} out of range "
                              f"[1, k={self.k}]")
-        if self.head_mode == "sharded":
-            raise NotImplementedError(
-                "head_mode='sharded' is the tensor-parallel head; the port "
-                "has no tensor parallelism yet")
-        if self.head_mode not in ("reduced", "fused"):
+        if self.head_mode not in ("reduced", "fused", "sharded"):
             # the 'softmax' baseline has no top-k form -- reject rather
             # than silently substituting the reduced path
             raise ValueError(
@@ -218,8 +223,13 @@ class TopK(Sampler):
         return self.temperature > 0.0 and n > 1
 
     def head(self, params: dict, cfg: ModelConfig, h: torch.Tensor):
-        return reduced_softmax.fused_reduced_topk(
-            h, lm.lm_head_weight(params, cfg), self.k)
+        w = lm.lm_head_weight(params, cfg)
+        sh = _shard(cfg, self.head_mode)
+        if sh is not None:
+            return reduced_softmax.sharded_reduced_topk(
+                h, w, self.k, sh.group, v_lo=sh.vocab[0],
+                vocab_size=cfg.vocab_size)
+        return reduced_softmax.fused_reduced_topk(h, w, self.k)
 
     def pick(self, out, row: int, rng=None) -> int:
         vals, idxs = out
@@ -297,6 +307,18 @@ class Temperature(Sampler):
     def pick_keyed(self, out, row: int, key) -> int:
         logits = _row(out, row).float()
         return int(self._draw(logits, _key_on(key, logits))[0])
+
+
+def _shard(cfg: ModelConfig, head_mode: str):
+    """The vocabulary shard a comparator head runs on, or None.  Weights
+    that are one rank's slice make every mode the distributed unit (a
+    local argmax over a slice would be wrong); 'sharded' without them
+    raises."""
+    sh = cfg.shard
+    if sh is None and head_mode == "sharded":
+        raise ValueError("head_mode='sharded' needs the weights of a rank "
+                         "of a process group (ServeEngine(group=...))")
+    return sh
 
 
 def _row(x, row: int) -> torch.Tensor:

@@ -28,6 +28,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.parallel import sharding
 
 
 def dtype_of(cfg: ModelConfig) -> torch.dtype:
@@ -141,3 +142,21 @@ def cast_params(params: dict, cfg: ModelConfig) -> dict:
 
     return _map(leaf, params)
 
+
+def shard_params(tree, cfg: ModelConfig, split: sharding.Split) -> dict:
+    """The rank's slice of the whole tree under ``split``
+    (``sharding.plan``: column/row-parallel trunk by whole heads, the
+    vocabulary split along V, norms replicated; a split with ``trunk``
+    False cuts nothing, the head's vocabulary range is taken from the
+    whole tied embedding by ``lm.lm_head_weight``).  ``tree`` is the
+    bridged numpy tree or host tensors from ``init_params``: the slice is
+    cut on the host, before anything goes to the card, and each leaf is
+    made contiguous (numpy stays numpy)."""
+
+    def leaf(path, x):
+        x = sharding.shard_leaf(path, x, cfg, split)
+        if isinstance(x, torch.Tensor):
+            return x.contiguous()
+        return np.ascontiguousarray(x)
+
+    return _map(leaf, tree)

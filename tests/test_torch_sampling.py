@@ -202,8 +202,12 @@ def test_sampler_validation_matches_jax_and_refuses_sharded():
     with pytest.raises(ValueError, match="n_candidates"):
         tsampler.resolve(TSP(n_candidates=2, head_mode="temperature"),
                          cfg=TCFG)
-    with pytest.raises(NotImplementedError, match="tensor-parallel"):
-        tsampler.resolve(TSP(top_k=4, head_mode="sharded"), cfg=TCFG)
+    # 'sharded' resolves as in the reference (the vocabulary-sharded
+    # comparator, served on a tensor-parallel engine's weights)
+    s = tsampler.resolve(TSP(top_k=4, head_mode="sharded"), cfg=TCFG)
+    assert s == tsampler.TopK(4, 1.0, "sharded")
+    assert repr(s) == repr(jsampler.resolve(JSP(top_k=4, head_mode="sharded"),
+                                            cfg=JCFG))
     s = tsampler.resolve(TSP(top_k=2, n_candidates=5), cfg=TCFG)
     assert s == tsampler.TopK(5, 1.0, "reduced", sample_k=2)
 

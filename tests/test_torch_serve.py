@@ -180,16 +180,20 @@ def test_device_guards_and_cpu_runs_launch_no_kernel(bridged):
 
 # host_stride is served since the device-resident loop; a stride below 1
 # is wrong in both packages (ValueError), and so is an approximate score
-# mode on the dense layout, which has no paged decode path
+# mode on the dense layout, which has no paged decode path.  tp and the
+# sharded head are served over a process group (tests/test_torch_tp.py):
+# without one, tp=2 raises as the reference does with too few devices,
+# and head_mode='sharded' as the reference does without a mesh
 @pytest.mark.parametrize("kw", [dict(host_stride=0),
                                 dict(tp=2),
                                 dict(kv_layout="dense", attn_approx="pseudo"),
                                 dict(head_mode="sharded")])
 def test_unported_engine_modes_raise(bridged, kw):
     _, tparams = bridged
-    exc = ValueError if "host_stride" in kw or "attn_approx" in kw \
-        else NotImplementedError
-    with pytest.raises(exc):
+    match = {"tp": "process group of world 2",
+             "head_mode": "requires group="}
+    with pytest.raises(ValueError, match=next(
+            (m for k, m in match.items() if k in kw), None)):
         TLLM(tparams, TCFG, **ENGINE, **kw)
 
 

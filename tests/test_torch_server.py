@@ -203,11 +203,21 @@ def test_cli_serves_its_modes_on_cpu(flags):
     assert snap["completed"] == 4
 
 
+# each mode the CLI once refused: the sharded head is served over a
+# group of one rank outside torchrun (the trunk whole, the head's (val,
+# idx) combine over one slice); --replicas through the Router; --tp is
+# served under torchrun (tests/test_torch_tp.py), and the HTTP frontend
+# under --tp is refused
 @pytest.mark.parametrize("flags", [
     ("--head-mode", "sharded"), ("--tp", "2"), ("--replicas", "2")])
 def test_cli_refuses_unported_modes(flags):
-    with pytest.raises(NotImplementedError):
-        _cli("--device", "cpu", *flags)
+    if "--tp" in flags:
+        with pytest.raises(NotImplementedError, match="--serve-http"):
+            _cli("--device", "cpu", *flags, "--serve-http", "0")
+        return
+    snap = _cli("--device", "cpu", "--requests", "4", "--slots", "2",
+                *flags)
+    assert snap["completed"] == 4 and snap["queue_depth"] == 0
 
 
 def test_cli_runs_on_the_card_by_default():

@@ -1,0 +1,672 @@
+"""Tensor-parallel serving on the CPU: the port's ranks over gloo against
+the JAX package's engine, unsharded.
+
+The JAX side runs in the test process on the bridged smoke weights (the
+reference's own tests, ``tests/test_tp_serving.py``, show its sharded
+engine equals its unsharded one).  The port's side runs as ``world``
+subprocesses -- one rank each, a ``parallel.comm.Group`` over gloo with a
+``file://`` rendezvous under ``tmp_path`` (no TCP port for xdist's
+workers to race for), each waited on with a timeout of its own -- which
+load the same numpy tree and write what they served as JSON.  The ranks
+of tp 2 and tp 4 start together and run while the JAX engines do.
+
+Tolerances: tokens are compared exactly.  The sharded heads' ids are
+compared exactly and their values at rtol 1e-5 (f32: the frameworks sum
+D in another order); across the ranks of one group every output must be
+identical.
+"""
+import json
+import os
+import pickle
+import subprocess
+import sys
+import textwrap
+import types
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+
+from repro.configs import ARCHS as J_ARCHS, smoke_config as j_smoke  # noqa: E402
+from repro.core import reduced_softmax as jrs  # noqa: E402
+from repro.kernels import ops as jops  # noqa: E402
+from repro.models import lm as jlm  # noqa: E402
+from repro.serve.engine import Request as JRequest, ServeEngine as JEngine  # noqa: E402
+from repro.serve.params import SamplingParams as JSP  # noqa: E402
+from repro_torch.configs import get_config, smoke_config  # noqa: E402
+from repro_torch.core import reduced_softmax as trs  # noqa: E402
+from repro_torch.parallel import sharding  # noqa: E402
+from repro_torch.serve.engine import ServeEngine as TEngine  # noqa: E402
+from repro_torch.weights import shard_params  # noqa: E402
+
+ROOT = Path(__file__).resolve().parents[1]
+JCFG = j_smoke(J_ARCHS["qwen3-0.6b"])
+TCFG = smoke_config(get_config("qwen3-0.6b"))
+RANK_TIMEOUT_S = 120          # each rank process
+GROUP_TIMEOUT_S = 30          # every collective of a rank's group
+RTOL = 1e-5
+# the O(k)-not-O(V) case of tests/test_tp_serving.py:406-430
+BYTES_SHAPE = dict(b=8, d=64, v=4096, k=4)
+
+# One rank: the scenarios of its world, each result (or its error) under
+# its name in out<rank>.json.  Weights: the bridged tree (jtree.pkl) and
+# its copy with an exact tie between vocabulary ids 10 and 200 (tie.pkl);
+# head inputs: heads.npz.
+RANK_SCRIPT = textwrap.dedent(r'''
+    import json, pickle, sys, traceback
+    import numpy as np
+    import torch
+    from repro_torch import weights
+    from repro_torch.configs import get_config, smoke_config
+    from repro_torch.core import reduced_softmax as rs
+    from repro_torch.parallel import comm
+    from repro_torch.serve.api import LLM
+    from repro_torch.serve import step_graph
+    from repro_torch.serve.engine import Request, ServeEngine
+    from repro_torch.serve.params import SamplingParams
+
+    rank, world, d = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3]
+    torch.set_num_threads(1)
+    g = comm.Group.init(rank, world, init_method=f"file://{d}/rdv{world}",
+                        device="cpu", timeout_s=float(sys.argv[4]))
+    cfg = smoke_config(get_config("qwen3-0.6b"))
+    def tree(name):
+        with open(f"{d}/{name}", "rb") as f:
+            return weights.from_numpy_params(pickle.load(f), cfg, "cpu")
+    params, tie = tree("jtree.pkl"), tree("tie.pkl")
+    inputs = dict(np.load(f"{d}/heads.npz"))
+    out = {}
+
+    def scenario(fn):
+        try:
+            out[fn.__name__] = fn()
+        except Exception as e:
+            out[fn.__name__] = {"error": f"{type(e).__name__}: {e}",
+                                "trace": traceback.format_exc()[-2000:]}
+        return fn
+
+    def serve(spec_k=0, host_stride=None, **kw):
+        # the body of tests/test_tp_serving.py:280-324
+        kw = {"chunk_size": 8, **kw}
+        eng = ServeEngine(params, cfg, n_slots=3, max_len=64,
+                          head_mode="reduced", host_stride=host_stride,
+                          seed=7, tp=world, group=g, **kw)
+        prompts = [np.arange(2, 2 + n, dtype=np.int32) % cfg.vocab_size
+                   for n in (5, 9, 13, 4)]
+        reqs = []
+        for r, p in enumerate(prompts):
+            mixed = spec_k == 0 and r == 1
+            sp = SamplingParams(max_new_tokens=10, spec_k=spec_k,
+                                top_k=4 if mixed else 1,
+                                temperature=0.8 if mixed else 1.0, seed=r)
+            reqs.append(Request(rid=r, prompt=p.copy(), params=sp))
+            eng.submit(reqs[-1])
+        eng.run(max_iters=200)
+        on_card = step_graph.graphed           # what the card would do
+        step_graph.graphed = lambda device: True
+        would_graph = eng._graphed()
+        step_graph.graphed = on_card
+        return {"tokens": [list(r.generated) for r in reqs],
+                "head_mode": eng.head_mode, "tp": eng.tp,
+                "accepted": eng.stats["accepted"],
+                "captures": eng.graphs.captures,
+                "would_graph": would_graph,
+                "bytes": dict(g.bytes)}
+
+    @scenario
+    def base():
+        return serve()
+
+    @scenario
+    def spec():
+        return serve(spec_k=4)
+
+    @scenario
+    def stride():
+        return serve(host_stride=4)
+
+    @scenario
+    def heads():
+        # each rank's contiguous slice of W through the sharded unit
+        h, w = (torch.from_numpy(inputs[k]) for k in ("h", "w"))
+        v = w.shape[1]
+        lo, hi = rank * v // world, (rank + 1) * v // world
+        wl = w.t()[lo:hi].contiguous().t()
+        idx = rs.sharded_reduced_head(h, wl, g, v_lo=lo)
+        dist_idx = rs.distributed_argmax(h @ wl, g, v_lo=lo)
+        vals, ids = rs.sharded_reduced_topk(h, wl, 4, g, v_lo=lo,
+                                            vocab_size=v)
+        ht = torch.from_numpy(inputs["ht"])
+        cand = torch.from_numpy(inputs["cand"])
+        vids, acc = rs.sharded_verify_draft(ht, wl, cand, g, v_lo=lo)
+        ws = torch.from_numpy(inputs["w_small"])
+        vs = ws.shape[1]
+        a, b = rank * vs // world, (rank + 1) * vs // world
+        svals, sids = rs.sharded_reduced_topk(
+            h, ws.t()[a:b].contiguous().t(), 8, g, v_lo=a, vocab_size=vs)
+        return {"argmax": idx.tolist(), "dist_argmax": dist_idx.tolist(),
+                "topk_vals": vals.tolist(),
+                "topk_ids": ids.tolist(), "verify_ids": vids.tolist(),
+                "accept": acc.tolist(), "narrow_vals": svals.tolist(),
+                "narrow_ids": sids.tolist()}
+
+    @scenario
+    def head_bytes():
+        rng = np.random.default_rng(1)
+        b, dd, v, k = (int(x) for x in inputs["bytes_shape"])
+        h = torch.from_numpy(rng.normal(size=(b, dd)).astype(np.float32))
+        lo, hi = rank * v // world, (rank + 1) * v // world
+        wl = torch.from_numpy(rng.normal(size=(hi - lo, dd))
+                              .astype(np.float32)).t()
+        g.bytes.clear()
+        rs.sharded_reduced_topk(h, wl, k, g, v_lo=lo, vocab_size=v)
+        comparator = dict(g.bytes)
+        g.bytes.clear()
+        rs.sharded_reduced_head(h, wl, g, v_lo=lo)
+        argmax = dict(g.bytes)
+        g.bytes.clear()
+        g.all_gather(h @ wl, "logits")         # the Temperature head's
+        return {"topk": comparator, "argmax": argmax,
+                "logits": dict(g.bytes)}
+
+    if world == 2:
+        @scenario
+        def dense():
+            # the dense layout composes with tp: each slot's max_len row
+            # holds the rank's kv heads
+            return serve(kv_layout="dense", chunk_size=None)
+
+        @scenario
+        def preempt():
+            # tests/test_tp_serving.py:327-365 at tp 2, a 4-block pool
+            rng = np.random.default_rng(5)
+            prompts = [rng.integers(0, cfg.vocab_size, 8).astype(np.int32)
+                       for _ in range(3)]
+            res = {}
+            for mode in ("reduced", "softmax"):
+                eng = ServeEngine(params, cfg, n_slots=2, max_len=64,
+                                  head_mode=mode, tp=2, group=g, seed=7,
+                                  kv_layout="paged", block_size=8,
+                                  num_blocks=4)
+                reqs = [Request(i, p.copy(),
+                                params=SamplingParams(max_new_tokens=12))
+                        for i, p in enumerate(prompts)]
+                for r in reqs:
+                    eng.submit(r)
+                eng.run(max_iters=300)
+                res[mode] = {"tokens": [list(r.generated) for r in reqs],
+                             "preemptions": eng.stats["preemptions"],
+                             "head_mode": eng.head_mode}
+            return res
+
+        @scenario
+        def diverge():
+            # rank 1 is handed another request than rank 0's: the group
+            # must fail, on every rank, within its timeout
+            llm = LLM(params, cfg, n_slots=2, max_len=32, tp=2, group=g)
+            p = [3, 4, 5] if rank == 0 else [3, 4, 6]
+            try:
+                llm.generate([p], SamplingParams(max_new_tokens=3))
+            except RuntimeError as e:
+                return {"raised": str(e)}
+            return {"raised": None}
+
+    if world == 4:
+        @scenario
+        def head_only():
+            # tests/test_distributed.py:147-180: the trunk whole on 4
+            # ranks, the head sharded, ids 10 and 200 tied across shards
+            rng = np.random.default_rng(0)
+            prompts = [rng.integers(0, cfg.vocab_size, size=7)
+                       .astype(np.int32) for _ in range(3)]
+            eng = ServeEngine(tie, cfg, n_slots=2, max_len=32, eos_id=1,
+                              head_mode="sharded", group=g)
+            reqs = [Request(i, p.copy(), 4) for i, p in enumerate(prompts)]
+            for r in reqs:
+                eng.submit(r)
+            eng.run()
+            return {"tokens": [list(r.generated) for r in reqs],
+                    "tp": eng.tp, "trunk_heads": eng.cfg.n_heads}
+
+    with open(f"{d}/out{world}_{rank}.json", "w") as f:
+        json.dump(out, f)
+    g.close()
+''')
+
+
+# One rank of a torchrun launch (RANK, WORLD_SIZE, LOCAL_RANK,
+# MASTER_ADDR/PORT in its environment): the CLI's batch run at --tp 2,
+# then LLM.from_arch(tp=2) on a second port, both building their group
+# from that environment (comm.Group.from_env over env://).
+TORCHRUN_SCRIPT = textwrap.dedent(r'''
+    import contextlib, io, json, os, sys
+    import torch
+    from repro_torch.launch import serve
+    from repro_torch.serve.api import LLM
+    from repro_torch.serve.params import SamplingParams
+
+    torch.set_num_threads(1)
+    d, rank = sys.argv[1], int(os.environ["RANK"])
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed):
+        snap = serve.main(sys.argv[3:] + ["--tp", "2"])
+    os.environ["MASTER_PORT"] = sys.argv[2]
+    llm = LLM.from_arch("qwen3-0.6b", device="cpu", tp=2, n_slots=3,
+                        max_len=64)
+    outs = llm.generate(json.loads(os.environ["PROMPTS"]), [
+        SamplingParams(max_new_tokens=6),
+        SamplingParams(max_new_tokens=6, top_k=4, temperature=0.8, seed=1)])
+    res = {"printed": printed.getvalue(), "snap": snap,
+           "tokens": [list(o.token_ids) for o in outs],
+           "tp": llm.engine.tp, "head_mode": llm.engine.head_mode,
+           "backend": llm.engine.group.backend}
+    llm.engine.group.close()
+    with open(f"{d}/torchrun{rank}.json", "w") as f:
+        json.dump(res, f)
+''')
+CLI_ARGS = ["--arch", "qwen3-0.6b", "--smoke", "--device", "cpu",
+            "--requests", "4", "--max-new", "6"]
+PROMPTS = [[5, 11, 7, 3], [2, 9, 4]]
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _spawn(world: int, d: Path):
+    """Start ``world`` rank processes of RANK_SCRIPT; returns them."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
+    script = d / "rank.py"
+    script.write_text(RANK_SCRIPT)
+    return [subprocess.Popen(
+        [sys.executable, str(script), str(r), str(world), str(d),
+         str(GROUP_TIMEOUT_S)], env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True) for r in range(world)]
+
+
+def _wait(procs, world: int, d: Path) -> list:
+    """Wait on each rank with its own timeout (killing the lot on one
+    miss) and read every rank's results."""
+    for r, p in enumerate(procs):
+        try:
+            _, err = p.communicate(timeout=RANK_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            for q in procs:
+                q.kill()
+            pytest.fail(f"rank {r} of {world} ran past {RANK_TIMEOUT_S} s")
+        assert p.returncode == 0, f"rank {r} of {world}: {err[-3000:]}"
+    return [json.loads((d / f"out{world}_{r}.json").read_text())
+            for r in range(world)]
+
+
+def _jax_serve(params, spec_k=0, host_stride=None, **kw):
+    kw = {"chunk_size": 8, **kw}
+    eng = JEngine(params, JCFG, n_slots=3, max_len=64, head_mode="reduced",
+                  host_stride=host_stride, seed=7, **kw)
+    prompts = [np.arange(2, 2 + n, dtype=np.int32) % JCFG.vocab_size
+               for n in (5, 9, 13, 4)]
+    reqs = []
+    for r, p in enumerate(prompts):
+        mixed = spec_k == 0 and r == 1
+        sp = JSP(max_new_tokens=10, spec_k=spec_k, top_k=4 if mixed else 1,
+                 temperature=0.8 if mixed else 1.0, seed=r)
+        reqs.append(JRequest(rid=r, prompt=p.copy(), params=sp))
+        eng.submit(reqs[-1])
+    eng.run(max_iters=200)
+    return [list(r.generated) for r in reqs]
+
+
+def _jax_preempt(params):
+    rng = np.random.default_rng(5)
+    prompts = [rng.integers(0, JCFG.vocab_size, 8).astype(np.int32)
+               for _ in range(3)]
+    eng = JEngine(params, JCFG, n_slots=2, max_len=64, head_mode="softmax",
+                  seed=7, kv_layout="paged", block_size=8)
+    reqs = [JRequest(i, p.copy(), params=JSP(max_new_tokens=12))
+            for i, p in enumerate(prompts)]
+    for r in reqs:
+        eng.submit(r)
+    eng.run(max_iters=300)
+    return [list(r.generated) for r in reqs]
+
+
+def _jax_tie(params):
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, JCFG.vocab_size, size=7).astype(np.int32)
+               for _ in range(3)]
+    eng = JEngine(params, JCFG, n_slots=2, max_len=32, eos_id=1,
+                  head_mode="reduced")
+    reqs = [JRequest(i, p.copy(), 4) for i, p in enumerate(prompts)]
+    for r in reqs:
+        eng.submit(r)
+    eng.run()
+    return [list(r.generated) for r in reqs]
+
+
+def _head_inputs():
+    """numpy-seeded head operands: h (8, 64) rows near one direction m,
+    W (64, 256) whose ids 10 and 200 are both m -- an exact tie that wins
+    every row by far (|m|^2 ~ 64 against a std of ~8 for the others) --
+    the verify's (2, 4, 64) rows and draft ids, and a 16-id W for k 8
+    over 4-id shards."""
+    rng = np.random.default_rng(2)
+    m = rng.normal(size=64).astype(np.float32)
+    h = (m + 0.1 * rng.normal(size=(8, 64))).astype(np.float32)
+    w = rng.normal(size=(64, 256)).astype(np.float32)
+    w[:, 10] = w[:, 200] = m
+    ht = rng.normal(size=(2, 4, 64)).astype(np.float32)
+    ids = np.argmax(np.einsum("btd,dv->btv", ht, w), -1)
+    cand = ids[:, :3].astype(np.int32).copy()
+    cand[1, 1] = (cand[1, 1] + 1) % 256        # row 1 accepts one draft
+    return dict(h=h, w=w, ht=ht, cand=cand,
+                w_small=rng.normal(size=(64, 16)).astype(np.float32),
+                bytes_shape=np.asarray([BYTES_SHAPE[k] for k in "bdvk"]))
+
+
+@pytest.fixture(scope="module")
+def runs(tmp_path_factory):
+    """Both groups' results and the JAX side's, computed once."""
+    d = tmp_path_factory.mktemp("tp")
+    jparams = jlm.init_params(JCFG, jax.random.PRNGKey(0))
+    tree = jax.tree.map(np.asarray, jparams)
+    w = np.array(tree["embed"]).T.copy()             # tied head (D, V)
+    w[:, 200] = w[:, 10]
+    tie = dict(tree, embed=w.T.copy())
+    for name, t in (("jtree.pkl", tree), ("tie.pkl", tie)):
+        with open(d / name, "wb") as f:
+            pickle.dump(t, f)
+    heads = _head_inputs()
+    np.savez(d / "heads.npz", **heads)
+    procs = {world: _spawn(world, d) for world in (2, 4)}
+    jtie = dict(jparams, embed=jnp.asarray(tie["embed"]))
+    want = {"base": _jax_serve(jparams), "spec": _jax_serve(jparams, 4),
+            "stride": _jax_serve(jparams, host_stride=4),
+            "dense": _jax_serve(jparams, kv_layout="dense",
+                                chunk_size=None),
+            "preempt": _jax_preempt(jparams), "tie": _jax_tie(jtie)}
+    got = {world: _wait(p, world, d) for world, p in procs.items()}
+    return got, want, heads
+
+
+def _ok(res: dict, name: str):
+    r = res[name]
+    assert "error" not in r, r.get("trace", r.get("error"))
+    return r
+
+
+# -- the split ---------------------------------------------------------------
+@pytest.mark.parametrize("world", [2, 4])
+def test_split_slices_concatenate_to_the_whole(world):
+    """shard_params' slices put back together along each rule's axis are
+    the whole tree: columns (wq, wk, wv by kv head where they divide, the
+    MLP's in-columns), rows (wo, w_out), the vocabulary (embed); norms
+    replicated."""
+    tree = jax.tree.map(np.asarray,
+                        jlm.init_params(JCFG, jax.random.PRNGKey(1)))
+    parts = [shard_params(tree, TCFG, sharding.plan(TCFG, r, world))
+             for r in range(world)]
+    layer = tree["decoder"][0]["slot0"]
+    lp = [p["decoder"][0]["slot0"] for p in parts]
+    np.testing.assert_array_equal(
+        np.concatenate([p["embed"] for p in parts]), tree["embed"])
+    for key in ("wq", "wk", "wv"):
+        cat = np.concatenate([p["attn"][key] for p in lp], axis=-1)
+        if key != "wq" and world > TCFG.n_kv_heads:
+            continue                       # copies, checked below
+        np.testing.assert_array_equal(cat, layer["attn"][key])
+    np.testing.assert_array_equal(
+        np.concatenate([p["attn"]["wo"] for p in lp], axis=-2),
+        layer["attn"]["wo"])
+    for key, axis in (("w_gate", -1), ("w_up", -1), ("w_out", -2)):
+        np.testing.assert_array_equal(
+            np.concatenate([p["mlp"][key] for p in lp], axis=axis),
+            layer["mlp"][key])
+    for p in lp:
+        for key in ("ln1", "ln2"):
+            np.testing.assert_array_equal(p[key], layer[key])
+        np.testing.assert_array_equal(p["attn"]["q_norm"],
+                                      layer["attn"]["q_norm"])
+        assert p["attn"]["wq"].flags.c_contiguous
+
+
+def test_split_keeps_whole_heads_and_copies_kv_heads():
+    """tp 4 over 4 q / 2 kv heads: one q head a rank and a copy of the kv
+    head it reads (ranks 0-1 kv head 0, ranks 2-3 kv head 1); q heads
+    that do not divide by the world (4 over 8) raise."""
+    hd = TCFG.head_dim
+    tree = jax.tree.map(np.asarray,
+                        jlm.init_params(JCFG, jax.random.PRNGKey(1)))
+    wk = tree["decoder"][0]["slot0"]["attn"]["wk"]
+    for r in range(4):
+        split = sharding.plan(TCFG, r, 4)
+        local = sharding.local_config(TCFG, split)
+        assert (local.n_heads, local.n_kv_heads, local.d_ff) == (1, 1, 32)
+        kv = r // 2
+        got = shard_params(tree, TCFG, split)["decoder"][0]["slot0"]["attn"]
+        np.testing.assert_array_equal(got["wk"],
+                                      wk[..., kv * hd:(kv + 1) * hd])
+    assert sharding.plan(TCFG, 1, 2).kv == (1, 2)        # split at tp 2
+    with pytest.raises(ValueError, match="n_heads=4 does not divide"):
+        sharding.plan(TCFG, 0, 8)
+
+
+def test_engine_refuses_a_group_of_another_world():
+    group = types.SimpleNamespace(world=4, rank=0)
+    tree = jax.tree.map(np.asarray,
+                        jlm.init_params(JCFG, jax.random.PRNGKey(1)))
+    from repro_torch.weights import from_numpy_params
+    params = from_numpy_params(tree, TCFG, "cpu")
+    with pytest.raises(ValueError, match="process group of world 2"):
+        TEngine(params, TCFG, tp=2, group=group)
+
+
+def test_merges_of_slices_equal_the_unsharded_heads():
+    """The merges alone, in one process: slices of a W run one at a time,
+    their (val, idx) tables stacked and merged -- the unsharded heads'
+    ids and values bit for bit on the CPU, the tie to the lower id."""
+    heads = _head_inputs()
+    h, w = torch.from_numpy(heads["h"]), torch.from_numpy(heads["w"])
+    want_i, want_v = (torch.argmax(h @ w, -1).to(torch.int32),
+                      torch.amax(h @ w, -1))
+    for world in (2, 4, 8):
+        per = w.shape[1] // world
+        tabs = [trs.shard_argmax_table(h, w[:, r * per:(r + 1) * per],
+                                       r * per) for r in range(world)]
+        idx, val = trs.merge_argmax(torch.stack([t[0] for t in tabs]),
+                                    torch.stack([t[1] for t in tabs]))
+        assert torch.equal(idx, want_i) and torch.equal(val, want_v)
+        assert (idx == 10).all()
+        tk = [trs.shard_topk_table(h, w[:, r * per:(r + 1) * per], 6,
+                                   v_lo=r * per, rank=r, ranks=world,
+                                   vocab_size=256) for r in range(world)]
+        vals, ids = trs.merge_topk(torch.stack([t[0] for t in tk]),
+                                   torch.stack([t[1] for t in tk]), 6)
+        ref_v, ref_i = trs.reduced_topk(h @ w, 6)
+        assert torch.equal(ids, ref_i) and torch.equal(vals, ref_v)
+
+
+# -- the engine against the JAX engine ---------------------------------------
+@pytest.mark.parametrize("world", [2, 4])
+@pytest.mark.parametrize("name", ["base", "spec", "stride"])
+def test_tp_engine_matches_jax(runs, world, name):
+    """tp 2 / 4 over gloo == the JAX engine unsharded, token for token:
+    chunk 8 with mixed samplers, spec_k=4 (the verify ran), host_stride=4
+    (the body of tests/test_tp_serving.py:280-324); the engine upgraded
+    its head to 'sharded', captured no graph and moved comparator and
+    trunk bytes; on the card too it would run its step eagerly."""
+    got, want, _ = runs
+    res = _ok(got[world][0], name)
+    assert res["tokens"] == want[name]
+    assert res["tp"] == world and res["head_mode"] == "sharded"
+    assert res["captures"] == 0 and res["would_graph"] is False
+    assert res["bytes"]["head"] > 0 and res["bytes"]["trunk"] > 0
+    if name == "spec":
+        assert res["accepted"] > 0
+
+
+def test_tp_dense_layout_matches_jax(runs):
+    """tp 2 on the dense layout (each slot's max_len row holding the
+    rank's kv heads; one-shot admission), mixed samplers: the JAX dense
+    engine's tokens."""
+    got, want, _ = runs
+    res = _ok(got[2][0], "dense")
+    assert res["tokens"] == want["dense"]
+    assert res["head_mode"] == "sharded" and res["captures"] == 0
+
+
+@pytest.mark.parametrize("world", [2, 4])
+def test_every_rank_returns_the_same_outputs(runs, world):
+    got, _, _ = runs
+    for name in ("base", "spec", "stride", "heads"):
+        first = _ok(got[world][0], name)
+        for r in range(1, world):
+            other = _ok(got[world][r], name)
+            for key in ("tokens", "argmax", "topk_ids", "verify_ids"):
+                assert other.get(key) == first.get(key), (name, r, key)
+
+
+def test_tp_forced_preemption_matches_jax_softmax(runs):
+    """tp 2 on a 4-block pool (preemption and re-prefill): sharded ==
+    reduced == softmax, the JAX softmax engine's streams."""
+    got, want, _ = runs
+    res = _ok(got[2][0], "preempt")
+    assert res["reduced"]["head_mode"] == "sharded"
+    assert res["reduced"]["tokens"] == want["preempt"]
+    assert res["softmax"]["tokens"] == want["preempt"]
+    assert res["reduced"]["preemptions"] >= 1
+
+
+@pytest.mark.parametrize("world", [2, 4])
+def test_sharded_heads_match_jax(runs, world):
+    """sharded_reduced_head / _topk / _verify_draft over the ranks'
+    slices (and distributed_argmax over their logit slices) == the JAX
+    package's fused_reduced_head, fused_reduced_topk and
+    ops.verify_draft on the whole W; the exact tie of ids 10 and 200
+    (shards 0 and 3 at tp 4, 0 and 1 at tp 2) resolves to 10."""
+    got, _, heads = runs
+    res = _ok(got[world][0], "heads")
+    h, w = jnp.asarray(heads["h"]), jnp.asarray(heads["w"])
+    want = np.asarray(jrs.fused_reduced_head(h, w))
+    assert res["argmax"] == res["dist_argmax"] == want.tolist()
+    assert set(res["argmax"]) == {10}
+    jv, ji = jrs.fused_reduced_topk(h, w, 4)
+    assert res["topk_ids"] == np.asarray(ji).tolist()
+    np.testing.assert_allclose(res["topk_vals"], np.asarray(jv), rtol=RTOL)
+    assert [row[:2] for row in res["topk_ids"]] == [[10, 200]] * 8
+    vi, va = jops.verify_draft(jnp.asarray(heads["ht"]), w,
+                               jnp.asarray(heads["cand"]))
+    assert res["verify_ids"] == np.asarray(vi).tolist()
+    assert res["accept"] == np.asarray(va).tolist() == [3, 1]
+
+
+def test_sharded_topk_shard_narrower_than_k(runs):
+    """k 8 over a 16-id W at tp 4: 4 ids a shard, each padded with -inf
+    sentinels at unique out-of-vocabulary ids -- the merge is the JAX top-k
+    of the whole W, with no sentinel in it."""
+    got, _, heads = runs
+    res = _ok(got[4][0], "heads")
+    jv, ji = jrs.fused_reduced_topk(jnp.asarray(heads["h"]),
+                                    jnp.asarray(heads["w_small"]), 8)
+    assert res["narrow_ids"] == np.asarray(ji).tolist()
+    np.testing.assert_allclose(res["narrow_vals"], np.asarray(jv),
+                               rtol=RTOL)
+    assert max(max(r) for r in res["narrow_ids"]) < 16
+
+
+def test_head_only_sharded_engine_with_a_cross_shard_tie(runs):
+    """head_mode='sharded' on a group of 4 with tp None: the trunk whole,
+    the head split; ids 10 and 200 tied across shards -- the JAX engine's
+    tokens, 200 never emitted (tests/test_distributed.py:147-180)."""
+    got, want, _ = runs
+    res = _ok(got[4][0], "head_only")
+    assert res["tp"] == 1 and res["trunk_heads"] == TCFG.n_heads
+    assert res["tokens"] == want["tie"]
+    assert all(200 not in t for t in res["tokens"])
+
+
+@pytest.mark.parametrize("world", [2, 4])
+def test_comparator_head_bytes_are_o_k_not_o_v(runs, world):
+    """The byte counter at B 8, D 64, V 4,096, k 4: the top-k comparator
+    moves B * ranks * k (val, idx) pairs -- under a quarter of one f32
+    logit sweep B * V * 4, as tests/test_tp_serving.py:406-430 asserts on
+    compiled HLO -- and the argmax one pair a row a rank; the Temperature
+    head's gather moves the sweep itself."""
+    got, _, _ = runs
+    res = _ok(got[world][0], "head_bytes")
+    b, v, k = BYTES_SHAPE["b"], BYTES_SHAPE["v"], BYTES_SHAPE["k"]
+    sweep = b * v * 4
+    assert res["topk"] == {"head": b * world * k * 8}
+    assert res["topk"]["head"] < sweep / 4
+    assert res["argmax"] == {"head": b * world * 8}
+    assert res["logits"] == {"logits": sweep}
+
+
+def test_plan_digest_fails_a_diverged_group(runs):
+    """Rank 1 handed another request than rank 0's: both ranks raise
+    RuntimeError at the digest, and neither hangs (the ranks finished
+    within their timeouts)."""
+    got, _, _ = runs
+    for r in range(2):
+        res = _ok(got[2][r], "diverge")
+        assert res["raised"] and "diverged" in res["raised"]
+
+
+def test_cli_and_from_arch_under_torchrun_environment(tmp_path):
+    """The entry points a user launches under torchrun: two ranks with
+    RANK / WORLD_SIZE / LOCAL_RANK / MASTER_ADDR / MASTER_PORT in their
+    environment run ``launch.serve.main([..., "--tp", "2"])`` -- rank 0
+    prints, rank 1 returns silently, both serve the batch the unsharded
+    CLI serves, step for step -- and then ``LLM.from_arch(tp=2)``, whose
+    tokens are the unsharded ``from_arch``'s (on the CPU both draw the
+    same host weights)."""
+    from repro_torch.launch import serve
+    from repro_torch.serve.api import LLM
+    from repro_torch.serve.params import SamplingParams
+
+    script = tmp_path / "torchrun_rank.py"
+    script.write_text(TORCHRUN_SCRIPT)
+    ports = [_free_port(), _free_port()]
+    procs = [subprocess.Popen(
+        [sys.executable, str(script), str(tmp_path), str(ports[1])]
+        + CLI_ARGS, env=dict(
+            os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1",
+            RANK=str(r), WORLD_SIZE="2", LOCAL_RANK=str(r),
+            LOCAL_WORLD_SIZE="2", MASTER_ADDR="127.0.0.1",
+            MASTER_PORT=str(ports[0]), PROMPTS=json.dumps(PROMPTS)),
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for r in range(2)]
+    want_snap = serve.main(CLI_ARGS)
+    want = LLM.from_arch("qwen3-0.6b", device="cpu", n_slots=3,
+                         max_len=64).generate(PROMPTS, [
+        SamplingParams(max_new_tokens=6),
+        SamplingParams(max_new_tokens=6, top_k=4, temperature=0.8, seed=1)])
+    for r, p in enumerate(procs):
+        try:
+            _, err = p.communicate(timeout=RANK_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            for q in procs:
+                q.kill()
+            pytest.fail(f"torchrun rank {r} ran past {RANK_TIMEOUT_S} s")
+        assert p.returncode == 0, f"torchrun rank {r}: {err[-3000:]}"
+    got = [json.loads((tmp_path / f"torchrun{r}.json").read_text())
+           for r in range(2)]
+    assert "tp=2 world=2 backend=gloo" in got[0]["printed"]
+    assert "served=4" in got[0]["printed"] and got[1]["printed"] == ""
+    counts = ("completed", "prefills", "decode_steps", "iterations",
+              "emitted_tokens", "prefill_tokens", "preemptions")
+    for res in got:
+        assert res["snap"]["tp"] == 2
+        assert {k: res["snap"][k] for k in counts} \
+            == {k: want_snap[k] for k in counts}
+        assert res["tp"] == 2 and res["head_mode"] == "sharded"
+        assert res["backend"] == "gloo"
+        assert res["tokens"] == [list(o.token_ids) for o in want]
