@@ -128,6 +128,14 @@ Phases, each of which fails the run (non-zero exit, no result line):
      both; the backward calls ``online_softmax``), and Theorem 1 through
      the full unit:
      ``argmax(online_softmax)`` is phase 4's first token;
+  4p. the paper's own experiments, ``python -m repro_torch.paper``'s
+     ``main`` on the card: Table I's three regimes, Figs 2-3's
+     monotonicity and the 10-class classifier trained 200 steps on the
+     cross-entropy kernel, deployed through both units; every CSV line's
+     flag true and the agreement 1.000, the softmax-unit kernel launched
+     205 times (3 regimes, 2 Fig 3 cases, 200 backward passes) and the
+     cross-entropy kernel 200; Table I's card rows against its CPU rows
+     (x bitwise, s(x) within the unit tolerance);
   4e. the divergence probe (``repro_torch.probe.run_probe``, eager) on
      the 12 prompts, 32 new tokens: all five score modes at window None,
      then
@@ -183,7 +191,10 @@ Phases, each of which fails the run (non-zero exit, no result line):
      T 1: 8 / 4 and 4 / 2); then qwen3-0.6b at full width at tp 2 (12
      prompts) and tp 4 (the first 8), 2 and 4 processes of this script
      (``--tp-rank R --tp-world W --tp-dir D``) sharing the card over
-     gloo, each waited on with a timeout: f32 greedy, mixed samplers,
+     gloo, each waited on with a timeout -- the f32 greedy engine built
+     by ``LLM.from_arch(tp=W, dtype="float32")`` in each rank and held
+     to ``LLM.from_arch(dtype="float32")`` here, whose tree is the host
+     draw the ranks cut, leaf for leaf --: f32 greedy, mixed samplers,
      spec_k 4 (drafts accepted), host_stride 8 and chunk 64 with prefix
      sharing held to the unsharded engine's streams (near-tie rule),
      bf16 greedy measured against it and timed beside tp 1 (no claim:
@@ -191,6 +202,30 @@ Phases, each of which fails the run (non-zero exit, no result line):
      rank's launches at its steps, no graph captured, the collective
      bytes of an 8-row decode step and of each head at B 8 (the
      comparator's under a quarter of one f32 logit sweep).
+  4l. (last) the hybrid RG-LRU family: flash attention at
+     recurrentgemma-2b's prefill (T 2,150, 10 query heads over 1 KV head,
+     hd 256, window 2,048; the ``mma.sync`` kernel, from a profiler
+     trace; within two bf16 steps, on random inputs and on inputs where
+     the window decides the answer) and the argmax head at B 8 on its
+     tied (256,000, 2,560) embedding, each against its plain version and
+     timed beside its bound and library call; then ``LLM.from_arch("recurrentgemma-2b",
+     smoke=False)`` in bf16, nothing cut (26 layers, 8 x (rec, rec,
+     attn) + (rec, rec), 8 slots of 2,304 on the dense per-slot store):
+     8 prompts (six of 1-1,000 tokens, two of 2,100-2,200: the ring
+     wraps in prefill and again in decode) greedy at 64 new tokens,
+     eager and graphed twice (the second all replays; tokens equal;
+     flash 8 launches a prefill, no paged attention, an argmax head a
+     step and a prefill), Theorem 1 against the softmax head, mixed
+     samplers, ``spec_k`` refused, ``chunk_size`` and ``host_stride``
+     warned off on one engine with the same tokens; an f32 twin from the same seed
+     (``weights.seeded_params``; its bf16 cast must be the engine's tree
+     bitwise) whose graphed ragged tokens equal a scalar replay
+     (``lm.prefill`` + ``lm.decode_step``) and ``argmax(lm.forward)`` on
+     every stream; the bf16 streams' share equal to the f32 twin's, each
+     parting's step, f32 top-2 gap and bf16 logit error (measured);
+     peak memory, the eager and replayed step beside the
+     bound of reading every weight once, tok/s, and the TTFT of a
+     2,150-token prompt with the plain RG-LRU scan's share.
 
 Token streams that should be equal may part only at a near-tie of the
 two best f32 logits (gap within 1e-3 of the max): the batch composition
@@ -2097,23 +2132,25 @@ def drive_both(torch, llm, prompts, plist, what, replays=True):
     return eager, graphed
 
 
-def drive_replays(torch, llm, prompts, plist, what, first):
-    """Two more graphed runs after ``first`` (``drive_both``'s graphed
+def drive_replays(torch, llm, prompts, plist, what, first, more=2):
+    """``more`` graphed runs after ``first`` (``drive_both``'s graphed
     run) on the same prompts: the second captures the buckets that the
-    first ran once, the third runs no first step and captures nothing,
-    so it is every bucket's replay.  Both runs' tokens must equal
-    ``first``'s.  Returns (second run, third run), as ``drive_graphed``
-    returns them."""
+    first ran once, the last runs no first step and captures nothing,
+    so it is every bucket's replay (with one more run, the buckets the
+    first run captured must be all it ran).  Every run's tokens must
+    equal ``first``'s.  Returns the runs, as ``drive_graphed`` returns
+    them."""
     runs = []
-    for n in (2, 3):
+    for n in range(2, 2 + more):
         run = drive_graphed(torch, llm, prompts, plist, what)
         print(f"{what}: graphed run {n} {run_counts(run)}", flush=True)
         check([o.token_ids for o in run[0]]
               == [o.token_ids for o in first[0]],
               f"{what}: graphed run {n}'s tokens differ from the first's")
         runs.append(run)
-    check(runs[1][5] == runs[1][7] == 0, f"{what}: graphed run 3 captured "
-          f"{runs[1][5]} buckets and ran {runs[1][7]} first steps")
+    check(runs[-1][5] == runs[-1][7] == 0, f"{what}: graphed run {n} "
+          f"captured {runs[-1][5]} buckets and ran {runs[-1][7]} first "
+          "steps")
     return tuple(runs)
 
 
@@ -2245,13 +2282,26 @@ def sampled_params(max_new):
     return kinds, plist
 
 
+def attention_layers(llm) -> tuple:
+    """(paged-attention launches a decode step, flash-attention launches
+    a one-shot prefill) of ``llm``'s engine: its attention layers, each
+    paged when the store pages (a windowed config's ring buffers are
+    never paged: 0 a step)."""
+    from repro_torch.models import lm
+
+    n = lm.layer_types(llm.cfg).count("attn")
+    return (n if llm.engine.store.any_paged else 0), n
+
+
 def run_sampled_path(torch, llm, prompts, greedy_outs, max_new,
                      what="sampled path"):
     """Phase 4b: the same 12 prompts as a mixed sampled workload -- 4
     greedy, 4 top-k (k 8, temperature 0.8, seeded), 2 greedy with 4
     candidate ids (the top-k bus at sample_k 1), 2 Gumbel-max
-    temperature -- through one engine, every kind sharing fused steps."""
-    kinds, plist = sampled_params(max_new)
+    temperature -- through one engine, every kind sharing fused steps
+    (fewer prompts take the first kinds of that list)."""
+    kinds, plist = (x[:len(prompts)] for x in sampled_params(max_new))
+    per_step, per_prefill = attention_layers(llm)
     eager, graphed = drive_both(torch, llm, prompts, plist, what)
     for run, (outs, cands, launches, st, wall, *_) in (("eager", eager),
                                                        ("graphed", graphed)):
@@ -2262,10 +2312,10 @@ def run_sampled_path(torch, llm, prompts, greedy_outs, max_new,
               f"steps, mean {st['decode_ms'] / st['decode_steps']:.3f} "
               f"ms/step; head calls {calls}; launches {launches}",
               flush=True)
-        want_pa = llm.cfg.n_layers * st["decode_steps"]
+        want_pa = per_step * st["decode_steps"]
         check(launches["paged_attention"] == want_pa,
-              f"{what} ({run}): paged attention launches != layers x "
-              "steps")
+              f"{what} ({run}): paged attention launches != paged layers "
+              "x steps")
         check(launches["fused_topk_head"] == calls.get("TopK", 0) > 0,
               f"{what} ({run}): top-k launches != top-k head calls "
               "(decode steps and prefills holding a top-k row)")
@@ -2274,10 +2324,9 @@ def run_sampled_path(torch, llm, prompts, greedy_outs, max_new,
         check(launches["fused_verify_head"] == 0,
               f"{what} ({run}): a verify kernel ran without "
               "speculation")
-        check(launches["flash_attention"]
-              == llm.cfg.n_layers * st["prefills"],
-              f"{what} ({run}): flash attention launches != layers x "
-              "prefills")
+        check(launches["flash_attention"] == per_prefill * st["prefills"],
+              f"{what} ({run}): flash attention launches != attention "
+              "layers x prefills")
         for o, c, kind in zip(outs, cands, kinds):
             check(1 <= len(o.token_ids) <= max_new
                   and all(0 <= x < llm.cfg.vocab_size for x in o.token_ids),
@@ -3793,7 +3842,8 @@ def run_probe_path(torch, llm, prompts, max_new):
     return out
 
 
-def check_theorem1(torch, llm, prompts, outs, max_new, what="theorem 1"):
+def check_theorem1(torch, llm, prompts, outs, max_new, what="theorem 1",
+                   max_len=1024):
     """The softmax baseline (f32 logits, softmax, argmax) over the same
     weights must give the same streams; a divergence is allowed only at
     a near-tie of the top-2 f32 logits."""
@@ -3801,7 +3851,7 @@ def check_theorem1(torch, llm, prompts, outs, max_new, what="theorem 1"):
     from repro_torch.serve.params import SamplingParams
 
     base = LLM(llm.engine.params, llm.cfg, head_mode="softmax", n_slots=8,
-               max_len=1024, seed=0)
+               max_len=max_len, seed=0)
     t0 = time.perf_counter()
     souts = base.generate(prompts, SamplingParams(max_new_tokens=max_new))
     torch.cuda.synchronize()
@@ -4178,11 +4228,10 @@ def run_dense_cohort(torch, max_new) -> dict:
     from repro_torch.configs import get_config
     from repro_torch.serve.api import LLM
     from repro_torch.serve.params import SamplingParams
-    from repro_torch.weights import init_params
+    from repro_torch.weights import seeded_params
 
     base = get_config("qwen3-0.6b")
-    master = init_params(base, torch.Generator(device="cuda").manual_seed(0),
-                         "cuda")
+    master = seeded_params(base, 0, "cuda")
     prng = np.random.default_rng(0)
     prompts = [prng.integers(0, base.vocab_size, size=int(n)).astype(
         np.int32) for n in prng.integers(64, 513, size=12)]
@@ -4237,10 +4286,10 @@ def check_small_reference(torch):
     from repro_torch.kernels import paged_attention as pa
     from repro_torch.serve.api import LLM
     from repro_torch.serve.params import SamplingParams
-    from repro_torch.weights import init_params
+    from repro_torch.weights import seeded_params
 
     cfg = smoke_config(get_config("qwen3-0.6b"))
-    cpu = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    cpu = seeded_params(cfg, 0, "cpu")
     gpu = _tree_to(cpu, "cuda")
     rng = np.random.default_rng(7)
     prompts = [rng.integers(0, cfg.vocab_size, size=n).astype(np.int32)
@@ -4430,16 +4479,17 @@ def check_tp_paged_heads(torch, timer) -> dict:
 
 
 def tp_runs(max_new):
-    """Phase 4k's engine runs: (name, dtype, engine kwargs, params kind,
-    prompts kind).  f32 runs are held to the unsharded engine's tokens;
-    the bf16 greedy run is measured (and timed)."""
-    return (("greedy_f32", "float32", {}, "greedy", "main"),
+    """Phase 4k's engine runs, at every tp: (name, dtype, engine kwargs,
+    params kind, prompts kind).  f32 runs are held to the unsharded
+    engine's tokens; the bf16 greedy run is measured (and timed)."""
+    runs = (("greedy_f32", "float32", {}, "greedy", "main"),
             ("mixed_f32", "float32", {}, "mixed", "main"),
             ("spec4_f32", "float32", {}, "spec4", "spec"),
             ("stride8_f32", "float32", {"host_stride": 8}, "mixed", "main"),
             ("chunk64_f32", "float32", {"chunk_size": 64}, "greedy",
              "main"),
             ("greedy_bf16", "bfloat16", {}, "greedy", "main"))
+    return runs
 
 
 def tp_inputs(vocab, max_new, n=12):
@@ -4489,9 +4539,11 @@ def check_tp_launches(launches, st, cfg, what, flash):
 
 def tp_rank_main(rank: int, world: int, d: str) -> int:
     """One rank of phase 4k (``chip_smoke.py --tp-rank R --tp-world W
-    --tp-dir D``, torchrun's variables in its environment): the bf16
-    engine through ``LLM.from_arch(tp=W)``, whose group (over gloo on the
-    shared card, from that environment) the other runs share, the host
+    --tp-dir D``, torchrun's variables in its environment): the f32
+    greedy engine through ``LLM.from_arch(tp=W, dtype="float32")``, whose
+    group (over gloo on the shared card, from that environment) the other
+    runs share -- the parent holds its tokens to the unsharded
+    ``LLM.from_arch(dtype="float32")``'s: one seed, one tree --, the host
     weights from TP_SEED, each of ``tp_runs`` through
     ``LLM.generate`` at ``tp=world`` (the launch counts set to 0 just
     before and read just after, and checked against the run's steps),
@@ -4505,7 +4557,7 @@ def tp_rank_main(rank: int, world: int, d: str) -> int:
     from repro_torch.configs import get_config
     from repro_torch.serve import sampler as smp
     from repro_torch.serve.api import LLM
-    from repro_torch.weights import init_params
+    from repro_torch.weights import seeded_params
 
     torch.set_num_threads(2)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -4514,19 +4566,19 @@ def tp_rank_main(rank: int, world: int, d: str) -> int:
         # the entry point a user calls under torchrun; from_arch draws
         # the same host tree from TP_SEED as ``host`` below
         first = LLM.from_arch("qwen3-0.6b", smoke=False, tp=world,
+                              dtype="float32",
                               **dict(tp_engine_kwargs(), seed=TP_SEED))
         g = first.engine.group
         out.update(device=str(g.device), backend=g.backend,
                    card=torch.cuda.get_device_name(g.device))
         cfg = get_config("qwen3-0.6b")
-        host = init_params(cfg, torch.Generator().manual_seed(TP_SEED),
-                           "cpu")
+        host = seeded_params(cfg, TP_SEED, "cpu")
         max_new = 32
         prompts, params = tp_inputs(cfg.vocab_size, max_new,
                                     TP_PROMPTS[world])
         for name, dtype, kw, pk, prk in tp_runs(max_new):
-            if name == "greedy_bf16":
-                llm = first
+            if name == "greedy_f32":
+                llm, first = first, None
             else:
                 llm = LLM(host, dataclasses.replace(cfg, dtype=dtype),
                           tp=world, group=g, **tp_engine_kwargs(**kw))
@@ -4658,7 +4710,10 @@ def spawn_tp(world: int, d: str) -> list:
 def run_tp_path(torch, max_new=32) -> dict:
     """Phase 4k: qwen3-0.6b at full width served by tp 2 and tp 4 ranks
     (``spawn_tp``) that share the one card over gloo.  The unsharded
-    engine runs here on the same host weights: every f32 run's streams
+    engine runs here on the same host weights -- its greedy f32 run
+    through ``LLM.from_arch(dtype="float32")`` on the card, whose tree
+    must be the host draw leaf for leaf, against the ranks' own
+    ``LLM.from_arch(tp=W, dtype="float32")``: every f32 run's streams
     (greedy, mixed samplers, spec_k 4 with drafts accepted, host_stride
     8, chunk 64 with prefix sharing on) must be its own, parting only at
     a near-tie of the two best f32 logits; the bf16 greedy streams are
@@ -4673,23 +4728,36 @@ def run_tp_path(torch, max_new=32) -> dict:
     from repro_torch.configs import get_config
     from repro_torch.serve import step_graph
     from repro_torch.serve.api import LLM
-    from repro_torch.weights import init_params
+    from repro_torch.weights import seeded_params
 
     t0 = time.perf_counter()
     cfg = get_config("qwen3-0.6b")
-    host = init_params(cfg, torch.Generator().manual_seed(TP_SEED), "cpu")
+    host = seeded_params(cfg, TP_SEED, "cpu")
     inputs = {n: tp_inputs(cfg.vocab_size, max_new, n)
               for n in set(TP_PROMPTS.values())}
     prompts, params = inputs[12]
     f32 = dataclasses.replace(cfg, dtype="float32")
     dev32 = _tree_to(host, "cuda")
+    # the unsharded entry point on the card: its tree is the host tree
+    # every rank cuts its slice from (one seed, one tree)
+    plain = LLM.from_arch("qwen3-0.6b", smoke=False, dtype="float32",
+                          **dict(tp_engine_kwargs(), seed=TP_SEED))
+    same_tree = all(torch.equal(a, b) for a, b in zip(
+        _leaves(plain.engine.params), _leaves(dev32)))
+    print(f"phase 4k: LLM.from_arch(seed={TP_SEED}, dtype='float32') on "
+          f"the card holds the host tree the ranks cut: {same_tree}",
+          flush=True)
+    check(same_tree, "phase 4k: from_arch on the card drew another tree "
+          "than the host draw of the same seed")
     ref32 = {}                    # (prompt count, run) -> outputs
     for n, (ps, pp) in inputs.items():
         for name, dtype, kw, pk, prk in tp_runs(max_new):
             if dtype == "float32":
-                llm = LLM(dev32, f32, **tp_engine_kwargs(**kw))
+                llm = plain if name == "greedy_f32" else LLM(
+                    dev32, f32, **tp_engine_kwargs(**kw))
                 ref32[n, name] = llm.generate(ps[prk], pp[pk])
                 del llm
+    del plain
     gap_llm = LLM(dev32, f32, **tp_engine_kwargs())   # the near-tie ruler
     bf = LLM(dev32, cfg, **tp_engine_kwargs())
     bf.generate([prompts["main"][0][:16]], params["greedy"])
@@ -4777,8 +4845,10 @@ def run_tp_path(torch, max_new=32) -> dict:
         timing[f"tp{world}_eager_gloo_{n}_prompts"] = dict(
             tok_s=gb["tok_s"], decode_ms=gb["decode_ms"], wall_s=gb["wall_s"])
         summary[f"tp{world}"] = dict(
-            launches={n: r0[n]["launches"] for n, *_ in tp_runs(max_new)},
-            steps={n: r0[n]["decode_steps"] for n, *_ in tp_runs(max_new)},
+            launches={n: r0[n]["launches"]
+                      for n, *_ in tp_runs(max_new)},
+            steps={n: r0[n]["decode_steps"]
+                   for n, *_ in tp_runs(max_new)},
             accepted=r0["spec4_f32"]["accepted"],
             bf16_same=gb["same_as_tp1_bf16"], step_bytes_b8=step,
             head_bytes_b8=heads, weights_bytes=r0["weights_bytes"])
@@ -4790,6 +4860,556 @@ def run_tp_path(torch, max_new=32) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     return summary
+
+
+# ---------------------------------------------------------------------------
+# Phase 4p: the paper's own experiments on the card
+# ---------------------------------------------------------------------------
+def run_paper_path(torch) -> tuple:
+    """Phase 4p: ``python -m repro_torch.paper`` on the card -- its
+    ``main`` in this process, the launch counts set to 0 just before and
+    read just after: Table I over its three regimes, Figs 2-3, the
+    10-class classifier trained 200 steps on the cross-entropy kernel and
+    deployed through both units.  Every CSV line's flag must be true and
+    the agreement 1.000; the softmax-unit kernel runs once a Table I
+    regime, once a Fig 3 case and once a training step's backward (3 + 2
+    + 200), the cross-entropy kernel once a step (200).  Table I's card
+    rows are then held to its CPU rows (the plain versions): x bitwise,
+    s(x) within UNIT_RTOL / UNIT_ATOL.  Returns (summary, launches)."""
+    import contextlib
+    import io
+
+    import repro_torch.paper.__main__ as paper_main
+    from repro_torch.paper import classifier, table1
+
+    buf = io.StringIO()
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = paper_main.main(["--device", "cuda"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    lines = buf.getvalue().splitlines()
+    csv = [ln for ln in lines if ln.split(",")[0] in ("table1", "fig23",
+                                                      "classifier")
+           and ln.count(",") >= 2]
+    for ln in lines:
+        if ln.startswith(("train loss", "test accuracy", "softmax-unit vs",
+                          "  softmax unit", "  reduced unit")) or ln in csv:
+            print(f"phase 4p: {ln}", flush=True)
+    print(f"phase 4p: python -m repro_torch.paper on the card in {wall:.2f}"
+          f" s, exit {rc}; launches {launches}", flush=True)
+    check(rc == 0, "phase 4p: a paper section failed")
+    check("table1,0,all_regimes_argmax_preserved=True" in csv,
+          f"phase 4p: Table I's line is not all true: {csv}")
+    check("fig23,0,monotone_all=True" in csv,
+          f"phase 4p: Figs 2-3's line is not all true: {csv}")
+    check(any(ln.startswith("classifier,0,agreement=1.000_") for ln in csv),
+          f"phase 4p: the classifier's units disagree: {csv}")
+    want = {"online_softmax": 3 + 2 + 200, "fused_xent": 200}
+    for name, n in want.items():
+        check(launches[name] == n, f"phase 4p: {name} launched "
+              f"{launches[name]} times, want {n}")
+    with contextlib.redirect_stdout(io.StringIO()):
+        card = table1.run(device="cuda", verbose=False)
+    cpu = table1.run(device="cpu", verbose=False)
+    err = 0.0
+    for (name, x, _, sx, _), (_, cx, _, csx, _) in zip(card, cpu):
+        check(np.array_equal(x, cx), f"phase 4p: Table I {name}: the card's"
+              " inputs differ from the CPU's")
+        check(np.allclose(sx, csx, rtol=UNIT_RTOL, atol=UNIT_ATOL),
+              f"phase 4p: Table I {name}: the softmax-unit kernel's s(x) "
+              "disagrees with its plain version")
+        err = max(err, float(np.abs(sx - csx).max()))
+    print(f"phase 4p: Table I on the card against the CPU: x bitwise, s(x) "
+          f"max_abs_err {err:.3g}", flush=True)
+    return dict(lines=csv, wall_s=wall, launches=launches,
+                table1_max_abs_err=err,
+                classifier_ops=classifier.op_count_lines()), launches
+
+
+# ---------------------------------------------------------------------------
+# Phase 4l: recurrentgemma-2b (the hybrid RG-LRU family) at full width
+# ---------------------------------------------------------------------------
+RG_MAX_LEN = 2304         # the longest prompt (2,200) + 64 new tokens fit
+RG_MAX_NEW = 64
+
+
+def rg_prompts(vocab: int) -> list:
+    """Phase 4l's 8 prompts (numpy seed 27): six of 1-1,000 tokens and
+    two of 2,100-2,200, past the 2,048-token window."""
+    rng = np.random.default_rng(27)
+    lens = [*rng.integers(1, 1001, size=6), *rng.integers(2100, 2201,
+                                                          size=2)]
+    return [rng.integers(0, vocab, size=int(n)).astype(np.int32)
+            for n in lens]
+
+
+def check_rg_launches(launches, st, llm, what):
+    """A recurrentgemma run's launches against its steps: flash attention
+    once an attention layer a prefill (8 a prompt), no paged attention
+    (the ring buffers are dense), each head kernel once a head call of
+    its kind (greedy: decode steps + prefills), no verify or softmax-unit
+    kernel."""
+    per_step, per_prefill = attention_layers(llm)
+    calls = st["head_calls"]
+    want = {"paged_attention": 0, "flash_attention": per_prefill
+            * st["prefills"], "fused_argmax_head": calls.get("Greedy", 0),
+            "fused_topk_head": calls.get("TopK", 0),
+            "fused_verify_head": 0, "softmax_stats": 0,
+            "online_softmax": 0, "fused_xent": 0}
+    print(f"{what} launches: {launches} (want {want}; {st['decode_steps']} "
+          f"decode steps, {st['prefills']} prefills)", flush=True)
+    check(per_step == 0 and per_prefill == 8,
+          f"{what}: {per_step} paged / {per_prefill} attention layers")
+    for name, n in want.items():
+        check(launches[name] == n, f"{what}: {name} launched "
+              f"{launches[name]} times, want {n}")
+
+
+def check_rg_kernels(torch, timer) -> dict:
+    """Rows 5b and 2c: flash attention at recurrentgemma-2b's prefill
+    (T 2,150, 10 query heads over 1 KV head -- g 10 --, hd 256, causal,
+    window 2,048; bf16, the (B, T, H, hd) views the layer passes; its
+    kernel read from a profiler trace: the ``mma.sync`` route) against
+    SDPA with the window's mask, and the argmax head at B 8 on the tied
+    (V, D) = (256,000, 2,560) embedding (its ``.T`` view) against
+    ``argmax(h @ W)``; each against its plain version and timed beside
+    its bound.
+
+    Flash attention's bf16 output is held to its plain version (f32
+    scores, probabilities and sums, rounded once) element by element
+    within ``4 * BF16_STEP * |want|`` (two bf16 steps: the two roundings
+    to bf16 of nearly the same f32 value) plus ``4 * BF16_STEP *
+    sqrt(sum_j p_j^2 v_j^2)`` (the scale of the kernel's rounding of the
+    probabilities p to bf16 in P V: large in the first rows, which see
+    few keys, small past them), then again on
+    inputs where the window decides the answer: each of the last 102
+    rows' first key past the window scores far above every key the row
+    sees and carries v = 4, so a kernel that let it in would move that
+    row by many times its limit (the plain version without the window
+    shows by how much; more than 10 is required)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import fused_argmax_head as fah
+    from repro_torch.kernels import ref
+
+    t, hq, hkv, hd, window, d, v = 2150, 10, 1, 256, 2048, 2560, 256000
+    gen = torch.Generator(device="cuda").manual_seed(27)
+
+    def rand(heads):
+        return torch.randn((1, t, heads, hd), generator=gen,
+                           device="cuda").to(torch.bfloat16).transpose(1, 2)
+
+    q, k, vv = rand(hq), rand(hkv), rand(hkv)
+    names = [n for n in device_kernels(torch, lambda: fa.flash_attention(
+        q, k, vv, causal=True, window=window), "flash_attention")
+        if "flash_attention" in n]
+    check(names and all("flash_attention_mma_kernel" in n for n in names),
+          f"flash attention at hd 256, g 10 ran {names}, not the mma.sync "
+          "kernel")
+
+    idx = torch.arange(t, device="cuda")
+    mask = (idx[None, :] <= idx[:, None]) & (idx[None, :] > idx[:, None]
+                                             - window)
+
+    def held(q, k, vv, what):
+        """The kernel against its plain version on (q, k, vv): returns
+        (max |err|, the plain output, the limit)."""
+        out = fa.flash_attention(q, k, vv, causal=True, window=window)
+        torch.cuda.synchronize()
+        want = ref.flash_attention(q, k, vv, causal=True,
+                                   window=window).float()
+        kf = k.float().repeat_interleave(hq // hkv, dim=1)
+        vf = vv.float().repeat_interleave(hq // hkv, dim=1)
+        p = torch.softmax(torch.einsum("bhtd,bhsd->bhts", q.float(), kf)
+                          .div_(math.sqrt(hd)).masked_fill_(~mask,
+                                                            float("-inf")),
+                          dim=-1)
+        spread = torch.einsum("bhts,bhsd->bhtd", p.square_(),
+                              vf.square_()).sqrt_()
+        del p, kf, vf
+        diff = (out.float() - want).abs()
+        limit = 4 * BF16_STEP * (want.abs() + spread)
+        worst = (diff / limit).max().item()
+        err = diff.max().item()
+        print(f"recurrentgemma-2b shapes, flash_attention {what}: "
+              f"max_abs_err {err:.6g}, worst err / limit {worst:.4f} "
+              f"(limit 4 * {BF16_STEP:.6g} * (|want| + sqrt(sum p^2 "
+              f"v^2)); that spread {spread[:, :, 0].mean().item():.4g} at "
+              f"row 0, {spread[:, :, -1].mean().item():.4g} at the last "
+              "row)", flush=True)
+        check(worst <= 1.0, f"flash attention at recurrentgemma's shapes "
+              f"({what}) disagrees with its plain version: err {err}, "
+              f"{worst:.3f} of its limit")
+        return err, want, limit
+
+    err, want, _ = held(q, k, vv, "random q, k, v")
+    # the window decides: row window + m's query and key m (the first key
+    # past that row's window) are one vector of norm 16, so that key
+    # would score 256 / 16 = 16 against about N(0, 1) for every other
+    # key of the row; the far keys carry v = 4
+    far = t - window
+    u = torch.randn((far, hd), generator=gen, device="cuda")
+    u = (16 * u / u.norm(dim=-1, keepdim=True)).to(torch.bfloat16)
+    qh, kh, vh = q.clone(), k.clone(), vv.clone()
+    qh[:, :, window:] = u
+    kh[:, :, :far] = u
+    vh[:, :, :far] = 4.0
+    err_w, want_w, limit_w = held(qh, kh, vh, f"each of the last {far} "
+                                  "rows' first key past the window hot")
+    open_w = ref.flash_attention(qh, kh, vh, causal=True,
+                                 window=None).float()
+    moved = ((open_w - want_w).abs() / limit_w)[:, :, window:]
+    print(f"recurrentgemma-2b shapes, flash_attention without the window "
+          f"would move each of the last {far} rows by at least "
+          f"{moved.amax(dim=(0, 1, 3)).min().item():.1f} times its limit",
+          flush=True)
+    check(moved.amax(dim=(0, 1, 3)).min().item() > 10,
+          "the hot-key case does not tell a windowed kernel from one that "
+          "ignores the window")
+    err = max(err, err_w)
+    del qh, kh, vh, want_w, open_w, moved, limit_w
+    rows = {"flash_t2150_g10_hd256": kernel_row(
+        timer, lambda: fa.flash_attention(q, k, vv, causal=True,
+                                          window=window),
+        lambda: ref.flash_attention(q, k, vv, causal=True, window=window),
+        lambda: F.scaled_dot_product_attention(q, k, vv, attn_mask=mask,
+                                               enable_gqa=True),
+        (2 * q.numel() + k.numel() + vv.numel()) * 2,
+        4 * hd * hq * int(mask.sum()), err)}
+    rows["flash_t2150_g10_hd256"]["route"] = "mma.sync"
+    print(f"recurrentgemma-2b shapes, flash_attention T=2150 g=10 hd=256 "
+          f"window=2048 (ran {names[0][:48]}): kernel "
+          f"{shown(rows['flash_t2150_g10_hd256'])}, plain "
+          f"{rows['flash_t2150_g10_hd256']['plain_ms']:.4f} ms, sdpa(mask) "
+          f"{shown(rows['flash_t2150_g10_hd256'], 'library_')}, bound "
+          f"{rows['flash_t2150_g10_hd256']['bound_ms']:.4f} ms "
+          f"({rows['flash_t2150_g10_hd256']['bound_by']}); max_abs_err "
+          f"{err:.6g}", flush=True)
+    del q, k, vv, want, mask
+
+    emb = (torch.randn((v, d), generator=gen, device="cuda")
+           / math.sqrt(d)).to(torch.bfloat16)
+    w = emb.t()                             # the tied head's layout
+    h = torch.randn((8, d), generator=gen, device="cuda").to(torch.bfloat16)
+    hidx, hval = fah.fused_argmax_head_with_value(h, w)
+    torch.cuda.synchronize()
+    idx_ok, val_ok, err, _ = argmax_verdict(torch, h, w, hidx, hval)
+    check(idx_ok and val_ok, "the argmax head on recurrentgemma's tied head "
+          "disagrees with its plain version")
+    rows["argmax_b8"] = kernel_row(
+        timer, lambda: fah.fused_argmax_head_with_value(h, w),
+        lambda: ref.fused_argmax_head_with_value(h, w),
+        lambda: torch.argmax(h @ w, dim=-1), v * d * 2 + 8 * d * 2 + 8 * 8,
+        2.0 * 8 * d * v, err)
+    row = rows["argmax_b8"]
+    print(f"recurrentgemma-2b shapes, fused_argmax_head B=8 (V, D) = "
+          f"(256000, 2560) tied: kernel {shown(row)}, plain "
+          f"{row['plain_ms']:.4f} ms, argmax(h @ W) {shown(row, 'library_')}"
+          f", bound {row['bound_ms']:.4f} ms ({row['bound_by']}); "
+          f"max_abs_err {err:.6g}", flush=True)
+    return rows
+
+
+def rg_prefill_profile(torch, llm, prompt) -> dict:
+    """TTFT of one prompt alone on the idle engine (``LLM.generate`` of
+    one token: submit to first emission), then the same prompt's
+    ``lm.prefill`` with every RG-LRU scan timed apart (a sync before and
+    after each of the 18): the plain scan's share of the prefill."""
+    from repro_torch.models import lm, rglru
+    from repro_torch.serve.params import SamplingParams
+
+    run = drive(torch, llm, [prompt], SamplingParams(max_new_tokens=1))
+    ttft = run[3]["ttft_ms_p50"]
+    eng, orig, spent = llm.engine, rglru.rglru_scan, []
+
+    def timed(*a):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = orig(*a)
+        torch.cuda.synchronize()
+        spent.append(time.perf_counter() - t)
+        return out
+
+    tokens = torch.as_tensor(prompt, dtype=torch.long, device="cuda")[None]
+    rglru.rglru_scan = timed
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lm.prefill(eng.params, eng.cfg, tokens, eng.max_len)
+        torch.cuda.synchronize()
+        total = (time.perf_counter() - t0) * 1e3
+    finally:
+        rglru.rglru_scan = orig
+    scan = sum(spent) * 1e3
+    print(f"recurrentgemma-2b TTFT of a {len(prompt)}-token prompt: "
+          f"{ttft:.2f} ms (alone on the engine); its lm.prefill with each "
+          f"scan synced {total:.2f} ms, of which the {len(spent)} plain "
+          f"RG-LRU scans {scan:.2f} ms ({scan / total:.1%})", flush=True)
+    return dict(prompt_tokens=len(prompt), ttft_ms=ttft,
+                prefill_synced_ms=total, scan_ms=scan, scans=len(spent),
+                scan_share=scan / total)
+
+
+def rg_replay_f32(torch, twin, prompts, outs, max_new) -> dict:
+    """The f32 twin's graphed ragged greedy tokens (``outs``) against a
+    scalar replay -- ``lm.prefill`` then ``lm.decode_step`` one request
+    at a time at its own positions -- and against ``argmax(lm.forward(
+    prompt + generated))`` at every generated position: all equal
+    (``tests/test_serve_paged.py:288``'s rule)."""
+    from repro_torch.models import lm
+
+    eng = twin.engine
+    params, cfg = eng.params, eng.cfg
+    w = lm.lm_head_weight(params, cfg)
+    same_replay = same_forward = 0
+    for prompt, o in zip(prompts, outs):
+        gen = list(o.token_ids)
+        toks = torch.as_tensor(prompt, dtype=torch.long, device="cuda")[None]
+        h, cache = lm.prefill(params, cfg, toks, eng.max_len)
+        replay = [int(torch.argmax(h @ w, -1)[0])]
+        for i in range(len(gen) - 1):
+            h, cache = lm.decode_step(
+                params, cfg, torch.tensor([[replay[-1]]], device="cuda"),
+                cache, torch.tensor(len(prompt) + i, dtype=torch.int32,
+                                    device="cuda"))
+            replay.append(int(torch.argmax(h @ w, -1)[0]))
+        del cache
+        seq = torch.as_tensor(np.concatenate([prompt, gen[:-1]]),
+                              dtype=torch.long, device="cuda")[None]
+        logits, _ = lm.forward(params, cfg, seq)
+        fwd = logits[0, len(prompt) - 1:].argmax(-1).tolist()
+        del logits
+        same_replay += replay == gen
+        same_forward += fwd == gen
+        if replay != gen or fwd != gen:
+            k = next(i for i, (a, b, c) in enumerate(zip(gen, replay, fwd))
+                     if not a == b == c)
+            print(f"recurrentgemma-2b f32: rid {o.rid} ({len(prompt)} "
+                  f"tokens) parts at step {k}: engine {gen[k]}, replay "
+                  f"{replay[k]}, forward {fwd[k]}", flush=True)
+    n = len(prompts)
+    print(f"recurrentgemma-2b f32 twin: engine (graphed, ragged) == scalar "
+          f"replay on {same_replay}/{n} streams, == argmax(lm.forward) on "
+          f"{same_forward}/{n}", flush=True)
+    check(same_replay == same_forward == n, "recurrentgemma-2b f32: the "
+          "engine's tokens differ from the scalar replay or lm.forward")
+    return dict(replay=same_replay, forward=same_forward, streams=n)
+
+
+def rg_bf16_partings(torch, llm, twin, prompts, want, got) -> dict:
+    """The bf16 engine's streams (``got``) against the f32 twin's
+    (``want``), measured, not a gate: for each stream that parts, the
+    step, the f32 top-2 logit gap there against the near-tie rule
+    (HEAD_RTOL * |max|, as phase 4j reports), and the bf16 model's
+    logits at that prefix against the f32 twin's: their largest and
+    RMS difference beside the f32 logits' RMS.  A parting where the f32
+    gap lies under the bf16 logits' own error is bf16 rounding; a bf16
+    logit error near the logits' own size would be a fault of the bf16
+    path."""
+    from repro_torch.models import lm
+
+    def logits(eng, toks):
+        t = torch.as_tensor(toks, dtype=torch.long, device="cuda")[None]
+        h, _ = lm.prefill(eng.params, eng.cfg, t, len(toks))
+        return (h @ lm.lm_head_weight(eng.params, eng.cfg))[0].float()
+
+    rows, same = [], 0
+    for p, w, g in zip(prompts, want, got):
+        if w.token_ids == g.token_ids:
+            same += 1
+            continue
+        k = next((i for i, (a, b) in enumerate(zip(w.token_ids,
+                                                   g.token_ids)) if a != b),
+                 min(len(w.token_ids), len(g.token_ids)))
+        toks = np.concatenate([np.asarray(p, np.int64),
+                               np.asarray(w.token_ids[:k], np.int64)])
+        l32, l16 = logits(twin.engine, toks), logits(llm.engine, toks)
+        top2 = l32.topk(2).values
+        gap, top = (top2[0] - top2[1]).item(), top2[0].item()
+        d = l16 - l32
+        row = dict(rid=g.rid, prompt=len(p), step=k, gap=gap, max=top,
+                   near_tie=gap <= HEAD_RTOL * abs(top),
+                   bf16_max_err=d.abs().max().item(),
+                   bf16_rms_err=d.pow(2).mean().sqrt().item(),
+                   f32_rms=l32.pow(2).mean().sqrt().item())
+        rows.append(row)
+        print(f"recurrentgemma-2b bf16 vs the f32 twin: rid {g.rid} "
+              f"({len(p)} tokens) parts at step {k}: top-2 f32 logit gap "
+              f"{gap:.6g} (max {top:.6g}, {gap / abs(top):.3g} of it; "
+              f"{'a' if row['near_tie'] else 'not a'} near-tie at "
+              f"{HEAD_RTOL}); bf16 logits there off the f32 twin's by max "
+              f"{row['bf16_max_err']:.6g}, rms {row['bf16_rms_err']:.6g} "
+              f"against an f32 rms of {row['f32_rms']:.6g}", flush=True)
+        del l32, l16, d
+    print(f"recurrentgemma-2b bf16 vs the f32 twin: {same}/{len(prompts)} "
+          "streams equal (measured, not a gate)", flush=True)
+    return dict(equal=same, streams=len(prompts), partings=rows)
+
+
+def run_recurrentgemma_path(torch, max_new=RG_MAX_NEW) -> tuple:
+    """Phase 4l: recurrentgemma-2b (the hybrid RG-LRU family) at full
+    width in bf16 (26 layers, 8 x (rec, rec, attn) + (rec, rec), d 2,560,
+    10 heads over 1 KV head of 256, d_ff 7,680, V 256,000 tied, window
+    2,048, lru 2,560; nothing cut; random weights from seed 0) through
+    ``LLM.from_arch``, 8 slots of max_len 2,304 on the dense per-slot
+    store (ring buffers and recurrent state): ``rg_prompts`` greedy at 64
+    new tokens, eager then graphed twice (the second all replays; tokens
+    equal; flash 8 a prefill, no paged attention, the argmax head a step
+    and a prefill), Theorem 1 against the softmax head, mixed samplers
+    (greedy, top-k, candidates, temperature), ``spec_k`` refused,
+    ``chunk_size`` and ``host_stride`` warned off on one engine and
+    serving the same tokens; an f32 twin
+    of the same seed (``weights.seeded_params``, whose bf16 cast must be
+    the bf16 engine's tree bitwise) held to its scalar replay and to
+    ``lm.forward``; the bf16 streams against the f32 twin's
+    (``rg_bf16_partings``, measured).  Prints peak memory, the eager and replayed step against
+    the bound of reading every weight once, tok/s and the TTFT of a
+    2,150-token prompt with the plain scan's share.  Returns (summary,
+    the graphed run 1's launches)."""
+    import dataclasses
+    import warnings
+
+    from repro_torch.serve.api import LLM
+    from repro_torch.serve.params import SamplingParams
+    from repro_torch.weights import seeded_params
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    llm = LLM.from_arch("recurrentgemma-2b", smoke=False, seed=0, n_slots=8,
+                        max_len=RG_MAX_LEN)
+    torch.cuda.synchronize()
+    cfg, eng = llm.cfg, llm.engine
+    built_s, built_peak = time.perf_counter() - t0, \
+        torch.cuda.max_memory_allocated()
+    check((cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+           cfg.head_dim, cfg.d_ff, cfg.vocab_size, cfg.attention_window,
+           tuple(cfg.hybrid_pattern), cfg.lru_width, cfg.tie_embeddings,
+           cfg.dtype)
+          == (26, 2560, 10, 1, 256, 7680, 256000, 2048,
+              ("rec", "rec", "attn"), 2560, True, "bfloat16"),
+          f"recurrentgemma-2b is not served at its full width: {cfg}")
+    check(not eng.store.any_paged, "recurrentgemma-2b's store pages")
+    wbytes = sum(t.numel() * t.element_size() for t in _leaves(eng.params))
+    state = sum(t.numel() * t.element_size()
+                for t in _leaves(eng.store.cache()))
+    print(f"recurrentgemma-2b: {cfg.n_layers} layers "
+          f"({len(eng._layers)} segments), d={cfg.d_model}, "
+          f"{cfg.n_heads}/{cfg.n_kv_heads} heads, hd={cfg.head_dim}, "
+          f"d_ff={cfg.d_ff}, V={cfg.vocab_size} tied, window "
+          f"{cfg.attention_window}, {cfg.dtype}; weights {wbytes / 1e9:.3f} "
+          f"GB, ring buffers + recurrent state {state / 1e6:.1f} MB "
+          f"({state / 8 / 1e6:.2f} MB a slot); built in {built_s:.1f} s "
+          f"(the host draw included), peak {built_peak / 1e9:.3f} GB",
+          flush=True)
+    prompts = rg_prompts(cfg.vocab_size)
+    print(f"recurrentgemma-2b prompts: {[len(p) for p in prompts]} tokens",
+          flush=True)
+    params = SamplingParams(max_new_tokens=max_new)
+    llm.generate([prompts[0][:16]], SamplingParams(max_new_tokens=2))
+    torch.cuda.synchronize()
+
+    eager, graphed = drive_both(torch, llm, prompts, params,
+                                "recurrentgemma-2b")
+    check_rg_launches(eager[2], eager[3], llm, "recurrentgemma-2b eager")
+    check_rg_launches(graphed[2], graphed[3], llm,
+                      "recurrentgemma-2b graphed")
+    check(graphed[2]["fused_argmax_head"] == graphed[3]["decode_steps"]
+          + graphed[3]["prefills"], "recurrentgemma-2b: argmax launches != "
+          "decode steps + prefills")
+    # all 8 rows run as one bucket, which graphed run 1 captured
+    again, = drive_replays(torch, llm, prompts, params, "recurrentgemma-2b",
+                           graphed, more=1)
+    check_rg_launches(again[2], again[3], llm,
+                      "recurrentgemma-2b graphed run 2")
+    outs = graphed[0]
+    for o in outs:
+        check(1 <= len(o.token_ids) <= max_new
+              and o.finish_reason in ("length", "eos")
+              and all(0 <= x < cfg.vocab_size for x in o.token_ids),
+              f"recurrentgemma-2b: bad output for rid {o.rid}: "
+              f"{o.finish_reason} {o.token_ids}")
+    summary = {
+        "eager": main_line("recurrentgemma-2b, eager", eager[0], eager[3],
+                           eager[4]),
+        "graph_first_run": main_line("recurrentgemma-2b, graphed run 1",
+                                     outs, graphed[3], graphed[4]),
+        "graph": main_line("recurrentgemma-2b, graphed run 2 (replays "
+                           "only)", again[0], again[3], again[4])}
+    bound_ms = wbytes / HBM_BYTES_PER_S * 1e3
+    for k in ("eager", "graph"):
+        ms = summary[k]["decode_ms"]
+        print(f"recurrentgemma-2b {k} decode step: {ms:.3f} ms against a "
+              f"bound of {bound_ms:.3f} ms (every weight read once, the "
+              f"tied embedding as the head: {wbytes / 1e9:.3f} GB at "
+              f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s): {ms / bound_ms:.2f}x",
+              flush=True)
+    summary.update(step_bound_ms=bound_ms, weights_gb=wbytes / 1e9,
+                   state_mb=state / 1e6, built_s=built_s,
+                   built_peak_gb=built_peak / 1e9, graphs=graph_line(llm),
+                   prompt_tokens=[len(p) for p in prompts])
+    check_theorem1(torch, llm, prompts, outs, max_new,
+                   what="recurrentgemma-2b theorem 1", max_len=RG_MAX_LEN)
+    sampled_launches, summary["sampled"] = run_sampled_path(
+        torch, llm, prompts, outs, max_new, what="recurrentgemma-2b sampled")
+    summary["sampled"]["launches"] = sampled_launches
+
+    try:
+        llm.generate([prompts[0]], SamplingParams(max_new_tokens=4,
+                                                  spec_k=4))
+        refused = None
+    except ValueError as e:
+        refused = str(e)
+    print(f"recurrentgemma-2b spec_k=4: refused: {refused}", flush=True)
+    check(refused is not None and "rewound" in refused,
+          "recurrentgemma-2b: spec_k was not refused")
+    kw = {"chunk_size": 64, "host_stride": 8}
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        e = LLM(eng.params, cfg, n_slots=8, max_len=RG_MAX_LEN, seed=0,
+                **kw)
+    for what in ("chunk_size=64 ignored", "host_stride=8 ignored"):
+        check(any(what in str(c.message) for c in caught),
+              f"recurrentgemma-2b {kw}: no '{what}' warning")
+    check(e.engine.chunk_size is None and e.engine.host_stride is None,
+          f"recurrentgemma-2b {kw}: the modes were not dropped")
+    run = drive_graphed(torch, e, prompts, params,
+                        f"recurrentgemma-2b {kw}")
+    check_rg_launches(run[2], run[3], e, f"recurrentgemma-2b {kw}")
+    summary["fallback_identical"] = compare_streams(
+        torch, llm, prompts, outs, run[0],
+        f"recurrentgemma-2b {kw} (fallen back) vs the main run")
+    del e, run
+    long = np.random.default_rng(28).integers(0, cfg.vocab_size, size=2150)
+    summary["ttft_long"] = rg_prefill_profile(torch, llm,
+                                              long.astype(np.int32))
+
+    # the f32 twin: one seed, one tree -- its bf16 cast is the engine's
+    f32 = dataclasses.replace(cfg, dtype="float32")
+    masters = seeded_params(f32, 0, "cuda")
+    same_tree = all(torch.equal(m.to(torch.bfloat16), b) for m, b in zip(
+        _leaves(masters), _leaves(eng.params)))
+    print(f"recurrentgemma-2b: seeded_params(seed 0) on the card cast to "
+          f"bf16 == LLM.from_arch's tree: {same_tree}", flush=True)
+    check(same_tree, "recurrentgemma-2b: from_arch's tree is not the seed's")
+    twin = LLM(masters, f32, n_slots=8, max_len=RG_MAX_LEN, seed=0)
+    del masters
+    trun = drive_graphed(torch, twin, prompts, params,
+                         "recurrentgemma-2b f32 twin")
+    check(trun[6] > 0, "recurrentgemma-2b f32 twin: no replay")
+    summary["f32"] = rg_replay_f32(torch, twin, prompts, trun[0], max_new)
+    summary["bf16_vs_f32"] = rg_bf16_partings(torch, llm, twin, prompts,
+                                              trun[0], outs)
+    del twin, trun
+    summary["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    print(f"recurrentgemma-2b phase peak memory: "
+          f"{summary['peak_memory_gb']:.3f} GB allocated "
+          "(torch.cuda.max_memory_allocated)", flush=True)
+    return summary, graphed[2]
 
 
 def _leaves(tree):
@@ -4832,6 +5452,11 @@ def main() -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False   # f32 matmuls in f32
     torch.backends.cudnn.allow_tf32 = False
+
+    def mark(phase):
+        print(f"chip_smoke: {phase} done at "
+              f"{time.perf_counter() - t_start:.1f} s", flush=True)
+
     try:
         card = card_line()
         print(card, flush=True)
@@ -4867,6 +5492,7 @@ def main() -> int:
         xent_backward = check_xent_backward_memory(torch)
         print(clocks_line(), flush=True)
         del timer
+        mark("phase 3")
 
         max_new = 32
         prng = np.random.default_rng(0)
@@ -4891,6 +5517,7 @@ def main() -> int:
         summary["heavy_tail"] = run_heavy_tail(torch, llm, twin)
         summary["prefix"] = run_prefix_path(torch, llm, twin)
         del twin
+        mark("phases 4-4h")
         summary["profile_eager"] = profile_decode(torch, llm, prompts,
                                                   graphed=False)
         summary["profile"] = profile_decode(torch, llm, prompts,
@@ -4915,11 +5542,14 @@ def main() -> int:
                                                            prompts)
         del cllm
         unit_launches, unit_errs = run_unit_path(torch, llm, prompts, outs)
+        summary["paper"], paper_launches = run_paper_path(torch)
+        mark("phases 4i, 4f, 4d, 4p")
         with step_graph.eager_steps():            # the probe stays eager
             probe_runs = run_probe_path(torch, llm, prompts, max_new)
         check_theorem1(torch, llm, prompts, outs, max_new)
         del llm
         check_small_reference(torch)
+        mark("phases 4e, 5, 6")
         # phase 4j: every earlier engine is dropped first, so starcoder2's
         # f32 masters and their bf16 cast (~44 GB) find the card free
         gc.collect()
@@ -4932,6 +5562,7 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
         summary["dense_cohort"] = run_dense_cohort(torch, max_new)
+        mark("phase 4j")
         # phase 4k: tensor parallelism, its ranks in processes of their own
         gc.collect()
         torch.cuda.empty_cache()
@@ -4940,6 +5571,16 @@ def main() -> int:
         tp_paged = check_tp_paged_heads(torch, timer)
         del timer
         summary["tp"] = run_tp_path(torch, max_new)
+        mark("phase 4k")
+        # phase 4l: recurrentgemma-2b, on a card every earlier engine left
+        gc.collect()
+        torch.cuda.empty_cache()
+        timer = Timer(torch)
+        rg_rows = check_rg_kernels(torch, timer)
+        del timer
+        summary["recurrentgemma_2b"], rg_launches = \
+            run_recurrentgemma_path(torch)
+        mark("phase 4l")
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1
@@ -4960,6 +5601,7 @@ def main() -> int:
              t32={k: pa_rows[32][k] for k in TIMES + ("chunks",)},
              routes=pa_routes, invariance=invariance,
              starcoder2_launches=sc2_launches["paged_attention"],
+             recurrentgemma_launches=rg_launches["paged_attention"],
              starcoder2_t1={k: sc2_rows["paged_t1"][k]
                             for k in TIMES + ("chunks", "max_abs_err")},
              starcoder2_t64={k: sc2_rows["paged_t64"][k]
@@ -5003,7 +5645,8 @@ def main() -> int:
              host_stride8_launches=stride_launches["fused_argmax_head"],
              max_abs_err=max(r["max_abs_err"] for r in [
                  *head_rows.values(), wide_rows["argmax_B1"],
-                 wide_rows["argmax_B8"], sc2_rows["argmax_b8"]]),
+                 wide_rows["argmax_B8"], sc2_rows["argmax_b8"],
+                 rg_rows["argmax_b8"]]),
              **{k: head_rows[8][k] for k in TIMES},
              b1={k: head_rows[1][k] for k in TIMES},
              b64={k: head_rows[64][k] for k in TIMES},
@@ -5019,7 +5662,10 @@ def main() -> int:
              tp_launches={str(w): summary["tp"][f"tp{w}"]["launches"][
                  "greedy_bf16"]["fused_argmax_head"] for w in TP_WORLDS},
              starcoder2_untied_b8={k: sc2_rows["argmax_b8"][k]
-                                   for k in TIMES + ("max_abs_err",)}),
+                                   for k in TIMES + ("max_abs_err",)},
+             recurrentgemma_launches=rg_launches["fused_argmax_head"],
+             recurrentgemma_tied_b8={k: rg_rows["argmax_b8"][k]
+                                     for k in TIMES + ("max_abs_err",)}),
         dict(name="fused_topk_head", route="cuda",
              source="src/repro_torch/kernels/csrc/fused_topk_head.cu",
              replaces="src/repro/kernels/fused_topk_head.py:107",
@@ -5061,7 +5707,8 @@ def main() -> int:
              replaces="src/repro/kernels/flash_attention.py:76",
              launches=launches["flash_attention"],
              max_abs_err=max(r["max_abs_err"] for r in [
-                 *flash_rows.values(), sc2_rows["flash_t512_g9"]]),
+                 *flash_rows.values(), sc2_rows["flash_t512_g9"],
+                 rg_rows["flash_t2150_g10_hd256"]]),
              **{k: flash_rows["T512"][k] for k in TIMES},
              g8={k: flash_rows["T512_g8"][k] for k in TIMES},
              hd192={k: v for k, v in hd192_rows.items()
@@ -5071,7 +5718,11 @@ def main() -> int:
                  "greedy_bf16"]["flash_attention"] for w in TP_WORLDS},
              starcoder2_launches=sc2_launches["flash_attention"],
              starcoder2_t512_g9={k: sc2_rows["flash_t512_g9"][k]
-                                 for k in TIMES + ("max_abs_err",)}),
+                                 for k in TIMES + ("max_abs_err",)},
+             recurrentgemma_launches=rg_launches["flash_attention"],
+             recurrentgemma_t2150_g10_hd256_w2048={
+                 k: rg_rows["flash_t2150_g10_hd256"][k]
+                 for k in TIMES + ("max_abs_err", "route")}),
         dict(name="step_graph", route="cuda",
              source="src/repro_torch/serve/step_graph.py",
              replaces="src/repro/serve/engine.py:164",
@@ -5106,6 +5757,7 @@ def main() -> int:
             name=name, route="cuda",
             source="src/repro_torch/kernels/csrc/online_softmax.cu",
             replaces=replaces, launches=unit_launches[name],
+            paper_launches=paper_launches[name],
             max_abs_err=max(unit_errs[name], many_errs[name], *(
                 unit_rows[(name, b)]["max_abs_err"] for b in sizes)),
             **{k: unit_rows[(name, 12)][k] for k in TIMES},

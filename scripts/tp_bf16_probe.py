@@ -138,14 +138,14 @@ def rank_main(rank: int, d: str) -> None:
     from repro_torch.configs import get_config
     from repro_torch.parallel import comm
     from repro_torch.serve.api import LLM
-    from repro_torch.weights import init_params
+    from repro_torch.weights import seeded_params
 
     torch.set_num_threads(2)
     torch.backends.cuda.matmul.allow_tf32 = False
     g = comm.Group.init(rank, 2, init_method=f"file://{d}/rdv",
                         device="cuda")
     cfg = get_config("qwen3-0.6b")
-    host = init_params(cfg, torch.Generator().manual_seed(SEED), "cpu")
+    host = seeded_params(cfg, SEED, "cpu")
     prompts, params = cs.tp_inputs(cfg.vocab_size, MAX_NEW)
     res = {}
     llm = LLM(host, cfg, tp=2, group=g, **cs.tp_engine_kwargs())
@@ -169,7 +169,7 @@ def main() -> int:
 
     from repro_torch.configs import get_config
     from repro_torch.serve.api import LLM
-    from repro_torch.weights import init_params
+    from repro_torch.weights import seeded_params
 
     if not torch.cuda.is_available():
         print("tp_bf16_probe: no card", file=sys.stderr)
@@ -189,7 +189,7 @@ def main() -> int:
         for r in range(2)]
 
     cfg = get_config("qwen3-0.6b")
-    host = init_params(cfg, torch.Generator().manual_seed(SEED), "cpu")
+    host = seeded_params(cfg, SEED, "cpu")
     prompts, params = cs.tp_inputs(cfg.vocab_size, MAX_NEW)
     dev = cs._tree_to(host, "cuda")
     got = {}

@@ -16,7 +16,9 @@
 Counterpart of ``repro.launch.serve`` with the same flags, plus
 ``--device`` (default ``cuda``: the entry point runs on the card and
 raises without one; ``cpu`` runs the plain kernel versions).  Weights
-are random, from a ``torch.Generator`` seeded with ``--seed``.
+are random, drawn on the host from ``--seed`` (``weights.seeded_params``)
+and moved to the device, so one seed serves one model under every
+``--tp``, ``--head-mode`` and ``--device``.
 
 ``--serve-http PORT`` swaps the batch run for the network frontend
 (``serve/server.py``): an SSE ``POST /v1/completions`` + ``GET
@@ -30,9 +32,14 @@ refuses ``--attn-approx`` / ``--attn-window`` (``ValueError``) and
 either mode warns and drops ``--chunk-size``, the cohort scheduler
 ``--host-stride`` too.
 
+``--arch recurrentgemma-2b`` serves the hybrid family (RG-LRU layers
+between windowed attention layers) on the dense per-slot store whatever
+``--kv-layout`` asks; as in the reference it refuses ``--spec-k``, and
+``--chunk-size`` and ``--host-stride`` warn and fall back.
+
 ``--tp N`` serves one rank a process under torchrun (the group comes
 from its environment; ``parallel.comm.Group.from_env``): every rank
-draws the weights on the host from ``--seed``, keeps its slice and runs
+draws the same host weights from ``--seed``, keeps its slice and runs
 the same batch, rank 0 prints.  ``--head-mode sharded`` without ``--tp``
 keeps the trunk whole and splits the head over the group (a group of one
 rank outside torchrun).  ``--replicas N`` serves the batch, or the HTTP
@@ -54,7 +61,7 @@ from repro_torch.parallel import comm
 from repro_torch.serve import sampler as sampler_mod
 from repro_torch.serve.engine import Request, ServeEngine
 from repro_torch.serve.params import SamplingParams
-from repro_torch.weights import init_params
+from repro_torch.weights import seeded_params
 
 
 def parser() -> argparse.ArgumentParser:
@@ -119,8 +126,9 @@ def parser() -> argparse.ArgumentParser:
 
 
 def build(args, host: bool = False):
-    """(params, cfg) from the arch and the seed: on ``args.device``, or on
-    the host for a rank that keeps only its slice (``host``)."""
+    """(params, cfg) from the arch and the seed (``weights.seeded_params``:
+    the one tree ``--seed`` names on every device): on ``args.device``,
+    or on the host for a rank that keeps only its slice (``host``)."""
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
@@ -131,8 +139,7 @@ def build(args, host: bool = False):
         cfg = smoke_config(cfg)
     if host:
         device = torch.device("cpu")
-    gen = torch.Generator(device=device).manual_seed(args.seed)
-    return init_params(cfg, gen, device), cfg
+    return seeded_params(cfg, args.seed, device), cfg
 
 
 def engine_kwargs(args) -> dict:
@@ -240,7 +247,8 @@ def _serve(args, group):
     tpinfo = (f"tp={eng.tp} world={group.world} backend={group.backend} "
                f"collective_bytes={group.bytes} " if group is not None
                else "")
-    print(f"sampler={sampler} device={args.device} kv={args.kv_layout} "
+    layout = "paged" if eng.store.any_paged else "dense"
+    print(f"sampler={sampler} device={args.device} kv={layout} "
           f"sched={args.scheduler} {tpinfo}{chunk}{stride}{prefix}"
           f"served={stats['completed']} "
           f"decode_steps={stats['decode_steps']} "

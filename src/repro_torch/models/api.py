@@ -21,10 +21,11 @@ from repro_torch.models import lm
 
 def serve_prefill(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
                   max_len: int, sampler):
-    """Prompt pass for the dense layout: returns (head output, cache),
-    the cache's ``(L, B, max_len, Hkv, hd)`` leaves zero-padded past the
-    prompt (``lm.prefill``); the engine copies a B = 1 cache into its
-    slot's row (``PagedKVStore.admit``)."""
+    """Prompt pass for a dense store: returns (head output, cache), the
+    cache ``lm.prefill``'s tree (K/V zero-padded past the prompt to
+    ``max_len``, or a windowed layer's ring buffer; a ``rec`` layer's
+    state); the engine copies a B = 1 cache into its slot's row
+    (``PagedKVStore.admit``)."""
     h, cache = lm.prefill(params, cfg, tokens, max_len)
     return sampler.head(params, cfg, h), cache
 

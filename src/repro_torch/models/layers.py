@@ -80,6 +80,10 @@ class StepConstants:
     tables      (B, nb) int32 block tables
     positions   (B,) int32 at T = 1, else (B, T): each query's position
     dense cache (``cache_len``):
+    slot        (B or 1, T) int64: the cache cell each query's K/V goes
+                to -- its position, or ``position % window`` in a ring
+    ring        whether the cache is the ring buffer of an architecture
+                window (S == window)
     mask        (B or 1, 1, 1, T, S) bool: the keys each query sees
     rows        (B,) int64: the cache row of each batch row, or None when
                 batch row b is cache row b
@@ -92,6 +96,8 @@ class StepConstants:
     off: Optional[torch.Tensor] = None
     tables: Optional[torch.Tensor] = None
     positions: Optional[torch.Tensor] = None
+    slot: Optional[torch.Tensor] = None
+    ring: bool = False
     mask: Optional[torch.Tensor] = None
     rows: Optional[torch.Tensor] = None
 
@@ -109,7 +115,10 @@ def step_constants(cfg: ModelConfig, positions: torch.Tensor, *,
     (B, T) -- either the paged branch's (``block_tables`` (B, nb) and the
     pools' ``block_size``) or the dense branch's (the cache's
     ``cache_len`` S, the optional cache ``rows`` and the architecture
-    ``window`` of the mask)."""
+    ``window`` of the mask).  A dense cache exactly ``window`` long is the
+    reference's ring buffer (``repro/models/layers.py:299-330``): a query
+    at position p writes cell p % window, and cell s holds position p -
+    ((p - s) % window), visible while that is >= 0."""
     cos, sin = rope_table(positions, cfg.head_dim, cfg.rope_theta)
     if cache_pos is None:
         return StepConstants(cos, sin)
@@ -121,11 +130,17 @@ def step_constants(cfg: ModelConfig, positions: torch.Tensor, *,
         cpm = cpm[:, None] + torch.arange(T, device=cpm.device)
     if block_tables is None:
         kv = torch.arange(cache_len, device=cpm.device)
-        m = kv <= cpm[:, :, None]
-        if window is not None:
-            m &= kv > cpm[:, :, None] - window
-        return StepConstants(cos, sin, cpm=cpm, mask=m[:, None, None],
-                             rows=rows)
+        ring = window is not None and cache_len == window
+        if ring:
+            slot = cpm % window
+            m = cpm[:, :, None] - (cpm[:, :, None] - kv) % window >= 0
+        else:
+            slot = cpm
+            m = kv <= cpm[:, :, None]
+            if window is not None:
+                m &= kv > cpm[:, :, None] - window
+        return StepConstants(cos, sin, cpm=cpm, slot=slot, ring=ring,
+                             mask=m[:, None, None], rows=rows)
     B = block_tables.shape[0]
     cpm = cpm.expand(B, T)
     blk = torch.gather(block_tables.long(), 1, cpm // block_size)
@@ -195,13 +210,13 @@ def attention(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
     block in place, then attention reads the pool through the table
     (``ops.paged_attention``); ``extra`` is the pools themselves.
 
-    ``cache`` with the dense fields: the linear dense cache ``(N, S, Hkv,
-    hd)`` -- each new K/V row is written at its position of its cache row
-    in place, then every query attends over its row's S positions under
-    ``consts.mask`` in plain torch, as the reference's XLA einsum does:
-    scores in the compute dtype then f32, masked at -1e30, softmax, cast
-    back.  A windowed layer whose cache is exactly ``window`` long is the
-    reference's ring buffer, which the port does not have.
+    ``cache`` with the dense fields: the dense cache ``(N, S, Hkv, hd)``
+    -- each new K/V row is written at its cell (``consts.slot``: its
+    position, or position % window in the ring buffer of a windowed layer
+    whose cache is exactly ``window`` long) of its cache row in place,
+    then every query attends over its row's S cells under ``consts.mask``
+    in plain torch, as the reference's XLA einsum does: scores in the
+    compute dtype then f32, masked at -1e30, softmax, cast back.
     """
     B, T, _ = x.shape
     hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
@@ -224,7 +239,7 @@ def attention(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
         return out @ p["wo"], (k, v)
 
     if consts.tables is None:
-        return _dense_attention(p, q, k, v, cfg, consts, window, cache)
+        return _dense_attention(p, q, k, v, cfg, consts, cache)
     # The new K/V rows go into the shared pools IN PLACE.  The JAX package
     # scatters into a donated copy (``.at[].set``); PyTorch mutates the
     # pool tensor the store owns.  Rows that repeat another row's (token,
@@ -245,24 +260,23 @@ def attention(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
 
 
 def _dense_attention(p, q, k, v, cfg: ModelConfig, consts: StepConstants,
-                     window: Optional[int], cache: dict):
-    """The linear dense-cache branch of ``attention`` (reference
-    ``layers.py:300-360`` and the grouped decode einsum after it): write
-    each query's K/V row at (its cache row, its position), in place --
-    rows repeating another's (token, position) write identical values --
-    then grouped-query attention over the cache rows."""
+                     cache: dict):
+    """The dense-cache branch of ``attention`` (reference
+    ``layers.py:299-360`` and the grouped decode einsum after it): write
+    each query's K/V row at (its cache row, its cell), in place -- rows
+    repeating another's (token, position) write identical values -- then
+    grouped-query attention over the cache rows.  The ring buffer takes
+    one query a row (T = 1), as the reference's does."""
     B, T, hq, hd = q.shape
     hkv, dt = cfg.n_kv_heads, q.dtype
-    S = cache["k"].shape[1]
-    if window is not None and S == window:
+    if consts.ring and T != 1:
         raise NotImplementedError(
-            "a windowed layer's ring-buffer cache: the port has the linear "
-            "dense cache only")
-    cpm = consts.cpm.expand(B, T)
+            f"a ring-buffer cache takes T = 1 query a row; got T = {T}")
+    cell = consts.slot.expand(B, T)
     rows = consts.rows if consts.rows is not None else torch.arange(
         B, device=q.device)
-    cache["k"].index_put_((rows[:, None], cpm), k.to(cache["k"].dtype))
-    cache["v"].index_put_((rows[:, None], cpm), v.to(cache["v"].dtype))
+    cache["k"].index_put_((rows[:, None], cell), k.to(cache["k"].dtype))
+    cache["v"].index_put_((rows[:, None], cell), v.to(cache["v"].dtype))
     ck, cv = cache["k"], cache["v"]
     if consts.rows is not None:
         ck, cv = ck[rows], cv[rows]

@@ -1,15 +1,24 @@
-"""Model assembly for the dense decoder: embed, the layer stack, the head.
+"""Model assembly: embed, the block program's layers, the head.
 
-Counterpart of ``repro.models.lm`` for the ``dense`` family.  Params are
-the stacked tree of ``repro_torch.weights`` (leading layer axis per
-segment slot), already cast to the compute dtype; the JAX package's
-``lax.scan`` over the stack is a Python loop indexing ``[l]``.
+Counterpart of ``repro.models.lm`` for the ``dense`` and ``hybrid``
+families.  A config lowers to a block program (``segments``): a list of
+``(unit, count)``, the unit a tuple of layer kinds -- ``attn``
+(self-attention + MLP) or ``rec`` (the RG-LRU block + MLP,
+``models.rglru``) -- repeated ``count`` times.  Params are the stacked
+tree of ``repro_torch.weights`` (one dict per segment, each slot's
+leaves with a leading axis of ``count``), already cast to the compute
+dtype; the JAX package's ``lax.scan`` over a segment is a Python loop
+indexing ``[l]``.
 
-Caches keep the JAX tree structure, ``[{"slot0": {"attn": {"k", "v"}}}]``
-per segment: a prefill returns the dense ``(L, B, max_len, Hkv, hd)``
-leaves; a decode step takes either the paged store's ``(L, num_blocks,
-bs, Hkv, hd)`` pools (with block tables) or dense ``(L, N, S, Hkv, hd)``
-leaves, and writes them in place.
+Caches keep the JAX tree structure, per segment ``{"slot{j}": {"attn":
+{"k", "v"}} or {"rec": {"conv", "h"}}}``: a prefill returns dense
+leaves -- K/V ``(count, B, S, Hkv, hd)`` with S = ``max_len``, or
+``min(max_len, window)`` for an architecture window (the ring buffer,
+position p at row p % window), and the recurrent state ``(count, B, w -
+1, lru)`` / ``(count, B, lru)`` f32; a decode step takes either the
+paged store's ``(L, num_blocks, bs, Hkv, hd)`` pools (with block tables;
+the dense family) or dense leaves with N cache rows, and writes them in
+place.
 
 Under tensor parallelism the tree is one rank's slice
 (``weights.shard_params``) and ``cfg`` the rank's view
@@ -28,17 +37,37 @@ from typing import Optional
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models import rglru
 from repro_torch.models.layers import (attention, mlp, rms_norm,
                                       step_constants)
 from repro_torch.weights import dtype_of
 
 
 def segments(cfg: ModelConfig):
-    """Decoder block program: list of (unit, count)."""
-    if cfg.family != "dense":
-        raise NotImplementedError(
-            f"family {cfg.family!r}: the port serves the dense family only")
-    return [(("attn",), cfg.n_layers)]
+    """Decoder block program: list of (unit, count).  The hybrid pattern
+    splits into whole units plus a remainder unit, as the reference's
+    (``repro/models/lm.py:50-70``)."""
+    L = cfg.n_layers
+    if cfg.family == "dense":
+        return [(("attn",), L)]
+    if cfg.family == "hybrid":
+        pat = tuple(cfg.hybrid_pattern)
+        full, rem = divmod(L, len(pat))
+        segs = [(pat, full)]
+        if rem:
+            segs.append((pat[:rem], 1))
+        return segs
+    raise NotImplementedError(
+        f"family {cfg.family!r}: the port serves the dense and hybrid "
+        "families")
+
+
+def layer_types(cfg: ModelConfig) -> list:
+    """Every layer's kind, in order."""
+    out = []
+    for unit, count in segments(cfg):
+        out += list(unit) * count
+    return out
 
 
 def _trunk_group(cfg: ModelConfig):
@@ -122,10 +151,17 @@ def layer_params(params: dict, cfg: ModelConfig) -> list:
             for seg, (unit, count) in zip(params["decoder"], segments(cfg))]
 
 
-def _apply_layer(p: dict, x: torch.Tensor, cfg: ModelConfig, *, consts,
-                 cache=None, group=None):
-    """One decoder layer; with ``group`` (a split trunk) the row-parallel
-    outputs of ``wo`` and ``w_out`` are summed over the ranks."""
+def _apply_layer(p: dict, x: torch.Tensor, cfg: ModelConfig, kind: str, *,
+                 consts, cache=None, group=None):
+    """One decoder layer of ``kind``; with ``group`` (a split trunk) the
+    row-parallel outputs of ``wo`` and ``w_out`` are summed over the
+    ranks.  Returns (x, extra): an ``attn`` layer's ``attention`` extra,
+    a ``rec`` layer's new state."""
+    if kind == "rec":
+        x, extra = _recurrent(p["rec"], x, cfg, consts, cache)
+        h = mlp(p["mlp"], rms_norm(x, p["ln2"], cfg.norm_eps),
+                cfg.activation)
+        return x + h, extra
     a, extra = attention(p["attn"], rms_norm(x, p["ln1"], cfg.norm_eps),
                          cfg, consts=consts, causal=True,
                          window=cfg.attention_window, cache=cache)
@@ -138,57 +174,129 @@ def _apply_layer(p: dict, x: torch.Tensor, cfg: ModelConfig, *, consts,
     return x + h, extra
 
 
+def _recurrent(p: dict, x: torch.Tensor, cfg: ModelConfig, consts,
+               cache: Optional[dict]):
+    """The RG-LRU block of a ``rec`` layer.  Without ``cache`` (prefill,
+    ``forward``) from a zero state; returns (x, the new state).  With
+    ``cache`` -- the layer's ``{"conv", "h"}`` leaves over N cache rows
+    -- a decode step: every row's old state is gathered (``consts.rows``,
+    default row b for batch row b) before any is written, then the new
+    state goes back to the same rows in place.  A padding row repeats a
+    live row's slot, token and state, so it writes the identical new
+    state to the identical row, and no row advances twice."""
+    B = x.shape[0]
+    if cache is None:
+        state = rglru.init_state(cfg, (B,), x.dtype, x.device)
+        return rglru.rglru_block(p, x, cfg, state)
+    rows = consts.rows if consts.rows is not None else torch.arange(
+        B, device=x.device)
+    old = {name: leaf[rows] for name, leaf in cache.items()}
+    x, new = rglru.rglru_block(p, x, cfg, old)
+    for name, leaf in cache.items():
+        leaf.index_put_((rows,), new[name].to(leaf.dtype))
+    return x, cache
+
+
 def init_cache(cfg: ModelConfig, batch_size: int, max_len: int,
                device) -> list:
-    """Fresh dense cache tree: per segment ``{"slot0": {"attn": {"k",
-    "v"}}}`` with ``(L, B, max_len, Hkv, hd)`` leaves."""
+    """Fresh dense cache tree: per segment, each slot's ``{"attn": {"k",
+    "v"}}`` with ``(count, B, S, Hkv, hd)`` leaves (S = ``max_len``, or
+    ``min(max_len, window)`` under an architecture window), or ``{"rec":
+    {"conv", "h"}}`` with ``(count, B, w - 1, lru)`` / ``(count, B,
+    lru)`` f32 leaves, zeros."""
     dt = dtype_of(cfg)
+    w = cfg.attention_window
+    rows = max_len if w is None else min(max_len, w)    # w: a ring buffer
     caches = []
     for unit, count in segments(cfg):
-        shape = (count, batch_size, max_len, cfg.n_kv_heads, cfg.head_dim)
-        caches.append({f"slot{j}": {"attn": {
-            "k": torch.zeros(shape, dtype=dt, device=device),
-            "v": torch.zeros(shape, dtype=dt, device=device)}}
-            for j in range(len(unit))})
+        seg = {}
+        for j, kind in enumerate(unit):
+            if kind == "rec":
+                seg[f"slot{j}"] = {"rec": rglru.init_state(
+                    cfg, (count, batch_size), dt, device)}
+                continue
+            shape = (count, batch_size, rows, cfg.n_kv_heads, cfg.head_dim)
+            seg[f"slot{j}"] = {"attn": {
+                "k": torch.zeros(shape, dtype=dt, device=device),
+                "v": torch.zeros(shape, dtype=dt, device=device)}}
+        caches.append(seg)
     return caches
+
+
+def _layers(params: dict, cfg: ModelConfig, layers: Optional[list]):
+    """(params, cache index (segment, layer, slot), kind) of every layer
+    in order, from ``layer_params`` (or the caller's copy of it)."""
+    if layers is None:
+        layers = layer_params(params, cfg)
+    for s, (seg_layers, (unit, _)) in enumerate(zip(layers, segments(cfg))):
+        for l, slots in enumerate(seg_layers):
+            for j, p in enumerate(slots):
+                yield p, (s, l, f"slot{j}"), unit[j]
+
+
+def _store_kv(leaf: dict, l: int, k: torch.Tensor, v: torch.Tensor,
+              cfg: ModelConfig) -> None:
+    """A prefill's K/V (B, S, Hkv, hd) into layer ``l`` of a dense cache
+    leaf (reference ``build_cache_from_kv``): linear from row 0, or, in a
+    ring of ``s_cache`` rows no longer than the prompt, the last
+    ``s_cache`` positions at rows ``pos % s_cache``."""
+    S, s_cache = k.shape[1], leaf["k"].shape[2]
+    if cfg.attention_window is not None and S >= s_cache:
+        rows = torch.arange(S - s_cache, S, device=k.device) % s_cache
+        leaf["k"][l][:, rows] = k[:, -s_cache:].to(leaf["k"].dtype)
+        leaf["v"][l][:, rows] = v[:, -s_cache:].to(leaf["v"].dtype)
+    else:
+        leaf["k"][l, :, :S] = k
+        leaf["v"][l, :, :S] = v
 
 
 def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor):
     """The eval forward over ``tokens`` (B, S): returns (f32 logits (B,
-    S, V), aux loss 0.0; the dense family has no router loss).  The
+    S, V), aux loss 0.0; neither family has a router loss).  The
     reference's train-mode attention is masked softmax over all S
     positions; this is the same function through the cache-less branch
-    (``ops.flash_attention``, causal, the architecture window)."""
+    (``ops.flash_attention``, causal, the architecture window); a ``rec``
+    layer runs its block from a zero state."""
     S = tokens.shape[1]
     x = embed_tokens(params, cfg, tokens)
     consts = step_constants(cfg, torch.arange(S, device=tokens.device))
     group = _trunk_group(cfg)
-    for seg_layers in layer_params(params, cfg):
-        for slots in seg_layers:
-            for p in slots:
-                x, _ = _apply_layer(p, x, cfg, consts=consts, group=group)
+    for p, _, kind in _layers(params, cfg, None):
+        x, _ = _apply_layer(p, x, cfg, kind, consts=consts, group=group)
     return logits_fn(params, cfg, final_hidden(params, cfg, x)), 0.0
 
 
 def prefill(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
             max_len: int):
-    """Process the prompt (B, S): returns (last hidden (B, D), cache) with
-    the cache's K/V zero-padded to ``max_len`` positions."""
+    """Process the prompt (B, S): returns (last hidden (B, D), cache):
+    each ``attn`` layer's K/V zero-padded to ``max_len`` positions (or
+    its ring buffer, ``_store_kv``), each ``rec`` layer's state after the
+    prompt."""
     B, S = tokens.shape
     x = embed_tokens(params, cfg, tokens)
     consts = step_constants(cfg, torch.arange(S, device=tokens.device))
     caches = init_cache(cfg, B, max_len, tokens.device)
     group = _trunk_group(cfg)
-    for seg_layers, seg_cache in zip(layer_params(params, cfg), caches):
-        for l, slots in enumerate(seg_layers):
-            for j, p in enumerate(slots):
-                x, (k, v) = _apply_layer(p, x, cfg, consts=consts,
-                                         group=group)
-                leaf = seg_cache[f"slot{j}"]["attn"]
-                leaf["k"][l, :, :S] = k
-                leaf["v"][l, :, :S] = v
+    for p, (s, l, slot), kind in _layers(params, cfg, None):
+        x, extra = _apply_layer(p, x, cfg, kind, consts=consts, group=group)
+        leaf = caches[s][slot]
+        if kind == "rec":
+            for name, t in leaf["rec"].items():
+                t[l] = extra[name]
+        else:
+            _store_kv(leaf["attn"], l, *extra, cfg)
     h = final_hidden(params, cfg, x[:, -1:, :])[:, 0, :]
     return h, caches
+
+
+def _first_kv(caches: list, cfg: ModelConfig) -> torch.Tensor:
+    """An ``attn`` layer's K leaf (pools or dense), whose shape says what
+    the step's cache indices are."""
+    for seg, (unit, _) in zip(caches, segments(cfg)):
+        for j, kind in enumerate(unit):
+            if kind == "attn":
+                return seg[f"slot{j}"]["attn"]["k"]
+    raise ValueError(f"{cfg.name}: no attention layer")
 
 
 def decode_step(params: dict, cfg: ModelConfig, token: torch.Tensor,
@@ -202,8 +310,10 @@ def decode_step(params: dict, cfg: ModelConfig, token: torch.Tensor,
     each row at its own position, RAGGED decode, a window of T
     consecutive queries from it -- or (B, T) per-(row, query) positions.
     With ``block_tables`` (B, nb) the caches hold the paged store's
-    pools; without, dense ``(L, N, S, Hkv, hd)`` leaves, batch row b in
-    cache row ``cache_rows[b]`` (default b).  ``layers`` is
+    pools; without, dense leaves over N cache rows (K/V ``(L, N, S, Hkv,
+    hd)``, a ring of S = window rows under an architecture window, T = 1
+    there; a ``rec`` layer's state), batch row b in cache row
+    ``cache_rows[b]`` (default b).  ``layers`` is
     ``layer_params(params, cfg)`` where the caller keeps it.  The RoPE
     table and the cache indices are computed once for all layers
     (``layers.step_constants``).  Returns (h, caches): h is (B, D) for
@@ -218,9 +328,7 @@ def decode_step(params: dict, cfg: ModelConfig, token: torch.Tensor,
     else:
         raise ValueError(f"pos must be a scalar, (B,) or (B, T); got "
                          f"{tuple(pos.shape)}")
-    if layers is None:
-        layers = layer_params(params, cfg)
-    leaf = caches[0]["slot0"]["attn"]["k"]
+    leaf = _first_kv(caches, cfg)
     if block_tables is not None:
         consts = step_constants(cfg, positions, cache_pos=pos,
                                 block_tables=block_tables,
@@ -231,12 +339,10 @@ def decode_step(params: dict, cfg: ModelConfig, token: torch.Tensor,
                                 window=cfg.attention_window)
     x = embed_tokens(params, cfg, token)
     group = _trunk_group(cfg)
-    for seg_layers, seg_cache in zip(layers, caches):
-        for l, slots in enumerate(seg_layers):
-            for j, p in enumerate(slots):
-                kv = seg_cache[f"slot{j}"]["attn"]
-                x, _ = _apply_layer(p, x, cfg, consts=consts, cache={
-                    "k": kv["k"][l], "v": kv["v"][l]}, group=group)
+    for p, (s, l, slot), kind in _layers(params, cfg, layers):
+        leaf = caches[s][slot]["rec" if kind == "rec" else "attn"]
+        x, _ = _apply_layer(p, x, cfg, kind, consts=consts, cache={
+            name: t[l] for name, t in leaf.items()}, group=group)
     if T == 1:
         return final_hidden(params, cfg, x[:, 0, :]), caches
     return final_hidden(params, cfg, x), caches

@@ -69,7 +69,8 @@ def plan(cfg: ModelConfig, rank: int, world: int, *, trunk: bool = True,
     ``max_bytes_per_rank``."""
     if cfg.family != "dense":
         raise NotImplementedError(
-            f"family {cfg.family!r}: the port serves the dense family only")
+            f"family {cfg.family!r}: tensor parallelism covers the dense "
+            "family only")
     if not 0 <= rank < world:
         raise ValueError(f"rank {rank} outside a world of {world}")
     vocab = _even(cfg.vocab_size, world, rank, "vocab_size")

@@ -183,7 +183,8 @@ def run_probe(params, cfg, prompts, *,
     """Serve ``prompts`` once per variant and report greedy divergence
     against the exact baseline (plus per-layer score error when
     ``score_probe``).  ``engine_kwargs`` pass through to ``ServeEngine``
-    (``kv_layout='dense'`` has no paged path, so its first approximate
+    (``kv_layout='dense'`` has no paged path, nor has a windowed config
+    such as the hybrid family's recurrentgemma, so its first approximate
     arm, or any ``window``, raises ``ValueError``, as the reference's
     engine does); ``window`` applies to every arm, the baseline
     included, so the report isolates the score function's effect at that
@@ -218,7 +219,7 @@ def main(argv=None) -> int:
     import argparse
 
     from repro_torch.configs import get_config, smoke_config
-    from repro_torch.weights import init_params
+    from repro_torch.weights import seeded_params
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--arch", required=True)
@@ -244,8 +245,7 @@ def main(argv=None) -> int:
     cfg = get_config(args.arch)
     if args.smoke:
         cfg = smoke_config(cfg)
-    params = init_params(cfg, torch.Generator(device=device).manual_seed(
-        args.seed), device)
+    params = seeded_params(cfg, args.seed, device)
     rng = np.random.default_rng(args.seed)
     prompts = [rng.integers(0, cfg.vocab_size,
                             int(rng.integers(4, 24))).astype(np.int32)

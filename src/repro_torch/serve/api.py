@@ -91,21 +91,25 @@ class LLM:
     @classmethod
     def from_arch(cls, arch: str, *, smoke: bool = True, seed: int = 0,
                   device="cuda", tp: Optional[int] = None,
+                  dtype: Optional[str] = None,
                   **engine_kwargs) -> "LLM":
         """Build params + config for a zoo arch and wrap them.  Weights
-        come from a ``torch.Generator`` seeded with ``seed`` on
-        ``device``; ``smoke=True`` is the tiny config of the same
-        family.
+        are ``weights.seeded_params(cfg, seed, ...)``: drawn leaf by leaf
+        on the host from ``seed`` and moved to ``device``, so one seed
+        gives one tree on the CPU and on the card, whatever ``tp`` or the
+        head mode.  ``smoke=True`` is the tiny config of the same family;
+        ``dtype`` (``"float32"`` / ``"bfloat16"``) replaces the config's
+        compute dtype.
 
         With ``tp`` > 1 (one process per rank, the group torchrun
-        describes, ``comm.Group.from_env``) every rank draws the whole f32
-        tree on the HOST from the same seed and the engine keeps its
-        slice, so no rank holds the whole tree on the card (the host
-        generator's numbers differ from the card's, so these weights are
-        not ``from_arch(tp=None)``'s on the card)."""
+        describes, ``comm.Group.from_env``) the tree stays on the host and
+        the engine keeps the rank's slice of it, so no rank holds the
+        whole tree on the card."""
+        import dataclasses
+
         from repro_torch.configs import get_config, smoke_config
         from repro_torch.parallel import comm
-        from repro_torch.weights import init_params
+        from repro_torch.weights import seeded_params
 
         device = torch.device(device)
         if device.type == "cuda" and not torch.cuda.is_available():
@@ -115,12 +119,13 @@ class LLM:
         cfg = get_config(arch)
         if smoke:
             cfg = smoke_config(cfg)
+        if dtype is not None:
+            cfg = dataclasses.replace(cfg, dtype=dtype)
         group = None
         if tp is not None and tp > 1:
             group = comm.Group.from_env(device=device)
         host = device if group is None else torch.device("cpu")
-        gen = torch.Generator(device=host).manual_seed(seed)
-        return cls(init_params(cfg, gen, host), cfg, seed=seed, tp=tp,
+        return cls(seeded_params(cfg, seed, host), cfg, seed=seed, tp=tp,
                    group=group, **engine_kwargs)
 
     # -- engine event plumbing ----------------------------------------------

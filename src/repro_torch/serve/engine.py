@@ -79,6 +79,20 @@ Counterpart of ``repro.serve.engine`` on its default path:
     and reach every decode and chunk row's paged attention; the one-shot
     prefill attends exactly over the whole prompt, as in the JAX package.
 
+The HYBRID family (recurrentgemma: RG-LRU ``rec`` layers between
+windowed ``attn`` layers) is served through the dense per-slot store
+whatever ``kv_layout`` asks: ring buffers of ``min(max_len, window)``
+rows and the recurrent state, one row a slot, written in place by the
+step (a step gathers every row's old state before it writes any, so a
+padding row repeating a live slot writes the same new state twice, never
+advances it twice).  As in the reference, it has no speculation
+(``spec_k`` is refused at submit: a ring or a recurrence cannot rewind a
+rejected draft), and ``chunk_size`` and ``host_stride`` warn and fall
+back to one-shot admission and per-token dispatch (``spec_capable``,
+``chunk_capable``, ``multistep_capable``); prefix sharing is off with
+chunking.  On the card its T = 1 step is captured per bucket like the
+dense layout's.
+
 ``kv_layout='dense'`` keeps the reference's per-slot ``max_len`` cache,
 the byte-identity oracle of the paged path: admission is a dense
 prefill copied into the slot's row (``api.serve_prefill``,
@@ -319,30 +333,45 @@ class ServeEngine:
                 attn_window if attn_window is not None else cfg.attn_window)
             cfg = dataclasses.replace(cfg, attn_approx=mode,
                                       attn_window=win)
+        # a windowed config (the hybrid family's ring buffers) is never
+        # paged, whatever kv_layout asks (PagedKVStore.pages)
+        pages = PagedKVStore.pages(cfg, kv_layout)
         # the approximate score functions and the mask window live in the
-        # paged decode path only: on the dense layout they would never run
+        # paged decode path only: on a dense store they would never run
         if (cfg.attn_approx != "exact" or cfg.attn_window is not None) \
-                and kv_layout == "dense":
+                and not pages:
             raise ValueError(
                 f"attn_approx={cfg.attn_approx!r} / attn_window="
                 f"{cfg.attn_window!r} need the paged decode path; "
-                "kv_layout='dense' has no paged layers, so the mode would "
-                "never run")
-        # chunked prefill rides the paged multi-token step, which the
-        # cohort scheduler does not have; the device loop is the fused
-        # scheduler's.  Either falls back, loudly, as in the reference.
-        if chunk_size is not None and (kv_layout != "paged"
-                                       or scheduler != "fused"):
+                f"kv_layout={kv_layout!r} on this config has no paged "
+                "layers, so the mode would never run")
+        # speculation rewrites per-token cache state by position masks,
+        # which only linear-attention KV supports: a ring buffer loses
+        # history on overwrite and recurrent state cannot rewind a
+        # rejected draft (reference engine.py:432-433)
+        self.spec_capable = (cfg.attention_window is None and all(
+            k == "attn" for k in lm.layer_types(cfg)))
+        # chunked prefill rides the same multi-token step, plus a paged
+        # store (chunks allocate as they go) and the fused scheduler; the
+        # device loop re-runs halted rows at their last (token, position),
+        # an idempotent rewrite only for linear attention.  Either falls
+        # back, loudly, as in the reference.
+        self.chunk_capable = (self.spec_capable and pages
+                              and scheduler == "fused")
+        if chunk_size is not None and not self.chunk_capable:
             warnings.warn(
-                f"chunk_size={chunk_size} ignored: chunked prefill needs a "
-                "paged KV layout and scheduler='fused'; falling back to "
-                "one-shot admission", stacklevel=2)
+                f"chunk_size={chunk_size} ignored: chunked prefill needs "
+                "pure linear-attention decode, a paged KV layout and "
+                "scheduler='fused'; falling back to one-shot admission",
+                stacklevel=2)
             chunk_size = None
-        if host_stride is not None and scheduler != "fused":
+        self.multistep_capable = self.spec_capable and scheduler == "fused"
+        if host_stride is not None and not self.multistep_capable:
             warnings.warn(
                 f"host_stride={host_stride} ignored: the device-resident "
-                "decode loop needs scheduler='fused'; falling back to "
-                "per-token dispatch", stacklevel=2)
+                "decode loop needs pure linear-attention decode and "
+                "scheduler='fused'; falling back to per-token dispatch",
+                stacklevel=2)
             host_stride = None
         if group is not None:
             dev = group.device
@@ -525,6 +554,12 @@ class ServeEngine:
                 f"spec_k={req.params.spec_k} requires the reduced "
                 f"comparator head (engine head_mode={self.head_mode!r} "
                 f"resolved to {req.sampler})")
+        if req.params.spec_k > 0 and not self.spec_capable:
+            raise ValueError(
+                f"spec_k={req.params.spec_k}: speculative decoding needs "
+                "pure linear-attention decode (no sliding window or "
+                "recurrent state -- rejected drafts cannot be rewound); "
+                f"the {self.cfg.family!r} config does not qualify")
         if req.params.spec_k > 0 and self.scheduler != "fused":
             raise ValueError(
                 f"spec_k={req.params.spec_k} requires scheduler='fused' "

@@ -31,6 +31,15 @@ n_slots, max_len, Hkv, hd)``, a one-shot prefill's cache is copied into
 it (``admit``) and the decode step writes it in place.  As in the
 reference, the block accounting is then empty: nothing is allocated,
 every admission and growth check passes, and there is no trie.
+
+A config with an architecture window (every hybrid config the port
+serves has one) is never paged, whatever the layout asked (reference
+``paged_kv.py:282-291``): its ring buffers are
+already O(window) and a recurrent layer's state O(1), so they stay dense
+per slot (``lm.init_cache`` over ``n_slots`` rows: K/V rings ``(count,
+n_slots, min(max_len, window), Hkv, hd)``, RG-LRU state ``(count,
+n_slots, w - 1, lru)`` and ``(count, n_slots, lru)`` f32) and take the
+dense layout's admission and accounting.
 """
 from __future__ import annotations
 
@@ -40,6 +49,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models import lm
 from repro_torch.weights import dtype_of
 
 
@@ -48,6 +58,15 @@ def pow2(n: int) -> int:
     the engine's batch/row-set padding and the block-table column
     padding."""
     return 1 << (n - 1).bit_length()
+
+
+def _leaves(tree) -> list:
+    """A cache tree's tensors in a fixed order (dict keys sorted)."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [x for t in tree for x in _leaves(t)]
+    return [tree]
 
 
 class BlockAllocator:
@@ -232,8 +251,8 @@ class PrefixTrie:
 
 class PagedKVStore:
     """Owns the K/V pools (paged layout) or the per-slot dense leaves
-    (``layout='dense'``) of the engine cache, the per-slot block tables
-    and the prefix trie."""
+    (``layout='dense'``, and every windowed config) of the engine cache,
+    the per-slot block tables and the prefix trie."""
 
     def __init__(self, cfg: ModelConfig, *, n_slots: int, max_len: int,
                  device, block_size: int = 16,
@@ -241,10 +260,6 @@ class PagedKVStore:
         if layout not in ("paged", "dense"):
             raise ValueError(f"layout={layout!r}: expected 'paged' or "
                              "'dense'")
-        if cfg.attention_window is not None:
-            raise NotImplementedError(
-                "sliding-window configs keep ring-buffer caches, which the "
-                "port does not have yet")
         self.cfg = cfg
         self.n_slots = n_slots
         self.max_len = max_len
@@ -254,35 +269,45 @@ class PagedKVStore:
             # default: the dense layout's worst-case residency; pass fewer
             # to overcommit (the scheduler defers/preempts on empty).
             num_blocks = n_slots * self.max_blocks_per_slot
-        if layout == "paged":
+        self.pools = self.denses = None
+        if self.pages(cfg, layout):
             shape = (cfg.n_layers, num_blocks, block_size, cfg.n_kv_heads,
                      cfg.head_dim)
+            self.pools = {
+                name: torch.zeros(shape, dtype=dtype_of(cfg), device=device)
+                for name in ("k", "v")}
         else:
-            shape = (cfg.n_layers, n_slots, max_len, cfg.n_kv_heads,
-                     cfg.head_dim)
-        leaves = {"k": torch.zeros(shape, dtype=dtype_of(cfg), device=device),
-                  "v": torch.zeros(shape, dtype=dtype_of(cfg), device=device)}
-        self.pools = leaves if layout == "paged" else None
-        self.denses = None if layout == "paged" else leaves
+            # the model's dense cache tree with one row per slot
+            self.denses = lm.init_cache(cfg, n_slots, max_len, device)
         self.allocator = BlockAllocator(num_blocks)
         self.slot_blocks: List[List[int]] = [[] for _ in range(n_slots)]
         self.prefix_trie = PrefixTrie(block_size)
         self.cow_copies = 0
         self.prefix_evictions = 0
 
+    @staticmethod
+    def pages(cfg: ModelConfig, layout: str) -> bool:
+        """Whether a store of ``layout`` for ``cfg`` pages its K/V: the
+        paged layout of a dense-family config with no architecture
+        window (every layer's cache is then linear K/V)."""
+        return (layout == "paged" and cfg.family == "dense"
+                and cfg.attention_window is None)
+
     @property
     def any_paged(self) -> bool:
         return self.pools is not None
 
     def cache(self) -> list:
-        """The pools or the dense leaves as the model's cache tree (one
-        dense-family segment)."""
-        return [{"slot0": {"attn": self.pools if self.any_paged
-                           else self.denses}}]
+        """The pools (as the dense family's one-segment tree) or the dense
+        cache tree, as the model's cache argument."""
+        if self.any_paged:
+            return [{"slot0": {"attn": self.pools}}]
+        return self.denses
 
     def usage(self) -> dict:
         """Pool occupancy snapshot (JSON-ready)."""
         a = self.allocator
+        n_dense = 0 if self.any_paged else len(_leaves(self.denses))
         return {
             "layout": "paged" if self.any_paged else "dense",
             "block_size": self.block_size,
@@ -290,7 +315,7 @@ class PagedKVStore:
             "blocks_free": a.n_free,
             "blocks_in_use": a.num_blocks - a.n_free,
             "paged_leaves": 2 if self.any_paged else 0,
-            "dense_leaves": 0 if self.any_paged else 2,
+            "dense_leaves": n_dense,
             "peak_in_use": a.peak_in_use,
             "shared_blocks": a.n_shared,
             "prefix_blocks": self.prefix_trie.nodes,
@@ -384,14 +409,14 @@ class PagedKVStore:
     def admit(self, slot: int, cache: list) -> None:
         """The dense layout's admission: copy a B = 1 prefill cache
         (``api.serve_prefill`` at ``prefill_len``) into ``slot``'s row of
-        the dense leaves, on the leaves' device."""
+        every dense leaf -- K/V, ring buffers, recurrent state --, on the
+        leaves' device."""
         if self.any_paged:
             raise ValueError("admit copies into dense leaves; a paged store "
                              "admits through alloc_blocks and "
                              "api.serve_prefill_paged")
-        leaf = cache[0]["slot0"]["attn"]
-        for name, dense in self.denses.items():
-            dense[:, slot].copy_(leaf[name][:, 0])
+        for dense, row in zip(_leaves(self.denses), _leaves(cache)):
+            dense[:, slot].copy_(row[:, 0])
 
     # -- copy-on-write -------------------------------------------------------
     def _cow(self, slot: int, k: int) -> None:

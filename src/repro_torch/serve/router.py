@@ -171,7 +171,7 @@ class Router:
         import torch
 
         from repro_torch.configs import get_config, smoke_config
-        from repro_torch.weights import init_params
+        from repro_torch.weights import seeded_params
 
         device = torch.device(device)
         if device.type == "cuda" and not torch.cuda.is_available():
@@ -181,8 +181,8 @@ class Router:
         cfg = get_config(arch)
         if smoke:
             cfg = smoke_config(cfg)
-        gen = torch.Generator(device=device).manual_seed(seed)
-        return cls(init_params(cfg, gen, device), cfg, seed=seed, **kwargs)
+        return cls(seeded_params(cfg, seed, device), cfg, seed=seed,
+                   **kwargs)
 
     # -- routing -------------------------------------------------------------
     def _candidates(self) -> List[Replica]:

@@ -18,8 +18,11 @@ power of two, and each kernel's launch plan reads shapes only
 bucket: which rows belong to which head, their positions and block ids
 are operands.  On the dense layout the cache index is each row's slot,
 an operand too, and the dense leaves, like the pools, are allocated once
-outside the graph pool.  Under ``scheduler='cohort'`` each (position,
-sampler) group is a step of its own and keys its own bucket.
+outside the graph pool.  A hybrid config's store (ring buffers and
+RG-LRU state, dense per slot) is keyed and captured the same way: its
+step gathers each row's state and writes it back in place, inside the
+graph.  Under ``scheduler='cohort'`` each (position, sampler) group is a
+step of its own and keys its own bucket.
 
 The first step of a bucket runs eagerly.  It is a real step (its tokens
 are emitted) and warms what a capture must not do for the first time:

@@ -14,20 +14,26 @@ The tree keeps the JAX package's stacked layout (``repro.models.lm``):
 with ``"mlp": {"w_in": (L, D, F), "w_out": (L, F, D)}`` for an
 activation that is not a GLU (gelu, relu, squared_relu),
 so the bridge from JAX is a pure copy and the layer loop indexes ``[l]``.
-Weights are drawn from an explicit ``torch.Generator``: normal times
-1/sqrt(fan-in), zeros for the norm scales (which the layers apply as
-``1 + scale``).  The numbers differ from ``jax.random``'s; tests carry
-JAX's parameters across with ``from_numpy_params`` instead.
+The hybrid family (recurrentgemma) has one dict per segment of its block
+program, each slot an ``attn`` layer as above or a ``rec`` layer,
+``{"rec": the RG-LRU block (models.rglru.layer_shapes), "ln2", "mlp"}``.
+Weights are normal times 1/sqrt(fan-in), zeros for the norm scales
+(which the layers apply as ``1 + scale``), drawn on the host from a seed
+(``seeded_params``).  The numbers differ from ``jax.random``'s; tests
+carry JAX's parameters across with ``from_numpy_params`` instead.
 """
 from __future__ import annotations
 
 import math
+import os
+from concurrent.futures import ThreadPoolExecutor
 from typing import Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models import rglru
 from repro_torch.parallel import sharding
 
 
@@ -37,27 +43,43 @@ def dtype_of(cfg: ModelConfig) -> torch.dtype:
 
 
 def param_shapes(cfg: ModelConfig) -> dict:
-    """The tree of shapes ``init_params`` builds, leaf = (shape, fan_in);
-    fan_in None marks a norm scale (zero init)."""
-    if cfg.family != "dense":
-        raise NotImplementedError(
-            f"family {cfg.family!r}: the port serves the dense family only")
-    d, v, L = cfg.d_model, cfg.vocab_size, cfg.n_layers
+    """The tree of shapes ``seeded_params`` builds, leaf = (shape, init):
+    init a fan-in (normal / sqrt(fan_in)), None (zeros, the norm scales
+    and biases), or one of the RG-LRU's draws (``"conv"``,
+    ``"lru_lambda"``; ``models.rglru.layer_shapes``).
+
+    ``decoder`` holds one dict per segment of ``lm.segments`` (its unit
+    repeated ``count`` times), each slot's leaves stacked over ``count``,
+    as the reference's ``_init_segment`` stacks them: the dense family is
+    one segment of one ``attn`` slot over every layer; the hybrid family
+    (recurrentgemma) one segment of its pattern repeated, then the
+    remainder, e.g. 8 x (rec, rec, attn) + 1 x (rec, rec) at 26 layers."""
+    from repro_torch.models import lm
+
+    d, v = cfg.d_model, cfg.vocab_size
     qw, kw, f = cfg.q_width, cfg.kv_width, cfg.d_ff
-    attn = {"wq": ((L, d, qw), d), "wk": ((L, d, kw), d),
-            "wv": ((L, d, kw), d), "wo": ((L, qw, d), qw)}
-    if cfg.qk_norm:
-        attn["q_norm"] = ((L, cfg.head_dim), None)
-        attn["k_norm"] = ((L, cfg.head_dim), None)
-    if cfg.activation.endswith("_glu"):
-        mlp = {"w_gate": ((L, d, f), d), "w_up": ((L, d, f), d)}
-    else:
-        mlp = {"w_in": ((L, d, f), d)}
-    mlp["w_out"] = ((L, f, d), f)
-    layer = {"ln1": ((L, d), None), "attn": attn, "ln2": ((L, d), None),
-             "mlp": mlp}
+
+    def layer(kind: str, L: int) -> dict:
+        if cfg.activation.endswith("_glu"):
+            mlp = {"w_gate": ((L, d, f), d), "w_up": ((L, d, f), d)}
+        else:
+            mlp = {"w_in": ((L, d, f), d)}
+        mlp["w_out"] = ((L, f, d), f)
+        if kind == "rec":
+            return {"rec": rglru.layer_shapes(cfg, L),
+                    "ln2": ((L, d), None), "mlp": mlp}
+        attn = {"wq": ((L, d, qw), d), "wk": ((L, d, kw), d),
+                "wv": ((L, d, kw), d), "wo": ((L, qw, d), qw)}
+        if cfg.qk_norm:
+            attn["q_norm"] = ((L, cfg.head_dim), None)
+            attn["k_norm"] = ((L, cfg.head_dim), None)
+        return {"ln1": ((L, d), None), "attn": attn, "ln2": ((L, d), None),
+                "mlp": mlp}
+
     tree = {"embed": ((v, d), d), "final_norm": ((d,), None),
-            "decoder": [{"slot0": layer}]}
+            "decoder": [{f"slot{j}": layer(kind, count)
+                         for j, kind in enumerate(unit)}
+                        for unit, count in lm.segments(cfg)]}
     if not cfg.tie_embeddings:
         tree["lm_head"] = ((d, v), d)
     return tree
@@ -71,28 +93,65 @@ def _map(fn, tree, path=()):
     return fn(path, tree)
 
 
-def init_params(cfg: ModelConfig, generator: torch.Generator,
-                device) -> dict:
-    """Seeded float32 master weights, same tree, shapes and scales as
-    ``repro.models.lm.init_params``.  ``generator`` must live on
-    ``device`` (``torch.Generator(device=...)``)."""
+def _draw(init, n: int, generator: torch.Generator) -> torch.Tensor:
+    """``n`` values of a leaf whose init is ``init`` (see
+    ``param_shapes``), flat f32, from the host ``generator``."""
+    if init == "lru_lambda":
+        return rglru.lru_lambda((n,), generator)
+    w = torch.randn((n,), generator=generator, dtype=torch.float32)
+    return w.mul_(0.1 if init == "conv" else 1.0 / math.sqrt(init))
+
+
+# elements one host generator draws in ``seeded_params``
+DRAW_CHUNK = 1 << 22
+
+
+def _chunk_seed(seed: int, leaf: int, chunk: int) -> int:
+    """The host generator seed of chunk ``chunk`` of the ``leaf``-th leaf
+    (tree order) under ``seed``."""
+    return int(np.random.SeedSequence(
+        [seed & (2 ** 64 - 1), leaf, chunk]).generate_state(1, np.uint64)[0])
+
+
+def seeded_params(cfg: ModelConfig, seed: int, device) -> dict:
+    """The one tree a seed names, on ``device``: what the entry points
+    (``LLM.from_arch``, the CLI, ``Router.from_arch``, the probe) serve.
+    Every leaf is drawn on the HOST, in chunks of ``DRAW_CHUNK``
+    consecutive elements, chunk c of the n-th leaf from its own
+    ``torch.Generator`` seeded by ``_chunk_seed(seed, n, c)``; the chunks
+    are drawn by a pool of threads (an op releases the interpreter lock),
+    and each leaf is moved to ``device`` before the next is drawn, so the
+    host holds one leaf at a time.  The numbers follow the seed alone:
+    one seed gives one tree on the CPU and on the card, under every tp
+    and head mode -- a rank cuts its slice from the same host tree."""
     device = torch.device(device)
+    n_leaf = iter(range(1 << 62))
 
-    def leaf(path, spec: Tuple[tuple, int]):
-        shape, fan_in = spec
-        if fan_in is None:
-            return torch.zeros(shape, dtype=torch.float32, device=device)
-        w = torch.randn(shape, generator=generator, dtype=torch.float32,
-                        device=device)
-        return w.mul_(1.0 / math.sqrt(fan_in))
+    with ThreadPoolExecutor(max_workers=os.cpu_count() or 1) as pool:
+        def leaf(path, spec: Tuple[tuple, object]):
+            shape, init = spec
+            n = next(n_leaf)
+            if init is None:
+                return torch.zeros(shape, dtype=torch.float32, device=device)
+            out = torch.empty(shape, dtype=torch.float32)
+            flat = out.view(-1)
 
-    return _map(leaf, param_shapes(cfg))
+            def fill(c):
+                lo = c * DRAW_CHUNK
+                hi = min(lo + DRAW_CHUNK, flat.numel())
+                g = torch.Generator().manual_seed(_chunk_seed(seed, n, c))
+                flat[lo:hi] = _draw(init, hi - lo, g)
+
+            list(pool.map(fill, range(-(-flat.numel() // DRAW_CHUNK))))
+            return out.to(device)
+
+        return _map(leaf, param_shapes(cfg))
 
 
 def from_numpy_params(tree, cfg: ModelConfig, device) -> dict:
     """The JAX tree as numpy (``jax.tree.map(np.asarray, params)``) ->
     the port's tree on ``device``.  Every leaf is checked against the
-    shapes ``init_params`` would build; a missing, extra or misshapen
+    shapes ``seeded_params`` would build; a missing, extra or misshapen
     leaf raises."""
     device = torch.device(device)
     want = param_shapes(cfg)
@@ -149,7 +208,7 @@ def shard_params(tree, cfg: ModelConfig, split: sharding.Split) -> dict:
     vocabulary split along V, norms replicated; a split with ``trunk``
     False cuts nothing, the head's vocabulary range is taken from the
     whole tied embedding by ``lm.lm_head_weight``).  ``tree`` is the
-    bridged numpy tree or host tensors from ``init_params``: the slice is
+    bridged numpy tree or host tensors from ``seeded_params``: the slice is
     cut on the host, before anything goes to the card, and each leaf is
     made contiguous (numpy stays numpy)."""
 

@@ -1326,10 +1326,10 @@ def test_engine_on_card_matches_cpu(dev, arch):
     from repro_torch.configs import get_config, smoke_config
     from repro_torch.serve.api import LLM
     from repro_torch.serve.params import SamplingParams
-    from repro_torch.weights import init_params
+    from repro_torch.weights import seeded_params
 
     cfg = smoke_config(get_config(arch))
-    cpu = init_params(cfg, torch.Generator().manual_seed(3), "cpu")
+    cpu = seeded_params(cfg, 3, "cpu")
 
     def to(tree, d):
         if isinstance(tree, dict):
@@ -1390,12 +1390,12 @@ def _graph_engine(dev, dtype, **kw):
 
     from repro_torch.configs import get_config, smoke_config
     from repro_torch.serve.engine import ServeEngine
-    from repro_torch.weights import init_params
+    from repro_torch.weights import seeded_params
 
     cfg = dataclasses.replace(smoke_config(get_config("qwen3-0.6b")),
                               dtype="bfloat16" if dtype == torch.bfloat16
                               else "float32")
-    params = init_params(cfg, torch.Generator(device=dev).manual_seed(5), dev)
+    params = seeded_params(cfg, 5, dev)
     eng = ServeEngine(params, cfg, **{"n_slots": 16, "max_len": 64, **kw})
     gen = torch.Generator(device=dev).manual_seed(6)
     for p in eng.store.pools.values():
@@ -1554,10 +1554,10 @@ def test_graphed_generate_equals_eager(dev):
     from repro_torch.serve import step_graph
     from repro_torch.serve.api import LLM
     from repro_torch.serve.params import SamplingParams
-    from repro_torch.weights import init_params
+    from repro_torch.weights import seeded_params
 
     cfg = smoke_config(get_config("qwen3-0.6b"))
-    params = init_params(cfg, torch.Generator(device=dev).manual_seed(8), dev)
+    params = seeded_params(cfg, 8, dev)
     rng = np.random.default_rng(8)
     rep = np.tile(rng.integers(0, cfg.vocab_size, size=5), 6)
     prompts = [rng.integers(0, cfg.vocab_size, size=n) for n in (3, 19, 33)]
@@ -1631,11 +1631,10 @@ def test_chunked_generate_graphed_equals_eager(dev):
     from repro_torch.serve import step_graph
     from repro_torch.serve.api import LLM
     from repro_torch.serve.params import SamplingParams
-    from repro_torch.weights import init_params
+    from repro_torch.weights import seeded_params
 
     cfg = smoke_config(get_config("qwen3-0.6b"))
-    params = init_params(cfg, torch.Generator(device=dev).manual_seed(10),
-                         dev)
+    params = seeded_params(cfg, 10, dev)
     rng = np.random.default_rng(10)
     shared = rng.integers(0, cfg.vocab_size, size=24)
     prompts = [np.concatenate([shared, rng.integers(0, cfg.vocab_size, 5)])
@@ -1801,10 +1800,10 @@ def test_dense_and_cohort_graphed_equal_eager(dev, kw):
     from repro_torch.serve import step_graph
     from repro_torch.serve.api import LLM
     from repro_torch.serve.params import SamplingParams
-    from repro_torch.weights import init_params
+    from repro_torch.weights import seeded_params
 
     cfg = smoke_config(get_config("qwen3-0.6b"))
-    params = init_params(cfg, torch.Generator(device=dev).manual_seed(8), dev)
+    params = seeded_params(cfg, 8, dev)
     rng = np.random.default_rng(8)
     prompts = [rng.integers(0, cfg.vocab_size, size=n) for n in (3, 19, 33, 8)]
     sp = [SamplingParams(max_new_tokens=12),
@@ -1833,10 +1832,10 @@ def test_lm_forward_on_card_matches_cpu(dev):
     starcoder2-7b's smoke config (gelu MLP, untied head)."""
     from repro_torch.configs import get_config, smoke_config
     from repro_torch.models import lm
-    from repro_torch.weights import init_params
+    from repro_torch.weights import seeded_params
 
     cfg = smoke_config(get_config("starcoder2-7b"))
-    cpu = init_params(cfg, torch.Generator().manual_seed(4), "cpu")
+    cpu = seeded_params(cfg, 4, "cpu")
     gpu = _to_device(cpu, dev)
     toks = torch.from_numpy(np.random.default_rng(4).integers(
         0, cfg.vocab_size, size=(2, 37)))
@@ -1854,3 +1853,41 @@ def _to_device(tree, dev):
     if isinstance(tree, list):
         return [_to_device(v, dev) for v in tree]
     return tree.to(dev)
+
+
+def test_graphed_hybrid_engine_equals_eager_and_the_cpu(dev):
+    """recurrentgemma-2b's smoke config (3 layers (rec, rec, attn),
+    window 16, f32, seeded weights): the T = 1 hybrid step captured per
+    bucket on the card -- ring buffers and recurrent state written in
+    place inside the graph -- gives the eager step's tokens on the card
+    and the plain versions' on the CPU, with no paged-attention launch;
+    five prompts of 4-19 tokens on 4 slots (a bucket pads 3 rows to 4),
+    12 new tokens each (decode past positions 16 and 32)."""
+    from repro_torch.configs import get_config, smoke_config
+    from repro_torch.serve import step_graph
+    from repro_torch.serve.engine import Request, ServeEngine
+    from repro_torch.weights import seeded_params
+
+    cfg = smoke_config(get_config("recurrentgemma-2b"))
+    rng = np.random.default_rng(41)
+    prompts = [rng.integers(0, cfg.vocab_size, size=n).astype(np.int32)
+               for n in (4, 11, 19, 7, 15)]
+
+    def serve(device):
+        eng = ServeEngine(seeded_params(cfg, 0, device), cfg, n_slots=4,
+                          max_len=40, eos_id=-1)
+        reqs = [Request(i, p, max_new_tokens=12)
+                for i, p in enumerate(prompts)]
+        for r in reqs:
+            eng.submit(r)
+        eng.run()
+        return [list(r.generated) for r in reqs], eng
+
+    want, _ = serve("cpu")
+    with step_graph.eager_steps():
+        eager, _ = serve(dev)
+    pa.paged_attention.launches = 0
+    graphed, eng = serve(dev)
+    assert eager == graphed == want
+    assert eng.graphs.replays > 0 and not eng.store.any_paged
+    assert pa.paged_attention.launches == 0

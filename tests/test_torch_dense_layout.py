@@ -5,7 +5,8 @@ weights at the smoke size of qwen3-0.6b (f32).
   (B,) and (B, T) ``cache_pos``, with and without the window mask,
   against ``repro.models.layers.attention`` at ``F32_TOL`` (output and
   the written cache); a cache exactly ``window`` long (the reference's
-  ring buffer) is refused;
+  ring buffer) refuses more than one query a row, as the reference's
+  does (the ring at T = 1 is held to JAX in ``test_torch_hybrid.py``);
 - ``lm.decode_step`` on a dense cache (no block tables) against the
   reference's, and through ``cache_rows`` into a larger store;
 - the store's dense layout: no blocks, no trie, ``admit`` copies a
@@ -111,15 +112,18 @@ def test_dense_attention_matches_jax(bridged, form, window):
 
 
 def test_ring_buffer_cache_is_refused(bridged):
+    """A ring buffer takes one query a row: a window of T = 2 queries
+    into a cache exactly ``window`` long is refused."""
     _, np_tree, _ = bridged
     tp = {k: torch.from_numpy(np.array(v)) for k, v in _layer0(np_tree).items()}
     pos = torch.tensor([3], dtype=torch.int32)
-    consts = tlayers.step_constants(TCFG, pos[:, None], cache_pos=pos,
-                                    cache_len=8, window=8)
+    consts = tlayers.step_constants(TCFG, pos[:, None] + torch.arange(2),
+                                    cache_pos=pos, cache_len=8, window=8)
+    assert consts.ring
     cache = {n: torch.zeros(1, 8, TCFG.n_kv_heads, TCFG.head_dim)
              for n in ("k", "v")}
     with pytest.raises(NotImplementedError, match="ring-buffer"):
-        tlayers.attention(tp, torch.zeros(1, 1, TCFG.d_model), TCFG,
+        tlayers.attention(tp, torch.zeros(1, 2, TCFG.d_model), TCFG,
                           consts=consts, window=8, cache=cache)
 
 
@@ -188,8 +192,10 @@ def test_dense_store_allocates_nothing(bridged):
     st = PagedKVStore(TCFG, n_slots=3, max_len=32, device="cpu",
                       block_size=8, layout="dense")
     assert not st.any_paged and st.pools is None
-    assert st.denses["k"].shape == (TCFG.n_layers, 3, 32, TCFG.n_kv_heads,
-                                    TCFG.head_dim)
+    dense = st.denses[0]["slot0"]["attn"]        # the model's cache tree
+    assert st.cache() is st.denses
+    assert dense["k"].shape == (TCFG.n_layers, 3, 32, TCFG.n_kv_heads,
+                                TCFG.head_dim)
     assert st.usage()["layout"] == "dense"
     assert (st.usage()["paged_leaves"], st.usage()["dense_leaves"]) == (0, 2)
     assert st.can_admit(31) and st.can_ever_admit(10 ** 6)
@@ -202,8 +208,8 @@ def test_dense_store_allocates_nothing(bridged):
         leaf.normal_()
     st.admit(1, cache)
     for n in ("k", "v"):
-        assert torch.equal(st.denses[n][:, 1], cache[0]["slot0"]["attn"][n][:, 0])
-        assert not st.denses[n][:, [0, 2]].any()
+        assert torch.equal(dense[n][:, 1], cache[0]["slot0"]["attn"][n][:, 0])
+        assert not dense[n][:, [0, 2]].any()
     st.release(1, publish_tokens=np.arange(16, dtype=np.int32))
     assert st.allocator.n_free == st.allocator.num_blocks
     assert st.prefix_trie.nodes == 0

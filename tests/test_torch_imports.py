@@ -43,3 +43,11 @@ def test_the_guard_sees_every_form(tmp_path):
                    "def f():\n    import jaxlib\n    from . import x\n")
     assert [n for n in _imports(src) if _banned(n)] == [
         "jax.numpy", "repro.serve", "jaxlib"]
+
+
+@pytest.mark.parametrize("rel", [
+    "src/repro_torch/models/rglru.py", "src/repro_torch/paper/__init__.py",
+    "src/repro_torch/paper/__main__.py", "src/repro_torch/paper/table1.py",
+    "src/repro_torch/paper/fig23.py", "src/repro_torch/paper/classifier.py"])
+def test_the_guard_covers_the_hybrid_and_paper_modules(rel):
+    assert ROOT / rel in FILES

@@ -73,10 +73,10 @@ def test_bridged_leaves_equal_jax(bridged):
 
 
 def test_init_params_shapes_and_scales():
-    """The port's own seeded init: same tree and shapes as the JAX
-    package's, normal times 1/sqrt(fan-in), norm scales zero."""
-    gen = torch.Generator().manual_seed(0)
-    tparams = weights.init_params(TCFG, gen, "cpu")
+    """The port's own seeded init (``weights.seeded_params``): same tree
+    and shapes as the JAX package's, normal times 1/sqrt(fan-in), norm
+    scales zero, and the same numbers from the same seed."""
+    tparams = weights.seeded_params(TCFG, 0, "cpu")
     jstruct = jax.eval_shape(lambda k: jlm.init_params(JCFG, k),
                              jax.random.PRNGKey(0))
     for path, want, leaf in _walk(jstruct, tparams):
@@ -87,7 +87,7 @@ def test_init_params_shapes_and_scales():
             fan_in = leaf.shape[-2] if path[-1] != "embed" else leaf.shape[-1]
             std = leaf.std().item() * np.sqrt(fan_in)
             assert 0.9 < std < 1.1, (path, std)
-    again = weights.init_params(TCFG, torch.Generator().manual_seed(0), "cpu")
+    again = weights.seeded_params(TCFG, 0, "cpu")
     assert all(torch.equal(a, b) for _, a, b in _walk(tparams, again))
 
 

@@ -626,8 +626,8 @@ def test_cli_and_from_arch_under_torchrun_environment(tmp_path):
     environment run ``launch.serve.main([..., "--tp", "2"])`` -- rank 0
     prints, rank 1 returns silently, both serve the batch the unsharded
     CLI serves, step for step -- and then ``LLM.from_arch(tp=2)``, whose
-    tokens are the unsharded ``from_arch``'s (on the CPU both draw the
-    same host weights)."""
+    tokens are the unsharded ``from_arch``'s: one seed names one host
+    tree (``weights.seeded_params``) on every device and every tp."""
     from repro_torch.launch import serve
     from repro_torch.serve.api import LLM
     from repro_torch.serve.params import SamplingParams
