@@ -201,11 +201,19 @@ Phases, each of which fails the run (non-zero exit, no result line):
      host-staged gloo on one card), every rank's tokens equal, each
      rank's launches at its steps, no graph captured, the collective
      bytes of an 8-row decode step and of each head at B 8 (the
-     comparator's under a quarter of one f32 logit sweep).
+     comparator's under a quarter of one f32 logit sweep); then the
+     control plane, in the same rank processes, in f32: at world 4
+     ``Router(replicas=2, tp=2)`` (replica r the ranks [2r, 2r + 2)) on
+     the 8 prompts, its tokens on every rank held to the unsharded
+     engine's, both replicas served, the fleet's emitted tokens the sum
+     of the replicas'; at world 2 ``LLM(tp=2)`` behind the HTTP server on
+     rank 0 (rank 1 following its pump), the 12 prompts posted at once
+     and one streamed, held to the unsharded engine's, rank 1 back from
+     its follow loop at ``shutdown``; each rank's launches at its steps.
   4l. (last) the hybrid RG-LRU family: flash attention at
      recurrentgemma-2b's prefill (T 2,150, 10 query heads over 1 KV head,
      hd 256, window 2,048; the ``mma.sync`` kernel, from a profiler
-     trace; within two bf16 steps, on random inputs and on inputs where
+     trace taken in phase 3; within two bf16 steps, on random inputs and on inputs where
      the window decides the answer) and the argmax head at B 8 on its
      tied (256,000, 2,560) embedding, each against its plain version and
      timed beside its bound and library call; then ``LLM.from_arch("recurrentgemma-2b",
@@ -226,6 +234,20 @@ Phases, each of which fails the run (non-zero exit, no result line):
      peak memory, the eager and replayed step beside the
      bound of reading every weight once, tok/s, and the TTFT of a
      2,150-token prompt with the plain RG-LRU scan's share.
+  4m. (last) the RWKV6 family: the argmax head at B 8 and the top-k head
+     at B 4, k 8 on rwkv6-7b's untied (V, D) = (65,536, 4,096) head
+     against their plain versions, timed beside their bound and library
+     call; then ``LLM.from_arch("rwkv6-7b", smoke=False)`` in bf16,
+     nothing cut (32 layers, d 4,096, 64 heads of 64, d_ff 14,336,
+     relu_sq channel mix, 8 slots of 1,088 per-slot states): 8 prompts
+     of 3-1,024 tokens greedy at 64 new tokens, eager and graphed twice
+     (tokens equal; no attention kernel, an argmax head a step and a
+     prefill), Theorem 1, mixed samplers, ``spec_k`` refused,
+     ``chunk_size`` and ``host_stride`` warned off with the same tokens;
+     an f32 twin from the same seed held to a scalar replay and
+     ``argmax(lm.forward)``; the bf16 streams against it (measured); the
+     replayed step beside the weight-read bound, tok/s, and the TTFT of
+     a 1,024-token prompt with the plain wkv scan's share.
 
 Token streams that should be equal may part only at a near-tie of the
 two best f32 logits (gap within 1e-3 of the max): the batch composition
@@ -4646,6 +4668,14 @@ def tp_rank_main(rank: int, world: int, d: str) -> int:
             del llm, eng
             gc.collect()
             torch.cuda.empty_cache()
+        f32 = dataclasses.replace(cfg, dtype="float32")
+        if world == 4:
+            out["router_f32"] = tp_router_run(torch, host, f32, g, rank,
+                                              prompts["main"],
+                                              params["greedy"])
+        if world == 2:
+            out["http_f32"] = tp_http_run(torch, host, f32, g, rank,
+                                          prompts["main"], max_new)
         out["ok"] = True
         g.close()
     except Exception as e:                    # reported by the parent
@@ -4657,6 +4687,131 @@ def tp_rank_main(rank: int, world: int, d: str) -> int:
     with open(os.path.join(d, f"out{world}_{rank}.json"), "w") as f:
         json.dump(out, f)
     return 0 if out["ok"] else 1
+
+
+def _run_stats(eng, st0) -> dict:
+    """An engine's counters' growth since ``st0`` (``stats_now``'s copy)."""
+    import types
+
+    return stats_delta(st0, stats_now(types.SimpleNamespace(engine=eng)))
+
+
+def tp_router_run(torch, host, f32, g, rank, prompts, params) -> dict:
+    """Phase 4k's router run (world 4, every rank): ``Router(replicas=2,
+    tp=2)`` over the world, replica r the ranks [2r, 2r + 2), each a tp 2
+    engine of phase 4k's kwargs, serving ``prompts`` greedy through
+    ``Router.generate`` (world rank 0 routes; every rank returns the
+    outputs); the launch counts set to 0 just before and read just after,
+    checked against this rank's engine's steps."""
+    import types
+
+    from repro_torch.serve.router import Router
+
+    router = Router(host, f32, replicas=2, tp=2, group=g,
+                    **tp_engine_kwargs())
+    eng = router.engine
+    router.generate([prompts[0][:16]], type(params)(max_new_tokens=2))
+    torch.cuda.synchronize()
+    reset_launches()
+    st0 = stats_now(types.SimpleNamespace(engine=eng))
+    c0 = g.bytes.get("control", 0)
+    t0 = time.perf_counter()
+    outs = router.generate(prompts, params)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    st = _run_stats(eng, st0)
+    check_tp_launches(launches, st, eng.cfg, f"router rank {rank}",
+                      flash=True)
+    control = g.bytes.get("control", 0) - c0
+    pay = router.stats_payload()
+    n_tok = sum(len(o.token_ids) for o in outs)
+    return dict(tokens=[list(o.token_ids) for o in outs],
+                rids=[o.rid for o in outs], replica=router.index,
+                served=[r.served for r in router.replicas],
+                launches=launches, decode_steps=st["decode_steps"],
+                decode_ms=st["decode_ms"] / max(st["decode_steps"], 1),
+                prefills=st["prefills"], wall_s=wall, tok_s=n_tok / wall,
+                world_control_bytes=control,
+                emitted=pay["engine"]["emitted_tokens"],
+                per_replica=[r["engine"]["emitted_tokens"]
+                             for r in pay["replicas"]])
+
+
+def tp_http_run(torch, host, f32, g, rank, prompts, max_new) -> dict:
+    """Phase 4k's HTTP run (world 2): ``LLM(tp=2)`` of phase 4k's kwargs
+    behind ``serve.server.make_server`` on rank 0 (its pump ticks rank 1,
+    which runs ``serve_forever``, the follow loop): every prompt posted
+    at once from its own thread (greedy, JSON), then prompt 0 streamed;
+    ``/v1/stats`` and ``/healthz``; then ``shutdown`` and ``stop_pump``,
+    which returns rank 1 from its loop.  Launch counts set to 0 before
+    the server starts and read after it stops, on each rank against its
+    engine's steps."""
+    import threading
+    import urllib.request
+    from concurrent.futures import ThreadPoolExecutor
+
+    from repro_torch.serve.api import LLM
+    from repro_torch.serve.params import SamplingParams
+    from repro_torch.serve.server import make_server, serve_forever
+
+    llm = LLM(host, f32, tp=2, group=g, **tp_engine_kwargs())
+    llm.generate([prompts[0][:16]], SamplingParams(max_new_tokens=2))
+    torch.cuda.synchronize()
+    reset_launches()
+    st0 = stats_now(llm)
+    t0 = time.perf_counter()
+    res = {}
+    if rank != 0:
+        serve_forever(llm)
+        res["followed_s"] = time.perf_counter() - t0
+    else:
+        srv = make_server(llm, port=0)
+        threading.Thread(target=srv.serve_forever, daemon=True).start()
+        base = f"http://127.0.0.1:{srv.server_address[1]}"
+
+        def post(prompt, stream=False):
+            body = json.dumps({"prompt": [int(t) for t in prompt],
+                               "max_new_tokens": max_new,
+                               "stream": stream}).encode()
+            req = urllib.request.Request(
+                f"{base}/v1/completions", data=body,
+                headers={"Content-Type": "application/json"})
+            with urllib.request.urlopen(req, timeout=300) as r:
+                return r.read().decode()
+
+        try:
+            t1 = time.perf_counter()
+            with ThreadPoolExecutor(len(prompts)) as pool:
+                full = [json.loads(x) for x in pool.map(post, prompts)]
+            wall = time.perf_counter() - t1
+            raw = post(prompts[0], stream=True)
+            lines = [x[6:] for x in raw.splitlines()
+                     if x.startswith("data: ")]
+            stats = json.loads(urllib.request.urlopen(
+                f"{base}/v1/stats", timeout=60).read())
+            health = json.loads(urllib.request.urlopen(
+                f"{base}/healthz", timeout=60).read())
+        finally:
+            srv.shutdown()
+            llm.stop_pump()
+        n_tok = sum(len(f["token_ids"]) for f in full)
+        res.update(tokens=[f["token_ids"] for f in full],
+                   rids=[f["rid"] for f in full], wall_s=wall,
+                   tok_s=n_tok / wall, done=lines[-1],
+                   streamed=[json.loads(x)["token"] for x in lines[:-1]],
+                   emitted=stats["engine"]["emitted_tokens"],
+                   health_ok=health["ok"],
+                   pump_error=repr(llm._pump_error))
+    torch.cuda.synchronize()
+    launches = read_launches()
+    st = _run_stats(llm.engine, st0)
+    check_tp_launches(launches, st, llm.engine.cfg, f"http rank {rank}",
+                      flash=True)
+    res.update(launches=launches, decode_steps=st["decode_steps"],
+               decode_ms=st["decode_ms"] / max(st["decode_steps"], 1),
+               prefills=st["prefills"])
+    return res
 
 
 def spawn_tp(world: int, d: str) -> list:
@@ -4705,6 +4860,70 @@ def spawn_tp(world: int, d: str) -> list:
         check(res[-1]["ok"], f"tp {world} rank {r} failed: "
               f"{res[-1].get('error')}\n{res[-1].get('trace', '')}")
     return res
+
+
+def check_control_plane(torch, gap_llm, res, world, inputs, ref32,
+                        n) -> dict:
+    """Phase 4k's control-plane runs as the ranks wrote them: world 4's
+    router and world 2's HTTP server, their f32 greedy tokens held to the
+    unsharded engine's (near-tie rule), every rank's router outputs equal
+    rank 0's, both replicas served, the fleet's emitted tokens the
+    replicas' sum; the HTTP stream equal to its plain completion, the
+    follower back from its loop.  Returns the summary's entries."""
+    import types
+
+    r0 = res[0]
+    name = "router_f32" if world == 4 else "http_f32"
+    run = r0[name]
+    got = [types.SimpleNamespace(token_ids=tuple(t), rid=i)
+           for i, t in zip(run["rids"], run["tokens"])]
+    what = (f"phase 4k tp {world} " + ("Router(replicas=2, tp=2)"
+                                       if world == 4 else "HTTP (tp 2)"))
+    same = compare_streams(torch, gap_llm, inputs[0]["main"],
+                           ref32[n, "greedy_f32"], got, what)
+    if world == 4:
+        for r in res[1:]:
+            check(r[name]["tokens"] == run["tokens"],
+                  f"{what}: rank {r['rank']}'s outputs differ from rank 0's")
+        check(all(s > 0 for s in run["served"]),
+              f"{what}: a replica served nothing ({run['served']})")
+        check(run["emitted"] == sum(run["per_replica"]),
+              f"{what}: emitted {run['emitted']} != the replicas' "
+              f"{run['per_replica']}")
+        for r in res:
+            check(r[name]["launches"]["paged_attention"] > 0
+                  and r[name]["launches"]["fused_argmax_head"] > 0,
+                  f"{what}: rank {r['rank']} launched no paged or argmax "
+                  "kernel")
+        line = (f"routed {run['served']}, world control bytes "
+                f"{run['world_control_bytes']} (rank 0)")
+    else:
+        check(run["streamed"] == list(run["tokens"][0]), f"{what}: the "
+              "streamed tokens differ from the plain completion's")
+        check(run["done"] == "[DONE]" and run["health_ok"]
+              and run["pump_error"] == "None", f"{what}: the server "
+              f"ended badly: {run['done']} {run['health_ok']} "
+              f"{run['pump_error']}")
+        check(res[1][name]["followed_s"] > 0, f"{what}: rank 1 never "
+              "followed")
+        line = (f"stream == plain; rank 1 back from its follow loop after "
+                f"{res[1][name]['followed_s']:.1f} s")
+    batch = r0["greedy_f32"]["tok_s"]
+    print(f"{what}: {same}/{len(got)} streams equal to the unsharded f32 "
+          f"engine's; {run['tok_s']:.2f} tok/s ({run['tok_s'] / batch:.2f}x "
+          f"tp {world}'s batch greedy_f32, {batch:.2f}), "
+          f"{run['wall_s']:.2f} s, {run['decode_steps']} decode steps on "
+          f"rank 0's engine; launches {run['launches']}; {line}", flush=True)
+    key = "router" if world == 4 else "http"
+    return {key: dict(same=same, streams=len(got), tok_s=run["tok_s"],
+                      vs_batch_greedy_f32=run["tok_s"] / batch,
+                      decode_steps=run["decode_steps"],
+                      launches=run["launches"],
+                      **({"served": run["served"], "world_control_bytes":
+                          run["world_control_bytes"]} if world == 4 else {})),
+            "timing": {f"{key}_f32_tp2_{n}_prompts": dict(
+                tok_s=run["tok_s"], wall_s=run["wall_s"],
+                decode_ms=run["decode_ms"])}}
 
 
 def run_tp_path(torch, max_new=32) -> dict:
@@ -4844,6 +5063,9 @@ def run_tp_path(torch, max_new=32) -> dict:
               flush=True)
         timing[f"tp{world}_eager_gloo_{n}_prompts"] = dict(
             tok_s=gb["tok_s"], decode_ms=gb["decode_ms"], wall_s=gb["wall_s"])
+        plane = check_control_plane(torch, gap_llm, res, world, inputs[n],
+                                    ref32, n)
+        timing.update(plane.pop("timing"))
         summary[f"tp{world}"] = dict(
             launches={n: r0[n]["launches"]
                       for n, *_ in tp_runs(max_new)},
@@ -4851,7 +5073,8 @@ def run_tp_path(torch, max_new=32) -> dict:
                    for n, *_ in tp_runs(max_new)},
             accepted=r0["spec4_f32"]["accepted"],
             bf16_same=gb["same_as_tp1_bf16"], step_bytes_b8=step,
-            head_bytes_b8=heads, weights_bytes=r0["weights_bytes"])
+            head_bytes_b8=heads, weights_bytes=r0["weights_bytes"],
+            **plane)
     print("phase 4k timing (tok/s, ms a decode step; tp 2 and 4 eager over "
           "gloo through the host on one card, no claim rides on them): "
           + "; ".join(f"{k} {v['tok_s']:.2f} tok/s, {v['decode_ms']:.3f} ms"
@@ -4969,11 +5192,41 @@ def check_rg_launches(launches, st, llm, what):
               f"{launches[name]} times, want {n}")
 
 
-def check_rg_kernels(torch, timer) -> dict:
+RG_FLASH = (2150, 10, 1, 256, 2048)     # T, q heads, KV heads, hd, window
+
+
+def rg_flash_inputs(torch, gen) -> tuple:
+    """Row 5b's q, k, v: bf16 (1, H, T, hd) views of (1, T, H, hd)
+    tensors, as recurrentgemma-2b's prefill passes them."""
+    t, hq, hkv, hd, _ = RG_FLASH
+
+    def rand(heads):
+        return torch.randn((1, t, heads, hd), generator=gen,
+                           device="cuda").to(torch.bfloat16).transpose(1, 2)
+
+    return rand(hq), rand(hkv), rand(hkv)
+
+
+def rg_flash_route(torch) -> list:
+    """The device kernels flash attention ran at row 5b's shapes, read
+    from a profiler trace (``device_kernels``) in phase 3, beside the
+    other route traces; ``check_rg_kernels`` holds them to the
+    ``mma.sync`` route in phase 4l."""
+    from repro_torch.kernels import flash_attention as fa
+
+    q, k, vv = rg_flash_inputs(
+        torch, torch.Generator(device="cuda").manual_seed(27))
+    return [n for n in device_kernels(torch, lambda: fa.flash_attention(
+        q, k, vv, causal=True, window=RG_FLASH[4]), "flash_attention")
+        if "flash_attention" in n]
+
+
+def check_rg_kernels(torch, timer, names) -> dict:
     """Rows 5b and 2c: flash attention at recurrentgemma-2b's prefill
     (T 2,150, 10 query heads over 1 KV head -- g 10 --, hd 256, causal,
     window 2,048; bf16, the (B, T, H, hd) views the layer passes; its
-    kernel read from a profiler trace: the ``mma.sync`` route) against
+    kernels ``names``, read from phase 3's profiler trace
+    (``rg_flash_route``): the ``mma.sync`` route) against
     SDPA with the window's mask, and the argmax head at B 8 on the tied
     (V, D) = (256,000, 2,560) embedding (its ``.T`` view) against
     ``argmax(h @ W)``; each against its plain version and timed beside
@@ -4997,17 +5250,10 @@ def check_rg_kernels(torch, timer) -> dict:
     from repro_torch.kernels import fused_argmax_head as fah
     from repro_torch.kernels import ref
 
-    t, hq, hkv, hd, window, d, v = 2150, 10, 1, 256, 2048, 2560, 256000
+    t, hq, hkv, hd, window = RG_FLASH
+    d, v = 2560, 256000
     gen = torch.Generator(device="cuda").manual_seed(27)
-
-    def rand(heads):
-        return torch.randn((1, t, heads, hd), generator=gen,
-                           device="cuda").to(torch.bfloat16).transpose(1, 2)
-
-    q, k, vv = rand(hq), rand(hkv), rand(hkv)
-    names = [n for n in device_kernels(torch, lambda: fa.flash_attention(
-        q, k, vv, causal=True, window=window), "flash_attention")
-        if "flash_attention" in n]
+    q, k, vv = rg_flash_inputs(torch, gen)
     check(names and all("flash_attention_mma_kernel" in n for n in names),
           f"flash attention at hd 256, g 10 ran {names}, not the mma.sync "
           "kernel")
@@ -5115,17 +5361,21 @@ def check_rg_kernels(torch, timer) -> dict:
     return rows
 
 
-def rg_prefill_profile(torch, llm, prompt) -> dict:
+def rg_prefill_profile(torch, llm, prompt, module=None,
+                       scan="rglru_scan", name="recurrentgemma-2b") -> dict:
     """TTFT of one prompt alone on the idle engine (``LLM.generate`` of
     one token: submit to first emission), then the same prompt's
-    ``lm.prefill`` with every RG-LRU scan timed apart (a sync before and
-    after each of the 18): the plain scan's share of the prefill."""
+    ``lm.prefill`` with every plain scan (``module.scan``: the RG-LRU's
+    by default, 18 of them; RWKV6's ``wkv_scan``, 32) timed apart (a
+    sync before and after each): the plain scan's share of the
+    prefill."""
     from repro_torch.models import lm, rglru
     from repro_torch.serve.params import SamplingParams
 
+    module = rglru if module is None else module
     run = drive(torch, llm, [prompt], SamplingParams(max_new_tokens=1))
     ttft = run[3]["ttft_ms_p50"]
-    eng, orig, spent = llm.engine, rglru.rglru_scan, []
+    eng, orig, spent = llm.engine, getattr(module, scan), []
 
     def timed(*a):
         torch.cuda.synchronize()
@@ -5136,7 +5386,7 @@ def rg_prefill_profile(torch, llm, prompt) -> dict:
         return out
 
     tokens = torch.as_tensor(prompt, dtype=torch.long, device="cuda")[None]
-    rglru.rglru_scan = timed
+    setattr(module, scan, timed)
     try:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -5144,18 +5394,19 @@ def rg_prefill_profile(torch, llm, prompt) -> dict:
         torch.cuda.synchronize()
         total = (time.perf_counter() - t0) * 1e3
     finally:
-        rglru.rglru_scan = orig
-    scan = sum(spent) * 1e3
-    print(f"recurrentgemma-2b TTFT of a {len(prompt)}-token prompt: "
-          f"{ttft:.2f} ms (alone on the engine); its lm.prefill with each "
-          f"scan synced {total:.2f} ms, of which the {len(spent)} plain "
-          f"RG-LRU scans {scan:.2f} ms ({scan / total:.1%})", flush=True)
+        setattr(module, scan, orig)
+    ms = sum(spent) * 1e3
+    print(f"{name} TTFT of a {len(prompt)}-token prompt: {ttft:.2f} ms "
+          f"(alone on the engine); its lm.prefill with each scan synced "
+          f"{total:.2f} ms, of which the {len(spent)} plain scans "
+          f"({scan}) {ms:.2f} ms ({ms / total:.1%})", flush=True)
     return dict(prompt_tokens=len(prompt), ttft_ms=ttft,
-                prefill_synced_ms=total, scan_ms=scan, scans=len(spent),
-                scan_share=scan / total)
+                prefill_synced_ms=total, scan_ms=ms, scans=len(spent),
+                scan_share=ms / total)
 
 
-def rg_replay_f32(torch, twin, prompts, outs, max_new) -> dict:
+def rg_replay_f32(torch, twin, prompts, outs, max_new,
+                  name="recurrentgemma-2b") -> dict:
     """The f32 twin's graphed ragged greedy tokens (``outs``) against a
     scalar replay -- ``lm.prefill`` then ``lm.decode_step`` one request
     at a time at its own positions -- and against ``argmax(lm.forward(
@@ -5189,19 +5440,20 @@ def rg_replay_f32(torch, twin, prompts, outs, max_new) -> dict:
         if replay != gen or fwd != gen:
             k = next(i for i, (a, b, c) in enumerate(zip(gen, replay, fwd))
                      if not a == b == c)
-            print(f"recurrentgemma-2b f32: rid {o.rid} ({len(prompt)} "
+            print(f"{name} f32: rid {o.rid} ({len(prompt)} "
                   f"tokens) parts at step {k}: engine {gen[k]}, replay "
                   f"{replay[k]}, forward {fwd[k]}", flush=True)
     n = len(prompts)
-    print(f"recurrentgemma-2b f32 twin: engine (graphed, ragged) == scalar "
+    print(f"{name} f32 twin: engine (graphed, ragged) == scalar "
           f"replay on {same_replay}/{n} streams, == argmax(lm.forward) on "
           f"{same_forward}/{n}", flush=True)
-    check(same_replay == same_forward == n, "recurrentgemma-2b f32: the "
+    check(same_replay == same_forward == n, f"{name} f32: the "
           "engine's tokens differ from the scalar replay or lm.forward")
     return dict(replay=same_replay, forward=same_forward, streams=n)
 
 
-def rg_bf16_partings(torch, llm, twin, prompts, want, got) -> dict:
+def rg_bf16_partings(torch, llm, twin, prompts, want, got,
+                     name="recurrentgemma-2b") -> dict:
     """The bf16 engine's streams (``got``) against the f32 twin's
     (``want``), measured, not a gate: for each stream that parts, the
     step, the f32 top-2 logit gap there against the near-tie rule
@@ -5238,7 +5490,7 @@ def rg_bf16_partings(torch, llm, twin, prompts, want, got) -> dict:
                    bf16_rms_err=d.pow(2).mean().sqrt().item(),
                    f32_rms=l32.pow(2).mean().sqrt().item())
         rows.append(row)
-        print(f"recurrentgemma-2b bf16 vs the f32 twin: rid {g.rid} "
+        print(f"{name} bf16 vs the f32 twin: rid {g.rid} "
               f"({len(p)} tokens) parts at step {k}: top-2 f32 logit gap "
               f"{gap:.6g} (max {top:.6g}, {gap / abs(top):.3g} of it; "
               f"{'a' if row['near_tie'] else 'not a'} near-tie at "
@@ -5246,7 +5498,7 @@ def rg_bf16_partings(torch, llm, twin, prompts, want, got) -> dict:
               f"{row['bf16_max_err']:.6g}, rms {row['bf16_rms_err']:.6g} "
               f"against an f32 rms of {row['f32_rms']:.6g}", flush=True)
         del l32, l16, d
-    print(f"recurrentgemma-2b bf16 vs the f32 twin: {same}/{len(prompts)} "
+    print(f"{name} bf16 vs the f32 twin: {same}/{len(prompts)} "
           "streams equal (measured, not a gate)", flush=True)
     return dict(equal=same, streams=len(prompts), partings=rows)
 
@@ -5412,6 +5664,240 @@ def run_recurrentgemma_path(torch, max_new=RG_MAX_NEW) -> tuple:
     return summary, graphed[2]
 
 
+# ---------------------------------------------------------------------------
+# Phase 4m: rwkv6-7b (the RWKV6 family) at full width
+# ---------------------------------------------------------------------------
+RW_MAX_NEW = 64
+RW_MAX_LEN = 1024 + RW_MAX_NEW     # the longest prompt + its new tokens
+
+
+def rw_prompts(vocab: int) -> list:
+    """Phase 4m's 8 prompts (numpy seed 29): 3 and 1,024 tokens, and six
+    of 4-399 (the plain scan's prefill is most of each run's wall)."""
+    rng = np.random.default_rng(29)
+    lens = [3, 1024, *rng.integers(4, 400, size=6)]
+    return [rng.integers(0, vocab, size=int(n)).astype(np.int32)
+            for n in lens]
+
+
+def check_rwkv_launches(launches, st, what):
+    """An rwkv6 run's launches against its steps: no attention kernel
+    (every layer is time-mix + channel-mix), each head kernel once a head
+    call of its kind (greedy: decode steps + prefills), no verify or
+    softmax-unit kernel."""
+    calls = st["head_calls"]
+    want = {"paged_attention": 0, "flash_attention": 0,
+            "fused_argmax_head": calls.get("Greedy", 0),
+            "fused_topk_head": calls.get("TopK", 0),
+            "fused_verify_head": 0, "softmax_stats": 0,
+            "online_softmax": 0, "fused_xent": 0}
+    print(f"{what} launches: {launches} (want {want}; {st['decode_steps']} "
+          f"decode steps, {st['prefills']} prefills)", flush=True)
+    for name, n in want.items():
+        check(launches[name] == n, f"{what}: {name} launched "
+              f"{launches[name]} times, want {n}")
+
+
+def check_rwkv_kernels(torch, timer) -> dict:
+    """Rows 2d and 3c: the argmax head at B 8 and the top-k head at B 4, k
+    8 on rwkv6-7b's untied head -- (D, V) = (4,096, 65,536) as the engine
+    stores it, the ``.T`` view of a row-major (V, D) tensor -- against
+    their plain versions, each timed beside its bound (the head's bf16
+    bytes once) and ``argmax(h @ W)`` / ``topk(h @ W)``."""
+    from repro_torch.kernels import fused_argmax_head as fah
+    from repro_torch.kernels import fused_topk_head as ftk
+    from repro_torch.kernels import ref
+
+    d, v = 4096, 65536
+    gen = torch.Generator(device="cuda").manual_seed(29)
+    w = (torch.randn((v, d), generator=gen, device="cuda")
+         / math.sqrt(d)).to(torch.bfloat16).t()
+    h8 = torch.randn((8, d), generator=gen, device="cuda").to(torch.bfloat16)
+    h4 = h8[:4].contiguous()
+    idx, val = fah.fused_argmax_head_with_value(h8, w)
+    vals, ids = ftk.fused_topk_head(h4, w, 8)
+    torch.cuda.synchronize()
+    idx_ok, val_ok, err, _ = argmax_verdict(torch, h8, w, idx, val)
+    check(idx_ok and val_ok, "the argmax head on rwkv6-7b's untied head "
+          "disagrees with its plain version")
+    tv = topk_verdict(torch, h4, w, 8, vals, ids)
+    check(tv["idx_ok"] and tv["ties_ok"] and tv["desc_ok"] and tv["val_ok"],
+          f"the top-k head on rwkv6-7b's untied head disagrees with its "
+          f"plain version: {tv}")
+    wb = v * d * 2
+    rows = {
+        "argmax_b8": kernel_row(
+            timer, lambda: fah.fused_argmax_head_with_value(h8, w),
+            lambda: ref.fused_argmax_head_with_value(h8, w),
+            lambda: torch.argmax(h8 @ w, dim=-1), wb + 8 * d * 2 + 8 * 8,
+            2.0 * 8 * d * v, err),
+        "topk_b4_k8": kernel_row(
+            timer, lambda: ftk.fused_topk_head(h4, w, 8),
+            lambda: ref.fused_topk_head(h4, w, 8),
+            lambda: torch.topk(h4 @ w, 8, dim=-1),
+            wb + 4 * d * 2 + 4 * 8 * 8, 2.0 * 4 * d * v,
+            tv["err"])}
+    for name, lib in (("argmax_b8", "argmax(h @ W)"),
+                      ("topk_b4_k8", "topk(h @ W)")):
+        row = rows[name]
+        print(f"rwkv6-7b shapes, {name} on the untied (V, D) = (65536, "
+              f"4096) head: kernel {shown(row)}, plain "
+              f"{row['plain_ms']:.4f} ms, {lib} {shown(row, 'library_')}, "
+              f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}); "
+              f"max_abs_err {row['max_abs_err']:.6g}", flush=True)
+    return rows
+
+
+def run_rwkv_path(torch, max_new=RW_MAX_NEW) -> tuple:
+    """Phase 4m: rwkv6-7b (the RWKV6 family) at full width in bf16 (32
+    layers, d 4,096, 64 wkv heads of 64, d_ff 14,336 relu_sq, V 65,536
+    untied; nothing cut; random weights from seed 0) through
+    ``LLM.from_arch``, 8 slots of per-slot state (shifts and wkv): 8
+    prompts of 3-1,024 tokens greedy at 64 new tokens, eager then graphed
+    twice (the second all replays; tokens equal; no attention kernel, the
+    argmax head a step and a prefill), Theorem 1 against the softmax
+    head, mixed samplers, ``spec_k`` refused, ``chunk_size`` and
+    ``host_stride`` warned off on one engine with the same tokens; an f32
+    twin of the same seed (its bf16 cast the engine's tree bitwise) held
+    to its scalar replay and to ``lm.forward``; the bf16 streams against
+    the f32 twin's (measured).  Prints peak memory, the eager and
+    replayed step against the bound of reading every weight once, tok/s
+    and the TTFT of a 1,024-token prompt with the plain wkv scan's
+    share.  Returns (summary, the graphed run 1's launches, the sampled
+    run's)."""
+    import dataclasses
+    import warnings
+
+    from repro_torch.models import rwkv6
+    from repro_torch.serve.api import LLM
+    from repro_torch.serve.params import SamplingParams
+    from repro_torch.weights import seeded_params
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    llm = LLM.from_arch("rwkv6-7b", smoke=False, seed=0, n_slots=8,
+                        max_len=RW_MAX_LEN)
+    torch.cuda.synchronize()
+    cfg, eng = llm.cfg, llm.engine
+    built_s, built_peak = time.perf_counter() - t0, \
+        torch.cuda.max_memory_allocated()
+    check((cfg.n_layers, cfg.d_model, cfg.rwkv_head_size, cfg.d_ff,
+           cfg.vocab_size, cfg.activation, cfg.tie_embeddings, cfg.dtype)
+          == (32, 4096, 64, 14336, 65536, "relu_sq", False, "bfloat16"),
+          f"rwkv6-7b is not served at its full width: {cfg}")
+    check(not eng.store.any_paged, "rwkv6-7b's store pages")
+    wbytes = sum(t.numel() * t.element_size() for t in _leaves(eng.params))
+    state = sum(t.numel() * t.element_size()
+                for t in _leaves(eng.store.cache()))
+    print(f"rwkv6-7b: {cfg.n_layers} layers, d={cfg.d_model}, "
+          f"{cfg.d_model // cfg.rwkv_head_size} wkv heads of "
+          f"{cfg.rwkv_head_size}, d_ff={cfg.d_ff} {cfg.activation}, "
+          f"V={cfg.vocab_size} untied, {cfg.dtype}; weights "
+          f"{wbytes / 1e9:.3f} GB, state {state / 1e6:.1f} MB "
+          f"({state / 8 / 1e6:.2f} MB a slot); built in {built_s:.1f} s "
+          f"(the host draw included), peak {built_peak / 1e9:.3f} GB",
+          flush=True)
+    prompts = rw_prompts(cfg.vocab_size)
+    print(f"rwkv6-7b prompts: {[len(p) for p in prompts]} tokens",
+          flush=True)
+    params = SamplingParams(max_new_tokens=max_new)
+    llm.generate([prompts[0]], SamplingParams(max_new_tokens=2))
+    torch.cuda.synchronize()
+
+    eager, graphed = drive_both(torch, llm, prompts, params, "rwkv6-7b")
+    check_rwkv_launches(eager[2], eager[3], "rwkv6-7b eager")
+    check_rwkv_launches(graphed[2], graphed[3], "rwkv6-7b graphed")
+    check(graphed[2]["fused_argmax_head"] == graphed[3]["decode_steps"]
+          + graphed[3]["prefills"] > 0, "rwkv6-7b: argmax launches != "
+          "decode steps + prefills")
+    again, = drive_replays(torch, llm, prompts, params, "rwkv6-7b", graphed,
+                           more=1)
+    check_rwkv_launches(again[2], again[3], "rwkv6-7b graphed run 2")
+    outs = graphed[0]
+    for o in outs:
+        check(1 <= len(o.token_ids) <= max_new
+              and o.finish_reason in ("length", "eos")
+              and all(0 <= x < cfg.vocab_size for x in o.token_ids),
+              f"rwkv6-7b: bad output for rid {o.rid}: {o.finish_reason} "
+              f"{o.token_ids}")
+    summary = {
+        "eager": main_line("rwkv6-7b, eager", eager[0], eager[3], eager[4]),
+        "graph_first_run": main_line("rwkv6-7b, graphed run 1", outs,
+                                     graphed[3], graphed[4]),
+        "graph": main_line("rwkv6-7b, graphed run 2 (replays only)",
+                           again[0], again[3], again[4])}
+    bound_ms = wbytes / HBM_BYTES_PER_S * 1e3
+    for k in ("eager", "graph"):
+        ms = summary[k]["decode_ms"]
+        print(f"rwkv6-7b {k} decode step: {ms:.3f} ms against a bound of "
+              f"{bound_ms:.3f} ms (every weight read once: "
+              f"{wbytes / 1e9:.3f} GB at {HBM_BYTES_PER_S / 1e12:.2f} "
+              f"TB/s): {ms / bound_ms:.2f}x", flush=True)
+    summary.update(step_bound_ms=bound_ms, weights_gb=wbytes / 1e9,
+                   state_mb=state / 1e6, built_s=built_s,
+                   built_peak_gb=built_peak / 1e9, graphs=graph_line(llm),
+                   prompt_tokens=[len(p) for p in prompts])
+    check_theorem1(torch, llm, prompts, outs, max_new,
+                   what="rwkv6-7b theorem 1", max_len=RW_MAX_LEN)
+    sampled_launches, summary["sampled"] = run_sampled_path(
+        torch, llm, prompts, outs, max_new, what="rwkv6-7b sampled")
+    summary["sampled"]["launches"] = sampled_launches
+
+    try:
+        llm.generate([prompts[0]], SamplingParams(max_new_tokens=4,
+                                                  spec_k=4))
+        refused = None
+    except ValueError as e:
+        refused = str(e)
+    print(f"rwkv6-7b spec_k=4: refused: {refused}", flush=True)
+    check(refused is not None and "rewound" in refused,
+          "rwkv6-7b: spec_k was not refused")
+    kw = {"chunk_size": 64, "host_stride": 8}
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        e = LLM(eng.params, cfg, n_slots=8, max_len=RW_MAX_LEN, seed=0,
+                **kw)
+    for what in ("chunk_size=64 ignored", "host_stride=8 ignored"):
+        check(any(what in str(c.message) for c in caught),
+              f"rwkv6-7b {kw}: no '{what}' warning")
+    check(e.engine.chunk_size is None and e.engine.host_stride is None
+          and not e.engine.prefix_cache,
+          f"rwkv6-7b {kw}: the modes were not dropped")
+    run = drive_graphed(torch, e, prompts, params, f"rwkv6-7b {kw}")
+    check_rwkv_launches(run[2], run[3], f"rwkv6-7b {kw}")
+    summary["fallback_identical"] = compare_streams(
+        torch, llm, prompts, outs, run[0],
+        f"rwkv6-7b {kw} (fallen back) vs the main run")
+    del e, run
+    long = np.random.default_rng(30).integers(0, cfg.vocab_size, size=1024)
+    summary["ttft_long"] = rg_prefill_profile(
+        torch, llm, long.astype(np.int32), module=rwkv6, scan="wkv_scan",
+        name="rwkv6-7b")
+
+    f32 = dataclasses.replace(cfg, dtype="float32")
+    masters = seeded_params(f32, 0, "cuda")
+    same_tree = all(torch.equal(m.to(torch.bfloat16), b) for m, b in zip(
+        _leaves(masters), _leaves(eng.params)))
+    print(f"rwkv6-7b: seeded_params(seed 0) on the card cast to bf16 == "
+          f"LLM.from_arch's tree: {same_tree}", flush=True)
+    check(same_tree, "rwkv6-7b: from_arch's tree is not the seed's")
+    twin = LLM(masters, f32, n_slots=8, max_len=RW_MAX_LEN, seed=0)
+    del masters
+    trun = drive_graphed(torch, twin, prompts, params, "rwkv6-7b f32 twin")
+    check(trun[6] > 0, "rwkv6-7b f32 twin: no replay")
+    check_rwkv_launches(trun[2], trun[3], "rwkv6-7b f32 twin")
+    summary["f32"] = rg_replay_f32(torch, twin, prompts, trun[0], max_new,
+                                   name="rwkv6-7b")
+    summary["bf16_vs_f32"] = rg_bf16_partings(torch, llm, twin, prompts,
+                                              trun[0], outs,
+                                              name="rwkv6-7b")
+    del twin, trun
+    summary["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    print(f"rwkv6-7b phase peak memory: {summary['peak_memory_gb']:.3f} GB "
+          "allocated (torch.cuda.max_memory_allocated)", flush=True)
+    return summary, graphed[2], sampled_launches
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -5486,6 +5972,7 @@ def main() -> int:
         head_invariance = check_head_invariance(torch)
         wide_rows = check_wide_heads(torch, timer)
         flash_rows, fa_routes = check_flash_attention(torch, timer)
+        rg_route = rg_flash_route(torch)
         unit_rows = check_softmax_units(torch, timer)
         unit_invariance = check_unit_invariance(torch)
         many_errs, many_route = check_many_rows(torch)
@@ -5576,11 +6063,19 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
         timer = Timer(torch)
-        rg_rows = check_rg_kernels(torch, timer)
+        rg_rows = check_rg_kernels(torch, timer, rg_route)
         del timer
         summary["recurrentgemma_2b"], rg_launches = \
             run_recurrentgemma_path(torch)
         mark("phase 4l")
+        # phase 4m: rwkv6-7b, on a card every earlier engine left
+        gc.collect()
+        torch.cuda.empty_cache()
+        timer = Timer(torch)
+        rw_rows = check_rwkv_kernels(torch, timer)
+        del timer
+        summary["rwkv6_7b"], rw_launches, rw_sampled = run_rwkv_path(torch)
+        mark("phase 4m")
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1
@@ -5602,6 +6097,11 @@ def main() -> int:
              routes=pa_routes, invariance=invariance,
              starcoder2_launches=sc2_launches["paged_attention"],
              recurrentgemma_launches=rg_launches["paged_attention"],
+             rwkv6_launches=rw_launches["paged_attention"],
+             tp_router_launches=summary["tp"]["tp4"]["router"]["launches"][
+                 "paged_attention"],
+             tp_http_launches=summary["tp"]["tp2"]["http"]["launches"][
+                 "paged_attention"],
              starcoder2_t1={k: sc2_rows["paged_t1"][k]
                             for k in TIMES + ("chunks", "max_abs_err")},
              starcoder2_t64={k: sc2_rows["paged_t64"][k]
@@ -5646,7 +6146,7 @@ def main() -> int:
              max_abs_err=max(r["max_abs_err"] for r in [
                  *head_rows.values(), wide_rows["argmax_B1"],
                  wide_rows["argmax_B8"], sc2_rows["argmax_b8"],
-                 rg_rows["argmax_b8"]]),
+                 rg_rows["argmax_b8"], rw_rows["argmax_b8"]]),
              **{k: head_rows[8][k] for k in TIMES},
              b1={k: head_rows[1][k] for k in TIMES},
              b64={k: head_rows[64][k] for k in TIMES},
@@ -5665,14 +6165,21 @@ def main() -> int:
                                    for k in TIMES + ("max_abs_err",)},
              recurrentgemma_launches=rg_launches["fused_argmax_head"],
              recurrentgemma_tied_b8={k: rg_rows["argmax_b8"][k]
-                                     for k in TIMES + ("max_abs_err",)}),
+                                     for k in TIMES + ("max_abs_err",)},
+             rwkv6_launches=rw_launches["fused_argmax_head"],
+             rwkv6_untied_b8={k: rw_rows["argmax_b8"][k]
+                              for k in TIMES + ("max_abs_err",)},
+             tp_router_launches=summary["tp"]["tp4"]["router"]["launches"][
+                 "fused_argmax_head"],
+             tp_http_launches=summary["tp"]["tp2"]["http"]["launches"][
+                 "fused_argmax_head"]),
         dict(name="fused_topk_head", route="cuda",
              source="src/repro_torch/kernels/csrc/fused_topk_head.cu",
              replaces="src/repro/kernels/fused_topk_head.py:107",
              launches=topk_launches["fused_topk_head"],
              max_abs_err=max(r["max_abs_err"] for r in [
                  *topk_rows.values(), wide_rows["topk_B8_k8"],
-                 sc2_rows["topk_b4_k8"]]),
+                 sc2_rows["topk_b4_k8"], rw_rows["topk_b4_k8"]]),
              **{k: topk_rows[(4, 8)][k] for k in TIMES},
              k64={k: topk_rows[(4, 64)][k] for k in TIMES},
              passes=topk_passes, d18432=wide_rows["topk_B8_k8"],
@@ -5682,7 +6189,10 @@ def main() -> int:
              tp_launches={str(w): summary["tp"][f"tp{w}"]["launches"][
                  "mixed_f32"]["fused_topk_head"] for w in TP_WORLDS},
              starcoder2_untied_b4_k8={k: sc2_rows["topk_b4_k8"][k]
-                                      for k in TIMES + ("max_abs_err",)}),
+                                      for k in TIMES + ("max_abs_err",)},
+             rwkv6_sampled_launches=rw_sampled["fused_topk_head"],
+             rwkv6_untied_b4_k8={k: rw_rows["topk_b4_k8"][k]
+                                 for k in TIMES + ("max_abs_err",)}),
         dict(name="fused_verify_head", route="cuda",
              source="src/repro_torch/kernels/csrc/fused_argmax_head.cu",
              replaces="src/repro/kernels/fused_topk_head.py:170",
@@ -5701,7 +6211,8 @@ def main() -> int:
              tp_launches={str(w): summary["tp"][f"tp{w}"]["launches"][
                  "spec4_f32"]["fused_verify_head"] for w in TP_WORLDS},
              starcoder2_untied_b8_t8={k: sc2_rows["verify_b8_t8"][k]
-                                      for k in TIMES}),
+                                      for k in TIMES},
+             rwkv6_launches=rw_launches["fused_verify_head"]),
         dict(name="flash_attention", route="cuda",
              source="src/repro_torch/kernels/csrc/flash_attention.cu",
              replaces="src/repro/kernels/flash_attention.py:76",
@@ -5720,6 +6231,7 @@ def main() -> int:
              starcoder2_t512_g9={k: sc2_rows["flash_t512_g9"][k]
                                  for k in TIMES + ("max_abs_err",)},
              recurrentgemma_launches=rg_launches["flash_attention"],
+             rwkv6_launches=rw_launches["flash_attention"],
              recurrentgemma_t2150_g10_hd256_w2048={
                  k: rg_rows["flash_t2150_g10_hd256"][k]
                  for k in TIMES + ("max_abs_err", "route")}),

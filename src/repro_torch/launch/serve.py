@@ -43,9 +43,15 @@ draws the same host weights from ``--seed``, keeps its slice and runs
 the same batch, rank 0 prints.  ``--head-mode sharded`` without ``--tp``
 keeps the trunk whole and splits the head over the group (a group of one
 rank outside torchrun).  ``--replicas N`` serves the batch, or the HTTP
-frontend, through the multi-replica ``serve.router.Router``.  HTTP under
-``--tp`` > 1 is refused (``NotImplementedError``): its submissions would
-have to flow through the ranks' control plane.
+frontend, through the multi-replica ``serve.router.Router``; with
+``--tp T`` too, torchrun starts ``N x T`` ranks and replica r is ranks
+``[r T, (r + 1) T)`` (the rank-group router: world rank 0 routes and
+prints).  ``--serve-http`` under ``--tp``: rank 0 serves HTTP and pumps,
+every other rank follows its ticks until rank 0 stops.
+
+  python -m torch.distributed.run --nproc-per-node 4 \
+      -m repro_torch.launch.serve --arch qwen3-0.6b --tp 2 --replicas 2 \
+      [--serve-http 8000]
 """
 from __future__ import annotations
 
@@ -161,11 +167,6 @@ def main(argv=None) -> dict:
     if args.replicas < 1:
         raise SystemExit(f"--replicas {args.replicas}: must be >= 1")
     tp = args.tp or 1
-    if args.serve_http is not None and tp > 1:
-        raise NotImplementedError(
-            f"--serve-http with --tp {tp}: HTTP submissions would have to "
-            "flow through the ranks' control plane, which only the batch "
-            "run and generate/stream on every rank drive so far")
     group = None
     if tp > 1 or args.head_mode == "sharded":
         group = comm.Group.from_env(device=args.device)
@@ -185,7 +186,8 @@ def _serve(args, group):
     if args.replicas > 1:
         from repro_torch.serve.router import Router
 
-        kw.pop("group")
+        if (args.tp or 1) == 1:
+            kw.pop("group")      # unsharded replicas in this process
         front = Router(params, cfg, replicas=args.replicas, **kw)
     elif args.serve_http is not None:
         from repro_torch.serve.api import LLM
@@ -208,8 +210,11 @@ def _serve(args, group):
             top_k=args.top_k, temperature=args.temperature,
             head_mode=args.head_mode))
         snap = front.stats
+        if not getattr(front, "leader", True):
+            return snap
         print(f"sampler={sampler} device={args.device} replicas="
-              f"{args.replicas} routed={[r.served for r in front.replicas]} "
+              f"{args.replicas} tp={args.tp or 1} "
+              f"routed={[r.served for r in front.replicas]} "
               f"served={snap['completed']} decode_steps="
               f"{snap['decode_steps']} wall={time.perf_counter() - t0:.2f}s",
               flush=True)

@@ -34,6 +34,22 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor,
     return (y * (1.0 + scale.float())).to(x.dtype)
 
 
+def group_norm_heads(x: torch.Tensor, scale: torch.Tensor, n_heads: int,
+                     eps: float = 64e-5) -> torch.Tensor:
+    """Per-head group norm (RWKV's ``ln_x``) over x (..., H * hd), in f32
+    cast back; eps fixed at 64e-5, not the config's.  Both means
+    accumulate in f64, as ``rms_norm``'s, so a row's bits do not follow
+    its batch-mates."""
+    shp = x.shape
+    xf = x.float().reshape(*shp[:-1], n_heads, -1)
+    mu = torch.mean(xf, dim=-1, keepdim=True, dtype=torch.float64).float()
+    c = xf - mu
+    var = torch.mean(c * c, dim=-1, keepdim=True,
+                     dtype=torch.float64).float()
+    y = c * torch.rsqrt(var + eps)
+    return (y.reshape(shp) * scale.float()).to(x.dtype)
+
+
 def rope_freqs(head_dim: int, theta: float, device) -> torch.Tensor:
     exps = torch.arange(0, head_dim, 2, dtype=torch.float32,
                         device=device) / head_dim

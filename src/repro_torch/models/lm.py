@@ -1,21 +1,24 @@
 """Model assembly: embed, the block program's layers, the head.
 
-Counterpart of ``repro.models.lm`` for the ``dense`` and ``hybrid``
-families.  A config lowers to a block program (``segments``): a list of
-``(unit, count)``, the unit a tuple of layer kinds -- ``attn``
-(self-attention + MLP) or ``rec`` (the RG-LRU block + MLP,
-``models.rglru``) -- repeated ``count`` times.  Params are the stacked
+Counterpart of ``repro.models.lm`` for the ``dense``, ``hybrid`` and
+``ssm`` families.  A config lowers to a block program (``segments``): a
+list of ``(unit, count)``, the unit a tuple of layer kinds -- ``attn``
+(self-attention + MLP), ``rec`` (the RG-LRU block + MLP,
+``models.rglru``) or ``rwkv`` (the RWKV6 time-mix + channel-mix layer,
+``models.rwkv6``) -- repeated ``count`` times.  Params are the stacked
 tree of ``repro_torch.weights`` (one dict per segment, each slot's
 leaves with a leading axis of ``count``), already cast to the compute
 dtype; the JAX package's ``lax.scan`` over a segment is a Python loop
 indexing ``[l]``.
 
 Caches keep the JAX tree structure, per segment ``{"slot{j}": {"attn":
-{"k", "v"}} or {"rec": {"conv", "h"}}}``: a prefill returns dense
+{"k", "v"}}, {"rec": {"conv", "h"}} or {"shift1", "shift2", "wkv"}}``
+(an ``rwkv`` slot's cache is its state itself): a prefill returns dense
 leaves -- K/V ``(count, B, S, Hkv, hd)`` with S = ``max_len``, or
 ``min(max_len, window)`` for an architecture window (the ring buffer,
-position p at row p % window), and the recurrent state ``(count, B, w -
-1, lru)`` / ``(count, B, lru)`` f32; a decode step takes either the
+position p at row p % window), the RG-LRU state ``(count, B, w - 1,
+lru)`` / ``(count, B, lru)`` f32, the RWKV6 shifts ``(count, B, D)`` and
+``wkv`` ``(count, B, H, hd, hd)`` f32; a decode step takes either the
 paged store's ``(L, num_blocks, bs, Hkv, hd)`` pools (with block tables;
 the dense family) or dense leaves with N cache rows, and writes them in
 place.
@@ -37,9 +40,9 @@ from typing import Optional
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import rglru
-from repro_torch.models.layers import (attention, mlp, rms_norm,
-                                      step_constants)
+from repro_torch.models import rglru, rwkv6
+from repro_torch.models.layers import (StepConstants, attention, mlp,
+                                      rms_norm, step_constants)
 from repro_torch.weights import dtype_of
 
 
@@ -50,6 +53,8 @@ def segments(cfg: ModelConfig):
     L = cfg.n_layers
     if cfg.family == "dense":
         return [(("attn",), L)]
+    if cfg.family == "ssm":
+        return [(("rwkv",), L)]
     if cfg.family == "hybrid":
         pat = tuple(cfg.hybrid_pattern)
         full, rem = divmod(L, len(pat))
@@ -58,7 +63,7 @@ def segments(cfg: ModelConfig):
             segs.append((pat[:rem], 1))
         return segs
     raise NotImplementedError(
-        f"family {cfg.family!r}: the port serves the dense and hybrid "
+        f"family {cfg.family!r}: the port serves the dense, hybrid and ssm "
         "families")
 
 
@@ -156,9 +161,13 @@ def _apply_layer(p: dict, x: torch.Tensor, cfg: ModelConfig, kind: str, *,
     """One decoder layer of ``kind``; with ``group`` (a split trunk) the
     row-parallel outputs of ``wo`` and ``w_out`` are summed over the
     ranks.  Returns (x, extra): an ``attn`` layer's ``attention`` extra,
-    a ``rec`` layer's new state."""
+    a ``rec`` or ``rwkv`` layer's new state."""
+    if kind == "rwkv":
+        return _recurrent(rwkv6.init_state, rwkv6.rwkv_block, p, x, cfg,
+                          consts, cache)
     if kind == "rec":
-        x, extra = _recurrent(p["rec"], x, cfg, consts, cache)
+        x, extra = _recurrent(rglru.init_state, rglru.rglru_block, p["rec"],
+                              x, cfg, consts, cache)
         h = mlp(p["mlp"], rms_norm(x, p["ln2"], cfg.norm_eps),
                 cfg.activation)
         return x + h, extra
@@ -174,24 +183,25 @@ def _apply_layer(p: dict, x: torch.Tensor, cfg: ModelConfig, kind: str, *,
     return x + h, extra
 
 
-def _recurrent(p: dict, x: torch.Tensor, cfg: ModelConfig, consts,
-               cache: Optional[dict]):
-    """The RG-LRU block of a ``rec`` layer.  Without ``cache`` (prefill,
-    ``forward``) from a zero state; returns (x, the new state).  With
-    ``cache`` -- the layer's ``{"conv", "h"}`` leaves over N cache rows
-    -- a decode step: every row's old state is gathered (``consts.rows``,
-    default row b for batch row b) before any is written, then the new
-    state goes back to the same rows in place.  A padding row repeats a
-    live row's slot, token and state, so it writes the identical new
-    state to the identical row, and no row advances twice."""
+def _recurrent(init_state, block, p: dict, x: torch.Tensor,
+               cfg: ModelConfig, consts, cache: Optional[dict]):
+    """A recurrent ``block`` (``rglru.rglru_block`` of a ``rec`` layer,
+    ``rwkv6.rwkv_block`` of an ``rwkv`` layer).  Without ``cache``
+    (prefill, ``forward``) from a zero state (``init_state``); returns
+    (x, the new state).  With ``cache`` -- the layer's state leaves over N
+    cache rows -- a decode step: every row's old state is gathered
+    (``consts.rows``, default row b for batch row b) before any is
+    written, then the new state goes back to the same rows in place, cast
+    to each leaf's dtype.  A padding row repeats a live row's slot, token
+    and state, so it writes the identical new state to the identical row,
+    and no row advances twice."""
     B = x.shape[0]
     if cache is None:
-        state = rglru.init_state(cfg, (B,), x.dtype, x.device)
-        return rglru.rglru_block(p, x, cfg, state)
+        return block(p, x, cfg, init_state(cfg, (B,), x.dtype, x.device))
     rows = consts.rows if consts.rows is not None else torch.arange(
         B, device=x.device)
     old = {name: leaf[rows] for name, leaf in cache.items()}
-    x, new = rglru.rglru_block(p, x, cfg, old)
+    x, new = block(p, x, cfg, old)
     for name, leaf in cache.items():
         leaf.index_put_((rows,), new[name].to(leaf.dtype))
     return x, cache
@@ -201,9 +211,10 @@ def init_cache(cfg: ModelConfig, batch_size: int, max_len: int,
                device) -> list:
     """Fresh dense cache tree: per segment, each slot's ``{"attn": {"k",
     "v"}}`` with ``(count, B, S, Hkv, hd)`` leaves (S = ``max_len``, or
-    ``min(max_len, window)`` under an architecture window), or ``{"rec":
+    ``min(max_len, window)`` under an architecture window), ``{"rec":
     {"conv", "h"}}`` with ``(count, B, w - 1, lru)`` / ``(count, B,
-    lru)`` f32 leaves, zeros."""
+    lru)`` f32 leaves, or an ``rwkv`` slot's ``{"shift1", "shift2",
+    "wkv"}`` (``rwkv6.init_state`` over (count, B)), zeros."""
     dt = dtype_of(cfg)
     w = cfg.attention_window
     rows = max_len if w is None else min(max_len, w)    # w: a ring buffer
@@ -214,6 +225,10 @@ def init_cache(cfg: ModelConfig, batch_size: int, max_len: int,
             if kind == "rec":
                 seg[f"slot{j}"] = {"rec": rglru.init_state(
                     cfg, (count, batch_size), dt, device)}
+                continue
+            if kind == "rwkv":
+                seg[f"slot{j}"] = rwkv6.init_state(
+                    cfg, (count, batch_size), dt, device)
                 continue
             shape = (count, batch_size, rows, cfg.n_kv_heads, cfg.head_dim)
             seg[f"slot{j}"] = {"attn": {
@@ -280,8 +295,9 @@ def prefill(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
     for p, (s, l, slot), kind in _layers(params, cfg, None):
         x, extra = _apply_layer(p, x, cfg, kind, consts=consts, group=group)
         leaf = caches[s][slot]
-        if kind == "rec":
-            for name, t in leaf["rec"].items():
+        if kind in ("rec", "rwkv"):
+            state = leaf["rec"] if kind == "rec" else leaf
+            for name, t in state.items():
                 t[l] = extra[name]
         else:
             _store_kv(leaf["attn"], l, *extra, cfg)
@@ -289,14 +305,15 @@ def prefill(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
     return h, caches
 
 
-def _first_kv(caches: list, cfg: ModelConfig) -> torch.Tensor:
+def _first_kv(caches: list, cfg: ModelConfig) -> Optional[torch.Tensor]:
     """An ``attn`` layer's K leaf (pools or dense), whose shape says what
-    the step's cache indices are."""
+    the step's cache indices are; None for a config with no attention
+    layer (``ssm``)."""
     for seg, (unit, _) in zip(caches, segments(cfg)):
         for j, kind in enumerate(unit):
             if kind == "attn":
                 return seg[f"slot{j}"]["attn"]["k"]
-    raise ValueError(f"{cfg.name}: no attention layer")
+    return None
 
 
 def decode_step(params: dict, cfg: ModelConfig, token: torch.Tensor,
@@ -329,7 +346,10 @@ def decode_step(params: dict, cfg: ModelConfig, token: torch.Tensor,
         raise ValueError(f"pos must be a scalar, (B,) or (B, T); got "
                          f"{tuple(pos.shape)}")
     leaf = _first_kv(caches, cfg)
-    if block_tables is not None:
+    if leaf is None:
+        # no attention layer: no RoPE table, no cache cells, only the rows
+        consts = StepConstants(None, None, rows=cache_rows)
+    elif block_tables is not None:
         consts = step_constants(cfg, positions, cache_pos=pos,
                                 block_tables=block_tables,
                                 block_size=leaf.shape[2])
@@ -340,7 +360,9 @@ def decode_step(params: dict, cfg: ModelConfig, token: torch.Tensor,
     x = embed_tokens(params, cfg, token)
     group = _trunk_group(cfg)
     for p, (s, l, slot), kind in _layers(params, cfg, layers):
-        leaf = caches[s][slot]["rec" if kind == "rec" else "attn"]
+        leaf = caches[s][slot]
+        if kind != "rwkv":
+            leaf = leaf["rec" if kind == "rec" else "attn"]
         x, _ = _apply_layer(p, x, cfg, kind, consts=consts, cache={
             name: t[l] for name, t in leaf.items()}, group=group)
     if T == 1:

@@ -14,10 +14,17 @@ per rank (SPMD) with the collectives outside the kernels, over
                  one card, several ranks share it over gloo)
 
 Collectives: ``all_gather`` (stacked along a new leading rank axis),
-``all_reduce_sum`` (in place) and ``broadcast_object`` (a pickled object
+``all_reduce_sum`` (in place), ``broadcast_object`` (a pickled object
 from rank 0 over a separate CPU gloo group, the control plane, so host
-messages never queue behind device traffic).  ``agree`` all-gathers one
-int64 per rank over that control group and raises when they differ.
+messages never queue behind device traffic) and ``gather_object`` (every
+rank's object on rank 0, over the same group).  ``agree`` all-gathers
+one int64 per rank over that control group and raises when they differ.
+
+``split(size)`` cuts a group into groups of ``size`` consecutive ranks
+(``torch.distributed.new_group``, a data group and a control group
+each): the rank groups of ``serve.router.Router(tp=)``, one a replica,
+whose collectives never involve another replica's ranks.  Every
+collective of a group waits at most its ``timeout_s``.
 
 ``bytes`` counts the bytes every collective left on this rank, by the
 kind its caller names (``"trunk"``, ``"embed"``, ``"head"``,
@@ -32,7 +39,7 @@ from __future__ import annotations
 import datetime
 import os
 import pickle
-from typing import Any, Dict, Optional
+from typing import Any, Dict, List, Optional, Sequence
 
 import torch
 import torch.distributed as dist
@@ -75,11 +82,18 @@ class Group:
     ``Group.from_env`` (torchrun's environment)."""
 
     def __init__(self, rank: int, world: int, device: torch.device,
-                 backend: str, control):
+                 backend: str, control, *, data=None,
+                 ranks: Optional[Sequence[int]] = None,
+                 timeout_s: float = DEFAULT_TIMEOUT_S):
         self.rank = rank
         self.world = world
         self.device = device
         self.backend = backend
+        # the members' ranks in the default process group (a split
+        # group's are a slice of it); ``data`` None is that default group
+        self.ranks = tuple(range(world)) if ranks is None else tuple(ranks)
+        self.timeout_s = float(timeout_s)
+        self._data = data
         self._control = control
         self.bytes: Dict[str, int] = {}
 
@@ -106,7 +120,7 @@ class Group:
             kw["init_method"] = init_method
         dist.init_process_group(**kw)
         control = dist.new_group(backend="gloo")
-        return cls(rank, world, dev, backend, control)
+        return cls(rank, world, dev, backend, control, timeout_s=timeout_s)
 
     @classmethod
     def from_env(cls, device="cuda", **kw) -> "Group":
@@ -122,8 +136,31 @@ class Group:
                         local_world=int(os.environ.get("LOCAL_WORLD_SIZE",
                                                        world)), **kw)
 
+    def split(self, size: int, *,
+              timeout_s: Optional[float] = None) -> "Group":
+        """This group cut into ``world // size`` groups of ``size``
+        consecutive ranks; returns this rank's.  Every rank of the group
+        calls it, in the same order (``new_group`` is collective over the
+        default process group).  ``timeout_s`` defaults to this group's."""
+        if size < 1 or self.world % size:
+            raise ValueError(f"split({size}): a group of {self.world} ranks "
+                             "does not cut into groups of that size")
+        timeout_s = self.timeout_s if timeout_s is None else timeout_s
+        td = datetime.timedelta(seconds=timeout_s)
+        mine = None
+        for lo in range(0, self.world, size):
+            ranks = list(self.ranks[lo:lo + size])
+            data = dist.new_group(ranks, timeout=td, backend=self.backend)
+            control = dist.new_group(ranks, timeout=td, backend="gloo")
+            if lo <= self.rank < lo + size:
+                mine = Group(self.rank - lo, size, self.device, self.backend,
+                             control, data=data, ranks=ranks,
+                             timeout_s=timeout_s)
+        return mine
+
     def close(self) -> None:
-        """Leave the group (the default process group included)."""
+        """Leave the default process group, and with it every group split
+        from it."""
         if dist.is_initialized():
             dist.destroy_process_group()
 
@@ -134,7 +171,7 @@ class Group:
         """Every rank's ``x`` stacked in rank order: (world, *x.shape)."""
         x = x.contiguous()
         parts = [torch.empty_like(x) for _ in range(self.world)]
-        dist.all_gather(parts, x)
+        dist.all_gather(parts, x, group=self._data)
         out = torch.stack(parts)
         self._count(kind, out.numel() * out.element_size())
         return out
@@ -142,7 +179,7 @@ class Group:
     def all_reduce_sum(self, x: torch.Tensor, kind: str) -> torch.Tensor:
         """Sum ``x`` over the ranks, in place; returns ``x``.  Every rank
         gets the same bits."""
-        dist.all_reduce(x, op=dist.ReduceOp.SUM)
+        dist.all_reduce(x, op=dist.ReduceOp.SUM, group=self._data)
         self._count(kind, x.numel() * x.element_size())
         return x
 
@@ -150,9 +187,18 @@ class Group:
         """Rank ``src``'s ``obj`` on every rank (pickled, over the control
         group)."""
         box = [obj if self.rank == src else None]
-        dist.broadcast_object_list(box, src=src, group=self._control)
+        dist.broadcast_object_list(box, src=self.ranks[src],
+                                   group=self._control)
         self._count("control", len(pickle.dumps(box[0])))
         return box[0]
+
+    def gather_object(self, obj: Any) -> Optional[List[Any]]:
+        """Every rank's ``obj`` in rank order on rank 0, None elsewhere
+        (pickled, over the control group)."""
+        out = [None] * self.world if self.rank == 0 else None
+        dist.gather_object(obj, out, dst=self.ranks[0], group=self._control)
+        self._count("control", len(pickle.dumps(obj)))
+        return out
 
     def agree(self, value: int, what: str) -> None:
         """All-gather one int64 per rank over the control group; raise

@@ -184,9 +184,9 @@ def run_probe(params, cfg, prompts, *,
     against the exact baseline (plus per-layer score error when
     ``score_probe``).  ``engine_kwargs`` pass through to ``ServeEngine``
     (``kv_layout='dense'`` has no paged path, nor has a windowed config
-    such as the hybrid family's recurrentgemma, so its first approximate
-    arm, or any ``window``, raises ``ValueError``, as the reference's
-    engine does); ``window`` applies to every arm, the baseline
+    such as the hybrid family's recurrentgemma or an attention-free one
+    such as rwkv6, so its first approximate arm, or any ``window``,
+    raises ``ValueError``, as the reference's engine does); ``window`` applies to every arm, the baseline
     included, so the report isolates the score function's effect at that
     window."""
     variants = list(variants)

@@ -29,6 +29,16 @@ background pump (``start_pump``) steps the engine whenever work is
 pending — the mode the HTTP server runs in, where handler threads only
 submit and read per-request queues; without a pump, ``generate`` and
 ``stream`` drive the engine inline from the calling thread.
+
+Under tensor parallelism the pump runs on rank 0 (``leader``) and every
+other rank of the group runs ``follow``.  Each tick of rank 0's pump
+broadcasts one control message over the group's control plane --
+``"step"``, ``"idle"`` or ``"stop"`` --, and a follower steps its
+engine when told to step and returns when told to stop; the step's own
+broadcast (``ServeEngine._sync``) carries the new requests.  An idle
+pump still sends ``"idle"`` every quarter of the group's timeout, so a
+follower waiting on the next message never reaches that timeout while
+rank 0 lives, and does within it once rank 0 is gone.
 """
 from __future__ import annotations
 
@@ -54,6 +64,31 @@ def _is_single_prompt(prompts) -> bool:
     if isinstance(prompts, np.ndarray):
         return prompts.ndim == 1
     return bool(prompts) and isinstance(prompts[0], (int, np.integer))
+
+
+def check_prompt(engine: ServeEngine, prompt: PromptLike) -> np.ndarray:
+    """The prompt as an int32 copy, or ``ValueError`` for one the engine
+    must never see: ids outside the vocabulary (they would index past
+    the embedding), or a prompt the pool could never cover (it would
+    reach the queue head and MemoryError the engine, killing a
+    background pump).  The pool bound is chunk-aware: chunked admission
+    allocates as it goes, so only the final residency must fit."""
+    prompt = np.asarray(prompt, np.int32).copy()
+    vocab = engine.cfg.vocab_size
+    if prompt.size and (int(prompt.min()) < 0 or int(prompt.max()) >= vocab):
+        raise ValueError(
+            f"prompt token ids must be in [0, {vocab}); got "
+            f"[{int(prompt.min())}, {int(prompt.max())}]")
+    if not engine.store.can_ever_admit(len(prompt), engine.chunk_size):
+        store = engine.store
+        raise ValueError(
+            f"prompt of {len(prompt)} tokens can never be admitted: KV pool "
+            f"is {store.allocator.num_blocks} x {store.block_size}-token "
+            "blocks"
+            + ("" if engine.chunk_size is not None else
+               " (one-shot admission; a chunk_size= engine admits up to "
+               "one block more)"))
+    return prompt
 
 
 class LLM:
@@ -86,6 +121,7 @@ class LLM:
         self._pump_thread: Optional[threading.Thread] = None
         self._pump_stop = threading.Event()
         self._pump_error: Optional[BaseException] = None
+        self._wake = threading.Event()     # a submission for the pump
         self.engine.add_consumer(self._on_chunk)
 
     @classmethod
@@ -139,43 +175,91 @@ class LLM:
         t = self._pump_thread
         return t is not None and t.is_alive()
 
+    @property
+    def leader(self) -> bool:
+        """Whether this process runs the pump: always, but on a rank of
+        several only rank 0 (the others ``follow``)."""
+        return not self.engine._spmd or self.engine.group.rank == 0
+
     def start_pump(self, idle_wait: float = 0.005) -> None:
         """Run the engine from a background thread: step whenever work
         is pending, nap when idle.  The HTTP server's mode — handler
-        threads submit and read queues; nobody steps inline."""
+        threads submit and read queues; nobody steps inline.  On a rank
+        of several, rank 0's pump also tells the other ranks each tick
+        (the module docstring); they run ``follow``."""
         if self._pumping:
             return
-        if self.engine._spmd:
-            raise NotImplementedError(
-                "a background pump on a rank of several: every rank must step "
-                "in lockstep, and submissions would have to flow through "
-                "the control plane; drive generate/stream on every rank")
+        if not self.leader:
+            raise RuntimeError(
+                f"rank {self.engine.group.rank} of a tp group steps when "
+                "rank 0's pump says: call follow(), not start_pump()")
         self._pump_stop.clear()
         self._pump_error = None        # a fresh pump starts healthy
+        group = self.engine.group if self.engine._spmd else None
 
         def loop():
+            beat = None if group is None else group.timeout_s / 4
+            last = time.monotonic()
             while not self._pump_stop.is_set():
                 try:
                     with self._lock:
                         busy = self.engine.has_work
+                        if group is not None and (
+                                busy or time.monotonic() - last >= beat):
+                            group.broadcast_object("step" if busy
+                                                   else "idle")
+                            last = time.monotonic()
                         if busy:
                             self.engine.step()
                 except BaseException as e:   # surfaced by waiters, not lost
                     self._pump_error = e
                     return
-                if not busy:
+                if busy:
+                    continue
+                if group is None:
                     self._pump_stop.wait(idle_wait)
+                else:
+                    # woken by a submission or stop_pump, else at the beat
+                    self._wake.wait(max(0.0, beat - (time.monotonic()
+                                                     - last)))
+                    self._wake.clear()
+            if group is not None:
+                try:
+                    with self._lock:
+                        group.broadcast_object("stop")
+                except BaseException as e:
+                    self._pump_error = e
 
         self._pump_thread = threading.Thread(
             target=loop, name="llm-engine-pump", daemon=True)
         self._pump_thread.start()
 
     def stop_pump(self) -> None:
+        """Stop the pump; on a rank of several its last message tells
+        the followers to return."""
         if self._pump_thread is None:
             return
         self._pump_stop.set()
+        self._wake.set()
         self._pump_thread.join()
         self._pump_thread = None
+
+    def follow(self) -> None:
+        """A rank other than 0 of a tp group, while rank 0 runs the pump:
+        step the engine whenever rank 0's pump says ``"step"``, wait again
+        on ``"idle"``, return on ``"stop"``.  A collective that reaches
+        the group's timeout (rank 0 gone) raises."""
+        if self.leader:
+            raise RuntimeError("follow() is for ranks other than 0 of a tp "
+                               "group; rank 0 runs start_pump()")
+        group = self.engine.group
+        while True:
+            op = group.broadcast_object(None)
+            if op == "stop":
+                return
+            if op == "step":
+                with self._lock:
+                    self.engine.step()
 
     # -- submission ----------------------------------------------------------
     def submit(self, prompt: PromptLike,
@@ -184,32 +268,10 @@ class LLM:
         assigned by the facade).  Most callers want generate/stream."""
         params = params if params is not None else SamplingParams()
         with self._lock:
-            prompt = np.asarray(prompt, np.int32).copy()
-            # out-of-range ids would index past the embedding; the
-            # frontend rejects them loudly instead
-            if prompt.size and (int(prompt.min()) < 0
-                                or int(prompt.max()) >= self.cfg.vocab_size):
-                raise ValueError(
-                    f"prompt token ids must be in [0, "
-                    f"{self.cfg.vocab_size}); got "
-                    f"[{int(prompt.min())}, {int(prompt.max())}]")
-            # a prompt the pool could never cover would reach the queue
-            # head and MemoryError the engine (killing a background
-            # pump); a long-lived frontend rejects it at submit instead.
-            # The bound is chunk-aware: chunked admission allocates as it
-            # goes, so only the final residency must fit.
-            if not self.engine.store.can_ever_admit(
-                    len(prompt), self.engine.chunk_size):
-                store = self.engine.store
-                raise ValueError(
-                    f"prompt of {len(prompt)} tokens can never be "
-                    f"admitted: KV pool is {store.allocator.num_blocks} "
-                    f"x {store.block_size}-token blocks"
-                    + ("" if self.engine.chunk_size is not None else
-                       " (one-shot admission; a chunk_size= engine "
-                       "admits up to one block more)"))
+            prompt = check_prompt(self.engine, prompt)
             req = Request(next(self._rids), prompt, params=params)
             self.engine.submit(req)
+            self._wake.set()
             return req
 
     def _drive_until(self, pred) -> None:

@@ -91,7 +91,10 @@ rejected draft), and ``chunk_size`` and ``host_stride`` warn and fall
 back to one-shot admission and per-token dispatch (``spec_capable``,
 ``chunk_capable``, ``multistep_capable``); prefix sharing is off with
 chunking.  On the card its T = 1 step is captured per bucket like the
-dense layout's.
+dense layout's.  The SSM family (rwkv6: every layer an ``rwkv`` time-mix
++ channel-mix with per-slot ``shift1`` / ``shift2`` / ``wkv`` state, no
+attention) takes the same store, gates and graphs; its step builds no
+RoPE table and no cache cells.
 
 ``kv_layout='dense'`` keeps the reference's per-slot ``max_len`` cache,
 the byte-identity oracle of the paged path: admission is a dense
@@ -136,6 +139,10 @@ process model, decided once:
     collective or corrupting the cache without a word.
   - A dead rank fails the others within the group's timeout (every
     collective has one).
+  - A long-lived front (the HTTP server) steps rank 0's engine from
+    ``serve.api.LLM``'s pump, whose control message each tick tells the
+    other ranks to step too (``LLM.follow``); a rank-group
+    ``serve.router.Router`` routes between such groups.
   - Devices: rank r takes ``cuda:(LOCAL_RANK % device_count)``; several
     ranks share one card over gloo, which stages through the host.
   - Graphs: a step whose collectives go through gloo cannot be captured,
@@ -558,8 +565,10 @@ class ServeEngine:
             raise ValueError(
                 f"spec_k={req.params.spec_k}: speculative decoding needs "
                 "pure linear-attention decode (no sliding window or "
-                "recurrent state -- rejected drafts cannot be rewound); "
-                f"the {self.cfg.family!r} config does not qualify")
+                "recurrent state — rejected drafts cannot be rewound; no "
+                "capacity-dropping MoE routing — draft tokens would shift "
+                "expert capacity and break bit-exactness); the "
+                f"{self.cfg.family!r} config does not qualify")
         if req.params.spec_k > 0 and self.scheduler != "fused":
             raise ValueError(
                 f"spec_k={req.params.spec_k} requires scheduler='fused' "

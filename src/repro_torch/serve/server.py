@@ -55,10 +55,19 @@ Requests are served by a ``ThreadingHTTPServer``: handler threads only
 submit and read per-request chunk queues; the engine itself runs on the
 LLM's background pump thread, so concurrent streamed and non-streamed
 completions interleave inside the same continuous batch.
+
+Under tensor parallelism (an ``LLM`` whose engine spans a tp group, or
+a rank-group ``Router``) one process runs per rank: rank 0 -- the
+front's ``leader`` -- binds the server and runs the pump, which tells
+every other rank each tick; ``serve_forever`` on any other rank runs
+the front's ``follow`` loop instead, and returns when rank 0's pump
+stops (on ``server.shutdown()`` or an interrupt of rank 0).
 """
 from __future__ import annotations
 
 import json
+import signal
+import threading
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 from repro_torch.serve.params import SamplingParams
@@ -200,6 +209,18 @@ def make_server(llm, host: str = "127.0.0.1", port: int = 8000,
 
 def serve_forever(llm, host: str = "127.0.0.1",
                   port: int = 8000) -> None:
+    """Serve until interrupted (rank 0), or follow rank 0's ticks until
+    its pump stops (any other rank of a tp front; an interrupt there is
+    ignored while it follows: rank 0's stop ends every rank)."""
+    if not getattr(llm, "leader", True):
+        main = threading.current_thread() is threading.main_thread()
+        old = signal.signal(signal.SIGINT, signal.SIG_IGN) if main else None
+        try:
+            llm.follow()
+        finally:
+            if main:
+                signal.signal(signal.SIGINT, old)
+        return
     srv = make_server(llm, host, port)
     h, p = srv.server_address[:2]
     print(f"serving on http://{h}:{p}  "

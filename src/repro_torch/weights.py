@@ -16,7 +16,10 @@ activation that is not a GLU (gelu, relu, squared_relu),
 so the bridge from JAX is a pure copy and the layer loop indexes ``[l]``.
 The hybrid family (recurrentgemma) has one dict per segment of its block
 program, each slot an ``attn`` layer as above or a ``rec`` layer,
-``{"rec": the RG-LRU block (models.rglru.layer_shapes), "ln2", "mlp"}``.
+``{"rec": the RG-LRU block (models.rglru.layer_shapes), "ln2", "mlp"}``;
+the ssm family (rwkv6) one segment of one ``rwkv`` slot, the layer's
+leaves flat in it (``models.rwkv6.layer_shapes``), beside an untied
+``lm_head``.
 Weights are normal times 1/sqrt(fan-in), zeros for the norm scales
 (which the layers apply as ``1 + scale``), drawn on the host from a seed
 (``seeded_params``).  The numbers differ from ``jax.random``'s; tests
@@ -33,7 +36,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import rglru
+from repro_torch.models import rglru, rwkv6
 from repro_torch.parallel import sharding
 
 
@@ -45,21 +48,26 @@ def dtype_of(cfg: ModelConfig) -> torch.dtype:
 def param_shapes(cfg: ModelConfig) -> dict:
     """The tree of shapes ``seeded_params`` builds, leaf = (shape, init):
     init a fan-in (normal / sqrt(fan_in)), None (zeros, the norm scales
-    and biases), or one of the RG-LRU's draws (``"conv"``,
-    ``"lru_lambda"``; ``models.rglru.layer_shapes``).
+    and biases), one of the RG-LRU's draws (``"conv"``,
+    ``"lru_lambda"``; ``models.rglru.layer_shapes``), ``("std", s)``
+    (normal * s) or ``("full", c)`` (the constant c; RWKV6's mixing
+    coefficients, base decay and ``ln_x``).
 
     ``decoder`` holds one dict per segment of ``lm.segments`` (its unit
     repeated ``count`` times), each slot's leaves stacked over ``count``,
     as the reference's ``_init_segment`` stacks them: the dense family is
     one segment of one ``attn`` slot over every layer; the hybrid family
     (recurrentgemma) one segment of its pattern repeated, then the
-    remainder, e.g. 8 x (rec, rec, attn) + 1 x (rec, rec) at 26 layers."""
+    remainder, e.g. 8 x (rec, rec, attn) + 1 x (rec, rec) at 26 layers;
+    the ssm family (rwkv6) one segment of one ``rwkv`` slot."""
     from repro_torch.models import lm
 
     d, v = cfg.d_model, cfg.vocab_size
     qw, kw, f = cfg.q_width, cfg.kv_width, cfg.d_ff
 
     def layer(kind: str, L: int) -> dict:
+        if kind == "rwkv":
+            return rwkv6.layer_shapes(cfg, L)
         if cfg.activation.endswith("_glu"):
             mlp = {"w_gate": ((L, d, f), d), "w_up": ((L, d, f), d)}
         else:
@@ -99,6 +107,8 @@ def _draw(init, n: int, generator: torch.Generator) -> torch.Tensor:
     if init == "lru_lambda":
         return rglru.lru_lambda((n,), generator)
     w = torch.randn((n,), generator=generator, dtype=torch.float32)
+    if isinstance(init, tuple):                  # ("std", s)
+        return w.mul_(init[1])
     return w.mul_(0.1 if init == "conv" else 1.0 / math.sqrt(init))
 
 
@@ -133,6 +143,9 @@ def seeded_params(cfg: ModelConfig, seed: int, device) -> dict:
             n = next(n_leaf)
             if init is None:
                 return torch.zeros(shape, dtype=torch.float32, device=device)
+            if isinstance(init, tuple) and init[0] == "full":
+                return torch.full(shape, float(init[1]), dtype=torch.float32,
+                                  device=device)
             out = torch.empty(shape, dtype=torch.float32)
             flat = out.view(-1)
 

@@ -198,5 +198,5 @@ def test_bridge_rejects_wrong_trees(bridged):
     bad.pop("final_norm")
     with pytest.raises(ValueError, match="keys"):
         weights.from_numpy_params(bad, TCFG, "cpu")
-    with pytest.raises(NotImplementedError):
-        weights.param_shapes(smoke_config(get_config("rwkv6-7b")))
+    with pytest.raises(NotImplementedError):       # a family not ported
+        weights.param_shapes(smoke_config(get_config("phi3.5-moe-42b-a6.6b")))

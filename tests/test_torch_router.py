@@ -221,7 +221,7 @@ def test_router_stream_and_pump(bridged):
 
 @pytest.mark.parametrize("kw, exc, match", [
     (dict(replicas=0), ValueError, "replicas=0"),
-    (dict(replicas=2, tp=2), NotImplementedError, "rank groups")])
+    (dict(replicas=2, tp=2), ValueError, "tp=2 needs")])
 def test_router_rejects_bad_replicas(bridged, kw, exc, match):
     with pytest.raises(exc, match=match):
         TRouter(bridged[1], TCFG, **kw)

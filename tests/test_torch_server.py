@@ -206,13 +206,14 @@ def test_cli_serves_its_modes_on_cpu(flags):
 # each mode the CLI once refused: the sharded head is served over a
 # group of one rank outside torchrun (the trunk whole, the head's (val,
 # idx) combine over one slice); --replicas through the Router; --tp is
-# served under torchrun (tests/test_torch_tp.py), and the HTTP frontend
-# under --tp is refused
+# served under torchrun (tests/test_torch_tp.py), the HTTP frontend
+# under --tp too: outside torchrun its group is one rank, which --tp 2
+# refuses before anything binds
 @pytest.mark.parametrize("flags", [
     ("--head-mode", "sharded"), ("--tp", "2"), ("--replicas", "2")])
 def test_cli_refuses_unported_modes(flags):
     if "--tp" in flags:
-        with pytest.raises(NotImplementedError, match="--serve-http"):
+        with pytest.raises(ValueError, match="process group of world 2"):
             _cli("--device", "cpu", *flags, "--serve-http", "0")
         return
     snap = _cli("--device", "cpu", "--requests", "4", "--slots", "2",

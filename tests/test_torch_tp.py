@@ -8,7 +8,11 @@ subprocesses -- one rank each, a ``parallel.comm.Group`` over gloo with a
 ``file://`` rendezvous under ``tmp_path`` (no TCP port for xdist's
 workers to race for), each waited on with a timeout of its own -- which
 load the same numpy tree and write what they served as JSON.  The ranks
-of tp 2 and tp 4 start together and run while the JAX engines do.
+of tp 2 and tp 4 start together and run while the JAX engines do.  The
+same rank processes hold the control plane: ``Router(replicas=2,
+tp=2)`` over the world of 4, and the HTTP server under tp (an ``LLM`` at
+world 2, the rank-group router at world 4) on groups whose collectives
+time out after 5 s, rank 0 serving while the other ranks follow.
 
 Tolerances: tokens are compared exactly.  The sharded heads' ids are
 compared exactly and their values at rtol 1e-5 (f32: the frameworks sum
@@ -49,6 +53,10 @@ JCFG = j_smoke(J_ARCHS["qwen3-0.6b"])
 TCFG = smoke_config(get_config("qwen3-0.6b"))
 RANK_TIMEOUT_S = 120          # each rank process
 GROUP_TIMEOUT_S = 30          # every collective of a rank's group
+# the HTTP scenarios' groups time out after IDLE_TIMEOUT_S; the server
+# sits idle for IDLE_S first (world 2: past that timeout)
+IDLE_TIMEOUT_S = 5
+IDLE_S = {2: 6.5, 4: 0.5}
 RTOL = 1e-5
 # the O(k)-not-O(V) case of tests/test_tp_serving.py:406-430
 BYTES_SHAPE = dict(b=8, d=64, v=4096, k=4)
@@ -58,7 +66,8 @@ BYTES_SHAPE = dict(b=8, d=64, v=4096, k=4)
 # its copy with an exact tie between vocabulary ids 10 and 200 (tie.pkl);
 # head inputs: heads.npz.
 RANK_SCRIPT = textwrap.dedent(r'''
-    import json, pickle, sys, traceback
+    import json, pickle, sys, threading, time, traceback, urllib.error
+    import urllib.request
     import numpy as np
     import torch
     from repro_torch import weights
@@ -69,6 +78,8 @@ RANK_SCRIPT = textwrap.dedent(r'''
     from repro_torch.serve import step_graph
     from repro_torch.serve.engine import Request, ServeEngine
     from repro_torch.serve.params import SamplingParams
+    from repro_torch.serve.router import Router
+    from repro_torch.serve.server import make_server, serve_forever
 
     rank, world, d = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3]
     torch.set_num_threads(1)
@@ -174,7 +185,100 @@ RANK_SCRIPT = textwrap.dedent(r'''
         return {"topk": comparator, "argmax": argmax,
                 "logits": dict(g.bytes)}
 
+    def roundtrip(front):
+        # the checks of tests/test_serve_api.py:294 against world rank
+        # 0's server; every other rank follows until rank 0 stops
+        if rank != 0:
+            t0 = time.monotonic()
+            serve_forever(front)
+            return {"followed_s": time.monotonic() - t0}
+        srv = make_server(front, port=0)
+        th = threading.Thread(target=srv.serve_forever, daemon=True)
+        th.start()
+        base = f"http://127.0.0.1:{srv.server_address[1]}"
+
+        def post(body):
+            req = urllib.request.Request(
+                f"{base}/v1/completions", data=json.dumps(body).encode(),
+                headers={"Content-Type": "application/json"})
+            return urllib.request.urlopen(req, timeout=60)
+
+        def code(fn):
+            try:
+                fn()
+            except urllib.error.HTTPError as e:
+                return e.code, "error" in json.loads(e.read())
+            return 200, False
+
+        res = {}
+        try:
+            time.sleep(float(sys.argv[5]))      # idle past the timeout
+            res["idle_pump_alive"] = front._pumping
+            prompt = [5, 11, 7, 3, 19, 2]
+            full = json.loads(post({"prompt": prompt,
+                                    "max_new_tokens": 5}).read())
+            raw = post({"prompt": prompt, "max_new_tokens": 5,
+                        "stream": True}).read().decode()
+            lines = [l[6:] for l in raw.splitlines()
+                     if l.startswith("data: ")]
+            res.update(
+                full=full["token_ids"], finish=full["finish_reason"],
+                tok_s=full["timing"]["tok_s"], done=lines[-1],
+                streamed=[json.loads(l)["token"] for l in lines[:-1]],
+                last_finish=json.loads(lines[-2])["finish_reason"],
+                stats=json.loads(urllib.request.urlopen(
+                    f"{base}/v1/stats", timeout=60).read()),
+                health=json.loads(urllib.request.urlopen(
+                    f"{base}/healthz", timeout=60).read()),
+                not_found=code(lambda: urllib.request.urlopen(
+                    f"{base}/no/such", timeout=60)),
+                bad_prompt=code(lambda: post({"prompt": "not token ids"})),
+                bad_stream=code(lambda: post({"prompt": prompt,
+                                              "stream": True,
+                                              "top_k": 500})))
+        finally:
+            srv.shutdown()
+            front.stop_pump()
+        res["pump_error"] = repr(front._pump_error)
+        return res
+
     if world == 2:
+        @scenario
+        def http():
+            # LLM(tp=2) behind the server, on a group whose collectives
+            # time out after IDLE_TIMEOUT_S: it idles longer, then serves
+            short = g.split(2, timeout_s=float(sys.argv[6]))
+            llm = LLM(params, cfg, n_slots=2, max_len=64, eos_id=-1, tp=2,
+                      group=short)
+            return roundtrip(llm)
+
+        @scenario
+        def silent():
+            # each rank goes silent on a group of its own: rank 1's
+            # follower (rank 0 never ticks) and rank 0's pump (rank 1
+            # never steps) must both raise within the group's timeout
+            a = g.split(2, timeout_s=float(sys.argv[6]))
+            b = g.split(2, timeout_s=float(sys.argv[6]))
+            kw = dict(n_slots=2, max_len=32, eos_id=-1, tp=2)
+            la, lb = LLM(params, cfg, group=a, **kw), \
+                LLM(params, cfg, group=b, **kw)
+            t0 = time.monotonic()
+            raised = None
+            try:
+                if rank == 1:
+                    la.follow()
+                else:
+                    lb.start_pump()
+                    lb.generate([[3, 4, 5]],
+                                SamplingParams(max_new_tokens=3))
+            except RuntimeError as e:
+                raised = f"{e} / {e.__cause__!r}"
+            seconds = time.monotonic() - t0
+            if rank == 0:
+                lb.stop_pump()
+            g.agree(7, "after the silent groups")   # both ranks here again
+            return {"raised": raised, "seconds": seconds}
+
         @scenario
         def dense():
             # the dense layout composes with tp: each slot's max_len row
@@ -217,6 +321,51 @@ RANK_SCRIPT = textwrap.dedent(r'''
             return {"raised": None}
 
     if world == 4:
+        @scenario
+        def router():
+            # tests/test_tp_serving.py:368-403: Router(replicas=2, tp=2),
+            # replica r the world ranks [2r, 2r + 2); then seeded TopK and
+            # Temperature requests
+            rng = np.random.default_rng(3)
+            prompts = [rng.integers(0, cfg.vocab_size, 5 + 3 * i)
+                       .astype(np.int32) for i in range(4)]
+            router = Router(params, cfg, replicas=2, tp=2, group=g,
+                            n_slots=2, max_len=48, eos_id=-1)
+            outs = router.generate([p.copy() for p in prompts], [
+                SamplingParams(max_new_tokens=6, seed=100 + i)
+                for i in range(4)])
+            pay = router.stats_payload()
+            served = [r.served for r in router.replicas]
+            mixed = router.generate([p.copy() for p in prompts], [
+                SamplingParams(max_new_tokens=6, top_k=4, temperature=0.8,
+                               seed=200 + i) if i % 2 else
+                SamplingParams(max_new_tokens=6, temperature=0.7,
+                               seed=200 + i) for i in range(4)])
+            # replica 1 drained: new work goes to replica 0 alone
+            router.drain(1, wait=True)
+            drained = router.generate([p.copy() for p in prompts[:2]], [
+                SamplingParams(max_new_tokens=6, seed=100 + i)
+                for i in range(2)])
+            after = [r.served for r in router.replicas]
+            router.undrain(1)
+            return {"tokens": [list(o.token_ids) for o in outs],
+                    "mixed": [list(o.token_ids) for o in mixed],
+                    "drained": [list(o.token_ids) for o in drained],
+                    "served_after_drain": after,
+                    "served": served, "index": router.index,
+                    "engine_tp": router.engine.tp,
+                    "engine_ranks": list(router.sub.ranks),
+                    "emitted": pay["engine"]["emitted_tokens"],
+                    "per_replica": [r["engine"]["emitted_tokens"]
+                                    for r in pay["replicas"]],
+                    "completed": pay["engine"]["completed"]}
+
+        @scenario
+        def router_http():
+            router = Router(params, cfg, replicas=2, tp=2, group=g,
+                            n_slots=2, max_len=64, eos_id=-1)
+            return roundtrip(router)
+
         @scenario
         def head_only():
             # tests/test_distributed.py:147-180: the trunk whole on 4
@@ -289,7 +438,8 @@ def _spawn(world: int, d: Path):
     script.write_text(RANK_SCRIPT)
     return [subprocess.Popen(
         [sys.executable, str(script), str(r), str(world), str(d),
-         str(GROUP_TIMEOUT_S)], env=env, stdout=subprocess.PIPE,
+         str(GROUP_TIMEOUT_S), str(IDLE_S[world]), str(IDLE_TIMEOUT_S)],
+        env=env, stdout=subprocess.PIPE,
         stderr=subprocess.PIPE, text=True) for r in range(world)]
 
 
@@ -352,6 +502,29 @@ def _jax_tie(params):
     return [list(r.generated) for r in reqs]
 
 
+def _jax_llm(params):
+    """One unsharded JAX ``LLM``: the router scenario's greedy and mixed
+    batches (tests/test_tp_serving.py:368-403) and the HTTP prompt."""
+    from repro.serve.api import LLM as JLLM
+
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(0, JCFG.vocab_size, 5 + 3 * i).astype(np.int32)
+               for i in range(4)]
+    llm = JLLM(params, JCFG, n_slots=2, max_len=48, eos_id=-1)
+    greedy = llm.generate([p.copy() for p in prompts],
+                          [JSP(max_new_tokens=6, seed=100 + i)
+                           for i in range(4)])
+    mixed = llm.generate([p.copy() for p in prompts], [
+        JSP(max_new_tokens=6, top_k=4, temperature=0.8, seed=200 + i)
+        if i % 2 else JSP(max_new_tokens=6, temperature=0.7, seed=200 + i)
+        for i in range(4)])
+    http = JLLM(params, JCFG, n_slots=2, max_len=64, eos_id=-1).generate(
+        [5, 11, 7, 3, 19, 2], JSP(max_new_tokens=5))[0]
+    return {"router": [list(o.token_ids) for o in greedy],
+            "router_mixed": [list(o.token_ids) for o in mixed],
+            "http": list(http.token_ids)}
+
+
 def _head_inputs():
     """numpy-seeded head operands: h (8, 64) rows near one direction m,
     W (64, 256) whose ids 10 and 200 are both m -- an exact tie that wins
@@ -389,6 +562,7 @@ def runs(tmp_path_factory):
     procs = {world: _spawn(world, d) for world in (2, 4)}
     jtie = dict(jparams, embed=jnp.asarray(tie["embed"]))
     want = {"base": _jax_serve(jparams), "spec": _jax_serve(jparams, 4),
+            **_jax_llm(jparams),
             "stride": _jax_serve(jparams, host_stride=4),
             "dense": _jax_serve(jparams, kv_layout="dense",
                                 chunk_size=None),
@@ -670,3 +844,87 @@ def test_cli_and_from_arch_under_torchrun_environment(tmp_path):
         assert res["tp"] == 2 and res["head_mode"] == "sharded"
         assert res["backend"] == "gloo"
         assert res["tokens"] == [list(o.token_ids) for o in want]
+
+
+# -- the control plane: Router(tp > 1) and HTTP under --tp -------------------
+def test_router_over_rank_groups_matches_unsharded_jax_llm(runs):
+    """Router(replicas=2, tp=2) over a world of 4 (replica r the ranks
+    [2r, 2r + 2), each a tp 2 engine): the unsharded JAX LLM's tokens for
+    the seeded greedy batch and for seeded TopK / Temperature requests,
+    every rank returning them; both replicas served; the aggregated
+    emitted_tokens is 24, the sum over the replicas; with replica 1
+    drained (``drain(1, wait=True)``, every rank calling) new requests go
+    to replica 0 alone, with the same tokens."""
+    got, want, _ = runs
+    for r in range(4):
+        res = _ok(got[4][r], "router")
+        assert res["tokens"] == want["router"]
+        assert res["mixed"] == want["router_mixed"]
+        assert res["engine_tp"] == 2 and res["index"] == r // 2
+        assert res["engine_ranks"] == [2 * (r // 2), 2 * (r // 2) + 1]
+        assert res["emitted"] == 24 == sum(res["per_replica"])
+        assert res["completed"] == 4
+        assert res["drained"] == want["router"][:2]
+    lead = _ok(got[4][0], "router")
+    assert lead["served"] == [2, 2] and all(n > 0 for n in lead["served"])
+    # after mixed (2 + 2 more) and replica 1's drain, both went to 0
+    assert lead["served_after_drain"] == [6, 4]
+
+
+@pytest.mark.parametrize("world", [2, 4])
+def test_http_under_tp_roundtrip(runs, world):
+    """tests/test_serve_api.py:294 against world rank 0's server: LLM(tp=2)
+    at world 2, Router(replicas=2, tp=2) at world 4.  Plain and streamed
+    completions give the unsharded JAX LLM's tokens, /v1/stats keeps its
+    invariants, /healthz is ok, unknown paths 404 and bad requests 400
+    with a JSON error."""
+    got, want, _ = runs
+    res = _ok(got[world][0], "http" if world == 2 else "router_http")
+    assert res["full"] == res["streamed"] == want["http"]
+    assert res["finish"] == res["last_finish"] == "length"
+    assert res["tok_s"] > 0 and res["done"] == "[DONE]"
+    eng = res["stats"]["engine"]
+    assert eng["decode_steps"] == eng["iterations"]
+    assert eng["emitted_tokens"] == 10 == sum(
+        r["engine"]["emitted_tokens"] for r in res["stats"]["replicas"])
+    assert res["stats"]["kv"]["blocks_free"] == res["stats"]["kv"][
+        "num_blocks"]
+    assert res["health"]["ok"] is True
+    assert res["not_found"] == [404, True]
+    assert res["bad_prompt"] == [400, True]
+    assert res["bad_stream"] == [400, True]
+
+
+def test_idle_http_server_outlives_its_group_timeout(runs):
+    """The tp 2 server's group times out after 5 s; it sat idle 6.5 s (the
+    pump's idle ticks every quarter of the timeout kept the follower
+    inside it) and then served."""
+    got, want, _ = runs
+    res = _ok(got[2][0], "http")
+    assert IDLE_S[2] > IDLE_TIMEOUT_S
+    assert res["idle_pump_alive"] is True
+    assert res["full"] == want["http"]
+    assert res["pump_error"] == "None"
+
+
+@pytest.mark.parametrize("world", [2, 4])
+def test_every_rank_leaves_its_loop_on_stop(runs, world):
+    """After server.shutdown() and stop_pump() on rank 0, every other rank
+    returned from serve_forever (its follow loop) and the process exited 0
+    (``_wait`` asserts every return code)."""
+    got, _, _ = runs
+    name = "http" if world == 2 else "router_http"
+    for r in range(1, world):
+        assert _ok(got[world][r], name)["followed_s"] > 0
+
+
+def test_a_silent_rank_fails_the_group_within_its_timeout(runs):
+    """On groups with a 5 s timeout: rank 1 following a rank 0 that never
+    ticks raises; rank 0's pump whose follower never steps dies and its
+    generate raises; both within the timeout (plus a margin), both ranks
+    then meet again on the world group."""
+    got, _, _ = runs
+    for r in range(2):
+        res = _ok(got[2][r], "silent")
+        assert res["raised"], res
+        assert res["seconds"] < 2 * IDLE_TIMEOUT_S + 5, res
