@@ -162,7 +162,7 @@ Phases, each of which fails the run (non-zero exit, no result line):
   6. the small-input reference, graphed: the smoke config's tokens on
      the card equal those of the plain versions on the CPU, from the
      same weights.
-  4j. (last, once every earlier engine is dropped) the rest of the dense
+  4j. (once every earlier engine is dropped) the rest of the dense
      family: kernels 1-5 at starcoder2-7b's shapes against their plain
      versions, each timed beside its bound and library call (paged
      attention at B 8, T 1 and 64, 36 query heads over 4 KV heads; flash
@@ -191,10 +191,11 @@ Phases, each of which fails the run (non-zero exit, no result line):
      T 1: 8 / 4 and 4 / 2); then qwen3-0.6b at full width at tp 2 (12
      prompts) and tp 4 (the first 8), 2 and 4 processes of this script
      (``--tp-rank R --tp-world W --tp-dir D``) sharing the card over
-     gloo, each waited on with a timeout -- the f32 greedy engine built
-     by ``LLM.from_arch(tp=W, dtype="float32")`` in each rank and held
-     to ``LLM.from_arch(dtype="float32")`` here, whose tree is the host
-     draw the ranks cut, leaf for leaf --: f32 greedy, mixed samplers,
+     gloo, each waited on with a timeout -- an f32 greedy engine built
+     by ``LLM.from_arch(tp=W, dtype="float32")`` in each rank, all 28
+     layers on 2 prompts, held to ``LLM.from_arch(dtype="float32")``
+     here, whose tree is the host draw the ranks cut, leaf for leaf --,
+     then at 8 of the 28 layers (TP_LAYERS): f32 greedy, mixed samplers,
      spec_k 4 (drafts accepted), host_stride 8 and chunk 64 with prefix
      sharing held to the unsharded engine's streams (near-tie rule),
      bf16 greedy measured against it and timed beside tp 1 (no claim:
@@ -209,20 +210,25 @@ Phases, each of which fails the run (non-zero exit, no result line):
      of the replicas'; at world 2 ``LLM(tp=2)`` behind the HTTP server on
      rank 0 (rank 1 following its pump), the 12 prompts posted at once
      and one streamed, held to the unsharded engine's, rank 1 back from
-     its follow loop at ``shutdown``; each rank's launches at its steps.
-  4l. (last) the hybrid RG-LRU family: flash attention at
+     its follow loop at ``shutdown``; each rank's launches at its steps;
+     and at world 2 phi3.5-moe at full width with 2 of its 32 layers in
+     f32, each rank 8 of the 16 experts (``parallel.moe_ep``), greedy on
+     phase 4n's 8 prompts at 16 new tokens, held to the unsharded f32
+     engine on the same host tree, every rank's tokens equal.
+  4l. the hybrid RG-LRU family: flash attention at
      recurrentgemma-2b's prefill (T 2,150, 10 query heads over 1 KV head,
      hd 256, window 2,048; the ``mma.sync`` kernel, from a profiler
      trace taken in phase 3; within two bf16 steps, on random inputs and on inputs where
      the window decides the answer) and the argmax head at B 8 on its
      tied (256,000, 2,560) embedding, each against its plain version and
-     timed beside its bound and library call; then ``LLM.from_arch("recurrentgemma-2b",
-     smoke=False)`` in bf16, nothing cut (26 layers, 8 x (rec, rec,
-     attn) + (rec, rec), 8 slots of 2,304 on the dense per-slot store):
+     timed beside its bound and library call; then recurrentgemma-2b in
+     bf16 at full width with 14 of its 26 layers (4 x (rec, rec, attn) +
+     (rec, rec); ``weights.seeded_params``), 8 slots of 2,304 on the
+     dense per-slot store:
      8 prompts (six of 1-1,000 tokens, two of 2,100-2,200: the ring
      wraps in prefill and again in decode) greedy at 64 new tokens,
      eager and graphed twice (the second all replays; tokens equal;
-     flash 8 launches a prefill, no paged attention, an argmax head a
+     flash 4 launches a prefill, no paged attention, an argmax head a
      step and a prefill), Theorem 1 against the softmax head, mixed
      samplers, ``spec_k`` refused, ``chunk_size`` and ``host_stride``
      warned off on one engine with the same tokens; an f32 twin from the same seed
@@ -234,11 +240,11 @@ Phases, each of which fails the run (non-zero exit, no result line):
      peak memory, the eager and replayed step beside the
      bound of reading every weight once, tok/s, and the TTFT of a
      2,150-token prompt with the plain RG-LRU scan's share.
-  4m. (last) the RWKV6 family: the argmax head at B 8 and the top-k head
+  4m. the RWKV6 family: the argmax head at B 8 and the top-k head
      at B 4, k 8 on rwkv6-7b's untied (V, D) = (65,536, 4,096) head
      against their plain versions, timed beside their bound and library
-     call; then ``LLM.from_arch("rwkv6-7b", smoke=False)`` in bf16,
-     nothing cut (32 layers, d 4,096, 64 heads of 64, d_ff 14,336,
+     call; then rwkv6-7b in bf16 at full width with 16 of its 32 layers
+     (``weights.seeded_params``; d 4,096, 64 heads of 64, d_ff 14,336,
      relu_sq channel mix, 8 slots of 1,088 per-slot states): 8 prompts
      of 3-1,024 tokens greedy at 64 new tokens, eager and graphed twice
      (tokens equal; no attention kernel, an argmax head a step and a
@@ -248,6 +254,31 @@ Phases, each of which fails the run (non-zero exit, no result line):
      ``argmax(lm.forward)``; the bf16 streams against it (measured); the
      replayed step beside the weight-read bound, tok/s, and the TTFT of
      a 1,024-token prompt with the plain wkv scan's share.
+  4n. (last, once every earlier engine is dropped) the MoE family:
+     kernels 1, 5, 2 and 3 at phi3.5-moe's shapes (paged attention at B
+     8, T 1 and flash attention over 512 tokens, 32 query heads over 8
+     KV heads of 128; the argmax head at B 8 and the top-k head at B 4,
+     k 8 on the untied (V, D) = (32,064, 4,096) head) against their plain
+     versions, timed beside their bound and library call; then
+     phi3.5-moe in bf16 at full width with 6 of its 32 layers (16
+     experts of 6,400, top-2, capacity factor 1.25; f32 masters from
+     ``weights.seeded_params`` on the card, 8 paged slots of 1,024):
+     phase 4's first 8 prompts (ids mod 32,064) greedy at 64 new tokens,
+     eager and graphed three times (tokens equal; 6 paged launches a
+     decode step, 6 flash a prefill, an argmax head a step and a
+     prefill, no verify), Theorem 1, mixed samplers (greedy rows
+     measured against the greedy run: behind dropping routing a row's
+     tokens follow its batch-mates'), ``spec_k`` refused, ``chunk_size``
+     and ``host_stride`` warned off with the same tokens, the choices
+     dropped per decode step (an eager run; at least one), the MoE
+     layers' share of a profiled eager step, an f32 twin at 1.25 (the
+     bf16 streams measured against it; one decode step's MoE layer on
+     the card and on the CPU: the same kept choices, outputs within
+     1e-4) and one at capacity factor 16 = E, which drops nothing, held
+     to its scalar replay and ``argmax(lm.forward)``; the replayed step
+     beside the bound of reading every weight once (15.87 GB), tok/s and
+     the peak memory; then llama4-maverick's smoke config ((attn, moe)
+     units, a shared expert, top-1) graphed == eager.
 
 Token streams that should be equal may part only at a near-tie of the
 two best f32 logits (gap within 1e-3 of the max): the batch composition
@@ -2306,22 +2337,26 @@ def sampled_params(max_new):
 
 def attention_layers(llm) -> tuple:
     """(paged-attention launches a decode step, flash-attention launches
-    a one-shot prefill) of ``llm``'s engine: its attention layers, each
-    paged when the store pages (a windowed config's ring buffers are
-    never paged: 0 a step)."""
+    a one-shot prefill) of ``llm``'s engine: its attention layers (an
+    ``attn`` or ``moe`` layer's), each paged when the store pages (a
+    windowed config's ring buffers are never paged: 0 a step)."""
     from repro_torch.models import lm
 
-    n = lm.layer_types(llm.cfg).count("attn")
+    n = lm.kv_layers(llm.cfg)
     return (n if llm.engine.store.any_paged else 0), n
 
 
 def run_sampled_path(torch, llm, prompts, greedy_outs, max_new,
-                     what="sampled path"):
+                     what="sampled path", gate=True):
     """Phase 4b: the same 12 prompts as a mixed sampled workload -- 4
     greedy, 4 top-k (k 8, temperature 0.8, seeded), 2 greedy with 4
     candidate ids (the top-k bus at sample_k 1), 2 Gumbel-max
     temperature -- through one engine, every kind sharing fused steps
-    (fewer prompts take the first kinds of that list)."""
+    (fewer prompts take the first kinds of that list).  The greedy rows
+    are held to the greedy-only run's streams, or with ``gate`` False
+    only measured against them: behind a capacity-dropping MoE layer a
+    row's tokens depend on its batch-mates', and the sampled rows' differ
+    from the greedy run's."""
     kinds, plist = (x[:len(prompts)] for x in sampled_params(max_new))
     per_step, per_prefill = attention_layers(llm)
     eager, graphed = drive_both(torch, llm, prompts, plist, what)
@@ -2366,7 +2401,7 @@ def run_sampled_path(torch, llm, prompts, greedy_outs, max_new,
     compare_streams(torch, llm, [prompts[r] for r in greedy],
                     [greedy_outs[r] for r in greedy],
                     [outs[r] for r in greedy],
-                    f"{what}, greedy rows vs the greedy-only run")
+                    f"{what}, greedy rows vs the greedy-only run", gate=gate)
     eager_st = eager[3]
     return launches, dict(tok_s=n_tok / wall, tokens=n_tok,
                           decode_steps=st["decode_steps"],
@@ -3906,23 +3941,25 @@ def kernel_row(timer, fn, plain, library, nbytes, flops, err) -> dict:
                 **timer.readings(library, "library_"))
 
 
-def sc2_line(name, row, library):
-    print(f"starcoder2-7b shapes, {name}: kernel {shown(row)}, plain "
+def model_line(label, name, row, library):
+    print(f"{label} shapes, {name}: kernel {shown(row)}, plain "
           f"{row['plain_ms']:.4f} ms, {library} {shown(row, 'library_')}, "
           f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}); "
           f"max_abs_err {row['max_abs_err']:.6g}", flush=True)
 
 
-def check_starcoder2_kernels(torch, timer) -> dict:
-    """Kernels 1-5 at starcoder2-7b's shapes (bf16: 36 query heads over 4
-    KV heads, g 9, hd 128; d 4,608; an untied (V, D) = (49,152, 4,608)
-    head stored as the ``.T`` view of a row-major (V, D) tensor, as
+def check_model_kernels(torch, timer, label, *, hq, hkv, hd, d, v, seed,
+                        paged_ts=(1, 64), verify=True) -> dict:
+    """Kernels 1-5 at one model's shapes (bf16: ``hq`` query heads over
+    ``hkv`` KV heads of ``hd``; an untied (V, D) = (``v``, ``d``) head
+    stored as the ``.T`` view of a row-major (V, D) tensor, as
     ``weights.cast_params`` stores it), each against its plain version
     with the tolerances of phase 3 and timed beside its bound and its
-    library call: paged attention at B 8, T 1 and T 64 (ragged rows of
-    1-1,000 positions), flash attention over a 512-token prompt, the
-    argmax head at B 8, the top-k head at B 4, k 8, the verify head at B
-    8, T 8 (integer-valued operands: exact)."""
+    library call: paged attention at B 8 and each T of ``paged_ts`` (ragged
+    rows of 1-1,000 positions), flash attention over a 512-token prompt,
+    the argmax head at B 8, the top-k head at B 4, k 8 and, with
+    ``verify``, the verify head at B 8, T 8 (integer-valued operands:
+    exact)."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import flash_attention as fa
@@ -3931,10 +3968,10 @@ def check_starcoder2_kernels(torch, timer) -> dict:
     from repro_torch.kernels import paged_attention as pa
     from repro_torch.kernels import ref
 
-    hq, hkv, hd, d, v = 36, 4, 128, 4608, 49152
-    rng = np.random.default_rng(72)
+    g = hq // hkv
+    rng = np.random.default_rng(seed)
     rows = {}
-    for t in (1, 64):
+    for t in paged_ts:
         q, kp, vp, bt, pos = paged_case(torch, rng, t, b=8, hq=hq, hkv=hkv,
                                         hd=hd)
         out = pa.paged_attention(q, kp, vp, bt, pos)
@@ -3943,7 +3980,7 @@ def check_starcoder2_kernels(torch, timer) -> dict:
         err = (out.float() - want.float()).abs().max().item()
         check(torch.allclose(out.float(), want.float(), atol=PA_TOL,
                              rtol=PA_TOL),
-              f"paged attention at starcoder2's shapes, T={t}, disagrees "
+              f"paged attention at {label}'s shapes, T={t}, disagrees "
               f"with its plain version ({err})")
         nbytes, flops = paged_work(q, kp, bt, pos, None)
         row = kernel_row(
@@ -3952,11 +3989,12 @@ def check_starcoder2_kernels(torch, timer) -> dict:
             sdpa_on_gathered_view(torch, q, kp, vp, bt, pos, None,
                                   1 / math.sqrt(hd)), nbytes, flops, err)
         row["chunks"] = pa.split_for(q, kp, bt)[0]
-        sc2_line(f"paged_attention B=8 T={t} g=9 ({split_line(pa, q, kp, bt)})",
-                 row, "sdpa(gathered view)")
+        model_line(label, f"paged_attention B=8 T={t} g={g} "
+                   f"({split_line(pa, q, kp, bt)})", row,
+                   "sdpa(gathered view)")
         rows[f"paged_t{t}"] = row
 
-    gen = torch.Generator(device="cuda").manual_seed(72)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
 
     def rand(heads):
         return torch.randn((1, 512, heads, hd), generator=gen,
@@ -3968,15 +4006,17 @@ def check_starcoder2_kernels(torch, timer) -> dict:
     want = ref.flash_attention(q, k, vv, causal=True)
     err = (out.float() - want.float()).abs().max().item()
     check(torch.allclose(out.float(), want.float(), atol=FA_TOL, rtol=FA_TOL),
-          f"flash attention at g 9 disagrees with its plain version ({err})")
-    rows["flash_t512_g9"] = kernel_row(
+          f"flash attention at g {g} disagrees with its plain version "
+          f"({err})")
+    key = f"flash_t512_g{g}"
+    rows[key] = kernel_row(
         timer, lambda: fa.flash_attention(q, k, vv, causal=True),
         lambda: ref.flash_attention(q, k, vv, causal=True),
         lambda: F.scaled_dot_product_attention(q, k, vv, enable_gqa=True,
                                                is_causal=True),
         (2 * q.numel() + k.numel() + vv.numel()) * 2,
         4 * hd * hq * (512 * 513 // 2), err)
-    sc2_line("flash_attention T=512 g=9", rows["flash_t512_g9"], "sdpa")
+    model_line(label, f"flash_attention T=512 g={g}", rows[key], "sdpa")
 
     emb = (torch.randn((v, d), generator=gen, device="cuda")
            / math.sqrt(d)).to(torch.bfloat16)
@@ -3985,33 +4025,36 @@ def check_starcoder2_kernels(torch, timer) -> dict:
     idx, val = fah.fused_argmax_head_with_value(h, w)
     torch.cuda.synchronize()
     idx_ok, val_ok, err, _ = argmax_verdict(torch, h, w, idx, val)
-    check(idx_ok and val_ok, "the argmax head on starcoder2's untied head "
+    check(idx_ok and val_ok, f"the argmax head on {label}'s untied head "
           "disagrees with its plain version")
     rows["argmax_b8"] = kernel_row(
         timer, lambda: fah.fused_argmax_head_with_value(h, w),
         lambda: ref.fused_argmax_head_with_value(h, w),
         lambda: torch.argmax(h @ w, dim=-1), v * d * 2 + 8 * d * 2 + 8 * 8,
         2.0 * 8 * d * v, err)
-    sc2_line("fused_argmax_head B=8 (V, D) = (49152, 4608)",
-             rows["argmax_b8"], "argmax(h @ W)")
+    model_line(label, f"fused_argmax_head B=8 (V, D) = ({v}, {d})",
+               rows["argmax_b8"], "argmax(h @ W)")
 
     h4 = h[:4].contiguous()
     vals, idxs = ftk.fused_topk_head(h4, w, 8)
     torch.cuda.synchronize()
     tv = topk_verdict(torch, h4, w, 8, vals, idxs)
-    print(f"starcoder2-7b shapes, fused_topk_head B=4 k=8: {topk_line(tv)}",
+    print(f"{label} shapes, fused_topk_head B=4 k=8: {topk_line(tv)}",
           flush=True)
     check(tv["idx_ok"] and tv["ties_ok"] and tv["desc_ok"] and tv["val_ok"],
-          "the top-k head on starcoder2's untied head disagrees with its "
+          f"the top-k head on {label}'s untied head disagrees with its "
           "plain version")
     rows["topk_b4_k8"] = kernel_row(
         timer, lambda: ftk.fused_topk_head(h4, w, 8),
         lambda: ref.fused_topk_head(h4, w, 8),
-        lambda: torch.topk(h4 @ w, 8, dim=-1), v * d * 2 + 4 * d * 2 + 4 * 8 * 8,
-        2.0 * 4 * d * v, tv["err"])
-    sc2_line("fused_topk_head B=4 k=8", rows["topk_b4_k8"], "topk(h @ W)")
-
+        lambda: torch.topk(h4 @ w, 8, dim=-1),
+        v * d * 2 + 4 * d * 2 + 4 * 8 * 8, 2.0 * 4 * d * v, tv["err"])
+    model_line(label, "fused_topk_head B=4 k=8", rows["topk_b4_k8"],
+               "topk(h @ W)")
     del emb, w
+    if not verify:
+        return rows
+
     wi = torch.randint(-2, 3, (v, d), generator=gen, device="cuda").to(
         torch.bfloat16).t()
     hi = torch.randint(-1, 2, (8, 8, d), generator=gen, device="cuda").to(
@@ -4027,7 +4070,7 @@ def check_starcoder2_kernels(torch, timer) -> dict:
     torch.cuda.synchronize()
     rids, racc = ref.verify_draft(hi, wi, cand)
     check(torch.equal(ids, rids) and torch.equal(acc, racc),
-          "the verify head at starcoder2's shapes disagrees with its plain "
+          f"the verify head at {label}'s shapes disagrees with its plain "
           "version")
     h2 = hi.view(64, d)
     rows["verify_b8_t8"] = kernel_row(
@@ -4036,8 +4079,9 @@ def check_starcoder2_kernels(torch, timer) -> dict:
         lambda: torch.argmax(h2 @ wi, dim=-1),
         v * d * 2 + 64 * d * 2 + cand.numel() * 4 + 64 * 4 + 8 * 4,
         2.0 * 64 * d * v, 0.0)
-    sc2_line(f"fused_verify_head B=8 T=8 (accept {acc.tolist()}, exact)",
-             rows["verify_b8_t8"], "argmax(h @ W) over the 64 rows")
+    model_line(label, f"fused_verify_head B=8 T=8 (accept {acc.tolist()}, "
+               "exact)", rows["verify_b8_t8"],
+               "argmax(h @ W) over the 64 rows")
     return rows
 
 
@@ -4346,6 +4390,12 @@ def check_small_reference(torch):
 # ---------------------------------------------------------------------------
 TP_SEED = 0                 # the host weights every rank draws
 TP_WORLDS = (2, 4)
+# qwen3-0.6b's depth in phase 4k's runs (of 28: each layer is two
+# host-staged gloo all-reduces a step); the entry point's own run keeps
+# all 28 on TP_ENTRY_PROMPTS prompts at TP_ENTRY_NEW tokens
+TP_LAYERS = 8
+TP_ENTRY_PROMPTS = 2
+TP_ENTRY_NEW = 8
 # each rank process, waited on by the parent (every collective of a
 # rank's group times out sooner, at comm.DEFAULT_TIMEOUT_S)
 TP_RANK_TIMEOUT_S = 420
@@ -4561,12 +4611,14 @@ def check_tp_launches(launches, st, cfg, what, flash):
 
 def tp_rank_main(rank: int, world: int, d: str) -> int:
     """One rank of phase 4k (``chip_smoke.py --tp-rank R --tp-world W
-    --tp-dir D``, torchrun's variables in its environment): the f32
-    greedy engine through ``LLM.from_arch(tp=W, dtype="float32")``, whose
-    group (over gloo on the shared card, from that environment) the other
-    runs share -- the parent holds its tokens to the unsharded
-    ``LLM.from_arch(dtype="float32")``'s: one seed, one tree --, the host
-    weights from TP_SEED, each of ``tp_runs`` through
+    --tp-dir D``, torchrun's variables in its environment): an f32
+    greedy engine through ``LLM.from_arch(tp=W, dtype="float32")`` at
+    full depth on the first TP_ENTRY_PROMPTS prompts, whose group (over
+    gloo on the shared card, from that environment) the other runs share
+    -- the parent holds its tokens to the unsharded
+    ``LLM.from_arch(dtype="float32")``'s: one seed, one tree --, then the
+    host weights from TP_SEED of qwen3-0.6b cut to TP_LAYERS layers, each
+    run of ``tp_runs`` through
     ``LLM.generate`` at ``tp=world`` (the launch counts set to 0 just
     before and read just after, and checked against the run's steps),
     the per-step collective bytes and the heads' bytes at B 8; the
@@ -4585,25 +4637,36 @@ def tp_rank_main(rank: int, world: int, d: str) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     out = {"rank": rank, "world": world}
     try:
-        # the entry point a user calls under torchrun; from_arch draws
-        # the same host tree from TP_SEED as ``host`` below
+        # the entry point a user calls under torchrun, at full depth;
+        # from_arch draws the same host tree from TP_SEED as the parent
         first = LLM.from_arch("qwen3-0.6b", smoke=False, tp=world,
                               dtype="float32",
                               **dict(tp_engine_kwargs(), seed=TP_SEED))
         g = first.engine.group
         out.update(device=str(g.device), backend=g.backend,
                    card=torch.cuda.get_device_name(g.device))
-        cfg = get_config("qwen3-0.6b")
-        host = seeded_params(cfg, TP_SEED, "cpu")
         max_new = 32
-        prompts, params = tp_inputs(cfg.vocab_size, max_new,
+        prompts, params = tp_inputs(first.cfg.vocab_size, max_new,
                                     TP_PROMPTS[world])
+        torch.cuda.synchronize()
+        reset_launches()
+        st0 = stats_now(first)
+        outs = first.generate(
+            prompts["main"][:TP_ENTRY_PROMPTS],
+            type(params["greedy"])(max_new_tokens=TP_ENTRY_NEW))
+        torch.cuda.synchronize()
+        check_tp_launches(read_launches(), stats_delta(st0, stats_now(first)),
+                          first.engine.cfg, f"tp {world} rank {rank} "
+                          "from_arch", flash=True)
+        out["from_arch_f32"] = dict(tokens=[list(o.token_ids) for o in outs],
+                                    rids=[o.rid for o in outs])
+        del first, outs
+        cfg = dataclasses.replace(get_config("qwen3-0.6b"),
+                                  n_layers=TP_LAYERS)
+        host = seeded_params(cfg, TP_SEED, "cpu")
         for name, dtype, kw, pk, prk in tp_runs(max_new):
-            if name == "greedy_f32":
-                llm, first = first, None
-            else:
-                llm = LLM(host, dataclasses.replace(cfg, dtype=dtype),
-                          tp=world, group=g, **tp_engine_kwargs(**kw))
+            llm = LLM(host, dataclasses.replace(cfg, dtype=dtype),
+                      tp=world, group=g, **tp_engine_kwargs(**kw))
             eng = llm.engine
             steps = []
             if name == "greedy_bf16":
@@ -4676,6 +4739,7 @@ def tp_rank_main(rank: int, world: int, d: str) -> int:
         if world == 2:
             out["http_f32"] = tp_http_run(torch, host, f32, g, rank,
                                           prompts["main"], max_new)
+            out["moe_f32"] = tp_moe_run(torch, g, rank)
         out["ok"] = True
         g.close()
     except Exception as e:                    # reported by the parent
@@ -4687,6 +4751,102 @@ def tp_rank_main(rank: int, world: int, d: str) -> int:
     with open(os.path.join(d, f"out{world}_{rank}.json"), "w") as f:
         json.dump(out, f)
     return 0 if out["ok"] else 1
+
+
+MOE_TP_LAYERS = 2
+MOE_TP_NEW = 16
+
+
+def moe_tp_config():
+    """Phase 4k's MoE model: phi3.5-moe at full width, 2 layers, f32."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    return dataclasses.replace(get_config(MOE_ARCH), n_layers=MOE_TP_LAYERS,
+                               dtype="float32")
+
+
+def tp_moe_run(torch, g, rank) -> dict:
+    """Phase 4k's MoE run (world 2, every rank): ``moe_tp_config``'s model
+    from the host tree of TP_SEED, each rank holding 8 of the 16 experts
+    and routing over all 16 (``parallel.moe_ep``), greedy on phase 4n's 8
+    prompts at MOE_TP_NEW tokens; the launch counts set to 0 just before
+    and read just after, checked against its steps."""
+    from repro_torch.serve.api import LLM
+    from repro_torch.serve.params import SamplingParams
+    from repro_torch.weights import seeded_params
+
+    cfg = moe_tp_config()
+    llm = LLM(seeded_params(cfg, TP_SEED, "cpu"), cfg, tp=2, group=g,
+              **tp_engine_kwargs())
+    eng = llm.engine
+    prompts = moe_prompts(cfg.vocab_size)
+    torch.cuda.synchronize()
+    reset_launches()
+    st0 = stats_now(llm)
+    t0 = time.perf_counter()
+    outs = llm.generate(prompts, SamplingParams(max_new_tokens=MOE_TP_NEW))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    st = stats_delta(st0, stats_now(llm))
+    check_tp_launches(launches, st, eng.cfg, f"tp 2 rank {rank} moe_f32",
+                      flash=True)
+    res = dict(tokens=[list(o.token_ids) for o in outs],
+               rids=[o.rid for o in outs], launches=launches,
+               experts=list(eng.cfg.shard.experts),
+               num_experts=eng.cfg.moe.num_experts,
+               decode_steps=st["decode_steps"], prefills=st["prefills"],
+               wall_s=wall, tok_s=sum(len(o.token_ids) for o in outs) / wall,
+               weights_bytes=sum(t.numel() * t.element_size()
+                                 for t in _leaves(eng.params)))
+    del llm, eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def check_tp_moe(torch, res) -> dict:
+    """Phase 4k's MoE run as the ranks wrote it, against the unsharded f32
+    engine on the same tree (``seeded_params`` of TP_SEED, drawn here on
+    the card after the ranks are done): every rank its half of the
+    experts, the same tokens on both ranks, each stream the unsharded
+    engine's (near-tie rule)."""
+    import types
+
+    from repro_torch.serve.api import LLM
+    from repro_torch.serve.params import SamplingParams
+    from repro_torch.weights import seeded_params
+
+    r0 = res[0]["moe_f32"]
+    for r, out in enumerate(res):
+        run = out["moe_f32"]
+        check(run["experts"] == [8 * r, 8 * r + 8] and run["num_experts"]
+              == 16, f"tp 2 moe rank {r}: experts {run['experts']} of "
+              f"{run['num_experts']}")
+        check(run["tokens"] == r0["tokens"], f"tp 2 moe: rank {r}'s tokens "
+              "differ from rank 0's")
+    cfg = moe_tp_config()
+    ref = LLM(seeded_params(cfg, TP_SEED, "cuda"), cfg, **tp_engine_kwargs())
+    prompts = moe_prompts(cfg.vocab_size)
+    want = ref.generate(prompts, SamplingParams(max_new_tokens=MOE_TP_NEW))
+    got = [types.SimpleNamespace(token_ids=tuple(t), rid=i)
+           for i, t in zip(r0["rids"], r0["tokens"])]
+    what = (f"phase 4k tp 2 phi3.5-moe ({MOE_TP_LAYERS} layers, f32, 8 "
+            "experts a rank)")
+    same = compare_streams(torch, ref, prompts, want, got, what)
+    print(f"{what}: {same}/{len(got)} streams equal to the unsharded f32 "
+          f"engine's; {r0['tok_s']:.2f} tok/s ({r0['wall_s']:.2f} s, "
+          f"{r0['decode_steps']} decode steps, eager over gloo), weights "
+          f"{r0['weights_bytes'] / 1e9:.3f} GB a rank; launches "
+          f"{r0['launches']}", flush=True)
+    del ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(same=same, streams=len(got), tok_s=r0["tok_s"],
+                decode_steps=r0["decode_steps"], launches=r0["launches"],
+                weights_bytes=r0["weights_bytes"])
 
 
 def _run_stats(eng, st0) -> dict:
@@ -4932,7 +5092,8 @@ def run_tp_path(torch, max_new=32) -> dict:
     engine runs here on the same host weights -- its greedy f32 run
     through ``LLM.from_arch(dtype="float32")`` on the card, whose tree
     must be the host draw leaf for leaf, against the ranks' own
-    ``LLM.from_arch(tp=W, dtype="float32")``: every f32 run's streams
+    ``LLM.from_arch(tp=W, dtype="float32")`` on TP_ENTRY_PROMPTS prompts;
+    then the runs at TP_LAYERS of the 28 layers: every f32 run's streams
     (greedy, mixed samplers, spec_k 4 with drafts accepted, host_stride
     8, chunk 64 with prefix sharing on) must be its own, parting only at
     a near-tie of the two best f32 logits; the bf16 greedy streams are
@@ -4950,34 +5111,37 @@ def run_tp_path(torch, max_new=32) -> dict:
     from repro_torch.weights import seeded_params
 
     t0 = time.perf_counter()
-    cfg = get_config("qwen3-0.6b")
-    host = seeded_params(cfg, TP_SEED, "cpu")
+    full = get_config("qwen3-0.6b")
+    cfg = dataclasses.replace(full, n_layers=TP_LAYERS)
     inputs = {n: tp_inputs(cfg.vocab_size, max_new, n)
               for n in set(TP_PROMPTS.values())}
     prompts, params = inputs[12]
     f32 = dataclasses.replace(cfg, dtype="float32")
-    dev32 = _tree_to(host, "cuda")
+    dev32 = _tree_to(seeded_params(cfg, TP_SEED, "cpu"), "cuda")
     # the unsharded entry point on the card: its tree is the host tree
     # every rank cuts its slice from (one seed, one tree)
     plain = LLM.from_arch("qwen3-0.6b", smoke=False, dtype="float32",
                           **dict(tp_engine_kwargs(), seed=TP_SEED))
-    same_tree = all(torch.equal(a, b) for a, b in zip(
-        _leaves(plain.engine.params), _leaves(dev32)))
+    same_tree = all(torch.equal(a.cpu(), b) for a, b in zip(
+        _leaves(plain.engine.params),
+        _leaves(seeded_params(full, TP_SEED, "cpu"))))
     print(f"phase 4k: LLM.from_arch(seed={TP_SEED}, dtype='float32') on "
           f"the card holds the host tree the ranks cut: {same_tree}",
           flush=True)
     check(same_tree, "phase 4k: from_arch on the card drew another tree "
           "than the host draw of the same seed")
+    entry = prompts["main"][:TP_ENTRY_PROMPTS]
+    ref_entry = plain.generate(entry, type(params["greedy"])(
+        max_new_tokens=TP_ENTRY_NEW))
     ref32 = {}                    # (prompt count, run) -> outputs
+    gap_llm = LLM(dev32, f32, **tp_engine_kwargs())   # the near-tie ruler
     for n, (ps, pp) in inputs.items():
         for name, dtype, kw, pk, prk in tp_runs(max_new):
             if dtype == "float32":
-                llm = plain if name == "greedy_f32" else LLM(
+                llm = gap_llm if name == "greedy_f32" else LLM(
                     dev32, f32, **tp_engine_kwargs(**kw))
                 ref32[n, name] = llm.generate(ps[prk], pp[pk])
                 del llm
-    del plain
-    gap_llm = LLM(dev32, f32, **tp_engine_kwargs())   # the near-tie ruler
     bf = LLM(dev32, cfg, **tp_engine_kwargs())
     bf.generate([prompts["main"][0][:16]], params["greedy"])
     timing = {}
@@ -5021,10 +5185,16 @@ def run_tp_path(torch, max_new=32) -> dict:
         check(r0["backend"] == "gloo", f"tp {world} on one card ran over "
               f"{r0['backend']}, not gloo")
         for r in res[1:]:
-            for name, *_ in tp_runs(max_new):
+            for name in ["from_arch_f32"] + [x[0] for x in tp_runs(max_new)]:
                 check(r[name]["tokens"] == r0[name]["tokens"],
                       f"tp {world} {name}: rank {r['rank']}'s tokens differ "
                       "from rank 0's")
+        compare_streams(
+            torch, plain, entry, ref_entry,
+            [types.SimpleNamespace(token_ids=tuple(t), rid=i) for i, t in
+             zip(r0["from_arch_f32"]["rids"], r0["from_arch_f32"]["tokens"])],
+            f"phase 4k tp {world} LLM.from_arch(tp={world}, "
+            f"dtype='float32'), all {full.n_layers} layers")
         n = TP_PROMPTS[world]
         for name, dtype, kw, pk, prk in tp_runs(max_new):
             got = [types.SimpleNamespace(token_ids=tuple(t), rid=i)
@@ -5065,6 +5235,8 @@ def run_tp_path(torch, max_new=32) -> dict:
             tok_s=gb["tok_s"], decode_ms=gb["decode_ms"], wall_s=gb["wall_s"])
         plane = check_control_plane(torch, gap_llm, res, world, inputs[n],
                                     ref32, n)
+        if world == 2:
+            plane["moe"] = check_tp_moe(torch, res)
         timing.update(plane.pop("timing"))
         summary[f"tp{world}"] = dict(
             launches={n: r0[n]["launches"]
@@ -5079,7 +5251,7 @@ def run_tp_path(torch, max_new=32) -> dict:
           "gloo through the host on one card, no claim rides on them): "
           + "; ".join(f"{k} {v['tok_s']:.2f} tok/s, {v['decode_ms']:.3f} ms"
                       for k, v in timing.items()), flush=True)
-    del gap_llm, dev32
+    del gap_llm, dev32, plain
     gc.collect()
     torch.cuda.empty_cache()
     return summary
@@ -5158,6 +5330,7 @@ def run_paper_path(torch) -> tuple:
 # ---------------------------------------------------------------------------
 RG_MAX_LEN = 2304         # the longest prompt (2,200) + 64 new tokens fit
 RG_MAX_NEW = 64
+RG_LAYERS = 14            # of 26: 4 x (rec, rec, attn) + (rec, rec)
 
 
 def rg_prompts(vocab: int) -> list:
@@ -5172,7 +5345,8 @@ def rg_prompts(vocab: int) -> list:
 
 def check_rg_launches(launches, st, llm, what):
     """A recurrentgemma run's launches against its steps: flash attention
-    once an attention layer a prefill (8 a prompt), no paged attention
+    once an attention layer a prefill (4 a prompt at RG_LAYERS), no paged
+    attention
     (the ring buffers are dense), each head kernel once a head call of
     its kind (greedy: decode steps + prefills), no verify or softmax-unit
     kernel."""
@@ -5185,7 +5359,7 @@ def check_rg_launches(launches, st, llm, what):
             "online_softmax": 0, "fused_xent": 0}
     print(f"{what} launches: {launches} (want {want}; {st['decode_steps']} "
           f"decode steps, {st['prefills']} prefills)", flush=True)
-    check(per_step == 0 and per_prefill == 8,
+    check(per_step == 0 and per_prefill == (RG_LAYERS // 3),
           f"{what}: {per_step} paged / {per_prefill} attention layers")
     for name, n in want.items():
         check(launches[name] == n, f"{what}: {name} launched "
@@ -5505,13 +5679,14 @@ def rg_bf16_partings(torch, llm, twin, prompts, want, got,
 
 def run_recurrentgemma_path(torch, max_new=RG_MAX_NEW) -> tuple:
     """Phase 4l: recurrentgemma-2b (the hybrid RG-LRU family) at full
-    width in bf16 (26 layers, 8 x (rec, rec, attn) + (rec, rec), d 2,560,
-    10 heads over 1 KV head of 256, d_ff 7,680, V 256,000 tied, window
-    2,048, lru 2,560; nothing cut; random weights from seed 0) through
-    ``LLM.from_arch``, 8 slots of max_len 2,304 on the dense per-slot
-    store (ring buffers and recurrent state): ``rg_prompts`` greedy at 64
-    new tokens, eager then graphed twice (the second all replays; tokens
-    equal; flash 8 a prefill, no paged attention, the argmax head a step
+    width in bf16 with its depth cut to RG_LAYERS of 26 (4 x (rec, rec,
+    attn) + (rec, rec), d 2,560, 10 heads over 1 KV head of 256, d_ff
+    7,680, V 256,000 tied, window 2,048, lru 2,560; random weights from
+    seed 0, ``weights.seeded_params``), 8 slots of max_len 2,304 on the
+    dense per-slot store (ring buffers and recurrent state): ``rg_prompts``
+    greedy at 64 new tokens, eager then graphed twice (the second all
+    replays; tokens equal; flash 4 a prefill, no paged attention, the
+    argmax head a step
     and a prefill), Theorem 1 against the softmax head, mixed samplers
     (greedy, top-k, candidates, temperature), ``spec_k`` refused,
     ``chunk_size`` and ``host_stride`` warned off on one engine and
@@ -5530,26 +5705,30 @@ def run_recurrentgemma_path(torch, max_new=RG_MAX_NEW) -> tuple:
     from repro_torch.serve.params import SamplingParams
     from repro_torch.weights import seeded_params
 
+    from repro_torch.configs import get_config
+
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    llm = LLM.from_arch("recurrentgemma-2b", smoke=False, seed=0, n_slots=8,
-                        max_len=RG_MAX_LEN)
+    full = get_config("recurrentgemma-2b")
+    cut = dataclasses.replace(full, n_layers=RG_LAYERS)
+    llm = LLM(seeded_params(cut, 0, "cuda"), cut, seed=0, n_slots=8,
+              max_len=RG_MAX_LEN)
     torch.cuda.synchronize()
     cfg, eng = llm.cfg, llm.engine
     built_s, built_peak = time.perf_counter() - t0, \
         torch.cuda.max_memory_allocated()
-    check((cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
-           cfg.head_dim, cfg.d_ff, cfg.vocab_size, cfg.attention_window,
-           tuple(cfg.hybrid_pattern), cfg.lru_width, cfg.tie_embeddings,
-           cfg.dtype)
-          == (26, 2560, 10, 1, 256, 7680, 256000, 2048,
+    check((full.n_layers, cfg.n_layers, cfg.d_model, cfg.n_heads,
+           cfg.n_kv_heads, cfg.head_dim, cfg.d_ff, cfg.vocab_size,
+           cfg.attention_window, tuple(cfg.hybrid_pattern), cfg.lru_width,
+           cfg.tie_embeddings, cfg.dtype)
+          == (26, RG_LAYERS, 2560, 10, 1, 256, 7680, 256000, 2048,
               ("rec", "rec", "attn"), 2560, True, "bfloat16"),
           f"recurrentgemma-2b is not served at its full width: {cfg}")
     check(not eng.store.any_paged, "recurrentgemma-2b's store pages")
     wbytes = sum(t.numel() * t.element_size() for t in _leaves(eng.params))
     state = sum(t.numel() * t.element_size()
                 for t in _leaves(eng.store.cache()))
-    print(f"recurrentgemma-2b: {cfg.n_layers} layers "
+    print(f"recurrentgemma-2b: {cfg.n_layers} of {full.n_layers} layers "
           f"({len(eng._layers)} segments), d={cfg.d_model}, "
           f"{cfg.n_heads}/{cfg.n_kv_heads} heads, hd={cfg.head_dim}, "
           f"d_ff={cfg.d_ff}, V={cfg.vocab_size} tied, window "
@@ -5646,8 +5825,9 @@ def run_recurrentgemma_path(torch, max_new=RG_MAX_NEW) -> tuple:
     same_tree = all(torch.equal(m.to(torch.bfloat16), b) for m, b in zip(
         _leaves(masters), _leaves(eng.params)))
     print(f"recurrentgemma-2b: seeded_params(seed 0) on the card cast to "
-          f"bf16 == LLM.from_arch's tree: {same_tree}", flush=True)
-    check(same_tree, "recurrentgemma-2b: from_arch's tree is not the seed's")
+          f"bf16 == the engine's tree: {same_tree}", flush=True)
+    check(same_tree, "recurrentgemma-2b: the engine's tree is not the "
+          "seed's")
     twin = LLM(masters, f32, n_slots=8, max_len=RG_MAX_LEN, seed=0)
     del masters
     trun = drive_graphed(torch, twin, prompts, params,
@@ -5669,6 +5849,7 @@ def run_recurrentgemma_path(torch, max_new=RG_MAX_NEW) -> tuple:
 # ---------------------------------------------------------------------------
 RW_MAX_NEW = 64
 RW_MAX_LEN = 1024 + RW_MAX_NEW     # the longest prompt + its new tokens
+RW_LAYERS = 16       # of 32: the plain wkv scan is ~96% of a prefill
 
 
 def rw_prompts(vocab: int) -> list:
@@ -5749,10 +5930,10 @@ def check_rwkv_kernels(torch, timer) -> dict:
 
 
 def run_rwkv_path(torch, max_new=RW_MAX_NEW) -> tuple:
-    """Phase 4m: rwkv6-7b (the RWKV6 family) at full width in bf16 (32
-    layers, d 4,096, 64 wkv heads of 64, d_ff 14,336 relu_sq, V 65,536
-    untied; nothing cut; random weights from seed 0) through
-    ``LLM.from_arch``, 8 slots of per-slot state (shifts and wkv): 8
+    """Phase 4m: rwkv6-7b (the RWKV6 family) at full width in bf16 with
+    its depth cut to RW_LAYERS of 32 (d 4,096, 64 wkv heads of 64, d_ff
+    14,336 relu_sq, V 65,536 untied; random weights from seed 0,
+    ``weights.seeded_params``), 8 slots of per-slot state (shifts and wkv): 8
     prompts of 3-1,024 tokens greedy at 64 new tokens, eager then graphed
     twice (the second all replays; tokens equal; no attention kernel, the
     argmax head a step and a prefill), Theorem 1 against the softmax
@@ -5773,23 +5954,30 @@ def run_rwkv_path(torch, max_new=RW_MAX_NEW) -> tuple:
     from repro_torch.serve.params import SamplingParams
     from repro_torch.weights import seeded_params
 
+    from repro_torch.configs import get_config
+
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    llm = LLM.from_arch("rwkv6-7b", smoke=False, seed=0, n_slots=8,
-                        max_len=RW_MAX_LEN)
+    full = get_config("rwkv6-7b")
+    cut = dataclasses.replace(full, n_layers=RW_LAYERS)
+    llm = LLM(seeded_params(cut, 0, "cuda"), cut, seed=0, n_slots=8,
+              max_len=RW_MAX_LEN)
     torch.cuda.synchronize()
     cfg, eng = llm.cfg, llm.engine
     built_s, built_peak = time.perf_counter() - t0, \
         torch.cuda.max_memory_allocated()
-    check((cfg.n_layers, cfg.d_model, cfg.rwkv_head_size, cfg.d_ff,
-           cfg.vocab_size, cfg.activation, cfg.tie_embeddings, cfg.dtype)
-          == (32, 4096, 64, 14336, 65536, "relu_sq", False, "bfloat16"),
+    check((full.n_layers, cfg.n_layers, cfg.d_model, cfg.rwkv_head_size,
+           cfg.d_ff, cfg.vocab_size, cfg.activation, cfg.tie_embeddings,
+           cfg.dtype)
+          == (32, RW_LAYERS, 4096, 64, 14336, 65536, "relu_sq", False,
+              "bfloat16"),
           f"rwkv6-7b is not served at its full width: {cfg}")
     check(not eng.store.any_paged, "rwkv6-7b's store pages")
     wbytes = sum(t.numel() * t.element_size() for t in _leaves(eng.params))
     state = sum(t.numel() * t.element_size()
                 for t in _leaves(eng.store.cache()))
-    print(f"rwkv6-7b: {cfg.n_layers} layers, d={cfg.d_model}, "
+    print(f"rwkv6-7b: {cfg.n_layers} of {full.n_layers} layers, "
+          f"d={cfg.d_model}, "
           f"{cfg.d_model // cfg.rwkv_head_size} wkv heads of "
           f"{cfg.rwkv_head_size}, d_ff={cfg.d_ff} {cfg.activation}, "
           f"V={cfg.vocab_size} untied, {cfg.dtype}; weights "
@@ -5879,8 +6067,8 @@ def run_rwkv_path(torch, max_new=RW_MAX_NEW) -> tuple:
     same_tree = all(torch.equal(m.to(torch.bfloat16), b) for m, b in zip(
         _leaves(masters), _leaves(eng.params)))
     print(f"rwkv6-7b: seeded_params(seed 0) on the card cast to bf16 == "
-          f"LLM.from_arch's tree: {same_tree}", flush=True)
-    check(same_tree, "rwkv6-7b: from_arch's tree is not the seed's")
+          f"the engine's tree: {same_tree}", flush=True)
+    check(same_tree, "rwkv6-7b: the engine's tree is not the seed's")
     twin = LLM(masters, f32, n_slots=8, max_len=RW_MAX_LEN, seed=0)
     del masters
     trun = drive_graphed(torch, twin, prompts, params, "rwkv6-7b f32 twin")
@@ -5896,6 +6084,390 @@ def run_rwkv_path(torch, max_new=RW_MAX_NEW) -> tuple:
     print(f"rwkv6-7b phase peak memory: {summary['peak_memory_gb']:.3f} GB "
           "allocated (torch.cuda.max_memory_allocated)", flush=True)
     return summary, graphed[2], sampled_launches
+
+
+# ---------------------------------------------------------------------------
+# Phase 4n: the MoE family -- phi3.5-moe at full width, llama4's topology
+# ---------------------------------------------------------------------------
+MOE_ARCH = "phi3.5-moe-42b-a6.6b"
+MOE_SMOKE = "llama4-maverick-400b-a17b"
+MOE_LAYERS = 6       # of 32: its 83.75 GB of bf16 weights exceed one card
+MOE_MAX_NEW = 64
+MOE_TOL = 1e-4       # one MoE layer, card vs CPU in f32: atol = rtol
+
+
+def moe_prompts(vocab: int) -> list:
+    """Phase 4n's 8 prompts: phase 4's first 8 (numpy seed 0, 64-512
+    tokens), their ids taken modulo ``vocab``."""
+    prng = np.random.default_rng(0)
+    main = [prng.integers(0, 151936, size=int(n)).astype(np.int32)
+            for n in prng.integers(64, 513, size=12)]
+    return [(p % vocab).astype(np.int32) for p in main[:8]]
+
+
+def count_drops(torch, llm, prompts, params) -> dict:
+    """One eager run of ``llm`` with ``layers.moe_slots`` wrapped, so each
+    MoE call reports the choices it dropped (a host sync a call: eager
+    only; the graphed runs are not touched).  The calls come a forward
+    pass at a time, one a MoE layer: a pass of at most 8 tokens is a
+    decode step (its rows padded to a power of two), a longer one a
+    prefill.  Returns the drops of each decode step and each prefill,
+    summed over the layers, and the capacities seen."""
+    from repro_torch.models import layers, lm
+    from repro_torch.serve import step_graph
+
+    calls = []
+    inner = layers.moe_slots
+
+    def counted(idx, spec, group):
+        rank, keep, cap = inner(idx, spec, group)
+        calls.append((idx.shape[0], cap, int((~keep).sum())))
+        return rank, keep, cap
+
+    n_moe = lm.layer_types(llm.cfg).count("moe")
+    layers.moe_slots = counted
+    try:
+        with step_graph.eager_steps():
+            outs = llm.generate(prompts, params)
+    finally:
+        layers.moe_slots = inner
+    steps, prefills, caps = [], [], set()
+    for i in range(0, len(calls), n_moe):
+        passes = calls[i:i + n_moe]
+        n_tok = passes[0][0]
+        (steps if n_tok <= 8 else prefills).append(
+            sum(c[2] for c in passes))
+        if n_tok <= 8:
+            caps.add((n_tok, passes[0][1]))
+    return dict(outs=outs, step_drops=steps, prefill_drops=prefills,
+                decode_capacity=sorted(caps))
+
+
+def profile_moe_share(torch, llm, prompts, steps=3) -> dict:
+    """``torch.profiler`` over ``steps`` eager decode iterations of 8 rows
+    (every request admitted first): the device time of the kernels the
+    MoE layers launched (a ``record_function`` range around each
+    ``lm.moe_layer`` call) against all the step's kernels."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from repro_torch.models import lm
+    from repro_torch.serve import step_graph
+    from repro_torch.serve.params import SamplingParams
+
+    eng = llm.engine
+    inner = lm.moe_layer
+
+    def ranged(*a, **kw):
+        with record_function("moe_layer"):
+            return inner(*a, **kw)
+
+    with step_graph.eager_steps():
+        for p in prompts[:8]:
+            llm.submit(p, SamplingParams(max_new_tokens=steps + 4))
+        eng.step()
+        eng.step()
+        torch.cuda.synchronize()
+        lm.moe_layer = ranged
+        try:
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                for _ in range(steps):
+                    eng.step()
+                torch.cuda.synchronize()
+                wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+        finally:
+            lm.moe_layer = inner
+        while eng.has_work:
+            eng.step()
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    busy_ms = sum(e.time_range.elapsed_us() for e in kernels) / 1e3 / steps
+    moe_ms = sum(getattr(e, "device_time_total", 0)
+                 for e in prof.key_averages()
+                 if e.key == "moe_layer") / 1e3 / steps
+    if not kernels or not moe_ms:
+        print(f"phi3.5-moe eager step profile: wall {wall_ms:.3f} ms/step; "
+              "the profiler attributed no device time (MoE share not "
+              "measured)", flush=True)
+        return dict(wall_ms=wall_ms, busy_ms=busy_ms or None, moe_ms=None,
+                    moe_share=None)
+    print(f"phi3.5-moe eager step profile (8 rows, {steps} steps, profiler "
+          f"on): wall {wall_ms:.3f} ms/step, device busy {busy_ms:.3f} "
+          f"ms/step in {len(kernels) / steps:.0f} kernels, the MoE layers "
+          f"{moe_ms:.3f} ms/step = {100 * moe_ms / busy_ms:.1f}% of it",
+          flush=True)
+    return dict(wall_ms=wall_ms, busy_ms=busy_ms, moe_ms=moe_ms,
+                moe_share=moe_ms / busy_ms,
+                kernels_per_step=len(kernels) / steps)
+
+
+def check_moe_layer_card_vs_cpu(torch, twin, prompts) -> dict:
+    """One decode step's MoE layer, its input taken from a real eager
+    step of ``twin`` (f32, the published capacity factor; 8 rows, the
+    middle layer), run on the card and, with the same f32 leaves copied
+    over, on the CPU: the same experts, ranks and kept choices, and the
+    outputs within MOE_TOL."""
+    from repro_torch.models import layers, lm
+    from repro_torch.serve import step_graph
+    from repro_torch.serve.params import SamplingParams
+
+    eng = twin.engine
+    seen = []
+    inner = lm.moe_layer
+
+    def grab(p, x, cfg, **kw):
+        if x.shape[1] == 1:
+            seen.append((p, x.detach().clone()))
+        return inner(p, x, cfg, **kw)
+
+    with step_graph.eager_steps():
+        for p in prompts[:8]:
+            twin.submit(p, SamplingParams(max_new_tokens=2))
+        lm.moe_layer = grab
+        try:
+            eng.step()                    # admit all 8, one decode step
+        finally:
+            lm.moe_layer = inner
+        while eng.has_work:
+            eng.step()
+    check(len(seen) == eng.cfg.n_layers, f"phi3.5-moe layer check: "
+          f"{len(seen)} decode MoE calls in one step")
+    p, x = seen[len(seen) // 2]
+    spec, res = eng.cfg.moe, {}
+    for dev in ("cuda", "cpu"):
+        pd = {k: v.to(dev) for k, v in p.items()}
+        xd = x.to(dev)
+        _, vals, idx = layers.moe_route(xd.reshape(-1, x.shape[-1]),
+                                        pd["router"], spec)
+        rank, keep, cap = layers.moe_slots(idx, spec, x.shape[0])
+        y, aux = layers.moe_layer(pd, xd, eng.cfg, impl="scatter")
+        res[dev] = [t.cpu() for t in (idx, rank, keep, vals, y, aux)]
+        del pd
+    c, h = res["cuda"], res["cpu"]
+    same = all(torch.equal(a, b) for a, b in zip(c[:3], h[:3]))
+    err = (c[4] - h[4]).abs().max().item()
+    print(f"phi3.5-moe layer {len(seen) // 2} of a decode step (8 rows, f32, "
+          f"capacity {cap} an expert): card vs CPU experts, ranks and kept "
+          f"choices equal: {same} ({int((~c[2]).sum())} of "
+          f"{c[2].numel()} choices dropped); output max abs err {err:.3g}, "
+          f"routing weights {(c[3] - h[3]).abs().max().item():.3g}, aux "
+          f"{c[5].item():.6g} / {h[5].item():.6g}", flush=True)
+    check(same, "phi3.5-moe: the card and the CPU keep different choices")
+    check(torch.allclose(c[4], h[4], atol=MOE_TOL, rtol=MOE_TOL),
+          f"phi3.5-moe: the MoE layer on the card is {err} off the CPU's")
+    return dict(same_kept=same, max_abs_err=err,
+                dropped=int((~c[2]).sum()), capacity=cap)
+
+
+def run_moe_path(torch, max_new=MOE_MAX_NEW) -> tuple:
+    """Phase 4n: phi3.5-moe (the MoE family) at full width in bf16 with
+    its depth cut to MOE_LAYERS (d 4,096, 32 q over 8 kv heads of 128, 16
+    experts of 6,400 top-2 SiLU-GLU in every layer, V 32,064 untied;
+    random weights from seed 0, ``weights.seeded_params``, f32 on the
+    card and kept as the twins' masters), 8 paged slots of 1,024: 8
+    prompts of 64-512 tokens greedy at ``max_new`` tokens, eager then
+    graphed three times (the third all replays; tokens equal; paged
+    attention once a layer a decode step, flash once a layer a prefill,
+    the argmax head a step and a prefill, verify none), Theorem 1,
+    mixed samplers, ``spec_k`` refused, ``chunk_size`` and
+    ``host_stride`` warned off with the same tokens; the choices dropped
+    per step at the published capacity factor (1.25; an eager run); the
+    MoE layers' share of a profiled eager step; an f32 twin at 1.25 (the
+    bf16 streams measured against it; one decode step's MoE layer on the
+    card against the CPU) and one at capacity factor 16 = E, which drops
+    nothing, held to its scalar replay and ``argmax(lm.forward)``;
+    llama4-maverick's smoke config ((attn, moe) units, a shared expert,
+    top-1) through the same engine, graphed == eager.  Prints the
+    replayed step against the bound of reading every weight once, tok/s
+    and the peak memory.  Returns (summary, the graphed run 1's launches,
+    the sampled run's, the llama4 run's)."""
+    import dataclasses
+    import warnings
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm
+    from repro_torch.serve.api import LLM
+    from repro_torch.serve.params import SamplingParams
+    from repro_torch.weights import seeded_params
+
+    torch.cuda.reset_peak_memory_stats()
+    full = get_config(MOE_ARCH)
+    cfg = dataclasses.replace(full, n_layers=MOE_LAYERS)
+    t0 = time.perf_counter()
+    masters = seeded_params(cfg, 0, "cuda")
+    llm = LLM(masters, cfg, n_slots=8, max_len=1024, seed=0)
+    torch.cuda.synchronize()
+    eng = llm.engine
+    built_s, built_peak = time.perf_counter() - t0, \
+        torch.cuda.max_memory_allocated()
+    m = cfg.moe
+    check((cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
+           m.num_experts, m.top_k, m.d_ff_expert, m.capacity_factor,
+           cfg.vocab_size, cfg.tie_embeddings, cfg.dtype)
+          == (4096, 32, 8, 128, 16, 2, 6400, 1.25, 32064, False,
+              "bfloat16") and full.n_layers == 32,
+          f"phi3.5-moe is not served at its full width: {cfg}")
+    check(eng.store.any_paged, "phi3.5-moe's store does not page")
+    wbytes = step_weight_bytes(eng)
+    print(f"phi3.5-moe: {cfg.n_layers} of {full.n_layers} layers, "
+          f"d={cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads of "
+          f"{cfg.head_dim}, {m.num_experts} experts of {m.d_ff_expert} "
+          f"top-{m.top_k} {cfg.activation}, capacity factor "
+          f"{m.capacity_factor}, V={cfg.vocab_size} untied, {cfg.dtype}; "
+          f"weights a step reads {wbytes / 1e9:.3f} GB, KV pool "
+          f"{sum(_nbytes(p) for p in eng.store.pools.values()) / 1e9:.3f} "
+          f"GB; "
+          f"built in {built_s:.1f} s (the host draw and the f32 masters "
+          f"on the card included), peak {built_peak / 1e9:.3f} GB",
+          flush=True)
+    prompts = moe_prompts(cfg.vocab_size)
+    print(f"phi3.5-moe prompts: {[len(p) for p in prompts]} tokens",
+          flush=True)
+    params = SamplingParams(max_new_tokens=max_new)
+    llm.generate([prompts[0][:16]], SamplingParams(max_new_tokens=2))
+    torch.cuda.synchronize()
+
+    eager, graphed = drive_both(torch, llm, prompts, params, "phi3.5-moe")
+    check_main_launches(eager[2], eager[3], cfg, len(prompts),
+                        "phi3.5-moe eager")
+    check_main_launches(graphed[2], graphed[3], cfg, len(prompts),
+                        "phi3.5-moe graphed run 1")
+    _, again = drive_replays(torch, llm, prompts, params, "phi3.5-moe",
+                             graphed)
+    check_main_launches(again[2], again[3], cfg, len(prompts),
+                        "phi3.5-moe graphed run 3")
+    outs = graphed[0]
+    for o in outs:
+        check(1 <= len(o.token_ids) <= max_new
+              and o.finish_reason in ("length", "eos")
+              and all(0 <= x < cfg.vocab_size for x in o.token_ids),
+              f"phi3.5-moe: bad output for rid {o.rid}: {o.finish_reason} "
+              f"{o.token_ids}")
+    summary = {
+        "eager": main_line("phi3.5-moe, eager", eager[0], eager[3],
+                           eager[4]),
+        "graph_first_run": main_line("phi3.5-moe, graphed run 1", outs,
+                                     graphed[3], graphed[4]),
+        "graph": main_line("phi3.5-moe, graphed run 3 (replays only)",
+                           again[0], again[3], again[4])}
+    bound_ms = wbytes / HBM_BYTES_PER_S * 1e3
+    for k in ("eager", "graph"):
+        ms = summary[k]["decode_ms"]
+        print(f"phi3.5-moe {k} decode step: {ms:.3f} ms against a bound of "
+              f"{bound_ms:.3f} ms (every weight but the embedding read once, "
+              f"every expert's slots computed: {wbytes / 1e9:.3f} GB at "
+              f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s): {ms / bound_ms:.2f}x",
+              flush=True)
+    summary.update(step_bound_ms=bound_ms, weights_gb=wbytes / 1e9,
+                   built_s=built_s, built_peak_gb=built_peak / 1e9,
+                   graphs=graph_line(llm),
+                   prompt_tokens=[len(p) for p in prompts])
+    check_theorem1(torch, llm, prompts, outs, max_new,
+                   what="phi3.5-moe theorem 1")
+    sampled_launches, summary["sampled"] = run_sampled_path(
+        torch, llm, prompts, outs, max_new, what="phi3.5-moe sampled",
+        gate=False)
+    summary["sampled"]["launches"] = sampled_launches
+
+    try:
+        llm.generate([prompts[0]], SamplingParams(max_new_tokens=4,
+                                                  spec_k=4))
+        refused = None
+    except ValueError as e:
+        refused = str(e)
+    print(f"phi3.5-moe spec_k=4: refused: {refused}", flush=True)
+    check(refused is not None and "MoE" in refused,
+          "phi3.5-moe: spec_k was not refused")
+    kw = {"chunk_size": 64, "host_stride": 8}
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        e = LLM(eng.params, cfg, n_slots=8, max_len=1024, seed=0, **kw)
+    for what in ("chunk_size=64 ignored", "host_stride=8 ignored"):
+        check(any(what in str(c.message) for c in caught),
+              f"phi3.5-moe {kw}: no '{what}' warning")
+    check(e.engine.chunk_size is None and e.engine.host_stride is None
+          and not e.engine.prefix_cache,
+          f"phi3.5-moe {kw}: the modes were not dropped")
+    run = drive_graphed(torch, e, prompts, params, f"phi3.5-moe {kw}")
+    check_main_launches(run[2], run[3], cfg, len(prompts),
+                        f"phi3.5-moe {kw}")
+    summary["fallback_identical"] = compare_streams(
+        torch, llm, prompts, outs, run[0],
+        f"phi3.5-moe {kw} (fallen back) vs the main run")
+    del e, run
+
+    drops = count_drops(torch, llm, prompts, params)
+    compare_streams(torch, llm, prompts, outs, drops.pop("outs"),
+                    "phi3.5-moe eager run counting drops vs graphed run 1")
+    per = drops["step_drops"]
+    print(f"phi3.5-moe choices dropped at capacity factor "
+          f"{m.capacity_factor} (eager run; capacities (rows, slots an "
+          f"expert) {drops['decode_capacity']}): per decode step over its "
+          f"{cfg.n_layers} layers {per}; {sum(per)} in {len(per)} steps, "
+          f"{sum(d > 0 for d in per)} steps with a drop, max {max(per)}; "
+          f"per prefill {drops['prefill_drops']}", flush=True)
+    check(max(per) > 0, "phi3.5-moe: no decode step dropped a choice")
+    summary["drops"] = dict(per_step=per, total=sum(per),
+                            mean=sum(per) / len(per), max=max(per),
+                            per_prefill=drops["prefill_drops"],
+                            decode_capacity=drops["decode_capacity"])
+    summary["profile"] = profile_moe_share(torch, llm, prompts)
+
+    f32 = dataclasses.replace(cfg, dtype="float32")
+    twin = LLM(masters, f32, n_slots=8, max_len=1024, seed=0)
+    trun = drive_graphed(torch, twin, prompts, params,
+                         "phi3.5-moe f32 twin")
+    check(trun[6] > 0, "phi3.5-moe f32 twin: no replay")
+    check_main_launches(trun[2], trun[3], f32, len(prompts),
+                        "phi3.5-moe f32 twin")
+    summary["bf16_vs_f32"] = rg_bf16_partings(torch, llm, twin, prompts,
+                                              trun[0], outs,
+                                              name="phi3.5-moe")
+    summary["layer_card_vs_cpu"] = check_moe_layer_card_vs_cpu(
+        torch, twin, prompts)
+    del twin, trun
+    gc.collect()
+    torch.cuda.empty_cache()
+    e_num = m.num_experts
+    nodrop = dataclasses.replace(f32, moe=dataclasses.replace(
+        m, capacity_factor=float(e_num)))
+    twin = LLM(masters, nodrop, n_slots=8, max_len=1024, seed=0)
+    trun = drive_graphed(torch, twin, prompts, params,
+                         f"phi3.5-moe f32 twin at capacity factor {e_num}")
+    check(trun[6] > 0, "phi3.5-moe f32 no-drop twin: no replay")
+    summary["f32_no_drop"] = rg_replay_f32(
+        torch, twin, prompts, trun[0], max_new,
+        name=f"phi3.5-moe at capacity factor {e_num}")
+    del twin, trun, masters
+    gc.collect()
+    torch.cuda.empty_cache()
+    summary["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    print(f"phi3.5-moe phase peak memory: {summary['peak_memory_gb']:.3f} GB "
+          "allocated (torch.cuda.max_memory_allocated)", flush=True)
+
+    small = LLM.from_arch(MOE_SMOKE, smoke=True, seed=0, n_slots=8,
+                          max_len=128)
+    sc = small.cfg
+    check(lm.segments(sc)[0][0] == ("attn", "moe") and sc.moe.shared_expert
+          and sc.moe.top_k == 1, f"{MOE_SMOKE} smoke: not the interleaved "
+          f"shared-expert topology: {sc}")
+    sp = [(p[:24] % sc.vocab_size).astype(np.int32) for p in prompts]
+    s_eager, s_graphed = drive_both(torch, small, sp,
+                                    SamplingParams(max_new_tokens=16),
+                                    f"{MOE_SMOKE} smoke")
+    check_main_launches(s_graphed[2], s_graphed[3], sc, len(sp),
+                        f"{MOE_SMOKE} smoke graphed")
+    summary["llama4_smoke"] = dict(
+        graphed_equal_eager=True, replays=s_graphed[6],
+        decode_steps=s_graphed[3]["decode_steps"],
+        launches=s_graphed[2])
+    del small
+    return summary, graphed[2], sampled_launches, s_graphed[2]
+
+
+def _nbytes(t) -> int:
+    return t.numel() * t.element_size()
 
 
 def _leaves(tree):
@@ -6042,7 +6614,11 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
         timer = Timer(torch)
-        sc2_rows = check_starcoder2_kernels(torch, timer)
+        # kernels 1-5 at starcoder2's shapes: 36 / 4 heads (g 9), the
+        # untied (49152, 4608) head
+        sc2_rows = check_model_kernels(torch, timer, "starcoder2-7b",
+                                       hq=36, hkv=4, hd=128, d=4608,
+                                       v=49152, seed=72)
         del timer
         summary["starcoder2_7b"], sc2_launches = run_starcoder2_path(
             torch, max_new)
@@ -6076,6 +6652,19 @@ def main() -> int:
         del timer
         summary["rwkv6_7b"], rw_launches, rw_sampled = run_rwkv_path(torch)
         mark("phase 4m")
+        # phase 4n: phi3.5-moe, on a card every earlier engine left: rows
+        # 1j / 5c / 2e / 3d at its shapes (32 / 8 heads, g 4; the untied
+        # (32064, 4096) head), then the served path
+        gc.collect()
+        torch.cuda.empty_cache()
+        timer = Timer(torch)
+        moe_rows = check_model_kernels(torch, timer, "phi3.5-moe", hq=32,
+                                       hkv=8, hd=128, d=4096, v=32064,
+                                       seed=59, paged_ts=(1,), verify=False)
+        del timer
+        (summary["phi35_moe"], moe_launches, moe_sampled,
+         l4_launches) = run_moe_path(torch)
+        mark("phase 4n")
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1
@@ -6088,7 +6677,7 @@ def main() -> int:
              host_stride8_launches=stride_launches["paged_attention"],
              max_abs_err=max(r["max_abs_err"] for r in [
                  *pa_rows.values(), sc2_rows["paged_t1"],
-                 sc2_rows["paged_t64"]]),
+                 sc2_rows["paged_t64"], moe_rows["paged_t1"]]),
              **{k: pa_rows[1][k] for k in TIMES + ("chunks",)},
              single_row={k: pa_rows["B1"][k] for k in TIMES + ("chunks",)},
              t64={k: pa_rows[64][k] for k in TIMES + ("chunks",)},
@@ -6098,6 +6687,12 @@ def main() -> int:
              starcoder2_launches=sc2_launches["paged_attention"],
              recurrentgemma_launches=rg_launches["paged_attention"],
              rwkv6_launches=rw_launches["paged_attention"],
+             phi35_moe_launches=moe_launches["paged_attention"],
+             llama4_smoke_launches=l4_launches["paged_attention"],
+             tp_moe_launches=summary["tp"]["tp2"]["moe"]["launches"][
+                 "paged_attention"],
+             phi35_moe_t1_g4={k: moe_rows["paged_t1"][k]
+                              for k in TIMES + ("chunks", "max_abs_err")},
              tp_router_launches=summary["tp"]["tp4"]["router"]["launches"][
                  "paged_attention"],
              tp_http_launches=summary["tp"]["tp2"]["http"]["launches"][
@@ -6146,7 +6741,8 @@ def main() -> int:
              max_abs_err=max(r["max_abs_err"] for r in [
                  *head_rows.values(), wide_rows["argmax_B1"],
                  wide_rows["argmax_B8"], sc2_rows["argmax_b8"],
-                 rg_rows["argmax_b8"], rw_rows["argmax_b8"]]),
+                 rg_rows["argmax_b8"], rw_rows["argmax_b8"],
+                 moe_rows["argmax_b8"]]),
              **{k: head_rows[8][k] for k in TIMES},
              b1={k: head_rows[1][k] for k in TIMES},
              b64={k: head_rows[64][k] for k in TIMES},
@@ -6169,6 +6765,9 @@ def main() -> int:
              rwkv6_launches=rw_launches["fused_argmax_head"],
              rwkv6_untied_b8={k: rw_rows["argmax_b8"][k]
                               for k in TIMES + ("max_abs_err",)},
+             phi35_moe_launches=moe_launches["fused_argmax_head"],
+             phi35_moe_untied_b8={k: moe_rows["argmax_b8"][k]
+                                  for k in TIMES + ("max_abs_err",)},
              tp_router_launches=summary["tp"]["tp4"]["router"]["launches"][
                  "fused_argmax_head"],
              tp_http_launches=summary["tp"]["tp2"]["http"]["launches"][
@@ -6179,7 +6778,8 @@ def main() -> int:
              launches=topk_launches["fused_topk_head"],
              max_abs_err=max(r["max_abs_err"] for r in [
                  *topk_rows.values(), wide_rows["topk_B8_k8"],
-                 sc2_rows["topk_b4_k8"], rw_rows["topk_b4_k8"]]),
+                 sc2_rows["topk_b4_k8"], rw_rows["topk_b4_k8"],
+                 moe_rows["topk_b4_k8"]]),
              **{k: topk_rows[(4, 8)][k] for k in TIMES},
              k64={k: topk_rows[(4, 64)][k] for k in TIMES},
              passes=topk_passes, d18432=wide_rows["topk_B8_k8"],
@@ -6192,7 +6792,10 @@ def main() -> int:
                                       for k in TIMES + ("max_abs_err",)},
              rwkv6_sampled_launches=rw_sampled["fused_topk_head"],
              rwkv6_untied_b4_k8={k: rw_rows["topk_b4_k8"][k]
-                                 for k in TIMES + ("max_abs_err",)}),
+                                 for k in TIMES + ("max_abs_err",)},
+             phi35_moe_sampled_launches=moe_sampled["fused_topk_head"],
+             phi35_moe_untied_b4_k8={k: moe_rows["topk_b4_k8"][k]
+                                     for k in TIMES + ("max_abs_err",)}),
         dict(name="fused_verify_head", route="cuda",
              source="src/repro_torch/kernels/csrc/fused_argmax_head.cu",
              replaces="src/repro/kernels/fused_topk_head.py:170",
@@ -6212,14 +6815,16 @@ def main() -> int:
                  "spec4_f32"]["fused_verify_head"] for w in TP_WORLDS},
              starcoder2_untied_b8_t8={k: sc2_rows["verify_b8_t8"][k]
                                       for k in TIMES},
-             rwkv6_launches=rw_launches["fused_verify_head"]),
+             rwkv6_launches=rw_launches["fused_verify_head"],
+             phi35_moe_launches=moe_launches["fused_verify_head"]),
         dict(name="flash_attention", route="cuda",
              source="src/repro_torch/kernels/csrc/flash_attention.cu",
              replaces="src/repro/kernels/flash_attention.py:76",
              launches=launches["flash_attention"],
              max_abs_err=max(r["max_abs_err"] for r in [
                  *flash_rows.values(), sc2_rows["flash_t512_g9"],
-                 rg_rows["flash_t2150_g10_hd256"]]),
+                 rg_rows["flash_t2150_g10_hd256"],
+                 moe_rows["flash_t512_g4"]]),
              **{k: flash_rows["T512"][k] for k in TIMES},
              g8={k: flash_rows["T512_g8"][k] for k in TIMES},
              hd192={k: v for k, v in hd192_rows.items()
@@ -6232,6 +6837,9 @@ def main() -> int:
                                  for k in TIMES + ("max_abs_err",)},
              recurrentgemma_launches=rg_launches["flash_attention"],
              rwkv6_launches=rw_launches["flash_attention"],
+             phi35_moe_launches=moe_launches["flash_attention"],
+             phi35_moe_t512_g4={k: moe_rows["flash_t512_g4"][k]
+                                for k in TIMES + ("max_abs_err",)},
              recurrentgemma_t2150_g10_hd256_w2048={
                  k: rg_rows["flash_t2150_g10_hd256"][k]
                  for k in TIMES + ("max_abs_err", "route")}),

@@ -54,19 +54,20 @@ def serve_prefill_paged(params: dict, cfg: ModelConfig,
     """One-shot paged prompt pass (B = 1): prefill at the block-aligned
     ``cache_len`` and write its K/V straight into the slot's pool
     ``blocks`` ((nb,) int) of ``pools`` ({"k", "v"}: (L, num_blocks, bs,
-    Hkv, hd)), in place.  Positions of the last block past the prompt
-    receive the prefill's zero padding, as in the JAX package; decode
-    overwrites them before any query can see them.  Returns the head
-    output."""
+    Hkv, hd) over the L attention-bearing layers, ``lm.pool_tree``'s
+    stack), in place, every attention-bearing slot into its own view.
+    Positions of the last block past the prompt receive the prefill's
+    zero padding, as in the JAX package; decode overwrites them before
+    any query can see them.  Returns the head output."""
     h, cache = lm.prefill(params, cfg, tokens, cache_len)
-    leaf = cache[0]["slot0"]["attn"]
     nb = blocks.shape[0]
-    for name in ("k", "v"):
-        pool = pools[name]
-        bs = pool.shape[2]
-        view = leaf[name][:, 0, :nb * bs]              # (L, nb*bs, Hkv, hd)
-        pool[:, blocks] = view.reshape(view.shape[0], nb, bs,
-                                       *view.shape[2:]).to(pool.dtype)
+    for seg, pseg in zip(cache, lm.pool_tree(cfg, pools)):
+        for slot, views in pseg.items():
+            for name, pool in views["attn"].items():
+                bs = pool.shape[2]
+                view = seg[slot]["attn"][name][:, 0, :nb * bs]
+                pool[:, blocks] = view.reshape(view.shape[0], nb, bs,
+                                               *view.shape[2:]).to(pool.dtype)
     return sampler.head(params, cfg, h)
 
 

@@ -103,6 +103,10 @@ class StepConstants:
     mask        (B or 1, 1, 1, T, S) bool: the keys each query sees
     rows        (B,) int64: the cache row of each batch row, or None when
                 batch row b is cache row b
+    src         (B * T,) int64 or None: for each query, the first query
+                of the step that writes the same cache cell; a query
+                writes that query's K/V (set for the moe family only,
+                ``write_sources``)
     """
 
     cos: torch.Tensor
@@ -116,6 +120,26 @@ class StepConstants:
     ring: bool = False
     mask: Optional[torch.Tensor] = None
     rows: Optional[torch.Tensor] = None
+    src: Optional[torch.Tensor] = None
+
+
+def write_sources(cells: torch.Tensor) -> torch.Tensor:
+    """For each entry of ``cells`` (flat cache cell ids), the index of the
+    first entry with the same id.  A padding row repeats a live row's
+    slot, token and position; in a dense model it computes the live
+    row's K/V bit for bit, so the duplicate write is harmless, but behind
+    a capacity-dropping MoE layer it can lose choices the live row keeps
+    (it comes last in rank order) and its K/V then differ.  Writing the
+    first writer's K/V from every duplicate makes the cell's value
+    independent of the order the writes land in (the card's
+    ``index_put_`` gives none) and keeps the live row's own K/V, as the
+    reference's dense layout does (each padded row attends over its own
+    copy of the cache, and only the live rows are written back)."""
+    n = cells.numel()
+    flat = cells.reshape(-1)
+    idx = torch.arange(n, device=cells.device)
+    return torch.where(flat[:, None] == flat[None, :], idx[None, :],
+                       n).amin(dim=1)
 
 
 def step_constants(cfg: ModelConfig, positions: torch.Tensor, *,
@@ -155,15 +179,22 @@ def step_constants(cfg: ModelConfig, positions: torch.Tensor, *,
             m = kv <= cpm[:, :, None]
             if window is not None:
                 m &= kv > cpm[:, :, None] - window
+        src = None
+        if cfg.moe is not None and rows is not None:
+            src = write_sources(rows[:, None] * cache_len
+                                + slot.expand(rows.shape[0], T))
         return StepConstants(cos, sin, cpm=cpm, slot=slot, ring=ring,
-                             mask=m[:, None, None], rows=rows)
+                             mask=m[:, None, None], rows=rows, src=src)
     B = block_tables.shape[0]
     cpm = cpm.expand(B, T)
     blk = torch.gather(block_tables.long(), 1, cpm // block_size)
-    return StepConstants(cos, sin, cpm=cpm, blk=blk, off=cpm % block_size,
+    off = cpm % block_size
+    return StepConstants(cos, sin, cpm=cpm, blk=blk, off=off,
                          tables=block_tables.to(torch.int32),
                          positions=(cpm[:, 0] if T == 1 else cpm).to(
-                             torch.int32))
+                             torch.int32),
+                         src=(write_sources(blk * block_size + off)
+                              if cfg.moe is not None else None))
 
 
 def activate(h_gate: torch.Tensor, h_up: Optional[torch.Tensor],
@@ -254,6 +285,8 @@ def attention(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
         out = o.transpose(1, 2).reshape(B, T, hq * hd)
         return out @ p["wo"], (k, v)
 
+    if consts.src is not None:
+        k, v = _first_writes(k, consts.src), _first_writes(v, consts.src)
     if consts.tables is None:
         return _dense_attention(p, q, k, v, cfg, consts, cache)
     # The new K/V rows go into the shared pools IN PLACE.  The JAX package
@@ -273,6 +306,13 @@ def attention(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
                             window=cfg.attn_window)
     out = o.reshape(B, T, hq * hd).to(x.dtype)
     return out @ p["wo"], cache
+
+
+def _first_writes(t: torch.Tensor, src: torch.Tensor) -> torch.Tensor:
+    """(B, T, H, hd) K or V with each query's row replaced by its cell's
+    first writer's (``StepConstants.src``)."""
+    B, T = t.shape[:2]
+    return t.reshape(B * T, *t.shape[2:])[src].view(t.shape)
 
 
 def _dense_attention(p, q, k, v, cfg: ModelConfig, consts: StepConstants,
@@ -302,3 +342,170 @@ def _dense_attention(p, q, k, v, cfg: ModelConfig, consts: StepConstants,
     probs = torch.softmax(scores, dim=-1).to(dt)
     out = torch.einsum("bkgts,bskh->btkgh", probs, cv.to(dt))
     return out.reshape(B, T, hq * hd) @ p["wo"], cache
+
+
+# ---------------------------------------------------------------------------
+# MoE (top-k, capacity factor): the reference's two executors and its
+# single-device oracle (``repro/models/layers.py:453-618``), in index form
+# ---------------------------------------------------------------------------
+def moe_route(xf: torch.Tensor, router: torch.Tensor, spec):
+    """Per-token routing (reference ``_route``): f32 router logits,
+    softmax, the top-k probabilities and their experts, renormalised to
+    sum 1 when k > 1.  Returns (probs (N, E) f32, vals (N, k), idx (N, k)
+    int64).  Top-k is a stable descending sort, so equal probabilities
+    give the lower expert first, as ``jax.lax.top_k`` does (``torch.topk``
+    on the card promises no order among ties)."""
+    probs = torch.softmax(xf.float() @ router.float(), dim=-1)
+    vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    vals, idx = vals[:, :spec.top_k], idx[:, :spec.top_k]
+    if spec.top_k > 1:
+        vals = vals / vals.sum(dim=-1, keepdim=True)
+    return probs, vals, idx
+
+
+def moe_aux_loss(probs: torch.Tensor, idx: torch.Tensor,
+                 n_experts: int) -> torch.Tensor:
+    """Switch-style load balance, ``E * sum_e f_e * P_e`` (f32 scalar):
+    f_e the mean over tokens of the choices routed to e, P_e the mean
+    router probability."""
+    onehot = (idx[..., None] == torch.arange(
+        n_experts, device=idx.device)).float()               # (N, k, E)
+    f = onehot.sum(dim=1).mean(dim=0)
+    return n_experts * torch.sum(f * probs.mean(dim=0))
+
+
+def moe_slots(idx: torch.Tensor, spec, group: int):
+    """Each choice's slot in its expert: the choices (N, k) in groups of
+    ``group`` consecutive tokens are ranked within their expert in
+    (token, choice) order -- token-major, choice-minor, the lower token
+    first -- and a choice whose rank reaches the group's capacity,
+    ``ceil(cf * group * k / E)`` slots an expert (at least 1), is
+    dropped.  Returns (rank (N, k) int64, keep (N, k) bool, capacity).
+    Static shapes and no host sync: a decode step stays capturable."""
+    n_tok, k = idx.shape
+    cap = max(1, int(math.ceil(
+        spec.capacity_factor * group * spec.top_k / spec.num_experts)))
+    e = idx.reshape(n_tok // group, group * k)
+    onehot = (e[..., None] == torch.arange(
+        spec.num_experts, device=idx.device)).long()         # (G, n*k, E)
+    before = onehot.cumsum(dim=1) - onehot
+    rank = before.gather(2, e[..., None])[..., 0].reshape(n_tok, k)
+    return rank, rank < cap, cap
+
+
+def _expert_share(p: dict, xf: torch.Tensor, vals: torch.Tensor,
+                  idx: torch.Tensor, spec, group: int, experts,
+                  activation: str) -> torch.Tensor:
+    """The routed sum of one expert range's kept choices, (N, d) in x's
+    dtype.  Every token is routed over all E experts at the global
+    capacity (``moe_slots``); the experts in ``[lo, hi)`` -- the leaves of
+    ``p`` hold exactly those -- fill a (hi - lo, G * C, d) buffer, one
+    slot a kept choice (group g's slots at [g C, (g + 1) C)), run as one
+    batched GEMM an expert, and each kept choice gathers its slot's output
+    times its routing weight.  A choice that is dropped or whose expert
+    lies outside the range goes to one spare row that is discarded, so
+    that row alone takes more than one write, and no kept slot is ever
+    written twice."""
+    n_tok, d = xf.shape
+    k = idx.shape[1]
+    lo, hi = experts
+    n_loc = hi - lo
+    if p["w_gate"].shape[0] != n_loc:
+        raise ValueError(f"expert range {experts} but the layer holds "
+                         f"{p['w_gate'].shape[0]} experts")
+    rank, keep, cap = moe_slots(idx, spec, group)
+    slots = (n_tok // group) * cap
+    g = torch.arange(n_tok, device=xf.device)[:, None] // group
+    rel = idx - lo
+    keep = keep & (rel >= 0) & (rel < n_loc)
+    dest = torch.where(keep, rel * slots + g * cap + rank,
+                       n_loc * slots).reshape(-1)
+    buf = xf.new_zeros((n_loc * slots + 1, d))
+    buf.index_copy_(0, dest, xf[:, None].expand(n_tok, k, d).reshape(-1, d))
+    ein = buf[:-1].view(n_loc, slots, d)
+    if activation.endswith("_glu"):
+        h = activate(torch.bmm(ein, p["w_gate"]), torch.bmm(ein, p["w_up"]),
+                     activation)
+    else:
+        h = activate(torch.bmm(ein, p["w_gate"]), None, activation)
+    eout = torch.bmm(h, p["w_out"]).reshape(n_loc * slots, d)
+    flat = torch.cat([eout, eout.new_zeros((1, d))])
+    w = (vals * keep).to(xf.dtype).reshape(-1, 1)
+    return (flat[dest] * w).view(n_tok, k, d).sum(dim=1)
+
+
+def _moe(p: dict, x: torch.Tensor, cfg: ModelConfig, group: int, experts):
+    spec = cfg.moe
+    B, T, d = x.shape
+    xf = x.reshape(-1, d)
+    probs, vals, idx = moe_route(xf, p["router"], spec)
+    aux = moe_aux_loss(probs, idx, spec.num_experts)
+    if experts is None:
+        experts = (0, spec.num_experts)
+    y = _expert_share(p, xf, vals, idx, spec, group, experts,
+                      cfg.activation).view(B, T, d)
+    if "shared" in p:
+        y = y + mlp(p["shared"], x, cfg.activation)
+    return y, aux
+
+
+def moe_scatter(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
+                experts=None):
+    """The decode executor (reference ``moe_scatter``): one group of all
+    N = B * T tokens of the call, capacity ``ceil(cf * N * k / E)``.
+    ``experts`` (lo, hi) is the range the leaves hold (default all E);
+    the shared expert, where ``p`` has one, is added after the routed
+    sum.  Returns (y (B, T, d), aux)."""
+    return _moe(p, x, cfg, x.shape[0] * x.shape[1], experts)
+
+
+def moe_gshard(p: dict, x: torch.Tensor, cfg: ModelConfig,
+               group_size: int = 4096, *, experts=None):
+    """The prefill / forward executor (reference ``moe_gshard``): each
+    row's T tokens in groups of ``n = min(group_size, T)``, capacity
+    ``ceil(cf * n * k / E)`` a group.  The reference's one-hot dispatch
+    and combine tensors (G, n, E, C) are not built; the index form keeps
+    the same choices with the same weights.  A T that ``n`` does not
+    divide fails in the reference's reshape, and raises here."""
+    B, T, _ = x.shape
+    n = min(group_size, T)
+    if T % n:
+        raise ValueError(f"moe_gshard: T={T} is not a multiple of the group "
+                         f"size {n}")
+    return _moe(p, x, cfg, n, experts)
+
+
+def moe_dense_oracle(p: dict, x: torch.Tensor, cfg: ModelConfig):
+    """Every expert over every token, masked by the routing weights: no
+    capacity, no drops (reference ``moe_dense_oracle``)."""
+    spec = cfg.moe
+    B, T, d = x.shape
+    xf = x.reshape(-1, d)
+    probs, vals, idx = moe_route(xf, p["router"], spec)
+    out = torch.zeros(xf.shape, dtype=torch.float32, device=x.device)
+    for e in range(spec.num_experts):
+        pe = {name: p[name][e] for name in ("w_gate", "w_up", "w_out")}
+        if not cfg.activation.endswith("_glu"):
+            pe["w_in"] = pe.pop("w_gate")
+        w_e = torch.where(idx == e, vals, 0.0).sum(dim=-1)
+        out += w_e[:, None] * mlp(pe, xf, cfg.activation).float()
+    if "shared" in p:
+        out += mlp(p["shared"], xf, cfg.activation).float()
+    aux = moe_aux_loss(probs, idx, spec.num_experts)
+    return out.to(x.dtype).reshape(B, T, d), aux
+
+
+def moe_layer(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
+              impl: str = "gshard", group_size: int = 4096, experts=None):
+    """The MoE feed-forward by ``impl`` (``oracle``, ``gshard`` or
+    ``scatter``; the reference's ``ep``, on a mesh with no data axis, is
+    ``scatter`` over a rank's ``experts`` followed by the caller's
+    all-reduce)."""
+    if impl == "oracle":
+        return moe_dense_oracle(p, x, cfg)
+    if impl == "gshard":
+        return moe_gshard(p, x, cfg, group_size, experts=experts)
+    if impl in ("scatter", "ep"):
+        return moe_scatter(p, x, cfg, experts=experts)
+    raise ValueError(f"moe impl {impl!r}: expected oracle, gshard, scatter "
+                     "or ep")

@@ -1,9 +1,10 @@
 """Model assembly: embed, the block program's layers, the head.
 
-Counterpart of ``repro.models.lm`` for the ``dense``, ``hybrid`` and
-``ssm`` families.  A config lowers to a block program (``segments``): a
-list of ``(unit, count)``, the unit a tuple of layer kinds -- ``attn``
-(self-attention + MLP), ``rec`` (the RG-LRU block + MLP,
+Counterpart of ``repro.models.lm`` for the ``dense``, ``moe``,
+``hybrid`` and ``ssm`` families.  A config lowers to a block program
+(``segments``): a list of ``(unit, count)``, the unit a tuple of layer
+kinds -- ``attn`` (self-attention + MLP), ``moe`` (self-attention + the
+routed experts, ``layers.moe_layer``), ``rec`` (the RG-LRU block + MLP,
 ``models.rglru``) or ``rwkv`` (the RWKV6 time-mix + channel-mix layer,
 ``models.rwkv6``) -- repeated ``count`` times.  Params are the stacked
 tree of ``repro_torch.weights`` (one dict per segment, each slot's
@@ -19,9 +20,9 @@ leaves -- K/V ``(count, B, S, Hkv, hd)`` with S = ``max_len``, or
 position p at row p % window), the RG-LRU state ``(count, B, w - 1,
 lru)`` / ``(count, B, lru)`` f32, the RWKV6 shifts ``(count, B, D)`` and
 ``wkv`` ``(count, B, H, hd, hd)`` f32; a decode step takes either the
-paged store's ``(L, num_blocks, bs, Hkv, hd)`` pools (with block tables;
-the dense family) or dense leaves with N cache rows, and writes them in
-place.
+paged store's pools (with block tables; ``pool_tree``: each
+attention-bearing slot's ``(count, num_blocks, bs, Hkv, hd)`` view) or
+dense leaves with N cache rows, and writes them in place.
 
 Under tensor parallelism the tree is one rank's slice
 (``weights.shard_params``) and ``cfg`` the rank's view
@@ -29,7 +30,9 @@ Under tensor parallelism the tree is one rank's slice
 the rank's ``parallel.sharding.Split`` with its group): the embedding
 lookup is vocabulary-sharded (each rank gathers the ids in its range,
 zeros elsewhere, then an all-reduce -- exact, one rank alone is non-zero
-per token), an all-reduce follows each layer's ``wo`` and ``w_out``,
+per token), an all-reduce follows each layer's ``wo`` and ``w_out`` (a
+``moe`` layer's: its experts' share of the routed sum plus its part of
+the shared expert),
 ``lm_head_weight`` is the rank's (D, V / ranks) slice and ``logits_fn``
 all-gathers the slices' f32 logits.
 """
@@ -42,7 +45,8 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import rglru, rwkv6
 from repro_torch.models.layers import (StepConstants, attention, mlp,
-                                      rms_norm, step_constants)
+                                      moe_layer, rms_norm, step_constants)
+from repro_torch.parallel import moe_ep
 from repro_torch.weights import dtype_of
 
 
@@ -53,6 +57,13 @@ def segments(cfg: ModelConfig):
     L = cfg.n_layers
     if cfg.family == "dense":
         return [(("attn",), L)]
+    if cfg.family == "moe":
+        # every ``interleave_step``-th layer routes; the others are dense
+        s = cfg.moe.interleave_step
+        if s == 1:
+            return [(("moe",), L)]
+        return [(tuple("moe" if i % s == s - 1 else "attn"
+                       for i in range(s)), L // s)]
     if cfg.family == "ssm":
         return [(("rwkv",), L)]
     if cfg.family == "hybrid":
@@ -63,8 +74,8 @@ def segments(cfg: ModelConfig):
             segs.append((pat[:rem], 1))
         return segs
     raise NotImplementedError(
-        f"family {cfg.family!r}: the port serves the dense, hybrid and ssm "
-        "families")
+        f"family {cfg.family!r}: the port serves the dense, moe, hybrid and "
+        "ssm families")
 
 
 def layer_types(cfg: ModelConfig) -> list:
@@ -79,6 +90,15 @@ def _trunk_group(cfg: ModelConfig):
     """The group a split trunk all-reduces over, or None."""
     sh = cfg.shard
     return sh.group if sh is not None and sh.trunk else None
+
+
+def moe_impl(cfg: ModelConfig, decode: bool) -> str:
+    """The MoE executor (reference ``_moe_impl``): the config's, unless
+    it is ``auto`` -- then ``scatter`` in a decode step and ``gshard`` in
+    a prefill or ``forward``."""
+    if cfg.moe_impl != "auto":
+        return cfg.moe_impl
+    return "scatter" if decode else "gshard"
 
 
 def embed_tokens(params: dict, cfg: ModelConfig,
@@ -160,27 +180,41 @@ def _apply_layer(p: dict, x: torch.Tensor, cfg: ModelConfig, kind: str, *,
                  consts, cache=None, group=None):
     """One decoder layer of ``kind``; with ``group`` (a split trunk) the
     row-parallel outputs of ``wo`` and ``w_out`` are summed over the
-    ranks.  Returns (x, extra): an ``attn`` layer's ``attention`` extra,
-    a ``rec`` or ``rwkv`` layer's new state."""
+    ranks, and a ``moe`` layer runs its rank's experts
+    (``parallel.moe_ep``).  Returns (x, extra, aux):
+    an ``attn`` or ``moe`` layer's ``attention`` extra, a ``rec`` or
+    ``rwkv`` layer's new state; a ``moe`` layer's router loss (f32
+    scalar), else None.  A ``moe`` layer routes with ``moe_impl``: the
+    decode executor with a cache, the prefill one without."""
     if kind == "rwkv":
-        return _recurrent(rwkv6.init_state, rwkv6.rwkv_block, p, x, cfg,
-                          consts, cache)
+        return (*_recurrent(rwkv6.init_state, rwkv6.rwkv_block, p, x, cfg,
+                            consts, cache), None)
     if kind == "rec":
         x, extra = _recurrent(rglru.init_state, rglru.rglru_block, p["rec"],
                               x, cfg, consts, cache)
         h = mlp(p["mlp"], rms_norm(x, p["ln2"], cfg.norm_eps),
                 cfg.activation)
-        return x + h, extra
+        return x + h, extra, None
     a, extra = attention(p["attn"], rms_norm(x, p["ln1"], cfg.norm_eps),
                          cfg, consts=consts, causal=True,
                          window=cfg.attention_window, cache=cache)
     if group is not None:
         a = group.all_reduce_sum(a, "trunk")
     x = x + a
-    h = mlp(p["mlp"], rms_norm(x, p["ln2"], cfg.norm_eps), cfg.activation)
+    h_in = rms_norm(x, p["ln2"], cfg.norm_eps)
+    if kind != "moe":
+        h = mlp(p["mlp"], h_in, cfg.activation)
+        if group is not None:
+            h = group.all_reduce_sum(h, "trunk")
+        return x + h, extra, None
+    impl = moe_impl(cfg, cache is not None)
     if group is not None:
-        h = group.all_reduce_sum(h, "trunk")
-    return x + h, extra
+        h, aux = moe_ep.moe_ep(p["moe"], h_in, cfg, impl=impl,
+                               group_size=cfg.moe_group_size)
+    else:
+        h, aux = moe_layer(p["moe"], h_in, cfg, impl=impl,
+                           group_size=cfg.moe_group_size)
+    return x + h, extra, aux
 
 
 def _recurrent(init_state, block, p: dict, x: torch.Tensor,
@@ -238,6 +272,32 @@ def init_cache(cfg: ModelConfig, batch_size: int, max_len: int,
     return caches
 
 
+def kv_layers(cfg: ModelConfig) -> int:
+    """Layers that keep linear K/V: the ``attn`` and ``moe`` ones."""
+    return sum(k in ("attn", "moe") for k in layer_types(cfg))
+
+
+def pool_tree(cfg: ModelConfig, pools: dict) -> list:
+    """The paged store's pools ``{"k", "v"}`` -- each ``(kv_layers(cfg),
+    num_blocks, bs, Hkv, hd)`` -- as the model's cache tree: per segment,
+    each ``attn`` / ``moe`` slot's ``{"attn": {"k", "v"}}`` is the view
+    of ``count`` consecutive layers of the stack, slot after slot in
+    segment order (a program of one slot gets the pools themselves).
+    llama4's ``(attn, moe)`` unit thus reads layers [0, L/2) and [L/2,
+    L) of the stack; a layer's index there is storage only."""
+    tree, at = [], 0
+    for unit, count in segments(cfg):
+        seg = {}
+        for j, kind in enumerate(unit):
+            if kind in ("attn", "moe"):
+                seg[f"slot{j}"] = {"attn": {
+                    name: t if count == t.shape[0] else t[at:at + count]
+                    for name, t in pools.items()}}
+                at += count
+        tree.append(seg)
+    return tree
+
+
 def _layers(params: dict, cfg: ModelConfig, layers: Optional[list]):
     """(params, cache index (segment, layer, slot), kind) of every layer
     in order, from ``layer_params`` (or the caller's copy of it)."""
@@ -267,18 +327,22 @@ def _store_kv(leaf: dict, l: int, k: torch.Tensor, v: torch.Tensor,
 
 def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor):
     """The eval forward over ``tokens`` (B, S): returns (f32 logits (B,
-    S, V), aux loss 0.0; neither family has a router loss).  The
-    reference's train-mode attention is masked softmax over all S
-    positions; this is the same function through the cache-less branch
-    (``ops.flash_attention``, causal, the architecture window); a ``rec``
-    layer runs its block from a zero state."""
+    S, V), the f32 sum of the ``moe`` layers' router losses, 0 for a
+    family without them).  The reference's train-mode attention is
+    masked softmax over all S positions; this is the same function
+    through the cache-less branch (``ops.flash_attention``, causal, the
+    architecture window); a ``rec`` layer runs its block from a zero
+    state, a ``moe`` layer routes through the prefill executor."""
     S = tokens.shape[1]
     x = embed_tokens(params, cfg, tokens)
     consts = step_constants(cfg, torch.arange(S, device=tokens.device))
     group = _trunk_group(cfg)
+    total = torch.zeros((), dtype=torch.float32, device=tokens.device)
     for p, _, kind in _layers(params, cfg, None):
-        x, _ = _apply_layer(p, x, cfg, kind, consts=consts, group=group)
-    return logits_fn(params, cfg, final_hidden(params, cfg, x)), 0.0
+        x, _, aux = _apply_layer(p, x, cfg, kind, consts=consts, group=group)
+        if aux is not None:
+            total = total + aux
+    return logits_fn(params, cfg, final_hidden(params, cfg, x)), total
 
 
 def prefill(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
@@ -293,7 +357,8 @@ def prefill(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
     caches = init_cache(cfg, B, max_len, tokens.device)
     group = _trunk_group(cfg)
     for p, (s, l, slot), kind in _layers(params, cfg, None):
-        x, extra = _apply_layer(p, x, cfg, kind, consts=consts, group=group)
+        x, extra, _ = _apply_layer(p, x, cfg, kind, consts=consts,
+                                   group=group)
         leaf = caches[s][slot]
         if kind in ("rec", "rwkv"):
             state = leaf["rec"] if kind == "rec" else leaf
@@ -306,12 +371,12 @@ def prefill(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
 
 
 def _first_kv(caches: list, cfg: ModelConfig) -> Optional[torch.Tensor]:
-    """An ``attn`` layer's K leaf (pools or dense), whose shape says what
-    the step's cache indices are; None for a config with no attention
-    layer (``ssm``)."""
+    """An ``attn`` or ``moe`` layer's K leaf (pools or dense), whose shape
+    says what the step's cache indices are; None for a config with no
+    attention layer (``ssm``)."""
     for seg, (unit, _) in zip(caches, segments(cfg)):
         for j, kind in enumerate(unit):
-            if kind == "attn":
+            if kind in ("attn", "moe"):
                 return seg[f"slot{j}"]["attn"]["k"]
     return None
 
@@ -363,7 +428,7 @@ def decode_step(params: dict, cfg: ModelConfig, token: torch.Tensor,
         leaf = caches[s][slot]
         if kind != "rwkv":
             leaf = leaf["rec" if kind == "rec" else "attn"]
-        x, _ = _apply_layer(p, x, cfg, kind, consts=consts, cache={
+        x, _, _ = _apply_layer(p, x, cfg, kind, consts=consts, cache={
             name: t[l] for name, t in leaf.items()}, group=group)
     if T == 1:
         return final_hidden(params, cfg, x[:, 0, :]), caches

@@ -94,7 +94,15 @@ chunking.  On the card its T = 1 step is captured per bucket like the
 dense layout's.  The SSM family (rwkv6: every layer an ``rwkv`` time-mix
 + channel-mix with per-slot ``shift1`` / ``shift2`` / ``wkv`` state, no
 attention) takes the same store, gates and graphs; its step builds no
-RoPE table and no cache cells.
+RoPE table and no cache cells.  The MOE family (phi3.5-moe, llama4-
+maverick) pages its K/V like the dense family (each slot of its block
+program a view of the pools, ``lm.pool_tree``) and takes the same gates
+as the recurrent families: its capacity-dropping routing makes a token's
+output depend on the rest of the step's batch, padding rows included,
+so a draft window would shift the capacity ranks (``spec_k`` refused),
+and chunking and the device loop fall back; its T = 1 step (the
+``scatter`` executor: routing, ranks and the spare row all on the
+device) is captured per bucket like the dense one.
 
 ``kv_layout='dense'`` keeps the reference's per-slot ``max_len`` cache,
 the byte-identity oracle of the paged path: admission is a dense
@@ -1057,7 +1065,10 @@ class ServeEngine:
 
         Rows are padded to a power of two by repeating row 0 (identical
         compute; the duplicate K/V write lands the same value on the same
-        cell) and block-table columns to a power of two with each row's
+        cell -- behind a capacity-dropping MoE layer the padding row, last
+        in rank order, can lose choices row 0 keeps, and every duplicate
+        then writes row 0's K/V, ``layers.write_sources``) and
+        block-table columns to a power of two with each row's
         own first block (past its position, so the mask discards them).
         Each head group's row-index vector, and the verify group's, is
         padded to B rows the same way: a bucket's key then follows B, not

@@ -1,11 +1,14 @@
 """Paged (block) KV cache for the serving engine, and the dense layout.
 
 Counterpart of ``repro.serve.paged_kv``.  The paged layout: the linear
-K/V of every layer lives in two shared pools ``(L, num_blocks, bs, Hkv,
-hd)`` in the compute dtype, and each slot owns a block table mapping its
-view positions ``[j * bs, (j + 1) * bs)`` to pool blocks.  Blocks are
-allocated as a sequence grows and go back to the free list when its
-request ends; decode attention reads the pools in place through the
+K/V of every attention-bearing layer (``attn``, and ``moe``'s attention)
+lives in two shared pools ``(L, num_blocks, bs, Hkv, hd)`` in the compute
+dtype, L those layers (``lm.kv_layers``; the model reads each slot of its
+block program through a view, ``lm.pool_tree``: llama4's ``(attn, moe)``
+unit one half of the stack each), and each slot owns a block table
+mapping its view positions ``[j * bs, (j + 1) * bs)`` to pool blocks.
+Blocks are allocated as a sequence grows and go back to the free list
+when its request ends; decode attention reads the pools in place through the
 table, over ``ceil((pos + 1) / bs)`` blocks per slot.
 
 ``BlockAllocator`` and ``PrefixTrie`` are copies of the JAX package's.
@@ -269,10 +272,10 @@ class PagedKVStore:
             # default: the dense layout's worst-case residency; pass fewer
             # to overcommit (the scheduler defers/preempts on empty).
             num_blocks = n_slots * self.max_blocks_per_slot
-        self.pools = self.denses = None
+        self.pools = self.denses = self._views = None
         if self.pages(cfg, layout):
-            shape = (cfg.n_layers, num_blocks, block_size, cfg.n_kv_heads,
-                     cfg.head_dim)
+            shape = (lm.kv_layers(cfg), num_blocks, block_size,
+                     cfg.n_kv_heads, cfg.head_dim)
             self.pools = {
                 name: torch.zeros(shape, dtype=dtype_of(cfg), device=device)
                 for name in ("k", "v")}
@@ -288,9 +291,10 @@ class PagedKVStore:
     @staticmethod
     def pages(cfg: ModelConfig, layout: str) -> bool:
         """Whether a store of ``layout`` for ``cfg`` pages its K/V: the
-        paged layout of a dense-family config with no architecture
-        window (every layer's cache is then linear K/V)."""
-        return (layout == "paged" and cfg.family == "dense"
+        paged layout of a dense- or moe-family config with no
+        architecture window (every layer's cache is then linear K/V;
+        reference ``paged_kv.py:280-297`` pages every such leaf)."""
+        return (layout == "paged" and cfg.family in ("dense", "moe")
                 and cfg.attention_window is None)
 
     @property
@@ -298,10 +302,13 @@ class PagedKVStore:
         return self.pools is not None
 
     def cache(self) -> list:
-        """The pools (as the dense family's one-segment tree) or the dense
-        cache tree, as the model's cache argument."""
+        """The pools (as the model's segment / slot tree of views,
+        ``lm.pool_tree``) or the dense cache tree, as the model's cache
+        argument."""
         if self.any_paged:
-            return [{"slot0": {"attn": self.pools}}]
+            if self._views is None:
+                self._views = lm.pool_tree(self.cfg, self.pools)
+            return self._views
         return self.denses
 
     def usage(self) -> dict:
@@ -314,7 +321,8 @@ class PagedKVStore:
             "num_blocks": a.num_blocks,
             "blocks_free": a.n_free,
             "blocks_in_use": a.num_blocks - a.n_free,
-            "paged_leaves": 2 if self.any_paged else 0,
+            "paged_leaves": (len(_leaves(self.cache())) if self.any_paged
+                             else 0),
             "dense_leaves": n_dense,
             "peak_in_use": a.peak_in_use,
             "shared_blocks": a.n_shared,

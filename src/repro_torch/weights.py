@@ -19,7 +19,11 @@ program, each slot an ``attn`` layer as above or a ``rec`` layer,
 ``{"rec": the RG-LRU block (models.rglru.layer_shapes), "ln2", "mlp"}``;
 the ssm family (rwkv6) one segment of one ``rwkv`` slot, the layer's
 leaves flat in it (``models.rwkv6.layer_shapes``), beside an untied
-``lm_head``.
+``lm_head``.  The moe family's ``moe`` slot has ``"moe"`` in place of
+``"mlp"``: ``{"router": (L, D, E), "w_gate", "w_up": (L, E, D, Fe),
+"w_out": (L, E, Fe, D)}``, plus ``"shared"``, a dense MLP of width Fe,
+where the config has a shared expert; phi3.5-moe is one segment of one
+``moe`` slot, llama4-maverick one segment of ``(attn, moe)`` slots.
 Weights are normal times 1/sqrt(fan-in), zeros for the norm scales
 (which the layers apply as ``1 + scale``), drawn on the host from a seed
 (``seeded_params``).  The numbers differ from ``jax.random``'s; tests
@@ -59,20 +63,27 @@ def param_shapes(cfg: ModelConfig) -> dict:
     one segment of one ``attn`` slot over every layer; the hybrid family
     (recurrentgemma) one segment of its pattern repeated, then the
     remainder, e.g. 8 x (rec, rec, attn) + 1 x (rec, rec) at 26 layers;
-    the ssm family (rwkv6) one segment of one ``rwkv`` slot."""
+    the ssm family (rwkv6) one segment of one ``rwkv`` slot; the moe
+    family one segment of its ``interleave_step`` unit (``moe`` last),
+    whose ``moe`` slot holds the router and the expert stacks
+    (reference ``init_moe``)."""
     from repro_torch.models import lm
 
     d, v = cfg.d_model, cfg.vocab_size
     qw, kw, f = cfg.q_width, cfg.kv_width, cfg.d_ff
 
-    def layer(kind: str, L: int) -> dict:
-        if kind == "rwkv":
-            return rwkv6.layer_shapes(cfg, L)
+    def mlp_shapes(L: int, f: int) -> dict:
         if cfg.activation.endswith("_glu"):
             mlp = {"w_gate": ((L, d, f), d), "w_up": ((L, d, f), d)}
         else:
             mlp = {"w_in": ((L, d, f), d)}
         mlp["w_out"] = ((L, f, d), f)
+        return mlp
+
+    def layer(kind: str, L: int) -> dict:
+        if kind == "rwkv":
+            return rwkv6.layer_shapes(cfg, L)
+        mlp = mlp_shapes(L, f)
         if kind == "rec":
             return {"rec": rglru.layer_shapes(cfg, L),
                     "ln2": ((L, d), None), "mlp": mlp}
@@ -81,8 +92,17 @@ def param_shapes(cfg: ModelConfig) -> dict:
         if cfg.qk_norm:
             attn["q_norm"] = ((L, cfg.head_dim), None)
             attn["k_norm"] = ((L, cfg.head_dim), None)
+        if kind != "moe":
+            return {"ln1": ((L, d), None), "attn": attn,
+                    "ln2": ((L, d), None), "mlp": mlp}
+        m = cfg.moe
+        e, fe = m.num_experts, m.d_ff_expert
+        moe = {"router": ((L, d, e), d), "w_gate": ((L, e, d, fe), d),
+               "w_up": ((L, e, d, fe), d), "w_out": ((L, e, fe, d), fe)}
+        if m.shared_expert:
+            moe["shared"] = mlp_shapes(L, fe)
         return {"ln1": ((L, d), None), "attn": attn, "ln2": ((L, d), None),
-                "mlp": mlp}
+                "moe": moe}
 
     tree = {"embed": ((v, d), d), "final_norm": ((d,), None),
             "decoder": [{f"slot{j}": layer(kind, count)

@@ -1891,3 +1891,49 @@ def test_graphed_hybrid_engine_equals_eager_and_the_cpu(dev):
     assert eager == graphed == want
     assert eng.graphs.replays > 0 and not eng.store.any_paged
     assert pa.paged_attention.launches == 0
+
+
+@pytest.mark.parametrize("arch", ["phi3.5-moe-42b-a6.6b",
+                                  "llama4-maverick-400b-a17b"])
+def test_graphed_moe_engine_equals_eager_and_the_cpu(dev, arch):
+    """The MoE family's smoke configs (phi3.5-moe: top-2 every layer;
+    llama4-maverick: (attn, moe) with a shared expert; f32, seeded
+    weights) at capacity factor 0.5, so choices drop: the T = 1 step with
+    its scatter executor captured per bucket on the card (routing, ranks
+    and the spare row inside the graph) gives the eager step's tokens on
+    the card and the plain versions' on the CPU; five prompts of 4-19
+    tokens on 4 slots (a bucket pads 3 rows to 4), 12 new tokens each;
+    paged attention once a layer a decode step."""
+    import dataclasses
+
+    from repro_torch.configs import get_config, smoke_config
+    from repro_torch.serve import step_graph
+    from repro_torch.serve.engine import Request, ServeEngine
+    from repro_torch.weights import seeded_params
+
+    cfg = smoke_config(get_config(arch))
+    cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=0.5))
+    rng = np.random.default_rng(41)
+    prompts = [rng.integers(0, cfg.vocab_size, size=n).astype(np.int32)
+               for n in (4, 11, 19, 7, 15)]
+
+    def serve(device):
+        eng = ServeEngine(seeded_params(cfg, 0, device), cfg, n_slots=4,
+                          max_len=40, eos_id=-1)
+        reqs = [Request(i, p, max_new_tokens=12)
+                for i, p in enumerate(prompts)]
+        for r in reqs:
+            eng.submit(r)
+        eng.run()
+        return [list(r.generated) for r in reqs], eng
+
+    want, _ = serve("cpu")
+    with step_graph.eager_steps():
+        eager, _ = serve(dev)
+    pa.paged_attention.launches = 0
+    graphed, eng = serve(dev)
+    assert eager == graphed == want
+    assert eng.graphs.replays > 0 and eng.store.any_paged
+    assert pa.paged_attention.launches \
+        == cfg.n_layers * eng.stats["decode_steps"]

@@ -48,6 +48,7 @@ def test_the_guard_sees_every_form(tmp_path):
 @pytest.mark.parametrize("rel", [
     "src/repro_torch/models/rglru.py", "src/repro_torch/paper/__init__.py",
     "src/repro_torch/paper/__main__.py", "src/repro_torch/paper/table1.py",
-    "src/repro_torch/paper/fig23.py", "src/repro_torch/paper/classifier.py"])
+    "src/repro_torch/paper/fig23.py", "src/repro_torch/paper/classifier.py",
+    "src/repro_torch/parallel/moe_ep.py"])
 def test_the_guard_covers_the_hybrid_and_paper_modules(rel):
     assert ROOT / rel in FILES

@@ -199,4 +199,4 @@ def test_bridge_rejects_wrong_trees(bridged):
     with pytest.raises(ValueError, match="keys"):
         weights.from_numpy_params(bad, TCFG, "cpu")
     with pytest.raises(NotImplementedError):       # a family not ported
-        weights.param_shapes(smoke_config(get_config("phi3.5-moe-42b-a6.6b")))
+        weights.param_shapes(smoke_config(get_config("seamless-m4t-large-v2")))

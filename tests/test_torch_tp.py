@@ -12,13 +12,18 @@ of tp 2 and tp 4 start together and run while the JAX engines do.  The
 same rank processes hold the control plane: ``Router(replicas=2,
 tp=2)`` over the world of 4, and the HTTP server under tp (an ``LLM`` at
 world 2, the rank-group router at world 4) on groups whose collectives
-time out after 5 s, rank 0 serving while the other ranks follow.
+time out after 5 s, rank 0 serving while the other ranks follow.  The
+MoE family rides the same ranks: phi3.5-moe's smoke config (4 experts,
+top-2) at tp 2 and tp 4, llama4-maverick's (``(attn, moe)`` units, a
+shared expert, top-1) at tp 2, each rank holding its range of experts
+(``parallel.moe_ep``) against the JAX engine unsharded.
 
 Tolerances: tokens are compared exactly.  The sharded heads' ids are
 compared exactly and their values at rtol 1e-5 (f32: the frameworks sum
 D in another order); across the ranks of one group every output must be
 identical.
 """
+import dataclasses
 import json
 import os
 import pickle
@@ -91,6 +96,8 @@ RANK_SCRIPT = textwrap.dedent(r'''
             return weights.from_numpy_params(pickle.load(f), cfg, "cpu")
     params, tie = tree("jtree.pkl"), tree("tie.pkl")
     inputs = dict(np.load(f"{d}/heads.npz"))
+    moe_cfgs = {a: smoke_config(get_config(a)) for a in (
+        "phi3.5-moe-42b-a6.6b", "llama4-maverick-400b-a17b")}
     out = {}
 
     def scenario(fn):
@@ -132,6 +139,36 @@ RANK_SCRIPT = textwrap.dedent(r'''
     @scenario
     def base():
         return serve()
+
+    def serve_moe(arch):
+        # the bridged MoE tree, every rank its experts, the serve()
+        # prompts and samplers without chunking (it falls back for moe)
+        mcfg = moe_cfgs[arch]
+        with open(f"{d}/{arch}.pkl", "rb") as f:
+            mparams = weights.from_numpy_params(pickle.load(f), mcfg, "cpu")
+        eng = ServeEngine(mparams, mcfg, n_slots=3, max_len=48, seed=7,
+                          eos_id=-1, tp=world, group=g)
+        reqs = []
+        for r, n in enumerate((5, 9, 13, 4)):
+            p = (np.arange(2, 2 + n, dtype=np.int32) * 7) % mcfg.vocab_size
+            sp = SamplingParams(max_new_tokens=10, top_k=4 if r == 1 else 1,
+                                temperature=0.8 if r == 1 else 1.0, seed=r)
+            reqs.append(Request(rid=r, prompt=p, params=sp))
+            eng.submit(reqs[-1])
+        eng.run(max_iters=200)
+        return {"tokens": [list(r.generated) for r in reqs],
+                "tp": eng.tp, "head_mode": eng.head_mode,
+                "experts": list(eng.cfg.shard.experts),
+                "num_experts": eng.cfg.moe.num_experts,
+                "held": int(eng.params["decoder"][0][
+                    "slot0" if mcfg.moe.interleave_step == 1 else "slot1"][
+                    "moe"]["w_gate"].shape[1]),
+                "paged": eng.store.any_paged,
+                "bytes": dict(g.bytes)}
+
+    @scenario
+    def moe_phi():
+        return serve_moe("phi3.5-moe-42b-a6.6b")
 
     @scenario
     def spec():
@@ -243,6 +280,10 @@ RANK_SCRIPT = textwrap.dedent(r'''
         return res
 
     if world == 2:
+        @scenario
+        def moe_llama4():
+            return serve_moe("llama4-maverick-400b-a17b")
+
         @scenario
         def http():
             # LLM(tp=2) behind the server, on a group whose collectives
@@ -475,6 +516,28 @@ def _jax_serve(params, spec_k=0, host_stride=None, **kw):
     return [list(r.generated) for r in reqs]
 
 
+MOE_ARCHS = ("phi3.5-moe-42b-a6.6b", "llama4-maverick-400b-a17b")
+
+
+def _jax_moe(arch, params):
+    """The rank script's ``serve_moe`` on the JAX engine, unsharded, on
+    its dense layout (the reference's byte-identity oracle, which its
+    paged layout departs from behind a capacity-dropping layer:
+    ``tests/test_torch_moe.py``)."""
+    cfg = j_smoke(J_ARCHS[arch])
+    eng = JEngine(params, cfg, n_slots=3, max_len=48, seed=7, eos_id=-1,
+                  kv_layout="dense")
+    reqs = []
+    for r, n in enumerate((5, 9, 13, 4)):
+        p = (np.arange(2, 2 + n, dtype=np.int32) * 7) % cfg.vocab_size
+        sp = JSP(max_new_tokens=10, top_k=4 if r == 1 else 1,
+                 temperature=0.8 if r == 1 else 1.0, seed=r)
+        reqs.append(JRequest(rid=r, prompt=p, params=sp))
+        eng.submit(reqs[-1])
+    eng.run(max_iters=200)
+    return [list(r.generated) for r in reqs]
+
+
 def _jax_preempt(params):
     rng = np.random.default_rng(5)
     prompts = [rng.integers(0, JCFG.vocab_size, 8).astype(np.int32)
@@ -559,6 +622,12 @@ def runs(tmp_path_factory):
             pickle.dump(t, f)
     heads = _head_inputs()
     np.savez(d / "heads.npz", **heads)
+    moe = {}
+    for arch in MOE_ARCHS:
+        moe[arch] = jlm.init_params(j_smoke(J_ARCHS[arch]),
+                                    jax.random.PRNGKey(0))
+        with open(d / f"{arch}.pkl", "wb") as f:
+            pickle.dump(jax.tree.map(np.asarray, moe[arch]), f)
     procs = {world: _spawn(world, d) for world in (2, 4)}
     jtie = dict(jparams, embed=jnp.asarray(tie["embed"]))
     want = {"base": _jax_serve(jparams), "spec": _jax_serve(jparams, 4),
@@ -566,7 +635,8 @@ def runs(tmp_path_factory):
             "stride": _jax_serve(jparams, host_stride=4),
             "dense": _jax_serve(jparams, kv_layout="dense",
                                 chunk_size=None),
-            "preempt": _jax_preempt(jparams), "tie": _jax_tie(jtie)}
+            "preempt": _jax_preempt(jparams), "tie": _jax_tie(jtie),
+            **{a: _jax_moe(a, p) for a, p in moe.items()}}
     got = {world: _wait(p, world, d) for world, p in procs.items()}
     return got, want, heads
 
@@ -685,6 +755,75 @@ def test_tp_engine_matches_jax(runs, world, name):
     assert res["bytes"]["head"] > 0 and res["bytes"]["trunk"] > 0
     if name == "spec":
         assert res["accepted"] > 0
+
+
+@pytest.mark.parametrize("world,arch,name", [
+    (2, MOE_ARCHS[0], "moe_phi"), (4, MOE_ARCHS[0], "moe_phi"),
+    (2, MOE_ARCHS[1], "moe_llama4")])
+def test_tp_moe_matches_unsharded_jax(runs, world, arch, name):
+    """phi3.5-moe smoke (4 experts, top-2) at tp 2 and tp 4, llama4-maverick
+    smoke (a shared expert, MoE every other layer) at tp 2: every rank
+    holds E / world experts of the 4 and routes over all 4 at the global
+    capacity, and its f32 tokens -- greedy rows and a TopK / Temperature
+    row -- are the unsharded JAX engine's on every rank."""
+    got, want, _ = runs
+    for rank in range(world):
+        res = _ok(got[world][rank], name)
+        assert res["tokens"] == want[arch]
+        per = 4 // world
+        assert res["experts"] == [rank * per, (rank + 1) * per]
+        assert res["held"] == per and res["num_experts"] == 4
+        assert res["tp"] == world and res["head_mode"] == "sharded"
+        assert res["paged"] and res["bytes"]["trunk"] > 0
+
+
+def test_moe_split_follows_the_path():
+    """The split of a moe tree: expert stacks along E (their names are
+    the dense MLP's), the shared expert and a dense slot's MLP by columns
+    and rows, the router and the norms whole; the slices put back
+    together are the whole tree; ``local_config`` keeps ``moe`` whole;
+    ``rank_param_count`` counts what ``shard_params`` keeps; experts that
+    do not divide by the world raise."""
+    for arch in MOE_ARCHS:
+        jcfg, tcfg = j_smoke(J_ARCHS[arch]), smoke_config(get_config(arch))
+        tree = jax.tree.map(np.asarray,
+                            jlm.init_params(jcfg, jax.random.PRNGKey(1)))
+        for world in (2, 4):
+            splits = [sharding.plan(tcfg, r, world) for r in range(world)]
+            parts = [shard_params(tree, tcfg, sp) for sp in splits]
+            slots = tree["decoder"][0]
+            for name, slot in slots.items():
+                lp = [p["decoder"][0][name] for p in parts]
+                if "moe" in slot:
+                    moe = slot["moe"]
+                    for key in ("w_gate", "w_up", "w_out"):
+                        assert lp[0]["moe"][key].shape[1] == 4 // world
+                        np.testing.assert_array_equal(np.concatenate(
+                            [p["moe"][key] for p in lp], axis=1), moe[key])
+                    for p in lp:
+                        np.testing.assert_array_equal(p["moe"]["router"],
+                                                      moe["router"])
+                    mlps = ([(moe["shared"], [p["moe"]["shared"]
+                                              for p in lp])]
+                            if "shared" in moe else [])
+                else:
+                    mlps = [(slot["mlp"], [p["mlp"] for p in lp])]
+                for whole, cut in mlps:
+                    for key, axis in (("w_gate", -1), ("w_up", -1),
+                                      ("w_out", -2)):
+                        np.testing.assert_array_equal(np.concatenate(
+                            [c[key] for c in cut], axis=axis), whole[key])
+            for sp, part in zip(splits, parts):
+                local = sharding.local_config(tcfg, sp)
+                assert local.moe == tcfg.moe and local.shard is sp
+                held = sum(a.size for a in jax.tree.leaves(part))
+                assert sharding.rank_param_count(tcfg, sp) == held
+    wide = dataclasses.replace(
+        smoke_config(get_config(MOE_ARCHS[0])),
+        moe=dataclasses.replace(smoke_config(get_config(
+            MOE_ARCHS[0])).moe, num_experts=6))
+    with pytest.raises(ValueError, match="num_experts=6 does not divide"):
+        sharding.plan(wide, 0, 4)
 
 
 def test_tp_dense_layout_matches_jax(runs):
