@@ -279,6 +279,26 @@ Phases, each of which fails the run (non-zero exit, no result line):
      beside the bound of reading every weight once (15.87 GB), tok/s and
      the peak memory; then llama4-maverick's smoke config ((attn, moe)
      units, a shared expert, top-1) graphed == eager.
+  4o. (last, once every earlier engine is dropped) training: (c) flash
+     attention at B 2, T 4,096, 16 / 8 heads of 128, bf16, causal, and
+     the cross-entropy, stats and softmax kernels on (8,192, 151,936)
+     f32 logits (the step's loss and its backward's two-launch softmax),
+     each against its plain version and timed beside its bound and
+     library call, and the plain-recompute attention backward of a layer
+     beside SDPA's; (a) ``train_loss`` and every gradient leaf on the
+     card against the CPU's plain path for the qwen3-0.6b, phi3.5-moe,
+     recurrentgemma-2b and rwkv6-7b smoke configs in f32 (no leaf None,
+     none zero where the CPU's is not), and qwen3-0.6b's in bf16 under
+     ``remat="dots"`` against the CPU's f32 (within twice the CPU's own
+     bf16 error); (b) qwen3-0.6b at full width and
+     full depth in bf16 with its remat, 20 AdamW steps at B 2 x S 4,096
+     on the synthetic corpus (finite losses and norms, the last 5 below
+     the first, flash 2 x 28 launches a step, the cross-entropy and the
+     backward's softmax once), ms a step, tokens/s, the peak memory, the
+     model-FLOP share and a profiled step's split; (d) the trained
+     masters served, the comparator's tokens == the softmax baseline's;
+     (e) a run resumed from a checkpoint on the card == an uninterrupted
+     one.
 
 Token streams that should be equal may part only at a near-tie of the
 two best f32 logits (gap within 1e-3 of the max): the batch composition
@@ -6466,6 +6486,596 @@ def run_moe_path(torch, max_new=MOE_MAX_NEW) -> tuple:
     return summary, graphed[2], sampled_launches, s_graphed[2]
 
 
+# ---------------------------------------------------------------------------
+# Phase 4o: training
+# ---------------------------------------------------------------------------
+TRAIN_ARCH = "qwen3-0.6b"
+TRAIN_B, TRAIN_S = 2, 4096   # train_4k's sequence; its batch cut 256 -> 2
+TRAIN_STEPS = 20
+TRAIN_WARM = 3               # steps before the timed ones
+# AdamW's peak lr at full width: the CLI's 3e-3 (sized for the smoke
+# config) diverges here -- the training CLI at B 2 x S 4,096 on an H100
+# logs loss 12.43 at step 0, 12.95 at step 10, 12.51 at step 19 (the
+# head's cotangent in f32; 12.85 at step 10 with it rounded to bf16)
+TRAIN_LR = 1e-3
+TRAIN_PEAK_PREDICTED_GB = 19.5
+TRAIN_GRAD_ARCHS = ("qwen3-0.6b", "phi3.5-moe-42b-a6.6b",
+                    "recurrentgemma-2b", "rwkv6-7b")
+TRAIN_GRAD_TOL = 1e-3        # a leaf, card vs CPU, f32: of its max |value|
+# bf16 under remat: the card's worst leaf (and loss) against the CPU's
+# f32, at most this many times the CPU's own bf16 run's
+TRAIN_BF16_RATIO = 2.0
+TRAIN_SERVE = (4, 64, 16)    # prompts, their tokens, new tokens
+TRAIN_RESUME_TOL = 1e-5
+
+
+def check_train_grads(torch) -> dict:
+    """Phase 4o (a): ``train_loss`` and every gradient leaf on the card
+    against the port's plain path on the CPU, on the same f32 smoke
+    weights (``weights.seeded_params``) and batch (B 2 x S 64), for the
+    dense, MoE, hybrid and RWKV6 families.  No leaf may be None, nor all
+    zero where the CPU's is not; each within TRAIN_GRAD_TOL of its
+    largest |value|."""
+    from repro_torch import tree as tree_mod
+    from repro_torch.configs import get_config, smoke_config
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.data.pipeline import DataConfig, TokenPipeline
+    from repro_torch.launch import steps as steps_mod
+    from repro_torch.models import api, lm
+    from repro_torch.weights import seeded_params
+
+    out = {}
+    for arch in TRAIN_GRAD_ARCHS:
+        cfg = smoke_config(get_config(arch))
+        params = seeded_params(cfg, 0, "cpu")
+        batch = TokenPipeline(DataConfig(vocab_size=cfg.vocab_size), cfg,
+                              ShapeSpec("t", 64, 2, "train"), "cpu").batch(0)
+        want_loss, want = steps_mod.loss_and_grads(params, cfg, batch)
+        reset_launches()
+        live = [p.detach().to("cuda").requires_grad_(True)
+                for p in tree_mod.leaves(params)]
+        loss = api.train_loss(tree_mod.unflatten(params, live), cfg,
+                              {k: v.to("cuda") for k, v in batch.items()})
+        grads = torch.autograd.grad(loss, live, allow_unused=True)
+        torch.cuda.synchronize()
+        launches = read_launches()
+        missing = [tree_mod.key(p) for (p, _), g in zip(
+            tree_mod.items(params), grads) if g is None]
+        worst, dead = 0.0, []
+        for (p, w), g in zip(tree_mod.items(want), grads):
+            if g is None:
+                continue
+            scale = float(w.abs().max())
+            if scale > 0 and float(g.abs().max()) == 0:
+                dead.append(tree_mod.key(p))
+            err = float((g.cpu() - w).abs().max()) / max(scale, 1e-3)
+            worst = max(worst, err)
+        loss_err = abs(float(loss.detach()) - float(want_loss))
+        ok = not missing and not dead and worst <= TRAIN_GRAD_TOL \
+            and loss_err <= 1e-4
+        print(f"phase 4o (a) {arch} smoke, f32: loss card "
+              f"{float(loss.detach()):.6f}"
+              f" / CPU {float(want_loss):.6f}; {len(grads)} gradient "
+              f"leaves, {len(missing)} None, {len(dead)} zero where the "
+              f"CPU's is not, worst leaf error {worst:.3g} of its max "
+              f"|value| (limit {TRAIN_GRAD_TOL}); launches flash "
+              f"{launches['flash_attention']}, fused_xent "
+              f"{launches['fused_xent']}, online_softmax "
+              f"{launches['online_softmax']}: {'ok' if ok else 'FAIL'}",
+              flush=True)
+        check(not missing, f"{arch}: gradient leaves with no gradient on "
+              f"the card: {missing}")
+        check(not dead, f"{arch}: gradient leaves zero on the card: {dead}")
+        check(worst <= TRAIN_GRAD_TOL and loss_err <= 1e-4,
+              f"{arch}: card gradients disagree with the CPU's")
+        check(launches["fused_xent"] == 1 and launches["online_softmax"] == 1,
+              f"{arch}: the loss did not run the cross-entropy kernels")
+        check(launches["flash_attention"] == lm.kv_layers(cfg),
+              f"{arch}: flash launched {launches['flash_attention']} times")
+        out[arch] = dict(loss=float(loss.detach()),
+                         loss_cpu=float(want_loss),
+                         worst_leaf_error=worst, leaves=len(grads),
+                         launches={k: v for k, v in launches.items() if v})
+    out["qwen3-0.6b bf16 remat"] = check_train_grads_bf16(torch)
+    return out
+
+
+def check_train_grads_bf16(torch) -> dict:
+    """Phase 4o (a) in bf16: qwen3-0.6b's smoke config in bf16 under
+    ``remat="dots"`` (as the full-width run trains), ``train_loss`` and
+    every gradient leaf on the card against the CPU's f32 on the same
+    f32 masters and batch; the worst leaf's error over its max |value|
+    and the loss's error at most TRAIN_BF16_RATIO times those of the
+    CPU's own bf16 run under remat.  No leaf None or zero; flash twice a
+    layer."""
+    import dataclasses
+
+    from repro_torch import tree as tree_mod
+    from repro_torch.configs import get_config, smoke_config
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.data.pipeline import DataConfig, TokenPipeline
+    from repro_torch.launch import steps as steps_mod
+    from repro_torch.models import api, lm
+    from repro_torch.weights import seeded_params
+
+    cfg = smoke_config(get_config("qwen3-0.6b"))
+    cfg16 = dataclasses.replace(cfg, dtype="bfloat16", remat="dots")
+    params = seeded_params(cfg, 0, "cpu")
+    batch = TokenPipeline(DataConfig(vocab_size=cfg.vocab_size), cfg,
+                          ShapeSpec("t", 64, 2, "train"), "cpu").batch(0)
+    want_loss, want = steps_mod.loss_and_grads(params, cfg, batch)
+    cpu_loss, cpu = steps_mod.loss_and_grads(params, cfg16, batch)
+    reset_launches()
+    live = [p.detach().to("cuda").requires_grad_(True)
+            for p in tree_mod.leaves(params)]
+    loss = api.train_loss(tree_mod.unflatten(params, live), cfg16,
+                          {k: v.to("cuda") for k, v in batch.items()})
+    grads = torch.autograd.grad(loss, live, allow_unused=True)
+    torch.cuda.synchronize()
+    launches = read_launches()
+
+    def worst(got):
+        return max(float((g.float().cpu() - w).abs().max())
+                   / max(float(w.abs().max()), 1e-3)
+                   for (_, w), g in zip(tree_mod.items(want), got))
+
+    missing = sum(g is None for g in grads)
+    dead = sum(g is not None and float(g.abs().max()) == 0
+               and float(w.abs().max()) > 0
+               for (_, w), g in zip(tree_mod.items(want), grads))
+    card_gap = worst(grads) if not missing else math.inf
+    cpu_gap = worst(tree_mod.leaves(cpu))
+    loss, want_loss = float(loss.detach()), float(want_loss)
+    card_loss_gap = abs(loss - want_loss)
+    cpu_loss_gap = abs(float(cpu_loss) - want_loss)
+    limit, loss_limit = TRAIN_BF16_RATIO * cpu_gap, max(
+        TRAIN_BF16_RATIO * cpu_loss_gap, 2.0 ** -8 * abs(want_loss))
+    ok = not missing and not dead and card_gap <= limit \
+        and card_loss_gap <= loss_limit
+    print(f"phase 4o (a) qwen3-0.6b smoke, bf16, remat 'dots': loss card "
+          f"{loss:.6f} / CPU bf16 {float(cpu_loss):.6f} / CPU f32 "
+          f"{want_loss:.6f} (limit {loss_limit:.3g} from f32); {len(grads)}"
+          f" gradient leaves, {missing} None, {dead} zero where the CPU's "
+          f"is not; worst leaf error against the CPU's f32 over its max "
+          f"|value|: card {card_gap:.4g}, CPU bf16 {cpu_gap:.4g} (limit "
+          f"{TRAIN_BF16_RATIO} x the CPU's); launches flash "
+          f"{launches['flash_attention']}, fused_xent "
+          f"{launches['fused_xent']}, online_softmax "
+          f"{launches['online_softmax']}: {'ok' if ok else 'FAIL'}",
+          flush=True)
+    check(not missing and not dead, "bf16: gradient leaves None or zero "
+          "on the card")
+    check(card_gap <= limit and card_loss_gap <= loss_limit,
+          "bf16 under remat: the card's gradients are further from the "
+          "CPU's f32 than the CPU's own bf16 run allows")
+    check(launches["flash_attention"] == 2 * lm.kv_layers(cfg)
+          and launches["fused_xent"] == 1
+          and launches["online_softmax"] == 1,
+          f"bf16 under remat: launches {launches}")
+    return dict(loss=loss, loss_cpu_bf16=float(cpu_loss),
+                loss_cpu=want_loss, worst_leaf_error=card_gap,
+                worst_leaf_error_cpu_bf16=cpu_gap, leaves=len(grads),
+                launches={k: v for k, v in launches.items() if v})
+
+
+def check_train_kernels(torch, timer) -> dict:
+    """Phase 4o (c): the training path's kernels alone at its shapes,
+    each against its plain version and timed beside its bound and one
+    library call: flash attention at B 2, T 4,096, 16 / 8 heads of 128,
+    bf16, causal (row 5d; SDPA), the cross-entropy, stats and softmax
+    kernels on (8,192, 151,936) f32 logits -- the step's loss and its
+    backward's two-launch softmax (rows 6b, 7b, 8a;
+    ``F.cross_entropy``, ``torch.logsumexp``, ``torch.softmax``) -- and
+    the plain-recompute attention backward of a layer
+    (``ops.flash_attention_backward``) beside SDPA's backward."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import fused_xent as fx
+    from repro_torch.kernels import online_softmax as osm
+    from repro_torch.kernels import ops, ref
+
+    rows = {}
+    gen = torch.Generator(device="cuda").manual_seed(40)
+    b, t, hq, hkv, hd = TRAIN_B, TRAIN_S, 16, 8, 128
+
+    def rand(heads):
+        return torch.randn((b, t, heads, hd), generator=gen,
+                           device="cuda").to(torch.bfloat16).transpose(1, 2)
+
+    q, k, v = rand(hq), rand(hkv), rand(hkv)
+    out = fa.flash_attention(q, k, v, causal=True)
+    want = ref.flash_attention(q, k, v, causal=True)
+    err = (out.float() - want.float()).abs().max().item()
+    ok = torch.allclose(out.float(), want.float(), atol=FA_TOL, rtol=FA_TOL)
+    print(f"phase 4o (c) flash_attention B {b} T {t} g 2 bf16 causal: "
+          f"max_abs_err {err:.6g} vs plain (atol = rtol = {FA_TOL}): "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    check(ok, "flash attention at the training shapes disagrees with its "
+          "plain version")
+    del out, want
+    pairs = b * t * (t + 1) // 2
+    nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+    rows["flash_t4096_b2_g2"] = kernel_row(
+        timer, lambda: fa.flash_attention(q, k, v, causal=True),
+        lambda: ref.flash_attention(q, k, v, causal=True),
+        lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                               enable_gqa=True),
+        nbytes, 4 * hd * hq * pairs, err)
+    model_line("phase 4o (c) row 5d, train_4k B 2", "flash_attention",
+               rows["flash_t4096_b2_g2"], "sdpa")
+
+    # the attention backward of a layer: the plain recompute (sliced
+    # over query rows) against SDPA's backward
+    g = torch.randn(q.shape, generator=gen, device="cuda").to(
+        torch.bfloat16)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    dq, dk, dv = ops.flash_attention_backward(q, k, v, g, causal=True)
+    torch.cuda.synchronize()
+    bwd_extra = torch.cuda.max_memory_allocated() - before
+    qs, ks, vs = (x.detach().requires_grad_(True) for x in (q, k, v))
+    lib_out = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True,
+                                             enable_gqa=True)
+    lib = torch.autograd.grad(lib_out, (qs, ks, vs), g, retain_graph=True)
+    errs = [(a.float() - w.float()).abs().max().item() / max(
+        w.float().abs().max().item(), 1e-6) for a, w in zip((dq, dk, dv),
+                                                            lib)]
+    print(f"phase 4o (c) attention backward B {b} T {t}: plain recompute "
+          f"vs SDPA's backward, largest error of dq / dk / dv over their "
+          f"max |value| {errs[0]:.3g} / {errs[1]:.3g} / {errs[2]:.3g} "
+          f"(limit 0.05); {bwd_extra / 1e9:.3f} GB allocated beyond its "
+          f"inputs", flush=True)
+    check(max(errs) <= 0.05, "the plain attention backward disagrees with "
+          "SDPA's")
+    # q, k, v and the output gradient read, dq, dk, dv written;
+    # recompute QK^T, then dV, dP, dQ, dK: 5 GEMMs of 2 * hd a pair
+    bwd_bytes = (3 * q.numel() + 2 * k.numel() + 2 * v.numel()) \
+        * q.element_size()
+    bound_ms, bound_by = bound(bwd_bytes, 10 * hd * hq * pairs,
+                               BF16_FLOPS_PER_S)
+    plain = timer.readings(lambda: ops.flash_attention_backward(
+        q, k, v, g, causal=True))
+    libr = timer.readings(lambda: torch.autograd.grad(
+        lib_out, (qs, ks, vs), g, retain_graph=True), "library_")
+    rows["attention_backward"] = dict(
+        max_rel_err=max(errs), extra_bytes=bwd_extra, **plain,
+        bound_ms=bound_ms, bound_by=bound_by, **libr)
+    print(f"phase 4o (c) attention backward a layer: plain recompute "
+          f"{shown(plain)}, SDPA backward {shown(libr, 'library_')}, bound "
+          f"{bound_ms:.4f} ms ({bound_by})", flush=True)
+    del q, k, v, g, dq, dk, dv, qs, ks, vs, lib_out, lib
+    torch.cuda.empty_cache()
+
+    n_rows, v_ = TRAIN_B * TRAIN_S, 151936
+    x = torch.randn((n_rows, v_), generator=gen, device="cuda") * 4
+    lab = torch.randint(0, v_, (n_rows,), generator=gen, device="cuda")
+    m, l = osm.softmax_stats(x)
+    p = osm.online_softmax(x)
+    loss = fx.fused_xent(x, lab)
+    torch.cuda.synchronize()
+    print(f"phase 4o (c) softmax unit B={n_rows} f32 (the step's logits):",
+          flush=True)
+    errs = unit_errors(torch, x, lab, m, l, p, loss)
+    # the route from the shapes, as the wrappers pick it (late in a whole
+    # run the profiler drops most kernels of a trace, so phase 3's
+    # trace-based check is not repeated here)
+    unit = osm.plan_of(x)
+    plan = dict(route=unit.route, chunk=unit.chunk, nsplit=unit.nsplit,
+                vec=unit.vec)
+    print(f"phase 4o (c) softmax unit plan at {n_rows} f32 rows: chunk "
+          f"{unit.chunk}, nsplit {unit.nsplit}; online_softmax route "
+          f"{unit.route}", flush=True)
+    del m, l, p, loss
+    n, el = n_rows * v_, x.element_size()
+    for name, kern, plain_fn, lib_fn, nb, fl in (
+            ("fused_xent", lambda: fx.fused_xent(x, lab),
+             lambda: ref.fused_xent(x, lab),
+             lambda: F.cross_entropy(x, lab, reduction="none"),
+             n * el + 12 * n_rows, 4 * n),
+            ("softmax_stats", lambda: osm.softmax_stats(x),
+             lambda: ref.softmax_stats(x),
+             lambda: torch.logsumexp(x, dim=-1), n * el + 8 * n_rows, 4 * n),
+            ("online_softmax", lambda: osm.online_softmax(x),
+             lambda: ref.online_softmax(x),
+             lambda: torch.softmax(x, dim=-1), n * el + 4 * n, 6 * n)):
+        kern_t, plain_ms = timer.readings(kern), timer(plain_fn)
+        lib_t = timer.readings(lib_fn, "library_")
+        bound_ms, bound_by = bound(nb, fl, F32_FLOPS_PER_S)
+        rows[f"{name}_b8192_f32"] = dict(
+            max_abs_err=errs[name], **kern_t, plain_ms=plain_ms,
+            bound_ms=bound_ms, bound_by=bound_by, **lib_t, plan=plan)
+        print(f"phase 4o (c) {name} (8192, 151936) f32: kernel "
+              f"{shown(kern_t)}, plain {plain_ms:.4f} ms, library "
+              f"{shown(lib_t, 'library_')}, bound {bound_ms:.4f} ms "
+              f"({bound_by}: {nb / 1e9:.3f} GB)", flush=True)
+    del x, lab
+    torch.cuda.empty_cache()
+    return rows
+
+
+def train_step_flops(cfg, b, s) -> float:
+    """Model FLOPs of one training step: 6 N per token for the weights,
+    plus causal attention's score and value products forward (4 hd a
+    visible (query head, key) pair) and backward (twice that)."""
+    from repro_torch.models import lm
+
+    attn = 3 * 4 * cfg.head_dim * cfg.n_heads * b * s * (s + 1) // 2
+    return 6 * cfg.param_count() * b * s + attn * lm.kv_layers(cfg)
+
+
+def profile_train_step(torch, step_fn, state, batch) -> dict:
+    """``torch.profiler`` over one more training step: the device time of
+    the kernels launched by the loss's forward (``api.train_loss``), by
+    the plain attention backward (``ops.flash_attention_backward``, a
+    range around each call) and by ``optimizer.update``, against every
+    kernel of the step; the rest is the backward (the remat recompute,
+    the GEMMs' and the loss's backward)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch import steps as steps_mod
+    from repro_torch.optim import optimizer as opt_mod
+
+    spans = {"forward": (steps_mod.api, "train_loss"),
+             "attention_backward": (ops, "flash_attention_backward"),
+             "optimizer": (opt_mod, "update")}
+    inner = {name: getattr(mod, attr) for name, (mod, attr)
+             in spans.items()}
+
+    def ranged(name):
+        def fn(*a, **kw):
+            with record_function(name):
+                return inner[name](*a, **kw)
+        return fn
+
+    torch.cuda.synchronize()
+    for name, (mod, attr) in spans.items():
+        setattr(mod, attr, ranged(name))
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            _, metrics = step_fn(state, batch)
+            float(metrics["loss"])
+            wall_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        for name, (mod, attr) in spans.items():
+            setattr(mod, attr, inner[name])
+    # the union of the device events' intervals: the events list can
+    # hold a kernel more than once (a first reading summed 1,842 ms of
+    # kernels in a 1,071 ms step)
+    spans_us = sorted({(e.time_range.start, e.time_range.end)
+                       for e in prof.events()
+                       if e.device_type == DeviceType.CUDA})
+    kernels, busy_us, end = len(spans_us), 0, None
+    for a, b in spans_us:
+        if end is None or a > end:
+            busy_us += b - a
+            end = b
+        elif b > end:
+            busy_us += b - end
+            end = b
+    busy = busy_us / 1e3
+    ms = {e.key: getattr(e, "device_time_total", 0) / 1e3
+          for e in prof.key_averages() if e.key in spans}
+    if not kernels or not all(ms.get(k) for k in spans) \
+            or sum(ms.values()) > busy:
+        # a trace that dropped kernels (it happens late in a whole run)
+        print(f"phase 4o (b) profiled step: wall {wall_ms:.1f} ms; the "
+              f"trace holds {kernels} kernels, busy {busy:.1f} ms, spans "
+              f"{ms}: incomplete (split not measured)", flush=True)
+        return dict(wall_ms=wall_ms, busy_ms=busy or None, split=None)
+    split = dict(ms, backward_rest=busy - sum(ms.values()))
+    print(f"phase 4o (b) profiled step (profiler on): wall {wall_ms:.1f} "
+          f"ms, device busy {busy:.1f} ms in {kernels} kernels: "
+          + ", ".join(f"{k} {v:.1f} ms ({100 * v / busy:.1f} %)"
+                      for k, v in split.items()), flush=True)
+    return dict(wall_ms=wall_ms, busy_ms=busy, kernels=kernels,
+                split=split)
+
+
+def run_train_path(torch) -> tuple:
+    """Phase 4o (b) and (d): qwen3-0.6b at full width and full depth in
+    bf16 (28 layers, ``remat="dots"`` as configured: each layer
+    recomputed in the backward), f32 masters from
+    ``weights.seeded_params`` on the card, TRAIN_STEPS steps of
+    ``launch.steps.make_train_step`` (AdamW lr TRAIN_LR, warmup 10,
+    clip 1.0) on ``TokenPipeline``'s synthetic corpus at B 2 x S 4,096; every
+    loss and grad_norm finite, the mean of the last 5 losses below the
+    first, each step's launches (flash 28 x 2, fused_xent 1, the
+    backward's softmax once, on its route), ms a step after TRAIN_WARM
+    steps, tokens/s, the peak memory against TRAIN_PEAK_PREDICTED_GB and
+    the model-FLOP share; one more step profiled (``profile_train_step``).
+    Then (d): ``LLM`` on the trained masters
+    serves 4 prompts x 16 new tokens with the comparator head and with
+    the softmax baseline -- equal tokens.  Returns (summary, the
+    training launches, the serving launches)."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.data.pipeline import DataConfig, TokenPipeline
+    from repro_torch.data.pipeline import _hash_tokens
+    from repro_torch.kernels import online_softmax as osm
+    from repro_torch.launch import steps as steps_mod
+    from repro_torch.models import lm
+    from repro_torch.optim import optimizer as opt_mod
+    from repro_torch.serve.api import LLM
+    from repro_torch.serve.params import SamplingParams
+    from repro_torch.weights import seeded_params
+
+    cfg = get_config(TRAIN_ARCH)
+    shape = ShapeSpec("train_4k_b2", TRAIN_S, TRAIN_B, "train")
+    opt_cfg = opt_mod.AdamWConfig(lr=TRAIN_LR, warmup_steps=10,
+                                  total_steps=TRAIN_STEPS, clip_norm=1.0)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = seeded_params(cfg, 0, "cuda")
+    state = {"params": params, "opt": opt_mod.init_state(opt_cfg, params)}
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    step_fn = steps_mod.make_train_step(cfg, opt_cfg)
+    pipe = TokenPipeline(DataConfig(seed=0, vocab_size=cfg.vocab_size), cfg,
+                         shape, "cuda")
+    route = osm.unit_plan(torch.float32, TRAIN_B * TRAIN_S, cfg.vocab_size,
+                          osm.device_resident_blocks(
+                              0, torch.float32)).route
+    flops = train_step_flops(cfg, TRAIN_B, TRAIN_S)
+    curve, norms, times, per_step = [], [], [], []
+    reset_launches()
+    for i in range(TRAIN_STEPS):
+        batch = pipe.batch(i)
+        before = read_launches()
+        t1 = time.perf_counter()
+        state, metrics = step_fn(state, batch)
+        loss, gnorm = float(metrics["loss"]), float(metrics["grad_norm"])
+        times.append(time.perf_counter() - t1)
+        after = read_launches()
+        per_step.append({k: after[k] - before[k] for k in after})
+        curve.append(loss)
+        norms.append(gnorm)
+        check(math.isfinite(loss) and math.isfinite(gnorm),
+              f"training step {i}: loss {loss}, grad_norm {gnorm}")
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    n_attn = lm.kv_layers(cfg)
+    want = {"flash_attention": 2 * n_attn, "fused_xent": 1,
+            "online_softmax": 1,
+            "softmax_stats": int(route == osm.TWO_LAUNCH),
+            "paged_attention": 0, "fused_argmax_head": 0,
+            "fused_verify_head": 0, "fused_topk_head": 0}
+    step_ms = 1e3 * sum(times[TRAIN_WARM:]) / (TRAIN_STEPS - TRAIN_WARM)
+    tok_s = TRAIN_B * TRAIN_S / (step_ms / 1e3)
+    share = flops / BF16_FLOPS_PER_S / (step_ms / 1e3)
+    last5 = sum(curve[-5:]) / 5
+    print(f"phase 4o (b) {TRAIN_ARCH} at full width and depth ("
+          f"{cfg.n_layers} layers, {cfg.param_count():,} parameters), bf16,"
+          f" remat {cfg.remat!r}, B {TRAIN_B} x S {TRAIN_S}: masters + "
+          f"AdamW state made in {init_s:.2f} s; loss curve "
+          + ", ".join(f"{c:.4f}" for c in curve), flush=True)
+    print("phase 4o (b) grad_norm " + ", ".join(f"{g:.4f}" for g in norms)
+          + "; step ms " + ", ".join(f"{1e3 * t:.1f}" for t in times),
+          flush=True)
+    print(f"phase 4o (b) {step_ms:.3f} ms a step (mean of steps "
+          f"{TRAIN_WARM}-{TRAIN_STEPS - 1}), {tok_s:.1f} tokens/s; peak "
+          f"memory {peak / 1e9:.3f} GB (predicted "
+          f"{TRAIN_PEAK_PREDICTED_GB} GB); model FLOPs {flops / 1e12:.2f} "
+          f"TFLOP a step, {1e3 * flops / BF16_FLOPS_PER_S:.2f} ms at 989 "
+          f"TFLOP/s: {100 * share:.2f} % of the step; the backward's "
+          f"softmax route at {TRAIN_B * TRAIN_S} f32 rows: {route}; "
+          f"launches a step {per_step[-1]}", flush=True)
+    check(last5 < curve[0], f"training did not learn: first loss "
+          f"{curve[0]:.4f}, mean of the last 5 {last5:.4f}")
+    for i, got in enumerate(per_step):
+        check(all(got[k] == v for k, v in want.items()),
+              f"training step {i}: launches {got}, want {want}")
+    profiled = profile_train_step(torch, step_fn, state,
+                                  pipe.batch(TRAIN_STEPS))
+
+    # (d) serve what was trained
+    n_p, n_tok, new = TRAIN_SERVE
+    prompts = _hash_tokens(0, 10_000, np.arange(n_p), n_tok,
+                           cfg.vocab_size).tolist()
+    outs, serve_launches = {}, {}
+    for mode in ("reduced", "softmax"):
+        llm = LLM(state["params"], cfg, n_slots=n_p, max_len=n_tok + new,
+                  eos_id=-1, head_mode=mode, seed=0)
+        reset_launches()
+        outs[mode] = [list(o.token_ids) for o in llm.generate(
+            prompts, SamplingParams(max_new_tokens=new))]
+        serve_launches[mode] = read_launches()
+        del llm
+    same = sum(a == b for a, b in zip(outs["reduced"], outs["softmax"]))
+    print(f"phase 4o (d) the trained masters served: {n_p} prompts x {new} "
+          f"new tokens, the comparator head == the softmax baseline for "
+          f"{same}/{n_p} streams; launches (comparator) "
+          f"{serve_launches['reduced']}", flush=True)
+    check(same == n_p, "Theorem 1 on trained weights: the comparator's "
+          "tokens differ from the softmax baseline's")
+    check(serve_launches["reduced"]["fused_argmax_head"] > 0,
+          "the trained model's comparator head launched no kernel")
+    del state, params, metrics, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    summary = dict(arch=TRAIN_ARCH, layers=cfg.n_layers, batch=TRAIN_B,
+                   seq=TRAIN_S, steps=TRAIN_STEPS, remat=cfg.remat,
+                   loss=curve, grad_norm=norms,
+                   step_ms_each=[1e3 * t for t in times], step_ms=step_ms,
+                   tokens_per_s=tok_s, peak_bytes=peak,
+                   peak_predicted_gb=TRAIN_PEAK_PREDICTED_GB,
+                   model_tflop=flops / 1e12, model_flop_share=share,
+                   softmax_route=route, launches_per_step=per_step[-1],
+                   profile=profiled,
+                   serve_equal=same, init_s=init_s)
+    return summary, launches, serve_launches
+
+
+def check_train_resume(torch) -> dict:
+    """Phase 4o (e): ``launch.train.train`` on the card at qwen3-0.6b's
+    smoke config (B 8 x S 64): 10 steps uninterrupted, against 5 steps,
+    a checkpoint, and a fresh ``train`` restoring it for 5 more; losses
+    6-10 within TRAIN_RESUME_TOL (bitwise or not, printed)."""
+    import shutil
+
+    from repro_torch.configs import get_config, smoke_config
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.launch.train import train
+    from repro_torch.optim import optimizer as opt_mod
+
+    cfg = smoke_config(get_config(TRAIN_ARCH))
+    shape = ShapeSpec("t", 64, 8, "train")
+    opt = opt_mod.AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=12)
+    d = os.path.join(ROOT, "build", "chip_smoke_train")
+    shutil.rmtree(d, ignore_errors=True)
+    quiet = lambda *a, **k: None  # noqa: E731
+    try:
+        _, full = train(cfg, shape, opt, device="cuda", steps=10, log=quiet)
+        _, first = train(cfg, shape, opt, device="cuda", steps=5,
+                         ckpt_dir=d, ckpt_every=5, log=quiet)
+        logs = []
+        _, second = train(cfg, shape, opt, device="cuda", steps=10,
+                          ckpt_dir=d, ckpt_every=5, log=logs.append)
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    gap = max(abs(a - b) for a, b in zip(full[5:], second))
+    bitwise = full[5:] == second
+    print(f"phase 4o (e) resume on the card ({cfg.name}, B 8 x S 64): "
+          f"losses 6-10 uninterrupted "
+          + ", ".join(f"{x:.7f}" for x in full[5:]) + "; resumed "
+          + ", ".join(f"{x:.7f}" for x in second)
+          + f"; largest gap {gap:.3g} (limit {TRAIN_RESUME_TOL}), "
+          f"{'bitwise equal' if bitwise else 'not bitwise equal'}",
+          flush=True)
+    check("[restore] resumed from step 5" in logs,
+          "the resumed run did not restore step 5")
+    check(len(second) == 5 and gap <= TRAIN_RESUME_TOL,
+          "the resumed run's losses differ from the uninterrupted run's")
+    return dict(full=full, first=first, second=second, max_gap=gap,
+                bitwise=bitwise)
+
+
+def run_train_phase(torch) -> tuple:
+    """Phase 4o: (c) the kernel rows, (a) gradient parity, (b) qwen3-0.6b
+    training, (d) serving what was trained, (e) resume.  Returns
+    (summary, rows, the training launches, the serving launches)."""
+    t0 = time.perf_counter()
+    timer = Timer(torch)
+    rows = check_train_kernels(torch, timer)
+    del timer
+    gc.collect()
+    torch.cuda.empty_cache()
+    summary = {"grads": check_train_grads(torch)}
+    path, launches, serve_launches = run_train_path(torch)
+    summary.update(path)
+    summary["resume"] = check_train_resume(torch)
+    summary["phase_s"] = time.perf_counter() - t0
+    print(f"phase 4o: {summary['phase_s']:.1f} s", flush=True)
+    return summary, rows, launches, serve_launches
+
+
 def _nbytes(t) -> int:
     return t.numel() * t.element_size()
 
@@ -6665,6 +7275,14 @@ def main() -> int:
         (summary["phi35_moe"], moe_launches, moe_sampled,
          l4_launches) = run_moe_path(torch)
         mark("phase 4n")
+        # phase 4o: training, on a card every earlier engine left
+        gc.collect()
+        torch.cuda.empty_cache()
+        (summary["train"], train_rows, train_launches,
+         train_serve) = run_train_phase(torch)
+        summary["train"]["attention_backward"] = train_rows[
+            "attention_backward"]
+        mark("phase 4o")
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1
@@ -6697,6 +7315,7 @@ def main() -> int:
                  "paged_attention"],
              tp_http_launches=summary["tp"]["tp2"]["http"]["launches"][
                  "paged_attention"],
+             train_serve_launches=train_serve["reduced"]["paged_attention"],
              starcoder2_t1={k: sc2_rows["paged_t1"][k]
                             for k in TIMES + ("chunks", "max_abs_err")},
              starcoder2_t64={k: sc2_rows["paged_t64"][k]
@@ -6771,6 +7390,8 @@ def main() -> int:
              tp_router_launches=summary["tp"]["tp4"]["router"]["launches"][
                  "fused_argmax_head"],
              tp_http_launches=summary["tp"]["tp2"]["http"]["launches"][
+                 "fused_argmax_head"],
+             train_serve_launches=train_serve["reduced"][
                  "fused_argmax_head"]),
         dict(name="fused_topk_head", route="cuda",
              source="src/repro_torch/kernels/csrc/fused_topk_head.cu",
@@ -6824,7 +7445,13 @@ def main() -> int:
              max_abs_err=max(r["max_abs_err"] for r in [
                  *flash_rows.values(), sc2_rows["flash_t512_g9"],
                  rg_rows["flash_t2150_g10_hd256"],
-                 moe_rows["flash_t512_g4"]]),
+                 moe_rows["flash_t512_g4"],
+                 train_rows["flash_t4096_b2_g2"]]),
+             train_launches=train_launches["flash_attention"],
+             train_launches_per_step=summary["train"]["launches_per_step"][
+                 "flash_attention"],
+             train_t4096_b2_g2={k: train_rows["flash_t4096_b2_g2"][k]
+                                for k in TIMES + ("max_abs_err",)},
              **{k: flash_rows["T512"][k] for k in TIMES},
              g8={k: flash_rows["T512_g8"][k] for k in TIMES},
              hd192={k: v for k, v in hd192_rows.items()
@@ -6878,8 +7505,13 @@ def main() -> int:
             source="src/repro_torch/kernels/csrc/online_softmax.cu",
             replaces=replaces, launches=unit_launches[name],
             paper_launches=paper_launches[name],
-            max_abs_err=max(unit_errs[name], many_errs[name], *(
-                unit_rows[(name, b)]["max_abs_err"] for b in sizes)),
+            max_abs_err=max(unit_errs[name], many_errs[name],
+                            train_rows[f"{name}_b8192_f32"]["max_abs_err"],
+                            *(unit_rows[(name, b)]["max_abs_err"]
+                              for b in sizes)),
+            train_launches=train_launches[name],
+            train_b8192_f32={k: train_rows[f"{name}_b8192_f32"][k]
+                             for k in TIMES + ("max_abs_err",)},
             **{k: unit_rows[(name, 12)][k] for k in TIMES},
             b512_bf16={k: unit_rows[(name, 512)][k] for k in TIMES},
             plan=plans[12], b512_bf16_plan=plans[512],

@@ -6,6 +6,12 @@
 
 The JAX package's ``use_pallas``/``interpret`` flags have no counterpart
 here: the device of the operands is the only switch.
+
+Gradients: ``flash_attention`` and ``softmax_xent`` carry them on both
+devices (an ``autograd.Function`` on the card; plain autograd through
+``ref`` on the CPU).  Every other entry's kernel has no backward, so on
+the card it raises ``ValueError`` when grad is enabled and an operand
+requires it -- a gradient is never dropped in silence.
 """
 from __future__ import annotations
 
@@ -34,10 +40,19 @@ def _device_type(*tensors: torch.Tensor) -> str:
     return kind
 
 
+def _no_grad_kernel(name: str, *tensors: torch.Tensor) -> None:
+    """Refuse a kernel without a backward on operands that want one."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise ValueError(
+            f"{name}: the CUDA kernel has no backward, and an operand "
+            "requires grad; detach it, or call under torch.no_grad()")
+
+
 def fused_argmax_head_with_value(h: torch.Tensor, w: torch.Tensor):
     """(argmax_v(h @ w) int32, max_v f32); h (B, D), w (D, V)."""
     if _device_type(h, w) == "cpu":
         return ref.fused_argmax_head_with_value(h, w)
+    _no_grad_kernel("fused_argmax_head", h, w)
     return _fah.fused_argmax_head_with_value(h, w)
 
 
@@ -51,6 +66,7 @@ def fused_topk_head(h: torch.Tensor, w: torch.Tensor, k: int):
     unit's k-winner form; values descending, lower index first on ties."""
     if _device_type(h, w) == "cpu":
         return ref.fused_topk_head(h, w, k)
+    _no_grad_kernel("fused_topk_head", h, w)
     return _ftk.fused_topk_head(h, w, k)
 
 
@@ -64,6 +80,7 @@ def verify_draft(h: torch.Tensor, w: torch.Tensor, cand: torch.Tensor):
     ``ids[b, :accept[b] + 1]`` this step."""
     if _device_type(h, w, cand) == "cpu":
         return ref.verify_draft(h, w, cand)
+    _no_grad_kernel("fused_verify_head", h, w)
     return _fah.fused_verify_head(h, w, cand)
 
 
@@ -74,6 +91,7 @@ def verify_draft_with_value(h: torch.Tensor, w: torch.Tensor,
     vocabulary shard, whose (val, idx) pairs merge across ranks."""
     if _device_type(h, w, cand) == "cpu":
         return ref.verify_draft_with_value(h, w, cand)
+    _no_grad_kernel("fused_verify_head", h, w)
     return _fah.fused_verify_head(h, w, cand, with_value=True)
 
 
@@ -92,6 +110,7 @@ def paged_attention(q, k_pool, v_pool, block_tables, positions, *,
         return ref.paged_attention(q, k_pool, v_pool, block_tables,
                                    positions, attn_approx=attn_approx,
                                    window=window)
+    _no_grad_kernel("paged_attention", q, k_pool, v_pool)
     return _pa.paged_attention(q, k_pool, v_pool, block_tables, positions,
                                attn_approx=attn_approx, window=window)
 
@@ -109,7 +128,68 @@ def flash_attention(q, k, v, *, causal: bool = True,
         raise ValueError(f"window={window}: must be >= 1 or None")
     if _device_type(q, k, v) == "cpu":
         return ref.flash_attention(q, k, v, causal=causal, window=window)
-    return _fa.flash_attention(q, k, v, causal=causal, window=window)
+    return _FlashAttention.apply(q, k, v, causal, window)
+
+
+# f32 scores a slice of the flash backward's recompute may hold (512 MB)
+FLASH_BWD_SCORES = 1 << 27
+
+
+def flash_attention_backward(q, k, v, g, *, causal: bool = True,
+                             window: Optional[int] = None):
+    """(dq, dk, dv) of ``ref.flash_attention(q, k, v)`` against its output
+    gradient ``g``: the plain version recomputed under autograd, over
+    slices of query rows so that no slice's (B, Hq, rows, keys) f32
+    scores exceed ``FLASH_BWD_SCORES`` elements.  A slice of rows [t0,
+    t1) reads only the keys it can see (up to t1 - 1 when causal, from
+    t0 - window + 1 under a window); dk and dv sum in f32 over the
+    slices, each gradient cast to its input's dtype at the end.  The JAX
+    package has no backward kernel either: its train-mode attention is
+    XLA's masked softmax, whose transpose XLA derives."""
+    b, hq, t, _ = q.shape
+    s = k.shape[2]
+    rows = max(1, min(t, FLASH_BWD_SCORES // max(1, b * hq * s)))
+    dq = torch.empty_like(q)
+    dk = torch.zeros(k.shape, dtype=torch.float32, device=k.device)
+    dv = torch.zeros(v.shape, dtype=torch.float32, device=v.device)
+    for t0 in range(0, t, rows):
+        t1 = min(t, t0 + rows)
+        lo = 0 if window is None else max(0, t0 - window + 1)
+        hi = min(s, t1) if causal else s
+        if hi <= lo:                  # no visible key: out 0, grads 0
+            dq[:, :, t0:t1] = 0
+            continue
+        qc = q[:, :, t0:t1].detach().requires_grad_(True)
+        kc = k[:, :, lo:hi].detach().requires_grad_(True)
+        vc = v[:, :, lo:hi].detach().requires_grad_(True)
+        with torch.enable_grad():
+            out = ref.flash_attention(qc, kc, vc, causal=causal,
+                                      window=window, q_start=t0, k_start=lo)
+            gq, gk, gv = torch.autograd.grad(out, (qc, kc, vc),
+                                             g[:, :, t0:t1])
+        dq[:, :, t0:t1] = gq
+        dk[:, :, lo:hi] += gk
+        dv[:, :, lo:hi] += gv
+    return dq, dk.to(k.dtype), dv.to(v.dtype)
+
+
+class _FlashAttention(torch.autograd.Function):
+    """Flash attention on the card with a gradient: the forward is the
+    kernel, the backward ``flash_attention_backward`` -- the plain
+    version recomputed from the saved q, k, v, since no kernel is
+    written for it."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window):
+        ctx.save_for_backward(q, k, v)
+        ctx.causal, ctx.window = causal, window
+        return _fa.flash_attention(q, k, v, causal=causal, window=window)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v = ctx.saved_tensors
+        return (*flash_attention_backward(q, k, v, g, causal=ctx.causal,
+                                          window=ctx.window), None, None)
 
 
 def softmax_stats(x: torch.Tensor):
@@ -117,6 +197,7 @@ def softmax_stats(x: torch.Tensor):
     online-softmax carry, phase 1 of the full softmax unit."""
     if _device_type(x) == "cpu":
         return ref.softmax_stats(x)
+    _no_grad_kernel("softmax_stats", x)
     return _os.softmax_stats(x)
 
 
@@ -125,6 +206,7 @@ def online_softmax(x: torch.Tensor) -> torch.Tensor:
     the last axis, (B, V) -> (B, V) f32."""
     if _device_type(x) == "cpu":
         return ref.online_softmax(x)
+    _no_grad_kernel("online_softmax", x)
     return _os.online_softmax(x)
 
 

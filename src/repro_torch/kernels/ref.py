@@ -319,10 +319,13 @@ def paged_attention_split(q, k_pool, v_pool, block_tables, positions, *,
 
 
 def flash_attention(q, k, v, *, causal: bool = True,
-                    window: Optional[int] = None) -> torch.Tensor:
+                    window: Optional[int] = None, q_start: int = 0,
+                    k_start: int = 0) -> torch.Tensor:
     """Plain masked softmax attention with GQA by repeat (what the
     kernel avoids).  q (B, Hq, T, hd); k, v (B, Hkv, S, hd).  Query and
-    key indices both count from 0; ``causal`` keeps keys <= the query's
+    key indices count from ``q_start`` and ``k_start`` (0: a whole
+    sequence; a slice of one in ``ops.flash_attention_backward``);
+    ``causal`` keeps keys <= the query's
     index, ``window`` keys > index - window.  Scores and probabilities
     in f32, masked at -inf; a row with no visible key gives 0.  Returns
     (B, Hq, T, hd) in q's dtype -- ``repro.kernels.ref.flash_attention``
@@ -335,8 +338,8 @@ def flash_attention(q, k, v, *, causal: bool = True,
         v = torch.repeat_interleave(v, g, dim=1)
     scores = torch.einsum("bhtd,bhsd->bhts", q.float(),
                           k.float()) / (hd ** 0.5)
-    q_idx = torch.arange(t, device=q.device)[:, None]
-    k_idx = torch.arange(s, device=q.device)[None, :]
+    q_idx = q_start + torch.arange(t, device=q.device)[:, None]
+    k_idx = k_start + torch.arange(s, device=q.device)[None, :]
     mask = torch.ones((t, s), dtype=torch.bool, device=q.device)
     if causal:
         mask &= k_idx <= q_idx

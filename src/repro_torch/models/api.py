@@ -1,9 +1,9 @@
-"""Serving steps over the model: one-shot prefill (dense or paged), the
-decode step and the device-resident multi-step decode, each ending in a
-sampler head.
+"""The training loss, and the serving steps over the model: one-shot
+prefill (dense or paged), the decode step and the device-resident
+multi-step decode, each ending in a sampler head.
 
-Counterpart of the serving half of ``repro.models.api``.  ``sampler`` is
-a ``repro_torch.serve.sampler.Sampler`` (its ``head`` turns the final
+Counterpart of ``repro.models.api``.  ``sampler`` is a
+``repro_torch.serve.sampler.Sampler`` (its ``head`` turns the final
 hidden state into what the host needs, its ``sample_device`` into the
 next token).
 """
@@ -16,7 +16,44 @@ import torch
 
 from repro_torch import prng
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels import ops
 from repro_torch.models import lm
+from repro_torch.weights import cast_params
+
+
+# ---------------------------------------------------------------------------
+# Loss
+# ---------------------------------------------------------------------------
+def xent_loss(logits: torch.Tensor, labels: torch.Tensor,
+              mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Mean softmax cross-entropy; logits (..., V) f32, labels (...) int
+    in [0, V), mask (...) or None.  Each token's loss is
+    ``ops.softmax_xent`` over the flattened (N, V) rows -- the
+    cross-entropy kernel on the card, whose backward runs the softmax
+    kernel -- then the reference's mean: ``sum(loss * mask) /
+    max(sum(mask), 1)``, or the plain mean without a mask."""
+    v = logits.shape[-1]
+    per_tok = ops.softmax_xent(logits.reshape(-1, v).float(),
+                               labels.reshape(-1))
+    if mask is None:
+        return per_tok.mean()
+    mask = mask.reshape(-1).float()
+    return (per_tok * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+
+
+def train_loss(params: dict, cfg: ModelConfig, batch: dict) -> torch.Tensor:
+    """The training objective of ``batch`` ({"tokens", "labels"} (B, S),
+    optionally "loss_mask"): ``xent_loss`` of ``lm.forward``'s logits,
+    plus ``router_aux_weight`` times the router loss under ``cfg.moe``.
+    ``params`` are the f32 masters, cast to the compute dtype inside the
+    loss as the reference's ``forward`` casts them (``weights.cast_params``
+    is differentiable), so the gradients reach the masters in f32.  The
+    ``vlm`` and ``encdec`` families raise, as ``lm.segments`` does."""
+    logits, aux = lm.forward(cast_params(params, cfg), cfg, batch["tokens"])
+    loss = xent_loss(logits, batch["labels"], batch.get("loss_mask"))
+    if cfg.moe is not None:
+        loss = loss + cfg.moe.router_aux_weight * aux
+    return loss
 
 
 def serve_prefill(params: dict, cfg: ModelConfig, tokens: torch.Tensor,

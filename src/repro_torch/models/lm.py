@@ -41,6 +41,7 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import rglru, rwkv6
@@ -138,20 +139,41 @@ def final_hidden(params: dict, cfg: ModelConfig,
     return rms_norm(x, params["final_norm"], cfg.norm_eps)
 
 
+class _HeadMatmul(torch.autograd.Function):
+    """``h @ W`` with an f32 result, as the JAX package's ``jnp.dot(h, W,
+    preferred_element_type=jnp.float32)``, with the derivative that
+    PyTorch's ``mm.dtype`` overload lacks.  On the card the forward is
+    one GEMM that reads the bf16 W in place and writes f32 (no f32 copy
+    of W: 622 MB at qwen3-0.6b's width); on the CPU, where that overload
+    has no kernel, ``h.float() @ W.float()``.  The backward keeps the f32
+    output gradient in f32, as the reference's transpose does (a
+    ``dot_general`` of the f32 cotangent with the bf16 operand, f32
+    result): each operand's gradient is an f32 GEMM against the other
+    operand in f32, cast to the operand's dtype."""
+
+    @staticmethod
+    def forward(ctx, h, w):
+        ctx.save_for_backward(h, w)
+        if h.device.type == "cpu":
+            return torch.mm(h.float(), w.float())
+        return torch.mm(h, w, out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, g):
+        h, w = ctx.saved_tensors
+        dh = dw = None
+        if ctx.needs_input_grad[0]:
+            dh = torch.mm(g, w.float().t()).to(h.dtype)
+        if ctx.needs_input_grad[1]:
+            dw = torch.mm(h.float().t(), g).to(w.dtype)
+        return dh, dw
+
+
 def logits_fn(params: dict, cfg: ModelConfig,
               x: torch.Tensor) -> torch.Tensor:
-    """(..., D) -> (..., V) f32 logits ``x @ W``, as the JAX package's
-    ``jnp.dot(x, W, preferred_element_type=jnp.float32)``.  On the card
-    one GEMM reads the bf16 W in place and writes f32
-    (``aten::mm.dtype``), with no f32 copy of W (622 MB at qwen3-0.6b's
-    width); on the CPU, where that overload has no kernel, ``x.float() @
-    W.float()``."""
+    """(..., D) -> (..., V) f32 logits ``x @ W`` (``_HeadMatmul``)."""
     w = lm_head_weight(params, cfg)
-    h = x.reshape(-1, x.shape[-1])
-    if h.device.type == "cpu":
-        out = torch.matmul(h.float(), w.float())
-    else:
-        out = torch.mm(h, w, out_dtype=torch.float32)
+    out = _HeadMatmul.apply(x.reshape(-1, x.shape[-1]), w)
     sh = cfg.shard
     if sh is not None:
         # every rank's (rows, V / ranks) slice, in rank order: the O(rows
@@ -325,22 +347,53 @@ def _store_kv(leaf: dict, l: int, k: torch.Tensor, v: torch.Tensor,
         leaf["v"][l, :, :S] = v
 
 
+def _unit(slots: list, unit: tuple, x: torch.Tensor, cfg: ModelConfig,
+          consts, group):
+    """One unit of the block program over x (its slots' layers in
+    order): returns (x, the f32 sum of its router losses)."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for p, kind in zip(slots, unit):
+        x, _, a = _apply_layer(p, x, cfg, kind, consts=consts, group=group)
+        if a is not None:
+            aux = aux + a
+    return x, aux
+
+
 def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor):
-    """The eval forward over ``tokens`` (B, S): returns (f32 logits (B,
-    S, V), the f32 sum of the ``moe`` layers' router losses, 0 for a
-    family without them).  The reference's train-mode attention is
+    """The train / eval forward over ``tokens`` (B, S): returns (f32
+    logits (B, S, V), the f32 sum of the ``moe`` layers' router losses, 0
+    for a family without them).  The reference's train-mode attention is
     masked softmax over all S positions; this is the same function
     through the cache-less branch (``ops.flash_attention``, causal, the
-    architecture window); a ``rec`` layer runs its block from a zero
-    state, a ``moe`` layer routes through the prefill executor."""
+    architecture window), which carries its gradient; a ``rec`` layer
+    runs its block from a zero state, a ``moe`` layer routes through the
+    prefill executor.
+
+    ``cfg.remat``: with grad enabled and a policy other than ``"none"``,
+    each unit of the block program runs under
+    ``torch.utils.checkpoint.checkpoint(use_reentrant=False)``, as the
+    reference wraps each unit in ``jax.checkpoint``: the unit's input is
+    kept and its activations are recomputed in the backward (so flash
+    attention launches twice a layer a step).  PyTorch has no
+    counterpart of ``"dots"`` (``dots_with_no_batch_dims_saveable``,
+    which keeps the matmul outputs), so ``"dots"`` saves less than the
+    reference and recomputes more -- as ``"full"`` does; the numbers are
+    the same."""
     S = tokens.shape[1]
     x = embed_tokens(params, cfg, tokens)
     consts = step_constants(cfg, torch.arange(S, device=tokens.device))
     group = _trunk_group(cfg)
+    remat = cfg.remat != "none" and torch.is_grad_enabled()
     total = torch.zeros((), dtype=torch.float32, device=tokens.device)
-    for p, _, kind in _layers(params, cfg, None):
-        x, _, aux = _apply_layer(p, x, cfg, kind, consts=consts, group=group)
-        if aux is not None:
+    for seg_layers, (unit, _) in zip(layer_params(params, cfg),
+                                     segments(cfg)):
+        for slots in seg_layers:
+            if remat:
+                x, aux = torch.utils.checkpoint.checkpoint(
+                    _unit, slots, unit, x, cfg, consts, group,
+                    use_reentrant=False)
+            else:
+                x, aux = _unit(slots, unit, x, cfg, consts, group)
             total = total + aux
     return logits_fn(params, cfg, final_hidden(params, cfg, x)), total
 

@@ -1,0 +1,163 @@
+"""AdamW over the port's param tree, the reference's semantics step for
+step (``repro.optim.optimizer``).
+
+  - global-norm gradient clipping first, the norm's per-leaf squares
+    summed in the tree's leaf order (``repro_torch.tree``), as the
+    reference sums them;
+  - weight decay on leaves of ``ndim >= 2`` only, judged on the STACKED
+    leaf (the port keeps JAX's stacked layout, so a stacked (L, D) norm
+    scale is decayed, as in the reference);
+  - an optional Adafactor-style factored second moment (a stacked leaf
+    whose last two axes are >= 2 is factored over them);
+  - optional bf16 moments;
+  - linear warmup + cosine decay, and the bias corrections ``1 - b**step``,
+    in f32.
+
+This is not ``torch.optim.AdamW``, which decays every leaf, does not
+clip and has neither option.  The functions are functional over trees,
+except ``update``, which writes the params and the state IN PLACE
+under ``torch.no_grad()``.  State: ``{"m": tree, "v": tree (a factored
+leaf's entry ``{"vr", "vc"}``), "step": int32 scalar}`` -- the
+reference's tree, so checkpoints of either package restore in the other.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Optional
+
+import torch
+
+from repro_torch import tree as tree_mod
+
+
+@dataclasses.dataclass(frozen=True)
+class AdamWConfig:
+    lr: float = 3e-4
+    b1: float = 0.9
+    b2: float = 0.95
+    eps: float = 1e-8
+    weight_decay: float = 0.1
+    clip_norm: Optional[float] = 1.0
+    warmup_steps: int = 100
+    total_steps: int = 10_000
+    min_lr_ratio: float = 0.1
+    factored: bool = False          # Adafactor-style factored 2nd moment
+    state_dtype: str = "float32"    # 'float32' | 'bfloat16' moments
+
+
+def schedule(cfg: AdamWConfig, step: torch.Tensor) -> torch.Tensor:
+    """Linear warmup + cosine decay to min_lr_ratio * lr; f32 scalar."""
+    step = step.to(torch.float32)
+    warm = torch.clamp(step / max(1.0, cfg.warmup_steps), max=1.0)
+    prog = torch.clamp((step - cfg.warmup_steps)
+                       / max(1.0, cfg.total_steps - cfg.warmup_steps),
+                       0.0, 1.0)
+    cos = 0.5 * (1.0 + torch.cos(math.pi * prog))
+    return cfg.lr * warm * (cfg.min_lr_ratio + (1 - cfg.min_lr_ratio) * cos)
+
+
+def global_norm(tree) -> torch.Tensor:
+    """sqrt of the f32 sum of every leaf's squares, summed leaf after leaf
+    in the tree's order."""
+    total = None
+    for leaf in tree_mod.leaves(tree):
+        s = torch.sum(torch.square(leaf.float()))
+        total = s if total is None else total + s
+    return torch.sqrt(total)
+
+
+def _clip_scale(norm: torch.Tensor, max_norm: float) -> torch.Tensor:
+    return torch.clamp(max_norm / (norm + 1e-9), max=1.0)
+
+
+def clip_by_global_norm(tree, max_norm: float):
+    """(tree scaled to a global norm of at most ``max_norm``, the norm
+    before)."""
+    norm = global_norm(tree)
+    scale = _clip_scale(norm, max_norm)
+    return tree_mod.map_tree(lambda _, g: g * scale.to(g.dtype), tree), norm
+
+
+def _factorable(shape) -> bool:
+    return len(shape) >= 2 and shape[-1] >= 2 and shape[-2] >= 2
+
+
+def _is_factored(v) -> bool:
+    return isinstance(v, dict) and set(v) == {"vr", "vc"}
+
+
+def init_state(cfg: AdamWConfig, params) -> dict:
+    """Zero moments on each leaf's device: ``{"m", "v", "step"}``."""
+    sdt = getattr(torch, cfg.state_dtype)
+
+    def mk_m(_, p):
+        return torch.zeros(p.shape, dtype=sdt, device=p.device)
+
+    def mk_v(_, p):
+        if cfg.factored and _factorable(p.shape):
+            return {"vr": torch.zeros(p.shape[:-1], dtype=torch.float32,
+                                      device=p.device),
+                    "vc": torch.zeros(p.shape[:-2] + p.shape[-1:],
+                                      dtype=torch.float32, device=p.device)}
+        return torch.zeros(p.shape, dtype=sdt, device=p.device)
+
+    dev = tree_mod.leaves(params)[0].device
+    return {"m": tree_mod.map_tree(mk_m, params),
+            "v": tree_mod.map_tree(mk_v, params),
+            "step": torch.zeros((), dtype=torch.int32, device=dev)}
+
+
+def _second_moment_update(cfg: AdamWConfig, v, g2):
+    if _is_factored(v):
+        return {"vr": cfg.b2 * v["vr"] + (1 - cfg.b2) * g2.mean(dim=-1),
+                "vc": cfg.b2 * v["vc"] + (1 - cfg.b2) * g2.mean(dim=-2)}
+    return (cfg.b2 * v.float() + (1 - cfg.b2) * g2).to(v.dtype)
+
+
+def _second_moment_value(v) -> torch.Tensor:
+    if _is_factored(v):              # the rank-1 estimate
+        vr, vc = v["vr"], v["vc"]
+        denom = torch.clamp(vr.mean(dim=-1, keepdim=True), min=1e-30)
+        return vr[..., None] * vc[..., None, :] / denom[..., None]
+    return v.float()
+
+
+@torch.no_grad()
+def update(cfg: AdamWConfig, grads, state: dict, params) -> dict:
+    """One AdamW step: ``params`` and ``state`` are written in place (the
+    reference returns new trees; the numbers are the same).  Returns the
+    metrics ``{"grad_norm", "lr"}`` (f32 scalars on the device)."""
+    gnorm = global_norm(grads)
+    scale = (_clip_scale(gnorm, cfg.clip_norm)
+             if cfg.clip_norm is not None else None)
+    step = state["step"].add_(1)
+    lr = schedule(cfg, step)
+    b1c = 1.0 - cfg.b1 ** step.to(torch.float32)
+    b2c = 1.0 - cfg.b2 ** step.to(torch.float32)
+    for path, g in tree_mod.items(grads):
+        p = tree_mod.get(params, path)
+        m = tree_mod.get(state["m"], path)
+        v = tree_mod.get(state["v"], path)
+        if scale is not None:
+            g = g * scale.to(g.dtype)
+        g32 = g.float()
+        m2 = cfg.b1 * m.float() + (1 - cfg.b1) * g32
+        v2 = _second_moment_update(cfg, v, g32 * g32)
+        del g, g32
+        # the same roundings as the reference's out-of-place expression,
+        # in place on this leaf's temporaries
+        den = (_second_moment_value(v2) / b2c).sqrt_().add_(cfg.eps)
+        upd = (m2 / b1c).div_(den)
+        del den
+        if cfg.weight_decay and p.dim() >= 2:   # decay matrices only
+            upd.add_(cfg.weight_decay * p.float())
+        p.copy_(p.float() - lr * upd)
+        del upd
+        m.copy_(m2)
+        if _is_factored(v):
+            v["vr"].copy_(v2["vr"])
+            v["vc"].copy_(v2["vc"])
+        else:
+            v.copy_(v2)
+    return {"grad_norm": gnorm, "lr": lr}

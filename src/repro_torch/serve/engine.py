@@ -188,7 +188,7 @@ from repro_torch.serve.paged_kv import PagedKVStore, pow2 as _pow2
 from repro_torch.serve.params import SamplingParams
 from repro_torch.serve.sampler import Sampler
 from repro_torch.serve.spec import PromptLookupDrafter
-from repro_torch.weights import cast_params, shard_params
+from repro_torch.weights import cast_params, detached, shard_params
 
 
 def _to_device(tree, device):
@@ -401,8 +401,9 @@ class ServeEngine:
                 cfg = sharding.local_config(cfg, split)
             params = _to_device(params, dev)
         # f32 master weights -> the compute dtype, ONCE (the JAX package
-        # casts inside every jitted step)
-        self.params = cast_params(params, cfg)
+        # casts inside every jitted step); detached, so masters a training
+        # step made serve without autograd (the kernels have no backward)
+        self.params = cast_params(detached(params), cfg)
         self.device = self.params["embed"].device
         self.tp = tp
         self.group = group

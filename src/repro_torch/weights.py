@@ -42,6 +42,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import rglru, rwkv6
 from repro_torch.parallel import sharding
+from repro_torch.tree import map_tree
 
 
 def dtype_of(cfg: ModelConfig) -> torch.dtype:
@@ -113,14 +114,6 @@ def param_shapes(cfg: ModelConfig) -> dict:
     return tree
 
 
-def _map(fn, tree, path=()):
-    if isinstance(tree, dict):
-        return {k: _map(fn, v, path + (k,)) for k, v in tree.items()}
-    if isinstance(tree, list):
-        return [_map(fn, v, path + (i,)) for i, v in enumerate(tree)]
-    return fn(path, tree)
-
-
 def _draw(init, n: int, generator: torch.Generator) -> torch.Tensor:
     """``n`` values of a leaf whose init is ``init`` (see
     ``param_shapes``), flat f32, from the host ``generator``."""
@@ -178,7 +171,7 @@ def seeded_params(cfg: ModelConfig, seed: int, device) -> dict:
             list(pool.map(fill, range(-(-flat.numel() // DRAW_CHUNK))))
             return out.to(device)
 
-        return _map(leaf, param_shapes(cfg))
+        return map_tree(leaf, param_shapes(cfg))
 
 
 def from_numpy_params(tree, cfg: ModelConfig, device) -> dict:
@@ -218,8 +211,11 @@ def cast_params(params: dict, cfg: ModelConfig) -> dict:
 
     ``repro.models.lm.cast_params`` does this cast on every step inside
     jit; rounding f32 to bf16 is the same operation either way, so the
-    port pays it once and keeps only the cast tree.  Leaves already in
-    the compute dtype are returned as they are.
+    serving port pays it once and keeps only the cast tree.  Training
+    (``models.api.train_loss``) casts inside the loss on every step, as
+    the reference does: the cast is differentiable, so the gradients
+    reach the f32 masters.  Leaves already in the compute dtype are
+    returned as they are.
 
     An untied ``lm_head`` keeps its (D, V) shape but is stored (V, D)
     row-major -- the ``.T`` view of a contiguous (V, D) tensor, the
@@ -232,7 +228,14 @@ def cast_params(params: dict, cfg: ModelConfig) -> dict:
             a = a.t().contiguous().t()
         return a
 
-    return _map(leaf, params)
+    return map_tree(leaf, params)
+
+
+def detached(tree):
+    """The tree with every tensor leaf ``detach()``-ed (the same storage,
+    no autograd history); other leaves as they are."""
+    return map_tree(lambda _, a: a.detach() if isinstance(a, torch.Tensor)
+                else a, tree)
 
 
 def shard_params(tree, cfg: ModelConfig, split: sharding.Split) -> dict:
@@ -251,4 +254,4 @@ def shard_params(tree, cfg: ModelConfig, split: sharding.Split) -> dict:
             return x.contiguous()
         return np.ascontiguousarray(x)
 
-    return _map(leaf, tree)
+    return map_tree(leaf, tree)

@@ -49,6 +49,12 @@ def test_the_guard_sees_every_form(tmp_path):
     "src/repro_torch/models/rglru.py", "src/repro_torch/paper/__init__.py",
     "src/repro_torch/paper/__main__.py", "src/repro_torch/paper/table1.py",
     "src/repro_torch/paper/fig23.py", "src/repro_torch/paper/classifier.py",
-    "src/repro_torch/parallel/moe_ep.py"])
+    "src/repro_torch/parallel/moe_ep.py", "src/repro_torch/tree.py",
+    "src/repro_torch/optim/optimizer.py",
+    "src/repro_torch/optim/compression.py",
+    "src/repro_torch/data/pipeline.py",
+    "src/repro_torch/checkpoint/manager.py",
+    "src/repro_torch/runtime/fault_tolerance.py",
+    "src/repro_torch/launch/steps.py", "src/repro_torch/launch/train.py"])
 def test_the_guard_covers_the_hybrid_and_paper_modules(rel):
     assert ROOT / rel in FILES

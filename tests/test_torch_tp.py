@@ -179,6 +179,21 @@ RANK_SCRIPT = textwrap.dedent(r'''
         return serve(host_stride=4)
 
     @scenario
+    def compressed():
+        # compressed_psum of this rank's gradients and error buffers
+        # (psum.npz, every rank's) over the group
+        from repro_torch.optim import compression
+        ps = np.load(f"{d}/psum.npz")
+        mine = {k[:-len(f"_{rank}")]: torch.from_numpy(ps[k])
+                for k in ps.files if k.endswith(f"_{rank}")}
+        grads = {"a": mine["g_a"], "b": [mine["g_b"]]}
+        errs = {"a": mine["e_a"], "b": [mine["e_b"]]}
+        synced, new_err = compression.compressed_psum(grads, g, errs,
+                                                      block=64)
+        return {"synced": [synced["a"].tolist(), synced["b"][0].tolist()],
+                "err": [new_err["a"].tolist(), new_err["b"][0].tolist()]}
+
+    @scenario
     def heads():
         # each rank's contiguous slice of W through the sharded unit
         h, w = (torch.from_numpy(inputs[k]) for k in ("h", "w"))
@@ -608,6 +623,24 @@ def _head_inputs():
                 bytes_shape=np.asarray([BYTES_SHAPE[k] for k in "bdvk"]))
 
 
+def _psum_inputs(world=4):
+    """Each rank's gradients ``g_a`` (3, 300), ``g_b`` (70,) and error
+    buffers ``e_a``, ``e_b`` for ``compressed_psum`` at block 64 (the
+    tails pad), f32, keyed ``<name>_<rank>``; ranks of either world read
+    theirs."""
+    rng = np.random.default_rng(9)
+    out = {}
+    for r in range(world):
+        scale = rng.choice([1e-3, 1.0, 30.0], size=(3, 1))
+        out[f"g_a_{r}"] = (rng.normal(size=(3, 300)) * scale).astype(
+            np.float32)
+        out[f"g_b_{r}"] = rng.normal(size=70).astype(np.float32)
+        out[f"e_a_{r}"] = (rng.normal(size=(3, 300)) * 1e-3).astype(
+            np.float32)
+        out[f"e_b_{r}"] = (rng.normal(size=70) * 1e-3).astype(np.float32)
+    return out
+
+
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
     """Both groups' results and the JAX side's, computed once."""
@@ -622,6 +655,7 @@ def runs(tmp_path_factory):
             pickle.dump(t, f)
     heads = _head_inputs()
     np.savez(d / "heads.npz", **heads)
+    np.savez(d / "psum.npz", **_psum_inputs())
     moe = {}
     for arch in MOE_ARCHS:
         moe[arch] = jlm.init_params(j_smoke(J_ARCHS[arch]),
@@ -856,6 +890,47 @@ def test_tp_forced_preemption_matches_jax_softmax(runs):
     assert res["reduced"]["tokens"] == want["preempt"]
     assert res["softmax"]["tokens"] == want["preempt"]
     assert res["reduced"]["preemptions"] >= 1
+
+
+@pytest.mark.parametrize("world", [2, 4])
+def test_compressed_psum_matches_the_reference_mean(runs, world):
+    """``optim.compression.compressed_psum`` over the group's ranks: the
+    synced gradient is the mean over ranks of the reference's
+    ``decompress(compress(g_r + e_r))`` (bitwise at world 2, where the
+    sum of two is one rounding; at world 4, whose gloo sum order is its
+    own, within three f32 roundings of the terms' |sum|), on every rank,
+    and each rank's new error buffer is the reference's residual (within
+    one ulp of its block's scale)."""
+    from repro.optim import compression as jcomp
+
+    got, _, _ = runs
+    ps = _psum_inputs()
+    want, resid, scales = [], [], []
+    for r in range(world):
+        leaves = []
+        for name, shape in (("a", (3, 300)), ("b", (70,))):
+            x = jnp.asarray(ps[f"g_{name}_{r}"] + ps[f"e_{name}_{r}"])
+            q, sc, err = jcomp.compress(x, 64)
+            leaves.append((np.asarray(jcomp.decompress(q, sc, shape)),
+                           np.asarray(err), np.repeat(np.asarray(sc)[:, 0],
+                                                      64)[:x.size]))
+        want.append([w for w, _, _ in leaves])
+        resid.append([e for _, e, _ in leaves])
+        scales.append([s for _, _, s in leaves])
+    mean = [sum(w[i] for w in want) / np.float32(world) for i in range(2)]
+    for r, res in enumerate(got[world]):
+        c = _ok(res, "compressed")
+        for i in range(2):
+            synced = np.asarray(c["synced"][i], np.float32)
+            if world == 2:
+                np.testing.assert_array_equal(synced, mean[i])
+            else:   # another order of 4 terms: 3 roundings of their |sum|
+                bound = 3 * 2.0 ** -23 * sum(np.abs(w[i]) for w in want) \
+                    / world
+                assert np.all(np.abs(synced - mean[i]) <= bound), (r, i)
+            err = np.asarray(c["err"][i], np.float32).reshape(-1)
+            assert np.all(np.abs(err - resid[r][i].reshape(-1))
+                          <= np.spacing(scales[r][i])), (r, i)
 
 
 @pytest.mark.parametrize("world", [2, 4])
