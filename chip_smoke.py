@@ -287,8 +287,10 @@ Phases, each of which fails the run (non-zero exit, no result line):
      library call, and the plain-recompute attention backward of a layer
      beside SDPA's; (a) ``train_loss`` and every gradient leaf on the
      card against the CPU's plain path for the qwen3-0.6b, phi3.5-moe,
-     recurrentgemma-2b and rwkv6-7b smoke configs in f32 (no leaf None,
-     none zero where the CPU's is not), and qwen3-0.6b's in bf16 under
+     recurrentgemma-2b, rwkv6-7b, internvl2-26b and seamless-m4t-large-v2
+     smoke configs in f32 (no leaf None, none zero where the CPU's is not;
+     seamless's through the non-causal flash Function), and qwen3-0.6b's
+     in bf16 under
      ``remat="dots"`` against the CPU's f32 (within twice the CPU's own
      bf16 error); (b) qwen3-0.6b at full width and
      full depth in bf16 with its remat, 20 AdamW steps at B 2 x S 4,096
@@ -299,6 +301,42 @@ Phases, each of which fails the run (non-zero exit, no result line):
      masters served, the comparator's tokens == the softmax baseline's;
      (e) a run resumed from a checkpoint on the card == an uninterrupted
      one.
+  4q. (after 4o, every earlier engine dropped) the vlm family: kernels 1,
+     5, 2, 3 and the verify head at internvl2-26b's shapes (paged at B 8,
+     T 1 and flash over 768 positions, 48 query heads over 8 KV heads of
+     128; the argmax head at B 8, the top-k head at B 4, k 8 and the
+     verify head at B 8 x T 5 on the untied (92,553, 6,144) head), each
+     against its plain version and timed beside its bound and library
+     call; then internvl2-26b in bf16 at full width and depth (19.86 B
+     parameters drawn on the host in bf16 by ``LLM.from_arch``, no f32
+     master), 8 paged slots of 1,024: phase 4's first 8 prompts (ids mod
+     92,553) greedy at 32 new tokens, eager and graphed three times
+     (tokens equal; 48 paged launches a decode step, 48 flash a prefill,
+     an argmax head a step and a prefill), Theorem 1, mixed samplers,
+     ``spec_k=4`` and ``chunk_size=64`` (bf16 streams measured, launches
+     gated); 256 stub image embeddings ahead of a 64-token prompt through
+     ``lm.prefill`` at B 4 with 16 greedy decode steps on the dense cache
+     (the streams differ from the same tokens without them; the argmax
+     head equals ``argmax(logits_fn)`` but at a near-tie); the replayed
+     step against the 11.5 ms bound of reading the weights once, tok/s,
+     the TTFT of a 512-token prompt, the peak memory and the host draw's
+     seconds.
+  4r. the enc-dec family: flash attention at seamless-m4t-large-v2's
+     shapes (16 heads of 64, bf16, B 8: the encoder non-causal over T =
+     S = 1,024 frames, the cross-attention non-causal over T 64 queries
+     and S 1,024 keys, the decoder's causal prefill at T 64) against its
+     plain version and SDPA, and the argmax head on the untied (256,206,
+     1,024) head; then seamless in bf16 at full width and depth (f32
+     masters from ``weights.seeded_params`` on the card, cast) through
+     ``lm.prefill`` / ``lm.decode_step`` (no engine, as in the
+     reference): B 8, 1,024 stub source frames, 64-token prompts, 32
+     greedy decode steps on the dense cache (flash 24 + 24 + 24 launches
+     a prefill, none a step; an argmax head a step), Theorem 1, an f32
+     twin held to ``argmax(lm.forward)`` (near-tie rule) with the bf16
+     rows' partings from it measured, the smoke config's f32 hidden
+     states card vs CPU; ms a decode step against reading the decoder,
+     the head and the cross K/V once, ms of the encoder pass, the peak
+     memory.
 
 Token streams that should be equal may part only at a near-tie of the
 two best f32 logits (gap within 1e-3 of the max): the batch composition
@@ -3969,17 +4007,18 @@ def model_line(label, name, row, library):
 
 
 def check_model_kernels(torch, timer, label, *, hq, hkv, hd, d, v, seed,
-                        paged_ts=(1, 64), verify=True) -> dict:
+                        paged_ts=(1, 64), verify=True, flash_t=512,
+                        verify_t=8) -> dict:
     """Kernels 1-5 at one model's shapes (bf16: ``hq`` query heads over
     ``hkv`` KV heads of ``hd``; an untied (V, D) = (``v``, ``d``) head
     stored as the ``.T`` view of a row-major (V, D) tensor, as
     ``weights.cast_params`` stores it), each against its plain version
     with the tolerances of phase 3 and timed beside its bound and its
     library call: paged attention at B 8 and each T of ``paged_ts`` (ragged
-    rows of 1-1,000 positions), flash attention over a 512-token prompt,
-    the argmax head at B 8, the top-k head at B 4, k 8 and, with
-    ``verify``, the verify head at B 8, T 8 (integer-valued operands:
-    exact)."""
+    rows of 1-1,000 positions), flash attention over a ``flash_t``-token
+    prompt, the argmax head at B 8, the top-k head at B 4, k 8 and, with
+    ``verify``, the verify head at B 8, T ``verify_t`` (integer-valued
+    operands: exact)."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import flash_attention as fa
@@ -4017,7 +4056,7 @@ def check_model_kernels(torch, timer, label, *, hq, hkv, hd, d, v, seed,
     gen = torch.Generator(device="cuda").manual_seed(seed)
 
     def rand(heads):
-        return torch.randn((1, 512, heads, hd), generator=gen,
+        return torch.randn((1, flash_t, heads, hd), generator=gen,
                            device="cuda").to(torch.bfloat16).transpose(1, 2)
 
     q, k, vv = rand(hq), rand(hkv), rand(hkv)
@@ -4028,15 +4067,16 @@ def check_model_kernels(torch, timer, label, *, hq, hkv, hd, d, v, seed,
     check(torch.allclose(out.float(), want.float(), atol=FA_TOL, rtol=FA_TOL),
           f"flash attention at g {g} disagrees with its plain version "
           f"({err})")
-    key = f"flash_t512_g{g}"
+    key = f"flash_t{flash_t}_g{g}"
     rows[key] = kernel_row(
         timer, lambda: fa.flash_attention(q, k, vv, causal=True),
         lambda: ref.flash_attention(q, k, vv, causal=True),
         lambda: F.scaled_dot_product_attention(q, k, vv, enable_gqa=True,
                                                is_causal=True),
         (2 * q.numel() + k.numel() + vv.numel()) * 2,
-        4 * hd * hq * (512 * 513 // 2), err)
-    model_line(label, f"flash_attention T=512 g={g}", rows[key], "sdpa")
+        4 * hd * hq * (flash_t * (flash_t + 1) // 2), err)
+    model_line(label, f"flash_attention T={flash_t} g={g}", rows[key],
+               "sdpa")
 
     emb = (torch.randn((v, d), generator=gen, device="cuda")
            / math.sqrt(d)).to(torch.bfloat16)
@@ -4075,16 +4115,17 @@ def check_model_kernels(torch, timer, label, *, hq, hkv, hd, d, v, seed,
     if not verify:
         return rows
 
+    vt = verify_t
     wi = torch.randint(-2, 3, (v, d), generator=gen, device="cuda").to(
         torch.bfloat16).t()
-    hi = torch.randint(-1, 2, (8, 8, d), generator=gen, device="cuda").to(
+    hi = torch.randint(-1, 2, (8, vt, d), generator=gen, device="cuda").to(
         torch.bfloat16)
-    ids0, _ = ref.verify_draft(hi, wi, torch.full((8, 7), -1,
+    ids0, _ = ref.verify_draft(hi, wi, torch.full((8, vt - 1), -1,
                                                   dtype=torch.int32,
                                                   device="cuda"))
-    cand = torch.full((8, 7), -1, dtype=torch.int32, device="cuda")
-    for r in range(8):                        # ragged widths 0..7
-        cand[r, :r] = ids0[r, :r]
+    cand = torch.full((8, vt - 1), -1, dtype=torch.int32, device="cuda")
+    for r in range(8):                        # ragged widths 0..T-1
+        cand[r, :min(r, vt - 1)] = ids0[r, :min(r, vt - 1)]
     cand[3, 1] = (cand[3, 1] + 1) % v         # a wrong draft mid-run
     ids, acc = fah.fused_verify_head(hi, wi, cand)
     torch.cuda.synchronize()
@@ -4092,16 +4133,16 @@ def check_model_kernels(torch, timer, label, *, hq, hkv, hd, d, v, seed,
     check(torch.equal(ids, rids) and torch.equal(acc, racc),
           f"the verify head at {label}'s shapes disagrees with its plain "
           "version")
-    h2 = hi.view(64, d)
-    rows["verify_b8_t8"] = kernel_row(
+    h2 = hi.view(8 * vt, d)
+    rows[f"verify_b8_t{vt}"] = kernel_row(
         timer, lambda: fah.fused_verify_head(hi, wi, cand),
         lambda: ref.verify_draft(hi, wi, cand),
         lambda: torch.argmax(h2 @ wi, dim=-1),
-        v * d * 2 + 64 * d * 2 + cand.numel() * 4 + 64 * 4 + 8 * 4,
-        2.0 * 64 * d * v, 0.0)
-    model_line(label, f"fused_verify_head B=8 T=8 (accept {acc.tolist()}, "
-               "exact)", rows["verify_b8_t8"],
-               "argmax(h @ W) over the 64 rows")
+        v * d * 2 + 8 * vt * d * 2 + cand.numel() * 4 + 8 * vt * 4 + 8 * 4,
+        2.0 * 8 * vt * d * v, 0.0)
+    model_line(label, f"fused_verify_head B=8 T={vt} (accept "
+               f"{acc.tolist()}, exact)", rows[f"verify_b8_t{vt}"],
+               f"argmax(h @ W) over the {8 * vt} rows")
     return rows
 
 
@@ -6500,7 +6541,8 @@ TRAIN_WARM = 3               # steps before the timed ones
 TRAIN_LR = 1e-3
 TRAIN_PEAK_PREDICTED_GB = 19.5
 TRAIN_GRAD_ARCHS = ("qwen3-0.6b", "phi3.5-moe-42b-a6.6b",
-                    "recurrentgemma-2b", "rwkv6-7b")
+                    "recurrentgemma-2b", "rwkv6-7b", "internvl2-26b",
+                    "seamless-m4t-large-v2")
 TRAIN_GRAD_TOL = 1e-3        # a leaf, card vs CPU, f32: of its max |value|
 # bf16 under remat: the card's worst leaf (and loss) against the CPU's
 # f32, at most this many times the CPU's own bf16 run's
@@ -6512,10 +6554,13 @@ TRAIN_RESUME_TOL = 1e-5
 def check_train_grads(torch) -> dict:
     """Phase 4o (a): ``train_loss`` and every gradient leaf on the card
     against the port's plain path on the CPU, on the same f32 smoke
-    weights (``weights.seeded_params``) and batch (B 2 x S 64), for the
-    dense, MoE, hybrid and RWKV6 families.  No leaf may be None, nor all
-    zero where the CPU's is not; each within TRAIN_GRAD_TOL of its
-    largest |value|."""
+    weights (``weights.seeded_params``) and batch (B 2 x S 64, with the
+    stub frontends' embeddings where the family takes them), for the
+    dense, MoE, hybrid, RWKV6, vlm and enc-dec families (the last through
+    the non-causal flash Function: the encoder, the cross-attention over
+    S != T keys).  No leaf may be None, nor all zero where the CPU's is
+    not; each within TRAIN_GRAD_TOL of its largest |value|; flash once a
+    self- or cross-attention layer of the forward."""
     from repro_torch import tree as tree_mod
     from repro_torch.configs import get_config, smoke_config
     from repro_torch.configs.base import ShapeSpec
@@ -6570,8 +6615,11 @@ def check_train_grads(torch) -> dict:
               f"{arch}: card gradients disagree with the CPU's")
         check(launches["fused_xent"] == 1 and launches["online_softmax"] == 1,
               f"{arch}: the loss did not run the cross-entropy kernels")
-        check(launches["flash_attention"] == lm.kv_layers(cfg),
-              f"{arch}: flash launched {launches['flash_attention']} times")
+        n_flash = lm.kv_layers(cfg) + cfg.n_encoder_layers + sum(
+            k == "xattn" for k in lm.layer_types(cfg))
+        check(launches["flash_attention"] == n_flash,
+              f"{arch}: flash launched {launches['flash_attention']} times, "
+              f"not {n_flash}")
         out[arch] = dict(loss=float(loss.detach()),
                          loss_cpu=float(want_loss),
                          worst_leaf_error=worst, leaves=len(grads),
@@ -7076,6 +7124,573 @@ def run_train_phase(torch) -> tuple:
     return summary, rows, launches, serve_launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 4q: the vlm family (internvl2-26b at full width); phase 4r: the
+# enc-dec family (seamless-m4t-large-v2 at full width and depth)
+# ---------------------------------------------------------------------------
+VLM_ARCH = "internvl2-26b"
+VLM_PROMPTS = 8              # phase 4's first 8 prompts, ids mod V
+VLM_IMAGE_B, VLM_IMAGE_T, VLM_IMAGE_NEW = 4, 64, 16
+ED_ARCH = "seamless-m4t-large-v2"
+ED_B, ED_SRC, ED_T, ED_NEW = 8, 1024, 64, 32
+ED_SMOKE_TOL = 1e-4          # f32 decode hidden states, card vs CPU
+
+
+def check_vlm_kernels(torch, timer) -> dict:
+    """Phase 4q (a): rows 1k / 5e / 2f / 3e / 4c -- kernels 1, 5, 2, 3 and
+    the verify head at internvl2-26b's shapes (48 query heads over 8 KV
+    heads of 128, g 6; flash over 768 positions, the image prefix and
+    the longest prompt; the untied (92,553, 6,144) head, not a multiple
+    of the 64-id tile; verify at B 8 x T 5, spec_k 4's window)."""
+    return check_model_kernels(torch, timer, VLM_ARCH, hq=48, hkv=8,
+                               hd=128, d=6144, v=92553, seed=31,
+                               paged_ts=(1,), flash_t=768, verify_t=5)
+
+
+def vlm_image_prefix(torch, llm) -> dict:
+    """Phase 4q (c): ``lm.prefill`` with 256 stub image embeddings
+    (``data.pipeline._stub_embeds``, seed 0, step 0) in the first
+    positions of a 320-token input (then a 64-token prompt) at B 4, then
+    VLM_IMAGE_NEW greedy ``lm.decode_step``s on the dense cache, the
+    argmax head each step; the same tokens without the embeddings.  The
+    streams with the prefix must differ from those without, and the
+    argmax head equal ``argmax(logits_fn)`` at every step but at a
+    near-tie."""
+    from repro_torch.data.pipeline import _stub_embeds
+    from repro_torch.kernels import ops
+    from repro_torch.models import lm
+
+    eng = llm.engine
+    params, cfg = eng.params, eng.cfg
+    n, b, t = cfg.num_image_tokens, VLM_IMAGE_B, VLM_IMAGE_T
+    rng = np.random.default_rng(9)
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, (b, n + t)),
+                           device="cuda")
+    img = torch.as_tensor(_stub_embeds(0, 0, np.arange(b), n, cfg.d_model),
+                          device="cuda").to(torch.bfloat16)
+    w = lm.lm_head_weight(params, cfg)
+    runs, worst_gap, flips = {}, 0.0, 0
+    for name, embeds in (("prefix", img), ("tokens", None)):
+        reset_launches()
+        h, cache = lm.prefill(params, cfg, toks, n + t + VLM_IMAGE_NEW,
+                              image_embeds=embeds)
+        out = []
+        for i in range(VLM_IMAGE_NEW):
+            idx, _ = ops.fused_argmax_head_with_value(h, w)
+            logits = lm.logits_fn(params, cfg, h)
+            top2 = logits.topk(2, dim=-1).values
+            plain = logits.argmax(dim=-1)
+            near = (top2[:, 0] - top2[:, 1]) <= HEAD_RTOL * top2[:, 0].abs()
+            bad = (idx.long() != plain) & ~near
+            check(not bool(bad.any()), f"4q (c) {name}: the argmax head "
+                  f"!= argmax(logits_fn) at a decided step {i}")
+            flips += int((idx.long() != plain).sum())
+            out.append(idx.long())
+            if i + 1 < VLM_IMAGE_NEW:
+                h, cache = lm.decode_step(params, cfg, idx.long()[:, None],
+                                          cache, torch.tensor(
+                                              n + t + i, device="cuda"))
+        torch.cuda.synchronize()
+        launches = read_launches()
+        runs[name] = torch.stack(out, 1).tolist()
+        check(launches["flash_attention"] == cfg.n_layers
+              and launches["paged_attention"] == 0
+              and launches["fused_argmax_head"] == VLM_IMAGE_NEW,
+              f"4q (c) {name}: launches {launches}")
+    differ = sum(a != b for a, b in zip(runs["prefix"], runs["tokens"]))
+    print(f"phase 4q (c) image prefix: {n} stub image embeddings + {t} "
+          f"tokens at B {b}, {VLM_IMAGE_NEW} greedy tokens on the dense "
+          f"cache; {differ}/{b} streams differ from the same tokens without "
+          f"the prefix; the argmax head == argmax(logits_fn) at every "
+          f"decided step ({flips} near-tie flips); launches a run: flash "
+          f"{cfg.n_layers}, argmax {VLM_IMAGE_NEW}, paged 0", flush=True)
+    check(differ > 0, "4q (c): the image prefix changed no stream")
+    return dict(streams_differing=differ, rows=b, near_tie_flips=flips,
+                first_tokens={k: [r[:4] for r in v] for k, v in runs.items()})
+
+
+def run_vlm_spec_chunk(torch, llm, prompts, greedy, max_new) -> dict:
+    """Phase 4q (b): ``spec_k=4`` (phase 4c's kind of prompts: a random
+    32-token phrase repeated to each length, against spec_k 0 on them)
+    and ``chunk_size=64`` (a second engine on the same weights, against
+    the one-shot greedy streams), each graphed once; their bf16 tokens
+    measured, not gated, as starcoder2's are (their K/V come from GEMMs
+    of other widths); their launches gated."""
+    from repro_torch.serve.api import LLM
+    from repro_torch.serve.params import SamplingParams
+
+    cfg = llm.cfg
+    rng = np.random.default_rng(4)
+    reps = [np.tile(rng.integers(0, cfg.vocab_size, size=32),
+                    len(p) // 32 + 1)[:len(p)].astype(np.int32)
+            for p in prompts]
+    sp0 = SamplingParams(max_new_tokens=max_new)
+    sp4 = SamplingParams(max_new_tokens=max_new, spec_k=4)
+    base = drive_graphed(torch, llm, reps, sp0, "internvl2 spec_k=0")
+    spec = drive_graphed(torch, llm, reps, sp4, "internvl2 spec_k=4")
+    outs, _, launches, st, wall = spec[:5]
+    calls = st["head_calls"]
+    check(st["drafted"] > 0, "internvl2 spec_k=4: nothing was drafted")
+    check(launches["fused_verify_head"] == calls.get("verify", 0) > 0,
+          "internvl2 spec_k=4: verify launches != steps with a draft row")
+    check(launches["paged_attention"] == cfg.n_layers * st["decode_steps"]
+          and launches["flash_attention"] == cfg.n_layers * st["prefills"],
+          f"internvl2 spec_k=4: attention launches {launches}")
+    same_spec = compare_streams(torch, llm, reps, base[0], outs,
+                                "internvl2 spec_k=4 vs spec_k=0, bf16",
+                                gate=False)
+    n_tok = sum(len(o.token_ids) for o in outs)
+    spec_row = dict(tok_s=n_tok / wall, decode_steps=st["decode_steps"],
+                    decode_steps_spec0=base[3]["decode_steps"],
+                    drafted=st["drafted"], accepted=st["accepted"],
+                    verify_launches=launches["fused_verify_head"],
+                    identical_streams_bf16=same_spec)
+    print(f"internvl2 spec_k=4: {n_tok} tokens, {st['decode_steps']} steps "
+          f"(spec_k 0: {base[3]['decode_steps']}), drafted {st['drafted']}, "
+          f"accepted {st['accepted']}, verify launches "
+          f"{launches['fused_verify_head']}", flush=True)
+    cllm = LLM(llm.engine.params, cfg, n_slots=8, max_len=1024, seed=0,
+               chunk_size=64)
+    run = drive_graphed(torch, cllm, prompts, sp0, "internvl2 chunk 64")
+    check_chunk_launches(run[2], run[3], cfg, "internvl2 chunk 64")
+    chunk_row = chunk_line("internvl2 chunk 64, graphed run 1", run, cllm)
+    chunk_row["identical_streams_bf16"] = compare_streams(
+        torch, llm, prompts, greedy, run[0],
+        "internvl2 chunk 64 vs one-shot, bf16", gate=False)
+    del cllm
+    return {"spec": spec_row, "chunked": chunk_row,
+            "spec_launches": launches}
+
+
+def run_vlm_path(torch, max_new=32) -> tuple:
+    """Phase 4q (b)-(d): internvl2-26b (the vlm family) in bf16 at full
+    width and depth (48 layers, d 6,144, 48 q over 8 kv heads of 128,
+    d_ff 16,384 SiLU-GLU, V 92,553 untied; 19.86 B parameters drawn on
+    the host in bf16 by ``LLM.from_arch``, ``weights.seeded_params(dtype=
+    ...)``: no f32 master), 8 paged slots of 1,024: phase 4's first 8
+    prompts (ids mod V) greedy, eager then graphed three times (the
+    third all replays; tokens equal;
+    48 paged launches a decode step, 48 flash a prefill, an argmax head a
+    step and a prefill), Theorem 1, mixed samplers, ``spec_k=4`` and
+    ``chunk_size=64`` (measured); the image prefix through ``lm.prefill``
+    (4q (c)); the replayed step against the 11.5 ms bound of reading the
+    weights once, tok/s, the TTFT of a 512-token prompt, the peak memory
+    and the host draw's seconds.  Returns (summary, graphed run 1's
+    launches, the sampled run's, the spec run's)."""
+    from repro_torch.serve.api import LLM
+    from repro_torch.serve.params import SamplingParams
+
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    llm = LLM.from_arch(VLM_ARCH, smoke=False, seed=0, n_slots=8,
+                        max_len=1024, block_size=16)
+    torch.cuda.synchronize()
+    built_s = time.perf_counter() - t0      # the host draw, moves, the pool
+    cfg, eng = llm.cfg, llm.engine
+    built_peak = torch.cuda.max_memory_allocated()
+    check((cfg.family, cfg.n_layers, cfg.d_model, cfg.n_heads,
+           cfg.n_kv_heads, cfg.head_dim, cfg.d_ff, cfg.vocab_size,
+           cfg.tie_embeddings, cfg.dtype, eng.store.any_paged)
+          == ("vlm", 48, 6144, 48, 8, 128, 16384, 92553, False, "bfloat16",
+              True), f"internvl2-26b is not served at full width: {cfg}")
+    check(all(t.dtype == torch.bfloat16 for t in _leaves(eng.params)),
+          "internvl2-26b: a leaf is not bf16 (an f32 master was kept)")
+    wbytes = sum(_nbytes(t) for t in _leaves(eng.params))
+    print(f"internvl2-26b: {cfg.n_layers} layers, d={cfg.d_model}, "
+          f"{cfg.n_heads}/{cfg.n_kv_heads} heads, hd={cfg.head_dim}, "
+          f"d_ff={cfg.d_ff}, V={cfg.vocab_size} untied, {cfg.dtype}; weights "
+          f"{wbytes / 1e9:.3f} GB, KV pool "
+          f"{sum(_nbytes(p) for p in eng.store.pools.values()) / 1e9:.3f} GB"
+          f"; LLM.from_arch (the host draw in bf16, each leaf moved as it "
+          f"is drawn) {built_s:.1f} s; peak {built_peak / 1e9:.3f} GB",
+          flush=True)
+    prng = np.random.default_rng(0)
+    prompts = [prng.integers(0, 151936, size=int(n)).astype(np.int32)
+               for n in prng.integers(64, 513, size=12)]
+    prompts = [p % cfg.vocab_size for p in prompts[:VLM_PROMPTS]]
+    params = SamplingParams(max_new_tokens=max_new)
+    llm.generate([prompts[0][:16]], SamplingParams(max_new_tokens=2))
+    torch.cuda.synchronize()                  # warm-up (cuBLAS, allocator)
+    eager, graphed = drive_both(torch, llm, prompts, params, "internvl2-26b")
+    check_main_launches(eager[2], eager[3], cfg, len(prompts),
+                        "internvl2-26b eager")
+    check_main_launches(graphed[2], graphed[3], cfg, len(prompts),
+                        "internvl2-26b graphed")
+    _, again = drive_replays(torch, llm, prompts, params, "internvl2-26b",
+                             graphed)
+    check_main_launches(again[2], again[3], cfg, len(prompts),
+                        "internvl2-26b graphed run 3")
+    outs = graphed[0]
+    for o in outs:
+        check(1 <= len(o.token_ids) <= max_new
+              and all(0 <= x < cfg.vocab_size for x in o.token_ids),
+              f"internvl2-26b: bad output for rid {o.rid}: {o.token_ids}")
+    summary = {
+        "eager": main_line("internvl2-26b, eager", eager[0], eager[3],
+                           eager[4]),
+        "graph": main_line("internvl2-26b, graphed run 3 (replays only)",
+                           again[0], again[3], again[4])}
+    step_bytes = step_weight_bytes(eng)
+    bound_ms = step_bytes / HBM_BYTES_PER_S * 1e3
+    step_ms = summary["graph"]["decode_ms"]
+    print(f"internvl2-26b replayed decode step: {step_ms:.3f} ms (host "
+          f"wall, graphed run 3) against a bound of {bound_ms:.3f} ms (the "
+          f"{step_bytes / 1e9:.3f} GB of weights a step reads, once): "
+          f"{step_ms / bound_ms:.2f}x", flush=True)
+    check_theorem1(torch, llm, prompts, outs, max_new,
+                   what="internvl2-26b theorem 1")
+    sampled_launches, summary["sampled"] = run_sampled_path(
+        torch, llm, prompts, outs, max_new, what="internvl2-26b sampled")
+    sc = run_vlm_spec_chunk(torch, llm, prompts, outs, max_new)
+    summary["spec"], summary["chunked"] = sc["spec"], sc["chunked"]
+    summary["image_prefix"] = vlm_image_prefix(torch, llm)
+    long = [np.resize(prompts[0], 512).astype(np.int32)]
+    ttft = []
+    for _ in range(2):                         # the second is warm
+        run = drive(torch, llm, long, SamplingParams(max_new_tokens=1))
+        ttft.append(run[3]["ttft_ms_p50"])
+    summary.update(
+        step_bound_ms=bound_ms, step_weight_gb=step_bytes / 1e9,
+        weights_gb=wbytes / 1e9, from_arch_s=built_s,
+        built_peak_gb=built_peak / 1e9, ttft_512_ms=ttft[-1],
+        peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+        graphs=graph_line(llm))
+    summary["phase_s"] = time.perf_counter() - t_phase
+    print(f"internvl2-26b: TTFT of a 512-token prompt {ttft[-1]:.2f} ms "
+          f"(cold {ttft[0]:.2f}); tok/s {summary['graph']['tok_s']:.2f} "
+          f"(graphed run 3); peak {summary['peak_memory_gb']:.3f} GB "
+          f"allocated; phase 4q (b)-(d) {summary['phase_s']:.1f} s",
+          flush=True)
+    return summary, graphed[2], sampled_launches, sc["spec_launches"]
+
+
+def check_encdec_kernels(torch, timer) -> dict:
+    """Phase 4r (a): rows 5f / 5g / 5h and 2g -- flash attention at the
+    enc-dec shapes (16 / 16 heads of 64, bf16, B 8): the encoder,
+    non-causal over T = S = 1,024 source frames; the cross-attention,
+    non-causal, T 64 queries over S 1,024 keys; the decoder's prefill,
+    causal, T 64 -- each against its plain version and SDPA; then the
+    argmax head at B 8 on seamless's untied (256,206, 1,024) head (not a
+    multiple of the 64-id tile) against its plain version and
+    ``argmax(h @ W)``.  The first run of the kernel's non-causal route
+    and of T != S in this script."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import fused_argmax_head as fah
+    from repro_torch.kernels import ref
+
+    gen = torch.Generator(device="cuda").manual_seed(37)
+    rows = {}
+
+    def rand(length, heads=16):
+        return torch.randn((ED_B, length, heads, 64), generator=gen,
+                           device="cuda").to(torch.bfloat16).transpose(1, 2)
+
+    for key, t, s, causal in (("flash_enc_t1024", ED_SRC, ED_SRC, False),
+                              ("flash_cross_t64_s1024", ED_T, ED_SRC, False),
+                              ("flash_dec_t64", ED_T, ED_T, True)):
+        q, k, v = rand(t), rand(s), rand(s)
+        out = fa.flash_attention(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        want = ref.flash_attention(q, k, v, causal=causal)
+        err = (out.float() - want.float()).abs().max().item()
+        check(torch.allclose(out.float(), want.float(), atol=FA_TOL,
+                             rtol=FA_TOL),
+              f"flash attention {key} (causal {causal}, T {t}, S {s}) "
+              f"disagrees with its plain version ({err})")
+        pairs = t * (t + 1) // 2 if causal else t * s
+        rows[key] = kernel_row(
+            timer, lambda: fa.flash_attention(q, k, v, causal=causal),
+            lambda: ref.flash_attention(q, k, v, causal=causal),
+            lambda: F.scaled_dot_product_attention(q, k, v,
+                                                   is_causal=causal),
+            (2 * q.numel() + k.numel() + v.numel()) * 2,
+            4.0 * 64 * 16 * ED_B * pairs, err)
+        model_line(ED_ARCH, f"flash_attention B={ED_B} T={t} S={s} "
+                   f"causal={causal} 16/16 heads hd 64", rows[key], "sdpa")
+    v, d = 256206, 1024
+    w = (torch.randn((v, d), generator=gen, device="cuda")
+         / math.sqrt(d)).to(torch.bfloat16).t()
+    h = torch.randn((8, d), generator=gen, device="cuda").to(torch.bfloat16)
+    idx, val = fah.fused_argmax_head_with_value(h, w)
+    torch.cuda.synchronize()
+    idx_ok, val_ok, err, _ = argmax_verdict(torch, h, w, idx, val)
+    check(idx_ok and val_ok, "the argmax head on seamless's untied head "
+          "disagrees with its plain version")
+    rows["argmax_b8"] = kernel_row(
+        timer, lambda: fah.fused_argmax_head_with_value(h, w),
+        lambda: ref.fused_argmax_head_with_value(h, w),
+        lambda: torch.argmax(h @ w, dim=-1), v * d * 2 + 8 * d * 2 + 8 * 8,
+        2.0 * 8 * d * v, err)
+    model_line(ED_ARCH, f"fused_argmax_head B=8 (V, D) = ({v}, {d})",
+               rows["argmax_b8"], "argmax(h @ W)")
+    return rows
+
+
+def encdec_decode(torch, params, cfg, toks, src, sampler, steps):
+    """``lm.prefill`` over ``toks`` (B, T) and the source embeddings, then
+    ``steps`` greedy ``lm.decode_step``s on the dense cache, ``sampler``'s
+    head after each pass.  Returns (tokens (B, steps + 1), the hidden
+    states the heads read, the launches of the prefill, of the steps)."""
+    from repro_torch.models import lm
+
+    t = toks.shape[1]
+    reset_launches()
+    h, cache = lm.prefill(params, cfg, toks, t + steps, src_embeds=src)
+    out, hs = [sampler.head(params, cfg, h).long()], [h]
+    torch.cuda.synchronize()
+    first = read_launches()
+    reset_launches()
+    for i in range(steps):
+        h, cache = lm.decode_step(params, cfg, out[-1][:, None], cache,
+                                  torch.tensor(t + i, device=toks.device))
+        out.append(sampler.head(params, cfg, h).long())
+        hs.append(h)
+    torch.cuda.synchronize()
+    return torch.stack(out, 1), hs, first, read_launches()
+
+
+def encdec_partings(torch, params, cfg, want, got, hs, what, gate):
+    """Rows of ``got`` against ``want`` (B, steps + 1) token tables: where a
+    row parts, the f32 top-2 gap of the hidden state that chose the
+    token (``hs``, the run that made ``want``); with ``gate`` a parting
+    must sit at a near-tie (gap <= HEAD_RTOL * |max|).  Returns the
+    number of identical rows and the partings (row, step, gap, max)."""
+    from repro_torch.models import lm
+
+    same, parts = 0, []
+    for r in range(want.shape[0]):
+        diff = (want[r] != got[r]).nonzero()
+        if diff.numel() == 0:
+            same += 1
+            continue
+        k = int(diff[0])
+        logits = lm.logits_fn(params, cfg, hs[k][r:r + 1])
+        top2 = logits[0].topk(2).values
+        gap, top = float(top2[0] - top2[1]), float(top2[0])
+        parts.append((r, k, gap, top))
+        print(f"{what}: row {r} parts at step {k}: top-2 f32 logit gap "
+              f"{gap:.6g} (max {top:.6g}, {gap / abs(top):.3g} of it)",
+              flush=True)
+        check(not gate or gap <= HEAD_RTOL * abs(top),
+              f"{what}: row {r} parts at a decided step (gap {gap})")
+    print(f"{what}: {same}/{want.shape[0]} rows identical"
+          + ("" if gate else " (measured, not a gate)"), flush=True)
+    return same, parts
+
+
+def encdec_step_profile(torch, params, cfg, tok, cache, pos,
+                        steps=3) -> dict:
+    """``steps`` eager ``lm.decode_step``s (each rewriting position
+    ``pos``) under ``torch.profiler``: wall ms a step, the device's busy
+    ms (the traced kernels' sum) and kernels a step."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.models import lm
+
+    p = torch.tensor(pos, device="cuda")
+    lm.decode_step(params, cfg, tok, cache, p)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            lm.decode_step(params, cfg, tok, cache, p)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not kernels:
+        print(f"seamless decode step profile: wall {wall_ms:.3f} ms; the "
+              "profiler recorded no device time (not measured)", flush=True)
+        return dict(wall_ms=wall_ms, busy_ms=None, kernels_per_step=None)
+    busy = sum(e.time_range.elapsed_us() for e in kernels) / 1e3 / steps
+    row = dict(wall_ms=wall_ms, busy_ms=busy, busy_share=busy / wall_ms,
+               kernels_per_step=len(kernels) / steps)
+    print(f"seamless decode step profile ({steps} eager steps, profiler "
+          f"on): wall {wall_ms:.3f} ms a step, device busy {busy:.3f} ms "
+          f"({100 * row['busy_share']:.1f}%), "
+          f"{row['kernels_per_step']:.0f} kernels a step", flush=True)
+    return row
+
+
+def encdec_smoke_card_vs_cpu(torch) -> dict:
+    """Phase 4r (b): the smoke config in f32 (``seeded_params`` seed 0),
+    ``lm.prefill`` over 16 tokens and 24 stub source frames, then 4
+    ``lm.decode_step``s: the card's hidden states against the CPU's plain
+    path within ED_SMOKE_TOL."""
+    from repro_torch.configs import get_config, smoke_config
+    from repro_torch.data.pipeline import _stub_embeds
+    from repro_torch.models import lm
+    from repro_torch.weights import seeded_params
+
+    cfg = smoke_config(get_config(ED_ARCH))
+    host = seeded_params(cfg, 0, "cpu")
+    rng = np.random.default_rng(5)
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, (2, 16)))
+    src = torch.from_numpy(_stub_embeds(0, 0, np.arange(2), 24,
+                                        cfg.d_model))
+    hs = {}
+    for dev in ("cpu", "cuda"):
+        p = _tree_to(host, dev)
+        t = toks.to(dev)
+        h, cache = lm.prefill(p, cfg, t, 21, src_embeds=src.to(dev))
+        out = [h]
+        for i in range(4):
+            nxt = (t[:, -1:] + i + 1) % cfg.vocab_size
+            h, cache = lm.decode_step(p, cfg, nxt, cache,
+                                      torch.tensor(16 + i, device=dev))
+            out.append(h)
+        hs[dev] = torch.stack(out).cpu()
+    err = float((hs["cuda"] - hs["cpu"]).abs().max())
+    print(f"phase 4r (b) {cfg.name} f32: prefill + 4 decode steps, hidden "
+          f"states card vs CPU max abs err {err:.3g} (limit "
+          f"{ED_SMOKE_TOL})", flush=True)
+    check(err <= ED_SMOKE_TOL, f"4r: the card's f32 decode hidden states "
+          f"are {err} from the CPU's")
+    return dict(max_abs_err=err)
+
+
+def run_encdec_path(torch) -> tuple:
+    """Phase 4r (b)-(c): seamless-m4t-large-v2 (the enc-dec family) at full
+    width and depth (24 + 24 layers, d 1,024, 16 heads of 64, ReLU d_ff
+    8,192, V 256,206 untied; f32 masters from ``weights.seeded_params``
+    on the card, served cast to bf16), no engine (the reference's takes
+    token prompts only): B 8, ED_SRC stub source frames
+    (``_stub_embeds``) and ED_T-token prompts, ``lm.prefill`` (encoder,
+    cross K/V, decoder; flash 24 + 24 + 24 launches), then ED_NEW greedy
+    ``lm.decode_step``s on the dense cache (no flash, one argmax head a
+    step); Theorem 1 (the softmax baseline head's tokens, near-tie rule);
+    an f32 twin whose tokens equal ``argmax(lm.forward)`` over its own
+    stream (near-tie rule), the bf16 rows' partings from it measured;
+    the smoke config's f32 hidden states card vs CPU; ms a decode step
+    against reading the decoder, the head and the cross K/V once, ms of
+    the encoder pass, the peak memory.  Returns (summary, the bf16 run's
+    prefill launches, its decode launches)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import _stub_embeds
+    from repro_torch.models import lm
+    from repro_torch.serve.sampler import Greedy, SoftmaxBaseline
+    from repro_torch.weights import cast_params, seeded_params
+
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = get_config(ED_ARCH)
+    f32 = dataclasses.replace(cfg, dtype="float32")
+    t0 = time.perf_counter()
+    # the f32 twin: the masters in the head kernels' layout (an untied
+    # head stored (V, D) row-major, ``cast_params``); the bf16 tree its
+    # cast
+    masters = cast_params(seeded_params(cfg, 0, "cuda"), f32)
+    params = cast_params(masters, cfg)
+    torch.cuda.synchronize()
+    built_s = time.perf_counter() - t0
+    check((cfg.family, cfg.n_layers, cfg.n_encoder_layers, cfg.d_model,
+           cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.d_ff,
+           cfg.vocab_size, cfg.activation, cfg.dtype)
+          == ("encdec", 24, 24, 1024, 16, 16, 64, 8192, 256206, "relu",
+              "bfloat16"), f"seamless is not at full width: {cfg}")
+    wbytes = sum(_nbytes(t) for t in _leaves(params))
+    rng = np.random.default_rng(12)
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, (ED_B, ED_T)),
+                           device="cuda")
+    src32 = torch.as_tensor(_stub_embeds(0, 0, np.arange(ED_B), ED_SRC,
+                                         cfg.d_model), device="cuda")
+    src = src32.to(torch.bfloat16)
+    print(f"seamless-m4t-large-v2: {cfg.n_encoder_layers} + {cfg.n_layers} "
+          f"layers, d={cfg.d_model}, {cfg.n_heads} heads of {cfg.head_dim},"
+          f" d_ff={cfg.d_ff} relu, V={cfg.vocab_size} untied; bf16 weights "
+          f"{wbytes / 1e9:.3f} GB; drawn and cast in {built_s:.1f} s; B "
+          f"{ED_B}, {ED_SRC} source frames, {ED_T}-token prompts, "
+          f"{ED_NEW} decode steps", flush=True)
+    encdec_decode(torch, params, cfg, toks[:, :8], src[:, :64], Greedy(), 2)
+    torch.cuda.synchronize()                  # warm-up (cuBLAS, allocator)
+    greedy, hs, pre, dec = encdec_decode(torch, params, cfg, toks, src,
+                                         Greedy(), ED_NEW)
+    n_attn = cfg.n_encoder_layers + 2 * cfg.n_layers
+    print(f"seamless bf16 greedy: launches prefill {pre}, decode {dec}",
+          flush=True)
+    check(pre["flash_attention"] == n_attn
+          and pre["fused_argmax_head"] == 1 and pre["paged_attention"] == 0,
+          f"seamless prefill launches {pre}: want flash {n_attn}")
+    check(dec["flash_attention"] == 0 and dec["paged_attention"] == 0
+          and dec["fused_argmax_head"] == ED_NEW,
+          f"seamless decode launches {dec}: want argmax {ED_NEW}, no "
+          "attention kernel")
+    check(bool(((greedy >= 0) & (greedy < cfg.vocab_size)).all()),
+          "seamless: a token out of the vocabulary")
+    soft, _, _, _ = encdec_decode(torch, params, cfg, toks, src,
+                                  SoftmaxBaseline(), ED_NEW)
+    theorem1 = encdec_partings(torch, params, cfg, greedy, soft, hs,
+                               "seamless theorem 1, the comparator vs the "
+                               "softmax baseline", gate=True)[0]
+    twin, twin_hs, _, _ = encdec_decode(torch, masters, f32, toks, src32,
+                                        Greedy(), ED_NEW)
+    logits, _ = lm.forward(masters, f32, torch.cat([toks, twin[:, :-1]], 1),
+                           src_embeds=src32)
+    fwd = logits[:, ED_T - 1:].argmax(-1)
+    f32_same = encdec_partings(torch, masters, f32, twin, fwd, twin_hs,
+                               "seamless f32 twin, decode vs "
+                               "argmax(lm.forward)", gate=True)[0]
+    del logits
+    bf16_same, partings = encdec_partings(
+        torch, masters, f32, twin, greedy, twin_hs,
+        "seamless bf16 vs the f32 twin", gate=False)
+    smoke = encdec_smoke_card_vs_cpu(torch)
+    # ms a decode step (events around the ED_NEW steps, eager) and of the
+    # encoder pass
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    h, cache = lm.prefill(params, cfg, toks, ED_T + ED_NEW, src_embeds=src)
+    tok = greedy[:, :1]
+    start.record()
+    for i in range(ED_NEW):
+        h, cache = lm.decode_step(params, cfg, tok, cache,
+                                  torch.tensor(ED_T + i, device="cuda"))
+        tok = Greedy().head(params, cfg, h).long()[:, None]
+    end.record()
+    end.synchronize()
+    step_ms = start.elapsed_time(end) / ED_NEW
+    prof = encdec_step_profile(torch, params, cfg, tok, cache,
+                               ED_T + ED_NEW - 1)
+    start.record()
+    for _ in range(3):
+        lm.encode(params, cfg, src)
+    end.record()
+    end.synchronize()
+    enc_ms = start.elapsed_time(end) / 3
+    xkv = sum(_nbytes(cache[0]["slot0"][n]) for n in ("xk", "xv"))
+    dec_bytes = sum(_nbytes(t) for t in _leaves(params["decoder"])) \
+        + _nbytes(params["lm_head"]) + xkv
+    bound_ms = dec_bytes / HBM_BYTES_PER_S * 1e3
+    enc_bytes = sum(_nbytes(t) for t in _leaves(params["encoder"]))
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    print(f"seamless decode step (eager, B {ED_B}): {step_ms:.3f} ms "
+          f"against a bound of {bound_ms:.3f} ms (the decoder, the head and "
+          f"the cross K/V, {dec_bytes / 1e9:.3f} GB, of which cross K/V "
+          f"{xkv / 1e9:.3f} GB, once): {step_ms / bound_ms:.2f}x; encoder "
+          f"pass over {ED_B} x {ED_SRC} frames {enc_ms:.3f} ms "
+          f"({enc_bytes / 1e9:.3f} GB of weights); peak {peak:.3f} GB "
+          "allocated", flush=True)
+    summary = dict(
+        weights_gb=wbytes / 1e9, built_s=built_s, decode_ms=step_ms,
+        decode_bound_ms=bound_ms, decode_bytes_gb=dec_bytes / 1e9,
+        cross_kv_gb=xkv / 1e9, encoder_ms=enc_ms, peak_memory_gb=peak,
+        theorem1_identical_rows=theorem1, f32_forward_identical_rows=f32_same,
+        bf16_vs_f32_identical_rows=bf16_same, step_profile=prof,
+        bf16_partings=[dict(row=r, step=k, gap=g, max=m)
+                       for r, k, g, m in partings],
+        smoke_card_vs_cpu=smoke, prefill_launches=pre,
+        decode_launches=dec)
+    del masters, params, cache
+    summary["phase_s"] = time.perf_counter() - t_phase
+    print(f"phase 4r (b)-(c): {summary['phase_s']:.1f} s", flush=True)
+    return summary, pre, dec
+
+
 def _nbytes(t) -> int:
     return t.numel() * t.element_size()
 
@@ -7283,6 +7898,27 @@ def main() -> int:
         summary["train"]["attention_backward"] = train_rows[
             "attention_backward"]
         mark("phase 4o")
+        # phase 4q: internvl2-26b, on a card every earlier engine left
+        gc.collect()
+        torch.cuda.empty_cache()
+        t_q = time.perf_counter()
+        timer = Timer(torch)
+        vlm_rows = check_vlm_kernels(torch, timer)
+        del timer
+        (summary["internvl2_26b"], vlm_launches, vlm_sampled,
+         vlm_spec) = run_vlm_path(torch)
+        mark("phase 4q")
+        # phase 4r: seamless-m4t-large-v2, once internvl2's engines are gone
+        gc.collect()
+        torch.cuda.empty_cache()
+        timer = Timer(torch)
+        ed_rows = check_encdec_kernels(torch, timer)
+        del timer
+        summary["seamless"], ed_prefill, ed_decode = run_encdec_path(torch)
+        summary["phases_4q_4r_s"] = time.perf_counter() - t_q
+        print(f"phases 4q + 4r: {summary['phases_4q_4r_s']:.1f} s",
+              flush=True)
+        mark("phase 4r")
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1
@@ -7295,7 +7931,8 @@ def main() -> int:
              host_stride8_launches=stride_launches["paged_attention"],
              max_abs_err=max(r["max_abs_err"] for r in [
                  *pa_rows.values(), sc2_rows["paged_t1"],
-                 sc2_rows["paged_t64"], moe_rows["paged_t1"]]),
+                 sc2_rows["paged_t64"], moe_rows["paged_t1"],
+                 vlm_rows["paged_t1"]]),
              **{k: pa_rows[1][k] for k in TIMES + ("chunks",)},
              single_row={k: pa_rows["B1"][k] for k in TIMES + ("chunks",)},
              t64={k: pa_rows[64][k] for k in TIMES + ("chunks",)},
@@ -7310,6 +7947,9 @@ def main() -> int:
              tp_moe_launches=summary["tp"]["tp2"]["moe"]["launches"][
                  "paged_attention"],
              phi35_moe_t1_g4={k: moe_rows["paged_t1"][k]
+                              for k in TIMES + ("chunks", "max_abs_err")},
+             internvl2_launches=vlm_launches["paged_attention"],
+             internvl2_t1_g6={k: vlm_rows["paged_t1"][k]
                               for k in TIMES + ("chunks", "max_abs_err")},
              tp_router_launches=summary["tp"]["tp4"]["router"]["launches"][
                  "paged_attention"],
@@ -7361,7 +8001,8 @@ def main() -> int:
                  *head_rows.values(), wide_rows["argmax_B1"],
                  wide_rows["argmax_B8"], sc2_rows["argmax_b8"],
                  rg_rows["argmax_b8"], rw_rows["argmax_b8"],
-                 moe_rows["argmax_b8"]]),
+                 moe_rows["argmax_b8"], vlm_rows["argmax_b8"],
+                 ed_rows["argmax_b8"]]),
              **{k: head_rows[8][k] for k in TIMES},
              b1={k: head_rows[1][k] for k in TIMES},
              b64={k: head_rows[64][k] for k in TIMES},
@@ -7387,6 +8028,13 @@ def main() -> int:
              phi35_moe_launches=moe_launches["fused_argmax_head"],
              phi35_moe_untied_b8={k: moe_rows["argmax_b8"][k]
                                   for k in TIMES + ("max_abs_err",)},
+             internvl2_launches=vlm_launches["fused_argmax_head"],
+             internvl2_untied_b8={k: vlm_rows["argmax_b8"][k]
+                                  for k in TIMES + ("max_abs_err",)},
+             seamless_prefill_launches=ed_prefill["fused_argmax_head"],
+             seamless_decode_launches=ed_decode["fused_argmax_head"],
+             seamless_untied_b8={k: ed_rows["argmax_b8"][k]
+                                 for k in TIMES + ("max_abs_err",)},
              tp_router_launches=summary["tp"]["tp4"]["router"]["launches"][
                  "fused_argmax_head"],
              tp_http_launches=summary["tp"]["tp2"]["http"]["launches"][
@@ -7400,7 +8048,7 @@ def main() -> int:
              max_abs_err=max(r["max_abs_err"] for r in [
                  *topk_rows.values(), wide_rows["topk_B8_k8"],
                  sc2_rows["topk_b4_k8"], rw_rows["topk_b4_k8"],
-                 moe_rows["topk_b4_k8"]]),
+                 moe_rows["topk_b4_k8"], vlm_rows["topk_b4_k8"]]),
              **{k: topk_rows[(4, 8)][k] for k in TIMES},
              k64={k: topk_rows[(4, 64)][k] for k in TIMES},
              passes=topk_passes, d18432=wide_rows["topk_B8_k8"],
@@ -7416,6 +8064,9 @@ def main() -> int:
                                  for k in TIMES + ("max_abs_err",)},
              phi35_moe_sampled_launches=moe_sampled["fused_topk_head"],
              phi35_moe_untied_b4_k8={k: moe_rows["topk_b4_k8"][k]
+                                     for k in TIMES + ("max_abs_err",)},
+             internvl2_sampled_launches=vlm_sampled["fused_topk_head"],
+             internvl2_untied_b4_k8={k: vlm_rows["topk_b4_k8"][k]
                                      for k in TIMES + ("max_abs_err",)}),
         dict(name="fused_verify_head", route="cuda",
              source="src/repro_torch/kernels/csrc/fused_argmax_head.cu",
@@ -7437,7 +8088,10 @@ def main() -> int:
              starcoder2_untied_b8_t8={k: sc2_rows["verify_b8_t8"][k]
                                       for k in TIMES},
              rwkv6_launches=rw_launches["fused_verify_head"],
-             phi35_moe_launches=moe_launches["fused_verify_head"]),
+             phi35_moe_launches=moe_launches["fused_verify_head"],
+             internvl2_spec_launches=vlm_spec["fused_verify_head"],
+             internvl2_untied_b8_t5={k: vlm_rows["verify_b8_t5"][k]
+                                     for k in TIMES}),
         dict(name="flash_attention", route="cuda",
              source="src/repro_torch/kernels/csrc/flash_attention.cu",
              replaces="src/repro/kernels/flash_attention.py:76",
@@ -7446,7 +8100,11 @@ def main() -> int:
                  *flash_rows.values(), sc2_rows["flash_t512_g9"],
                  rg_rows["flash_t2150_g10_hd256"],
                  moe_rows["flash_t512_g4"],
-                 train_rows["flash_t4096_b2_g2"]]),
+                 train_rows["flash_t4096_b2_g2"],
+                 vlm_rows["flash_t768_g6"],
+                 *(ed_rows[k] for k in ("flash_enc_t1024",
+                                        "flash_cross_t64_s1024",
+                                        "flash_dec_t64"))]),
              train_launches=train_launches["flash_attention"],
              train_launches_per_step=summary["train"]["launches_per_step"][
                  "flash_attention"],
@@ -7469,7 +8127,16 @@ def main() -> int:
                                 for k in TIMES + ("max_abs_err",)},
              recurrentgemma_t2150_g10_hd256_w2048={
                  k: rg_rows["flash_t2150_g10_hd256"][k]
-                 for k in TIMES + ("max_abs_err", "route")}),
+                 for k in TIMES + ("max_abs_err", "route")},
+             internvl2_launches=vlm_launches["flash_attention"],
+             internvl2_t768_g6={k: vlm_rows["flash_t768_g6"][k]
+                                for k in TIMES + ("max_abs_err",)},
+             seamless_prefill_launches=ed_prefill["flash_attention"],
+             seamless_decode_launches=ed_decode["flash_attention"],
+             **{f"seamless_{k[6:]}": {n: ed_rows[k][n]
+                                      for n in TIMES + ("max_abs_err",)}
+                for k in ("flash_enc_t1024", "flash_cross_t64_s1024",
+                          "flash_dec_t64")}),
         dict(name="step_graph", route="cuda",
              source="src/repro_torch/serve/step_graph.py",
              replaces="src/repro/serve/engine.py:164",

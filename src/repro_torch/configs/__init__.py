@@ -1,9 +1,9 @@
 """Registry: ``--arch`` id -> ModelConfig (exact assigned shapes).
 
 A copy of ``repro.configs`` so the port needs nothing of the JAX
-package.  Every arch is registered; the port serves the ``dense``
-family only for now (``repro_torch.models.lm.segments`` refuses the
-others).
+package.  Every arch is registered and runs through ``models.lm``; the
+serving engine takes every family but ``encdec``, as the reference's
+does.
 """
 from repro_torch.configs.base import (
     SHAPES,

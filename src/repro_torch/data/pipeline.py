@@ -8,9 +8,8 @@ Markov stream) and ``memmap`` (a tokenized uint16 ``.bin`` corpus,
 memory-mapped, strided access).
 
 There is no mesh: one process makes the whole global batch, rows
-``np.arange(B)``, and moves it to its device.  The frontend stub
-embeddings of the ``encdec`` / ``vlm`` families are not made, since the
-port trains neither family.
+``np.arange(B)``, and moves it to its device.  The ``encdec`` / ``vlm``
+families' frontend stubs (``_stub_embeds``) come with each batch.
 """
 from __future__ import annotations
 
@@ -90,7 +89,35 @@ class TokenPipeline:
 
     def batch(self, step: int) -> dict:
         """``{"tokens", "labels"}``: (B, S) int32 each, the labels the
-        tokens shifted by one."""
-        data = self._host_rows(step, np.arange(self.shape.global_batch))
+        tokens shifted by one; with ``"src_embeds"`` (B, S, D) under an
+        encoder and ``"image_embeds"`` (B, num_image_tokens, D) under a
+        vlm config, in the compute dtype."""
+        B, S = self.shape.global_batch, self.shape.seq_len
+        data = self._host_rows(step, np.arange(B))
         t = torch.from_numpy(data.astype(np.int32)).to(self.device)
-        return {"tokens": t[:, :-1], "labels": t[:, 1:]}
+        out = {"tokens": t[:, :-1], "labels": t[:, 1:]}
+        if self.mc.n_encoder_layers:
+            out["src_embeds"] = self._embeds(step, (B, S))
+        if self.mc.num_image_tokens:
+            out["image_embeds"] = self._embeds(
+                step, (B, self.mc.num_image_tokens))
+        return out
+
+    def _embeds(self, step: int, bn) -> torch.Tensor:
+        x = _stub_embeds(self.dc.seed, step, np.arange(bn[0]), bn[1],
+                         self.mc.d_model)
+        return torch.from_numpy(x).to(self.device).to(
+            getattr(torch, self.mc.dtype))
+
+
+def _stub_embeds(seed: int, step: int, rows: np.ndarray, n: int,
+                 d: int) -> np.ndarray:
+    """Deterministic frontend stub embeddings (len(rows), n, d) f32, a
+    copy of the reference's ``TokenPipeline._stub_embeds``: standard
+    normals from a numpy Philox keyed ``seed + 7`` at counter ``[0, 0,
+    step, rows[0]]``, times 0.02.  The reference makes one such block per
+    shard of the batch; on one host the shard is every row."""
+    rng = np.random.Generator(np.random.Philox(
+        key=np.uint64(seed + 7),
+        counter=[0, 0, np.uint64(step), np.uint64(int(rows[0]))]))
+    return rng.standard_normal((len(rows), n, d), dtype=np.float32) * 0.02

@@ -43,13 +43,16 @@ def xent_loss(logits: torch.Tensor, labels: torch.Tensor,
 
 def train_loss(params: dict, cfg: ModelConfig, batch: dict) -> torch.Tensor:
     """The training objective of ``batch`` ({"tokens", "labels"} (B, S),
-    optionally "loss_mask"): ``xent_loss`` of ``lm.forward``'s logits,
-    plus ``router_aux_weight`` times the router loss under ``cfg.moe``.
-    ``params`` are the f32 masters, cast to the compute dtype inside the
-    loss as the reference's ``forward`` casts them (``weights.cast_params``
-    is differentiable), so the gradients reach the masters in f32.  The
-    ``vlm`` and ``encdec`` families raise, as ``lm.segments`` does."""
-    logits, aux = lm.forward(cast_params(params, cfg), cfg, batch["tokens"])
+    optionally "loss_mask", and the stub frontends' "image_embeds" (vlm)
+    or "src_embeds" (encdec), which go on to ``lm.forward``):
+    ``xent_loss`` of ``lm.forward``'s logits, plus ``router_aux_weight``
+    times the router loss under ``cfg.moe``.  ``params`` are the f32
+    masters, cast to the compute dtype inside the loss as the reference's
+    ``forward`` casts them (``weights.cast_params`` is differentiable), so
+    the gradients reach the masters in f32."""
+    logits, aux = lm.forward(cast_params(params, cfg), cfg, batch["tokens"],
+                             image_embeds=batch.get("image_embeds"),
+                             src_embeds=batch.get("src_embeds"))
     loss = xent_loss(logits, batch["labels"], batch.get("loss_mask"))
     if cfg.moe is not None:
         loss = loss + cfg.moe.router_aux_weight * aux

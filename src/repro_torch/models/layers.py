@@ -241,8 +241,9 @@ _ATTN_TAP = None
 
 
 def attention(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
-              consts: StepConstants, causal: bool = True,
-              window: Optional[int] = None, cache: Optional[dict] = None):
+              consts: Optional[StepConstants], causal: bool = True,
+              window: Optional[int] = None, cache: Optional[dict] = None,
+              kv_x: Optional[torch.Tensor] = None):
     """Returns ``(out, extra)``; ``consts`` is the pass's
     ``step_constants``.
 
@@ -250,7 +251,16 @@ def attention(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
     attention over the T positions of ``x`` through
     ``ops.flash_attention`` (``causal``, ``window``: the plain version on
     the CPU, the kernel on the card); ``extra`` is the (k, v) the prefill
-    builds its cache from.
+    builds its cache from.  With ``kv_x`` (B, S, D), cross-attention: K
+    and V come from ``kv_x``, nothing is rotated (``consts`` may be
+    None), T queries over S keys through the same call.
+
+    ``cache`` without a cache position (``consts`` None or without
+    ``cpm``): the read-only cache of a cross-attention decode step, ``{"k",
+    "v"}`` (B, S, Hkv, hd) -- every query attends over all S rows, which
+    are never written, in plain torch in the reference's order
+    (``repro/models/layers.py:362-363`` and the einsum after it): scores in
+    the compute dtype then f32, softmax, cast back; ``extra`` is None.
 
     ``cache`` with the paged fields of ``consts``: the shared ``(num_blocks,
     bs, Hkv, hd)`` pools -- each new K/V row is written into its pool
@@ -268,11 +278,19 @@ def attention(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
     B, T, _ = x.shape
     hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     q = _split_heads(x @ p["wq"], hq, hd)
-    k = _split_heads(x @ p["wk"], hkv, hd)
-    v = _split_heads(x @ p["wv"], hkv, hd)
+    if cache is not None and (consts is None or consts.cpm is None):
+        return _read_only_attention(p, q, cfg, cache), None
+    src = x if kv_x is None else kv_x
+    k = _split_heads(src @ p["wk"], hkv, hd)
+    v = _split_heads(src @ p["wv"], hkv, hd)
     if "q_norm" in p:                        # qk-norm before RoPE
         q = rms_norm(q, p["q_norm"], cfg.norm_eps)
         k = rms_norm(k, p["k_norm"], cfg.norm_eps)
+    if kv_x is not None:
+        # cross-attention: no RoPE, no mask, T queries over S keys
+        o = ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                                v.transpose(1, 2), causal=False)
+        return o.transpose(1, 2).reshape(B, T, hq * hd) @ p["wo"], None
     q = rotate(q, consts.cos, consts.sin)
     k = rotate(k, consts.cos, consts.sin)
 
@@ -313,6 +331,22 @@ def _first_writes(t: torch.Tensor, src: torch.Tensor) -> torch.Tensor:
     first writer's (``StepConstants.src``)."""
     B, T = t.shape[:2]
     return t.reshape(B * T, *t.shape[2:])[src].view(t.shape)
+
+
+def _read_only_attention(p, q, cfg: ModelConfig, cache: dict):
+    """Every query over all rows of a read-only cache (cross K/V), GQA by
+    repeat, no mask: the reference's order of operations."""
+    B, T, hq, hd = q.shape
+    dt = q.dtype
+    g = hq // cfg.n_kv_heads
+    k, v = cache["k"].to(dt), cache["v"].to(dt)
+    if g > 1:
+        k = torch.repeat_interleave(k, g, dim=2)
+        v = torch.repeat_interleave(v, g, dim=2)
+    scores = torch.einsum("bthd,bshd->bhts", q, k) / math.sqrt(hd)
+    probs = torch.softmax(scores.float(), dim=-1).to(dt)
+    out = torch.einsum("bhts,bshd->bthd", probs, v)
+    return out.reshape(B, T, hq * hd) @ p["wo"]
 
 
 def _dense_attention(p, q, k, v, cfg: ModelConfig, consts: StepConstants,

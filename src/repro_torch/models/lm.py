@@ -1,12 +1,18 @@
 """Model assembly: embed, the block program's layers, the head.
 
-Counterpart of ``repro.models.lm`` for the ``dense``, ``moe``,
-``hybrid`` and ``ssm`` families.  A config lowers to a block program
-(``segments``): a list of ``(unit, count)``, the unit a tuple of layer
-kinds -- ``attn`` (self-attention + MLP), ``moe`` (self-attention + the
-routed experts, ``layers.moe_layer``), ``rec`` (the RG-LRU block + MLP,
-``models.rglru``) or ``rwkv`` (the RWKV6 time-mix + channel-mix layer,
-``models.rwkv6``) -- repeated ``count`` times.  Params are the stacked
+Counterpart of ``repro.models.lm`` for all six families: ``dense`` and
+``vlm`` (whose stub frontend's image embeddings take the first positions,
+``embed_tokens``), ``moe``, ``hybrid``, ``ssm`` and ``encdec``.  A config
+lowers to a block program (``segments``): a list of ``(unit, count)``,
+the unit a tuple of layer kinds -- ``attn`` (self-attention + MLP),
+``moe`` (self-attention + the routed experts, ``layers.moe_layer``),
+``rec`` (the RG-LRU block + MLP, ``models.rglru``), ``rwkv`` (the RWKV6
+time-mix + channel-mix layer, ``models.rwkv6``) or ``xattn`` (causal
+self-attention, cross-attention over the encoder's output, MLP) --
+repeated ``count`` times.  An ``encdec`` config's encoder is the block
+program ``encoder_segments``: ``enc`` layers, bidirectional
+self-attention + MLP over the stub frontend's source embeddings, at
+their own positions (``encode``).  Params are the stacked
 tree of ``repro_torch.weights`` (one dict per segment, each slot's
 leaves with a leading axis of ``count``), already cast to the compute
 dtype; the JAX package's ``lax.scan`` over a segment is a Python loop
@@ -14,7 +20,9 @@ indexing ``[l]``.
 
 Caches keep the JAX tree structure, per segment ``{"slot{j}": {"attn":
 {"k", "v"}}, {"rec": {"conv", "h"}} or {"shift1", "shift2", "wkv"}}``
-(an ``rwkv`` slot's cache is its state itself): a prefill returns dense
+(an ``rwkv`` slot's cache is its state itself; an ``xattn`` slot's holds
+``"xk"`` / ``"xv"`` beside ``"attn"``, the read-only cross K/V ``(count,
+B, S_src, Hkv, hd)`` a prefill computes once): a prefill returns dense
 leaves -- K/V ``(count, B, S, Hkv, hd)`` with S = ``max_len``, or
 ``min(max_len, window)`` for an architecture window (the ring buffer,
 position p at row p % window), the RG-LRU state ``(count, B, w - 1,
@@ -45,8 +53,9 @@ import torch.utils.checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import rglru, rwkv6
-from repro_torch.models.layers import (StepConstants, attention, mlp,
-                                      moe_layer, rms_norm, step_constants)
+from repro_torch.models.layers import (StepConstants, _split_heads,
+                                      attention, mlp, moe_layer, rms_norm,
+                                      step_constants)
 from repro_torch.parallel import moe_ep
 from repro_torch.weights import dtype_of
 
@@ -56,7 +65,7 @@ def segments(cfg: ModelConfig):
     splits into whole units plus a remainder unit, as the reference's
     (``repro/models/lm.py:50-70``)."""
     L = cfg.n_layers
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "vlm"):
         return [(("attn",), L)]
     if cfg.family == "moe":
         # every ``interleave_step``-th layer routes; the others are dense
@@ -74,9 +83,15 @@ def segments(cfg: ModelConfig):
         if rem:
             segs.append((pat[:rem], 1))
         return segs
-    raise NotImplementedError(
-        f"family {cfg.family!r}: the port serves the dense, moe, hybrid and "
-        "ssm families")
+    if cfg.family == "encdec":
+        return [(("xattn",), L)]
+    raise ValueError(f"family {cfg.family!r}")
+
+
+def encoder_segments(cfg: ModelConfig):
+    """The encoder's block program: ``n_encoder_layers`` ``enc`` layers,
+    or none."""
+    return [(("enc",), cfg.n_encoder_layers)] if cfg.n_encoder_layers else []
 
 
 def layer_types(cfg: ModelConfig) -> list:
@@ -102,11 +117,23 @@ def moe_impl(cfg: ModelConfig, decode: bool) -> str:
     return "scatter" if decode else "gshard"
 
 
-def embed_tokens(params: dict, cfg: ModelConfig,
-                 tokens: torch.Tensor) -> torch.Tensor:
+def embed_tokens(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
+                 image_embeds: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The token embeddings (B, T, D); under a config with
+    ``num_image_tokens``, given ``image_embeds`` (B, n, D) -- the stub
+    vision frontend's patch embeddings -- take the first n positions, cast
+    to the compute dtype (reference ``embed_tokens``)."""
     group = _trunk_group(cfg)
     if group is None:
-        return params["embed"][tokens]
+        x = params["embed"][tokens]
+        if cfg.num_image_tokens and image_embeds is not None:
+            n = image_embeds.shape[1]
+            x = torch.cat([image_embeds.to(x.dtype), x[:, n:]], dim=1)
+        return x
+    if image_embeds is not None:
+        raise NotImplementedError(
+            "image embeddings under a vocabulary-split embedding: the vlm "
+            "family does not run under tensor parallelism")
     # vocabulary-sharded lookup: this rank's rows for the ids in its
     # range, exact zeros elsewhere; the sum over ranks adds zeros only
     lo, hi = cfg.shard.vocab
@@ -189,25 +216,33 @@ def _layer(sp: dict, l: int) -> dict:
             for k, v in sp.items()}
 
 
+def _stack_layers(stack: list, segs: list) -> list:
+    return [[[_layer(seg[f"slot{j}"], l) for j in range(len(unit))]
+             for l in range(count)]
+            for seg, (unit, count) in zip(stack, segs)]
+
+
 def layer_params(params: dict, cfg: ModelConfig) -> list:
     """Every layer's param views, ``[segment][layer][slot]``: built once
     by a caller that runs many passes over one param tree (the serving
     engine), so a pass indexes no stacked leaf."""
-    return [[[_layer(seg[f"slot{j}"], l) for j in range(len(unit))]
-             for l in range(count)]
-            for seg, (unit, count) in zip(params["decoder"], segments(cfg))]
+    return _stack_layers(params["decoder"], segments(cfg))
 
 
 def _apply_layer(p: dict, x: torch.Tensor, cfg: ModelConfig, kind: str, *,
-                 consts, cache=None, group=None):
-    """One decoder layer of ``kind``; with ``group`` (a split trunk) the
+                 consts, cache=None, group=None, cross=None):
+    """One layer of ``kind``; with ``group`` (a split trunk) the
     row-parallel outputs of ``wo`` and ``w_out`` are summed over the
     ranks, and a ``moe`` layer runs its rank's experts
     (``parallel.moe_ep``).  Returns (x, extra, aux):
-    an ``attn`` or ``moe`` layer's ``attention`` extra, a ``rec`` or
-    ``rwkv`` layer's new state; a ``moe`` layer's router loss (f32
-    scalar), else None.  A ``moe`` layer routes with ``moe_impl``: the
-    decode executor with a cache, the prefill one without."""
+    an attention-bearing layer's self-attention ``attention`` extra, a
+    ``rec`` or ``rwkv`` layer's new state; a ``moe`` layer's router loss
+    (f32 scalar), else None.  A ``moe`` layer routes with ``moe_impl``:
+    the decode executor with a cache, the prefill one without.  An
+    ``enc`` layer's self-attention is bidirectional with no window; an
+    ``xattn`` layer's cross-attention reads ``cross``: the encoder's
+    output (B, S_src, D) without a cache, the read-only ``{"k", "v"}``
+    cross K/V in a decode step (reference ``_apply_layer``)."""
     if kind == "rwkv":
         return (*_recurrent(rwkv6.init_state, rwkv6.rwkv_block, p, x, cfg,
                             consts, cache), None)
@@ -217,12 +252,22 @@ def _apply_layer(p: dict, x: torch.Tensor, cfg: ModelConfig, kind: str, *,
         h = mlp(p["mlp"], rms_norm(x, p["ln2"], cfg.norm_eps),
                 cfg.activation)
         return x + h, extra, None
+    enc = kind == "enc"
     a, extra = attention(p["attn"], rms_norm(x, p["ln1"], cfg.norm_eps),
-                         cfg, consts=consts, causal=True,
-                         window=cfg.attention_window, cache=cache)
+                         cfg, consts=consts, causal=not enc,
+                         window=None if enc else cfg.attention_window,
+                         cache=cache)
     if group is not None:
         a = group.all_reduce_sum(a, "trunk")
     x = x + a
+    if kind == "xattn":
+        h = rms_norm(x, p["lnx"], cfg.norm_eps)
+        if isinstance(cross, dict):
+            xa, _ = attention(p["xattn"], h, cfg, consts=None, cache=cross)
+        else:
+            xa, _ = attention(p["xattn"], h, cfg, consts=None, kv_x=cross,
+                              causal=False)
+        x = x + xa
     h_in = rms_norm(x, p["ln2"], cfg.norm_eps)
     if kind != "moe":
         h = mlp(p["mlp"], h_in, cfg.activation)
@@ -264,13 +309,15 @@ def _recurrent(init_state, block, p: dict, x: torch.Tensor,
 
 
 def init_cache(cfg: ModelConfig, batch_size: int, max_len: int,
-               device) -> list:
+               device, src_len: Optional[int] = None) -> list:
     """Fresh dense cache tree: per segment, each slot's ``{"attn": {"k",
     "v"}}`` with ``(count, B, S, Hkv, hd)`` leaves (S = ``max_len``, or
     ``min(max_len, window)`` under an architecture window), ``{"rec":
     {"conv", "h"}}`` with ``(count, B, w - 1, lru)`` / ``(count, B,
     lru)`` f32 leaves, or an ``rwkv`` slot's ``{"shift1", "shift2",
-    "wkv"}`` (``rwkv6.init_state`` over (count, B)), zeros."""
+    "wkv"}`` (``rwkv6.init_state`` over (count, B)), zeros.  With
+    ``src_len``, an ``xattn`` slot also holds ``"xk"`` / ``"xv"`` ``(count,
+    B, src_len, Hkv, hd)``, which a prefill fills."""
     dt = dtype_of(cfg)
     w = cfg.attention_window
     rows = max_len if w is None else min(max_len, w)    # w: a ring buffer
@@ -290,19 +337,29 @@ def init_cache(cfg: ModelConfig, batch_size: int, max_len: int,
             seg[f"slot{j}"] = {"attn": {
                 "k": torch.zeros(shape, dtype=dt, device=device),
                 "v": torch.zeros(shape, dtype=dt, device=device)}}
+            if kind == "xattn" and src_len is not None:
+                xshape = (count, batch_size, src_len, cfg.n_kv_heads,
+                          cfg.head_dim)
+                for name in ("xk", "xv"):
+                    seg[f"slot{j}"][name] = torch.zeros(xshape, dtype=dt,
+                                                        device=device)
         caches.append(seg)
     return caches
 
 
+KV_KINDS = ("attn", "moe", "xattn")
+
+
 def kv_layers(cfg: ModelConfig) -> int:
-    """Layers that keep linear K/V: the ``attn`` and ``moe`` ones."""
-    return sum(k in ("attn", "moe") for k in layer_types(cfg))
+    """Layers that keep linear self-attention K/V: the ``attn``, ``moe``
+    and ``xattn`` ones."""
+    return sum(k in KV_KINDS for k in layer_types(cfg))
 
 
 def pool_tree(cfg: ModelConfig, pools: dict) -> list:
     """The paged store's pools ``{"k", "v"}`` -- each ``(kv_layers(cfg),
     num_blocks, bs, Hkv, hd)`` -- as the model's cache tree: per segment,
-    each ``attn`` / ``moe`` slot's ``{"attn": {"k", "v"}}`` is the view
+    each ``KV_KINDS`` slot's ``{"attn": {"k", "v"}}`` is the view
     of ``count`` consecutive layers of the stack, slot after slot in
     segment order (a program of one slot gets the pools themselves).
     llama4's ``(attn, moe)`` unit thus reads layers [0, L/2) and [L/2,
@@ -311,7 +368,7 @@ def pool_tree(cfg: ModelConfig, pools: dict) -> list:
     for unit, count in segments(cfg):
         seg = {}
         for j, kind in enumerate(unit):
-            if kind in ("attn", "moe"):
+            if kind in KV_KINDS:
                 seg[f"slot{j}"] = {"attn": {
                     name: t if count == t.shape[0] else t[at:at + count]
                     for name, t in pools.items()}}
@@ -348,18 +405,72 @@ def _store_kv(leaf: dict, l: int, k: torch.Tensor, v: torch.Tensor,
 
 
 def _unit(slots: list, unit: tuple, x: torch.Tensor, cfg: ModelConfig,
-          consts, group):
+          consts, group, cross=None):
     """One unit of the block program over x (its slots' layers in
     order): returns (x, the f32 sum of its router losses)."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for p, kind in zip(slots, unit):
-        x, _, a = _apply_layer(p, x, cfg, kind, consts=consts, group=group)
+        x, _, a = _apply_layer(p, x, cfg, kind, consts=consts, group=group,
+                               cross=cross)
         if a is not None:
             aux = aux + a
     return x, aux
 
 
-def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor):
+def _run_units(stack_layers: list, segs: list, x: torch.Tensor,
+               cfg: ModelConfig, consts, group, cross=None):
+    """Every unit of a block program over x, each under
+    ``torch.utils.checkpoint`` when ``cfg.remat`` asks and grad is on:
+    returns (x, the f32 sum of the router losses)."""
+    remat = cfg.remat != "none" and torch.is_grad_enabled()
+    total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for seg_layers, (unit, _) in zip(stack_layers, segs):
+        for slots in seg_layers:
+            if remat:
+                x, aux = torch.utils.checkpoint.checkpoint(
+                    _unit, slots, unit, x, cfg, consts, group, cross,
+                    use_reentrant=False)
+            else:
+                x, aux = _unit(slots, unit, x, cfg, consts, group, cross)
+            total = total + aux
+    return x, total
+
+
+def encode(params: dict, cfg: ModelConfig,
+           src_embeds: torch.Tensor) -> torch.Tensor:
+    """The encoder stack over the stub frontend's embeddings (B, S_src, D)
+    (cast to the compute dtype): bidirectional self-attention at the
+    source positions 0..S_src-1 (their own RoPE table), then
+    ``encoder_norm`` (reference ``encode``)."""
+    x = src_embeds.to(dtype_of(cfg))
+    consts = step_constants(cfg, torch.arange(x.shape[1], device=x.device))
+    x, _ = _run_units(_stack_layers(params["encoder"], encoder_segments(cfg)),
+                      encoder_segments(cfg), x, cfg, consts, None)
+    return rms_norm(x, params["encoder_norm"], cfg.norm_eps)
+
+
+def _encoder_output(params: dict, cfg: ModelConfig,
+                    src_embeds: Optional[torch.Tensor]):
+    """``encode`` of ``src_embeds`` for an ``encdec`` config, else None."""
+    if not cfg.n_encoder_layers:
+        return None
+    if src_embeds is None:
+        raise ValueError(f"{cfg.name}: an encoder-decoder config needs "
+                         "src_embeds (B, S_src, D)")
+    return encode(params, cfg, src_embeds)
+
+
+def _cross_kv(p: dict, enc_out: torch.Tensor, cfg: ModelConfig):
+    """One ``xattn`` layer's read-only cross K/V (B, S_src, Hkv, hd) from
+    the encoder's output: no norm, no RoPE (reference ``_cross_kv``)."""
+    hkv, hd = cfg.n_kv_heads, cfg.head_dim
+    return (_split_heads(enc_out @ p["xattn"]["wk"], hkv, hd),
+            _split_heads(enc_out @ p["xattn"]["wv"], hkv, hd))
+
+
+def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor, *,
+            image_embeds: Optional[torch.Tensor] = None,
+            src_embeds: Optional[torch.Tensor] = None):
     """The train / eval forward over ``tokens`` (B, S): returns (f32
     logits (B, S, V), the f32 sum of the ``moe`` layers' router losses, 0
     for a family without them).  The reference's train-mode attention is
@@ -367,7 +478,10 @@ def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor):
     through the cache-less branch (``ops.flash_attention``, causal, the
     architecture window), which carries its gradient; a ``rec`` layer
     runs its block from a zero state, a ``moe`` layer routes through the
-    prefill executor.
+    prefill executor.  ``image_embeds`` (B, n, D) replace the first n
+    positions' embeddings of a ``vlm`` config; an ``encdec`` config's
+    ``src_embeds`` (B, S_src, D) go through ``encode`` first, and every
+    ``xattn`` layer attends over its output.
 
     ``cfg.remat``: with grad enabled and a policy other than ``"none"``,
     each unit of the block program runs under
@@ -379,57 +493,54 @@ def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor):
     which keeps the matmul outputs), so ``"dots"`` saves less than the
     reference and recomputes more -- as ``"full"`` does; the numbers are
     the same."""
+    enc_out = _encoder_output(params, cfg, src_embeds)
     S = tokens.shape[1]
-    x = embed_tokens(params, cfg, tokens)
+    x = embed_tokens(params, cfg, tokens, image_embeds)
     consts = step_constants(cfg, torch.arange(S, device=tokens.device))
-    group = _trunk_group(cfg)
-    remat = cfg.remat != "none" and torch.is_grad_enabled()
-    total = torch.zeros((), dtype=torch.float32, device=tokens.device)
-    for seg_layers, (unit, _) in zip(layer_params(params, cfg),
-                                     segments(cfg)):
-        for slots in seg_layers:
-            if remat:
-                x, aux = torch.utils.checkpoint.checkpoint(
-                    _unit, slots, unit, x, cfg, consts, group,
-                    use_reentrant=False)
-            else:
-                x, aux = _unit(slots, unit, x, cfg, consts, group)
-            total = total + aux
+    x, total = _run_units(layer_params(params, cfg), segments(cfg), x, cfg,
+                          consts, _trunk_group(cfg), enc_out)
     return logits_fn(params, cfg, final_hidden(params, cfg, x)), total
 
 
 def prefill(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
-            max_len: int):
+            max_len: int, *, image_embeds: Optional[torch.Tensor] = None,
+            src_embeds: Optional[torch.Tensor] = None):
     """Process the prompt (B, S): returns (last hidden (B, D), cache):
-    each ``attn`` layer's K/V zero-padded to ``max_len`` positions (or
-    its ring buffer, ``_store_kv``), each ``rec`` layer's state after the
-    prompt."""
+    each self-attention layer's K/V zero-padded to ``max_len`` positions
+    (or its ring buffer, ``_store_kv``), each ``rec`` layer's state after
+    the prompt, each ``xattn`` layer's cross K/V over the encoder's output
+    of ``src_embeds`` (computed once here; a decode step only reads it).
+    ``image_embeds`` as in ``forward``."""
     B, S = tokens.shape
-    x = embed_tokens(params, cfg, tokens)
+    enc_out = _encoder_output(params, cfg, src_embeds)
+    x = embed_tokens(params, cfg, tokens, image_embeds)
     consts = step_constants(cfg, torch.arange(S, device=tokens.device))
-    caches = init_cache(cfg, B, max_len, tokens.device)
+    caches = init_cache(cfg, B, max_len, tokens.device,
+                        None if enc_out is None else enc_out.shape[1])
     group = _trunk_group(cfg)
     for p, (s, l, slot), kind in _layers(params, cfg, None):
         x, extra, _ = _apply_layer(p, x, cfg, kind, consts=consts,
-                                   group=group)
+                                   group=group, cross=enc_out)
         leaf = caches[s][slot]
         if kind in ("rec", "rwkv"):
             state = leaf["rec"] if kind == "rec" else leaf
             for name, t in state.items():
                 t[l] = extra[name]
-        else:
-            _store_kv(leaf["attn"], l, *extra, cfg)
+            continue
+        _store_kv(leaf["attn"], l, *extra, cfg)
+        if kind == "xattn":
+            leaf["xk"][l], leaf["xv"][l] = _cross_kv(p, enc_out, cfg)
     h = final_hidden(params, cfg, x[:, -1:, :])[:, 0, :]
     return h, caches
 
 
 def _first_kv(caches: list, cfg: ModelConfig) -> Optional[torch.Tensor]:
-    """An ``attn`` or ``moe`` layer's K leaf (pools or dense), whose shape
-    says what the step's cache indices are; None for a config with no
+    """A self-attention layer's K leaf (pools or dense), whose shape says
+    what the step's cache indices are; None for a config with no
     attention layer (``ssm``)."""
     for seg, (unit, _) in zip(caches, segments(cfg)):
         for j, kind in enumerate(unit):
-            if kind in ("attn", "moe"):
+            if kind in KV_KINDS:
                 return seg[f"slot{j}"]["attn"]["k"]
     return None
 
@@ -451,8 +562,10 @@ def decode_step(params: dict, cfg: ModelConfig, token: torch.Tensor,
     ``cache_rows[b]`` (default b).  ``layers`` is
     ``layer_params(params, cfg)`` where the caller keeps it.  The RoPE
     table and the cache indices are computed once for all layers
-    (``layers.step_constants``).  Returns (h, caches): h is (B, D) for
-    T == 1 and (B, T, D) otherwise."""
+    (``layers.step_constants``).  An ``xattn`` layer reads its slot's
+    ``xk`` / ``xv`` (the prefill's cross K/V) and never writes them.
+    Returns (h, caches): h is (B, D) for T == 1 and (B, T, D)
+    otherwise."""
     T = token.shape[1]
     if pos.dim() == 2:
         positions = pos                                   # (B, T)
@@ -479,10 +592,19 @@ def decode_step(params: dict, cfg: ModelConfig, token: torch.Tensor,
     group = _trunk_group(cfg)
     for p, (s, l, slot), kind in _layers(params, cfg, layers):
         leaf = caches[s][slot]
+        cross = None
+        if kind == "xattn":
+            if "xk" not in leaf:
+                raise ValueError("an xattn layer's decode step needs the "
+                                 "prefill's cross K/V (xk / xv)")
+            cross = {"k": leaf["xk"][l], "v": leaf["xv"][l]}
+            if cache_rows is not None:
+                cross = {name: t[cache_rows] for name, t in cross.items()}
         if kind != "rwkv":
             leaf = leaf["rec" if kind == "rec" else "attn"]
         x, _, _ = _apply_layer(p, x, cfg, kind, consts=consts, cache={
-            name: t[l] for name, t in leaf.items()}, group=group)
+            name: t[l] for name, t in leaf.items()}, group=group,
+            cross=cross)
     if T == 1:
         return final_hidden(params, cfg, x[:, 0, :]), caches
     return final_hidden(params, cfg, x), caches

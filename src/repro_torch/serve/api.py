@@ -137,15 +137,20 @@ class LLM:
         ``dtype`` (``"float32"`` / ``"bfloat16"``) replaces the config's
         compute dtype.
 
+        Without ``tp`` the tree is drawn in the compute dtype
+        (``seeded_params(dtype=...)``: each chunk cast on the host as it
+        is drawn, the same bits as casting the f32 masters), since the
+        engine serves the cast tree and keeps no master: internvl2-26b's
+        f32 masters (79.45 GB) and their cast would not fit one card.
         With ``tp`` > 1 (one process per rank, the group torchrun
-        describes, ``comm.Group.from_env``) the tree stays on the host and
-        the engine keeps the rank's slice of it, so no rank holds the
+        describes, ``comm.Group.from_env``) the f32 tree stays on the host
+        and the engine keeps the rank's slice of it, so no rank holds the
         whole tree on the card."""
         import dataclasses
 
         from repro_torch.configs import get_config, smoke_config
         from repro_torch.parallel import comm
-        from repro_torch.weights import seeded_params
+        from repro_torch.weights import dtype_of, seeded_params
 
         device = torch.device(device)
         if device.type == "cuda" and not torch.cuda.is_available():
@@ -160,9 +165,12 @@ class LLM:
         group = None
         if tp is not None and tp > 1:
             group = comm.Group.from_env(device=device)
-        host = device if group is None else torch.device("cpu")
-        return cls(seeded_params(cfg, seed, host), cfg, seed=seed, tp=tp,
-                   group=group, **engine_kwargs)
+        if group is None:
+            params = seeded_params(cfg, seed, device, dtype=dtype_of(cfg))
+        else:
+            params = seeded_params(cfg, seed, torch.device("cpu"))
+        return cls(params, cfg, seed=seed, tp=tp, group=group,
+                   **engine_kwargs)
 
     # -- engine event plumbing ----------------------------------------------
     def _on_chunk(self, chunk: TokenChunk) -> None:

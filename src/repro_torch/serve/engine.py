@@ -102,7 +102,13 @@ output depend on the rest of the step's batch, padding rows included,
 so a draft window would shift the capacity ranks (``spec_k`` refused),
 and chunking and the device loop fall back; its T = 1 step (the
 ``scatter`` executor: routing, ranks and the spare row all on the
-device) is captured per bucket like the dense one.
+device) is captured per bucket like the dense one.  The VLM family
+(internvl2) is the dense family to the engine: token prompts, paged,
+every path open; its image prefix enters through ``lm.prefill`` only, as
+the reference's engine takes no image embeddings.  An ENC-DEC config
+(seamless) is refused at construction: the reference's engine takes
+token prompts only and fails at its first prefill without source
+embeddings.
 
 ``kv_layout='dense'`` keeps the reference's per-slot ``max_len`` cache,
 the byte-identity oracle of the paged path: admission is a dense
@@ -311,6 +317,12 @@ class ServeEngine:
         if kv_layout not in ("paged", "dense"):
             raise ValueError(f"kv_layout={kv_layout!r}: expected 'paged' "
                              "or 'dense'")
+        if cfg.n_encoder_layers:
+            raise ValueError(
+                f"{cfg.name}: an encoder-decoder config is not served -- the "
+                "reference's engine takes token prompts only and has no "
+                "source embeddings to encode (run lm.prefill / "
+                "lm.decode_step with src_embeds instead)")
         if mesh is not None:
             raise NotImplementedError(
                 "mesh=: the port runs one process per rank; pass group= (a "

@@ -291,10 +291,10 @@ class PagedKVStore:
     @staticmethod
     def pages(cfg: ModelConfig, layout: str) -> bool:
         """Whether a store of ``layout`` for ``cfg`` pages its K/V: the
-        paged layout of a dense- or moe-family config with no
+        paged layout of a dense-, vlm- or moe-family config with no
         architecture window (every layer's cache is then linear K/V;
         reference ``paged_kv.py:280-297`` pages every such leaf)."""
-        return (layout == "paged" and cfg.family in ("dense", "moe")
+        return (layout == "paged" and cfg.family in ("dense", "vlm", "moe")
                 and cfg.attention_window is None)
 
     @property

@@ -24,6 +24,12 @@ leaves flat in it (``models.rwkv6.layer_shapes``), beside an untied
 "w_out": (L, E, Fe, D)}``, plus ``"shared"``, a dense MLP of width Fe,
 where the config has a shared expert; phi3.5-moe is one segment of one
 ``moe`` slot, llama4-maverick one segment of ``(attn, moe)`` slots.
+The vlm family's tree is the dense family's.  The encdec family's
+decoder slot is an ``xattn`` layer, an ``attn`` layer plus ``"lnx"``
+(D,) and ``"xattn"`` ``{"wq", "wk", "wv", "wo"}`` (cross-attention never
+has qk-norm scales), and beside the decoder sit ``"encoder"``, one
+segment of one ``enc`` slot (an ``attn`` layer's leaves) over
+``n_encoder_layers``, and ``"encoder_norm"`` (D,).
 Weights are normal times 1/sqrt(fan-in), zeros for the norm scales
 (which the layers apply as ``1 + scale``), drawn on the host from a seed
 (``seeded_params``).  The numbers differ from ``jax.random``'s; tests
@@ -34,7 +40,7 @@ from __future__ import annotations
 import math
 import os
 from concurrent.futures import ThreadPoolExecutor
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -67,7 +73,9 @@ def param_shapes(cfg: ModelConfig) -> dict:
     the ssm family (rwkv6) one segment of one ``rwkv`` slot; the moe
     family one segment of its ``interleave_step`` unit (``moe`` last),
     whose ``moe`` slot holds the router and the expert stacks
-    (reference ``init_moe``)."""
+    (reference ``init_moe``); the encdec family one segment of one
+    ``xattn`` slot, and ``encoder`` the segments of
+    ``lm.encoder_segments`` (reference ``init_params``)."""
     from repro_torch.models import lm
 
     d, v = cfg.d_model, cfg.vocab_size
@@ -81,6 +89,14 @@ def param_shapes(cfg: ModelConfig) -> dict:
         mlp["w_out"] = ((L, f, d), f)
         return mlp
 
+    def attn_shapes(L: int, cross: bool) -> dict:
+        attn = {"wq": ((L, d, qw), d), "wk": ((L, d, kw), d),
+                "wv": ((L, d, kw), d), "wo": ((L, qw, d), qw)}
+        if cfg.qk_norm and not cross:
+            attn["q_norm"] = ((L, cfg.head_dim), None)
+            attn["k_norm"] = ((L, cfg.head_dim), None)
+        return attn
+
     def layer(kind: str, L: int) -> dict:
         if kind == "rwkv":
             return rwkv6.layer_shapes(cfg, L)
@@ -88,14 +104,14 @@ def param_shapes(cfg: ModelConfig) -> dict:
         if kind == "rec":
             return {"rec": rglru.layer_shapes(cfg, L),
                     "ln2": ((L, d), None), "mlp": mlp}
-        attn = {"wq": ((L, d, qw), d), "wk": ((L, d, kw), d),
-                "wv": ((L, d, kw), d), "wo": ((L, qw, d), qw)}
-        if cfg.qk_norm:
-            attn["q_norm"] = ((L, cfg.head_dim), None)
-            attn["k_norm"] = ((L, cfg.head_dim), None)
+        attn = attn_shapes(L, False)
         if kind != "moe":
-            return {"ln1": ((L, d), None), "attn": attn,
-                    "ln2": ((L, d), None), "mlp": mlp}
+            out = {"ln1": ((L, d), None), "attn": attn,
+                   "ln2": ((L, d), None), "mlp": mlp}
+            if kind == "xattn":
+                out["lnx"] = ((L, d), None)
+                out["xattn"] = attn_shapes(L, True)
+            return out
         m = cfg.moe
         e, fe = m.num_experts, m.d_ff_expert
         moe = {"router": ((L, d, e), d), "w_gate": ((L, e, d, fe), d),
@@ -105,12 +121,17 @@ def param_shapes(cfg: ModelConfig) -> dict:
         return {"ln1": ((L, d), None), "attn": attn, "ln2": ((L, d), None),
                 "moe": moe}
 
+    def stack(segs: list) -> list:
+        return [{f"slot{j}": layer(kind, count)
+                 for j, kind in enumerate(unit)} for unit, count in segs]
+
     tree = {"embed": ((v, d), d), "final_norm": ((d,), None),
-            "decoder": [{f"slot{j}": layer(kind, count)
-                         for j, kind in enumerate(unit)}
-                        for unit, count in lm.segments(cfg)]}
+            "decoder": stack(lm.segments(cfg))}
     if not cfg.tie_embeddings:
         tree["lm_head"] = ((d, v), d)
+    if cfg.n_encoder_layers:
+        tree["encoder"] = stack(lm.encoder_segments(cfg))
+        tree["encoder_norm"] = ((d,), None)
     return tree
 
 
@@ -136,7 +157,8 @@ def _chunk_seed(seed: int, leaf: int, chunk: int) -> int:
         [seed & (2 ** 64 - 1), leaf, chunk]).generate_state(1, np.uint64)[0])
 
 
-def seeded_params(cfg: ModelConfig, seed: int, device) -> dict:
+def seeded_params(cfg: ModelConfig, seed: int, device,
+                  dtype: Optional[torch.dtype] = None) -> dict:
     """The one tree a seed names, on ``device``: what the entry points
     (``LLM.from_arch``, the CLI, ``Router.from_arch``, the probe) serve.
     Every leaf is drawn on the HOST, in chunks of ``DRAW_CHUNK``
@@ -146,30 +168,39 @@ def seeded_params(cfg: ModelConfig, seed: int, device) -> dict:
     and each leaf is moved to ``device`` before the next is drawn, so the
     host holds one leaf at a time.  The numbers follow the seed alone:
     one seed gives one tree on the CPU and on the card, under every tp
-    and head mode -- a rank cuts its slice from the same host tree."""
+    and head mode -- a rank cuts its slice from the same host tree.
+
+    With ``dtype`` the f32 masters are never built: each chunk is cast on
+    the host as it is drawn, each leaf moved in ``dtype``, and an untied
+    ``lm_head`` stored in ``cast_params``' layout -- bit for bit
+    ``cast_params(seeded_params(cfg, seed, device), cfg)`` for the
+    config's compute dtype, in half the bytes (the host tree of a model
+    whose f32 masters and their cast would not fit on one card)."""
     device = torch.device(device)
     n_leaf = iter(range(1 << 62))
+    store = torch.float32 if dtype is None else dtype
 
     with ThreadPoolExecutor(max_workers=os.cpu_count() or 1) as pool:
         def leaf(path, spec: Tuple[tuple, object]):
             shape, init = spec
             n = next(n_leaf)
             if init is None:
-                return torch.zeros(shape, dtype=torch.float32, device=device)
+                return torch.zeros(shape, dtype=store, device=device)
             if isinstance(init, tuple) and init[0] == "full":
                 return torch.full(shape, float(init[1]), dtype=torch.float32,
-                                  device=device)
-            out = torch.empty(shape, dtype=torch.float32)
+                                  device=device).to(store)
+            out = torch.empty(shape, dtype=store)
             flat = out.view(-1)
 
             def fill(c):
                 lo = c * DRAW_CHUNK
                 hi = min(lo + DRAW_CHUNK, flat.numel())
                 g = torch.Generator().manual_seed(_chunk_seed(seed, n, c))
-                flat[lo:hi] = _draw(init, hi - lo, g)
+                flat[lo:hi] = _draw(init, hi - lo, g)   # cast as it lands
 
             list(pool.map(fill, range(-(-flat.numel() // DRAW_CHUNK))))
-            return out.to(device)
+            out = out.to(device)
+            return out if dtype is None else _head_layout(path, out)
 
         return map_tree(leaf, param_shapes(cfg))
 
@@ -219,16 +250,18 @@ def cast_params(params: dict, cfg: ModelConfig) -> dict:
 
     An untied ``lm_head`` keeps its (D, V) shape but is stored (V, D)
     row-major -- the ``.T`` view of a contiguous (V, D) tensor, the
-    layout the head kernel reads, as it reads the tied embedding."""
+    layout the head kernel reads, as it reads the tied embedding (a
+    head already so stored is not copied again)."""
     dt = dtype_of(cfg)
+    return map_tree(lambda path, a: _head_layout(
+        path, a if a.dtype == dt else a.to(dt)), params)
 
-    def leaf(path, a):
-        a = a if a.dtype == dt else a.to(dt)
-        if path == ("lm_head",):
-            a = a.t().contiguous().t()
-        return a
 
-    return map_tree(leaf, params)
+def _head_layout(path: tuple, a: torch.Tensor) -> torch.Tensor:
+    """An untied ``lm_head`` (D, V) as the ``.T`` view of a row-major
+    (V, D) tensor (no copy when it is one already); any other leaf as it
+    is."""
+    return a.t().contiguous().t() if path == ("lm_head",) else a
 
 
 def detached(tree):

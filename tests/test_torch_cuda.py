@@ -622,6 +622,35 @@ def test_flash_attention_kernel_long_prompts(dev, dtype, hd, t, g):
     torch.testing.assert_close(out.float(), want.float(), atol=tol, rtol=tol)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("t,s", [(64, 1024), (1024, 1024), (5, 77)])
+def test_ops_flash_attention_non_causal_cross(dev, dtype, t, s):
+    """``ops.flash_attention(causal=False)`` as the enc-dec family calls
+    it -- the encoder (T = S), the cross-attention (T 64 over S 1,024
+    source frames, 16 / 16 heads of 64) and a ragged T != S -- against
+    its plain version: the kernel once, and its gradient through the
+    autograd Function against the plain version's."""
+    q, k, v = _flash_operands(dev, dtype, b=2, hq=16, hkv=16, t=t, s=s,
+                              hd=64, seed=t + s)
+    before = fa.flash_attention.launches
+    out = ops.flash_attention(q, k, v, causal=False)
+    torch.cuda.synchronize()
+    assert fa.flash_attention.launches == before + 1
+    want = ref.flash_attention(q, k, v, causal=False)
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(out.float(), want.float(), atol=tol, rtol=tol)
+    if dtype != torch.float32:
+        return
+    live = [x.detach().requires_grad_(True) for x in (q, k, v)]
+    g = torch.randn(out.shape, device=dev)
+    got = torch.autograd.grad(ops.flash_attention(*live, causal=False),
+                              live, g)
+    plain = torch.autograd.grad(ref.flash_attention(*live, causal=False),
+                                live, g)
+    for a, b in zip(got, plain):
+        torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4)
+
+
 def _kernel_names(fn, seen, attempts=3):
     """Names of the device kernels a profiler saw ``fn`` launch.  ``fn``
     runs once first, so that its kernels' lazy loading happens outside

@@ -198,5 +198,7 @@ def test_bridge_rejects_wrong_trees(bridged):
     bad.pop("final_norm")
     with pytest.raises(ValueError, match="keys"):
         weights.from_numpy_params(bad, TCFG, "cpu")
-    with pytest.raises(NotImplementedError):       # a family not ported
-        weights.param_shapes(smoke_config(get_config("seamless-m4t-large-v2")))
+    # a tree of another family: the encoder-decoder's wants its encoder
+    with pytest.raises(ValueError, match="keys"):
+        weights.from_numpy_params(
+            np_tree, smoke_config(get_config("seamless-m4t-large-v2")), "cpu")

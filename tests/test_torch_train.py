@@ -48,7 +48,8 @@ LOSS_TOL = 1e-5
 GRAD_TOL = 5e-5
 PARAM_TOL = 5e-5
 ARCHS = ("qwen3-0.6b", "starcoder2-7b", "phi3.5-moe-42b-a6.6b",
-         "llama4-maverick-400b-a17b", "recurrentgemma-2b", "rwkv6-7b")
+         "llama4-maverick-400b-a17b", "recurrentgemma-2b", "rwkv6-7b",
+         "internvl2-26b", "seamless-m4t-large-v2")
 SERVED = ("qwen3-0.6b", "phi3.5-moe-42b-a6.6b", "recurrentgemma-2b",
           "rwkv6-7b")
 
@@ -66,11 +67,23 @@ def _tokens(vocab, b=2, s=16, seed=0):
     return rng.integers(0, vocab, (b, s + 1)).astype(np.int32)
 
 
-def _batches(toks):
+def _batches(toks, cfg=None):
+    """The (JAX, port) batches of ``toks``; under ``cfg``, with the stub
+    frontends' embeddings its family takes (normals from a fixed seed):
+    ``src_embeds`` (B, S, D), ``image_embeds`` (B, num_image_tokens, D)."""
     jb = {"tokens": jnp.asarray(toks[:, :-1]),
           "labels": jnp.asarray(toks[:, 1:])}
     t = torch.from_numpy(toks)
-    return jb, {"tokens": t[:, :-1], "labels": t[:, 1:]}
+    tb = {"tokens": t[:, :-1], "labels": t[:, 1:]}
+    b, s = t.shape[0], t.shape[1] - 1
+    rng = np.random.default_rng(11)
+    for name, n, on in (("src_embeds", s, cfg and cfg.n_encoder_layers),
+                        ("image_embeds", cfg and cfg.num_image_tokens,
+                         cfg and cfg.num_image_tokens)):
+        if on:
+            e = rng.standard_normal((b, n, cfg.d_model)).astype(np.float32)
+            jb[name], tb[name] = jnp.asarray(e), torch.from_numpy(e)
+    return jb, tb
 
 
 def _walk(a, b, path=()):
@@ -100,10 +113,12 @@ def test_train_loss_and_every_gradient_match_jax(arch):
     """``train_loss`` and the gradient of every leaf against
     ``jax.value_and_grad(api.train_loss)``: GLU and gelu MLPs, top-2 MoE
     with its router loss, llama4's (attn, moe) units with a shared
-    expert, the RG-LRU hybrid and RWKV6.  No leaf's gradient is missing
-    (``loss_and_grads`` would give zeros: every leaf must match JAX's)."""
+    expert, the RG-LRU hybrid, RWKV6, the vlm's image prefix and the
+    encoder-decoder (its encoder, cross-attention and ReLU MLP).  No
+    leaf's gradient is missing (``loss_and_grads`` would give zeros:
+    every leaf must match JAX's)."""
     jcfg, tcfg, jparams, tparams = _bridged(arch)
-    jb, tb = _batches(_tokens(jcfg.vocab_size))
+    jb, tb = _batches(_tokens(jcfg.vocab_size), jcfg)
     jloss, jgrads = jax.jit(jax.value_and_grad(
         lambda p: japi.train_loss(p, jcfg, jb)))(jparams)
     live = [p.requires_grad_(True) for p in tree_mod.leaves(tparams)]
