@@ -214,7 +214,23 @@ Phases, each of which fails the run (non-zero exit, no result line):
      and at world 2 phi3.5-moe at full width with 2 of its 32 layers in
      f32, each rank 8 of the 16 experts (``parallel.moe_ep``), greedy on
      phase 4n's 8 prompts at 16 new tokens, held to the unsharded f32
-     engine on the same host tree, every rank's tokens equal.
+     engine on the same host tree, every rank's tokens equal.  Then the
+     recurrent and vlm families: the argmax (B 8) and top-k (B 4, k 8)
+     heads on rwkv6-7b's (65,536, 4,096) head split 2 and 4 ways and on
+     recurrentgemma-2b's (256,000, 2,560) head split 2 ways, and flash
+     attention at a tp 2 rank's heads of recurrentgemma-2b (T 2,150, 5 q
+     heads over a copy of the one KV head, hd 256, window 2,048), each
+     against its plain version and timed beside its bound and library
+     call; and in the same rank processes rwkv6-7b at full width with 4
+     of its 32 layers at tp 2 and 4, recurrentgemma-2b with one (rec,
+     rec, attn) unit of its 26 at tp 2, 4 prompts at 16 new tokens: f32
+     (greedy rows and a TopK row) held to the unsharded engine on the
+     same host tree (near-tie rule), bf16 greedy timed beside the
+     unsharded engine (eager) with a decode step's collective bytes by
+     kind, each rank's channels and launches on its slice; and
+     internvl2-26b's smoke config at tp 2, its tokens and its image
+     prefix through ``lm.prefill`` (within 1e-4 of the unsharded prefill,
+     the sharded head's ids equal).
   4l. the hybrid RG-LRU family: flash attention at
      recurrentgemma-2b's prefill (T 2,150, 10 query heads over 1 KV head,
      hd 256, window 2,048; the ``mma.sync`` kernel, from a profiler
@@ -4468,41 +4484,45 @@ TP_VOCAB_SPLITS = (2, 4, 8)
 TP_PROMPTS = {2: 12, 4: 8}
 
 
-def check_tp_head_shards(torch, timer, v=151936, d=1024,
-                         device="cuda") -> dict:
-    """Phase 4k, the sharded heads alone, in this process: qwen3's (V, D)
-    = (151,936, 1,024) bf16 head split 2, 4 and 8 ways into contiguous
-    copies (slices of 75,968, 37,984 and 18,992 ids; the last two not
-    multiples of the 64-id tile).  Each slice's argmax (B 8), top-k (B 4,
-    k 8) and verify (B 8, T 8) kernel is held against its plain version;
-    the slices' (val, idx) tables, merged by ``core.reduced_softmax``'s
-    merges with no collective, must equal the unsharded kernels' ids and
-    values bitwise.  Slice 0's kernels are timed beside their bound (the
-    slice's bytes over HBM) and the library call."""
+def check_tp_head_shards(torch, timer, v=151936, d=1024, device="cuda", *,
+                         splits=TP_VOCAB_SPLITS, verify=True,
+                         label="qwen3", seed=15) -> dict:
+    """Phase 4k, the sharded heads alone, in this process: by default
+    qwen3's (V, D) = (151,936, 1,024) bf16 head split 2, 4 and 8 ways
+    into contiguous copies (slices of 75,968, 37,984 and 18,992 ids; the
+    last two not multiples of the 64-id tile); ``label``'s (V, D) head
+    split ``splits`` ways otherwise.  Each slice's argmax (B 8), top-k (B
+    4, k 8) and, with ``verify``, verify (B 8, T 8) kernel is held
+    against its plain version; the slices' (val, idx) tables, merged by
+    ``core.reduced_softmax``'s merges with no collective, must equal the
+    unsharded kernels' ids and values bitwise.  Slice 0's kernels are
+    timed beside their bound (the slice's bytes over HBM) and the
+    library call."""
     from repro_torch.core import reduced_softmax as rs
     from repro_torch.kernels import fused_argmax_head as fah
     from repro_torch.kernels import fused_topk_head as ftk
     from repro_torch.kernels import ref
 
-    gen = torch.Generator(device=device).manual_seed(15)
+    gen = torch.Generator(device=device).manual_seed(seed)
     emb = (torch.randn((v, d), generator=gen, device=device)
            / math.sqrt(d)).to(torch.bfloat16)
     w = emb.t()
     h8 = torch.randn((8, d), generator=gen, device=device).to(torch.bfloat16)
     h4 = h8[:4].contiguous()
-    ht = torch.randn((8, 8, d), generator=gen, device=device).to(
-        torch.bfloat16)
     idx, val = fah.fused_argmax_head_with_value(h8, w)
     tvals, tids = ftk.fused_topk_head(h4, w, 8)
-    ids0, _ = fah.fused_verify_head(ht, w, torch.full(
-        (8, 7), -1, dtype=torch.int32, device=device))
-    cand = torch.full((8, 7), -1, dtype=torch.int32, device=device)
-    for r in range(8):                        # ragged widths 0..7
-        cand[r, :r] = ids0[r, :r]
-    cand[3, 1] = (cand[3, 1] + 1) % v         # a wrong draft mid-run
-    vids, vacc = fah.fused_verify_head(ht, w, cand)
+    if verify:
+        ht = torch.randn((8, 8, d), generator=gen, device=device).to(
+            torch.bfloat16)
+        ids0, _ = fah.fused_verify_head(ht, w, torch.full(
+            (8, 7), -1, dtype=torch.int32, device=device))
+        cand = torch.full((8, 7), -1, dtype=torch.int32, device=device)
+        for r in range(8):                        # ragged widths 0..7
+            cand[r, :r] = ids0[r, :r]
+        cand[3, 1] = (cand[3, 1] + 1) % v         # a wrong draft mid-run
+        vids, vacc = fah.fused_verify_head(ht, w, cand)
     rows = {}
-    for n in TP_VOCAB_SPLITS:
+    for n in splits:
         per = v // n
         slices = [emb[r * per:(r + 1) * per].contiguous().t()
                   for r in range(n)]
@@ -4512,7 +4532,8 @@ def check_tp_head_shards(torch, timer, v=151936, d=1024,
             a_tab.append(rs.shard_argmax_table(h8, ws, lo))
             k_tab.append(rs.shard_topk_table(h4, ws, 8, v_lo=lo, rank=r,
                                              ranks=n, vocab_size=v))
-            v_tab.append(rs.shard_verify_table(ht, ws, cand, lo))
+            if verify:
+                v_tab.append(rs.shard_verify_table(ht, ws, cand, lo))
             torch.cuda.synchronize()
             ok = argmax_verdict(torch, h8, ws, a_tab[-1][1] - lo,
                                 a_tab[-1][0])
@@ -4523,6 +4544,8 @@ def check_tp_head_shards(torch, timer, v=151936, d=1024,
             check(tv["idx_ok"] and tv["ties_ok"] and tv["desc_ok"]
                   and tv["val_ok"], f"the top-k head on V/{n} slice {r} "
                   "disagrees with its plain version")
+            if not verify:
+                continue
             _, pv = ref.fused_argmax_head_with_value(
                 ht.reshape(64, d), ws)
             check(torch.allclose(v_tab[-1][0].reshape(64), pv,
@@ -4533,17 +4556,17 @@ def check_tp_head_shards(torch, timer, v=151936, d=1024,
                                        torch.stack([t[1] for t in a_tab]))
         m_vals, m_ids = rs.merge_topk(torch.stack([t[0] for t in k_tab]),
                                       torch.stack([t[1] for t in k_tab]), 8)
-        m_vid, _ = rs.merge_argmax(torch.stack([t[0] for t in v_tab]),
-                                   torch.stack([t[1] for t in v_tab]))
-        m_acc = rs.accepted_run(m_vid, cand)
         check(torch.equal(m_idx, idx) and torch.equal(m_val, val),
               f"the argmax head merged over {n} slices != unsharded")
         check(torch.equal(m_ids, tids) and torch.equal(m_vals, tvals),
               f"the top-k head merged over {n} slices != unsharded")
-        check(torch.equal(m_vid, vids) and torch.equal(m_acc, vacc),
-              f"the verify head merged over {n} slices != unsharded")
+        if verify:
+            m_vid, _ = rs.merge_argmax(torch.stack([t[0] for t in v_tab]),
+                                       torch.stack([t[1] for t in v_tab]))
+            m_acc = rs.accepted_run(m_vid, cand)
+            check(torch.equal(m_vid, vids) and torch.equal(m_acc, vacc),
+                  f"the verify head merged over {n} slices != unsharded")
         ws = slices[0]
-        h2 = ht.reshape(64, d)
         sb = per * d * 2
         row = {
             "argmax_b8": kernel_row(
@@ -4557,21 +4580,52 @@ def check_tp_head_shards(torch, timer, v=151936, d=1024,
                 lambda: ref.fused_topk_head(h4, ws, 8),
                 lambda: torch.topk(h4 @ ws, 8, dim=-1),
                 sb + 4 * d * 2 + 4 * 8 * 8, 2.0 * 4 * d * per,
-                float((m_vals - tvals).abs().max())),
-            "verify_b8_t8": kernel_row(
+                float((m_vals - tvals).abs().max()))}
+        if verify:
+            h2 = ht.reshape(64, d)
+            row["verify_b8_t8"] = kernel_row(
                 timer, lambda: fah.fused_verify_head(ht, ws, cand,
                                                      with_value=True),
                 lambda: ref.verify_draft_with_value(ht, ws, cand),
                 lambda: torch.argmax(h2 @ ws, dim=-1),
                 sb + 64 * d * 2 + cand.numel() * 4 + 64 * 8 + 8 * 4,
-                2.0 * 64 * d * per, 0.0)}
+                2.0 * 64 * d * per, 0.0)
         for name, r in row.items():
-            print(f"phase 4k head shard V/{n} = {per} ids, {name}: kernel "
+            print(f"phase 4k {label} head shard V/{n} = {per} ids, {name}: "
+                  "kernel "
                   f"{shown(r)}, plain {r['plain_ms']:.4f} ms, library "
                   f"{shown(r, 'library_')}, bound {r['bound_ms']:.4f} ms "
                   f"({r['bound_by']}); merged over {n} slices bitwise equal "
                   "to the unsharded kernel", flush=True)
         rows[per] = row
+    return rows
+
+
+def check_tp_family_kernels(torch, timer) -> dict:
+    """Phase 4k, the kernels of the recurrent families' rank slices
+    against their plain versions, timed beside bound and library call:
+    the argmax (B 8) and top-k (B 4, k 8) heads on rwkv6-7b's untied
+    (65,536, 4,096) head split 2 and 4 ways (rows 2h, 3f) and on
+    recurrentgemma-2b's tied (256,000, 2,560) head split 2 ways (rows 2i,
+    3g), each merge bitwise the unsharded kernel's
+    (``check_tp_head_shards``); flash attention at a tp 2 rank's heads
+    of recurrentgemma-2b, 5 q heads over a copy of the one KV head, T
+    2,150, hd 256, window 2,048 (row 5i, ``rg_flash_row``)."""
+    rows = {"rwkv6": check_tp_head_shards(
+        torch, timer, v=65536, d=4096, splits=(2, 4), verify=False,
+        label="rwkv6-7b", seed=29),
+        "recurrentgemma": check_tp_head_shards(
+        torch, timer, v=256000, d=2560, splits=(2,), verify=False,
+        label="recurrentgemma-2b", seed=27)}
+    gen = torch.Generator(device="cuda").manual_seed(32)
+    label = "phase 4k recurrentgemma-2b at a tp 2 rank's heads"
+    row = rows["flash_g5"] = rg_flash_row(torch, timer, gen,
+                                          RG_FLASH[1] // 2, label)
+    print(f"{label}, flash_attention T=2150 5 q / 1 kv hd=256 window=2048: "
+          f"kernel {shown(row)}, plain {row['plain_ms']:.4f} ms, sdpa(mask) "
+          f"{shown(row, 'library_')}, bound {row['bound_ms']:.4f} ms "
+          f"({row['bound_by']}); max_abs_err {row['max_abs_err']:.6g}",
+          flush=True)
     return rows
 
 
@@ -4801,6 +4855,7 @@ def tp_rank_main(rank: int, world: int, d: str) -> int:
             out["http_f32"] = tp_http_run(torch, host, f32, g, rank,
                                           prompts["main"], max_new)
             out["moe_f32"] = tp_moe_run(torch, g, rank)
+        out["families"] = tp_family_runs(torch, g, rank, world)
         out["ok"] = True
         g.close()
     except Exception as e:                    # reported by the parent
@@ -5147,6 +5202,385 @@ def check_control_plane(torch, gap_llm, res, world, inputs, ref32,
                 decode_ms=run["decode_ms"])}}
 
 
+# ---------------------------------------------------------------------------
+# Phase 4k, the recurrent and vlm families under tensor parallelism
+# ---------------------------------------------------------------------------
+FAM_TP_NEW = 16
+# (arch, layers kept, the worlds it runs at): rwkv6-7b at 4 of its 32
+# layers, recurrentgemma-2b at one (rec, rec, attn) unit of its 26 (its
+# 10 heads are not whole at tp 4); full width both
+FAM_TP = (("rwkv6-7b", 4, (2, 4)), ("recurrentgemma-2b", 3, (2,)))
+VLM_TP_PREFIX = 16        # tokens after the stub image embeddings
+
+
+def fam_tp_config(arch: str, layers: int, dtype: str):
+    """``arch`` at full width with its depth cut to ``layers``."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    return dataclasses.replace(get_config(arch), n_layers=layers,
+                               dtype=dtype)
+
+
+def fam_samplers() -> tuple:
+    """The 4 rows' samplers: greedy with row 1 TopK (k 8, temperature
+    0.8), and greedy alone."""
+    from repro_torch.serve.params import SamplingParams
+
+    greedy = SamplingParams(max_new_tokens=FAM_TP_NEW)
+    topk = SamplingParams(max_new_tokens=FAM_TP_NEW, top_k=8,
+                          temperature=0.8, seed=5)
+    return [greedy, topk, greedy, greedy], greedy
+
+
+def fam_tp_inputs(arch: str, vocab: int) -> tuple:
+    """4 prompts -- rwkv6-7b's phase-4m prompts 0 and 2-4 (3 and 4-399
+    tokens), recurrentgemma-2b's phase-4l prompts 0-2 and 6 (up to 1,000
+    tokens and one of 2,100-2,200, past the 2,048-token window) -- and
+    ``fam_samplers``."""
+    if arch == "rwkv6-7b":
+        ps = rw_prompts(vocab)
+        prompts = [ps[0], *ps[2:5]]
+    else:
+        ps = rg_prompts(vocab)
+        prompts = [*ps[:3], ps[6]]
+    return (prompts, *fam_samplers())
+
+
+def fam_engine_kwargs(arch: str) -> dict:
+    """4 slots, seed 0, no eos; rwkv6's state is O(1) in the length, the
+    hybrid's ring buffers hold the 2,048-token window."""
+    return dict(n_slots=4, max_len=RG_MAX_LEN if arch
+                == "recurrentgemma-2b" else 512, seed=0, eos_id=-1)
+
+
+def check_family_launches(launches, st, llm, what):
+    """A run's launches against its steps: paged attention once an
+    attention layer a decode step where the store pages (the vlm smoke
+    config), flash attention once an attention layer a one-shot prefill
+    (recurrentgemma-2b's windowed layer; none in rwkv6), each head kernel
+    once a head call of its kind on the rank's vocabulary slice; no
+    verify or softmax-unit kernel."""
+    per_step, per_prefill = attention_layers(llm)
+    calls = st["head_calls"]
+    want = {"paged_attention": per_step * st["decode_iterations"],
+            "flash_attention": per_prefill * st["prefills"],
+            "fused_argmax_head": calls.get("Greedy", 0),
+            "fused_topk_head": calls.get("TopK", 0),
+            "fused_verify_head": 0, "softmax_stats": 0,
+            "online_softmax": 0, "fused_xent": 0}
+    for name, n in want.items():
+        check(launches[name] == n, f"{what}: {name} launched "
+              f"{launches[name]} times, want {n} ({st['decode_iterations']}"
+              f" decode iterations, {st['prefills']} prefills, head calls "
+              f"{calls})")
+
+
+def fam_run(torch, llm, prompts, plist, what, bytes_of=None) -> dict:
+    """One ``generate`` with the launch counts set to 0 just before and
+    read just after, checked against its steps (``check_family_launches``);
+    with ``bytes_of`` (the rank's group) the collective bytes of each
+    decode step of all 4 rows, by kind."""
+    eng = llm.engine
+    steps = []
+    if bytes_of is not None:
+        inner = eng._decode_rows
+
+        def rows_with_bytes(rows, inner=inner):
+            b0 = dict(bytes_of.bytes)
+            inner(rows)
+            steps.append((len(rows), {
+                k: n - b0.get(k, 0) for k, n in bytes_of.bytes.items()
+                if n - b0.get(k, 0)}))
+        eng._decode_rows = rows_with_bytes
+    torch.cuda.synchronize()
+    reset_launches()
+    st0 = stats_now(llm)
+    t0 = time.perf_counter()
+    outs = llm.generate(prompts, plist)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    st = stats_delta(st0, stats_now(llm))
+    check_family_launches(launches, st, llm, what)
+    check(eng.graphs.captures == 0 or eng.cfg.shard is None,
+          f"{what}: a sharded engine captured a graph")
+    full = [b for n, b in steps if n == len(prompts)]
+    return dict(tokens=[list(o.token_ids) for o in outs],
+                rids=[o.rid for o in outs], launches=launches,
+                decode_steps=st["decode_steps"], prefills=st["prefills"],
+                head_calls=st["head_calls"], wall_s=wall,
+                tok_s=sum(len(o.token_ids) for o in outs) / wall,
+                decode_ms=st["decode_ms"] / max(st["decode_steps"], 1),
+                prefill_ms=st["prefill_ms"] / max(st["prefills"], 1),
+                step_bytes=full[-1] if full else None,
+                head_mode=eng.head_mode)
+
+
+def vlm_tp_inputs(torch, cfg, device) -> tuple:
+    """The vlm smoke config's inputs (numpy seed 33): 4 token prompts of
+    5-40 tokens, and the image-prefix prefill's (2, 16) token ids with
+    (2, 8, D) stub image embeddings on ``device``."""
+    rng = np.random.default_rng(33)
+    prompts = [rng.integers(0, cfg.vocab_size, size=int(n)).astype(np.int32)
+               for n in rng.integers(5, 41, size=4)]
+    toks = torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, size=(2, VLM_TP_PREFIX))).to(device)
+    img = torch.from_numpy(rng.standard_normal(
+        (2, cfg.num_image_tokens, cfg.d_model)).astype(np.float32)).to(device)
+    return prompts, toks, img
+
+
+def vlm_prefix(torch, llm, toks, img) -> dict:
+    """``lm.prefill`` of ``toks`` after the image embeddings ``img`` on
+    ``llm``'s engine (a rank's slice under tp), then its head's argmax
+    (``Greedy``: the sharded head on a rank), the launch counts set to 0
+    just before and read just after."""
+    from repro_torch.models import lm
+    from repro_torch.serve import sampler as smp
+
+    eng = llm.engine
+    torch.cuda.synchronize()
+    reset_launches()
+    h, _ = lm.prefill(eng.params, eng.cfg, toks, 32, image_embeds=img)
+    ids = smp.Greedy(eng.head_mode).head(eng.params, eng.cfg, h)
+    torch.cuda.synchronize()
+    return dict(h=h.cpu().tolist(), ids=ids.cpu().tolist(),
+                launches=read_launches())
+
+
+def tp_vlm_run(torch, g, rank) -> dict:
+    """Phase 4k's vlm run (world 2, every rank): internvl2-26b's smoke
+    config in f32 from the host tree of TP_SEED, ``LLM(tp=2)`` (paged,
+    each rank 2 of the 4 query heads over 1 of the 2 KV heads) on
+    ``vlm_tp_inputs``' 4 prompts, greedy with row 1 TopK, its launches
+    checked against its steps; then the image prefix through
+    ``lm.prefill`` on the rank's slice: the token embeddings summed over
+    the ranks, the 8 image embeddings put in after the sum."""
+    from repro_torch.configs import get_config, smoke_config
+    from repro_torch.serve.api import LLM
+    from repro_torch.weights import seeded_params
+
+    cfg = smoke_config(get_config("internvl2-26b"))
+    llm = LLM(seeded_params(cfg, TP_SEED, "cpu"), cfg, tp=2, group=g,
+              n_slots=4, max_len=64, seed=0, eos_id=-1)
+    prompts, toks, img = vlm_tp_inputs(torch, cfg, g.device)
+    mixed, _ = fam_samplers()
+    res = fam_run(torch, llm, prompts, mixed, f"tp 2 rank {rank} vlm smoke")
+    res["prefix"] = vlm_prefix(torch, llm, toks, img)
+    res["local_heads"] = [llm.engine.cfg.n_heads, llm.engine.cfg.n_kv_heads]
+    res["paged"] = llm.engine.store.any_paged
+    del llm
+    gc.collect()
+    return res
+
+
+def tp_family_runs(torch, g, rank, world) -> dict:
+    """Phase 4k's recurrent-family runs (every rank): each ``FAM_TP``
+    model of this world from the host tree of TP_SEED -- an f32 engine
+    (greedy rows and a TopK row) held by the parent to the unsharded
+    engine's, then a bf16 greedy engine, warmed on one short prompt and
+    timed, with the collective bytes of each 4-row decode step -- and at
+    world 2 the vlm smoke config (``tp_vlm_run``)."""
+    import dataclasses
+
+    from repro_torch.serve.api import LLM
+    from repro_torch.weights import seeded_params
+
+    out = {}
+    for arch, layers, worlds in FAM_TP:
+        if world not in worlds:
+            continue
+        cfg32 = fam_tp_config(arch, layers, "float32")
+        t0 = time.perf_counter()
+        host = seeded_params(cfg32, TP_SEED, "cpu")
+        res = {"draw_s": time.perf_counter() - t0}
+        prompts, mixed, greedy = fam_tp_inputs(arch, cfg32.vocab_size)
+        for name, dtype, plist in (("mixed_f32", "float32", mixed),
+                                   ("greedy_bf16", "bfloat16", greedy)):
+            llm = LLM(host, dataclasses.replace(cfg32, dtype=dtype),
+                      tp=world, group=g, **fam_engine_kwargs(arch))
+            what = f"tp {world} rank {rank} {arch} {name}"
+            if dtype == "bfloat16":
+                llm.generate([prompts[0][:16]], type(greedy)(
+                    max_new_tokens=2))
+            res[name] = fam_run(torch, llm, prompts, plist, what,
+                                g if dtype == "bfloat16" else None)
+            c = llm.engine.cfg
+            res[name].update(chan=list(c.shard.chan), local=[
+                c.n_heads, c.n_kv_heads, c.d_ff, c.lru_width])
+            if dtype == "bfloat16":
+                res["weights_bytes"] = sum(
+                    t.numel() * t.element_size()
+                    for t in _leaves(llm.engine.params))
+            del llm
+            gc.collect()
+            torch.cuda.empty_cache()
+        out[arch] = res
+        del host
+        gc.collect()
+    if world == 2:
+        out["vlm"] = tp_vlm_run(torch, g, rank)
+    return out
+
+
+def fam_reference(torch, arch, layers) -> dict:
+    """The unsharded engine on the card for ``arch`` cut to ``layers``,
+    from the host tree of TP_SEED the ranks cut: the f32 engine's
+    streams (its ``LLM`` kept as the near-tie ruler), and the bf16
+    greedy engine's, eager (a sharded engine never captures), timed."""
+    import dataclasses
+
+    from repro_torch.serve import step_graph
+    from repro_torch.serve.api import LLM
+    from repro_torch.weights import seeded_params
+
+    cfg32 = fam_tp_config(arch, layers, "float32")
+    dev = _tree_to(seeded_params(cfg32, TP_SEED, "cpu"), "cuda")
+    prompts, mixed, greedy = fam_tp_inputs(arch, cfg32.vocab_size)
+    ruler = LLM(dev, cfg32, **fam_engine_kwargs(arch))
+    want = ruler.generate(prompts, mixed)
+    bf = LLM(dev, dataclasses.replace(cfg32, dtype="bfloat16"),
+             **fam_engine_kwargs(arch))
+    with step_graph.eager_steps():
+        bf.generate([prompts[0][:16]], type(greedy)(max_new_tokens=2))
+        run = fam_run(torch, bf, prompts, greedy, f"tp 1 {arch} bf16")
+    del bf
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(ruler=ruler, prompts=prompts, want=want, bf16=run)
+
+
+def check_tp_families(torch, res, world, refs) -> dict:
+    """Phase 4k's recurrent-family and vlm runs as the ranks of ``world``
+    wrote them: every rank's tokens equal rank 0's; each rank its
+    channels (rwkv6 its 64 / world heads of 64, recurrentgemma its 5 of
+    10 gate blocks of 256 and 5 q heads over a copy of the KV head); the
+    f32 streams the unsharded f32 engine's (near-tie rule), the bf16
+    streams measured against the unsharded bf16 engine's, ms a step,
+    tok/s and a decode step's collective bytes beside tp 1's; at world 2
+    the vlm smoke config's tokens and image-prefix prefill against the
+    unsharded engine's on the card.  ``refs`` caches the unsharded runs
+    (``fam_reference``) across worlds."""
+    import types
+
+    from repro_torch.configs import get_config, smoke_config
+    from repro_torch.serve.api import LLM
+    from repro_torch.weights import seeded_params
+
+    summary = {}
+    fams = [r["families"] for r in res]
+    for arch, layers, worlds in FAM_TP:
+        if world not in worlds:
+            continue
+        if arch not in refs:
+            refs[arch] = fam_reference(torch, arch, layers)
+        ref = refs[arch]
+        r0 = fams[0][arch]
+        full = fam_tp_config(arch, layers, "float32")
+        width = full.lru_width if arch == "recurrentgemma-2b" \
+            else full.d_model
+        for rank, f in enumerate(fams):
+            for name in ("mixed_f32", "greedy_bf16"):
+                check(f[arch][name]["tokens"] == r0[name]["tokens"],
+                      f"tp {world} {arch} {name}: rank {rank}'s tokens "
+                      "differ from rank 0's")
+                per = width // world
+                check(f[arch][name]["chan"] == [rank * per, (rank + 1) * per],
+                      f"tp {world} {arch} rank {rank}: channels "
+                      f"{f[arch][name]['chan']}")
+                check(f[arch][name]["head_mode"] == "sharded",
+                      f"tp {world} {arch}: head mode "
+                      f"{f[arch][name]['head_mode']}")
+            la = f[arch]["mixed_f32"]["launches"]
+            check(la["fused_argmax_head"] > 0 and la["fused_topk_head"] > 0
+                  and (la["flash_attention"] > 0) == (arch != "rwkv6-7b"),
+                  f"tp {world} {arch} rank {rank}: launches {la}")
+        what = f"phase 4k tp {world} {arch} ({layers} layers)"
+        got = [types.SimpleNamespace(token_ids=tuple(t), rid=i) for i, t in
+               zip(r0["mixed_f32"]["rids"], r0["mixed_f32"]["tokens"])]
+        same = compare_streams(torch, ref["ruler"], ref["prompts"],
+                               ref["want"], got, what + " f32")
+        bgot = [types.SimpleNamespace(token_ids=tuple(t), rid=i) for i, t in
+                zip(r0["greedy_bf16"]["rids"], r0["greedy_bf16"]["tokens"])]
+        want_bf = [types.SimpleNamespace(token_ids=tuple(t), rid=i)
+                   for i, t in zip(ref["bf16"]["rids"],
+                                   ref["bf16"]["tokens"])]
+        bsame = compare_streams(torch, ref["ruler"], ref["prompts"],
+                                want_bf, bgot, what + " bf16 vs tp 1",
+                                gate=False)
+        gb, one = r0["greedy_bf16"], ref["bf16"]
+        print(f"{what}: local heads/kv/d_ff/lru {gb['local']}, weights "
+              f"{r0['weights_bytes'] / 1e9:.3f} GB a rank (bf16), host "
+              f"draw {r0['draw_s']:.1f} s; f32 {same}/{len(got)} streams "
+              f"equal the unsharded engine's, bf16 {bsame}/{len(bgot)}; "
+              f"bf16 {gb['tok_s']:.2f} tok/s, {gb['decode_ms']:.3f} ms a "
+              f"decode step, {gb['prefill_ms']:.3f} ms a prefill against "
+              f"tp 1 eager {one['tok_s']:.2f} tok/s, {one['decode_ms']:.3f} "
+              f"ms, {one['prefill_ms']:.3f} ms (gloo through the host on one "
+              f"card: no claim); a 4-row decode step's collective bytes "
+              f"{gb['step_bytes']}; rank 0 launches f32 "
+              f"{r0['mixed_f32']['launches']}, bf16 {gb['launches']}",
+              flush=True)
+        check(gb["step_bytes"] is not None and gb["step_bytes"].get(
+            "trunk", 0) > 0, f"{what}: no 4-row decode step moved trunk "
+            "bytes")
+        summary[arch] = dict(
+            same_f32=same, same_bf16=bsame, streams=len(got),
+            launches_f32=r0["mixed_f32"]["launches"],
+            launches_bf16=gb["launches"], tok_s=gb["tok_s"],
+            decode_ms=gb["decode_ms"], prefill_ms=gb["prefill_ms"],
+            tp1_tok_s=one["tok_s"], tp1_decode_ms=one["decode_ms"],
+            tp1_prefill_ms=one["prefill_ms"], step_bytes=gb["step_bytes"],
+            weights_bytes=r0["weights_bytes"], local=gb["local"])
+    if world == 2:
+        cfg = smoke_config(get_config("internvl2-26b"))
+        ref = LLM(_tree_to(seeded_params(cfg, TP_SEED, "cpu"), "cuda"),
+                  cfg, n_slots=4, max_len=64, seed=0, eos_id=-1)
+        prompts, toks, img = vlm_tp_inputs(torch, cfg, ref.engine.device)
+        want = ref.generate(prompts, fam_samplers()[0])
+        pre = vlm_prefix(torch, ref, toks, img)
+        v0 = fams[0]["vlm"]
+        for rank, f in enumerate(fams):
+            v = f["vlm"]
+            check(v["tokens"] == v0["tokens"] and v["prefix"]["ids"]
+                  == v0["prefix"]["ids"], f"tp 2 vlm: rank {rank}'s outputs "
+                  "differ from rank 0's")
+            check(v["paged"] and v["local_heads"] == [2, 1],
+                  f"tp 2 vlm rank {rank}: paged {v['paged']}, heads "
+                  f"{v['local_heads']}")
+            check(v["launches"]["paged_attention"] > 0 and v["prefix"][
+                "launches"]["flash_attention"] == cfg.n_layers
+                and v["prefix"]["launches"]["fused_argmax_head"] == 1,
+                f"tp 2 vlm rank {rank}: launches {v['launches']}, prefix "
+                f"{v['prefix']['launches']}")
+        got = [types.SimpleNamespace(token_ids=tuple(t), rid=i)
+               for i, t in zip(v0["rids"], v0["tokens"])]
+        same = compare_streams(torch, ref, prompts, want, got,
+                               "phase 4k tp 2 vlm smoke (f32)")
+        h = torch.tensor(v0["prefix"]["h"])
+        href = torch.tensor(pre["h"])
+        err = (h - href).abs().max().item()
+        check(torch.allclose(h, href, atol=1e-4, rtol=1e-4)
+              and v0["prefix"]["ids"] == pre["ids"],
+              f"phase 4k tp 2 vlm image prefix: the last hidden state is "
+              f"{err} from the unsharded one, ids {v0['prefix']['ids']} "
+              f"against {pre['ids']}")
+        print(f"phase 4k tp 2 vlm smoke (f32, 2 / 1 heads a rank): "
+              f"{same}/{len(got)} streams equal to the unsharded engine's; "
+              f"the image prefix through lm.prefill: last hidden state "
+              f"max_abs_err {err:.3g} against the unsharded prefill on the "
+              f"card (atol 1e-4), ids {v0['prefix']['ids']} equal; launches "
+              f"{v0['launches']}, prefix {v0['prefix']['launches']}",
+              flush=True)
+        summary["vlm"] = dict(same=same, streams=len(got), prefix_err=err,
+                              launches=v0["launches"],
+                              prefix_launches=v0["prefix"]["launches"])
+        del ref
+    return summary
+
+
 def run_tp_path(torch, max_new=32) -> dict:
     """Phase 4k: qwen3-0.6b at full width served by tp 2 and tp 4 ranks
     (``spawn_tp``) that share the one card over gloo.  The unsharded
@@ -5161,7 +5595,10 @@ def run_tp_path(torch, max_new=32) -> dict:
     measured against the unsharded bf16 engine's; every rank's tokens
     equal rank 0's.  Prints tok/s and ms a decode step at tp 1, 2 and 4
     (gloo through the host on one card: no claim rides on them) and the
-    collective bytes of a decode step."""
+    collective bytes of a decode step.  The same rank processes then
+    serve the recurrent and vlm families (``tp_family_runs``, checked by
+    ``check_tp_families``): rwkv6-7b at tp 2 and 4, recurrentgemma-2b at
+    tp 2, internvl2-26b's smoke config and its image prefix at tp 2."""
     import dataclasses
     import shutil
     import types
@@ -5234,6 +5671,7 @@ def run_tp_path(torch, max_new=32) -> dict:
     shutil.rmtree(d, ignore_errors=True)
     os.makedirs(d)
     summary = {"timing": timing}
+    refs = {}                     # the families' unsharded runs
     for world in TP_WORLDS:
         t1 = time.perf_counter()
         res = spawn_tp(world, d)
@@ -5298,6 +5736,10 @@ def run_tp_path(torch, max_new=32) -> dict:
                                     ref32, n)
         if world == 2:
             plane["moe"] = check_tp_moe(torch, res)
+        t2 = time.perf_counter()
+        plane["families"] = check_tp_families(torch, res, world, refs)
+        print(f"phase 4k tp {world}: the families' checks and unsharded "
+              f"runs {time.perf_counter() - t2:.1f} s", flush=True)
         timing.update(plane.pop("timing"))
         summary[f"tp{world}"] = dict(
             launches={n: r0[n]["launches"]
@@ -5312,7 +5754,7 @@ def run_tp_path(torch, max_new=32) -> dict:
           "gloo through the host on one card, no claim rides on them): "
           + "; ".join(f"{k} {v['tok_s']:.2f} tok/s, {v['decode_ms']:.3f} ms"
                       for k, v in timing.items()), flush=True)
-    del gap_llm, dev32, plain
+    del gap_llm, dev32, plain, refs
     gc.collect()
     torch.cuda.empty_cache()
     return summary
@@ -5430,10 +5872,11 @@ def check_rg_launches(launches, st, llm, what):
 RG_FLASH = (2150, 10, 1, 256, 2048)     # T, q heads, KV heads, hd, window
 
 
-def rg_flash_inputs(torch, gen) -> tuple:
-    """Row 5b's q, k, v: bf16 (1, H, T, hd) views of (1, T, H, hd)
-    tensors, as recurrentgemma-2b's prefill passes them."""
-    t, hq, hkv, hd, _ = RG_FLASH
+def rg_flash_inputs(torch, gen, hq=RG_FLASH[1]) -> tuple:
+    """Row 5b's q, k, v (row 5i's with ``hq`` 5, a tp 2 rank's): bf16 (1,
+    H, T, hd) views of (1, T, H, hd) tensors, as recurrentgemma-2b's
+    prefill passes them."""
+    t, _, hkv, hd, _ = RG_FLASH
 
     def rand(heads):
         return torch.randn((1, t, heads, hd), generator=gen,
@@ -5454,6 +5897,94 @@ def rg_flash_route(torch) -> list:
     return [n for n in device_kernels(torch, lambda: fa.flash_attention(
         q, k, vv, causal=True, window=RG_FLASH[4]), "flash_attention")
         if "flash_attention" in n]
+
+
+def rg_flash_row(torch, timer, gen, hq, label) -> dict:
+    """Flash attention at recurrentgemma-2b's prefill with ``hq`` query
+    heads over its one KV head (10: row 5b; 5, a tp 2 rank's: row 5i),
+    T 2,150, hd 256, causal, window 2,048, bf16 on the (B, T, H, hd)
+    views the layer passes (``gen`` draws the inputs): held to its plain
+    version on random inputs and on inputs where the window decides
+    (``check_rg_kernels`` says how), then timed beside its bound and SDPA
+    with the window's mask.  Returns the kernel row."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+
+    t, _, hkv, hd, window = RG_FLASH
+    q, k, vv = rg_flash_inputs(torch, gen, hq)
+    idx = torch.arange(t, device="cuda")
+    mask = (idx[None, :] <= idx[:, None]) & (idx[None, :] > idx[:, None]
+                                             - window)
+
+    def held(q, k, vv, what):
+        """The kernel against its plain version on (q, k, vv): returns
+        (max |err|, the plain output, the limit)."""
+        out = fa.flash_attention(q, k, vv, causal=True, window=window)
+        torch.cuda.synchronize()
+        want = ref.flash_attention(q, k, vv, causal=True,
+                                   window=window).float()
+        kf = k.float().repeat_interleave(hq // hkv, dim=1)
+        vf = vv.float().repeat_interleave(hq // hkv, dim=1)
+        p = torch.softmax(torch.einsum("bhtd,bhsd->bhts", q.float(), kf)
+                          .div_(math.sqrt(hd)).masked_fill_(~mask,
+                                                            float("-inf")),
+                          dim=-1)
+        spread = torch.einsum("bhts,bhsd->bhtd", p.square_(),
+                              vf.square_()).sqrt_()
+        del p, kf, vf
+        diff = (out.float() - want).abs()
+        limit = 4 * BF16_STEP * (want.abs() + spread)
+        worst = (diff / limit).max().item()
+        err = diff.max().item()
+        print(f"{label}, flash_attention g {hq // hkv} {what}: "
+              f"max_abs_err {err:.6g}, worst err / limit {worst:.4f} "
+              f"(limit 4 * {BF16_STEP:.6g} * (|want| + sqrt(sum p^2 "
+              f"v^2)); that spread {spread[:, :, 0].mean().item():.4g} at "
+              f"row 0, {spread[:, :, -1].mean().item():.4g} at the last "
+              "row)", flush=True)
+        check(worst <= 1.0, f"flash attention at {label} g {hq // hkv} "
+              f"({what}) disagrees with its plain version: err {err}, "
+              f"{worst:.3f} of its limit")
+        return err, want, limit
+
+    err, want, _ = held(q, k, vv, "random q, k, v")
+    # the window decides: row window + m's query and key m (the first key
+    # past that row's window) are one vector of norm 16, so that key
+    # would score 256 / 16 = 16 against about N(0, 1) for every other
+    # key of the row; the far keys carry v = 4
+    far = t - window
+    u = torch.randn((far, hd), generator=gen, device="cuda")
+    u = (16 * u / u.norm(dim=-1, keepdim=True)).to(torch.bfloat16)
+    qh, kh, vh = q.clone(), k.clone(), vv.clone()
+    qh[:, :, window:] = u
+    kh[:, :, :far] = u
+    vh[:, :, :far] = 4.0
+    err_w, want_w, limit_w = held(qh, kh, vh, f"each of the last {far} "
+                                  "rows' first key past the window hot")
+    open_w = ref.flash_attention(qh, kh, vh, causal=True,
+                                 window=None).float()
+    moved = ((open_w - want_w).abs() / limit_w)[:, :, window:]
+    print(f"{label}, flash_attention g {hq // hkv} without the window "
+          f"would move each of the last {far} rows by at least "
+          f"{moved.amax(dim=(0, 1, 3)).min().item():.1f} times its limit",
+          flush=True)
+    check(moved.amax(dim=(0, 1, 3)).min().item() > 10,
+          "the hot-key case does not tell a windowed kernel from one that "
+          "ignores the window")
+    err = max(err, err_w)
+    del qh, kh, vh, want_w, open_w, moved, limit_w
+    row = kernel_row(
+        timer, lambda: fa.flash_attention(q, k, vv, causal=True,
+                                          window=window),
+        lambda: ref.flash_attention(q, k, vv, causal=True, window=window),
+        lambda: F.scaled_dot_product_attention(q, k, vv, attn_mask=mask,
+                                               enable_gqa=True),
+        (2 * q.numel() + k.numel() + vv.numel()) * 2,
+        4 * hd * hq * int(mask.sum()), err)
+    del q, k, vv, want, mask
+    return row
 
 
 def check_rg_kernels(torch, timer, names) -> dict:
@@ -5479,99 +6010,23 @@ def check_rg_kernels(torch, timer, names) -> dict:
     sees and carries v = 4, so a kernel that let it in would move that
     row by many times its limit (the plain version without the window
     shows by how much; more than 10 is required)."""
-    import torch.nn.functional as F
-
-    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import fused_argmax_head as fah
     from repro_torch.kernels import ref
 
-    t, hq, hkv, hd, window = RG_FLASH
     d, v = 2560, 256000
     gen = torch.Generator(device="cuda").manual_seed(27)
-    q, k, vv = rg_flash_inputs(torch, gen)
     check(names and all("flash_attention_mma_kernel" in n for n in names),
           f"flash attention at hd 256, g 10 ran {names}, not the mma.sync "
           "kernel")
-
-    idx = torch.arange(t, device="cuda")
-    mask = (idx[None, :] <= idx[:, None]) & (idx[None, :] > idx[:, None]
-                                             - window)
-
-    def held(q, k, vv, what):
-        """The kernel against its plain version on (q, k, vv): returns
-        (max |err|, the plain output, the limit)."""
-        out = fa.flash_attention(q, k, vv, causal=True, window=window)
-        torch.cuda.synchronize()
-        want = ref.flash_attention(q, k, vv, causal=True,
-                                   window=window).float()
-        kf = k.float().repeat_interleave(hq // hkv, dim=1)
-        vf = vv.float().repeat_interleave(hq // hkv, dim=1)
-        p = torch.softmax(torch.einsum("bhtd,bhsd->bhts", q.float(), kf)
-                          .div_(math.sqrt(hd)).masked_fill_(~mask,
-                                                            float("-inf")),
-                          dim=-1)
-        spread = torch.einsum("bhts,bhsd->bhtd", p.square_(),
-                              vf.square_()).sqrt_()
-        del p, kf, vf
-        diff = (out.float() - want).abs()
-        limit = 4 * BF16_STEP * (want.abs() + spread)
-        worst = (diff / limit).max().item()
-        err = diff.max().item()
-        print(f"recurrentgemma-2b shapes, flash_attention {what}: "
-              f"max_abs_err {err:.6g}, worst err / limit {worst:.4f} "
-              f"(limit 4 * {BF16_STEP:.6g} * (|want| + sqrt(sum p^2 "
-              f"v^2)); that spread {spread[:, :, 0].mean().item():.4g} at "
-              f"row 0, {spread[:, :, -1].mean().item():.4g} at the last "
-              "row)", flush=True)
-        check(worst <= 1.0, f"flash attention at recurrentgemma's shapes "
-              f"({what}) disagrees with its plain version: err {err}, "
-              f"{worst:.3f} of its limit")
-        return err, want, limit
-
-    err, want, _ = held(q, k, vv, "random q, k, v")
-    # the window decides: row window + m's query and key m (the first key
-    # past that row's window) are one vector of norm 16, so that key
-    # would score 256 / 16 = 16 against about N(0, 1) for every other
-    # key of the row; the far keys carry v = 4
-    far = t - window
-    u = torch.randn((far, hd), generator=gen, device="cuda")
-    u = (16 * u / u.norm(dim=-1, keepdim=True)).to(torch.bfloat16)
-    qh, kh, vh = q.clone(), k.clone(), vv.clone()
-    qh[:, :, window:] = u
-    kh[:, :, :far] = u
-    vh[:, :, :far] = 4.0
-    err_w, want_w, limit_w = held(qh, kh, vh, f"each of the last {far} "
-                                  "rows' first key past the window hot")
-    open_w = ref.flash_attention(qh, kh, vh, causal=True,
-                                 window=None).float()
-    moved = ((open_w - want_w).abs() / limit_w)[:, :, window:]
-    print(f"recurrentgemma-2b shapes, flash_attention without the window "
-          f"would move each of the last {far} rows by at least "
-          f"{moved.amax(dim=(0, 1, 3)).min().item():.1f} times its limit",
-          flush=True)
-    check(moved.amax(dim=(0, 1, 3)).min().item() > 10,
-          "the hot-key case does not tell a windowed kernel from one that "
-          "ignores the window")
-    err = max(err, err_w)
-    del qh, kh, vh, want_w, open_w, moved, limit_w
-    rows = {"flash_t2150_g10_hd256": kernel_row(
-        timer, lambda: fa.flash_attention(q, k, vv, causal=True,
-                                          window=window),
-        lambda: ref.flash_attention(q, k, vv, causal=True, window=window),
-        lambda: F.scaled_dot_product_attention(q, k, vv, attn_mask=mask,
-                                               enable_gqa=True),
-        (2 * q.numel() + k.numel() + vv.numel()) * 2,
-        4 * hd * hq * int(mask.sum()), err)}
+    rows = {"flash_t2150_g10_hd256": rg_flash_row(
+        torch, timer, gen, RG_FLASH[1], "recurrentgemma-2b shapes")}
     rows["flash_t2150_g10_hd256"]["route"] = "mma.sync"
+    row = rows["flash_t2150_g10_hd256"]
     print(f"recurrentgemma-2b shapes, flash_attention T=2150 g=10 hd=256 "
-          f"window=2048 (ran {names[0][:48]}): kernel "
-          f"{shown(rows['flash_t2150_g10_hd256'])}, plain "
-          f"{rows['flash_t2150_g10_hd256']['plain_ms']:.4f} ms, sdpa(mask) "
-          f"{shown(rows['flash_t2150_g10_hd256'], 'library_')}, bound "
-          f"{rows['flash_t2150_g10_hd256']['bound_ms']:.4f} ms "
-          f"({rows['flash_t2150_g10_hd256']['bound_by']}); max_abs_err "
-          f"{err:.6g}", flush=True)
-    del q, k, vv, want, mask
+          f"window=2048 (ran {names[0][:48]}): kernel {shown(row)}, plain "
+          f"{row['plain_ms']:.4f} ms, sdpa(mask) {shown(row, 'library_')}, "
+          f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}); "
+          f"max_abs_err {row['max_abs_err']:.6g}", flush=True)
 
     emb = (torch.randn((v, d), generator=gen, device="cuda")
            / math.sqrt(d)).to(torch.bfloat16)
@@ -7857,6 +8312,9 @@ def main() -> int:
         timer = Timer(torch)
         tp_heads = check_tp_head_shards(torch, timer)
         tp_paged = check_tp_paged_heads(torch, timer)
+        t_f = time.perf_counter()
+        tp_fam = check_tp_family_kernels(torch, timer)
+        summary["tp_family_kernels_s"] = time.perf_counter() - t_f
         del timer
         summary["tp"] = run_tp_path(torch, max_new)
         mark("phase 4k")
@@ -7923,6 +8381,18 @@ def main() -> int:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1
 
+    fam2 = summary["tp"]["tp2"]["families"]
+    fam4 = summary["tp"]["tp4"]["families"]
+
+    def fam_shards(model, kernel):
+        return {str(v): {k: r[kernel][k] for k in TIMES + ("max_abs_err",)}
+                for v, r in tp_fam[model].items()}
+
+    def fam_launches(kernel, key="launches_f32"):
+        return {f"{arch}_tp{w}": f[arch][key][kernel]
+                for w, f in ((2, fam2), (4, fam4))
+                for arch in f if arch != "vlm"}
+
     kernels = [
         dict(name="paged_attention", route="cuda",
              source="src/repro_torch/kernels/csrc/paged_attention.cu",
@@ -7966,6 +8436,8 @@ def main() -> int:
                  "chunks", "max_abs_err")} for tp, row in tp_paged.items()},
              tp_launches={str(w): summary["tp"][f"tp{w}"]["launches"][
                  "greedy_bf16"]["paged_attention"] for w in TP_WORLDS},
+             tp_vlm_smoke_launches=fam2["vlm"]["launches"][
+                 "paged_attention"],
              modes={mode: dict(
                  launches=probe_runs[None]["launches_by_mode"][mode],
                  max_abs_err=max(r["max_abs_err"] for (m, _, _), r
@@ -8002,7 +8474,9 @@ def main() -> int:
                  wide_rows["argmax_B8"], sc2_rows["argmax_b8"],
                  rg_rows["argmax_b8"], rw_rows["argmax_b8"],
                  moe_rows["argmax_b8"], vlm_rows["argmax_b8"],
-                 ed_rows["argmax_b8"]]),
+                 ed_rows["argmax_b8"],
+                 *(r["argmax_b8"] for m in ("rwkv6", "recurrentgemma")
+                   for r in tp_fam[m].values())]),
              **{k: head_rows[8][k] for k in TIMES},
              b1={k: head_rows[1][k] for k in TIMES},
              b64={k: head_rows[64][k] for k in TIMES},
@@ -8017,6 +8491,13 @@ def main() -> int:
                            for v, r in tp_heads.items()},
              tp_launches={str(w): summary["tp"][f"tp{w}"]["launches"][
                  "greedy_bf16"]["fused_argmax_head"] for w in TP_WORLDS},
+             tp_rwkv6_shards_b8=fam_shards("rwkv6", "argmax_b8"),
+             tp_recurrentgemma_shards_b8=fam_shards("recurrentgemma",
+                                                    "argmax_b8"),
+             tp_family_launches=fam_launches("fused_argmax_head",
+                                             "launches_bf16"),
+             tp_vlm_prefix_launches=fam2["vlm"]["prefix_launches"][
+                 "fused_argmax_head"],
              starcoder2_untied_b8={k: sc2_rows["argmax_b8"][k]
                                    for k in TIMES + ("max_abs_err",)},
              recurrentgemma_launches=rg_launches["fused_argmax_head"],
@@ -8048,7 +8529,9 @@ def main() -> int:
              max_abs_err=max(r["max_abs_err"] for r in [
                  *topk_rows.values(), wide_rows["topk_B8_k8"],
                  sc2_rows["topk_b4_k8"], rw_rows["topk_b4_k8"],
-                 moe_rows["topk_b4_k8"], vlm_rows["topk_b4_k8"]]),
+                 moe_rows["topk_b4_k8"], vlm_rows["topk_b4_k8"],
+                 *(r["topk_b4_k8"] for m in ("rwkv6", "recurrentgemma")
+                   for r in tp_fam[m].values())]),
              **{k: topk_rows[(4, 8)][k] for k in TIMES},
              k64={k: topk_rows[(4, 64)][k] for k in TIMES},
              passes=topk_passes, d18432=wide_rows["topk_B8_k8"],
@@ -8057,6 +8540,10 @@ def main() -> int:
                               for v, r in tp_heads.items()},
              tp_launches={str(w): summary["tp"][f"tp{w}"]["launches"][
                  "mixed_f32"]["fused_topk_head"] for w in TP_WORLDS},
+             tp_rwkv6_shards_b4_k8=fam_shards("rwkv6", "topk_b4_k8"),
+             tp_recurrentgemma_shards_b4_k8=fam_shards("recurrentgemma",
+                                                       "topk_b4_k8"),
+             tp_family_launches=fam_launches("fused_topk_head"),
              starcoder2_untied_b4_k8={k: sc2_rows["topk_b4_k8"][k]
                                       for k in TIMES + ("max_abs_err",)},
              rwkv6_sampled_launches=rw_sampled["fused_topk_head"],
@@ -8101,7 +8588,7 @@ def main() -> int:
                  rg_rows["flash_t2150_g10_hd256"],
                  moe_rows["flash_t512_g4"],
                  train_rows["flash_t4096_b2_g2"],
-                 vlm_rows["flash_t768_g6"],
+                 vlm_rows["flash_t768_g6"], tp_fam["flash_g5"],
                  *(ed_rows[k] for k in ("flash_enc_t1024",
                                         "flash_cross_t64_s1024",
                                         "flash_dec_t64"))]),
@@ -8117,6 +8604,12 @@ def main() -> int:
              routes=fa_routes,
              tp_launches={str(w): summary["tp"][f"tp{w}"]["launches"][
                  "greedy_bf16"]["flash_attention"] for w in TP_WORLDS},
+             tp_recurrentgemma_t2150_g5_hd256_w2048={
+                 k: tp_fam["flash_g5"][k] for k in TIMES + ("max_abs_err",)},
+             tp_family_launches=fam_launches("flash_attention",
+                                             "launches_bf16"),
+             tp_vlm_prefix_launches=fam2["vlm"]["prefix_launches"][
+                 "flash_attention"],
              starcoder2_launches=sc2_launches["flash_attention"],
              starcoder2_t512_g9={k: sc2_rows["flash_t512_g9"][k]
                                  for k in TIMES + ("max_abs_err",)},

@@ -12,6 +12,8 @@
   # tensor parallelism: one process per rank, rank 0 prints
   python -m torch.distributed.run --nproc-per-node 2 \
       -m repro_torch.launch.serve --arch qwen3-0.6b --tp 2 [--smoke]
+  python -m torch.distributed.run --nproc-per-node 4 \
+      -m repro_torch.launch.serve --arch rwkv6-7b --tp 4 [--smoke]
 
 Counterpart of ``repro.launch.serve`` with the same flags, plus
 ``--device`` (default ``cuda``: the entry point runs on the card and
@@ -40,7 +42,13 @@ between windowed attention layers) on the dense per-slot store whatever
 ``--tp N`` serves one rank a process under torchrun (the group comes
 from its environment; ``parallel.comm.Group.from_env``): every rank
 draws the same host weights from ``--seed``, keeps its slice and runs
-the same batch, rank 0 prints.  ``--head-mode sharded`` without ``--tp``
+the same batch, rank 0 prints.  Every served family splits:
+``--arch rwkv6-7b --tp 2`` or ``--tp 4`` (its 64 heads of 64 whole),
+``--arch recurrentgemma-2b --tp 2`` (5 of its 10 heads and RG-LRU gate
+blocks a rank; tp 4 raises, 10 heads are not whole), the dense, moe
+and vlm families; ``--arch internvl2-26b`` raises under any ``--tp``
+(its vocabulary, 92,553, divides by neither 2 nor 4; the reference's
+sharded head refuses it too).  ``--head-mode sharded`` without ``--tp``
 keeps the trunk whole and splits the head over the group (a group of one
 rank outside torchrun).  ``--replicas N`` serves the batch, or the HTTP
 frontend, through the multi-replica ``serve.router.Router``; with

@@ -38,11 +38,14 @@ Under tensor parallelism the tree is one rank's slice
 the rank's ``parallel.sharding.Split`` with its group): the embedding
 lookup is vocabulary-sharded (each rank gathers the ids in its range,
 zeros elsewhere, then an all-reduce -- exact, one rank alone is non-zero
-per token), an all-reduce follows each layer's ``wo`` and ``w_out`` (a
-``moe`` layer's: its experts' share of the routed sum plus its part of
-the shared expert),
-``lm_head_weight`` is the rank's (D, V / ranks) slice and ``logits_fn``
-all-gathers the slices' f32 logits.
+per token; a vlm config's image embeddings then take the first
+positions on every rank), an all-reduce follows each layer's ``wo`` and
+``w_out`` (a ``moe`` layer's: its experts' share of the routed sum plus
+its part of the shared expert; a ``rec`` layer's RG-LRU block and MLP;
+an ``rwkv`` layer's time-mix, whose channel-mix sums and gathers its
+own, ``rwkv6.rwkv_channel_mix``), the recurrent states hold the rank's
+channels (``rglru`` / ``rwkv6``), ``lm_head_weight`` is the rank's (D, V
+/ ranks) slice and ``logits_fn`` all-gathers the slices' f32 logits.
 """
 from __future__ import annotations
 
@@ -122,27 +125,27 @@ def embed_tokens(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
     """The token embeddings (B, T, D); under a config with
     ``num_image_tokens``, given ``image_embeds`` (B, n, D) -- the stub
     vision frontend's patch embeddings -- take the first n positions, cast
-    to the compute dtype (reference ``embed_tokens``)."""
+    to the compute dtype (reference ``embed_tokens``).  Under a split
+    trunk the token embeddings are summed over the ranks first; every
+    rank holds the same ``image_embeds`` and puts them in after the sum
+    (summed, they would count ``world`` times)."""
     group = _trunk_group(cfg)
     if group is None:
         x = params["embed"][tokens]
-        if cfg.num_image_tokens and image_embeds is not None:
-            n = image_embeds.shape[1]
-            x = torch.cat([image_embeds.to(x.dtype), x[:, n:]], dim=1)
-        return x
-    if image_embeds is not None:
-        raise NotImplementedError(
-            "image embeddings under a vocabulary-split embedding: the vlm "
-            "family does not run under tensor parallelism")
-    # vocabulary-sharded lookup: this rank's rows for the ids in its
-    # range, exact zeros elsewhere; the sum over ranks adds zeros only
-    lo, hi = cfg.shard.vocab
-    local = tokens - lo
-    mine = (local >= 0) & (local < hi - lo)
-    x = params["embed"][local.clamp(0, hi - lo - 1)]
-    x = torch.where(mine[..., None], x, torch.zeros((), dtype=x.dtype,
-                                                    device=x.device))
-    return group.all_reduce_sum(x, "embed")
+    else:
+        # vocabulary-sharded lookup: this rank's rows for the ids in its
+        # range, exact zeros elsewhere; the sum over ranks adds zeros only
+        lo, hi = cfg.shard.vocab
+        local = tokens - lo
+        mine = (local >= 0) & (local < hi - lo)
+        x = params["embed"][local.clamp(0, hi - lo - 1)]
+        x = torch.where(mine[..., None], x, torch.zeros((), dtype=x.dtype,
+                                                        device=x.device))
+        x = group.all_reduce_sum(x, "embed")
+    if cfg.num_image_tokens and image_embeds is not None:
+        n = image_embeds.shape[1]
+        x = torch.cat([image_embeds.to(x.dtype), x[:, n:]], dim=1)
+    return x
 
 
 def lm_head_weight(params: dict, cfg: ModelConfig) -> torch.Tensor:
@@ -233,8 +236,9 @@ def _apply_layer(p: dict, x: torch.Tensor, cfg: ModelConfig, kind: str, *,
                  consts, cache=None, group=None, cross=None):
     """One layer of ``kind``; with ``group`` (a split trunk) the
     row-parallel outputs of ``wo`` and ``w_out`` are summed over the
-    ranks, and a ``moe`` layer runs its rank's experts
-    (``parallel.moe_ep``).  Returns (x, extra, aux):
+    ranks (a ``rec`` layer's RG-LRU block and MLP, an ``rwkv`` layer's
+    time-mix and channel-mix too), and a ``moe`` layer runs its rank's
+    experts (``parallel.moe_ep``).  Returns (x, extra, aux):
     an attention-bearing layer's self-attention ``attention`` extra, a
     ``rec`` or ``rwkv`` layer's new state; a ``moe`` layer's router loss
     (f32 scalar), else None.  A ``moe`` layer routes with ``moe_impl``:
@@ -245,12 +249,14 @@ def _apply_layer(p: dict, x: torch.Tensor, cfg: ModelConfig, kind: str, *,
     cross K/V in a decode step (reference ``_apply_layer``)."""
     if kind == "rwkv":
         return (*_recurrent(rwkv6.init_state, rwkv6.rwkv_block, p, x, cfg,
-                            consts, cache), None)
+                            consts, cache, group), None)
     if kind == "rec":
         x, extra = _recurrent(rglru.init_state, rglru.rglru_block, p["rec"],
-                              x, cfg, consts, cache)
+                              x, cfg, consts, cache, group)
         h = mlp(p["mlp"], rms_norm(x, p["ln2"], cfg.norm_eps),
                 cfg.activation)
+        if group is not None:
+            h = group.all_reduce_sum(h, "trunk")
         return x + h, extra, None
     enc = kind == "enc"
     a, extra = attention(p["attn"], rms_norm(x, p["ln1"], cfg.norm_eps),
@@ -285,9 +291,10 @@ def _apply_layer(p: dict, x: torch.Tensor, cfg: ModelConfig, kind: str, *,
 
 
 def _recurrent(init_state, block, p: dict, x: torch.Tensor,
-               cfg: ModelConfig, consts, cache: Optional[dict]):
+               cfg: ModelConfig, consts, cache: Optional[dict], group=None):
     """A recurrent ``block`` (``rglru.rglru_block`` of a ``rec`` layer,
-    ``rwkv6.rwkv_block`` of an ``rwkv`` layer).  Without ``cache``
+    ``rwkv6.rwkv_block`` of an ``rwkv`` layer; ``group`` a split trunk's
+    ranks, which it sums over).  Without ``cache``
     (prefill, ``forward``) from a zero state (``init_state``); returns
     (x, the new state).  With ``cache`` -- the layer's state leaves over N
     cache rows -- a decode step: every row's old state is gathered
@@ -298,11 +305,12 @@ def _recurrent(init_state, block, p: dict, x: torch.Tensor,
     and no row advances twice."""
     B = x.shape[0]
     if cache is None:
-        return block(p, x, cfg, init_state(cfg, (B,), x.dtype, x.device))
+        return block(p, x, cfg, init_state(cfg, (B,), x.dtype, x.device),
+                     group)
     rows = consts.rows if consts.rows is not None else torch.arange(
         B, device=x.device)
     old = {name: leaf[rows] for name, leaf in cache.items()}
-    x, new = block(p, x, cfg, old)
+    x, new = block(p, x, cfg, old, group)
     for name, leaf in cache.items():
         leaf.index_put_((rows,), new[name].to(leaf.dtype))
     return x, cache

@@ -21,6 +21,13 @@ State per layer and sequence: ``conv`` (w - 1, lru) in the compute
 dtype, ``h`` (lru,) f32.  The scan is the reference's ``lax.scan``,
 outside any Pallas kernel: here a plain loop over T in the same order of
 operations.
+
+Under tensor parallelism (``cfg.shard`` a split trunk, ``group`` its
+ranks) the rank's view (``sharding.local_config``) holds its whole gate
+blocks: ``lru_width`` its channels and ``n_heads`` its blocks, so the
+projections, the conv, the gates, the scan and the state are the rank's
+channels alone; ``w_out``'s rows give a partial sum, all-reduced before
+the residual.
 """
 from __future__ import annotations
 
@@ -115,10 +122,12 @@ def rglru_scan(x: torch.Tensor, h0: torch.Tensor, a: torch.Tensor,
     return torch.stack(hs, dim=1), h
 
 
-def rglru_block(p: dict, x: torch.Tensor, cfg: ModelConfig, state: dict):
+def rglru_block(p: dict, x: torch.Tensor, cfg: ModelConfig, state: dict,
+                group=None):
     """The Griffin recurrent block, in place of attention: x (B, T, D)
     and ``state`` {"conv", "h"} of the B sequences -> (x + y, the new
-    state).  T = 1 is a decode step."""
+    state).  T = 1 is a decode step.  With ``group`` (a split trunk) y is
+    summed over the ranks."""
     dt = x.dtype
     xn = rms_norm(x, p["ln"], cfg.norm_eps)
     gate = F.gelu(xn @ p["w_gate_in"].to(dt), approximate="tanh")
@@ -132,5 +141,7 @@ def rglru_block(p: dict, x: torch.Tensor, cfg: ModelConfig, state: dict):
     a = torch.exp(-C * r * sp)
     hs, h_last = rglru_scan(xb32, state["h"], a, i)
     y = (hs.to(dt) * gate) @ p["w_out"].to(dt)
+    if group is not None:
+        y = group.all_reduce_sum(y, "trunk")
     return x + y, {"conv": conv, "h": h_last}
 

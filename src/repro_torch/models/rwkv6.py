@@ -17,6 +17,15 @@ f32 (the reference's ``astype``); a store of another dtype casts them on
 write, exactly (they are compute-dtype values).  The recurrence is the
 reference's ``lax.scan``, outside any Pallas kernel: here a plain loop
 over T in the same order of operations (``wkv_scan``).
+
+Under tensor parallelism (``cfg.shard`` a split trunk, ``group`` its
+ranks) a layer holds the rank's whole heads (``width``): r, k, v, g, the
+decay and the bonus at its channels, ``wkv`` its heads, the group norm
+over them alone; ``w_o``'s rows give a partial sum, all-reduced before
+the residual.  The channel-mix's ``kv`` is a partial sum over the rank's
+d_ff rows: all-reduced first, its product with the rank's ``sigmoid(xr
+@ w_r_cm)`` columns is all-gathered (``rwkv_channel_mix``).  The shifts
+stay full width.
 """
 from __future__ import annotations
 
@@ -31,40 +40,50 @@ LORA = 64                  # the decay LoRA's rank
 KV_CHUNK = 1 << 26
 
 
+def width(cfg: ModelConfig) -> int:
+    """The time-mix channels the layers hold, ``rwkv_head_size`` a head:
+    D, or under a split trunk the rank's heads' (``cfg.shard.chan``)."""
+    sh = cfg.shard
+    if sh is not None and sh.trunk:
+        return sh.chan[1] - sh.chan[0]
+    return cfg.d_model
+
+
 def layer_shapes(cfg: ModelConfig, L: int) -> dict:
     """The layer's leaves stacked over ``L`` layers, as
     ``weights.param_shapes`` lists them: (shape, init), init a fan-in
     (normal / sqrt(fan_in)), None (zeros), ``("full", c)`` (the constant
-    c) or ``("std", s)`` (normal * s) -- ``init_rwkv_layer``'s draws."""
-    d, f = cfg.d_model, cfg.d_ff
+    c) or ``("std", s)`` (normal * s) -- ``init_rwkv_layer``'s draws.  On
+    a rank's view, at its heads' ``width`` and its d_ff."""
+    d, f, c = cfg.d_model, cfg.d_ff, width(cfg)
     half = ("full", 0.5)
     return {
         "ln1": ((L, d), None), "ln2": ((L, d), None),
         "mu_r": ((L, d), half), "mu_k": ((L, d), half),
         "mu_v": ((L, d), half), "mu_w": ((L, d), half),
         "mu_g": ((L, d), half),
-        "w_r": ((L, d, d), d), "w_k": ((L, d, d), d),
-        "w_v": ((L, d, d), d), "w_g": ((L, d, d), d),
-        "w0": ((L, d), ("full", -6.0)),
-        "wA": ((L, d, LORA), d), "wB": ((L, LORA, d), LORA),
-        "u": ((L, d), ("std", 0.1)),
-        "ln_x": ((L, d), ("full", 1.0)),
-        "w_o": ((L, d, d), d),
+        "w_r": ((L, d, c), d), "w_k": ((L, d, c), d),
+        "w_v": ((L, d, c), d), "w_g": ((L, d, c), d),
+        "w0": ((L, c), ("full", -6.0)),
+        "wA": ((L, d, LORA), d), "wB": ((L, LORA, c), LORA),
+        "u": ((L, c), ("std", 0.1)),
+        "ln_x": ((L, c), ("full", 1.0)),
+        "w_o": ((L, c, d), d),
         "mu_k_cm": ((L, d), half), "mu_r_cm": ((L, d), half),
         "w_k_cm": ((L, d, f), d), "w_v_cm": ((L, f, d), f),
-        "w_r_cm": ((L, d, d), d),
+        "w_r_cm": ((L, d, c), d),
     }
 
 
 def init_state(cfg: ModelConfig, lead: tuple, dtype, device) -> dict:
     """A fresh state with leading axes ``lead`` (a batch, or (layers,
     batch)): ``shift1`` / ``shift2`` (*lead, D) in ``dtype``, ``wkv``
-    (*lead, H, hd, hd) f32, zeros."""
+    (*lead, H, hd, hd) f32, zeros; H the layers' heads (``width``)."""
     d, hd = cfg.d_model, cfg.rwkv_head_size
     return {"shift1": torch.zeros((*lead, d), dtype=dtype, device=device),
             "shift2": torch.zeros((*lead, d), dtype=dtype, device=device),
-            "wkv": torch.zeros((*lead, d // hd, hd, hd), dtype=torch.float32,
-                               device=device)}
+            "wkv": torch.zeros((*lead, width(cfg) // hd, hd, hd),
+                               dtype=torch.float32, device=device)}
 
 
 def _lerp(x: torch.Tensor, prev: torch.Tensor,
@@ -110,10 +129,12 @@ def wkv_scan(S: torch.Tensor, r: torch.Tensor, k: torch.Tensor,
 
 
 def rwkv_time_mix(p: dict, x: torch.Tensor, cfg: ModelConfig, state: dict):
-    """x (B, T, D), the normed input.  Returns (y, {"wkv", "shift1"})."""
-    B, T, d = x.shape
+    """x (B, T, D), the normed input.  Returns (y, {"wkv", "shift1"});
+    on a rank, y is its heads' share of ``w_o``'s sum."""
+    B, T, _ = x.shape
     hd = cfg.rwkv_head_size
-    h = d // hd
+    c = width(cfg)
+    h = c // hd
     dt = x.dtype
     prev = _shifted(x, state["shift1"])
     xr, xk = _lerp(x, prev, p["mu_r"]), _lerp(x, prev, p["mu_k"])
@@ -128,31 +149,45 @@ def rwkv_time_mix(p: dict, x: torch.Tensor, cfg: ModelConfig, state: dict):
     w = torch.exp(-torch.exp(dec)).reshape(B, T, h, hd)
     u = p["u"].reshape(h, hd).float()
     out, S = wkv_scan(state["wkv"], r.float(), k.float(), v.float(), w, u)
-    out = group_norm_heads(out.reshape(B, T, d).to(dt), p["ln_x"], h)
+    out = group_norm_heads(out.reshape(B, T, c).to(dt), p["ln_x"], h)
     out = out * F.silu(g)
     return out @ p["w_o"].to(dt), {"wkv": S, "shift1": x[:, -1].float()}
 
 
 def rwkv_channel_mix(p: dict, x: torch.Tensor, cfg: ModelConfig,
-                     state: dict):
-    """x (B, T, D), the normed input.  Returns (y, {"shift2"})."""
+                     state: dict, group=None):
+    """x (B, T, D), the normed input.  Returns (y, {"shift2"}).  With
+    ``group`` (a split trunk): ``kv`` summed over the ranks first, its
+    columns ``cfg.shard.chan`` times the rank's ``sigmoid(xr @ w_r_cm)``,
+    the products all-gathered in rank order -- every rank the whole y."""
     dt = x.dtype
     prev = _shifted(x, state["shift2"])
     xk = _lerp(x, prev, p["mu_k_cm"])
     xr = _lerp(x, prev, p["mu_r_cm"])
     kk = F.relu(xk @ p["w_k_cm"].to(dt))
     kv = (kk * kk) @ p["w_v_cm"].to(dt)
-    y = torch.sigmoid(xr @ p["w_r_cm"].to(dt)) * kv
+    r = torch.sigmoid(xr @ p["w_r_cm"].to(dt))
+    if group is None:
+        return r * kv, {"shift2": x[:, -1].float()}
+    lo, hi = cfg.shard.chan
+    kv = group.all_reduce_sum(kv, "trunk")
+    parts = group.all_gather(r * kv[..., lo:hi], "trunk")    # (W, B, T, c)
+    y = parts.permute(1, 2, 0, 3).reshape(x.shape)
     return y, {"shift2": x[:, -1].float()}
 
 
-def rwkv_block(p: dict, x: torch.Tensor, cfg: ModelConfig, state: dict):
+def rwkv_block(p: dict, x: torch.Tensor, cfg: ModelConfig, state: dict,
+               group=None):
     """The whole RWKV layer, pre-norm residual: x (B, T, D) and ``state``
     {"shift1", "shift2", "wkv"} of the B sequences -> (x, the new state).
-    T = 1 is a decode step."""
+    T = 1 is a decode step.  With ``group`` (a split trunk) the time-mix
+    output is summed over the ranks and the channel-mix gathers its
+    own."""
     a, s1 = rwkv_time_mix(p, rms_norm(x, p["ln1"], cfg.norm_eps), cfg, state)
+    if group is not None:
+        a = group.all_reduce_sum(a, "trunk")
     x = x + a
     b, s2 = rwkv_channel_mix(p, rms_norm(x, p["ln2"], cfg.norm_eps), cfg,
-                             state)
+                             state, group)
     return x + b, {"shift1": s1["shift1"], "shift2": s2["shift2"],
                    "wkv": s1["wkv"]}

@@ -1,9 +1,9 @@
-"""The tensor-parallel serve split of the dense and moe families' param
-trees.
+"""The tensor-parallel serve split of the param trees of every served
+family: dense, vlm, moe, hybrid (RG-LRU) and ssm (RWKV6).
 
 Counterpart of ``repro.parallel.sharding`` (``_PARAM_RULES`` :26-44,
 ``_MOE_RULES`` :49-54, ``param_specs`` :75-113, ``paged_pool_specs``
-:142-163) for serving:
+:142-163, the recurrent states' ``_CACHE_BASE`` :186-197) for serving:
 
   column-parallel   wq, wk, wv, w_gate, w_up, w_in (their output columns)
   row-parallel      wo, w_out (their input rows; an all-reduce follows)
@@ -14,22 +14,50 @@ Counterpart of ``repro.parallel.sharding`` (``_PARAM_RULES`` :26-44,
                     split along V into contiguous rank-ordered ranges
   replicated        the norms (ln1, ln2, final_norm, q_norm, k_norm) and
                     the router
+  rwkv6             by whole heads (``Split.chan``, the rank's heads' hd
+                    columns): w_r, w_k, w_v, w_g and the channel-mix's
+                    w_r_cm by columns, w0, u, ln_x and the decay LoRA's
+                    wB by channel, w_o by rows (an all-reduce follows);
+                    the channel-mix's w_k_cm by its d_ff columns, w_v_cm
+                    by those rows; wA and the mu_* mixing coefficients
+                    replicated (they read the full-width input)
+  rg-lru            by whole gate blocks (``Split.chan``: the rank's
+                    blocks of lru_width / n_heads channels, the blocks
+                    its q heads number): w_x, w_gate_in by columns,
+                    conv_w, conv_b, b_a, b_i, lam by channel, the block
+                    stacks w_a / w_i (nb, bw, bw) by block, the block's
+                    w_out by rows (an all-reduce follows)
 
 A leaf's rule follows its path, not its name alone: under ``moe`` (and
 not under ``shared``) the expert stacks, whose names are the dense MLP's,
 split along E; ``moe/shared/*`` splits like ``mlp/*``, at the shared
-expert's width.  Every rank routes every token over all E experts with
-the global capacity (``local_config`` keeps ``cfg.moe`` whole), computes
-its own experts' kept slots and its part of the shared expert, and one
-all-reduce sums the ranks' shares -- the dense MLP's bytes.
+expert's width; ``rec/w_out`` splits by the lru channels and
+``mlp/w_out`` by the MLP's.  Every rank routes every token over all E
+experts with the global capacity (``local_config`` keeps ``cfg.moe``
+whole), computes its own experts' kept slots and its part of the shared
+expert, and one all-reduce sums the ranks' shares -- the dense MLP's
+bytes.
+
+The recurrent states split as their weights: an RG-LRU layer's ``conv``
+and ``h`` hold the rank's lru channels, an RWKV6 layer's ``wkv`` its
+heads, and the token shifts ``shift1`` / ``shift2`` stay full width (the
+same values on every rank).  The RWKV6 channel-mix ``sigmoid(xr @ w_r_cm)
+* kv`` needs the whole ``kv = sum_ranks (kk * kk) @ w_v_cm[rows]``
+before its product, so it runs all-reduce ``kv``, take the rank's
+columns, multiply by the rank's ``sigmoid(r)`` columns, all-gather the
+product (``models.rwkv6.rwkv_channel_mix``).
 
 Heads are split WHOLE.  The q heads must divide by the world size.  The
 kv heads are split when they divide too; otherwise every rank keeps a
 copy of the kv heads its q heads read (each rank's q heads must then
-read one kv head, or whole kv groups), and its paged pool holds those.
-The reference's GSPMD rule divides columns instead, which at smoke size
+read one kv head, or whole kv groups), and its paged pool holds those:
+recurrentgemma-2b's one MQA kv head is copied to every rank.  The
+reference's GSPMD rule divides columns instead, which at smoke size
 and tp 4 cuts ``wk`` (64, 32) into half heads; the whole-head rule gives
-the same tokens (``tests/test_torch_tp.py``).
+the same tokens (``tests/test_torch_tp.py``).  The vocabulary must divide
+too: the sharded head cuts V into equal slices, as the reference's
+``shard_map`` with ``P(None, 'model')`` on W does, so internvl2-26b
+(V 92,553 = 3 x 30,851) is served at tp 1 only, in both packages.
 
 The reference's fallback to the training layout for a model that does
 not fit once sharded (``serve_param_specs`` :116-139) is not ported:
@@ -38,23 +66,33 @@ not fit once sharded (``serve_param_specs`` :116-139) is not ported:
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, Optional, Tuple
 
 from repro_torch.configs.base import ModelConfig
 
 _COL = ("wq", "wk", "wv", "w_gate", "w_up", "w_in")
 _ROW = ("wo", "w_out")
+# rwkv6 leaves cut along their last axis to the rank's channels, and
+# w_o along its rows
+_RWKV_CHAN = ("w_r", "w_k", "w_v", "w_g", "w_r_cm", "w0", "u", "ln_x", "wB")
+# an rg-lru block's leaves cut along their last axis to the rank's lru
+# channels (w_a / w_i by block, w_out by rows)
+_REC_CHAN = ("w_x", "w_gate_in", "conv_w", "conv_b", "b_a", "b_i", "lam")
+FAMILIES = ("dense", "vlm", "moe", "hybrid", "ssm")
 
 
 @dataclasses.dataclass(frozen=True)
 class Split:
     """One rank's cut of a model: half-open ranges of q heads, kv heads,
-    MLP columns and vocabulary ids, and, for the moe family, of experts
-    and of the shared expert's columns; ``trunk`` False keeps the trunk
-    whole (only the head's vocabulary is split).  ``group``, the
-    ranks the cut is shared over, rides along once the split is the
+    MLP columns and vocabulary ids, for the moe family of experts and of
+    the shared expert's columns, and for the recurrent families of
+    ``chan``, the recurrent layers' channels (an RG-LRU block's lru
+    channels, an RWKV6 layer's heads' hd columns); ``trunk`` False keeps
+    the trunk whole (only the head's vocabulary is split).  ``group``,
+    the ranks the cut is shared over, rides along once the split is the
     rank's (``local_config`` puts it on the rank's cfg as ``cfg.shard``,
-    where ``lm`` and the samplers read it)."""
+    where ``lm``, the recurrent blocks and the samplers read it)."""
 
     rank: int
     world: int
@@ -65,58 +103,76 @@ class Split:
     vocab: Tuple[int, int]
     experts: Tuple[int, int] = (0, 0)
     fe: Tuple[int, int] = (0, 0)
+    chan: Tuple[int, int] = (0, 0)
     group: Any = dataclasses.field(default=None, compare=False, repr=False)
 
 
-def _even(n: int, world: int, rank: int, what: str) -> Tuple[int, int]:
+def _even(n: int, world: int, rank: int, what: str,
+          why: str = "") -> Tuple[int, int]:
     if n % world:
         raise ValueError(f"{what}={n} does not divide by the world size "
-                         f"{world}")
+                         f"{world}{why}")
     per = n // world
     return rank * per, (rank + 1) * per
+
+
+def _chan_width(cfg: ModelConfig) -> int:
+    """The recurrent layers' width: lru_width (RG-LRU), D (RWKV6), 0."""
+    if cfg.family == "hybrid":
+        return cfg.lru_width or cfg.d_model
+    return cfg.d_model if cfg.family == "ssm" else 0
 
 
 def plan(cfg: ModelConfig, rank: int, world: int, *, trunk: bool = True,
          max_bytes_per_rank: Optional[float] = None, group=None) -> Split:
     """Rank ``rank``'s share of ``cfg`` among ``world`` ranks (of
     ``group``, where there is one).  Raises
-    ``ValueError`` where the q heads, the MLP width, the experts, the
-    shared expert's width or the vocabulary do not divide by ``world``,
-    where a rank's q heads would read part of a kv group, or where a
-    rank's compute-dtype weights exceed ``max_bytes_per_rank``."""
-    if cfg.family not in ("dense", "moe"):
+    ``ValueError`` where the q heads (an RWKV6 config's time-mix heads;
+    a hybrid config's, which number its RG-LRU gate blocks too), the MLP
+    width, the experts, the shared expert's width or the vocabulary do
+    not divide by ``world``, where a rank's q heads would read part of a
+    kv group, or where a rank's compute-dtype weights exceed
+    ``max_bytes_per_rank``; ``NotImplementedError`` for the encdec
+    family, which the engine does not serve."""
+    if cfg.family not in FAMILIES:
         raise NotImplementedError(
-            f"family {cfg.family!r}: tensor parallelism covers the dense "
-            "and moe families")
+            f"family {cfg.family!r}: tensor parallelism covers the "
+            f"{', '.join(FAMILIES)} families (the engine serves no "
+            "encoder-decoder config)")
     if not 0 <= rank < world:
         raise ValueError(f"rank {rank} outside a world of {world}")
-    vocab = _even(cfg.vocab_size, world, rank, "vocab_size")
+    vocab = _even(cfg.vocab_size, world, rank, "vocab_size",
+                  ": the sharded head cuts V into equal slices (the "
+                  "reference's shard_map with P(None, 'model') on W "
+                  "refuses it too)")
     m = cfg.moe
+    width = _chan_width(cfg)
     if not trunk:
         return Split(rank, world, False, (0, cfg.n_heads),
                      (0, cfg.n_kv_heads), (0, cfg.d_ff), vocab,
                      (0, m.num_experts) if m else (0, 0),
-                     (0, m.d_ff_expert) if m else (0, 0), group)
-    q = _even(cfg.n_heads, world, rank, "n_heads")
-    per_kv = cfg.n_heads // cfg.n_kv_heads        # q heads per kv head
-    if cfg.n_kv_heads % world == 0:
-        kv = _even(cfg.n_kv_heads, world, rank, "n_kv_heads")
+                     (0, m.d_ff_expert) if m else (0, 0), (0, width), group)
+    if cfg.family == "ssm":
+        # an RWKV6 layer's time-mix heads, rwkv_head_size channels each
+        heads = cfg.d_model // cfg.rwkv_head_size
+        q = kv = _even(heads, world, rank, "rwkv heads (d_model / "
+                       "rwkv_head_size)")
     else:
-        # a copy of the kv heads this rank's q heads read: valid when
-        # they read one kv head, or whole kv groups
-        kv = (q[0] // per_kv, (q[1] - 1) // per_kv + 1)
-        whole = q[0] % per_kv == 0 and (q[1] - q[0]) % per_kv == 0
-        if not (whole or kv[1] - kv[0] == 1):
-            raise ValueError(
-                f"n_heads={cfg.n_heads}, n_kv_heads={cfg.n_kv_heads} at "
-                f"world {world}: rank {rank}'s q heads {q} read part of a "
-                "kv group; whole heads cannot be split so")
+        heads, why = cfg.n_heads, ""
+        if cfg.family == "hybrid":
+            why = (f": whole heads a rank, and the RG-LRU's {heads} gate "
+                   f"blocks of {width // heads} channels with them")
+        q = _even(heads, world, rank, "n_heads", why)
+        kv = _kv_range(cfg, q, world, rank)
+    per = width // heads                  # channels a head (or block)
+    chan = (q[0] * per, q[1] * per)
     ff = _even(cfg.d_ff, world, rank, "d_ff")
     experts = fe = (0, 0)
     if m is not None:
         experts = _even(m.num_experts, world, rank, "num_experts")
         fe = _even(m.d_ff_expert, world, rank, "d_ff_expert")
-    split = Split(rank, world, True, q, kv, ff, vocab, experts, fe, group)
+    split = Split(rank, world, True, q, kv, ff, vocab, experts, fe, chan,
+                  group)
     if max_bytes_per_rank is not None:
         need = rank_param_count(cfg, split) * (
             2 if cfg.dtype == "bfloat16" else 4)
@@ -128,46 +184,85 @@ def plan(cfg: ModelConfig, rank: int, world: int, *, trunk: bool = True,
     return split
 
 
+def _kv_range(cfg: ModelConfig, q: Tuple[int, int], world: int,
+              rank: int) -> Tuple[int, int]:
+    """The kv heads rank ``rank`` holds for its q heads ``q``: its even
+    range where they divide by ``world``, else a copy of the kv heads
+    its q heads read -- valid when they read one kv head, or whole kv
+    groups."""
+    if cfg.n_kv_heads % world == 0:
+        return _even(cfg.n_kv_heads, world, rank, "n_kv_heads")
+    per_kv = cfg.n_heads // cfg.n_kv_heads        # q heads per kv head
+    kv = (q[0] // per_kv, (q[1] - 1) // per_kv + 1)
+    whole = q[0] % per_kv == 0 and (q[1] - q[0]) % per_kv == 0
+    if not (whole or kv[1] - kv[0] == 1):
+        raise ValueError(
+            f"n_heads={cfg.n_heads}, n_kv_heads={cfg.n_kv_heads} at "
+            f"world {world}: rank {rank}'s q heads {q} read part of a "
+            "kv group; whole heads cannot be split so")
+    return kv
+
+
 def local_config(cfg: ModelConfig, split: Split) -> ModelConfig:
-    """The rank's view of ``cfg``: its q heads, kv heads and MLP width
-    (what the layers, the caches and the pools are built at), and
-    ``shard`` the split itself; ``vocab_size`` stays whole, the rank's
-    ids are ``split.vocab``, and ``moe`` stays whole too: the router's E
-    columns and the capacity ``ceil(cf * N * k / E)`` are over all the
-    experts (a rank that shrank E would drop other tokens), the rank's
-    experts are ``split.experts``."""
+    """The rank's view of ``cfg``: its q heads, kv heads and MLP width,
+    a hybrid config's ``lru_width`` its lru channels (``n_heads`` then
+    numbers its gate blocks too), and ``shard`` the split itself, where
+    an RWKV6 layer reads its heads (``models.rwkv6.width``; ``d_model``
+    stays the residual width); what the layers, the caches, the
+    recurrent states and the pools are built at.  ``vocab_size`` stays
+    whole, the rank's ids are ``split.vocab``, and ``moe`` stays whole
+    too: the router's E columns and the capacity ``ceil(cf * N * k /
+    E)`` are over all the experts (a rank that shrank E would drop other
+    tokens), the rank's experts are ``split.experts``."""
     if not split.trunk:
         return dataclasses.replace(cfg, shard=split)
-    return dataclasses.replace(cfg, n_heads=split.q[1] - split.q[0],
-                               n_kv_heads=split.kv[1] - split.kv[0],
-                               d_ff=split.ff[1] - split.ff[0], shard=split)
+    kw = dict(n_heads=split.q[1] - split.q[0],
+              n_kv_heads=split.kv[1] - split.kv[0],
+              d_ff=split.ff[1] - split.ff[0], shard=split)
+    if cfg.family == "hybrid":
+        kw["lru_width"] = split.chan[1] - split.chan[0]
+    return dataclasses.replace(cfg, **kw)
+
+
+def _size(shapes: dict) -> int:
+    return sum(math.prod(shape) for shape, _ in shapes.values())
 
 
 def rank_param_count(cfg: ModelConfig, split: Split) -> int:
-    """Parameters a rank holds under ``split``: per layer its attention
-    heads and norms, then a dense layer's MLP columns, or a ``moe``
-    layer's router, its experts (always three (d, Fe) matrices, as the
-    reference's ``init_moe``) and its shared-expert columns."""
+    """Parameters a rank holds under ``split``: per layer, by its kind,
+    an attention layer's heads and norms and then its MLP columns, a
+    ``moe`` layer's router, its experts (always three (d, Fe) matrices,
+    as the reference's ``init_moe``) and its shared-expert columns, a
+    ``rec`` layer's RG-LRU block at the rank's lru channels
+    (``rglru.layer_shapes`` of the rank's view) with its norm and MLP
+    columns, an ``rwkv`` layer's leaves at the rank's heads
+    (``rwkv6.layer_shapes`` of the rank's view); then the vocabulary
+    slice and the final norm."""
+    from repro_torch.models import lm, rglru, rwkv6
+
+    local = local_config(cfg, split)
     hd, d = cfg.head_dim, cfg.d_model
     nq, nkv = split.q[1] - split.q[0], split.kv[1] - split.kv[0]
     nf, nv = split.ff[1] - split.ff[0], split.vocab[1] - split.vocab[0]
     mats = 3 if cfg.activation.endswith("_glu") else 2
     attn = 2 * d * nq * hd + 2 * d * nkv * hd + 2 * d \
         + (2 * hd if cfg.qk_norm else 0)
-    n_moe = 0
-    per_moe = 0
+    mlp = mats * d * nf
+    per = {"attn": attn + mlp}
     m = cfg.moe
     if m is not None:
-        n_moe = cfg.n_layers // m.interleave_step
         ne = split.experts[1] - split.experts[0]
         nfe = split.fe[1] - split.fe[0]
-        per_moe = d * m.num_experts + ne * 3 * d * m.d_ff_expert \
+        per["moe"] = attn + d * m.num_experts + ne * 3 * d * m.d_ff_expert \
             + (mats * d * nfe if m.shared_expert else 0)
+    if cfg.family == "hybrid":
+        per["rec"] = _size(rglru.layer_shapes(local, 1)) + d + mlp
+    if cfg.family == "ssm":
+        per["rwkv"] = _size(rwkv6.layer_shapes(local, 1))
     heads = (1 if cfg.tie_embeddings else 2) * nv * d
     if not split.trunk:
         heads = (1 if cfg.tie_embeddings else 2) * cfg.vocab_size * d
-    return cfg.n_layers * attn + (cfg.n_layers - n_moe) * mats * d * nf \
-        + n_moe * per_moe + heads + d
+    return sum(per[k] for k in lm.layer_types(cfg)) + heads + d
 
 
 def _cols(x, lo: int, hi: int):
@@ -182,7 +277,10 @@ def shard_leaf(path: tuple, x, cfg: ModelConfig, split: Split):
     """Rank ``split.rank``'s slice of the leaf at ``path`` (a numpy array or
     a torch tensor; a view).  The rule follows the path: a ``moe`` layer's
     expert stacks split along their expert axis, its shared expert like a
-    dense MLP at its own width, its router not at all."""
+    dense MLP at its own width, its router not at all; a ``rec`` block's
+    leaves by its lru channels (``w_a`` / ``w_i`` by gate block, its
+    ``w_out`` by rows), an ``rwkv`` layer's by its heads' channels (the
+    channel-mix's ``w_k_cm`` / ``w_v_cm`` by the MLP's)."""
     key = path[-1]
     hd = cfg.head_dim
     if split.trunk and "moe" in path:
@@ -197,8 +295,26 @@ def shard_leaf(path: tuple, x, cfg: ModelConfig, split: Split):
         return x[split.vocab[0]:split.vocab[1]] if split.trunk else x
     if key == "lm_head":
         return _cols(x, *split.vocab) if split.trunk else x
-    if not split.trunk or key not in _COL + _ROW:
-        return x                                   # norms: replicated
+    if not split.trunk:
+        return x
+    if "rec" in path:
+        if key in _REC_CHAN:
+            return _cols(x, *split.chan)
+        if key in ("w_a", "w_i"):                  # (..., nb, bw, bw)
+            return x[..., split.q[0]:split.q[1], :, :]
+        if key == "w_out":
+            return _rows(x, *split.chan)
+        return x                                   # the block's norm
+    if key in _RWKV_CHAN:
+        return _cols(x, *split.chan)
+    if key == "w_o":
+        return _rows(x, *split.chan)
+    if key == "w_k_cm":
+        return _cols(x, *split.ff)
+    if key == "w_v_cm":
+        return _rows(x, *split.ff)
+    if key not in _COL + _ROW:
+        return x          # norms, rwkv6's mu_* and wA: replicated
     if key == "wq":
         return _cols(x, split.q[0] * hd, split.q[1] * hd)
     if key in ("wk", "wv"):

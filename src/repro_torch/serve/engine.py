@@ -130,9 +130,13 @@ process model, decided once:
     this same engine over its Megatron slice of the weights
     (``weights.shard_params``: heads whole, column-parallel QKV and
     up/gate, row-parallel ``wo``/``w_out`` each followed by an
-    all-reduce, the vocabulary split along V) and its kv-head slice of
-    the paged pools (``sharding.local_config``; ``self.cfg`` is the
-    rank's view, the vocabulary whole).  Every rank runs the same host
+    all-reduce, the vocabulary split along V; a ``rec`` layer's RG-LRU
+    gate blocks and an ``rwkv`` layer's heads whole too) and its
+    kv-head slice of the paged pools, or its channels of the per-slot
+    recurrent states (``sharding.local_config``; ``self.cfg`` is the
+    rank's view, the vocabulary whole).  Every served family splits so:
+    dense, vlm, moe, hybrid and ssm; a hybrid or ssm engine stays
+    unpaged and not ``spec_capable`` under tp, as it is unsharded.  Every rank runs the same host
     scheduler and steps together.  The comparator heads run on the
     rank's vocabulary slice and one all-gather of (val, idx) tables picks
     the winner (``core.reduced_softmax``), so ``reduced``/``fused`` are

@@ -274,7 +274,8 @@ def detached(tree):
 def shard_params(tree, cfg: ModelConfig, split: sharding.Split) -> dict:
     """The rank's slice of the whole tree under ``split``
     (``sharding.plan``: column/row-parallel trunk by whole heads, the
-    vocabulary split along V, norms replicated; a split with ``trunk``
+    recurrent layers by their channels, the vocabulary split along V,
+    norms replicated; a split with ``trunk``
     False cuts nothing, the head's vocabulary range is taken from the
     whole tied embedding by ``lm.lm_head_weight``).  ``tree`` is the
     bridged numpy tree or host tensors from ``seeded_params``: the slice is

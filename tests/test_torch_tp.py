@@ -71,14 +71,15 @@ BYTES_SHAPE = dict(b=8, d=64, v=4096, k=4)
 # its copy with an exact tie between vocabulary ids 10 and 200 (tie.pkl);
 # head inputs: heads.npz.
 RANK_SCRIPT = textwrap.dedent(r'''
-    import json, pickle, sys, threading, time, traceback, urllib.error
-    import urllib.request
+    import functools, json, pickle, sys, threading, time, traceback
+    import urllib.error, urllib.request
     import numpy as np
     import torch
     from repro_torch import weights
     from repro_torch.configs import get_config, smoke_config
     from repro_torch.core import reduced_softmax as rs
-    from repro_torch.parallel import comm
+    from repro_torch.models import lm
+    from repro_torch.parallel import comm, sharding
     from repro_torch.serve.api import LLM
     from repro_torch.serve import step_graph
     from repro_torch.serve.engine import Request, ServeEngine
@@ -96,17 +97,23 @@ RANK_SCRIPT = textwrap.dedent(r'''
             return weights.from_numpy_params(pickle.load(f), cfg, "cpu")
     params, tie = tree("jtree.pkl"), tree("tie.pkl")
     inputs = dict(np.load(f"{d}/heads.npz"))
-    moe_cfgs = {a: smoke_config(get_config(a)) for a in (
-        "phi3.5-moe-42b-a6.6b", "llama4-maverick-400b-a17b")}
+    arch_cfgs = {a: smoke_config(get_config(a)) for a in (
+        "phi3.5-moe-42b-a6.6b", "llama4-maverick-400b-a17b", "rwkv6-7b",
+        "recurrentgemma-2b", "internvl2-26b")}
     out = {}
 
-    def scenario(fn):
+    def scenario(fn, name=None):
+        name = name or fn.__name__
         try:
-            out[fn.__name__] = fn()
+            out[name] = fn()
         except Exception as e:
-            out[fn.__name__] = {"error": f"{type(e).__name__}: {e}",
-                                "trace": traceback.format_exc()[-2000:]}
+            out[name] = {"error": f"{type(e).__name__}: {e}",
+                         "trace": traceback.format_exc()[-2000:]}
         return fn
+
+    def arch_tree(arch):
+        with open(f"{d}/{arch}.pkl", "rb") as f:
+            return pickle.load(f)
 
     def serve(spec_k=0, host_stride=None, **kw):
         # the body of tests/test_tp_serving.py:280-324
@@ -140,12 +147,13 @@ RANK_SCRIPT = textwrap.dedent(r'''
     def base():
         return serve()
 
-    def serve_moe(arch):
-        # the bridged MoE tree, every rank its experts, the serve()
-        # prompts and samplers without chunking (it falls back for moe)
-        mcfg = moe_cfgs[arch]
-        with open(f"{d}/{arch}.pkl", "rb") as f:
-            mparams = weights.from_numpy_params(pickle.load(f), mcfg, "cpu")
+    def serve_arch(arch):
+        # the bridged tree of another family, every rank its slice (a
+        # moe layer's experts, a recurrent layer's channels), greedy rows
+        # and one TopK row, no chunking (it falls back where it must)
+        mcfg = arch_cfgs[arch]
+        mparams = weights.from_numpy_params(arch_tree(arch), mcfg, "cpu")
+        b0 = dict(g.bytes)
         eng = ServeEngine(mparams, mcfg, n_slots=3, max_len=48, seed=7,
                           eos_id=-1, tp=world, group=g)
         reqs = []
@@ -156,19 +164,34 @@ RANK_SCRIPT = textwrap.dedent(r'''
             reqs.append(Request(rid=r, prompt=p, params=sp))
             eng.submit(reqs[-1])
         eng.run(max_iters=200)
-        return {"tokens": [list(r.generated) for r in reqs],
-                "tp": eng.tp, "head_mode": eng.head_mode,
-                "experts": list(eng.cfg.shard.experts),
-                "num_experts": eng.cfg.moe.num_experts,
-                "held": int(eng.params["decoder"][0][
-                    "slot0" if mcfg.moe.interleave_step == 1 else "slot1"][
-                    "moe"]["w_gate"].shape[1]),
-                "paged": eng.store.any_paged,
-                "bytes": dict(g.bytes)}
+        res = {"tokens": [list(r.generated) for r in reqs],
+               "tp": eng.tp, "head_mode": eng.head_mode,
+               "paged": eng.store.any_paged,
+               "spec_capable": eng.spec_capable, "bytes": {
+                   k: n - b0.get(k, 0) for k, n in g.bytes.items()}}
+        if mcfg.moe is not None:
+            res.update(experts=list(eng.cfg.shard.experts),
+                       num_experts=eng.cfg.moe.num_experts,
+                       held=int(eng.params["decoder"][0][
+                           "slot0" if mcfg.moe.interleave_step == 1
+                           else "slot1"]["moe"]["w_gate"].shape[1]))
+            return res
+        # the rank's recurrent channels and its state's width
+        res["chan"] = list(eng.cfg.shard.chan)
+        slot = eng.store.denses[0]["slot0"] if not eng.store.any_paged \
+            else None
+        if mcfg.family == "ssm":
+            res["state"] = list(slot["wkv"].shape)
+        elif mcfg.family == "hybrid":
+            res["state"] = list(slot["rec"]["h"].shape)
+        return res
 
     @scenario
     def moe_phi():
-        return serve_moe("phi3.5-moe-42b-a6.6b")
+        return serve_arch("phi3.5-moe-42b-a6.6b")
+
+    for arch in ("rwkv6-7b", "recurrentgemma-2b", "internvl2-26b"):
+        scenario(functools.partial(serve_arch, arch), f"family_{arch}")
 
     @scenario
     def spec():
@@ -297,7 +320,26 @@ RANK_SCRIPT = textwrap.dedent(r'''
     if world == 2:
         @scenario
         def moe_llama4():
-            return serve_moe("llama4-maverick-400b-a17b")
+            return serve_arch("llama4-maverick-400b-a17b")
+
+        @scenario
+        def vlm_prefix():
+            # lm.prefill with the image prefix on the rank's slice of the
+            # bridged internvl2 smoke tree (vlm.npz: tokens and images)
+            vcfg = arch_cfgs["internvl2-26b"]
+            split = sharding.plan(vcfg, rank, world, group=g)
+            local = sharding.local_config(vcfg, split)
+            vp = weights.shard_params(weights.from_numpy_params(
+                arch_tree("internvl2-26b"), vcfg, "cpu"), vcfg, split)
+            vp = weights.cast_params(vp, local)
+            v = np.load(f"{d}/vlm.npz")
+            toks = torch.from_numpy(v["tokens"]).long()
+            img = torch.from_numpy(v["image"])
+            h, _ = lm.prefill(vp, local, toks, 32, image_embeds=img)
+            plain, _ = lm.prefill(vp, local, toks, 32)
+            return {"h": h.tolist(), "plain": plain.tolist(),
+                    "argmax": torch.argmax(lm.logits_fn(vp, local, h),
+                                           -1).tolist()}
 
         @scenario
         def http():
@@ -532,16 +574,18 @@ def _jax_serve(params, spec_k=0, host_stride=None, **kw):
 
 
 MOE_ARCHS = ("phi3.5-moe-42b-a6.6b", "llama4-maverick-400b-a17b")
+# the recurrent and vlm families under tp, at smoke size
+FAMILY_ARCHS = ("rwkv6-7b", "recurrentgemma-2b", "internvl2-26b")
 
 
-def _jax_moe(arch, params):
-    """The rank script's ``serve_moe`` on the JAX engine, unsharded, on
-    its dense layout (the reference's byte-identity oracle, which its
-    paged layout departs from behind a capacity-dropping layer:
-    ``tests/test_torch_moe.py``)."""
+def _jax_arch(arch, params):
+    """The rank script's ``serve_arch`` on the JAX engine, unsharded; a
+    moe config on its dense layout (the reference's byte-identity
+    oracle, which its paged layout departs from behind a
+    capacity-dropping layer: ``tests/test_torch_moe.py``)."""
     cfg = j_smoke(J_ARCHS[arch])
     eng = JEngine(params, cfg, n_slots=3, max_len=48, seed=7, eos_id=-1,
-                  kv_layout="dense")
+                  kv_layout="dense" if cfg.moe is not None else "paged")
     reqs = []
     for r, n in enumerate((5, 9, 13, 4)):
         p = (np.arange(2, 2 + n, dtype=np.int32) * 7) % cfg.vocab_size
@@ -603,6 +647,30 @@ def _jax_llm(params):
             "http": list(http.token_ids)}
 
 
+def _vlm_inputs():
+    """The image-prefix prefill's operands: 16 token ids and 8 stub image
+    embeddings (D 64) for each of 2 rows, numpy seed 12."""
+    rng = np.random.default_rng(12)
+    cfg = j_smoke(J_ARCHS["internvl2-26b"])
+    return {"tokens": rng.integers(0, cfg.vocab_size, size=(2, 16))
+            .astype(np.int32),
+            "image": rng.standard_normal(
+                (2, cfg.num_image_tokens, cfg.d_model)).astype(np.float32)}
+
+
+def _jax_vlm_prefix(params):
+    """JAX ``lm.prefill`` with the image prefix: the last hidden state
+    and the argmax of its logits."""
+    cfg = j_smoke(J_ARCHS["internvl2-26b"])
+    v = _vlm_inputs()
+    h, _ = jlm.prefill(params, cfg, {"tokens": jnp.asarray(v["tokens"]),
+                                     "image_embeds": jnp.asarray(v["image"])},
+                       32)
+    return {"h": np.asarray(h),
+            "argmax": np.asarray(jnp.argmax(jlm.logits_fn(
+                jlm.cast_params(params, cfg), cfg, h), -1)).tolist()}
+
+
 def _head_inputs():
     """numpy-seeded head operands: h (8, 64) rows near one direction m,
     W (64, 256) whose ids 10 and 200 are both m -- an exact tie that wins
@@ -656,12 +724,13 @@ def runs(tmp_path_factory):
     heads = _head_inputs()
     np.savez(d / "heads.npz", **heads)
     np.savez(d / "psum.npz", **_psum_inputs())
-    moe = {}
-    for arch in MOE_ARCHS:
-        moe[arch] = jlm.init_params(j_smoke(J_ARCHS[arch]),
-                                    jax.random.PRNGKey(0))
+    np.savez(d / "vlm.npz", **_vlm_inputs())
+    arch_params = {}
+    for arch in MOE_ARCHS + FAMILY_ARCHS:
+        arch_params[arch] = jlm.init_params(j_smoke(J_ARCHS[arch]),
+                                            jax.random.PRNGKey(0))
         with open(d / f"{arch}.pkl", "wb") as f:
-            pickle.dump(jax.tree.map(np.asarray, moe[arch]), f)
+            pickle.dump(jax.tree.map(np.asarray, arch_params[arch]), f)
     procs = {world: _spawn(world, d) for world in (2, 4)}
     jtie = dict(jparams, embed=jnp.asarray(tie["embed"]))
     want = {"base": _jax_serve(jparams), "spec": _jax_serve(jparams, 4),
@@ -670,7 +739,8 @@ def runs(tmp_path_factory):
             "dense": _jax_serve(jparams, kv_layout="dense",
                                 chunk_size=None),
             "preempt": _jax_preempt(jparams), "tie": _jax_tie(jtie),
-            **{a: _jax_moe(a, p) for a, p in moe.items()}}
+            **{a: _jax_arch(a, p) for a, p in arch_params.items()},
+            "vlm_prefix": _jax_vlm_prefix(arch_params["internvl2-26b"])}
     got = {world: _wait(p, world, d) for world, p in procs.items()}
     return got, want, heads
 
@@ -682,38 +752,132 @@ def _ok(res: dict, name: str):
 
 
 # -- the split ---------------------------------------------------------------
+# the axis each split leaf is cut along (the rest are replicated); rows of
+# a row-parallel weight, columns of a column-parallel one, channels of a
+# per-channel leaf, gate blocks of the RG-LRU's block stacks
+SPLIT_AXIS = {"embed": 0, "lm_head": -1, "wq": -1, "wk": -1, "wv": -1,
+              "wo": -2, "w_gate": -1, "w_up": -1, "w_in": -1, "w_out": -2,
+              "w_r": -1, "w_k": -1, "w_v": -1, "w_g": -1, "w_r_cm": -1,
+              "w0": -1, "u": -1, "ln_x": -1, "wB": -1, "w_o": -2,
+              "w_k_cm": -1, "w_v_cm": -2, "w_x": -1, "w_gate_in": -1,
+              "conv_w": -1, "conv_b": -1, "b_a": -1, "b_i": -1, "lam": -1,
+              "w_a": -3, "w_i": -3}
+
+
+def _named_leaves(tree) -> list:
+    """(key names, leaf) of every leaf of a numpy tree, in order."""
+    out = []
+    for path, leaf in jax.tree_util.tree_leaves_with_path(tree):
+        out.append((tuple(str(getattr(e, "key", getattr(e, "idx", e)))
+                          for e in path), leaf))
+    return out
+
+
+def _bridged(arch, seed=1):
+    """(JAX smoke config, port smoke config, numpy tree) of ``arch``."""
+    jcfg, tcfg = j_smoke(J_ARCHS[arch]), smoke_config(get_config(arch))
+    return jcfg, tcfg, jax.tree.map(
+        np.asarray, jlm.init_params(jcfg, jax.random.PRNGKey(seed)))
+
+
 @pytest.mark.parametrize("world", [2, 4])
-def test_split_slices_concatenate_to_the_whole(world):
-    """shard_params' slices put back together along each rule's axis are
-    the whole tree: columns (wq, wk, wv by kv head where they divide, the
-    MLP's in-columns), rows (wo, w_out), the vocabulary (embed); norms
-    replicated."""
-    tree = jax.tree.map(np.asarray,
-                        jlm.init_params(JCFG, jax.random.PRNGKey(1)))
-    parts = [shard_params(tree, TCFG, sharding.plan(TCFG, r, world))
-             for r in range(world)]
-    layer = tree["decoder"][0]["slot0"]
-    lp = [p["decoder"][0]["slot0"] for p in parts]
-    np.testing.assert_array_equal(
-        np.concatenate([p["embed"] for p in parts]), tree["embed"])
-    for key in ("wq", "wk", "wv"):
-        cat = np.concatenate([p["attn"][key] for p in lp], axis=-1)
-        if key != "wq" and world > TCFG.n_kv_heads:
-            continue                       # copies, checked below
-        np.testing.assert_array_equal(cat, layer["attn"][key])
-    np.testing.assert_array_equal(
-        np.concatenate([p["attn"]["wo"] for p in lp], axis=-2),
-        layer["attn"]["wo"])
-    for key, axis in (("w_gate", -1), ("w_up", -1), ("w_out", -2)):
-        np.testing.assert_array_equal(
-            np.concatenate([p["mlp"][key] for p in lp], axis=axis),
-            layer["mlp"][key])
-    for p in lp:
-        for key in ("ln1", "ln2"):
-            np.testing.assert_array_equal(p[key], layer[key])
-        np.testing.assert_array_equal(p["attn"]["q_norm"],
-                                      layer["attn"]["q_norm"])
-        assert p["attn"]["wq"].flags.c_contiguous
+@pytest.mark.parametrize("arch", ("qwen3-0.6b",) + FAMILY_ARCHS)
+def test_split_slices_concatenate_to_the_whole(arch, world):
+    """shard_params' slices put back together along each rule's axis
+    (``SPLIT_AXIS``) are the whole tree: columns (wq; wk, wv by kv head
+    where they divide, else each rank a copy of the kv head its q heads
+    read; the MLP's in-columns; rwkv6's r/k/v/g, w_r_cm and per-channel
+    leaves; the RG-LRU's projections, conv and gates by channel), rows
+    (wo, w_out, rwkv6's w_o and w_v_cm), gate blocks (w_a, w_i), the
+    vocabulary (embed, an untied lm_head); every other leaf (norms,
+    rwkv6's mu_* and wA) replicated; every slice contiguous."""
+    _, tcfg, tree = _bridged(arch)
+    hd = tcfg.head_dim
+    splits = [sharding.plan(tcfg, r, world) for r in range(world)]
+    parts = [_named_leaves(shard_params(tree, tcfg, sp)) for sp in splits]
+    for i, (names, whole) in enumerate(_named_leaves(tree)):
+        mine = [p[i][1] for p in parts]
+        key = names[-1]
+        assert all(m.flags.c_contiguous for m in mine), names
+        if key in ("wk", "wv") and tcfg.n_kv_heads % world:
+            for sp, m in zip(splits, mine):       # copies of whole heads
+                np.testing.assert_array_equal(
+                    m, whole[..., sp.kv[0] * hd:sp.kv[1] * hd])
+            continue
+        if key not in SPLIT_AXIS:
+            for m in mine:
+                np.testing.assert_array_equal(m, whole)
+            continue
+        axis = SPLIT_AXIS[key]
+        assert mine[0].shape[axis] * world == whole.shape[axis], names
+        np.testing.assert_array_equal(np.concatenate(mine, axis=axis), whole)
+
+
+@pytest.mark.parametrize("arch", ("qwen3-0.6b",) + FAMILY_ARCHS)
+def test_rank_param_count_is_what_shard_params_holds(arch):
+    """``rank_param_count`` (the engine's memory check on the card) counts
+    what ``shard_params`` keeps, on every rank at tp 2 and 4 of the smoke
+    tree; and, at full width, what ``shard_leaf`` keeps of each leaf of
+    ``param_shapes`` (zero-stride views, nothing allocated) wherever the
+    config splits: rwkv6-7b at tp 2 / 4, recurrentgemma-2b at tp 2,
+    qwen3-0.6b at tp 2 / 4."""
+    from repro_torch.tree import map_tree
+    from repro_torch.weights import param_shapes
+
+    _, tcfg, tree = _bridged(arch)
+    for world in (2, 4):
+        for r in range(world):
+            sp = sharding.plan(tcfg, r, world)
+            held = sum(a.size for a in jax.tree.leaves(
+                shard_params(tree, tcfg, sp)))
+            assert sharding.rank_param_count(tcfg, sp) == held, (world, r)
+    full = get_config(arch)
+    shapes = map_tree(lambda _, s: np.broadcast_to(np.float32(0), s[0]),
+                      param_shapes(full))
+    worlds = {"recurrentgemma-2b": (2,), "internvl2-26b": ()}.get(
+        arch, (2, 4))
+    for world in worlds:
+        for r in (0, world - 1):
+            sp = sharding.plan(full, r, world)
+            kept = map_tree(lambda path, x: sharding.shard_leaf(
+                path, x, full, sp), shapes)
+            held = sum(a.size for a in jax.tree.leaves(kept))
+            assert sharding.rank_param_count(full, sp) == held, (world, r)
+
+
+def test_plan_names_why_a_config_does_not_split():
+    """recurrentgemma-2b splits at tp 2 (5 q heads over a copy of its one
+    kv head, 5 gate blocks of 256 lru channels) and not at tp 4, whose
+    10 / 4 heads are not whole; internvl2-26b's vocabulary (92,553 = 3 x
+    30,851) divides by neither 2 nor 4, so neither package serves it
+    under tp (the reference's sharded head, a shard_map over V, refuses
+    it too); rwkv6-7b splits its 64 heads of 64 at tp 2 and 4; the
+    encdec family, which the engine does not serve, is refused."""
+    rg = get_config("recurrentgemma-2b")
+    sp = sharding.plan(rg, 1, 2)
+    assert (sp.q, sp.kv, sp.chan) == ((5, 10), (0, 1), (1280, 2560))
+    local = sharding.local_config(rg, sp)
+    assert (local.n_heads, local.n_kv_heads, local.lru_width,
+            local.d_ff) == (5, 1, 1280, 3840)
+    with pytest.raises(ValueError, match=r"n_heads=10 does not divide by "
+                       r"the world size 4: whole heads a rank, and the "
+                       r"RG-LRU's 10 gate blocks"):
+        sharding.plan(rg, 0, 4)
+    vl = get_config("internvl2-26b")
+    for world in (2, 4):
+        with pytest.raises(ValueError, match=r"vocab_size=92553 does not "
+                           rf"divide by the world size {world}: the sharded "
+                           "head cuts V into equal slices"):
+            sharding.plan(vl, 0, world)
+    rw = get_config("rwkv6-7b")
+    for world in (2, 4):
+        sp = sharding.plan(rw, world - 1, world)
+        per = 4096 // world
+        assert sp.chan == (4096 - per, 4096) and sp.q == (64 - 64 // world,
+                                                          64)
+        assert sharding.local_config(rw, sp).d_ff == 14336 // world
+    with pytest.raises(NotImplementedError, match="encoder-decoder"):
+        sharding.plan(get_config("seamless-m4t-large-v2"), 0, 2)
 
 
 def test_split_keeps_whole_heads_and_copies_kv_heads():
@@ -809,6 +973,51 @@ def test_tp_moe_matches_unsharded_jax(runs, world, arch, name):
         assert res["held"] == per and res["num_experts"] == 4
         assert res["tp"] == world and res["head_mode"] == "sharded"
         assert res["paged"] and res["bytes"]["trunk"] > 0
+
+
+@pytest.mark.parametrize("world", [2, 4])
+@pytest.mark.parametrize("arch", FAMILY_ARCHS)
+def test_tp_recurrent_and_vlm_families_match_unsharded_jax(runs, world,
+                                                           arch):
+    """rwkv6's, recurrentgemma-2b's and internvl2-26b's smoke configs at
+    tp 2 and tp 4 over gloo: greedy rows and a TopK row, on bridged f32
+    weights, are the unsharded JAX engine's tokens on every rank; the
+    head upgraded to 'sharded' and the trunk's collectives ran; a
+    recurrent rank holds its channels (rwkv6 4 / world heads of 16 in
+    its wkv state, the RG-LRU 64 / world lru channels in its h) on the
+    per-slot store and stays not ``spec_capable``, as unsharded; the vlm
+    engine pages and may speculate."""
+    got, want, _ = runs
+    for rank in range(world):
+        res = _ok(got[world][rank], f"family_{arch}")
+        assert res["tokens"] == want[arch], rank
+        assert res["tp"] == world and res["head_mode"] == "sharded"
+        assert res["bytes"]["trunk"] > 0 and res["bytes"]["head"] > 0
+        per = 64 // world
+        if arch == "rwkv6-7b":
+            assert res["chan"] == [rank * per, (rank + 1) * per]
+            assert res["state"][2:] == [4 // world, 16, 16]
+        elif arch == "recurrentgemma-2b":
+            assert res["chan"] == [rank * per, (rank + 1) * per]
+            assert res["state"][-1] == per
+        recurrent = arch != "internvl2-26b"
+        assert res["paged"] == res["spec_capable"] == (not recurrent)
+
+
+def test_tp_vlm_image_prefix_prefill_matches_jax(runs):
+    """``lm.prefill`` with internvl2's stub image embeddings at tp 2: the
+    token embeddings summed over the ranks, then the image embeddings in
+    the first 8 positions on every rank -- the last hidden state within
+    1e-4 of JAX's ``lm.prefill`` and its argmax exact, on both ranks;
+    without the images the state differs (the prefix was used)."""
+    got, want, _ = runs
+    ref = want["vlm_prefix"]
+    for rank in range(2):
+        res = _ok(got[2][rank], "vlm_prefix")
+        np.testing.assert_allclose(np.asarray(res["h"]), ref["h"],
+                                   atol=1e-4, rtol=1e-4)
+        assert res["argmax"] == ref["argmax"]
+        assert np.abs(np.asarray(res["plain"]) - ref["h"]).max() > 1e-2
 
 
 def test_moe_split_follows_the_path():
