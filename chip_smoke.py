@@ -195,7 +195,7 @@ Phases, each of which fails the run (non-zero exit, no result line):
      by ``LLM.from_arch(tp=W, dtype="float32")`` in each rank, all 28
      layers on 2 prompts, held to ``LLM.from_arch(dtype="float32")``
      here, whose tree is the host draw the ranks cut, leaf for leaf --,
-     then at 8 of the 28 layers (TP_LAYERS): f32 greedy, mixed samplers,
+     then at 4 of the 28 layers (TP_LAYERS): f32 greedy, mixed samplers,
      spec_k 4 (drafts accepted), host_stride 8 and chunk 64 with prefix
      sharing held to the unsharded engine's streams (near-tie rule),
      bf16 greedy measured against it and timed beside tp 1 (no claim:
@@ -230,7 +230,26 @@ Phases, each of which fails the run (non-zero exit, no result line):
      kind, each rank's channels and launches on its slice; and
      internvl2-26b's smoke config at tp 2, its tokens and its image
      prefix through ``lm.prefill`` (within 1e-4 of the unsharded prefill,
-     the sharded head's ids equal).
+     the sharded head's ids equal).  Then training on a (data, model)
+     mesh (``launch.steps.make_mesh``): in this process the mesh step's
+     kernels at its shapes (flash at a model rank's 8 q / 4 kv heads, B
+     4, T 1,024; the stats and softmax kernels on a (4,096, 75,968) f32
+     vocabulary slice; the cross-entropy kernel on a 2x1 rank's (2,048,
+     151,936) rows; two slices' merged stats against the row's
+     logsumexp, bitwise on repeat) and the 1x1 f32 run of qwen3-0.6b at
+     full width, 4 of its 28 layers, B 4 x S 1,024, lr 1e-3, 3 steps;
+     then in the same rank processes meshes 1x2 and 2x1 (world 2) and 2x2
+     (world 4): f32 each step's loss and grad_norm and the first step's
+     gradients gathered to the whole layout held to the 1x1 run's, bf16
+     timed with each step's collective bytes by kind (checked exactly:
+     22 all-reduces of rows x 1,024 bf16 for the trunk, embedding and
+     head under a model split, every leaf of the rank's slice in f32
+     for the data group's gradient sum), its kernel launches (flash 8,
+     the stats kernel on the rank's vocabulary slice, the softmax kernel
+     in its backward, the cross-entropy kernel at 2x1) and each rank's
+     peak; the 2x2 run's whole checkpoint resumed at 1x1 here, its next
+     loss the uninterrupted 2x2 step's; ``pipeline_apply`` over the 4
+     ranks against its stages in sequence.
   4l. the hybrid RG-LRU family: flash attention at
      recurrentgemma-2b's prefill (T 2,150, 10 query heads over 1 KV head,
      hd 256, window 2,048; the ``mma.sync`` kernel, from a profiler
@@ -4470,7 +4489,7 @@ TP_WORLDS = (2, 4)
 # qwen3-0.6b's depth in phase 4k's runs (of 28: each layer is two
 # host-staged gloo all-reduces a step); the entry point's own run keeps
 # all 28 on TP_ENTRY_PROMPTS prompts at TP_ENTRY_NEW tokens
-TP_LAYERS = 8
+TP_LAYERS = 4
 TP_ENTRY_PROMPTS = 2
 TP_ENTRY_NEW = 8
 # each rank process, waited on by the parent (every collective of a
@@ -4856,6 +4875,7 @@ def tp_rank_main(rank: int, world: int, d: str) -> int:
                                           prompts["main"], max_new)
             out["moe_f32"] = tp_moe_run(torch, g, rank)
         out["families"] = tp_family_runs(torch, g, rank, world)
+        out["mesh_train"] = tp_train_runs(torch, g, rank, world, d)
         out["ok"] = True
         g.close()
     except Exception as e:                    # reported by the parent
@@ -5581,6 +5601,520 @@ def check_tp_families(torch, res, world, refs) -> dict:
     return summary
 
 
+# ---------------------------------------------------------------------------
+# Phase 4k, training on a (data, model) mesh: qwen3-0.6b at full
+# width, its ranks the tp ranks' processes
+# ---------------------------------------------------------------------------
+MESH_LAYERS = 4             # of qwen3-0.6b's 28
+MESH_B, MESH_S = 4, 1024    # the global batch
+MESH_STEPS = 3
+MESH_SEED = 0               # the host tree every rank cuts its slice from
+MESH_LR = 1e-3              # phase 4o's (TRAIN_LR)
+MESH_RUNS = {2: ((1, 2), (2, 1)), 4: ((2, 2),)}
+MESH_CKPT_STEP = 2          # the 2x2 f32 run writes its whole state here
+# f32 held to the 1x1 f32 run on the same seed: each step's loss and
+# grad_norm within MESH_RTOL of it, the first step's gradients leaf by
+# leaf within MESH_GRAD_TOL in norm (||g - g_1x1|| / ||g_1x1||); the
+# split sums the same terms in other orders (a K cut of the row-parallel
+# GEMMs, gloo's f32 sums, the merged softmax stats), a missing or
+# doubled all-reduce is off by a whole part
+MESH_RTOL = 1e-4
+MESH_GRAD_TOL = 1e-4
+MESH_PIPE = (4, 64, 1024)   # pipeline_apply: microbatches, rows, width
+MESH_PIPE_TOL = 1e-5        # f32: a (16, W) GEMM against a (64, W) one
+
+
+def mesh_config(dtype: str):
+    """qwen3-0.6b at full width, MESH_LAYERS layers, remat as configured
+    (``"dots"``: each layer recomputed in the backward)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    return dataclasses.replace(get_config("qwen3-0.6b"),
+                               n_layers=MESH_LAYERS, dtype=dtype)
+
+
+def mesh_opt():
+    from repro_torch.optim import optimizer as opt_mod
+
+    return opt_mod.AdamWConfig(lr=MESH_LR, warmup_steps=10, total_steps=10,
+                               clip_norm=1.0)
+
+
+def mesh_pipe(cfg, device, data=1, d=0):
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.data.pipeline import DataConfig, TokenPipeline
+
+    return TokenPipeline(DataConfig(seed=0, vocab_size=cfg.vocab_size), cfg,
+                         ShapeSpec("mesh", MESH_S, MESH_B, "train"), device,
+                         data=data, d=d)
+
+
+def mesh_bytes(mesh) -> dict:
+    """The bytes a rank's data and model groups have moved, by kind."""
+    out = {}
+    for grp in (mesh.data, mesh.model):
+        for k, n in (grp.bytes if grp is not None else {}).items():
+            out[k] = out.get(k, 0) + n
+    return out
+
+
+def mesh_launches_want(torch, D, M) -> dict:
+    """A bf16 mesh step's kernel launches on a rank: flash twice a layer
+    (remat), and the loss: under a split vocabulary the stats kernel on
+    the rank's (rows, V / M) f32 slice once and the softmax kernel in its
+    backward (whose two-launch route runs the stats kernel once more);
+    at M 1 the cross-entropy kernel and its backward's softmax kernel."""
+    from repro_torch.kernels import online_softmax as osm
+
+    cfg = mesh_config("bfloat16")
+    rows, v = MESH_B // D * MESH_S, cfg.vocab_size // M
+    two = osm.unit_plan(torch.float32, rows, v, osm.device_resident_blocks(
+        0, torch.float32)).route == osm.TWO_LAUNCH
+    return {"flash_attention": 2 * MESH_LAYERS,
+            "softmax_stats": int(M > 1) + int(two),
+            "online_softmax": 1, "fused_xent": int(M == 1),
+            "paged_attention": 0, "fused_argmax_head": 0,
+            "fused_topk_head": 0, "fused_verify_head": 0}
+
+
+def check_mesh_kernels(torch, timer) -> dict:
+    """Phase 4k (mesh): the mesh step's kernels alone at its shapes, each
+    against its plain version and timed beside its bound and one library
+    call: flash attention at a model rank's heads (B 4, T 1,024, 8 q / 4
+    kv heads of 128, bf16, causal; row 5j; SDPA), the stats and softmax
+    kernels on a rank's (4,096, 75,968) f32 vocabulary slice (rows 7c /
+    8b; ``torch.logsumexp``, ``torch.softmax``), the cross-entropy kernel
+    on a 2x1 rank's (2,048, 151,936) f32 logits (row 6c;
+    ``F.cross_entropy``); then the vocabulary-parallel loss's forward
+    composed by hand from two slices' stats (``api.merge_stats``) against
+    the whole row's logsumexp, bitwise on repeat."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import fused_xent as fx
+    from repro_torch.kernels import online_softmax as osm
+    from repro_torch.kernels import ref
+    from repro_torch.models import api
+
+    rows = {}
+    gen = torch.Generator(device="cuda").manual_seed(41)
+    b, t, hq, hkv, hd = MESH_B, MESH_S, 8, 4, 128
+
+    def rand(heads):
+        return torch.randn((b, t, heads, hd), generator=gen,
+                           device="cuda").to(torch.bfloat16).transpose(1, 2)
+
+    q, k, v = rand(hq), rand(hkv), rand(hkv)
+    out = fa.flash_attention(q, k, v, causal=True)
+    want = ref.flash_attention(q, k, v, causal=True)
+    err = (out.float() - want.float()).abs().max().item()
+    ok = torch.allclose(out.float(), want.float(), atol=FA_TOL, rtol=FA_TOL)
+    print(f"phase 4k (mesh) flash_attention B {b} T {t} 8 q / 4 kv heads "
+          f"bf16 causal: max_abs_err {err:.6g} vs plain (atol = rtol = "
+          f"{FA_TOL}): {'ok' if ok else 'FAIL'}", flush=True)
+    check(ok, "flash attention at a model rank's heads disagrees with its "
+          "plain version")
+    pairs = b * t * (t + 1) // 2
+    nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+    rows["flash_t1024_b4_h8"] = kernel_row(
+        timer, lambda: fa.flash_attention(q, k, v, causal=True),
+        lambda: ref.flash_attention(q, k, v, causal=True),
+        lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                               enable_gqa=True),
+        nbytes, 4 * hd * hq * pairs, err)
+    model_line("phase 4k (mesh) row 5j, a model rank's heads",
+               "flash_attention", rows["flash_t1024_b4_h8"], "sdpa")
+    del q, k, v, out, want
+
+    full_v = 151936
+    x = torch.randn((MESH_B * MESH_S, full_v), generator=gen,
+                    device="cuda") * 4
+    xs = x[:, :full_v // 2].contiguous()     # a 1x2 rank's slice
+    n, el = xs.numel(), xs.element_size()
+    m, l = osm.softmax_stats(xs)
+    rm, rl = ref.softmax_stats(xs)
+    p, rp = osm.online_softmax(xs), ref.online_softmax(xs)
+    errs = {"softmax_stats": max((m - rm).abs().max().item(),
+                                 (l - rl).abs().max().item()),
+            "online_softmax": (p - rp).abs().max().item()}
+    ok = (torch.allclose(m, rm, rtol=UNIT_RTOL, atol=UNIT_ATOL)
+          and torch.allclose(l, rl, rtol=UNIT_RTOL, atol=UNIT_ATOL)
+          and torch.allclose(p, rp, rtol=UNIT_RTOL, atol=UNIT_ATOL))
+    print(f"phase 4k (mesh) stats / softmax on a (4096, 75968) f32 slice: "
+          f"max_abs_err {errs['softmax_stats']:.6g} / "
+          f"{errs['online_softmax']:.6g} (rtol {UNIT_RTOL}, atol "
+          f"{UNIT_ATOL}): {'ok' if ok else 'FAIL'}; online_softmax route "
+          f"{osm.plan_of(xs).route}", flush=True)
+    check(ok, "the stats or softmax kernel on a vocabulary slice disagrees "
+          "with its plain version")
+    del p, rp
+    for name, kern, plain_fn, lib_fn, nb, fl in (
+            ("softmax_stats", lambda: osm.softmax_stats(xs),
+             lambda: ref.softmax_stats(xs),
+             lambda: torch.logsumexp(xs, dim=-1), n * el + 8 * xs.shape[0],
+             4 * n),
+            ("online_softmax", lambda: osm.online_softmax(xs),
+             lambda: ref.online_softmax(xs),
+             lambda: torch.softmax(xs, dim=-1), n * el + 4 * n, 6 * n)):
+        kern_t, plain_ms = timer.readings(kern), timer(plain_fn)
+        lib_t = timer.readings(lib_fn, "library_")
+        bound_ms, bound_by = bound(nb, fl, F32_FLOPS_PER_S)
+        rows[f"{name}_slice_f32"] = dict(
+            max_abs_err=errs[name], **kern_t, plain_ms=plain_ms,
+            bound_ms=bound_ms, bound_by=bound_by, **lib_t)
+        print(f"phase 4k (mesh) {name} (4096, 75968) f32: kernel "
+              f"{shown(kern_t)}, plain {plain_ms:.4f} ms, library "
+              f"{shown(lib_t, 'library_')}, bound {bound_ms:.4f} ms "
+              f"({bound_by})", flush=True)
+
+    # the vocabulary-parallel forward by hand: two slices' kernel stats,
+    # merged, against the whole row's logsumexp; twice, bitwise
+    halves = [x[:, :full_v // 2].contiguous(), x[:, full_v // 2:].contiguous()]
+    lse = [api.merge_stats(torch.stack([torch.stack(osm.softmax_stats(h), 1)
+                                        for h in halves])) for _ in range(2)]
+    want = torch.logsumexp(x.double(), dim=-1).float()
+    lse_err = (lse[0] - want).abs().max().item()
+    same = torch.equal(lse[0], lse[1])
+    print(f"phase 4k (mesh) merged stats of two slices vs the whole row's "
+          f"logsumexp: max_abs_err {lse_err:.6g} (limit 1e-5 of ~12); "
+          f"bitwise on repeat: {same}", flush=True)
+    check(lse_err <= 1e-5 and same, "the merged slice stats disagree with "
+          "the row's logsumexp, or differ on repeat")
+    rows["merge_lse_err"] = lse_err
+    del xs, halves, m, l, rm, rl
+
+    # the cross-entropy kernel at a 2x1 rank's rows (M 1)
+    xr = x[:MESH_B // 2 * MESH_S].contiguous()
+    lab = torch.randint(0, full_v, (xr.shape[0],), generator=gen,
+                        device="cuda")
+    loss, rloss = fx.fused_xent(xr, lab), ref.fused_xent(xr, lab)
+    xerr = (loss - rloss).abs().max().item()
+    ok = torch.allclose(loss, rloss, rtol=UNIT_RTOL, atol=XENT_ATOL)
+    check(ok, "the cross-entropy kernel at a 2x1 rank's rows disagrees with "
+          "its plain version")
+    n = xr.numel()
+    kern_t, plain_ms = timer.readings(lambda: fx.fused_xent(xr, lab)), \
+        timer(lambda: ref.fused_xent(xr, lab))
+    lib_t = timer.readings(lambda: F.cross_entropy(xr, lab,
+                                                   reduction="none"),
+                           "library_")
+    bound_ms, bound_by = bound(n * 4 + 12 * xr.shape[0], 4 * n,
+                               F32_FLOPS_PER_S)
+    rows["fused_xent_rows2048_f32"] = dict(
+        max_abs_err=xerr, **kern_t, plain_ms=plain_ms, bound_ms=bound_ms,
+        bound_by=bound_by, **lib_t)
+    print(f"phase 4k (mesh) fused_xent (2048, 151936) f32: kernel "
+          f"{shown(kern_t)}, plain {plain_ms:.4f} ms, library "
+          f"{shown(lib_t, 'library_')}, bound {bound_ms:.4f} ms "
+          f"({bound_by}); max_abs_err {xerr:.6g}", flush=True)
+    del x, xr, lab, loss, rloss
+    torch.cuda.empty_cache()
+    return rows
+
+
+def mesh_reference(torch, d, device="cuda") -> dict:
+    """Phase 4k (mesh), in the parent before the ranks start: the 1x1 f32
+    run on the card on the same seed -- the first step's gradients,
+    each leaf saved under ``<d>/mesh_ref/`` for the ranks to hold theirs
+    to, and MESH_STEPS AdamW steps' losses and grad_norms."""
+    from repro_torch import tree as tree_mod
+    from repro_torch.launch import steps as steps_mod
+    from repro_torch.optim import optimizer as opt_mod
+    from repro_torch.weights import seeded_params
+
+    t0 = time.perf_counter()
+    cfg = mesh_config("float32")
+    params = seeded_params(cfg, MESH_SEED, device)
+    pipe = mesh_pipe(cfg, device)
+    loss, grads = steps_mod.loss_and_grads(params, cfg, pipe.batch(0))
+    ref_dir = os.path.join(d, "mesh_ref")
+    os.makedirs(ref_dir)
+    for path, g in tree_mod.items(grads):
+        np.save(os.path.join(ref_dir, tree_mod.key(path).replace("/", ".")
+                             + ".npy"), g.cpu().numpy())
+    del grads
+    opt = mesh_opt()
+    state = {"params": params, "opt": opt_mod.init_state(opt, params)}
+    step = steps_mod.make_train_step(cfg, opt)
+    losses, norms = [], []
+    for s in range(MESH_STEPS):
+        state, m = step(state, pipe.batch(s))
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+    del state, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"phase 4k (mesh) 1x1 f32 reference, qwen3-0.6b full width "
+          f"{MESH_LAYERS} layers, B {MESH_B} x S {MESH_S}: losses "
+          + ", ".join(f"{x:.6f}" for x in losses) + "; grad_norm "
+          + ", ".join(f"{x:.6f}" for x in norms)
+          + f"; {time.perf_counter() - t0:.1f} s", flush=True)
+    return {"losses": losses, "norms": norms, "loss0": float(loss)}
+
+
+def tp_train_runs(torch, g, rank, world, d) -> dict:
+    """Phase 4k (mesh), in a rank process: each mesh of MESH_RUNS[world]
+    over the rank's group (``launch.steps.make_mesh``), the host tree
+    drawn from MESH_SEED whole and cut to the rank's slice.  f32: the
+    first step's gradients gathered to the whole layout (rank 0 holds
+    each leaf to the 1x1 run's), then MESH_STEPS AdamW steps (at 2x2 the
+    whole state checkpointed after MESH_CKPT_STEP of them, by rank 0).
+    bf16 (timed): MESH_STEPS steps, each one's ms, collective bytes by
+    kind and kernel launches (the counts set to 0 just before the run),
+    the rank's peak memory.  At world 4 then ``pipeline_apply`` over the
+    4 ranks against the stages in sequence."""
+    import dataclasses
+
+    from repro_torch import tree as tree_mod
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.launch import steps as steps_mod
+    from repro_torch.launch import train as train_mod
+    from repro_torch.optim import optimizer as opt_mod
+    from repro_torch.parallel import sharding
+    from repro_torch.parallel.pipeline import pipeline_apply
+    from repro_torch.weights import seeded_params
+
+    t0 = time.perf_counter()
+    f32, bf = mesh_config("float32"), mesh_config("bfloat16")
+    host = seeded_params(f32, MESH_SEED, "cpu")
+    opt = mesh_opt()
+    out = {}
+
+    def own(tree):
+        # the rank's own copy on its device (a slice may be a view of the
+        # host tree, which the in-place update must never reach)
+        return tree_mod.map_tree(lambda _, t: t.to(g.device, copy=True),
+                                 tree)
+
+    for D, M in MESH_RUNS[world]:
+        tag = f"{D}x{M}"
+        t1 = time.perf_counter()
+        mesh = steps_mod.make_mesh(f32, g, D, M)
+        pipe = mesh_pipe(f32, g.device, D, mesh.plan.d)
+        batches = [pipe.batch(s) for s in range(MESH_STEPS)]
+        res = {"d": mesh.plan.d, "m": mesh.plan.m,
+               "data_ranks": list(mesh.data.ranks) if mesh.data else None,
+               "model_ranks": list(mesh.model.ranks) if mesh.model
+               else None}
+        p = own(mesh.shard(host))
+        _, grads = steps_mod.loss_and_grads(p, mesh.cfg, batches[0], mesh)
+        whole = mesh.gather(grads)
+        del grads
+        if rank == 0:
+            errs = {}
+            for path, gw in tree_mod.items(whole):
+                key = tree_mod.key(path)
+                want = torch.from_numpy(np.load(os.path.join(
+                    d, "mesh_ref", key.replace("/", ".") + ".npy"))).to(
+                        g.device)
+                check(tuple(gw.shape) == tuple(want.shape),
+                      f"mesh {tag}: gathered {key} {tuple(gw.shape)}")
+                errs[key] = ((gw - want).norm() / want.norm().clamp_min(
+                    1e-30)).item()
+            res["grad_rel_err"] = errs
+        del whole
+        state = {"params": p, "opt": opt_mod.init_state(opt, p)}
+        step = steps_mod.make_train_step(mesh.cfg, opt, mesh)
+        losses, norms = [], []
+        for s in range(MESH_STEPS):
+            if tag == "2x2" and s == MESH_CKPT_STEP:
+                t2 = time.perf_counter()
+                train_mod.save_state(CheckpointManager(
+                    os.path.join(d, "mesh_ckpt")), s, state, mesh)
+                g.agree(s, "the mesh checkpoint written")
+                res["ckpt_s"] = time.perf_counter() - t2
+            state, m = step(state, batches[s])
+            losses.append(float(m["loss"]))
+            norms.append(float(m["grad_norm"]))
+        res.update(f32_losses=losses, f32_norms=norms)
+        del state, p, step
+        gc.collect()
+        torch.cuda.empty_cache()
+        # bf16, timed: the same groups, the rank's bf16 view
+        bmesh = dataclasses.replace(
+            mesh, full=bf, cfg=bf if mesh.split is None
+            else sharding.local_config(bf, mesh.split))
+        p = own(mesh.shard(host))
+        state = {"params": p, "opt": opt_mod.init_state(opt, p)}
+        step = steps_mod.make_train_step(bmesh.cfg, opt, bmesh)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        run = {"losses": [], "norms": [], "ms": [], "bytes": [],
+               "launches": []}
+        reset_launches()
+        for s in range(MESH_STEPS):
+            b0, l0 = mesh_bytes(bmesh), read_launches()
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            state, m = step(state, batches[s])
+            loss = float(m["loss"])
+            torch.cuda.synchronize()
+            run["ms"].append(1e3 * (time.perf_counter() - t2))
+            run["losses"].append(loss)
+            run["norms"].append(float(m["grad_norm"]))
+            after = mesh_bytes(bmesh)
+            run["bytes"].append({k: n - b0.get(k, 0) for k, n in
+                                 after.items() if n - b0.get(k, 0)})
+            la = read_launches()
+            run["launches"].append({k: la[k] - l0[k] for k in la})
+        run["total_launches"] = read_launches()
+        run["peak_bytes"] = torch.cuda.max_memory_allocated()
+        res["bf16"] = run
+        res["seconds"] = time.perf_counter() - t1
+        del state, p, step
+        gc.collect()
+        torch.cuda.empty_cache()
+        out[tag] = res
+    if world == 4:
+        micro, n_rows, w = MESH_PIPE
+        gen = torch.Generator().manual_seed(23)
+        ws = (torch.randn((world, w, w), generator=gen) / w ** 0.5).to(
+            g.device)
+        bs = (torch.randn((world, w), generator=gen) * 0.1).to(g.device)
+        x = torch.randn((n_rows, w), generator=gen).to(g.device)
+        y = pipeline_apply(lambda sp, h: torch.tanh(h @ sp[0] + sp[1]),
+                           (ws[rank], bs[rank]), x, g, n_microbatches=micro)
+        h = x
+        for s in range(world):
+            h = torch.tanh(h @ ws[s] + bs[s])
+        out["pipeline_err"] = (y - h).abs().max().item()
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def check_mesh_train(torch, res, world, ref, d, device="cuda") -> dict:
+    """Phase 4k (mesh) as the ranks wrote it: each mesh's f32 losses and
+    grad_norms within MESH_RTOL of the 1x1 run's, its first-step
+    gradients leaf by leaf within MESH_GRAD_TOL, every rank's the same;
+    the bf16 run's bytes by kind exactly as predicted (under a model
+    split 5 trunk all-reduces a layer, the embedding's and the head
+    input gradient's, each rows x 1,024 bf16: 22 a step; the data
+    group's gradient sum every leaf of the rank's slice in f32), its
+    launches a step as ``mesh_launches_want`` says on every rank, its
+    ms a step and each rank's peak printed; at 2x2 the
+    checkpoint restored into a 1x1 run here, whose next step's loss is
+    the uninterrupted 2x2 run's; at world 4 ``pipeline_apply`` within
+    MESH_PIPE_TOL of the stages in sequence."""
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.launch import steps as steps_mod
+    from repro_torch.parallel import sharding
+
+    f32, bf = mesh_config("float32"), mesh_config("bfloat16")
+    summary = {}
+    for D, M in MESH_RUNS[world]:
+        tag = f"{D}x{M}"
+        runs = [r["mesh_train"][tag] for r in res]
+        r0 = runs[0]
+        what = f"phase 4k (mesh) {tag}"
+        for r in runs[1:]:
+            check(r["f32_losses"] == r0["f32_losses"]
+                  and r["f32_norms"] == r0["f32_norms"],
+                  f"{what}: rank losses or norms differ from rank 0's")
+        for i, (a, b) in enumerate(zip(r0["f32_losses"], ref["losses"])):
+            check(abs(a - b) <= MESH_RTOL * abs(b), f"{what} f32 step {i}: "
+                  f"loss {a!r} vs the 1x1 run's {b!r}")
+        for i, (a, b) in enumerate(zip(r0["f32_norms"], ref["norms"])):
+            check(abs(a - b) <= MESH_RTOL * abs(b), f"{what} f32 step {i}: "
+                  f"grad_norm {a!r} vs the 1x1 run's {b!r}")
+        worst_key = max(r0["grad_rel_err"], key=r0["grad_rel_err"].get)
+        worst = r0["grad_rel_err"][worst_key]
+        check(worst <= MESH_GRAD_TOL, f"{what}: gradient {worst_key} off the "
+              f"1x1 run's by {worst:.3g} of its norm")
+        gaps = [max(abs(a - b) / b for a, b in zip(r0[k], ref[r]))
+                for k, r in (("f32_losses", "losses"), ("f32_norms",
+                                                        "norms"))]
+        print(f"{what} f32: losses " + ", ".join(
+            f"{x:.6f}" for x in r0["f32_losses"]) + " (1x1 " + ", ".join(
+            f"{x:.6f}" for x in ref["losses"]) + f"); largest relative "
+            f"loss gap {gaps[0]:.3g}, grad_norm gap {gaps[1]:.3g}; "
+            f"first-step gradients: worst leaf {worst_key} at {worst:.3g} "
+            f"of its norm ({len(r0['grad_rel_err'])} leaves)", flush=True)
+        # bf16: bytes a step by kind, exactly
+        rows = MESH_B // D * MESH_S
+        split = sharding.plan(f32, 0, M) if M > 1 else None
+        leaves = sharding.rank_param_count(
+            f32, split or sharding.plan(f32, 0, 1))
+        want = {}
+        act = rows * bf.d_model * 2
+        if M > 1:
+            # a layer: the attention's and the MLP's all-reduce forward,
+            # the attention's again in the recompute (the checkpoint's
+            # recompute stops at the last tensor the backward saved, so
+            # the MLP's output is never summed twice), and the two
+            # column-parallel inputs' gradients backward
+            want.update(trunk=5 * MESH_LAYERS * act, embed=act, head=act)
+        if D > 1:
+            want["grad"] = 4 * leaves
+        for r in runs:
+            got = r["bf16"]["bytes"][-1]
+            for k, n in want.items():
+                check(got.get(k) == n, f"{what} bf16: {k} bytes a step "
+                      f"{got.get(k)} on rank {r['d'] * M + r['m']}, "
+                      f"predicted {n}")
+            lw = mesh_launches_want(torch, D, M)
+            for s, la in enumerate(r["bf16"]["launches"]):
+                for k, n in lw.items():
+                    check(la[k] == n, f"{what} bf16 step {s}: {k} launched "
+                          f"{la[k]} times, want {n}")
+            check(all(math.isfinite(x) for x in r["bf16"]["losses"]),
+                  f"{what} bf16: a loss is not finite")
+        b0 = r0["bf16"]
+        step_ms = sum(b0["ms"][1:]) / (MESH_STEPS - 1)
+        peaks = [r["bf16"]["peak_bytes"] / 1e9 for r in runs]
+        print(f"{what} bf16: {step_ms:.1f} ms a step (mean of steps 1-"
+              f"{MESH_STEPS - 1}; " + ", ".join(f"{x:.1f}" for x in b0["ms"])
+              + f"), {MESH_B * MESH_S / (step_ms / 1e3):.1f} tokens/s over "
+              f"{world} ranks on one card (gloo through the host); losses "
+              + ", ".join(f"{x:.4f}" for x in b0["losses"])
+              + f"; bytes a step {b0['bytes'][-1]} (predicted {want}); "
+              f"launches a step {b0['launches'][-1]}; peak per rank "
+              + ", ".join(f"{x:.3f}" for x in peaks) + " GB; "
+              f"{r0['seconds']:.1f} s for the mesh on rank 0", flush=True)
+        summary[tag] = dict(
+            f32_losses=r0["f32_losses"], f32_norms=r0["f32_norms"],
+            grad_worst=[worst_key, worst], bf16_ms=b0["ms"],
+            bf16_step_ms=step_ms, bf16_losses=b0["losses"],
+            bytes=b0["bytes"][-1], launches=b0["launches"][-1],
+            total_launches=b0["total_launches"], peak_gb=peaks,
+            seconds=r0["seconds"])
+        if tag == "2x2":
+            t0 = time.perf_counter()
+            opt = mesh_opt()
+            state = CheckpointManager(os.path.join(d, "mesh_ckpt")).restore(
+                MESH_CKPT_STEP, steps_mod.train_state_struct(f32, opt),
+                device=device)
+            step = steps_mod.make_train_step(f32, opt)
+            state, m = step(state, mesh_pipe(f32, device).batch(
+                MESH_CKPT_STEP))
+            resumed = float(m["loss"])
+            want_loss = r0["f32_losses"][MESH_CKPT_STEP]
+            print(f"{what}: its step-{MESH_CKPT_STEP} checkpoint (written "
+                  f"in {r0['ckpt_s']:.1f} s) resumed at 1x1: next loss "
+                  f"{resumed:.6f} vs the uninterrupted 2x2 step's "
+                  f"{want_loss:.6f} ({time.perf_counter() - t0:.1f} s)",
+                  flush=True)
+            check(abs(resumed - want_loss) <= MESH_RTOL * abs(want_loss),
+                  f"{what}: the checkpoint resumed at 1x1 gives loss "
+                  f"{resumed!r}, the 2x2 run {want_loss!r}")
+            summary[tag]["resumed_loss"] = resumed
+            del state, step
+            gc.collect()
+            torch.cuda.empty_cache()
+    if world == 4:
+        errs = [r["mesh_train"]["pipeline_err"] for r in res]
+        print(f"phase 4k (mesh) pipeline_apply over 4 ranks, "
+              f"{MESH_PIPE[0]} microbatches of {MESH_PIPE[1] // MESH_PIPE[0]}"
+              f" x {MESH_PIPE[2]}: max_abs_err vs the stages in sequence "
+              + ", ".join(f"{e:.3g}" for e in errs), flush=True)
+        check(max(errs) <= MESH_PIPE_TOL, "pipeline_apply disagrees with "
+              "its stages in sequence")
+        summary["pipeline_err"] = max(errs)
+    summary["rank_seconds"] = res[0]["mesh_train"]["seconds"]
+    return summary
+
+
 def run_tp_path(torch, max_new=32) -> dict:
     """Phase 4k: qwen3-0.6b at full width served by tp 2 and tp 4 ranks
     (``spawn_tp``) that share the one card over gloo.  The unsharded
@@ -5670,7 +6204,8 @@ def run_tp_path(torch, max_new=32) -> dict:
     d = os.path.join(ROOT, "build", "chip_smoke_tp")
     shutil.rmtree(d, ignore_errors=True)
     os.makedirs(d)
-    summary = {"timing": timing}
+    mesh_ref = mesh_reference(torch, d)
+    summary = {"timing": timing, "mesh_ref": mesh_ref}
     refs = {}                     # the families' unsharded runs
     for world in TP_WORLDS:
         t1 = time.perf_counter()
@@ -5741,6 +6276,12 @@ def run_tp_path(torch, max_new=32) -> dict:
         print(f"phase 4k tp {world}: the families' checks and unsharded "
               f"runs {time.perf_counter() - t2:.1f} s", flush=True)
         timing.update(plane.pop("timing"))
+        t2 = time.perf_counter()
+        plane["mesh"] = check_mesh_train(torch, res, world, mesh_ref, d)
+        print(f"phase 4k tp {world}: the mesh training checks "
+              f"{time.perf_counter() - t2:.1f} s here, "
+              f"{plane['mesh']['rank_seconds']:.1f} s in each rank",
+              flush=True)
         summary[f"tp{world}"] = dict(
             launches={n: r0[n]["launches"]
                       for n, *_ in tp_runs(max_new)},
@@ -8315,6 +8856,7 @@ def main() -> int:
         t_f = time.perf_counter()
         tp_fam = check_tp_family_kernels(torch, timer)
         summary["tp_family_kernels_s"] = time.perf_counter() - t_f
+        mesh_rows = check_mesh_kernels(torch, timer)
         del timer
         summary["tp"] = run_tp_path(torch, max_new)
         mark("phase 4k")
@@ -8383,6 +8925,12 @@ def main() -> int:
 
     fam2 = summary["tp"]["tp2"]["families"]
     fam4 = summary["tp"]["tp4"]["families"]
+
+    def mesh_launches(kernel):
+        """A kernel's launches in each mesh's bf16 run on rank 0."""
+        return {tag: summary["tp"][f"tp{w}"]["mesh"][tag]["total_launches"][
+            kernel] for w in TP_WORLDS for tag in (
+                f"{a}x{b}" for a, b in MESH_RUNS[w])}
 
     def fam_shards(model, kernel):
         return {str(v): {k: r[kernel][k] for k in TIMES + ("max_abs_err",)}
@@ -8588,6 +9136,7 @@ def main() -> int:
                  rg_rows["flash_t2150_g10_hd256"],
                  moe_rows["flash_t512_g4"],
                  train_rows["flash_t4096_b2_g2"],
+                 mesh_rows["flash_t1024_b4_h8"],
                  vlm_rows["flash_t768_g6"], tp_fam["flash_g5"],
                  *(ed_rows[k] for k in ("flash_enc_t1024",
                                         "flash_cross_t64_s1024",
@@ -8597,6 +9146,9 @@ def main() -> int:
                  "flash_attention"],
              train_t4096_b2_g2={k: train_rows["flash_t4096_b2_g2"][k]
                                 for k in TIMES + ("max_abs_err",)},
+             mesh_train_launches=mesh_launches("flash_attention"),
+             mesh_t1024_b4_h8={k: mesh_rows["flash_t1024_b4_h8"][k]
+                               for k in TIMES + ("max_abs_err",)},
              **{k: flash_rows["T512"][k] for k in TIMES},
              g8={k: flash_rows["T512_g8"][k] for k in TIMES},
              hd192={k: v for k, v in hd192_rows.items()
@@ -8654,6 +9206,10 @@ def main() -> int:
              **NO_LIBRARY,
              keyed_draw=summary["stride"]["keyed_draw"]),
     ]
+    # each unit kernel's row at the mesh step's shapes
+    mesh_key = {"fused_xent": "fused_xent_rows2048_f32",
+                "softmax_stats": "softmax_stats_slice_f32",
+                "online_softmax": "online_softmax_slice_f32"}
     for name, replaces in (
             ("fused_xent", "src/repro/kernels/fused_xent.py:59"),
             ("softmax_stats", "src/repro/kernels/online_softmax.py:69"),
@@ -8667,9 +9223,14 @@ def main() -> int:
             paper_launches=paper_launches[name],
             max_abs_err=max(unit_errs[name], many_errs[name],
                             train_rows[f"{name}_b8192_f32"]["max_abs_err"],
+                            mesh_rows[mesh_key[name]]["max_abs_err"],
                             *(unit_rows[(name, b)]["max_abs_err"]
                               for b in sizes)),
             train_launches=train_launches[name],
+            mesh_train_launches=mesh_launches(name),
+            **{f"mesh_{mesh_key[name]}": {
+                k: mesh_rows[mesh_key[name]][k]
+                for k in TIMES + ("max_abs_err",)}},
             train_b8192_f32={k: train_rows[f"{name}_b8192_f32"][k]
                              for k in TIMES + ("max_abs_err",)},
             **{k: unit_rows[(name, 12)][k] for k in TIMES},

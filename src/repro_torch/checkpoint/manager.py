@@ -24,6 +24,12 @@ back without ``ml_dtypes``.
   - with ``async_save`` ``save`` snapshots every leaf to host memory (a
     copy, never a view of a tensor a later step updates in place) and
     writes in a thread; ``wait()`` joins it.
+
+On a (data, model) mesh a checkpoint is still the whole layout: the
+train loop gathers the rank slices (``parallel.sharding.gather_tree``)
+and one rank writes (``launch.train.save_state``), so a run of any mesh,
+and the JAX package, reads it; ``restore(..., split=)`` reads each leaf
+through a memory map and keeps the rank's slice alone.
 """
 from __future__ import annotations
 
@@ -40,6 +46,7 @@ import numpy as np
 import torch
 
 from repro_torch import tree as tree_mod
+from repro_torch.parallel import sharding
 
 # the manifest's dtype of a bf16 leaf (numpy's name of ml_dtypes' type)
 _BF16 = "bfloat16"
@@ -74,15 +81,18 @@ def _save(path: Path, arr: np.ndarray, dtype: str) -> None:
         f.write(arr.tobytes())
 
 
-def _load(path: Path, ent: dict, device) -> torch.Tensor:
-    arr = np.array(np.load(path, allow_pickle=False), order="C")
+def _load(path: Path, ent: dict, device, cut=None) -> torch.Tensor:
+    """The leaf at ``path``; with ``cut`` (a view of the memory-mapped
+    whole array -> the rank's slice of it) only that slice is read."""
+    arr = np.load(path, allow_pickle=False, mmap_mode="r")
+    if tuple(arr.shape) != tuple(ent["shape"]):
+        raise IOError(f"{path}: shape {tuple(arr.shape)} != manifest "
+                      f"{ent['shape']}")
+    arr = np.array(arr if cut is None else cut(arr), order="C")
     if ent["dtype"] == _BF16:            # '|V2' words, without ml_dtypes
         t = torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
     else:
         t = torch.from_numpy(arr)
-    if tuple(t.shape) != tuple(ent["shape"]):
-        raise IOError(f"{path}: shape {tuple(t.shape)} != manifest "
-                      f"{ent['shape']}")
     return t if device is None else t.to(device)
 
 
@@ -158,12 +168,15 @@ class CheckpointManager:
         return steps[-1] if steps else None
 
     def restore(self, step: int, target_tree, device=None,
-                verify: bool = True):
+                verify: bool = True, *, cfg=None, split=None):
         """The checkpoint of ``step`` in the structure of ``target_tree``
         (e.g. ``launch.steps.train_state_struct``'s meta tree: only its
         structure is read), each leaf a tensor of the saved dtype on
         ``device`` (default the CPU).  A leaf whose bytes fail the
-        manifest's sha raises ``IOError``."""
+        manifest's sha raises ``IOError``.  With ``split`` (a
+        ``parallel.sharding.Split`` of ``cfg``) each leaf is the rank's
+        slice (``sharding.shard_leaf``), cut from a memory map of the
+        whole array before anything else is read or moved."""
         d = self.step_dir(step)
         manifest = json.loads((d / "manifest.json").read_text())["leaves"]
 
@@ -174,6 +187,10 @@ class CheckpointManager:
                 raw = (d / ent["file"]).read_bytes()
                 if hashlib.sha256(raw).hexdigest()[:16] != ent["sha"]:
                     raise IOError(f"checksum mismatch for {key} in {d}")
-            return _load(d / ent["file"], ent, device)
+            cut = None
+            if split is not None:
+                def cut(a, path=path):
+                    return sharding.shard_leaf(path, a, cfg, split)
+            return _load(d / ent["file"], ent, device, cut)
 
         return tree_mod.map_tree(leaf, target_tree)

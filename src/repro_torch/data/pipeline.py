@@ -7,9 +7,14 @@ alone.  Two sources: ``synthetic`` (``_hash_tokens``, a learnable
 Markov stream) and ``memmap`` (a tokenized uint16 ``.bin`` corpus,
 memory-mapped, strided access).
 
-There is no mesh: one process makes the whole global batch, rows
-``np.arange(B)``, and moves it to its device.  The ``encdec`` / ``vlm``
-families' frontend stubs (``_stub_embeds``) come with each batch.
+One process makes the whole global batch, rows ``np.arange(B)``, and
+moves it to its device -- or, on a mesh with a data axis of ``data``
+ranks, rank ``d`` of the data group makes its block of the global
+batch, rows ``[d * B / data, (d + 1) * B / data)``, the reference's
+batch sharding over ``data`` (``repro/data/pipeline.py:94-115``, each
+shard's rows ``np.arange(B)[idx[0]]``); ``B`` must divide by ``data``.
+The ``encdec`` / ``vlm`` families' frontend stubs (``_stub_embeds``)
+come with each batch, one block per shard as the reference draws them.
 """
 from __future__ import annotations
 
@@ -61,11 +66,18 @@ class TokenPipeline:
     """Global batches on ``device``, indexed by step."""
 
     def __init__(self, data_cfg: DataConfig, model_cfg: ModelConfig,
-                 shape: ShapeSpec, device="cpu"):
+                 shape: ShapeSpec, device="cpu", *, data: int = 1,
+                 d: int = 0):
+        B = shape.global_batch
+        if data < 1 or B % data or not 0 <= d < data:
+            raise ValueError(f"a global batch of {B} rows does not cut into "
+                             f"{data} data shards (shard {d})")
         self.dc = data_cfg
         self.mc = model_cfg
         self.shape = shape
         self.device = torch.device(device)
+        # this data shard's rows of every global batch
+        self.rows = np.arange(d * (B // data), (d + 1) * (B // data))
         self._mm = None
         if data_cfg.kind == "memmap":
             if not data_cfg.path:
@@ -91,9 +103,9 @@ class TokenPipeline:
         """``{"tokens", "labels"}``: (B, S) int32 each, the labels the
         tokens shifted by one; with ``"src_embeds"`` (B, S, D) under an
         encoder and ``"image_embeds"`` (B, num_image_tokens, D) under a
-        vlm config, in the compute dtype."""
-        B, S = self.shape.global_batch, self.shape.seq_len
-        data = self._host_rows(step, np.arange(B))
+        vlm config, in the compute dtype.  B is this shard's rows."""
+        B, S = len(self.rows), self.shape.seq_len
+        data = self._host_rows(step, self.rows)
         t = torch.from_numpy(data.astype(np.int32)).to(self.device)
         out = {"tokens": t[:, :-1], "labels": t[:, 1:]}
         if self.mc.n_encoder_layers:
@@ -104,7 +116,7 @@ class TokenPipeline:
         return out
 
     def _embeds(self, step: int, bn) -> torch.Tensor:
-        x = _stub_embeds(self.dc.seed, step, np.arange(bn[0]), bn[1],
+        x = _stub_embeds(self.dc.seed, step, self.rows, bn[1],
                          self.mc.d_model)
         return torch.from_numpy(x).to(self.device).to(
             getattr(torch, self.mc.dtype))
@@ -116,7 +128,7 @@ def _stub_embeds(seed: int, step: int, rows: np.ndarray, n: int,
     copy of the reference's ``TokenPipeline._stub_embeds``: standard
     normals from a numpy Philox keyed ``seed + 7`` at counter ``[0, 0,
     step, rows[0]]``, times 0.02.  The reference makes one such block per
-    shard of the batch; on one host the shard is every row."""
+    shard of the batch, ``rows`` the shard's."""
     rng = np.random.Generator(np.random.Philox(
         key=np.uint64(seed + 7),
         counter=[0, 0, np.uint64(step), np.uint64(int(rows[0]))]))

@@ -1,11 +1,30 @@
 """The train step and the train state's structure
-(``repro.launch.steps``' training half).
+(``repro.launch.steps``' training half), on one device or on a (data,
+model) mesh of ranks.
 
 The serve steps and the lowering helpers of the reference are XLA
 tooling: the port's serving steps are ``models.api``'s, and nothing is
 lowered.
+
+On a mesh (``TrainMesh``, ``make_mesh``) the reference's pjit over
+``train_specs`` becomes one process a rank over ``parallel.comm``
+groups: the model group runs the Megatron split forward and backward
+(``comm.copy_to_group`` / ``reduce_from_group`` in ``models.lm``, the
+vocabulary-parallel loss in ``models.api``), the data group holds
+replicas of the masters, each on its block of the batch's rows.  After
+the backward a rank's gradients are completed (``complete_grads``): the
+qk-norm scales' parts summed over the model group (kind ``"norm"``),
+then every leaf summed over the data group in f32 (kind ``"grad"``), leaf
+by leaf in the tree's order on every rank -- each rank's loss is its
+share of the global mean (``api.xent_loss``), so the sum is the mean's
+gradient, the reference's plain reduction over ``data`` (its loop never
+compresses it; ``optim.compression.compressed_psum`` stays unwired, as
+there).
 """
 from __future__ import annotations
+
+import dataclasses
+from typing import Optional
 
 import torch
 
@@ -14,33 +33,179 @@ from repro_torch import weights
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import api
 from repro_torch.optim import optimizer as opt_mod
+from repro_torch.parallel import comm, sharding
 
 
-def loss_and_grads(params, cfg: ModelConfig, batch: dict):
-    """(loss, grads): ``api.train_loss`` and its gradient in every leaf of
-    ``params`` (a tree of the f32 masters, which need not require grad:
-    the loss is taken on detached views of them, so the masters stay
-    plain tensors an optimizer updates in place and an engine serves).
-    A leaf the loss does not reach gets zeros, as ``jax.grad`` gives."""
+@dataclasses.dataclass
+class TrainMesh:
+    """One rank's place in a (data, model) mesh: its ``plan``
+    (``sharding.train_plan``), its data and model groups (None on an axis
+    of 1), the whole config ``full`` and the rank's view ``cfg``
+    (``sharding.local_config`` under a split model axis), and the
+    rank's ``device``."""
+
+    plan: sharding.TrainPlan
+    data: Optional[comm.Group]
+    model: Optional[comm.Group]
+    full: ModelConfig
+    cfg: ModelConfig
+    device: torch.device
+
+    @property
+    def split(self) -> Optional[sharding.Split]:
+        return self.plan.split
+
+    def shard(self, tree):
+        """The rank's slice of a whole tree (params or a train state)."""
+        if self.split is None:
+            return tree
+        return weights.shard_params(tree, self.full, self.split)
+
+    def gather(self, tree, kind: str = "gather"):
+        """A rank-split tree put back into the whole layout (collective
+        over the model group)."""
+        return sharding.gather_tree(tree, self.full, self.split, kind)
+
+    def split_leaf(self, path: tuple) -> bool:
+        return sharding.split_axis(path, self.full, self.split) is not None
+
+
+def parse_mesh(mesh: Optional[str]):
+    """``"DxM"`` -> (D, M); None -> (1, 1)."""
+    if mesh is None:
+        return 1, 1
+    try:
+        d, m = (int(x) for x in mesh.lower().split("x"))
+    except ValueError:
+        raise ValueError(f"--mesh {mesh!r}: expected DxM, e.g. 2x2") from None
+    if d < 1 or m < 1:
+        raise ValueError(f"--mesh {mesh!r}: both axes must be >= 1")
+    return d, m
+
+
+def make_mesh(cfg: ModelConfig, group: comm.Group, data: int,
+              model: int) -> TrainMesh:
+    """This rank's ``TrainMesh`` of ``data x model`` ranks over ``group``
+    (whose world must be ``data * model``): the groups
+    (``comm.mesh_groups``), then the plan.  Collective: every rank of
+    ``group`` calls it."""
+    if data * model != group.world:
+        raise ValueError(f"a mesh of {data}x{model} needs {data * model} "
+                         f"ranks; the world has {group.world}")
+    # refuse a config before any group is made
+    sharding.train_plan(cfg, group.rank, data, model)
+    dgroup, mgroup = comm.mesh_groups(group, data, model)
+    plan = sharding.train_plan(cfg, group.rank, data, model, group=mgroup)
+    local = cfg if plan.split is None else sharding.local_config(
+        cfg, plan.split)
+    return TrainMesh(plan, dgroup, mgroup, cfg, local, group.device)
+
+
+def rank_grads(params, cfg: ModelConfig, batch: dict, *, data=None):
+    """(loss, grads) of this rank alone: ``api.train_loss`` and its
+    gradient in every leaf of ``params`` (a tree of the f32 masters,
+    which need not require grad: the loss is taken on detached views of
+    them, so the masters stay plain tensors an optimizer updates in place
+    and an engine serves).  A leaf the loss does not reach gets zeros, as
+    ``jax.grad`` gives.  On a mesh ``cfg`` is the rank's view and
+    ``data`` its data group; the qk-norm scales' gradients are then this
+    rank's parts and the loss its share (``complete_grads``)."""
     live = [p.detach().requires_grad_(True) for p in tree_mod.leaves(params)]
-    loss = api.train_loss(tree_mod.unflatten(params, live), cfg, batch)
+    loss = api.train_loss(tree_mod.unflatten(params, live), cfg, batch,
+                          data=data)
     grads = torch.autograd.grad(loss, live, allow_unused=True)
     grads = [torch.zeros_like(p) if g is None else g
              for p, g in zip(live, grads)]
     return loss.detach(), tree_mod.unflatten(params, grads)
 
 
-def make_train_step(cfg: ModelConfig, opt_cfg: opt_mod.AdamWConfig):
+def complete_grads(loss, grads, mesh: Optional[TrainMesh]):
+    """A rank's (loss share, gradients) made whole, in place: the
+    replicated leaves whose gradient is a part on each model rank
+    (``sharding.partial_grad``: the qk-norm scales) summed over the
+    model group, then every leaf and the loss summed over the data group
+    in f32, leaf by leaf in the tree's order.  Returns (loss, grads)."""
+    if mesh is None:
+        return loss, grads
+    if mesh.model is not None:
+        for path, g in tree_mod.items(grads):
+            if sharding.partial_grad(path):
+                mesh.model.all_reduce_sum(g, "norm")
+    if mesh.data is not None:
+        for g in tree_mod.leaves(grads):
+            mesh.data.all_reduce_sum(g, "grad")
+        loss = mesh.data.all_reduce_sum(loss.float().reshape(1), "loss")[0]
+    return loss, grads
+
+
+def loss_and_grads(params, cfg: ModelConfig, batch: dict,
+                   mesh: Optional[TrainMesh] = None):
+    """(loss, grads): ``rank_grads``, then on a mesh ``complete_grads``
+    (``cfg`` is then ``mesh.cfg``): the global batch's loss and the
+    gradient of the rank's slice of the masters."""
+    loss, grads = rank_grads(params, cfg, batch,
+                             data=None if mesh is None else mesh.data)
+    return complete_grads(loss, grads, mesh)
+
+
+def digest(tree) -> int:
+    """A signed 64-bit digest of every tensor leaf's bits (each leaf's
+    words summed as int64, folded in the tree's order): equal trees give
+    equal digests on every rank."""
+    h = 0
+    for leaf in tree_mod.leaves(tree):
+        t = leaf.detach().contiguous().reshape(-1)
+        words = t.view(torch.int16 if t.element_size() == 2 else
+                       torch.int32 if t.element_size() == 4 else
+                       torch.int64)
+        s = int(words.sum(dtype=torch.int64))
+        h = (h * 1_000_003 + s) & (2 ** 64 - 1)
+    return h - 2 ** 64 if h >= 2 ** 63 else h
+
+
+def check_replicas(mesh: TrainMesh, params, when: str) -> None:
+    """Raise on every rank unless the ranks of each data group hold the
+    same bits of the masters (each leaf is replicated over the data
+    axis), and the ranks of each model group the same bits of the leaves
+    it replicates (the norms): ``comm.Group.agree`` on a digest."""
+    if mesh.data is not None:
+        mesh.data.agree(digest(params), f"the data group's masters {when}")
+    if mesh.model is not None:
+        rep = [leaf for path, leaf in tree_mod.items(params)
+               if not mesh.split_leaf(path)]
+        mesh.model.agree(digest(rep), f"the model group's replicated "
+                         f"leaves {when}")
+
+
+def make_train_step(cfg: ModelConfig, opt_cfg: opt_mod.AdamWConfig,
+                    mesh: Optional[TrainMesh] = None):
     """``step(state, batch) -> (state, metrics)``: loss and gradients
     (``loss_and_grads``), then ``optimizer.update``, which writes
     ``state["params"]`` and ``state["opt"]`` in place; the metrics are
     ``loss``, ``grad_norm`` and ``lr``, f32 scalars on the device (read
-    them with ``float``, which waits for the step)."""
+    them with ``float``, which waits for the step).
+
+    ``mesh``: the step of a rank (``cfg`` is then ``mesh.cfg``, the
+    state the rank's slice, the batch its rows); the global norm sums
+    the split leaves over the model group; before the first update and
+    after it every replica is checked to hold the same bits
+    (``check_replicas``)."""
+    if mesh is not None:
+        opt_mod.check_split(opt_cfg, mesh.model is not None)
+    first = [mesh is not None]
 
     def train_step(state: dict, batch: dict):
-        loss, grads = loss_and_grads(state["params"], cfg, batch)
+        if first[0]:
+            check_replicas(mesh, state["params"], "at start")
+        loss, grads = loss_and_grads(state["params"], cfg, batch, mesh)
+        kw = {}
+        if mesh is not None and mesh.model is not None:
+            kw = dict(model=mesh.model, split_leaf=mesh.split_leaf)
         metrics = opt_mod.update(opt_cfg, grads, state["opt"],
-                                 state["params"])
+                                 state["params"], **kw)
+        if first[0]:
+            check_replicas(mesh, state["params"], "after the first step")
+            first[0] = False
         return state, dict(metrics, loss=loss)
 
     return train_step

@@ -7,15 +7,30 @@ Usage (CPU, smoke config):
       --smoke --device cpu --steps 20
 On the card (``--device cuda``, the default) the step's attention is
 the flash-attention kernel and its loss the cross-entropy kernel.
-Training runs on one device: ``--mesh`` other than ``1x1`` raises.
+
+On a (data, model) mesh, one process a rank under torchrun (the
+reference's ``--mesh 4x2``; the groups from torchrun's environment,
+``comm.Group.from_env``, as ``launch.serve --tp`` builds them):
+  PYTHONPATH=src python -m torch.distributed.run --nproc-per-node 4 \\
+      -m repro_torch.launch.train --arch qwen3-0.6b --smoke \\
+      --device cpu --mesh 2x2
+The world size must be D x M.  Each rank draws the whole host tree from
+the seed (``weights.seeded_params``) and keeps its slice
+(``launch.steps.TrainMesh``); the model axis splits the dense family's
+trunk and vocabulary (the loss through the softmax-stats kernel on the
+rank's vocabulary slice), the data axis cuts the batch's rows.  Rank 0
+logs; a checkpoint is written whole, by rank 0, and restores into any
+mesh.
 """
 from __future__ import annotations
 
 import argparse
+import os
 from typing import Optional
 
 import torch
 
+from repro_torch import tree as tree_mod
 from repro_torch import weights
 from repro_torch.checkpoint.manager import CheckpointManager
 from repro_torch.configs import SHAPES, get_config, smoke_config
@@ -23,6 +38,7 @@ from repro_torch.configs.base import ModelConfig, ShapeSpec
 from repro_torch.data.pipeline import DataConfig, TokenPipeline
 from repro_torch.launch import steps as steps_mod
 from repro_torch.optim import optimizer as opt_mod
+from repro_torch.parallel import comm
 from repro_torch.runtime.fault_tolerance import (PreemptionGuard, StepTimer,
                                                  StragglerMonitor)
 
@@ -36,30 +52,42 @@ def resolve_device(device) -> torch.device:
     return device
 
 
-def check_mesh(mesh: Optional[str]) -> None:
-    if mesh is not None and tuple(int(x) for x in mesh.split("x")) != (1, 1):
-        raise ValueError(
-            f"--mesh {mesh}: the port trains on one device; training under "
-            "tensor and data parallelism is ROADMAP.md's training-under-tp "
-            "entry (section 1, item 4)")
-
-
 def train(cfg: ModelConfig, shape: ShapeSpec, opt_cfg, *, device="cuda",
           steps: int = 20, ckpt_dir=None, ckpt_every: int = 50,
           data_cfg: Optional[DataConfig] = None, log_every: int = 10,
-          log=print):
+          log=print, mesh: Optional[steps_mod.TrainMesh] = None,
+          params=None):
     """Train ``steps`` steps (from the latest checkpoint under
     ``ckpt_dir`` when there is one); returns (state, the losses of the
-    steps run).  The masters are ``weights.seeded_params(cfg,
-    data_cfg.seed)``, f32, on ``device``; a checkpoint is written every
-    ``ckpt_every`` steps and on SIGTERM / SIGINT, asynchronously, and
-    waited for at the end."""
-    device = resolve_device(device)
+    steps run).  The masters are ``params`` (a whole f32 tree) or
+    ``weights.seeded_params(cfg, data_cfg.seed)``, f32, on ``device``; a
+    checkpoint is written every ``ckpt_every`` steps and on SIGTERM /
+    SIGINT, asynchronously, and waited for at the end.
+
+    ``mesh`` (``steps.make_mesh``): this rank's step on the mesh, on the
+    mesh's device -- the masters cut to the rank's slice on the host,
+    the batch's rows the rank's data shard; the returned state is the
+    rank's slice, the losses the global batch's.  A checkpoint holds the
+    whole tree (``TrainMesh.gather`` over the first model group, written
+    by rank 0) and restores into the rank's slice."""
+    device = resolve_device(device) if mesh is None else mesh.device
     data_cfg = data_cfg or DataConfig(vocab_size=cfg.vocab_size)
-    params = weights.seeded_params(cfg, data_cfg.seed, device)
+    given = params is not None
+    if not given:
+        params = weights.seeded_params(
+            cfg, data_cfg.seed, "cpu" if mesh is not None else device)
+    run_cfg = cfg
+    D, d = 1, 0
+    if mesh is not None:
+        params = mesh.shard(params)
+        run_cfg, D, d = mesh.cfg, mesh.plan.data, mesh.plan.d
+    # the state's own masters (the update writes them in place), never
+    # the caller's tensors
+    params = tree_mod.map_tree(lambda _, t: torch.as_tensor(t).to(
+        device, copy=given).contiguous(), params)
     state = {"params": params, "opt": opt_mod.init_state(opt_cfg, params)}
-    step_fn = steps_mod.make_train_step(cfg, opt_cfg)
-    pipe = TokenPipeline(data_cfg, cfg, shape, device)
+    step_fn = steps_mod.make_train_step(run_cfg, opt_cfg, mesh)
+    pipe = TokenPipeline(data_cfg, cfg, shape, device, data=D, d=d)
 
     mgr = CheckpointManager(ckpt_dir, keep_last_k=2,
                             async_save=True) if ckpt_dir else None
@@ -68,7 +96,8 @@ def train(cfg: ModelConfig, shape: ShapeSpec, opt_cfg, *, device="cuda",
         start = mgr.latest_step()
         del state
         state = mgr.restore(start, steps_mod.train_state_struct(
-            cfg, opt_cfg), device=device)
+            cfg, opt_cfg), device=device, cfg=cfg,
+            split=None if mesh is None else mesh.split)
         log(f"[restore] resumed from step {start}")
 
     monitor = StragglerMonitor(log_fn=log)
@@ -86,15 +115,30 @@ def train(cfg: ModelConfig, shape: ShapeSpec, opt_cfg, *, device="cuda",
                     f"gnorm {float(metrics['grad_norm']):.3f} "
                     f"lr {float(metrics['lr']):.2e} {t.dt*1e3:.0f}ms")
             if mgr and (step + 1) % ckpt_every == 0:
-                mgr.save(step + 1, state)
+                save_state(mgr, step + 1, state, mesh)
             if guard.requested:
                 log(f"[preempt] signal at step {step}; checkpointing")
                 if mgr:
-                    mgr.save(step + 1, state)
+                    save_state(mgr, step + 1, state, mesh)
                 break
     if mgr:
         mgr.wait()
     return state, losses
+
+
+def save_state(mgr: CheckpointManager, step: int, state: dict,
+               mesh: Optional[steps_mod.TrainMesh]) -> None:
+    """``state`` into ``mgr`` in the whole layout: as it is on one device;
+    on a mesh gathered over the first model group (the data groups hold
+    replicas) and written by its rank 0 alone."""
+    if mesh is None:
+        mgr.save(step, state)
+        return
+    if mesh.plan.d != 0:
+        return
+    whole = mesh.gather(state, "ckpt")
+    if mesh.plan.m == 0:
+        mgr.save(step, whole)
 
 
 def parser() -> argparse.ArgumentParser:
@@ -110,7 +154,9 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--lr", type=float, default=3e-3)
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--mesh", default=None,
-                    help="only 1x1: the port trains on one device")
+                    help="DxM: D data-parallel replicas of M tensor-"
+                    "parallel ranks, one process a rank under torchrun "
+                    "(the world size must be D*M)")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu (the plain kernel versions)")
     return ap
@@ -118,7 +164,7 @@ def parser() -> argparse.ArgumentParser:
 
 def main(argv=None):
     args = parser().parse_args(argv)
-    check_mesh(args.mesh)
+    data, model = steps_mod.parse_mesh(args.mesh)
     cfg = get_config(args.arch)
     if args.smoke:
         cfg = smoke_config(cfg)
@@ -128,8 +174,18 @@ def main(argv=None):
         shape = ShapeSpec("cli", args.seq, args.batch, "train")
     opt_cfg = opt_mod.AdamWConfig(lr=args.lr, warmup_steps=10,
                                   total_steps=max(args.steps, 10))
-    return train(cfg, shape, opt_cfg, device=args.device, steps=args.steps,
-                 ckpt_dir=args.ckpt_dir)
+    if args.mesh is None and "WORLD_SIZE" not in os.environ:
+        return train(cfg, shape, opt_cfg, device=args.device,
+                     steps=args.steps, ckpt_dir=args.ckpt_dir)
+    resolve_device(args.device)
+    group = comm.Group.from_env(device=args.device)
+    try:
+        mesh = steps_mod.make_mesh(cfg, group, data, model)
+        return train(cfg, shape, opt_cfg, steps=args.steps,
+                     ckpt_dir=args.ckpt_dir, mesh=mesh,
+                     log=print if group.rank == 0 else (lambda *a: None))
+    finally:
+        group.close()
 
 
 if __name__ == "__main__":

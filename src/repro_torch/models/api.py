@@ -24,24 +24,113 @@ from repro_torch.weights import cast_params
 # ---------------------------------------------------------------------------
 # Loss
 # ---------------------------------------------------------------------------
+def merge_stats(stats: torch.Tensor) -> torch.Tensor:
+    """The per-row logsumexp of slices whose (max, sum exp(x - max)) are
+    ``stats`` (ranks, rows, 2) f32, merged in rank order: ``m = max_r
+    m_r``, ``l = sum_r l_r * exp(m_r - m)`` (the online softmax's
+    merge), ``m + log l``.  The same bits on every rank that holds the
+    same ``stats``."""
+    m = stats[..., 0].amax(dim=0)
+    l = torch.zeros_like(m)
+    for part in stats:
+        l = l + part[:, 1] * torch.exp(part[:, 0] - m)
+    return m + torch.log(l)
+
+
+class _VocabParallelXent(torch.autograd.Function):
+    """Per-row softmax cross-entropy over a vocabulary cut into contiguous
+    slices, one a rank of ``group``, without gathering the (rows, V)
+    logits: the reference's one-hot-free label pick
+    (``repro/models/api.py:54-69``), which exists so the vocabulary axis
+    is never gathered.
+
+    Forward: ``ops.softmax_stats`` (the stats kernel on the card) on the
+    rank's slice gives (m_r, l_r); the pairs are all-gathered over the
+    group (rows x 2 x 4 bytes a rank) and merged into ``lse`` in rank
+    order (``merge_stats``); the rank whose range holds a row's label
+    gives ``x[label - lo]``, the others 0, and an all-reduce sums them
+    (one term is non-zero: exact); ``lse - label_logit``.
+
+    Backward: ``exp(x - lse)`` as ``ops.online_softmax`` of the slice
+    (the softmax kernel, ``exp(x - m') / l'`` of its own stats) times the
+    per-row factor ``l_r * exp(m_r - lse)``, 1 taken off at a local
+    label, then scaled by the row's ``g`` in place, as
+    ``ops._SoftmaxXent.backward``; no collective."""
+
+    @staticmethod
+    def forward(ctx, x, labels, group, lo):
+        m_r, l_r = ops.softmax_stats(x)
+        stats = group.all_gather(torch.stack([m_r, l_r], dim=1), "loss")
+        lse = merge_stats(stats)
+        local = labels.long() - lo
+        mine = (local >= 0) & (local < x.shape[1])
+        rows = torch.arange(x.shape[0], device=x.device)
+        pick = torch.where(mine, x[rows, local.clamp(0, x.shape[1] - 1)],
+                           torch.zeros((), dtype=x.dtype, device=x.device))
+        pick = group.all_reduce_sum(pick.contiguous(), "loss")
+        ctx.save_for_backward(x, local, mine, m_r, l_r, lse)
+        return lse - pick
+
+    @staticmethod
+    def backward(ctx, g):
+        x, local, mine, m_r, l_r, lse = ctx.saved_tensors
+        p = ops.online_softmax(x)
+        p.mul_((l_r * torch.exp(m_r - lse))[:, None])
+        rows = torch.nonzero(mine).reshape(-1)
+        p[rows, local[rows]] -= 1
+        p.mul_(g[:, None])
+        return p.to(x.dtype), None, None, None
+
+
+def vocab_parallel_xent(logits: torch.Tensor, labels: torch.Tensor,
+                        group, lo: int) -> torch.Tensor:
+    """Per-row cross-entropy (N,) f32 of the rank's logits slice (N, V /
+    ranks) f32, ids [lo, lo + V / ranks) of the vocabulary, labels (N,)
+    in [0, V); differentiable in ``logits`` (``_VocabParallelXent``)."""
+    return _VocabParallelXent.apply(logits, labels, group, lo)
+
+
 def xent_loss(logits: torch.Tensor, labels: torch.Tensor,
-              mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+              mask: Optional[torch.Tensor] = None, *, split=None,
+              data=None) -> torch.Tensor:
     """Mean softmax cross-entropy; logits (..., V) f32, labels (...) int
     in [0, V), mask (...) or None.  Each token's loss is
     ``ops.softmax_xent`` over the flattened (N, V) rows -- the
     cross-entropy kernel on the card, whose backward runs the softmax
     kernel -- then the reference's mean: ``sum(loss * mask) /
-    max(sum(mask), 1)``, or the plain mean without a mask."""
+    max(sum(mask), 1)``, or the plain mean without a mask.
+
+    ``split`` (a ``parallel.sharding.Split`` over its group, a trunk cut
+    of world > 1): ``logits`` are the rank's (N, V / ranks) slice and
+    each token's loss is ``vocab_parallel_xent``'s.  ``data`` (the rank's
+    data group, its rows one block of the global batch): the loss is the
+    rank's SHARE of the global mean, its masked sum over the global
+    count of tokens (the mask's sum all-reduced over the data group, kind
+    ``"loss"``; without a mask the rank's tokens times the group's
+    size), so the shares' sum over the data group is the mean and its
+    gradient the mean's; a mean of the ranks' means would not be where
+    the ranks' counts differ."""
     v = logits.shape[-1]
-    per_tok = ops.softmax_xent(logits.reshape(-1, v).float(),
-                               labels.reshape(-1))
+    flat = logits.reshape(-1, v).float()
+    if split is not None and split.trunk and split.world > 1:
+        per_tok = vocab_parallel_xent(flat, labels.reshape(-1), split.group,
+                                      split.vocab[0])
+    else:
+        per_tok = ops.softmax_xent(flat, labels.reshape(-1))
+    if data is None:
+        if mask is None:
+            return per_tok.mean()
+        mask = mask.reshape(-1).float()
+        return (per_tok * mask).sum() / torch.clamp(mask.sum(), min=1.0)
     if mask is None:
-        return per_tok.mean()
+        return per_tok.sum() / float(per_tok.numel() * data.world)
     mask = mask.reshape(-1).float()
-    return (per_tok * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    count = data.all_reduce_sum(mask.sum().reshape(1), "loss")[0]
+    return (per_tok * mask).sum() / torch.clamp(count, min=1.0)
 
 
-def train_loss(params: dict, cfg: ModelConfig, batch: dict) -> torch.Tensor:
+def train_loss(params: dict, cfg: ModelConfig, batch: dict, *,
+               data=None) -> torch.Tensor:
     """The training objective of ``batch`` ({"tokens", "labels"} (B, S),
     optionally "loss_mask", and the stub frontends' "image_embeds" (vlm)
     or "src_embeds" (encdec), which go on to ``lm.forward``):
@@ -49,11 +138,24 @@ def train_loss(params: dict, cfg: ModelConfig, batch: dict) -> torch.Tensor:
     times the router loss under ``cfg.moe``.  ``params`` are the f32
     masters, cast to the compute dtype inside the loss as the reference's
     ``forward`` casts them (``weights.cast_params`` is differentiable), so
-    the gradients reach the masters in f32."""
-    logits, aux = lm.forward(cast_params(params, cfg), cfg, batch["tokens"],
-                             image_embeds=batch.get("image_embeds"),
-                             src_embeds=batch.get("src_embeds"))
-    loss = xent_loss(logits, batch["labels"], batch.get("loss_mask"))
+    the gradients reach the masters in f32.
+
+    On a mesh: ``cfg`` is the rank's view (``sharding.local_config``) and
+    ``params`` its slice when the model axis is split -- the loss then
+    reads the rank's logits slice (``lm.local_logits``) through the
+    vocabulary-parallel loss; ``data`` is the rank's data group, and the
+    loss its share of the global mean (``xent_loss``)."""
+    cast = cast_params(params, cfg)
+    h, aux = lm.hidden(cast, cfg, batch["tokens"],
+                       image_embeds=batch.get("image_embeds"),
+                       src_embeds=batch.get("src_embeds"))
+    sh = cfg.shard
+    if sh is not None and sh.trunk and sh.world > 1:
+        logits = lm.local_logits(cast, cfg, h)
+    else:
+        logits = lm.logits_fn(cast, cfg, h)
+    loss = xent_loss(logits, batch["labels"], batch.get("loss_mask"),
+                     split=sh, data=data)
     if cfg.moe is not None:
         loss = loss + cfg.moe.router_aux_weight * aux
     return loss

@@ -46,6 +46,14 @@ an ``rwkv`` layer's time-mix, whose channel-mix sums and gathers its
 own, ``rwkv6.rwkv_channel_mix``), the recurrent states hold the rank's
 channels (``rglru`` / ``rwkv6``), ``lm_head_weight`` is the rank's (D, V
 / ranks) slice and ``logits_fn`` all-gathers the slices' f32 logits.
+
+Training under a split (the dense family) differentiates through the
+collectives with the Megatron pair: the embedding's sum and each
+``wo`` / ``w_out`` output go through ``comm.reduce_from_group``, the
+normed inputs of wq / wk / wv and of the MLP's first matrices, and the
+head's input, through ``comm.copy_to_group``, whose backward sums their
+gradient over the ranks; the loss reads the rank's logits slice alone
+(``local_logits``).
 """
 from __future__ import annotations
 
@@ -59,7 +67,7 @@ from repro_torch.models import rglru, rwkv6
 from repro_torch.models.layers import (StepConstants, _split_heads,
                                       attention, mlp, moe_layer, rms_norm,
                                       step_constants)
-from repro_torch.parallel import moe_ep
+from repro_torch.parallel import comm, moe_ep
 from repro_torch.weights import dtype_of
 
 
@@ -141,7 +149,7 @@ def embed_tokens(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
         x = params["embed"][local.clamp(0, hi - lo - 1)]
         x = torch.where(mine[..., None], x, torch.zeros((), dtype=x.dtype,
                                                         device=x.device))
-        x = group.all_reduce_sum(x, "embed")
+        x = comm.reduce_from_group(x, group, "embed")
     if cfg.num_image_tokens and image_embeds is not None:
         n = image_embeds.shape[1]
         x = torch.cat([image_embeds.to(x.dtype), x[:, n:]], dim=1)
@@ -199,6 +207,18 @@ class _HeadMatmul(torch.autograd.Function):
         return dh, dw
 
 
+def local_logits(params: dict, cfg: ModelConfig,
+                 x: torch.Tensor) -> torch.Tensor:
+    """(..., D) -> (rows, V / ranks) f32: a split trunk's rank's slice of
+    the logits, never gathered (the vocabulary-parallel loss reads it,
+    ``models.api.vocab_parallel_xent``).  The head's input goes through
+    ``comm.copy_to_group`` (kind ``"head"``): the rank's vocabulary
+    columns give a part of its gradient."""
+    x = comm.copy_to_group(x.reshape(-1, x.shape[-1]), _trunk_group(cfg),
+                           "head")
+    return _HeadMatmul.apply(x, lm_head_weight(params, cfg))
+
+
 def logits_fn(params: dict, cfg: ModelConfig,
               x: torch.Tensor) -> torch.Tensor:
     """(..., D) -> (..., V) f32 logits ``x @ W`` (``_HeadMatmul``)."""
@@ -253,19 +273,17 @@ def _apply_layer(p: dict, x: torch.Tensor, cfg: ModelConfig, kind: str, *,
     if kind == "rec":
         x, extra = _recurrent(rglru.init_state, rglru.rglru_block, p["rec"],
                               x, cfg, consts, cache, group)
-        h = mlp(p["mlp"], rms_norm(x, p["ln2"], cfg.norm_eps),
-                cfg.activation)
-        if group is not None:
-            h = group.all_reduce_sum(h, "trunk")
-        return x + h, extra, None
+        h = mlp(p["mlp"], comm.copy_to_group(
+            rms_norm(x, p["ln2"], cfg.norm_eps), group, "trunk"),
+            cfg.activation)
+        return x + comm.reduce_from_group(h, group, "trunk"), extra, None
     enc = kind == "enc"
-    a, extra = attention(p["attn"], rms_norm(x, p["ln1"], cfg.norm_eps),
+    a, extra = attention(p["attn"], comm.copy_to_group(
+        rms_norm(x, p["ln1"], cfg.norm_eps), group, "trunk"),
                          cfg, consts=consts, causal=not enc,
                          window=None if enc else cfg.attention_window,
                          cache=cache)
-    if group is not None:
-        a = group.all_reduce_sum(a, "trunk")
-    x = x + a
+    x = x + comm.reduce_from_group(a, group, "trunk")
     if kind == "xattn":
         h = rms_norm(x, p["lnx"], cfg.norm_eps)
         if isinstance(cross, dict):
@@ -276,10 +294,9 @@ def _apply_layer(p: dict, x: torch.Tensor, cfg: ModelConfig, kind: str, *,
         x = x + xa
     h_in = rms_norm(x, p["ln2"], cfg.norm_eps)
     if kind != "moe":
-        h = mlp(p["mlp"], h_in, cfg.activation)
-        if group is not None:
-            h = group.all_reduce_sum(h, "trunk")
-        return x + h, extra, None
+        h = mlp(p["mlp"], comm.copy_to_group(h_in, group, "trunk"),
+                cfg.activation)
+        return x + comm.reduce_from_group(h, group, "trunk"), extra, None
     impl = moe_impl(cfg, cache is not None)
     if group is not None:
         h, aux = moe_ep.moe_ep(p["moe"], h_in, cfg, impl=impl,
@@ -501,13 +518,23 @@ def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor, *,
     which keeps the matmul outputs), so ``"dots"`` saves less than the
     reference and recomputes more -- as ``"full"`` does; the numbers are
     the same."""
+    h, total = hidden(params, cfg, tokens, image_embeds=image_embeds,
+                      src_embeds=src_embeds)
+    return logits_fn(params, cfg, h), total
+
+
+def hidden(params: dict, cfg: ModelConfig, tokens: torch.Tensor, *,
+           image_embeds: Optional[torch.Tensor] = None,
+           src_embeds: Optional[torch.Tensor] = None):
+    """``forward`` up to the head: (the final-normed hidden states (B, S,
+    D), the f32 sum of the router losses)."""
     enc_out = _encoder_output(params, cfg, src_embeds)
     S = tokens.shape[1]
     x = embed_tokens(params, cfg, tokens, image_embeds)
     consts = step_constants(cfg, torch.arange(S, device=tokens.device))
     x, total = _run_units(layer_params(params, cfg), segments(cfg), x, cfg,
                           consts, _trunk_group(cfg), enc_out)
-    return logits_fn(params, cfg, final_hidden(params, cfg, x)), total
+    return final_hidden(params, cfg, x), total
 
 
 def prefill(params: dict, cfg: ModelConfig, tokens: torch.Tensor,

@@ -13,6 +13,14 @@ step (``repro.optim.optimizer``).
   - linear warmup + cosine decay, and the bias corrections ``1 - b**step``,
     in f32.
 
+On a mesh whose model axis splits the leaves (``update(..., model=,
+split_leaf=)``): the moments are cut as the masters are (the reference's
+``opt_state_specs``), the update is elementwise, and the global norm is
+the square root of the model group's sum of each split leaf's squares
+plus each replicated leaf's squares, counted once -- the unsharded
+norm, in another order of the sum.  ``factored`` refuses a split: its
+row and column means run along axes a split may cut.
+
 This is not ``torch.optim.AdamW``, which decays every leaf, does not
 clip and has neither option.  The functions are functional over trees,
 except ``update``, which writes the params and the state IN PLACE
@@ -57,13 +65,22 @@ def schedule(cfg: AdamWConfig, step: torch.Tensor) -> torch.Tensor:
     return cfg.lr * warm * (cfg.min_lr_ratio + (1 - cfg.min_lr_ratio) * cos)
 
 
-def global_norm(tree) -> torch.Tensor:
+def global_norm(tree, *, model=None, split_leaf=None) -> torch.Tensor:
     """sqrt of the f32 sum of every leaf's squares, summed leaf after leaf
-    in the tree's order."""
-    total = None
-    for leaf in tree_mod.leaves(tree):
+    in the tree's order.  With ``model`` (a model group) and
+    ``split_leaf(path)`` (whether the leaf at ``path`` is a rank's
+    slice): the split leaves' sum all-reduced over the group (kind
+    ``"norm"``, 4 bytes), plus the replicated leaves' sum, once."""
+    total = split = None
+    for path, leaf in tree_mod.items(tree):
         s = torch.sum(torch.square(leaf.float()))
-        total = s if total is None else total + s
+        if model is not None and split_leaf(path):
+            split = s if split is None else split + s
+        else:
+            total = s if total is None else total + s
+    if split is not None:
+        split = model.all_reduce_sum(split.reshape(1), "norm")[0]
+        total = split if total is None else total + split
     return torch.sqrt(total)
 
 
@@ -123,12 +140,28 @@ def _second_moment_value(v) -> torch.Tensor:
     return v.float()
 
 
+def check_split(cfg: AdamWConfig, split: bool) -> None:
+    """Refuse ``factored`` where the leaves are split over a model axis:
+    its second moment's row and column means run along the axes the
+    split cuts (a column-parallel leaf's rows, a row-parallel one's
+    columns, the embedding's vocabulary), and its rank-1 value divides by
+    a mean over them."""
+    if cfg.factored and split:
+        raise ValueError("factored=True under a split model axis: its row "
+                         "and column means run along axes the split cuts; "
+                         "train it on a mesh of model 1")
+
+
 @torch.no_grad()
-def update(cfg: AdamWConfig, grads, state: dict, params) -> dict:
+def update(cfg: AdamWConfig, grads, state: dict, params, *, model=None,
+           split_leaf=None) -> dict:
     """One AdamW step: ``params`` and ``state`` are written in place (the
     reference returns new trees; the numbers are the same).  Returns the
-    metrics ``{"grad_norm", "lr"}`` (f32 scalars on the device)."""
-    gnorm = global_norm(grads)
+    metrics ``{"grad_norm", "lr"}`` (f32 scalars on the device).
+    ``model`` / ``split_leaf``: a rank's slices over its model group
+    (``global_norm``)."""
+    check_split(cfg, model is not None)
+    gnorm = global_norm(grads, model=model, split_leaf=split_leaf)
     scale = (_clip_scale(gnorm, cfg.clip_norm)
              if cfg.clip_norm is not None else None)
     step = state["step"].add_(1)

@@ -23,12 +23,27 @@ one int64 per rank over that control group and raises when they differ.
 ``split(size)`` cuts a group into groups of ``size`` consecutive ranks
 (``torch.distributed.new_group``, a data group and a control group
 each): the rank groups of ``serve.router.Router(tp=)``, one a replica,
-whose collectives never involve another replica's ranks.  Every
-collective of a group waits at most its ``timeout_s``.
+whose collectives never involve another replica's ranks.
+``split_strided(stride)`` cuts it into the groups ``{i + k * stride}``:
+with ``split(M)`` the model groups of a (data, model) mesh of D x M
+ranks, ``split_strided(M)`` gives its data groups, rank ``r``'s being
+``{r mod M + k * M}`` (``mesh_groups``).  Every collective of a group
+waits at most its ``timeout_s``.
+
+Under autograd a collective needs its own derivative.  The Megatron pair
+(``copy_to_group``, ``reduce_from_group``) is two
+``torch.autograd.Function``s: ``copy_to_group`` is the identity forward
+and all-reduces the gradient backward (at every column-parallel input:
+each rank's heads or columns give a part of the input's gradient);
+``reduce_from_group`` all-reduces forward and passes the gradient on as
+it is backward (at every row-parallel output and the vocabulary-sharded
+embedding lookup).  Without grad they are ``all_reduce_sum`` in place
+and nothing, so serving's numbers and bytes do not move.
 
 ``bytes`` counts the bytes every collective left on this rank, by the
 kind its caller names (``"trunk"``, ``"embed"``, ``"head"``,
-``"logits"``, ``"control"``, ``"digest"``): an all-gather counts its
+``"logits"``, ``"control"``, ``"digest"``; in training also ``"loss"``,
+``"grad"`` and ``"norm"``): an all-gather counts its
 whole result, an all-reduce its tensor.  It takes the place of the
 reference's ``repro.launch.hlo_stats.collective_bytes`` over compiled
 HLO, and is what shows the comparator head's traffic to be O(rows *
@@ -145,17 +160,37 @@ class Group:
         if size < 1 or self.world % size:
             raise ValueError(f"split({size}): a group of {self.world} ranks "
                              "does not cut into groups of that size")
+        return self._subgroups([list(range(lo, lo + size))
+                                for lo in range(0, self.world, size)],
+                               timeout_s)
+
+    def split_strided(self, stride: int, *,
+                      timeout_s: Optional[float] = None) -> "Group":
+        """This group cut into ``stride`` groups, group ``i`` the members
+        ``i, i + stride, i + 2 * stride, ...``; returns this rank's.
+        Called as ``split``."""
+        if stride < 1 or self.world % stride:
+            raise ValueError(f"split_strided({stride}): a group of "
+                             f"{self.world} ranks does not cut so")
+        return self._subgroups([list(range(i, self.world, stride))
+                                for i in range(stride)], timeout_s)
+
+    def _subgroups(self, sets: List[List[int]],
+                   timeout_s: Optional[float]) -> "Group":
+        """A data and a control group for each of ``sets`` (members'
+        indices in this group, every member in one set), made in the
+        order given on every rank; returns this rank's."""
         timeout_s = self.timeout_s if timeout_s is None else timeout_s
         td = datetime.timedelta(seconds=timeout_s)
         mine = None
-        for lo in range(0, self.world, size):
-            ranks = list(self.ranks[lo:lo + size])
+        for members in sets:
+            ranks = [self.ranks[i] for i in members]
             data = dist.new_group(ranks, timeout=td, backend=self.backend)
             control = dist.new_group(ranks, timeout=td, backend="gloo")
-            if lo <= self.rank < lo + size:
-                mine = Group(self.rank - lo, size, self.device, self.backend,
-                             control, data=data, ranks=ranks,
-                             timeout_s=timeout_s)
+            if self.rank in members:
+                mine = Group(members.index(self.rank), len(members),
+                             self.device, self.backend, control, data=data,
+                             ranks=ranks, timeout_s=timeout_s)
         return mine
 
     def close(self) -> None:
@@ -215,6 +250,106 @@ class Group:
                 f"ranks diverged at {what}: rank digests {got} (rank "
                 f"{self.rank} of {self.world})")
 
+    def _staged(self, x: torch.Tensor) -> bool:
+        """Whether ``x`` goes through the host: gloo's point-to-point ops
+        take host tensors only (its collectives stage a card's tensors
+        themselves)."""
+        return self.backend == "gloo" and x.device.type != "cpu"
+
+    def send(self, x: torch.Tensor, dst: int, kind: str) -> None:
+        """``x`` to member ``dst`` of this group (point to point)."""
+        t = x.contiguous()
+        dist.send(t.cpu() if self._staged(t) else t, self.ranks[dst],
+                  group=self._data)
+        self._count(kind, x.numel() * x.element_size())
+
+    def recv(self, x: torch.Tensor, src: int) -> torch.Tensor:
+        """Member ``src``'s tensor into ``x`` (its shape and dtype);
+        returns ``x``."""
+        buf = torch.empty(x.shape, dtype=x.dtype) if self._staged(x) else x
+        dist.recv(buf, self.ranks[src], group=self._data)
+        if buf is not x:
+            x.copy_(buf)
+        return x
+
+    def broadcast(self, x: torch.Tensor, src: int, kind: str) -> torch.Tensor:
+        """Member ``src``'s ``x`` into every member's ``x``, in place."""
+        buf = x.cpu() if self._staged(x) else x
+        dist.broadcast(buf, self.ranks[src], group=self._data)
+        if buf is not x:
+            x.copy_(buf)
+        self._count(kind, x.numel() * x.element_size())
+        return x
+
     def __repr__(self) -> str:
         return (f"Group(rank={self.rank}, world={self.world}, "
                 f"device={self.device}, backend={self.backend!r})")
+
+
+def mesh_groups(group: Group, data: int, model: int):
+    """(data group, model group) of this rank in a (data, model) mesh of
+    ``data x model`` ranks over ``group``: the model groups are ``model``
+    consecutive ranks, rank ``r`` at model index ``r % model`` of the
+    data index ``r // model``; the data groups ``{r mod model + k *
+    model}``.  A mesh axis of size 1 gives None.  Every rank calls it, in
+    the same order."""
+    if data < 1 or model < 1 or data * model != group.world:
+        raise ValueError(f"a mesh of {data}x{model} needs {data * model} "
+                         f"ranks; the group has {group.world}")
+    mgroup = group.split(model) if model > 1 else None
+    dgroup = group.split_strided(model) if data > 1 else None
+    return dgroup, mgroup
+
+
+class _CopyToGroup(torch.autograd.Function):
+    """Identity forward; the gradient all-reduced over the group."""
+
+    @staticmethod
+    def forward(ctx, x, group, kind):
+        ctx.group, ctx.kind = group, kind
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.group.all_reduce_sum(g.contiguous().clone(),
+                                        ctx.kind), None, None
+
+
+class _ReduceFromGroup(torch.autograd.Function):
+    """The sum over the group forward (into a new tensor); the gradient
+    passed on as it is."""
+
+    @staticmethod
+    def forward(ctx, x, group, kind):
+        return group.all_reduce_sum(x.contiguous().clone(), kind)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+def _tracked(x: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and x.requires_grad
+
+
+def copy_to_group(x: torch.Tensor, group: Optional[Group],
+                  kind: str) -> torch.Tensor:
+    """A column-parallel layer's input: ``x`` itself forward; under
+    autograd its gradient is summed over ``group`` (each rank's columns
+    give a part of it).  ``group`` None: ``x``."""
+    if group is None or not _tracked(x):
+        return x
+    return _CopyToGroup.apply(x, group, kind)
+
+
+def reduce_from_group(x: torch.Tensor, group: Optional[Group],
+                      kind: str) -> torch.Tensor:
+    """A row-parallel layer's output: the sum of the ranks' ``x``; under
+    autograd the gradient goes to every rank's ``x`` whole.  Without
+    grad the sum is in place (``Group.all_reduce_sum``), as serving has
+    it.  ``group`` None: ``x``."""
+    if group is None:
+        return x
+    if not _tracked(x):
+        return group.all_reduce_sum(x, kind)
+    return _ReduceFromGroup.apply(x, group, kind)

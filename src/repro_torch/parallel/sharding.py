@@ -62,6 +62,20 @@ too: the sharded head cuts V into equal slices, as the reference's
 The reference's fallback to the training layout for a model that does
 not fit once sharded (``serve_param_specs`` :116-139) is not ported:
 ``plan`` raises with the per-rank bytes instead.
+
+Training on a (data, model) mesh of D x M ranks (``train_plan``; the
+reference's ``param_specs`` / ``opt_state_specs`` :75-113, 231-256 and
+``batch_specs`` :177-200): the model axis takes the serve split above,
+applied to the f32 masters, their gradients and AdamW's ``m`` / ``v``
+alike (``shard_params`` cuts a whole train state: a leaf's rule reads
+its last key); the data axis replicates them and cuts the batch into D
+contiguous row blocks.  Under M > 1 only the dense family trains in
+this slice, and every q and kv head must divide by M (a copied kv head's
+gradient would be a part on each rank).  ``gather_tree`` puts a rank's
+slices back into the whole layout over the model group.  The
+reference's FSDP cut of the weights over ``data`` (``_COL`` / ``_ROW``
+:24-25) is not ported: the masters are replicated over the data group,
+the same numbers in more memory.
 """
 from __future__ import annotations
 
@@ -69,6 +83,7 @@ import dataclasses
 import math
 from typing import Any, Optional, Tuple
 
+from repro_torch import tree as tree_mod
 from repro_torch.configs.base import ModelConfig
 
 _COL = ("wq", "wk", "wv", "w_gate", "w_up", "w_in")
@@ -324,3 +339,106 @@ def shard_leaf(path: tuple, x, cfg: ModelConfig, split: Split):
     if key in ("w_gate", "w_up", "w_in"):
         return _cols(x, *split.ff)
     return _rows(x, *split.ff)                     # w_out
+
+
+# -- training on a (data, model) mesh ----------------------------------------
+# where a training config under M > 1 refuses, and the ROADMAP entry
+TRAIN_FAMILIES = ("dense",)
+_TRAIN_TODO = ("ROADMAP.md section 1, training under tensor parallelism "
+               "for the moe, hybrid, ssm, vlm and encdec families")
+# replicated leaves whose gradient is a part on each model rank: each
+# rank's qk-norm scales meet only its own heads
+PARTIAL_GRAD = ("q_norm", "k_norm")
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainPlan:
+    """One rank's place in a (data, model) mesh of ``data x model`` ranks:
+    ``d`` its data index (its block of the global batch's rows), ``m``
+    its model index, ``split`` its cut of the model (None at model 1)."""
+
+    data: int
+    model: int
+    d: int
+    m: int
+    split: Optional[Split]
+
+
+def train_plan(cfg: ModelConfig, rank: int, data: int, model: int, *,
+               group=None) -> TrainPlan:
+    """Rank ``rank``'s plan in a mesh of ``data x model`` ranks; ``group``
+    (the rank's model group) rides on the split.  Rank ``r`` is at data
+    index ``r // model`` and model index ``r % model``.  Raises
+    ``ValueError`` where the mesh does not hold the rank, where a config
+    of another family than dense is split over ``model`` (naming the
+    ROADMAP entry), where its q or kv heads, MLP width or vocabulary do
+    not divide by ``model``, and where a ``moe`` config is cut over
+    ``data`` (its router loss is a product of two means over the whole
+    batch; a mean of the ranks' losses is not it)."""
+    if data < 1 or model < 1 or not 0 <= rank < data * model:
+        raise ValueError(f"rank {rank} outside a mesh of {data}x{model}")
+    if model > 1 and cfg.family not in TRAIN_FAMILIES:
+        raise ValueError(f"{cfg.name}: training under a model axis of "
+                         f"{model} covers the {', '.join(TRAIN_FAMILIES)} "
+                         f"family; the {cfg.family} family is "
+                         f"{_TRAIN_TODO}")
+    if data > 1 and cfg.moe is not None:
+        raise ValueError(f"{cfg.name}: the moe family under a data axis of "
+                         f"{data}: its router loss E * sum_e f_e * P_e is a "
+                         "product of two means over the whole batch, which "
+                         "no mean of the ranks' losses gives; "
+                         f"{_TRAIN_TODO}")
+    split = None
+    if model > 1:
+        if cfg.n_kv_heads % model:
+            raise ValueError(f"n_kv_heads={cfg.n_kv_heads} does not divide "
+                             f"by the model axis {model}: training keeps "
+                             "no copied kv head")
+        split = plan(cfg, rank % model, model, group=group)
+    return TrainPlan(data, model, rank // model, rank % model, split)
+
+
+def split_axis(path: tuple, cfg: ModelConfig,
+               split: Optional[Split]) -> Optional[int]:
+    """The axis ``shard_leaf`` cuts the dense leaf at ``path`` along under
+    ``split`` (of a param tree or a train state: the rule reads the last
+    key), or None for a replicated leaf."""
+    if split is None or not split.trunk:
+        return None
+    key = path[-1] if path else None
+    if key == "embed":
+        return 0
+    if key in ("lm_head",) + _COL:
+        return -1
+    if key in _ROW:
+        return -2
+    return None
+
+
+def partial_grad(path: tuple) -> bool:
+    """Whether the gradient of the replicated leaf at ``path`` is a part
+    on each model rank (the qk-norm scales), to be summed over the model
+    group."""
+    return bool(path) and path[-1] in PARTIAL_GRAD
+
+
+def gather_tree(tree, cfg: ModelConfig, split: Optional[Split],
+                kind: str = "gather"):
+    """A rank's cut of a tree (params, gradients or a train state) put
+    back into the whole layout: every split leaf all-gathered over the
+    split's group and its slices joined along its axis in rank order, a
+    replicated leaf as it is.  Collective over the model group: every
+    member calls it.  ``split`` None: the tree as it is."""
+    import torch
+
+    if split is None:
+        return tree
+
+    def leaf(path, x):
+        ax = split_axis(path, cfg, split)
+        if ax is None or not isinstance(x, torch.Tensor):
+            return x
+        parts = split.group.all_gather(x.contiguous(), kind)
+        return torch.cat(list(parts), dim=ax)
+
+    return tree_mod.map_tree(leaf, tree)

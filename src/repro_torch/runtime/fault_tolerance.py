@@ -6,10 +6,12 @@ host-side mechanisms around the train step.
   StragglerMonitor   EMA of step wall-time; flags steps slower than
                      ``threshold`` x EMA (logs and counts).
   StepTimer          wall time of a ``with`` block.
-  elastic_reshard    every leaf of a tree onto a device -- the restart
-                     path of a checkpoint restored on the host.  Placing
-                     leaves onto a tensor-parallel split waits for
-                     training under tp.
+  elastic_reshard    a whole tree re-placed onto a device, or onto a
+                     rank's split of a (data, model) mesh (each leaf
+                     cut to the rank's slice on the host first) -- the
+                     restart path of a checkpoint restored on the host,
+                     possibly into another mesh than the one that wrote
+                     it.
 """
 from __future__ import annotations
 
@@ -20,6 +22,7 @@ from typing import Callable, Optional
 import torch
 
 from repro_torch import tree as tree_mod
+from repro_torch.parallel import sharding
 
 
 class PreemptionGuard:
@@ -70,10 +73,19 @@ class StragglerMonitor:
         return is_straggler
 
 
-def elastic_reshard(tree, device):
-    """The tree with every tensor leaf on ``device`` (lists stay lists)."""
-    return tree_mod.map_tree(lambda _, t: torch.as_tensor(t).to(device),
-                             tree)
+def elastic_reshard(tree, device, *, cfg=None, split=None):
+    """The whole ``tree`` (params or a train state, tensors or numpy) with
+    every leaf on ``device`` (lists stay lists); with ``split`` (a
+    ``parallel.sharding.Split`` of ``cfg``, a rank's cut of the model
+    axis) each leaf first cut to the rank's slice
+    (``sharding.shard_leaf``), so only the slice moves -- the
+    reference's ``device_put`` onto new shardings."""
+    def leaf(path, t):
+        if split is not None:
+            t = sharding.shard_leaf(path, t, cfg, split)
+        return torch.as_tensor(t).contiguous().to(device)
+
+    return tree_mod.map_tree(leaf, tree)
 
 
 class StepTimer:

@@ -16,12 +16,20 @@ time out after 5 s, rank 0 serving while the other ranks follow.  The
 MoE family rides the same ranks: phi3.5-moe's smoke config (4 experts,
 top-2) at tp 2 and tp 4, llama4-maverick's (``(attn, moe)`` units, a
 shared expert, top-1) at tp 2, each rank holding its range of experts
-(``parallel.moe_ep``) against the JAX engine unsharded.
+(``parallel.moe_ep``) against the JAX engine unsharded.  So does
+training on a (data, model) mesh: qwen3's smoke config at 1x2 and 2x1
+(world 2) and 2x2 (world 4), held to the JAX package's single-device
+``make_train_step`` in this process and, at 2x2, to
+``repro.launch.train.train`` on a ``(2, 2)`` mesh of four forced host
+devices (a subprocess beside the ranks); then a 2x2 checkpoint read at
+1x1 and by ``repro.checkpoint``, and ``pipeline_apply`` over 4 ranks.
 
 Tolerances: tokens are compared exactly.  The sharded heads' ids are
 compared exactly and their values at rtol 1e-5 (f32: the frameworks sum
 D in another order); across the ranks of one group every output must be
-identical.
+identical.  Training (f32, as ``tests/test_torch_train.py``): each
+step's loss within 1e-5, its grad_norm at rtol 1e-5, each gradient leaf
+within 5e-5 of its largest |value|.
 """
 import dataclasses
 import json
@@ -480,6 +488,140 @@ RANK_SCRIPT = textwrap.dedent(r'''
             return {"tokens": [list(r.generated) for r in reqs],
                     "tp": eng.tp, "trunk_heads": eng.cfg.n_heads}
 
+    # -- training on a (data, model) mesh of this world's ranks: the
+    # bridged qwen3 smoke tree, the global batches of TokenPipeline
+    # (train.json: the shape, AdamW's settings, a loss mask)
+    from repro_torch import tree as tree_mod
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.data.pipeline import DataConfig, TokenPipeline
+    from repro_torch.launch import steps as steps_mod
+    from repro_torch.launch import train as train_mod
+    from repro_torch.optim import optimizer as opt_mod
+    from repro_torch.parallel.pipeline import pipeline_apply
+
+    with open(f"{d}/train.json") as f:
+        tc = json.load(f)
+    tshape = ShapeSpec("t", tc["seq"], tc["batch"], "train")
+
+    def opt_cfg(**kw):
+        return opt_mod.AdamWConfig(lr=tc["lr"], warmup_steps=tc["warmup"],
+                                   total_steps=tc["total"], **kw)
+
+    def save_tree(name, t):
+        np.savez(f"{d}/{name}.npz", **{tree_mod.key(p): x.detach().numpy()
+                                       for p, x in tree_mod.items(t)})
+
+    def fresh(mesh):
+        # the rank's own copy of its slice (a row slice is a view)
+        return tree_mod.map_tree(lambda _, t: t.clone(), mesh.shard(params))
+
+    def mesh_bytes(mesh):
+        out = {}
+        for grp in (mesh.data, mesh.model):
+            for k, n in (grp.bytes if grp is not None else {}).items():
+                out[k] = out.get(k, 0) + n
+        return out
+
+    def train_mesh(D, M):
+        mesh = steps_mod.make_mesh(cfg, g, D, M)
+        tag = f"{D}x{M}"
+        pipe = TokenPipeline(DataConfig(vocab_size=cfg.vocab_size), cfg,
+                             tshape, "cpu", data=D, d=mesh.plan.d)
+        res = {"d": mesh.plan.d, "m": mesh.plan.m, "rows": pipe.rows.tolist(),
+               "data_ranks": list(mesh.data.ranks) if mesh.data else None,
+               "model_ranks": list(mesh.model.ranks) if mesh.model else None}
+        # the first step's gradients, each rank's part, then made whole
+        # (the qk-norm parts summed over the model group) and gathered
+        mine = fresh(mesh)
+        loss, grads = steps_mod.rank_grads(mine, mesh.cfg, pipe.batch(0),
+                                           data=mesh.data)
+        res["q_norm_part"] = grads["decoder"][0]["slot0"]["attn"][
+            "q_norm"].tolist()
+        steps_mod.complete_grads(loss, grads, mesh)
+        whole = mesh.gather(grads)
+        if rank == 0:
+            save_tree(f"grads_{tag}", whole)
+        # three AdamW steps, the bytes of each by kind
+        state = {"params": mine, "opt": opt_mod.init_state(opt_cfg(), mine)}
+        step = steps_mod.make_train_step(mesh.cfg, opt_cfg(), mesh)
+        losses, norms = [], []
+        for s in range(tc["steps"]):
+            b0 = mesh_bytes(mesh)
+            state, m = step(state, pipe.batch(s))
+            losses.append(float(m["loss"]))
+            norms.append(float(m["grad_norm"]))
+            res["step_bytes"] = {k: n - b0.get(k, 0)
+                                 for k, n in mesh_bytes(mesh).items()
+                                 if n - b0.get(k, 0)}
+        res.update(losses=losses, norms=norms)
+        # a masked loss whose token counts differ between the data shards
+        mask = torch.tensor(tc["mask"], dtype=torch.float32)[pipe.rows]
+        mb = dict(pipe.batch(0), loss_mask=mask)
+        mloss, mgrads = steps_mod.loss_and_grads(fresh(mesh), mesh.cfg, mb,
+                                                 mesh)
+        res.update(masked_loss=float(mloss), mask_count=float(mask.sum()))
+        mwhole = mesh.gather(mgrads)
+        if rank == 0:
+            save_tree(f"masked_{tag}", mwhole)
+        # the factored second moment: taken at model 1, refused under a
+        # split model axis
+        try:
+            fstep = steps_mod.make_train_step(
+                mesh.cfg, opt_cfg(factored=True), mesh)
+            fp = fresh(mesh)
+            fstate = {"params": fp,
+                      "opt": opt_mod.init_state(opt_cfg(factored=True), fp)}
+            fl = []
+            for s in range(2):
+                fstate, fm = fstep(fstate, pipe.batch(s))
+                fl.append([float(fm["loss"]), float(fm["grad_norm"])])
+            res["factored"] = {"steps": fl}
+        except ValueError as e:
+            res["factored"] = {"refused": str(e)}
+        return res, mesh
+
+    if world == 2:
+        for D, M in ((1, 2), (2, 1)):
+            scenario(lambda D=D, M=M: train_mesh(D, M)[0],
+                     f"train_{D}x{M}")
+
+    if world == 4:
+        @scenario
+        def train_2x2():
+            res, mesh = train_mesh(2, 2)
+            # launch.train.train on the mesh for 2 steps, a checkpoint
+            # of the whole layout written at step 2 by rank 0; every rank
+            # then restores it straight into its own slice
+            st, losses = train_mod.train(
+                cfg, tshape, opt_cfg(), mesh=mesh, steps=2,
+                ckpt_dir=f"{d}/ckpt", ckpt_every=2, params=params,
+                log=lambda *a: None)
+            g.agree(2, "the checkpoint written")
+            back = CheckpointManager(f"{d}/ckpt").restore(
+                2, steps_mod.train_state_struct(cfg, opt_cfg()), cfg=cfg,
+                split=mesh.split)
+            res["train_losses"] = losses
+            res["restored_equal"] = all(
+                torch.equal(a, b) for a, b in zip(tree_mod.leaves(st),
+                                                  tree_mod.leaves(back)))
+            return res
+
+        @scenario
+        def pipeline():
+            # GPipe over the 4 ranks: stage s is tanh(x @ W_s + b_s)
+            rng = np.random.default_rng(21)
+            ws = rng.standard_normal((4, 8, 8)).astype(np.float32) * 0.5
+            bs = rng.standard_normal((4, 8)).astype(np.float32) * 0.1
+            x = rng.standard_normal((8, 8)).astype(np.float32)
+            b0 = dict(g.bytes)
+            y = pipeline_apply(
+                lambda p, h: torch.tanh(h @ p[0] + p[1]),
+                (torch.from_numpy(ws[rank]), torch.from_numpy(bs[rank])),
+                torch.from_numpy(x), g, n_microbatches=4)
+            return {"y": y.tolist(),
+                    "pipe_bytes": g.bytes.get("pipe", 0) - b0.get("pipe", 0)}
+
     with open(f"{d}/out{world}_{rank}.json", "w") as f:
         json.dump(out, f)
     g.close()
@@ -709,6 +851,85 @@ def _psum_inputs(world=4):
     return out
 
 
+# training on a mesh: qwen3's smoke config, a global batch of 4 x 16 from
+# TokenPipeline (DataConfig seed 0), AdamW as launch.train's CLI builds
+# it (lr 3e-3, warmup 10, total 10; clip 1.0, which the first step's
+# norm of ~4.3 crosses), 3 steps; the loss mask keeps 3 tokens of data
+# shard 0's rows and 30 of shard 1's
+TRAIN = dict(batch=4, seq=16, steps=3, lr=3e-3, warmup=10, total=10)
+TRAIN_MESHES = {"1x2": 2, "2x1": 2, "2x2": 4}
+LOSS_TOL = 1e-5               # f32, as tests/test_torch_train.py
+GRAD_TOL = 5e-5               # of each leaf's largest |value|
+
+
+def _train_mask():
+    mask = np.zeros((TRAIN["batch"], TRAIN["seq"]), np.float32)
+    mask[0, [1, 5]] = mask[1, 9] = 1                     # shard 0: 3
+    mask[2:, 1:] = 1                                     # shard 1: 30
+    return mask
+
+
+# the reference's own run on a (2, 2) mesh of forced host devices:
+# repro.launch.train.train, 3 steps, its losses to argv[1]
+JAX_MESH_SCRIPT = textwrap.dedent(r'''
+    import json, sys
+    import jax
+    from repro.configs import ARCHS, smoke_config
+    from repro.configs.base import ShapeSpec
+    from repro.launch.mesh import make_mesh
+    from repro.launch.train import train
+    from repro.optim import optimizer as opt_mod
+
+    t = json.loads(sys.argv[2])
+    cfg = smoke_config(ARCHS["qwen3-0.6b"])
+    opt = opt_mod.AdamWConfig(lr=t["lr"], warmup_steps=t["warmup"],
+                              total_steps=t["total"])
+    _, losses = train(cfg, ShapeSpec("t", t["seq"], t["batch"], "train"),
+                      opt, mesh=make_mesh((2, 2), ("data", "model")),
+                      steps=t["steps"], log=lambda *a: None)
+    with open(sys.argv[1], "w") as f:
+        json.dump({"losses": losses, "devices": len(jax.devices())}, f)
+''')
+
+
+def _jax_train(jparams):
+    """The JAX package's single-device step on the mesh runs' global
+    batches: each step's loss and grad_norm, the first step's gradients,
+    the masked loss's and its gradients, and two steps of the factored
+    second moment."""
+    from repro.launch import steps as jsteps
+    from repro.models import api as japi
+    from repro.optim import optimizer as jopt
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.data.pipeline import DataConfig, TokenPipeline
+
+    pipe = TokenPipeline(DataConfig(vocab_size=TCFG.vocab_size), TCFG,
+                         ShapeSpec("t", TRAIN["seq"], TRAIN["batch"],
+                                   "train"))
+    batches = [{k: jnp.asarray(v.numpy()) for k, v in pipe.batch(s).items()}
+               for s in range(TRAIN["steps"])]
+    out = {}
+    for name, factored in (("plain", False), ("factored", True)):
+        opt = jopt.AdamWConfig(lr=TRAIN["lr"], warmup_steps=TRAIN["warmup"],
+                               total_steps=TRAIN["total"], factored=factored)
+        step = jax.jit(jsteps.make_train_step(JCFG, opt))
+        state = {"params": jparams, "opt": jopt.init_state(opt, jparams)}
+        res = []
+        for b in batches[:2 if factored else None]:
+            state, m = step(state, b)
+            res.append((float(m["loss"]), float(m["grad_norm"])))
+        out[name] = res
+    vg = jax.jit(jax.value_and_grad(
+        lambda p, b: japi.train_loss(p, JCFG, b)))
+    _, g = vg(jparams, batches[0])
+    out["grads"] = jax.tree.map(np.asarray, g)
+    mloss, mg = vg(jparams, dict(batches[0],
+                                 loss_mask=jnp.asarray(_train_mask())))
+    out["masked_loss"], out["masked"] = float(mloss), jax.tree.map(
+        np.asarray, mg)
+    return out
+
+
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
     """Both groups' results and the JAX side's, computed once."""
@@ -725,6 +946,15 @@ def runs(tmp_path_factory):
     np.savez(d / "heads.npz", **heads)
     np.savez(d / "psum.npz", **_psum_inputs())
     np.savez(d / "vlm.npz", **_vlm_inputs())
+    (d / "train.json").write_text(json.dumps(
+        dict(TRAIN, mask=_train_mask().tolist())))
+    (d / "jax_mesh.py").write_text(JAX_MESH_SCRIPT)
+    jmesh = subprocess.Popen(
+        [sys.executable, str(d / "jax_mesh.py"), str(d / "jax_mesh.json"),
+         json.dumps(TRAIN)], stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True, env=dict(
+            os.environ, PYTHONPATH=str(ROOT / "src"), JAX_PLATFORMS="cpu",
+            XLA_FLAGS="--xla_force_host_platform_device_count=4"))
     arch_params = {}
     for arch in MOE_ARCHS + FAMILY_ARCHS:
         arch_params[arch] = jlm.init_params(j_smoke(J_ARCHS[arch]),
@@ -740,8 +970,18 @@ def runs(tmp_path_factory):
                                 chunk_size=None),
             "preempt": _jax_preempt(jparams), "tie": _jax_tie(jtie),
             **{a: _jax_arch(a, p) for a, p in arch_params.items()},
-            "vlm_prefix": _jax_vlm_prefix(arch_params["internvl2-26b"])}
+            "vlm_prefix": _jax_vlm_prefix(arch_params["internvl2-26b"]),
+            "train": _jax_train(jparams)}
     got = {world: _wait(p, world, d) for world, p in procs.items()}
+    try:
+        _, err = jmesh.communicate(timeout=RANK_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        jmesh.kill()
+        pytest.fail(f"the reference's (2, 2) mesh run ran past "
+                    f"{RANK_TIMEOUT_S} s")
+    assert jmesh.returncode == 0, err[-3000:]
+    want["jax_mesh"] = json.loads((d / "jax_mesh.json").read_text())
+    want["dir"] = d
     return got, want, heads
 
 
@@ -1351,3 +1591,208 @@ def test_a_silent_rank_fails_the_group_within_its_timeout(runs):
         res = _ok(got[2][r], "silent")
         assert res["raised"], res
         assert res["seconds"] < 2 * IDLE_TIMEOUT_S + 5, res
+
+
+# -- training on a (data, model) mesh -----------------------------------------
+def _mesh_res(runs, mesh: str) -> list:
+    """Every rank's result of the mesh's training scenario."""
+    got, _, _ = runs
+    return [_ok(r, f"train_{mesh}") for r in got[TRAIN_MESHES[mesh]]]
+
+
+def _grads_close(d, name, want_tree):
+    """The gathered gradients rank 0 wrote against the JAX tree, each leaf
+    within GRAD_TOL of its largest |value|."""
+    got = np.load(d / f"{name}.npz")
+    leaves = _named_leaves(want_tree)
+    assert set(got.files) == {"/".join(k) for k, _ in leaves}
+    for k, want in leaves:
+        g = got["/".join(k)]
+        assert g.shape == want.shape, k
+        scale = max(float(np.abs(want).max()), 1e-3)
+        assert float(np.abs(g - want).max()) <= GRAD_TOL * scale, k
+
+
+@pytest.mark.parametrize("mesh", list(TRAIN_MESHES))
+def test_mesh_training_matches_the_jax_single_device_step(runs, mesh):
+    """qwen3-0.6b's smoke config trained on a (data, model) mesh of
+    gloo ranks (bridged weights, TokenPipeline's global batches, 3 AdamW
+    steps): every step's loss and grad_norm are the JAX package's
+    single-device ``make_train_step``'s (loss within 1e-5, grad_norm at
+    rtol 1e-5; the first step's norm, ~4.3, crosses the clip at 1.0), and
+    the first step's gradients, gathered to the whole layout, are its
+    gradients, every leaf within 5e-5 of its largest |value|.  Every rank
+    reports the same losses."""
+    _, want, _ = runs
+    res = _mesh_res(runs, mesh)
+    jt = want["train"]["plain"]
+    for r in res:
+        assert r["losses"] == res[0]["losses"]
+        assert r["norms"] == res[0]["norms"]
+    for (jl, jn), loss, norm in zip(jt, res[0]["losses"], res[0]["norms"]):
+        assert abs(loss - jl) <= LOSS_TOL
+        assert abs(norm - jn) <= RTOL * jn
+    assert jt[0][1] > 1.0 and res[0]["norms"][0] > 1.0   # clipped
+    _grads_close(want["dir"], f"grads_{mesh}", want["train"]["grads"])
+
+
+@pytest.mark.parametrize("mesh", ["2x1", "2x2"])
+def test_mesh_masked_loss_with_uneven_counts_matches_jax(runs, mesh):
+    """A loss mask that keeps 3 tokens of data shard 0's rows and 30 of
+    shard 1's: the loss is the global masked sum over the GLOBAL count
+    (all-reduced over the data group), so the mesh gives JAX's masked
+    loss and gradients; a mean of the shards' means would weigh shard
+    0's 3 tokens as much as shard 1's 30."""
+    _, want, _ = runs
+    res = _mesh_res(runs, mesh)
+    counts = sorted({r["mask_count"] for r in res})
+    assert counts == [3.0, 30.0]
+    for r in res:
+        assert abs(r["masked_loss"] - want["train"]["masked_loss"]) \
+            <= LOSS_TOL
+    _grads_close(want["dir"], f"masked_{mesh}", want["train"]["masked"])
+
+
+def test_mesh_qk_norm_gradient_needs_its_model_group_sum(runs):
+    """At 1x2 each rank's qk-norm scale gradient, before the model
+    group's sum, is its own heads' part, which misses JAX's gradient by
+    far; the summed gradient (checked leaf for leaf in
+    ``test_mesh_training_matches_the_jax_single_device_step``) is
+    JAX's."""
+    _, want, _ = runs
+    jq = np.asarray(want["train"]["grads"]["decoder"][0]["slot0"]["attn"][
+        "q_norm"])
+    parts = [np.asarray(r["q_norm_part"], np.float32)
+             for r in _mesh_res(runs, "1x2")]
+    scale = np.abs(jq).max()
+    for p in parts:
+        assert np.abs(p - jq).max() > 0.05 * scale
+    assert np.abs(parts[0] + parts[1] - jq).max() <= GRAD_TOL * scale
+
+
+def test_mesh_factored_is_matched_at_model_1_and_refused_under_a_split(runs):
+    """``factored=True``: at 2x1 (no split) two steps give the JAX
+    package's factored losses and norms; at 1x2 and 2x2 the step refuses
+    it, naming the means a split would cut."""
+    _, want, _ = runs
+    jf = want["train"]["factored"]
+    for r in _mesh_res(runs, "2x1"):
+        for (jl, jn), (loss, norm) in zip(jf, r["factored"]["steps"]):
+            assert abs(loss - jl) <= LOSS_TOL
+            assert abs(norm - jn) <= RTOL * jn
+    for mesh in ("1x2", "2x2"):
+        for r in _mesh_res(runs, mesh):
+            assert "factored=True under a split" in r["factored"]["refused"]
+
+
+def test_mesh_groups_rows_and_step_bytes(runs):
+    """The mesh's layout and traffic: at 2x2 rank ``r``'s model group is
+    ranks {2 (r // 2), 2 (r // 2) + 1} and its data group {r mod 2, r mod
+    2 + 2} (the strided split), its rows of the global batch its data
+    index's block.  A step's bytes by kind, f32 at smoke size (64 rows a
+    data shard at D 1, 32 at D 2; d 64; no remat): the embedding's one
+    all-reduce, the trunk's 2 layers x (2 forward + 2 backward), the
+    head's input gradient, each rows x 64 x 4 bytes; the qk-norm parts
+    (2 layers x 2 x 16 f32) and the global norm's one scalar; the data
+    group's gradient sum every leaf of the rank's slice in f32."""
+    from repro_torch.parallel import sharding as shd
+
+    for r, res in enumerate(_mesh_res(runs, "2x2")):
+        assert res["model_ranks"] == [2 * (r // 2), 2 * (r // 2) + 1]
+        assert res["data_ranks"] == [r % 2, r % 2 + 2]
+        assert (res["d"], res["m"]) == (r // 2, r % 2)
+        assert res["rows"] == [2 * (r // 2), 2 * (r // 2) + 1]
+    full = shd.rank_param_count(TCFG, shd.plan(TCFG, 0, 1))
+    half = shd.rank_param_count(TCFG, shd.plan(TCFG, 0, 2))
+    for mesh, rows, grad in (("1x2", 64, 0), ("2x1", 32, full),
+                             ("2x2", 32, half)):
+        got = _mesh_res(runs, mesh)[0]["step_bytes"]
+        act = rows * TCFG.d_model * 4
+        want = {"digest": got.get("digest")}
+        if mesh != "2x1":
+            want.update(embed=act, trunk=TCFG.n_layers * 4 * act, head=act,
+                        norm=TCFG.n_layers * 2 * TCFG.head_dim * 4 + 4,
+                        loss=rows * 2 * 2 * 4 + rows * 4)
+        if grad:
+            want["grad"] = grad * 4
+            want["loss"] = want.get("loss", 0) + 4
+        want = {k: v for k, v in want.items() if v}
+        assert got == want, (mesh, got, want)
+
+
+def test_mesh_2x2_losses_match_the_reference_on_its_own_2x2_mesh(runs):
+    """``repro.launch.train.train`` on a ``(2, 2)`` mesh of four forced
+    host devices (its pjit over ``train_specs``): its three losses are
+    the port's 2x2 losses within 1e-5, and ``launch.train.train`` on the
+    port's mesh gives the same first two losses as its step."""
+    _, want, _ = runs
+    ref = want["jax_mesh"]
+    assert ref["devices"] == 4
+    res = _mesh_res(runs, "2x2")
+    for a, b in zip(ref["losses"], res[0]["losses"]):
+        assert abs(a - b) <= LOSS_TOL
+    for r in res:
+        assert r["train_losses"] == r["losses"][:2]
+
+
+def test_mesh_2x2_checkpoint_reads_at_1x1_and_in_the_jax_package(runs,
+                                                                 tmp_path):
+    """A checkpoint written at 2x2 (the whole layout, by rank 0, at step
+    2): every rank restored it straight into its slice, bit for bit its
+    live state; a 1x1 run of the port resumes from it and its next step's
+    loss is the uninterrupted 2x2 run's third; ``repro.checkpoint``
+    reads it, leaf for leaf the port's restore."""
+    import shutil
+
+    from repro.checkpoint.manager import CheckpointManager as JManager
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.launch import steps as steps_mod
+    from repro_torch.launch import train as train_mod
+    from repro_torch.optim import optimizer as opt_mod
+
+    _, want, _ = runs
+    res = _mesh_res(runs, "2x2")
+    assert all(r["restored_equal"] for r in res)
+    ckpt = tmp_path / "ckpt"
+    shutil.copytree(want["dir"] / "ckpt", ckpt)
+    opt = opt_mod.AdamWConfig(lr=TRAIN["lr"], warmup_steps=TRAIN["warmup"],
+                              total_steps=TRAIN["total"])
+    whole = CheckpointManager(ckpt).restore(
+        2, steps_mod.train_state_struct(TCFG, opt))
+    from repro.launch import steps as jsteps
+    from repro.optim import optimizer as jopt
+
+    jstate = JManager(ckpt).restore(2, jsteps.train_state_struct(
+        JCFG, jopt.AdamWConfig()))
+    for (path, a), (_, b) in zip(_named_leaves(jax.tree.map(
+            np.asarray, jstate)), _named_leaves(jax.tree.map(
+                lambda t: t.numpy(), whole))):
+        np.testing.assert_array_equal(a, b, err_msg=str(path))
+    _, losses = train_mod.train(
+        TCFG, ShapeSpec("t", TRAIN["seq"], TRAIN["batch"], "train"), opt,
+        device="cpu", steps=3, ckpt_dir=ckpt, log=lambda *a: None)
+    assert len(losses) == 1
+    assert abs(losses[0] - res[0]["losses"][2]) <= LOSS_TOL
+
+
+def test_pipeline_apply_matches_the_stages_in_sequence(runs):
+    """``parallel.pipeline.pipeline_apply`` over 4 gloo ranks, 4
+    microbatches of 2: every rank's result is ``tanh(x @ W_s + b_s)``
+    applied for s = 0..3 in sequence on the whole batch (within 1e-6:
+    BLAS may round a (2, 8) product otherwise than an (8, 8) one), and
+    the activations moved are 3 stages x 4 microbatches sent plus the
+    broadcast."""
+    got, _, _ = runs
+    rng = np.random.default_rng(21)
+    ws = rng.standard_normal((4, 8, 8)).astype(np.float32) * 0.5
+    bs = rng.standard_normal((4, 8)).astype(np.float32) * 0.1
+    h = torch.from_numpy(rng.standard_normal((8, 8)).astype(np.float32))
+    for s in range(4):
+        h = torch.tanh(h @ torch.from_numpy(ws[s]) + torch.from_numpy(bs[s]))
+    for r, res in enumerate(got[4]):
+        p = _ok(res, "pipeline")
+        np.testing.assert_allclose(np.asarray(p["y"], np.float32),
+                                   h.numpy(), atol=1e-6, rtol=0)
+        sent = 4 * 2 * 8 * 4 if r < 3 else 0
+        assert p["pipe_bytes"] == sent + 8 * 8 * 4

@@ -431,13 +431,16 @@ def test_train_then_serve_reduced_equals_softmax():
 
 def test_cli_trains_and_refuses_a_mesh_and_a_missing_card():
     """``python -m repro_torch.launch.train``: three steps of the smoke
-    config on the CPU; ``--mesh 2x1`` raises naming ROADMAP.md's entry;
-    ``--device cuda`` (the default) raises where there is no card."""
+    config on the CPU; ``--mesh 2x1`` outside a launch of two ranks
+    raises naming the world it needs (the mesh runs themselves are in
+    ``tests/test_torch_tp.py``'s rank spawns); ``--device cuda`` (the
+    default) raises where there is no card."""
     _, losses = train_mod.main(["--arch", "qwen3-0.6b", "--smoke",
                                 "--device", "cpu", "--steps", "3",
                                 "--batch", "2", "--seq", "16"])
     assert len(losses) == 3 and all(np.isfinite(losses))
-    with pytest.raises(ValueError, match="ROADMAP.md"):
+    with pytest.raises(ValueError, match="a mesh of 2x1 needs 2 ranks; "
+                       "the world has 1"):
         train_mod.main(["--arch", "qwen3-0.6b", "--smoke", "--device", "cpu",
                         "--mesh", "2x1"])
     if not torch.cuda.is_available():

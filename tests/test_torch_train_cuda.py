@@ -84,3 +84,59 @@ def test_card_kernels_without_a_backward_raise(dev):
     (want,) = torch.autograd.grad(ref.flash_attention(
         qc, kv.cpu(), kv.cpu()).sum(), qc)
     torch.testing.assert_close(gq.cpu(), want, rtol=1e-4, atol=1e-4)
+
+
+class _Loopback:
+    """A group of one rank on the card (the slice is the whole of what
+    this process holds): ``all_gather`` stacks, ``all_reduce_sum`` keeps
+    -- enough to run the vocabulary-parallel loss's kernels on one
+    slice."""
+
+    world, rank = 1, 0
+
+    def __init__(self):
+        self.bytes = {}
+
+    def all_gather(self, x, kind):
+        return x[None].clone()
+
+    def all_reduce_sum(self, x, kind):
+        return x
+
+
+@pytest.mark.parametrize("v", [75968, 37984])
+def test_vocab_parallel_loss_kernels_match_their_plain_composition(v, dev):
+    """The vocabulary-parallel loss on a (4,096, V / M) f32 slice at M 2
+    and 4 of qwen3's vocabulary (``api.vocab_parallel_xent``: the stats
+    kernel forward, the softmax kernel times ``l_r exp(m_r - lse)``
+    backward), half its labels outside the slice, against the plain
+    composition on the card: ``logsumexp(x) - x[label]`` (0 where the
+    label lies elsewhere) within 1e-5, and ``(exp(x - lse) - onehot) *
+    g`` within 1e-6; and two slices' kernel stats merged
+    (``api.merge_stats``) equal the whole row's logsumexp within 1e-5,
+    bitwise the same on repeat."""
+    from repro_torch.models import api
+
+    gen = torch.Generator(device=dev).manual_seed(33)
+    x = torch.randn((4096, v), generator=gen, device=dev) * 4
+    lab = torch.randint(0, 2 * v, (4096,), generator=gen, device=dev)
+    g = torch.rand((4096,), generator=gen, device=dev)
+    xs = x.clone().requires_grad_(True)
+    loss = api.vocab_parallel_xent(xs, lab, _Loopback(), 0)
+    (grad,) = torch.autograd.grad(loss, xs, g)
+    lse = torch.logsumexp(x.double(), -1)
+    mine = lab < v
+    pick = torch.where(mine, x.double()[torch.arange(4096, device=dev),
+                                        lab.clamp(max=v - 1)], 0.0)
+    torch.testing.assert_close(loss.double(), lse - pick, rtol=0,
+                               atol=1e-5)
+    want = torch.exp(x.double() - lse[:, None])
+    rows = torch.nonzero(mine).reshape(-1)
+    want[rows, lab[rows]] -= 1
+    want *= g.double()[:, None]
+    torch.testing.assert_close(grad.double(), want, rtol=0, atol=1e-6)
+    halves = [x[:, :v // 2].contiguous(), x[:, v // 2:].contiguous()]
+    merged = [api.merge_stats(torch.stack([torch.stack(
+        ops.softmax_stats(h), 1) for h in halves])) for _ in range(2)]
+    assert torch.equal(merged[0], merged[1])
+    torch.testing.assert_close(merged[0].double(), lse, rtol=0, atol=1e-5)

@@ -1,0 +1,360 @@
+"""Training on a (data, model) mesh, the plain parts on the CPU: the
+vocabulary-parallel loss over simulated slices against the JAX package's
+``xent_loss``, the split's gather, the refusals, the data shards, the
+digest, a checkpoint restored into a slice and the pipeline's bubble.
+
+The mesh runs themselves (qwen3-0.6b's smoke config at 1x2, 2x1 and 2x2
+against the JAX package's single-device step and its own ``(2, 2)``
+mesh) ride ``tests/test_torch_tp.py``'s rank spawns.
+
+A simulated group is threads of one process (``ThreadGroup``): each
+thread a rank holding its vocabulary slice, the collectives through a
+barrier, summed in rank order -- the numbers a gloo group gives.
+
+Tolerances (f32): the loss within 1e-6 of JAX's, the logits' gradient
+within 1e-6 of its largest |value| (the merge of the slices' stats sums
+``exp`` in another order than one pass over the row).
+"""
+import threading
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+
+from repro.configs import ARCHS as J_ARCHS, smoke_config as j_smoke  # noqa: E402
+from repro.models import api as japi  # noqa: E402
+from repro.models import lm as jlm  # noqa: E402
+from repro_torch import tree as tree_mod  # noqa: E402
+from repro_torch import weights  # noqa: E402
+from repro_torch.checkpoint.manager import CheckpointManager  # noqa: E402
+from repro_torch.configs import get_config, smoke_config  # noqa: E402
+from repro_torch.configs.base import ShapeSpec  # noqa: E402
+from repro_torch.data.pipeline import DataConfig, TokenPipeline  # noqa: E402
+from repro_torch.launch import steps as steps_mod  # noqa: E402
+from repro_torch.models import api as tapi  # noqa: E402
+from repro_torch.optim import optimizer as topt  # noqa: E402
+from repro_torch.parallel import comm, sharding  # noqa: E402
+from repro_torch.parallel.pipeline import bubble_fraction  # noqa: E402
+from repro_torch.runtime.fault_tolerance import elastic_reshard  # noqa: E402
+
+torch.set_num_threads(2)
+
+LOSS_TOL = 1e-6
+GRAD_TOL = 1e-6
+QWEN = smoke_config(get_config("qwen3-0.6b"))
+
+
+class ThreadGroup:
+    """Rank ``rank`` of ``world`` threads: ``all_gather`` and
+    ``all_reduce_sum`` (in rank order) through a shared barrier, bytes
+    counted as ``comm.Group`` counts them."""
+
+    def __init__(self, shared: dict, rank: int):
+        self.shared, self.rank = shared, rank
+        self.world = shared["world"]
+        self.bytes = {}
+
+    @classmethod
+    def make(cls, world: int) -> list:
+        shared = {"world": world, "slots": [None] * world,
+                  "barrier": threading.Barrier(world)}
+        return [cls(shared, r) for r in range(world)]
+
+    def all_gather(self, x, kind):
+        s = self.shared
+        s["slots"][self.rank] = x.clone()
+        s["barrier"].wait()
+        out = torch.stack(list(s["slots"]))
+        s["barrier"].wait()
+        self.bytes[kind] = self.bytes.get(kind, 0) + out.numel() * 4
+        return out
+
+    def all_reduce_sum(self, x, kind):
+        parts = self.all_gather(x, kind)
+        total = parts[0].clone()
+        for p in parts[1:]:
+            total += p
+        return x.copy_(total)
+
+
+def _run_ranks(world: int, fn) -> list:
+    """``fn(group)`` in ``world`` threads, one a rank; their results in
+    rank order (an exception in any thread re-raised)."""
+    groups = ThreadGroup.make(world)
+    out, errs = [None] * world, []
+
+    def body(g):
+        try:
+            out[g.rank] = fn(g)
+        except Exception as e:          # noqa: BLE001 -- re-raised below
+            errs.append(e)
+            g.shared["barrier"].abort()
+
+    threads = [threading.Thread(target=body, args=(g,)) for g in groups]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(60)
+    if errs:
+        raise errs[0]
+    return out
+
+
+def _xent_inputs(rows=12, v=256, world=4, seed=3):
+    """Logits (rows, v) f32 with a wide spread, and labels that sit on
+    every slice's first and last id (for 2 and 4 slices), in the last
+    slice, and anywhere."""
+    rng = np.random.default_rng(seed)
+    x = (rng.standard_normal((rows, v)) * 4).astype(np.float32)
+    per = v // world
+    edges = [0, per - 1, per, 2 * per - 1, 2 * per, v - per, v - 1]
+    labels = np.array(edges + list(rng.integers(0, v, rows - len(edges))),
+                      np.int32)
+    mask = (rng.random(rows) < 0.7).astype(np.float32)
+    return x, labels, mask
+
+
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("world", [1, 2, 4])
+def test_vocab_parallel_loss_matches_jax_xent_loss(world, masked):
+    """``api.xent_loss(split=...)`` over ``world`` simulated vocabulary
+    slices -- the stats of each slice all-gathered and merged, the label
+    logit picked by the rank that holds it (labels on slice edges and in
+    the last slice) -- gives JAX's ``xent_loss`` on every rank, and the
+    slices' gradients put side by side give JAX's gradient of the whole
+    logits, with and without a mask.  One slice (world 1) is the whole
+    vocabulary, through ``ops.softmax_xent``."""
+    x, labels, mask = _xent_inputs()
+    v = x.shape[1]
+    jm = jnp.asarray(mask) if masked else None
+    want, wgrad = jax.value_and_grad(
+        lambda lg: japi.xent_loss(lg, jnp.asarray(labels), jm))(
+            jnp.asarray(x))
+
+    def rank(g):
+        lo, hi = g.rank * v // world, (g.rank + 1) * v // world
+        split = sharding.Split(g.rank, world, True, (0, 1), (0, 1), (0, 1),
+                               (lo, hi), group=g)
+        xl = torch.from_numpy(x[:, lo:hi].copy()).requires_grad_(True)
+        loss = tapi.xent_loss(xl, torch.from_numpy(labels).long(),
+                              torch.from_numpy(mask) if masked else None,
+                              split=split)
+        loss.backward()
+        return float(loss.detach()), xl.grad.numpy(), g.bytes
+
+    res = _run_ranks(world, rank)
+    for loss, _, _ in res:
+        assert abs(loss - float(want)) <= LOSS_TOL * max(1, abs(float(want)))
+    grad = np.concatenate([g for _, g, _ in res], axis=1)
+    wg = np.asarray(wgrad)
+    assert np.abs(grad - wg).max() <= GRAD_TOL * np.abs(wg).max()
+    # the loss's traffic: (m, l) pairs all-gathered and one label
+    # all-reduce, rows x (2 x world + world) x 4 bytes, never rows x V;
+    # one slice is the whole vocabulary, through the cross-entropy path
+    want_bytes = x.shape[0] * (2 * world + world) * 4
+    assert res[0][2] == ({"loss": want_bytes} if world > 1 else {})
+
+
+def test_merge_of_slice_stats_is_bitwise_on_repeat():
+    """``api.merge_stats`` of the same (ranks, rows, 2) stats gives the
+    same bits every time, and equals the row's logsumexp within one
+    f32 rounding per slice."""
+    x, _, _ = _xent_inputs(rows=64)
+    t = torch.from_numpy(x)
+    stats = torch.stack([torch.stack([s.amax(1), torch.exp(
+        s - s.amax(1, keepdim=True)).sum(1)], 1) for s in t.chunk(4, 1)])
+    a, b = tapi.merge_stats(stats), tapi.merge_stats(stats.clone())
+    assert torch.equal(a, b)
+    want = torch.logsumexp(t.double(), 1).float()
+    assert torch.allclose(a, want, rtol=4 * 2.0 ** -23, atol=0)
+
+
+def test_split_leaves_gather_back_to_the_whole_tree():
+    """``weights.shard_params`` of a whole train state (params and AdamW's
+    m / v) at a model axis of 2, then ``sharding.gather_tree`` over a
+    simulated group, is the whole state bit for bit; each split leaf's
+    axis is the one ``shard_leaf`` cut."""
+    host = weights.seeded_params(QWEN, 5, "cpu")
+    opt = topt.AdamWConfig()
+    state = {"params": host, "opt": topt.init_state(opt, host)}
+    state["opt"]["m"] = tree_mod.map_tree(
+        lambda _, t: torch.randn_like(t), state["opt"]["m"])
+
+    def rank(g):
+        split = sharding.plan(QWEN, g.rank, 2, group=g)
+        mine = weights.shard_params(state, QWEN, split)
+        return sharding.gather_tree(mine, QWEN, split)
+
+    for whole in _run_ranks(2, rank):
+        for (path, a), (_, b) in zip(tree_mod.items(state),
+                                     tree_mod.items(whole)):
+            assert torch.equal(a, b), path
+
+
+@pytest.mark.parametrize("arch", ["rwkv6-7b", "recurrentgemma-2b",
+                                  "phi3.5-moe-42b-a6.6b", "internvl2-26b",
+                                  "seamless-m4t-large-v2"])
+def test_train_plan_refuses_another_family_under_a_model_axis(arch):
+    """Under M > 1 only the dense family trains in this slice: every other
+    family raises naming the ROADMAP entry; at M 1 the plan has no
+    split."""
+    cfg = smoke_config(get_config(arch))
+    with pytest.raises(ValueError, match="ROADMAP.md section 1"):
+        sharding.train_plan(cfg, 0, 1, 2)
+    if cfg.moe is None:
+        assert sharding.train_plan(cfg, 1, 2, 1).split is None
+
+
+def test_train_plan_refuses_moe_over_data_and_places_ranks():
+    """The moe family under D > 1 raises (its router loss is a product of
+    means over the whole batch); a dense rank ``r`` of a 2x2 mesh sits at
+    data index ``r // 2`` and model index ``r % 2`` with that model
+    rank's heads and vocabulary; copied kv heads are refused."""
+    moe = smoke_config(get_config("phi3.5-moe-42b-a6.6b"))
+    with pytest.raises(ValueError, match="router loss"):
+        sharding.train_plan(moe, 0, 2, 1)
+    for r in range(4):
+        p = sharding.train_plan(QWEN, r, 2, 2)
+        assert (p.d, p.m) == (r // 2, r % 2)
+        assert p.split.vocab == (128 * (r % 2), 128 * (r % 2 + 1))
+        assert p.split.q == (2 * (r % 2), 2 * (r % 2 + 1))
+    with pytest.raises(ValueError, match="copied kv head"):
+        sharding.train_plan(QWEN, 0, 1, 4)
+    with pytest.raises(ValueError, match="outside a mesh"):
+        sharding.train_plan(QWEN, 4, 2, 2)
+
+
+def test_pipeline_cuts_the_global_batch_into_data_shards():
+    """Data shard ``d`` of ``D`` holds rows ``[d B / D, (d + 1) B / D)``
+    of the global batch, bit for bit; a batch that does not divide by
+    ``D`` raises."""
+    shape = ShapeSpec("t", 16, 4, "train")
+    dc = DataConfig(vocab_size=QWEN.vocab_size)
+    whole = TokenPipeline(dc, QWEN, shape).batch(3)
+    for d in range(2):
+        part = TokenPipeline(dc, QWEN, shape, data=2, d=d).batch(3)
+        for k in ("tokens", "labels"):
+            assert torch.equal(part[k], whole[k][2 * d:2 * d + 2])
+    with pytest.raises(ValueError, match="does not cut into 3 data"):
+        TokenPipeline(dc, QWEN, shape, data=3, d=0)
+
+
+def test_factored_second_moment_refuses_a_split_model_axis():
+    """``factored=True`` takes row and column means along axes a split
+    cuts: refused under a model axis (``make_train_step``, ``update``),
+    taken at model 1."""
+    cfg = topt.AdamWConfig(factored=True)
+    with pytest.raises(ValueError, match="factored=True under a split"):
+        topt.check_split(cfg, True)
+    topt.check_split(cfg, False)
+    mesh = steps_mod.TrainMesh(sharding.TrainPlan(1, 2, 0, 0, None), None,
+                               object(), QWEN, QWEN, torch.device("cpu"))
+    with pytest.raises(ValueError, match="factored=True under a split"):
+        steps_mod.make_train_step(QWEN, cfg, mesh)
+
+
+def test_mesh_refuses_a_world_that_is_not_d_times_m():
+    """``comm.mesh_groups`` / ``steps.make_mesh`` refuse a world other
+    than D x M, and ``parse_mesh`` a malformed ``--mesh``."""
+    class One:
+        rank, world = 0, 3
+
+    with pytest.raises(ValueError, match="needs 4 ranks; the group has 3"):
+        comm.mesh_groups(One(), 2, 2)
+    with pytest.raises(ValueError, match="needs 4 ranks; the world has 3"):
+        steps_mod.make_mesh(QWEN, One(), 2, 2)
+    assert steps_mod.parse_mesh("2x2") == (2, 2)
+    assert steps_mod.parse_mesh(None) == (1, 1)
+    with pytest.raises(ValueError, match="expected DxM"):
+        steps_mod.parse_mesh("4")
+
+
+def test_digest_sees_one_flipped_bit():
+    """``steps.digest``: equal trees give equal digests; one flipped bit
+    of one f32 leaf changes it."""
+    a = weights.seeded_params(QWEN, 2, "cpu")
+    b = tree_mod.map_tree(lambda _, t: t.clone(), a)
+    assert steps_mod.digest(a) == steps_mod.digest(b)
+    w = b["final_norm"].view(torch.int32)
+    w[3] ^= 1
+    assert steps_mod.digest(a) != steps_mod.digest(b)
+
+
+def test_restore_and_reshard_put_a_whole_state_into_a_rank_slice(tmp_path):
+    """A whole train state written by ``CheckpointManager`` restores
+    straight into rank ``r``'s slice (``restore(split=)``, read through
+    a memory map) and ``elastic_reshard`` cuts the same slice from the
+    whole tree: both equal ``shard_params`` of the whole, bit for bit."""
+    opt = topt.AdamWConfig()
+    host = weights.seeded_params(QWEN, 4, "cpu")
+    state = {"params": host, "opt": topt.init_state(opt, host)}
+    mgr = CheckpointManager(tmp_path)
+    mgr.save(7, state)
+    struct = steps_mod.train_state_struct(QWEN, opt)
+    for r in range(2):
+        split = sharding.plan(QWEN, r, 2)
+        want = weights.shard_params(state, QWEN, split)
+        got = mgr.restore(7, struct, cfg=QWEN, split=split)
+        moved = elastic_reshard(state, "cpu", cfg=QWEN, split=split)
+        for (path, a), (_, b), (_, c) in zip(tree_mod.items(want),
+                                             tree_mod.items(got),
+                                             tree_mod.items(moved)):
+            assert torch.equal(a, b) and torch.equal(a, c), path
+
+
+def test_bubble_fraction_is_the_reference_formula():
+    """(P - 1) / (M + P - 1), as ``repro.parallel.pipeline``."""
+    from repro.parallel.pipeline import bubble_fraction as jbubble
+
+    assert bubble_fraction(4, 4) == 3 / 7
+    for p, m in ((1, 8), (2, 3), (8, 32)):
+        assert bubble_fraction(p, m) == jbubble(p, m)
+
+
+def test_split_rank_gradients_match_jax_once_qk_norm_parts_are_summed():
+    """``steps.rank_grads`` at a model axis of 2 on simulated ranks, on
+    bridged smoke weights: every rank's loss is JAX's ``train_loss``; the
+    tied embedding's slices (the lookup's gradient and the head's) put
+    together give JAX's gradient; each rank's qk-norm scale gradient is
+    a part (its own heads' share) that alone misses JAX's by far, and the
+    ranks' parts summed -- what ``steps.complete_grads`` does over the
+    model group -- give it."""
+    jcfg = j_smoke(J_ARCHS["qwen3-0.6b"])
+    jparams = jlm.init_params(jcfg, jax.random.PRNGKey(0))
+    np_tree = jax.tree.map(np.asarray, jparams)
+    rng = np.random.default_rng(0)
+    toks = rng.integers(0, jcfg.vocab_size, (2, 17)).astype(np.int32)
+    jb = {"tokens": jnp.asarray(toks[:, :-1]),
+          "labels": jnp.asarray(toks[:, 1:])}
+    want, wgrads = jax.jit(jax.value_and_grad(
+        lambda p: japi.train_loss(p, jcfg, jb)))(jparams)
+    host = weights.from_numpy_params(np_tree, QWEN, "cpu")
+    batch = {"tokens": torch.from_numpy(toks[:, :-1]),
+             "labels": torch.from_numpy(toks[:, 1:])}
+
+    def rank(g):
+        split = sharding.plan(QWEN, g.rank, 2, group=g)
+        local = sharding.local_config(QWEN, split)
+        mine = weights.shard_params(host, QWEN, split)
+        loss, grads = steps_mod.rank_grads(mine, local, batch)
+        attn = grads["decoder"][0]["slot0"]["attn"]
+        return (float(loss), grads["embed"].numpy(),
+                {k: attn[k].numpy() for k in ("q_norm", "k_norm")})
+
+    res = _run_ranks(2, rank)
+    for loss, _, _ in res:
+        assert abs(loss - float(want)) <= 1e-5
+    emb = np.concatenate([e for _, e, _ in res], axis=0)
+    we = np.asarray(wgrads["embed"])
+    assert np.abs(emb - we).max() <= 5e-5 * np.abs(we).max()
+    jattn = wgrads["decoder"][0]["slot0"]["attn"]
+    for k in ("q_norm", "k_norm"):
+        w = np.asarray(jattn[k])
+        scale = np.abs(w).max()
+        assert np.abs(res[0][2][k] - w).max() > 0.05 * scale, k
+        summed = res[0][2][k] + res[1][2][k]
+        assert np.abs(summed - w).max() <= 5e-5 * scale, k
