@@ -168,11 +168,13 @@ Phases, each of which fails the run (non-zero exit, no result line):
      attention at B 8, T 1 and 64, 36 query heads over 4 KV heads; flash
      attention over 512 tokens at g 9; the argmax head at B 8, the top-k
      head at B 4, k 8 and the verify head at B 8, T 8 on the untied (V,
-     D) = (49,152, 4,608) head); then ``LLM.from_arch("starcoder2-7b",
-     smoke=False)`` in bf16, nothing cut (32 layers, d 4,608, gelu MLP,
-     8 slots of 1,024): phase 4's prompts greedy eager and graphed three
-     times (tokens equal; 32 paged launches a decode step, 32 flash a
-     one-shot prefill, an argmax head a step and a prefill), the
+     D) = (49,152, 4,608) head); then starcoder2-7b in bf16 at full
+     width with SC_LAYERS (16) of its 32 layers (``weights.seeded_params``
+     drawn in bf16, as ``LLM.from_arch`` draws it; d 4,608, gelu MLP, 8
+     slots of 1,024): phase 4's prompts greedy eager and graphed three
+     times (tokens equal; a paged launch a layer a decode step, a flash
+     launch a layer a one-shot prefill, an argmax head a step and a
+     prefill), the
      replayed step's ms beside the bound of reading its weights once,
      Theorem 1 against the softmax baseline, phase 4b's mixed samplers,
      ``spec_k=4`` and ``host_stride=8`` (tokens equal to None's), and the
@@ -221,7 +223,7 @@ Phases, each of which fails the run (non-zero exit, no result line):
      attention at a tp 2 rank's heads of recurrentgemma-2b (T 2,150, 5 q
      heads over a copy of the one KV head, hd 256, window 2,048), each
      against its plain version and timed beside its bound and library
-     call; and in the same rank processes rwkv6-7b at full width with 4
+     call; and in the same rank processes rwkv6-7b at full width with 2
      of its 32 layers at tp 2 and 4, recurrentgemma-2b with one (rec,
      rec, attn) unit of its 26 at tp 2, 4 prompts at 16 new tokens: f32
      (greedy rows and a TopK row) held to the unsharded engine on the
@@ -231,25 +233,26 @@ Phases, each of which fails the run (non-zero exit, no result line):
      internvl2-26b's smoke config at tp 2, its tokens and its image
      prefix through ``lm.prefill`` (within 1e-4 of the unsharded prefill,
      the sharded head's ids equal).  Then training on a (data, model)
-     mesh (``launch.steps.make_mesh``): in this process the mesh step's
-     kernels at its shapes (flash at a model rank's 8 q / 4 kv heads, B
-     4, T 1,024; the stats and softmax kernels on a (4,096, 75,968) f32
-     vocabulary slice; the cross-entropy kernel on a 2x1 rank's (2,048,
-     151,936) rows; two slices' merged stats against the row's
-     logsumexp, bitwise on repeat) and the 1x1 f32 run of qwen3-0.6b at
-     full width, 4 of its 28 layers, B 4 x S 1,024, lr 1e-3, 3 steps;
-     then in the same rank processes meshes 1x2 and 2x1 (world 2) and 2x2
-     (world 4): f32 each step's loss and grad_norm and the first step's
-     gradients gathered to the whole layout held to the 1x1 run's, bf16
-     timed with each step's collective bytes by kind (checked exactly:
-     22 all-reduces of rows x 1,024 bf16 for the trunk, embedding and
-     head under a model split, every leaf of the rank's slice in f32
-     for the data group's gradient sum), its kernel launches (flash 8,
-     the stats kernel on the rank's vocabulary slice, the softmax kernel
-     in its backward, the cross-entropy kernel at 2x1) and each rank's
-     peak; the 2x2 run's whole checkpoint resumed at 1x1 here, its next
-     loss the uninterrupted 2x2 step's; ``pipeline_apply`` over the 4
-     ranks against its stages in sequence.
+     mesh (``launch.steps.make_mesh``), MESH_MODELS at full width, B 4
+     x S 1,024, lr 1e-3, 3 steps: qwen3-0.6b (4 of 28 layers) and
+     phi3.5-moe (1 of 32: expert parallelism, the router loss over the
+     data group) at 1x2, 2x1 and 2x2, rwkv6-7b (2 of 32) and
+     recurrentgemma-2b (3 of 26, its kv head copied) at 1x2.  In this
+     process the mesh steps' kernels at their shapes (flash at each
+     model's rank heads, B 4, T 1,024; the stats and softmax kernels on
+     each 1x2 rank's 4,096-row f32 vocabulary slice; the cross-entropy
+     kernel on 2x1 ranks' 2,048 rows; two slices' merged stats against
+     the row's logsumexp, bitwise on repeat) and each model's 1x1 f32
+     run, its first-step gradients saved; then in the same rank
+     processes the meshes of world 2 and world 4:
+     f32 each step's loss and grad_norm, the first step's gradients slice
+     by slice and the moe layer's kept choices held to the 1x1 run's,
+     bf16 timed with each step's collective bytes by kind (checked
+     exactly, ``mesh_bytes_want``), its kernel launches
+     (``mesh_launches_want``) and each rank's peak; qwen3's 2x2 whole
+     checkpoint resumed at 1x1 here, its next loss the uninterrupted 2x2
+     step's; ``pipeline_apply`` over the 4 ranks against its stages in
+     sequence.
   4l. the hybrid RG-LRU family: flash attention at
      recurrentgemma-2b's prefill (T 2,150, 10 query heads over 1 KV head,
      hd 256, window 2,048; the ``mma.sync`` kernel, from a profiler
@@ -257,13 +260,13 @@ Phases, each of which fails the run (non-zero exit, no result line):
      the window decides the answer) and the argmax head at B 8 on its
      tied (256,000, 2,560) embedding, each against its plain version and
      timed beside its bound and library call; then recurrentgemma-2b in
-     bf16 at full width with 14 of its 26 layers (4 x (rec, rec, attn) +
+     bf16 at full width with 5 of its 26 layers ((rec, rec, attn) +
      (rec, rec); ``weights.seeded_params``), 8 slots of 2,304 on the
      dense per-slot store:
      8 prompts (six of 1-1,000 tokens, two of 2,100-2,200: the ring
      wraps in prefill and again in decode) greedy at 64 new tokens,
      eager and graphed twice (the second all replays; tokens equal;
-     flash 4 launches a prefill, no paged attention, an argmax head a
+     flash 1 launch a prefill, no paged attention, an argmax head a
      step and a prefill), Theorem 1 against the softmax head, mixed
      samplers, ``spec_k`` refused, ``chunk_size`` and ``host_stride``
      warned off on one engine with the same tokens; an f32 twin from the same seed
@@ -278,7 +281,7 @@ Phases, each of which fails the run (non-zero exit, no result line):
   4m. the RWKV6 family: the argmax head at B 8 and the top-k head
      at B 4, k 8 on rwkv6-7b's untied (V, D) = (65,536, 4,096) head
      against their plain versions, timed beside their bound and library
-     call; then rwkv6-7b in bf16 at full width with 16 of its 32 layers
+     call; then rwkv6-7b in bf16 at full width with 4 of its 32 layers
      (``weights.seeded_params``; d 4,096, 64 heads of 64, d_ff 14,336,
      relu_sq channel mix, 8 slots of 1,088 per-slot states): 8 prompts
      of 3-1,024 tokens greedy at 64 new tokens, eager and graphed twice
@@ -295,7 +298,7 @@ Phases, each of which fails the run (non-zero exit, no result line):
      KV heads of 128; the argmax head at B 8 and the top-k head at B 4,
      k 8 on the untied (V, D) = (32,064, 4,096) head) against their plain
      versions, timed beside their bound and library call; then
-     phi3.5-moe in bf16 at full width with 6 of its 32 layers (16
+     phi3.5-moe in bf16 at full width with 2 of its 32 layers (16
      experts of 6,400, top-2, capacity factor 1.25; f32 masters from
      ``weights.seeded_params`` on the card, 8 paged slots of 1,024):
      phase 4's first 8 prompts (ids mod 32,064) greedy at 64 new tokens,
@@ -328,7 +331,7 @@ Phases, each of which fails the run (non-zero exit, no result line):
      in bf16 under
      ``remat="dots"`` against the CPU's f32 (within twice the CPU's own
      bf16 error); (b) qwen3-0.6b at full width and
-     full depth in bf16 with its remat, 20 AdamW steps at B 2 x S 4,096
+     full depth in bf16 with its remat, 12 AdamW steps at B 2 x S 4,096
      on the synthetic corpus (finite losses and norms, the last 5 below
      the first, flash 2 x 28 launches a step, the cross-entropy and the
      backward's softmax once), ms a step, tokens/s, the peak memory, the
@@ -4268,32 +4271,45 @@ def run_starcoder2_stride(torch, llm, prompts, max_new) -> dict:
     return rows
 
 
+# starcoder2-7b's depth in phase 4j (of 32; its width and its kernels'
+# shapes are whole): cut to keep the script within its time
+SC_LAYERS = 16
+
+
 def run_starcoder2_path(torch, max_new) -> tuple:
-    """Phase 4j, part 1: starcoder2-7b at full width in bf16 (32 layers, d
-    4,608, 36 / 4 heads of 128, d_ff 18,432, gelu MLP, V 49,152 untied;
-    nothing cut; random seeded weights), 8 slots of max_len 1,024 in
-    blocks of 16: phase 4's 12 prompts (ids below 49,152) greedy, eager
-    then graphed three times (tokens equal; launches 32 paged a decode
-    step, 32 flash a one-shot prefill, one argmax head a step and a
-    prefill), against the softmax-baseline head (Theorem 1, near-tie
+    """Phase 4j, part 1: starcoder2-7b at full width in bf16 (d 4,608, 36
+    / 4 heads of 128, d_ff 18,432, gelu MLP, V 49,152 untied; SC_LAYERS
+    of its 32 layers; random seeded weights drawn in bf16), 8 slots of
+    max_len 1,024 in blocks of 16: phase 4's 12 prompts (ids below
+    49,152) greedy, eager then graphed three times (tokens equal;
+    launches a paged a layer a decode step, a flash a layer a one-shot
+    prefill, one argmax head a step and a prefill), against the
+    softmax-baseline head (Theorem 1, near-tie
     rule), phase 4b's mixed samplers, ``spec_k=4`` and ``host_stride=8``.
     Prints the replayed step's ms beside the bound of reading the
     weights once, tok/s and the phase's peak memory.  Returns (summary,
     the graphed run 1's launches)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
     from repro_torch.serve.api import LLM
     from repro_torch.serve.params import SamplingParams
+    from repro_torch.weights import dtype_of, seeded_params
 
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    llm = LLM.from_arch("starcoder2-7b", smoke=False, seed=0, n_slots=8,
-                        max_len=1024, block_size=16)
+    full = get_config("starcoder2-7b")
+    cut = dataclasses.replace(full, n_layers=SC_LAYERS)
+    llm = LLM(seeded_params(cut, 0, "cuda", dtype=dtype_of(cut)), cut,
+              seed=0, n_slots=8, max_len=1024, block_size=16)
     torch.cuda.synchronize()
     cfg, eng = llm.cfg, llm.engine
     built_peak = torch.cuda.max_memory_allocated()
-    check((cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
-           cfg.head_dim, cfg.d_ff, cfg.vocab_size, cfg.activation,
-           cfg.tie_embeddings, cfg.dtype)
-          == (32, 4608, 36, 4, 128, 18432, 49152, "gelu", False, "bfloat16"),
+    check((full.n_layers, cfg.n_layers, cfg.d_model, cfg.n_heads,
+           cfg.n_kv_heads, cfg.head_dim, cfg.d_ff, cfg.vocab_size,
+           cfg.activation, cfg.tie_embeddings, cfg.dtype)
+          == (32, SC_LAYERS, 4608, 36, 4, 128, 18432, 49152, "gelu", False,
+              "bfloat16"),
           f"starcoder2-7b is not served at its full width: {cfg}")
     wbytes = sum(t.numel() * t.element_size() for t in _leaves(eng.params))
     print(f"starcoder2-7b: {cfg.n_layers} layers, d={cfg.d_model}, "
@@ -4492,14 +4508,18 @@ TP_WORLDS = (2, 4)
 TP_LAYERS = 4
 TP_ENTRY_PROMPTS = 2
 TP_ENTRY_NEW = 8
+# new tokens of each of phase 4k's qwen3 runs (phase 4 serves 32; 16
+# here, two host strides of 8, to pay for the moe, ssm and hybrid
+# families' mesh training)
+TP_MAX_NEW = 16
 # each rank process, waited on by the parent (every collective of a
 # rank's group times out sooner, at comm.DEFAULT_TIMEOUT_S)
 TP_RANK_TIMEOUT_S = 420
 TP_VOCAB_SPLITS = (2, 4, 8)
 # prompts a world serves: tp 4's four processes time-slice the card and
 # step at ~0.4 s on an H100 80GB HBM3, so it serves one batch of 8
-# (each run against the unsharded engine on the same 8) to keep the
-# script within half its time limit
+# (each run against the unsharded engine on the same 8); tp 2's 12 on
+# its 8 slots admit 4 waiting requests while other rows decode
 TP_PROMPTS = {2: 12, 4: 8}
 
 
@@ -4779,7 +4799,7 @@ def tp_rank_main(rank: int, world: int, d: str) -> int:
         g = first.engine.group
         out.update(device=str(g.device), backend=g.backend,
                    card=torch.cuda.get_device_name(g.device))
-        max_new = 32
+        max_new = TP_MAX_NEW
         prompts, params = tp_inputs(first.cfg.vocab_size, max_new,
                                     TP_PROMPTS[world])
         torch.cuda.synchronize()
@@ -5110,10 +5130,12 @@ def tp_http_run(torch, host, f32, g, rank, prompts, max_new) -> dict:
     return res
 
 
-def spawn_tp(world: int, d: str) -> list:
+def spawn_tp(world: int, d: str, beside=None) -> list:
     """Start and wait on phase 4k's ``world`` rank processes, each with a
-    timeout of its own (the lot killed on one miss); returns each rank's
-    results."""
+    timeout of its own (the lot killed on one miss, or when ``beside``
+    raises); returns each rank's results.  ``beside()``, where given,
+    runs here once the ranks have started (work the ranks wait on
+    later)."""
     import socket
 
     with socket.socket() as s:             # a free port for the store
@@ -5127,10 +5149,15 @@ def spawn_tp(world: int, d: str) -> list:
              "--tp-world", str(world), "--tp-dir", d],
             stdout=log, stderr=subprocess.STDOUT,
             env=dict(os.environ, OMP_NUM_THREADS="2", RANK=str(r),
+                     # ranks that share one card: segments that grow in
+                     # place keep each one's cache close to what it holds
+                     PYTORCH_CUDA_ALLOC_CONF="expandable_segments:True",
                      WORLD_SIZE=str(world), LOCAL_RANK=str(r),
                      LOCAL_WORLD_SIZE=str(world), MASTER_ADDR="127.0.0.1",
                      MASTER_PORT=str(port))), log))
     try:
+        if beside is not None:
+            beside()
         for r, (p, _) in enumerate(procs):
             try:
                 p.wait(timeout=TP_RANK_TIMEOUT_S)
@@ -5226,10 +5253,10 @@ def check_control_plane(torch, gap_llm, res, world, inputs, ref32,
 # Phase 4k, the recurrent and vlm families under tensor parallelism
 # ---------------------------------------------------------------------------
 FAM_TP_NEW = 16
-# (arch, layers kept, the worlds it runs at): rwkv6-7b at 4 of its 32
+# (arch, layers kept, the worlds it runs at): rwkv6-7b at 2 of its 32
 # layers, recurrentgemma-2b at one (rec, rec, attn) unit of its 26 (its
 # 10 heads are not whole at tp 4); full width both
-FAM_TP = (("rwkv6-7b", 4, (2, 4)), ("recurrentgemma-2b", 3, (2,)))
+FAM_TP = (("rwkv6-7b", 2, (2, 4)), ("recurrentgemma-2b", 3, (2,)))
 VLM_TP_PREFIX = 16        # tokens after the stub image embeddings
 
 
@@ -5472,6 +5499,16 @@ def fam_reference(torch, arch, layers) -> dict:
     return dict(ruler=ruler, prompts=prompts, want=want, bf16=run)
 
 
+def ruler_on(llm, device: str):
+    """A near-tie ruler (``top2_gap_at`` reads its engine's params, cfg
+    and device alone) with its tree on ``device``."""
+    import types
+
+    eng = llm.engine
+    return types.SimpleNamespace(engine=types.SimpleNamespace(
+        params=_tree_to(eng.params, device), cfg=eng.cfg, device=device))
+
+
 def check_tp_families(torch, res, world, refs) -> dict:
     """Phase 4k's recurrent-family and vlm runs as the ranks of ``world``
     wrote them: every rank's tokens equal rank 0's; each rank its
@@ -5602,15 +5639,28 @@ def check_tp_families(torch, res, world, refs) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# Phase 4k, training on a (data, model) mesh: qwen3-0.6b at full
-# width, its ranks the tp ranks' processes
+# Phase 4k, training on a (data, model) mesh: qwen3-0.6b, phi3.5-moe,
+# rwkv6-7b and recurrentgemma-2b at full width, cut in depth, their
+# ranks the tp ranks' processes
 # ---------------------------------------------------------------------------
-MESH_LAYERS = 4             # of qwen3-0.6b's 28
+# (arch, its layers here, the meshes each world runs): qwen3 (dense) at 4
+# of 28 layers; phi3.5-moe at 1 of 32 (one layer is ~1.26 B expert
+# parameters: 25 GB of f32 masters, moments and gradients at 1x1), where
+# expert parallelism, the data group and the router loss meet; rwkv6-7b
+# at 2 of 32 (its heads, the channel-mix's summed kv); recurrentgemma-2b
+# at one (rec, rec, attn) unit, 3 of 26 (its gate blocks, its one kv
+# head copied to both model ranks)
+MESH_MODELS = (
+    ("qwen3-0.6b", 4, {2: ((1, 2), (2, 1)), 4: ((2, 2),)}),
+    ("phi3.5-moe-42b-a6.6b", 1, {2: ((1, 2), (2, 1)), 4: ((2, 2),)}),
+    ("rwkv6-7b", 2, {2: ((1, 2),)}),
+    ("recurrentgemma-2b", 3, {2: ((1, 2),)}),
+)
+MESH_CKPT_ARCH = "qwen3-0.6b"   # its 2x2 f32 run writes a whole state
 MESH_B, MESH_S = 4, 1024    # the global batch
 MESH_STEPS = 3
 MESH_SEED = 0               # the host tree every rank cuts its slice from
 MESH_LR = 1e-3              # phase 4o's (TRAIN_LR)
-MESH_RUNS = {2: ((1, 2), (2, 1)), 4: ((2, 2),)}
 MESH_CKPT_STEP = 2          # the 2x2 f32 run writes its whole state here
 # f32 held to the 1x1 f32 run on the same seed: each step's loss and
 # grad_norm within MESH_RTOL of it, the first step's gradients leaf by
@@ -5620,19 +5670,32 @@ MESH_CKPT_STEP = 2          # the 2x2 f32 run writes its whole state here
 # doubled all-reduce is off by a whole part
 MESH_RTOL = 1e-4
 MESH_GRAD_TOL = 1e-4
+# rwkv6-7b's gradients are held to 4e-4: its 1x1 f32 run's ``u``
+# gradient is itself ~7e-4 of its norm from an f64 run of the same
+# functions (the f32 gradient that reaches the wkv scan's output,
+# scripts/rwkv_u_grad_precision.py), and a 1x2 split measured 1.29e-4 on
+# ``u``, every other leaf below 7e-5, on an H100
+MESH_GRAD_TOL_ARCH = {"rwkv6-7b": 4e-4}
 MESH_PIPE = (4, 64, 1024)   # pipeline_apply: microbatches, rows, width
 MESH_PIPE_TOL = 1e-5        # f32: a (16, W) GEMM against a (64, W) one
 
 
-def mesh_config(dtype: str):
-    """qwen3-0.6b at full width, MESH_LAYERS layers, remat as configured
-    (``"dots"``: each layer recomputed in the backward)."""
+def mesh_config(arch: str, dtype: str):
+    """``arch`` at full width, its MESH_MODELS layers, remat as configured
+    (``"dots"``: each unit recomputed in the backward)."""
     import dataclasses
 
     from repro_torch.configs import get_config
 
-    return dataclasses.replace(get_config("qwen3-0.6b"),
-                               n_layers=MESH_LAYERS, dtype=dtype)
+    layers = next(n for a, n, _ in MESH_MODELS if a == arch)
+    return dataclasses.replace(get_config(arch), n_layers=layers,
+                               dtype=dtype)
+
+
+def mesh_runs(world: int) -> list:
+    """(arch, D, M) of every mesh a world of ``world`` ranks trains."""
+    return [(a, d, m) for a, _, meshes in MESH_MODELS
+            for d, m in meshes.get(world, ())]
 
 
 def mesh_opt():
@@ -5652,41 +5715,123 @@ def mesh_pipe(cfg, device, data=1, d=0):
 
 
 def mesh_bytes(mesh) -> dict:
-    """The bytes a rank's data and model groups have moved, by kind."""
+    """The bytes a rank's data, model and kv-copy groups have moved, by
+    kind."""
     out = {}
-    for grp in (mesh.data, mesh.model):
+    for grp in (mesh.data, mesh.model, mesh.kv):
         for k, n in (grp.bytes if grp is not None else {}).items():
             out[k] = out.get(k, 0) + n
     return out
 
 
-def mesh_launches_want(torch, D, M) -> dict:
-    """A bf16 mesh step's kernel launches on a rank: flash twice a layer
-    (remat), and the loss: under a split vocabulary the stats kernel on
-    the rank's (rows, V / M) f32 slice once and the softmax kernel in its
-    backward (whose two-launch route runs the stats kernel once more);
-    at M 1 the cross-entropy kernel and its backward's softmax kernel."""
-    from repro_torch.kernels import online_softmax as osm
+def mesh_bytes_want(cfg, D: int, M: int, rows: int) -> dict:
+    """A mesh step's collective bytes by kind on a rank of ``rows`` tokens
+    (``cfg`` the whole config in its compute dtype, remat on): ``act`` =
+    rows x d_model x the dtype's bytes, one activation.  Under a model
+    split the embedding's sum and the head input's gradient, one
+    ``act`` each, and the trunk's: the forward's sums, again in the
+    recompute up to the unit's last saved tensor, and each
+    column-parallel input's gradient backward --
+      dense / moe layer  5: attention and MLP (or experts) sum forward,
+                         the attention's in the recompute, two inputs'
+                         gradients
+      rwkv layer         12: the time-mix's sum, kv's sum and the
+                         product's gather forward, the first two again in
+                         the recompute; kv's gradient summed, six
+                         projections' inputs (r, k, v, g; the channel
+                         mix's k and r), plus the decay LoRA's f32 input
+                         (rows x 64 x 4) backward
+      (rec, rec, attn)   17 a unit: six sums forward, five in the
+                         recompute (not the last MLP's), six inputs'
+                         gradients
+    and for a moe config the router's gradient (L x D x E f32,
+    ``router``), for a copied kv head its wk / wv gradients (``kv``);
+    under a data axis every f32 leaf of the rank's slice (``grad``), and
+    for a moe config each layer's routed counts and token count (E + 1
+    f32) in the forward and the recompute (``aux``)."""
+    from repro_torch.models import lm, rwkv6
+    from repro_torch.parallel import sharding
 
-    cfg = mesh_config("bfloat16")
+    act = rows * cfg.d_model * (2 if cfg.dtype == "bfloat16" else 4)
+    kinds = lm.layer_types(cfg)
+    want = {}
+    if M > 1:
+        trunk = 0
+        for unit, count in lm.segments(cfg):
+            if unit == ("rwkv",):
+                trunk += count * (12 * act + rows * rwkv6.LORA * 4)
+            elif unit == ("rec", "rec", "attn"):
+                trunk += count * 17 * act
+            else:
+                trunk += count * 5 * len(unit) * act
+        want.update(trunk=trunk, embed=act, head=act)
+        if cfg.moe is not None:
+            want["router"] = kinds.count("moe") * cfg.d_model \
+                * cfg.moe.num_experts * 4
+        copies = sharding.kv_copies(cfg, M)
+        if copies is not None:
+            kv = sharding.plan(cfg, 0, M).kv
+            want["kv"] = 2 * kinds.count("attn") * cfg.d_model \
+                * (kv[1] - kv[0]) * cfg.head_dim * 4
+    if D > 1:
+        split = sharding.plan(cfg, 0, M) if M > 1 else \
+            sharding.plan(cfg, 0, 1)
+        want["grad"] = 4 * sharding.rank_param_count(cfg, split)
+        if cfg.moe is not None:
+            want["aux"] = 2 * kinds.count("moe") \
+                * (cfg.moe.num_experts + 1) * 4
+    return want
+
+
+def mesh_launches_want(torch, arch, D, M) -> dict:
+    """A bf16 mesh step's kernel launches on a rank: flash twice an
+    attention layer (remat), and the loss: under a split vocabulary the
+    stats kernel on the rank's (rows, V / M) f32 slice once and the
+    softmax kernel in its backward (whose two-launch route runs the
+    stats kernel once more); at M 1 the cross-entropy kernel and its
+    backward's softmax kernel."""
+    from repro_torch.kernels import online_softmax as osm
+    from repro_torch.models import lm
+
+    cfg = mesh_config(arch, "bfloat16")
     rows, v = MESH_B // D * MESH_S, cfg.vocab_size // M
     two = osm.unit_plan(torch.float32, rows, v, osm.device_resident_blocks(
         0, torch.float32)).route == osm.TWO_LAUNCH
-    return {"flash_attention": 2 * MESH_LAYERS,
+    attn = sum(k in ("attn", "moe") for k in lm.layer_types(cfg))
+    return {"flash_attention": 2 * attn,
             "softmax_stats": int(M > 1) + int(two),
             "online_softmax": 1, "fused_xent": int(M == 1),
             "paged_attention": 0, "fused_argmax_head": 0,
             "fused_topk_head": 0, "fused_verify_head": 0}
 
 
+# phase 4k (mesh): flash attention at each mesh model's rank heads, B 4,
+# T 1,024, bf16 causal -- (row key, q heads, kv heads, head dim, window,
+# label) -- and the vocabulary slices a 1x2 rank's loss reads (4,096 f32
+# rows): qwen3 V / 2, phi3.5-moe, rwkv6-7b, recurrentgemma-2b
+MESH_FLASH = (
+    ("flash_t1024_b4_h8", 8, 4, 128, None, "qwen3-0.6b, row 5j"),
+    ("flash_t1024_b4_h16_phi", 16, 4, 128, None, "phi3.5-moe, row 5k"),
+    ("flash_t1024_b4_h5_hd256_rg", 5, 1, 256, 2048,
+     "recurrentgemma-2b (a copied kv head, window 2,048), row 5l"),
+)
+MESH_SLICES = {"slice_f32": 75968, "v16032": 16032, "v32768": 32768,
+               "v128000": 128000}
+MESH_XENT = {"fused_xent_rows2048_f32": 151936,
+             "fused_xent_rows2048_v32064_f32": 32064}
+
+
 def check_mesh_kernels(torch, timer) -> dict:
-    """Phase 4k (mesh): the mesh step's kernels alone at its shapes, each
+    """Phase 4k (mesh): the mesh steps' kernels alone at their shapes, each
     against its plain version and timed beside its bound and one library
-    call: flash attention at a model rank's heads (B 4, T 1,024, 8 q / 4
-    kv heads of 128, bf16, causal; row 5j; SDPA), the stats and softmax
-    kernels on a rank's (4,096, 75,968) f32 vocabulary slice (rows 7c /
-    8b; ``torch.logsumexp``, ``torch.softmax``), the cross-entropy kernel
-    on a 2x1 rank's (2,048, 151,936) f32 logits (row 6c;
+    call: flash attention at each model's rank heads (MESH_FLASH: B 4, T
+    1,024, bf16, causal; rows 5j-5l; SDPA, causal -- T is inside
+    recurrentgemma's window), the stats and softmax kernels on a 1x2
+    rank's 4,096-row f32 vocabulary slices (MESH_SLICES: qwen3's 75,968,
+    phi3.5-moe's 16,032, rwkv6-7b's 32,768, recurrentgemma-2b's 128,000;
+    rows 7c-7f / 8b-8e; ``torch.logsumexp``, ``torch.softmax``), the
+    cross-entropy kernel on a 2x1 rank's 2,048 f32 rows of qwen3's and
+    phi3.5-moe's whole vocabularies (MESH_XENT; rows 6c-6d;
     ``F.cross_entropy``); then the vocabulary-parallel loss's forward
     composed by hand from two slices' stats (``api.merge_stats``) against
     the whole row's logsumexp, bitwise on repeat."""
@@ -5700,74 +5845,81 @@ def check_mesh_kernels(torch, timer) -> dict:
 
     rows = {}
     gen = torch.Generator(device="cuda").manual_seed(41)
-    b, t, hq, hkv, hd = MESH_B, MESH_S, 8, 4, 128
+    b, t = MESH_B, MESH_S
+    for key, hq, hkv, hd, window, label in MESH_FLASH:
+        def rand(heads):
+            return torch.randn((b, t, heads, hd), generator=gen,
+                               device="cuda").to(torch.bfloat16).transpose(
+                                   1, 2)
 
-    def rand(heads):
-        return torch.randn((b, t, heads, hd), generator=gen,
-                           device="cuda").to(torch.bfloat16).transpose(1, 2)
-
-    q, k, v = rand(hq), rand(hkv), rand(hkv)
-    out = fa.flash_attention(q, k, v, causal=True)
-    want = ref.flash_attention(q, k, v, causal=True)
-    err = (out.float() - want.float()).abs().max().item()
-    ok = torch.allclose(out.float(), want.float(), atol=FA_TOL, rtol=FA_TOL)
-    print(f"phase 4k (mesh) flash_attention B {b} T {t} 8 q / 4 kv heads "
-          f"bf16 causal: max_abs_err {err:.6g} vs plain (atol = rtol = "
-          f"{FA_TOL}): {'ok' if ok else 'FAIL'}", flush=True)
-    check(ok, "flash attention at a model rank's heads disagrees with its "
-          "plain version")
-    pairs = b * t * (t + 1) // 2
-    nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
-    rows["flash_t1024_b4_h8"] = kernel_row(
-        timer, lambda: fa.flash_attention(q, k, v, causal=True),
-        lambda: ref.flash_attention(q, k, v, causal=True),
-        lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True,
-                                               enable_gqa=True),
-        nbytes, 4 * hd * hq * pairs, err)
-    model_line("phase 4k (mesh) row 5j, a model rank's heads",
-               "flash_attention", rows["flash_t1024_b4_h8"], "sdpa")
-    del q, k, v, out, want
+        q, k, v = rand(hq), rand(hkv), rand(hkv)
+        out = fa.flash_attention(q, k, v, causal=True, window=window)
+        want = ref.flash_attention(q, k, v, causal=True, window=window)
+        err = (out.float() - want.float()).abs().max().item()
+        ok = torch.allclose(out.float(), want.float(), atol=FA_TOL,
+                            rtol=FA_TOL)
+        print(f"phase 4k (mesh) flash_attention B {b} T {t} {hq} q / {hkv} "
+              f"kv heads of {hd} bf16 causal (window {window}): "
+              f"max_abs_err {err:.6g} vs plain (atol = rtol = {FA_TOL}): "
+              f"{'ok' if ok else 'FAIL'}", flush=True)
+        check(ok, f"flash attention at {label}'s rank heads disagrees "
+              "with its plain version")
+        pairs = b * t * (t + 1) // 2
+        nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+        rows[key] = kernel_row(
+            timer, lambda: fa.flash_attention(q, k, v, causal=True,
+                                              window=window),
+            lambda: ref.flash_attention(q, k, v, causal=True, window=window),
+            lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                                   enable_gqa=True),
+            nbytes, 4 * hd * hq * pairs, err)
+        model_line(f"phase 4k (mesh) {label}, a model rank's heads",
+                   "flash_attention", rows[key], "sdpa")
+        del q, k, v, out, want
 
     full_v = 151936
     x = torch.randn((MESH_B * MESH_S, full_v), generator=gen,
                     device="cuda") * 4
-    xs = x[:, :full_v // 2].contiguous()     # a 1x2 rank's slice
-    n, el = xs.numel(), xs.element_size()
-    m, l = osm.softmax_stats(xs)
-    rm, rl = ref.softmax_stats(xs)
-    p, rp = osm.online_softmax(xs), ref.online_softmax(xs)
-    errs = {"softmax_stats": max((m - rm).abs().max().item(),
-                                 (l - rl).abs().max().item()),
-            "online_softmax": (p - rp).abs().max().item()}
-    ok = (torch.allclose(m, rm, rtol=UNIT_RTOL, atol=UNIT_ATOL)
-          and torch.allclose(l, rl, rtol=UNIT_RTOL, atol=UNIT_ATOL)
-          and torch.allclose(p, rp, rtol=UNIT_RTOL, atol=UNIT_ATOL))
-    print(f"phase 4k (mesh) stats / softmax on a (4096, 75968) f32 slice: "
-          f"max_abs_err {errs['softmax_stats']:.6g} / "
-          f"{errs['online_softmax']:.6g} (rtol {UNIT_RTOL}, atol "
-          f"{UNIT_ATOL}): {'ok' if ok else 'FAIL'}; online_softmax route "
-          f"{osm.plan_of(xs).route}", flush=True)
-    check(ok, "the stats or softmax kernel on a vocabulary slice disagrees "
-          "with its plain version")
-    del p, rp
-    for name, kern, plain_fn, lib_fn, nb, fl in (
-            ("softmax_stats", lambda: osm.softmax_stats(xs),
-             lambda: ref.softmax_stats(xs),
-             lambda: torch.logsumexp(xs, dim=-1), n * el + 8 * xs.shape[0],
-             4 * n),
-            ("online_softmax", lambda: osm.online_softmax(xs),
-             lambda: ref.online_softmax(xs),
-             lambda: torch.softmax(xs, dim=-1), n * el + 4 * n, 6 * n)):
-        kern_t, plain_ms = timer.readings(kern), timer(plain_fn)
-        lib_t = timer.readings(lib_fn, "library_")
-        bound_ms, bound_by = bound(nb, fl, F32_FLOPS_PER_S)
-        rows[f"{name}_slice_f32"] = dict(
-            max_abs_err=errs[name], **kern_t, plain_ms=plain_ms,
-            bound_ms=bound_ms, bound_by=bound_by, **lib_t)
-        print(f"phase 4k (mesh) {name} (4096, 75968) f32: kernel "
-              f"{shown(kern_t)}, plain {plain_ms:.4f} ms, library "
-              f"{shown(lib_t, 'library_')}, bound {bound_ms:.4f} ms "
-              f"({bound_by})", flush=True)
+    for tag, width in MESH_SLICES.items():
+        xs = x[:, :width].contiguous()          # a 1x2 rank's slice
+        n, el = xs.numel(), xs.element_size()
+        m, l = osm.softmax_stats(xs)
+        rm, rl = ref.softmax_stats(xs)
+        p, rp = osm.online_softmax(xs), ref.online_softmax(xs)
+        errs = {"softmax_stats": max((m - rm).abs().max().item(),
+                                     (l - rl).abs().max().item()),
+                "online_softmax": (p - rp).abs().max().item()}
+        ok = (torch.allclose(m, rm, rtol=UNIT_RTOL, atol=UNIT_ATOL)
+              and torch.allclose(l, rl, rtol=UNIT_RTOL, atol=UNIT_ATOL)
+              and torch.allclose(p, rp, rtol=UNIT_RTOL, atol=UNIT_ATOL))
+        print(f"phase 4k (mesh) stats / softmax on a ({xs.shape[0]}, "
+              f"{width}) f32 slice: max_abs_err "
+              f"{errs['softmax_stats']:.6g} / {errs['online_softmax']:.6g} "
+              f"(rtol {UNIT_RTOL}, atol {UNIT_ATOL}): "
+              f"{'ok' if ok else 'FAIL'}; online_softmax route "
+              f"{osm.plan_of(xs).route}", flush=True)
+        check(ok, f"the stats or softmax kernel on a {width}-id vocabulary "
+              "slice disagrees with its plain version")
+        del p, rp, m, l, rm, rl
+        for name, kern, plain_fn, lib_fn, nb, fl in (
+                ("softmax_stats", lambda: osm.softmax_stats(xs),
+                 lambda: ref.softmax_stats(xs),
+                 lambda: torch.logsumexp(xs, dim=-1),
+                 n * el + 8 * xs.shape[0], 4 * n),
+                ("online_softmax", lambda: osm.online_softmax(xs),
+                 lambda: ref.online_softmax(xs),
+                 lambda: torch.softmax(xs, dim=-1), n * el + 4 * n, 6 * n)):
+            kern_t, plain_ms = timer.readings(kern), timer(plain_fn)
+            lib_t = timer.readings(lib_fn, "library_")
+            bound_ms, bound_by = bound(nb, fl, F32_FLOPS_PER_S)
+            rows[f"{name}_{tag}"] = dict(
+                max_abs_err=errs[name], **kern_t, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, **lib_t)
+            print(f"phase 4k (mesh) {name} ({xs.shape[0]}, {width}) f32: "
+                  f"kernel {shown(kern_t)}, plain {plain_ms:.4f} ms, "
+                  f"library {shown(lib_t, 'library_')}, bound "
+                  f"{bound_ms:.4f} ms ({bound_by})", flush=True)
+        del xs
 
     # the vocabulary-parallel forward by hand: two slices' kernel stats,
     # merged, against the whole row's logsumexp; twice, bitwise
@@ -5783,102 +5935,177 @@ def check_mesh_kernels(torch, timer) -> dict:
     check(lse_err <= 1e-5 and same, "the merged slice stats disagree with "
           "the row's logsumexp, or differ on repeat")
     rows["merge_lse_err"] = lse_err
-    del xs, halves, m, l, rm, rl
+    del halves, lse, want
 
     # the cross-entropy kernel at a 2x1 rank's rows (M 1)
-    xr = x[:MESH_B // 2 * MESH_S].contiguous()
-    lab = torch.randint(0, full_v, (xr.shape[0],), generator=gen,
-                        device="cuda")
-    loss, rloss = fx.fused_xent(xr, lab), ref.fused_xent(xr, lab)
-    xerr = (loss - rloss).abs().max().item()
-    ok = torch.allclose(loss, rloss, rtol=UNIT_RTOL, atol=XENT_ATOL)
-    check(ok, "the cross-entropy kernel at a 2x1 rank's rows disagrees with "
-          "its plain version")
-    n = xr.numel()
-    kern_t, plain_ms = timer.readings(lambda: fx.fused_xent(xr, lab)), \
-        timer(lambda: ref.fused_xent(xr, lab))
-    lib_t = timer.readings(lambda: F.cross_entropy(xr, lab,
-                                                   reduction="none"),
-                           "library_")
-    bound_ms, bound_by = bound(n * 4 + 12 * xr.shape[0], 4 * n,
-                               F32_FLOPS_PER_S)
-    rows["fused_xent_rows2048_f32"] = dict(
-        max_abs_err=xerr, **kern_t, plain_ms=plain_ms, bound_ms=bound_ms,
-        bound_by=bound_by, **lib_t)
-    print(f"phase 4k (mesh) fused_xent (2048, 151936) f32: kernel "
-          f"{shown(kern_t)}, plain {plain_ms:.4f} ms, library "
-          f"{shown(lib_t, 'library_')}, bound {bound_ms:.4f} ms "
-          f"({bound_by}); max_abs_err {xerr:.6g}", flush=True)
-    del x, xr, lab, loss, rloss
+    for key, width in MESH_XENT.items():
+        xr = x[:MESH_B // 2 * MESH_S, :width].contiguous()
+        lab = torch.randint(0, width, (xr.shape[0],), generator=gen,
+                            device="cuda")
+        loss, rloss = fx.fused_xent(xr, lab), ref.fused_xent(xr, lab)
+        xerr = (loss - rloss).abs().max().item()
+        ok = torch.allclose(loss, rloss, rtol=UNIT_RTOL, atol=XENT_ATOL)
+        check(ok, f"the cross-entropy kernel at a 2x1 rank's rows of "
+              f"{width} ids disagrees with its plain version")
+        n = xr.numel()
+        kern_t, plain_ms = timer.readings(lambda: fx.fused_xent(xr, lab)), \
+            timer(lambda: ref.fused_xent(xr, lab))
+        lib_t = timer.readings(lambda: F.cross_entropy(xr, lab,
+                                                       reduction="none"),
+                               "library_")
+        bound_ms, bound_by = bound(n * 4 + 12 * xr.shape[0], 4 * n,
+                                   F32_FLOPS_PER_S)
+        rows[key] = dict(
+            max_abs_err=xerr, **kern_t, plain_ms=plain_ms,
+            bound_ms=bound_ms, bound_by=bound_by, **lib_t)
+        print(f"phase 4k (mesh) fused_xent ({xr.shape[0]}, {width}) f32: "
+              f"kernel {shown(kern_t)}, plain {plain_ms:.4f} ms, library "
+              f"{shown(lib_t, 'library_')}, bound {bound_ms:.4f} ms "
+              f"({bound_by}); max_abs_err {xerr:.6g}", flush=True)
+        del xr, lab, loss, rloss
+    del x
     torch.cuda.empty_cache()
     return rows
 
 
-def mesh_reference(torch, d, device="cuda") -> dict:
-    """Phase 4k (mesh), in the parent before the ranks start: the 1x1 f32
-    run on the card on the same seed -- the first step's gradients,
-    each leaf saved under ``<d>/mesh_ref/`` for the ranks to hold theirs
-    to, and MESH_STEPS AdamW steps' losses and grad_norms."""
+def first_call(fn):
+    """``fn`` on its first call alone (a step's ``on_grads``, which sees
+    every step's gradients, kept to the first step's)."""
+    done = []
+
+    def call(*a):
+        if not done:
+            done.append(True)
+            fn(*a)
+    return call
+
+
+def mesh_reference(torch, d, arch, device="cuda") -> dict:
+    """Phase 4k (mesh), in the parent beside the first world's ranks:
+    ``arch``'s 1x1 f32 run on the card on the same seed -- the first
+    step's gradients, each leaf saved under ``<d>/mesh_ref/<arch>/`` (then
+    a ``done`` marker) for the ranks to hold their slices to, a moe
+    config's kept choices in that step's forward
+    (``layers.count_kept``), MESH_STEPS AdamW steps' losses and
+    grad_norms."""
     from repro_torch import tree as tree_mod
     from repro_torch.launch import steps as steps_mod
+    from repro_torch.models import layers, lm
     from repro_torch.optim import optimizer as opt_mod
     from repro_torch.weights import seeded_params
 
     t0 = time.perf_counter()
-    cfg = mesh_config("float32")
+    cfg = mesh_config(arch, "float32")
     params = seeded_params(cfg, MESH_SEED, device)
     pipe = mesh_pipe(cfg, device)
-    loss, grads = steps_mod.loss_and_grads(params, cfg, pipe.batch(0))
-    ref_dir = os.path.join(d, "mesh_ref")
+    torch.cuda.reset_peak_memory_stats()
+    ref_dir = os.path.join(d, "mesh_ref", arch)
     os.makedirs(ref_dir)
-    for path, g in tree_mod.items(grads):
-        np.save(os.path.join(ref_dir, tree_mod.key(path).replace("/", ".")
-                             + ".npy"), g.cpu().numpy())
-    del grads
+
+    def save(grads):
+        for path, g in tree_mod.items(grads):
+            np.save(os.path.join(ref_dir, tree_mod.key(path).replace(
+                "/", ".") + ".npy"), g.cpu().numpy())
+        open(os.path.join(ref_dir, "done"), "w").close()
+
     opt = mesh_opt()
     state = {"params": params, "opt": opt_mod.init_state(opt, params)}
-    step = steps_mod.make_train_step(cfg, opt)
+    step = steps_mod.make_train_step(cfg, opt, on_grads=first_call(save))
     losses, norms = [], []
-    for s in range(MESH_STEPS):
+    with layers.count_kept() as calls:
+        state, m = step(state, pipe.batch(0))
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+    n_moe = lm.layer_types(cfg).count("moe")
+    kept = int(sum(c.item() for c in calls[:n_moe]))
+    for s in range(1, MESH_STEPS):
         state, m = step(state, pipe.batch(s))
         losses.append(float(m["loss"]))
         norms.append(float(m["grad_norm"]))
+    peak = torch.cuda.max_memory_allocated()
     del state, params
     gc.collect()
     torch.cuda.empty_cache()
-    print(f"phase 4k (mesh) 1x1 f32 reference, qwen3-0.6b full width "
-          f"{MESH_LAYERS} layers, B {MESH_B} x S {MESH_S}: losses "
+    print(f"phase 4k (mesh) 1x1 f32 reference, {arch} full width "
+          f"{cfg.n_layers} layers, B {MESH_B} x S {MESH_S}: losses "
           + ", ".join(f"{x:.6f}" for x in losses) + "; grad_norm "
           + ", ".join(f"{x:.6f}" for x in norms)
-          + f"; {time.perf_counter() - t0:.1f} s", flush=True)
-    return {"losses": losses, "norms": norms, "loss0": float(loss)}
+          + (f"; kept choices {kept}" if n_moe else "")
+          + f"; peak {peak / 1e9:.3f} GB; {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    return {"losses": losses, "norms": norms, "kept": kept,
+            "peak_gb": peak / 1e9}
+
+
+def wait_for_reference(ref_dir: str) -> None:
+    """Block until the parent marked ``ref_dir`` done (its 1x1 reference
+    runs beside the ranks), at most TP_RANK_TIMEOUT_S."""
+    t0 = time.perf_counter()
+    while not os.path.exists(os.path.join(ref_dir, "done")):
+        check(time.perf_counter() - t0 < TP_RANK_TIMEOUT_S,
+              f"no 1x1 reference under {ref_dir} after "
+              f"{TP_RANK_TIMEOUT_S} s")
+        time.sleep(0.5)
+
+
+def mesh_grad_errs(torch, grads, mesh, ref_dir) -> dict:
+    """The rank's share of the first step's gradient check: for each leaf
+    it counts -- on data index 0, its slice of a split leaf (a copied kv
+    head on the copy's first rank), a replicated leaf on model index 0
+    -- ``[||g - ref||^2, ||ref||^2]`` against the same slice of the 1x1
+    run's leaf (read through a memory map), so the parent's sums over
+    the ranks are the whole leaf's."""
+    from repro_torch import tree as tree_mod
+    from repro_torch.parallel import sharding
+
+    out = {}
+    if mesh.plan.d != 0:
+        return out
+    wait_for_reference(ref_dir)
+    for path, g in tree_mod.items(grads):
+        split = mesh.split_leaf(path)
+        if mesh.duplicate_leaf(path) or (not split and mesh.plan.m != 0):
+            continue
+        key = tree_mod.key(path)
+        ref = np.load(os.path.join(ref_dir, key.replace("/", ".")
+                                   + ".npy"), mmap_mode="r")
+        if mesh.split is not None:
+            ref = sharding.shard_leaf(path, ref, mesh.full, mesh.split)
+        want = torch.from_numpy(np.array(ref)).to(g.device)
+        check(tuple(want.shape) == tuple(g.shape),
+              f"mesh: {key} {tuple(g.shape)} against the 1x1 run's slice "
+              f"{tuple(want.shape)}")
+        out[key] = [(g - want).norm().item() ** 2, want.norm().item() ** 2]
+        del want
+    return out
 
 
 def tp_train_runs(torch, g, rank, world, d) -> dict:
-    """Phase 4k (mesh), in a rank process: each mesh of MESH_RUNS[world]
-    over the rank's group (``launch.steps.make_mesh``), the host tree
-    drawn from MESH_SEED whole and cut to the rank's slice.  f32: the
-    first step's gradients gathered to the whole layout (rank 0 holds
-    each leaf to the 1x1 run's), then MESH_STEPS AdamW steps (at 2x2 the
-    whole state checkpointed after MESH_CKPT_STEP of them, by rank 0).
-    bf16 (timed): MESH_STEPS steps, each one's ms, collective bytes by
-    kind and kernel launches (the counts set to 0 just before the run),
-    the rank's peak memory.  At world 4 then ``pipeline_apply`` over the
-    4 ranks against the stages in sequence."""
+    """Phase 4k (mesh), in a rank process: each mesh of
+    ``mesh_runs(world)`` over the rank's group
+    (``launch.steps.make_mesh``), the host tree of its arch drawn from
+    MESH_SEED whole and cut to the rank's slice.  f32: the first step's
+    gradients held slice by slice to the 1x1 run's (``mesh_grad_errs``)
+    and a moe config's kept choices in that forward, then MESH_STEPS
+    AdamW steps (at 2x2 MESH_CKPT_ARCH's whole state checkpointed after
+    MESH_CKPT_STEP of them, by rank 0), the rank's peak.  bf16 (timed):
+    MESH_STEPS steps, each one's ms, collective bytes by kind and kernel
+    launches (the counts set to 0 just before the run), the rank's peak
+    memory.  At world 4 then ``pipeline_apply`` over the 4 ranks against
+    the stages in sequence."""
     import dataclasses
 
     from repro_torch import tree as tree_mod
     from repro_torch.checkpoint.manager import CheckpointManager
     from repro_torch.launch import steps as steps_mod
     from repro_torch.launch import train as train_mod
+    from repro_torch.models import layers, lm
     from repro_torch.optim import optimizer as opt_mod
     from repro_torch.parallel import sharding
     from repro_torch.parallel.pipeline import pipeline_apply
     from repro_torch.weights import seeded_params
 
     t0 = time.perf_counter()
-    f32, bf = mesh_config("float32"), mesh_config("bfloat16")
-    host = seeded_params(f32, MESH_SEED, "cpu")
     opt = mesh_opt()
     out = {}
 
@@ -5888,47 +6115,58 @@ def tp_train_runs(torch, g, rank, world, d) -> dict:
         return tree_mod.map_tree(lambda _, t: t.to(g.device, copy=True),
                                  tree)
 
-    for D, M in MESH_RUNS[world]:
+    host_arch, host = None, None
+    for arch, D, M in mesh_runs(world):
         tag = f"{D}x{M}"
         t1 = time.perf_counter()
+        f32, bf = mesh_config(arch, "float32"), mesh_config(arch, "bfloat16")
+        if arch != host_arch:
+            host = None
+            gc.collect()
+            host_arch, host = arch, seeded_params(f32, MESH_SEED, "cpu")
         mesh = steps_mod.make_mesh(f32, g, D, M)
         pipe = mesh_pipe(f32, g.device, D, mesh.plan.d)
         batches = [pipe.batch(s) for s in range(MESH_STEPS)]
         res = {"d": mesh.plan.d, "m": mesh.plan.m,
                "data_ranks": list(mesh.data.ranks) if mesh.data else None,
                "model_ranks": list(mesh.model.ranks) if mesh.model
-               else None}
+               else None,
+               "kv_ranks": list(mesh.kv.ranks) if mesh.kv else None}
         p = own(mesh.shard(host))
-        _, grads = steps_mod.loss_and_grads(p, mesh.cfg, batches[0], mesh)
-        whole = mesh.gather(grads)
-        del grads
-        if rank == 0:
-            errs = {}
-            for path, gw in tree_mod.items(whole):
-                key = tree_mod.key(path)
-                want = torch.from_numpy(np.load(os.path.join(
-                    d, "mesh_ref", key.replace("/", ".") + ".npy"))).to(
-                        g.device)
-                check(tuple(gw.shape) == tuple(want.shape),
-                      f"mesh {tag}: gathered {key} {tuple(gw.shape)}")
-                errs[key] = ((gw - want).norm() / want.norm().clamp_min(
-                    1e-30)).item()
-            res["grad_rel_err"] = errs
-        del whole
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t_f32 = time.perf_counter()
+        res["setup_s"] = t_f32 - t1
         state = {"params": p, "opt": opt_mod.init_state(opt, p)}
-        step = steps_mod.make_train_step(mesh.cfg, opt, mesh)
+
+        def held(grads, mesh=mesh, arch=arch, res=res):
+            # the first step's gradients, as the step completed them
+            res["grad_errs"] = mesh_grad_errs(
+                torch, grads, mesh, os.path.join(d, "mesh_ref", arch))
+        step = steps_mod.make_train_step(mesh.cfg, opt, mesh,
+                                         on_grads=first_call(held))
         losses, norms = [], []
         for s in range(MESH_STEPS):
-            if tag == "2x2" and s == MESH_CKPT_STEP:
+            if arch == MESH_CKPT_ARCH and tag == "2x2" \
+                    and s == MESH_CKPT_STEP:
                 t2 = time.perf_counter()
                 train_mod.save_state(CheckpointManager(
                     os.path.join(d, "mesh_ckpt")), s, state, mesh)
                 g.agree(s, "the mesh checkpoint written")
                 res["ckpt_s"] = time.perf_counter() - t2
-            state, m = step(state, batches[s])
+            if s == 0:
+                with layers.count_kept() as calls:
+                    state, m = step(state, batches[0])
+                n_moe = lm.layer_types(f32).count("moe")
+                res["kept"] = int(sum(c.item() for c in calls[:n_moe]))
+            else:
+                state, m = step(state, batches[s])
             losses.append(float(m["loss"]))
             norms.append(float(m["grad_norm"]))
-        res.update(f32_losses=losses, f32_norms=norms)
+        res.update(f32_losses=losses, f32_norms=norms,
+                   f32_peak_bytes=torch.cuda.max_memory_allocated(),
+                   f32_reserved_bytes=torch.cuda.max_memory_reserved(),
+                   f32_s=time.perf_counter() - t_f32)
         del state, p, step
         gc.collect()
         torch.cuda.empty_cache()
@@ -5966,7 +6204,8 @@ def tp_train_runs(torch, g, rank, world, d) -> dict:
         del state, p, step
         gc.collect()
         torch.cuda.empty_cache()
-        out[tag] = res
+        out[f"{arch} {tag}"] = res
+    del host
     if world == 4:
         micro, n_rows, w = MESH_PIPE
         gen = torch.Generator().manual_seed(23)
@@ -5984,30 +6223,31 @@ def tp_train_runs(torch, g, rank, world, d) -> dict:
     return out
 
 
-def check_mesh_train(torch, res, world, ref, d, device="cuda") -> dict:
+def check_mesh_train(torch, res, world, refs, d, device="cuda") -> dict:
     """Phase 4k (mesh) as the ranks wrote it: each mesh's f32 losses and
-    grad_norms within MESH_RTOL of the 1x1 run's, its first-step
-    gradients leaf by leaf within MESH_GRAD_TOL, every rank's the same;
-    the bf16 run's bytes by kind exactly as predicted (under a model
-    split 5 trunk all-reduces a layer, the embedding's and the head
-    input gradient's, each rows x 1,024 bf16: 22 a step; the data
-    group's gradient sum every leaf of the rank's slice in f32), its
-    launches a step as ``mesh_launches_want`` says on every rank, its
-    ms a step and each rank's peak printed; at 2x2 the
-    checkpoint restored into a 1x1 run here, whose next step's loss is
-    the uninterrupted 2x2 run's; at world 4 ``pipeline_apply`` within
-    MESH_PIPE_TOL of the stages in sequence."""
+    grad_norms within MESH_RTOL of its arch's 1x1 run's, its first-step
+    gradients leaf by leaf within MESH_GRAD_TOL (the ranks' slices'
+    sums), a moe config's kept choices the 1x1 run's, every rank's
+    losses the same; the bf16 run's bytes by kind exactly as
+    ``mesh_bytes_want`` predicts, its launches a step as
+    ``mesh_launches_want`` says on every rank, its ms a step and each
+    rank's peak printed; at 2x2 MESH_CKPT_ARCH's checkpoint restored
+    into a 1x1 run here, whose next step's loss is the uninterrupted 2x2
+    run's; at world 4 ``pipeline_apply`` within MESH_PIPE_TOL of the
+    stages in sequence."""
     from repro_torch.checkpoint.manager import CheckpointManager
     from repro_torch.launch import steps as steps_mod
-    from repro_torch.parallel import sharding
 
-    f32, bf = mesh_config("float32"), mesh_config("bfloat16")
     summary = {}
-    for D, M in MESH_RUNS[world]:
+    for arch, D, M in mesh_runs(world):
         tag = f"{D}x{M}"
-        runs = [r["mesh_train"][tag] for r in res]
+        key = f"{arch} {tag}"
+        ref = refs[arch]
+        f32, bf = mesh_config(arch, "float32"), mesh_config(arch,
+                                                             "bfloat16")
+        runs = [r["mesh_train"][key] for r in res]
         r0 = runs[0]
-        what = f"phase 4k (mesh) {tag}"
+        what = f"phase 4k (mesh) {arch} {tag}"
         for r in runs[1:]:
             check(r["f32_losses"] == r0["f32_losses"]
                   and r["f32_norms"] == r0["f32_norms"],
@@ -6018,10 +6258,27 @@ def check_mesh_train(torch, res, world, ref, d, device="cuda") -> dict:
         for i, (a, b) in enumerate(zip(r0["f32_norms"], ref["norms"])):
             check(abs(a - b) <= MESH_RTOL * abs(b), f"{what} f32 step {i}: "
                   f"grad_norm {a!r} vs the 1x1 run's {b!r}")
-        worst_key = max(r0["grad_rel_err"], key=r0["grad_rel_err"].get)
-        worst = r0["grad_rel_err"][worst_key]
-        check(worst <= MESH_GRAD_TOL, f"{what}: gradient {worst_key} off the "
-              f"1x1 run's by {worst:.3g} of its norm")
+        sums = {}
+        for r in runs:
+            for k, (dd, rr) in r["grad_errs"].items():
+                s = sums.setdefault(k, [0.0, 0.0])
+                s[0] += dd
+                s[1] += rr
+        n_leaves = len(list(_leaves(steps_mod.train_state_struct(
+            f32, mesh_opt())["params"])))
+        check(len(sums) == n_leaves, f"{what}: {len(sums)} gradient leaves "
+              f"checked of {n_leaves}")
+        errs = {k: math.sqrt(dd) / max(math.sqrt(rr), 1e-30)
+                for k, (dd, rr) in sums.items()}
+        worst_key = max(errs, key=errs.get)
+        worst = errs[worst_key]
+        lim = MESH_GRAD_TOL_ARCH.get(arch, MESH_GRAD_TOL)
+        for k, e in errs.items():
+            check(e <= lim, f"{what}: gradient {k} off the 1x1 run's by "
+                  f"{e:.3g} of its norm (limit {lim:.3g})")
+        kept = sum(r["kept"] for r in runs if r["m"] == 0)
+        check(kept == ref["kept"], f"{what}: {kept} kept choices, the 1x1 "
+              f"run {ref['kept']}")
         gaps = [max(abs(a - b) / b for a, b in zip(r0[k], ref[r]))
                 for k, r in (("f32_losses", "losses"), ("f32_norms",
                                                         "norms"))]
@@ -6030,30 +6287,22 @@ def check_mesh_train(torch, res, world, ref, d, device="cuda") -> dict:
             f"{x:.6f}" for x in ref["losses"]) + f"); largest relative "
             f"loss gap {gaps[0]:.3g}, grad_norm gap {gaps[1]:.3g}; "
             f"first-step gradients: worst leaf {worst_key} at {worst:.3g} "
-            f"of its norm ({len(r0['grad_rel_err'])} leaves)", flush=True)
+            f"of its norm ({len(errs)} leaves, limit {lim:.3g})"
+            + (f"; kept choices {kept} (1x1 {ref['kept']})"
+               if f32.moe is not None else "")
+            + "; f32 peak per rank " + ", ".join(
+                f"{r['f32_peak_bytes'] / 1e9:.3f}" for r in runs) + " GB ("
+            f"reserved {sum(r['f32_reserved_bytes'] for r in runs) / 1e9:.3f}"
+            " GB over the ranks)", flush=True)
         # bf16: bytes a step by kind, exactly
-        rows = MESH_B // D * MESH_S
-        split = sharding.plan(f32, 0, M) if M > 1 else None
-        leaves = sharding.rank_param_count(
-            f32, split or sharding.plan(f32, 0, 1))
-        want = {}
-        act = rows * bf.d_model * 2
-        if M > 1:
-            # a layer: the attention's and the MLP's all-reduce forward,
-            # the attention's again in the recompute (the checkpoint's
-            # recompute stops at the last tensor the backward saved, so
-            # the MLP's output is never summed twice), and the two
-            # column-parallel inputs' gradients backward
-            want.update(trunk=5 * MESH_LAYERS * act, embed=act, head=act)
-        if D > 1:
-            want["grad"] = 4 * leaves
+        want = mesh_bytes_want(bf, D, M, MESH_B // D * MESH_S)
+        lw = mesh_launches_want(torch, arch, D, M)
         for r in runs:
             got = r["bf16"]["bytes"][-1]
             for k, n in want.items():
                 check(got.get(k) == n, f"{what} bf16: {k} bytes a step "
                       f"{got.get(k)} on rank {r['d'] * M + r['m']}, "
                       f"predicted {n}")
-            lw = mesh_launches_want(torch, D, M)
             for s, la in enumerate(r["bf16"]["launches"]):
                 for k, n in lw.items():
                     check(la[k] == n, f"{what} bf16 step {s}: {k} launched "
@@ -6071,15 +6320,19 @@ def check_mesh_train(torch, res, world, ref, d, device="cuda") -> dict:
               + f"; bytes a step {b0['bytes'][-1]} (predicted {want}); "
               f"launches a step {b0['launches'][-1]}; peak per rank "
               + ", ".join(f"{x:.3f}" for x in peaks) + " GB; "
-              f"{r0['seconds']:.1f} s for the mesh on rank 0", flush=True)
-        summary[tag] = dict(
+              f"{r0['seconds']:.1f} s for the mesh on rank 0 (set-up "
+              f"{r0['setup_s']:.1f}, f32 {r0['f32_s']:.1f}, the rest bf16)",
+              flush=True)
+        summary[key] = dict(
             f32_losses=r0["f32_losses"], f32_norms=r0["f32_norms"],
-            grad_worst=[worst_key, worst], bf16_ms=b0["ms"],
+            grad_worst=[worst_key, worst], kept=kept, bf16_ms=b0["ms"],
             bf16_step_ms=step_ms, bf16_losses=b0["losses"],
             bytes=b0["bytes"][-1], launches=b0["launches"][-1],
             total_launches=b0["total_launches"], peak_gb=peaks,
+            f32_peak_gb=[r["f32_peak_bytes"] / 1e9 for r in runs],
+            f32_reserved_gb=sum(r["f32_reserved_bytes"] for r in runs) / 1e9,
             seconds=r0["seconds"])
-        if tag == "2x2":
+        if arch == MESH_CKPT_ARCH and tag == "2x2":
             t0 = time.perf_counter()
             opt = mesh_opt()
             state = CheckpointManager(os.path.join(d, "mesh_ckpt")).restore(
@@ -6098,7 +6351,7 @@ def check_mesh_train(torch, res, world, ref, d, device="cuda") -> dict:
             check(abs(resumed - want_loss) <= MESH_RTOL * abs(want_loss),
                   f"{what}: the checkpoint resumed at 1x1 gives loss "
                   f"{resumed!r}, the 2x2 run {want_loss!r}")
-            summary[tag]["resumed_loss"] = resumed
+            summary[key]["resumed_loss"] = resumed
             del state, step
             gc.collect()
             torch.cuda.empty_cache()
@@ -6115,7 +6368,7 @@ def check_mesh_train(torch, res, world, ref, d, device="cuda") -> dict:
     return summary
 
 
-def run_tp_path(torch, max_new=32) -> dict:
+def run_tp_path(torch, max_new=TP_MAX_NEW) -> dict:
     """Phase 4k: qwen3-0.6b at full width served by tp 2 and tp 4 ranks
     (``spawn_tp``) that share the one card over gloo.  The unsharded
     engine runs here on the same host weights -- its greedy f32 run
@@ -6147,7 +6400,7 @@ def run_tp_path(torch, max_new=32) -> dict:
     cfg = dataclasses.replace(full, n_layers=TP_LAYERS)
     inputs = {n: tp_inputs(cfg.vocab_size, max_new, n)
               for n in set(TP_PROMPTS.values())}
-    prompts, params = inputs[12]
+    prompts, params = inputs[max(TP_PROMPTS.values())]
     f32 = dataclasses.replace(cfg, dtype="float32")
     dev32 = _tree_to(seeded_params(cfg, TP_SEED, "cpu"), "cuda")
     # the unsharded entry point on the card: its tree is the host tree
@@ -6204,12 +6457,37 @@ def run_tp_path(torch, max_new=32) -> dict:
     d = os.path.join(ROOT, "build", "chip_smoke_tp")
     shutil.rmtree(d, ignore_errors=True)
     os.makedirs(d)
-    mesh_ref = mesh_reference(torch, d)
-    summary = {"timing": timing, "mesh_ref": mesh_ref}
+    mesh_refs = {}
+    summary = {"timing": timing, "mesh_ref": mesh_refs}
+
+    def references():
+        # each mesh model's 1x1 reference, while the first world's ranks
+        # serve; they wait on each one's marker before their mesh runs
+        t2 = time.perf_counter()
+        for arch, _, _ in MESH_MODELS:
+            mesh_refs[arch] = mesh_reference(torch, d, arch)
+        print(f"phase 4k (mesh) 1x1 references beside the tp "
+              f"{TP_WORLDS[0]} ranks: {time.perf_counter() - t2:.1f} s",
+              flush=True)
     refs = {}                     # the families' unsharded runs
     for world in TP_WORLDS:
         t1 = time.perf_counter()
-        res = spawn_tp(world, d)
+        # the near-tie rulers' trees wait on the host while the ranks
+        # (and at the first world the 1x1 references) fill the card
+        plain = ruler_on(plain, "cpu")
+        for ref in refs.values():
+            ref["ruler"] = ruler_on(ref["ruler"], "cpu")
+        gc.collect()
+        torch.cuda.empty_cache()
+        print(f"phase 4k tp {world}: this process holds "
+              f"{torch.cuda.memory_allocated() / 1e9:.3f} GB on the card "
+              f"({torch.cuda.memory_reserved() / 1e9:.3f} GB reserved) as "
+              "the ranks start", flush=True)
+        res = spawn_tp(world, d, references if world == TP_WORLDS[0]
+                       else None)
+        plain = ruler_on(plain, "cuda")
+        for ref in refs.values():
+            ref["ruler"] = ruler_on(ref["ruler"], "cuda")
         r0 = res[0]
         print(f"phase 4k tp {world}: {world} ranks on {r0['device']} "
               f"({r0['card']}) over {r0['backend']}, weights "
@@ -6275,9 +6553,16 @@ def run_tp_path(torch, max_new=32) -> dict:
         plane["families"] = check_tp_families(torch, res, world, refs)
         print(f"phase 4k tp {world}: the families' checks and unsharded "
               f"runs {time.perf_counter() - t2:.1f} s", flush=True)
+        # an unsharded ruler stays on the card only while a later world
+        # serves its family (the tp 4 ranks' mesh runs fill the card)
+        for arch, _, worlds in FAM_TP:
+            if arch in refs and max(worlds) <= world:
+                del refs[arch]
+        gc.collect()
+        torch.cuda.empty_cache()
         timing.update(plane.pop("timing"))
         t2 = time.perf_counter()
-        plane["mesh"] = check_mesh_train(torch, res, world, mesh_ref, d)
+        plane["mesh"] = check_mesh_train(torch, res, world, mesh_refs, d)
         print(f"phase 4k tp {world}: the mesh training checks "
               f"{time.perf_counter() - t2:.1f} s here, "
               f"{plane['mesh']['rank_seconds']:.1f} s in each rank",
@@ -6374,7 +6659,7 @@ def run_paper_path(torch) -> tuple:
 # ---------------------------------------------------------------------------
 RG_MAX_LEN = 2304         # the longest prompt (2,200) + 64 new tokens fit
 RG_MAX_NEW = 64
-RG_LAYERS = 14            # of 26: 4 x (rec, rec, attn) + (rec, rec)
+RG_LAYERS = 5             # of 26: (rec, rec, attn) + (rec, rec)
 
 
 def rg_prompts(vocab: int) -> list:
@@ -6389,7 +6674,7 @@ def rg_prompts(vocab: int) -> list:
 
 def check_rg_launches(launches, st, llm, what):
     """A recurrentgemma run's launches against its steps: flash attention
-    once an attention layer a prefill (4 a prompt at RG_LAYERS), no paged
+    once an attention layer a prefill (1 a prompt at RG_LAYERS), no paged
     attention
     (the ring buffers are dense), each head kernel once a head call of
     its kind (greedy: decode steps + prefills), no verify or softmax-unit
@@ -6736,7 +7021,7 @@ def rg_bf16_partings(torch, llm, twin, prompts, want, got,
 
 def run_recurrentgemma_path(torch, max_new=RG_MAX_NEW) -> tuple:
     """Phase 4l: recurrentgemma-2b (the hybrid RG-LRU family) at full
-    width in bf16 with its depth cut to RG_LAYERS of 26 (4 x (rec, rec,
+    width in bf16 with its depth cut to RG_LAYERS of 26 ((rec, rec,
     attn) + (rec, rec), d 2,560, 10 heads over 1 KV head of 256, d_ff
     7,680, V 256,000 tied, window 2,048, lru 2,560; random weights from
     seed 0, ``weights.seeded_params``), 8 slots of max_len 2,304 on the
@@ -6906,7 +7191,7 @@ def run_recurrentgemma_path(torch, max_new=RG_MAX_NEW) -> tuple:
 # ---------------------------------------------------------------------------
 RW_MAX_NEW = 64
 RW_MAX_LEN = 1024 + RW_MAX_NEW     # the longest prompt + its new tokens
-RW_LAYERS = 16       # of 32: the plain wkv scan is ~96% of a prefill
+RW_LAYERS = 4        # of 32: the plain wkv scan is ~96% of a prefill
 
 
 def rw_prompts(vocab: int) -> list:
@@ -7148,7 +7433,7 @@ def run_rwkv_path(torch, max_new=RW_MAX_NEW) -> tuple:
 # ---------------------------------------------------------------------------
 MOE_ARCH = "phi3.5-moe-42b-a6.6b"
 MOE_SMOKE = "llama4-maverick-400b-a17b"
-MOE_LAYERS = 6       # of 32: its 83.75 GB of bf16 weights exceed one card
+MOE_LAYERS = 2       # of 32: its 83.75 GB of bf16 weights exceed one card
 MOE_MAX_NEW = 64
 MOE_TOL = 1e-4       # one MoE layer, card vs CPU in f32: atol = rtol
 
@@ -7528,7 +7813,7 @@ def run_moe_path(torch, max_new=MOE_MAX_NEW) -> tuple:
 # ---------------------------------------------------------------------------
 TRAIN_ARCH = "qwen3-0.6b"
 TRAIN_B, TRAIN_S = 2, 4096   # train_4k's sequence; its batch cut 256 -> 2
-TRAIN_STEPS = 20
+TRAIN_STEPS = 12             # cut to pay for phase 4k's mesh runs
 TRAIN_WARM = 3               # steps before the timed ones
 # AdamW's peak lr at full width: the CLI's 3e-3 (sized for the smoke
 # config) diverges here -- the training CLI at B 2 x S 4,096 on an H100
@@ -8858,7 +9143,7 @@ def main() -> int:
         summary["tp_family_kernels_s"] = time.perf_counter() - t_f
         mesh_rows = check_mesh_kernels(torch, timer)
         del timer
-        summary["tp"] = run_tp_path(torch, max_new)
+        summary["tp"] = run_tp_path(torch)
         mark("phase 4k")
         # phase 4l: recurrentgemma-2b, on a card every earlier engine left
         gc.collect()
@@ -8928,9 +9213,9 @@ def main() -> int:
 
     def mesh_launches(kernel):
         """A kernel's launches in each mesh's bf16 run on rank 0."""
-        return {tag: summary["tp"][f"tp{w}"]["mesh"][tag]["total_launches"][
-            kernel] for w in TP_WORLDS for tag in (
-                f"{a}x{b}" for a, b in MESH_RUNS[w])}
+        return {key: summary["tp"][f"tp{w}"]["mesh"][key]["total_launches"][
+            kernel] for w in TP_WORLDS for key in (
+                f"{a} {d}x{m}" for a, d, m in mesh_runs(w))}
 
     def fam_shards(model, kernel):
         return {str(v): {k: r[kernel][k] for k in TIMES + ("max_abs_err",)}
@@ -9136,7 +9421,7 @@ def main() -> int:
                  rg_rows["flash_t2150_g10_hd256"],
                  moe_rows["flash_t512_g4"],
                  train_rows["flash_t4096_b2_g2"],
-                 mesh_rows["flash_t1024_b4_h8"],
+                 *(mesh_rows[f[0]] for f in MESH_FLASH),
                  vlm_rows["flash_t768_g6"], tp_fam["flash_g5"],
                  *(ed_rows[k] for k in ("flash_enc_t1024",
                                         "flash_cross_t64_s1024",
@@ -9147,8 +9432,9 @@ def main() -> int:
              train_t4096_b2_g2={k: train_rows["flash_t4096_b2_g2"][k]
                                 for k in TIMES + ("max_abs_err",)},
              mesh_train_launches=mesh_launches("flash_attention"),
-             mesh_t1024_b4_h8={k: mesh_rows["flash_t1024_b4_h8"][k]
-                               for k in TIMES + ("max_abs_err",)},
+             **{f"mesh_{f[0][6:]}": {k: mesh_rows[f[0]][k]
+                                     for k in TIMES + ("max_abs_err",)}
+                for f in MESH_FLASH},
              **{k: flash_rows["T512"][k] for k in TIMES},
              g8={k: flash_rows["T512_g8"][k] for k in TIMES},
              hd192={k: v for k, v in hd192_rows.items()
@@ -9206,10 +9492,10 @@ def main() -> int:
              **NO_LIBRARY,
              keyed_draw=summary["stride"]["keyed_draw"]),
     ]
-    # each unit kernel's row at the mesh step's shapes
-    mesh_key = {"fused_xent": "fused_xent_rows2048_f32",
-                "softmax_stats": "softmax_stats_slice_f32",
-                "online_softmax": "online_softmax_slice_f32"}
+    # each unit kernel's rows at the mesh steps' shapes
+    mesh_keys = {"fused_xent": list(MESH_XENT),
+                 **{n: [f"{n}_{t}" for t in MESH_SLICES]
+                    for n in ("softmax_stats", "online_softmax")}}
     for name, replaces in (
             ("fused_xent", "src/repro/kernels/fused_xent.py:59"),
             ("softmax_stats", "src/repro/kernels/online_softmax.py:69"),
@@ -9223,14 +9509,15 @@ def main() -> int:
             paper_launches=paper_launches[name],
             max_abs_err=max(unit_errs[name], many_errs[name],
                             train_rows[f"{name}_b8192_f32"]["max_abs_err"],
-                            mesh_rows[mesh_key[name]]["max_abs_err"],
+                            *(mesh_rows[k]["max_abs_err"]
+                              for k in mesh_keys[name]),
                             *(unit_rows[(name, b)]["max_abs_err"]
                               for b in sizes)),
             train_launches=train_launches[name],
             mesh_train_launches=mesh_launches(name),
-            **{f"mesh_{mesh_key[name]}": {
-                k: mesh_rows[mesh_key[name]][k]
-                for k in TIMES + ("max_abs_err",)}},
+            **{f"mesh_{key}": {k: mesh_rows[key][k]
+                               for k in TIMES + ("max_abs_err",)}
+               for key in mesh_keys[name]},
             train_b8192_f32={k: train_rows[f"{name}_b8192_f32"][k]
                              for k in TIMES + ("max_abs_err",)},
             **{k: unit_rows[(name, 12)][k] for k in TIMES},

@@ -9,17 +9,22 @@ lowered.
 On a mesh (``TrainMesh``, ``make_mesh``) the reference's pjit over
 ``train_specs`` becomes one process a rank over ``parallel.comm``
 groups: the model group runs the Megatron split forward and backward
-(``comm.copy_to_group`` / ``reduce_from_group`` in ``models.lm``, the
-vocabulary-parallel loss in ``models.api``), the data group holds
-replicas of the masters, each on its block of the batch's rows.  After
-the backward a rank's gradients are completed (``complete_grads``): the
-qk-norm scales' parts summed over the model group (kind ``"norm"``),
-then every leaf summed over the data group in f32 (kind ``"grad"``), leaf
-by leaf in the tree's order on every rank -- each rank's loss is its
-share of the global mean (``api.xent_loss``), so the sum is the mean's
-gradient, the reference's plain reduction over ``data`` (its loop never
-compresses it; ``optim.compression.compressed_psum`` stays unwired, as
-there).
+(``comm.copy_to_group`` / ``reduce_from_group`` in ``models.lm`` and the
+family blocks, ``comm.sum_to_group`` / ``gather_from_group`` in RWKV6's
+channel-mix, the vocabulary-parallel loss in ``models.api``), the data
+group holds replicas of the masters, each on its block of the batch's
+rows.  After the backward a rank's gradients are completed
+(``complete_grads``): the qk-norm scales' parts summed over the model
+group (kind ``"norm"``) and the router's (kind ``"router"``: its combine
+weights' part plus its 1 / M share of the router loss's), a copied kv
+head's wk / wv summed over the ranks that hold the copy (kind ``"kv"``,
+the ``kv`` group), then every leaf summed over the data group in f32
+(kind ``"grad"``), leaf by leaf in the tree's order on every rank --
+each rank's loss is its share of the global mean (``api.xent_loss``,
+and the router loss's share over the global counts), so the sum is the
+mean's gradient, the reference's plain reduction over ``data`` (its loop
+never compresses it; ``optim.compression.compressed_psum`` stays
+unwired, as there).
 """
 from __future__ import annotations
 
@@ -41,8 +46,9 @@ class TrainMesh:
     """One rank's place in a (data, model) mesh: its ``plan``
     (``sharding.train_plan``), its data and model groups (None on an axis
     of 1), the whole config ``full`` and the rank's view ``cfg``
-    (``sharding.local_config`` under a split model axis), and the
-    rank's ``device``."""
+    (``sharding.local_config`` under a split model axis), the rank's
+    ``device``, and ``kv``, the ranks of its data index that hold the
+    same copy of a kv head (None where the kv heads split evenly)."""
 
     plan: sharding.TrainPlan
     data: Optional[comm.Group]
@@ -50,6 +56,7 @@ class TrainMesh:
     full: ModelConfig
     cfg: ModelConfig
     device: torch.device
+    kv: Optional[comm.Group] = None
 
     @property
     def split(self) -> Optional[sharding.Split]:
@@ -68,6 +75,12 @@ class TrainMesh:
 
     def split_leaf(self, path: tuple) -> bool:
         return sharding.split_axis(path, self.full, self.split) is not None
+
+    def duplicate_leaf(self, path: tuple) -> bool:
+        """Whether the rank's slice at ``path`` is a kv copy that a lower
+        model rank holds too (the global norm counts it there alone)."""
+        return (self.kv is not None and self.kv.rank > 0
+                and sharding.kv_copy_leaf(path))
 
 
 def parse_mesh(mesh: Optional[str]):
@@ -98,7 +111,14 @@ def make_mesh(cfg: ModelConfig, group: comm.Group, data: int,
     plan = sharding.train_plan(cfg, group.rank, data, model, group=mgroup)
     local = cfg if plan.split is None else sharding.local_config(
         cfg, plan.split)
-    return TrainMesh(plan, dgroup, mgroup, cfg, local, group.device)
+    kv = None
+    copies = sharding.kv_copies(cfg, model)
+    if copies is not None:
+        # the same model indices' set in every data index, made in one
+        # order on every rank
+        kv = group.split_sets([[d * model + m for m in ms]
+                               for d in range(data) for ms in copies])
+    return TrainMesh(plan, dgroup, mgroup, cfg, local, group.device, kv)
 
 
 def rank_grads(params, cfg: ModelConfig, batch: dict, *, data=None):
@@ -122,15 +142,20 @@ def rank_grads(params, cfg: ModelConfig, batch: dict, *, data=None):
 def complete_grads(loss, grads, mesh: Optional[TrainMesh]):
     """A rank's (loss share, gradients) made whole, in place: the
     replicated leaves whose gradient is a part on each model rank
-    (``sharding.partial_grad``: the qk-norm scales) summed over the
-    model group, then every leaf and the loss summed over the data group
-    in f32, leaf by leaf in the tree's order.  Returns (loss, grads)."""
+    (``sharding.partial_grad``: the qk-norm scales, kind ``"norm"``; the
+    router, kind ``"router"``) summed over the model group, a copied kv
+    head's wk / wv over the ranks holding the copy (kind ``"kv"``), then
+    every leaf and the loss summed over the data group in f32, leaf by
+    leaf in the tree's order.  Returns (loss, grads)."""
     if mesh is None:
         return loss, grads
     if mesh.model is not None:
         for path, g in tree_mod.items(grads):
             if sharding.partial_grad(path):
-                mesh.model.all_reduce_sum(g, "norm")
+                mesh.model.all_reduce_sum(
+                    g, "router" if path[-1] == "router" else "norm")
+            elif mesh.kv is not None and sharding.kv_copy_leaf(path):
+                mesh.kv.all_reduce_sum(g, "kv")
     if mesh.data is not None:
         for g in tree_mod.leaves(grads):
             mesh.data.all_reduce_sum(g, "grad")
@@ -175,10 +200,14 @@ def check_replicas(mesh: TrainMesh, params, when: str) -> None:
                if not mesh.split_leaf(path)]
         mesh.model.agree(digest(rep), f"the model group's replicated "
                          f"leaves {when}")
+    if mesh.kv is not None:
+        kv = [leaf for path, leaf in tree_mod.items(params)
+              if sharding.kv_copy_leaf(path)]
+        mesh.kv.agree(digest(kv), f"the copied kv heads {when}")
 
 
 def make_train_step(cfg: ModelConfig, opt_cfg: opt_mod.AdamWConfig,
-                    mesh: Optional[TrainMesh] = None):
+                    mesh: Optional[TrainMesh] = None, on_grads=None):
     """``step(state, batch) -> (state, metrics)``: loss and gradients
     (``loss_and_grads``), then ``optimizer.update``, which writes
     ``state["params"]`` and ``state["opt"]`` in place; the metrics are
@@ -187,9 +216,14 @@ def make_train_step(cfg: ModelConfig, opt_cfg: opt_mod.AdamWConfig,
 
     ``mesh``: the step of a rank (``cfg`` is then ``mesh.cfg``, the
     state the rank's slice, the batch its rows); the global norm sums
-    the split leaves over the model group; before the first update and
+    the split leaves over the model group, each copied kv head once;
+    before the first update and
     after it every replica is checked to hold the same bits
-    (``check_replicas``)."""
+    (``check_replicas``).
+
+    ``on_grads(grads)``, where given, sees each step's gradients once
+    they are whole (on a mesh the rank's slice), before the update reads
+    them."""
     if mesh is not None:
         opt_mod.check_split(opt_cfg, mesh.model is not None)
     first = [mesh is not None]
@@ -198,9 +232,12 @@ def make_train_step(cfg: ModelConfig, opt_cfg: opt_mod.AdamWConfig,
         if first[0]:
             check_replicas(mesh, state["params"], "at start")
         loss, grads = loss_and_grads(state["params"], cfg, batch, mesh)
+        if on_grads is not None:
+            on_grads(grads)
         kw = {}
         if mesh is not None and mesh.model is not None:
-            kw = dict(model=mesh.model, split_leaf=mesh.split_leaf)
+            kw = dict(model=mesh.model, split_leaf=mesh.split_leaf,
+                      skip_leaf=mesh.duplicate_leaf)
         metrics = opt_mod.update(opt_cfg, grads, state["opt"],
                                  state["params"], **kw)
         if first[0]:

@@ -16,11 +16,15 @@ reference's ``--mesh 4x2``; the groups from torchrun's environment,
       --device cpu --mesh 2x2
 The world size must be D x M.  Each rank draws the whole host tree from
 the seed (``weights.seeded_params``) and keeps its slice
-(``launch.steps.TrainMesh``); the model axis splits the dense family's
-trunk and vocabulary (the loss through the softmax-stats kernel on the
-rank's vocabulary slice), the data axis cuts the batch's rows.  Rank 0
-logs; a checkpoint is written whole, by rank 0, and restores into any
-mesh.
+(``launch.steps.TrainMesh``); the model axis splits the trunk of the
+dense, moe (experts), ssm (RWKV6 heads) and hybrid (RG-LRU gate blocks)
+families and the vocabulary (the loss through the softmax-stats kernel
+on the rank's vocabulary slice), the data axis cuts the batch's rows
+(a moe config's router loss over the global counts).  Rank 0 logs; a
+checkpoint is written whole, by rank 0, and restores into any mesh:
+  PYTHONPATH=src python -m torch.distributed.run --nproc-per-node 4 \\
+      -m repro_torch.launch.train --arch phi3.5-moe-42b-a6.6b --smoke \\
+      --device cpu --mesh 2x2
 """
 from __future__ import annotations
 

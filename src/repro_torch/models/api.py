@@ -144,11 +144,16 @@ def train_loss(params: dict, cfg: ModelConfig, batch: dict, *,
     ``params`` its slice when the model axis is split -- the loss then
     reads the rank's logits slice (``lm.local_logits``) through the
     vocabulary-parallel loss; ``data`` is the rank's data group, and the
-    loss its share of the global mean (``xent_loss``)."""
+    loss its share of the global mean (``xent_loss``) plus its share of
+    the global router loss (``layers.moe_aux_loss`` over ``data``: the
+    routed counts summed over the group before the product), so the data
+    group's sum of the shares is the global loss.  Under a split model
+    axis the router loss's gradient is shared over the model group
+    (``parallel.moe_ep``)."""
     cast = cast_params(params, cfg)
     h, aux = lm.hidden(cast, cfg, batch["tokens"],
                        image_embeds=batch.get("image_embeds"),
-                       src_embeds=batch.get("src_embeds"))
+                       src_embeds=batch.get("src_embeds"), data=data)
     sh = cfg.shard
     if sh is not None and sh.trunk and sh.world > 1:
         logits = lm.local_logits(cast, cfg, h)

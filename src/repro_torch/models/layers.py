@@ -9,6 +9,7 @@ port's hidden states track the JAX package's.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 from typing import Optional
@@ -398,14 +399,48 @@ def moe_route(xf: torch.Tensor, router: torch.Tensor, spec):
 
 
 def moe_aux_loss(probs: torch.Tensor, idx: torch.Tensor,
-                 n_experts: int) -> torch.Tensor:
+                 n_experts: int, data=None) -> torch.Tensor:
     """Switch-style load balance, ``E * sum_e f_e * P_e`` (f32 scalar):
     f_e the mean over tokens of the choices routed to e, P_e the mean
-    router probability."""
+    router probability.
+
+    ``data`` (a data group, the tokens one block of the global batch):
+    both means are over the GLOBAL tokens -- the routed counts and the
+    token count summed over the group (kind ``"aux"``, E + 1 f32) -- and
+    the result is this rank's share, ``E * sum_e f_e * sum_n probs[n,
+    e] / N``: the shares' sum over the group is the global router loss,
+    and each rank's probabilities get their gradient ``E f_e / N`` once
+    (the counts carry none).  A product of the ranks' own means, or a
+    1 / D share of the global loss, would not be it."""
     onehot = (idx[..., None] == torch.arange(
         n_experts, device=idx.device)).float()               # (N, k, E)
-    f = onehot.sum(dim=1).mean(dim=0)
-    return n_experts * torch.sum(f * probs.mean(dim=0))
+    if data is None:
+        f = onehot.sum(dim=1).mean(dim=0)
+        return n_experts * torch.sum(f * probs.mean(dim=0))
+    counts = torch.cat([onehot.sum(dim=(0, 1)),
+                        onehot.new_full((1,), float(idx.shape[0]))])
+    counts = data.all_reduce_sum(counts, "aux")
+    n = counts[-1]
+    return n_experts * torch.sum(counts[:-1] / n * (probs.sum(dim=0) / n))
+
+
+# While a caller holds it (``count_kept``), each MoE call appends the
+# choices it keeps -- over all E experts at the capacity, a device scalar,
+# so no host sync -- to this list; None otherwise.
+_KEPT: Optional[list] = None
+
+
+@contextlib.contextmanager
+def count_kept():
+    """Inside: yields a list to which every MoE call appends its kept
+    choices (``moe_slots``' keep mask summed), in call order; a unit
+    recomputed in the backward appends again."""
+    global _KEPT
+    outer, _KEPT = _KEPT, []
+    try:
+        yield _KEPT
+    finally:
+        _KEPT = outer
 
 
 def moe_slots(idx: torch.Tensor, spec, group: int):
@@ -448,6 +483,8 @@ def _expert_share(p: dict, xf: torch.Tensor, vals: torch.Tensor,
         raise ValueError(f"expert range {experts} but the layer holds "
                          f"{p['w_gate'].shape[0]} experts")
     rank, keep, cap = moe_slots(idx, spec, group)
+    if _KEPT is not None:
+        _KEPT.append(keep.sum())
     slots = (n_tok // group) * cap
     g = torch.arange(n_tok, device=xf.device)[:, None] // group
     rel = idx - lo
@@ -468,12 +505,13 @@ def _expert_share(p: dict, xf: torch.Tensor, vals: torch.Tensor,
     return (flat[dest] * w).view(n_tok, k, d).sum(dim=1)
 
 
-def _moe(p: dict, x: torch.Tensor, cfg: ModelConfig, group: int, experts):
+def _moe(p: dict, x: torch.Tensor, cfg: ModelConfig, group: int, experts,
+         data=None):
     spec = cfg.moe
     B, T, d = x.shape
     xf = x.reshape(-1, d)
     probs, vals, idx = moe_route(xf, p["router"], spec)
-    aux = moe_aux_loss(probs, idx, spec.num_experts)
+    aux = moe_aux_loss(probs, idx, spec.num_experts, data)
     if experts is None:
         experts = (0, spec.num_experts)
     y = _expert_share(p, xf, vals, idx, spec, group, experts,
@@ -494,19 +532,23 @@ def moe_scatter(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
 
 
 def moe_gshard(p: dict, x: torch.Tensor, cfg: ModelConfig,
-               group_size: int = 4096, *, experts=None):
+               group_size: int = 4096, *, experts=None, data=None):
     """The prefill / forward executor (reference ``moe_gshard``): each
     row's T tokens in groups of ``n = min(group_size, T)``, capacity
     ``ceil(cf * n * k / E)`` a group.  The reference's one-hot dispatch
     and combine tensors (G, n, E, C) are not built; the index form keeps
     the same choices with the same weights.  A T that ``n`` does not
-    divide fails in the reference's reshape, and raises here."""
+    divide fails in the reference's reshape, and raises here.  ``data``
+    (a data group, training on a mesh's block of the batch's rows): the
+    router loss's share over the global means (``moe_aux_loss``); the
+    groups lie within a row, so cutting rows leaves every choice, slot
+    and drop as the whole batch has it."""
     B, T, _ = x.shape
     n = min(group_size, T)
     if T % n:
         raise ValueError(f"moe_gshard: T={T} is not a multiple of the group "
                          f"size {n}")
-    return _moe(p, x, cfg, n, experts)
+    return _moe(p, x, cfg, n, experts, data)
 
 
 def moe_dense_oracle(p: dict, x: torch.Tensor, cfg: ModelConfig):
@@ -530,15 +572,18 @@ def moe_dense_oracle(p: dict, x: torch.Tensor, cfg: ModelConfig):
 
 
 def moe_layer(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
-              impl: str = "gshard", group_size: int = 4096, experts=None):
+              impl: str = "gshard", group_size: int = 4096, experts=None,
+              data=None):
     """The MoE feed-forward by ``impl`` (``oracle``, ``gshard`` or
     ``scatter``; the reference's ``ep``, on a mesh with no data axis, is
     ``scatter`` over a rank's ``experts`` followed by the caller's
-    all-reduce)."""
+    all-reduce).  ``data``, a training rank's data group, reaches the
+    gshard executor's router loss (``sharding.train_plan`` refuses any
+    other executor under a data axis)."""
     if impl == "oracle":
         return moe_dense_oracle(p, x, cfg)
     if impl == "gshard":
-        return moe_gshard(p, x, cfg, group_size, experts=experts)
+        return moe_gshard(p, x, cfg, group_size, experts=experts, data=data)
     if impl in ("scatter", "ep"):
         return moe_scatter(p, x, cfg, experts=experts)
     raise ValueError(f"moe impl {impl!r}: expected oracle, gshard, scatter "

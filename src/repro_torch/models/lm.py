@@ -47,12 +47,15 @@ own, ``rwkv6.rwkv_channel_mix``), the recurrent states hold the rank's
 channels (``rglru`` / ``rwkv6``), ``lm_head_weight`` is the rank's (D, V
 / ranks) slice and ``logits_fn`` all-gathers the slices' f32 logits.
 
-Training under a split (the dense family) differentiates through the
-collectives with the Megatron pair: the embedding's sum and each
-``wo`` / ``w_out`` output go through ``comm.reduce_from_group``, the
-normed inputs of wq / wk / wv and of the MLP's first matrices, and the
-head's input, through ``comm.copy_to_group``, whose backward sums their
-gradient over the ranks; the loss reads the rank's logits slice alone
+Training under a split (the dense, moe, hybrid and ssm families)
+differentiates through the collectives with the Megatron pair: the
+embedding's sum and each ``wo`` / ``w_out`` output go through
+``comm.reduce_from_group``, the normed inputs of wq / wk / wv and of the
+MLP's first matrices, and the head's input, through
+``comm.copy_to_group``, whose backward sums their gradient over the
+ranks; a ``moe`` layer's input and its experts' sum are the same pair
+(``parallel.moe_ep``), the recurrent blocks carry their own
+(``rglru``, ``rwkv6``); the loss reads the rank's logits slice alone
 (``local_logits``).
 """
 from __future__ import annotations
@@ -253,7 +256,7 @@ def layer_params(params: dict, cfg: ModelConfig) -> list:
 
 
 def _apply_layer(p: dict, x: torch.Tensor, cfg: ModelConfig, kind: str, *,
-                 consts, cache=None, group=None, cross=None):
+                 consts, cache=None, group=None, cross=None, data=None):
     """One layer of ``kind``; with ``group`` (a split trunk) the
     row-parallel outputs of ``wo`` and ``w_out`` are summed over the
     ranks (a ``rec`` layer's RG-LRU block and MLP, an ``rwkv`` layer's
@@ -266,7 +269,8 @@ def _apply_layer(p: dict, x: torch.Tensor, cfg: ModelConfig, kind: str, *,
     ``enc`` layer's self-attention is bidirectional with no window; an
     ``xattn`` layer's cross-attention reads ``cross``: the encoder's
     output (B, S_src, D) without a cache, the read-only ``{"k", "v"}``
-    cross K/V in a decode step (reference ``_apply_layer``)."""
+    cross K/V in a decode step (reference ``_apply_layer``).  ``data``, a
+    training rank's data group, reaches a ``moe`` layer's router loss."""
     if kind == "rwkv":
         return (*_recurrent(rwkv6.init_state, rwkv6.rwkv_block, p, x, cfg,
                             consts, cache, group), None)
@@ -300,10 +304,10 @@ def _apply_layer(p: dict, x: torch.Tensor, cfg: ModelConfig, kind: str, *,
     impl = moe_impl(cfg, cache is not None)
     if group is not None:
         h, aux = moe_ep.moe_ep(p["moe"], h_in, cfg, impl=impl,
-                               group_size=cfg.moe_group_size)
+                               group_size=cfg.moe_group_size, data=data)
     else:
         h, aux = moe_layer(p["moe"], h_in, cfg, impl=impl,
-                           group_size=cfg.moe_group_size)
+                           group_size=cfg.moe_group_size, data=data)
     return x + h, extra, aux
 
 
@@ -430,20 +434,20 @@ def _store_kv(leaf: dict, l: int, k: torch.Tensor, v: torch.Tensor,
 
 
 def _unit(slots: list, unit: tuple, x: torch.Tensor, cfg: ModelConfig,
-          consts, group, cross=None):
+          consts, group, cross=None, data=None):
     """One unit of the block program over x (its slots' layers in
     order): returns (x, the f32 sum of its router losses)."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for p, kind in zip(slots, unit):
         x, _, a = _apply_layer(p, x, cfg, kind, consts=consts, group=group,
-                               cross=cross)
+                               cross=cross, data=data)
         if a is not None:
             aux = aux + a
     return x, aux
 
 
 def _run_units(stack_layers: list, segs: list, x: torch.Tensor,
-               cfg: ModelConfig, consts, group, cross=None):
+               cfg: ModelConfig, consts, group, cross=None, data=None):
     """Every unit of a block program over x, each under
     ``torch.utils.checkpoint`` when ``cfg.remat`` asks and grad is on:
     returns (x, the f32 sum of the router losses)."""
@@ -453,10 +457,11 @@ def _run_units(stack_layers: list, segs: list, x: torch.Tensor,
         for slots in seg_layers:
             if remat:
                 x, aux = torch.utils.checkpoint.checkpoint(
-                    _unit, slots, unit, x, cfg, consts, group, cross,
+                    _unit, slots, unit, x, cfg, consts, group, cross, data,
                     use_reentrant=False)
             else:
-                x, aux = _unit(slots, unit, x, cfg, consts, group, cross)
+                x, aux = _unit(slots, unit, x, cfg, consts, group, cross,
+                               data)
             total = total + aux
     return x, total
 
@@ -525,15 +530,16 @@ def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor, *,
 
 def hidden(params: dict, cfg: ModelConfig, tokens: torch.Tensor, *,
            image_embeds: Optional[torch.Tensor] = None,
-           src_embeds: Optional[torch.Tensor] = None):
+           src_embeds: Optional[torch.Tensor] = None, data=None):
     """``forward`` up to the head: (the final-normed hidden states (B, S,
-    D), the f32 sum of the router losses)."""
+    D), the f32 sum of the router losses; ``data``, a training rank's
+    data group, makes each its share over the global means)."""
     enc_out = _encoder_output(params, cfg, src_embeds)
     S = tokens.shape[1]
     x = embed_tokens(params, cfg, tokens, image_embeds)
     consts = step_constants(cfg, torch.arange(S, device=tokens.device))
     x, total = _run_units(layer_params(params, cfg), segments(cfg), x, cfg,
-                          consts, _trunk_group(cfg), enc_out)
+                          consts, _trunk_group(cfg), enc_out, data)
     return final_hidden(params, cfg, x), total
 
 

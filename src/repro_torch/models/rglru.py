@@ -27,7 +27,11 @@ ranks) the rank's view (``sharding.local_config``) holds its whole gate
 blocks: ``lru_width`` its channels and ``n_heads`` its blocks, so the
 projections, the conv, the gates, the scan and the state are the rank's
 channels alone; ``w_out``'s rows give a partial sum, all-reduced before
-the residual.
+the residual.  In training both collectives carry their derivative: the
+normed input of ``w_gate_in`` and ``w_x`` goes through
+``comm.copy_to_group`` (so the block norm's gradient is whole on every
+rank) and the output through ``comm.reduce_from_group``; the gate blocks
+are whole on a rank, so ``w_a`` / ``w_i`` need no sum.
 """
 from __future__ import annotations
 
@@ -36,6 +40,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import rms_norm
+from repro_torch.parallel import comm
 
 C = 8.0
 MIN_RAD, MAX_RAD = 0.9, 0.999
@@ -129,7 +134,8 @@ def rglru_block(p: dict, x: torch.Tensor, cfg: ModelConfig, state: dict,
     state).  T = 1 is a decode step.  With ``group`` (a split trunk) y is
     summed over the ranks."""
     dt = x.dtype
-    xn = rms_norm(x, p["ln"], cfg.norm_eps)
+    xn = comm.copy_to_group(rms_norm(x, p["ln"], cfg.norm_eps), group,
+                            "trunk")
     gate = F.gelu(xn @ p["w_gate_in"].to(dt), approximate="tanh")
     xb = xn @ p["w_x"].to(dt)
     xb, conv = causal_conv1d(xb, state["conv"], p["conv_w"], p["conv_b"])
@@ -141,7 +147,6 @@ def rglru_block(p: dict, x: torch.Tensor, cfg: ModelConfig, state: dict,
     a = torch.exp(-C * r * sp)
     hs, h_last = rglru_scan(xb32, state["h"], a, i)
     y = (hs.to(dt) * gate) @ p["w_out"].to(dt)
-    if group is not None:
-        y = group.all_reduce_sum(y, "trunk")
+    y = comm.reduce_from_group(y, group, "trunk")
     return x + y, {"conv": conv, "h": h_last}
 

@@ -26,6 +26,16 @@ the residual.  The channel-mix's ``kv`` is a partial sum over the rank's
 d_ff rows: all-reduced first, its product with the rank's ``sigmoid(xr
 @ w_r_cm)`` columns is all-gathered (``rwkv_channel_mix``).  The shifts
 stay full width.
+
+Every collective carries its derivative (``parallel.comm``): the
+time-mix output is ``reduce_from_group``; the column-parallel
+projections (w_r, w_k, w_v, w_g, the decay LoRA's wB, w_k_cm, w_r_cm)
+read their inputs through ``copy_to_group``, so the gradients of the
+replicated ``mu_*`` and ``wA``, which act ahead of them, are whole on
+every rank; ``kv`` is ``sum_to_group`` (a rank reads only its columns of
+the sum, so its part's gradient is the sum of the ranks' column
+gradients) and the product ``gather_from_group`` (each rank takes back
+its own columns' gradient).
 """
 from __future__ import annotations
 
@@ -34,6 +44,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import group_norm_heads, rms_norm
+from repro_torch.parallel import comm
 
 LORA = 64                  # the decay LoRA's rank
 # f32 elements of k (x) v (and u * that) a scan precomputes at once
@@ -128,9 +139,15 @@ def wkv_scan(S: torch.Tensor, r: torch.Tensor, k: torch.Tensor,
     return out, S.reshape(B, H, hd, hd)
 
 
-def rwkv_time_mix(p: dict, x: torch.Tensor, cfg: ModelConfig, state: dict):
+def _cols(x: torch.Tensor, group) -> torch.Tensor:
+    """A column-parallel projection's input (``comm.copy_to_group``)."""
+    return comm.copy_to_group(x, group, "trunk")
+
+
+def rwkv_time_mix(p: dict, x: torch.Tensor, cfg: ModelConfig, state: dict,
+                  group=None):
     """x (B, T, D), the normed input.  Returns (y, {"wkv", "shift1"});
-    on a rank, y is its heads' share of ``w_o``'s sum."""
+    on a rank (``group``), y is its heads' share of ``w_o``'s sum."""
     B, T, _ = x.shape
     hd = cfg.rwkv_head_size
     c = width(cfg)
@@ -140,12 +157,13 @@ def rwkv_time_mix(p: dict, x: torch.Tensor, cfg: ModelConfig, state: dict):
     xr, xk = _lerp(x, prev, p["mu_r"]), _lerp(x, prev, p["mu_k"])
     xv, xw = _lerp(x, prev, p["mu_v"]), _lerp(x, prev, p["mu_w"])
     xg = _lerp(x, prev, p["mu_g"])
-    r = (xr @ p["w_r"].to(dt)).reshape(B, T, h, hd)
-    k = (xk @ p["w_k"].to(dt)).reshape(B, T, h, hd)
-    v = (xv @ p["w_v"].to(dt)).reshape(B, T, h, hd)
-    g = xg @ p["w_g"].to(dt)
+    r = (_cols(xr, group) @ p["w_r"].to(dt)).reshape(B, T, h, hd)
+    k = (_cols(xk, group) @ p["w_k"].to(dt)).reshape(B, T, h, hd)
+    v = (_cols(xv, group) @ p["w_v"].to(dt)).reshape(B, T, h, hd)
+    g = _cols(xg, group) @ p["w_g"].to(dt)
     # data-dependent decay (Finch): w_t = exp(-exp(w0 + lora(xw)))
-    dec = p["w0"].float() + (xw @ p["wA"].to(dt)).float() @ p["wB"].float()
+    lora = _cols((xw @ p["wA"].to(dt)).float(), group)
+    dec = p["w0"].float() + lora @ p["wB"].float()
     w = torch.exp(-torch.exp(dec)).reshape(B, T, h, hd)
     u = p["u"].reshape(h, hd).float()
     out, S = wkv_scan(state["wkv"], r.float(), k.float(), v.float(), w, u)
@@ -164,14 +182,15 @@ def rwkv_channel_mix(p: dict, x: torch.Tensor, cfg: ModelConfig,
     prev = _shifted(x, state["shift2"])
     xk = _lerp(x, prev, p["mu_k_cm"])
     xr = _lerp(x, prev, p["mu_r_cm"])
-    kk = F.relu(xk @ p["w_k_cm"].to(dt))
+    kk = F.relu(_cols(xk, group) @ p["w_k_cm"].to(dt))
     kv = (kk * kk) @ p["w_v_cm"].to(dt)
-    r = torch.sigmoid(xr @ p["w_r_cm"].to(dt))
+    r = torch.sigmoid(_cols(xr, group) @ p["w_r_cm"].to(dt))
     if group is None:
         return r * kv, {"shift2": x[:, -1].float()}
     lo, hi = cfg.shard.chan
-    kv = group.all_reduce_sum(kv, "trunk")
-    parts = group.all_gather(r * kv[..., lo:hi], "trunk")    # (W, B, T, c)
+    kv = comm.sum_to_group(kv, group, "trunk")
+    parts = comm.gather_from_group(r * kv[..., lo:hi], group,
+                                   "trunk")                  # (W, B, T, c)
     y = parts.permute(1, 2, 0, 3).reshape(x.shape)
     return y, {"shift2": x[:, -1].float()}
 
@@ -183,10 +202,9 @@ def rwkv_block(p: dict, x: torch.Tensor, cfg: ModelConfig, state: dict,
     T = 1 is a decode step.  With ``group`` (a split trunk) the time-mix
     output is summed over the ranks and the channel-mix gathers its
     own."""
-    a, s1 = rwkv_time_mix(p, rms_norm(x, p["ln1"], cfg.norm_eps), cfg, state)
-    if group is not None:
-        a = group.all_reduce_sum(a, "trunk")
-    x = x + a
+    a, s1 = rwkv_time_mix(p, rms_norm(x, p["ln1"], cfg.norm_eps), cfg,
+                          state, group)
+    x = x + comm.reduce_from_group(a, group, "trunk")
     b, s2 = rwkv_channel_mix(p, rms_norm(x, p["ln2"], cfg.norm_eps), cfg,
                              state, group)
     return x + b, {"shift1": s1["shift1"], "shift2": s2["shift2"],

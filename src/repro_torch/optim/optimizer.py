@@ -65,14 +65,20 @@ def schedule(cfg: AdamWConfig, step: torch.Tensor) -> torch.Tensor:
     return cfg.lr * warm * (cfg.min_lr_ratio + (1 - cfg.min_lr_ratio) * cos)
 
 
-def global_norm(tree, *, model=None, split_leaf=None) -> torch.Tensor:
+def global_norm(tree, *, model=None, split_leaf=None,
+                skip_leaf=None) -> torch.Tensor:
     """sqrt of the f32 sum of every leaf's squares, summed leaf after leaf
     in the tree's order.  With ``model`` (a model group) and
     ``split_leaf(path)`` (whether the leaf at ``path`` is a rank's
     slice): the split leaves' sum all-reduced over the group (kind
-    ``"norm"``, 4 bytes), plus the replicated leaves' sum, once."""
+    ``"norm"``, 4 bytes), plus the replicated leaves' sum, once;
+    ``skip_leaf(path)``: a split leaf this rank leaves out, a copy
+    another rank of the group counts."""
     total = split = None
     for path, leaf in tree_mod.items(tree):
+        if model is not None and skip_leaf is not None \
+                and skip_leaf(path):
+            continue
         s = torch.sum(torch.square(leaf.float()))
         if model is not None and split_leaf(path):
             split = s if split is None else split + s
@@ -154,14 +160,16 @@ def check_split(cfg: AdamWConfig, split: bool) -> None:
 
 @torch.no_grad()
 def update(cfg: AdamWConfig, grads, state: dict, params, *, model=None,
-           split_leaf=None) -> dict:
+           split_leaf=None, skip_leaf=None) -> dict:
     """One AdamW step: ``params`` and ``state`` are written in place (the
     reference returns new trees; the numbers are the same).  Returns the
     metrics ``{"grad_norm", "lr"}`` (f32 scalars on the device).
-    ``model`` / ``split_leaf``: a rank's slices over its model group
-    (``global_norm``)."""
+    ``model`` / ``split_leaf`` / ``skip_leaf``: a rank's slices over its
+    model group (``global_norm``).  Each leaf is updated UPDATE_CHUNK
+    elements of its flat view at a time (``_chunks``, ``_update_leaf``)."""
     check_split(cfg, model is not None)
-    gnorm = global_norm(grads, model=model, split_leaf=split_leaf)
+    gnorm = global_norm(grads, model=model, split_leaf=split_leaf,
+                        skip_leaf=skip_leaf)
     scale = (_clip_scale(gnorm, cfg.clip_norm)
              if cfg.clip_norm is not None else None)
     step = state["step"].add_(1)
@@ -172,25 +180,52 @@ def update(cfg: AdamWConfig, grads, state: dict, params, *, model=None,
         p = tree_mod.get(params, path)
         m = tree_mod.get(state["m"], path)
         v = tree_mod.get(state["v"], path)
-        if scale is not None:
-            g = g * scale.to(g.dtype)
-        g32 = g.float()
-        m2 = cfg.b1 * m.float() + (1 - cfg.b1) * g32
-        v2 = _second_moment_update(cfg, v, g32 * g32)
-        del g, g32
-        # the same roundings as the reference's out-of-place expression,
-        # in place on this leaf's temporaries
-        den = (_second_moment_value(v2) / b2c).sqrt_().add_(cfg.eps)
-        upd = (m2 / b1c).div_(den)
-        del den
-        if cfg.weight_decay and p.dim() >= 2:   # decay matrices only
-            upd.add_(cfg.weight_decay * p.float())
-        p.copy_(p.float() - lr * upd)
-        del upd
-        m.copy_(m2)
-        if _is_factored(v):
-            v["vr"].copy_(v2["vr"])
-            v["vc"].copy_(v2["vc"])
-        else:
-            v.copy_(v2)
+        decay = bool(cfg.weight_decay) and p.dim() >= 2  # matrices only
+        for part in _chunks(g, m, v, p):
+            _update_leaf(cfg, *part, scale, lr, b1c, b2c, decay)
     return {"grad_norm": gnorm, "lr": lr}
+
+
+# elements of a leaf updated at once: a leaf is updated a chunk of its
+# flat view at a time, so the update's f32 temporaries stay a few times
+# this size -- elementwise, the same bits as the whole leaf at once
+UPDATE_CHUNK = 1 << 26
+
+
+def _chunks(g, m, v, p) -> list:
+    """(g, m, v, p) as consecutive UPDATE_CHUNK-element pieces of their
+    flat views (a smaller leaf is one piece); whole where the second
+    moment is factored (its row and column factors span the leaf) or a
+    tensor is not contiguous (no flat view writes through to it)."""
+    if _is_factored(v) or not all(t.is_contiguous() for t in (g, m, v, p)):
+        return [(g, m, v, p)]
+    flat = [t.view(-1) for t in (g, m, v, p)]
+    return [tuple(t[lo:lo + UPDATE_CHUNK] for t in flat)
+            for lo in range(0, max(g.numel(), 1), UPDATE_CHUNK)]
+
+
+def _update_leaf(cfg: AdamWConfig, g, m, v, p, scale, lr, b1c, b2c,
+                 decay: bool) -> None:
+    """AdamW on one leaf (or one chunk of its flat view), in place on
+    ``p``, ``m`` and ``v``."""
+    if scale is not None:
+        g = g * scale.to(g.dtype)
+    g32 = g.float()
+    m2 = cfg.b1 * m.float() + (1 - cfg.b1) * g32
+    v2 = _second_moment_update(cfg, v, g32 * g32)
+    del g, g32
+    # the same roundings as the reference's out-of-place expression,
+    # in place on this leaf's temporaries
+    den = (_second_moment_value(v2) / b2c).sqrt_().add_(cfg.eps)
+    upd = (m2 / b1c).div_(den)
+    del den
+    if decay:
+        upd.add_(cfg.weight_decay * p.float())
+    p.copy_(p.float() - lr * upd)
+    del upd
+    m.copy_(m2)
+    if _is_factored(v):
+        v["vr"].copy_(v2["vr"])
+        v["vc"].copy_(v2["vc"])
+    else:
+        v.copy_(v2)

@@ -27,8 +27,9 @@ whose collectives never involve another replica's ranks.
 ``split_strided(stride)`` cuts it into the groups ``{i + k * stride}``:
 with ``split(M)`` the model groups of a (data, model) mesh of D x M
 ranks, ``split_strided(M)`` gives its data groups, rank ``r``'s being
-``{r mod M + k * M}`` (``mesh_groups``).  Every collective of a group
-waits at most its ``timeout_s``.
+``{r mod M + k * M}`` (``mesh_groups``).  ``split_sets`` cuts it into
+any sets (a mesh's ranks holding one copy of a kv head).  Every
+collective of a group waits at most its ``timeout_s``.
 
 Under autograd a collective needs its own derivative.  The Megatron pair
 (``copy_to_group``, ``reduce_from_group``) is two
@@ -37,13 +38,23 @@ and all-reduces the gradient backward (at every column-parallel input:
 each rank's heads or columns give a part of the input's gradient);
 ``reduce_from_group`` all-reduces forward and passes the gradient on as
 it is backward (at every row-parallel output and the vocabulary-sharded
-embedding lookup).  Without grad they are ``all_reduce_sum`` in place
-and nothing, so serving's numbers and bytes do not move.
+embedding lookup).  Beside them, for sums and gathers whose ranks do NOT
+all use the whole result: ``sum_to_group`` all-reduces both ways (each
+rank reads only its part of the sum, RWKV6's channel-mix ``kv``), and
+``gather_from_group`` all-gathers forward and hands each rank its own
+slice of the gradient backward (everything after the gather is the same
+on every rank).  ``share_grad`` is the identity forward and divides the
+gradient by the group's size backward: a term every rank computes whole
+from replicated inputs (the MoE router loss), whose gradient the model
+group's sums would otherwise count ``world`` times.  Without grad each
+is the in-place serving collective or nothing, so serving's numbers and
+bytes do not move.
 
 ``bytes`` counts the bytes every collective left on this rank, by the
 kind its caller names (``"trunk"``, ``"embed"``, ``"head"``,
 ``"logits"``, ``"control"``, ``"digest"``; in training also ``"loss"``,
-``"grad"`` and ``"norm"``): an all-gather counts its
+``"grad"``, ``"norm"``, ``"router"``, ``"kv"`` and ``"aux"``): an
+all-gather counts its
 whole result, an all-reduce its tensor.  It takes the place of the
 reference's ``repro.launch.hlo_stats.collective_bytes`` over compiled
 HLO, and is what shows the comparator head's traffic to be O(rows *
@@ -174,6 +185,13 @@ class Group:
                              f"{self.world} ranks does not cut so")
         return self._subgroups([list(range(i, self.world, stride))
                                 for i in range(stride)], timeout_s)
+
+    def split_sets(self, sets: List[List[int]], *,
+                   timeout_s: Optional[float] = None) -> "Group":
+        """This group cut into ``sets`` (members' indices, every member in
+        one set; the copied kv heads' groups of a mesh); returns this
+        rank's.  Called as ``split``."""
+        return self._subgroups(sets, timeout_s)
 
     def _subgroups(self, sets: List[List[int]],
                    timeout_s: Optional[float]) -> "Group":
@@ -353,3 +371,81 @@ def reduce_from_group(x: torch.Tensor, group: Optional[Group],
     if not _tracked(x):
         return group.all_reduce_sum(x, kind)
     return _ReduceFromGroup.apply(x, group, kind)
+
+
+class _SumToGroup(torch.autograd.Function):
+    """The sum over the group forward (into a new tensor); the gradient
+    summed over the group backward."""
+
+    @staticmethod
+    def forward(ctx, x, group, kind):
+        ctx.group, ctx.kind = group, kind
+        return group.all_reduce_sum(x.contiguous().clone(), kind)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.group.all_reduce_sum(g.contiguous().clone(),
+                                        ctx.kind), None, None
+
+
+class _GatherFromGroup(torch.autograd.Function):
+    """Every rank's ``x`` stacked in rank order forward; the rank's own
+    slice of the gradient backward."""
+
+    @staticmethod
+    def forward(ctx, x, group, kind):
+        ctx.rank = group.rank
+        return group.all_gather(x, kind)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g[ctx.rank], None, None
+
+
+class _ShareGrad(torch.autograd.Function):
+    """Identity forward; the gradient divided by ``n`` backward."""
+
+    @staticmethod
+    def forward(ctx, x, n):
+        ctx.n = n
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g / ctx.n, None
+
+
+def sum_to_group(x: torch.Tensor, group: Optional[Group],
+                 kind: str) -> torch.Tensor:
+    """The sum of the ranks' ``x`` where each rank goes on to read only
+    its own part of it: under autograd the gradient of each rank's ``x``
+    is the sum of the ranks' gradients of the sum (another rank's part
+    of the sum holds this rank's ``x`` too).  Without grad, in place, as
+    ``reduce_from_group``.  ``group`` None: ``x``."""
+    if group is None:
+        return x
+    if not _tracked(x):
+        return group.all_reduce_sum(x, kind)
+    return _SumToGroup.apply(x, group, kind)
+
+
+def gather_from_group(x: torch.Tensor, group: Group,
+                      kind: str) -> torch.Tensor:
+    """Every rank's ``x`` stacked in rank order, (world, *x.shape)
+    (``Group.all_gather``); under autograd the gradient of the rank's
+    ``x`` is its own slice of the stack's gradient, which is right where
+    everything after the gather is the same on every rank."""
+    if not _tracked(x):
+        return group.all_gather(x, kind)
+    return _GatherFromGroup.apply(x, group, kind)
+
+
+def share_grad(x: torch.Tensor, group: Optional[Group]) -> torch.Tensor:
+    """``x`` itself; under autograd its gradient divided by the group's
+    size, so a term every rank of ``group`` computes whole counts once
+    once its gradients are summed over the group (the reference's
+    ``pmean`` of the MoE router loss over ``model``).  ``group`` None:
+    ``x``."""
+    if group is None or not _tracked(x):
+        return x
+    return _ShareGrad.apply(x, float(group.world))

@@ -67,12 +67,15 @@ Training on a (data, model) mesh of D x M ranks (``train_plan``; the
 reference's ``param_specs`` / ``opt_state_specs`` :75-113, 231-256 and
 ``batch_specs`` :177-200): the model axis takes the serve split above,
 applied to the f32 masters, their gradients and AdamW's ``m`` / ``v``
-alike (``shard_params`` cuts a whole train state: a leaf's rule reads
-its last key); the data axis replicates them and cuts the batch into D
-contiguous row blocks.  Under M > 1 only the dense family trains in
-this slice, and every q and kv head must divide by M (a copied kv head's
-gradient would be a part on each rank).  ``gather_tree`` puts a rank's
-slices back into the whole layout over the model group.  The
+alike (``shard_params`` cuts a whole train state: ``leaf_cut`` reads the
+leaf's path, which ``split_axis`` and ``gather_tree`` read too); the data
+axis replicates them and cuts the batch into D contiguous row blocks.
+Under M > 1 the dense, moe, hybrid and ssm families train; vlm and
+encdec refuse.  A kv head that does not divide by M is copied to the
+ranks whose q heads read it (``kv_copies``): each copy's wk / wv
+gradient is that rank's q heads' part, summed over the ranks holding the
+copy in the step.  ``gather_tree`` puts a rank's slices back into the
+whole layout over the model group.  The
 reference's FSDP cut of the weights over ``data`` (``_COL`` / ``_ROW``
 :24-25) is not ported: the masters are replicated over the data group,
 the same numbers in more memory.
@@ -280,75 +283,86 @@ def rank_param_count(cfg: ModelConfig, split: Split) -> int:
     return sum(per[k] for k in lm.layer_types(cfg)) + heads + d
 
 
-def _cols(x, lo: int, hi: int):
-    return x[..., lo:hi]
-
-
-def _rows(x, lo: int, hi: int):
-    return x[..., lo:hi, :]
+def leaf_cut(path: tuple, cfg: ModelConfig,
+             split: Split) -> Optional[Tuple[int, int, int]]:
+    """(axis, lo, hi): where rank ``split.rank`` cuts the leaf at ``path``
+    (of a param tree or a train state: the rule reads the path, not its
+    last key alone), or None for a leaf it holds whole.  A ``moe`` layer's
+    expert stacks (L, E, ...) split along their expert axis, its shared
+    expert like a dense MLP at its own width, its router not at all; a
+    ``rec`` block's leaves by its lru channels (``w_a`` / ``w_i`` by gate
+    block, its ``w_out`` by rows); an ``rwkv`` layer's by its heads'
+    channels (the channel-mix's ``w_k_cm`` / ``w_v_cm`` by the MLP's)."""
+    key = path[-1] if path else None
+    hd = cfg.head_dim
+    if key == "embed":
+        return (0, *split.vocab) if split.trunk else None
+    if key == "lm_head":
+        return (-1, *split.vocab) if split.trunk else None
+    if not split.trunk:
+        return None
+    if "moe" in path:
+        if "shared" in path:
+            if key in ("w_gate", "w_up", "w_in"):
+                return (-1, *split.fe)
+            return (-2, *split.fe)                 # w_out
+        if key in ("w_gate", "w_up", "w_out"):     # (L, E, ...) stacks
+            return (1, *split.experts)
+        return None                                # the router
+    if "rec" in path:
+        if key in _REC_CHAN:
+            return (-1, *split.chan)
+        if key in ("w_a", "w_i"):                  # (..., nb, bw, bw)
+            return (-3, *split.q)
+        if key == "w_out":
+            return (-2, *split.chan)
+        return None                                # the block's norm
+    if key in _RWKV_CHAN:
+        return (-1, *split.chan)
+    if key == "w_o":
+        return (-2, *split.chan)
+    if key == "w_k_cm":
+        return (-1, *split.ff)
+    if key == "w_v_cm":
+        return (-2, *split.ff)
+    if key == "wq":
+        return (-1, split.q[0] * hd, split.q[1] * hd)
+    if key in ("wk", "wv"):
+        return (-1, split.kv[0] * hd, split.kv[1] * hd)
+    if key == "wo":
+        return (-2, split.q[0] * hd, split.q[1] * hd)
+    if key in ("w_gate", "w_up", "w_in"):
+        return (-1, *split.ff)
+    if key == "w_out":
+        return (-2, *split.ff)
+    return None           # norms, rwkv6's mu_* and wA: replicated
 
 
 def shard_leaf(path: tuple, x, cfg: ModelConfig, split: Split):
     """Rank ``split.rank``'s slice of the leaf at ``path`` (a numpy array or
-    a torch tensor; a view).  The rule follows the path: a ``moe`` layer's
-    expert stacks split along their expert axis, its shared expert like a
-    dense MLP at its own width, its router not at all; a ``rec`` block's
-    leaves by its lru channels (``w_a`` / ``w_i`` by gate block, its
-    ``w_out`` by rows), an ``rwkv`` layer's by its heads' channels (the
-    channel-mix's ``w_k_cm`` / ``w_v_cm`` by the MLP's)."""
-    key = path[-1]
-    hd = cfg.head_dim
-    if split.trunk and "moe" in path:
-        if "shared" in path:
-            if key in ("w_gate", "w_up", "w_in"):
-                return _cols(x, *split.fe)
-            return _rows(x, *split.fe)             # w_out
-        if key in ("w_gate", "w_up", "w_out"):     # (L, E, ...) stacks
-            return x[:, split.experts[0]:split.experts[1]]
-        return x                                   # the router
-    if key == "embed":
-        return x[split.vocab[0]:split.vocab[1]] if split.trunk else x
-    if key == "lm_head":
-        return _cols(x, *split.vocab) if split.trunk else x
-    if not split.trunk:
+    a torch tensor; a view), as ``leaf_cut`` says."""
+    cut = leaf_cut(path, cfg, split)
+    if cut is None:
         return x
-    if "rec" in path:
-        if key in _REC_CHAN:
-            return _cols(x, *split.chan)
-        if key in ("w_a", "w_i"):                  # (..., nb, bw, bw)
-            return x[..., split.q[0]:split.q[1], :, :]
-        if key == "w_out":
-            return _rows(x, *split.chan)
-        return x                                   # the block's norm
-    if key in _RWKV_CHAN:
-        return _cols(x, *split.chan)
-    if key == "w_o":
-        return _rows(x, *split.chan)
-    if key == "w_k_cm":
-        return _cols(x, *split.ff)
-    if key == "w_v_cm":
-        return _rows(x, *split.ff)
-    if key not in _COL + _ROW:
-        return x          # norms, rwkv6's mu_* and wA: replicated
-    if key == "wq":
-        return _cols(x, split.q[0] * hd, split.q[1] * hd)
-    if key in ("wk", "wv"):
-        return _cols(x, split.kv[0] * hd, split.kv[1] * hd)
-    if key == "wo":
-        return _rows(x, split.q[0] * hd, split.q[1] * hd)
-    if key in ("w_gate", "w_up", "w_in"):
-        return _cols(x, *split.ff)
-    return _rows(x, *split.ff)                     # w_out
+    ax, lo, hi = cut
+    idx = [slice(None)] * x.ndim
+    idx[ax] = slice(lo, hi)
+    return x[tuple(idx)]
 
 
 # -- training on a (data, model) mesh ----------------------------------------
 # where a training config under M > 1 refuses, and the ROADMAP entry
-TRAIN_FAMILIES = ("dense",)
+TRAIN_FAMILIES = ("dense", "moe", "hybrid", "ssm")
 _TRAIN_TODO = ("ROADMAP.md section 1, training under tensor parallelism "
-               "for the moe, hybrid, ssm, vlm and encdec families")
+               "for the vlm and encdec families")
 # replicated leaves whose gradient is a part on each model rank: each
-# rank's qk-norm scales meet only its own heads
-PARTIAL_GRAD = ("q_norm", "k_norm")
+# rank's qk-norm scales meet only its own heads (a copied kv head's
+# k_norm too: each copy meets only its rank's q heads); the router's
+# combine weights reach only the rank's experts (its router loss, whole
+# on every rank, carries 1 / M of its gradient, ``parallel.moe_ep``)
+PARTIAL_GRAD = ("q_norm", "k_norm", "router")
+# the leaves of a kv head copied to several ranks of the model group
+KV_COPY = ("wk", "wv")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -370,55 +384,67 @@ def train_plan(cfg: ModelConfig, rank: int, data: int, model: int, *,
     (the rank's model group) rides on the split.  Rank ``r`` is at data
     index ``r // model`` and model index ``r % model``.  Raises
     ``ValueError`` where the mesh does not hold the rank, where a config
-    of another family than dense is split over ``model`` (naming the
-    ROADMAP entry), where its q or kv heads, MLP width or vocabulary do
-    not divide by ``model``, and where a ``moe`` config is cut over
-    ``data`` (its router loss is a product of two means over the whole
-    batch; a mean of the ranks' losses is not it)."""
+    of a family outside ``TRAIN_FAMILIES`` (vlm, encdec) is split over
+    ``model`` (naming the ROADMAP entry), where ``plan`` refuses the split
+    (heads, widths, experts or vocabulary that do not divide by
+    ``model``, q heads that would read part of a kv group), and where a
+    ``moe`` config cut over ``data`` routes with another executor than
+    gshard (``layers.moe_layer``).  A kv head that does not divide by
+    ``model`` is copied to the ranks whose q heads read it
+    (``kv_copies``)."""
     if data < 1 or model < 1 or not 0 <= rank < data * model:
         raise ValueError(f"rank {rank} outside a mesh of {data}x{model}")
     if model > 1 and cfg.family not in TRAIN_FAMILIES:
         raise ValueError(f"{cfg.name}: training under a model axis of "
                          f"{model} covers the {', '.join(TRAIN_FAMILIES)} "
-                         f"family; the {cfg.family} family is "
+                         f"families; the {cfg.family} family is "
                          f"{_TRAIN_TODO}")
-    if data > 1 and cfg.moe is not None:
-        raise ValueError(f"{cfg.name}: the moe family under a data axis of "
-                         f"{data}: its router loss E * sum_e f_e * P_e is a "
-                         "product of two means over the whole batch, which "
-                         "no mean of the ranks' losses gives; "
-                         f"{_TRAIN_TODO}")
+    if data > 1 and cfg.moe is not None and cfg.moe_impl not in (
+            "auto", "gshard"):
+        raise ValueError(f"{cfg.name}: moe_impl {cfg.moe_impl!r} under a "
+                         f"data axis of {data}: only gshard's groups lie "
+                         "within a row, so that cutting rows over data "
+                         "leaves routing and drops unchanged")
     split = None
     if model > 1:
-        if cfg.n_kv_heads % model:
-            raise ValueError(f"n_kv_heads={cfg.n_kv_heads} does not divide "
-                             f"by the model axis {model}: training keeps "
-                             "no copied kv head")
         split = plan(cfg, rank % model, model, group=group)
     return TrainPlan(data, model, rank // model, rank % model, split)
 
 
+def kv_copies(cfg: ModelConfig, model: int) -> Optional[list]:
+    """The model indices of a model axis of ``model`` grouped by the kv
+    heads they hold, where those are copies (the kv heads do not divide by
+    ``model``: ``_kv_range``), in order; None where every rank holds kv
+    heads of its own (or the family has no attention to split)."""
+    if model < 2 or cfg.family == "ssm" or cfg.n_kv_heads % model == 0:
+        return None
+    sets = {}
+    for m in range(model):
+        sets.setdefault(plan(cfg, m, model).kv, []).append(m)
+    return list(sets.values())
+
+
+def kv_copy_leaf(path: tuple) -> bool:
+    """Whether the leaf at ``path`` is a self-attention's wk / wv, which a
+    copied kv head holds on several ranks."""
+    return bool(path) and path[-1] in KV_COPY and "attn" in path
+
+
 def split_axis(path: tuple, cfg: ModelConfig,
                split: Optional[Split]) -> Optional[int]:
-    """The axis ``shard_leaf`` cuts the dense leaf at ``path`` along under
-    ``split`` (of a param tree or a train state: the rule reads the last
-    key), or None for a replicated leaf."""
-    if split is None or not split.trunk:
+    """The axis ``shard_leaf`` cuts the leaf at ``path`` along under
+    ``split`` (``leaf_cut``, the same path rule), or None for a leaf the
+    rank holds whole."""
+    if split is None:
         return None
-    key = path[-1] if path else None
-    if key == "embed":
-        return 0
-    if key in ("lm_head",) + _COL:
-        return -1
-    if key in _ROW:
-        return -2
-    return None
+    cut = leaf_cut(path, cfg, split)
+    return None if cut is None else cut[0]
 
 
 def partial_grad(path: tuple) -> bool:
     """Whether the gradient of the replicated leaf at ``path`` is a part
-    on each model rank (the qk-norm scales), to be summed over the model
-    group."""
+    on each model rank (the qk-norm scales, the router), to be summed
+    over the model group."""
     return bool(path) and path[-1] in PARTIAL_GRAD
 
 
@@ -426,19 +452,24 @@ def gather_tree(tree, cfg: ModelConfig, split: Optional[Split],
                 kind: str = "gather"):
     """A rank's cut of a tree (params, gradients or a train state) put
     back into the whole layout: every split leaf all-gathered over the
-    split's group and its slices joined along its axis in rank order, a
-    replicated leaf as it is.  Collective over the model group: every
-    member calls it.  ``split`` None: the tree as it is."""
+    split's group and its slices joined along its axis in rank order
+    (a copied kv head's from the first rank that holds it), a replicated
+    leaf as it is.  Collective over the model group: every member calls
+    it.  ``split`` None: the tree as it is."""
     import torch
 
     if split is None:
         return tree
+    copies = kv_copies(cfg, split.world) if split.trunk else None
+    firsts = None if copies is None else [ms[0] for ms in copies]
 
     def leaf(path, x):
         ax = split_axis(path, cfg, split)
         if ax is None or not isinstance(x, torch.Tensor):
             return x
-        parts = split.group.all_gather(x.contiguous(), kind)
-        return torch.cat(list(parts), dim=ax)
+        parts = list(split.group.all_gather(x.contiguous(), kind))
+        if firsts is not None and kv_copy_leaf(path):
+            parts = [parts[m] for m in firsts]
+        return torch.cat(parts, dim=ax)
 
     return tree_mod.map_tree(leaf, tree)

@@ -259,6 +259,28 @@ def test_gshard_keeps_the_reference_slots(arch, cf):
 
 
 @pytest.mark.parametrize("arch", ARCHS)
+def test_count_kept_reads_each_calls_kept_choices(arch):
+    """``layers.count_kept``: inside it, each MoE call appends the choices
+    it keeps over all four experts -- the reference's kept flags summed,
+    at a factor that drops (0.25) -- an expert range's call the same
+    count; outside it nothing is counted."""
+    jcfg, tcfg = _cfgs(arch, 0.25)
+    jp, tp = _moe_params(arch, layer=0)
+    x = _x(12, 2, 16)
+    keep = _check_slots(jp, tp, x, jcfg, tcfg, 8)
+    part = {k: (v[:2] if k in ("w_gate", "w_up", "w_out") else v)
+            for k, v in tp.items()}
+    with tlayers.count_kept() as kept:
+        tlayers.moe_gshard(tp, torch.from_numpy(x), tcfg, 8)
+        tlayers.moe_gshard(part, torch.from_numpy(x), tcfg, 8,
+                           experts=(0, 2))
+    assert [int(k) for k in kept] == [int(keep.sum())] * 2
+    assert 0 < keep.sum() < keep.size
+    tlayers.moe_gshard(tp, torch.from_numpy(x), tcfg, 8)
+    assert len(kept) == 2
+
+
+@pytest.mark.parametrize("arch", ARCHS)
 def test_dense_oracle_and_aux_match_and_equal_an_undropped_layer(arch):
     """The oracle (every expert over every token, no capacity) against the
     reference's; with no choice dropped (factor 16) the scatter and gshard

@@ -57,6 +57,7 @@ from repro.serve.engine import Request as JRequest, ServeEngine as JEngine  # no
 from repro.serve.params import SamplingParams as JSP  # noqa: E402
 from repro_torch.configs import get_config, smoke_config  # noqa: E402
 from repro_torch.core import reduced_softmax as trs  # noqa: E402
+from repro_torch.models import lm as tlm  # noqa: E402
 from repro_torch.parallel import sharding  # noqa: E402
 from repro_torch.serve.engine import ServeEngine as TEngine  # noqa: E402
 from repro_torch.weights import shard_params  # noqa: E402
@@ -108,6 +109,7 @@ RANK_SCRIPT = textwrap.dedent(r'''
     arch_cfgs = {a: smoke_config(get_config(a)) for a in (
         "phi3.5-moe-42b-a6.6b", "llama4-maverick-400b-a17b", "rwkv6-7b",
         "recurrentgemma-2b", "internvl2-26b")}
+    FAMILY_TRAIN = ("phi3.5-moe-42b-a6.6b", "rwkv6-7b", "recurrentgemma-2b")
     out = {}
 
     def scenario(fn, name=None):
@@ -518,7 +520,7 @@ RANK_SCRIPT = textwrap.dedent(r'''
 
     def mesh_bytes(mesh):
         out = {}
-        for grp in (mesh.data, mesh.model):
+        for grp in (mesh.data, mesh.model, mesh.kv):
             for k, n in (grp.bytes if grp is not None else {}).items():
                 out[k] = out.get(k, 0) + n
         return out
@@ -621,6 +623,113 @@ RANK_SCRIPT = textwrap.dedent(r'''
                 torch.from_numpy(x), g, n_microbatches=4)
             return {"y": y.tolist(),
                     "pipe_bytes": g.bytes.get("pipe", 0) - b0.get("pipe", 0)}
+
+    # -- the moe, ssm and hybrid families trained on a mesh: each one's
+    # bridged tree (the serving scenarios' <arch>.pkl) on train.json's
+    # global batches -- the first step's gradients made whole and
+    # gathered (rank 0 writes them), then three AdamW steps, the last
+    # one's bytes by kind; and qwen3 at 1x4, its 2 kv heads copied
+    from unittest import mock
+
+    def family_mesh(arch, D, M):
+        fcfg = cfg if arch == "qwen3-0.6b" else arch_cfgs[arch]
+        host = params if arch == "qwen3-0.6b" else \
+            weights.from_numpy_params(arch_tree(arch), fcfg, "cpu")
+        mesh = steps_mod.make_mesh(fcfg, g, D, M)
+        tag = f"{arch}_{D}x{M}"
+        pipe = TokenPipeline(DataConfig(vocab_size=fcfg.vocab_size), fcfg,
+                             tshape, "cpu", data=D, d=mesh.plan.d)
+        res = {"d": mesh.plan.d, "m": mesh.plan.m,
+               "kv_ranks": list(mesh.kv.ranks) if mesh.kv else None}
+        mine = tree_mod.map_tree(lambda _, t: t.clone(), mesh.shard(host))
+        loss, grads = steps_mod.rank_grads(mine, mesh.cfg, pipe.batch(0),
+                                           data=mesh.data)
+        if mesh.kv is not None:
+            # a copied kv head's wk gradient before its sum: this rank's
+            # q heads' part
+            attn = [sl for seg in grads["decoder"] for sl in seg.values()
+                    if "attn" in sl][0]["attn"]
+            res["wk_part"] = attn["wk"].tolist()
+        steps_mod.complete_grads(loss, grads, mesh)
+        whole = mesh.gather(grads)
+        if rank == 0:
+            save_tree(f"grads_{tag}", whole)
+        state = {"params": mine, "opt": opt_mod.init_state(opt_cfg(), mine)}
+        step = steps_mod.make_train_step(mesh.cfg, opt_cfg(), mesh)
+        losses, norms = [], []
+        for s in range(tc["steps"]):
+            b0 = mesh_bytes(mesh)
+            state, m = step(state, pipe.batch(s))
+            losses.append(float(m["loss"]))
+            norms.append(float(m["grad_norm"]))
+            res["step_bytes"] = {k: n - b0.get(k, 0)
+                                 for k, n in mesh_bytes(mesh).items()
+                                 if n - b0.get(k, 0)}
+        res.update(losses=losses, norms=norms)
+        return res, mesh, state, host, pipe
+
+    def trap(arch, name, fn, leaf):
+        # the gathered first-step gradient of ``leaf`` with comm's ``name``
+        # swapped for ``fn``: the fix taken out
+        fcfg = arch_cfgs[arch]
+        host = weights.from_numpy_params(arch_tree(arch), fcfg, "cpu")
+        mesh = steps_mod.make_mesh(fcfg, g, 1, world)
+        pipe = TokenPipeline(DataConfig(vocab_size=fcfg.vocab_size), fcfg,
+                             tshape, "cpu")
+        mine = tree_mod.map_tree(lambda _, t: t.clone(), mesh.shard(host))
+        with mock.patch.object(comm, name, fn):
+            _, grads = steps_mod.loss_and_grads(mine, mesh.cfg,
+                                                pipe.batch(0), mesh)
+        node = mesh.gather(grads)["decoder"][0]["slot0"]
+        for k in leaf:
+            node = node[k]
+        return node.tolist()
+
+    if world == 2:
+        for arch in FAMILY_TRAIN:
+            for D, M in ((1, 2), (2, 1)):
+                scenario(lambda arch=arch, D=D, M=M: family_mesh(
+                    arch, D, M)[0], f"train_{arch}_{D}x{M}")
+
+        @scenario
+        def rwkv_ckpt():
+            # rwkv6's 1x2 state after its steps: written whole, and each
+            # rank's live slice beside it
+            _, mesh, state, _, _ = family_mesh("rwkv6-7b", 1, 2)
+            train_mod.save_state(CheckpointManager(f"{d}/ckpt_rwkv"),
+                                 tc["steps"], state, mesh)
+            save_tree(f"rwkv_state_{rank}", state)
+            return {}
+
+        @scenario
+        def trap_router():
+            return trap("phi3.5-moe-42b-a6.6b", "share_grad",
+                        lambda x, group: x, ("moe", "router"))
+
+        @scenario
+        def trap_kv():
+            return trap("rwkv6-7b", "sum_to_group", comm.reduce_from_group,
+                        ("w_k_cm",))
+
+    if world == 4:
+        for arch, D, M in (("rwkv6-7b", 2, 2), ("recurrentgemma-2b", 2, 2),
+                           ("qwen3-0.6b", 1, 4)):
+            scenario(lambda arch=arch, D=D, M=M: family_mesh(
+                arch, D, M)[0], f"train_{arch}_{D}x{M}")
+
+        def train_phi_2x2():
+            arch = "phi3.5-moe-42b-a6.6b"
+            res, mesh, _, host, _ = family_mesh(arch, 2, 2)
+            # launch.train.train on the mesh for 2 steps, the whole state
+            # checkpointed at step 2
+            _, losses = train_mod.train(
+                arch_cfgs[arch], tshape, opt_cfg(), mesh=mesh, steps=2,
+                ckpt_dir=f"{d}/ckpt_phi", ckpt_every=2, params=host,
+                log=lambda *a: None)
+            res["train_losses"] = losses
+            return res
+
+        scenario(train_phi_2x2, "train_phi3.5-moe-42b-a6.6b_2x2")
 
     with open(f"{d}/out{world}_{rank}.json", "w") as f:
         json.dump(out, f)
@@ -869,8 +978,9 @@ def _train_mask():
     return mask
 
 
-# the reference's own run on a (2, 2) mesh of forced host devices:
-# repro.launch.train.train, 3 steps, its losses to argv[1]
+# the reference's own runs on a (2, 2) mesh of forced host devices:
+# repro.launch.train.train, 3 steps, of each arch in argv[3] (qwen3-0.6b
+# and phi3.5-moe), their losses to argv[1]
 JAX_MESH_SCRIPT = textwrap.dedent(r'''
     import json, sys
     import jax
@@ -881,38 +991,50 @@ JAX_MESH_SCRIPT = textwrap.dedent(r'''
     from repro.optim import optimizer as opt_mod
 
     t = json.loads(sys.argv[2])
-    cfg = smoke_config(ARCHS["qwen3-0.6b"])
     opt = opt_mod.AdamWConfig(lr=t["lr"], warmup_steps=t["warmup"],
                               total_steps=t["total"])
-    _, losses = train(cfg, ShapeSpec("t", t["seq"], t["batch"], "train"),
-                      opt, mesh=make_mesh((2, 2), ("data", "model")),
-                      steps=t["steps"], log=lambda *a: None)
+    out = {}
+    for arch in json.loads(sys.argv[3]):
+        _, losses = train(smoke_config(ARCHS[arch]),
+                          ShapeSpec("t", t["seq"], t["batch"], "train"),
+                          opt, mesh=make_mesh((2, 2), ("data", "model")),
+                          steps=t["steps"], log=lambda *a: None)
+        out[arch] = {"losses": losses, "devices": len(jax.devices())}
     with open(sys.argv[1], "w") as f:
-        json.dump({"losses": losses, "devices": len(jax.devices())}, f)
+        json.dump(out, f)
 ''')
+# the moe, ssm and hybrid families trained on a mesh (the rank script's
+# family_mesh), each mesh of TRAIN_MESHES; qwen3 at 1x4 beside them
+PHI = "phi3.5-moe-42b-a6.6b"
+FAMILY_TRAIN = (PHI, "rwkv6-7b", "recurrentgemma-2b")
+FAMILY_MESHES = [(a, m) for a in FAMILY_TRAIN for m in TRAIN_MESHES] + [
+    ("qwen3-0.6b", "1x4")]
 
 
-def _jax_train(jparams):
+def _jax_train(jparams, arch="qwen3-0.6b"):
     """The JAX package's single-device step on the mesh runs' global
-    batches: each step's loss and grad_norm, the first step's gradients,
-    the masked loss's and its gradients, and two steps of the factored
-    second moment."""
+    batches of ``arch``: each step's loss and grad_norm and the first
+    step's gradients; for qwen3 also the masked loss's and its
+    gradients, and two steps of the factored second moment."""
     from repro.launch import steps as jsteps
     from repro.models import api as japi
     from repro.optim import optimizer as jopt
     from repro_torch.configs.base import ShapeSpec
     from repro_torch.data.pipeline import DataConfig, TokenPipeline
 
-    pipe = TokenPipeline(DataConfig(vocab_size=TCFG.vocab_size), TCFG,
+    jcfg, tcfg = j_smoke(J_ARCHS[arch]), smoke_config(get_config(arch))
+    qwen = arch == "qwen3-0.6b"
+    pipe = TokenPipeline(DataConfig(vocab_size=tcfg.vocab_size), tcfg,
                          ShapeSpec("t", TRAIN["seq"], TRAIN["batch"],
                                    "train"))
     batches = [{k: jnp.asarray(v.numpy()) for k, v in pipe.batch(s).items()}
                for s in range(TRAIN["steps"])]
     out = {}
-    for name, factored in (("plain", False), ("factored", True)):
+    for name, factored in (("plain", False), ("factored", True))[
+            :2 if qwen else 1]:
         opt = jopt.AdamWConfig(lr=TRAIN["lr"], warmup_steps=TRAIN["warmup"],
                                total_steps=TRAIN["total"], factored=factored)
-        step = jax.jit(jsteps.make_train_step(JCFG, opt))
+        step = jax.jit(jsteps.make_train_step(jcfg, opt))
         state = {"params": jparams, "opt": jopt.init_state(opt, jparams)}
         res = []
         for b in batches[:2 if factored else None]:
@@ -920,13 +1042,14 @@ def _jax_train(jparams):
             res.append((float(m["loss"]), float(m["grad_norm"])))
         out[name] = res
     vg = jax.jit(jax.value_and_grad(
-        lambda p, b: japi.train_loss(p, JCFG, b)))
+        lambda p, b: japi.train_loss(p, jcfg, b)))
     _, g = vg(jparams, batches[0])
     out["grads"] = jax.tree.map(np.asarray, g)
-    mloss, mg = vg(jparams, dict(batches[0],
-                                 loss_mask=jnp.asarray(_train_mask())))
-    out["masked_loss"], out["masked"] = float(mloss), jax.tree.map(
-        np.asarray, mg)
+    if qwen:
+        mloss, mg = vg(jparams, dict(batches[0],
+                                     loss_mask=jnp.asarray(_train_mask())))
+        out["masked_loss"], out["masked"] = float(mloss), jax.tree.map(
+            np.asarray, mg)
     return out
 
 
@@ -951,7 +1074,8 @@ def runs(tmp_path_factory):
     (d / "jax_mesh.py").write_text(JAX_MESH_SCRIPT)
     jmesh = subprocess.Popen(
         [sys.executable, str(d / "jax_mesh.py"), str(d / "jax_mesh.json"),
-         json.dumps(TRAIN)], stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+         json.dumps(TRAIN), json.dumps(["qwen3-0.6b", PHI])],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE,
         text=True, env=dict(
             os.environ, PYTHONPATH=str(ROOT / "src"), JAX_PLATFORMS="cpu",
             XLA_FLAGS="--xla_force_host_platform_device_count=4"))
@@ -971,7 +1095,9 @@ def runs(tmp_path_factory):
             "preempt": _jax_preempt(jparams), "tie": _jax_tie(jtie),
             **{a: _jax_arch(a, p) for a, p in arch_params.items()},
             "vlm_prefix": _jax_vlm_prefix(arch_params["internvl2-26b"]),
-            "train": _jax_train(jparams)}
+            "train": _jax_train(jparams),
+            "family_train": {a: _jax_train(arch_params[a], a)
+                             for a in FAMILY_TRAIN}}
     got = {world: _wait(p, world, d) for world, p in procs.items()}
     try:
         _, err = jmesh.communicate(timeout=RANK_TIMEOUT_S)
@@ -1726,7 +1852,7 @@ def test_mesh_2x2_losses_match_the_reference_on_its_own_2x2_mesh(runs):
     the port's 2x2 losses within 1e-5, and ``launch.train.train`` on the
     port's mesh gives the same first two losses as its step."""
     _, want, _ = runs
-    ref = want["jax_mesh"]
+    ref = want["jax_mesh"]["qwen3-0.6b"]
     assert ref["devices"] == 4
     res = _mesh_res(runs, "2x2")
     for a, b in zip(ref["losses"], res[0]["losses"]):
@@ -1796,3 +1922,198 @@ def test_pipeline_apply_matches_the_stages_in_sequence(runs):
                                    h.numpy(), atol=1e-6, rtol=0)
         sent = 4 * 2 * 8 * 4 if r < 3 else 0
         assert p["pipe_bytes"] == sent + 8 * 8 * 4
+
+
+# -- the moe, ssm and hybrid families trained on a mesh -------------------------
+def _family_res(runs, arch: str, mesh: str) -> list:
+    got, _, _ = runs
+    world = 4 if mesh in ("2x2", "1x4") else 2
+    return [_ok(r, f"train_{arch}_{mesh}") for r in got[world]]
+
+
+def _family_want(runs, arch: str) -> dict:
+    _, want, _ = runs
+    return want["train"] if arch == "qwen3-0.6b" else \
+        want["family_train"][arch]
+
+
+def _jax_leaf(tree, *keys):
+    for k in keys:
+        tree = tree[k]
+    return np.asarray(tree)
+
+
+@pytest.mark.parametrize("arch,mesh", FAMILY_MESHES)
+def test_family_mesh_training_matches_the_jax_single_device_step(runs, arch,
+                                                                  mesh):
+    """phi3.5-moe (expert parallelism, the router loss over the data
+    group), rwkv6 (whole heads; the channel-mix's summed ``kv`` and
+    gathered product) and recurrentgemma (whole gate blocks; its one MQA
+    kv head copied to every model rank) trained on a (data, model) mesh
+    of gloo ranks, and qwen3 at 1x4 (its 2 kv heads copied to 2 ranks
+    each): every step's loss and grad_norm are the JAX package's
+    single-device ``make_train_step``'s (loss within 1e-5, grad_norm at
+    rtol 1e-5) and the first step's gradients, gathered to the whole
+    layout, its gradients, every leaf within 5e-5 of its largest
+    |value|; every rank reports the same losses."""
+    _, want, _ = runs
+    res = _family_res(runs, arch, mesh)
+    jt = _family_want(runs, arch)
+    for r in res:
+        assert r["losses"] == res[0]["losses"]
+        assert r["norms"] == res[0]["norms"]
+    for (jl, jn), loss, norm in zip(jt["plain"], res[0]["losses"],
+                                    res[0]["norms"]):
+        assert abs(loss - jl) <= LOSS_TOL
+        assert abs(norm - jn) <= RTOL * jn
+    _grads_close(want["dir"], f"grads_{arch}_{mesh}", jt["grads"])
+
+
+@pytest.mark.parametrize("arch,mesh,copies", [
+    ("recurrentgemma-2b", "1x2", [[0, 1]]),
+    ("recurrentgemma-2b", "2x2", [[0, 1], [2, 3]]),
+    ("qwen3-0.6b", "1x4", [[0, 1], [2, 3]])])
+def test_copied_kv_head_gradient_needs_its_copy_group_sum(runs, arch, mesh,
+                                                          copies):
+    """A kv head copied to several model ranks: the ranks holding one copy
+    form its group (``TrainMesh.kv``), and rank 0's wk gradient before
+    that group's sum -- its own q heads' part -- misses JAX's gradient of
+    those columns by far; the summed gradient (gathered and held leaf for
+    leaf in ``test_family_mesh_training_matches_the_jax_single_device_step``)
+    is JAX's.  A step's ``kv`` bytes are both attention leaves of the
+    rank's copy, f32."""
+    res = _family_res(runs, arch, mesh)
+    for r, rr in enumerate(res):
+        assert rr["kv_ranks"] == next(c for c in copies if r in c)
+    jt = _family_want(runs, arch)["grads"]
+    seg = jt["decoder"][0]
+    slot = next(k for k in sorted(seg) if "attn" in seg[k])
+    jwk = _jax_leaf(seg, slot, "attn", "wk")
+    cfg = smoke_config(get_config(arch))
+    part = np.asarray(res[0]["wk_part"], np.float32)
+    want = jwk[..., :cfg.head_dim]                     # rank 0's kv head
+    assert part.shape == want.shape
+    scale = np.abs(want).max()
+    assert np.abs(part - want).max() > 0.05 * scale
+    n_attn = sum(u.count("attn") * c for u, c in tlm.segments(cfg))
+    assert res[0]["step_bytes"]["kv"] == \
+        n_attn * 2 * cfg.d_model * cfg.head_dim * 4
+
+
+def test_router_gradient_with_its_loss_counted_per_rank_misses_jax(runs):
+    """phi3.5-moe at 1x2: every model rank computes the router loss whole.
+    With ``comm.share_grad`` taken out of ``parallel.moe_ep`` each rank's
+    router gradient carries all of it, the model group's sum counts it
+    twice, and the router's gradient misses JAX's; with it (the
+    reference's ``pmean``) the sum is JAX's."""
+    got, want, _ = runs
+    jr = _jax_leaf(want["family_train"][PHI]["grads"], "decoder", 0,
+                   "slot0", "moe", "router")
+    trap = np.asarray(_ok(got[2][0], "trap_router"), np.float32)
+    scale = np.abs(jr).max()
+    assert np.abs(trap - jr).max() > 10 * GRAD_TOL * scale
+    fixed = np.load(want["dir"] / f"grads_{PHI}_1x2.npz")[
+        "decoder/0/slot0/moe/router"]
+    assert np.abs(fixed - jr).max() <= GRAD_TOL * scale
+
+
+def test_rwkv_kv_sum_with_an_identity_backward_misses_jax(runs):
+    """rwkv6 at 1x2: each rank multiplies only its own columns of the
+    channel-mix's summed ``kv``, so the gradient of its partial ``kv`` is
+    the ranks' column gradients summed.  With ``comm.sum_to_group``
+    swapped for ``reduce_from_group`` (whose backward is the identity)
+    the ``w_k_cm`` gradient misses JAX's; with it the gradient is
+    JAX's."""
+    got, want, _ = runs
+    jw = _jax_leaf(want["family_train"]["rwkv6-7b"]["grads"], "decoder", 0,
+                   "slot0", "w_k_cm")
+    trap = np.asarray(_ok(got[2][0], "trap_kv"), np.float32)
+    scale = np.abs(jw).max()
+    assert np.abs(trap - jw).max() > 10 * GRAD_TOL * scale
+    fixed = np.load(want["dir"] / "grads_rwkv6-7b_1x2.npz")[
+        "decoder/0/slot0/w_k_cm"]
+    assert np.abs(fixed - jw).max() <= GRAD_TOL * scale
+
+
+def test_phi_2x2_losses_match_the_reference_on_its_own_2x2_mesh(runs):
+    """``repro.launch.train.train`` of phi3.5-moe's smoke config on a
+    ``(2, 2)`` mesh of four forced host devices (GSPMD: expert
+    parallelism and the router loss over the whole batch): its three
+    losses are the port's 2x2 losses within 1e-5, and
+    ``launch.train.train`` on the port's mesh gives the same first two
+    losses as its step."""
+    _, want, _ = runs
+    ref = want["jax_mesh"][PHI]
+    assert ref["devices"] == 4
+    res = _family_res(runs, PHI, "2x2")
+    for a, b in zip(ref["losses"], res[0]["losses"]):
+        assert abs(a - b) <= LOSS_TOL
+    for r in res:
+        assert r["train_losses"] == r["losses"][:2]
+
+
+def test_phi_2x2_checkpoint_resumes_at_1x1_and_reads_in_the_jax_package(
+        runs, tmp_path):
+    """phi3.5-moe's whole state written at 2x2 (step 2, by rank 0: the
+    expert stacks gathered along E): a 1x1 run of the port resumes from
+    it and its next loss is the uninterrupted 2x2 run's third, and
+    ``repro.checkpoint`` reads it leaf for leaf as the port's restore."""
+    import shutil
+
+    from repro.checkpoint.manager import CheckpointManager as JManager
+    from repro.launch import steps as jsteps
+    from repro.optim import optimizer as jopt
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.launch import steps as steps_mod
+    from repro_torch.launch import train as train_mod
+    from repro_torch.optim import optimizer as opt_mod
+
+    _, want, _ = runs
+    res = _family_res(runs, PHI, "2x2")
+    ckpt = tmp_path / "ckpt"
+    shutil.copytree(want["dir"] / "ckpt_phi", ckpt)
+    tcfg, jcfg = smoke_config(get_config(PHI)), j_smoke(J_ARCHS[PHI])
+    opt = opt_mod.AdamWConfig(lr=TRAIN["lr"], warmup_steps=TRAIN["warmup"],
+                              total_steps=TRAIN["total"])
+    whole = CheckpointManager(ckpt).restore(
+        2, steps_mod.train_state_struct(tcfg, opt))
+    jstate = JManager(ckpt).restore(2, jsteps.train_state_struct(
+        jcfg, jopt.AdamWConfig()))
+    for (path, a), (_, b) in zip(_named_leaves(jax.tree.map(
+            np.asarray, jstate)), _named_leaves(jax.tree.map(
+                lambda t: t.numpy(), whole))):
+        np.testing.assert_array_equal(a, b, err_msg=str(path))
+    _, losses = train_mod.train(
+        tcfg, ShapeSpec("t", TRAIN["seq"], TRAIN["batch"], "train"), opt,
+        device="cpu", steps=3, ckpt_dir=ckpt, log=lambda *a: None)
+    assert len(losses) == 1
+    assert abs(losses[0] - res[0]["losses"][2]) <= LOSS_TOL
+
+
+def test_rwkv_1x2_state_reshards_into_2x2_through_restore(runs):
+    """rwkv6's whole train state written from 1x2 (gathered over the
+    model group after three steps) restores through
+    ``CheckpointManager.restore(split=)`` straight into each rank of a
+    2x2 mesh (``train_plan``'s split), bit for bit the 1x2 rank of its
+    model index's live state (params, AdamW's m / v and step)."""
+    from repro_torch import tree as tree_mod
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.launch import steps as steps_mod
+    from repro_torch.optim import optimizer as opt_mod
+
+    got, want, _ = runs
+    for r in got[2]:
+        _ok(r, "rwkv_ckpt")
+    cfg = smoke_config(get_config("rwkv6-7b"))
+    opt = opt_mod.AdamWConfig(lr=TRAIN["lr"], warmup_steps=TRAIN["warmup"],
+                              total_steps=TRAIN["total"])
+    mgr = CheckpointManager(want["dir"] / "ckpt_rwkv")
+    struct = steps_mod.train_state_struct(cfg, opt)
+    for r in range(4):
+        split = sharding.train_plan(cfg, r, 2, 2).split
+        back = mgr.restore(TRAIN["steps"], struct, cfg=cfg, split=split)
+        live = np.load(want["dir"] / f"rwkv_state_{r % 2}.npz")
+        for path, t in tree_mod.items(back):
+            np.testing.assert_array_equal(
+                t.numpy(), live[tree_mod.key(path)], err_msg=str(path))

@@ -360,6 +360,26 @@ def test_five_train_steps_match_jax():
                                    atol=PARAM_TOL, err_msg=str(path))
 
 
+def test_on_grads_sees_each_steps_gradients_before_the_update():
+    """``make_train_step(on_grads=)`` hands each step's gradients to the
+    callback before the update reads them: the first step's are
+    ``jax.grad`` of the reference's loss at the initial params (the
+    update, in place on the params, leaves them as they were), and two
+    steps call it twice."""
+    jcfg, tcfg, jparams, tparams = _bridged("qwen3-0.6b")
+    opt = topt.AdamWConfig(lr=3e-3, warmup_steps=2, total_steps=8)
+    jb, tb = _batches(_tokens(jcfg.vocab_size, seed=10))
+    want = jax.jit(jax.grad(lambda p: japi.train_loss(p, jcfg, jb)))(jparams)
+    seen = []
+    step = steps_mod.make_train_step(tcfg, opt, on_grads=seen.append)
+    state = {"params": tparams, "opt": topt.init_state(opt, tparams)}
+    for _ in range(2):
+        state, _ = step(state, tb)
+    assert len(seen) == 2
+    for path, w, got in _walk(jax.tree.map(np.asarray, want), seen[0]):
+        _leaf_close(path, w, got, GRAD_TOL)
+
+
 def test_train_state_struct_is_the_reference_tree():
     """``train_state_struct`` (the meta tree ``restore`` fills) has the
     reference's leaf keys, shapes and dtypes, factored moments

@@ -15,6 +15,7 @@ Tolerances (f32): the loss within 1e-6 of JAX's, the logits' gradient
 within 1e-6 of its largest |value| (the merge of the slices' stats sums
 ``exp`` in another order than one pass over the row).
 """
+import dataclasses
 import threading
 
 import numpy as np
@@ -195,35 +196,67 @@ def test_split_leaves_gather_back_to_the_whole_tree():
             assert torch.equal(a, b), path
 
 
-@pytest.mark.parametrize("arch", ["rwkv6-7b", "recurrentgemma-2b",
-                                  "phi3.5-moe-42b-a6.6b", "internvl2-26b",
+@pytest.mark.parametrize("arch", ["internvl2-26b",
                                   "seamless-m4t-large-v2"])
 def test_train_plan_refuses_another_family_under_a_model_axis(arch):
-    """Under M > 1 only the dense family trains in this slice: every other
-    family raises naming the ROADMAP entry; at M 1 the plan has no
-    split."""
+    """Under M > 1 the vlm and encdec families do not train yet: each
+    raises naming the ROADMAP entry; at M 1 the plan has no split."""
     cfg = smoke_config(get_config(arch))
     with pytest.raises(ValueError, match="ROADMAP.md section 1"):
         sharding.train_plan(cfg, 0, 1, 2)
-    if cfg.moe is None:
-        assert sharding.train_plan(cfg, 1, 2, 1).split is None
+    assert sharding.train_plan(cfg, 1, 2, 1).split is None
+
+
+@pytest.mark.parametrize("arch", ["rwkv6-7b", "recurrentgemma-2b",
+                                  "phi3.5-moe-42b-a6.6b"])
+def test_train_plan_places_the_moe_ssm_and_hybrid_families(arch):
+    """The ssm, hybrid and moe families train under a model axis: at 1x2,
+    2x1 and 2x2 rank ``r`` sits at data index ``r // M`` and model index
+    ``r % M`` with that model rank's heads (an RWKV6 layer's, or the
+    RG-LRU's gate blocks with them), channels, experts and vocabulary;
+    recurrentgemma's one kv head is copied to both model ranks."""
+    cfg = smoke_config(get_config(arch))
+    for D, M in ((1, 2), (2, 1), (2, 2)):
+        for r in range(D * M):
+            p = sharding.train_plan(cfg, r, D, M)
+            assert (p.d, p.m) == (r // M, r % M)
+            if M == 1:
+                assert p.split is None
+                continue
+            m = r % M
+            assert p.split.vocab == (128 * m, 128 * (m + 1))
+            assert p.split.q == (2 * m, 2 * m + 2)
+            if cfg.moe is not None:
+                assert p.split.experts == (2 * m, 2 * m + 2)
+            if cfg.family in ("ssm", "hybrid"):
+                assert p.split.chan == (32 * m, 32 * m + 32)
+    copies = sharding.kv_copies(cfg, 2)
+    assert copies == ([[0, 1]] if arch == "recurrentgemma-2b" else None)
 
 
 def test_train_plan_refuses_moe_over_data_and_places_ranks():
-    """The moe family under D > 1 raises (its router loss is a product of
-    means over the whole batch); a dense rank ``r`` of a 2x2 mesh sits at
-    data index ``r // 2`` and model index ``r % 2`` with that model
-    rank's heads and vocabulary; copied kv heads are refused."""
+    """The moe family under D > 1 is placed (its router loss reads the
+    global means over the data group), but only with the gshard
+    executor, whose groups lie within a row; a dense rank ``r`` of a 2x2
+    mesh sits at data index ``r // 2`` and model index ``r % 2`` with
+    that model rank's heads and vocabulary; at 1x4 qwen3's 2 kv heads
+    are copied, each to the 2 ranks whose q heads read it; a rank
+    outside the mesh raises."""
     moe = smoke_config(get_config("phi3.5-moe-42b-a6.6b"))
-    with pytest.raises(ValueError, match="router loss"):
-        sharding.train_plan(moe, 0, 2, 1)
+    for r in range(2):
+        p = sharding.train_plan(moe, r, 2, 1)
+        assert (p.d, p.m, p.split) == (r, 0, None)
+    with pytest.raises(ValueError, match="only gshard's groups"):
+        sharding.train_plan(dataclasses.replace(moe, moe_impl="scatter"),
+                            0, 2, 1)
     for r in range(4):
         p = sharding.train_plan(QWEN, r, 2, 2)
         assert (p.d, p.m) == (r // 2, r % 2)
         assert p.split.vocab == (128 * (r % 2), 128 * (r % 2 + 1))
         assert p.split.q == (2 * (r % 2), 2 * (r % 2 + 1))
-    with pytest.raises(ValueError, match="copied kv head"):
-        sharding.train_plan(QWEN, 0, 1, 4)
+    kv = [sharding.train_plan(QWEN, r, 1, 4).split.kv for r in range(4)]
+    assert kv == [(0, 1), (0, 1), (1, 2), (1, 2)]
+    assert sharding.kv_copies(QWEN, 4) == [[0, 1], [2, 3]]
     with pytest.raises(ValueError, match="outside a mesh"):
         sharding.train_plan(QWEN, 4, 2, 2)
 
@@ -358,3 +391,121 @@ def test_split_rank_gradients_match_jax_once_qk_norm_parts_are_summed():
         assert np.abs(res[0][2][k] - w).max() > 0.05 * scale, k
         summed = res[0][2][k] + res[1][2][k]
         assert np.abs(summed - w).max() <= 5e-5 * scale, k
+
+
+def test_sum_gather_and_share_carry_their_derivatives():
+    """The collectives for sums a rank reads only part of, on 2 simulated
+    ranks: ``sum_to_group``'s backward sums the ranks' gradients (each
+    rank reads its own half of the sum), ``gather_from_group``'s hands a
+    rank its own slice, ``share_grad``'s divides by the group's size --
+    each against the same function on one process; without grad each is
+    the in-place serving collective (or nothing), its bytes counted."""
+    rng = np.random.default_rng(8)
+    xs = rng.standard_normal((2, 3, 4)).astype(np.float32)
+    w = rng.standard_normal((3, 4)).astype(np.float32)
+
+    whole = torch.from_numpy(xs.copy()).requires_grad_(True)
+    total = whole.sum(0)
+    # rank r reads columns [2r, 2r + 2) of the sum, then the products are
+    # gathered and every rank weighs the whole by w; a term both ranks
+    # compute whole counts once
+    ref = (torch.cat([total[:, :2] * 2, total[:, 2:] * 3], 1)
+           * torch.from_numpy(w)).sum() + whole.sum() ** 2
+    ref.backward()
+
+    def rank(g):
+        x = torch.from_numpy(xs[g.rank].copy()).requires_grad_(True)
+        s = comm.sum_to_group(x, g, "trunk")
+        part = s[:, 2 * g.rank:2 * g.rank + 2] * (2 + g.rank)
+        y = comm.gather_from_group(part, g, "trunk")      # (2, 3, 2)
+        y = y.permute(1, 0, 2).reshape(3, 4)
+        sq = comm.share_grad(comm.sum_to_group(x.sum().reshape(1), g,
+                                               "aux")[0] ** 2, g)
+        ((y * torch.from_numpy(w)).sum() + sq).backward()
+        with torch.no_grad():
+            z = torch.ones(2)
+            same = comm.sum_to_group(z, g, "serve") is z
+            got = comm.gather_from_group(z, g, "serve").shape
+            kept = comm.share_grad(z, g) is z
+        return x.grad.numpy(), (same, tuple(got), kept), g.bytes
+
+    for r, (grad, (same, got, kept), nbytes) in enumerate(_run_ranks(2,
+                                                                     rank)):
+        np.testing.assert_allclose(grad, whole.grad.numpy()[r], rtol=1e-6,
+                                   atol=1e-6)
+        assert same and kept and got == (2, 2)
+        # the sum and the gather of 2 f32 over 2 ranks (a ThreadGroup
+        # counts a sum as the gather it runs)
+        assert nbytes["serve"] == 2 * (2 * 2 * 4)
+
+
+def test_router_loss_shares_over_a_data_group_are_the_global_one():
+    """``layers.moe_aux_loss`` over 2 simulated data ranks, each with its
+    block of the tokens: the shares sum to the router loss of all the
+    tokens at once, and each rank's probabilities get the whole batch's
+    gradient; the ranks' own losses (their own means) would not sum to
+    it.  The counts' traffic is E + 1 f32 a rank."""
+    from repro_torch.models.layers import moe_aux_loss
+
+    rng = np.random.default_rng(4)
+    logits = rng.standard_normal((12, 4)).astype(np.float32)
+    idx = np.argsort(-logits, axis=1)[:, :2].copy()
+    idx[:5] = [0, 1]                     # rank 0's tokens lean to expert 0
+    whole = torch.softmax(torch.from_numpy(logits), -1).requires_grad_(True)
+    want = moe_aux_loss(whole, torch.from_numpy(idx), 4)
+    want.backward()
+
+    def rank(g):
+        lo = 6 * g.rank
+        p = torch.softmax(torch.from_numpy(logits[lo:lo + 6]), -1)
+        p.requires_grad_(True)
+        share = moe_aux_loss(p, torch.from_numpy(idx[lo:lo + 6]), 4, g)
+        share.backward()
+        own = moe_aux_loss(p.detach(), torch.from_numpy(idx[lo:lo + 6]), 4)
+        return share.item(), own.item(), p.grad.numpy(), g.bytes
+
+    res = _run_ranks(2, rank)
+    assert abs(sum(r[0] for r in res) - want.item()) <= 1e-6
+    assert abs(sum(r[1] for r in res) / 2 - want.item()) > 1e-3
+    grad = np.concatenate([r[2] for r in res])
+    np.testing.assert_allclose(grad, whole.grad.numpy(), rtol=1e-6,
+                               atol=1e-7)
+    assert res[0][3] == {"aux": 2 * (4 + 1) * 4}
+
+
+@pytest.mark.parametrize("arch,world", [("phi3.5-moe-42b-a6.6b", 2),
+                                        ("rwkv6-7b", 2),
+                                        ("recurrentgemma-2b", 2),
+                                        ("qwen3-0.6b", 4)])
+def test_family_train_state_gathers_back_to_the_whole(arch, world):
+    """``weights.shard_params`` of a whole train state of the moe, ssm and
+    hybrid families (and qwen3 with its kv heads copied at 4), then
+    ``sharding.gather_tree`` over a simulated model group, is the whole
+    state bit for bit: ``split_axis`` reads the same path rule as
+    ``shard_leaf`` (``leaf_cut``) -- a moe expert stack joins along E,
+    ``rec/w_out`` by rows, ``w_a`` / ``w_i`` by gate block -- and a
+    copied kv head is taken once."""
+    cfg = smoke_config(get_config(arch))
+    host = weights.seeded_params(cfg, 5, "cpu")
+    opt = topt.AdamWConfig()
+    state = {"params": host, "opt": topt.init_state(opt, host)}
+    state["opt"]["v"] = tree_mod.map_tree(
+        lambda _, t: torch.rand_like(t), state["opt"]["v"])
+
+    def rank(g):
+        split = sharding.plan(cfg, g.rank, world, group=g)
+        mine = weights.shard_params(state, cfg, split)
+        for path, x in tree_mod.items(mine):
+            cut = sharding.leaf_cut(path, cfg, split)
+            assert sharding.split_axis(path, cfg, split) == (
+                None if cut is None else cut[0]), path
+        return sharding.gather_tree(mine, cfg, split)
+
+    for whole in _run_ranks(world, rank):
+        for (path, a), (_, b) in zip(tree_mod.items(state),
+                                     tree_mod.items(whole)):
+            assert torch.equal(a, b), path
+    if cfg.moe is not None:
+        split = sharding.plan(cfg, 1, world)
+        path = ("params", "decoder", 0, "slot0", "moe", "w_gate")
+        assert sharding.leaf_cut(path, cfg, split) == (1, 2, 4)
