@@ -16,14 +16,18 @@ reference's ``--mesh 4x2``; the groups from torchrun's environment,
       --device cpu --mesh 2x2
 The world size must be D x M.  Each rank draws the whole host tree from
 the seed (``weights.seeded_params``) and keeps its slice
-(``launch.steps.TrainMesh``); the model axis splits the trunk of the
-dense, moe (experts), ssm (RWKV6 heads) and hybrid (RG-LRU gate blocks)
-families and the vocabulary (the loss through the softmax-stats kernel
-on the rank's vocabulary slice), the data axis cuts the batch's rows
-(a moe config's router loss over the global counts).  Rank 0 logs; a
-checkpoint is written whole, by rank 0, and restores into any mesh:
+(``launch.steps.TrainMesh``); the model axis splits the trunk of every
+family -- dense and vlm (heads, MLP columns), moe (experts), ssm (RWKV6
+heads), hybrid (RG-LRU gate blocks), encdec (the encoder's layers and
+the cross-attention too) -- and the vocabulary where it divides (the
+loss through the softmax-stats kernel on the rank's vocabulary slice;
+one that does not, internvl2-26b's 92,553 ids at 2 or 4, stays whole on
+every rank, its loss the cross-entropy kernel's), the data axis cuts the
+batch's rows (a moe config's router loss over the global counts).  Rank
+0 logs; a checkpoint is written whole, by rank 0, and restores into any
+mesh:
   PYTHONPATH=src python -m torch.distributed.run --nproc-per-node 4 \\
-      -m repro_torch.launch.train --arch phi3.5-moe-42b-a6.6b --smoke \\
+      -m repro_torch.launch.train --arch seamless-m4t-large-v2 --smoke \\
       --device cpu --mesh 2x2
 """
 from __future__ import annotations

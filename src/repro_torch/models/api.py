@@ -18,6 +18,7 @@ from repro_torch import prng
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.models import lm
+from repro_torch.parallel import sharding
 from repro_torch.weights import cast_params
 
 
@@ -101,7 +102,9 @@ def xent_loss(logits: torch.Tensor, labels: torch.Tensor,
     max(sum(mask), 1)``, or the plain mean without a mask.
 
     ``split`` (a ``parallel.sharding.Split`` over its group, a trunk cut
-    of world > 1): ``logits`` are the rank's (N, V / ranks) slice and
+    of world > 1 that cuts the vocabulary; ``train_loss`` passes None
+    for one that keeps it whole): ``logits`` are the rank's (N, V /
+    ranks) slice and
     each token's loss is ``vocab_parallel_xent``'s.  ``data`` (the rank's
     data group, its rows one block of the global batch): the loss is the
     rank's SHARE of the global mean, its masked sum over the global
@@ -141,26 +144,32 @@ def train_loss(params: dict, cfg: ModelConfig, batch: dict, *,
     the gradients reach the masters in f32.
 
     On a mesh: ``cfg`` is the rank's view (``sharding.local_config``) and
-    ``params`` its slice when the model axis is split -- the loss then
-    reads the rank's logits slice (``lm.local_logits``) through the
-    vocabulary-parallel loss; ``data`` is the rank's data group, and the
-    loss its share of the global mean (``xent_loss``) plus its share of
-    the global router loss (``layers.moe_aux_loss`` over ``data``: the
-    routed counts summed over the group before the product), so the data
-    group's sum of the shares is the global loss.  Under a split model
-    axis the router loss's gradient is shared over the model group
-    (``parallel.moe_ep``)."""
+    ``params`` its slice when the model axis is split.  Where the split
+    cuts the vocabulary the loss reads the rank's logits slice
+    (``lm.local_logits``, its input behind ``comm.copy_to_group``)
+    through the vocabulary-parallel loss; where it keeps the vocabulary
+    whole (one that does not divide by the model axis,
+    ``sharding.vocab_cut`` false) the head and the loss are the plain
+    ones (``lm.logits_fn``, ``ops.softmax_xent``: the cross-entropy
+    kernel on the card), the same numbers on every model rank, whose
+    input gradient is whole already.  ``data`` is the rank's data group,
+    and the loss its share of the global mean (``xent_loss``) plus its
+    share of the global router loss (``layers.moe_aux_loss`` over
+    ``data``: the routed counts summed over the group before the
+    product), so the data group's sum of the shares is the global loss.
+    Under a split model axis the router loss's gradient is shared over
+    the model group (``parallel.moe_ep``)."""
     cast = cast_params(params, cfg)
     h, aux = lm.hidden(cast, cfg, batch["tokens"],
                        image_embeds=batch.get("image_embeds"),
                        src_embeds=batch.get("src_embeds"), data=data)
     sh = cfg.shard
-    if sh is not None and sh.trunk and sh.world > 1:
-        logits = lm.local_logits(cast, cfg, h)
+    if sh is not None and sh.trunk and sharding.vocab_cut(cfg):
+        logits, split = lm.local_logits(cast, cfg, h), sh
     else:
-        logits = lm.logits_fn(cast, cfg, h)
+        logits, split = lm.logits_fn(cast, cfg, h), None
     loss = xent_loss(logits, batch["labels"], batch.get("loss_mask"),
-                     split=sh, data=data)
+                     split=split, data=data)
     if cfg.moe is not None:
         loss = loss + cfg.moe.router_aux_weight * aux
     return loss

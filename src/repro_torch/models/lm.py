@@ -47,16 +47,21 @@ own, ``rwkv6.rwkv_channel_mix``), the recurrent states hold the rank's
 channels (``rglru`` / ``rwkv6``), ``lm_head_weight`` is the rank's (D, V
 / ranks) slice and ``logits_fn`` all-gathers the slices' f32 logits.
 
-Training under a split (the dense, moe, hybrid and ssm families)
-differentiates through the collectives with the Megatron pair: the
-embedding's sum and each ``wo`` / ``w_out`` output go through
-``comm.reduce_from_group``, the normed inputs of wq / wk / wv and of the
-MLP's first matrices, and the head's input, through
-``comm.copy_to_group``, whose backward sums their gradient over the
-ranks; a ``moe`` layer's input and its experts' sum are the same pair
-(``parallel.moe_ep``), the recurrent blocks carry their own
-(``rglru``, ``rwkv6``); the loss reads the rank's logits slice alone
-(``local_logits``).
+Training under a split (every family) differentiates through the
+collectives with the Megatron pair: the embedding's sum and each ``wo``
+/ ``w_out`` output go through ``comm.reduce_from_group``, the normed
+inputs of wq / wk / wv and of the MLP's first matrices, and the head's
+input, through ``comm.copy_to_group``, whose backward sums their
+gradient over the ranks; a ``moe`` layer's input and its experts' sum
+are the same pair (``parallel.moe_ep``), the recurrent blocks carry
+their own (``rglru``, ``rwkv6``); the loss reads the rank's logits
+slice alone (``local_logits``).  An encoder's layers take the pair as a
+dense layer does, each ``xattn`` layer's cross-attention too, and the
+encoder's output, which every ``xattn`` layer's kv heads read, is copied
+once (kind ``"cross"``).  A vocabulary kept whole on every rank
+(``sharding.vocab_cut`` false: one that does not divide by the ranks)
+takes the plain lookup, head and loss, with neither the embedding's sum
+nor the head's copy.
 """
 from __future__ import annotations
 
@@ -70,7 +75,7 @@ from repro_torch.models import rglru, rwkv6
 from repro_torch.models.layers import (StepConstants, _split_heads,
                                       attention, mlp, moe_layer, rms_norm,
                                       step_constants)
-from repro_torch.parallel import comm, moe_ep
+from repro_torch.parallel import comm, moe_ep, sharding
 from repro_torch.weights import dtype_of
 
 
@@ -137,11 +142,14 @@ def embed_tokens(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
     ``num_image_tokens``, given ``image_embeds`` (B, n, D) -- the stub
     vision frontend's patch embeddings -- take the first n positions, cast
     to the compute dtype (reference ``embed_tokens``).  Under a split
-    trunk the token embeddings are summed over the ranks first; every
-    rank holds the same ``image_embeds`` and puts them in after the sum
-    (summed, they would count ``world`` times)."""
+    trunk with a cut vocabulary the token embeddings are summed over the
+    ranks first; every rank holds the same ``image_embeds`` and puts them
+    in after the sum (summed, they would count ``world`` times).  A
+    vocabulary kept whole on every rank (``sharding.vocab_cut`` false)
+    is looked up as it is, with no sum: summed, the rows would count
+    ``world`` times too."""
     group = _trunk_group(cfg)
-    if group is None:
+    if group is None or not sharding.vocab_cut(cfg):
         x = params["embed"][tokens]
     else:
         # vocabulary-sharded lookup: this rank's rows for the ids in its
@@ -216,7 +224,10 @@ def local_logits(params: dict, cfg: ModelConfig,
     the logits, never gathered (the vocabulary-parallel loss reads it,
     ``models.api.vocab_parallel_xent``).  The head's input goes through
     ``comm.copy_to_group`` (kind ``"head"``): the rank's vocabulary
-    columns give a part of its gradient."""
+    columns give a part of its gradient.  Only for a cut vocabulary: a
+    whole one's head is ``logits_fn``'s, whose input gradient is already
+    whole on every rank (behind the copy it would count ``world``
+    times)."""
     x = comm.copy_to_group(x.reshape(-1, x.shape[-1]), _trunk_group(cfg),
                            "head")
     return _HeadMatmul.apply(x, lm_head_weight(params, cfg))
@@ -224,11 +235,12 @@ def local_logits(params: dict, cfg: ModelConfig,
 
 def logits_fn(params: dict, cfg: ModelConfig,
               x: torch.Tensor) -> torch.Tensor:
-    """(..., D) -> (..., V) f32 logits ``x @ W`` (``_HeadMatmul``)."""
+    """(..., D) -> (..., V) f32 logits ``x @ W`` (``_HeadMatmul``); a
+    rank's vocabulary slices all-gathered where the vocabulary is cut."""
     w = lm_head_weight(params, cfg)
     out = _HeadMatmul.apply(x.reshape(-1, x.shape[-1]), w)
     sh = cfg.shard
-    if sh is not None:
+    if sh is not None and sharding.vocab_cut(cfg):
         # every rank's (rows, V / ranks) slice, in rank order: the O(rows
         # * V) traffic the comparator heads never pay
         g = sh.group.all_gather(out, "logits")
@@ -264,7 +276,9 @@ def _apply_layer(p: dict, x: torch.Tensor, cfg: ModelConfig, kind: str, *,
     experts (``parallel.moe_ep``).  Returns (x, extra, aux):
     an attention-bearing layer's self-attention ``attention`` extra, a
     ``rec`` or ``rwkv`` layer's new state; a ``moe`` layer's router loss
-    (f32 scalar), else None.  A ``moe`` layer routes with ``moe_impl``:
+    (f32 scalar), else None.  An ``xattn`` layer's cross-attention is
+    split as its self-attention is: its normed query input copied, the
+    rank's heads, its output summed.  A ``moe`` layer routes with ``moe_impl``:
     the decode executor with a cache, the prefill one without.  An
     ``enc`` layer's self-attention is bidirectional with no window; an
     ``xattn`` layer's cross-attention reads ``cross``: the encoder's
@@ -289,13 +303,14 @@ def _apply_layer(p: dict, x: torch.Tensor, cfg: ModelConfig, kind: str, *,
                          cache=cache)
     x = x + comm.reduce_from_group(a, group, "trunk")
     if kind == "xattn":
-        h = rms_norm(x, p["lnx"], cfg.norm_eps)
+        h = comm.copy_to_group(rms_norm(x, p["lnx"], cfg.norm_eps), group,
+                               "trunk")
         if isinstance(cross, dict):
             xa, _ = attention(p["xattn"], h, cfg, consts=None, cache=cross)
         else:
             xa, _ = attention(p["xattn"], h, cfg, consts=None, kv_x=cross,
                               causal=False)
-        x = x + xa
+        x = x + comm.reduce_from_group(xa, group, "trunk")
     h_in = rms_norm(x, p["ln2"], cfg.norm_eps)
     if kind != "moe":
         h = mlp(p["mlp"], comm.copy_to_group(h_in, group, "trunk"),
@@ -471,28 +486,38 @@ def encode(params: dict, cfg: ModelConfig,
     """The encoder stack over the stub frontend's embeddings (B, S_src, D)
     (cast to the compute dtype): bidirectional self-attention at the
     source positions 0..S_src-1 (their own RoPE table), then
-    ``encoder_norm`` (reference ``encode``)."""
+    ``encoder_norm`` (reference ``encode``).  Under a split trunk each
+    ``enc`` layer takes the pair around its self-attention and MLP, as a
+    dense layer does."""
     x = src_embeds.to(dtype_of(cfg))
     consts = step_constants(cfg, torch.arange(x.shape[1], device=x.device))
     x, _ = _run_units(_stack_layers(params["encoder"], encoder_segments(cfg)),
-                      encoder_segments(cfg), x, cfg, consts, None)
+                      encoder_segments(cfg), x, cfg, consts,
+                      _trunk_group(cfg))
     return rms_norm(x, params["encoder_norm"], cfg.norm_eps)
 
 
 def _encoder_output(params: dict, cfg: ModelConfig,
                     src_embeds: Optional[torch.Tensor]):
-    """``encode`` of ``src_embeds`` for an ``encdec`` config, else None."""
+    """``encode`` of ``src_embeds`` for an ``encdec`` config, else None.
+    Under a split trunk the output goes through ``comm.copy_to_group``
+    (kind ``"cross"``) once, before every ``xattn`` layer's ``wk`` /
+    ``wv`` read it: each rank's kv heads give a part of its gradient, one
+    all-reduce of (B, S_src, D) a step sums them."""
     if not cfg.n_encoder_layers:
         return None
     if src_embeds is None:
         raise ValueError(f"{cfg.name}: an encoder-decoder config needs "
                          "src_embeds (B, S_src, D)")
-    return encode(params, cfg, src_embeds)
+    return comm.copy_to_group(encode(params, cfg, src_embeds),
+                              _trunk_group(cfg), "cross")
 
 
 def _cross_kv(p: dict, enc_out: torch.Tensor, cfg: ModelConfig):
     """One ``xattn`` layer's read-only cross K/V (B, S_src, Hkv, hd) from
-    the encoder's output: no norm, no RoPE (reference ``_cross_kv``)."""
+    the encoder's output: no norm, no RoPE (reference ``_cross_kv``); on
+    a rank of a split trunk its kv heads (``cfg.n_kv_heads`` the
+    rank's)."""
     hkv, hd = cfg.n_kv_heads, cfg.head_dim
     return (_split_heads(enc_out @ p["xattn"]["wk"], hkv, hd),
             _split_heads(enc_out @ p["xattn"]["wv"], hkv, hd))

@@ -53,7 +53,8 @@ bytes do not move.
 ``bytes`` counts the bytes every collective left on this rank, by the
 kind its caller names (``"trunk"``, ``"embed"``, ``"head"``,
 ``"logits"``, ``"control"``, ``"digest"``; in training also ``"loss"``,
-``"grad"``, ``"norm"``, ``"router"``, ``"kv"`` and ``"aux"``): an
+``"grad"``, ``"norm"``, ``"router"``, ``"kv"``, ``"aux"`` and
+``"cross"``, the encoder output's gradient): an
 all-gather counts its
 whole result, an all-reduce its tensor.  It takes the place of the
 reference's ``repro.launch.hlo_stats.collective_bytes`` over compiled

@@ -1,5 +1,7 @@
-"""The tensor-parallel serve split of the param trees of every served
-family: dense, vlm, moe, hybrid (RG-LRU) and ssm (RWKV6).
+"""The tensor-parallel split of the param trees of every family: dense,
+vlm, moe, hybrid (RG-LRU), ssm (RWKV6) and encdec (trained, and run
+through ``lm.prefill`` / ``lm.decode_step``; the engine serves no
+encoder-decoder config).
 
 Counterpart of ``repro.parallel.sharding`` (``_PARAM_RULES`` :26-44,
 ``_MOE_RULES`` :49-54, ``param_specs`` :75-113, ``paged_pool_specs``
@@ -12,8 +14,11 @@ Counterpart of ``repro.parallel.sharding`` (``_PARAM_RULES`` :26-44,
                     ranges (expert parallelism, ``repro.parallel.moe_ep``)
   vocabulary        the embedding (V, D) and an untied lm_head (D, V),
                     split along V into contiguous rank-ordered ranges
-  replicated        the norms (ln1, ln2, final_norm, q_norm, k_norm) and
-                    the router
+  replicated        the norms (ln1, ln2, lnx, final_norm, encoder_norm,
+                    q_norm, k_norm) and the router
+  encdec            the encoder's ``enc`` layers and each ``xattn``
+                    layer's cross-attention by the same names: wq / wk /
+                    wv by heads, wo by rows
   rwkv6             by whole heads (``Split.chan``, the rank's heads' hd
                     columns): w_r, w_k, w_v, w_g and the channel-mix's
                     w_r_cm by columns, w0, u, ln_x and the decay LoRA's
@@ -55,9 +60,14 @@ recurrentgemma-2b's one MQA kv head is copied to every rank.  The
 reference's GSPMD rule divides columns instead, which at smoke size
 and tp 4 cuts ``wk`` (64, 32) into half heads; the whole-head rule gives
 the same tokens (``tests/test_torch_tp.py``).  The vocabulary must divide
-too: the sharded head cuts V into equal slices, as the reference's
-``shard_map`` with ``P(None, 'model')`` on W does, so internvl2-26b
-(V 92,553 = 3 x 30,851) is served at tp 1 only, in both packages.
+too when serving: the sharded head cuts V into equal slices, as the
+reference's ``shard_map`` with ``P(None, 'model')`` on W does, so
+internvl2-26b (V 92,553 = 3 x 30,851) is served at tp 1 only, in both
+packages.  Training keeps such a vocabulary whole on every rank
+(``plan(whole_vocab=True)``), as the reference's ``param_specs`` drops a
+mesh axis that does not divide a leaf's dimension and holds the leaf
+whole (``repro/parallel/sharding.py:101-110``): the embedding, an untied
+head and the loss are then each rank's whole ones (``vocab_cut``).
 
 The reference's fallback to the training layout for a model that does
 not fit once sharded (``serve_param_specs`` :116-139) is not ported:
@@ -70,11 +80,12 @@ applied to the f32 masters, their gradients and AdamW's ``m`` / ``v``
 alike (``shard_params`` cuts a whole train state: ``leaf_cut`` reads the
 leaf's path, which ``split_axis`` and ``gather_tree`` read too); the data
 axis replicates them and cuts the batch into D contiguous row blocks.
-Under M > 1 the dense, moe, hybrid and ssm families train; vlm and
-encdec refuse.  A kv head that does not divide by M is copied to the
-ranks whose q heads read it (``kv_copies``): each copy's wk / wv
-gradient is that rank's q heads' part, summed over the ranks holding the
-copy in the step.  ``gather_tree`` puts a rank's slices back into the
+Every family trains under M > 1; a vocabulary that does not divide by M
+stays whole on every rank.  A kv head that does not divide by M is
+copied to the ranks whose q heads read it (``kv_copies``): each copy's
+wk / wv gradient is that rank's q heads' part, summed over the ranks
+holding the copy in the step (an encoder's and a cross-attention's
+too).  ``gather_tree`` puts a rank's slices back into the
 whole layout over the model group.  The
 reference's FSDP cut of the weights over ``data`` (``_COL`` / ``_ROW``
 :24-25) is not ported: the masters are replicated over the data group,
@@ -97,7 +108,6 @@ _RWKV_CHAN = ("w_r", "w_k", "w_v", "w_g", "w_r_cm", "w0", "u", "ln_x", "wB")
 # an rg-lru block's leaves cut along their last axis to the rank's lru
 # channels (w_a / w_i by block, w_out by rows)
 _REC_CHAN = ("w_x", "w_gate_in", "conv_w", "conv_b", "b_a", "b_i", "lam")
-FAMILIES = ("dense", "vlm", "moe", "hybrid", "ssm")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -142,7 +152,8 @@ def _chan_width(cfg: ModelConfig) -> int:
 
 
 def plan(cfg: ModelConfig, rank: int, world: int, *, trunk: bool = True,
-         max_bytes_per_rank: Optional[float] = None, group=None) -> Split:
+         max_bytes_per_rank: Optional[float] = None, group=None,
+         whole_vocab: bool = False) -> Split:
     """Rank ``rank``'s share of ``cfg`` among ``world`` ranks (of
     ``group``, where there is one).  Raises
     ``ValueError`` where the q heads (an RWKV6 config's time-mix heads;
@@ -150,19 +161,21 @@ def plan(cfg: ModelConfig, rank: int, world: int, *, trunk: bool = True,
     width, the experts, the shared expert's width or the vocabulary do
     not divide by ``world``, where a rank's q heads would read part of a
     kv group, or where a rank's compute-dtype weights exceed
-    ``max_bytes_per_rank``; ``NotImplementedError`` for the encdec
-    family, which the engine does not serve."""
-    if cfg.family not in FAMILIES:
-        raise NotImplementedError(
-            f"family {cfg.family!r}: tensor parallelism covers the "
-            f"{', '.join(FAMILIES)} families (the engine serves no "
-            "encoder-decoder config)")
+    ``max_bytes_per_rank``.  ``whole_vocab`` (training): a vocabulary
+    that does not divide by ``world`` is held whole, ``vocab`` (0, V),
+    on every rank instead of refused -- the reference's ``param_specs``
+    drops an axis that does not divide a leaf's dimension
+    (``repro/parallel/sharding.py:101-110``); serving's sharded head
+    cuts equal slices and refuses it."""
     if not 0 <= rank < world:
         raise ValueError(f"rank {rank} outside a world of {world}")
-    vocab = _even(cfg.vocab_size, world, rank, "vocab_size",
-                  ": the sharded head cuts V into equal slices (the "
-                  "reference's shard_map with P(None, 'model') on W "
-                  "refuses it too)")
+    if whole_vocab and cfg.vocab_size % world:
+        vocab = (0, cfg.vocab_size)
+    else:
+        vocab = _even(cfg.vocab_size, world, rank, "vocab_size",
+                      ": the sharded head cuts V into equal slices (the "
+                      "reference's shard_map with P(None, 'model') on W "
+                      "refuses it too)")
     m = cfg.moe
     width = _chan_width(cfg)
     if not trunk:
@@ -254,8 +267,11 @@ def rank_param_count(cfg: ModelConfig, split: Split) -> int:
     ``rec`` layer's RG-LRU block at the rank's lru channels
     (``rglru.layer_shapes`` of the rank's view) with its norm and MLP
     columns, an ``rwkv`` layer's leaves at the rank's heads
-    (``rwkv6.layer_shapes`` of the rank's view); then the vocabulary
-    slice and the final norm."""
+    (``rwkv6.layer_shapes`` of the rank's view), an ``xattn`` layer an
+    attention layer's plus its cross-attention's heads (no qk-norm
+    scales) and ``lnx``; then an encoder's ``enc`` layers (attention
+    layers) and ``encoder_norm``, the vocabulary slice (the whole
+    vocabulary where it is kept whole) and the final norm."""
     from repro_torch.models import lm, rglru, rwkv6
 
     local = local_config(cfg, split)
@@ -266,7 +282,8 @@ def rank_param_count(cfg: ModelConfig, split: Split) -> int:
     attn = 2 * d * nq * hd + 2 * d * nkv * hd + 2 * d \
         + (2 * hd if cfg.qk_norm else 0)
     mlp = mats * d * nf
-    per = {"attn": attn + mlp}
+    per = {"attn": attn + mlp,
+           "xattn": attn + mlp + 2 * d * nq * hd + 2 * d * nkv * hd + d}
     m = cfg.moe
     if m is not None:
         ne = split.experts[1] - split.experts[0]
@@ -280,7 +297,9 @@ def rank_param_count(cfg: ModelConfig, split: Split) -> int:
     heads = (1 if cfg.tie_embeddings else 2) * nv * d
     if not split.trunk:
         heads = (1 if cfg.tie_embeddings else 2) * cfg.vocab_size * d
-    return sum(per[k] for k in lm.layer_types(cfg)) + heads + d
+    enc = cfg.n_encoder_layers
+    encoder = enc * per["attn"] + (d if enc else 0)
+    return sum(per[k] for k in lm.layer_types(cfg)) + encoder + heads + d
 
 
 def leaf_cut(path: tuple, cfg: ModelConfig,
@@ -295,10 +314,10 @@ def leaf_cut(path: tuple, cfg: ModelConfig,
     channels (the channel-mix's ``w_k_cm`` / ``w_v_cm`` by the MLP's)."""
     key = path[-1] if path else None
     hd = cfg.head_dim
-    if key == "embed":
-        return (0, *split.vocab) if split.trunk else None
-    if key == "lm_head":
-        return (-1, *split.vocab) if split.trunk else None
+    if key in ("embed", "lm_head"):
+        if not split.trunk or split.vocab == (0, cfg.vocab_size):
+            return None                       # the head-only or whole V
+        return (0 if key == "embed" else -1, *split.vocab)
     if not split.trunk:
         return None
     if "moe" in path:
@@ -350,11 +369,19 @@ def shard_leaf(path: tuple, x, cfg: ModelConfig, split: Split):
     return x[tuple(idx)]
 
 
+def vocab_cut(cfg: ModelConfig) -> bool:
+    """Whether the rank's view ``cfg`` (``local_config``) holds a slice of
+    the vocabulary: a split over more than one rank whose range is not
+    the whole V.  False for an unsplit config and for a training split
+    that keeps V whole (``plan(whole_vocab=True)``): its embedding
+    lookup, head and loss are then the plain, whole ones on every
+    rank."""
+    sh = cfg.shard
+    return sh is not None and sh.world > 1 \
+        and sh.vocab != (0, cfg.vocab_size)
+
+
 # -- training on a (data, model) mesh ----------------------------------------
-# where a training config under M > 1 refuses, and the ROADMAP entry
-TRAIN_FAMILIES = ("dense", "moe", "hybrid", "ssm")
-_TRAIN_TODO = ("ROADMAP.md section 1, training under tensor parallelism "
-               "for the vlm and encdec families")
 # replicated leaves whose gradient is a part on each model rank: each
 # rank's qk-norm scales meet only its own heads (a copied kv head's
 # k_norm too: each copy meets only its rank's q heads); the router's
@@ -363,6 +390,9 @@ _TRAIN_TODO = ("ROADMAP.md section 1, training under tensor parallelism "
 PARTIAL_GRAD = ("q_norm", "k_norm", "router")
 # the leaves of a kv head copied to several ranks of the model group
 KV_COPY = ("wk", "wv")
+# the attentions whose kv heads those are: self-attention (an encoder's
+# too) and an ``xattn`` layer's cross-attention
+_KV_ATTN = ("attn", "xattn")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -383,22 +413,17 @@ def train_plan(cfg: ModelConfig, rank: int, data: int, model: int, *,
     """Rank ``rank``'s plan in a mesh of ``data x model`` ranks; ``group``
     (the rank's model group) rides on the split.  Rank ``r`` is at data
     index ``r // model`` and model index ``r % model``.  Raises
-    ``ValueError`` where the mesh does not hold the rank, where a config
-    of a family outside ``TRAIN_FAMILIES`` (vlm, encdec) is split over
-    ``model`` (naming the ROADMAP entry), where ``plan`` refuses the split
-    (heads, widths, experts or vocabulary that do not divide by
+    ``ValueError`` where the mesh does not hold the rank, where ``plan``
+    refuses the split (heads, widths or experts that do not divide by
     ``model``, q heads that would read part of a kv group), and where a
     ``moe`` config cut over ``data`` routes with another executor than
-    gshard (``layers.moe_layer``).  A kv head that does not divide by
-    ``model`` is copied to the ranks whose q heads read it
-    (``kv_copies``)."""
+    gshard (``layers.moe_layer``).  Every family splits; a vocabulary
+    that does not divide by ``model`` is held whole on every rank
+    (``plan(whole_vocab=True)``, the reference's ``param_specs``).  A kv
+    head that does not divide by ``model`` is copied to the ranks whose
+    q heads read it (``kv_copies``)."""
     if data < 1 or model < 1 or not 0 <= rank < data * model:
         raise ValueError(f"rank {rank} outside a mesh of {data}x{model}")
-    if model > 1 and cfg.family not in TRAIN_FAMILIES:
-        raise ValueError(f"{cfg.name}: training under a model axis of "
-                         f"{model} covers the {', '.join(TRAIN_FAMILIES)} "
-                         f"families; the {cfg.family} family is "
-                         f"{_TRAIN_TODO}")
     if data > 1 and cfg.moe is not None and cfg.moe_impl not in (
             "auto", "gshard"):
         raise ValueError(f"{cfg.name}: moe_impl {cfg.moe_impl!r} under a "
@@ -407,7 +432,8 @@ def train_plan(cfg: ModelConfig, rank: int, data: int, model: int, *,
                          "leaves routing and drops unchanged")
     split = None
     if model > 1:
-        split = plan(cfg, rank % model, model, group=group)
+        split = plan(cfg, rank % model, model, group=group,
+                     whole_vocab=True)
     return TrainPlan(data, model, rank // model, rank % model, split)
 
 
@@ -420,14 +446,17 @@ def kv_copies(cfg: ModelConfig, model: int) -> Optional[list]:
         return None
     sets = {}
     for m in range(model):
-        sets.setdefault(plan(cfg, m, model).kv, []).append(m)
+        sets.setdefault(plan(cfg, m, model, whole_vocab=True).kv,
+                        []).append(m)
     return list(sets.values())
 
 
 def kv_copy_leaf(path: tuple) -> bool:
-    """Whether the leaf at ``path`` is a self-attention's wk / wv, which a
+    """Whether the leaf at ``path`` is an attention's wk / wv (a
+    self-attention's or an ``xattn`` layer's cross-attention's), which a
     copied kv head holds on several ranks."""
-    return bool(path) and path[-1] in KV_COPY and "attn" in path
+    return bool(path) and path[-1] in KV_COPY \
+        and any(a in path for a in _KV_ATTN)
 
 
 def split_axis(path: tuple, cfg: ModelConfig,

@@ -80,7 +80,8 @@ BYTES_SHAPE = dict(b=8, d=64, v=4096, k=4)
 # its copy with an exact tie between vocabulary ids 10 and 200 (tie.pkl);
 # head inputs: heads.npz.
 RANK_SCRIPT = textwrap.dedent(r'''
-    import functools, json, pickle, sys, threading, time, traceback
+    import dataclasses, functools, json, pickle, sys, threading, time
+    import traceback
     import urllib.error, urllib.request
     import numpy as np
     import torch
@@ -106,10 +107,18 @@ RANK_SCRIPT = textwrap.dedent(r'''
             return weights.from_numpy_params(pickle.load(f), cfg, "cpu")
     params, tie = tree("jtree.pkl"), tree("tie.pkl")
     inputs = dict(np.load(f"{d}/heads.npz"))
-    arch_cfgs = {a: smoke_config(get_config(a)) for a in (
+    def named_cfg(name):
+        # "<arch>" or "<arch>@<V>": the smoke config, its vocab_size V
+        arch, _, v = name.partition("@")
+        c = smoke_config(get_config(arch))
+        return dataclasses.replace(c, vocab_size=int(v)) if v else c
+
+    VLM, ENCDEC = "internvl2-26b", "seamless-m4t-large-v2"
+    arch_cfgs = {a: named_cfg(a) for a in (
         "phi3.5-moe-42b-a6.6b", "llama4-maverick-400b-a17b", "rwkv6-7b",
-        "recurrentgemma-2b", "internvl2-26b")}
-    FAMILY_TRAIN = ("phi3.5-moe-42b-a6.6b", "rwkv6-7b", "recurrentgemma-2b")
+        "recurrentgemma-2b", VLM, ENCDEC, VLM + "@255", ENCDEC + "@258")}
+    FAMILY_TRAIN = ("phi3.5-moe-42b-a6.6b", "rwkv6-7b", "recurrentgemma-2b",
+                    VLM, ENCDEC)
     out = {}
 
     def scenario(fn, name=None):
@@ -326,6 +335,38 @@ RANK_SCRIPT = textwrap.dedent(r'''
             front.stop_pump()
         res["pump_error"] = repr(front._pump_error)
         return res
+
+    @scenario
+    def encdec_greedy():
+        # seamless's smoke config at tp ``world``: lm.prefill over the
+        # source frames (encdec.npz), then greedy lm.decode_step on the
+        # dense cache, each token from the sharded argmax head on the
+        # rank's vocabulary slice; the encoder and every xattn layer's
+        # cross-attention at the rank's heads
+        from repro_torch.serve.sampler import Greedy
+
+        ecfg = arch_cfgs[ENCDEC]
+        split = sharding.plan(ecfg, rank, world, group=g)
+        local = sharding.local_config(ecfg, split)
+        ep = weights.cast_params(weights.shard_params(
+            weights.from_numpy_params(arch_tree(ENCDEC), ecfg, "cpu"),
+            ecfg, split), local)
+        v = np.load(f"{d}/encdec.npz")
+        toks = torch.from_numpy(v["tokens"]).long()
+        src = torch.from_numpy(v["src"])
+        steps, t, head = int(v["steps"]), toks.shape[1], Greedy("sharded")
+        b0 = dict(g.bytes)
+        h, cache = lm.prefill(ep, local, toks, t + steps, src_embeds=src)
+        outs = [head.head(ep, local, h).long()]
+        for i in range(steps):
+            h, cache = lm.decode_step(ep, local, outs[-1][:, None], cache,
+                                      torch.tensor(t + i))
+            outs.append(head.head(ep, local, h).long())
+        return {"tokens": torch.stack(outs, 1).tolist(),
+                "xk": list(cache[0]["slot0"]["xk"].shape),
+                "vocab": list(split.vocab), "bytes": {
+                    k: n - b0.get(k, 0) for k, n in g.bytes.items()
+                    if n - b0.get(k, 0)}}
 
     if world == 2:
         @scenario
@@ -624,12 +665,28 @@ RANK_SCRIPT = textwrap.dedent(r'''
             return {"y": y.tolist(),
                     "pipe_bytes": g.bytes.get("pipe", 0) - b0.get("pipe", 0)}
 
-    # -- the moe, ssm and hybrid families trained on a mesh: each one's
-    # bridged tree (the serving scenarios' <arch>.pkl) on train.json's
-    # global batches -- the first step's gradients made whole and
-    # gathered (rank 0 writes them), then three AdamW steps, the last
-    # one's bytes by kind; and qwen3 at 1x4, its 2 kv heads copied
+    # -- the moe, ssm, hybrid, vlm and encdec families trained on a mesh:
+    # each one's bridged tree (the serving scenarios' <arch>.pkl) on
+    # train.json's global batches, a data shard the rows of its block --
+    # the first step's gradients made whole and gathered (rank 0 writes
+    # them), then three AdamW steps, the last one's bytes by kind; qwen3
+    # at 1x4, its 2 kv heads copied; and the vlm and encdec smoke configs
+    # with a vocabulary that does not divide by M (<arch>@<V>)
     from unittest import mock
+
+    class Rows:
+        # the global batch's rows of data shard d of D: a vlm or encdec
+        # config's stub embeddings of those rows too (TokenPipeline at
+        # data=D draws a shard's stub embeddings afresh, as the
+        # reference's does, which the single-device step never sees)
+        def __init__(self, fcfg, D, d):
+            self.pipe = TokenPipeline(DataConfig(vocab_size=fcfg.vocab_size),
+                                      fcfg, tshape, "cpu")
+            self.lo, self.n = d * tc["batch"] // D, tc["batch"] // D
+
+        def batch(self, step):
+            return {k: v[self.lo:self.lo + self.n]
+                    for k, v in self.pipe.batch(step).items()}
 
     def family_mesh(arch, D, M):
         fcfg = cfg if arch == "qwen3-0.6b" else arch_cfgs[arch]
@@ -637,9 +694,9 @@ RANK_SCRIPT = textwrap.dedent(r'''
             weights.from_numpy_params(arch_tree(arch), fcfg, "cpu")
         mesh = steps_mod.make_mesh(fcfg, g, D, M)
         tag = f"{arch}_{D}x{M}"
-        pipe = TokenPipeline(DataConfig(vocab_size=fcfg.vocab_size), fcfg,
-                             tshape, "cpu", data=D, d=mesh.plan.d)
+        pipe = Rows(fcfg, D, mesh.plan.d)
         res = {"d": mesh.plan.d, "m": mesh.plan.m,
+               "vocab": list(mesh.split.vocab) if mesh.split else None,
                "kv_ranks": list(mesh.kv.ranks) if mesh.kv else None}
         mine = tree_mod.map_tree(lambda _, t: t.clone(), mesh.shard(host))
         loss, grads = steps_mod.rank_grads(mine, mesh.cfg, pipe.batch(0),
@@ -668,19 +725,23 @@ RANK_SCRIPT = textwrap.dedent(r'''
         res.update(losses=losses, norms=norms)
         return res, mesh, state, host, pipe
 
-    def trap(arch, name, fn, leaf):
-        # the gathered first-step gradient of ``leaf`` with comm's ``name``
-        # swapped for ``fn``: the fix taken out
+    def trap(arch, name, fn, leaf, module=comm):
+        # the gathered first-step gradient of ``leaf`` (keys from the
+        # root where the first is a root key, else from the decoder's
+        # first slot) with ``module``'s ``name`` swapped for ``fn``: the
+        # fix taken out
         fcfg = arch_cfgs[arch]
         host = weights.from_numpy_params(arch_tree(arch), fcfg, "cpu")
         mesh = steps_mod.make_mesh(fcfg, g, 1, world)
         pipe = TokenPipeline(DataConfig(vocab_size=fcfg.vocab_size), fcfg,
                              tshape, "cpu")
         mine = tree_mod.map_tree(lambda _, t: t.clone(), mesh.shard(host))
-        with mock.patch.object(comm, name, fn):
+        with mock.patch.object(module, name, fn):
             _, grads = steps_mod.loss_and_grads(mine, mesh.cfg,
                                                 pipe.batch(0), mesh)
-        node = mesh.gather(grads)["decoder"][0]["slot0"]
+        node = mesh.gather(grads)
+        if leaf[0] not in node:
+            node = node["decoder"][0]["slot0"]
         for k in leaf:
             node = node[k]
         return node.tolist()
@@ -688,8 +749,9 @@ RANK_SCRIPT = textwrap.dedent(r'''
     if world == 2:
         for arch in FAMILY_TRAIN:
             for D, M in ((1, 2), (2, 1)):
-                scenario(lambda arch=arch, D=D, M=M: family_mesh(
-                    arch, D, M)[0], f"train_{arch}_{D}x{M}")
+                if (arch, M) != (ENCDEC, 2):     # ckpt_1x2's below
+                    scenario(lambda arch=arch, D=D, M=M: family_mesh(
+                        arch, D, M)[0], f"train_{arch}_{D}x{M}")
 
         @scenario
         def rwkv_ckpt():
@@ -711,9 +773,40 @@ RANK_SCRIPT = textwrap.dedent(r'''
             return trap("rwkv6-7b", "sum_to_group", comm.reduce_from_group,
                         ("w_k_cm",))
 
+        @scenario
+        def trap_whole_head():
+            # a whole vocabulary's head behind the copy of a cut one's
+            return trap(VLM + "@255", "logits_fn", lm.local_logits,
+                        ("final_norm",), module=lm)
+
+        @scenario
+        def trap_cross():
+            # the encoder's output read by the xattn layers without its
+            # "cross" copy
+            copy = comm.copy_to_group
+
+            def no_cross(x, group, kind):
+                return x if kind == "cross" else copy(x, group, kind)
+            return trap(ENCDEC, "copy_to_group", no_cross,
+                        ("encoder", 0, "slot0", "attn", "wq"))
+
+        def ckpt_1x2(arch):
+            # the arch at 1x2, then launch.train.train on the mesh for 2
+            # steps, the whole state checkpointed at step 2
+            res, mesh, _, host, _ = family_mesh(arch, 1, 2)
+            _, losses = train_mod.train(
+                arch_cfgs[arch], tshape, opt_cfg(), mesh=mesh, steps=2,
+                ckpt_dir=f"{d}/ckpt_{arch}", ckpt_every=2, params=host,
+                log=lambda *a: None)
+            return dict(res, train_losses=losses)
+
+        for arch in (ENCDEC, VLM + "@255"):
+            scenario(functools.partial(ckpt_1x2, arch), f"train_{arch}_1x2")
+
     if world == 4:
         for arch, D, M in (("rwkv6-7b", 2, 2), ("recurrentgemma-2b", 2, 2),
-                           ("qwen3-0.6b", 1, 4)):
+                           ("qwen3-0.6b", 1, 4), (VLM, 2, 2), (ENCDEC, 2, 2),
+                           (ENCDEC + "@258", 1, 4)):
             scenario(lambda arch=arch, D=D, M=M: family_mesh(
                 arch, D, M)[0], f"train_{arch}_{D}x{M}")
 
@@ -1003,12 +1096,64 @@ JAX_MESH_SCRIPT = textwrap.dedent(r'''
     with open(sys.argv[1], "w") as f:
         json.dump(out, f)
 ''')
-# the moe, ssm and hybrid families trained on a mesh (the rank script's
-# family_mesh), each mesh of TRAIN_MESHES; qwen3 at 1x4 beside them
+# the moe, ssm, hybrid, vlm and encdec families trained on a mesh (the
+# rank script's family_mesh), each mesh of TRAIN_MESHES; qwen3 at 1x4
+# beside them; and "<arch>@<V>", the vlm and encdec smoke configs with
+# vocab_size V in both packages, at a mesh whose M does not divide V
+# (255: neither 2 nor 4, internvl2-26b's case; 258: 2 and not 4,
+# seamless-m4t-large-v2's), the vocabulary kept whole on every rank
 PHI = "phi3.5-moe-42b-a6.6b"
-FAMILY_TRAIN = (PHI, "rwkv6-7b", "recurrentgemma-2b")
+VLM, ENCDEC = "internvl2-26b", "seamless-m4t-large-v2"
+FAMILY_TRAIN = (PHI, "rwkv6-7b", "recurrentgemma-2b", VLM, ENCDEC)
+WHOLE_VOCAB = {VLM + "@255": "1x2", ENCDEC + "@258": "1x4"}
 FAMILY_MESHES = [(a, m) for a in FAMILY_TRAIN for m in TRAIN_MESHES] + [
-    ("qwen3-0.6b", "1x4")]
+    ("qwen3-0.6b", "1x4")] + list(WHOLE_VOCAB.items())
+
+
+def _named(name):
+    """(JAX smoke config, port smoke config) of ``"<arch>"`` or
+    ``"<arch>@<V>"`` (vocab_size V in both)."""
+    arch, _, v = name.partition("@")
+    jcfg, tcfg = j_smoke(J_ARCHS[arch]), smoke_config(get_config(arch))
+    if v:
+        jcfg = dataclasses.replace(jcfg, vocab_size=int(v))
+        tcfg = dataclasses.replace(tcfg, vocab_size=int(v))
+    return jcfg, tcfg
+
+
+def _encdec_inputs():
+    """seamless's split greedy decode: 2 rows of 8 token ids over 12
+    stub source frames (D 64), 16 steps; numpy seed 13."""
+    rng = np.random.default_rng(13)
+    cfg = j_smoke(J_ARCHS[ENCDEC])
+    return {"tokens": rng.integers(0, cfg.vocab_size, size=(2, 8))
+            .astype(np.int32),
+            "src": rng.standard_normal((2, 12, cfg.d_model))
+            .astype(np.float32), "steps": np.int64(16)}
+
+
+def _jax_encdec_greedy(params):
+    """JAX ``lm.prefill`` over ``_encdec_inputs`` and greedy
+    ``lm.decode_step``s on its cache, argmax of ``logits_fn``: the tokens
+    (2, steps + 1)."""
+    cfg = j_smoke(J_ARCHS[ENCDEC])
+    v = _encdec_inputs()
+    t, steps = v["tokens"].shape[1], int(v["steps"])
+    cast = jlm.cast_params(params, cfg)
+
+    def pick(h):
+        return jnp.argmax(jlm.logits_fn(cast, cfg, h), -1).astype(jnp.int32)
+
+    h, cache = jlm.prefill(params, cfg, {
+        "tokens": jnp.asarray(v["tokens"]),
+        "src_embeds": jnp.asarray(v["src"])}, t + steps)
+    out = [pick(h)]
+    step = jax.jit(lambda p, tok, c, pos: jlm.decode_step(p, cfg, tok, c,
+                                                           pos))
+    for i in range(steps):
+        h, cache = step(params, out[-1][:, None], cache, jnp.int32(t + i))
+        out.append(pick(h))
+    return np.stack([np.asarray(o) for o in out], 1).tolist()
 
 
 def _jax_train(jparams, arch="qwen3-0.6b"):
@@ -1022,7 +1167,7 @@ def _jax_train(jparams, arch="qwen3-0.6b"):
     from repro_torch.configs.base import ShapeSpec
     from repro_torch.data.pipeline import DataConfig, TokenPipeline
 
-    jcfg, tcfg = j_smoke(J_ARCHS[arch]), smoke_config(get_config(arch))
+    jcfg, tcfg = _named(arch)
     qwen = arch == "qwen3-0.6b"
     pipe = TokenPipeline(DataConfig(vocab_size=tcfg.vocab_size), tcfg,
                          ShapeSpec("t", TRAIN["seq"], TRAIN["batch"],
@@ -1069,6 +1214,7 @@ def runs(tmp_path_factory):
     np.savez(d / "heads.npz", **heads)
     np.savez(d / "psum.npz", **_psum_inputs())
     np.savez(d / "vlm.npz", **_vlm_inputs())
+    np.savez(d / "encdec.npz", **_encdec_inputs())
     (d / "train.json").write_text(json.dumps(
         dict(TRAIN, mask=_train_mask().tolist())))
     (d / "jax_mesh.py").write_text(JAX_MESH_SCRIPT)
@@ -1080,8 +1226,8 @@ def runs(tmp_path_factory):
             os.environ, PYTHONPATH=str(ROOT / "src"), JAX_PLATFORMS="cpu",
             XLA_FLAGS="--xla_force_host_platform_device_count=4"))
     arch_params = {}
-    for arch in MOE_ARCHS + FAMILY_ARCHS:
-        arch_params[arch] = jlm.init_params(j_smoke(J_ARCHS[arch]),
+    for arch in MOE_ARCHS + FAMILY_ARCHS + (ENCDEC,) + tuple(WHOLE_VOCAB):
+        arch_params[arch] = jlm.init_params(_named(arch)[0],
                                             jax.random.PRNGKey(0))
         with open(d / f"{arch}.pkl", "wb") as f:
             pickle.dump(jax.tree.map(np.asarray, arch_params[arch]), f)
@@ -1093,11 +1239,13 @@ def runs(tmp_path_factory):
             "dense": _jax_serve(jparams, kv_layout="dense",
                                 chunk_size=None),
             "preempt": _jax_preempt(jparams), "tie": _jax_tie(jtie),
-            **{a: _jax_arch(a, p) for a, p in arch_params.items()},
+            **{a: _jax_arch(a, arch_params[a])
+               for a in MOE_ARCHS + FAMILY_ARCHS},
+            "encdec_greedy": _jax_encdec_greedy(arch_params[ENCDEC]),
             "vlm_prefix": _jax_vlm_prefix(arch_params["internvl2-26b"]),
             "train": _jax_train(jparams),
             "family_train": {a: _jax_train(arch_params[a], a)
-                             for a in FAMILY_TRAIN}}
+                             for a in FAMILY_TRAIN + tuple(WHOLE_VOCAB)}}
     got = {world: _wait(p, world, d) for world, p in procs.items()}
     try:
         _, err = jmesh.communicate(timeout=RANK_TIMEOUT_S)
@@ -1147,7 +1295,7 @@ def _bridged(arch, seed=1):
 
 
 @pytest.mark.parametrize("world", [2, 4])
-@pytest.mark.parametrize("arch", ("qwen3-0.6b",) + FAMILY_ARCHS)
+@pytest.mark.parametrize("arch", ("qwen3-0.6b",) + FAMILY_ARCHS + (ENCDEC,))
 def test_split_slices_concatenate_to_the_whole(arch, world):
     """shard_params' slices put back together along each rule's axis
     (``SPLIT_AXIS``) are the whole tree: columns (wq; wk, wv by kv head
@@ -1155,8 +1303,10 @@ def test_split_slices_concatenate_to_the_whole(arch, world):
     read; the MLP's in-columns; rwkv6's r/k/v/g, w_r_cm and per-channel
     leaves; the RG-LRU's projections, conv and gates by channel), rows
     (wo, w_out, rwkv6's w_o and w_v_cm), gate blocks (w_a, w_i), the
-    vocabulary (embed, an untied lm_head); every other leaf (norms,
-    rwkv6's mu_* and wA) replicated; every slice contiguous."""
+    vocabulary (embed, an untied lm_head); an encoder's layers and each
+    xattn layer's cross-attention by the same names; every other leaf
+    (norms -- lnx and encoder_norm too --, rwkv6's mu_* and wA)
+    replicated; every slice contiguous."""
     _, tcfg, tree = _bridged(arch)
     hd = tcfg.head_dim
     splits = [sharding.plan(tcfg, r, world) for r in range(world)]
@@ -1179,32 +1329,43 @@ def test_split_slices_concatenate_to_the_whole(arch, world):
         np.testing.assert_array_equal(np.concatenate(mine, axis=axis), whole)
 
 
-@pytest.mark.parametrize("arch", ("qwen3-0.6b",) + FAMILY_ARCHS)
+@pytest.mark.parametrize("arch", ("qwen3-0.6b",) + FAMILY_ARCHS + (ENCDEC,))
 def test_rank_param_count_is_what_shard_params_holds(arch):
     """``rank_param_count`` (the engine's memory check on the card) counts
-    what ``shard_params`` keeps, on every rank at tp 2 and 4 of the smoke
-    tree; and, at full width, what ``shard_leaf`` keeps of each leaf of
-    ``param_shapes`` (zero-stride views, nothing allocated) wherever the
-    config splits: rwkv6-7b at tp 2 / 4, recurrentgemma-2b at tp 2,
-    qwen3-0.6b at tp 2 / 4."""
+    what ``shard_params`` keeps -- an encoder's layers and
+    ``encoder_norm``, each xattn layer's cross-attention and ``lnx``
+    included -- on every rank at tp 2 and 4 of the smoke tree and of its
+    whole-vocabulary training split (V 255 / 258: ``train_plan``); and,
+    at full width, what ``shard_leaf`` keeps of each leaf of
+    ``param_shapes`` (zero-stride views, nothing allocated) on every
+    rank of each model axis the config splits in training: rwkv6-7b,
+    qwen3-0.6b, internvl2-26b and seamless-m4t-large-v2 at 2 / 4 (the
+    last two's vocabulary whole where it does not divide),
+    recurrentgemma-2b at 2."""
     from repro_torch.tree import map_tree
     from repro_torch.weights import param_shapes
 
     _, tcfg, tree = _bridged(arch)
-    for world in (2, 4):
-        for r in range(world):
-            sp = sharding.plan(tcfg, r, world)
-            held = sum(a.size for a in jax.tree.leaves(
-                shard_params(tree, tcfg, sp)))
-            assert sharding.rank_param_count(tcfg, sp) == held, (world, r)
+    named = [(tcfg, tree)]
+    if arch in (VLM, ENCDEC):
+        wcfg = dataclasses.replace(tcfg, vocab_size=255)
+        named.append((wcfg, map_tree(lambda _, s: np.broadcast_to(
+            np.float32(0), s[0]), param_shapes(wcfg))))
+    for cfg, t in named:
+        for world in (2, 4):
+            for r in range(world):
+                sp = sharding.train_plan(cfg, r, 1, world).split
+                held = sum(a.size for a in jax.tree.leaves(
+                    shard_params(t, cfg, sp)))
+                assert sharding.rank_param_count(cfg, sp) == held, (
+                    cfg.vocab_size, world, r)
     full = get_config(arch)
     shapes = map_tree(lambda _, s: np.broadcast_to(np.float32(0), s[0]),
                       param_shapes(full))
-    worlds = {"recurrentgemma-2b": (2,), "internvl2-26b": ()}.get(
-        arch, (2, 4))
+    worlds = {"recurrentgemma-2b": (2,)}.get(arch, (2, 4))
     for world in worlds:
-        for r in (0, world - 1):
-            sp = sharding.plan(full, r, world)
+        for r in range(world):
+            sp = sharding.train_plan(full, r, 1, world).split
             kept = map_tree(lambda path, x: sharding.shard_leaf(
                 path, x, full, sp), shapes)
             held = sum(a.size for a in jax.tree.leaves(kept))
@@ -1217,8 +1378,10 @@ def test_plan_names_why_a_config_does_not_split():
     10 / 4 heads are not whole; internvl2-26b's vocabulary (92,553 = 3 x
     30,851) divides by neither 2 nor 4, so neither package serves it
     under tp (the reference's sharded head, a shard_map over V, refuses
-    it too); rwkv6-7b splits its 64 heads of 64 at tp 2 and 4; the
-    encdec family, which the engine does not serve, is refused."""
+    it too), while training keeps it whole on every rank
+    (``whole_vocab``, the reference's ``param_specs``); rwkv6-7b splits
+    its 64 heads of 64 at tp 2 and 4; the encdec family plans (8 of 16
+    heads a rank at 2, V / 2 ids) and the engine still refuses it."""
     rg = get_config("recurrentgemma-2b")
     sp = sharding.plan(rg, 1, 2)
     assert (sp.q, sp.kv, sp.chan) == ((5, 10), (0, 1), (1280, 2560))
@@ -1235,6 +1398,8 @@ def test_plan_names_why_a_config_does_not_split():
                            rf"divide by the world size {world}: the sharded "
                            "head cuts V into equal slices"):
             sharding.plan(vl, 0, world)
+        sp = sharding.plan(vl, world - 1, world, whole_vocab=True)
+        assert sp.vocab == (0, 92553) and sp.q[1] == 48
     rw = get_config("rwkv6-7b")
     for world in (2, 4):
         sp = sharding.plan(rw, world - 1, world)
@@ -1242,8 +1407,14 @@ def test_plan_names_why_a_config_does_not_split():
         assert sp.chan == (4096 - per, 4096) and sp.q == (64 - 64 // world,
                                                           64)
         assert sharding.local_config(rw, sp).d_ff == 14336 // world
-    with pytest.raises(NotImplementedError, match="encoder-decoder"):
-        sharding.plan(get_config("seamless-m4t-large-v2"), 0, 2)
+    sm = get_config(ENCDEC)
+    sp = sharding.plan(sm, 1, 2)
+    assert (sp.q, sp.kv, sp.ff, sp.vocab) == ((8, 16), (8, 16),
+                                              (4096, 8192), (128103, 256206))
+    with pytest.raises(ValueError, match="encoder-decoder config is not "
+                       "served"):
+        TEngine({}, sharding.local_config(sm, sp), tp=2,
+                group=types.SimpleNamespace(world=2, rank=1))
 
 
 def test_split_keeps_whole_heads_and_copies_kv_heads():
@@ -2117,3 +2288,154 @@ def test_rwkv_1x2_state_reshards_into_2x2_through_restore(runs):
         for path, t in tree_mod.items(back):
             np.testing.assert_array_equal(
                 t.numpy(), live[tree_mod.key(path)], err_msg=str(path))
+
+
+# -- the vlm and encdec families trained on a mesh ---------------------------
+@pytest.mark.parametrize("arch,mesh", [(ENCDEC, "1x2"), (VLM, "2x2"),
+                                       *WHOLE_VOCAB.items()])
+def test_vlm_and_encdec_mesh_step_bytes_by_kind(runs, arch, mesh):
+    """A training step's collective bytes by kind, f32 at smoke size (no
+    remat; ``act`` = a data shard's 64 or 32 rows x 64 x 4 bytes): each
+    dense or ``enc`` layer 4 ``act`` of ``trunk`` (two sums forward, two
+    inputs' gradients backward), an ``xattn`` layer 6 (its
+    cross-attention's pair too), the encoder's output one ``act`` of
+    ``cross`` (its gradient summed once); where the vocabulary is cut
+    the embedding's sum and the head input's gradient (``embed``,
+    ``head``) and the vocabulary-parallel loss's stats and label pick
+    (``loss``); where it is kept whole (V 255 at M 2, 258 at M 4) none
+    of the three: the lookup, head and loss are each rank's whole ones.
+    A copied kv head (seamless@258 at M 4: 2 kv heads) sums each
+    attention's wk / wv gradient over its copy's ranks (``kv``); the
+    global norm one f32 (``norm``); at D 2 every leaf of the rank's slice
+    (``grad``) and the loss's count and value (``loss``)."""
+    jcfg, cfg = _named(arch)
+    D, M = (int(x) for x in mesh.split("x"))
+    whole = cfg.vocab_size % M != 0
+    rows = TRAIN["batch"] // D * TRAIN["seq"]
+    act = rows * cfg.d_model * 4
+    kinds = tlm.layer_types(cfg)
+    n_enc = cfg.n_encoder_layers
+    res = _family_res(runs, arch, mesh)
+    for r, rr in enumerate(res):
+        lo = 0 if whole else r % M * cfg.vocab_size // M
+        assert rr["vocab"] == [lo, cfg.vocab_size if whole
+                               else lo + cfg.vocab_size // M]
+    got = res[0]["step_bytes"]
+    want = {"digest": got.get("digest"), "norm": 4,
+            "trunk": (4 * (n_enc + kinds.count("attn"))
+                      + 6 * kinds.count("xattn")) * act,
+            "cross": act if n_enc else 0}
+    if not whole:
+        want.update(embed=act, head=act, loss=rows * 2 * M * 4 + rows * 4)
+    copies = sharding.kv_copies(cfg, M)
+    if copies is not None:
+        n_attn = n_enc + len(kinds) + kinds.count("xattn")
+        want["kv"] = n_attn * 2 * cfg.d_model * cfg.head_dim * 4
+    if D > 1:
+        split = sharding.train_plan(cfg, 0, D, M).split
+        want["grad"] = sharding.rank_param_count(cfg, split) * 4
+        want["loss"] = want.get("loss", 0) + 4
+    want = {k: v for k, v in want.items() if v}
+    assert got == want, (got, want)
+
+
+def test_whole_head_behind_the_copy_misses_jax(runs):
+    """internvl2@255 at 1x2: the vocabulary, 255 ids, is whole on both
+    ranks, so the head's input gradient is whole on each already.  With
+    ``lm.logits_fn`` swapped for ``lm.local_logits`` (the whole head
+    behind ``comm.copy_to_group``, as a cut vocabulary's is) the copy's
+    backward sums it over the 2 ranks: the final norm's gradient is 2
+    times JAX's and misses it; without the copy (the port) it is JAX's."""
+    got, want, _ = runs
+    name = VLM + "@255"
+    jf = _jax_leaf(want["family_train"][name]["grads"], "final_norm")
+    trap = np.asarray(_ok(got[2][0], "trap_whole_head"), np.float32)
+    scale = np.abs(jf).max()
+    assert np.abs(trap - jf).max() > 0.5 * scale
+    assert np.abs(trap - 2 * jf).max() <= 2 * GRAD_TOL * scale
+    fixed = np.load(want["dir"] / f"grads_{name}_1x2.npz")["final_norm"]
+    assert np.abs(fixed - jf).max() <= GRAD_TOL * scale
+
+
+def test_encoder_output_without_its_cross_copy_misses_jax(runs):
+    """seamless at 1x2: every xattn layer's kv heads read the encoder's
+    output, and each rank's heads give a part of its gradient.  With the
+    ``"cross"`` copy taken out of ``lm._encoder_output`` the encoder's
+    gradients are the rank's part, and the encoder's wq gradient misses
+    JAX's; with it (one all-reduce a step) it is JAX's."""
+    got, want, _ = runs
+    jw = _jax_leaf(want["family_train"][ENCDEC]["grads"], "encoder", 0,
+                   "slot0", "attn", "wq")
+    trap = np.asarray(_ok(got[2][0], "trap_cross"), np.float32)
+    scale = np.abs(jw).max()
+    assert np.abs(trap - jw).max() > 10 * GRAD_TOL * scale
+    fixed = np.load(want["dir"] / f"grads_{ENCDEC}_1x2.npz")[
+        "encoder/0/slot0/attn/wq"]
+    assert np.abs(fixed - jw).max() <= GRAD_TOL * scale
+
+
+@pytest.mark.parametrize("world", [2, 4])
+def test_encdec_split_greedy_decode_matches_unsharded_jax(runs, world):
+    """seamless's smoke config at tp 2 and 4 (f32, bridged weights):
+    ``lm.prefill`` over 12 stub source frames, then 16 greedy
+    ``lm.decode_step``s, each token from the sharded argmax head on the
+    rank's V / tp slice, give the JAX package's unsharded tokens on every
+    rank; each rank's read-only cross cache holds its kv heads (at tp 4
+    a copy of one of the 2), and the serving step moves trunk and head
+    bytes but no ``"cross"`` ones (no gradient)."""
+    got, want, _ = runs
+    cfg = smoke_config(get_config(ENCDEC))
+    per = cfg.vocab_size // world
+    for rank in range(world):
+        res = _ok(got[world][rank], "encdec_greedy")
+        assert res["tokens"] == want["encdec_greedy"], rank
+        assert res["vocab"] == [rank * per, (rank + 1) * per]
+        assert res["xk"] == [cfg.n_layers, 2, 12,
+                             max(cfg.n_kv_heads // world, 1), cfg.head_dim]
+        assert res["bytes"]["trunk"] > 0 and res["bytes"]["head"] > 0
+        assert "cross" not in res["bytes"]
+
+
+@pytest.mark.parametrize("arch", [ENCDEC, VLM + "@255"])
+def test_1x2_state_resumes_at_1x1_and_reads_in_the_jax_package(
+        runs, tmp_path, arch):
+    """seamless's and internvl2@255's whole states written from 1x2 (step
+    2 of ``launch.train.train`` on the mesh, by rank 0: the encoder's and
+    the cross-attention's slices gathered, a cut vocabulary's too; the
+    whole 255-id embedding and head as they are): a 1x1 run of the port
+    resumes from it and its next loss is the 1x2 step's third, and
+    ``repro.checkpoint`` reads it leaf for leaf as the port's restore.
+    ``launch.train.train``'s two losses are its step's."""
+    import shutil
+
+    from repro.checkpoint.manager import CheckpointManager as JManager
+    from repro.launch import steps as jsteps
+    from repro.optim import optimizer as jopt
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.launch import steps as steps_mod
+    from repro_torch.launch import train as train_mod
+    from repro_torch.optim import optimizer as opt_mod
+
+    _, want, _ = runs
+    res = _family_res(runs, arch, "1x2")
+    for r in res:
+        assert r["train_losses"] == r["losses"][:2]
+    ckpt = tmp_path / "ckpt"
+    shutil.copytree(want["dir"] / f"ckpt_{arch}", ckpt)
+    jcfg, tcfg = _named(arch)
+    opt = opt_mod.AdamWConfig(lr=TRAIN["lr"], warmup_steps=TRAIN["warmup"],
+                              total_steps=TRAIN["total"])
+    whole = CheckpointManager(ckpt).restore(
+        2, steps_mod.train_state_struct(tcfg, opt))
+    jstate = JManager(ckpt).restore(2, jsteps.train_state_struct(
+        jcfg, jopt.AdamWConfig()))
+    for (path, a), (_, b) in zip(_named_leaves(jax.tree.map(
+            np.asarray, jstate)), _named_leaves(jax.tree.map(
+                lambda t: t.numpy(), whole))):
+        np.testing.assert_array_equal(a, b, err_msg=str(path))
+    _, losses = train_mod.train(
+        tcfg, ShapeSpec("t", TRAIN["seq"], TRAIN["batch"], "train"), opt,
+        device="cpu", steps=3, ckpt_dir=ckpt, log=lambda *a: None)
+    assert len(losses) == 1
+    assert abs(losses[0] - res[0]["losses"][2]) <= LOSS_TOL

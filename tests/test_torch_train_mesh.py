@@ -198,13 +198,46 @@ def test_split_leaves_gather_back_to_the_whole_tree():
 
 @pytest.mark.parametrize("arch", ["internvl2-26b",
                                   "seamless-m4t-large-v2"])
-def test_train_plan_refuses_another_family_under_a_model_axis(arch):
-    """Under M > 1 the vlm and encdec families do not train yet: each
-    raises naming the ROADMAP entry; at M 1 the plan has no split."""
+def test_train_plan_places_the_vlm_and_encdec_families(arch):
+    """The vlm and encdec families train under a model axis: at 1x2, 2x1,
+    2x2 and 1x4 rank ``r`` of the smoke config sits at data index ``r //
+    M`` and model index ``r % M`` with that model rank's q heads, MLP
+    columns and vocabulary slice (at 4 a copy of one of the 2 kv heads);
+    with vocab_size 255 (internvl2's case: divides by neither 2 nor 4)
+    or 258 (seamless's: by 2, not 4) a model axis that does not divide it
+    keeps ``Split.vocab == (0, V)`` on every rank, the embedding and an
+    untied head whole (``leaf_cut`` None), while serving's ``plan``
+    still refuses it; at full width internvl2-26b's 92,553 ids stay whole
+    at 2 and 4, seamless's 256,206 split at 2 and stay whole at 4."""
     cfg = smoke_config(get_config(arch))
-    with pytest.raises(ValueError, match="ROADMAP.md section 1"):
-        sharding.train_plan(cfg, 0, 1, 2)
-    assert sharding.train_plan(cfg, 1, 2, 1).split is None
+    odd = dataclasses.replace(
+        cfg, vocab_size=255 if arch == "internvl2-26b" else 258)
+    full = get_config(arch)
+    for D, M in ((1, 2), (2, 1), (2, 2), (1, 4)):
+        for r in range(D * M):
+            p = sharding.train_plan(cfg, r, D, M)
+            assert (p.d, p.m) == (r // M, r % M)
+            if M == 1:
+                assert p.split is None
+                continue
+            m, per = r % M, 4 // M
+            assert p.split.q == (per * m, per * (m + 1))
+            assert p.split.ff == (128 // M * m, 128 // M * (m + 1))
+            assert p.split.vocab == (256 // M * m, 256 // M * (m + 1))
+            assert p.split.kv == ((m // 2, m // 2 + 1) if M == 4
+                                  else (m, m + 1))
+            for c in (odd, full):
+                sp = sharding.train_plan(c, r, D, M).split
+                v = c.vocab_size
+                if v % M:
+                    assert sp.vocab == (0, v)
+                    for key in ("embed", "lm_head"):
+                        assert sharding.leaf_cut((key,), c, sp) is None
+                    with pytest.raises(ValueError, match="vocab_size"):
+                        sharding.plan(c, m, M)
+                else:
+                    assert sp.vocab == (v // M * m, v // M * (m + 1))
+    assert sharding.kv_copies(odd, 4) == [[0, 1], [2, 3]]
 
 
 @pytest.mark.parametrize("arch", ["rwkv6-7b", "recurrentgemma-2b",
@@ -274,6 +307,29 @@ def test_pipeline_cuts_the_global_batch_into_data_shards():
             assert torch.equal(part[k], whole[k][2 * d:2 * d + 2])
     with pytest.raises(ValueError, match="does not cut into 3 data"):
         TokenPipeline(dc, QWEN, shape, data=3, d=0)
+
+
+def test_a_data_shard_draws_its_stub_embeddings_afresh():
+    """The vlm and encdec frontends' stub embeddings of a data shard are
+    drawn from its own first row (``data.pipeline._stub_embeds``, a copy
+    of the reference's ``TokenPipeline._stub_embeds``,
+    ``repro/data/pipeline.py:121-135``), not cut from the global batch's:
+    shard 1 of 2 holds the global batch's token rows bit for bit, but
+    other image / frame embeddings than the same rows at data 1 -- so the
+    mesh runs held to a single-device step cut the global batch's rows
+    by hand."""
+    shape = ShapeSpec("t", 16, 4, "train")
+    for arch, key in (("internvl2-26b", "image_embeds"),
+                      ("seamless-m4t-large-v2", "src_embeds")):
+        cfg = smoke_config(get_config(arch))
+        dc = DataConfig(vocab_size=cfg.vocab_size)
+        whole = TokenPipeline(dc, cfg, shape).batch(2)
+        part = TokenPipeline(dc, cfg, shape, data=2, d=1).batch(2)
+        assert torch.equal(part["tokens"], whole["tokens"][2:])
+        assert part[key].shape == whole[key][2:].shape
+        assert not torch.equal(part[key], whole[key][2:])
+        first = TokenPipeline(dc, cfg, shape, data=2, d=0).batch(2)
+        assert torch.equal(first[key], whole[key][:2])
 
 
 def test_factored_second_moment_refuses_a_split_model_axis():
@@ -476,10 +532,12 @@ def test_router_loss_shares_over_a_data_group_are_the_global_one():
 @pytest.mark.parametrize("arch,world", [("phi3.5-moe-42b-a6.6b", 2),
                                         ("rwkv6-7b", 2),
                                         ("recurrentgemma-2b", 2),
-                                        ("qwen3-0.6b", 4)])
+                                        ("qwen3-0.6b", 4),
+                                        ("seamless-m4t-large-v2", 4)])
 def test_family_train_state_gathers_back_to_the_whole(arch, world):
-    """``weights.shard_params`` of a whole train state of the moe, ssm and
-    hybrid families (and qwen3 with its kv heads copied at 4), then
+    """``weights.shard_params`` of a whole train state of the moe, ssm,
+    hybrid and encdec families (qwen3 and seamless with their kv heads
+    copied at 4: a copied cross-attention's wk / wv taken once too), then
     ``sharding.gather_tree`` over a simulated model group, is the whole
     state bit for bit: ``split_axis`` reads the same path rule as
     ``shard_leaf`` (``leaf_cut``) -- a moe expert stack joins along E,
