@@ -348,6 +348,13 @@ Phases, each of which fails the run (non-zero exit, no result line):
      masters served, the comparator's tokens == the softmax baseline's;
      (e) a run resumed from a checkpoint on the card == an uninterrupted
      one.
+  4s. (after 4o, host seconds only, no run on the card) the dry-run
+     (``launch.dryrun.run_cell``, a walk of one rank's step on the
+     ``meta`` device) at 4o's cell: its param and AdamW-state bytes equal
+     4o's train state's exactly, and its predicted bytes a rank over 4o's
+     peak lie within DRYRUN_PEAK_RATIO (else the run fails);
+     ``segment_cost.model_flops`` against the old hand formula, its
+     roofline bound against 4o's ms a step.
   4q. (after 4o, every earlier engine dropped) the vlm family: kernels 1,
      5, 2, 3 and the verify head at internvl2-26b's shapes (paged at B 8,
      T 1 and flash over 768 positions, 48 query heads over 8 KV heads of
@@ -8016,7 +8023,6 @@ TRAIN_WARM = 3               # steps before the timed ones
 # logs loss 12.43 at step 0, 12.95 at step 10, 12.51 at step 19 (the
 # head's cotangent in f32; 12.85 at step 10 with it rounded to bf16)
 TRAIN_LR = 1e-3
-TRAIN_PEAK_PREDICTED_GB = 19.5
 TRAIN_GRAD_ARCHS = ("qwen3-0.6b", "phi3.5-moe-42b-a6.6b",
                     "recurrentgemma-2b", "rwkv6-7b", "internvl2-26b",
                     "seamless-m4t-large-v2")
@@ -8026,6 +8032,11 @@ TRAIN_GRAD_TOL = 1e-3        # a leaf, card vs CPU, f32: of its max |value|
 TRAIN_BF16_RATIO = 2.0
 TRAIN_SERVE = (4, 64, 16)    # prompts, their tokens, new tokens
 TRAIN_RESUME_TOL = 1e-5
+# phase 4s: the dry-run's predicted bytes a rank over 4o's measured peak.
+# The prediction is an upper estimate (at least 1); its ratio read 1.120
+# / 1.122 against the peaks of two runs on the card (18.963 / 18.929 GB),
+# so 1.25 leaves room above them and fails a walk that overcounts
+DRYRUN_PEAK_RATIO = (1.0, 1.25)
 
 
 def check_train_grads(torch) -> dict:
@@ -8321,9 +8332,11 @@ def check_train_kernels(torch, timer) -> dict:
 
 
 def train_step_flops(cfg, b, s) -> float:
-    """Model FLOPs of one training step: 6 N per token for the weights,
-    plus causal attention's score and value products forward (4 hd a
-    visible (query head, key) pair) and backward (twice that)."""
+    """The hand formula phase 4o's model-FLOP share used before the
+    dry-run's ``segment_cost.model_flops`` (printed beside it once): 6 N
+    per token for the weights, plus causal attention's score and value
+    products forward (4 hd a visible (query head, key) pair) and
+    backward (twice that)."""
     from repro_torch.models import lm
 
     attn = 3 * 4 * cfg.head_dim * cfg.n_heads * b * s * (s + 1) // 2
@@ -8412,8 +8425,10 @@ def run_train_path(torch) -> tuple:
     loss and grad_norm finite, the mean of the last 5 losses below the
     first, each step's launches (flash 28 x 2, fused_xent 1, the
     backward's softmax once, on its route), ms a step after TRAIN_WARM
-    steps, tokens/s, the peak memory against TRAIN_PEAK_PREDICTED_GB and
-    the model-FLOP share; one more step profiled (``profile_train_step``).
+    steps, tokens/s, the peak memory, the train state's bytes (phase 4s
+    gates the dry-run's on them) and the model-FLOP share
+    (``segment_cost.model_flops``, the old hand formula once beside it);
+    one more step profiled (``profile_train_step``).
     Then (d): ``LLM`` on the trained masters
     serves 4 prompts x 16 new tokens with the comparator head and with
     the softmax baseline -- equal tokens.  Returns (summary, the
@@ -8422,7 +8437,9 @@ def run_train_path(torch) -> tuple:
     from repro_torch.configs.base import ShapeSpec
     from repro_torch.data.pipeline import DataConfig, TokenPipeline
     from repro_torch.data.pipeline import _hash_tokens
+    from repro_torch import tree as tree_mod
     from repro_torch.kernels import online_softmax as osm
+    from repro_torch.launch import segment_cost
     from repro_torch.launch import steps as steps_mod
     from repro_torch.models import lm
     from repro_torch.optim import optimizer as opt_mod
@@ -8442,13 +8459,17 @@ def run_train_path(torch) -> tuple:
     state = {"params": params, "opt": opt_mod.init_state(opt_cfg, params)}
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
+    state_bytes = {k: sum(t.numel() * t.element_size()
+                          for t in tree_mod.leaves(state[k]))
+                   for k in ("params", "opt")}
     step_fn = steps_mod.make_train_step(cfg, opt_cfg)
     pipe = TokenPipeline(DataConfig(seed=0, vocab_size=cfg.vocab_size), cfg,
                          shape, "cuda")
     route = osm.unit_plan(torch.float32, TRAIN_B * TRAIN_S, cfg.vocab_size,
                           osm.device_resident_blocks(
                               0, torch.float32)).route
-    flops = train_step_flops(cfg, TRAIN_B, TRAIN_S)
+    flops = segment_cost.model_flops(cfg, shape)
+    old_flops = train_step_flops(cfg, TRAIN_B, TRAIN_S)
     curve, norms, times, per_step = [], [], [], []
     reset_launches()
     for i in range(TRAIN_STEPS):
@@ -8475,6 +8496,7 @@ def run_train_path(torch) -> tuple:
     step_ms = 1e3 * sum(times[TRAIN_WARM:]) / (TRAIN_STEPS - TRAIN_WARM)
     tok_s = TRAIN_B * TRAIN_S / (step_ms / 1e3)
     share = flops / BF16_FLOPS_PER_S / (step_ms / 1e3)
+    old_share = old_flops / BF16_FLOPS_PER_S / (step_ms / 1e3)
     last5 = sum(curve[-5:]) / 5
     print(f"phase 4o (b) {TRAIN_ARCH} at full width and depth ("
           f"{cfg.n_layers} layers, {cfg.param_count():,} parameters), bf16,"
@@ -8486,10 +8508,14 @@ def run_train_path(torch) -> tuple:
           flush=True)
     print(f"phase 4o (b) {step_ms:.3f} ms a step (mean of steps "
           f"{TRAIN_WARM}-{TRAIN_STEPS - 1}), {tok_s:.1f} tokens/s; peak "
-          f"memory {peak / 1e9:.3f} GB (predicted "
-          f"{TRAIN_PEAK_PREDICTED_GB} GB); model FLOPs {flops / 1e12:.2f} "
-          f"TFLOP a step, {1e3 * flops / BF16_FLOPS_PER_S:.2f} ms at 989 "
-          f"TFLOP/s: {100 * share:.2f} % of the step; the backward's "
+          f"memory {peak / 1e9:.3f} GB (the dry-run's prediction: phase "
+          f"4s); train state {state_bytes['params']:,} B of masters + "
+          f"{state_bytes['opt']:,} B of AdamW state; model FLOPs "
+          f"(segment_cost.model_flops) {flops / 1e12:.2f} TFLOP a step, "
+          f"{1e3 * flops / BF16_FLOPS_PER_S:.2f} ms at 989 TFLOP/s: "
+          f"{100 * share:.2f} % of the step (the old hand formula's "
+          f"{old_flops / 1e12:.2f} TFLOP: {100 * old_share:.2f} %); the "
+          f"backward's "
           f"softmax route at {TRAIN_B * TRAIN_S} f32 rows: {route}; "
           f"launches a step {per_step[-1]}", flush=True)
     check(last5 < curve[0], f"training did not learn: first loss "
@@ -8530,8 +8556,10 @@ def run_train_path(torch) -> tuple:
                    loss=curve, grad_norm=norms,
                    step_ms_each=[1e3 * t for t in times], step_ms=step_ms,
                    tokens_per_s=tok_s, peak_bytes=peak,
-                   peak_predicted_gb=TRAIN_PEAK_PREDICTED_GB,
+                   state_bytes=state_bytes, opt_cfg=opt_cfg,
                    model_tflop=flops / 1e12, model_flop_share=share,
+                   old_model_tflop=old_flops / 1e12,
+                   old_model_flop_share=old_share,
                    softmax_route=route, launches_per_step=per_step[-1],
                    profile=profiled,
                    serve_equal=same, init_s=init_s)
@@ -8599,6 +8627,68 @@ def run_train_phase(torch) -> tuple:
     summary["phase_s"] = time.perf_counter() - t0
     print(f"phase 4o: {summary['phase_s']:.1f} s", flush=True)
     return summary, rows, launches, serve_launches
+
+
+def run_dryrun_phase(train: dict) -> dict:
+    """Phase 4s (host seconds only, after 4o): the dry-run
+    (``launch.dryrun.run_cell``) on ``meta`` at phase 4o's cell --
+    qwen3-0.6b, bf16, ``remat="dots"``, B 2 x S 4,096, 1x1, 4o's AdamW
+    config -- held to what 4o measured on the card: its param and
+    optimizer bytes equal, exactly, the bytes of the train state 4o
+    held, and the predicted bytes a rank over 4o's
+    ``max_memory_allocated`` lie within DRYRUN_PEAK_RATIO (an upper
+    estimate, not far above; else the run fails); ``model_flops`` beside
+    the old hand formula; the cell's ``t_bound`` against 4o's ms a step
+    (the step's roofline share)."""
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.launch import dryrun
+
+    t0 = time.perf_counter()
+    shape = ShapeSpec("train_4k_b2", TRAIN_S, TRAIN_B, "train")
+    cell = dryrun.run_cell(TRAIN_ARCH, shape, "1x1",
+                           opt_cfg=train["opt_cfg"])
+    mem, want = cell["memory"], train["state_bytes"]
+    total, peak = mem["total"], train["peak_bytes"]
+    mf, old = cell["model_flops"], train["old_model_tflop"] * 1e12
+    t_bound = cell["totals"]["t_bound_s"]
+    print(f"phase 4s dry-run of 4o's cell ({TRAIN_ARCH}, B {TRAIN_B} x S "
+          f"{TRAIN_S}, 1x1, on meta): params {mem['params']:,} B, AdamW "
+          f"state {mem['optimizer']:,} B (4o's train state: "
+          f"{want['params']:,} / {want['opt']:,} B); predicted "
+          f"{total / 1e9:.3f} GB a rank (gradients "
+          f"{mem['gradients'] / 1e9:.3f}, activations "
+          f"{mem['activations'] / 1e9:.3f}) against 4o's peak "
+          f"{peak / 1e9:.3f} GB: ratio {total / peak:.3f}", flush=True)
+    print(f"phase 4s model FLOPs a step: segment_cost.model_flops "
+          f"{mf / 1e12:.3f} TFLOP, the old hand formula {old / 1e12:.3f} "
+          f"TFLOP (gap {100 * (old - mf) / mf:+.2f} %); walked FLOPs "
+          f"{cell['totals']['flops_per_dev'] / 1e12:.3f} TFLOP (useful "
+          f"share {cell['useful_flops_ratio']:.3f})", flush=True)
+    tot = cell["totals"]
+    print(f"phase 4s roofline: t_compute {1e3 * tot['t_compute_s']:.2f} ms, "
+          f"t_memory {1e3 * tot['t_memory_s']:.2f} ms, "
+          f"bound {1e3 * t_bound:.2f} ms ({tot['bottleneck']}) "
+          f"against 4o's {train['step_ms']:.3f} ms a step: roofline share "
+          f"{100 * 1e3 * t_bound / train['step_ms']:.2f} %", flush=True)
+    check(mem["params"] == want["params"]
+          and mem["optimizer"] == want["opt"],
+          f"the dry-run's state bytes {mem['params']} / "
+          f"{mem['optimizer']} differ from 4o's train state "
+          f"{want['params']} / {want['opt']}")
+    lo, hi = DRYRUN_PEAK_RATIO
+    check(lo <= total / peak <= hi,
+          f"the dry-run's predicted {total:,} B a rank over 4o's peak "
+          f"{peak:,} B is {total / peak:.4f}, outside [{lo}, {hi}]")
+    out = dict(params=mem["params"], optimizer=mem["optimizer"],
+               predicted_bytes=total, measured_peak=peak,
+               peak_ratio=total / peak, model_flops=mf, old_flops=old,
+               flop_gap=(old - mf) / mf, t_bound_s=t_bound,
+               step_ms=train["step_ms"],
+               roofline_share=1e3 * t_bound / train["step_ms"],
+               memory=mem, totals=cell["totals"])
+    out["phase_s"] = time.perf_counter() - t0
+    print(f"phase 4s: {out['phase_s']:.1f} s", flush=True)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -9390,6 +9480,10 @@ def main() -> int:
         summary["train"]["attention_backward"] = train_rows[
             "attention_backward"]
         mark("phase 4o")
+        # phase 4s: the dry-run held to what 4o measured (host only)
+        summary["dryrun"] = run_dryrun_phase(summary["train"])
+        summary["train"].pop("opt_cfg")
+        mark("phase 4s")
         # phase 4q: internvl2-26b, on a card every earlier engine left
         gc.collect()
         torch.cuda.empty_cache()

@@ -2,7 +2,11 @@
 
   - CPU tensors run the plain PyTorch version (``ref``);
   - CUDA tensors launch the hand-written kernel, or the call raises --
-    there is no fallback from a kernel to its plain version.
+    there is no fallback from a kernel to its plain version;
+  - ``meta`` tensors (shapes and dtypes, no memory: the dry-run's walk,
+    ``launch.dryrun``) go to ``kernels.meta``, which gives the kernel's
+    outputs and allocates its scratch, and runs no plain version.  Any
+    other device raises.
 
 The JAX package's ``use_pallas``/``interpret`` flags have no counterpart
 here: the device of the operands is the only switch.
@@ -11,7 +15,8 @@ Gradients: ``flash_attention`` and ``softmax_xent`` carry them on both
 devices (an ``autograd.Function`` on the card; plain autograd through
 ``ref`` on the CPU).  Every other entry's kernel has no backward, so on
 the card it raises ``ValueError`` when grad is enabled and an operand
-requires it -- a gradient is never dropped in silence.
+requires it -- a gradient is never dropped in silence.  The meta route
+follows the card's: the same autograd, the same refusals.
 """
 from __future__ import annotations
 
@@ -24,6 +29,7 @@ from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import fused_argmax_head as _fah
 from repro_torch.kernels import fused_topk_head as _ftk
 from repro_torch.kernels import fused_xent as _fx
+from repro_torch.kernels import meta as _meta
 from repro_torch.kernels import online_softmax as _os
 from repro_torch.kernels import paged_attention as _pa
 from repro_torch.kernels import ref
@@ -34,9 +40,10 @@ def _device_type(*tensors: torch.Tensor) -> str:
     if len(types) != 1:
         raise ValueError(f"operands on several devices: {sorted(types)}")
     kind = types.pop()
-    if kind not in ("cpu", "cuda"):
+    if kind not in ("cpu", "cuda", "meta"):
         raise ValueError(f"device type {kind!r}: the port runs on 'cuda', "
-                         "or 'cpu' through the plain versions")
+                         "on 'cpu' through the plain versions, or on "
+                         "'meta' for the dry-run")
     return kind
 
 
@@ -50,9 +57,12 @@ def _no_grad_kernel(name: str, *tensors: torch.Tensor) -> None:
 
 def fused_argmax_head_with_value(h: torch.Tensor, w: torch.Tensor):
     """(argmax_v(h @ w) int32, max_v f32); h (B, D), w (D, V)."""
-    if _device_type(h, w) == "cpu":
+    kind = _device_type(h, w)
+    if kind == "cpu":
         return ref.fused_argmax_head_with_value(h, w)
     _no_grad_kernel("fused_argmax_head", h, w)
+    if kind == "meta":
+        return _meta.fused_argmax_head_with_value(h, w)
     return _fah.fused_argmax_head_with_value(h, w)
 
 
@@ -64,9 +74,12 @@ def fused_argmax_head(h: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 def fused_topk_head(h: torch.Tensor, w: torch.Tensor, k: int):
     """Top-k (vals (B, k) f32, idxs (B, k) int32) of h @ w -- the reduced
     unit's k-winner form; values descending, lower index first on ties."""
-    if _device_type(h, w) == "cpu":
+    kind = _device_type(h, w)
+    if kind == "cpu":
         return ref.fused_topk_head(h, w, k)
     _no_grad_kernel("fused_topk_head", h, w)
+    if kind == "meta":
+        return _meta.fused_topk_head(h, w, k)
     return _ftk.fused_topk_head(h, w, k)
 
 
@@ -78,9 +91,12 @@ def verify_draft(h: torch.Tensor, w: torch.Tensor, cand: torch.Tensor):
     (B, T) int32, accept (B,) int32): the per-position argmax and the
     length of the accepted draft prefix -- greedy emits exactly
     ``ids[b, :accept[b] + 1]`` this step."""
-    if _device_type(h, w, cand) == "cpu":
+    kind = _device_type(h, w, cand)
+    if kind == "cpu":
         return ref.verify_draft(h, w, cand)
     _no_grad_kernel("fused_verify_head", h, w)
+    if kind == "meta":
+        return _meta.fused_verify_head(h, w, cand, False)
     return _fah.fused_verify_head(h, w, cand)
 
 
@@ -89,9 +105,12 @@ def verify_draft_with_value(h: torch.Tensor, w: torch.Tensor,
     """``verify_draft`` plus each position's max logit: (ids (B, T)
     int32, accept (B,) int32, vals (B, T) f32) -- the verify head on a
     vocabulary shard, whose (val, idx) pairs merge across ranks."""
-    if _device_type(h, w, cand) == "cpu":
+    kind = _device_type(h, w, cand)
+    if kind == "cpu":
         return ref.verify_draft_with_value(h, w, cand)
     _no_grad_kernel("fused_verify_head", h, w)
+    if kind == "meta":
+        return _meta.fused_verify_head(h, w, cand, True)
     return _fah.fused_verify_head(h, w, cand, with_value=True)
 
 
@@ -106,11 +125,15 @@ def paged_attention(q, k_pool, v_pool, block_tables, positions, *,
     with a window).  ``attn_approx`` is the score function, one of
     ``core.attn_approx.VARIANTS``.  Returns q's shape and dtype."""
     attn_approx, window = approx.resolve(attn_approx, window)
-    if _device_type(q, k_pool, v_pool, block_tables, positions) == "cpu":
+    kind = _device_type(q, k_pool, v_pool, block_tables, positions)
+    if kind == "cpu":
         return ref.paged_attention(q, k_pool, v_pool, block_tables,
                                    positions, attn_approx=attn_approx,
                                    window=window)
     _no_grad_kernel("paged_attention", q, k_pool, v_pool)
+    if kind == "meta":
+        return _meta.paged_attention(q, k_pool, v_pool, block_tables,
+                                     positions, attn_approx, window)
     return _pa.paged_attention(q, k_pool, v_pool, block_tables, positions,
                                attn_approx=attn_approx, window=window)
 
@@ -174,15 +197,17 @@ def flash_attention_backward(q, k, v, g, *, causal: bool = True,
 
 
 class _FlashAttention(torch.autograd.Function):
-    """Flash attention on the card with a gradient: the forward is the
-    kernel, the backward ``flash_attention_backward`` -- the plain
-    version recomputed from the saved q, k, v, since no kernel is
+    """Flash attention on the card (and on ``meta``) with a gradient: the
+    forward is the kernel, the backward ``flash_attention_backward`` --
+    the plain version recomputed from the saved q, k, v, since no kernel is
     written for it."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window):
         ctx.save_for_backward(q, k, v)
         ctx.causal, ctx.window = causal, window
+        if q.device.type == "meta":
+            return _meta.flash_attention(q, k, v, causal, window)
         return _fa.flash_attention(q, k, v, causal=causal, window=window)
 
     @staticmethod
@@ -195,18 +220,24 @@ class _FlashAttention(torch.autograd.Function):
 def softmax_stats(x: torch.Tensor):
     """(max, sum exp(x - max)) per row of x (B, V), both (B,) f32 -- the
     online-softmax carry, phase 1 of the full softmax unit."""
-    if _device_type(x) == "cpu":
+    kind = _device_type(x)
+    if kind == "cpu":
         return ref.softmax_stats(x)
     _no_grad_kernel("softmax_stats", x)
+    if kind == "meta":
+        return _meta.softmax_stats(x)
     return _os.softmax_stats(x)
 
 
 def online_softmax(x: torch.Tensor) -> torch.Tensor:
     """The full softmax unit (the paper's baseline): stable softmax over
     the last axis, (B, V) -> (B, V) f32."""
-    if _device_type(x) == "cpu":
+    kind = _device_type(x)
+    if kind == "cpu":
         return ref.online_softmax(x)
     _no_grad_kernel("online_softmax", x)
+    if kind == "meta":
+        return _meta.online_softmax(x)
     return _os.online_softmax(x)
 
 
@@ -218,8 +249,11 @@ class _SoftmaxXent(torch.autograd.Function):
     @staticmethod
     def forward(ctx, logits, labels):
         ctx.save_for_backward(logits, labels)
-        if _device_type(logits, labels) == "cpu":
+        kind = _device_type(logits, labels)
+        if kind == "cpu":
             return ref.fused_xent(logits, labels)
+        if kind == "meta":
+            return _meta.fused_xent(logits, labels)
         return _fx.fused_xent(logits, labels)
 
     @staticmethod

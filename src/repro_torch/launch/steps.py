@@ -2,9 +2,16 @@
 (``repro.launch.steps``' training half), on one device or on a (data,
 model) mesh of ranks.
 
-The serve steps and the lowering helpers of the reference are XLA
-tooling: the port's serving steps are ``models.api``'s, and nothing is
-lowered.
+The reference's lowering half has a counterpart for the dry-run
+(``launch.dryrun``), which walks one rank's step on the ``meta`` device
+instead of lowering a program: ``make_prefill_step`` /
+``make_decode_step`` (``models.api``'s serving steps with one head),
+``train_specs`` / ``serve_specs`` (one rank's state, batch and cache on
+``meta`` under ``sharding.train_plan`` / ``sharding.plan``, cut by
+``sharding.shard_leaf``, its rows of the global batch), and
+``serve_structs`` (the whole model's).  Their groups are
+``comm.CountingGroup``s (``counting_mesh``): no process group, the
+collectives' bytes counted.
 
 On a mesh (``TrainMesh``, ``make_mesh``) the reference's pjit over
 ``train_specs`` becomes one process a rank over ``parallel.comm``
@@ -252,8 +259,136 @@ def train_state_struct(cfg: ModelConfig, opt_cfg: opt_mod.AdamWConfig):
     """The train state's tree on the ``meta`` device (shapes and dtypes,
     no memory): the port's ``jax.eval_shape``, the target of
     ``CheckpointManager.restore``."""
-    params = tree_mod.map_tree(
-        lambda _, spec: torch.empty(spec[0], dtype=torch.float32,
-                                    device="meta"),
-        weights.param_shapes(cfg))
+    params = api.params_struct(cfg)
     return {"params": params, "opt": opt_mod.init_state(opt_cfg, params)}
+
+
+# ---------------------------------------------------------------------------
+# The dry-run's half (reference ``launch/steps.py:39-101``): serving steps
+# with one head, and one rank's trees on ``meta``
+# ---------------------------------------------------------------------------
+def make_prefill_step(cfg: ModelConfig, max_len: int,
+                      head_mode: str = "reduced"):
+    """``prefill_step(params, batch) -> (head output, cache)``:
+    ``api.serve_prefill`` of ``batch["tokens"]`` (and a vlm / encdec
+    config's stub embeddings) at ``max_len`` with the ``head_mode``
+    sampler."""
+    from repro_torch.serve.sampler import resolve
+
+    sampler = resolve(head_mode)
+
+    def prefill_step(params, batch):
+        return api.serve_prefill(params, cfg, batch["tokens"], max_len,
+                                 sampler,
+                                 image_embeds=batch.get("image_embeds"),
+                                 src_embeds=batch.get("src_embeds"))
+
+    return prefill_step
+
+
+def make_decode_step(cfg: ModelConfig, head_mode: str = "reduced"):
+    """``decode_step(params, token, cache, pos) -> (head output,
+    cache)``: ``api.serve_decode`` over a dense cache, written in
+    place."""
+    from repro_torch.serve.sampler import resolve
+
+    sampler = resolve(head_mode)
+
+    def decode_step(params, token, cache, pos):
+        return api.serve_decode(params, cfg, token, cache, pos, sampler)
+
+    return decode_step
+
+
+def rank_rows(global_batch: int, data: int, train: bool) -> int:
+    """A data rank's rows: ``global_batch / data``.  A serving batch that
+    does not divide is held whole on every data rank, as the reference's
+    ``batch_axes`` drops the data axis then; training raises."""
+    if global_batch % data == 0:
+        return global_batch // data
+    if train:
+        raise ValueError(f"a global batch of {global_batch} rows does not "
+                         f"divide over a data axis of {data}")
+    return global_batch
+
+
+def counting_mesh(cfg: ModelConfig, data: int = 1, model: int = 1,
+                  rank: int = 0) -> TrainMesh:
+    """Rank ``rank``'s ``TrainMesh`` of ``data x model`` ranks over
+    ``comm.CountingGroup``s (``make_mesh``'s layout, on ``meta``): raises
+    where ``sharding.train_plan`` refuses the config."""
+    plan = sharding.train_plan(cfg, rank, data, model)
+    mgroup = comm.CountingGroup(plan.m, model) if model > 1 else None
+    dgroup = comm.CountingGroup(plan.d, data) if data > 1 else None
+    plan = sharding.train_plan(cfg, rank, data, model, group=mgroup)
+    local = cfg if plan.split is None else sharding.local_config(
+        cfg, plan.split)
+    kv = None
+    for ms in sharding.kv_copies(cfg, model) or ():
+        if plan.m in ms:
+            kv = comm.CountingGroup(ms.index(plan.m), len(ms))
+    return TrainMesh(plan, dgroup, mgroup, cfg, local, torch.device("meta"),
+                     kv)
+
+
+def rank_tree(tree, cfg: ModelConfig, split: Optional[sharding.Split]):
+    """A rank's cut of a whole ``meta`` tree: each leaf a fresh contiguous
+    ``meta`` tensor of ``sharding.shard_leaf``'s shape (as
+    ``weights.shard_params`` makes the rank's leaves contiguous)."""
+    if split is None:
+        return tree
+    return tree_mod.map_tree(
+        lambda path, a: torch.empty(
+            sharding.shard_leaf(path, a, cfg, split).shape, dtype=a.dtype,
+            device="meta"), tree)
+
+
+def train_specs(cfg: ModelConfig, opt_cfg: opt_mod.AdamWConfig, shape,
+                data: int = 1, model: int = 1, rank: int = 0):
+    """(state, batch, mesh) of rank ``rank`` training ``shape`` on a
+    ``data x model`` mesh, on ``meta``: the f32 masters' slice and its
+    AdamW state, the rank's ``global_batch / data`` rows, and its
+    ``counting_mesh`` (``mesh.cfg`` the rank's view)."""
+    mesh = counting_mesh(cfg, data, model, rank)
+    opt_mod.check_split(opt_cfg, mesh.model is not None)
+    params = rank_tree(api.params_struct(cfg), cfg, mesh.split)
+    state = {"params": params, "opt": opt_mod.init_state(opt_cfg, params)}
+    rows = rank_rows(shape.global_batch, data, train=True)
+    return state, api.batch_struct(cfg, shape, rows), mesh
+
+
+def serve_structs(cfg: ModelConfig, shape):
+    """(params, batch, cache) of the whole model serving ``shape`` on
+    ``meta``: the weights in the compute dtype, as serving stores them
+    (``weights.cast_params``: no f32 master copy, reference :78-90), the
+    batch without labels, the dense decode cache (``api.cache_struct``)
+    at ``shape.seq_len``."""
+    params = weights.cast_params(api.params_struct(cfg), cfg)
+    batch = api.batch_struct(cfg, shape)
+    batch.pop("labels", None)
+    cache = api.cache_struct(cfg, shape.global_batch, shape.seq_len)
+    return params, batch, cache
+
+
+def serve_specs(cfg: ModelConfig, shape, data: int = 1, model: int = 1,
+                rank: int = 0):
+    """((params, batch, cache), local cfg) of rank ``rank`` serving
+    ``shape`` on a ``data x model`` mesh, on ``meta``: the model axis a
+    tensor-parallel group (``sharding.plan``, which raises where the
+    heads, widths, experts or vocabulary do not divide; the rank's
+    ``CountingGroup`` on its split), the data axis replicas, each on
+    ``rank_rows`` of the batch; the cache at the rank's kv heads and
+    recurrent channels."""
+    local, split = cfg, None
+    if model > 1:
+        m = rank % model
+        split = sharding.plan(cfg, m, model,
+                              group=comm.CountingGroup(m, model))
+        local = sharding.local_config(cfg, split)
+    params = weights.cast_params(
+        rank_tree(api.params_struct(cfg), cfg, split), cfg)
+    rows = rank_rows(shape.global_batch, data, train=False)
+    batch = api.batch_struct(cfg, shape, rows)
+    batch.pop("labels", None)
+    cache = api.cache_struct(local, rows, shape.seq_len)
+    return (params, batch, cache), local

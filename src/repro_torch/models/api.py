@@ -2,7 +2,9 @@
 prefill (dense or paged), the decode step and the device-resident
 multi-step decode, each ending in a sampler head.
 
-Counterpart of ``repro.models.api``.  ``sampler`` is a
+Counterpart of ``repro.models.api``, whose input structs
+(``batch_struct``, ``cache_struct``, ``params_struct``) are trees on the
+``meta`` device here.  ``sampler`` is a
 ``repro_torch.serve.sampler.Sampler`` (its ``head`` turns the final
 hidden state into what the host needs, its ``sample_device`` into the
 next token).
@@ -15,6 +17,8 @@ from typing import Optional, Sequence
 import torch
 
 from repro_torch import prng
+from repro_torch import tree as tree_mod
+from repro_torch import weights
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.models import lm
@@ -56,7 +60,11 @@ class _VocabParallelXent(torch.autograd.Function):
     (the softmax kernel, ``exp(x - m') / l'`` of its own stats) times the
     per-row factor ``l_r * exp(m_r - lse)``, 1 taken off at a local
     label, then scaled by the row's ``g`` in place, as
-    ``ops._SoftmaxXent.backward``; no collective."""
+    ``ops._SoftmaxXent.backward``; no collective.  The label's 1 comes off
+    in static shapes: every row takes off ``mine`` (1 or 0) at its
+    clamped local column, and ``p - 0`` is ``p`` -- the same numbers as
+    picking the rows that hold their label, with no host sync, so the
+    step runs on ``meta`` too."""
 
     @staticmethod
     def forward(ctx, x, labels, group, lo):
@@ -77,8 +85,8 @@ class _VocabParallelXent(torch.autograd.Function):
         x, local, mine, m_r, l_r, lse = ctx.saved_tensors
         p = ops.online_softmax(x)
         p.mul_((l_r * torch.exp(m_r - lse))[:, None])
-        rows = torch.nonzero(mine).reshape(-1)
-        p[rows, local[rows]] -= 1
+        rows = torch.arange(x.shape[0], device=x.device)
+        p[rows, local.clamp(0, x.shape[1] - 1)] -= mine.to(p.dtype)
         p.mul_(g[:, None])
         return p.to(x.dtype), None, None, None
 
@@ -163,26 +171,39 @@ def train_loss(params: dict, cfg: ModelConfig, batch: dict, *,
     h, aux = lm.hidden(cast, cfg, batch["tokens"],
                        image_embeds=batch.get("image_embeds"),
                        src_embeds=batch.get("src_embeds"), data=data)
-    sh = cfg.shard
-    if sh is not None and sh.trunk and sharding.vocab_cut(cfg):
-        logits, split = lm.local_logits(cast, cfg, h), sh
-    else:
-        logits, split = lm.logits_fn(cast, cfg, h), None
-    loss = xent_loss(logits, batch["labels"], batch.get("loss_mask"),
-                     split=split, data=data)
+    loss = head_loss(cast, cfg, h, batch, data=data)
     if cfg.moe is not None:
         loss = loss + cfg.moe.router_aux_weight * aux
     return loss
 
 
+def head_loss(params: dict, cfg: ModelConfig, h: torch.Tensor, batch: dict,
+              *, data=None) -> torch.Tensor:
+    """``train_loss``'s head and cross-entropy over the final-normed
+    hidden states h (B, S, D), ``params`` cast: the rank's logits slice
+    through the vocabulary-parallel loss where the split cuts the
+    vocabulary, else the whole head and ``xent_loss``."""
+    sh = cfg.shard
+    if sh is not None and sh.trunk and sharding.vocab_cut(cfg):
+        logits, split = lm.local_logits(params, cfg, h), sh
+    else:
+        logits, split = lm.logits_fn(params, cfg, h), None
+    return xent_loss(logits, batch["labels"], batch.get("loss_mask"),
+                     split=split, data=data)
+
+
 def serve_prefill(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
-                  max_len: int, sampler):
+                  max_len: int, sampler, *,
+                  image_embeds: Optional[torch.Tensor] = None,
+                  src_embeds: Optional[torch.Tensor] = None):
     """Prompt pass for a dense store: returns (head output, cache), the
     cache ``lm.prefill``'s tree (K/V zero-padded past the prompt to
     ``max_len``, or a windowed layer's ring buffer; a ``rec`` layer's
     state); the engine copies a B = 1 cache into its slot's row
-    (``PagedKVStore.admit``)."""
-    h, cache = lm.prefill(params, cfg, tokens, max_len)
+    (``PagedKVStore.admit``).  ``image_embeds`` / ``src_embeds``: the
+    stub frontends' inputs of a vlm / encdec config (``lm.prefill``)."""
+    h, cache = lm.prefill(params, cfg, tokens, max_len,
+                          image_embeds=image_embeds, src_embeds=src_embeds)
     return sampler.head(params, cfg, h), cache
 
 
@@ -343,3 +364,46 @@ def serve_decode_multi(params: dict, cfg: ModelConfig, token: torch.Tensor,
                           samplers=samplers, block_tables=block_tables,
                           cache_rows=cache_rows, layers=layers)
     return c.out, c.emitted, c.keys, int(c.step)
+
+
+# ---------------------------------------------------------------------------
+# Input structs on the ``meta`` device (shapes and dtypes, no memory)
+# ---------------------------------------------------------------------------
+def batch_struct(cfg: ModelConfig, shape, rows: Optional[int] = None) -> dict:
+    """The batch of ``shape`` (a ``ShapeSpec``; train or prefill) on
+    ``meta``, ``rows`` of it (default the global batch): ``tokens`` (B,
+    S) int32, the stub frontends' ``src_embeds`` (B, S, D) of an encdec
+    config or ``image_embeds`` (B, n, D) of a vlm one in the compute
+    dtype, and ``labels`` (B, S) int32 for training (reference
+    ``batch_struct``)."""
+    b = shape.global_batch if rows is None else rows
+    s, dt = shape.seq_len, getattr(torch, cfg.dtype)
+    out = {"tokens": torch.empty((b, s), dtype=torch.int32, device="meta")}
+    if cfg.n_encoder_layers:
+        out["src_embeds"] = torch.empty((b, s, cfg.d_model), dtype=dt,
+                                        device="meta")
+    elif cfg.num_image_tokens:
+        out["image_embeds"] = torch.empty((b, cfg.num_image_tokens,
+                                           cfg.d_model), dtype=dt,
+                                          device="meta")
+    if shape.kind == "train":
+        out["labels"] = torch.empty((b, s), dtype=torch.int32,
+                                    device="meta")
+    return out
+
+
+def cache_struct(cfg: ModelConfig, batch_size: int, max_len: int) -> list:
+    """The dense decode cache on ``meta`` (``lm.init_cache``), an encdec
+    config's cross K/V over a source of ``max_len`` positions (reference
+    ``cache_struct``)."""
+    return lm.init_cache(cfg, batch_size, max_len, "meta",
+                         max_len if cfg.n_encoder_layers else None)
+
+
+def params_struct(cfg: ModelConfig) -> dict:
+    """The f32 masters' tree on ``meta`` (``weights.param_shapes``):
+    the reference's ``eval_shape`` of ``init_params``."""
+    return tree_mod.map_tree(
+        lambda _, spec: torch.empty(spec[0], dtype=torch.float32,
+                                    device="meta"),
+        weights.param_shapes(cfg))

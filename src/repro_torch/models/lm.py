@@ -121,7 +121,7 @@ def layer_types(cfg: ModelConfig) -> list:
     return out
 
 
-def _trunk_group(cfg: ModelConfig):
+def trunk_group(cfg: ModelConfig):
     """The group a split trunk all-reduces over, or None."""
     sh = cfg.shard
     return sh.group if sh is not None and sh.trunk else None
@@ -148,7 +148,7 @@ def embed_tokens(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
     vocabulary kept whole on every rank (``sharding.vocab_cut`` false)
     is looked up as it is, with no sum: summed, the rows would count
     ``world`` times too."""
-    group = _trunk_group(cfg)
+    group = trunk_group(cfg)
     if group is None or not sharding.vocab_cut(cfg):
         x = params["embed"][tokens]
     else:
@@ -228,7 +228,7 @@ def local_logits(params: dict, cfg: ModelConfig,
     whole one's head is ``logits_fn``'s, whose input gradient is already
     whole on every rank (behind the copy it would count ``world``
     times)."""
-    x = comm.copy_to_group(x.reshape(-1, x.shape[-1]), _trunk_group(cfg),
+    x = comm.copy_to_group(x.reshape(-1, x.shape[-1]), trunk_group(cfg),
                            "head")
     return _HeadMatmul.apply(x, lm_head_weight(params, cfg))
 
@@ -260,11 +260,14 @@ def _stack_layers(stack: list, segs: list) -> list:
             for seg, (unit, count) in zip(stack, segs)]
 
 
-def layer_params(params: dict, cfg: ModelConfig) -> list:
-    """Every layer's param views, ``[segment][layer][slot]``: built once
+def layer_params(params: dict, cfg: ModelConfig,
+                 stack: str = "decoder") -> list:
+    """Every layer's param views, ``[segment][layer][slot]``, of the
+    decoder's stack (or the encoder's, ``stack="encoder"``): built once
     by a caller that runs many passes over one param tree (the serving
     engine), so a pass indexes no stacked leaf."""
-    return _stack_layers(params["decoder"], segments(cfg))
+    segs = segments(cfg) if stack == "decoder" else encoder_segments(cfg)
+    return _stack_layers(params[stack], segs)
 
 
 def _apply_layer(p: dict, x: torch.Tensor, cfg: ModelConfig, kind: str, *,
@@ -461,7 +464,7 @@ def _unit(slots: list, unit: tuple, x: torch.Tensor, cfg: ModelConfig,
     return x, aux
 
 
-def _run_units(stack_layers: list, segs: list, x: torch.Tensor,
+def run_units(stack_layers: list, segs: list, x: torch.Tensor,
                cfg: ModelConfig, consts, group, cross=None, data=None):
     """Every unit of a block program over x, each under
     ``torch.utils.checkpoint`` when ``cfg.remat`` asks and grad is on:
@@ -484,33 +487,44 @@ def _run_units(stack_layers: list, segs: list, x: torch.Tensor,
 def encode(params: dict, cfg: ModelConfig,
            src_embeds: torch.Tensor) -> torch.Tensor:
     """The encoder stack over the stub frontend's embeddings (B, S_src, D)
-    (cast to the compute dtype): bidirectional self-attention at the
-    source positions 0..S_src-1 (their own RoPE table), then
-    ``encoder_norm`` (reference ``encode``).  Under a split trunk each
-    ``enc`` layer takes the pair around its self-attention and MLP, as a
-    dense layer does."""
+    (``encoder_input``): bidirectional self-attention at the source
+    positions 0..S_src-1 (their own RoPE table), then ``encoder_output``
+    (reference ``encode``).  Under a split trunk each ``enc`` layer takes
+    the pair around its self-attention and MLP, as a dense layer does."""
+    x, consts = encoder_input(cfg, src_embeds)
+    x, _ = run_units(layer_params(params, cfg, "encoder"),
+                     encoder_segments(cfg), x, cfg, consts, trunk_group(cfg))
+    return encoder_output(params, cfg, x)
+
+
+def encoder_input(cfg: ModelConfig, src_embeds: torch.Tensor):
+    """``encode``'s input: (``src_embeds`` cast to the compute dtype, the
+    step constants of the source positions)."""
     x = src_embeds.to(dtype_of(cfg))
-    consts = step_constants(cfg, torch.arange(x.shape[1], device=x.device))
-    x, _ = _run_units(_stack_layers(params["encoder"], encoder_segments(cfg)),
-                      encoder_segments(cfg), x, cfg, consts,
-                      _trunk_group(cfg))
-    return rms_norm(x, params["encoder_norm"], cfg.norm_eps)
+    return x, step_constants(cfg, torch.arange(x.shape[1], device=x.device))
+
+
+def encoder_output(params: dict, cfg: ModelConfig,
+                   x: torch.Tensor) -> torch.Tensor:
+    """``encode``'s end: ``encoder_norm`` over the encoder stack's output
+    x.  Under a split trunk it goes through ``comm.copy_to_group`` (kind
+    ``"cross"``) once, before every ``xattn`` layer's ``wk`` / ``wv`` read
+    it: each rank's kv heads give a part of its gradient, one all-reduce
+    of (B, S_src, D) a step sums them."""
+    return comm.copy_to_group(rms_norm(x, params["encoder_norm"],
+                                       cfg.norm_eps), trunk_group(cfg),
+                              "cross")
 
 
 def _encoder_output(params: dict, cfg: ModelConfig,
                     src_embeds: Optional[torch.Tensor]):
-    """``encode`` of ``src_embeds`` for an ``encdec`` config, else None.
-    Under a split trunk the output goes through ``comm.copy_to_group``
-    (kind ``"cross"``) once, before every ``xattn`` layer's ``wk`` /
-    ``wv`` read it: each rank's kv heads give a part of its gradient, one
-    all-reduce of (B, S_src, D) a step sums them."""
+    """``encode`` of ``src_embeds`` for an ``encdec`` config, else None."""
     if not cfg.n_encoder_layers:
         return None
     if src_embeds is None:
         raise ValueError(f"{cfg.name}: an encoder-decoder config needs "
                          "src_embeds (B, S_src, D)")
-    return comm.copy_to_group(encode(params, cfg, src_embeds),
-                              _trunk_group(cfg), "cross")
+    return encode(params, cfg, src_embeds)
 
 
 def _cross_kv(p: dict, enc_out: torch.Tensor, cfg: ModelConfig):
@@ -553,6 +567,16 @@ def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor, *,
     return logits_fn(params, cfg, h), total
 
 
+def embed_step(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
+               image_embeds: Optional[torch.Tensor] = None):
+    """A forward's or a prefill's input over ``tokens`` (B, S): (the
+    token embeddings, a vlm config's image prefix in place
+    (``embed_tokens``), the step constants of positions 0..S-1)."""
+    x = embed_tokens(params, cfg, tokens, image_embeds)
+    return x, step_constants(cfg, torch.arange(tokens.shape[1],
+                                               device=tokens.device))
+
+
 def hidden(params: dict, cfg: ModelConfig, tokens: torch.Tensor, *,
            image_embeds: Optional[torch.Tensor] = None,
            src_embeds: Optional[torch.Tensor] = None, data=None):
@@ -560,11 +584,9 @@ def hidden(params: dict, cfg: ModelConfig, tokens: torch.Tensor, *,
     D), the f32 sum of the router losses; ``data``, a training rank's
     data group, makes each its share over the global means)."""
     enc_out = _encoder_output(params, cfg, src_embeds)
-    S = tokens.shape[1]
-    x = embed_tokens(params, cfg, tokens, image_embeds)
-    consts = step_constants(cfg, torch.arange(S, device=tokens.device))
-    x, total = _run_units(layer_params(params, cfg), segments(cfg), x, cfg,
-                          consts, _trunk_group(cfg), enc_out, data)
+    x, consts = embed_step(params, cfg, tokens, image_embeds)
+    x, total = run_units(layer_params(params, cfg), segments(cfg), x, cfg,
+                          consts, trunk_group(cfg), enc_out, data)
     return final_hidden(params, cfg, x), total
 
 
@@ -577,27 +599,37 @@ def prefill(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
     the prompt, each ``xattn`` layer's cross K/V over the encoder's output
     of ``src_embeds`` (computed once here; a decode step only reads it).
     ``image_embeds`` as in ``forward``."""
-    B, S = tokens.shape
+    B = tokens.shape[0]
     enc_out = _encoder_output(params, cfg, src_embeds)
-    x = embed_tokens(params, cfg, tokens, image_embeds)
-    consts = step_constants(cfg, torch.arange(S, device=tokens.device))
+    x, consts = embed_step(params, cfg, tokens, image_embeds)
     caches = init_cache(cfg, B, max_len, tokens.device,
                         None if enc_out is None else enc_out.shape[1])
-    group = _trunk_group(cfg)
+    group = trunk_group(cfg)
     for p, (s, l, slot), kind in _layers(params, cfg, None):
-        x, extra, _ = _apply_layer(p, x, cfg, kind, consts=consts,
-                                   group=group, cross=enc_out)
-        leaf = caches[s][slot]
-        if kind in ("rec", "rwkv"):
-            state = leaf["rec"] if kind == "rec" else leaf
-            for name, t in state.items():
-                t[l] = extra[name]
-            continue
-        _store_kv(leaf["attn"], l, *extra, cfg)
-        if kind == "xattn":
-            leaf["xk"][l], leaf["xv"][l] = _cross_kv(p, enc_out, cfg)
+        x = prefill_layer(p, x, cfg, kind, consts, group, enc_out,
+                          caches[s][slot], l)
     h = final_hidden(params, cfg, x[:, -1:, :])[:, 0, :]
     return h, caches
+
+
+def prefill_layer(p: dict, x: torch.Tensor, cfg: ModelConfig, kind: str,
+                  consts, group, enc_out: Optional[torch.Tensor],
+                  leaf: dict, l: int) -> torch.Tensor:
+    """One layer of ``prefill``: the layer over x, then what it leaves
+    written into layer ``l`` of its slot's cache ``leaf`` -- a recurrent
+    layer's state, or the K/V (``_store_kv``) and an ``xattn`` layer's
+    cross K/V."""
+    x, extra, _ = _apply_layer(p, x, cfg, kind, consts=consts, group=group,
+                               cross=enc_out)
+    if kind in ("rec", "rwkv"):
+        state = leaf["rec"] if kind == "rec" else leaf
+        for name, t in state.items():
+            t[l] = extra[name]
+        return x
+    _store_kv(leaf["attn"], l, *extra, cfg)
+    if kind == "xattn":
+        leaf["xk"][l], leaf["xv"][l] = _cross_kv(p, enc_out, cfg)
+    return x
 
 
 def _first_kv(caches: list, cfg: ModelConfig) -> Optional[torch.Tensor]:
@@ -609,6 +641,54 @@ def _first_kv(caches: list, cfg: ModelConfig) -> Optional[torch.Tensor]:
             if kind in KV_KINDS:
                 return seg[f"slot{j}"]["attn"]["k"]
     return None
+
+
+def decode_constants(cfg: ModelConfig, caches: list, pos: torch.Tensor,
+                     T: int, *, block_tables: Optional[torch.Tensor] = None,
+                     cache_rows: Optional[torch.Tensor] = None):
+    """The ``layers.step_constants`` of a decode step of T queries a row
+    from ``pos`` over ``caches`` (see ``decode_step``)."""
+    if pos.dim() == 2:
+        positions = pos                                   # (B, T)
+    elif pos.dim() == 1:
+        positions = pos[:, None] + torch.arange(T, device=pos.device)
+    elif pos.dim() == 0:
+        positions = pos + torch.arange(T, device=pos.device)   # (T,)
+    else:
+        raise ValueError(f"pos must be a scalar, (B,) or (B, T); got "
+                         f"{tuple(pos.shape)}")
+    leaf = _first_kv(caches, cfg)
+    if leaf is None:
+        # no attention layer: no RoPE table, no cache cells, only the rows
+        return StepConstants(None, None, rows=cache_rows)
+    if block_tables is not None:
+        return step_constants(cfg, positions, cache_pos=pos,
+                              block_tables=block_tables,
+                              block_size=leaf.shape[2])
+    return step_constants(cfg, positions, cache_pos=pos,
+                          cache_len=leaf.shape[2], rows=cache_rows,
+                          window=cfg.attention_window)
+
+
+def decode_layer(p: dict, x: torch.Tensor, cfg: ModelConfig, kind: str,
+                 consts, group, leaf: dict, l: int,
+                 cache_rows: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """One layer of ``decode_step`` over layer ``l`` of its slot's cache
+    ``leaf``, written in place; an ``xattn`` layer reads its slot's
+    ``xk`` / ``xv``."""
+    cross = None
+    if kind == "xattn":
+        if "xk" not in leaf:
+            raise ValueError("an xattn layer's decode step needs the "
+                             "prefill's cross K/V (xk / xv)")
+        cross = {"k": leaf["xk"][l], "v": leaf["xv"][l]}
+        if cache_rows is not None:
+            cross = {name: t[cache_rows] for name, t in cross.items()}
+    if kind != "rwkv":
+        leaf = leaf["rec" if kind == "rec" else "attn"]
+    x, _, _ = _apply_layer(p, x, cfg, kind, consts=consts, cache={
+        name: t[l] for name, t in leaf.items()}, group=group, cross=cross)
+    return x
 
 
 def decode_step(params: dict, cfg: ModelConfig, token: torch.Tensor,
@@ -633,44 +713,13 @@ def decode_step(params: dict, cfg: ModelConfig, token: torch.Tensor,
     Returns (h, caches): h is (B, D) for T == 1 and (B, T, D)
     otherwise."""
     T = token.shape[1]
-    if pos.dim() == 2:
-        positions = pos                                   # (B, T)
-    elif pos.dim() == 1:
-        positions = pos[:, None] + torch.arange(T, device=pos.device)
-    elif pos.dim() == 0:
-        positions = pos + torch.arange(T, device=pos.device)   # (T,)
-    else:
-        raise ValueError(f"pos must be a scalar, (B,) or (B, T); got "
-                         f"{tuple(pos.shape)}")
-    leaf = _first_kv(caches, cfg)
-    if leaf is None:
-        # no attention layer: no RoPE table, no cache cells, only the rows
-        consts = StepConstants(None, None, rows=cache_rows)
-    elif block_tables is not None:
-        consts = step_constants(cfg, positions, cache_pos=pos,
-                                block_tables=block_tables,
-                                block_size=leaf.shape[2])
-    else:
-        consts = step_constants(cfg, positions, cache_pos=pos,
-                                cache_len=leaf.shape[2], rows=cache_rows,
-                                window=cfg.attention_window)
+    consts = decode_constants(cfg, caches, pos, T, block_tables=block_tables,
+                              cache_rows=cache_rows)
     x = embed_tokens(params, cfg, token)
-    group = _trunk_group(cfg)
+    group = trunk_group(cfg)
     for p, (s, l, slot), kind in _layers(params, cfg, layers):
-        leaf = caches[s][slot]
-        cross = None
-        if kind == "xattn":
-            if "xk" not in leaf:
-                raise ValueError("an xattn layer's decode step needs the "
-                                 "prefill's cross K/V (xk / xv)")
-            cross = {"k": leaf["xk"][l], "v": leaf["xv"][l]}
-            if cache_rows is not None:
-                cross = {name: t[cache_rows] for name, t in cross.items()}
-        if kind != "rwkv":
-            leaf = leaf["rec" if kind == "rec" else "attn"]
-        x, _, _ = _apply_layer(p, x, cfg, kind, consts=consts, cache={
-            name: t[l] for name, t in leaf.items()}, group=group,
-            cross=cross)
+        x = decode_layer(p, x, cfg, kind, consts, group, caches[s][slot], l,
+                         cache_rows)
     if T == 1:
         return final_hidden(params, cfg, x[:, 0, :]), caches
     return final_hidden(params, cfg, x), caches

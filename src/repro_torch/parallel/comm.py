@@ -31,6 +31,11 @@ ranks, ``split_strided(M)`` gives its data groups, rank ``r``'s being
 any sets (a mesh's ranks holding one copy of a kv head).  Every
 collective of a group waits at most its ``timeout_s``.
 
+``CountingGroup`` is a group with no process behind it, for the
+dry-run's walk of one rank on the ``meta`` device: its collectives
+return tensors of the right shapes and count their bytes as a
+``Group``'s do.
+
 Under autograd a collective needs its own derivative.  The Megatron pair
 (``copy_to_group``, ``reduce_from_group``) is two
 ``torch.autograd.Function``s: ``copy_to_group`` is the identity forward
@@ -303,6 +308,42 @@ class Group:
     def __repr__(self) -> str:
         return (f"Group(rank={self.rank}, world={self.world}, "
                 f"device={self.device}, backend={self.backend!r})")
+
+
+class CountingGroup(Group):
+    """A ``Group`` stand-in for the dry-run's walk on ``meta``
+    (``launch.dryrun``): rank ``rank`` of ``world`` with no process group
+    behind it.  ``all_gather`` returns a ``meta`` tensor of the stacked
+    shape, ``all_reduce_sum`` and ``broadcast`` return their ``x``,
+    ``send`` sends nothing and ``recv`` returns its ``x``; each adds to
+    ``bytes`` by kind exactly what ``Group``'s does, so a rank's real
+    step code runs over it -- the vocabulary-parallel loss and expert
+    parallelism included -- and leaves the traffic its groups would
+    carry.  Anything that needs other ranks' values (``agree``,
+    ``broadcast_object``, ``split``) is not overridden and fails."""
+
+    def __init__(self, rank: int, world: int):
+        super().__init__(rank, world, torch.device("meta"), "counting",
+                         None)
+
+    def all_gather(self, x: torch.Tensor, kind: str) -> torch.Tensor:
+        out = x.new_empty((self.world, *x.shape))
+        self._count(kind, out.numel() * out.element_size())
+        return out
+
+    def all_reduce_sum(self, x: torch.Tensor, kind: str) -> torch.Tensor:
+        self._count(kind, x.numel() * x.element_size())
+        return x
+
+    def broadcast(self, x: torch.Tensor, src: int, kind: str) -> torch.Tensor:
+        self._count(kind, x.numel() * x.element_size())
+        return x
+
+    def send(self, x: torch.Tensor, dst: int, kind: str) -> None:
+        self._count(kind, x.numel() * x.element_size())
+
+    def recv(self, x: torch.Tensor, src: int) -> torch.Tensor:
+        return x
 
 
 def mesh_groups(group: Group, data: int, model: int):

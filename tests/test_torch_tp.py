@@ -2017,6 +2017,32 @@ def test_mesh_groups_rows_and_step_bytes(runs):
         assert got == want, (mesh, got, want)
 
 
+@pytest.mark.parametrize("arch,mesh", [("qwen3-0.6b", m)
+                                       for m in TRAIN_MESHES] + [
+    (a, m) for a, m in FAMILY_MESHES if a != "qwen3-0.6b"] + [
+    ("qwen3-0.6b@1x4", "1x4")])
+def test_dryrun_walk_counts_the_mesh_step_bytes(runs, arch, mesh):
+    """The dry-run's walk of rank 0's training step on the ``meta``
+    device over counting groups (``launch.segment_cost.train_step_walk``:
+    ``loss_and_grads`` and the AdamW update, in this process) counts,
+    kind by kind, exactly the collective bytes rank 0's last gloo step
+    recorded (its digest aside: the walk leaves the step's host checks
+    out)."""
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.launch import segment_cost
+    from repro_torch.optim import optimizer as opt_mod
+
+    name = arch.partition("@1x4")[0]
+    D, M = (int(x) for x in mesh.split("x"))
+    res = (_mesh_res(runs, mesh) if name == arch == "qwen3-0.6b"
+           else _family_res(runs, name, mesh))
+    got = {k: n for k, n in res[0]["step_bytes"].items() if k != "digest"}
+    shape = ShapeSpec("t", TRAIN["seq"], TRAIN["batch"], "train")
+    walked, _ = segment_cost.train_step_walk(
+        _named(name)[1], opt_mod.AdamWConfig(), shape, D, M)
+    assert walked.coll_breakdown == got
+
+
 def test_mesh_2x2_losses_match_the_reference_on_its_own_2x2_mesh(runs):
     """``repro.launch.train.train`` on a ``(2, 2)`` mesh of four forced
     host devices (its pjit over ``train_specs``): its three losses are
