@@ -237,9 +237,12 @@ Phases, each of which fails the run (non-zero exit, no result line):
      ``lm.decode_step``s, the head on each rank's V / 2 slice (the
      unsharded run's tokens on the card, near-tie rule).  Then training
      on a (data, model) mesh (``launch.steps.make_mesh``), MESH_MODELS at
-     full width, B 4 x S 1,024, lr 1e-3, 2 steps: qwen3-0.6b (4 of 28
-     layers) and phi3.5-moe (1 of 32: expert parallelism, the router
-     loss over the data group) at 1x2, 2x1 and 2x2, rwkv6-7b (2 of 32)
+     full width, B 4 x S 1,024, lr 1e-3, 2 steps, FSDP at D 2 (each
+     rank holds 1/D of every leaf the reference cuts over data, gathers
+     a unit's weights in the unit and reduce-scatters their gradients):
+     qwen3-0.6b (4 of 28 layers) and phi3.5-moe (1 of 32: expert
+     parallelism, the router loss over the data group) at 1x2, 2x1 and
+     2x2, rwkv6-7b (2 of 32)
      and recurrentgemma-2b (3 of 26, its kv head copied) at 1x2,
      internvl2-26b (1 of 48, its 92,553-id vocabulary whole on both
      ranks) at 1x2, seamless-m4t-large-v2 (2 + 2 of 24 + 24: the
@@ -256,9 +259,13 @@ Phases, each of which fails the run (non-zero exit, no result line):
      meshes of world 2 and world 4:
      f32 each step's loss and grad_norm, the first step's gradients slice
      by slice and the moe layer's kept choices held to the 1x1 run's,
-     bf16 timed with each step's collective bytes by kind (checked
-     exactly, ``mesh_bytes_want``), its kernel launches
-     (``mesh_launches_want``) and each rank's peak; qwen3's 2x2 whole
+     each rank's state bytes equal to the dry-run's (``segment_cost.
+     train_cell``), bf16 timed with each step's collective bytes by kind
+     (checked exactly, ``mesh_bytes_want``, and rank 0's against the
+     dry-run's walk, ``segment_cost.train_step_walk``), its kernel
+     launches (``mesh_launches_want``) and each rank's peak, phi3.5-moe
+     2x2's summed reserved peak beside the replicated layout's; qwen3's
+     2x2 whole
      checkpoint resumed at 1x1 here, its next loss the uninterrupted 2x2
      step's; ``pipeline_apply`` over the 4 ranks against its stages in
      sequence.
@@ -5783,7 +5790,8 @@ def check_tp_encdec(torch, fams) -> dict:
 # vocabulary, 92,553 ids, whole on both ranks: the embedding and the
 # untied head, 1.137 B values, on each); seamless-m4t-large-v2 at 2 + 2
 # of 24 + 24 (the encoder's and the cross-attention's split, the
-# encoder's output summed once, V / 2 = 128,103 ids a model rank)
+# encoder's output summed once, V / 2 = 128,103 ids a model rank).  At D
+# 2 every mesh runs FSDP
 MESH_MODELS = (
     ("qwen3-0.6b", 4, {2: ((1, 2), (2, 1)), 4: ((2, 2),)}),
     ("phi3.5-moe-42b-a6.6b", 1, {2: ((1, 2), (2, 1)), 4: ((2, 2),)}),
@@ -5823,6 +5831,11 @@ MESH_GRAD_TOL = 1e-4
 MESH_GRAD_TOL_ARCH = {"rwkv6-7b": 4e-4, "seamless-m4t-large-v2": 5e-3}
 MESH_NORM_RTOL_ARCH = {"seamless-m4t-large-v2": 1e-3}
 MESH_PIPE = (4, 64, 1024)   # pipeline_apply: microbatches, rows, width
+# phi3.5-moe 2x2's ranks' summed reserved f32 peak with the data group
+# holding whole replicas of the masters and moments (this phase before
+# the data cut, on an H100 80GB HBM3 at 700 W), which FSDP's 1/D cut is
+# printed beside
+MESH_REPLICA_RESERVED_GB = 63.7
 MESH_PIPE_TOL = 1e-5        # f32: a (16, W) GEMM against a (64, W) one
 
 
@@ -5911,10 +5924,17 @@ def mesh_bytes_want(cfg, D: int, M: int, rows: int) -> dict:
     here), and under an encoder the gradient of its output, which every
     xattn layer's kv heads read, summed once (``cross``, one ``act``);
     for a moe config the router's gradient (L x D x E f32, ``router``),
-    for a copied kv head every attention's wk / wv gradients (``kv``);
-    under a data axis every f32 leaf of the rank's slice (``grad``), and
-    for a moe config each layer's routed counts and token count (E + 1
-    f32) in the forward and the recompute (``aux``)."""
+    for a copied kv head every attention's wk / wv gradients (``kv``),
+    each the rank's 1/D rows of it under a data axis (FSDP);
+    under a data axis every f32 leaf of the rank's slice (``grad``: a
+    data-cut leaf's reduce-scatters count their f32 inputs, the rest
+    all-reduces), every data-cut leaf of the rank's slice gathered in
+    the compute dtype (``fsdp``: a unit's twice under remat, in the
+    forward and the recompute, the embedding and an untied head once),
+    and for a moe config each layer's routed counts and token count (E +
+    1 f32) in the forward and the recompute (``aux``)."""
+    from repro_torch import tree as tree_mod
+    from repro_torch import weights
     from repro_torch.models import lm, rwkv6
     from repro_torch.parallel import sharding
 
@@ -5936,20 +5956,28 @@ def mesh_bytes_want(cfg, D: int, M: int, rows: int) -> dict:
         want.update(trunk=trunk, embed=act * cut, head=act * cut)
         if cfg.n_encoder_layers:
             want["cross"] = act
+        # the router and wk / wv cut over data too at D 2 (their D rows)
         if cfg.moe is not None:
             want["router"] = kinds.count("moe") * cfg.d_model \
-                * cfg.moe.num_experts * 4
+                * cfg.moe.num_experts * 4 // D
         copies = sharding.kv_copies(cfg, M)
         if copies is not None:
             kv = sharding.train_plan(cfg, 0, 1, M).split.kv
             n_attn = cfg.n_encoder_layers + sum(
                 k in lm.KV_KINDS for k in kinds) + kinds.count("xattn")
             want["kv"] = 2 * n_attn * cfg.d_model * (kv[1] - kv[0]) \
-                * cfg.head_dim * 4
+                * cfg.head_dim * 4 // D
     if D > 1:
         split = sharding.train_plan(cfg, 0, D, M).split or \
             sharding.plan(cfg, 0, 1)
         want["grad"] = 4 * sharding.rank_param_count(cfg, split)
+        per = 2 if cfg.dtype == "bfloat16" else 4
+        gathers = 1 if cfg.remat == "none" else 2
+        want["fsdp"] = per * sum(
+            math.prod(sharding.rank_shape(path, shape, cfg, split))
+            * (1 if len(path) == 1 else gathers)
+            for path, (shape, _) in tree_mod.items(weights.param_shapes(cfg))
+            if sharding.data_axis(path, cfg, D) is not None)
         if cfg.moe is not None:
             want["aux"] = 2 * kinds.count("moe") \
                 * (cfg.moe.num_experts + 1) * 4
@@ -6247,27 +6275,28 @@ def wait_for_reference(ref_dir: str, marker: str = "done") -> None:
 
 def mesh_grad_errs(torch, grads, mesh, ref_dir) -> dict:
     """The rank's share of the first step's gradient check: for each leaf
-    it counts -- on data index 0, its slice of a split leaf (a copied kv
-    head on the copy's first rank), a replicated leaf on model index 0
-    -- ``[||g - ref||^2, ||ref||^2]`` against the same slice of the 1x1
-    run's leaf (read through a memory map), so the parent's sums over
-    the ranks are the whole leaf's."""
+    it counts -- its cut of a data-cut leaf (FSDP: every data index holds
+    its 1/D), a data-replicated leaf on data index 0 only; of those its
+    slice of a split leaf (a copied kv head on the copy's first rank), a
+    replicated leaf on model index 0 -- ``[||g - ref||^2, ||ref||^2]``
+    against the same cut of the 1x1 run's leaf (read through a memory
+    map), so the parent's sums over the ranks are the whole leaf's."""
     from repro_torch import tree as tree_mod
     from repro_torch.parallel import sharding
 
     out = {}
-    if mesh.plan.d != 0:
-        return out
     wait_for_reference(ref_dir)
     for path, g in tree_mod.items(grads):
+        if mesh.data_axis(path) is None and mesh.plan.d != 0:
+            continue
         split = mesh.split_leaf(path)
         if mesh.duplicate_leaf(path) or (not split and mesh.plan.m != 0):
             continue
         key = tree_mod.key(path)
         ref = np.load(os.path.join(ref_dir, key.replace("/", ".")
                                    + ".npy"), mmap_mode="r")
-        if mesh.split is not None:
-            ref = sharding.shard_leaf(path, ref, mesh.full, mesh.split)
+        ref = sharding.shard_leaf(path, ref, mesh.full, mesh.split,
+                                  mesh.dcut)
         want = torch.from_numpy(np.array(ref)).to(g.device)
         check(tuple(want.shape) == tuple(g.shape),
               f"mesh: {key} {tuple(g.shape)} against the 1x1 run's slice "
@@ -6338,6 +6367,9 @@ def tp_train_runs(torch, g, rank, world, d) -> dict:
         t_f32 = time.perf_counter()
         res["setup_s"] = t_f32 - t1
         state = {"params": p, "opt": opt_mod.init_state(opt, p)}
+        res["state_bytes"] = [sum(t.numel() * t.element_size()
+                                  for t in tree_mod.leaves(x))
+                              for x in (state["params"], state["opt"])]
 
         def held(grads, mesh=mesh, arch=arch, res=res):
             # the first step's gradients, as the step completed them
@@ -6434,11 +6466,17 @@ def check_mesh_train(torch, res, world, refs, d, device="cuda") -> dict:
     rank's peak printed; at 2x2 MESH_CKPT_ARCH's checkpoint restored
     into a 1x1 run here, whose next step's loss is the uninterrupted 2x2
     run's; at world 4 ``pipeline_apply`` within MESH_PIPE_TOL of the
-    stages in sequence."""
+    stages in sequence.  Each rank's f32 train state (masters, AdamW's
+    moments) is the dry-run's ``memory`` for its cell, byte for byte, and
+    rank 0's bf16 bytes a step by kind are the dry-run walk's
+    (``segment_cost.train_step_walk`` of its step on ``meta``)."""
     from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.launch import segment_cost
     from repro_torch.launch import steps as steps_mod
 
     summary = {}
+    shape = ShapeSpec("mesh", MESH_S, MESH_B, "train")
     for arch, D, M in mesh_runs(world):
         tag = f"{D}x{M}"
         key = f"{arch} {tag}"
@@ -6511,6 +6549,29 @@ def check_mesh_train(torch, res, world, refs, d, device="cuda") -> dict:
                           f"{la[k]} times, want {n}")
             check(all(math.isfinite(x) for x in r["bf16"]["losses"]),
                   f"{what} bf16: a loss is not finite")
+        # the dry-run's state bytes a rank and rank 0's walked bytes
+        for r in runs:
+            rank = r["d"] * M + r["m"]
+            mem = segment_cost.train_cell(f32, mesh_opt(), shape, D, M,
+                                          rank, walk=False)["memory"]
+            check(r["state_bytes"] == [mem["params"], mem["optimizer"]],
+                  f"{what}: rank {rank}'s state {r['state_bytes']} B, the "
+                  f"dry-run's {[mem['params'], mem['optimizer']]}")
+        walked = segment_cost.train_step_walk(bf, mesh_opt(), shape, D, M,
+                                              0)[0].coll_breakdown
+        got = {k: n for k, n in r0["bf16"]["bytes"][-1].items()
+               if k != "digest"}
+        check(got == walked, f"{what} bf16: rank 0's bytes a step {got}, "
+              f"the dry-run's walk {walked}")
+        print(f"{what}: state bytes a rank (masters, AdamW) " + ", ".join(
+            f"{r['state_bytes'][0]:,} + {r['state_bytes'][1]:,}"
+            for r in runs) + " = the dry-run's; rank 0's bf16 bytes a step "
+            "= the dry-run walk's", flush=True)
+        if arch == "phi3.5-moe-42b-a6.6b" and tag == "2x2":
+            reserved = sum(r["f32_reserved_bytes"] for r in runs) / 1e9
+            print(f"{what} FSDP: the ranks' summed reserved f32 peak "
+                  f"{reserved:.3f} GB against {MESH_REPLICA_RESERVED_GB} GB "
+                  "with the data group's replicas", flush=True)
         b0 = r0["bf16"]
         step_ms = sum(b0["ms"][1:]) / (MESH_STEPS - 1)
         peaks = [r["bf16"]["peak_bytes"] / 1e9 for r in runs]

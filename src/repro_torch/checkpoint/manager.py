@@ -26,10 +26,11 @@ back without ``ml_dtypes``.
     writes in a thread; ``wait()`` joins it.
 
 On a (data, model) mesh a checkpoint is still the whole layout: the
-train loop gathers the rank slices (``parallel.sharding.gather_tree``)
-and one rank writes (``launch.train.save_state``), so a run of any mesh,
-and the JAX package, reads it; ``restore(..., split=)`` reads each leaf
-through a memory map and keeps the rank's slice alone.
+train loop gathers the rank cuts to rank 0's host, leaf by leaf
+(``parallel.sharding.gather_to_host``), and rank 0 writes
+(``launch.train.save_state``), so a run of any mesh, and the JAX
+package, reads it; ``restore(..., split=, dcut=)`` reads each leaf
+through a memory map and keeps the rank's cut alone.
 """
 from __future__ import annotations
 
@@ -168,15 +169,16 @@ class CheckpointManager:
         return steps[-1] if steps else None
 
     def restore(self, step: int, target_tree, device=None,
-                verify: bool = True, *, cfg=None, split=None):
+                verify: bool = True, *, cfg=None, split=None, dcut=None):
         """The checkpoint of ``step`` in the structure of ``target_tree``
         (e.g. ``launch.steps.train_state_struct``'s meta tree: only its
         structure is read), each leaf a tensor of the saved dtype on
         ``device`` (default the CPU).  A leaf whose bytes fail the
         manifest's sha raises ``IOError``.  With ``split`` (a
-        ``parallel.sharding.Split`` of ``cfg``) each leaf is the rank's
-        slice (``sharding.shard_leaf``), cut from a memory map of the
-        whole array before anything else is read or moved."""
+        ``parallel.sharding.Split`` of ``cfg``) and / or ``dcut`` (a
+        ``sharding.DataCut``: FSDP) each leaf is the rank's cut
+        (``sharding.shard_leaf``), taken from a memory map of the whole
+        array before anything else is read or moved."""
         d = self.step_dir(step)
         manifest = json.loads((d / "manifest.json").read_text())["leaves"]
 
@@ -188,9 +190,9 @@ class CheckpointManager:
                 if hashlib.sha256(raw).hexdigest()[:16] != ent["sha"]:
                     raise IOError(f"checksum mismatch for {key} in {d}")
             cut = None
-            if split is not None:
+            if split is not None or dcut is not None:
                 def cut(a, path=path):
-                    return sharding.shard_leaf(path, a, cfg, split)
+                    return sharding.shard_leaf(path, a, cfg, split, dcut)
             return _load(d / ent["file"], ent, device, cut)
 
         return tree_mod.map_tree(leaf, target_tree)

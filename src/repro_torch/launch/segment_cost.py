@@ -20,19 +20,23 @@ tensors under its mesh's ``comm.CountingGroup``s, inside a
 
   cast       (train) ``weights.cast_params`` of the rank's f32 masters,
              every layer's views of the stacked leaves
-             (``lm.layer_params``), and the backward of it all: each
-             layer's gradient accumulated into its stacked leaf, a tied
-             embedding's two gradients summed, the casts back to f32
+             (``lm.layer_params``; a data-cut leaf's f32 cut, FSDP), and
+             the backward of it all: each layer's gradient accumulated
+             into its stacked leaf, a tied embedding's two gradients
+             summed, the casts back to f32
   embed      the embedding and the step constants (``lm.embed_step``,
-             in training forward and backward), a vlm config's image
+             in training forward and backward; a data-cut embedding's
+             gather and its gradient's reduce-scatter, a tied one's
+             two gradients summed first), a vlm config's image
              prefix; an encdec config's ``encoder_input`` and
              ``encoder_output`` (in training its gradient summed over
              the ``xattn`` layers); a prefill's fresh cache; a decode
              step's ``decode_constants`` and token embeddings
   layer_<k>  one layer of kind k from the compute-dtype leaves: in
              training ``lm.run_units`` over it as a unit of its own
-             (under the config's remat), forward and backward to the
-             leaves and the input; in serving ``lm.prefill_layer`` /
+             (under the config's remat: a data-cut leaf's gathers and
+             its gradient's reduce-scatter inside), forward and backward
+             to the leaves and the input; in serving ``lm.prefill_layer`` /
              ``lm.decode_layer`` over a cache of one layer (an ``enc``
              layer: ``lm.run_units``); scaled by the count of its kind
              (the encoder's ``enc`` layers too; in training the
@@ -72,6 +76,7 @@ from repro_torch.configs.base import ModelConfig, ShapeSpec, \
 from repro_torch.launch import hlo_stats, steps
 from repro_torch.models import api, lm
 from repro_torch.optim import optimizer as opt_mod
+from repro_torch.parallel import comm
 from repro_torch.serve.sampler import resolve
 
 HEAD_MODES = ("softmax", "reduced")
@@ -90,11 +95,29 @@ def _like(a: torch.Tensor, grad: bool = False) -> torch.Tensor:
 
 def _fresh(tree, grad: bool = False, layer: bool = False):
     """A tree of fresh ``meta`` tensors like ``tree``'s (with ``layer``,
-    one layer of a stacked tree: the leading axis taken off)."""
-    if layer:
-        return tree_mod.map_tree(
-            lambda _, a: _empty(tuple(a.shape[1:]), a.dtype, grad), tree)
-    return tree_mod.map_tree(lambda _, a: _like(a, grad), tree)
+    one layer of a stacked tree: the leading axis taken off); a
+    ``comm.Shard``'s cut made fresh in the same way."""
+    def fresh(_, a):
+        if isinstance(a, comm.Shard):
+            return comm.Shard(fresh(_, a.x), a.axis - layer, a.group,
+                              a.dtype)
+        if layer:
+            return _empty(tuple(a.shape[1:]), a.dtype, grad)
+        return _like(a, grad)
+
+    return tree_mod.map_tree(fresh, tree)
+
+
+def _tensor(a) -> torch.Tensor:
+    """A leaf's tensor: a ``comm.Shard``'s f32 cut."""
+    return a.x if isinstance(a, comm.Shard) else a
+
+
+def _gathered(a: comm.Shard, grad: bool = False) -> torch.Tensor:
+    """A fresh ``meta`` tensor of ``a`` gathered whole."""
+    shape = list(a.x.shape)
+    shape[a.axis] *= a.group.world
+    return _empty(tuple(shape), a.dtype, grad)
 
 
 def tree_bytes(tree) -> int:
@@ -131,13 +154,17 @@ def _stacks(cfg: ModelConfig):
 def _cast_uses(cast: dict, cfg: ModelConfig) -> list:
     """What the step reads of the cast tree ``cast``: every leaf outside
     the stacks (a tied embedding twice: the lookup and the head), and
-    every layer's views of the stacked leaves (``lm.layer_params``)."""
+    every layer's views of the stacked leaves (``lm.layer_params``; a
+    data-cut leaf's layer views of its f32 cut).  A data-cut leaf outside
+    the stacks is read by its gather alone (the embed and head
+    segments)."""
     outs = [t for k, v in cast.items() if k not in _stacks(cfg)
-            for t in tree_mod.leaves(v)]
-    if cfg.tie_embeddings:
+            for t in tree_mod.leaves(v) if not isinstance(t, comm.Shard)]
+    if cfg.tie_embeddings and not isinstance(cast["embed"], comm.Shard):
         outs.append(cast["embed"])
     for stack in _stacks(cfg):
-        outs += tree_mod.leaves(lm.layer_params(cast, cfg, stack))
+        outs += [_tensor(t) for t in
+                 tree_mod.leaves(lm.layer_params(cast, cfg, stack))]
     return outs
 
 
@@ -203,10 +230,14 @@ def train_cell(cfg: ModelConfig, opt_cfg, shape: ShapeSpec, data: int = 1,
     # each segment's inputs, made outside its walk: the cast tree's
     # leaves (their gradients arriving at the cast), the step constants,
     # the layers' input and output gradient
-    cast = _fresh(weights.cast_params(params, local), grad=True)
+    cast = _fresh(weights.cast_params(params, local, mesh.dcut), grad=True)
     cast_cts = [_like(t) for t in _cast_uses(cast, local)]
-    consts = lm.embed_step(cast, local, batch["tokens"],
-                           batch.get("image_embeds"))[1]
+    # a data-cut tied embedding: the head reads its gather, whose
+    # gradient the embed segment sums into the lookup's
+    tied_cut = cfg.tie_embeddings and isinstance(cast["embed"], comm.Shard)
+    head_cast = dict(cast, embed=_gathered(cast["embed"], grad=True)) \
+        if tied_cut else cast
+    consts = lm.step_constants(local, torch.arange(S, device="meta"))
     x_in, ct, one = (_empty(x_shape, dt, grad=True), _empty(x_shape, dt),
                      _empty((), torch.float32))
     enc_out = enc_consts = None
@@ -220,16 +251,21 @@ def train_cell(cfg: ModelConfig, opt_cfg, shape: ShapeSpec, data: int = 1,
     def cast_walk(mark):
         live = tree_mod.map_tree(
             lambda _, a: a.detach().requires_grad_(True), params)
-        outs = _cast_uses(weights.cast_params(live, local), local)
+        outs = _cast_uses(weights.cast_params(live, local, mesh.dcut),
+                          local)
         mark()
         _grad(outs, tree_mod.leaves(live), cast_cts)
 
     w.walk("cast", 1, cast_walk)
 
     def embed(mark):
-        x = lm.embed_step(cast, local, batch["tokens"],
+        emb = comm.whole(cast["embed"])
+        x = lm.embed_step(dict(cast, embed=emb), local, batch["tokens"],
                           batch.get("image_embeds"))[0]
-        outs, ins, cts = [x], [cast["embed"]], [ct]
+        outs, ins, cts = [x], [_tensor(cast["embed"])], [ct]
+        if tied_cut:
+            outs.append(emb)
+            cts.append(_like(emb))
         if cfg.n_encoder_layers:
             lm.encoder_input(local, src)
             # each xattn layer's gradient of the encoder's output
@@ -255,7 +291,8 @@ def train_cell(cfg: ModelConfig, opt_cfg, shape: ShapeSpec, data: int = 1,
                 enc_consts if enc else consts, group, cross,
                 None if enc else dgroup)
             mark()
-            ins = tree_mod.leaves(p) + [xin] * x_grad + (
+            ins = [_tensor(t) for t in tree_mod.leaves(p)] \
+                + [xin] * x_grad + (
                 [cross] if cross is not None else [])
             _grad([y, aux], ins, [xct, one])
 
@@ -270,12 +307,13 @@ def train_cell(cfg: ModelConfig, opt_cfg, shape: ShapeSpec, data: int = 1,
             layer("enc", cfg.n_encoder_layers - 1)
         layer("enc", 1, "layer_enc_first", x_grad=False)
 
-    head = [cast["embed" if cfg.tie_embeddings else "lm_head"],
-            cast["final_norm"]]
+    head = [_tensor(head_cast["embed" if cfg.tie_embeddings
+                              else "lm_head"]), cast["final_norm"]]
 
     def head_loss(mark):
-        loss = api.head_loss(cast, local, lm.final_hidden(cast, local, x_in),
-                             batch, data=dgroup)
+        loss = api.head_loss(head_cast, local,
+                             lm.final_hidden(cast, local, x_in), batch,
+                             data=dgroup)
         mark()
         _grad([loss], head + [x_in], [one])
 
@@ -287,7 +325,7 @@ def train_cell(cfg: ModelConfig, opt_cfg, shape: ShapeSpec, data: int = 1,
     def optimizer(mark):
         steps.complete_grads(loss, grads, mesh)
         opt_mod.update(opt_cfg, grads, state["opt"], params,
-                       **_update_kw(mesh))
+                       **mesh.update_kw())
 
     w.walk("optimizer", 1, optimizer)
 
@@ -302,14 +340,6 @@ def train_cell(cfg: ModelConfig, opt_cfg, shape: ShapeSpec, data: int = 1,
                for n in m if n != "optimizer")
     memory["activations"] = max(kept + work, m["optimizer"]["peak"])
     return _cell(w, memory, rows)
-
-
-def _update_kw(mesh) -> dict:
-    """``optimizer.update``'s split arguments on a mesh's model axis."""
-    if mesh.model is None:
-        return {}
-    return dict(model=mesh.model, split_leaf=mesh.split_leaf,
-                skip_leaf=mesh.duplicate_leaf)
 
 
 def serve_cell(cfg: ModelConfig, shape: ShapeSpec, data: int = 1,
@@ -428,7 +458,7 @@ def train_step_walk(cfg: ModelConfig, opt_cfg, shape: ShapeSpec,
         loss, grads = steps.loss_and_grads(state["params"], mesh.cfg, batch,
                                            mesh)
         opt_mod.update(opt_cfg, grads, state["opt"], state["params"],
-                       **_update_kw(mesh))
+                       **mesh.update_kw())
     return hlo_stats.terms(c, _sum_bytes([mesh.data, mesh.model,
                                           mesh.kv])), c
 

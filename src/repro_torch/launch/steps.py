@@ -18,20 +18,28 @@ On a mesh (``TrainMesh``, ``make_mesh``) the reference's pjit over
 groups: the model group runs the Megatron split forward and backward
 (``comm.copy_to_group`` / ``reduce_from_group`` in ``models.lm`` and the
 family blocks, ``comm.sum_to_group`` / ``gather_from_group`` in RWKV6's
-channel-mix, the vocabulary-parallel loss in ``models.api``), the data
-group holds replicas of the masters, each on its block of the batch's
-rows.  After the backward a rank's gradients are completed
-(``complete_grads``): the qk-norm scales' parts summed over the model
-group (kind ``"norm"``) and the router's (kind ``"router"``: its combine
-weights' part plus its 1 / M share of the router loss's), a copied kv
-head's wk / wv summed over the ranks that hold the copy (kind ``"kv"``,
-the ``kv`` group), then every leaf summed over the data group in f32
-(kind ``"grad"``), leaf by leaf in the tree's order on every rank --
-each rank's loss is its share of the global mean (``api.xent_loss``,
-and the router loss's share over the global counts), so the sum is the
-mean's gradient, the reference's plain reduction over ``data`` (its loop
-never compresses it; ``optim.compression.compressed_psum`` stays
-unwired, as there).
+channel-mix, the vocabulary-parallel loss in ``models.api``), each
+rank of the data group on its block of the batch's rows.  At D > 1 the
+data group cuts the weights too (FSDP, ``sharding.data_cut``): each
+rank holds its 1/D of every leaf the reference cuts over ``data`` --
+the f32 masters, AdamW's moments and the gradients -- gathers each
+unit's cut leaves in the compute dtype as the unit runs (kind
+``"fsdp"``; ``comm.gather_shards``) and reduce-scatters their
+gradients in f32 (kind ``"grad"``) in the backward; the leaves the
+reference keeps whole over ``data`` (the norms, RWKV6's mixing
+coefficients, the RG-LRU's channel leaves) stay replicas.  After the
+backward a rank's gradients are completed (``complete_grads``): the
+qk-norm scales' parts summed over the model group (kind ``"norm"``) and
+the router's (kind ``"router"``: its combine weights' part plus its 1 /
+M share of the router loss's), a copied kv head's wk / wv summed over
+the ranks that hold the copy (kind ``"kv"``, the ``kv`` group), then
+every data-replicated leaf summed over the data group in f32 (kind
+``"grad"``), leaf by leaf in the tree's order on every rank -- each
+rank's loss is its share of the global mean (``api.xent_loss``, and the
+router loss's share over the global counts), so the sum (the
+reduce-scatter's too) is the mean's gradient, the reference's plain
+reduction over ``data`` (its loop never compresses it;
+``optim.compression.compressed_psum`` stays unwired, as there).
 """
 from __future__ import annotations
 
@@ -51,8 +59,9 @@ from repro_torch.parallel import comm, sharding
 @dataclasses.dataclass
 class TrainMesh:
     """One rank's place in a (data, model) mesh: its ``plan``
-    (``sharding.train_plan``), its data and model groups (None on an axis
-    of 1), the whole config ``full`` and the rank's view ``cfg``
+    (``sharding.train_plan``: its model ``split`` and its data cut
+    ``dcut``), its data and model groups (None on an axis of 1), the
+    whole config ``full`` and the rank's view ``cfg``
     (``sharding.local_config`` under a split model axis), the rank's
     ``device``, and ``kv``, the ranks of its data index that hold the
     same copy of a kv head (None where the kv heads split evenly)."""
@@ -69,25 +78,49 @@ class TrainMesh:
     def split(self) -> Optional[sharding.Split]:
         return self.plan.split
 
+    @property
+    def dcut(self) -> Optional[sharding.DataCut]:
+        return self.plan.dcut
+
     def shard(self, tree):
-        """The rank's slice of a whole tree (params or a train state)."""
-        if self.split is None:
+        """The rank's cut of a whole tree (params or a train state): its
+        model slice, then its data index's 1/D of the data-cut leaves."""
+        if self.split is None and self.dcut is None:
             return tree
-        return weights.shard_params(tree, self.full, self.split)
+        return weights.shard_params(tree, self.full, self.split, self.dcut)
 
     def gather(self, tree, kind: str = "gather"):
-        """A rank-split tree put back into the whole layout (collective
-        over the model group)."""
-        return sharding.gather_tree(tree, self.full, self.split, kind)
+        """A rank's cut of a tree put back into the whole layout:
+        collective over the data group, then the model group."""
+        return sharding.gather_tree(tree, self.full, self.split, kind,
+                                    self.dcut)
 
     def split_leaf(self, path: tuple) -> bool:
+        """Whether the model axis cuts the leaf at ``path``."""
         return sharding.split_axis(path, self.full, self.split) is not None
+
+    def data_axis(self, path: tuple) -> Optional[int]:
+        """The axis the data axis cuts the leaf at ``path`` along, or None
+        for a leaf each rank of the data group holds whole."""
+        return None if self.dcut is None else self.dcut.axis(path)
 
     def duplicate_leaf(self, path: tuple) -> bool:
         """Whether the rank's slice at ``path`` is a kv copy that a lower
         model rank holds too (the global norm counts it there alone)."""
         return (self.kv is not None and self.kv.rank > 0
                 and sharding.kv_copy_leaf(path))
+
+    def update_kw(self) -> dict:
+        """``optimizer.update``'s arguments for the rank's cut: the model
+        group's split leaves and kv copies, the data group's cut
+        leaves."""
+        kw = {}
+        if self.model is not None:
+            kw.update(model=self.model, split_leaf=self.split_leaf,
+                      skip_leaf=self.duplicate_leaf)
+        if self.data is not None:
+            kw.update(data=self.data, data_axis=self.data_axis)
+        return kw
 
 
 def parse_mesh(mesh: Optional[str]):
@@ -115,7 +148,8 @@ def make_mesh(cfg: ModelConfig, group: comm.Group, data: int,
     # refuse a config before any group is made
     sharding.train_plan(cfg, group.rank, data, model)
     dgroup, mgroup = comm.mesh_groups(group, data, model)
-    plan = sharding.train_plan(cfg, group.rank, data, model, group=mgroup)
+    plan = sharding.train_plan(cfg, group.rank, data, model, group=mgroup,
+                               data_group=dgroup)
     local = cfg if plan.split is None else sharding.local_config(
         cfg, plan.split)
     kv = None
@@ -128,18 +162,21 @@ def make_mesh(cfg: ModelConfig, group: comm.Group, data: int,
     return TrainMesh(plan, dgroup, mgroup, cfg, local, group.device, kv)
 
 
-def rank_grads(params, cfg: ModelConfig, batch: dict, *, data=None):
+def rank_grads(params, cfg: ModelConfig, batch: dict, *, data=None,
+               dcut=None):
     """(loss, grads) of this rank alone: ``api.train_loss`` and its
     gradient in every leaf of ``params`` (a tree of the f32 masters,
     which need not require grad: the loss is taken on detached views of
     them, so the masters stay plain tensors an optimizer updates in place
     and an engine serves).  A leaf the loss does not reach gets zeros, as
-    ``jax.grad`` gives.  On a mesh ``cfg`` is the rank's view and
-    ``data`` its data group; the qk-norm scales' gradients are then this
-    rank's parts and the loss its share (``complete_grads``)."""
+    ``jax.grad`` gives.  On a mesh ``cfg`` is the rank's view, ``data``
+    its data group and ``dcut`` its data cut; the qk-norm scales'
+    gradients are then this rank's parts, the loss its share
+    (``complete_grads``), and a data-cut leaf's gradient the data
+    group's sum already (reduce-scattered in the backward)."""
     live = [p.detach().requires_grad_(True) for p in tree_mod.leaves(params)]
     loss = api.train_loss(tree_mod.unflatten(params, live), cfg, batch,
-                          data=data)
+                          data=data, dcut=dcut)
     grads = torch.autograd.grad(loss, live, allow_unused=True)
     grads = [torch.zeros_like(p) if g is None else g
              for p, g in zip(live, grads)]
@@ -152,8 +189,10 @@ def complete_grads(loss, grads, mesh: Optional[TrainMesh]):
     (``sharding.partial_grad``: the qk-norm scales, kind ``"norm"``; the
     router, kind ``"router"``) summed over the model group, a copied kv
     head's wk / wv over the ranks holding the copy (kind ``"kv"``), then
-    every leaf and the loss summed over the data group in f32, leaf by
-    leaf in the tree's order.  Returns (loss, grads)."""
+    every data-replicated leaf and the loss summed over the data group
+    in f32, leaf by leaf in the tree's order (a data-cut leaf's gradient
+    was reduce-scattered over it in the backward, never all-reduced).
+    Returns (loss, grads)."""
     if mesh is None:
         return loss, grads
     if mesh.model is not None:
@@ -164,8 +203,9 @@ def complete_grads(loss, grads, mesh: Optional[TrainMesh]):
             elif mesh.kv is not None and sharding.kv_copy_leaf(path):
                 mesh.kv.all_reduce_sum(g, "kv")
     if mesh.data is not None:
-        for g in tree_mod.leaves(grads):
-            mesh.data.all_reduce_sum(g, "grad")
+        for path, g in tree_mod.items(grads):
+            if mesh.data_axis(path) is None:
+                mesh.data.all_reduce_sum(g, "grad")
         loss = mesh.data.all_reduce_sum(loss.float().reshape(1), "loss")[0]
     return loss, grads
 
@@ -176,7 +216,8 @@ def loss_and_grads(params, cfg: ModelConfig, batch: dict,
     (``cfg`` is then ``mesh.cfg``): the global batch's loss and the
     gradient of the rank's slice of the masters."""
     loss, grads = rank_grads(params, cfg, batch,
-                             data=None if mesh is None else mesh.data)
+                             data=None if mesh is None else mesh.data,
+                             dcut=None if mesh is None else mesh.dcut)
     return complete_grads(loss, grads, mesh)
 
 
@@ -197,11 +238,15 @@ def digest(tree) -> int:
 
 def check_replicas(mesh: TrainMesh, params, when: str) -> None:
     """Raise on every rank unless the ranks of each data group hold the
-    same bits of the masters (each leaf is replicated over the data
-    axis), and the ranks of each model group the same bits of the leaves
-    it replicates (the norms): ``comm.Group.agree`` on a digest."""
+    same bits of the leaves the data axis replicates (those it does not
+    cut: the norms and the like), and the ranks of each model group the
+    same bits of the leaves it replicates: ``comm.Group.agree`` on a
+    digest."""
     if mesh.data is not None:
-        mesh.data.agree(digest(params), f"the data group's masters {when}")
+        rep = [leaf for path, leaf in tree_mod.items(params)
+               if mesh.data_axis(path) is None]
+        mesh.data.agree(digest(rep), f"the data group's replicated "
+                        f"masters {when}")
     if mesh.model is not None:
         rep = [leaf for path, leaf in tree_mod.items(params)
                if not mesh.split_leaf(path)]
@@ -222,9 +267,9 @@ def make_train_step(cfg: ModelConfig, opt_cfg: opt_mod.AdamWConfig,
     them with ``float``, which waits for the step).
 
     ``mesh``: the step of a rank (``cfg`` is then ``mesh.cfg``, the
-    state the rank's slice, the batch its rows); the global norm sums
-    the split leaves over the model group, each copied kv head once;
-    before the first update and
+    state the rank's cut, the batch its rows); the global norm sums the
+    split leaves over the model group, each copied kv head once, and
+    the data-cut leaves over the data group; before the first update and
     after it every replica is checked to hold the same bits
     (``check_replicas``).
 
@@ -241,10 +286,7 @@ def make_train_step(cfg: ModelConfig, opt_cfg: opt_mod.AdamWConfig,
         loss, grads = loss_and_grads(state["params"], cfg, batch, mesh)
         if on_grads is not None:
             on_grads(grads)
-        kw = {}
-        if mesh is not None and mesh.model is not None:
-            kw = dict(model=mesh.model, split_leaf=mesh.split_leaf,
-                      skip_leaf=mesh.duplicate_leaf)
+        kw = {} if mesh is None else mesh.update_kw()
         metrics = opt_mod.update(opt_cfg, grads, state["opt"],
                                  state["params"], **kw)
         if first[0]:
@@ -320,7 +362,8 @@ def counting_mesh(cfg: ModelConfig, data: int = 1, model: int = 1,
     plan = sharding.train_plan(cfg, rank, data, model)
     mgroup = comm.CountingGroup(plan.m, model) if model > 1 else None
     dgroup = comm.CountingGroup(plan.d, data) if data > 1 else None
-    plan = sharding.train_plan(cfg, rank, data, model, group=mgroup)
+    plan = sharding.train_plan(cfg, rank, data, model, group=mgroup,
+                               data_group=dgroup)
     local = cfg if plan.split is None else sharding.local_config(
         cfg, plan.split)
     kv = None
@@ -331,27 +374,28 @@ def counting_mesh(cfg: ModelConfig, data: int = 1, model: int = 1,
                      kv)
 
 
-def rank_tree(tree, cfg: ModelConfig, split: Optional[sharding.Split]):
+def rank_tree(tree, cfg: ModelConfig, split: Optional[sharding.Split],
+              dcut: Optional[sharding.DataCut] = None):
     """A rank's cut of a whole ``meta`` tree: each leaf a fresh contiguous
     ``meta`` tensor of ``sharding.shard_leaf``'s shape (as
     ``weights.shard_params`` makes the rank's leaves contiguous)."""
-    if split is None:
+    if split is None and dcut is None:
         return tree
     return tree_mod.map_tree(
         lambda path, a: torch.empty(
-            sharding.shard_leaf(path, a, cfg, split).shape, dtype=a.dtype,
-            device="meta"), tree)
+            sharding.shard_leaf(path, a, cfg, split, dcut).shape,
+            dtype=a.dtype, device="meta"), tree)
 
 
 def train_specs(cfg: ModelConfig, opt_cfg: opt_mod.AdamWConfig, shape,
                 data: int = 1, model: int = 1, rank: int = 0):
     """(state, batch, mesh) of rank ``rank`` training ``shape`` on a
-    ``data x model`` mesh, on ``meta``: the f32 masters' slice and its
-    AdamW state, the rank's ``global_batch / data`` rows, and its
-    ``counting_mesh`` (``mesh.cfg`` the rank's view)."""
+    ``data x model`` mesh, on ``meta``: the f32 masters' cut (model and
+    data) and its AdamW state, the rank's ``global_batch / data`` rows,
+    and its ``counting_mesh`` (``mesh.cfg`` the rank's view)."""
     mesh = counting_mesh(cfg, data, model, rank)
     opt_mod.check_split(opt_cfg, mesh.model is not None)
-    params = rank_tree(api.params_struct(cfg), cfg, mesh.split)
+    params = rank_tree(api.params_struct(cfg), cfg, mesh.split, mesh.dcut)
     state = {"params": params, "opt": opt_mod.init_state(opt_cfg, params)}
     rows = rank_rows(shape.global_batch, data, train=True)
     return state, api.batch_struct(cfg, shape, rows), mesh

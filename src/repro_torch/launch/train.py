@@ -23,8 +23,11 @@ the cross-attention too) -- and the vocabulary where it divides (the
 loss through the softmax-stats kernel on the rank's vocabulary slice;
 one that does not, internvl2-26b's 92,553 ids at 2 or 4, stays whole on
 every rank, its loss the cross-entropy kernel's), the data axis cuts the
-batch's rows (a moe config's router loss over the global counts).  Rank
-0 logs; a checkpoint is written whole, by rank 0, and restores into any
+batch's rows (a moe config's router loss over the global counts) and,
+at D > 1, the weights (FSDP): a rank holds 1/D of every leaf the
+reference cuts over ``data`` -- its f32 masters, AdamW's moments and
+gradients -- and gathers a unit's weights as the unit runs.  Rank 0
+logs; a checkpoint is written whole, by rank 0, and restores into any
 mesh:
   PYTHONPATH=src python -m torch.distributed.run --nproc-per-node 4 \\
       -m repro_torch.launch.train --arch seamless-m4t-large-v2 --smoke \\
@@ -46,7 +49,7 @@ from repro_torch.configs.base import ModelConfig, ShapeSpec
 from repro_torch.data.pipeline import DataConfig, TokenPipeline
 from repro_torch.launch import steps as steps_mod
 from repro_torch.optim import optimizer as opt_mod
-from repro_torch.parallel import comm
+from repro_torch.parallel import comm, sharding
 from repro_torch.runtime.fault_tolerance import (PreemptionGuard, StepTimer,
                                                  StragglerMonitor)
 
@@ -73,11 +76,12 @@ def train(cfg: ModelConfig, shape: ShapeSpec, opt_cfg, *, device="cuda",
     SIGINT, asynchronously, and waited for at the end.
 
     ``mesh`` (``steps.make_mesh``): this rank's step on the mesh, on the
-    mesh's device -- the masters cut to the rank's slice on the host,
-    the batch's rows the rank's data shard; the returned state is the
-    rank's slice, the losses the global batch's.  A checkpoint holds the
-    whole tree (``TrainMesh.gather`` over the first model group, written
-    by rank 0) and restores into the rank's slice."""
+    mesh's device -- the masters cut to the rank's cut on the host (its
+    model slice, and at D > 1 its 1/D of the data-cut leaves), the
+    batch's rows the rank's data shard; the returned state is the rank's
+    cut, the losses the global batch's.  A checkpoint holds the whole
+    tree (``save_state``: gathered to rank 0's host and written there)
+    and restores into the rank's cut."""
     device = resolve_device(device) if mesh is None else mesh.device
     data_cfg = data_cfg or DataConfig(vocab_size=cfg.vocab_size)
     given = params is not None
@@ -105,7 +109,8 @@ def train(cfg: ModelConfig, shape: ShapeSpec, opt_cfg, *, device="cuda",
         del state
         state = mgr.restore(start, steps_mod.train_state_struct(
             cfg, opt_cfg), device=device, cfg=cfg,
-            split=None if mesh is None else mesh.split)
+            split=None if mesh is None else mesh.split,
+            dcut=None if mesh is None else mesh.dcut)
         log(f"[restore] resumed from step {start}")
 
     monitor = StragglerMonitor(log_fn=log)
@@ -137,15 +142,14 @@ def train(cfg: ModelConfig, shape: ShapeSpec, opt_cfg, *, device="cuda",
 def save_state(mgr: CheckpointManager, step: int, state: dict,
                mesh: Optional[steps_mod.TrainMesh]) -> None:
     """``state`` into ``mgr`` in the whole layout: as it is on one device;
-    on a mesh gathered over the first model group (the data groups hold
-    replicas) and written by its rank 0 alone."""
+    on a mesh gathered to rank 0's host leaf by leaf
+    (``sharding.gather_to_host``: the other ranks send their cuts and
+    keep no gathered copy) and written by rank 0 alone."""
     if mesh is None:
         mgr.save(step, state)
         return
-    if mesh.plan.d != 0:
-        return
-    whole = mesh.gather(state, "ckpt")
-    if mesh.plan.m == 0:
+    whole = sharding.gather_to_host(state, mesh.full, mesh.split, mesh.dcut)
+    if whole is not None:
         mgr.save(step, whole)
 
 
@@ -162,9 +166,11 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--lr", type=float, default=3e-3)
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--mesh", default=None,
-                    help="DxM: D data-parallel replicas of M tensor-"
+                    help="DxM: D data-parallel groups of M tensor-"
                     "parallel ranks, one process a rank under torchrun "
-                    "(the world size must be D*M)")
+                    "(the world size must be D*M); at D > 1 each rank "
+                    "holds 1/D of the weights the reference cuts over "
+                    "data (FSDP)")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu (the plain kernel versions)")
     return ap

@@ -22,7 +22,7 @@ from repro_torch import weights
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.models import lm
-from repro_torch.parallel import sharding
+from repro_torch.parallel import comm, sharding
 from repro_torch.weights import cast_params
 
 
@@ -141,7 +141,7 @@ def xent_loss(logits: torch.Tensor, labels: torch.Tensor,
 
 
 def train_loss(params: dict, cfg: ModelConfig, batch: dict, *,
-               data=None) -> torch.Tensor:
+               data=None, dcut=None) -> torch.Tensor:
     """The training objective of ``batch`` ({"tokens", "labels"} (B, S),
     optionally "loss_mask", and the stub frontends' "image_embeds" (vlm)
     or "src_embeds" (encdec), which go on to ``lm.forward``):
@@ -166,8 +166,15 @@ def train_loss(params: dict, cfg: ModelConfig, batch: dict, *,
     ``data``: the routed counts summed over the group before the
     product), so the data group's sum of the shares is the global loss.
     Under a split model axis the router loss's gradient is shared over
-    the model group (``parallel.moe_ep``)."""
-    cast = cast_params(params, cfg)
+    the model group (``parallel.moe_ep``).  ``dcut`` (a
+    ``sharding.DataCut``, D > 1): ``params`` hold the rank's 1/D cut of
+    every data-cut leaf (FSDP), which ``cast_params`` leaves as a
+    ``comm.Shard``: the embedding is gathered here, once, for the lookup
+    and a tied head; an untied head where the head reads it; a unit's
+    leaves inside the unit (``lm._unit``)."""
+    cast = cast_params(params, cfg, dcut)
+    if isinstance(cast["embed"], comm.Shard):
+        cast["embed"] = cast["embed"].whole()
     h, aux = lm.hidden(cast, cfg, batch["tokens"],
                        image_embeds=batch.get("image_embeds"),
                        src_embeds=batch.get("src_embeds"), data=data)

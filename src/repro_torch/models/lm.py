@@ -76,7 +76,7 @@ from repro_torch.models.layers import (StepConstants, _split_heads,
                                       attention, mlp, moe_layer, rms_norm,
                                       step_constants)
 from repro_torch.parallel import comm, moe_ep, sharding
-from repro_torch.weights import dtype_of
+from repro_torch.weights import dtype_of, head_layout
 
 
 def segments(cfg: ModelConfig):
@@ -149,15 +149,16 @@ def embed_tokens(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
     is looked up as it is, with no sum: summed, the rows would count
     ``world`` times too."""
     group = trunk_group(cfg)
+    embed = params["embed"]
     if group is None or not sharding.vocab_cut(cfg):
-        x = params["embed"][tokens]
+        x = embed[tokens]
     else:
         # vocabulary-sharded lookup: this rank's rows for the ids in its
         # range, exact zeros elsewhere; the sum over ranks adds zeros only
         lo, hi = cfg.shard.vocab
         local = tokens - lo
         mine = (local >= 0) & (local < hi - lo)
-        x = params["embed"][local.clamp(0, hi - lo - 1)]
+        x = embed[local.clamp(0, hi - lo - 1)]
         x = torch.where(mine[..., None], x, torch.zeros((), dtype=x.dtype,
                                                         device=x.device))
         x = comm.reduce_from_group(x, group, "embed")
@@ -175,8 +176,16 @@ def lm_head_weight(params: dict, cfg: ModelConfig) -> torch.Tensor:
     rank of a sharded head, the rank's (D, V / ranks) slice: the
     embedding's rows when the trunk is split, else a view of the whole
     embedding's rows [lo, hi) -- contiguous rows, so still the ``.T``
-    view of a contiguous (V / ranks, D) tensor the head kernels read."""
-    w = params["embed"].t() if cfg.tie_embeddings else params["lm_head"]
+    view of a contiguous (V / ranks, D) tensor the head kernels read.
+    A data-cut untied head (FSDP, ``comm.Shard``) is gathered here,
+    where the step reads it, into the same layout; a tied one is the
+    embedding ``api.train_loss`` gathered."""
+    if cfg.tie_embeddings:
+        w = params["embed"].t()
+    elif isinstance(params["lm_head"], comm.Shard):
+        w = head_layout(("lm_head",), params["lm_head"].whole())
+    else:
+        w = params["lm_head"]
     sh = cfg.shard
     if sh is not None and not sh.trunk:
         w = w.t()[sh.vocab[0]:sh.vocab[1]].t()
@@ -451,10 +460,22 @@ def _store_kv(leaf: dict, l: int, k: torch.Tensor, v: torch.Tensor,
         leaf["v"][l, :, :S] = v
 
 
+def _whole_leaves(p: dict) -> dict:
+    """A layer's params with every data-cut leaf (``comm.Shard``)
+    gathered whole."""
+    return {k: _whole_leaves(v) if isinstance(v, dict) else comm.whole(v)
+            for k, v in p.items()}
+
+
 def _unit(slots: list, unit: tuple, x: torch.Tensor, cfg: ModelConfig,
           consts, group, cross=None, data=None):
     """One unit of the block program over x (its slots' layers in
-    order): returns (x, the f32 sum of its router losses)."""
+    order): returns (x, the f32 sum of its router losses).  A training
+    rank's data-cut leaves (FSDP) are gathered here, all of the unit's
+    first, so that under ``run_units``' checkpoint the gathered weights
+    are freed after the forward and gathered again in the recompute;
+    every rank runs the units in one order, so the gathers line up."""
+    slots = [_whole_leaves(p) for p in slots]
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for p, kind in zip(slots, unit):
         x, _, a = _apply_layer(p, x, cfg, kind, consts=consts, group=group,
@@ -468,7 +489,10 @@ def run_units(stack_layers: list, segs: list, x: torch.Tensor,
                cfg: ModelConfig, consts, group, cross=None, data=None):
     """Every unit of a block program over x, each under
     ``torch.utils.checkpoint`` when ``cfg.remat`` asks and grad is on:
-    returns (x, the f32 sum of the router losses)."""
+    returns (x, the f32 sum of the router losses).  Under ``remat="none"``
+    autograd keeps every unit's gathered data-cut weights (FSDP,
+    ``_unit``) until the backward: a whole layer's compute-dtype weights
+    a unit, as the replicated layout's cast tree held them."""
     remat = cfg.remat != "none" and torch.is_grad_enabled()
     total = torch.zeros((), dtype=torch.float32, device=x.device)
     for seg_layers, (unit, _) in zip(stack_layers, segs):

@@ -14,7 +14,10 @@ per rank (SPMD) with the collectives outside the kernels, over
                  one card, several ranks share it over gloo)
 
 Collectives: ``all_gather`` (stacked along a new leading rank axis),
-``all_reduce_sum`` (in place), ``broadcast_object`` (a pickled object
+``all_reduce_sum`` (in place), ``reduce_scatter_sum`` (the sum over the
+ranks, each rank keeping its 1/world of one axis; over gloo a card's
+tensors are staged through the host, as ``send`` / ``recv`` stage
+theirs), ``broadcast_object`` (a pickled object
 from rank 0 over a separate CPU gloo group, the control plane, so host
 messages never queue behind device traffic) and ``gather_object`` (every
 rank's object on rank 0, over the same group).  ``agree`` all-gathers
@@ -55,13 +58,24 @@ group's sums would otherwise count ``world`` times.  Without grad each
 is the in-place serving collective or nothing, so serving's numbers and
 bytes do not move.
 
+FSDP over a training mesh's data group (``parallel.sharding.data_cut``)
+holds a leaf as a ``Shard``: the rank's f32 cut, its axis, the group
+and the compute dtype.  ``Shard[l]`` is layer ``l``'s cut of a stacked
+leaf, and ``Shard.whole()`` is ``gather_shards``: the cut cast to the
+compute dtype and all-gathered along its axis forward (kind
+``"fsdp"``), the gradient upcast to f32 and reduce-scattered backward
+(kind ``"grad"``) -- the cast the replicated layout made at the top of
+the step, and the f32 sum over the data group it made after the
+backward.
+
 ``bytes`` counts the bytes every collective left on this rank, by the
 kind its caller names (``"trunk"``, ``"embed"``, ``"head"``,
 ``"logits"``, ``"control"``, ``"digest"``; in training also ``"loss"``,
 ``"grad"``, ``"norm"``, ``"router"``, ``"kv"``, ``"aux"`` and
-``"cross"``, the encoder output's gradient): an
-all-gather counts its
-whole result, an all-reduce its tensor.  It takes the place of the
+``"cross"``, the encoder output's gradient, ``"fsdp"``, a data-cut
+weight gathered, and ``"opt"``, a factored moment's means over a data
+cut): an all-gather counts its whole result, an all-reduce its tensor,
+a reduce-scatter its input.  It takes the place of the
 reference's ``repro.launch.hlo_stats.collective_bytes`` over compiled
 HLO, and is what shows the comparator head's traffic to be O(rows *
 ranks * k), never O(rows * V).
@@ -242,6 +256,25 @@ class Group:
         self._count(kind, x.numel() * x.element_size())
         return x
 
+    def reduce_scatter_sum(self, x: torch.Tensor, axis: int,
+                           kind: str) -> torch.Tensor:
+        """The sum of the ranks' ``x`` (whose ``axis`` divides by the
+        world), this rank's ``1 / world`` of it along ``axis``, in rank
+        order: a new contiguous tensor.  Over gloo a card's tensor goes
+        through the host."""
+        if x.shape[axis] % self.world:
+            raise ValueError(f"reduce_scatter_sum: axis {axis} of "
+                             f"{tuple(x.shape)} does not divide by the "
+                             f"world {self.world}")
+        host = self._staged(x)
+        src = x.cpu() if host else x
+        parts = [p.contiguous() for p in src.chunk(self.world, dim=axis)]
+        out = torch.empty_like(parts[self.rank])
+        dist.reduce_scatter(out, parts, op=dist.ReduceOp.SUM,
+                            group=self._data)
+        self._count(kind, x.numel() * x.element_size())
+        return out.to(x.device) if host else out
+
     def broadcast_object(self, obj: Any, src: int = 0) -> Any:
         """Rank ``src``'s ``obj`` on every rank (pickled, over the control
         group)."""
@@ -276,8 +309,8 @@ class Group:
 
     def _staged(self, x: torch.Tensor) -> bool:
         """Whether ``x`` goes through the host: gloo's point-to-point ops
-        take host tensors only (its collectives stage a card's tensors
-        themselves)."""
+        and its reduce-scatter take host tensors only (its other
+        collectives stage a card's tensors themselves)."""
         return self.backend == "gloo" and x.device.type != "cpu"
 
     def send(self, x: torch.Tensor, dst: int, kind: str) -> None:
@@ -315,6 +348,7 @@ class CountingGroup(Group):
     (``launch.dryrun``): rank ``rank`` of ``world`` with no process group
     behind it.  ``all_gather`` returns a ``meta`` tensor of the stacked
     shape, ``all_reduce_sum`` and ``broadcast`` return their ``x``,
+    ``reduce_scatter_sum`` a ``meta`` tensor of the rank's part,
     ``send`` sends nothing and ``recv`` returns its ``x``; each adds to
     ``bytes`` by kind exactly what ``Group``'s does, so a rank's real
     step code runs over it -- the vocabulary-parallel loss and expert
@@ -338,6 +372,11 @@ class CountingGroup(Group):
     def broadcast(self, x: torch.Tensor, src: int, kind: str) -> torch.Tensor:
         self._count(kind, x.numel() * x.element_size())
         return x
+
+    def reduce_scatter_sum(self, x: torch.Tensor, axis: int,
+                           kind: str) -> torch.Tensor:
+        self._count(kind, x.numel() * x.element_size())
+        return x.chunk(self.world, dim=axis)[self.rank].contiguous()
 
     def send(self, x: torch.Tensor, dst: int, kind: str) -> None:
         self._count(kind, x.numel() * x.element_size())
@@ -491,3 +530,66 @@ def share_grad(x: torch.Tensor, group: Optional[Group]) -> torch.Tensor:
     if group is None or not _tracked(x):
         return x
     return _ShareGrad.apply(x, float(group.world))
+
+
+class _GatherShards(torch.autograd.Function):
+    """A rank's f32 cut cast to ``dtype`` and all-gathered along ``axis``
+    forward; the gradient upcast to f32 and reduce-scattered along it
+    backward."""
+
+    @staticmethod
+    def forward(ctx, x, group, axis, dtype):
+        ctx.group, ctx.axis, ctx.dtype = group, axis, x.dtype
+        return _gathered(x, group, axis, dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = ctx.group.reduce_scatter_sum(g.float(), ctx.axis, "grad")
+        return g.to(ctx.dtype), None, None, None
+
+
+def _gathered(x: torch.Tensor, group: Group, axis: int,
+              dtype) -> torch.Tensor:
+    """The ranks' ``x`` in ``dtype`` joined along ``axis`` in rank
+    order (kind ``"fsdp"``)."""
+    parts = group.all_gather(x.to(dtype), "fsdp")        # (world, *shape)
+    shape = list(x.shape)
+    shape[axis] *= group.world
+    return parts.movedim(0, axis).reshape(shape)
+
+
+def gather_shards(x: torch.Tensor, group: Group, axis: int,
+                  dtype) -> torch.Tensor:
+    """A data-cut leaf read whole: the rank's f32 cut ``x`` cast to the
+    compute ``dtype`` and all-gathered along ``axis`` over ``group`` (kind
+    ``"fsdp"``); under autograd the gradient of ``x`` is the whole leaf's
+    gradient upcast to f32 and reduce-scattered (kind ``"grad"``): the
+    data group's f32 sum, each rank its own cut of it (at 2 ranks the
+    same two-term sum as an all-reduce, bit for bit)."""
+    if not _tracked(x):
+        return _gathered(x, group, axis, dtype)
+    return _GatherShards.apply(x, group, axis, dtype)
+
+
+class Shard:
+    """A leaf a training rank holds cut over its data group: ``x`` the
+    rank's f32 cut along ``axis`` (of ``group.world`` equal parts),
+    ``dtype`` the compute dtype the step reads it in.  ``self[l]`` is
+    layer ``l``'s cut of a stacked leaf (the leading axis indexed, never
+    the cut one); ``whole()`` the leaf gathered (``gather_shards``)."""
+
+    __slots__ = ("x", "axis", "group", "dtype")
+
+    def __init__(self, x: torch.Tensor, axis: int, group: Group, dtype):
+        self.x, self.axis, self.group, self.dtype = x, axis, group, dtype
+
+    def __getitem__(self, l: int) -> "Shard":
+        return Shard(self.x[l], self.axis - 1, self.group, self.dtype)
+
+    def whole(self) -> torch.Tensor:
+        return gather_shards(self.x, self.group, self.axis, self.dtype)
+
+
+def whole(x):
+    """``x`` read whole: a ``Shard`` gathered, a tensor as it is."""
+    return x.whole() if isinstance(x, Shard) else x

@@ -79,21 +79,42 @@ reference's ``param_specs`` / ``opt_state_specs`` :75-113, 231-256 and
 applied to the f32 masters, their gradients and AdamW's ``m`` / ``v``
 alike (``shard_params`` cuts a whole train state: ``leaf_cut`` reads the
 leaf's path, which ``split_axis`` and ``gather_tree`` read too); the data
-axis replicates them and cuts the batch into D contiguous row blocks.
+axis cuts the batch into D contiguous row blocks, and the weights as
+below (FSDP).
 Every family trains under M > 1; a vocabulary that does not divide by M
 stays whole on every rank.  A kv head that does not divide by M is
 copied to the ranks whose q heads read it (``kv_copies``): each copy's
 wk / wv gradient is that rank's q heads' part, summed over the ranks
 holding the copy in the step (an encoder's and a cross-attention's
 too).  ``gather_tree`` puts a rank's slices back into the
-whole layout over the model group.  The
-reference's FSDP cut of the weights over ``data`` (``_COL`` / ``_ROW``
-:24-25) is not ported: the masters are replicated over the data group,
-the same numbers in more memory.
+whole layout, over the data group and then the model group;
+``gather_to_host`` puts them together on rank 0's host alone, leaf by
+leaf (a checkpoint).
+
+At D > 1 the data axis cuts the weights too (FSDP, the reference's
+``_COL`` / ``_ROW`` :24-25): every leaf the reference's ``param_specs``
+cuts over ``"data"`` (``data_axis``: its ``_PARAM_RULES`` /
+``_MOE_RULES`` data position after the leading stack axes, dropped
+where the whole dimension does not divide by D, :101-110) is held by
+each rank as its 1/D cut along that axis (``data_cut``), on top of its
+model cut -- the f32 masters, their gradients and AdamW's moments alike
+(a factored moment keeps the cut of the axis it does not reduce, as
+``opt_state_specs`` :231-255).  The reference's specs never give
+"data" and "model" one dimension; the port's own model cut of RWKV6's
+``wB`` (by channel, which the reference leaves whole over "model") is
+the one leaf whose data axis it also cuts, and there the data cut is
+taken within the rank's channels.  A vocabulary kept whole over the
+model axis still has its D dimension cut over data, as the reference's
+``("model", "data")`` with its model axis dropped.  The step gathers a
+data-cut leaf as it reads it (``comm.gather_shards``) and
+reduce-scatters its gradient; the reference's ``seq_parallel_attn``
+rule (:93-94) moves only attention's model axis, so its data positions
+are those of ``_COL`` / ``_ROW``.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Any, Optional, Tuple
 
@@ -255,51 +276,17 @@ def local_config(cfg: ModelConfig, split: Split) -> ModelConfig:
     return dataclasses.replace(cfg, **kw)
 
 
-def _size(shapes: dict) -> int:
-    return sum(math.prod(shape) for shape, _ in shapes.values())
-
-
-def rank_param_count(cfg: ModelConfig, split: Split) -> int:
-    """Parameters a rank holds under ``split``: per layer, by its kind,
-    an attention layer's heads and norms and then its MLP columns, a
-    ``moe`` layer's router, its experts (always three (d, Fe) matrices,
-    as the reference's ``init_moe``) and its shared-expert columns, a
-    ``rec`` layer's RG-LRU block at the rank's lru channels
-    (``rglru.layer_shapes`` of the rank's view) with its norm and MLP
-    columns, an ``rwkv`` layer's leaves at the rank's heads
-    (``rwkv6.layer_shapes`` of the rank's view), an ``xattn`` layer an
-    attention layer's plus its cross-attention's heads (no qk-norm
-    scales) and ``lnx``; then an encoder's ``enc`` layers (attention
-    layers) and ``encoder_norm``, the vocabulary slice (the whole
-    vocabulary where it is kept whole) and the final norm."""
-    from repro_torch.models import lm, rglru, rwkv6
-
-    local = local_config(cfg, split)
-    hd, d = cfg.head_dim, cfg.d_model
-    nq, nkv = split.q[1] - split.q[0], split.kv[1] - split.kv[0]
-    nf, nv = split.ff[1] - split.ff[0], split.vocab[1] - split.vocab[0]
-    mats = 3 if cfg.activation.endswith("_glu") else 2
-    attn = 2 * d * nq * hd + 2 * d * nkv * hd + 2 * d \
-        + (2 * hd if cfg.qk_norm else 0)
-    mlp = mats * d * nf
-    per = {"attn": attn + mlp,
-           "xattn": attn + mlp + 2 * d * nq * hd + 2 * d * nkv * hd + d}
-    m = cfg.moe
-    if m is not None:
-        ne = split.experts[1] - split.experts[0]
-        nfe = split.fe[1] - split.fe[0]
-        per["moe"] = attn + d * m.num_experts + ne * 3 * d * m.d_ff_expert \
-            + (mats * d * nfe if m.shared_expert else 0)
-    if cfg.family == "hybrid":
-        per["rec"] = _size(rglru.layer_shapes(local, 1)) + d + mlp
-    if cfg.family == "ssm":
-        per["rwkv"] = _size(rwkv6.layer_shapes(local, 1))
-    heads = (1 if cfg.tie_embeddings else 2) * nv * d
-    if not split.trunk:
-        heads = (1 if cfg.tie_embeddings else 2) * cfg.vocab_size * d
-    enc = cfg.n_encoder_layers
-    encoder = enc * per["attn"] + (d if enc else 0)
-    return sum(per[k] for k in lm.layer_types(cfg)) + encoder + heads + d
+def rank_param_count(cfg: ModelConfig, split: Optional[Split],
+                     dcut: Optional["DataCut"] = None) -> int:
+    """Parameters a rank holds under ``split`` (None: the model axis
+    whole) and ``dcut`` (None: the data axis whole): every leaf of
+    ``weights.param_shapes`` at the shape ``rank_shape`` cuts it to --
+    a ``moe`` layer's experts (always three (d, Fe) matrices, as the
+    reference's ``init_moe``) by E, the recurrent layers by their
+    channels, the vocabulary slice (the whole vocabulary where it is
+    kept whole), and under ``dcut`` each data-cut leaf's 1/D."""
+    return sum(math.prod(rank_shape(path, shape, cfg, split, dcut))
+               for path, (shape, _) in tree_mod.items(_whole_shapes(cfg)))
 
 
 def leaf_cut(path: tuple, cfg: ModelConfig,
@@ -357,16 +344,45 @@ def leaf_cut(path: tuple, cfg: ModelConfig,
     return None           # norms, rwkv6's mu_* and wA: replicated
 
 
-def shard_leaf(path: tuple, x, cfg: ModelConfig, split: Split):
-    """Rank ``split.rank``'s slice of the leaf at ``path`` (a numpy array or
-    a torch tensor; a view), as ``leaf_cut`` says."""
-    cut = leaf_cut(path, cfg, split)
-    if cut is None:
-        return x
-    ax, lo, hi = cut
-    idx = [slice(None)] * x.ndim
-    idx[ax] = slice(lo, hi)
-    return x[tuple(idx)]
+def _cuts(path: tuple, shape, cfg: ModelConfig, split: Optional[Split],
+          dcut: Optional["DataCut"]) -> list:
+    """The (axis, lo, hi) cuts of the leaf at ``path`` of whole shape
+    ``shape`` in the order a rank takes them: its model cut
+    (``leaf_cut``), then its data cut of that (``data_cut``)."""
+    out = []
+    shape = list(shape)
+    if split is not None:
+        cut = leaf_cut(path, cfg, split)
+        if cut is not None:
+            out.append(cut)
+            shape[cut[0]] = cut[2] - cut[1]
+    cut = data_cut(path, shape, cfg, split, dcut)
+    if cut is not None:
+        out.append(cut)
+    return out
+
+
+def rank_shape(path: tuple, shape, cfg: ModelConfig,
+               split: Optional[Split],
+               dcut: Optional["DataCut"] = None) -> tuple:
+    """The shape of a rank's cut of the leaf at ``path`` whose whole
+    shape is ``shape`` (``shard_leaf``'s result's)."""
+    shape = list(shape)
+    for ax, lo, hi in _cuts(path, shape, cfg, split, dcut):
+        shape[ax] = hi - lo
+    return tuple(shape)
+
+
+def shard_leaf(path: tuple, x, cfg: ModelConfig, split: Optional[Split],
+               dcut: Optional["DataCut"] = None):
+    """Rank ``split.rank``'s slice of the leaf at ``path`` (a numpy array
+    or a torch tensor; a view), as ``leaf_cut`` says, then under
+    ``dcut`` its data index's 1/D of that (``data_cut``)."""
+    for ax, lo, hi in _cuts(path, x.shape, cfg, split, dcut):
+        idx = [slice(None)] * x.ndim
+        idx[ax] = slice(lo, hi)
+        x = x[tuple(idx)]
+    return x
 
 
 def vocab_cut(cfg: ModelConfig) -> bool:
@@ -395,33 +411,156 @@ KV_COPY = ("wk", "wv")
 _KV_ATTN = ("attn", "xattn")
 
 
+# -- the data cut (FSDP) ------------------------------------------------------
+# the reference's data position in each leaf's trailing base axes, key ->
+# (base rank, the index of "data" among them): ``_PARAM_RULES`` /
+# ``_MOE_RULES`` (``repro/parallel/sharding.py:26-54``) with their model
+# entries left out; the leaves they do not cut over data (the norms,
+# conv_w / conv_b, b_a, b_i, lam, w_a, w_i, rwkv6's mu_*, w0, u, ln_x)
+# are absent
+_DATA_RULES = {
+    "embed": (2, 1), "lm_head": (2, 0),
+    "wq": (2, 0), "wk": (2, 0), "wv": (2, 0), "wo": (2, 1),
+    "w_gate": (2, 0), "w_up": (2, 0), "w_in": (2, 0), "w_out": (2, 1),
+    "w_r": (2, 0), "w_k": (2, 0), "w_v": (2, 0), "w_g": (2, 0),
+    "w_o": (2, 1), "wA": (2, 0), "wB": (2, 1),
+    "w_k_cm": (2, 0), "w_v_cm": (2, 1), "w_r_cm": (2, 0),
+    "w_x": (2, 0), "w_gate_in": (2, 0),
+    "router": (2, 0),
+}
+# a ``moe`` layer's expert stacks (not its shared expert's): (E, D, Fe)
+# and (E, Fe, D), the D axis over data
+_MOE_DATA_RULES = {"w_gate": (3, 1), "w_up": (3, 1), "w_out": (3, 2)}
+
+
+@dataclasses.dataclass(frozen=True)
+class DataCut:
+    """A training rank's place on a data axis of ``world`` > 1 ranks:
+    its data index ``d``; ``group``, the data group its cut leaves are
+    gathered and their gradients reduce-scattered over; ``full``, the
+    whole config, whose leaves' shapes ``data_axis`` reads."""
+
+    d: int
+    world: int
+    group: Any = dataclasses.field(default=None, compare=False, repr=False)
+    full: Any = dataclasses.field(default=None, compare=False, repr=False)
+
+    def axis(self, path: tuple) -> Optional[int]:
+        """``data_axis`` of the leaf at ``path``."""
+        return data_axis(path, self.full, self.world)
+
+
+@functools.lru_cache(maxsize=32)
+def _whole_shapes(cfg: ModelConfig) -> dict:
+    from repro_torch import weights
+
+    return weights.param_shapes(cfg)
+
+
+def _param_path(path: tuple):
+    """(the param path, ``"vr"`` / ``"vc"`` for a factored second
+    moment's part or None) of a leaf's path in a param or gradient tree
+    or a train state; (None, None) for AdamW's step."""
+    path = tuple(path)
+    if path[:1] == ("params",):
+        return path[1:], None
+    if path[:1] == ("opt",):
+        if path[1:2] not in (("m",), ("v",)):
+            return None, None
+        path = path[2:]
+        if path and path[-1] in ("vr", "vc"):
+            return path[:-1], path[-1]
+    return path, None
+
+
+def data_axis(path: tuple, cfg: ModelConfig, data: int) -> Optional[int]:
+    """The axis the reference's ``param_specs`` cuts over ``"data"`` in the
+    leaf at ``path`` (of a param or gradient tree or a train state) of
+    the WHOLE config ``cfg`` on a data axis of ``data``, or None: its
+    rule's data position after the leading stack axes, dropped where the
+    whole dimension does not divide by ``data``
+    (``repro/parallel/sharding.py:95-110``), none at ``data`` 1.  A
+    factored second moment's ``vr`` / ``vc`` keep the cut of the axis
+    they do not reduce (``opt_state_specs`` :231-255)."""
+    if data < 2:
+        return None
+    ppath, part = _param_path(path)
+    if not ppath:
+        return None
+    key = ppath[-1]
+    in_moe = "moe" in ppath and "shared" not in ppath
+    table = _MOE_DATA_RULES if in_moe and key in _MOE_DATA_RULES \
+        else _DATA_RULES
+    if key not in table:
+        return None
+    shape = tree_mod.get(_whole_shapes(cfg), ppath)[0]
+    base, pos = table[key]
+    ax = len(shape) - base + pos
+    if shape[ax] % data:
+        return None
+    n = len(shape)
+    if part == "vr":                       # the last axis reduced
+        return None if ax == n - 1 else ax
+    if part == "vc":                       # the second-to-last reduced
+        return None if ax == n - 2 else (ax if ax < n - 2 else ax - 1)
+    return ax
+
+
+def data_cut(path: tuple, shape, cfg: ModelConfig, split: Optional[Split],
+             dcut: Optional[DataCut]) -> Optional[Tuple[int, int, int]]:
+    """(axis, lo, hi): where data index ``dcut.d`` cuts the leaf at
+    ``path`` whose model cut (``split``'s; the whole leaf where it is
+    None) has ``shape``, or None for a leaf the data axis holds whole
+    (``data_axis``).  Raises where the rank's extent there does not
+    divide by D (only RWKV6's ``wB`` can: its data axis is the one the
+    port's own channel cut takes too)."""
+    ax = None if dcut is None else dcut.axis(path)
+    if ax is None:
+        return None
+    if split is not None:
+        cut = leaf_cut(path, cfg, split)
+        assert cut is None or cut[0] % len(shape) != ax \
+            or path[-1] == "wB", (path, cut, ax)
+    n = shape[ax]
+    if n % dcut.world:
+        raise ValueError(f"{tree_mod.key(path)}: a rank's {n} along axis "
+                         f"{ax} do not divide by the data axis of "
+                         f"{dcut.world}")
+    per = n // dcut.world
+    return ax, dcut.d * per, (dcut.d + 1) * per
+
+
 @dataclasses.dataclass(frozen=True)
 class TrainPlan:
     """One rank's place in a (data, model) mesh of ``data x model`` ranks:
     ``d`` its data index (its block of the global batch's rows), ``m``
-    its model index, ``split`` its cut of the model (None at model 1)."""
+    its model index, ``split`` its cut of the model (None at model 1),
+    ``dcut`` its cut of the data-cut leaves (None at data 1)."""
 
     data: int
     model: int
     d: int
     m: int
     split: Optional[Split]
+    dcut: Optional[DataCut] = None
 
 
 def train_plan(cfg: ModelConfig, rank: int, data: int, model: int, *,
-               group=None) -> TrainPlan:
+               group=None, data_group=None) -> TrainPlan:
     """Rank ``rank``'s plan in a mesh of ``data x model`` ranks; ``group``
-    (the rank's model group) rides on the split.  Rank ``r`` is at data
-    index ``r // model`` and model index ``r % model``.  Raises
-    ``ValueError`` where the mesh does not hold the rank, where ``plan``
-    refuses the split (heads, widths or experts that do not divide by
-    ``model``, q heads that would read part of a kv group), and where a
-    ``moe`` config cut over ``data`` routes with another executor than
-    gshard (``layers.moe_layer``).  Every family splits; a vocabulary
-    that does not divide by ``model`` is held whole on every rank
-    (``plan(whole_vocab=True)``, the reference's ``param_specs``).  A kv
-    head that does not divide by ``model`` is copied to the ranks whose
-    q heads read it (``kv_copies``)."""
+    (the rank's model group) rides on the split, ``data_group`` on the
+    data cut.  Rank ``r`` is at data index ``r // model`` and model
+    index ``r % model``.  Raises ``ValueError`` where the mesh does not
+    hold the rank, where ``plan`` refuses the split (heads, widths or
+    experts that do not divide by ``model``, q heads that would read
+    part of a kv group), where a data-cut leaf's model cut does not
+    divide by ``data``, and where a ``moe`` config cut over ``data``
+    routes with another executor than gshard (``layers.moe_layer``).
+    Every family splits; a vocabulary that does not divide by ``model``
+    is held whole on every rank (``plan(whole_vocab=True)``, the
+    reference's ``param_specs``).  A kv head that does not divide by
+    ``model`` is copied to the ranks whose q heads read it
+    (``kv_copies``)."""
     if data < 1 or model < 1 or not 0 <= rank < data * model:
         raise ValueError(f"rank {rank} outside a mesh of {data}x{model}")
     if data > 1 and cfg.moe is not None and cfg.moe_impl not in (
@@ -430,11 +569,14 @@ def train_plan(cfg: ModelConfig, rank: int, data: int, model: int, *,
                          f"data axis of {data}: only gshard's groups lie "
                          "within a row, so that cutting rows over data "
                          "leaves routing and drops unchanged")
-    split = None
+    split = dcut = None
     if model > 1:
         split = plan(cfg, rank % model, model, group=group,
                      whole_vocab=True)
-    return TrainPlan(data, model, rank // model, rank % model, split)
+    if data > 1:
+        dcut = DataCut(rank // model, data, data_group, cfg)
+        rank_param_count(cfg, split, dcut)       # raises where it must
+    return TrainPlan(data, model, rank // model, rank % model, split, dcut)
 
 
 def kv_copies(cfg: ModelConfig, model: int) -> Optional[list]:
@@ -478,23 +620,33 @@ def partial_grad(path: tuple) -> bool:
 
 
 def gather_tree(tree, cfg: ModelConfig, split: Optional[Split],
-                kind: str = "gather"):
+                kind: str = "gather", dcut: Optional[DataCut] = None):
     """A rank's cut of a tree (params, gradients or a train state) put
-    back into the whole layout: every split leaf all-gathered over the
-    split's group and its slices joined along its axis in rank order
-    (a copied kv head's from the first rank that holds it), a replicated
-    leaf as it is.  Collective over the model group: every member calls
-    it.  ``split`` None: the tree as it is."""
+    back into the whole layout: under ``dcut`` every data-cut leaf
+    all-gathered over the data group and joined along its data axis in
+    rank order, then every split leaf all-gathered over the split's
+    group and its slices joined along its axis in rank order (a copied
+    kv head's from the first rank that holds it); a replicated leaf as
+    it is.  Collective over the data group, then the model group: every
+    member calls it.  ``split`` and ``dcut`` None: the tree as it is."""
     import torch
 
-    if split is None:
+    if split is None and dcut is None:
         return tree
-    copies = kv_copies(cfg, split.world) if split.trunk else None
+    copies = kv_copies(cfg, split.world) \
+        if split is not None and split.trunk else None
     firsts = None if copies is None else [ms[0] for ms in copies]
 
     def leaf(path, x):
+        if not isinstance(x, torch.Tensor):
+            return x
+        if dcut is not None:
+            ax = dcut.axis(path)
+            if ax is not None:
+                x = torch.cat(list(dcut.group.all_gather(x.contiguous(),
+                                                         kind)), dim=ax)
         ax = split_axis(path, cfg, split)
-        if ax is None or not isinstance(x, torch.Tensor):
+        if ax is None:
             return x
         parts = list(split.group.all_gather(x.contiguous(), kind))
         if firsts is not None and kv_copy_leaf(path):
@@ -502,3 +654,53 @@ def gather_tree(tree, cfg: ModelConfig, split: Optional[Split],
         return torch.cat(parts, dim=ax)
 
     return tree_mod.map_tree(leaf, tree)
+
+
+def gather_to_host(tree, cfg: ModelConfig, split: Optional[Split],
+                   dcut: Optional[DataCut], kind: str = "ckpt"):
+    """``gather_tree``'s whole layout on rank 0's host alone, leaf by
+    leaf: every other data index sends its cut of a data-cut leaf to data
+    index 0, which joins the cuts along the data axis; every other model
+    index of the first data group sends its slice of a split leaf to
+    model index 0 (of a copied kv head, the first rank that holds it
+    alone), which joins the slices; rank 0 moves the leaf to the host
+    before the next is gathered.  So no rank holds more than one whole
+    leaf on the device, and a sending rank's memory stays as it was.
+    The sends count their bytes under ``kind``.  Every rank calls it;
+    it returns None on every rank but rank 0."""
+    import torch
+
+    copies = kv_copies(cfg, split.world) \
+        if split is not None and split.trunk else None
+    firsts = None if copies is None else [ms[0] for ms in copies]
+    first = (dcut is None or dcut.d == 0) and (split is None
+                                               or split.rank == 0)
+
+    def to_first(x, group, me: int, ax: int, members):
+        """``members``' parts of ``x`` joined along ``ax`` on member 0
+        (which is always one of them), None elsewhere."""
+        if me != 0:
+            if me in members:
+                group.send(x, 0, kind)
+            return None
+        return torch.cat([x if m == 0 else group.recv(
+            torch.empty(x.shape, dtype=x.dtype, device=x.device), m)
+            for m in members], dim=ax)
+
+    def leaf(path, x):
+        if not isinstance(x, torch.Tensor):
+            return x
+        ax = None if dcut is None else dcut.axis(path)
+        if ax is not None:
+            x = to_first(x, dcut.group, dcut.d, ax, range(dcut.world))
+        elif dcut is not None and dcut.d != 0:
+            return None
+        ax = split_axis(path, cfg, split)
+        if x is not None and ax is not None:
+            members = firsts if firsts is not None and kv_copy_leaf(path) \
+                else range(split.world)
+            x = to_first(x, split.group, split.rank, ax, members)
+        return None if x is None or not first else x.cpu()
+
+    whole = tree_mod.map_tree(leaf, tree)
+    return whole if first else None

@@ -47,7 +47,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import rglru, rwkv6
-from repro_torch.parallel import sharding
+from repro_torch.parallel import comm, sharding
 from repro_torch.tree import map_tree
 
 
@@ -200,7 +200,7 @@ def seeded_params(cfg: ModelConfig, seed: int, device,
 
             list(pool.map(fill, range(-(-flat.numel() // DRAW_CHUNK))))
             out = out.to(device)
-            return out if dtype is None else _head_layout(path, out)
+            return out if dtype is None else head_layout(path, out)
 
         return map_tree(leaf, param_shapes(cfg))
 
@@ -237,7 +237,8 @@ def from_numpy_params(tree, cfg: ModelConfig, device) -> dict:
     return check(want, tree, ())
 
 
-def cast_params(params: dict, cfg: ModelConfig) -> dict:
+def cast_params(params: dict, cfg: ModelConfig,
+                dcut: Optional[sharding.DataCut] = None) -> dict:
     """Master weights -> the compute dtype, once at load.
 
     ``repro.models.lm.cast_params`` does this cast on every step inside
@@ -251,13 +252,23 @@ def cast_params(params: dict, cfg: ModelConfig) -> dict:
     An untied ``lm_head`` keeps its (D, V) shape but is stored (V, D)
     row-major -- the ``.T`` view of a contiguous (V, D) tensor, the
     layout the head kernel reads, as it reads the tied embedding (a
-    head already so stored is not copied again)."""
+    head already so stored is not copied again).
+
+    ``dcut`` (a training rank's data cut, FSDP): a data-cut leaf is left
+    in f32 as a ``comm.Shard``, which the step casts as it gathers it
+    (``comm.gather_shards``), a unit's inside the unit."""
     dt = dtype_of(cfg)
-    return map_tree(lambda path, a: _head_layout(
-        path, a if a.dtype == dt else a.to(dt)), params)
+
+    def leaf(path, a):
+        ax = None if dcut is None else dcut.axis(path)
+        if ax is not None:
+            return comm.Shard(a, ax, dcut.group, dt)
+        return head_layout(path, a if a.dtype == dt else a.to(dt))
+
+    return map_tree(leaf, params)
 
 
-def _head_layout(path: tuple, a: torch.Tensor) -> torch.Tensor:
+def head_layout(path: tuple, a: torch.Tensor) -> torch.Tensor:
     """An untied ``lm_head`` (D, V) as the ``.T`` view of a row-major
     (V, D) tensor (no copy when it is one already); any other leaf as it
     is."""
@@ -271,19 +282,22 @@ def detached(tree):
                 else a, tree)
 
 
-def shard_params(tree, cfg: ModelConfig, split: sharding.Split) -> dict:
+def shard_params(tree, cfg: ModelConfig, split: Optional[sharding.Split],
+                 dcut: Optional[sharding.DataCut] = None) -> dict:
     """The rank's slice of the whole tree under ``split``
     (``sharding.plan``: column/row-parallel trunk by whole heads, the
     recurrent layers by their channels, the vocabulary split along V,
     norms replicated; a split with ``trunk``
     False cuts nothing, the head's vocabulary range is taken from the
-    whole tied embedding by ``lm.lm_head_weight``).  ``tree`` is the
+    whole tied embedding by ``lm.lm_head_weight``; None cuts nothing),
+    then under ``dcut`` its data index's 1/D of every leaf the reference
+    cuts over data (``sharding.data_cut``).  ``tree`` is the
     bridged numpy tree or host tensors from ``seeded_params``: the slice is
     cut on the host, before anything goes to the card, and each leaf is
     made contiguous (numpy stays numpy)."""
 
     def leaf(path, x):
-        x = sharding.shard_leaf(path, x, cfg, split)
+        x = sharding.shard_leaf(path, x, cfg, split, dcut)
         if isinstance(x, torch.Tensor):
             return x.contiguous()
         return np.ascontiguousarray(x)

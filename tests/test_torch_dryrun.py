@@ -63,15 +63,15 @@ STATE_CELLS = [(a, m) for a in FAMILIES.values()
 @pytest.mark.parametrize("arch,mesh", STATE_CELLS)
 def test_walked_param_and_optimizer_bytes_at_full_width(arch, mesh):
     """A training cell's rank holds 4 bytes a parameter of
-    ``sharding.rank_param_count`` (the f32 masters of its slice), twice
-    that of AdamW moments plus the 4-byte step, and as many gradient
-    bytes as master bytes."""
+    ``sharding.rank_param_count`` (the f32 masters of its cut: its model
+    slice, and at D > 1 its 1/D of every data-cut leaf), twice that of
+    AdamW moments plus the 4-byte step, and as many gradient bytes as
+    master bytes."""
     cfg = get_config(arch)
     data, model = steps.parse_mesh(mesh)
     cell = dryrun.run_cell(arch, "train_4k", mesh, skip_segments=True)
-    split = None if model == 1 else sharding.plan(
-        cfg, cell["rank"], model, whole_vocab=True)
-    n = sharding.rank_param_count(cfg, split or sharding.plan(cfg, 0, 1))
+    plan = sharding.train_plan(cfg, cell["rank"], data, model)
+    n = sharding.rank_param_count(cfg, plan.split, plan.dcut)
     mem = cell["memory"]
     assert mem["params"] == 4 * n
     assert mem["optimizer"] == 2 * mem["params"] + 4

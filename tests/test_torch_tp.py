@@ -542,6 +542,7 @@ RANK_SCRIPT = textwrap.dedent(r'''
     from repro_torch.launch import train as train_mod
     from repro_torch.optim import optimizer as opt_mod
     from repro_torch.parallel.pipeline import pipeline_apply
+    from unittest import mock
 
     with open(f"{d}/train.json") as f:
         tc = json.load(f)
@@ -574,19 +575,45 @@ RANK_SCRIPT = textwrap.dedent(r'''
         res = {"d": mesh.plan.d, "m": mesh.plan.m, "rows": pipe.rows.tolist(),
                "data_ranks": list(mesh.data.ranks) if mesh.data else None,
                "model_ranks": list(mesh.model.ranks) if mesh.model else None}
-        # the first step's gradients, each rank's part, then made whole
-        # (the qk-norm parts summed over the model group) and gathered
+        # the rank's state bytes (its cut of the masters and AdamW's m /
+        # v, and the step)
         mine = fresh(mesh)
+        ost = opt_mod.init_state(opt_cfg(), mine)
+        res["state_bytes"] = [sum(t.numel() * t.element_size()
+                                  for t in tree_mod.leaves(x))
+                              for x in (mine, ost)]
+        # the first step's gradients, each rank's part, then made whole
+        # (the qk-norm parts summed over the model group) and gathered;
+        # the data group's all-reduced and reduce-scattered gradients'
+        # shapes recorded
         loss, grads = steps_mod.rank_grads(mine, mesh.cfg, pipe.batch(0),
-                                           data=mesh.data)
+                                           data=mesh.data, dcut=mesh.dcut)
         res["q_norm_part"] = grads["decoder"][0]["slot0"]["attn"][
             "q_norm"].tolist()
+        if mesh.data is not None:
+            seen = {"reduced": [], "scattered": []}
+            ar, rs = mesh.data.all_reduce_sum, mesh.data.reduce_scatter_sum
+
+            def reduced(x, kind):
+                if kind == "grad":
+                    seen["reduced"].append(list(x.shape))
+                return ar(x, kind)
+
+            def scattered(x, axis, kind):
+                seen["scattered"].append(list(x.shape))
+                return rs(x, axis, kind)
+            with mock.patch.object(mesh.data, "all_reduce_sum", reduced), \
+                    mock.patch.object(mesh.data, "reduce_scatter_sum",
+                                      scattered):
+                steps_mod.loss_and_grads(fresh(mesh), mesh.cfg,
+                                         pipe.batch(0), mesh)
+            res["grad_collectives"] = seen
         steps_mod.complete_grads(loss, grads, mesh)
         whole = mesh.gather(grads)
         if rank == 0:
             save_tree(f"grads_{tag}", whole)
         # three AdamW steps, the bytes of each by kind
-        state = {"params": mine, "opt": opt_mod.init_state(opt_cfg(), mine)}
+        state = {"params": mine, "opt": ost}
         step = steps_mod.make_train_step(mesh.cfg, opt_cfg(), mesh)
         losses, norms = [], []
         for s in range(tc["steps"]):
@@ -643,7 +670,7 @@ RANK_SCRIPT = textwrap.dedent(r'''
             g.agree(2, "the checkpoint written")
             back = CheckpointManager(f"{d}/ckpt").restore(
                 2, steps_mod.train_state_struct(cfg, opt_cfg()), cfg=cfg,
-                split=mesh.split)
+                split=mesh.split, dcut=mesh.dcut)
             res["train_losses"] = losses
             res["restored_equal"] = all(
                 torch.equal(a, b) for a, b in zip(tree_mod.leaves(st),
@@ -672,7 +699,6 @@ RANK_SCRIPT = textwrap.dedent(r'''
     # them), then three AdamW steps, the last one's bytes by kind; qwen3
     # at 1x4, its 2 kv heads copied; and the vlm and encdec smoke configs
     # with a vocabulary that does not divide by M (<arch>@<V>)
-    from unittest import mock
 
     class Rows:
         # the global batch's rows of data shard d of D: a vlm or encdec
@@ -700,7 +726,7 @@ RANK_SCRIPT = textwrap.dedent(r'''
                "kv_ranks": list(mesh.kv.ranks) if mesh.kv else None}
         mine = tree_mod.map_tree(lambda _, t: t.clone(), mesh.shard(host))
         loss, grads = steps_mod.rank_grads(mine, mesh.cfg, pipe.batch(0),
-                                           data=mesh.data)
+                                           data=mesh.data, dcut=mesh.dcut)
         if mesh.kv is not None:
             # a copied kv head's wk gradient before its sum: this rank's
             # q heads' part
@@ -1897,6 +1923,22 @@ def _mesh_res(runs, mesh: str) -> list:
     return [_ok(r, f"train_{mesh}") for r in got[TRAIN_MESHES[mesh]]]
 
 
+def _fsdp_bytes(cfg, split, D: int) -> int:
+    """The bytes a rank's f32 step (no remat) gathers over its data group
+    (kind ``"fsdp"``): every data-cut leaf at the rank's model cut, once
+    (a unit's in the unit, the embedding once for the lookup and the
+    tied head)."""
+    import math
+
+    from repro_torch import tree as tree_mod
+    from repro_torch import weights as tweights
+
+    return 4 * sum(
+        math.prod(sharding.rank_shape(path, shape, cfg, split))
+        for path, (shape, _) in tree_mod.items(tweights.param_shapes(cfg))
+        if sharding.data_axis(path, cfg, D) is not None)
+
+
 def _grads_close(d, name, want_tree):
     """The gathered gradients rank 0 wrote against the JAX tree, each leaf
     within GRAD_TOL of its largest |value|."""
@@ -1990,8 +2032,13 @@ def test_mesh_groups_rows_and_step_bytes(runs):
     data shard at D 1, 32 at D 2; d 64; no remat): the embedding's one
     all-reduce, the trunk's 2 layers x (2 forward + 2 backward), the
     head's input gradient, each rows x 64 x 4 bytes; the qk-norm parts
-    (2 layers x 2 x 16 f32) and the global norm's one scalar; the data
-    group's gradient sum every leaf of the rank's slice in f32."""
+    (2 layers x 2 x 16 f32) and the global norm's one scalar.  At D 2
+    (FSDP) the data group gathers every data-cut leaf of the rank's model
+    slice once (``fsdp``) and sums every leaf's gradient in f32
+    (``grad``: the cut leaves' reduce-scatters count their inputs, the
+    rest all-reduces -- the same bytes as the rank's slice), and the
+    global norm's cut parts (one f32, two beside a model split) are
+    summed over it."""
     from repro_torch.parallel import sharding as shd
 
     for r, res in enumerate(_mesh_res(runs, "2x2")):
@@ -2011,10 +2058,73 @@ def test_mesh_groups_rows_and_step_bytes(runs):
                         norm=TCFG.n_layers * 2 * TCFG.head_dim * 4 + 4,
                         loss=rows * 2 * 2 * 4 + rows * 4)
         if grad:
+            split = shd.train_plan(TCFG, 0, 2, int(mesh[-1])).split
             want["grad"] = grad * 4
             want["loss"] = want.get("loss", 0) + 4
+            want["fsdp"] = _fsdp_bytes(TCFG, split, 2)
+            want["norm"] = want.get("norm", 0) + (4 if mesh == "2x1" else 8)
         want = {k: v for k, v in want.items() if v}
         assert got == want, (mesh, got, want)
+
+
+@pytest.mark.parametrize("mesh", ["2x1", "2x2"])
+def test_fsdp_rank_holds_its_cut_of_the_state(runs, mesh):
+    """FSDP: at D 2 each rank holds its 1/D cut of every leaf the
+    reference cuts over data, on top of its model slice -- its f32
+    masters are exactly 4 bytes a parameter of
+    ``sharding.rank_param_count(split, dcut)``, AdamW's m / v twice that
+    plus the 4-byte step -- and those bytes are the dry-run's
+    (``segment_cost.train_cell``) for the same cell, exactly; they are
+    less than the replicated layout's (the same count without the data
+    cut)."""
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.launch import segment_cost
+    from repro_torch.optim import optimizer as opt_mod
+
+    D, M = (int(x) for x in mesh.split("x"))
+    shape = ShapeSpec("t", TRAIN["seq"], TRAIN["batch"], "train")
+    for r, res in enumerate(_mesh_res(runs, mesh)):
+        plan = sharding.train_plan(TCFG, r, D, M)
+        n = sharding.rank_param_count(TCFG, plan.split, plan.dcut)
+        assert res["state_bytes"] == [4 * n, 8 * n + 4]
+        assert n < sharding.rank_param_count(
+            TCFG, plan.split or sharding.plan(TCFG, 0, 1))
+        cell = segment_cost.train_cell(TCFG, opt_mod.AdamWConfig(), shape,
+                                       D, M, r, walk=False)
+        assert res["state_bytes"] == [cell["memory"]["params"],
+                                      cell["memory"]["optimizer"]]
+
+
+@pytest.mark.parametrize("mesh", ["2x1", "2x2"])
+def test_fsdp_data_cut_gradients_are_reduce_scattered_never_all_reduced(
+        runs, mesh):
+    """A step's data-group collectives of gradients: every data-cut leaf's
+    gradient is reduce-scattered in the backward -- each layer's at the
+    rank's model cut, the embedding's once -- and the all-reduce of kind
+    ``"grad"`` sums only the leaves the data axis replicates (the norm
+    scales), leaf by leaf in the tree's order."""
+    from repro_torch import tree as tree_mod
+    from repro_torch import weights as tweights
+
+    D, M = (int(x) for x in mesh.split("x"))
+    for r, res in enumerate(_mesh_res(runs, mesh)):
+        plan = sharding.train_plan(TCFG, r, D, M)
+        reduced, scattered = [], []
+        for path, (shape, _) in tree_mod.items(
+                tweights.param_shapes(TCFG)):
+            mine = list(sharding.rank_shape(path, shape, TCFG, plan.split,
+                                            plan.dcut))
+            if sharding.data_axis(path, TCFG, D) is None:
+                reduced.append(mine)
+                continue
+            whole = list(sharding.rank_shape(path, shape, TCFG,
+                                             plan.split))
+            layers = 1 if path == ("embed",) else whole[0]
+            scattered += [whole[1:] if path != ("embed",) else whole] \
+                * layers
+        seen = res["grad_collectives"]
+        assert seen["reduced"] == reduced
+        assert sorted(seen["scattered"]) == sorted(scattered)
 
 
 @pytest.mark.parametrize("arch,mesh", [("qwen3-0.6b", m)
@@ -2178,7 +2288,7 @@ def test_copied_kv_head_gradient_needs_its_copy_group_sum(runs, arch, mesh,
     those columns by far; the summed gradient (gathered and held leaf for
     leaf in ``test_family_mesh_training_matches_the_jax_single_device_step``)
     is JAX's.  A step's ``kv`` bytes are both attention leaves of the
-    rank's copy, f32."""
+    rank's copy, f32 (at D 2 its data cut: half the D rows, FSDP)."""
     res = _family_res(runs, arch, mesh)
     for r, rr in enumerate(res):
         assert rr["kv_ranks"] == next(c for c in copies if r in c)
@@ -2187,14 +2297,16 @@ def test_copied_kv_head_gradient_needs_its_copy_group_sum(runs, arch, mesh,
     slot = next(k for k in sorted(seg) if "attn" in seg[k])
     jwk = _jax_leaf(seg, slot, "attn", "wk")
     cfg = smoke_config(get_config(arch))
+    D = int(mesh[0])
     part = np.asarray(res[0]["wk_part"], np.float32)
-    want = jwk[..., :cfg.head_dim]                     # rank 0's kv head
+    # rank 0's kv head, and at D 2 its data index's half of the D rows
+    want = jwk[..., :cfg.d_model // D, :cfg.head_dim]
     assert part.shape == want.shape
     scale = np.abs(want).max()
     assert np.abs(part - want).max() > 0.05 * scale
     n_attn = sum(u.count("attn") * c for u, c in tlm.segments(cfg))
     assert res[0]["step_bytes"]["kv"] == \
-        n_attn * 2 * cfg.d_model * cfg.head_dim * 4
+        n_attn * 2 * cfg.d_model * cfg.head_dim * 4 // D
 
 
 def test_router_gradient_with_its_loss_counted_per_rank_misses_jax(runs):
@@ -2291,9 +2403,10 @@ def test_phi_2x2_checkpoint_resumes_at_1x1_and_reads_in_the_jax_package(
 def test_rwkv_1x2_state_reshards_into_2x2_through_restore(runs):
     """rwkv6's whole train state written from 1x2 (gathered over the
     model group after three steps) restores through
-    ``CheckpointManager.restore(split=)`` straight into each rank of a
-    2x2 mesh (``train_plan``'s split), bit for bit the 1x2 rank of its
-    model index's live state (params, AdamW's m / v and step)."""
+    ``CheckpointManager.restore(split=, dcut=)`` straight into each rank
+    of a 2x2 mesh (``train_plan``'s split and data cut), bit for bit its
+    data index's 1/D (FSDP: ``wB``'s within its channels) of the 1x2 rank
+    of its model index's live state (params, AdamW's m / v and step)."""
     from repro_torch import tree as tree_mod
     from repro_torch.checkpoint.manager import CheckpointManager
     from repro_torch.launch import steps as steps_mod
@@ -2307,13 +2420,19 @@ def test_rwkv_1x2_state_reshards_into_2x2_through_restore(runs):
                               total_steps=TRAIN["total"])
     mgr = CheckpointManager(want["dir"] / "ckpt_rwkv")
     struct = steps_mod.train_state_struct(cfg, opt)
+    cut_some = False
     for r in range(4):
-        split = sharding.train_plan(cfg, r, 2, 2).split
-        back = mgr.restore(TRAIN["steps"], struct, cfg=cfg, split=split)
+        plan = sharding.train_plan(cfg, r, 2, 2)
+        back = mgr.restore(TRAIN["steps"], struct, cfg=cfg,
+                           split=plan.split, dcut=plan.dcut)
         live = np.load(want["dir"] / f"rwkv_state_{r % 2}.npz")
         for path, t in tree_mod.items(back):
-            np.testing.assert_array_equal(
-                t.numpy(), live[tree_mod.key(path)], err_msg=str(path))
+            own = sharding.shard_leaf(path, live[tree_mod.key(path)], cfg,
+                                      None, plan.dcut)
+            cut_some |= own.shape != live[tree_mod.key(path)].shape
+            np.testing.assert_array_equal(t.numpy(), own,
+                                          err_msg=str(path))
+    assert cut_some
 
 
 # -- the vlm and encdec families trained on a mesh ---------------------------
@@ -2333,7 +2452,10 @@ def test_vlm_and_encdec_mesh_step_bytes_by_kind(runs, arch, mesh):
     A copied kv head (seamless@258 at M 4: 2 kv heads) sums each
     attention's wk / wv gradient over its copy's ranks (``kv``); the
     global norm one f32 (``norm``); at D 2 every leaf of the rank's slice
-    (``grad``) and the loss's count and value (``loss``)."""
+    (``grad``: reduce-scattered where the data axis cuts it, else
+    all-reduced), each data-cut leaf gathered once (``fsdp``), the
+    global norm's two cut parts over the data group, and the loss's
+    count and value (``loss``)."""
     jcfg, cfg = _named(arch)
     D, M = (int(x) for x in mesh.split("x"))
     whole = cfg.vocab_size % M != 0
@@ -2361,6 +2483,8 @@ def test_vlm_and_encdec_mesh_step_bytes_by_kind(runs, arch, mesh):
         split = sharding.train_plan(cfg, 0, D, M).split
         want["grad"] = sharding.rank_param_count(cfg, split) * 4
         want["loss"] = want.get("loss", 0) + 4
+        want["fsdp"] = _fsdp_bytes(cfg, split, D)
+        want["norm"] += 8 if M > 1 else 4
     want = {k: v for k, v in want.items() if v}
     assert got == want, (got, want)
 
